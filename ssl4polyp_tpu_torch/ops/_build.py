@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Every ``csrc/*.cu`` source compiles, at first use, into one shared library
+with a plain C interface::
+
+    build/ssl4polyp_tpu_torch/<sha256 of the sources and flags>/libkernels.so
+
+under the checkout's root (``build/`` is git-ignored).  A library whose
+hash matches is loaded as it is.  Nothing here runs at import time, so the
+CPU tests import every module on a machine without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+__all__ = ["library", "library_path"]
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ssl4polyp_tpu_torch"
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+# (name, restype, argtypes) of every C entry point in csrc/.
+_ENTRY_POINTS = (
+    ("ssl4polyp_qkv_attention_fwd", ctypes.c_int,
+     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_fc1_gelu_fwd", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+)
+
+_library: ctypes.CDLL | None = None
+
+
+def _sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources lives (built or not)."""
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for source in _sources():
+        digest.update(source.name.encode())
+        digest.update(source.read_bytes())
+    return _BUILD_ROOT / digest.hexdigest()[:16] / "libkernels.so"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: "
+                       "the CUDA kernels cannot be built")
+
+
+def _build(target: Path) -> None:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    partial = target.with_suffix(f".{os.getpid()}.tmp")
+    command = [_nvcc(), *_FLAGS, "-o", str(partial), *map(str, _sources())]
+    result = subprocess.run(command, capture_output=True, text=True)
+    # ptxas -v reports registers, shared memory and spills per kernel.
+    (target.parent / "nvcc.log").write_text(result.stdout + result.stderr)
+    if result.returncode != 0:
+        partial.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({result.returncode}): {' '.join(command)}\n{result.stderr}"
+        )
+    os.replace(partial, target)
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built first if its sources changed."""
+    global _library
+    if _library is None:
+        target = library_path()
+        if not target.exists():
+            _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name, restype, argtypes in _ENTRY_POINTS:
+            fn = getattr(lib, name)
+            fn.restype = restype
+            fn.argtypes = argtypes
+        _library = lib
+    return _library
