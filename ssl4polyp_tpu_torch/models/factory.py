@@ -26,13 +26,15 @@ __all__ = [
     "get_mae_backbone",
 ]
 
-# ViTConfig fields of the JAX package that choose a TPU layout, not the
-# model's arithmetic: the 197 -> 200 token padding, the flattened stream it
-# enables, scan unrolling, rematerialisation and the kernel fusion knobs.
-# The port accepts them (checkpoint meta and run configs carry them) and
-# discards them.
+# ViTConfig and MAEConfig fields of the JAX package that choose a TPU layout,
+# not the model's arithmetic: the 197 -> 200 token padding (and the MAE's
+# encoder and decoder padding), the flattened stream it enables, scan
+# unrolling, rematerialisation and the kernel fusion knobs.  The port accepts
+# them (checkpoint meta and run configs carry them) and discards them.
 LAYOUT_KEYS = frozenset({
     "pad_tokens_to",
+    "encoder_pad_to",
+    "decoder_pad_to",
     "unroll_blocks",
     "remat",
     "fused_layernorm",

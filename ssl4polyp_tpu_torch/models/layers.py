@@ -3,16 +3,19 @@
 Counterpart of ``ssl4polyp_tpu/models/layers.py`` with the same
 mixed-precision recipe:
 
-* parameters are fp32; matrices run in the compute dtype
-  (:func:`cast_params_for_compute` casts them once, as the JAX package does
-  per step), and vectors are cast at use;
+* parameters are fp32; matrices run in the compute dtype and vectors are
+  cast at use.  For eval, :func:`cast_params_for_compute` casts a module's
+  matrices once, in place; for training, :func:`compute_copy` makes the
+  compute-dtype copy that the forward reads while the fp32 masters stay with
+  the optimizer, as the JAX pretrain step does;
 * ``linear`` rounds the product to the compute dtype, then adds the bias in
   the compute dtype;
 * layernorm takes its statistics in fp32 and returns the compute dtype.
 
-The fc1+GELU and attention cores dispatch on the tensor's device alone: a
-CUDA tensor goes through the hand-written kernel, a CPU tensor through the
-kernel's plain torch version.  There is no other switch.  The JAX package's
+LayerNorm, fc1+GELU and attention dispatch on the tensor's device alone: a
+CUDA tensor goes through the hand-written kernels (forward and backward), a
+CPU tensor through the kernels' plain torch versions.  There is no other
+switch.  The JAX package's
 layout devices (token padding, the flattened stream, scan, remat and the
 fusion knobs) are TPU tiling choices, not semantics, and have no
 counterpart here.
@@ -21,11 +24,12 @@ counterpart here.
 from __future__ import annotations
 
 import math
+from typing import Dict, Mapping
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
+from ..ops.layernorm import layernorm
 from ..ops.mlp import fc1_gelu
 from ..ops.qkv_attention import fused_qkv_attention
 
@@ -36,6 +40,7 @@ __all__ = [
     "Linear",
     "Mlp",
     "cast_params_for_compute",
+    "compute_copy",
     "layernorm",
     "linear",
     "trunc_normal",
@@ -66,11 +71,12 @@ def cast_params_for_compute(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
-def layernorm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-              eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm with fp32 statistics, returned in ``x``'s dtype."""
-    y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
-    return y.to(x.dtype)
+def compute_copy(params: Mapping[str, torch.Tensor], dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The compute copy of fp32 master parameters: every tensor of rank >= 2
+    cast to ``dtype`` (a new tensor unless ``dtype`` is float32), every vector
+    the master itself."""
+    return {name: p.detach().to(dtype) if p.dim() >= 2 else p.detach()
+            for name, p in params.items()}
 
 
 def linear(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:

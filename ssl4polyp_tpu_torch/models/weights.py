@@ -8,7 +8,7 @@ it back.  The layouts differ in three ways:
 * the JAX patch-embed kernel is (P*P*C, D) with rows in (p, q, c) order,
   the torch one a (D, C, P, P) conv weight;
 * JAX stacks the blocks along a leading depth axis, torch names each
-  ``blocks.{i}``.
+  ``blocks.{i}`` (``decoder_blocks.{i}`` in the MAE decoder).
 """
 
 from __future__ import annotations
@@ -20,7 +20,12 @@ import torch
 
 from .vit import ViTConfig
 
-__all__ = ["jax_from_state_dict", "state_dict_from_jax"]
+__all__ = [
+    "jax_from_mae_state_dict",
+    "jax_from_state_dict",
+    "mae_state_dict_from_jax",
+    "state_dict_from_jax",
+]
 
 # (torch sub-name, JAX path inside a block, kind) for each block tensor pair.
 _BLOCK_PARTS = (
@@ -43,66 +48,121 @@ def _tensor(array) -> torch.Tensor:
     return torch.from_numpy(np.array(array, dtype=np.float32))
 
 
-def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> Dict[str, torch.Tensor]:
-    """JAX ViT pytree (numpy leaves) -> fp32 state dict under timm's names."""
+def _linear_to_state(leaf: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _tensor(np.asarray(leaf["kernel"]).T),
+            f"{prefix}.bias": _tensor(leaf["bias"])}
+
+
+def _norm_to_state(leaf: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _tensor(leaf["scale"]), f"{prefix}.bias": _tensor(leaf["bias"])}
+
+
+def _blocks_to_state(blocks: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """Stacked JAX blocks -> ``{prefix}.{i}.*`` tensors."""
+    state = {}
+    depth = np.asarray(blocks["ln1"]["scale"]).shape[0]
+    for i in range(depth):
+        for name, path, kind in _BLOCK_PARTS:
+            leaf = {k: np.asarray(v)[i] for k, v in _get(blocks, path).items()}
+            to_state = _norm_to_state if kind == "norm" else _linear_to_state
+            state.update(to_state(leaf, f"{prefix}.{i}.{name}"))
+    return state
+
+
+def _encoder_to_state(params: Mapping[str, Any], cfg: ViTConfig) -> Dict[str, torch.Tensor]:
     p, c, d = cfg.patch_size, cfg.in_chans, cfg.embed_dim
     patch = np.asarray(params["patch_embed"]["kernel"]).reshape(p, p, c, d)
-    state = {
+    return {
         "patch_embed.proj.weight": _tensor(patch.transpose(3, 2, 0, 1)),
         "patch_embed.proj.bias": _tensor(params["patch_embed"]["bias"]),
         "cls_token": _tensor(params["cls_token"]),
         "pos_embed": _tensor(params["pos_embed"]),
+        **_blocks_to_state(params["blocks"], "blocks"),
+        **_norm_to_state(params["norm"], "norm"),
     }
-    blocks = params["blocks"]
-    depth = np.asarray(blocks["ln1"]["scale"]).shape[0]
-    for i in range(depth):
-        for name, path, kind in _BLOCK_PARTS:
-            leaf = _get(blocks, path)
-            prefix = f"blocks.{i}.{name}"
-            if kind == "norm":
-                state[f"{prefix}.weight"] = _tensor(leaf["scale"][i])
-            else:
-                state[f"{prefix}.weight"] = _tensor(np.asarray(leaf["kernel"][i]).T)
-            state[f"{prefix}.bias"] = _tensor(leaf["bias"][i])
-    state["norm.weight"] = _tensor(params["norm"]["scale"])
-    state["norm.bias"] = _tensor(params["norm"]["bias"])
+
+
+def state_dict_from_jax(params: Mapping[str, Any], cfg: ViTConfig) -> Dict[str, torch.Tensor]:
+    """JAX ViT pytree (numpy leaves) -> fp32 state dict under timm's names."""
+    state = _encoder_to_state(params, cfg)
     if "head" in params:
-        state["head.weight"] = _tensor(np.asarray(params["head"]["kernel"]).T)
-        state["head.bias"] = _tensor(params["head"]["bias"])
+        state.update(_linear_to_state(params["head"], "head"))
     return state
+
+
+def mae_state_dict_from_jax(params: Mapping[str, Any], cfg) -> Dict[str, torch.Tensor]:
+    """JAX MAE pytree (encoder and ``decoder``, numpy leaves) -> fp32 state
+    dict under timm's MAE names; ``cfg`` is the port's ``MAEConfig``."""
+    dec = params["decoder"]
+    return {
+        **_encoder_to_state(params, cfg.encoder),
+        **_linear_to_state(dec["embed"], "decoder_embed"),
+        "mask_token": _tensor(dec["mask_token"]),
+        "decoder_pos_embed": _tensor(dec["pos_embed"]),
+        **_blocks_to_state(dec["blocks"], "decoder_blocks"),
+        **_norm_to_state(dec["norm"], "decoder_norm"),
+        **_linear_to_state(dec["pred"], "decoder_pred"),
+    }
+
+
+def _array(state: Mapping[str, torch.Tensor], name: str) -> np.ndarray:
+    return state[name].detach().cpu().float().numpy()
+
+
+def _linear_from_state(state, prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": np.ascontiguousarray(_array(state, f"{prefix}.weight").T),
+            "bias": _array(state, f"{prefix}.bias")}
+
+
+def _norm_from_state(state, prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _array(state, f"{prefix}.weight"), "bias": _array(state, f"{prefix}.bias")}
+
+
+def _blocks_from_state(state, prefix: str) -> Dict[str, Any]:
+    """``{prefix}.{i}.*`` tensors -> stacked JAX blocks."""
+    depth = 1 + max(int(k.split(".")[1]) for k in state if k.startswith(f"{prefix}."))
+    blocks: Dict[str, Any] = {}
+    for name, path, kind in _BLOCK_PARTS:
+        node = blocks
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        from_state = _norm_from_state if kind == "norm" else _linear_from_state
+        leaves = [from_state(state, f"{prefix}.{i}.{name}") for i in range(depth)]
+        node[path[-1]] = {k: np.stack([leaf[k] for leaf in leaves]) for k in leaves[0]}
+    return blocks
+
+
+def _encoder_from_state(state, cfg: ViTConfig) -> Dict[str, Any]:
+    weight = _array(state, "patch_embed.proj.weight")  # (D, C, P, P)
+    return {
+        "patch_embed": {
+            "kernel": np.ascontiguousarray(weight.transpose(2, 3, 1, 0).reshape(-1, cfg.embed_dim)),
+            "bias": _array(state, "patch_embed.proj.bias"),
+        },
+        "cls_token": _array(state, "cls_token"),
+        "pos_embed": _array(state, "pos_embed"),
+        "blocks": _blocks_from_state(state, "blocks"),
+        "norm": _norm_from_state(state, "norm"),
+    }
 
 
 def jax_from_state_dict(state: Mapping[str, torch.Tensor], cfg: ViTConfig) -> Dict[str, Any]:
     """The inverse of :func:`state_dict_from_jax`: numpy fp32 leaves."""
-    def arr(name):
-        return state[name].detach().cpu().float().numpy()
-
-    weight = arr("patch_embed.proj.weight")  # (D, C, P, P)
-    params: Dict[str, Any] = {
-        "patch_embed": {
-            "kernel": np.ascontiguousarray(weight.transpose(2, 3, 1, 0).reshape(-1, cfg.embed_dim)),
-            "bias": arr("patch_embed.proj.bias"),
-        },
-        "cls_token": arr("cls_token"),
-        "pos_embed": arr("pos_embed"),
-        "blocks": {},
-        "norm": {"scale": arr("norm.weight"), "bias": arr("norm.bias")},
-    }
-    depth = 1 + max(int(k.split(".")[1]) for k in state if k.startswith("blocks."))
-    for name, path, kind in _BLOCK_PARTS:
-        node = params["blocks"]
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        weights = [arr(f"blocks.{i}.{name}.weight") for i in range(depth)]
-        biases = np.stack([arr(f"blocks.{i}.{name}.bias") for i in range(depth)])
-        if kind == "norm":
-            node[path[-1]] = {"scale": np.stack(weights), "bias": biases}
-        else:
-            kernels = np.stack([np.ascontiguousarray(w.T) for w in weights])
-            node[path[-1]] = {"kernel": kernels, "bias": biases}
+    params = _encoder_from_state(state, cfg)
     if "head.weight" in state:
-        params["head"] = {
-            "kernel": np.ascontiguousarray(arr("head.weight").T),
-            "bias": arr("head.bias"),
-        }
+        params["head"] = _linear_from_state(state, "head")
+    return params
+
+
+def jax_from_mae_state_dict(state: Mapping[str, torch.Tensor], cfg) -> Dict[str, Any]:
+    """The inverse of :func:`mae_state_dict_from_jax`: numpy fp32 leaves."""
+    params = _encoder_from_state(state, cfg.encoder)
+    params["decoder"] = {
+        "embed": _linear_from_state(state, "decoder_embed"),
+        "mask_token": _array(state, "mask_token"),
+        "pos_embed": _array(state, "decoder_pos_embed"),
+        "blocks": _blocks_from_state(state, "decoder_blocks"),
+        "norm": _norm_from_state(state, "decoder_norm"),
+        "pred": _linear_from_state(state, "decoder_pred"),
+    }
     return params

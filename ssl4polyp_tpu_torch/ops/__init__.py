@@ -6,18 +6,25 @@ needs neither nvcc nor a GPU.
 
 from __future__ import annotations
 
-from . import mlp, qkv_attention
+from . import layernorm, mlp, qkv_attention
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
-_KERNEL_MODULES = {"fused_qkv_attention": qkv_attention, "fc1_gelu": mlp}
+# Launch counter of each kernel: (module, name of its count).
+_COUNTERS = {
+    "fused_qkv_attention": (qkv_attention, "launches"),
+    "fused_qkv_attention_backward": (qkv_attention, "backward_launches"),
+    "layernorm": (layernorm, "launches"),
+    "layernorm_backward": (layernorm, "backward_launches"),
+    "fc1_gelu": (mlp, "launches"),
+}
 
 
 def launch_counts() -> dict[str, int]:
-    """Kernel launches per wrapper since the last :func:`reset_launch_counts`."""
-    return {name: module.launches for name, module in _KERNEL_MODULES.items()}
+    """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
+    return {name: getattr(module, attr) for name, (module, attr) in _COUNTERS.items()}
 
 
 def reset_launch_counts() -> None:
-    for module in _KERNEL_MODULES.values():
-        module.launches = 0
+    for module, attr in _COUNTERS.values():
+        setattr(module, attr, 0)

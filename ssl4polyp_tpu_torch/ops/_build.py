@@ -1,7 +1,7 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-Every ``csrc/*.cu`` source compiles, at first use, into one shared library
-with a plain C interface::
+Every ``csrc/*.cu`` source (with the ``csrc/*.cuh`` headers they include)
+compiles, at first use, into one shared library with a plain C interface::
 
     build/ssl4polyp_tpu_torch/<sha256 of the sources and flags>/libkernels.so
 
@@ -32,8 +32,15 @@ _ENTRY_POINTS = (
     ("ssl4polyp_qkv_attention_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_qkv_attention_bwd", ctypes.c_int,
+     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_fc1_gelu_fwd", ctypes.c_int,
-     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    ("ssl4polyp_layernorm_fwd", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_layernorm_bwd", ctypes.c_int,
+     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
 )
 
 _library: ctypes.CDLL | None = None
@@ -46,7 +53,7 @@ def _sources() -> list[Path]:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for source in _sources():
+    for source in sorted([*_sources(), *_CSRC.glob("*.cuh")]):
         digest.update(source.name.encode())
         digest.update(source.read_bytes())
     return _BUILD_ROOT / digest.hexdigest()[:16] / "libkernels.so"

@@ -1,15 +1,18 @@
-// The transformer MLP's first linear with its exact-erf GELU, forward only:
-// y = gelu(x . w^T + b).
+// The transformer MLP's first linear with its exact-erf GELU:
+// y = gelu(x . w^T + b), and optionally h = x . w^T + b.
 //
-// Replaces: ssl4polyp_tpu/ops/mlp.py::_fc1_kernel (fc1_gelu).  The TPU kernel
-// also wrote the pre-activation h as the backward's residual; inference needs
-// only gelu(h), so that output comes with the training kernels.
+// Replaces: ssl4polyp_tpu/ops/mlp.py::_fc1_kernel (fc1_gelu).  Like the TPU
+// kernel it writes the pre-activation h, rounded once to bf16, as the
+// backward's residual when the caller asks for it (a non-null h); inference
+// passes null and writes y only.  The backward is plain torch, as the JAX
+// package leaves it to XLA.
 //
 // What bounds it on the H100: at the eval path's shape (M = 64*197 = 12,608,
 // K = 768, NF = 3072) the product is 59.5 GFLOP against about 102 MB of
 // bf16 traffic, some 590 FLOP per byte, well above the ~295 of the H100's
-// data sheet ridge: it is bound by the tensor cores.  The GELU epilogue is free when fused,
-// and it is what the fusion saves: h never goes to HBM and back.
+// data sheet ridge: it is bound by the tensor cores.  The GELU epilogue is
+// free when fused, and it is what the fusion saves: in eval h never goes to
+// HBM and back; in training it is written once for the backward.
 //
 // The simple design: a classic tiled GEMM on mma.sync m16n8k16 (bf16 in,
 // fp32 accumulate).  A block of 8 warps owns a 128x128 tile of y and walks
@@ -18,19 +21,17 @@
 // conflicts; the ragged M and NF edges are zero-filled by cp.async's source
 // size).  Each warp accumulates a 64x32 sub-tile in registers, reading its
 // fragments with ldmatrix.  The epilogue adds the bias in fp32, applies
-// 0.5*h*(1+erf(h/sqrt(2))) with CUDA's erff, rounds once to bf16 and stores.
+// 0.5*h*(1+erf(h/sqrt(2))) with CUDA's erff to the fp32 h, rounds once to
+// bf16 and stores (and stores h rounded to bf16 when asked).
 // Both operands are K-contiguous (x row-major, w in torch's (out, in)
 // layout), which is the layout mma.sync's row.col form wants.  On the H100
 // this main loop, and not the GELU epilogue, holds the kernel under cuBLAS's
 // wgmma GEMMs (PERF.md); wgmma with TMA loads is the later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kWarpN = 32;         // columns per warp; 8 warps as 2 x 4
 constexpr int kBM = 128;
@@ -41,12 +42,7 @@ constexpr int kStages = 3;
 constexpr int kThreads = 256;
 constexpr int kTileA = kBM * kLd;
 constexpr int kTileB = kBN * kLd;
-constexpr size_t kSmemBytes = kStages * (kTileA + kTileB) * sizeof(__nv_bfloat16);
-
-__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+constexpr size_t kSmemBytes = kStages * (kTileA + kTileB) * sizeof(bf16);
 
 // Four 8x8 bf16 matrices from shared memory; lane l gives the address of
 // row l % 8 of matrix l / 8, and receives its mma fragment of each.
@@ -55,15 +51,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 16-byte global -> shared copy; copies `bytes` (0 or 16) and zero-fills the rest.
@@ -95,7 +82,8 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows, 
 
 __global__ void __launch_bounds__(kThreads)
 fc1_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const bf16* __restrict__ bias, bf16* __restrict__ y, int M, int K, int NF) {
+                const bf16* __restrict__ bias, bf16* __restrict__ h, bf16* __restrict__ y,
+                int M, int K, int NF) {
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* s_a = reinterpret_cast<bf16*>(smem);  // kStages tiles of x
   bf16* s_b = s_a + kStages * kTileA;         // kStages tiles of w
@@ -168,22 +156,25 @@ fc1_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
     const float b1 = __bfloat162float(bias[col + 1]);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int row = m0 + wm + i * 16 + g;
-      if (row < M)
-        *reinterpret_cast<uint32_t*>(y + static_cast<long>(row) * NF + col) =
-            pack_floats(gelu_erf(acc[i][j][0] + b0), gelu_erf(acc[i][j][1] + b1));
-      if (row + 8 < M)
-        *reinterpret_cast<uint32_t*>(y + static_cast<long>(row + 8) * NF + col) =
-            pack_floats(gelu_erf(acc[i][j][2] + b0), gelu_erf(acc[i][j][3] + b1));
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = m0 + wm + i * 16 + g + 8 * half;
+        if (row >= M) continue;
+        const float h0 = acc[i][j][2 * half] + b0;
+        const float h1 = acc[i][j][2 * half + 1] + b1;
+        const long at = static_cast<long>(row) * NF + col;
+        if (h != nullptr) *reinterpret_cast<uint32_t*>(h + at) = pack_floats(h0, h1);
+        *reinterpret_cast<uint32_t*>(y + at) = pack_floats(gelu_erf(h0), gelu_erf(h1));
+      }
     }
   }
 }
 
 }  // namespace
 
-// x: (M, K) bf16; w: (NF, K) bf16; bias: (NF,) bf16; y: (M, NF) bf16.
-// K and NF are multiples of 8.  Returns the launch's CUDA error.
-extern "C" int ssl4polyp_fc1_gelu_fwd(const void* x, const void* w, const void* bias,
+// x: (M, K) bf16; w: (NF, K) bf16; bias: (NF,) bf16; h (or null) and y:
+// (M, NF) bf16.  K and NF are multiples of 8.  Returns the launch's CUDA error.
+extern "C" int ssl4polyp_fc1_gelu_fwd(const void* x, const void* w, const void* bias, void* h,
                                       void* y, int M, int K, int NF, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       fc1_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
@@ -191,6 +182,6 @@ extern "C" int ssl4polyp_fc1_gelu_fwd(const void* x, const void* w, const void* 
   const dim3 grid((NF + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   fc1_gelu_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(y), M, K, NF);
+      static_cast<const bf16*>(bias), static_cast<bf16*>(h), static_cast<bf16*>(y), M, K, NF);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,12 +1,15 @@
-"""Attention straight from the fused QKV projection (forward only).
+"""Attention straight from the fused QKV projection, forward and backward.
 
-Counterpart of ``ssl4polyp_tpu/ops/qkv_attention.py``: one CUDA kernel
-(``csrc/qkv_attention.cu``) covers both ``fused_qkv_attention`` and, through
-its ``bias`` argument, the forward of ``fused_qkv_bias_attention``.
+Counterpart of ``ssl4polyp_tpu/ops/qkv_attention.py``: one CUDA kernel per
+direction (``csrc/qkv_attention.cu``) covers both ``fused_qkv_attention``
+and, through its ``bias`` argument, ``fused_qkv_bias_attention``.  The
+backward recomputes the weights: nothing but qkv (and the bias) is saved.
 
-A tensor on the CPU goes through :func:`fused_qkv_attention_reference`, the
-plain torch version; a CUDA tensor goes through the kernel, or the wrapper
-raises.  The backward kernel comes with the training slice.
+A tensor on the CPU goes through the plain torch versions,
+:func:`fused_qkv_attention_reference` and
+:func:`fused_qkv_attention_backward_reference`; a CUDA tensor goes through the
+kernels, or the wrapper raises.  :func:`fused_qkv_attention_plain` runs the
+plain versions on any device, to compare the kernels with.
 """
 
 from __future__ import annotations
@@ -17,13 +20,17 @@ from typing import Optional
 import torch
 
 __all__ = [
+    "backward_launches",
     "fused_qkv_attention",
+    "fused_qkv_attention_backward_reference",
+    "fused_qkv_attention_plain",
     "fused_qkv_attention_reference",
     "launches",
 ]
 
 # Kernel launches since the last ops.reset_launch_counts().
 launches = 0
+backward_launches = 0
 
 _HEAD_DIMS = (16, 32, 64)
 _MAX_TOKENS = 256
@@ -69,14 +76,53 @@ def fused_qkv_attention_reference(
     return out.permute(0, 2, 1, 3).reshape(B, N, D)
 
 
+def fused_qkv_attention_backward_reference(
+    qkv: torch.Tensor,
+    dout: torch.Tensor,
+    num_heads: int,
+    softmax_f32: bool = True,
+    valid_len: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain torch version of the backward kernel, with the JAX kernel's
+    steps and roundings (``_bwd_kernel``, ``_bwd_bias_kernel``).
+
+    The weights W are recomputed as in the forward (fp32, from the
+    compute-dtype scale fold in q); dV = round(W)^T dO; dW = dO V^T; tmp =
+    rowsum(dW * W) with the unrounded W; dS = round(W * (dW - tmp)); dQ = dS K
+    and dK = dS^T Q with the unscaled k and q, times the fp32 1/sqrt(hd).
+    Returns dqkv (B, N, 3D) in the compute dtype and, with ``bias``, dbias:
+    the fp32 sum over every row of the rounded dqkv, in ``bias``'s dtype.
+    """
+    dtype = qkv.dtype
+    x = qkv if bias is None else qkv + bias
+    B, N, three_d = x.shape
+    D = three_d // 3
+    head_dim = D // num_heads
+    q, k, v = x.reshape(B, N, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
+    q_s = q * torch.tensor(_scale(head_dim, dtype), dtype=dtype, device=qkv.device)
+    scores = torch.matmul(q_s.float(), k.float().transpose(-1, -2))
+    if valid_len is not None and valid_len < N:
+        masked = torch.arange(N, device=qkv.device) >= valid_len
+        scores = scores.masked_fill(masked, float("-inf"))
+    if not softmax_f32:
+        scores = scores.to(dtype).float()
+    weights = torch.softmax(scores, dim=-1)
+    do = dout.reshape(B, N, num_heads, head_dim).permute(0, 2, 1, 3).float()
+    dv = torch.matmul(weights.to(dtype).float().transpose(-1, -2), do)
+    dw = torch.matmul(do, v.float().transpose(-1, -2))
+    tmp = (dw * weights).sum(dim=-1, keepdim=True)
+    ds = (weights * (dw - tmp)).to(dtype).float()
+    scale = torch.tensor(1.0 / math.sqrt(head_dim), dtype=torch.float32)
+    dq = torch.matmul(ds, k.float()) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    dqkv = torch.stack([dq, dk, dv]).to(dtype)  # (3, B, H, N, hd)
+    dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(B, N, three_d)
+    dbias = None if bias is None else dqkv.float().sum(dim=(0, 1)).to(bias.dtype)
+    return dqkv, dbias
+
+
 def _check(qkv, num_heads, valid_len, bias) -> None:
-    if torch.is_grad_enabled() and (
-        qkv.requires_grad or (bias is not None and bias.requires_grad)
-    ):
-        raise NotImplementedError(
-            "fused_qkv_attention is forward-only on CUDA; run it under "
-            "torch.no_grad() or torch.inference_mode()"
-        )
     if qkv.dim() != 3 or qkv.shape[2] % 3:
         raise ValueError(f"qkv must be (B, N, 3D), got {tuple(qkv.shape)}")
     B, N, three_d = qkv.shape
@@ -101,24 +147,7 @@ def _check(qkv, num_heads, valid_len, bias) -> None:
         )
 
 
-def fused_qkv_attention(
-    qkv: torch.Tensor,
-    num_heads: int,
-    softmax_f32: bool = True,
-    valid_len: Optional[int] = None,
-    bias: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """softmax(q.k^T/sqrt(hd), keys >= valid_len masked).v per head -> (B, N, D).
-
-    The contract of :func:`fused_qkv_attention_reference`; with ``bias`` it is
-    the forward of the JAX ``fused_qkv_bias_attention``.  Rows at or past
-    ``valid_len`` are computed but meaningless, as in the JAX kernel.
-    """
-    if qkv.device.type == "cpu":
-        return fused_qkv_attention_reference(qkv, num_heads, softmax_f32, valid_len, bias)
-    if qkv.device.type != "cuda":
-        raise ValueError(f"no kernel for device {qkv.device}")
-    _check(qkv, num_heads, valid_len, bias)
+def _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias):
     from ._build import library
 
     global launches
@@ -137,3 +166,84 @@ def fused_qkv_attention(
         raise RuntimeError(f"qkv_attention kernel launch failed: CUDA error {err}")
     launches += 1
     return out
+
+
+def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias):
+    from ._build import library
+
+    global backward_launches
+    if dout.shape != (*qkv.shape[:2], qkv.shape[2] // 3) or dout.dtype != qkv.dtype:
+        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not fit qkv "
+                         f"{tuple(qkv.shape)} {qkv.dtype}")
+    B, N, three_d = qkv.shape
+    head_dim = three_d // 3 // num_heads
+    dqkv = torch.empty_like(qkv)
+    part = dbias = None
+    if bias is not None:
+        part = torch.empty((B, three_d), dtype=torch.float32, device=qkv.device)
+        dbias = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = library().ssl4polyp_qkv_attention_bwd(
+            qkv.data_ptr(), None if bias is None else bias.data_ptr(), dout.data_ptr(),
+            dqkv.data_ptr(), None if part is None else part.data_ptr(),
+            None if dbias is None else dbias.data_ptr(), B, N, num_heads, head_dim,
+            N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
+            1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), stream,
+        )
+    if err:
+        raise RuntimeError(f"qkv_attention backward kernel launch failed: CUDA error {err}")
+    backward_launches += 1
+    return dqkv, None if dbias is None else dbias.to(bias.dtype)
+
+
+class _QKVAttention(torch.autograd.Function):
+    """The kernels (``plain`` False) or the plain versions (``plain`` True)."""
+
+    @staticmethod
+    def forward(ctx, qkv, bias, num_heads, softmax_f32, valid_len, plain):
+        ctx.save_for_backward(qkv, bias)
+        ctx.args = (num_heads, softmax_f32, valid_len)
+        ctx.plain = plain
+        run = fused_qkv_attention_reference if plain else _forward_kernel
+        return run(qkv, num_heads, softmax_f32, valid_len, bias)
+
+    @staticmethod
+    def backward(ctx, dout):
+        qkv, bias = ctx.saved_tensors
+        run = fused_qkv_attention_backward_reference if ctx.plain else _backward_kernel
+        dqkv, dbias = run(qkv, dout.contiguous(), *ctx.args, bias)
+        return dqkv, dbias, None, None, None, None
+
+
+def fused_qkv_attention(
+    qkv: torch.Tensor,
+    num_heads: int,
+    softmax_f32: bool = True,
+    valid_len: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """softmax(q.k^T/sqrt(hd), keys >= valid_len masked).v per head -> (B, N, D).
+
+    The contract of :func:`fused_qkv_attention_reference`, differentiable in
+    ``qkv`` and ``bias``; with ``bias`` it is the JAX
+    ``fused_qkv_bias_attention``.  Rows at or past ``valid_len`` are computed
+    but meaningless, as in the JAX kernel.
+    """
+    if qkv.device.type == "cpu":
+        return fused_qkv_attention_plain(qkv, num_heads, softmax_f32, valid_len, bias)
+    if qkv.device.type != "cuda":
+        raise ValueError(f"no kernel for device {qkv.device}")
+    _check(qkv, num_heads, valid_len, bias)
+    return _QKVAttention.apply(qkv, bias, num_heads, softmax_f32, valid_len, False)
+
+
+def fused_qkv_attention_plain(
+    qkv: torch.Tensor,
+    num_heads: int,
+    softmax_f32: bool = True,
+    valid_len: Optional[int] = None,
+    bias: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """:func:`fused_qkv_attention` through the plain versions, on any device."""
+    return _QKVAttention.apply(qkv, bias, num_heads, softmax_f32, valid_len, True)

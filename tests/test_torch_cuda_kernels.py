@@ -8,18 +8,24 @@ import pytest
 import torch
 
 from ssl4polyp_tpu_torch import ops
-from ssl4polyp_tpu_torch.ops.mlp import fc1_gelu, fc1_gelu_reference
+from ssl4polyp_tpu_torch.ops.layernorm import layernorm, layernorm_reference
+from ssl4polyp_tpu_torch.ops.mlp import fc1_gelu, fc1_gelu_plain, fc1_gelu_reference
 from ssl4polyp_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
+    fused_qkv_attention_backward_reference,
     fused_qkv_attention_reference,
 )
 
 pytestmark = pytest.mark.cuda
 
 # bf16 outputs; the plain versions round at the same points except the plain
-# fc1, which rounds h before the GELU: 1-2 bf16 ulps (see chip_smoke.py).
+# fc1, which rounds h twice: 1-2 bf16 ulps.  The reasons for each tolerance
+# are stated beside chip_smoke.py's.
 ATTENTION_TOL = dict(atol=1e-2, rtol=1e-2)
+ATTENTION_BWD_TOL = dict(atol=2e-2, rtol=2e-2)
 FC1_TOL = dict(atol=1e-2, rtol=1.6e-2)
+LN_TOL = dict(atol=1e-2, rtol=1e-2)
+LN_PARAM_TOL = dict(atol=5e-3, rtol=1e-4)
 
 
 @pytest.fixture
@@ -82,8 +88,6 @@ def test_fc1_gelu_kernel_matches_plain(gen, M, K, NF):
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
     qkv = _randn(gen, 1, 8, 96)
     x, w, b = _randn(gen, 4, 16), _randn(gen, 8, 16), _randn(gen, 8)
-    with pytest.raises(NotImplementedError):
-        fused_qkv_attention(qkv.requires_grad_(), 2)
     with torch.inference_mode():
         with pytest.raises(TypeError):
             fused_qkv_attention(qkv.float(), 2)
@@ -95,6 +99,79 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
             fc1_gelu(x[:, ::2], w[:, ::2].contiguous(), b)  # x not contiguous
         with pytest.raises(TypeError):
             fc1_gelu(x.float(), w.float(), b.float())
-    w.requires_grad_()
-    with pytest.raises(NotImplementedError):
-        fc1_gelu(x, w, b)
+        with pytest.raises(TypeError):
+            layernorm(x.float(), torch.ones(16, device="cuda"), torch.zeros(16, device="cuda"))
+        with pytest.raises(ValueError):  # bf16 affine parameters
+            layernorm(x, torch.ones(16, device="cuda").bfloat16(), torch.zeros(16, device="cuda"))
+
+
+@pytest.mark.parametrize(
+    "B, N, H, hd, softmax_f32, valid_len, with_bias",
+    [
+        (4, 50, 12, 64, False, None, True),    # the MAE encoder's call
+        (4, 197, 16, 32, False, None, True),   # the MAE decoder's call
+        (2, 197, 12, 64, False, 150, True),
+        (2, 37, 4, 16, True, 30, False),
+        (1, 256, 2, 64, True, 255, True),
+        (1, 1, 1, 16, True, None, True),
+    ],
+)
+def test_attention_backward_kernel_matches_plain(gen, B, N, H, hd, softmax_f32, valid_len,
+                                                 with_bias):
+    qkv = _randn(gen, B, N, 3 * H * hd).requires_grad_()
+    bias = _randn(gen, 3 * H * hd, scale=0.5).requires_grad_() if with_bias else None
+    dout = _randn(gen, B, N, H * hd)
+    ops.reset_launch_counts()
+    fused_qkv_attention(qkv, H, softmax_f32, valid_len, bias).backward(dout)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_qkv_attention_backward"] == 1
+    ref_dqkv, ref_dbias = fused_qkv_attention_backward_reference(
+        qkv.detach(), dout, H, softmax_f32, valid_len, None if bias is None else bias.detach())
+    torch.testing.assert_close(qkv.grad, ref_dqkv, **ATTENTION_BWD_TOL)
+    if with_bias:
+        scale = ref_dbias.float().abs().max().item()
+        torch.testing.assert_close(bias.grad.float(), ref_dbias.float(), atol=2e-3 * scale,
+                                   rtol=2e-2)
+
+
+@pytest.mark.parametrize("shape", [(4, 50, 768), (2, 197, 512), (37, 64), (5, 2048)])
+def test_layernorm_kernels_match_plain(gen, shape):
+    D = shape[-1]
+    x, dy = _randn(gen, *shape), _randn(gen, *shape)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).requires_grad_()
+    b = (0.1 * torch.randn(D, generator=gen, device="cuda")).requires_grad_()
+    xk = x.clone().requires_grad_()
+    ops.reset_launch_counts()
+    y = layernorm(xk, w, b)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["layernorm"] == 1
+    assert ops.launch_counts()["layernorm_backward"] == 1
+    grads = xk.grad, w.grad.clone(), b.grad.clone()
+    w.grad = b.grad = None
+    xr = x.clone().requires_grad_()
+    yr = layernorm_reference(xr, w, b)
+    yr.backward(dy)
+    torch.testing.assert_close(y, yr, **LN_TOL)
+    torch.testing.assert_close(grads[0], xr.grad, **LN_TOL)
+    torch.testing.assert_close(grads[1], w.grad, **LN_PARAM_TOL)
+    torch.testing.assert_close(grads[2], b.grad, **LN_PARAM_TOL)
+
+
+@pytest.mark.parametrize("M, K, NF", [(3200, 768, 3072), (12608, 512, 2048), (37, 32, 24)])
+def test_fc1_gelu_gradients_match_plain(gen, M, K, NF):
+    x, w, b = _randn(gen, M, K), _randn(gen, NF, K, scale=K ** -0.5), _randn(gen, NF, scale=0.5)
+    dy = _randn(gen, M, NF)
+    grads = []
+    for fn in (fc1_gelu, fc1_gelu_plain):
+        leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+        ops.reset_launch_counts()
+        fn(*leaves).backward(dy)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["fc1_gelu"] == (1 if fn is fc1_gelu else 0)
+        grads.append([t.grad.float() for t in leaves])
+    # dh comes from the kernel's h (one rounding) against the plain h (two):
+    # a bf16 ulp of dh, summed over M rows for dw and db.
+    for name, got, want in zip(("dx", "dw", "db"), *grads):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=2e-2, msg=name)

@@ -1,6 +1,6 @@
-"""The port imports and runs without jax, flax, PyYAML, PIL or scikit-learn
-(the GPU machine has none of them), and chip_smoke.py refuses to run
-without CUDA."""
+"""The port imports and runs (an eval forward and a pretrain step) without
+jax, flax, PyYAML, PIL or scikit-learn (the GPU machine has none of them),
+and chip_smoke.py refuses to run without CUDA."""
 
 import os
 import subprocess
@@ -31,6 +31,20 @@ classifier = get_mae_backbone(torch.Generator().manual_seed(0), img_size=32, pat
 images = np.random.default_rng(0).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
 logits = make_forward_fn(classifier, "cpu")(images)
 assert logits.shape == (2, 2) and logits.dtype == np.float32 and np.isfinite(logits).all()
+
+# One pretrain step of a tiny MAE in bf16, the pretrain recipe's dtype.
+from ssl4polyp_tpu_torch.models.mae import MAE, MAEConfig
+from ssl4polyp_tpu_torch.models.vit import ViTConfig
+from ssl4polyp_tpu_torch.training.pretrain import init_pretrain_state, make_pretrain_step
+
+cfg = MAEConfig(encoder=ViTConfig(img_size=32, patch_size=8, embed_dim=64, depth=2, num_heads=4,
+                                  attention_softmax_f32=False),
+                decoder_embed_dim=32, decoder_depth=1, decoder_num_heads=2)
+state = init_pretrain_state(MAE(cfg, torch.Generator().manual_seed(0)))
+gen = torch.Generator().manual_seed(1)
+batch = torch.randint(0, 256, (1, 2, 32, 32, 3), dtype=torch.uint8, generator=gen)
+metrics = make_pretrain_step(cfg, 1, 0.05)(state, batch, torch.rand((1, 2, 16), generator=gen), 1e-3)
+assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
 leaked = sorted(m for m in sys.modules if m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
 assert not leaked, leaked
 print("ok", len(modules))

@@ -1,0 +1,38 @@
+"""The profiling script's kernel categories, and its refusal without CUDA."""
+
+import pytest
+import torch
+
+from ssl4polyp_tpu_torch import profiling
+
+
+@pytest.mark.parametrize("kernel, expected", [
+    ("qkv_attention_bwd_kernel<32, true>", "attention backward kernel"),
+    ("void qkv_attention_kernel<64>(bf16 const*, ...)", "attention forward kernel"),
+    ("layernorm_bwd_kernel<16>", "LayerNorm backward kernel"),
+    ("layernorm_fwd_kernel<24>", "LayerNorm forward kernel"),
+    ("column_sum_kernel", "column sums of the kernels' parameter gradients"),
+    ("fc1_gelu_kernel", "fc1+GELU kernel"),
+    ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<...>",
+     "foreach ops (AdamW, gradient sums)"),
+    ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS GEMM"),
+    ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNN", "cuBLAS GEMM"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, ...>>", "reductions"),
+    ("void at::native::indexSelectLargeIndex<float, long>", "gathers, scatters and sorts"),
+    ("Memcpy HtoD (Pageable -> Device)", "copies and casts"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::direct_copy_kernel_cuda>",
+     "copies and casts"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>",
+     "elementwise"),
+    ("void at::native::(anonymous namespace)::distribution_elementwise_grid_stride_kernel",
+     "elementwise"),
+    ("some_new_kernel", "the rest"),
+])
+def test_category(kernel, expected):
+    assert profiling.category(kernel) == expected
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a CUDA device")
+def test_main_refuses_without_cuda():
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        profiling.main([])

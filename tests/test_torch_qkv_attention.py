@@ -3,6 +3,7 @@
 Inputs are made with numpy from a seed and given to both frameworks.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ from ssl4polyp_tpu.ops.qkv_attention import fused_qkv_attention as jax_attention
 from ssl4polyp_tpu.ops.qkv_attention import fused_qkv_bias_attention as jax_bias_attention
 from ssl4polyp_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
+    fused_qkv_attention_backward_reference,
     fused_qkv_attention_reference,
 )
 
@@ -96,4 +98,97 @@ def test_cpu_wrapper_is_the_reference_and_launches_nothing():
         fused_qkv_attention(t, 2, True, 7, b),
         fused_qkv_attention_reference(t, 2, True, 7, b), rtol=0, atol=0,
     )
-    assert ops.launch_counts() == {"fused_qkv_attention": 0, "fc1_gelu": 0}
+    assert set(ops.launch_counts().values()) == {0}
+
+
+# The backward: dqkv (and dbias) against jax.vjp of the interpret-mode
+# kernels.  fp32: the same algorithm, summation order only.  bf16: both
+# round W, dS and dqkv at the same points, so outputs differ by flipped
+# roundings of one bf16 ulp (2^-8 relative) and what they carry through
+# the dQ and dK sums; dbias is the fp32 sum of those over every row.
+BWD_F32_TOL = 1e-4
+BWD_BF16_TOL = 2e-2
+
+
+def _jax_vjp(qkv, bias, dout, H, softmax_f32, valid_len, dtype):
+    q, d = jnp.asarray(qkv, dtype), jnp.asarray(dout, dtype)
+    if bias is None:
+        _, vjp = jax.vjp(lambda a: jax_attention(a, H, True, softmax_f32, valid_len), q)
+        return np.asarray(vjp(d)[0].astype(jnp.float32)), None
+    _, vjp = jax.vjp(lambda a, b: jax_bias_attention(a, b, H, True, softmax_f32, valid_len),
+                     q, jnp.asarray(bias, dtype))
+    dqkv, dbias = vjp(d)
+    return np.asarray(dqkv.astype(jnp.float32)), np.asarray(dbias.astype(jnp.float32))
+
+
+def _torch_vjp(qkv, bias, dout, H, softmax_f32, valid_len, dtype):
+    t_bias = None if bias is None else torch.from_numpy(bias).to(dtype)
+    dqkv, dbias = fused_qkv_attention_backward_reference(
+        torch.from_numpy(qkv).to(dtype), torch.from_numpy(dout).to(dtype), H, softmax_f32,
+        valid_len, t_bias)
+    return dqkv.float().numpy(), None if dbias is None else dbias.float().numpy()
+
+
+def _assert_grads_close(ours, ref, tol):
+    for name, a, b in zip(("dqkv", "dbias"), ours, ref):
+        if b is None:
+            assert a is None
+            continue
+        scale = max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol * scale, err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "B, N, H, hd, valid_len, with_bias",
+    [
+        (2, 37, 4, 16, None, True),
+        (2, 29, 2, 32, 25, True),
+        (2, 29, 2, 32, None, False),
+        (1, 24, 2, 64, 19, True),
+        (2, 21, 2, 64, None, False),
+    ],
+)
+def test_backward_reference_matches_jax_kernel_fp32(B, N, H, hd, valid_len, with_bias):
+    qkv, bias = _inputs(4, B, N, H, hd, with_bias)
+    dout = np.random.default_rng(5).standard_normal((B, N, H * hd)).astype(np.float32)
+    for softmax_f32 in (True, False):
+        ours = _torch_vjp(qkv, bias, dout, H, softmax_f32, valid_len, torch.float32)
+        ref = _jax_vjp(qkv, bias, dout, H, softmax_f32, valid_len, jnp.float32)
+        _assert_grads_close(ours, ref, BWD_F32_TOL)
+
+
+@pytest.mark.parametrize("hd, valid_len", [(32, 25), (64, None)])
+def test_backward_reference_matches_jax_kernel_bf16(hd, valid_len):
+    # The pretrain recipe: bf16 with the scores rounded before the softmax.
+    qkv, bias = _inputs(6, 2, 29, 2, hd, True)
+    dout = np.random.default_rng(7).standard_normal((2, 29, 2 * hd)).astype(np.float32)
+    ours = _torch_vjp(qkv, bias, dout, 2, False, valid_len, torch.bfloat16)
+    ref = _jax_vjp(qkv, bias, dout, 2, False, valid_len, jnp.bfloat16)
+    _assert_grads_close(ours, ref, BWD_BF16_TOL)
+
+
+@pytest.mark.parametrize("softmax_f32", [True, False])
+def test_backward_reference_is_autograd_of_the_forward_in_fp32(softmax_f32):
+    # In fp32 every rounding is the identity, so the JAX kernel's backward
+    # steps are the exact gradient of the plain forward.
+    qkv, bias = _inputs(8, 2, 23, 2, 32, True)
+    dout = torch.from_numpy(np.random.default_rng(9).standard_normal((2, 23, 64)).astype(np.float32))
+    q = torch.from_numpy(qkv).requires_grad_()
+    b = torch.from_numpy(bias).requires_grad_()
+    fused_qkv_attention_reference(q, 2, softmax_f32, 20, b).backward(dout)
+    dqkv, dbias = fused_qkv_attention_backward_reference(q.detach(), dout, 2, softmax_f32, 20,
+                                                         b.detach())
+    torch.testing.assert_close(dqkv, q.grad, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dbias, b.grad, rtol=1e-5, atol=1e-5)
+
+
+def test_cpu_wrapper_backward_is_the_reference():
+    qkv, bias = _inputs(10, 2, 17, 2, 16, True)
+    q = torch.from_numpy(qkv).to(torch.bfloat16).requires_grad_()
+    b = torch.from_numpy(bias).to(torch.bfloat16).requires_grad_()
+    dout = torch.from_numpy(np.random.default_rng(11).standard_normal((2, 17, 32))).to(torch.bfloat16)
+    fused_qkv_attention(q, 2, False, 15, b).backward(dout)
+    dqkv, dbias = fused_qkv_attention_backward_reference(q.detach(), dout, 2, False, 15,
+                                                         b.detach())
+    torch.testing.assert_close(q.grad, dqkv, rtol=0, atol=0)
+    torch.testing.assert_close(b.grad, dbias, rtol=0, atol=0)

@@ -56,7 +56,7 @@ def test_build_classifier_dispatch_and_layout_keys(tmp_path):
 
     layout = {"pad_tokens_to": 24, "unroll_blocks": True, "remat": True,
               "fused_layernorm": True, "mlp_fusion": "full", "qkv_ln_fusion": True,
-              "use_pallas_attention": True}
+              "use_pallas_attention": True, "encoder_pad_to": 56, "decoder_pad_to": 200}
     assert set(layout) == LAYOUT_KEYS
     small = dict(TINY, **layout)
     small.pop("num_classes")
