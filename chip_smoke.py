@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eval forward and MAE pretrain step on one NVIDIA GPU.
+"""Drive the PyTorch port's eval forward, MAE pretrain step and classifier
+fine-tune step on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -28,6 +29,16 @@ Phases:
    same 6 steps from the same state with every kernel swapped for its plain
    version.  Prints images/s for both, median and range over 5 repeats of
    10 further steps, and the model TFLOP/s at the median.
+5. The ViT-B/16 classifier's fine-tune step at full width, batch 64 (on-device
+   augmentation, BCE, backward, AdamW with fine-tune scales), weights from a
+   numpy-seeded JAX-layout tree, under its three kernel configurations: the
+   default (fc1+GELU), ``mlp_fusion="full_ln"`` with ``qkv_ln_fusion`` (the
+   LN+MLP and LN+QKV kernels) and ``mlp_fusion="full"`` (the fused MLP).
+   For each: step 1's loss and every gradient against the plain step's; 6
+   steps with exact launch counts per step, finite losses and parameters;
+   2 steps under the ``head+1`` regime, after which every frozen parameter
+   keeps its bits; images/s for the kernels and the plain path, median and
+   range over 5 repeats of 10 steps.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -52,13 +63,22 @@ from ssl4polyp_tpu_torch.models.mae import MAE, MAEConfig
 from ssl4polyp_tpu_torch.models.pos_embed import sincos_2d
 from ssl4polyp_tpu_torch.models.vit import ViTConfig
 from ssl4polyp_tpu_torch.models.weights import mae_state_dict_from_jax
-from ssl4polyp_tpu_torch.ops import _build, layernorm, mlp, qkv_attention
-from ssl4polyp_tpu_torch.profiling import REPEAT_CALLS, REPEATS, rates, spread
-from ssl4polyp_tpu_torch.training.classification import make_forward_fn
+from ssl4polyp_tpu_torch.ops import _build, layernorm, ln_linear, mlp, qkv_attention
+from ssl4polyp_tpu_torch.profiling import FINETUNE_CONFIGS, REPEAT_CALLS, REPEATS, rates, spread
+from ssl4polyp_tpu_torch.training import optim
+from ssl4polyp_tpu_torch.training.classification import (
+    TrainContext,
+    init_train_state,
+    loss_and_grads,
+    loss_settings,
+    make_forward_fn,
+    make_train_step,
+)
+from ssl4polyp_tpu_torch.data.augment import draw_augment_params
+from ssl4polyp_tpu_torch.training.pretrain import loss_and_grads as pretrain_loss_and_grads
 from ssl4polyp_tpu_torch.training.pretrain import (
     PretrainSettings,
     init_pretrain_state,
-    loss_and_grads,
     make_pretrain_step,
     model_config,
 )
@@ -101,6 +121,22 @@ LOGITS_TOL = (5e-2, 5e-2)
 # noise there.
 LOSS_RTOL = 1e-4
 GRAD_RTOL = 1.5e-2
+# The fused kernels' plain versions make the same roundings (m, h, g, the
+# output), so only fp32 summation order differs: one bf16 ulp where a
+# rounding flips.
+FUSED_TOL = (1e-2, 1e-2)
+# Step 1 of the fine-tune step, kernels against plain, as for the pretrain
+# step.  The classifier's loss is BCE on 64 logit pairs after 12 blocks of
+# 1-ulp differences (the eval forward's logits differ by up to 6e-2), so it
+# moves far more than the pretrain step's mean over 9,408 patches.  Over
+# two runs on an H100 the loss differed by up to 5.2e-3 (fc1), 2.3e-3
+# (full_ln+qkv_ln) and 8.8e-4 (full) relative, and the worst gradient by up
+# to 1.4e-2, 1.8e-2 and 1.2e-2 (the cls token, which sums every row's): the
+# limits sit 4.8 and 2.8 times above the worst readings.
+FT_LOSS_RTOL = 2.5e-2
+FT_GRAD_RTOL = 5e-2
+FT_LR = 1e-4
+FT_WEIGHT_DECAY = 0.05
 
 
 def fail(message: str) -> None:
@@ -135,14 +171,22 @@ def time_ms(fn, iters: int = 20) -> float:
 def plain_kernels():
     """Swap every kernel of the models' paths, forward and backward, for its
     plain torch version."""
-    saved = layers.fused_qkv_attention, layers.fc1_gelu, layers.layernorm
-    layers.fused_qkv_attention = qkv_attention.fused_qkv_attention_plain
-    layers.fc1_gelu = mlp.fc1_gelu_plain
-    layers.layernorm = layernorm.layernorm_reference
+    plain = {
+        "fused_qkv_attention": qkv_attention.fused_qkv_attention_plain,
+        "fc1_gelu": mlp.fc1_gelu_plain,
+        "layernorm": layernorm.layernorm_reference,
+        "ln_linear": ln_linear.ln_linear_plain,
+        "mlp_fused": mlp.mlp_fused_plain,
+        "mlp_ln_fused": mlp.mlp_ln_fused_plain,
+    }
+    saved = {name: getattr(layers, name) for name in plain}
+    for name, fn in plain.items():
+        setattr(layers, name, fn)
     try:
         yield
     finally:
-        layers.fused_qkv_attention, layers.fc1_gelu, layers.layernorm = saved
+        for name, fn in saved.items():
+            setattr(layers, name, fn)
 
 
 def entry(source: str, replaces: str, err: float, ms: float, plain_ms: float) -> dict:
@@ -188,7 +232,8 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:91", max(errors), *times[2])
 
     # Attention backward against the plain version with the JAX kernel's
-    # roundings.  The first two cases are the pretrain path's calls.
+    # roundings.  The first two cases are the pretrain path's calls, the
+    # last the fine-tune step's (fp32 scores, with bias).
     cases = [
         (BATCH, 50, 12, 64, False, None, True),
         (BATCH, 197, 16, 32, False, None, True),
@@ -196,6 +241,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         (BATCH, 50, 12, 64, False, 40, False),
         (BATCH, 197, 12, 64, False, None, True),
         (8, 197, 16, 32, True, None, False),
+        (BATCH, 197, 12, 64, True, None, True),
     ]
     errors, times = [], {}
     for i, (b, n, h, hd, f32, valid_len, with_bias) in enumerate(cases):
@@ -218,7 +264,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         if not torch.equal(dqkv, again[0]) or (with_bias and not torch.equal(dbias, again[1])):
             fail(f"{what}: two runs gave different bits")
         print(line + "; rerun bit-identical")
-        if i < 2:
+        if i in (0, 1, 6):
             times[i] = time_ms(run), time_ms(plain)
             print(f"  kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms")
     report["fused_qkv_attention_backward"] = entry(
@@ -279,6 +325,63 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         print(f"{what}: max |diff| {max(errors[-2:]):.3e} (atol {FC1_TOL[0]}, rtol {FC1_TOL[1]}); "
               f"kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms")
     report["fc1_gelu"] = entry("mlp.cu", "ssl4polyp_tpu/ops/mlp.py:73", max(errors), *times[1])
+
+    # The fine-tune path's fused kernels at its shapes, then the MAE
+    # decoder's.  Beside the plain version (fp32 products of the rounded
+    # operands, the kernels' roundings) is timed the fastest unfused bf16
+    # chain: the LayerNorm kernel, cuBLAS products, bias adds and GELU.
+    def affine(d):
+        return 1.0 + 0.1 * randn(d, dtype=torch.float32), 0.1 * randn(d, dtype=torch.float32)
+
+    errors, times = [], {}
+    for i, (m, k, n) in enumerate([(BATCH * 197, 768, 2304), (BATCH * 197, 512, 1536)]):
+        x, (s, t) = randn(m, k), affine(k)
+        w, bias = randn(n, k, scale=k ** -0.5), randn(n, scale=0.5)
+        run = lambda: ln_linear._kernel(x, s, t, w, bias, 1e-6)  # noqa: E731
+        plain = lambda: ln_linear.ln_linear_reference(x, s, t, w, bias, 1e-6)  # noqa: E731
+        unfused = lambda: layers.linear(layernorm._forward_kernel(x, s, t, 1e-6), w, bias)  # noqa: E731
+        out, again = run(), run()
+        torch.cuda.synchronize()
+        what = f"ln_linear ({m}, {k}) -> {n}"
+        errors.append(max_error(out, plain(), FUSED_TOL, what))
+        if not torch.equal(out, again):
+            fail(f"{what}: two runs gave different bits")
+        times[i] = time_ms(run), time_ms(plain), time_ms(unfused)
+        print(f"{what}: max |diff| {errors[-1]:.3e} (atol {FUSED_TOL[0]}, rtol {FUSED_TOL[1]}); "
+              f"kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, unfused bf16 chain "
+              f"{times[i][2]:.4f} ms")
+    report["ln_linear"] = entry("ln_linear.cu", "ssl4polyp_tpu/ops/ln_linear.py:28", max(errors),
+                                *times[0][:2])
+
+    for name, with_ln, line in (("mlp_fused", False, 188), ("mlp_ln_fused", True, 332)):
+        errors, times = [], {}
+        for i, (m, k, nf) in enumerate([(BATCH * 197, 768, 3072), (BATCH * 197, 512, 2048)]):
+            x = randn(m, k)
+            s, t = affine(k) if with_ln else (None, None)
+            w1, b1 = randn(nf, k, scale=k ** -0.5), randn(nf, scale=0.5)
+            w2, b2 = randn(k, nf, scale=nf ** -0.5), randn(k, scale=0.5)
+            run = lambda: mlp._fused_kernel(x, s, t, w1, b1, w2, b2, 1e-6, True)  # noqa: E731
+            plain = lambda: mlp._mlp_forward_plain(x, s, t, w1, b1, w2, b2, 1e-6)  # noqa: E731
+
+            def unfused():
+                a = x if s is None else layernorm._forward_kernel(x, s, t, 1e-6)
+                out = layers.linear(mlp.fc1_gelu_reference(a, w1, b1), w2, b2)
+                return out if s is None else x + out
+
+            (h, out), (h2, out2) = run(), run()
+            torch.cuda.synchronize()
+            what = f"{name} ({m}, {k}) -> {nf} -> {k}, h written"
+            ref_h, ref_out = plain()
+            errors.append(max(max_error(h, ref_h, FUSED_TOL, f"{what}: h"),
+                              max_error(out, ref_out, FUSED_TOL, f"{what}: out")))
+            if not (torch.equal(h, h2) and torch.equal(out, out2)):
+                fail(f"{what}: two runs gave different bits")
+            times[i] = time_ms(run), time_ms(plain), time_ms(unfused)
+            print(f"{what}: max |diff| {errors[-1]:.3e} (atol {FUSED_TOL[0]}, rtol "
+                  f"{FUSED_TOL[1]}); kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, "
+                  f"unfused bf16 chain {times[i][2]:.4f} ms")
+        report[name] = entry("mlp.cu", f"ssl4polyp_tpu/ops/mlp.py:{line}", max(errors),
+                             *times[0][:2])
     return report
 
 
@@ -339,13 +442,16 @@ def jax_layout_mae_tree(cfg: MAEConfig, rng: np.random.Generator) -> dict:
     }
 
 
-def check_counts(counts: dict[str, int], expected: dict[str, int], what: str) -> None:
+def check_counts(counts: dict[str, int], per_call: dict[str, int], calls: int, what: str) -> None:
+    """Exactly ``calls`` times ``per_call`` launches of each kernel named
+    there, and none of the others."""
+    expected = {name: calls * per_call.get(name, 0) for name in ops.launch_counts()}
     print(f"kernel launches over {what}: {counts}")
     if counts != expected:
         fail(f"{what}: launch counts {counts}, expected {expected}")
 
 
-def phase_eval(gen: torch.Generator) -> None:
+def phase_eval(gen: torch.Generator) -> dict[str, int]:
     rng = np.random.default_rng(SEED)
     cfg = ViTConfig(pos_embed="learned", num_classes=2)  # ViT-B/16 at 224 px
     classifier = get_imagenet_or_random_vit(
@@ -359,11 +465,9 @@ def phase_eval(gen: torch.Generator) -> None:
     ops.reset_launch_counts()
     logits = [forward(images) for images in requests]
     counts = ops.launch_counts()
-    per_request = {"fused_qkv_attention": cfg.depth, "fused_qkv_attention_backward": 0,
-                   "layernorm": 2 * cfg.depth + 1, "layernorm_backward": 0,
+    per_request = {"fused_qkv_attention": cfg.depth, "layernorm": 2 * cfg.depth + 1,
                    "fc1_gelu": cfg.depth}
-    check_counts(counts, {k: REQUESTS * v for k, v in per_request.items()},
-                 f"{REQUESTS} eval requests")
+    check_counts(counts, per_request, REQUESTS, f"{REQUESTS} eval requests")
 
     rate = rates(lambda: forward(requests[0]), BATCH, REPEATS, REPEAT_CALLS)
     ops.reset_launch_counts()
@@ -382,6 +486,35 @@ def phase_eval(gen: torch.Generator) -> None:
           f"[{min(l.min() for l in logits):.3f}, {max(l.max() for l in logits):.3f}]")
     print(f"eval forward ViT-B/16, batch {BATCH}, images/s over {REPEATS} repeats of "
           f"{REPEAT_CALLS} requests: kernels {spread(rate)}; plain {spread(plain_rate)}")
+    return counts
+
+
+def check_step_one(loss, grads, plain_loss, plain_grads, loss_rtol: float, grad_rtol: float,
+                   what: str) -> None:
+    """Step 1's loss (relative) and each gradient (relative L2 distance)
+    against the plain step's.  The K slice of each qkv bias is left out: its
+    exact gradient is zero (softmax is invariant to a shift of the scores
+    along k), so both sides hold rounding noise there."""
+    loss_err = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
+    print(f"{what} step 1 loss: kernels {loss.item():.6f}, plain {plain_loss.item():.6f} "
+          f"(relative diff {loss_err:.3e}, limit {loss_rtol})")
+    if not (np.isfinite(loss.item()) and loss_err <= loss_rtol):
+        fail(f"{what}: step 1 loss disagrees with the plain step")
+    worst = (0.0, "")
+    for name, g in grads.items():
+        ref = plain_grads[name]
+        if name.endswith("attn.qkv.bias"):
+            d = g.shape[0] // 3
+            g, ref = torch.cat([g[:d], g[2 * d:]]), torch.cat([ref[:d], ref[2 * d:]])
+        if not torch.isfinite(g).all():
+            fail(f"{what}: gradient of {name} is not finite")
+        rel = ((g - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+        worst = max(worst, (rel, name))
+        if rel > grad_rtol:
+            fail(f"{what}: gradient of {name}: relative L2 distance {rel:.3e} to the plain "
+                 f"step's exceeds {grad_rtol}")
+    print(f"{what} step 1 gradients of {len(grads)} parameters: worst relative L2 distance "
+          f"{worst[0]:.3e} ({worst[1]}), limit {grad_rtol}")
 
 
 def mae_train_flops_per_image(cfg: MAEConfig) -> float:
@@ -420,29 +553,10 @@ def phase_pretrain() -> dict[str, int]:
 
     # Step 1's loss and gradients, kernels against plain, from one state.
     state = fresh_state()
-    loss, grads = loss_and_grads(state, batches[0], noise[0])
+    loss, grads = pretrain_loss_and_grads(state, batches[0], noise[0])
     with plain_kernels():
-        plain_loss, plain_grads = loss_and_grads(state, batches[0], noise[0])
-    loss_err = abs(loss.item() - plain_loss.item()) / abs(plain_loss.item())
-    print(f"step 1 loss: kernels {loss.item():.6f}, plain {plain_loss.item():.6f} "
-          f"(relative diff {loss_err:.3e}, limit {LOSS_RTOL})")
-    if not (np.isfinite(loss.item()) and loss_err <= LOSS_RTOL):
-        fail("step 1 loss disagrees with the plain step")
-    worst = (0.0, "")
-    for name, g in grads.items():
-        ref = plain_grads[name]
-        if name.endswith("attn.qkv.bias"):
-            d = g.shape[0] // 3
-            g, ref = torch.cat([g[:d], g[2 * d:]]), torch.cat([ref[:d], ref[2 * d:]])
-        if not torch.isfinite(g).all():
-            fail(f"gradient of {name} is not finite")
-        rel = ((g - ref).norm() / ref.norm().clamp_min(1e-30)).item()
-        worst = max(worst, (rel, name))
-        if rel > GRAD_RTOL:
-            fail(f"gradient of {name}: relative L2 distance {rel:.3e} to the plain step's "
-                 f"exceeds {GRAD_RTOL}")
-    print(f"step 1 gradients of {len(grads)} parameters: worst relative L2 distance "
-          f"{worst[0]:.3e} ({worst[1]}), limit {GRAD_RTOL}")
+        plain_loss, plain_grads = pretrain_loss_and_grads(state, batches[0], noise[0])
+    check_step_one(loss, grads, plain_loss, plain_grads, LOSS_RTOL, GRAD_RTOL, "pretrain")
     del grads, plain_grads
 
     def train(state) -> list[float]:
@@ -470,7 +584,7 @@ def phase_pretrain() -> dict[str, int]:
         "layernorm_backward": 2 * (enc_depth + dec_depth) + 2,
         "fc1_gelu": enc_depth + dec_depth,
     }
-    check_counts(counts, {k: STEPS * v for k, v in per_step.items()}, f"{STEPS} pretrain steps")
+    check_counts(counts, per_step, STEPS, f"{STEPS} pretrain steps")
     if not all(np.isfinite(losses)):
         fail(f"non-finite pretrain loss: {losses}")
     if not all(torch.isfinite(p).all() for p in state.params.values()):
@@ -500,6 +614,108 @@ def phase_pretrain() -> dict[str, int]:
     return counts
 
 
+def phase_finetune() -> dict[str, int]:
+    """The classifier's fine-tune step under each kernel configuration."""
+    rng = np.random.default_rng(SEED)
+    base = ViTConfig(pos_embed="learned", num_classes=2)
+    tree = jax_layout_tree(base, rng)
+    batches = [torch.from_numpy(rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+               for _ in range(STEPS)]
+    labels = [torch.from_numpy(rng.integers(0, 2, BATCH)).cuda() for _ in range(STEPS)]
+    valid = torch.arange(BATCH, device="cuda") < BATCH - 4  # the last rows are padding
+    loss_mode, pos_weight, class_weights = loss_settings([3000, 1000])
+    depth = base.depth
+    total: dict[str, int] = {}
+    for label, overrides in FINETUNE_CONFIGS:
+        def fresh_state():
+            classifier = get_imagenet_or_random_vit(
+                torch.Generator().manual_seed(SEED), jax_params=tree, num_classes=2,
+                device="cuda", **overrides)
+            return classifier, init_train_state(
+                classifier, torch.Generator(device="cuda").manual_seed(SEED))
+
+        classifier, state = fresh_state()
+        ctx = TrainContext(classifier, loss_mode, pos_weight, class_weights, FT_WEIGHT_DECAY)
+        step = make_train_step(ctx)
+        full = optim.finetune_lr_scales(state.params, "full", depth)
+        wd = optim.no_weight_decay_scales(state.params)
+        what = f"fine-tune [{label}]"
+
+        aug = draw_augment_params(BATCH, torch.Generator(device="cuda").manual_seed(SEED + 1))
+        loss, grads = loss_and_grads(ctx, state, batches[0], labels[0], valid, aug)
+        with plain_kernels():
+            plain_loss, plain_grads = loss_and_grads(ctx, state, batches[0], labels[0], valid, aug)
+        check_step_one(loss, grads, plain_loss, plain_grads, FT_LOSS_RTOL, FT_GRAD_RTOL, what)
+        del grads, plain_grads
+
+        def train(state) -> list[float]:
+            return [step(state, batches[i], labels[i], valid, FT_LR, full, wd)["loss"].item()
+                    for i in range(STEPS)]
+
+        def rate(state) -> list[float]:  # after train(state): past the warm-up
+            calls = iter(range(REPEATS * REPEAT_CALLS))
+
+            def run():
+                i = next(calls) % STEPS
+                step(state, batches[i], labels[i], valid, FT_LR, full, wd)
+            return rates(run, BATCH, REPEATS, REPEAT_CALLS)
+
+        ops.reset_launch_counts()
+        losses = train(state)
+        counts = ops.launch_counts()
+        mlp_route, qkv_ln = classifier.model.blocks[0].mlp_route, classifier.model.blocks[0].qkv_ln
+        # The final norm and each block's two: where a fused kernel folds a
+        # LayerNorm in, its backward recomputes the normalised row and takes
+        # the LayerNorm backward on the LayerNorm kernels, once each.
+        per_step = {
+            "fused_qkv_attention": depth,
+            "fused_qkv_attention_backward": depth,
+            "layernorm": 2 * depth + 1,
+            "layernorm_backward": 2 * depth + 1,
+            "ln_linear": depth if qkv_ln else 0,
+            {"fc1": "fc1_gelu", "full": "mlp_fused", "full_ln": "mlp_ln_fused"}[mlp_route]: depth,
+        }
+        check_counts(counts, per_step, STEPS, f"{STEPS} {what} steps")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        if not all(np.isfinite(losses)):
+            fail(f"{what}: non-finite loss: {losses}")
+        if not all(torch.isfinite(p).all() for p in state.params.values()):
+            fail(f"{what}: non-finite parameters after the steps")
+        print(f"{what} losses, kernels: {[round(x, 6) for x in losses]}")
+
+        # head+1: the last block and the head train, everything else keeps its bits.
+        head1 = optim.finetune_lr_scales(state.params, "head+1", depth)
+        before = {n: p.clone() for n, p in state.params.items()}
+        for i in range(2):
+            step(state, batches[i], labels[i], valid, FT_LR, head1, wd)
+        moved = {n for n, p in state.params.items() if not torch.equal(p, before[n])}
+        trained = {n for n, scale in head1.items() if scale > 0}
+        if not moved <= trained or not any(n.startswith("head.") for n in moved) or not any(
+                n.startswith(f"blocks.{depth - 1}.") for n in moved):
+            fail(f"{what}: head+1 moved {sorted(moved - trained)} (frozen) or left the head "
+                 f"or block {depth - 1} in place")
+        print(f"{what}: head+1 moved {len(moved)} of {len(trained)} trained parameters; the "
+              f"{len(before) - len(trained)} frozen ones kept their bits")
+        del before
+
+        kernel_rate = rate(state)
+        del state, classifier
+        _, plain_state = fresh_state()
+        ops.reset_launch_counts()
+        with plain_kernels():
+            plain_losses = train(plain_state)
+            plain_rate = rate(plain_state)
+        if any(ops.launch_counts().values()):
+            fail(f"{what}: the plain step launched a kernel")
+        del plain_state
+        print(f"{what} losses, plain:   {[round(x, 6) for x in plain_losses]}")
+        print(f"{what} ViT-B/16, batch {BATCH}, images/s over {REPEATS} repeats of "
+              f"{REPEAT_CALLS} steps: kernels {spread(kernel_rate)}; plain {spread(plain_rate)}; "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+    return total
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -519,8 +735,12 @@ def main() -> None:
           f"({_build.library_path()})")
 
     report = phase_kernels(torch.Generator(device="cuda").manual_seed(SEED))
-    phase_eval(torch.Generator().manual_seed(SEED))
-    counts = phase_pretrain()
+    # Each path's launches, counted from 0 before it and read after it.
+    runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(), phase_finetune()]
+    counts = {name: sum(run[name] for run in runs) for name in report}
+    missing = [name for name, n in counts.items() if n == 0]
+    if missing:
+        fail(f"no path launched {missing}")
     kernels = [{"name": name, **fields, "launches": counts[name]}
                for name, fields in report.items()]
     print(json.dumps({"kernels": kernels}))

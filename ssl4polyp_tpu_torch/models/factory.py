@@ -9,7 +9,7 @@ with later slices and raise ``NotImplementedError`` here.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
 
@@ -26,20 +26,18 @@ __all__ = [
     "get_mae_backbone",
 ]
 
-# ViTConfig and MAEConfig fields of the JAX package that choose a TPU layout,
-# not the model's arithmetic: the 197 -> 200 token padding (and the MAE's
-# encoder and decoder padding), the flattened stream it enables, scan
-# unrolling, rematerialisation and the kernel fusion knobs.  The port accepts
-# them (checkpoint meta and run configs carry them) and discards them.
+# Config keys of the JAX package that choose a TPU layout, not the model's
+# arithmetic nor its kernels: the MAE's padding keys (which do not apply to a
+# classifier), scan unrolling, rematerialisation, the LayerNorm kernel switch
+# and the kernels switch.  The port accepts them (checkpoint meta and run
+# configs carry them) and discards them.  ``pad_tokens_to``, ``mlp_fusion``
+# and ``qkv_ln_fusion`` are ViTConfig fields (see layers.block_route).
 LAYOUT_KEYS = frozenset({
-    "pad_tokens_to",
     "encoder_pad_to",
     "decoder_pad_to",
     "unroll_blocks",
     "remat",
     "fused_layernorm",
-    "mlp_fusion",
-    "qkv_ln_fusion",
     "use_pallas_attention",
 })
 
@@ -58,7 +56,13 @@ def _vit_b(num_classes: Optional[int], out_token: str, pos_embed: str, **overrid
     )
     # Overrides (tests, rebuilds from checkpoint meta) win over the defaults.
     kwargs.update({k: v for k, v in overrides.items() if k not in LAYOUT_KEYS})
-    return ViTConfig(**kwargs)
+    cfg = ViTConfig(**kwargs)
+    if cfg.pad_tokens_to is None:
+        # The JAX factory pads the tokens to the next multiple of 8 when its
+        # kernels are on (factory.py:113-116), as the port's always are;
+        # pad_tokens_to=0 opts out.  It decides where the fusion knobs apply.
+        cfg = replace(cfg, pad_tokens_to=-(-(cfg.num_patches + 1) // 8) * 8)
+    return cfg
 
 
 def _build(generator: torch.Generator, cfg: ViTConfig,

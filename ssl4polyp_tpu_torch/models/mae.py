@@ -14,14 +14,15 @@ Counterpart of ``ssl4polyp_tpu/models/mae.py`` (reference
 Parameter names are timm's MAE names (``decoder_embed``, ``mask_token``,
 ``decoder_pos_embed``, ``decoder_blocks.{i}``, ``decoder_norm``,
 ``decoder_pred``); both sin-cos tables are frozen (``requires_grad=False``).
-The JAX config's ``encoder_pad_to`` and ``decoder_pad_to`` are TPU layout
-choices (:data:`.factory.LAYOUT_KEYS`) with no counterpart here.
+The encoder config's fusion knobs apply to both stacks, each where the JAX
+package runs its flattened stream (:func:`.layers.block_route`), which
+``encoder_pad_to`` and ``decoder_pad_to`` decide; the port never pads.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -53,6 +54,10 @@ class MAEConfig:
     decoder_num_heads: int = 16
     mask_ratio: float = 0.75
     norm_pix_loss: bool = False
+    # The JAX package's padding of each stack's tokens (None: none), read
+    # only to decide where the fusion knobs apply.
+    decoder_pad_to: Optional[int] = None
+    encoder_pad_to: Optional[int] = None
 
     @property
     def len_keep(self) -> int:
@@ -117,9 +122,11 @@ class MAE(nn.Module):
             torch.from_numpy(sincos_2d(D, enc.grid_size, cls_token=True))[None],
             requires_grad=False,
         )
+        route = layers.block_route(1 + cfg.len_keep, cfg.encoder_pad_to, D, enc.mlp_fusion,
+                                   enc.qkv_ln_fusion)
         self.blocks = nn.ModuleList(
             layers.Block(D, enc.num_heads, enc.mlp_ratio, generator, enc.ln_eps,
-                         enc.attention_softmax_f32)
+                         enc.attention_softmax_f32, *route)
             for _ in range(enc.depth)
         )
         self.norm = layers.LayerNorm(D, enc.ln_eps)
@@ -129,9 +136,11 @@ class MAE(nn.Module):
             torch.from_numpy(sincos_2d(Dd, enc.grid_size, cls_token=True))[None],
             requires_grad=False,
         )
+        route = layers.block_route(1 + enc.num_patches, cfg.decoder_pad_to, Dd, enc.mlp_fusion,
+                                   enc.qkv_ln_fusion)
         self.decoder_blocks = nn.ModuleList(
             layers.Block(Dd, cfg.decoder_num_heads, enc.mlp_ratio, generator, enc.ln_eps,
-                         enc.attention_softmax_f32)
+                         enc.attention_softmax_f32, *route)
             for _ in range(cfg.decoder_depth)
         )
         self.decoder_norm = layers.LayerNorm(Dd, enc.ln_eps)

@@ -7,7 +7,10 @@ Counterpart of ``ssl4polyp_tpu/models/vit.py``:
   GEMM, with the weight kept in timm's (D, C, P, P) conv layout;
 * positional embeddings are fixed sin-cos (MAE lineage) or learned (timm
   lineage);
-* logits come out in fp32.
+* logits come out in fp32;
+* ``mlp_fusion`` and ``qkv_ln_fusion`` choose the blocks' kernels where the
+  JAX package honours them (:func:`.layers.block_route`); ``pad_tokens_to``
+  is read for that rule alone, since the port never pads.
 
 Parameter names are timm's, so a timm or MAE state dict loads as it is.
 """
@@ -41,6 +44,15 @@ class ViTConfig:
     out_token: str = "cls"  # "cls" | "spatial" (mean of patch tokens)
     compute_dtype: torch.dtype = torch.bfloat16
     attention_softmax_f32: bool = True
+    # The JAX package's token padding (None: none; the classifier factory
+    # pads to the next multiple of 8) and fusion knobs (None -> "fc1";
+    # "full", "full_ln"; "off"), with the JAX defaults.
+    pad_tokens_to: Optional[int] = None
+    mlp_fusion: Optional[str] = None
+    qkv_ln_fusion: bool = False
+
+    def __post_init__(self):
+        layers.check_mlp_fusion(self.mlp_fusion)
 
     @property
     def grid_size(self) -> int:
@@ -106,9 +118,11 @@ class ViT(nn.Module):
             )
         else:
             raise ValueError(f"Unknown pos_embed mode {cfg.pos_embed!r}")
+        route = layers.block_route(cfg.num_patches + 1, cfg.pad_tokens_to, D, cfg.mlp_fusion,
+                                   cfg.qkv_ln_fusion)
         self.blocks = nn.ModuleList(
             layers.Block(D, cfg.num_heads, cfg.mlp_ratio, generator, cfg.ln_eps,
-                         cfg.attention_softmax_f32)
+                         cfg.attention_softmax_f32, *route)
             for _ in range(cfg.depth)
         )
         self.norm = layers.LayerNorm(D, cfg.ln_eps)

@@ -6,7 +6,7 @@ needs neither nvcc nor a GPU.
 
 from __future__ import annotations
 
-from . import layernorm, mlp, qkv_attention
+from . import layernorm, ln_linear, mlp, qkv_attention
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
@@ -17,6 +17,9 @@ _COUNTERS = {
     "layernorm": (layernorm, "launches"),
     "layernorm_backward": (layernorm, "backward_launches"),
     "fc1_gelu": (mlp, "launches"),
+    "mlp_fused": (mlp, "fused_launches"),
+    "mlp_ln_fused": (mlp, "ln_fused_launches"),
+    "ln_linear": (ln_linear, "launches"),
 }
 
 

@@ -1,5 +1,6 @@
 // Device helpers shared by the port's kernels: bf16 packing, the mma.sync
-// m16n8k16 product, and a deterministic column sum.
+// m16n8k16 product with its ldmatrix and cp.async feeds, a warp sum, the
+// LayerNorm prologue of the fused kernels, and a deterministic column sum.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * g + t):
 //   A (16x16, row-major): a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -10,6 +11,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -42,6 +44,86 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8, and receives its mma fragment of each.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// Two 8x8 bf16 matrices; lanes 0-15 give the addresses (row l % 8 of matrix
+// l / 8), the other lanes' addresses are ignored.
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// 16-byte global -> shared copy; copies `bytes` (0 or 16) and zero-fills the rest.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+// Waits until at most N of this thread's cp.async groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// The exact-erf GELU in fp32.
+__device__ __forceinline__ float gelu_erf(float h) {
+  return 0.5f * h * (1.0f + erff(h * 0.70710678118654752f));
+}
+
+// The LayerNorm prologue of the fused kernels (ln_linear, mlp_ln_fused), in
+// place on `rows` bf16 rows of K values in shared memory (row stride `ld`):
+// fp32 two-pass statistics over the whole row, m = (x - mean) * rsqrt(var +
+// eps) * s + t in fp32, rounded once to bf16.  Warp w takes rows w, w +
+// warps, ...; lane l the column pairs 2l, 2l + 64, ...  K is a multiple of 64.
+// The caller synchronises before and after.
+__device__ __forceinline__ void layernorm_rows_in_place(bf16* xs, int ld, int rows, int K,
+                                                        const float* __restrict__ s,
+                                                        const float* __restrict__ t, float eps) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int warps = blockDim.x / 32;
+  const float inv_k = 1.0f / static_cast<float>(K);
+  for (int r = warp; r < rows; r += warps) {
+    bf16* row = xs + r * ld;
+    float sum = 0.0f;
+    for (int c = 2 * lane; c < K; c += 64) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+      sum += v.x + v.y;
+    }
+    const float mean = warp_sum(sum) * inv_k;
+    float sq = 0.0f;
+    for (int c = 2 * lane; c < K; c += 64) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+      sq += (v.x - mean) * (v.x - mean) + (v.y - mean) * (v.y - mean);
+    }
+    const float rstd = rsqrtf(warp_sum(sq) * inv_k + eps);
+    for (int c = 2 * lane; c < K; c += 64) {
+      const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+      const float m0 = (v.x - mean) * rstd * s[c] + t[c];
+      const float m1 = (v.y - mean) * rstd * s[c + 1] + t[c + 1];
+      *reinterpret_cast<uint32_t*>(row + c) = pack_floats(m0, m1);
+    }
+  }
 }
 
 constexpr int kColumnSumWarps = 8;

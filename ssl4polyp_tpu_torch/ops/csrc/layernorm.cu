@@ -75,12 +75,6 @@ __device__ __forceinline__ void load_params(float (&v)[CHUNKS][8], const float* 
   }
 }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // Two-pass fp32 statistics of a row held in registers: mean, then the mean
 // of the squared deviations (the TPU kernel's order).  Chunks past D hold
 // zeros and are left out of the second sum.
@@ -129,11 +123,13 @@ layernorm_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ weigh
 }
 
 // part: (gridDim.x, 2, D) fp32; row blk holds this block's [dscale | dbias].
+// dres (or null) is added to dx in fp32 before its one rounding: the
+// gradient of a residual folded into the consumer (mlp_ln_fused).
 template <int CHUNKS>
 __global__ void __launch_bounds__(32 * kWarps)
 layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                     const float* __restrict__ weight, bf16* __restrict__ dx,
-                     float* __restrict__ part, int M, int D, float eps) {
+                     const bf16* __restrict__ dres, const float* __restrict__ weight,
+                     bf16* __restrict__ dx, float* __restrict__ part, int M, int D, float eps) {
   extern __shared__ __align__(16) float s_acc[];  // [2][D]
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -176,6 +172,13 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
         acc_s[i][j] += g[i][j] * v[i][j];
         acc_b[i][j] += g[i][j];
       }
+    if (dres != nullptr) {
+      load_row<CHUNKS>(g, dres + static_cast<long>(row) * D, D, lane);
+#pragma unroll
+      for (int i = 0; i < CHUNKS; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) out[i][j] += g[i][j];
+    }
     store_row<CHUNKS>(dx + static_cast<long>(row) * D, out, D, lane);
   }
 
@@ -208,11 +211,13 @@ cudaError_t launch_fwd(const bf16* x, const float* w, const float* b, bf16* y, i
 }
 
 template <int CHUNKS>
-cudaError_t launch_bwd(const bf16* x, const bf16* dy, const float* w, bf16* dx, float* part,
-                       float* dparams, int M, int D, float eps, cudaStream_t stream) {
+cudaError_t launch_bwd(const bf16* x, const bf16* dy, const bf16* dres, const float* w, bf16* dx,
+                       float* part, float* dparams, int M, int D, float eps,
+                       cudaStream_t stream) {
   const int blocks = (M + kBwdRows - 1) / kBwdRows;
   const size_t smem = 2 * static_cast<size_t>(D) * sizeof(float);
-  layernorm_bwd_kernel<CHUNKS><<<blocks, 32 * kWarps, smem, stream>>>(x, dy, w, dx, part, M, D, eps);
+  layernorm_bwd_kernel<CHUNKS><<<blocks, 32 * kWarps, smem, stream>>>(x, dy, dres, w, dx, part, M,
+                                                                        D, eps);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_column_sum(part, blocks, 2 * D, dparams, stream);
@@ -250,17 +255,18 @@ extern "C" int ssl4polyp_layernorm_fwd(const void* x, const void* weight, const 
   }));
 }
 
-// x, dy, dx: (M, D) bf16; weight: (D,) fp32; part: (ceil(M / 16), 2, D) fp32
-// scratch; dparams: (2, D) fp32, [dweight | dbias] summed over all M rows.
-// Returns the first failing launch's CUDA error.
-extern "C" int ssl4polyp_layernorm_bwd(const void* x, const void* dy, const void* weight,
-                                       void* dx, void* part, void* dparams, int M, int D,
-                                       float eps, void* stream) {
+// x, dy, dx and dres (or null): (M, D) bf16; weight: (D,) fp32; part:
+// (ceil(M / 16), 2, D) fp32 scratch; dparams: (2, D) fp32, [dweight | dbias]
+// summed over all M rows.  Returns the first failing launch's CUDA error.
+extern "C" int ssl4polyp_layernorm_bwd(const void* x, const void* dy, const void* dres,
+                                       const void* weight, void* dx, void* part, void* dparams,
+                                       int M, int D, float eps, void* stream) {
   if (M < 1 || D < 8 || D % 8) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch_chunks(D, [&](auto chunks) {
     return launch_bwd<decltype(chunks)::value>(
         static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-        static_cast<const float*>(weight), static_cast<bf16*>(dx), static_cast<float*>(part),
-        static_cast<float*>(dparams), M, D, eps, static_cast<cudaStream_t>(stream));
+        static_cast<const bf16*>(dres), static_cast<const float*>(weight),
+        static_cast<bf16*>(dx), static_cast<float*>(part), static_cast<float*>(dparams), M, D,
+        eps, static_cast<cudaStream_t>(stream));
   }));
 }

@@ -68,7 +68,9 @@ def _forward_kernel(x, weight, bias, eps):
     return y
 
 
-def _backward_kernel(x, dy, weight, eps):
+def _backward_kernel(x, dy, weight, eps, dres=None):
+    """(dx, dweight, dbias); ``dres`` (or None), a gradient of ``x``'s shape,
+    is added to dx in fp32 before its one rounding."""
     from ._build import library
 
     global backward_launches
@@ -79,8 +81,9 @@ def _backward_kernel(x, dy, weight, eps):
     dparams = torch.empty((2, D), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = library().ssl4polyp_layernorm_bwd(
-            x.data_ptr(), dy.data_ptr(), weight.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            dparams.data_ptr(), M, D, eps, torch.cuda.current_stream().cuda_stream,
+            x.data_ptr(), dy.data_ptr(), None if dres is None else dres.data_ptr(),
+            weight.data_ptr(), dx.data_ptr(), part.data_ptr(), dparams.data_ptr(), M, D, eps,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"layernorm backward kernel launch failed: CUDA error {err}")

@@ -1,15 +1,24 @@
-"""The MLP's first linear with its exact-erf GELU, differentiable.
+"""The transformer MLP's kernels, differentiable.
 
-Counterpart of ``ssl4polyp_tpu/ops/mlp.py::fc1_gelu``; the CUDA kernel is
+Counterparts of ``ssl4polyp_tpu/ops/mlp.py``: ``fc1_gelu`` (the first
+linear with its exact-erf GELU), ``mlp_fused`` (fc1 + GELU + fc2 in one
+kernel, gelu(h) never in HBM) and ``mlp_ln_fused`` (the pre-norm block's
+second half, ``x + mlp(LN(x))``, in one kernel).  The CUDA kernels are in
 ``csrc/mlp.cu``.  Weights are in torch's (out, in) layout.  When a gradient
-is needed, the forward also writes the pre-activation h (the JAX kernel's
-residual), and the backward is :func:`fc1_gelu_backward`, plain torch, as
-the JAX package leaves its backward to XLA.
+is needed, each forward also writes the pre-activation h (the JAX kernels'
+residual), and the backwards (:func:`fc1_gelu_backward`,
+:func:`mlp_fused_backward`, :func:`mlp_ln_fused_backward`) take the JAX
+VJPs' steps, which the JAX package leaves to XLA: cuBLAS products and torch
+elementwise ops, and on the kernel path :func:`mlp_ln_fused_backward`'s two
+LayerNorm steps run on the LayerNorm kernels (``ln_linear.py``).
 
-A tensor on the CPU goes through :func:`fc1_gelu_reference`, the plain torch
-version; a CUDA tensor goes through the kernel, or the wrapper raises.
-:func:`fc1_gelu_plain` runs the plain version on any device, to compare the
-kernel with.
+A tensor on the CPU goes through the plain torch versions
+(:func:`fc1_gelu_reference`, :func:`mlp_fused_reference`,
+:func:`mlp_ln_fused_reference`); a CUDA tensor goes through the kernels, or
+the wrapper raises.  The ``*_plain`` functions run the plain versions on any
+device, to compare the kernels with.  The fused plain versions compute their
+products in fp32 from the rounded operands, which keeps the kernels'
+roundings exactly; the plain fc1 rounds its product before the bias add.
 """
 
 from __future__ import annotations
@@ -17,10 +26,34 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fc1_gelu", "fc1_gelu_backward", "fc1_gelu_plain", "fc1_gelu_reference", "launches"]
+from .ln_linear import layernorm_backward, normalised_row
 
-# Kernel launches since the last ops.reset_launch_counts().
+__all__ = [
+    "fc1_gelu",
+    "fc1_gelu_backward",
+    "fc1_gelu_plain",
+    "fc1_gelu_reference",
+    "fused_launches",
+    "launches",
+    "ln_fused_launches",
+    "mlp_fused",
+    "mlp_fused_backward",
+    "mlp_fused_plain",
+    "mlp_fused_reference",
+    "mlp_ln_fused",
+    "mlp_ln_fused_backward",
+    "mlp_ln_fused_plain",
+    "mlp_ln_fused_reference",
+]
+
+# Kernel launches since the last ops.reset_launch_counts(): fc1+GELU, the
+# fused MLP and the fused LN+MLP.
 launches = 0
+fused_launches = 0
+ln_fused_launches = 0
+
+_FUSED_K = (512, 768)  # the fused kernel's instantiations: the MAE decoder's and ViT-B's widths
+_FUSED_TILE = 32  # hidden features per step of its NF loop
 
 
 def _pre_activation(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -134,3 +167,201 @@ def fc1_gelu_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.T
     if _needs_grad(x, w, b):
         return _Fc1Gelu.apply(x, w, b, True)
     return fc1_gelu_reference(x, w, b)
+
+
+# ---------------------------------------------------------------------------
+# The whole MLP in one kernel, optionally behind a LayerNorm prologue.
+# ---------------------------------------------------------------------------
+
+
+def _mlp_forward_plain(x, s, t, w1, b1, w2, b2, eps):
+    """(h, out) of the fused kernels in plain torch: h = x.w1^T + b1 in fp32
+    (rounded for the backward), g = gelu(h) rounded, out = g.w2^T + b2 in
+    fp32, rounded once; with ``s`` (the LN variant) x is first replaced by
+    its normalised row m and the residual is added: out = (x + acc) + b2."""
+    dtype = x.dtype
+    a = x if s is None else normalised_row(x, s, t, eps)
+    h = torch.matmul(a.float(), w1.float().t()) + b1.float()
+    g = F.gelu(h, approximate="none").to(dtype)
+    acc = torch.matmul(g.float(), w2.float().t())
+    if s is not None:
+        acc = x.float() + acc
+    return h.to(dtype), (acc + b2.float()).to(dtype)
+
+
+def mlp_fused_reference(x, w1, b1, w2, b2) -> torch.Tensor:
+    """``gelu(x.w1^T + b1).w2^T + b2`` in plain torch, the kernel's roundings."""
+    return _mlp_forward_plain(x, None, None, w1, b1, w2, b2, 0.0)[1]
+
+
+def mlp_ln_fused_reference(x, s, t, w1, b1, w2, b2, eps: float = 1e-6) -> torch.Tensor:
+    """``x + gelu(LN(x).w1^T + b1).w2^T + b2`` in plain torch, the kernel's roundings."""
+    return _mlp_forward_plain(x, s, t, w1, b1, w2, b2, eps)[1]
+
+
+def _fc2_backward(w2, h, dy):
+    """(dg, dw2, db2) of ``g.w2^T + b2`` with g recomputed from the saved h
+    (the JAX ``_mlp_bwd``): g = gelu(h) in fp32, rounded; dw2 = dy^T g with
+    fp32 accumulation; db2 the fp32 sum of dy; dg = dy.w2 in the compute dtype."""
+    g = F.gelu(h.float(), approximate="none").to(dy.dtype)
+    dw2 = torch.matmul(dy.t(), g).to(w2.dtype)
+    db2 = dy.sum(dim=0, dtype=torch.float32).to(dy.dtype)
+    return torch.matmul(dy, w2.to(dy.dtype)), dw2, db2
+
+
+def mlp_fused_backward(x, w1, w2, h, dy):
+    """The JAX ``mlp_fused`` VJP (``mlp.py::_mlp_bwd``) from the saved h:
+    (dx, dw1, db1, dw2, db2)."""
+    dg, dw2, db2 = _fc2_backward(w2, h, dy)
+    return (*fc1_gelu_backward(x, w1, h, dg), dw2, db2)
+
+
+def mlp_ln_fused_backward(x, s, t, w1, w2, h, dy, eps: float, plain: bool = True):
+    """The JAX ``mlp_ln_fused`` VJP (``mlp.py::_mlp_ln_bwd``): m recomputed in
+    the compute dtype, the MLP's backward onto it, the LayerNorm backward in
+    fp32, and + dy, the residual's identity path, before dx's one rounding.
+    Returns (dx, dscale, dbias, dw1, db1, dw2, db2)."""
+    m = normalised_row(x, s, t, eps, plain)
+    dg, dw2, db2 = _fc2_backward(w2, h, dy)
+    dm, dw1, db1 = fc1_gelu_backward(m, w1, h, dg)
+    return (*layernorm_backward(x, s, dm, eps, plain, dres=dy), dw1, db1, dw2, db2)
+
+
+def _check_fused(x, s, t, w1, b1, w2, b2) -> None:
+    if x.dim() != 2 or w1.dim() != 2 or w2.dim() != 2 or b1.dim() != 1 or b2.dim() != 1:
+        raise ValueError(
+            f"the fused MLP takes x (M, K), w1 (NF, K), b1 (NF,), w2 (K, NF), b2 (K,); got "
+            f"{tuple(x.shape)}, {tuple(w1.shape)}, {tuple(b1.shape)}, {tuple(w2.shape)}, "
+            f"{tuple(b2.shape)}")
+    (m, k), (nf, k_w) = x.shape, w1.shape
+    if k_w != k or w2.shape != (k, nf) or b1.shape[0] != nf or b2.shape[0] != k:
+        raise ValueError(f"shapes disagree: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
+                         f"w2 {tuple(w2.shape)}")
+    if k not in _FUSED_K or nf % _FUSED_TILE or m < 1:
+        raise ValueError(f"the fused kernel takes K in {_FUSED_K} and NF a multiple of "
+                         f"{_FUSED_TILE}, got K {k}, NF {nf}")
+    named = [("x", x, torch.bfloat16), ("w1", w1, torch.bfloat16), ("b1", b1, torch.bfloat16),
+             ("w2", w2, torch.bfloat16), ("b2", b2, torch.bfloat16)]
+    if s is not None:
+        if s.shape != (k,) or t.shape != (k,):
+            raise ValueError(f"the LayerNorm affine must be ({k},), got {tuple(s.shape)}, "
+                             f"{tuple(t.shape)}")
+        named += [("s", s, torch.float32), ("t", t, torch.float32)]
+    for name, tensor, dtype in named:
+        if tensor.dtype != dtype:
+            raise TypeError(f"the kernel takes a {dtype} {name}, got {tensor.dtype}")
+        if tensor.device != x.device:
+            raise ValueError(f"tensors on {x.device} and {tensor.device}")
+        if not tensor.is_contiguous() or tensor.data_ptr() % 16:
+            raise ValueError(f"the fused MLP's {name} must be contiguous and 16-byte aligned")
+
+
+def _fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h: bool):
+    """(h or None, out) from the CUDA kernel; the LN variant when ``s`` is given."""
+    from ._build import library
+
+    global fused_launches, ln_fused_launches
+    m, k = x.shape
+    nf = w1.shape[0]
+    out = torch.empty_like(x)
+    h = torch.empty((m, nf), dtype=x.dtype, device=x.device) if write_h else None
+    with torch.cuda.device(x.device):
+        err = library().ssl4polyp_mlp_fused_fwd(
+            x.data_ptr(), None if s is None else s.data_ptr(), None if t is None else t.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+            None if h is None else h.data_ptr(), out.data_ptr(), m, k, nf, eps,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"fused MLP kernel launch failed: CUDA error {err}")
+    if s is None:
+        fused_launches += 1
+    else:
+        ln_fused_launches += 1
+    return h, out
+
+
+class _MlpFused(torch.autograd.Function):
+    """The fused kernel (``plain`` False) or its plain version, saving h."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, plain):
+        if plain:
+            h, out = _mlp_forward_plain(x, None, None, w1, b1, w2, b2, 0.0)
+        else:
+            h, out = _fused_kernel(x, None, None, w1, b1, w2, b2, 0.0, write_h=True)
+        ctx.save_for_backward(x, w1, w2, h)
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, h = ctx.saved_tensors
+        return (*mlp_fused_backward(x, w1, w2, h, dy.contiguous()), None)
+
+
+class _MlpLnFused(torch.autograd.Function):
+    """The fused LN+MLP kernel (``plain`` False) or its plain version, saving h."""
+
+    @staticmethod
+    def forward(ctx, x, s, t, w1, b1, w2, b2, eps, plain):
+        if plain:
+            h, out = _mlp_forward_plain(x, s, t, w1, b1, w2, b2, eps)
+        else:
+            h, out = _fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h=True)
+        ctx.save_for_backward(x, s, t, w1, w2, h)
+        ctx.eps, ctx.plain = eps, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, s, t, w1, w2, h = ctx.saved_tensors
+        grads = mlp_ln_fused_backward(x, s, t, w1, w2, h, dy.contiguous(), ctx.eps, ctx.plain)
+        return (*grads, None, None)
+
+
+def _device_check(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {x.device}")
+    return x.device.type == "cuda"
+
+
+def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+              b2: torch.Tensor) -> torch.Tensor:
+    """``gelu(x.w1^T + b1).w2^T + b2`` for 2-D ``x`` in one kernel: fp32
+    accumulation, gelu(h) rounded to the compute dtype on chip, one rounding
+    of the output; differentiable in every tensor."""
+    if not _device_check(x):
+        return mlp_fused_plain(x, w1, b1, w2, b2)
+    _check_fused(x, None, None, w1, b1, w2, b2)
+    if _needs_grad(x, w1, b1, w2, b2):
+        return _MlpFused.apply(x, w1, b1, w2, b2, False)
+    return _fused_kernel(x, None, None, w1, b1, w2, b2, 0.0, write_h=False)[1]
+
+
+def mlp_fused_plain(x, w1, b1, w2, b2) -> torch.Tensor:
+    """:func:`mlp_fused` through the plain version, on any device."""
+    if _needs_grad(x, w1, b1, w2, b2):
+        return _MlpFused.apply(x, w1, b1, w2, b2, True)
+    return mlp_fused_reference(x, w1, b1, w2, b2)
+
+
+def mlp_ln_fused(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor, w1: torch.Tensor,
+                 b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """``x + gelu(LN(x; s, t).w1^T + b1).w2^T + b2`` for 2-D ``x`` in one
+    kernel, the block's residual included; differentiable in every tensor.
+    ``s`` and ``t`` are fp32."""
+    if not _device_check(x):
+        return mlp_ln_fused_plain(x, s, t, w1, b1, w2, b2, eps)
+    _check_fused(x, s, t, w1, b1, w2, b2)
+    if _needs_grad(x, s, t, w1, b1, w2, b2):
+        return _MlpLnFused.apply(x, s, t, w1, b1, w2, b2, eps, False)
+    return _fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h=False)[1]
+
+
+def mlp_ln_fused_plain(x, s, t, w1, b1, w2, b2, eps: float = 1e-6) -> torch.Tensor:
+    """:func:`mlp_ln_fused` through the plain version, on any device."""
+    if _needs_grad(x, s, t, w1, b1, w2, b2):
+        return _MlpLnFused.apply(x, s, t, w1, b1, w2, b2, eps, True)
+    return mlp_ln_fused_reference(x, s, t, w1, b1, w2, b2, eps)

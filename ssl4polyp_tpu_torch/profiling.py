@@ -1,11 +1,14 @@
-"""Where the time goes: the MAE pretrain step and the eval forward on one CUDA card.
+"""Where the time goes: the MAE pretrain step, the classifier's fine-tune
+step and the eval forward on one CUDA card.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python -m ssl4polyp_tpu_torch.profiling [--table PATH]
 
 For each path, at full width (MAE ViT-B/16 at batch 64, accum 1, bf16; the
-ViT-B/16 2-class classifier at batch 64) with random weights from a seed:
+ViT-B/16 2-class classifier's fine-tune step at batch 64, bf16 with fp32
+scores, full fine-tuning, under each of its three kernel configurations;
+its eval forward at batch 64) with random weights from a seed:
 
 1. the rate without the profiler: images/s over 5 repeats of 10 steps (or
    requests) after warm-up, median and range;
@@ -29,9 +32,15 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["category", "main", "rates", "spread"]
+__all__ = ["FINETUNE_CONFIGS", "category", "main", "rates", "spread"]
 
 REPEATS, REPEAT_CALLS, PROFILE_CALLS = 5, 10, 5
+# The classifier's kernel configurations: (label, model overrides).
+FINETUNE_CONFIGS = (
+    ("fc1", {}),
+    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True}),
+    ("full", {"mlp_fusion": "full"}),
+)
 
 # (substring of the kernel's name, category), first match wins.
 _CATEGORIES = (
@@ -41,6 +50,8 @@ _CATEGORIES = (
     ("layernorm_fwd_kernel", "LayerNorm forward kernel"),
     ("column_sum_kernel", "column sums of the kernels' parameter gradients"),
     ("fc1_gelu_kernel", "fc1+GELU kernel"),
+    ("mlp_fused_kernel", "fused MLP kernel (fc1+GELU+fc2, with or without LN)"),
+    ("ln_linear_kernel", "LN+QKV kernel"),
     ("multi_tensor_apply", "foreach ops (AdamW, gradient sums)"),
     ("gemm", "cuBLAS GEMM"),
     ("nvjet", "cuBLAS GEMM"),
@@ -125,7 +136,9 @@ def main(argv: list[str] | None = None) -> None:
     from .models.factory import get_imagenet_or_random_vit
     from .models.mae import MAE
     from .ops import _build
-    from .training.classification import make_forward_fn
+    from .training.classification import (TrainContext, init_train_state, loss_settings,
+                                          make_forward_fn, make_train_step)
+    from .training.optim import finetune_lr_scales, no_weight_decay_scales
     from .training.pretrain import (PretrainSettings, init_pretrain_state, make_pretrain_step,
                                     model_config)
 
@@ -154,6 +167,27 @@ def main(argv: list[str] | None = None) -> None:
     _profile(run, f"pretrain step (per step, {PROFILE_CALLS} steps)", PROFILE_CALLS,
              1e3 * batch / statistics.median(measured), tables)
     del state, run
+
+    mode, pos_weight, class_weights = loss_settings([3000, 1000])
+    images = images[0]
+    labels = torch.randint(0, 2, (batch,), device="cuda", generator=gen)
+    valid = torch.ones(batch, dtype=torch.bool, device="cuda")
+    for label, overrides in FINETUNE_CONFIGS:
+        classifier = get_imagenet_or_random_vit(torch.Generator().manual_seed(0), num_classes=2,
+                                                device="cuda", **overrides)
+        state = init_train_state(classifier, torch.Generator(device="cuda").manual_seed(0))
+        step = make_train_step(TrainContext(classifier, mode, pos_weight, class_weights, 0.05))
+        scales = finetune_lr_scales(state.params, "full", classifier.cfg.depth)
+        wd_scales = no_weight_decay_scales(state.params)
+        run = lambda: step(state, images, labels, valid, 1e-4, scales, wd_scales)  # noqa: E731
+        for _ in range(3):
+            run()
+        measured = rates(run, batch, REPEATS, REPEAT_CALLS)
+        print(f"fine-tune step ViT-B/16 [{label}], batch {batch}, images/s over {REPEATS} "
+              f"repeats of {REPEAT_CALLS} steps: {spread(measured)}")
+        _profile(run, f"fine-tune step [{label}] (per step, {PROFILE_CALLS} steps)",
+                 PROFILE_CALLS, 1e3 * batch / statistics.median(measured), tables)
+        del state, run, classifier
 
     classifier = get_imagenet_or_random_vit(torch.Generator().manual_seed(0), num_classes=2,
                                             device="cuda")

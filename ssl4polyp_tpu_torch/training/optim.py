@@ -2,8 +2,8 @@
 
 Counterpart of ``ssl4polyp_tpu/training/optim.py`` (``adamw_init``,
 ``adamw_update``, ``no_weight_decay_scales``, ``pretrain_lr_scales``,
-``global_norm``): plain torch on fp32 tensors keyed by parameter name, the
-same formula (``torch.optim.AdamW``'s: bias-corrected moments, decoupled
+``finetune_lr_scales``, ``global_norm``): plain torch on fp32 tensors keyed
+by parameter name, the same formula (``torch.optim.AdamW``'s: bias-corrected moments, decoupled
 weight decay scaled by the step's learning rate)::
 
     step_dir = m_hat / (sqrt(n_hat) + eps) + weight_decay * ws * p
@@ -26,6 +26,7 @@ __all__ = [
     "AdamWState",
     "adamw_init",
     "adamw_update",
+    "finetune_lr_scales",
     "global_norm",
     "no_weight_decay_scales",
     "pretrain_lr_scales",
@@ -63,6 +64,41 @@ def pretrain_lr_scales(params: Mapping[str, torch.Tensor]) -> Dict[str, float]:
     """MAE pretraining: 1.0 everywhere, 0.0 on the frozen sin-cos tables
     (the cls and mask tokens train)."""
     return {n: 0.0 if n in _FROZEN_NAMES else 1.0 for n in params}
+
+
+def finetune_lr_scales(
+    params: Mapping[str, torch.Tensor],
+    mode: str,
+    depth: int,
+    head_scale: float = 1.0,
+    backbone_scale: float = 1.0,
+    freeze_pos_embed: bool = False,
+) -> Dict[str, float]:
+    """The learning-rate scale of each classifier parameter under a
+    fine-tune regime (JAX ``optim.py:234-284``, reference ``finetune.py:29-91``).
+
+    ``full`` trains everything; ``none`` only the head; ``head+1`` and
+    ``head+2`` also the last one or two blocks.  The head takes
+    ``head_scale``, every trained backbone parameter ``backbone_scale``.
+    ``freeze_pos_embed`` gives ``pos_embed`` 0 in every mode: the MAE
+    lineage's sin-cos table is a frozen buffer in the reference.
+    """
+    mode = (mode or "full").strip().lower()
+    if mode not in {"none", "full", "head+1", "head+2"}:
+        raise ValueError(f"Unsupported fine-tune mode {mode!r}")
+    first_trained = depth - {"none": 0, "full": depth, "head+1": 1, "head+2": 2}[mode]
+
+    def scale(name: str) -> float:
+        if name == "pos_embed" and freeze_pos_embed:
+            return 0.0
+        if name.startswith("head."):
+            return head_scale
+        if name.startswith("blocks."):
+            return backbone_scale if int(name.split(".")[1]) >= first_trained else 0.0
+        # The patch embedding, cls token, position table and final norm.
+        return backbone_scale if mode == "full" else 0.0
+
+    return {name: scale(name) for name in params}
 
 
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:

@@ -80,11 +80,16 @@ class PretrainSettings:
 
 def model_config(settings: PretrainSettings) -> MAEConfig:
     """MAE ViT-B/16 in bf16; masked-MSE pretraining rounds the scores to bf16
-    before the softmax, as the JAX recipe does."""
+    before the softmax, as the JAX recipe does.  The decoder's tokens count as
+    padded to the next multiple of 8, as the JAX engine pads them with its
+    kernels on (pretrain.py:134-135), which decides where the fusion knobs
+    apply."""
     encoder = replace(MAE_VIT_B16.encoder, img_size=settings.image_size,
                       compute_dtype=torch.bfloat16, attention_softmax_f32=False)
+    n_tokens = encoder.num_patches + 1
     return replace(MAE_VIT_B16, encoder=encoder, mask_ratio=settings.mask_ratio,
-                   norm_pix_loss=settings.norm_pix_loss)
+                   norm_pix_loss=settings.norm_pix_loss,
+                   decoder_pad_to=-(-n_tokens // 8) * 8 if n_tokens % 8 else None)
 
 
 @dataclass

@@ -8,7 +8,9 @@ import pytest
 import torch
 
 from ssl4polyp_tpu_torch import ops
+from ssl4polyp_tpu_torch.ops import mlp
 from ssl4polyp_tpu_torch.ops.layernorm import layernorm, layernorm_reference
+from ssl4polyp_tpu_torch.ops.ln_linear import ln_linear, ln_linear_plain, ln_linear_reference
 from ssl4polyp_tpu_torch.ops.mlp import fc1_gelu, fc1_gelu_plain, fc1_gelu_reference
 from ssl4polyp_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
@@ -26,6 +28,10 @@ ATTENTION_BWD_TOL = dict(atol=2e-2, rtol=2e-2)
 FC1_TOL = dict(atol=1e-2, rtol=1.6e-2)
 LN_TOL = dict(atol=1e-2, rtol=1e-2)
 LN_PARAM_TOL = dict(atol=5e-3, rtol=1e-4)
+# The fused kernels' plain versions make the same roundings (m, h, g, the
+# output), so only fp32 summation order differs: one bf16 ulp (2^-8 to 2^-7
+# relative) where a rounding flips.
+FUSED_TOL = dict(atol=1e-2, rtol=1e-2)
 
 
 @pytest.fixture
@@ -114,6 +120,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         (2, 37, 4, 16, True, 30, False),
         (1, 256, 2, 64, True, 255, True),
         (1, 1, 1, 16, True, None, True),
+        (64, 197, 12, 64, True, None, True),   # the fine-tune step's call
     ],
 )
 def test_attention_backward_kernel_matches_plain(gen, B, N, H, hd, softmax_f32, valid_len,
@@ -175,3 +182,90 @@ def test_fc1_gelu_gradients_match_plain(gen, M, K, NF):
     for name, got, want in zip(("dx", "dw", "db"), *grads):
         scale = max(1.0, want.abs().max().item())
         torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=2e-2, msg=name)
+
+
+@pytest.mark.parametrize("M, K, N", [(12608, 768, 2304), (12608, 512, 1536), (37, 64, 24),
+                                     (1, 128, 8)])
+def test_ln_linear_kernel_matches_plain(gen, M, K, N):
+    x, dy = _randn(gen, M, K), _randn(gen, M, N)
+    s = 1 + 0.1 * torch.randn(K, generator=gen, device="cuda")
+    t = 0.1 * torch.randn(K, generator=gen, device="cuda")
+    w, b = _randn(gen, N, K, scale=K ** -0.5), _randn(gen, N, scale=0.5)
+    grads = []
+    for fn in (ln_linear, ln_linear_plain):
+        leaves = [a.clone().requires_grad_() for a in (x, s, t, w, b)]
+        ops.reset_launch_counts()
+        out = fn(*leaves)
+        out.backward(dy)
+        torch.cuda.synchronize()
+        kernel = fn is ln_linear
+        assert ops.launch_counts()["ln_linear"] == int(kernel)
+        assert ops.launch_counts()["layernorm"] == ops.launch_counts()["layernorm_backward"] == int(kernel)
+        grads.append([a.grad.float() for a in leaves])
+        if fn is ln_linear:
+            torch.testing.assert_close(out, ln_linear_reference(x, s, t, w, b), **FUSED_TOL)
+    # The kernel path's backward runs its LayerNorm steps on the LayerNorm
+    # kernels: m and dx may differ by a bf16 ulp where a rounding flips, and
+    # the fp32 parameter sums by their summation order.
+    for name, got, want in zip(("dx", "ds", "dt", "dw", "db"), *grads):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=2e-2, msg=name)
+
+
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+@pytest.mark.parametrize("M, K, NF", [(12608, 768, 3072), (12608, 512, 2048), (37, 512, 64),
+                                      (1, 768, 32)])
+def test_fused_mlp_kernels_match_plain(gen, with_ln, M, K, NF):
+    x, dy = _randn(gen, M, K), _randn(gen, M, K)
+    s = 1 + 0.1 * torch.randn(K, generator=gen, device="cuda") if with_ln else None
+    t = 0.1 * torch.randn(K, generator=gen, device="cuda") if with_ln else None
+    w1, b1 = _randn(gen, NF, K, scale=K ** -0.5), _randn(gen, NF, scale=0.5)
+    w2, b2 = _randn(gen, K, NF, scale=NF ** -0.5), _randn(gen, K, scale=0.5)
+    h, out = mlp._fused_kernel(x, s, t, w1, b1, w2, b2, 1e-6, write_h=True)
+    h_again, out_again = mlp._fused_kernel(x, s, t, w1, b1, w2, b2, 1e-6, write_h=True)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h_again) and torch.equal(out, out_again)  # no atomics
+    ref_h, ref_out = mlp._mlp_forward_plain(x, s, t, w1, b1, w2, b2, 1e-6)
+    torch.testing.assert_close(h, ref_h, **FUSED_TOL)
+    torch.testing.assert_close(out, ref_out, **FUSED_TOL)
+    # Through the autograd wrappers: one launch, and gradients from the
+    # kernel's h against the plain h (a bf16 ulp where a rounding of h flips).
+    args = (x, w1, b1, w2, b2) if not with_ln else (x, s, t, w1, b1, w2, b2)
+    kernel, plain = ((mlp.mlp_fused, mlp.mlp_fused_plain) if not with_ln
+                     else (mlp.mlp_ln_fused, mlp.mlp_ln_fused_plain))
+    name = "mlp_ln_fused" if with_ln else "mlp_fused"
+    grads = []
+    for fn in (kernel, plain):
+        leaves = [a.clone().requires_grad_() for a in args]
+        ops.reset_launch_counts()
+        fn(*leaves).backward(dy)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        assert counts[name] == int(fn is kernel) and counts["fc1_gelu"] == 0
+        # The LN variant's backward recomputes m and takes its LayerNorm
+        # backward on the LayerNorm kernels.
+        assert counts["layernorm"] == counts["layernorm_backward"] == int(fn is kernel and with_ln)
+        grads.append([a.grad.float() for a in leaves])
+    for got, want in zip(*grads):
+        scale = max(1.0, want.abs().max().item())
+        torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=2e-2)
+
+
+def test_fused_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    x, w1, b1 = _randn(gen, 4, 512), _randn(gen, 64, 512), _randn(gen, 64)
+    w2, b2 = _randn(gen, 512, 64), _randn(gen, 512)
+    s, t = torch.ones(512, device="cuda"), torch.zeros(512, device="cuda")
+    with torch.inference_mode():
+        with pytest.raises(ValueError):  # K 128 has no instantiation
+            mlp.mlp_fused(_randn(gen, 4, 128), _randn(gen, 64, 128), b1, _randn(gen, 128, 64),
+                          _randn(gen, 128))
+        with pytest.raises(TypeError):  # bf16 LayerNorm affine
+            mlp.mlp_ln_fused(x, s.bfloat16(), t, w1, b1, w2, b2)
+        with pytest.raises(TypeError):
+            ln_linear(x.float(), s, t, w1.float(), b1.float())
+        with pytest.raises(ValueError):  # K 1024: the rows do not fit in shared memory
+            ln_linear(_randn(gen, 4, 1024), torch.ones(1024, device="cuda"),
+                      torch.zeros(1024, device="cuda"), _randn(gen, 8, 1024), _randn(gen, 8))
+        with pytest.raises(ValueError):  # K not a multiple of 64
+            ln_linear(_randn(gen, 4, 96), torch.ones(96, device="cuda"),
+                      torch.zeros(96, device="cuda"), _randn(gen, 8, 96), _randn(gen, 8))

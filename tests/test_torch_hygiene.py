@@ -1,6 +1,6 @@
-"""The port imports and runs (an eval forward and a pretrain step) without
-jax, flax, PyYAML, PIL or scikit-learn (the GPU machine has none of them),
-and chip_smoke.py refuses to run without CUDA."""
+"""The port imports and runs (an eval forward, a pretrain step and a
+fine-tune step) without jax, flax, PyYAML, PIL or scikit-learn (the GPU
+machine lacks jax and flax), and chip_smoke.py refuses to run without CUDA."""
 
 import os
 import subprocess
@@ -44,6 +44,23 @@ state = init_pretrain_state(MAE(cfg, torch.Generator().manual_seed(0)))
 gen = torch.Generator().manual_seed(1)
 batch = torch.randint(0, 256, (1, 2, 32, 32, 3), dtype=torch.uint8, generator=gen)
 metrics = make_pretrain_step(cfg, 1, 0.05)(state, batch, torch.rand((1, 2, 16), generator=gen), 1e-3)
+assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+
+# One fine-tune step of a tiny classifier in bf16 through the LN+QKV and
+# LN+MLP routes.
+from ssl4polyp_tpu_torch.models.factory import build_classifier
+from ssl4polyp_tpu_torch.training import classification, optim
+
+clf = build_classifier(torch.Generator().manual_seed(0), {}, img_size=32, patch_size=8,
+                       embed_dim=128, depth=2, num_heads=4, mlp_fusion="full_ln",
+                       qkv_ln_fusion=True)
+assert {(b.mlp_route, b.qkv_ln) for b in clf.model.blocks} == {("full_ln", True)}
+ctx = classification.TrainContext(clf, *classification.loss_settings([3, 1]), weight_decay=0.05)
+state = classification.init_train_state(clf, torch.Generator().manual_seed(2))
+scales = optim.finetune_lr_scales(state.params, "head+1", 2)
+metrics = classification.make_train_step(ctx)(
+    state, batch[0], torch.tensor([0, 1]), torch.tensor([True, True]), 1e-4, scales,
+    optim.no_weight_decay_scales(state.params))
 assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
 leaked = sorted(m for m in sys.modules if m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
 assert not leaked, leaked

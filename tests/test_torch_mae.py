@@ -155,8 +155,10 @@ def test_frozen_tables_and_layout_keys():
     _, jcfg, model = tiny_pair(torch.float32)
     frozen = {n for n, p in model.named_parameters() if not p.requires_grad}
     assert frozen == {"pos_embed", "decoder_pos_embed"}
-    # The JAX MAE config's padding fields are TPU layout: the port has no
-    # counterpart and its factory discards them.
+    # The JAX MAE config's fields all have counterparts: the padding fields
+    # decide where the fusion knobs apply (the port never pads), and the
+    # classifier factory, which they do not concern, discards them.
     jax_only = {f.name for f in dataclasses.fields(jcfg)} - {
         f.name for f in dataclasses.fields(model.cfg)}
-    assert jax_only == {"encoder_pad_to", "decoder_pad_to"} and jax_only <= LAYOUT_KEYS
+    assert jax_only == set() and {"encoder_pad_to", "decoder_pad_to"} <= LAYOUT_KEYS
+    assert (model.cfg.encoder_pad_to, model.cfg.decoder_pad_to) == (None, None)

@@ -72,3 +72,87 @@ def test_backward_from_h_is_autograd_of_the_reference_in_fp32():
     dx, dw, db = fc1_gelu_backward(x, w, torch.matmul(x, w.t()) + b, dy)
     for got, want in ((dx, xs.grad), (dw, ws.grad), (db, bs.grad)):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def _fused_inputs(seed, m=48, k=32, nf=128):
+    rng = np.random.default_rng(seed)
+    return {"x": rng.standard_normal((m, k)).astype(np.float32),
+            "s": (1 + 0.1 * rng.standard_normal(k)).astype(np.float32),
+            "t": (0.05 * rng.standard_normal(k)).astype(np.float32),
+            "w1": (rng.standard_normal((k, nf)) / np.sqrt(k) * 2).astype(np.float32),  # (in, out)
+            "b1": (0.5 * rng.standard_normal(nf)).astype(np.float32),
+            "w2": (rng.standard_normal((nf, k)) / np.sqrt(nf)).astype(np.float32),
+            "b2": (0.5 * rng.standard_normal(k)).astype(np.float32),
+            "dy": rng.standard_normal((m, k)).astype(np.float32)}
+
+
+# The JAX kernels' GELU takes the polynomial erf (max |gelu error| 2.2e-6,
+# |dgelu error| 4.4e-7), the port's the exact one; fp32 adds the GEMMs'
+# summation order through two products.  bf16: h, g, the output and each
+# gradient are rounded once on both sides from fp32 sums of the same rounded
+# operands, so a rounding flips (one bf16 ulp, 2^-8 to 2^-7 relative) only
+# where the erfs or the summation orders differ in the last bits.
+FUSED_TOL = {"fp32": (2e-5, 5e-5), "bf16": (2e-2, 3e-2)}  # (forward, gradients)
+
+
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+def test_fused_references_and_gradients_match_jax_kernels(with_ln, dtype):
+    from ssl4polyp_tpu.ops.mlp import mlp_fused as jax_mlp_fused
+    from ssl4polyp_tpu.ops.mlp import mlp_ln_fused as jax_mlp_ln_fused
+    from ssl4polyp_tpu_torch.ops.mlp import (mlp_fused, mlp_fused_reference, mlp_ln_fused,
+                                             mlp_ln_fused_reference)
+
+    a = _fused_inputs(5)
+    jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    block = (16, 32)  # three row programs, four NF steps into the accumulator
+    names = ("x", "s", "t", "w1", "b1", "w2", "b2") if with_ln else ("x", "w1", "b1", "w2", "b2")
+    jargs = [jnp.asarray(a[n]) if n in "st" else jnp.asarray(a[n], jdt) for n in names]
+    if with_ln:
+        fn = lambda *args: jax_mlp_ln_fused(*args, 1e-6, True, block)  # noqa: E731
+    else:
+        fn = lambda *args: jax_mlp_fused(*args, True, block)  # noqa: E731
+    out, vjp = jax.vjp(fn, *jargs)
+    ref_grads = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(a["dy"], jdt))]
+
+    def port(n):
+        value = a[n].T if n in ("w1", "w2") else a[n]  # torch (out, in)
+        tensor = torch.from_numpy(np.ascontiguousarray(value))
+        return (tensor if n in "st" else tensor.to(tdt)).requires_grad_()
+
+    leaves = [port(n) for n in names]
+    ours = (mlp_ln_fused if with_ln else mlp_fused)(*leaves)
+    reference = (mlp_ln_fused_reference if with_ln else mlp_fused_reference)(*leaves)
+    torch.testing.assert_close(ours.detach(), reference.detach(), rtol=0, atol=0)
+    fwd_tol, grad_tol = FUSED_TOL[dtype]
+    np.testing.assert_allclose(ours.detach().float().numpy(), np.asarray(out.astype(jnp.float32)),
+                               rtol=fwd_tol, atol=fwd_tol)
+    ours.backward(torch.from_numpy(a["dy"]).to(tdt))
+    for n, leaf, want in zip(names, leaves, ref_grads):
+        got = leaf.grad.t() if n in ("w1", "w2") else leaf.grad
+        assert got.dtype == leaf.dtype, n
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=grad_tol,
+                                   atol=grad_tol * scale, err_msg=f"d{n}")
+
+
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+def test_fused_backwards_are_autograd_of_the_references_in_fp32(with_ln):
+    from ssl4polyp_tpu_torch.ops import mlp
+
+    a = {n: torch.from_numpy(np.ascontiguousarray(v.T if n in ("w1", "w2") else v))
+         for n, v in _fused_inputs(6, m=8, k=16, nf=24).items()}
+    names = ("x", "s", "t", "w1", "b1", "w2", "b2") if with_ln else ("x", "w1", "b1", "w2", "b2")
+    leaves = [a[n].clone().requires_grad_() for n in names]
+    (mlp.mlp_ln_fused_reference if with_ln else mlp.mlp_fused_reference)(*leaves).backward(a["dy"])
+    h = torch.matmul(a["x"] if not with_ln else torch.nn.functional.layer_norm(
+        a["x"], (16,), a["s"], a["t"], 1e-6), a["w1"].t()) + a["b1"]
+    if with_ln:
+        got = mlp.mlp_ln_fused_backward(a["x"], a["s"], a["t"], a["w1"], a["w2"], h, a["dy"], 1e-6)
+        order = ("x", "s", "t", "w1", "b1", "w2", "b2")
+    else:
+        got = mlp.mlp_fused_backward(a["x"], a["w1"], a["w2"], h, a["dy"])
+        order = ("x", "w1", "b1", "w2", "b2")
+    grads = dict(zip(names, (leaf.grad for leaf in leaves)))
+    for n, g in zip(order, got):
+        torch.testing.assert_close(g, grads[n], rtol=1e-5, atol=1e-5, msg=n)

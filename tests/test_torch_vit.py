@@ -54,11 +54,12 @@ def test_vit_forward_matches_jax(pos_embed, out_token, dtype):
 def test_build_classifier_dispatch_and_layout_keys(tmp_path):
     from ssl4polyp_tpu_torch.models.factory import LAYOUT_KEYS, build_classifier
 
-    layout = {"pad_tokens_to": 24, "unroll_blocks": True, "remat": True,
-              "fused_layernorm": True, "mlp_fusion": "full", "qkv_ln_fusion": True,
+    layout = {"unroll_blocks": True, "remat": True, "fused_layernorm": True,
               "use_pallas_attention": True, "encoder_pad_to": 56, "decoder_pad_to": 200}
     assert set(layout) == LAYOUT_KEYS
-    small = dict(TINY, **layout)
+    # The padding and the fusion knobs are config fields: they decide which
+    # kernels run (tests/test_torch_fusion_knobs.py).
+    small = dict(TINY, **layout, pad_tokens_to=24, mlp_fusion="full", qkv_ln_fusion=True)
     small.pop("num_classes")
     gen = torch.Generator().manual_seed(0)
     mae = build_classifier(gen, {"ss_framework": "mae", "key": "ssl_colon"}, **small)
@@ -67,6 +68,11 @@ def test_build_classifier_dispatch_and_layout_keys(tmp_path):
     assert (mae.cfg.pos_embed, mae.scheme) == ("sincos", "ssl_colon")
     assert (timm.cfg.pos_embed, timm.scheme) == ("learned", "random")
     assert plain.cfg == timm.cfg and plain.cfg.num_classes == 2
+    for built in (mae, timm, plain):
+        assert (built.cfg.pad_tokens_to, built.cfg.mlp_fusion, built.cfg.qkv_ln_fusion) == (
+            24, "full", True)
+        # D 64 is no width the JAX package flattens: the default kernels run.
+        assert {(b.mlp_route, b.qkv_ln) for b in built.model.blocks} == {("fc1", False)}
     with pytest.raises(NotImplementedError):
         build_classifier(gen, {"dense": True}, **small)
     (tmp_path / "w.npz").write_bytes(b"")
