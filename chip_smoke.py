@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's eval forward, MAE pretrain step and classifier
-fine-tune step on one NVIDIA GPU.
+fine-tune step on one NVIDIA GPU, with and without ``BENCH_ATTN_PROJ=1``.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -11,29 +11,41 @@ Phases:
 1. Device and build: requires CUDA, prints the card's name and power limit,
    builds the CUDA kernels from ``ssl4polyp_tpu_torch/ops/csrc``.
 2. Each kernel against its plain torch version on the card, in bf16, at the
-   eval and pretrain paths' shapes, forward and backward: max error against
-   the stated tolerance, and the kernel's and the plain version's times from
-   CUDA events.
+   eval, pretrain and fine-tune paths' shapes, forward and backward: max
+   error against the stated tolerance (the AdamW kernel bit for bit, on the
+   classifier's and the MAE's parameter lists), the kernel's and the plain
+   version's times from CUDA events, beside them the time of the PyTorch
+   library call for the same function where there is one (timed only; the
+   port never calls it), and the least time the card could take (the larger
+   of the bytes over its memory rate and the operations over its peak rate).
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
    and fc1+GELU must launch exactly 12 times and LayerNorm 25 (no backward
    kernel); the logits must be finite and match the same forward with every
    kernel swapped for its plain version.  Prints images/s for both, median
-   and range over 5 repeats of 10 requests.
+   and range over 5 repeats of 10 requests.  Then the same classifier built
+   under ``BENCH_ATTN_PROJ=1``: 12 launches of the attention+projection
+   kernel and none of the attention kernel per request, logits against the
+   plain path's and the unfolded forward's.
 4. The MAE ViT-B/16 pretrain step at full width, batch 64: weights from a
    numpy-seeded JAX-layout tree through ``mae_state_dict_from_jax``; step 1's
    loss and every parameter's gradient against the plain step's; then 6
-   steps through ``make_pretrain_step`` with exact launch counts per step,
-   finite losses and parameters and both sin-cos tables unchanged; then the
-   same 6 steps from the same state with every kernel swapped for its plain
-   version.  Prints images/s for both, median and range over 5 repeats of
-   10 further steps, and the model TFLOP/s at the median.
+   steps through ``make_pretrain_step`` with exact launch counts per step
+   (the AdamW kernel's 4 among them), finite losses and parameters and both
+   sin-cos tables unchanged; then the same 6 steps from the same state with
+   every kernel swapped for its plain version.  Prints images/s for both,
+   median and range over 5 repeats of 10 further steps, and the model
+   TFLOP/s at the median.  Then the model built under ``BENCH_ATTN_PROJ=1``
+   (the decoder folds, the encoder at 50 tokens does not): step 1 against
+   the plain step, and 2 steps with exact launch counts.
 5. The ViT-B/16 classifier's fine-tune step at full width, batch 64 (on-device
    augmentation, BCE, backward, AdamW with fine-tune scales), weights from a
-   numpy-seeded JAX-layout tree, under its three kernel configurations: the
+   numpy-seeded JAX-layout tree, under its four kernel configurations: the
    default (fc1+GELU), ``mlp_fusion="full_ln"`` with ``qkv_ln_fusion`` (the
-   LN+MLP and LN+QKV kernels) and ``mlp_fusion="full"`` (the fused MLP).
+   LN+MLP and LN+QKV kernels), ``mlp_fusion="full"`` (the fused MLP), and
+   the default under ``BENCH_ATTN_PROJ=1`` (the attention+projection kernel
+   forward and backward, 12 each per step, and no attention kernel).
    For each: step 1's loss and every gradient against the plain step's; 6
    steps with exact launch counts per step, finite losses and parameters;
    2 steps under the ``head+1`` regime, after which every frozen parameter
@@ -55,6 +67,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from ssl4polyp_tpu_torch import ops
 from ssl4polyp_tpu_torch.models import layers
@@ -63,8 +76,10 @@ from ssl4polyp_tpu_torch.models.mae import MAE, MAEConfig
 from ssl4polyp_tpu_torch.models.pos_embed import sincos_2d
 from ssl4polyp_tpu_torch.models.vit import ViTConfig
 from ssl4polyp_tpu_torch.models.weights import mae_state_dict_from_jax
-from ssl4polyp_tpu_torch.ops import _build, layernorm, ln_linear, mlp, qkv_attention
-from ssl4polyp_tpu_torch.profiling import FINETUNE_CONFIGS, REPEAT_CALLS, REPEATS, rates, spread
+from ssl4polyp_tpu_torch.ops import (_build, adamw, attn_proj, layernorm, ln_linear, mlp,
+                                     qkv_attention)
+from ssl4polyp_tpu_torch.profiling import (FINETUNE_CONFIGS, REPEAT_CALLS, REPEATS,
+                                           projection_fold, rates, spread)
 from ssl4polyp_tpu_torch.training import optim
 from ssl4polyp_tpu_torch.training.classification import (
     TrainContext,
@@ -133,6 +148,19 @@ FUSED_TOL = (1e-2, 1e-2)
 # (full_ln+qkv_ln) and 8.8e-4 (full) relative, and the worst gradient by up
 # to 1.4e-2, 1.8e-2 and 1.2e-2 (the cls token, which sums every row's): the
 # limits sit 4.8 and 2.8 times above the worst readings.
+# The attention+projection kernel: y is the attention output (one flipped
+# bf16 ulp, times a row of W) through two more roundings on both sides; dqkv
+# as the attention backward's.  dW and db are fp32 sums over all 12,608 rows
+# in another order than the plain version's, of each side's own bf16 O, then
+# rounded to bf16: an atol relative to max|plain|, as for dbias.
+ATTN_PROJ_TOL = (1e-2, 1e-2)
+ATTN_PROJ_PARAM_TOL = (5e-3, 2e-2)  # (atol as a fraction of max|plain|, rtol)
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): the bound
+# of a kernel is the larger of its bytes over the memory rate and its
+# operations over the rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 FT_LOSS_RTOL = 2.5e-2
 FT_GRAD_RTOL = 5e-2
 FT_LR = 1e-4
@@ -171,27 +199,44 @@ def time_ms(fn, iters: int = 20) -> float:
 def plain_kernels():
     """Swap every kernel of the models' paths, forward and backward, for its
     plain torch version."""
-    plain = {
-        "fused_qkv_attention": qkv_attention.fused_qkv_attention_plain,
-        "fc1_gelu": mlp.fc1_gelu_plain,
-        "layernorm": layernorm.layernorm_reference,
-        "ln_linear": ln_linear.ln_linear_plain,
-        "mlp_fused": mlp.mlp_fused_plain,
-        "mlp_ln_fused": mlp.mlp_ln_fused_plain,
-    }
-    saved = {name: getattr(layers, name) for name in plain}
-    for name, fn in plain.items():
-        setattr(layers, name, fn)
+    plain = [
+        (layers, "fused_qkv_attention", qkv_attention.fused_qkv_attention_plain),
+        (layers, "fused_attention_proj", attn_proj.fused_attention_proj_plain),
+        (layers, "fc1_gelu", mlp.fc1_gelu_plain),
+        (layers, "layernorm", layernorm.layernorm_reference),
+        (layers, "ln_linear", ln_linear.ln_linear_plain),
+        (layers, "mlp_fused", mlp.mlp_fused_plain),
+        (layers, "mlp_ln_fused", mlp.mlp_ln_fused_plain),
+        (optim, "adamw_update_fused", optim.adamw_update_fused_plain),
+    ]
+    saved = [(module, name, getattr(module, name)) for module, name, _ in plain]
+    for module, name, fn in plain:
+        setattr(module, name, fn)
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(layers, name, fn)
+        for module, name, fn in saved:
+            setattr(module, name, fn)
 
 
-def entry(source: str, replaces: str, err: float, ms: float, plain_ms: float) -> dict:
+def entry(source: str, replaces: str, err: float, ms: float, plain_ms: float, *,
+          bytes_moved: float, flops: float, peak: float = BF16_FLOPS,
+          library_ms: float | None = None) -> dict:
+    """A kernel's line of the summary.  ``bytes_moved`` counts each input
+    read once and each output written once at the timed shape; ``flops`` the
+    operations on them, against ``peak`` for their type."""
+    by_bytes, by_flops = 1e3 * bytes_moved / HBM_BYTES_PER_S, 1e3 * flops / peak
     return {"route": "cuda", "source": f"ssl4polyp_tpu_torch/ops/csrc/{source}",
-            "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(by_bytes, by_flops),
+            "bound_by": "bytes" if by_bytes >= by_flops else "operations",
+            "library_ms": library_ms}
+
+
+def heads_of(qkv: torch.Tensor, h: int):
+    """q, k, v as (B, H, N, hd) views of a (B, N, 3*H*hd) tensor."""
+    b, n, three_d = qkv.shape
+    return qkv.reshape(b, n, 3, h, three_d // 3 // h).permute(2, 0, 3, 1, 4)
 
 
 def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
@@ -226,10 +271,16 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         errors.append(max_error(out, plain(), ATTENTION_TOL, what))
         print(f"{what}: max |diff| {errors[-1]:.3e} (atol {ATTENTION_TOL[0]}, rtol {ATTENTION_TOL[1]})")
         if i in (2, 5, 6):
-            times[i] = time_ms(run), time_ms(plain)
-            print(f"  kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms")
+            q, k, v = heads_of(qkv + bias, h)
+            library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+            times[i] = time_ms(run), time_ms(plain), time_ms(library)
+            print(f"  kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, "
+                  f"scaled_dot_product_attention {times[i][2]:.4f} ms")
+    b, n, h, hd = cases[2][:4]
     report["fused_qkv_attention"] = entry(
-        "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:91", max(errors), *times[2])
+        "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:91", max(errors), *times[2][:2],
+        bytes_moved=2 * (b * n * 4 * h * hd + 3 * h * hd), flops=4 * b * h * n * n * hd,
+        library_ms=times[2][2])
 
     # Attention backward against the plain version with the JAX kernel's
     # roundings.  The first two cases are the pretrain path's calls, the
@@ -265,10 +316,19 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
             fail(f"{what}: two runs gave different bits")
         print(line + "; rerun bit-identical")
         if i in (0, 1, 6):
-            times[i] = time_ms(run), time_ms(plain)
-            print(f"  kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms")
+            leaf = (qkv + bias).requires_grad_()
+            out = F.scaled_dot_product_attention(*heads_of(leaf, h)).transpose(1, 2).reshape(
+                dout.shape)
+            library = lambda: torch.autograd.grad(out, leaf, dout, retain_graph=True)  # noqa: E731
+            times[i] = time_ms(run), time_ms(plain), time_ms(library)
+            print(f"  kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, "
+                  f"scaled_dot_product_attention's backward {times[i][2]:.4f} ms")
+            del leaf, out
+    b, n, h, hd = cases[1][:4]
     report["fused_qkv_attention_backward"] = entry(
-        "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:108", max(errors), *times[1])
+        "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:108", max(errors), *times[1][:2],
+        bytes_moved=2 * (b * n * 7 * h * hd + 6 * h * hd), flops=10 * b * h * n * n * hd,
+        library_ms=times[1][2])
 
     # LayerNorm forward and backward: the pretrain encoder's and decoder's
     # rows, then the eval forward's.  The plain backward is autograd's of the
@@ -297,14 +357,26 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         print(f"{what}: y max |diff| {fwd_errors[-1]:.3e}, dx {bwd_errors[-1]:.3e} (atol "
               f"{LN_TOL[0]}, rtol {LN_TOL[1]}); dweight, dbias {param_err:.3e} (atol "
               f"{LN_PARAM_TOL[0]}, rtol {LN_PARAM_TOL[1]}); rerun bit-identical")
-        fwd_times[i] = time_ms(run), time_ms(plain)
-        bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd)
-        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms; "
-              f"backward kernel {bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms")
+        # The library call takes its affine in the input's dtype.
+        lib_leaves = [x.clone().requires_grad_(), w.bfloat16().requires_grad_(),
+                      bias.bfloat16().requires_grad_()]
+        library = lambda: F.layer_norm(lib_leaves[0], (d,), lib_leaves[1], lib_leaves[2], 1e-6)  # noqa: E731
+        lib_y = library()
+        library_bwd = lambda: torch.autograd.grad(lib_y, lib_leaves, dy, retain_graph=True)  # noqa: E731
+        fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
+        bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
+              f"F.layer_norm {fwd_times[i][2]:.4f} ms; backward kernel {bwd_times[i][0]:.4f} ms, "
+              f"plain {bwd_times[i][1]:.4f} ms, F.layer_norm's {bwd_times[i][2]:.4f} ms")
+    m, d = BATCH * 197, 512
     report["layernorm"] = entry(
-        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:32", max(fwd_errors), *fwd_times[1])
+        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:32", max(fwd_errors), *fwd_times[1][:2],
+        bytes_moved=4 * m * d + 8 * d, flops=8 * m * d, peak=FP32_FLOPS,
+        library_ms=fwd_times[1][2])
     report["layernorm_backward"] = entry(
-        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:69", max(bwd_errors), *bwd_times[1])
+        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:69", max(bwd_errors), *bwd_times[1][:2],
+        bytes_moved=6 * m * d + 12 * d, flops=12 * m * d, peak=FP32_FLOPS,
+        library_ms=bwd_times[1][2])
 
     # fc1+GELU: the pretrain calls write h for the backward; the eval call
     # writes y only.
@@ -321,10 +393,16 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         errors.append(max_error(y, plain(), FC1_TOL, f"{what}: y"))
         if write_h:
             errors.append(max_error(h, torch.matmul(x, w.t()) + bias, FC1_TOL, f"{what}: h"))
-        times[i] = time_ms(run), time_ms(plain)
+        library = lambda: F.gelu(F.linear(x, w, bias))  # noqa: E731
+        times[i] = time_ms(run), time_ms(plain), time_ms(library)
         print(f"{what}: max |diff| {max(errors[-2:]):.3e} (atol {FC1_TOL[0]}, rtol {FC1_TOL[1]}); "
-              f"kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms")
-    report["fc1_gelu"] = entry("mlp.cu", "ssl4polyp_tpu/ops/mlp.py:73", max(errors), *times[1])
+              f"kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, F.linear + F.gelu "
+              f"{times[i][2]:.4f} ms")
+    m, k, nf = BATCH * 197, 512, 2048
+    report["fc1_gelu"] = entry(
+        "mlp.cu", "ssl4polyp_tpu/ops/mlp.py:73", max(errors), *times[1][:2],
+        bytes_moved=2 * (m * k + nf * k + nf + 2 * m * nf), flops=2 * m * k * nf,
+        library_ms=times[1][2])
 
     # The fine-tune path's fused kernels at its shapes, then the MAE
     # decoder's.  Beside the plain version (fp32 products of the rounded
@@ -350,8 +428,10 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         print(f"{what}: max |diff| {errors[-1]:.3e} (atol {FUSED_TOL[0]}, rtol {FUSED_TOL[1]}); "
               f"kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, unfused bf16 chain "
               f"{times[i][2]:.4f} ms")
-    report["ln_linear"] = entry("ln_linear.cu", "ssl4polyp_tpu/ops/ln_linear.py:28", max(errors),
-                                *times[0][:2])
+    m, k, n = BATCH * 197, 768, 2304
+    report["ln_linear"] = entry(
+        "ln_linear.cu", "ssl4polyp_tpu/ops/ln_linear.py:28", max(errors), *times[0][:2],
+        bytes_moved=2 * (m * k + n * k + n + m * n) + 8 * k, flops=2 * m * k * n)
 
     for name, with_ln, line in (("mlp_fused", False, 188), ("mlp_ln_fused", True, 332)):
         errors, times = [], {}
@@ -380,8 +460,172 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
             print(f"{what}: max |diff| {errors[-1]:.3e} (atol {FUSED_TOL[0]}, rtol "
                   f"{FUSED_TOL[1]}); kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, "
                   f"unfused bf16 chain {times[i][2]:.4f} ms")
-        report[name] = entry("mlp.cu", f"ssl4polyp_tpu/ops/mlp.py:{line}", max(errors),
-                             *times[0][:2])
+        m, k, nf = BATCH * 197, 768, 3072
+        report[name] = entry(
+            "mlp.cu", f"ssl4polyp_tpu/ops/mlp.py:{line}", max(errors), *times[0][:2],
+            bytes_moved=2 * (2 * m * k + 2 * nf * k + nf + k + m * nf) + (8 * k if with_ln else 0),
+            flops=4 * m * k * nf)
+    report.update(attn_proj_kernels(randn))
+    report.update(adamw_kernel(gen))
+    return report
+
+
+def attn_proj_kernels(randn) -> dict[str, dict]:
+    """The attention+projection kernel, forward and backward, against its
+    plain version: the classifier's call (fp32 scores), the MAE decoder's
+    (16 heads of 32, bf16 scores) and a padded one (keys past ``valid_len``
+    masked, the pad rows' upstream gradient zero).  Beside each, the library
+    route for the same function: scaled_dot_product_attention and F.linear,
+    and their autograd backward."""
+    fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
+    cases = [(BATCH, 197, 12, 64, True, None), (BATCH, 197, 16, 32, False, None),
+             (BATCH, 197, 12, 64, True, 150)]
+    for i, (b, n, h, hd, f32, valid_len) in enumerate(cases):
+        d = h * hd
+        qkv, dy = randn(b, n, 3 * d), randn(b, n, d)
+        w, bias = randn(d, d, scale=d ** -0.5), randn(d, scale=0.5)
+        rows = n if valid_len is None else valid_len
+        dy[:, rows:] = 0
+        run = lambda: attn_proj._forward_kernel(qkv, w, bias, h, f32, valid_len)  # noqa: E731
+        plain = lambda: attn_proj.fused_attention_proj_reference(qkv, w, bias, h, f32, valid_len)  # noqa: E731
+        run_bwd = lambda: attn_proj._backward_kernel(qkv, w, bias, dy, h, f32, valid_len)  # noqa: E731
+        plain_bwd = lambda: attn_proj.fused_attention_proj_backward_reference(  # noqa: E731
+            qkv, w, bias, dy, h, f32, valid_len)
+        y, grads, again = run(), run_bwd(), run_bwd()
+        torch.cuda.synchronize()
+        what = f"attn_proj B={b} N={n} H={h} hd={hd} f32={f32} valid_len={valid_len}"
+        fwd_errors.append(max_error(y[:, :rows], plain()[:, :rows], ATTN_PROJ_TOL, f"{what}: y"))
+        ref = plain_bwd()
+        bwd_errors.append(max_error(grads[0], ref[0], ATTENTION_BWD_TOL, f"{what}: dqkv"))
+        line = (f"{what}: y max |diff| {fwd_errors[-1]:.3e} (atol {ATTN_PROJ_TOL[0]}, rtol "
+                f"{ATTN_PROJ_TOL[1]}), dqkv {bwd_errors[-1]:.3e} (atol {ATTENTION_BWD_TOL[0]}, "
+                f"rtol {ATTENTION_BWD_TOL[1]})")
+        for name, got, want in (("dw", grads[1], ref[1]), ("db", grads[2], ref[2])):
+            tol = (ATTN_PROJ_PARAM_TOL[0] * want.float().abs().max().item(), ATTN_PROJ_PARAM_TOL[1])
+            err = max_error(got, want, tol, f"{what}: {name}")
+            line += f", {name} {err:.3e} (atol {tol[0]:.3e}, rtol {tol[1]})"
+        if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+            fail(f"{what}: two backward runs gave different bits")
+        print(line + "; rerun bit-identical")
+        if valid_len is not None:
+            continue
+        leaves = [t.clone().requires_grad_() for t in (qkv, w, bias)]
+
+        def library(leaves=leaves):
+            out = F.scaled_dot_product_attention(*heads_of(leaves[0], h))
+            return F.linear(out.transpose(1, 2).reshape(b, n, d), leaves[1], leaves[2])
+
+        lib_y = library()
+        library_bwd = lambda: torch.autograd.grad(lib_y, leaves, dy, retain_graph=True)  # noqa: E731
+        with torch.no_grad():
+            fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
+        bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
+              f"scaled_dot_product_attention + F.linear {fwd_times[i][2]:.4f} ms; backward kernels "
+              f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, the library pair's "
+              f"{bwd_times[i][2]:.4f} ms")
+        del leaves, lib_y
+    b, n, h, hd = cases[0][:4]
+    d = h * hd
+    core, proj = b * h * n * n * hd, b * n * d * d
+    return {
+        "attn_proj": entry(
+            "attn_proj.cu", "ssl4polyp_tpu/ops/attn_proj.py:77", max(fwd_errors),
+            *fwd_times[0][:2], bytes_moved=2 * (4 * b * n * d + d * d + d),
+            flops=4 * core + 2 * proj, library_ms=fwd_times[0][2]),
+        "attn_proj_backward": entry(
+            "attn_proj.cu", "ssl4polyp_tpu/ops/attn_proj.py:90", max(bwd_errors),
+            *bwd_times[0][:2], bytes_moved=2 * (7 * b * n * d + 2 * d * d + d),
+            flops=10 * core + 6 * proj, library_ms=bwd_times[0][2]),
+    }
+
+
+def adamw_kernel(gen: torch.Generator) -> dict[str, dict]:
+    """The one-pass AdamW kernel against its plain version on the MAE's and
+    the classifier's parameter lists, three steps each: per-tensor scales, a
+    frozen tensor, bf16 copies of the matrices.  The parameters, moments and
+    copies must be equal bit for bit after every step.  Beside it the library
+    route: torch.optim.AdamW(fused=True) and the casts to bf16."""
+    report = {}
+    mae = MAE(model_config(PretrainSettings(batch_size=BATCH)), torch.Generator().manual_seed(SEED))
+    mae_params = {n: p.detach() for n, p in mae.cuda().named_parameters()}
+    vit = get_imagenet_or_random_vit(torch.Generator().manual_seed(SEED), num_classes=2,
+                                     device="cuda")
+    vit_params = {n: p.detach() for n, p in vit.model.named_parameters()}
+    lists = [
+        ("MAE ViT-B/16", mae_params, optim.pretrain_lr_scales(mae_params), 0.95),
+        ("ViT-B/16 classifier", vit_params,
+         optim.finetune_lr_scales(vit_params, "full", vit.cfg.depth, head_scale=2.5,
+                                  freeze_pos_embed=True), 0.999),
+    ]
+    for label, params, lr_scale, b2 in lists:
+        wd_scale = optim.no_weight_decay_scales(params)
+        sides = []
+        for _ in range(2):  # the kernel's tensors, then the plain version's
+            own = {n: p.clone() for n, p in params.items()}
+            sides.append((own, layers.compute_copy(own, torch.bfloat16), optim.adamw_init(own)))
+        kwargs = dict(b1=0.9, b2=b2, weight_decay=0.05, lr_scale=lr_scale, wd_scale=wd_scale)
+        launches = -(-len(params) // adamw.TENSORS_PER_LAUNCH)
+        worst = 0.0
+        for step in range(3):
+            grads = {n: 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
+                     for n, p in params.items()}
+            ops.reset_launch_counts()
+            optim.adamw_update_fused(*sides[0][:2], grads, sides[0][2], lr=1e-3 * (step + 1), **kwargs)
+            if ops.launch_counts()["adamw"] != launches:
+                fail(f"adamw {label}: {ops.launch_counts()['adamw']} launches, expected {launches}")
+            optim.adamw_update_fused_plain(*sides[1][:2], grads, sides[1][2], lr=1e-3 * (step + 1),
+                                           **kwargs)
+            torch.cuda.synchronize()
+            groups = [(sides[0][0], sides[1][0]), (sides[0][1], sides[1][1]),
+                      (sides[0][2].mu, sides[1][2].mu), (sides[0][2].nu, sides[1][2].nu)]
+            for what, (got, want) in zip(("parameter", "copy", "mu", "nu"), groups):
+                for name in params:
+                    if not torch.equal(got[name], want[name]):
+                        worst = (got[name].float() - want[name].float()).abs().max().item()
+                        fail(f"adamw {label} step {step + 1}: {what} of {name} differs from the "
+                             f"plain version's bits (max |diff| {worst})")
+        frozen = [n for n, scale in lr_scale.items() if scale == 0.0]
+        if not frozen or not all(torch.equal(sides[0][0][n], params[n]) for n in frozen):
+            fail(f"adamw {label}: a frozen tensor moved")
+        if not all(sides[0][2].mu[n].abs().sum() > 0 for n in frozen):
+            fail(f"adamw {label}: a frozen tensor's moments did not move")
+        grads = {n: 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
+                 for n, p in params.items()}
+        run = lambda: optim.adamw_update_fused(*sides[0][:2], grads, sides[0][2], lr=1e-3, **kwargs)  # noqa: E731
+        plain = lambda: optim.adamw_update_fused_plain(  # noqa: E731
+            *sides[1][:2], grads, sides[1][2], lr=1e-3, **kwargs)
+        # The library route, timed only: one fused AdamW step over the same
+        # tensors (one learning rate) and the casts of the matrices to bf16.
+        lib_params = [p.clone().requires_grad_() for p in params.values()]
+        for p, g in zip(lib_params, grads.values()):
+            p.grad = g
+        lib_opt = torch.optim.AdamW(lib_params, lr=1e-3, betas=(0.9, b2), weight_decay=0.05,
+                                    fused=True)
+        masters = [p.detach() for p in lib_params if p.dim() >= 2]
+        lib_copies = [p.to(torch.bfloat16) for p in masters]
+
+        def library():
+            lib_opt.step()
+            torch._foreach_copy_(lib_copies, masters)
+
+        ms, plain_ms, library_ms = time_ms(run), time_ms(plain), time_ms(library)
+        n_all = sum(p.numel() for p in params.values())
+        n_frozen = sum(params[n].numel() for n in frozen)
+        n_copy = sum(p.numel() for n, p in params.items() if p.dim() >= 2 and n not in frozen)
+        # Read p, g, mu, nu and write p, mu, nu in fp32 (a frozen tensor's p
+        # is neither read nor written), and write the bf16 copies.
+        moved = 28 * n_all - 8 * n_frozen + 2 * n_copy
+        print(f"adamw {label}: {len(params)} tensors, {n_all / 1e6:.1f} M elements, {launches} "
+              f"launches a step; parameters, copies and moments equal the plain version's bit "
+              f"for bit over 3 steps; {len(frozen)} frozen kept their bits; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, torch.optim.AdamW(fused=True) + casts {library_ms:.4f} "
+              f"ms; {moved / 1e9:.2f} GB is {1e3 * moved / HBM_BYTES_PER_S:.4f} ms at the "
+              f"card's memory rate")
+        report.setdefault("adamw", entry(
+            "adamw.cu", "ssl4polyp_tpu/ops/adamw.py:29", worst, ms, plain_ms,
+            bytes_moved=moved, flops=15 * n_all, peak=FP32_FLOPS, library_ms=library_ms))
+        del sides, grads, lib_params, lib_opt, masters, lib_copies
     return report
 
 
@@ -454,39 +698,56 @@ def check_counts(counts: dict[str, int], per_call: dict[str, int], calls: int, w
 def phase_eval(gen: torch.Generator) -> dict[str, int]:
     rng = np.random.default_rng(SEED)
     cfg = ViTConfig(pos_embed="learned", num_classes=2)  # ViT-B/16 at 224 px
-    classifier = get_imagenet_or_random_vit(
-        gen, jax_params=jax_layout_tree(cfg, rng), num_classes=2, device="cuda"
-    )
-    forward = make_forward_fn(classifier, "cuda")
+    tree = jax_layout_tree(cfg, rng)
     requests = [rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
                 for _ in range(REQUESTS)]
+    total: dict[str, int] = {}
+    unfolded = None
+    for fold in (False, True):
+        what = "eval forward under BENCH_ATTN_PROJ=1" if fold else "eval forward"
+        with projection_fold(fold):
+            classifier = get_imagenet_or_random_vit(gen, jax_params=tree, num_classes=2,
+                                                    device="cuda")
+        if any(block.attn.proj_fold != fold for block in classifier.model.blocks):
+            fail(f"{what}: the blocks' projection fold is not {fold}")
+        forward = make_forward_fn(classifier, "cuda")
 
-    forward(requests[0])  # warm-up
-    ops.reset_launch_counts()
-    logits = [forward(images) for images in requests]
-    counts = ops.launch_counts()
-    per_request = {"fused_qkv_attention": cfg.depth, "layernorm": 2 * cfg.depth + 1,
-                   "fc1_gelu": cfg.depth}
-    check_counts(counts, per_request, REQUESTS, f"{REQUESTS} eval requests")
+        forward(requests[0])  # warm-up
+        ops.reset_launch_counts()
+        logits = [forward(images) for images in requests]
+        counts = ops.launch_counts()
+        per_request = {"attn_proj" if fold else "fused_qkv_attention": cfg.depth,
+                       "layernorm": 2 * cfg.depth + 1, "fc1_gelu": cfg.depth}
+        check_counts(counts, per_request, REQUESTS, f"{REQUESTS} requests of the {what}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
 
-    rate = rates(lambda: forward(requests[0]), BATCH, REPEATS, REPEAT_CALLS)
-    ops.reset_launch_counts()
-    with plain_kernels():
-        plain_logits = [forward(images) for images in requests]
-        plain_rate = rates(lambda: forward(requests[0]), BATCH, REPEATS, REPEAT_CALLS)
-    if any(ops.launch_counts().values()):
-        fail("the plain forward launched a kernel")
-    errors = []
-    for got, ref in zip(logits, plain_logits):
-        if got.shape != (BATCH, 2) or got.dtype != np.float32:
-            fail(f"logits {got.shape} {got.dtype}, expected ({BATCH}, 2) float32")
-        errors.append(max_error(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL, "logits"))
-    print(f"logits vs plain forward: max |diff| {max(errors):.3e} "
-          f"(atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]}); logit range "
-          f"[{min(l.min() for l in logits):.3f}, {max(l.max() for l in logits):.3f}]")
-    print(f"eval forward ViT-B/16, batch {BATCH}, images/s over {REPEATS} repeats of "
-          f"{REPEAT_CALLS} requests: kernels {spread(rate)}; plain {spread(plain_rate)}")
-    return counts
+        rate = rates(lambda: forward(requests[0]), BATCH, REPEATS, REPEAT_CALLS)
+        ops.reset_launch_counts()
+        with plain_kernels():
+            plain_logits = [forward(images) for images in requests]
+            plain_rate = rates(lambda: forward(requests[0]), BATCH, REPEATS, REPEAT_CALLS)
+        if any(ops.launch_counts().values()):
+            fail(f"{what}: the plain forward launched a kernel")
+        errors = []
+        for got, ref in zip(logits, plain_logits):
+            if got.shape != (BATCH, 2) or got.dtype != np.float32:
+                fail(f"logits {got.shape} {got.dtype}, expected ({BATCH}, 2) float32")
+            errors.append(max_error(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL,
+                                    f"{what}: logits"))
+        print(f"{what}: logits vs plain forward: max |diff| {max(errors):.3e} "
+              f"(atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]}); logit range "
+              f"[{min(l.min() for l in logits):.3f}, {max(l.max() for l in logits):.3f}]")
+        if fold:  # the same function as the unfolded forward, other kernels
+            err = max(max_error(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL,
+                                f"{what}: logits against the unfolded forward's")
+                      for got, ref in zip(logits, unfolded))
+            print(f"{what}: logits vs the unfolded forward's: max |diff| {err:.3e}")
+        unfolded = logits
+        print(f"{what} ViT-B/16, batch {BATCH}, images/s over {REPEATS} repeats of "
+              f"{REPEAT_CALLS} requests: kernels {spread(rate)}; plain {spread(plain_rate)}")
+        del classifier, forward
+    return total
 
 
 def check_step_one(loss, grads, plain_loss, plain_grads, loss_rtol: float, grad_rtol: float,
@@ -552,7 +813,8 @@ def phase_pretrain() -> dict[str, int]:
         return init_pretrain_state(model.cuda())
 
     # Step 1's loss and gradients, kernels against plain, from one state.
-    state = fresh_state()
+    with projection_fold(False):
+        state = fresh_state()
     loss, grads = pretrain_loss_and_grads(state, batches[0], noise[0])
     with plain_kernels():
         plain_loss, plain_grads = pretrain_loss_and_grads(state, batches[0], noise[0])
@@ -583,6 +845,7 @@ def phase_pretrain() -> dict[str, int]:
         "layernorm": 2 * (enc_depth + dec_depth) + 2,
         "layernorm_backward": 2 * (enc_depth + dec_depth) + 2,
         "fc1_gelu": enc_depth + dec_depth,
+        "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH),
     }
     check_counts(counts, per_step, STEPS, f"{STEPS} pretrain steps")
     if not all(np.isfinite(losses)):
@@ -596,7 +859,8 @@ def phase_pretrain() -> dict[str, int]:
 
     kernel_rate = rate(state)
     del state
-    plain_state = fresh_state()
+    with projection_fold(False):
+        plain_state = fresh_state()
     ops.reset_launch_counts()
     with plain_kernels():
         plain_losses = train(plain_state)
@@ -611,7 +875,36 @@ def phase_pretrain() -> dict[str, int]:
           f"{spread(plain_rate)} ({statistics.median(plain_rate) * flops / 1e12:.1f}); "
           f"{flops / 1e9:.2f} GFLOP per image; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    return counts
+    del plain_state
+
+    # Under BENCH_ATTN_PROJ=1 the decoder (197 tokens, padded by the recipe)
+    # folds its projection into the attention kernel; the encoder at 50
+    # tokens keeps the attention kernel and the separate projection.
+    with projection_fold(True):
+        state = fresh_state()
+    folds = [[b.attn.proj_fold for b in blocks]
+             for blocks in (state.model.blocks, state.model.decoder_blocks)]
+    if any(folds[0]) or not all(folds[1]):
+        fail(f"pretrain under BENCH_ATTN_PROJ=1: encoder folds {folds[0]}, decoder {folds[1]}")
+    loss, grads = pretrain_loss_and_grads(state, batches[0], noise[0])
+    with plain_kernels():
+        plain_loss, plain_grads = pretrain_loss_and_grads(state, batches[0], noise[0])
+    check_step_one(loss, grads, plain_loss, plain_grads, LOSS_RTOL, GRAD_RTOL,
+                   "pretrain under BENCH_ATTN_PROJ=1")
+    del grads, plain_grads
+    fold_steps = 2
+    ops.reset_launch_counts()
+    losses = [train_step(state, batches[i], noise[i], schedule(i))["loss"].item()
+              for i in range(fold_steps)]
+    fold_counts = ops.launch_counts()
+    per_step = dict(per_step, fused_qkv_attention=enc_depth, fused_qkv_attention_backward=enc_depth,
+                    attn_proj=dec_depth, attn_proj_backward=dec_depth)
+    check_counts(fold_counts, per_step, fold_steps,
+                 f"{fold_steps} pretrain steps under BENCH_ATTN_PROJ=1")
+    if not all(np.isfinite(losses)):
+        fail(f"non-finite pretrain loss under BENCH_ATTN_PROJ=1: {losses}")
+    print(f"pretrain losses under BENCH_ATTN_PROJ=1: {[round(x, 6) for x in losses]}")
+    return {name: counts[name] + fold_counts[name] for name in counts}
 
 
 def phase_finetune() -> dict[str, int]:
@@ -626,11 +919,12 @@ def phase_finetune() -> dict[str, int]:
     loss_mode, pos_weight, class_weights = loss_settings([3000, 1000])
     depth = base.depth
     total: dict[str, int] = {}
-    for label, overrides in FINETUNE_CONFIGS:
+    for label, overrides, fold in FINETUNE_CONFIGS:
         def fresh_state():
-            classifier = get_imagenet_or_random_vit(
-                torch.Generator().manual_seed(SEED), jax_params=tree, num_classes=2,
-                device="cuda", **overrides)
+            with projection_fold(fold):
+                classifier = get_imagenet_or_random_vit(
+                    torch.Generator().manual_seed(SEED), jax_params=tree, num_classes=2,
+                    device="cuda", **overrides)
             return classifier, init_train_state(
                 classifier, torch.Generator(device="cuda").manual_seed(SEED))
 
@@ -664,16 +958,22 @@ def phase_finetune() -> dict[str, int]:
         losses = train(state)
         counts = ops.launch_counts()
         mlp_route, qkv_ln = classifier.model.blocks[0].mlp_route, classifier.model.blocks[0].qkv_ln
+        if any(block.attn.proj_fold != fold for block in classifier.model.blocks):
+            fail(f"{what}: the blocks' projection fold is not {fold}")
         # The final norm and each block's two: where a fused kernel folds a
         # LayerNorm in, its backward recomputes the normalised row and takes
         # the LayerNorm backward on the LayerNorm kernels, once each.
+        # Under the fold the attention+projection kernel takes the attention
+        # kernel's place, forward and backward (proj.weight's and proj.bias's
+        # gradients come from it).  One AdamW pass over the 152 tensors.
         per_step = {
-            "fused_qkv_attention": depth,
-            "fused_qkv_attention_backward": depth,
+            "attn_proj" if fold else "fused_qkv_attention": depth,
+            "attn_proj_backward" if fold else "fused_qkv_attention_backward": depth,
             "layernorm": 2 * depth + 1,
             "layernorm_backward": 2 * depth + 1,
             "ln_linear": depth if qkv_ln else 0,
             {"fc1": "fc1_gelu", "full": "mlp_fused", "full_ln": "mlp_ln_fused"}[mlp_route]: depth,
+            "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH),
         }
         check_counts(counts, per_step, STEPS, f"{STEPS} {what} steps")
         for name, n in counts.items():

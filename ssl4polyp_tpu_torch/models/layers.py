@@ -15,9 +15,9 @@ mixed-precision recipe:
 Every kernel dispatches on the tensor's device alone: a CUDA tensor goes
 through the hand-written kernels (forward and backward), a CPU tensor
 through the kernels' plain torch versions.  The JAX package's fusion knobs
-(``mlp_fusion``, ``qkv_ln_fusion``) choose which kernels compute a block,
-with their roundings, on the stacks where the JAX package runs its flattened
-stream (:func:`block_route`).  Its other layout devices (token padding,
+(``mlp_fusion``, ``qkv_ln_fusion`` and the ``BENCH_ATTN_PROJ=1`` environment
+knob) choose which kernels compute a block, with their roundings, on the
+stacks where the JAX package runs its flattened stream (:func:`block_route`).  Its other layout devices (token padding,
 scan, remat) are TPU tiling choices, not semantics, and have no counterpart
 here: padding with ``valid_len`` masking is exact, so the port never pads.
 """
@@ -30,6 +30,7 @@ from typing import Dict, Mapping, Optional
 import torch
 from torch import nn
 
+from ..ops.attn_proj import attn_proj_fold_enabled, fused_attention_proj
 from ..ops.layernorm import layernorm
 from ..ops.ln_linear import ln_linear
 from ..ops.mlp import fc1_gelu, mlp_fused, mlp_ln_fused
@@ -64,24 +65,27 @@ def check_mlp_fusion(mlp_fusion: Optional[str]) -> None:
 
 
 def block_route(tokens: int, pad_to: Optional[int], dim: int, mlp_fusion: Optional[str],
-                qkv_ln_fusion: bool) -> tuple[str, bool]:
-    """(MLP kernels, whether norm1 folds into the QKV product) of a stack of
-    blocks over ``tokens`` tokens of width ``dim``, as the JAX package picks
-    them (``models/layers.py:386-393, 411-422``).
+                qkv_ln_fusion: bool) -> tuple[str, bool, bool]:
+    """(MLP kernels, whether norm1 folds into the QKV product, whether the
+    output projection folds into the attention kernel) of a stack of blocks
+    over ``tokens`` tokens of width ``dim``, as the JAX package picks them
+    (``models/layers.py:251-287, 386-393, 411-422``).
 
     The JAX stack runs its flattened stream, where alone the fusion knobs
     apply, when the token count after its padding (``pad_to``, when it is
     larger) is a multiple of 8 and ``dim`` and ``3 * dim`` are multiples of
     128.  Elsewhere it runs its default kernels, which are the port's
     ``"fc1"``.  ``mlp_fusion`` None means ``"fc1"``; the port runs ``"off"``
-    (the JAX package's plain XLA MLP) through the same fc1+GELU kernel.
+    (the JAX package's plain XLA MLP) through the same fc1+GELU kernel.  The
+    projection fold is the environment knob ``BENCH_ATTN_PROJ=1``, read here,
+    where a model is built (the counterpart of the JAX package's trace time).
     """
     check_mlp_fusion(mlp_fusion)
     padded = pad_to if pad_to and pad_to > tokens else tokens
     if not (padded % 8 == 0 and dim % 128 == 0 and (3 * dim) % 128 == 0):
-        return "fc1", False
+        return "fc1", False, False
     mlp = "fc1" if mlp_fusion in (None, "off") else mlp_fusion
-    return mlp, bool(qkv_ln_fusion)
+    return mlp, bool(qkv_ln_fusion), attn_proj_fold_enabled()
 
 
 # Initialisers (the reference scheme: xavier-uniform linears, zero biases,
@@ -161,19 +165,25 @@ class Attention(nn.Module):
     attention kernel, which adds the QKV bias itself, then the projection.
     With ``norm`` (``qkv_ln_fusion``) the pre-norm folds into the QKV
     product (``ln_linear``), which adds the bias, and the attention kernel
-    runs without one, as the JAX flattened stream does (layers.py:254-267)."""
+    runs without one, as the JAX flattened stream does (layers.py:254-267).
+    With ``proj_fold`` the QKV product adds its bias itself (``linear``, or
+    ``ln_linear`` under ``norm``) and one kernel computes attention and the
+    projection (``fused_attention_proj``, layers.py:272-285)."""
 
     def __init__(self, dim: int, num_heads: int, generator: torch.Generator,
-                 softmax_f32: bool = True):
+                 softmax_f32: bool = True, proj_fold: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.softmax_f32 = softmax_f32
+        self.proj_fold = proj_fold
         self.qkv = Linear(dim, 3 * dim, generator)
         self.proj = Linear(dim, dim, generator)
 
     def forward(self, x: torch.Tensor, norm: Optional[LayerNorm] = None) -> torch.Tensor:
         dtype = x.dtype
-        if norm is None:
+        if norm is None and self.proj_fold:
+            qkv, bias = self.qkv(x), None
+        elif norm is None:
             qkv = torch.matmul(x, self.qkv.weight.to(dtype).t())
             bias = self.qkv.bias.to(dtype)
         else:
@@ -181,6 +191,10 @@ class Attention(nn.Module):
                             self.qkv.weight.to(dtype), self.qkv.bias.to(dtype),
                             norm.eps).reshape(*x.shape[:-1], -1)
             bias = None
+        if self.proj_fold:
+            return fused_attention_proj(qkv, self.proj.weight.to(dtype),
+                                        self.proj.bias.to(dtype), self.num_heads,
+                                        self.softmax_f32)
         out = fused_qkv_attention(qkv, self.num_heads, self.softmax_f32, bias=bias)
         return self.proj(out)
 
@@ -192,21 +206,22 @@ class Block(nn.Module):
     stack: ``"fc1"`` runs norm2, the fc1+GELU kernel, fc2 and the residual
     add; ``"full"`` norm2 and ``mlp_fused`` (fc1+GELU+fc2 in one kernel);
     ``"full_ln"`` ``mlp_ln_fused``, which returns ``x + mlp(norm2(x))``
-    (layers.py:436-441).  The parameters are the same in every route: the
-    matrices go in as the compute copy, the biases cast to the compute
-    dtype and the LayerNorm affine in fp32, as at the JAX call sites.
+    (layers.py:436-441).  ``proj_fold`` is passed on to :class:`Attention`.
+    The parameters are the same in every route: the matrices go in as the
+    compute copy, the biases cast to the compute dtype and the LayerNorm
+    affine in fp32, as at the JAX call sites.
     """
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float, generator: torch.Generator,
                  ln_eps: float = 1e-6, softmax_f32: bool = True, mlp_route: str = "fc1",
-                 qkv_ln: bool = False):
+                 qkv_ln: bool = False, proj_fold: bool = False):
         super().__init__()
         if mlp_route not in ("fc1", "full", "full_ln"):
             raise ValueError(f"unknown MLP route {mlp_route!r}")
         self.mlp_route = mlp_route
         self.qkv_ln = qkv_ln
         self.norm1 = LayerNorm(dim, ln_eps)
-        self.attn = Attention(dim, num_heads, generator, softmax_f32)
+        self.attn = Attention(dim, num_heads, generator, softmax_f32, proj_fold)
         self.norm2 = LayerNorm(dim, ln_eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), generator)
 

@@ -14,9 +14,10 @@ Counterpart of ``ssl4polyp_tpu/models/mae.py`` (reference
 Parameter names are timm's MAE names (``decoder_embed``, ``mask_token``,
 ``decoder_pos_embed``, ``decoder_blocks.{i}``, ``decoder_norm``,
 ``decoder_pred``); both sin-cos tables are frozen (``requires_grad=False``).
-The encoder config's fusion knobs apply to both stacks, each where the JAX
-package runs its flattened stream (:func:`.layers.block_route`), which
-``encoder_pad_to`` and ``decoder_pad_to`` decide; the port never pads.
+The encoder config's fusion knobs and the ``BENCH_ATTN_PROJ=1`` projection
+fold apply to both stacks, each where the JAX package runs its flattened
+stream (:func:`.layers.block_route`), which ``encoder_pad_to`` and
+``decoder_pad_to`` decide; the port never pads.
 """
 
 from __future__ import annotations

@@ -8,9 +8,11 @@ Counterpart of ``ssl4polyp_tpu/models/vit.py``:
 * positional embeddings are fixed sin-cos (MAE lineage) or learned (timm
   lineage);
 * logits come out in fp32;
-* ``mlp_fusion`` and ``qkv_ln_fusion`` choose the blocks' kernels where the
-  JAX package honours them (:func:`.layers.block_route`); ``pad_tokens_to``
-  is read for that rule alone, since the port never pads.
+* ``mlp_fusion``, ``qkv_ln_fusion`` and the environment knob
+  ``BENCH_ATTN_PROJ=1`` (read when the model is built) choose the blocks'
+  kernels where the JAX package honours them
+  (:func:`.layers.block_route`); ``pad_tokens_to`` is read for that rule
+  alone, since the port never pads.
 
 Parameter names are timm's, so a timm or MAE state dict loads as it is.
 """

@@ -6,7 +6,7 @@ needs neither nvcc nor a GPU.
 
 from __future__ import annotations
 
-from . import layernorm, ln_linear, mlp, qkv_attention
+from . import adamw, attn_proj, layernorm, ln_linear, mlp, qkv_attention
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
@@ -20,6 +20,9 @@ _COUNTERS = {
     "mlp_fused": (mlp, "fused_launches"),
     "mlp_ln_fused": (mlp, "ln_fused_launches"),
     "ln_linear": (ln_linear, "launches"),
+    "attn_proj": (attn_proj, "launches"),
+    "attn_proj_backward": (attn_proj, "backward_launches"),
+    "adamw": (adamw, "launches"),
 }
 
 

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 Every ``csrc/*.cu`` source (with the ``csrc/*.cuh`` headers they include)
-compiles, at first use, into one shared library with a plain C interface::
+compiles, at first use, one nvcc process per source and all at once, into
+one shared library with a plain C interface::
 
     build/ssl4polyp_tpu_torch/<sha256 of the sources and flags>/libkernels.so
 
@@ -23,10 +24,8 @@ __all__ = ["library", "library_path"]
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "ssl4polyp_tpu_torch"
-_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+_FLAGS = (*_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # (name, restype, argtypes) of every C entry point in csrc/.
 _ENTRY_POINTS = (
     ("ssl4polyp_qkv_attention_fwd", ctypes.c_int,
@@ -45,6 +44,14 @@ _ENTRY_POINTS = (
      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_ln_linear_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_attn_proj_fwd", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_attn_proj_bwd", ctypes.c_int,
+     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_adamw_step", ctypes.c_int, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_adamw_layout", ctypes.c_int, [ctypes.c_int]),
 )
 
 _library: ctypes.CDLL | None = None
@@ -76,16 +83,31 @@ def _nvcc() -> str:
 
 def _build(target: Path) -> None:
     target.parent.mkdir(parents=True, exist_ok=True)
-    partial = target.with_suffix(f".{os.getpid()}.tmp")
-    command = [_nvcc(), *_FLAGS, "-o", str(partial), *map(str, _sources())]
-    result = subprocess.run(command, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f".{os.getpid()}.tmp"
+    objects = [target.parent / f"{source.stem}{tag}.o" for source in _sources()]
+    compiles = [
+        subprocess.Popen([nvcc, *_FLAGS, "-c", "-o", str(obj), str(source)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for source, obj in zip(_sources(), objects)
+    ]
     # ptxas -v reports registers, shared memory and spills per kernel.
-    (target.parent / "nvcc.log").write_text(result.stdout + result.stderr)
-    if result.returncode != 0:
+    logs = [f"== {source.name}\n{process.communicate()[0]}"
+            for source, process in zip(_sources(), compiles)]
+    partial = target.with_suffix(f"{tag}.so")
+    failed = [source.name for source, process in zip(_sources(), compiles) if process.returncode]
+    if not failed:
+        link = subprocess.run([nvcc, *_ARCH, "-shared", "-o", str(partial), *map(str, objects)],
+                              capture_output=True, text=True)
+        logs.append(f"== link\n{link.stdout}{link.stderr}")
+        if link.returncode:
+            failed = ["link"]
+    (target.parent / "nvcc.log").write_text("\n".join(logs))
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if failed:
         partial.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({result.returncode}): {' '.join(command)}\n{result.stderr}"
-        )
+        raise RuntimeError(f"nvcc failed on {failed} ({' '.join(_FLAGS)}):\n" + "\n".join(logs))
     os.replace(partial, target)
 
 

@@ -55,6 +55,17 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
                : "r"(addr));
 }
 
+// ldmatrix_x4 with each 8x8 matrix transposed on the way: for an operand
+// whose reduction index runs down the rows in shared memory.  Lane l gives
+// the address of row l % 8 of matrix l / 8 as stored; thread (g, t) receives
+// the stored elements (2t, g) and (2t + 1, g) of each matrix.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
 // Two 8x8 bf16 matrices; lanes 0-15 give the addresses (row l % 8 of matrix
 // l / 8), the other lanes' addresses are ignored.
 __device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {

@@ -14,8 +14,10 @@
 // amortise its fixed per-dot overhead; here every block simply owns one
 // (batch, head, 64-query tile) and the 132 SMs run thousands of such blocks.
 // Each query tile re-reads its head's K and V (from L2 after the first), and
-// the synchronous staging loads are not overlapped with the products: this
-// simple form is bound by load latency more than by either roofline.
+// the staging loads (eight 16-byte chunks in flight per thread, since the
+// bias add keeps them from being cp.async copies) are not overlapped with
+// the products: this simple form is bound by load latency more than by
+// either roofline.
 //
 // The simple design: one block of 4 warps per (query tile of 64 rows, head,
 // batch row).  The block copies the head's Q tile, all of K and all of V
@@ -29,46 +31,12 @@
 // and multiplies by V with mma.sync.  The score fragments are reused as the
 // A operand of the second product without leaving registers.  Later work:
 // ldmatrix, cp.async or TMA loads, and wgmma.
-#include <math.h>
-
-#include "common.cuh"
+#include "attention_core.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kTileRows = 16 * kWarps;  // query rows per block
-
-// Copies `rows` rows of one head's HD columns into shared memory (row stride
-// HD + 8 elements, which keeps the fragment loads free of bank conflicts).
-// Rows at or past N are zero.  With `bias`, x + bias is rounded to bf16;
-// with `fold_scale`, the result is then multiplied by `scale` and rounded
-// again: the compute-dtype scale fold of the TPU kernel.
-template <int HD>
-__device__ void stage_rows(bf16* dst, int rows, const bf16* src, int row0, int N,
-                           long ld, const bf16* bias, float scale, bool fold_scale) {
-  constexpr int kChunks = HD / 8;  // 16-byte chunks per row
-  constexpr int kLd = HD + 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * 8;
-    const int n = row0 + r;
-    uint4 chunk = make_uint4(0, 0, 0, 0);
-    if (n < N) {
-      chunk = *reinterpret_cast<const uint4*>(src + n * ld + c);
-      if (bias != nullptr || fold_scale) {
-        bf16* e = reinterpret_cast<bf16*>(&chunk);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          float x = __bfloat162float(e[j]);
-          if (bias != nullptr) x = round_bf16(x + __bfloat162float(bias[c + j]));
-          if (fold_scale) x = x * scale;
-          e[j] = __float2bfloat16(x);
-        }
-      }
-    }
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = chunk;
-  }
-}
 
 // NKT: key tiles of 16; the kernel takes N <= 16 * NKT.
 template <int HD, int NKT>
@@ -104,82 +72,8 @@ qkv_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias
   const int r0 = warp * 16;
   if (q0 + r0 >= N) return;  // no barrier follows
 
-  uint32_t qa[HD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    const bf16* p = s_q + (r0 + g) * kLd + kk * 16 + 2 * t;
-    qa[kk][0] = load_u32(p);
-    qa[kk][1] = load_u32(p + 8 * kLd);
-    qa[kk][2] = load_u32(p + 8);
-    qa[kk][3] = load_u32(p + 8 * kLd + 8);
-  }
-
-  // Scores: s[j] holds keys j*8 .. j*8+7; elements 0,1 are row g, 2,3 row g+8.
-  float s[2 * NKT][4];
-#pragma unroll
-  for (int j = 0; j < 2 * NKT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const bf16* p = s_k + (j * 8 + g) * kLd + kk * 16 + 2 * t;
-      mma_16816(s[j], qa[kk], load_u32(p), load_u32(p + 8));
-    }
-  }
-
-  float max0 = -INFINITY, max1 = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < 2 * NKT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = j * 8 + 2 * t + (e & 1);
-      float x = col < n_valid ? s[j][e] : -INFINITY;
-      if (!softmax_f32) x = round_bf16(x);
-      s[j][e] = x;
-    }
-    max0 = fmaxf(max0, fmaxf(s[j][0], s[j][1]));
-    max1 = fmaxf(max1, fmaxf(s[j][2], s[j][3]));
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    max0 = fmaxf(max0, __shfl_xor_sync(0xffffffffu, max0, off));
-    max1 = fmaxf(max1, __shfl_xor_sync(0xffffffffu, max1, off));
-  }
-  float sum0 = 0.0f, sum1 = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 2 * NKT; ++j) {
-    s[j][0] = expf(s[j][0] - max0);
-    s[j][1] = expf(s[j][1] - max0);
-    s[j][2] = expf(s[j][2] - max1);
-    s[j][3] = expf(s[j][3] - max1);
-    sum0 += s[j][0] + s[j][1];
-    sum1 += s[j][2] + s[j][3];
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
-  }
-  const float inv0 = 1.0f / sum0;
-  const float inv1 = 1.0f / sum1;
-
   float o[HD / 8][4];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
-#pragma unroll
-  for (int kt = 0; kt < NKT; ++kt) {
-    // The weights, normalised then rounded to bf16, as the A operand.
-    const uint32_t pa[4] = {
-        pack_floats(s[2 * kt][0] * inv0, s[2 * kt][1] * inv0),
-        pack_floats(s[2 * kt][2] * inv1, s[2 * kt][3] * inv1),
-        pack_floats(s[2 * kt + 1][0] * inv0, s[2 * kt + 1][1] * inv0),
-        pack_floats(s[2 * kt + 1][2] * inv1, s[2 * kt + 1][3] * inv1),
-    };
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const bf16* p = s_v + (kt * 16 + 2 * t) * kLd + n * 8 + g;
-      mma_16816(o[n], pa, pack_halves(p[0], p[kLd]), pack_halves(p[8 * kLd], p[9 * kLd]));
-    }
-  }
+  attention_rows<HD, NKT>(s_q, s_k, s_v, r0, lane, n_valid, softmax_f32, o);
 
   const int row_a = q0 + r0 + g;
   const int row_b = row_a + 8;
@@ -255,13 +149,6 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 // ---------------------------------------------------------------------------
 
 constexpr int kBwdWarps = 8;
-
-// The forward's scale fold on a packed pair of unscaled q values:
-// round_bf16(q * scale_c) for each.
-__device__ __forceinline__ uint32_t scale_pair(uint32_t packed, float scale_c) {
-  return pack_floats(__uint_as_float(packed << 16) * scale_c,
-                     __uint_as_float(packed & 0xffff0000u) * scale_c);
-}
 
 // A fragment (16 rows x 16 columns at `p`, row stride LD) of a row-major
 // bf16 matrix in shared memory; p points at (row g, column 2t).

@@ -7,13 +7,14 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
 For each path, at full width (MAE ViT-B/16 at batch 64, accum 1, bf16; the
 ViT-B/16 2-class classifier's fine-tune step at batch 64, bf16 with fp32
-scores, full fine-tuning, under each of its three kernel configurations;
-its eval forward at batch 64) with random weights from a seed:
+scores, full fine-tuning, under each of its four kernel configurations, the
+last with ``BENCH_ATTN_PROJ=1``; its eval forward at batch 64) with random
+weights from a seed:
 
 1. the rate without the profiler: images/s over 5 repeats of 10 steps (or
    requests) after warm-up, median and range;
 2. ``torch.profiler`` over 5 more steps: device time per step by
-   category (each hand-written kernel, cuBLAS, the foreach AdamW,
+   category (each hand-written kernel, cuBLAS, the foreach ops,
    elementwise, copies, reductions, the rest) with launches per step, and
    the device's idle share against the unprofiled median wall time and
    against the wall time under the profiler.
@@ -25,6 +26,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import os
 import statistics
 import subprocess
 import time
@@ -32,18 +35,24 @@ import time
 import numpy as np
 import torch
 
-__all__ = ["FINETUNE_CONFIGS", "category", "main", "rates", "spread"]
+__all__ = ["FINETUNE_CONFIGS", "category", "main", "projection_fold", "rates", "spread"]
 
 REPEATS, REPEAT_CALLS, PROFILE_CALLS = 5, 10, 5
-# The classifier's kernel configurations: (label, model overrides).
+# The classifier's kernel configurations: (label, model overrides, whether
+# the model is built under BENCH_ATTN_PROJ=1).
 FINETUNE_CONFIGS = (
-    ("fc1", {}),
-    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True}),
-    ("full", {"mlp_fusion": "full"}),
+    ("fc1", {}, False),
+    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True}, False),
+    ("full", {"mlp_fusion": "full"}, False),
+    ("fc1+attn_proj", {}, True),
 )
 
 # (substring of the kernel's name, category), first match wins.
 _CATEGORIES = (
+    ("attn_proj_dw_kernel", "attention+projection backward: dW kernel"),
+    ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
+    ("attn_proj_kernel", "attention+projection kernel (forward, and the backward's O and dO)"),
+    ("adamw_kernel", "AdamW kernel (one pass, with the compute copy)"),
     ("qkv_attention_bwd_kernel", "attention backward kernel"),
     ("qkv_attention_kernel", "attention forward kernel"),
     ("layernorm_bwd_kernel", "LayerNorm backward kernel"),
@@ -52,7 +61,7 @@ _CATEGORIES = (
     ("fc1_gelu_kernel", "fc1+GELU kernel"),
     ("mlp_fused_kernel", "fused MLP kernel (fc1+GELU+fc2, with or without LN)"),
     ("ln_linear_kernel", "LN+QKV kernel"),
-    ("multi_tensor_apply", "foreach ops (AdamW, gradient sums)"),
+    ("multi_tensor_apply", "foreach ops (gradient norm and sums)"),
     ("gemm", "cuBLAS GEMM"),
     ("nvjet", "cuBLAS GEMM"),
     ("cutlass", "cuBLAS GEMM"),
@@ -75,6 +84,21 @@ def category(kernel: str) -> str:
         if key.lower() in low:
             return name
     return "the rest"
+
+
+@contextlib.contextmanager
+def projection_fold(on: bool):
+    """``BENCH_ATTN_PROJ`` set to 1 or 0 for the models built inside: the
+    knob is read where a model is built (``models/layers.py::block_route``)."""
+    saved = os.environ.get("BENCH_ATTN_PROJ")
+    os.environ["BENCH_ATTN_PROJ"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["BENCH_ATTN_PROJ"]
+        else:
+            os.environ["BENCH_ATTN_PROJ"] = saved
 
 
 def rates(run, images_per_call: int, repeats: int, calls: int) -> list[float]:
@@ -172,9 +196,10 @@ def main(argv: list[str] | None = None) -> None:
     images = images[0]
     labels = torch.randint(0, 2, (batch,), device="cuda", generator=gen)
     valid = torch.ones(batch, dtype=torch.bool, device="cuda")
-    for label, overrides in FINETUNE_CONFIGS:
-        classifier = get_imagenet_or_random_vit(torch.Generator().manual_seed(0), num_classes=2,
-                                                device="cuda", **overrides)
+    for label, overrides, fold in FINETUNE_CONFIGS:
+        with projection_fold(fold):
+            classifier = get_imagenet_or_random_vit(torch.Generator().manual_seed(0),
+                                                    num_classes=2, device="cuda", **overrides)
         state = init_train_state(classifier, torch.Generator(device="cuda").manual_seed(0))
         step = make_train_step(TrainContext(classifier, mode, pos_weight, class_weights, 0.05))
         scales = finetune_lr_scales(state.params, "full", classifier.cfg.depth)

@@ -147,11 +147,12 @@ def make_train_step(ctx: TrainContext) -> Callable[..., Dict[str, torch.Tensor]]
     ``images_u8`` is (B, H, W, 3) uint8, ``labels`` (B,) int, ``valid`` (B,)
     bool, all on the model's device; ``lr_scale`` and ``wd_scale`` map each
     parameter name to its scale.  The step draws the augmentation from
-    ``state.generator``, takes the gradients (:func:`loss_and_grads`), runs
-    AdamW (0.9, 0.999) on the fp32 masters and refreshes the compute copy,
-    all in place.  Where the JAX engine fuses ``steps_per_call`` steps into
-    one dispatch with ``lax.scan``, the port's caller calls this step that
-    many times: eager PyTorch has no dispatch to amortise.
+    ``state.generator``, takes the gradients (:func:`loss_and_grads`), then
+    runs AdamW (0.9, 0.999) on the fp32 masters and refreshes the compute
+    copy in one pass (``optim.adamw_update_fused``), all in place.  Where
+    the JAX engine fuses ``steps_per_call`` steps into one dispatch with
+    ``lax.scan``, the port's caller calls this step that many times: eager
+    PyTorch has no dispatch to amortise.
     """
 
     def step(state: TrainState, images_u8: torch.Tensor, labels: torch.Tensor,
@@ -163,14 +164,9 @@ def make_train_step(ctx: TrainContext) -> Callable[..., Dict[str, torch.Tensor]]
         aug = draw_augment_params(images_u8.shape[0], state.generator)
         loss, grads = loss_and_grads(ctx, state, images_u8, labels, valid, aug)
         grad_norm = optim.global_norm(grads)
-        optim.adamw_update(state.params, grads, state.opt, lr=lr,
-                           weight_decay=ctx.weight_decay, lr_scale=lr_scale,
-                           wd_scale=wd_scale)
-        with torch.no_grad():
-            for name, copy in state.params_c.items():
-                master = state.params[name]
-                if copy.data_ptr() != master.data_ptr():  # vectors alias their masters
-                    copy.copy_(master)
+        optim.adamw_update_fused(state.params, state.params_c, grads, state.opt, lr=lr,
+                                 weight_decay=ctx.weight_decay, lr_scale=lr_scale,
+                                 wd_scale=wd_scale)
         return {"loss": loss, "grad_norm": grad_norm}
 
     return step

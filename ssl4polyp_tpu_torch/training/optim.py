@@ -11,21 +11,27 @@ weight decay scaled by the step's learning rate)::
 
 Unlike the functional JAX version, the update works in place on the fp32
 masters and moments, which saves a copy of the model and both moments.
-Tensors with the same (ls, ws) pair update together through torch's
-``_foreach`` ops, a few launches per group instead of a dozen per tensor.
+The train steps call :func:`adamw_update_fused`, which also refreshes the
+compute copy: on the card one multi-tensor kernel pass (``ops/adamw.py``),
+on the CPU the plain version, where tensors with the same (ls, ws) pair
+update together through torch's ``_foreach`` ops.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Mapping
 
 import torch
+
+from ..ops.adamw import adamw_multi_tensor, adamw_multi_tensor_plain
 
 __all__ = [
     "AdamWState",
     "adamw_init",
     "adamw_update",
+    "adamw_update_fused",
+    "adamw_update_fused_plain",
     "finetune_lr_scales",
     "global_norm",
     "no_weight_decay_scales",
@@ -46,6 +52,8 @@ class AdamWState:
     step: int
     mu: Tensors
     nu: Tensors
+    # What the kernel's wrapper keeps between steps (its tensor table).
+    cache: dict = field(default_factory=dict)
 
 
 def adamw_init(params: Mapping[str, torch.Tensor]) -> AdamWState:
@@ -107,7 +115,25 @@ def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms))
 
 
-@torch.no_grad()
+def _bias_corrections(step: int, b1: float, b2: float) -> tuple[float, float]:
+    """1 - b^step for both betas, in fp32 as the JAX step computes them."""
+    t = torch.tensor(float(step), dtype=torch.float32)
+    return (float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t),
+            float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t))
+
+
+def _step(run, params, params_c, grads, state, lr, b1, b2, eps, weight_decay, lr_scale,
+          wd_scale, **cache) -> None:
+    state.step += 1
+    bc1, bc2 = _bias_corrections(state.step, b1, b2)
+    names = list(params)
+    run([params[n] for n in names],
+        None if params_c is None else [params_c[n] for n in names],
+        [grads[n] for n in names], [state.mu[n] for n in names], [state.nu[n] for n in names],
+        [lr_scale[n] for n in names], [wd_scale[n] for n in names],
+        lr=lr, b1=b1, b2=b2, eps=eps, weight_decay=weight_decay, bc1=bc1, bc2=bc2, **cache)
+
+
 def adamw_update(
     params: Mapping[str, torch.Tensor],
     grads: Mapping[str, torch.Tensor],
@@ -121,28 +147,53 @@ def adamw_update(
     lr_scale: Mapping[str, float],
     wd_scale: Mapping[str, float],
 ) -> None:
-    """One AdamW step on the fp32 ``params`` and the moments, in place."""
-    state.step += 1
-    # The bias corrections in fp32, as the JAX step computes them.
-    t = torch.tensor(float(state.step), dtype=torch.float32)
-    bc1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** t)
-    bc2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** t)
-    groups: Dict[tuple, list] = {}
-    for name in params:
-        groups.setdefault((lr_scale[name], wd_scale[name]), []).append(name)
-    for (ls, ws), names in groups.items():
-        p = [params[n] for n in names]
-        g = [grads[n].float() for n in names]
-        mu = [state.mu[n] for n in names]
-        nu = [state.nu[n] for n in names]
-        torch._foreach_mul_(mu, b1)
-        torch._foreach_add_(mu, torch._foreach_mul(g, 1.0 - b1))
-        torch._foreach_mul_(nu, b2)
-        torch._foreach_add_(nu, torch._foreach_mul(torch._foreach_mul(g, g), 1.0 - b2))
-        if lr * ls == 0.0:  # frozen: the moments move, the parameters do not
-            continue
-        denom = torch._foreach_add(torch._foreach_sqrt(torch._foreach_div(nu, bc2)), eps)
-        step_dir = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        if weight_decay * ws:
-            torch._foreach_add_(step_dir, torch._foreach_mul(p, weight_decay * ws))
-        torch._foreach_sub_(p, torch._foreach_mul(step_dir, lr * ls))
+    """One AdamW step on the fp32 ``params`` and the moments, in place, in
+    plain torch on any device."""
+    _step(adamw_multi_tensor_plain, params, None, grads, state, lr, b1, b2, eps, weight_decay,
+          lr_scale, wd_scale)
+
+
+def adamw_update_fused(
+    params: Mapping[str, torch.Tensor],
+    params_c: Mapping[str, torch.Tensor],
+    grads: Mapping[str, torch.Tensor],
+    state: AdamWState,
+    *,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    lr_scale: Mapping[str, float],
+    wd_scale: Mapping[str, float],
+) -> None:
+    """One AdamW step that also refreshes the compute copy (JAX
+    ``adamw_update_fused``): ``params`` and the moments in place, and every
+    entry of ``params_c`` that is a tensor of its own (the bf16 copy of a
+    matrix; a vector's copy is its master) rewritten from the new value.
+
+    CUDA tensors go through the multi-tensor kernel (``ops/adamw.py``), or
+    it raises; CPU tensors through :func:`adamw_update_fused_plain`.
+    """
+    _step(adamw_multi_tensor, params, params_c, grads, state, lr, b1, b2, eps, weight_decay,
+          lr_scale, wd_scale, cache=state.cache)
+
+
+def adamw_update_fused_plain(
+    params: Mapping[str, torch.Tensor],
+    params_c: Mapping[str, torch.Tensor],
+    grads: Mapping[str, torch.Tensor],
+    state: AdamWState,
+    *,
+    lr: float,
+    b1: float = 0.9,
+    b2: float = 0.999,
+    eps: float = 1e-8,
+    weight_decay: float = 0.0,
+    lr_scale: Mapping[str, float],
+    wd_scale: Mapping[str, float],
+) -> None:
+    """:func:`adamw_update_fused` in plain torch on any device: the
+    ``_foreach`` chain of :func:`adamw_update`, then the copies."""
+    _step(adamw_multi_tensor_plain, params, params_c, grads, state, lr, b1, b2, eps,
+          weight_decay, lr_scale, wd_scale)

@@ -162,8 +162,9 @@ def make_pretrain_step(
 
     ``images_u8`` is (accum_iter, B, H, W, 3) uint8 and ``noise`` (accum_iter,
     B, L) float, both on the model's device.  The step averages the fp32
-    gradients of the microbatches (:func:`loss_and_grads`), runs AdamW on the
-    masters and refreshes the compute copy, all in place.
+    gradients of the microbatches (:func:`loss_and_grads`), then runs AdamW on
+    the masters and refreshes the compute copy in one pass
+    (``optim.adamw_update_fused``), all in place.
     """
 
     def step(state: PretrainState, images_u8: torch.Tensor, noise: torch.Tensor,
@@ -172,15 +173,10 @@ def make_pretrain_step(
             raise ValueError(f"the step was built for {accum_iter} microbatches of {cfg}")
         loss, grads = loss_and_grads(state, images_u8, noise)
         grad_norm = optim.global_norm(grads)
-        optim.adamw_update(
-            state.params, grads, state.opt, lr=lr, b1=0.9, b2=0.95,
+        optim.adamw_update_fused(
+            state.params, state.params_c, grads, state.opt, lr=lr, b1=0.9, b2=0.95,
             weight_decay=weight_decay, lr_scale=state.lr_scale, wd_scale=state.wd_scale,
         )
-        with torch.no_grad():
-            for name, copy in state.params_c.items():
-                master = state.params[name]
-                if copy.data_ptr() != master.data_ptr():  # vectors alias their masters
-                    copy.copy_(master)
         return {"loss": loss, "grad_norm": grad_norm}
 
     return step

@@ -8,7 +8,7 @@ import pytest
 import torch
 
 from ssl4polyp_tpu_torch import ops
-from ssl4polyp_tpu_torch.ops import mlp
+from ssl4polyp_tpu_torch.ops import attn_proj, mlp
 from ssl4polyp_tpu_torch.ops.layernorm import layernorm, layernorm_reference
 from ssl4polyp_tpu_torch.ops.ln_linear import ln_linear, ln_linear_plain, ln_linear_reference
 from ssl4polyp_tpu_torch.ops.mlp import fc1_gelu, fc1_gelu_plain, fc1_gelu_reference
@@ -269,3 +269,144 @@ def test_fused_wrappers_refuse_what_the_kernels_do_not_take(gen):
         with pytest.raises(ValueError):  # K not a multiple of 64
             ln_linear(_randn(gen, 4, 96), torch.ones(96, device="cuda"),
                       torch.zeros(96, device="cuda"), _randn(gen, 8, 96), _randn(gen, 8))
+
+
+# dw and db are fp32 sums over every row of the batch, taken in another order
+# than the plain version's (and dw over each side's own bf16-rounded O): the
+# tolerance is relative to the largest entry, as for the other parameter sums.
+ATTN_PROJ_PARAM_TOL = dict(atol_scale=5e-3, rtol=2e-2)
+
+
+@pytest.mark.parametrize(
+    "B, N, H, hd, softmax_f32, valid_len",
+    [
+        (64, 197, 12, 64, True, None),    # the classifier's call
+        (8, 197, 16, 32, False, None),    # the MAE decoder's call
+        (3, 197, 12, 64, True, 150),
+        (2, 50, 4, 32, False, 40),        # one row tile, width 128
+        (1, 256, 2, 64, True, 255),
+        (2, 129, 8, 32, True, None),
+    ],
+)
+def test_attn_proj_kernels_match_plain(gen, B, N, H, hd, softmax_f32, valid_len):
+    D = H * hd
+    qkv, dy = _randn(gen, B, N, 3 * D), _randn(gen, B, N, D)
+    if valid_len is not None:
+        dy[:, valid_len:] = 0  # the pad rows' upstream gradient is zero
+    w, b = _randn(gen, D, D, scale=D ** -0.5), _randn(gen, D, scale=0.5)
+    results = []
+    for fn in (attn_proj.fused_attention_proj, attn_proj.fused_attention_proj_plain):
+        leaves = [a.clone().requires_grad_() for a in (qkv, w, b)]
+        ops.reset_launch_counts()
+        out = fn(*leaves, H, softmax_f32, valid_len)
+        out.backward(dy)
+        torch.cuda.synchronize()
+        kernel = fn is attn_proj.fused_attention_proj
+        counts = ops.launch_counts()
+        assert counts["attn_proj"] == counts["attn_proj_backward"] == int(kernel)
+        assert counts["fused_qkv_attention"] == counts["fused_qkv_attention_backward"] == 0
+        results.append((out.detach(), *[a.grad for a in leaves]))
+    (out, dqkv, dw, db), (ref_out, ref_dqkv, ref_dw, ref_db) = results
+    rows = slice(None) if valid_len is None else slice(0, valid_len)
+    torch.testing.assert_close(out[:, rows], ref_out[:, rows], **ATTENTION_TOL)
+    torch.testing.assert_close(dqkv, ref_dqkv, **ATTENTION_BWD_TOL)
+    for name, got, want in (("dw", dw, ref_dw), ("db", db, ref_db)):
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=ATTN_PROJ_PARAM_TOL["atol_scale"] * scale,
+                                   rtol=ATTN_PROJ_PARAM_TOL["rtol"], msg=name)
+    # No atomics: a second backward gives the same bits.
+    again = attn_proj._backward_kernel(qkv, w, b, dy, H, softmax_f32, valid_len)
+    assert all(torch.equal(a, g) for a, g in zip(again, (dqkv, dw, db)))
+
+
+def test_attn_proj_padded_equals_unpadded(gen):
+    qkv = _randn(gen, 4, 197, 3 * 768)
+    w, b = _randn(gen, 768, 768, scale=768 ** -0.5), _randn(gen, 768, scale=0.5)
+    padded = torch.cat([qkv, _randn(gen, 4, 3, 3 * 768)], dim=1)
+    with torch.inference_mode():
+        out = attn_proj.fused_attention_proj(padded, w, b, 12, True, 197)[:, :197]
+        torch.testing.assert_close(out, attn_proj.fused_attention_proj(qkv, w, b, 12, True),
+                                   atol=0, rtol=0)
+
+
+def test_attn_proj_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    w, b = _randn(gen, 128, 128), _randn(gen, 128)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            attn_proj.fused_attention_proj(_randn(gen, 1, 8, 384).float(), w.float(), b.float(), 4)
+        with pytest.raises(ValueError):  # head dim 16
+            attn_proj.fused_attention_proj(_randn(gen, 1, 8, 384), w, b, 8)
+        with pytest.raises(ValueError):  # width 64 is not a multiple of 128
+            attn_proj.fused_attention_proj(_randn(gen, 1, 8, 192), _randn(gen, 64, 64),
+                                           _randn(gen, 64), 2)
+        with pytest.raises(ValueError):  # > 256 tokens
+            attn_proj.fused_attention_proj(_randn(gen, 1, 300, 384), w, b, 4)
+
+
+def _adamw_case(gen, shapes, grad_dtype=torch.float32):
+    """Parameters, copies (bf16 for matrices, the master itself for
+    vectors), moments and per-tensor scales with a frozen tensor."""
+    params = [torch.randn(*s, generator=gen, device="cuda") for s in shapes]
+    copies = [p.to(torch.bfloat16) if p.dim() >= 2 else p for p in params]
+    mu = [torch.zeros_like(p) for p in params]
+    nu = [torch.zeros_like(p) for p in params]
+    lr_scales = [0.0 if i == 1 else (0.5 if i % 3 == 0 else 1.0) for i in range(len(shapes))]
+    wd_scales = [1.0 if p.dim() >= 2 else 0.0 for p in params]
+    grads = [[(0.1 * torch.randn(*s, generator=gen, device="cuda")).to(grad_dtype) for s in shapes]
+             for _ in range(3)]
+    return params, copies, mu, nu, lr_scales, wd_scales, grads
+
+
+@pytest.mark.parametrize("grad_dtype", [torch.float32, torch.bfloat16])
+def test_adamw_kernel_equals_plain_bit_for_bit(gen, grad_dtype):
+    from ssl4polyp_tpu_torch.ops import adamw
+
+    # 70 tensors (two launches): matrices, vectors, sizes that are not a
+    # multiple of 4 or of a block's 8,192 elements, a scalar.
+    shapes = [(768, 768), (3, 5), (2304,), (1, 197, 768), (8193,), (7,), (1,), (64, 129)]
+    shapes += [(i + 1, 33) for i in range(62)]
+    kernel = _adamw_case(gen, shapes, grad_dtype)
+    plain = [[t.clone() for t in group] if isinstance(group[0], torch.Tensor) else group
+             for group in kernel[:6]]
+    plain[1] = [c if c.dtype == torch.bfloat16 else p for c, p in zip(plain[1], plain[0])]
+    grads = kernel[6]
+    frozen = kernel[0][1].clone(), kernel[1][1].clone()
+    for step in range(3):
+        bc = dict(bc1=1 - 0.9 ** (step + 1), bc2=1 - 0.95 ** (step + 1))
+        bc = {k: float(torch.tensor(v, dtype=torch.float32)) for k, v in bc.items()}
+        kwargs = dict(lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.05, **bc)
+        ops.reset_launch_counts()
+        adamw.adamw_multi_tensor(kernel[0], kernel[1], grads[step], kernel[2], kernel[3],
+                                 kernel[4], kernel[5], **kwargs)
+        torch.cuda.synchronize()
+        assert ops.launch_counts()["adamw"] == 2
+        adamw.adamw_multi_tensor_plain(plain[0], plain[1], grads[step], plain[2], plain[3],
+                                       plain[4], plain[5], **kwargs)
+        for group, (got, want) in enumerate(zip(kernel[:4], plain[:4])):
+            for i, (a, b) in enumerate(zip(got, want)):
+                assert torch.equal(a, b), (step, group, i, (a.float() - b.float()).abs().max())
+    assert torch.equal(kernel[0][1], frozen[0]) and torch.equal(kernel[1][1], frozen[1])
+    assert kernel[2][1].abs().sum() > 0  # the frozen tensor's moments moved
+    # A vector's copy is the master itself: it moved with it.
+    assert kernel[1][2].data_ptr() == kernel[0][2].data_ptr()
+
+
+def test_adamw_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    from ssl4polyp_tpu_torch.ops import adamw
+
+    p = torch.randn(8, 8, generator=gen, device="cuda")
+    zeros = lambda: torch.zeros_like(p)  # noqa: E731
+    kwargs = dict(lr=1e-3, b1=0.9, b2=0.999, eps=1e-8, weight_decay=0.0, bc1=0.1, bc2=0.001)
+    with pytest.raises(TypeError):  # fp16 copy
+        adamw.adamw_multi_tensor([p], [p.half()], [zeros()], [zeros()], [zeros()], [1.0], [1.0],
+                                 **kwargs)
+    with pytest.raises(TypeError):  # fp64 gradient
+        adamw.adamw_multi_tensor([p], None, [zeros().double()], [zeros()], [zeros()], [1.0],
+                                 [1.0], **kwargs)
+    with pytest.raises(ValueError):  # a gradient on another device
+        adamw.adamw_multi_tensor([p], None, [zeros().cpu()], [zeros()], [zeros()], [1.0], [1.0],
+                                 **kwargs)
+    with pytest.raises(ValueError):  # not contiguous
+        adamw.adamw_multi_tensor([p.t()], None, [zeros()], [zeros()], [zeros()], [1.0], [1.0],
+                                 **kwargs)

@@ -214,13 +214,12 @@ def _assert_grads_close(got, want, what):
         assert err < GRAD_RTOL, f"{what}: gradient of {name} off by {err:.2e} of its scale"
 
 
-@pytest.mark.parametrize("config", list(CONFIGS))
-@pytest.mark.parametrize("pos_embed", ["learned", "sincos"])
-def test_one_step_loss_and_gradients_match_jax(config, pos_embed):
+def _check_one_step(config, pos_embed, fold=False):
     jax_clf, params, ours = _jax_pair(CONFIGS[config], pos_embed)
     expected_route = {"fc1": ("fc1", False), "full_ln+qkv_ln": ("full_ln", True),
                       "full": ("full", False)}[config]
-    assert all((b.mlp_route, b.qkv_ln) == expected_route for b in ours.model.blocks)
+    assert all((b.mlp_route, b.qkv_ln, b.attn.proj_fold) == (*expected_route, fold)
+               for b in ours.model.blocks)
     images, p = _images(4), _numpy_params(4)
     labels = np.array([0, 1, 1, 0, 1, 0])
     valid = np.array([True] * 5 + [False])
@@ -237,6 +236,22 @@ def test_one_step_loss_and_gradients_match_jax(config, pos_embed):
     want_grads = _port_names(jax.tree_util.tree_map(np.asarray, want_grads), ours.cfg)
     assert set(grads) == set(want_grads)
     _assert_grads_close(grads, want_grads, config)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+@pytest.mark.parametrize("pos_embed", ["learned", "sincos"])
+def test_one_step_loss_and_gradients_match_jax(config, pos_embed, monkeypatch):
+    monkeypatch.delenv("BENCH_ATTN_PROJ", raising=False)
+    _check_one_step(config, pos_embed)
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_one_step_under_the_projection_fold_matches_jax(config, monkeypatch):
+    # BENCH_ATTN_PROJ=1: every block's attention and projection (and their
+    # gradients, proj.weight's and proj.bias's among them) come from
+    # fused_attention_proj; the model's function is the same.
+    monkeypatch.setenv("BENCH_ATTN_PROJ", "1")
+    _check_one_step(config, "learned", fold=True)
 
 
 def test_short_trajectory_matches_jax():

@@ -1,17 +1,21 @@
-"""The port imports and runs (an eval forward, a pretrain step and a
-fine-tune step) without jax, flax, PyYAML, PIL or scikit-learn (the GPU
-machine lacks jax and flax), and chip_smoke.py refuses to run without CUDA."""
+"""The port imports and runs (an eval forward, a pretrain step, a fine-tune
+step and a split evaluation) without jax, flax, PyYAML, PIL, scikit-learn or
+the JAX package itself (the GPU machine lacks jax and flax), no source of the
+port imports any of them, and chip_smoke.py refuses to run without CUDA."""
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 
 _BLOCKED_SCRIPT = """
 import sys
-for name in ("jax", "flax", "yaml", "PIL", "sklearn"):
+for name in ("jax", "flax", "yaml", "PIL", "sklearn", "ssl4polyp_tpu"):
     sys.modules[name] = None  # any import of them raises ImportError
 
 import importlib, pkgutil
@@ -62,7 +66,28 @@ metrics = classification.make_train_step(ctx)(
     state, batch[0], torch.tensor([0, 1]), torch.tensor([True, True]), 1e-4, scales,
     optim.no_weight_decay_scales(state.params))
 assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
-leaked = sorted(m for m in sys.modules if m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
+
+# A split evaluation over two in-memory batches, with its breakdowns.
+from types import SimpleNamespace
+from ssl4polyp_tpu_torch.evaluation.evaluate import evaluate_split
+
+rng = np.random.default_rng(1)
+batches = [{"image": rng.standard_normal((4, 2)).astype(np.float32),
+            "label": np.array([0, 1, 1, 0]), "index": np.arange(4) + 4 * i,
+            "valid": np.array([True, True, True, i == 0])} for i in range(2)]
+meta = [{"case_id": f"c{i % 2}", "morphology": "flat" if i % 3 else "polypoid",
+         "variant": "clean" if i % 2 else "blur"} for i in range(8)]
+out = evaluate_split(lambda logits: logits, batches, SimpleNamespace(meta=meta),
+                     split_name="test", morphology_eval=("flat", "polypoid"),
+                     perturbation_eval=True)
+assert out["n_total"] == 7 and 0.0 <= out["auroc"] <= 1.0 and np.isfinite(out["loss"])
+assert set(out["morphology_metrics"]) == {"flat", "polypoid"}
+assert set(out["perturbation_metrics"]) == {"clean", "blur", "ALL-perturbed"}
+assert set(out["case_metrics"]) == {"c0", "c1"}
+
+leaked = sorted(m for m in sys.modules
+                if (m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
+                and sys.modules[m] is not None)
 assert not leaked, leaked
 print("ok", len(modules))
 """
@@ -81,13 +106,49 @@ def test_port_imports_and_runs_with_the_jax_stack_blocked():
     assert int(result.stdout.split()[1]) >= 15  # every slice module was imported
 
 
+def _forbidden_import(line: str):
+    """The forbidden module an ``import`` / ``from`` line names, or None.
+    Lines inside functions and ``TYPE_CHECKING`` blocks count: any
+    indentation.  The JAX package is matched as the name followed by a dot
+    or white space, so the port's own ``ssl4polyp_tpu_torch`` passes."""
+    words = line.split()
+    if words[:1] not in (["import"], ["from"]) or len(words) < 2:
+        return None
+    if re.search(r"\bssl4polyp_tpu(\.|\s|,|$)", line):
+        return "ssl4polyp_tpu"
+    names = [words[1]] if words[0] == "from" else line.split("import", 1)[1].split(",")
+    for name in names:
+        root = name.strip().split(" ")[0].split(".")[0]
+        if root in {"jax", "flax", "sklearn"}:
+            return root
+    return None
+
+
 def test_no_jax_import_in_the_port_sources():
     sources = [*(ROOT / "ssl4polyp_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    assert len(sources) > 25
     for path in sources:
         for line in path.read_text().splitlines():
-            words = line.split()
-            if words[:1] in (["import"], ["from"]) and len(words) > 1:
-                assert words[1].split(".")[0] not in {"jax", "flax"}, f"{path}: {line}"
+            assert _forbidden_import(line) is None, f"{path}: {line}"
+
+
+@pytest.mark.parametrize("line, found", [
+    ("from ssl4polyp_tpu.evaluation import evaluate as reference", "ssl4polyp_tpu"),
+    ("    from ssl4polyp_tpu.data.loader import HostDataLoader", "ssl4polyp_tpu"),
+    ("import ssl4polyp_tpu", "ssl4polyp_tpu"),
+    ("import os, ssl4polyp_tpu.metrics", "ssl4polyp_tpu"),
+    ("from ssl4polyp_tpu import metrics", "ssl4polyp_tpu"),
+    ("        from sklearn.metrics import f1_score", "sklearn"),
+    ("import numpy, jax.numpy as jnp", "jax"),
+    ("from flax import linen", "flax"),
+    ("from ssl4polyp_tpu_torch.ops import mlp", None),
+    ("import ssl4polyp_tpu_torch", None),
+    ("from ..metrics import performance as perf", None),
+    ("Counterpart of ``ssl4polyp_tpu/metrics/performance.py``", None),
+    ("import jaxtyping_like_name", None),
+])
+def test_the_source_check_finds_what_it_should(line, found):
+    assert _forbidden_import(line) == found
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -105,6 +105,47 @@ def test_trajectory_matches_jax_make_pretrain_step():
         assert torch.equal(ours[name], start[name])
 
 
+def test_one_step_under_the_projection_fold_matches_jax(monkeypatch):
+    # BENCH_ATTN_PROJ=1 with the decoder's 17 tokens counted as padded to 24
+    # and the encoder's 5 left alone: the decoder's block folds its
+    # projection into the attention kernel (here its plain version), the
+    # encoder's blocks do not, and the step's loss and every gradient are
+    # jax.value_and_grad's of the JAX model, as without the fold.
+    from ssl4polyp_tpu.data.augment import normalize_batch as jax_normalize
+
+    monkeypatch.setenv("BENCH_ATTN_PROJ", "1")
+    wide = dict(ENCODER, embed_dim=128, num_heads=4)
+    dec = dict(DECODER, decoder_embed_dim=128, decoder_num_heads=4)
+    jcfg = jax_mae.MAEConfig(encoder=jax_vit.ViTConfig(compute_dtype=jnp.float32, **wide), **dec)
+    cfg = MAEConfig(encoder=ViTConfig(compute_dtype=torch.float32, **wide), decoder_pad_to=24,
+                    **dec)
+    params = jax.tree_util.tree_map(np.asarray, jax_mae.init_mae(jax.random.PRNGKey(1), jcfg))
+    model = MAE(cfg, torch.Generator().manual_seed(0))
+    model.load_state_dict(mae_state_dict_from_jax(params, cfg))
+    assert [b.attn.proj_fold for b in model.blocks] == [False, False]
+    assert [b.attn.proj_fold for b in model.decoder_blocks] == [True]
+
+    images = np.random.default_rng(2).integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
+    key = jax.random.PRNGKey(5)
+    noise = np.array(jax.random.uniform(key, (4, cfg.encoder.num_patches)))
+    ref_loss, ref_grads = jax.value_and_grad(
+        lambda p: jax_mae.mae_forward(p, jax_normalize(jnp.asarray(images), jnp.float32), key,
+                                      jcfg)[0])(params)
+    ref_grads = mae_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, ref_grads), cfg)
+    loss, grads = pretrain.loss_and_grads(pretrain.init_pretrain_state(model),
+                                          torch.from_numpy(images)[None],
+                                          torch.from_numpy(noise)[None])
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=LOSS_RTOL)
+    assert sorted(grads) == sorted(ref_grads)
+    for name, g in grads.items():
+        got, want = g.numpy(), ref_grads[name].numpy()
+        if name.endswith("attn.qkv.bias"):  # the K slice's exact gradient is zero
+            d = got.shape[0] // 3
+            got, want = np.concatenate([got[:d], got[2 * d:]]), np.concatenate([want[:d], want[2 * d:]])
+        dist = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+        assert dist < 1e-5, f"{name}: relative L2 distance {dist:.2e}"
+
+
 @pytest.fixture
 def image_folder(tmp_path):
     from PIL import Image

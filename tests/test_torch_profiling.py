@@ -14,7 +14,12 @@ from ssl4polyp_tpu_torch import profiling
     ("column_sum_kernel", "column sums of the kernels' parameter gradients"),
     ("fc1_gelu_kernel", "fc1+GELU kernel"),
     ("void at::native::(anonymous namespace)::multi_tensor_apply_kernel<...>",
-     "foreach ops (AdamW, gradient sums)"),
+     "foreach ops (gradient norm and sums)"),
+    ("adamw_kernel(AdamWChunk)", "AdamW kernel (one pass, with the compute copy)"),
+    ("void attn_proj_kernel<64, 13, false>(bf16 const*, ...)",
+     "attention+projection kernel (forward, and the backward's O and dO)"),
+    ("attn_proj_dw_kernel(bf16 const*, ...)", "attention+projection backward: dW kernel"),
+    ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS GEMM"),
     ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNN", "cuBLAS GEMM"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, ...>>", "reductions"),
@@ -30,6 +35,19 @@ from ssl4polyp_tpu_torch import profiling
 ])
 def test_category(kernel, expected):
     assert profiling.category(kernel) == expected
+
+
+def test_projection_fold_sets_and_restores_the_knob(monkeypatch):
+    from ssl4polyp_tpu_torch.ops.attn_proj import attn_proj_fold_enabled
+
+    monkeypatch.delenv("BENCH_ATTN_PROJ", raising=False)
+    with profiling.projection_fold(True):
+        assert attn_proj_fold_enabled()
+        with profiling.projection_fold(False):
+            assert not attn_proj_fold_enabled()
+        assert attn_proj_fold_enabled()
+    assert not attn_proj_fold_enabled() and "BENCH_ATTN_PROJ" not in __import__("os").environ
+    assert [fold for _, _, fold in profiling.FINETUNE_CONFIGS] == [False, False, False, True]
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the refusal without a CUDA device")
