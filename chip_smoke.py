@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eval forward, MAE pretrain step and classifier
-fine-tune step on one NVIDIA GPU, with and without ``BENCH_ATTN_PROJ=1``.
+"""Drive the PyTorch port's eval forward, MAE pretrain step, classifier
+fine-tune step (with and without ``BENCH_ATTN_PROJ=1``), its two attention
+functions of ``ops`` that no model route calls, and its standalone eval CLI
+on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -51,6 +53,26 @@ Phases:
    2 steps under the ``head+1`` regime, after which every frozen parameter
    keeps its bits; images/s for the kernels and the plain path, median and
    range over 5 repeats of 10 steps.
+6. The attention functions over a real activation: the eval classifier's
+   patch embedding, position table and block 0's first LayerNorm turn one
+   batch of 64 images into a (64, 197, 768) activation; block 0's attention
+   core then runs three ways on block 0's own QKV weight and bias: the
+   model's route (the bare product, then the QKV attention kernel),
+   ``fused_qkvproj_attention`` and ``linear`` -> heads -> ``fused_attention``
+   -> merge.  Outputs and, for one fixed output gradient, the gradients of
+   the activation, the weight and the bias must agree within the stated
+   tolerances, each route with its plain version too; each new kernel must
+   launch exactly once forward and once backward per pass, and not at all
+   while the plain versions run.
+7. The standalone eval CLI at full width: a synthetic pack of 224 px JPEG
+   frames (128 a split) and a ViT-B/16 checkpoint (numpy-seeded JAX-layout
+   tree, ``model_cfg`` and a thresholds block in its meta) are written with
+   the port's own writers; ``cli_main([... "--export-outputs"])`` runs in
+   process on the card.  Per batch of 64 the launch counts must be the eval
+   forward's; ``n_frames`` 128, finite metrics, the stored tau, ``logits.npz``
+   equal to ``make_forward_fn`` on the same decoded frames, and every output
+   file present.  Prints frames/s end to end (checkpoint read and decode
+   included), of the forward alone, and the host's and the card's shares.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -60,24 +82,32 @@ and without a CUDA device the script exits non-zero before printing a result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import statistics
 import subprocess
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ssl4polyp_tpu_torch import ops
+from ssl4polyp_tpu_torch.data.loader import HostDataLoader
+from ssl4polyp_tpu_torch.data.packs import create_classification_datasets
+from ssl4polyp_tpu_torch.evaluation import eval_classification
+from ssl4polyp_tpu_torch.evaluation.evaluate import evaluate_split
 from ssl4polyp_tpu_torch.models import layers
 from ssl4polyp_tpu_torch.models.factory import get_imagenet_or_random_vit
 from ssl4polyp_tpu_torch.models.mae import MAE, MAEConfig
 from ssl4polyp_tpu_torch.models.pos_embed import sincos_2d
 from ssl4polyp_tpu_torch.models.vit import ViTConfig
 from ssl4polyp_tpu_torch.models.weights import mae_state_dict_from_jax
-from ssl4polyp_tpu_torch.ops import (_build, adamw, attn_proj, layernorm, ln_linear, mlp,
-                                     qkv_attention)
+from ssl4polyp_tpu_torch.ops import (_build, adamw, attention, attention_block, attn_proj,
+                                     layernorm, ln_linear, mlp, qkv_attention)
+from ssl4polyp_tpu_torch.polypdb.synth import build_synthetic_pack
 from ssl4polyp_tpu_torch.profiling import (FINETUNE_CONFIGS, REPEAT_CALLS, REPEATS,
                                            projection_fold, rates, spread)
 from ssl4polyp_tpu_torch.training import optim
@@ -89,7 +119,7 @@ from ssl4polyp_tpu_torch.training.classification import (
     make_forward_fn,
     make_train_step,
 )
-from ssl4polyp_tpu_torch.data.augment import draw_augment_params
+from ssl4polyp_tpu_torch.data.augment import draw_augment_params, normalize_batch
 from ssl4polyp_tpu_torch.training.pretrain import loss_and_grads as pretrain_loss_and_grads
 from ssl4polyp_tpu_torch.training.pretrain import (
     PretrainSettings,
@@ -98,6 +128,7 @@ from ssl4polyp_tpu_torch.training.pretrain import (
     model_config,
 )
 from ssl4polyp_tpu_torch.training.schedules import warmup_cosine
+from ssl4polyp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 SEED = 0
 BATCH = 64
@@ -155,6 +186,27 @@ FUSED_TOL = (1e-2, 1e-2)
 # rounded to bf16: an atol relative to max|plain|, as for dbias.
 ATTN_PROJ_TOL = (1e-2, 1e-2)
 ATTN_PROJ_PARAM_TOL = (5e-3, 2e-2)  # (atol as a fraction of max|plain|, rtol)
+# Attention over separate q, k, v: the plain forward rounds where the kernel
+# does (one flipped bf16 ulp); the plain backward keeps W and dS in fp32
+# where the kernel carries them as two bf16 terms (2^-17 relative a term),
+# far inside the one bf16 ulp of each rounded gradient: the attention limits.
+# Projection + attention: qkv carries a flipped ulp (fp32 summation order of
+# the projection) into the core on each side's own roundings, hence twice
+# the attention limit on the output; dx, dw and db are sums of each side's
+# own rounded dqkv over 3D columns or over all 12,608 rows: an atol relative
+# to max|plain|, as for the other parameter sums.
+QKVPROJ_TOL = (2e-2, 2e-2)
+QKVPROJ_GRAD_TOL = (1e-2, 2e-2)  # (atol as a fraction of max|plain|, rtol)
+# The three routes of block 0's attention core on a real activation.  The
+# fused projection differs from the model's route by fp32 summation order in
+# qkv alone: the same limits as kernel against plain.  The route through
+# fused_attention also keeps W and dS unrounded in its backward (at hd 64 the
+# scale 1/8 is a power of two, so the forward's scale placement rounds
+# nothing): a bf16 ulp of dS per key, summed with random signs.  Gradients
+# are held by their relative L2 distance to the model route's; the K slice of
+# the bias gradient is left out (its exact value is zero).
+ROUTE_OUT_TOL = (2e-2, 2e-2)
+ROUTE_GRAD_RTOL = 2e-2
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): the bound
 # of a kernel is the larger of its bytes over the memory rate and its
 # operations over the rate of their type.
@@ -466,6 +518,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
             bytes_moved=2 * (2 * m * k + 2 * nf * k + nf + k + m * nf) + (8 * k if with_ln else 0),
             flops=4 * m * k * nf)
     report.update(attn_proj_kernels(randn))
+    report.update(attention_ops_kernels(randn))
     report.update(adamw_kernel(gen))
     return report
 
@@ -538,6 +591,117 @@ def attn_proj_kernels(randn) -> dict[str, dict]:
             *bwd_times[0][:2], bytes_moved=2 * (7 * b * n * d + 2 * d * d + d),
             flops=10 * core + 6 * proj, library_ms=bwd_times[0][2]),
     }
+
+
+def attention_ops_kernels(randn) -> dict[str, dict]:
+    """The two attention functions of ``ops`` that no model route calls,
+    forward and backward, against their plain versions at the classifier's
+    shape and the MAE decoder's: attention over separate q, k, v, and the
+    QKV projection with the attention core (both ``softmax_f32`` settings
+    and a ``valid_len`` below the token count).  Beside each, the library
+    route for the same function, timed only."""
+    report = {}
+    fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
+    for i, (b, h, n, hd) in enumerate([(BATCH, 12, 197, 64), (BATCH, 16, 197, 32)]):
+        q, k, v, dout = (randn(b, h, n, hd) for _ in range(4))
+        run = lambda: attention._forward_kernel(q, k, v)  # noqa: E731
+        plain = lambda: attention.fused_attention_reference(q, k, v)  # noqa: E731
+        run_bwd = lambda: attention._backward_kernel(q, k, v, dout)  # noqa: E731
+        plain_bwd = lambda: attention.fused_attention_backward_reference(q, k, v, dout)  # noqa: E731
+        out, grads, again = run(), run_bwd(), run_bwd()
+        torch.cuda.synchronize()
+        what = f"fused_attention B={b} H={h} N={n} hd={hd}"
+        fwd_errors.append(max_error(out, plain(), ATTENTION_TOL, f"{what}: out"))
+        bwd_errors.append(max(max_error(got, want, ATTENTION_BWD_TOL, f"{what}: {name}")
+                              for name, got, want in zip(("dq", "dk", "dv"), grads, plain_bwd())))
+        if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+            fail(f"{what}: two backward runs gave different bits")
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        library_bwd = lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)  # noqa: E731
+        fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
+        bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        print(f"{what}: out max |diff| {fwd_errors[-1]:.3e} (atol {ATTENTION_TOL[0]}, rtol "
+              f"{ATTENTION_TOL[1]}), dq, dk, dv {bwd_errors[-1]:.3e} (atol {ATTENTION_BWD_TOL[0]}, "
+              f"rtol {ATTENTION_BWD_TOL[1]}); rerun bit-identical")
+        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
+              f"scaled_dot_product_attention {fwd_times[i][2]:.4f} ms; backward kernel "
+              f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, "
+              f"scaled_dot_product_attention's backward {bwd_times[i][2]:.4f} ms")
+        del leaves, lib_out
+    b, h, n, hd = BATCH, 12, 197, 64
+    elements, core = b * h * n * hd, b * h * n * n * hd
+    report["fused_attention"] = entry(
+        "attention.cu", "ssl4polyp_tpu/ops/attention.py:118", max(fwd_errors), *fwd_times[0][:2],
+        bytes_moved=2 * 4 * elements, flops=4 * core, library_ms=fwd_times[0][2])
+    report["fused_attention_backward"] = entry(
+        "attention.cu", "ssl4polyp_tpu/ops/attention.py:142", max(bwd_errors), *bwd_times[0][:2],
+        bytes_moved=2 * 7 * elements, flops=10 * core, library_ms=bwd_times[0][2])
+
+    fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
+    cases = [(BATCH, 197, 768, 12, 64, True, None), (BATCH, 197, 512, 16, 32, False, None),
+             (BATCH, 197, 768, 12, 64, False, 150), (BATCH, 197, 512, 16, 32, True, 150)]
+    for i, (b, n, d_in, h, hd, f32, valid_len) in enumerate(cases):
+        d = h * hd
+        x, dout = randn(b, n, d_in), randn(b, n, d)
+        w, bias = randn(d_in, 3 * d, scale=d_in ** -0.5), randn(3 * d, scale=0.5)
+        rows = n if valid_len is None else valid_len
+        dout[:, rows:] = 0  # the pad rows' upstream gradient is zero
+        run = lambda: attention_block._forward_kernel(x, w, bias, h, f32, valid_len)  # noqa: E731
+        plain = lambda: attention_block.fused_qkvproj_attention_reference(  # noqa: E731
+            x, w, bias, h, f32, valid_len)
+        run_bwd = lambda: attention_block._backward_kernel(x, w, bias, dout, h, f32, valid_len)  # noqa: E731
+        plain_bwd = lambda: attention_block.fused_qkvproj_attention_backward_reference(  # noqa: E731
+            x, w, bias, dout, h, f32, valid_len)
+        out, grads, again = run(), run_bwd(), run_bwd()
+        torch.cuda.synchronize()
+        what = (f"fused_qkvproj_attention B={b} N={n} Din={d_in} H={h} hd={hd} f32={f32} "
+                f"valid_len={valid_len}")
+        fwd_errors.append(max_error(out[:, :rows], plain()[:, :rows], QKVPROJ_TOL, f"{what}: out"))
+        line = (f"{what}: out max |diff| {fwd_errors[-1]:.3e} (atol {QKVPROJ_TOL[0]}, rtol "
+                f"{QKVPROJ_TOL[1]})")
+        worst = 0.0
+        for name, got, want in zip(("dx", "dw", "db"), grads, plain_bwd()):
+            tol = (QKVPROJ_GRAD_TOL[0] * want.float().abs().max().item(), QKVPROJ_GRAD_TOL[1])
+            err = max_error(got, want, tol, f"{what}: {name}")
+            worst = max(worst, err)
+            line += f", {name} {err:.3e} (atol {tol[0]:.3e}, rtol {tol[1]})"
+        bwd_errors.append(worst)
+        if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+            fail(f"{what}: two backward runs gave different bits")
+        print(line + "; rerun bit-identical")
+        if valid_len is not None:
+            continue
+        leaves = [t.clone().requires_grad_() for t in (x, w.t().contiguous(), bias)]
+
+        def library(leaves=leaves):
+            qkv = F.linear(leaves[0], leaves[1], leaves[2])
+            out = F.scaled_dot_product_attention(*heads_of(qkv, h))
+            return out.transpose(1, 2).reshape(b, n, d)
+
+        lib_out = library()
+        library_bwd = lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)  # noqa: E731
+        with torch.no_grad():
+            fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
+        bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
+              f"F.linear + scaled_dot_product_attention {fwd_times[i][2]:.4f} ms; backward kernels "
+              f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, the library pair's "
+              f"{bwd_times[i][2]:.4f} ms")
+        del leaves, lib_out
+    b, n, d_in, h, hd = cases[0][:5]
+    d = h * hd
+    core, proj = b * h * n * n * hd, b * n * d_in * 3 * d
+    report["fused_qkvproj_attention"] = entry(
+        "attention_block.cu", "ssl4polyp_tpu/ops/attention_block.py:187", max(fwd_errors),
+        *fwd_times[0][:2], bytes_moved=2 * (b * n * (d_in + d) + d_in * 3 * d + 3 * d),
+        flops=2 * proj + 4 * core, library_ms=fwd_times[0][2])
+    report["fused_qkvproj_attention_backward"] = entry(
+        "attention_block.cu", "ssl4polyp_tpu/ops/attention_block.py:224", max(bwd_errors),
+        *bwd_times[0][:2], bytes_moved=2 * (b * n * (2 * d_in + d) + 2 * (d_in * 3 * d + 3 * d)),
+        flops=6 * proj + 10 * core, library_ms=bwd_times[0][2])
+    return report
 
 
 def adamw_kernel(gen: torch.Generator) -> dict[str, dict]:
@@ -1016,6 +1180,211 @@ def phase_finetune() -> dict[str, int]:
     return total
 
 
+def _route_gradients(route, a, weight, bias, dout):
+    """(out, da, dweight, dbias) of one route of block 0's attention core."""
+    leaves = [t.detach().clone().requires_grad_() for t in (a, weight, bias)]
+    out = route(*leaves)
+    out.backward(dout)
+    return (out.detach(), *[leaf.grad for leaf in leaves])
+
+
+def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
+    """Block 0's attention core of the eval classifier, three ways, on a real
+    activation: the path that launches ``fused_qkvproj_attention`` and
+    ``fused_attention``, forward and backward."""
+    rng = np.random.default_rng(SEED)
+    cfg = ViTConfig(pos_embed="learned", num_classes=2)  # ViT-B/16 at 224 px
+    tree = jax_layout_tree(cfg, rng)
+    images = rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
+    with projection_fold(False):
+        classifier = get_imagenet_or_random_vit(gen, jax_params=tree, num_classes=2, device="cuda")
+    dtype, heads = cfg.compute_dtype, cfg.num_heads
+    model = layers.cast_params_for_compute(classifier.model, dtype).eval()
+    block = model.blocks[0]
+    with torch.no_grad():
+        x = model.patch_embed(normalize_batch(torch.from_numpy(images).cuda(), dtype))
+        pos = model.pos_embed.to(dtype)
+        cls = (model.cls_token.to(dtype) + pos[:, :1]).expand(BATCH, -1, -1)
+        a = block.norm1(torch.cat([cls, x + pos[:, 1:]], dim=1))
+    weight = block.attn.qkv.weight.detach()            # (3D, D): torch's (out, in)
+    bias = block.attn.qkv.bias.detach().to(dtype)
+    dout = (torch.randn(a.shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                        device="cuda") * 0.1).to(dtype)
+    if a.shape != (BATCH, 197, 768) or not torch.isfinite(a.float()).all():
+        fail(f"attention ops: activation {tuple(a.shape)} is not a finite (64, 197, 768) tensor")
+
+    def split_heads(qkv):
+        return [t.contiguous() for t in heads_of(qkv, heads)]
+
+    def merge_heads(out):
+        return out.transpose(1, 2).reshape(BATCH, 197, 768)
+
+    def routes(core_qkv, core_proj, core_sep):
+        return {
+            # The model's route: the JAX package's bare dot, then the QKV kernel.
+            "model": lambda a, w, b: core_qkv(torch.matmul(a, w.t()), heads, True, None, b),
+            "fused_qkvproj_attention": lambda a, w, b: core_proj(
+                a, w.t().contiguous(), b, heads, True),
+            "fused_attention": lambda a, w, b: merge_heads(
+                core_sep(*split_heads(layers.linear(a, w, b)))),
+        }
+
+    kernel_routes = routes(qkv_attention.fused_qkv_attention,
+                           attention_block.fused_qkvproj_attention, attention.fused_attention)
+    plain_routes = routes(qkv_attention.fused_qkv_attention_plain,
+                          attention_block.fused_qkvproj_attention_plain,
+                          attention.fused_attention_plain)
+    launched = {"model": ("fused_qkv_attention", "fused_qkv_attention_backward"),
+                "fused_qkvproj_attention": ("fused_qkvproj_attention",
+                                            "fused_qkvproj_attention_backward"),
+                "fused_attention": ("fused_attention", "fused_attention_backward")}
+    total = {name: 0 for name in ops.launch_counts()}
+    results = {}
+    for name, route in kernel_routes.items():
+        ops.reset_launch_counts()
+        results[name] = _route_gradients(route, a, weight, bias, dout)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_counts(counts, dict.fromkeys(launched[name], 1), 1,
+                     f"one forward and backward pass of the {name} route")
+        for kernel, n in counts.items():
+            total[kernel] += n
+    ops.reset_launch_counts()
+    plain_results = {name: _route_gradients(route, a, weight, bias, dout)
+                     for name, route in plain_routes.items()}
+    torch.cuda.synchronize()
+    if any(ops.launch_counts().values()):
+        fail("attention ops: a plain route launched a kernel")
+
+    d = 768
+
+    def compare(got, want, what):
+        err = max_error(got[0], want[0], ROUTE_OUT_TOL, f"{what}: out")
+        line = f"{what}: out max |diff| {err:.3e} (atol {ROUTE_OUT_TOL[0]}, rtol {ROUTE_OUT_TOL[1]})"
+        for label, g, ref in zip(("da", "dweight", "dbias"), got[1:], want[1:]):
+            g, ref = g.float(), ref.float()
+            if label == "dbias":  # the K slice is zero up to rounding on every route
+                g, ref = torch.cat([g[:d], g[2 * d:]]), torch.cat([ref[:d], ref[2 * d:]])
+            if not torch.isfinite(g).all():
+                fail(f"{what}: {label} is not finite")
+            rel = ((g - ref).norm() / ref.norm().clamp_min(1e-30)).item()
+            if rel > ROUTE_GRAD_RTOL:
+                fail(f"{what}: {label}: relative L2 distance {rel:.3e} exceeds {ROUTE_GRAD_RTOL}")
+            line += f", {label} relative L2 distance {rel:.3e}"
+        print(line + f" (limit {ROUTE_GRAD_RTOL})")
+
+    for name in kernel_routes:
+        compare(results[name], plain_results[name], f"attention ops [{name}] kernels vs plain")
+    for name in ("fused_qkvproj_attention", "fused_attention"):
+        compare(results[name], results["model"], f"attention ops [{name}] vs the model's route")
+    return total
+
+
+def phase_eval_cli() -> dict[str, int]:
+    """The standalone eval CLI at full width, from files it reads itself."""
+    rng = np.random.default_rng(SEED)
+    cfg = ViTConfig(pos_embed="learned", num_classes=2)
+    frames, tau = 128, 0.4375
+    model_cfg = {"img_size": cfg.img_size, "patch_size": cfg.patch_size,
+                 "embed_dim": cfg.embed_dim, "depth": cfg.depth, "num_heads": cfg.num_heads,
+                 "pos_embed": cfg.pos_embed, "out_token": cfg.out_token, "num_classes": 2,
+                 "pad_tokens_to": 0}
+    meta = {"epoch": 7, "model_cfg": model_cfg,
+            "thresholds": {"primary": {"tau": tau, "policy": "f1_opt_on_val",
+                                       "split": "sun_full/val"},
+                           "values": {"sun_full_val_f1_opt_on_val": tau}}}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        build_synthetic_pack(tmp / "data_packs", name="sun_full", frames_per_split=frames,
+                             image_size=224, seed=SEED)
+        checkpoint = save_checkpoint(tmp / "run" / "SupImnet_SUNFull_s13_e07_valLoss.ckpt",
+                                     {"params": jax_layout_tree(cfg, rng)}, meta)
+        print(f"eval CLI: wrote a pack of 3 x {frames} JPEG frames of 224 px and a "
+              f"{checkpoint.stat().st_size / 2**20:.0f} MiB checkpoint in "
+              f"{time.perf_counter() - start:.1f} s")
+        argv = ["--checkpoint-root", str(tmp / "run"), "--model-tag", "SupImnet", "--seed", "13",
+                "--test-pack", "sun_full", "--pack-root", str(tmp / "data_packs"),
+                "--batch-size", str(BATCH), "--output-dir", str(tmp / "eval"), "--export-outputs"]
+
+        walls = []
+        for _ in range(2):  # the second run finds the files in the page cache
+            ops.reset_launch_counts()
+            printed = io.StringIO()
+            start = time.perf_counter()
+            with contextlib.redirect_stdout(printed):
+                eval_classification.cli_main(argv)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - start)
+            counts = ops.launch_counts()
+        summary = json.loads(printed.getvalue())
+        batches = frames // BATCH
+        check_counts(counts, {"fused_qkv_attention": cfg.depth, "layernorm": 2 * cfg.depth + 1,
+                              "fc1_gelu": cfg.depth}, batches, f"the eval CLI's {batches} batches")
+        numbers = {k: v for k, v in summary.items() if isinstance(v, (int, float))}
+        if summary["n_frames"] != frames or summary["tau"] != tau or summary["checkpoint"] != str(
+                checkpoint) or not all(np.isfinite(v) for v in numbers.values()):
+            fail(f"eval CLI: summary {summary}")
+        missing = [name for name in ("eval_results.txt", "logits.npz", "logits.pt",
+                                     "metadata.jsonl", "tau.json")
+                   if not (tmp / "eval" / name).exists()]
+        if missing:
+            fail(f"eval CLI: {missing} not written")
+        stored = np.load(tmp / "eval" / "logits.npz")
+        loaded = torch.load(tmp / "eval" / "logits.pt", weights_only=True)
+        if not np.array_equal(loaded.numpy(), stored["logits"]) or json.loads(
+                (tmp / "eval" / "tau.json").read_text())["tau"] != tau:
+            fail("eval CLI: logits.pt or tau.json disagree with logits.npz and the stored tau")
+
+        # The same frames through make_forward_fn, stage by stage on the clock.
+        clock = {}
+        start = time.perf_counter()
+        restored = load_checkpoint(checkpoint)
+        clock["checkpoint read"] = time.perf_counter() - start
+        start = time.perf_counter()
+        classifier = get_imagenet_or_random_vit(
+            torch.Generator().manual_seed(0), jax_params=restored["payload"]["params"],
+            num_classes=2, device="cuda", pad_tokens_to=0)
+        forward = make_forward_fn(classifier, "cuda")
+        torch.cuda.synchronize()
+        clock["model build"] = time.perf_counter() - start
+        index = create_classification_datasets(test_spec="sun_full", pack_root=tmp / "data_packs",
+                                               image_size=224)["test"]
+        loader = HostDataLoader(index, batch_size=BATCH, shuffle=False, drop_last=False)
+        start = time.perf_counter()
+        decoded = list(loader)
+        clock["decode"] = time.perf_counter() - start
+        start = time.perf_counter()
+        for batch in decoded:
+            torch.from_numpy(batch["image"]).cuda()
+        torch.cuda.synchronize()
+        clock["host to device copy"] = time.perf_counter() - start
+        forward(decoded[0]["image"])  # warm-up
+        start = time.perf_counter()
+        logits = np.concatenate([forward(batch["image"]) for batch in decoded])
+        clock["forward (copies included)"] = time.perf_counter() - start
+        start = time.perf_counter()
+        again = evaluate_split(lambda part: part,
+                               [dict(batch, image=part)
+                                for batch, part in zip(decoded, np.split(logits, batches))],
+                               index, split_name="test", tau=tau)
+        clock["metrics"] = time.perf_counter() - start
+        err = max_error(torch.from_numpy(stored["logits"]), torch.from_numpy(logits), LOGITS_TOL,
+                        "eval CLI: logits.npz against make_forward_fn on the same frames")
+        if again["auroc"] != summary["auroc"] and err == 0.0:
+            fail("eval CLI: the same logits gave another AUROC")
+        forward_s = clock["forward (copies included)"]
+        print(f"eval CLI: n_frames {summary['n_frames']}, tau {summary['tau']}, auroc "
+              f"{summary['auroc']:.4f}, loss {summary['loss']:.4f}; logits.npz vs make_forward_fn "
+              f"on the same decoded frames: max |diff| {err:.3e} (atol {LOGITS_TOL[0]}, rtol "
+              f"{LOGITS_TOL[1]}); eval_results.txt, logits.pt, metadata.jsonl, tau.json written")
+        print(f"eval CLI ViT-B/16, {frames} frames in {batches} batches of {BATCH}: end to end "
+              f"{frames / walls[0]:.1f} frames/s cold, {frames / walls[1]:.1f} frames/s with the "
+              f"files cached ({walls[1]:.3f} s); forward alone {frames / forward_s:.1f} frames/s; "
+              "stages alone, s: " + ", ".join(f"{k} {v:.3f}" for k, v in clock.items()))
+    return counts
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -1036,8 +1405,9 @@ def main() -> None:
 
     report = phase_kernels(torch.Generator(device="cuda").manual_seed(SEED))
     # Each path's launches, counted from 0 before it and read after it.
-    runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(), phase_finetune()]
-    counts = {name: sum(run[name] for run in runs) for name in report}
+    runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(), phase_finetune(),
+            phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli()]
+    counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:
         fail(f"no path launched {missing}")

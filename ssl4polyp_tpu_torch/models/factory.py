@@ -2,9 +2,12 @@
 
 Counterpart of ``ssl4polyp_tpu/models/factory.py``.  Weights come from a
 seeded ``torch.Generator`` (random init) or from a JAX parameter pytree given
-as numpy (``jax_params``), through :func:`.weights.state_dict_from_jax`.
-Reading ``.ckpt``, ``.pth`` or ``.npz`` files, and the dense (DPT) head, come
-with later slices and raise ``NotImplementedError`` here.
+as numpy (``jax_params``: a tree built in memory, or the ``params`` of a
+``.ckpt`` read by :mod:`..utils.checkpoint`), through
+:func:`.weights.state_dict_from_jax`.  These functions place the model on the
+card unless the caller names another device; without a CUDA device that
+raises.  Reading ``.pth`` or ``.npz`` weight files, and the dense (DPT) head,
+come with later slices and raise ``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ def get_mae_backbone(
     num_classes: Optional[int] = 2,
     out_token: str = "cls",
     scheme: str = "ssl_colon",
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
     **overrides,
 ) -> Classifier:
     """ViT-B with MAE lineage (fixed sin-cos positions) and a fresh head."""
@@ -98,7 +101,7 @@ def get_imagenet_or_random_vit(
     jax_params: Optional[Mapping[str, Any]] = None,
     num_classes: Optional[int] = 2,
     out_token: str = "cls",
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
     **overrides,
 ) -> Classifier:
     """timm-lineage ViT-B (learned positions): ``jax_params`` or random."""
@@ -115,7 +118,7 @@ def build_classifier(
     num_classes: int = 2,
     checkpoint_root: Optional[Path] = None,
     jax_params: Optional[Mapping[str, Any]] = None,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
     **overrides,
 ) -> Classifier:
     """Build a classifier from a ``model:`` config section.

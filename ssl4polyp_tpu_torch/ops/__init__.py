@@ -6,7 +6,8 @@ needs neither nvcc nor a GPU.
 
 from __future__ import annotations
 
-from . import adamw, attn_proj, layernorm, ln_linear, mlp, qkv_attention
+from . import (adamw, attention, attention_block, attn_proj, layernorm, ln_linear, mlp,
+               qkv_attention)
 
 __all__ = ["launch_counts", "reset_launch_counts"]
 
@@ -23,6 +24,10 @@ _COUNTERS = {
     "attn_proj": (attn_proj, "launches"),
     "attn_proj_backward": (attn_proj, "backward_launches"),
     "adamw": (adamw, "launches"),
+    "fused_attention": (attention, "launches"),
+    "fused_attention_backward": (attention, "backward_launches"),
+    "fused_qkvproj_attention": (attention_block, "launches"),
+    "fused_qkvproj_attention_backward": (attention_block, "backward_launches"),
 }
 
 

@@ -50,6 +50,18 @@ _ENTRY_POINTS = (
     ("ssl4polyp_attn_proj_bwd", ctypes.c_int,
      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_matmul_nt", ctypes.c_int,
+     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    ("ssl4polyp_attention_fwd", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_attention_bwd", ctypes.c_int,
+     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_qkvproj_attention_fwd", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_qkvproj_attention_bwd", ctypes.c_int,
+     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_adamw_step", ctypes.c_int, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_adamw_layout", ctypes.c_int, [ctypes.c_int]),
 )

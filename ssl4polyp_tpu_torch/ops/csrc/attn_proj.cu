@@ -34,7 +34,7 @@
 //   1. the forward's kernel again (PREP): recomputes the O tile, writes it to
 //      scratch, loads the dy tile in its place and forms dO = bf16(dy . W)
 //      with W's tiles read transposed (ldmatrix.trans);
-//   2. attn_proj_dw_kernel: dW[out, in] = sum over rows of dy[r, out] O[r, in]
+//   2. transposed_product.cuh: dW[out, in] = sum over rows of dy[r, out] O[r, in]
 //      in fp32; a block owns a 64 x 64 tile of dW and one of `slices` row
 //      slices, reads both operands transposed, and writes its partial;
 //      column_sum_kernel adds the slices in order;
@@ -43,6 +43,7 @@
 //   4. the attention backward kernel (qkv_attention.cu) on dO, which
 //      recomputes the weights itself and writes dQKV.
 #include "attention_core.cuh"
+#include "transposed_product.cuh"
 
 // The attention backward's entry point (qkv_attention.cu, same library).
 extern "C" int ssl4polyp_qkv_attention_bwd(const void* qkv, const void* bias, const void* dout,
@@ -286,101 +287,6 @@ cudaError_t dispatch_proj(const bf16* qkv, const bf16* w, const bf16* bias, cons
 #undef SSL4POLYP_PROJ
 }
 
-// dW[out, in] = sum over rows r of dy[r, out] * O[r, in], fp32: one 64 x 64
-// tile of dW over one slice of the rows.  Both operands have the reduction
-// index running down their rows, so both fragments are read transposed.
-constexpr int kDwTile = 64;
-constexpr int kDwRows = 64;  // rows of the reduction per step
-constexpr int kDwLd = kDwTile + 8;
-constexpr int kDwStageElems = 2 * kDwRows * kDwLd;  // a dy tile and an O tile
-constexpr size_t kDwSmemBytes = kStages * kDwStageElems * sizeof(bf16);
-
-__global__ void __launch_bounds__(kThreads)
-attn_proj_dw_kernel(const bf16* __restrict__ dy, const bf16* __restrict__ o,
-                    float* __restrict__ part, int M, int D, int rows_per_slice) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s = reinterpret_cast<bf16*>(smem);
-  const int in0 = blockIdx.x * kDwTile;   // O's columns: dW's columns
-  const int out0 = blockIdx.y * kDwTile;  // dy's columns: dW's rows
-  const int r_begin = blockIdx.z * rows_per_slice;
-  const int r_end = min(M, r_begin + rows_per_slice);
-  const int steps = r_end > r_begin ? (r_end - r_begin + kDwRows - 1) / kDwRows : 0;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = (warp / 2) * 32;
-  const int wn = (warp % 2) * 32;
-
-  auto load = [&](int step) {
-    bf16* t_dy = s + (step % kStages) * kDwStageElems;
-    bf16* t_o = t_dy + kDwRows * kDwLd;
-    const int row0 = r_begin + step * kDwRows;
-    for (int i = threadIdx.x; i < kDwRows * (kDwTile / 8); i += kThreads) {
-      const int r = i / (kDwTile / 8);
-      const int c = (i % (kDwTile / 8)) * 8;
-      const int row = row0 + r;
-      const bool ok = row < r_end;
-      cp_async_16(t_dy + r * kDwLd + c, ok ? dy + static_cast<long>(row) * D + out0 + c : dy,
-                  ok ? 16 : 0);
-      cp_async_16(t_o + r * kDwLd + c, ok ? o + static_cast<long>(row) * D + in0 + c : o,
-                  ok ? 16 : 0);
-    }
-  };
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < steps) load(st);
-    cp_async_commit();
-  }
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    const int next = step + kStages - 1;
-    if (next < steps) load(next);
-    cp_async_commit();
-    const bf16* t_dy = s + (step % kStages) * kDwStageElems;
-    const bf16* t_o = t_dy + kDwRows * kDwLd;
-    const int m8 = lane / 8;  // which 8x8 matrix this lane addresses
-#pragma unroll
-    for (int kk = 0; kk < kDwRows; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        ldmatrix_x4_trans(a[i], t_dy + (kk + (m8 >> 1) * 8 + (lane % 8)) * kDwLd + wm + i * 16 +
-                                    (m8 & 1) * 8);
-#pragma unroll
-      for (int j = 0; j < 4; j += 2) {
-        uint32_t bq[4];
-        ldmatrix_x4_trans(bq, t_o + (kk + (m8 & 1) * 8 + (lane % 8)) * kDwLd + wn + j * 8 +
-                                  (m8 >> 1) * 8);
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          mma_16816(acc[i][j], a[i], bq[0], bq[1]);
-          mma_16816(acc[i][j + 1], a[i], bq[2], bq[3]);
-        }
-      }
-    }
-  }
-  float* dst = part + static_cast<long>(blockIdx.z) * D * D;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = out0 + wm + i * 16 + g + 8 * half;
-        const int col = in0 + wn + j * 8 + 2 * t;
-        *reinterpret_cast<float2*>(dst + static_cast<long>(row) * D + col) =
-            make_float2(acc[i][j][2 * half], acc[i][j][2 * half + 1]);
-      }
-}
-
 // part[block][c] = sum of dy[r][c] over the block's 64 rows, in row order.
 constexpr int kDbRows = 64;
 
@@ -430,24 +336,15 @@ extern "C" int ssl4polyp_attn_proj_bwd(const void* qkv, const void* w, const voi
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int D = H * head_dim;
   const int M = B * N;
-  if (slices < 1 || D % kDwTile != 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = dispatch_proj<true>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(w), nullptr,
       static_cast<const bf16*>(dy), static_cast<bf16*>(o), static_cast<bf16*>(d_o), B, N, H,
       head_dim, n_valid, scale_c, softmax_f32, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(attn_proj_dw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kDwSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int per_slice = ((M + slices - 1) / slices + kDwRows - 1) / kDwRows * kDwRows;
-  attn_proj_dw_kernel<<<dim3(D / kDwTile, D / kDwTile, slices), kThreads, kDwSmemBytes, st>>>(
-      static_cast<const bf16*>(dy), static_cast<const bf16*>(o), static_cast<float*>(dw_part), M,
-      D, per_slice);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_column_sum(static_cast<const float*>(dw_part), slices, D * D,
-                          static_cast<float*>(dw), st);
+  err = launch_transposed_product(static_cast<const bf16*>(dy), D, static_cast<const bf16*>(o), D,
+                                  static_cast<float*>(dw_part), static_cast<float*>(dw), M, D, D,
+                                  slices, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int db_blocks = (M + kDbRows - 1) / kDbRows;

@@ -60,6 +60,10 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows, 
   }
 }
 
+// GELU false: the bare product y = x . w^T rounded once to bf16 (`bias` and
+// `h` are not read): the streaming GEMM other kernels' phases call through
+// ssl4polyp_matmul_nt.
+template <bool GELU>
 __global__ void __launch_bounds__(kThreads)
 fc1_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                 const bf16* __restrict__ bias, bf16* __restrict__ h, bf16* __restrict__ y,
@@ -132,8 +136,8 @@ fc1_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
   for (int j = 0; j < kNT; ++j) {
     const int col = n0 + wn + j * 8 + 2 * t;
     if (col >= NF) continue;
-    const float b0 = __bfloat162float(bias[col]);
-    const float b1 = __bfloat162float(bias[col + 1]);
+    const float b0 = GELU ? __bfloat162float(bias[col]) : 0.0f;
+    const float b1 = GELU ? __bfloat162float(bias[col + 1]) : 0.0f;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
 #pragma unroll
@@ -143,6 +147,10 @@ fc1_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
         const float h0 = acc[i][j][2 * half] + b0;
         const float h1 = acc[i][j][2 * half + 1] + b1;
         const long at = static_cast<long>(row) * NF + col;
+        if (!GELU) {
+          *reinterpret_cast<uint32_t*>(y + at) = pack_floats(h0, h1);
+          continue;
+        }
         if (h != nullptr) *reinterpret_cast<uint32_t*>(h + at) = pack_floats(h0, h1);
         *reinterpret_cast<uint32_t*>(y + at) = pack_floats(gelu_erf(h0), gelu_erf(h1));
       }
@@ -414,13 +422,31 @@ cudaError_t dispatch_mlp_fused(int K, const bf16* x, const float* ln_s, const fl
 // (M, NF) bf16.  K and NF are multiples of 8.  Returns the launch's CUDA error.
 extern "C" int ssl4polyp_fc1_gelu_fwd(const void* x, const void* w, const void* bias, void* h,
                                       void* y, int M, int K, int NF, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      fc1_gelu_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(kSmemBytes));
+  cudaError_t err = cudaFuncSetAttribute(fc1_gelu_kernel<true>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((NF + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  fc1_gelu_kernel<<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  fc1_gelu_kernel<true><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w),
       static_cast<const bf16*>(bias), static_cast<bf16*>(h), static_cast<bf16*>(y), M, K, NF);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// y = x . w^T, rounded once to bf16.  x: (M, K) bf16; w: (NF, K) bf16; y:
+// (M, NF) bf16; K a multiple of 8 and NF even.  The same tiled loop as
+// fc1+GELU, for the products inside other kernels' phases (attention_block.cu's
+// dx).  Returns the launch's CUDA error.
+extern "C" int ssl4polyp_matmul_nt(const void* x, const void* w, void* y, int M, int K, int NF,
+                                   void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(fc1_gelu_kernel<false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(kSmemBytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((NF + kBN - 1) / kBN, (M + kBM - 1) / kBM);
+  fc1_gelu_kernel<false><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), nullptr, nullptr,
+      static_cast<bf16*>(y), M, K, NF);
   return static_cast<int>(cudaGetLastError());
 }
 

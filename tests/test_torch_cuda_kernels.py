@@ -410,3 +410,116 @@ def test_adamw_wrapper_refuses_what_the_kernel_does_not_take(gen):
     with pytest.raises(ValueError):  # not contiguous
         adamw.adamw_multi_tensor([p.t()], None, [zeros()], [zeros()], [zeros()], [1.0], [1.0],
                                  **kwargs)
+
+
+# Attention over separate q, k, v: the plain forward rounds at the kernel's
+# points (one flipped bf16 ulp).  The plain backward keeps W and dS in fp32
+# where the kernel carries them as two bf16 terms (16 bits of mantissa): an
+# error of 2^-17 relative per term, far inside one bf16 ulp of the outputs.
+@pytest.mark.parametrize(
+    "B, H, N, hd",
+    [(64, 12, 197, 64), (4, 16, 197, 32), (2, 3, 37, 16), (1, 2, 256, 64), (1, 1, 1, 16),
+     (2, 4, 130, 32)],
+)
+def test_separate_attention_kernels_match_plain(gen, B, H, N, hd):
+    from ssl4polyp_tpu_torch.ops import attention
+
+    q, k, v, dout = (_randn(gen, B, H, N, hd) for _ in range(4))
+    results = []
+    for fn in (attention.fused_attention, attention.fused_attention_plain):
+        leaves = [a.clone().requires_grad_() for a in (q, k, v)]
+        ops.reset_launch_counts()
+        out = fn(*leaves)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        kernel = fn is attention.fused_attention
+        assert counts["fused_attention"] == counts["fused_attention_backward"] == int(kernel)
+        assert sum(counts.values()) == 2 * int(kernel)
+        results.append((out.detach(), *[a.grad for a in leaves]))
+    torch.testing.assert_close(results[0][0], results[1][0], **ATTENTION_TOL)
+    for got, want in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(got, want, **ATTENTION_BWD_TOL)
+    again = attention._backward_kernel(q, k, v, dout)
+    assert all(torch.equal(a, g) for a, g in zip(again, results[0][1:]))  # no atomics
+
+
+def test_separate_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    from ssl4polyp_tpu_torch.ops.attention import fused_attention
+
+    q = _randn(gen, 1, 2, 8, 16)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            fused_attention(q.float(), q.float(), q.float())
+        with pytest.raises(ValueError):  # head dim 8
+            fused_attention(*(_randn(gen, 1, 2, 8, 8) for _ in range(3)))
+        with pytest.raises(ValueError):  # > 256 tokens
+            fused_attention(*(_randn(gen, 1, 1, 300, 16) for _ in range(3)))
+        with pytest.raises(ValueError):  # not contiguous
+            fused_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+        with pytest.raises(ValueError):  # shapes differ
+            fused_attention(q, q[:, :1], q)
+
+
+@pytest.mark.parametrize(
+    "B, N, Din, H, hd, softmax_f32, valid_len",
+    [
+        (64, 197, 768, 12, 64, True, None),   # the classifier's block
+        (8, 197, 512, 16, 32, False, None),   # the MAE decoder's block
+        (3, 197, 768, 12, 64, True, 150),
+        (2, 50, 64, 4, 32, False, 40),
+        (1, 256, 128, 2, 64, True, 255),
+        (2, 129, 192, 8, 32, False, None),
+    ],
+)
+def test_qkvproj_attention_kernels_match_plain(gen, B, N, Din, H, hd, softmax_f32, valid_len):
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+
+    D = H * hd
+    x, dout = _randn(gen, B, N, Din), _randn(gen, B, N, D)
+    if valid_len is not None:
+        dout[:, valid_len:] = 0  # the pad rows' upstream gradient is zero
+    w, b = _randn(gen, Din, 3 * D, scale=Din ** -0.5), _randn(gen, 3 * D, scale=0.5)
+    results = []
+    for fn in (ab.fused_qkvproj_attention, ab.fused_qkvproj_attention_plain):
+        leaves = [a.clone().requires_grad_() for a in (x, w, b)]
+        ops.reset_launch_counts()
+        out = fn(*leaves, H, softmax_f32, valid_len)
+        out.backward(dout)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        kernel = fn is ab.fused_qkvproj_attention
+        assert counts["fused_qkvproj_attention"] == int(kernel)
+        assert counts["fused_qkvproj_attention_backward"] == int(kernel)
+        assert sum(counts.values()) == 2 * int(kernel)
+        results.append((out.detach(), *[a.grad for a in leaves]))
+    (out, dx, dw, db), (ref_out, ref_dx, ref_dw, ref_db) = results
+    rows = slice(None) if valid_len is None else slice(0, valid_len)
+    # qkv carries one flipped bf16 ulp (fp32 summation order of the
+    # projection) into the core, on both sides' own roundings.
+    torch.testing.assert_close(out[:, rows], ref_out[:, rows], atol=2e-2, rtol=2e-2)
+    # dx, dw and db are sums of each side's own rounded dqkv (over 3D columns,
+    # or over every row of the batch): relative to the largest entry.
+    for name, got, want in (("dx", dx, ref_dx), ("dw", dw, ref_dw), ("db", db, ref_db)):
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2 * scale, rtol=2e-2,
+                                   msg=name)
+    again = ab._backward_kernel(x, w, b, dout, H, softmax_f32, valid_len)
+    assert all(torch.equal(a, g) for a, g in zip(again, (dx, dw, db)))  # no atomics
+
+
+def test_qkvproj_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
+    from ssl4polyp_tpu_torch.ops.attention_block import fused_qkvproj_attention
+
+    x, w, b = _randn(gen, 1, 8, 64), _randn(gen, 64, 384), _randn(gen, 384)
+    with torch.inference_mode():
+        with pytest.raises(TypeError):
+            fused_qkvproj_attention(x.float(), w.float(), b.float(), 4)
+        with pytest.raises(ValueError):  # head dim 16
+            fused_qkvproj_attention(x, w, b, 8)
+        with pytest.raises(ValueError):  # Din 32 is not a multiple of 64
+            fused_qkvproj_attention(_randn(gen, 1, 8, 32), _randn(gen, 32, 384), b, 4)
+        with pytest.raises(ValueError):  # > 256 tokens
+            fused_qkvproj_attention(_randn(gen, 1, 300, 64), w, b, 4)
+        with pytest.raises(ValueError):  # valid_len outside 1..N
+            fused_qkvproj_attention(x, w, b, 4, True, 9)

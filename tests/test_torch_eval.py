@@ -51,7 +51,7 @@ def test_forward_and_metrics_match_jax(image_pack):
     params = jax.tree_util.tree_map(np.asarray, jax_classifier.params)
     classifier = get_imagenet_or_random_vit(
         torch.Generator().manual_seed(0), jax_params=params, num_classes=2,
-        compute_dtype=torch.float32, **TINY,
+        device="cpu", compute_dtype=torch.float32, **TINY,
     )
     index = create_classification_datasets(test_spec=image_pack, image_size=32)["test"]
     loader = HostDataLoader(index, batch_size=5, num_workers=1)

@@ -147,7 +147,7 @@ def _jax_pair(overrides, pos_embed="learned", seed=0):
         jax.random.PRNGKey(seed), pos_embed=pos_embed, compute_dtype=jnp.float32, **SHAPES)
     params = jax.tree_util.tree_map(np.asarray, jax_clf.params)
     ours = build_classifier(torch.Generator().manual_seed(seed), {}, jax_params=params,
-                            pos_embed=pos_embed, compute_dtype=torch.float32, **SHAPES,
+                            device="cpu", pos_embed=pos_embed, compute_dtype=torch.float32, **SHAPES,
                             **overrides)
     return jax_clf, params, ours
 

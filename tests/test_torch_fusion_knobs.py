@@ -77,8 +77,8 @@ def test_classifier_routes_match_the_jax_stack(jax_routes, knobs, dim, pad):
                               **pads)
     params = jax_vit.init_vit(jax.random.PRNGKey(0), jcfg)
     jax_vit.vit_features(params, jnp.zeros((1, 32, 32, 3)), jcfg)
-    ours = build_classifier(torch.Generator().manual_seed(0), {}, embed_dim=dim,
-                            **SHAPES, **knobs, **pads)
+    ours = build_classifier(torch.Generator().manual_seed(0), {}, device="cpu",
+                            embed_dim=dim, **SHAPES, **knobs, **pads)
     assert _routes(ours.model.blocks) == _recorded(jax_routes)
     # The knobs reach the kernels only where the stream is flattened: the
     # factory pads 17 tokens to 24 unless told not to, and D 64 is never flat.
@@ -157,7 +157,8 @@ def test_classifier_fold_matches_the_jax_stack(jax_folds, monkeypatch, dim, pad,
                               unroll_blocks=True, compute_dtype=jnp.float32, **SHAPES, **pads)
     params = jax_vit.init_vit(jax.random.PRNGKey(0), jcfg)
     jax_vit.vit_features(params, jnp.zeros((1, 32, 32, 3)), jcfg)
-    ours = build_classifier(torch.Generator().manual_seed(0), {}, embed_dim=dim, **SHAPES, **pads)
+    ours = build_classifier(torch.Generator().manual_seed(0), {}, device="cpu", embed_dim=dim,
+                            **SHAPES, **pads)
     assert _folds(ours.model.blocks) == jax_folds
     # The fold needs the knob and the flattened stream: the factory pads 17
     # tokens to 24 unless told not to, and D 64 is never flat.
@@ -209,9 +210,10 @@ def test_a_mistyped_mlp_fusion_raises_as_in_the_jax_package():
     with pytest.raises(ValueError, match="mlp_fusion"):
         jax_layers.run_blocks(jnp.zeros((1, 8, 128)), {}, 4, mlp_fusion="ful")
     with pytest.raises(ValueError, match="mlp_fusion"):
-        build_classifier(torch.Generator(), {}, **SHAPES, mlp_fusion="ful")
+        build_classifier(torch.Generator(), {}, device="cpu", **SHAPES, mlp_fusion="ful")
     with pytest.raises(ValueError, match="mlp_fusion"):
-        build_classifier(torch.Generator(), {"ss_framework": "mae"}, **SHAPES, mlp_fusion="FULL")
+        build_classifier(torch.Generator(), {"ss_framework": "mae"}, device="cpu", **SHAPES,
+                         mlp_fusion="FULL")
     with pytest.raises(ValueError, match="mlp_fusion"):
         MAEConfig(encoder=ViTConfig(**SHAPES, mlp_fusion="ful"))
 
@@ -226,8 +228,8 @@ def test_fused_routes_compute_the_default_routes_function_in_fp32(monkeypatch, f
     logits = []
     for i, knobs in enumerate(KNOBS):
         monkeypatch.setenv("BENCH_ATTN_PROJ", "1" if fold and i else "0")  # the first: default
-        model = build_classifier(torch.Generator().manual_seed(0), {}, embed_dim=128,
-                                 compute_dtype=torch.float32, **SHAPES, **knobs).model
+        model = build_classifier(torch.Generator().manual_seed(0), {}, device="cpu",
+                                 embed_dim=128, compute_dtype=torch.float32, **SHAPES, **knobs).model
         assert all(b.attn.proj_fold == bool(fold and i) for b in model.blocks)
         with torch.inference_mode():
             logits.append(model(images))

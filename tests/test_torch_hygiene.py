@@ -1,7 +1,10 @@
 """The port imports and runs (an eval forward, a pretrain step, a fine-tune
-step and a split evaluation) without jax, flax, PyYAML, PIL, scikit-learn or
-the JAX package itself (the GPU machine lacks jax and flax), no source of the
-port imports any of them, and chip_smoke.py refuses to run without CUDA."""
+step, a split evaluation and the standalone eval CLI's ``evaluate``) without
+jax, flax, msgpack, scikit-learn or the JAX package itself (the GPU machine
+lacks jax and flax), and imports without PyYAML and PIL (which only the
+manifest and frame readers import, where they open a file); no source of the
+port imports the forbidden ones, every ``device`` parameter defaults to the
+card, and chip_smoke.py refuses to run without CUDA."""
 
 import os
 import re
@@ -15,7 +18,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _BLOCKED_SCRIPT = """
 import sys
-for name in ("jax", "flax", "yaml", "PIL", "sklearn", "ssl4polyp_tpu"):
+for name in ("jax", "flax", "msgpack", "yaml", "PIL", "sklearn", "ssl4polyp_tpu"):
     sys.modules[name] = None  # any import of them raises ImportError
 
 import importlib, pkgutil
@@ -30,8 +33,8 @@ import chip_smoke  # noqa: F401  (main() is not run)
 from ssl4polyp_tpu_torch.models.factory import get_mae_backbone
 from ssl4polyp_tpu_torch.training.classification import make_forward_fn
 
-classifier = get_mae_backbone(torch.Generator().manual_seed(0), img_size=32, patch_size=8,
-                              embed_dim=64, depth=2, num_heads=4, pad_tokens_to=24)
+classifier = get_mae_backbone(torch.Generator().manual_seed(0), device="cpu", img_size=32,
+                              patch_size=8, embed_dim=64, depth=2, num_heads=4, pad_tokens_to=24)
 images = np.random.default_rng(0).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
 logits = make_forward_fn(classifier, "cpu")(images)
 assert logits.shape == (2, 2) and logits.dtype == np.float32 and np.isfinite(logits).all()
@@ -55,8 +58,8 @@ assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
 from ssl4polyp_tpu_torch.models.factory import build_classifier
 from ssl4polyp_tpu_torch.training import classification, optim
 
-clf = build_classifier(torch.Generator().manual_seed(0), {}, img_size=32, patch_size=8,
-                       embed_dim=128, depth=2, num_heads=4, mlp_fusion="full_ln",
+clf = build_classifier(torch.Generator().manual_seed(0), {}, device="cpu", img_size=32,
+                       patch_size=8, embed_dim=128, depth=2, num_heads=4, mlp_fusion="full_ln",
                        qkv_ln_fusion=True)
 assert {(b.mlp_route, b.qkv_ln) for b in clf.model.blocks} == {("full_ln", True)}
 ctx = classification.TrainContext(clf, *classification.loss_settings([3, 1]), weight_decay=0.05)
@@ -85,6 +88,31 @@ assert set(out["morphology_metrics"]) == {"flat", "polypoid"}
 assert set(out["perturbation_metrics"]) == {"clean", "blur", "ALL-perturbed"}
 assert set(out["case_metrics"]) == {"c0", "c1"}
 
+# The standalone eval on a tiny pack and checkpoint.  PyYAML and PIL come
+# back only now: every module imported without them, and only the manifest
+# and frame readers (and the synthetic pack's writer) import them.
+import tempfile
+from pathlib import Path
+del sys.modules["yaml"], sys.modules["PIL"]
+from ssl4polyp_tpu_torch.evaluation.eval_classification import evaluate
+from ssl4polyp_tpu_torch.polypdb.synth import build_synthetic_pack
+from ssl4polyp_tpu_torch.utils.checkpoint import save_checkpoint
+
+with tempfile.TemporaryDirectory() as tmp:
+    pack = build_synthetic_pack(Path(tmp), name="tiny", splits=("test",), frames_per_split=6,
+                                image_size=32)
+    model_cfg = dict(img_size=32, patch_size=8, embed_dim=32, depth=1, num_heads=2,
+                     pos_embed="learned", out_token="cls", num_classes=2, pad_tokens_to=0)
+    tree = chip_smoke.jax_layout_tree(
+        ViTConfig(**{k: v for k, v in model_cfg.items() if k != "out_token"}),
+        np.random.default_rng(0))
+    ckpt = save_checkpoint(Path(tmp) / "Tiny_Synth_s1.ckpt", {"params": tree},
+                           {"model_cfg": model_cfg, "thresholds": {"primary": {"tau": 0.25}}})
+    summary = evaluate(ckpt, pack, batch_size=4, image_size=32, num_workers=1, device="cpu",
+                       output_dir=Path(tmp) / "eval", export_outputs=True)
+    assert summary["n_frames"] == 6 and summary["tau"] == 0.25 and np.isfinite(summary["loss"])
+    assert (Path(tmp) / "eval" / "logits.pt").exists()
+
 leaked = sorted(m for m in sys.modules
                 if (m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
                 and sys.modules[m] is not None)
@@ -103,7 +131,7 @@ def test_port_imports_and_runs_with_the_jax_stack_blocked():
     result = _run(["-c", _BLOCKED_SCRIPT])
     assert result.returncode == 0, result.stderr
     assert result.stdout.startswith("ok")
-    assert int(result.stdout.split()[1]) >= 15  # every slice module was imported
+    assert int(result.stdout.split()[1]) >= 38  # every slice module was imported
 
 
 def _forbidden_import(line: str):
@@ -119,14 +147,19 @@ def _forbidden_import(line: str):
     names = [words[1]] if words[0] == "from" else line.split("import", 1)[1].split(",")
     for name in names:
         root = name.strip().split(" ")[0].split(".")[0]
-        if root in {"jax", "flax", "sklearn"}:
+        if root in {"jax", "flax", "sklearn", "msgpack"}:
             return root
     return None
 
 
 def test_no_jax_import_in_the_port_sources():
     sources = [*(ROOT / "ssl4polyp_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
-    assert len(sources) > 25
+    assert len(sources) > 45
+    names = {path.relative_to(ROOT).as_posix() for path in sources}
+    assert {"ssl4polyp_tpu_torch/utils/msgpack.py", "ssl4polyp_tpu_torch/utils/checkpoint.py",
+            "ssl4polyp_tpu_torch/evaluation/eval_classification.py",
+            "ssl4polyp_tpu_torch/ops/attention.py",
+            "ssl4polyp_tpu_torch/ops/attention_block.py"} <= names
     for path in sources:
         for line in path.read_text().splitlines():
             assert _forbidden_import(line) is None, f"{path}: {line}"
@@ -141,6 +174,10 @@ def test_no_jax_import_in_the_port_sources():
     ("        from sklearn.metrics import f1_score", "sklearn"),
     ("import numpy, jax.numpy as jnp", "jax"),
     ("from flax import linen", "flax"),
+    ("    from flax import serialization", "flax"),
+    ("import msgpack", "msgpack"),
+    ("from . import msgpack", None),
+    ("from .utils import msgpack", None),
     ("from ssl4polyp_tpu_torch.ops import mlp", None),
     ("import ssl4polyp_tpu_torch", None),
     ("from ..metrics import performance as perf", None),
@@ -149,6 +186,36 @@ def test_no_jax_import_in_the_port_sources():
 ])
 def test_the_source_check_finds_what_it_should(line, found):
     assert _forbidden_import(line) == found
+
+
+def test_every_device_parameter_defaults_to_the_card():
+    # The port's entry points run on the card unless the caller asks for the
+    # CPU: a public function that takes a ``device`` either has no default
+    # for it or defaults to "cuda".
+    import importlib
+    import inspect
+    import pkgutil
+
+    import ssl4polyp_tpu_torch
+
+    seen = []
+    for info in pkgutil.walk_packages(ssl4polyp_tpu_torch.__path__, "ssl4polyp_tpu_torch."):
+        module = importlib.import_module(info.name)
+        for name, fn in vars(module).items():
+            if name.startswith("_") or getattr(fn, "__module__", None) != info.name:
+                continue
+            targets = [fn] if inspect.isfunction(fn) else (
+                [fn.__init__] if inspect.isclass(fn) and "__init__" in vars(fn) else [])
+            for target in targets:
+                parameter = inspect.signature(target).parameters.get("device")
+                if parameter is not None:
+                    seen.append(f"{info.name}.{name}")
+                    assert parameter.default in (inspect.Parameter.empty, "cuda"), (
+                        f"{info.name}.{name}: device defaults to {parameter.default!r}")
+    assert {"ssl4polyp_tpu_torch.models.factory.build_classifier",
+            "ssl4polyp_tpu_torch.models.factory.get_mae_backbone",
+            "ssl4polyp_tpu_torch.models.factory.get_imagenet_or_random_vit",
+            "ssl4polyp_tpu_torch.evaluation.eval_classification.evaluate"} <= set(seen)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -59,7 +59,8 @@ def test_build_classifier_dispatch_and_layout_keys(tmp_path):
     assert set(layout) == LAYOUT_KEYS
     # The padding and the fusion knobs are config fields: they decide which
     # kernels run (tests/test_torch_fusion_knobs.py).
-    small = dict(TINY, **layout, pad_tokens_to=24, mlp_fusion="full", qkv_ln_fusion=True)
+    small = dict(TINY, **layout, pad_tokens_to=24, mlp_fusion="full", qkv_ln_fusion=True,
+                 device="cpu")
     small.pop("num_classes")
     gen = torch.Generator().manual_seed(0)
     mae = build_classifier(gen, {"ss_framework": "mae", "key": "ssl_colon"}, **small)
