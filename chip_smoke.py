@@ -8,7 +8,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 
     python3 chip_smoke.py
 
-Phases:
+(``--kernels-only`` stops after phase 2, for work on a kernel.)  Phases:
 
 1. Device and build: requires CUDA, prints the card's name and power limit,
    builds the CUDA kernels from ``ssl4polyp_tpu_torch/ops/csrc``.
@@ -19,7 +19,9 @@ Phases:
    version's times from CUDA events, beside them the time of the PyTorch
    library call for the same function where there is one (timed only; the
    port never calls it), and the least time the card could take (the larger
-   of the bytes over its memory rate and the operations over its peak rate).
+   of the bytes over its memory rate and the operations over its peak rate),
+   at each shape a kernel is timed at: the classifier's, the MAE decoder's
+   and the MAE encoder's.  The summary quotes the classifier's shape.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -81,6 +83,7 @@ and without a CUDA device the script exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import io
 import json
@@ -213,6 +216,9 @@ ROUTE_GRAD_RTOL = 2e-2
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
+# Cycles the card spins before a timed batch (about 2 ms at 1.7 GHz): longer
+# than the host takes to queue 20 launches of one kernel.
+SPIN_CYCLES = 3_500_000
 FT_LOSS_RTOL = 2.5e-2
 FT_GRAD_RTOL = 5e-2
 FT_LR = 1e-4
@@ -234,17 +240,29 @@ def max_error(out: torch.Tensor, ref: torch.Tensor, tol: tuple[float, float], wh
     return diff.max().item()
 
 
-def time_ms(fn, iters: int = 20) -> float:
+def time_ms(fn, iters: int = 20, batches: int = 5) -> float:
+    """The median over ``batches`` of the device time of one call in ms.
+
+    Each batch is ``iters`` calls between two CUDA events, after 3 calls to
+    warm up.  The card first spins for about 2 ms (``torch.cuda._sleep``), so
+    that the host has queued the whole batch before the first call starts:
+    the events then bracket the calls running back to back, and a kernel
+    shorter than its wrapper's host time is not timed by the wrapper.
+    """
     for _ in range(3):
         fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(batches):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
 
 
 @contextlib.contextmanager
@@ -271,18 +289,26 @@ def plain_kernels():
             setattr(module, name, fn)
 
 
+def bound(bytes_moved: float, flops: float, peak: float = BF16_FLOPS) -> tuple[float, str]:
+    """The least time in ms the card could take, and what sets it: the larger
+    of ``bytes_moved`` (each input read once, each output written once) over
+    the memory rate and ``flops`` over ``peak``, the rate of their type."""
+    by_bytes, by_flops = 1e3 * bytes_moved / HBM_BYTES_PER_S, 1e3 * flops / peak
+    return max(by_bytes, by_flops), "bytes" if by_bytes >= by_flops else "operations"
+
+
 def entry(source: str, replaces: str, err: float, ms: float, plain_ms: float, *,
           bytes_moved: float, flops: float, peak: float = BF16_FLOPS,
           library_ms: float | None = None) -> dict:
-    """A kernel's line of the summary.  ``bytes_moved`` counts each input
-    read once and each output written once at the timed shape; ``flops`` the
-    operations on them, against ``peak`` for their type."""
-    by_bytes, by_flops = 1e3 * bytes_moved / HBM_BYTES_PER_S, 1e3 * flops / peak
+    """A kernel's line of the summary, with its bound at the timed shape."""
+    bound_ms, bound_by = bound(bytes_moved, flops, peak)
     return {"route": "cuda", "source": f"ssl4polyp_tpu_torch/ops/csrc/{source}",
             "replaces": replaces, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(by_bytes, by_flops),
-            "bound_by": "bytes" if by_bytes >= by_flops else "operations",
-            "library_ms": library_ms}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms}
+
+
+def bound_text(bytes_moved: float, flops: float, peak: float = BF16_FLOPS) -> str:
+    return "bound {:.4f} ms ({})".format(*bound(bytes_moved, flops, peak))
 
 
 def heads_of(qkv: torch.Tensor, h: int):
@@ -312,27 +338,34 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         (BATCH, 197, 16, 32, False, None, True),
     ]
     errors, times = [], {}
+    shape_names = {2: "classifier", 5: "MAE encoder", 6: "MAE decoder"}
+
+    def attention_cost(b, n, h, hd):  # qkv and the bias in, the output out; two products
+        return dict(bytes_moved=2 * (b * n * 4 * h * hd + 3 * h * hd), flops=4 * b * h * n * n * hd)
+
     for i, (b, n, h, hd, f32, valid_len, with_bias) in enumerate(cases):
         qkv = randn(b, n, 3 * h * hd)
         bias = randn(3 * h * hd, scale=0.5) if with_bias else None
         run = lambda: qkv_attention.fused_qkv_attention(qkv, h, f32, valid_len, bias)  # noqa: E731
         plain = lambda: qkv_attention.fused_qkv_attention_reference(qkv, h, f32, valid_len, bias)  # noqa: E731
-        out = run()
+        out, again = run(), run()
         torch.cuda.synchronize()
         what = f"attention B={b} N={n} H={h} hd={hd} f32={f32} valid_len={valid_len} bias={with_bias}"
         errors.append(max_error(out, plain(), ATTENTION_TOL, what))
-        print(f"{what}: max |diff| {errors[-1]:.3e} (atol {ATTENTION_TOL[0]}, rtol {ATTENTION_TOL[1]})")
-        if i in (2, 5, 6):
+        if not torch.equal(out, again):
+            fail(f"{what}: two runs gave different bits")
+        print(f"{what}: max |diff| {errors[-1]:.3e} (atol {ATTENTION_TOL[0]}, rtol "
+              f"{ATTENTION_TOL[1]}); rerun bit-identical")
+        if i in shape_names:
             q, k, v = heads_of(qkv + bias, h)
             library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
             times[i] = time_ms(run), time_ms(plain), time_ms(library)
-            print(f"  kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, "
-                  f"scaled_dot_product_attention {times[i][2]:.4f} ms")
-    b, n, h, hd = cases[2][:4]
+            print(f"  {shape_names[i]}'s shape: kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} "
+                  f"ms, scaled_dot_product_attention {times[i][2]:.4f} ms, "
+                  f"{bound_text(**attention_cost(b, n, h, hd))}")
     report["fused_qkv_attention"] = entry(
         "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:91", max(errors), *times[2][:2],
-        bytes_moved=2 * (b * n * 4 * h * hd + 3 * h * hd), flops=4 * b * h * n * n * hd,
-        library_ms=times[2][2])
+        **attention_cost(*cases[2][:4]), library_ms=times[2][2])
 
     # Attention backward against the plain version with the JAX kernel's
     # roundings.  The first two cases are the pretrain path's calls, the
@@ -347,6 +380,12 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         (BATCH, 197, 12, 64, True, None, True),
     ]
     errors, times = [], {}
+    bwd_names = {0: "MAE encoder", 1: "MAE decoder", 6: "classifier"}
+
+    def attention_bwd_cost(b, n, h, hd):  # qkv, dout and the bias in, dqkv and dbias out
+        return dict(bytes_moved=2 * (b * n * 7 * h * hd + 6 * h * hd),
+                    flops=10 * b * h * n * n * hd)
+
     for i, (b, n, h, hd, f32, valid_len, with_bias) in enumerate(cases):
         qkv, dout = randn(b, n, 3 * h * hd), randn(b, n, h * hd)
         bias = randn(3 * h * hd, scale=0.5) if with_bias else None
@@ -367,26 +406,34 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         if not torch.equal(dqkv, again[0]) or (with_bias and not torch.equal(dbias, again[1])):
             fail(f"{what}: two runs gave different bits")
         print(line + "; rerun bit-identical")
-        if i in (0, 1, 6):
+        if i in bwd_names:
             leaf = (qkv + bias).requires_grad_()
             out = F.scaled_dot_product_attention(*heads_of(leaf, h)).transpose(1, 2).reshape(
                 dout.shape)
             library = lambda: torch.autograd.grad(out, leaf, dout, retain_graph=True)  # noqa: E731
             times[i] = time_ms(run), time_ms(plain), time_ms(library)
-            print(f"  kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, "
-                  f"scaled_dot_product_attention's backward {times[i][2]:.4f} ms")
+            print(f"  {bwd_names[i]}'s shape: kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} "
+                  f"ms, scaled_dot_product_attention's backward {times[i][2]:.4f} ms, "
+                  f"{bound_text(**attention_bwd_cost(b, n, h, hd))}")
             del leaf, out
-    b, n, h, hd = cases[1][:4]
     report["fused_qkv_attention_backward"] = entry(
-        "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:108", max(errors), *times[1][:2],
-        bytes_moved=2 * (b * n * 7 * h * hd + 6 * h * hd), flops=10 * b * h * n * n * hd,
-        library_ms=times[1][2])
+        "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:108", max(errors), *times[6][:2],
+        **attention_bwd_cost(*cases[6][:4]), library_ms=times[6][2])
 
     # LayerNorm forward and backward: the pretrain encoder's and decoder's
     # rows, then the eval forward's.  The plain backward is autograd's of the
     # plain forward, timed alone.
     fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
-    for i, (m, d) in enumerate([(BATCH * 50, 768), (BATCH * 197, 512), (BATCH * 197, 768)]):
+    ln_shapes = [(BATCH * 50, 768), (BATCH * 197, 512), (BATCH * 197, 768)]
+    ln_names = ["MAE encoder", "MAE decoder", "classifier"]
+
+    def ln_cost(m, d):  # x in and y out in bf16, the fp32 affine in
+        return dict(bytes_moved=4 * m * d + 8 * d, flops=8 * m * d, peak=FP32_FLOPS)
+
+    def ln_bwd_cost(m, d):  # x and dy in, dx out in bf16; the weight in, both gradients out
+        return dict(bytes_moved=6 * m * d + 12 * d, flops=12 * m * d, peak=FP32_FLOPS)
+
+    for i, (m, d) in enumerate(ln_shapes):
         x, dy = randn(m, d), randn(m, d)
         w = 1.0 + 0.1 * randn(d, dtype=torch.float32)
         bias = 0.1 * randn(d, dtype=torch.float32)
@@ -417,44 +464,79 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         library_bwd = lambda: torch.autograd.grad(lib_y, lib_leaves, dy, retain_graph=True)  # noqa: E731
         fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
         bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
-        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
-              f"F.layer_norm {fwd_times[i][2]:.4f} ms; backward kernel {bwd_times[i][0]:.4f} ms, "
-              f"plain {bwd_times[i][1]:.4f} ms, F.layer_norm's {bwd_times[i][2]:.4f} ms")
-    m, d = BATCH * 197, 512
+        print(f"  {ln_names[i]}'s shape: forward kernel {fwd_times[i][0]:.4f} ms, plain "
+              f"{fwd_times[i][1]:.4f} ms, F.layer_norm {fwd_times[i][2]:.4f} ms, "
+              f"{bound_text(**ln_cost(m, d))}; backward kernel {bwd_times[i][0]:.4f} ms, plain "
+              f"{bwd_times[i][1]:.4f} ms, F.layer_norm's {bwd_times[i][2]:.4f} ms, "
+              f"{bound_text(**ln_bwd_cost(m, d))}")
+    m, d = ln_shapes[2]  # the classifier's
     report["layernorm"] = entry(
-        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:32", max(fwd_errors), *fwd_times[1][:2],
-        bytes_moved=4 * m * d + 8 * d, flops=8 * m * d, peak=FP32_FLOPS,
-        library_ms=fwd_times[1][2])
+        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:32", max(fwd_errors), *fwd_times[2][:2],
+        **ln_cost(m, d), library_ms=fwd_times[2][2])
     report["layernorm_backward"] = entry(
-        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:69", max(bwd_errors), *bwd_times[1][:2],
-        bytes_moved=6 * m * d + 12 * d, flops=12 * m * d, peak=FP32_FLOPS,
-        library_ms=bwd_times[1][2])
+        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:69", max(bwd_errors), *bwd_times[2][:2],
+        **ln_bwd_cost(m, d), library_ms=bwd_times[2][2])
 
-    # fc1+GELU: the pretrain calls write h for the backward; the eval call
-    # writes y only.
+    # fc1+GELU: the pretrain calls and the fine-tune step's write h for the
+    # backward; the eval call writes y only.
     errors, times = [], {}
-    for i, (m, k, nf, write_h) in enumerate([(BATCH * 50, 768, 3072, True),
-                                             (BATCH * 197, 512, 2048, True),
-                                             (BATCH * 197, 768, 3072, False)]):
+    fc1_shapes = [("MAE encoder", BATCH * 50, 768, 3072, True),
+                  ("MAE decoder", BATCH * 197, 512, 2048, True),
+                  ("classifier", BATCH * 197, 768, 3072, False),
+                  ("classifier (fine-tune)", BATCH * 197, 768, 3072, True)]
+
+    def fc1_cost(m, k, nf, write_h):  # x, w and the bias in; y, and h when asked, out
+        return dict(bytes_moved=2 * (m * k + nf * k + nf + (2 if write_h else 1) * m * nf),
+                    flops=2 * m * k * nf)
+
+    for i, (name, m, k, nf, write_h) in enumerate(fc1_shapes):
         x, w, bias = randn(m, k), randn(nf, k, scale=k ** -0.5), randn(nf, scale=0.5)
         run = lambda: mlp._kernel(x, w, bias, write_h)  # noqa: E731
         plain = lambda: mlp.fc1_gelu_reference(x, w, bias)  # noqa: E731
-        h, y = run()
+        (h, y), (h2, y2) = run(), run()
         torch.cuda.synchronize()
         what = f"fc1_gelu ({m}, {k}) -> {nf}, h written: {write_h}"
         errors.append(max_error(y, plain(), FC1_TOL, f"{what}: y"))
         if write_h:
             errors.append(max_error(h, torch.matmul(x, w.t()) + bias, FC1_TOL, f"{what}: h"))
+        if not torch.equal(y, y2) or (write_h and not torch.equal(h, h2)):
+            fail(f"{what}: two runs gave different bits")
         library = lambda: F.gelu(F.linear(x, w, bias))  # noqa: E731
         times[i] = time_ms(run), time_ms(plain), time_ms(library)
         print(f"{what}: max |diff| {max(errors[-2:]):.3e} (atol {FC1_TOL[0]}, rtol {FC1_TOL[1]}); "
-              f"kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, F.linear + F.gelu "
-              f"{times[i][2]:.4f} ms")
-    m, k, nf = BATCH * 197, 512, 2048
+              f"rerun bit-identical")
+        print(f"  {name}'s shape: kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, "
+              f"F.linear + F.gelu {times[i][2]:.4f} ms, {bound_text(**fc1_cost(m, k, nf, write_h))}")
     report["fc1_gelu"] = entry(
-        "mlp.cu", "ssl4polyp_tpu/ops/mlp.py:73", max(errors), *times[1][:2],
-        bytes_moved=2 * (m * k + nf * k + nf + 2 * m * nf), flops=2 * m * k * nf,
-        library_ms=times[1][2])
+        "mlp.cu", "ssl4polyp_tpu/ops/mlp.py:73", max(errors), *times[2][:2],
+        **fc1_cost(*fc1_shapes[2][1:]), library_ms=times[2][2])
+
+    # The same kernel with a bare epilogue (ssl4polyp_matmul_nt): the dx product
+    # of fused_qkvproj_attention's backward, then fc1's shape without its
+    # bias and GELU, which prices the epilogue.
+    lib = _build.library()
+    for what, m, k, nf in (("dx of fused_qkvproj_attention", BATCH * 197, 2304, 768),
+                           ("fc1's shape, bare epilogue", BATCH * 197, 768, 3072)):
+        x, w = randn(m, k), randn(nf, k, scale=k ** -0.5)
+        outs = [torch.empty((m, nf), dtype=x.dtype, device=dev) for _ in range(2)]
+
+        def run(y=outs[0]):
+            err = lib.ssl4polyp_matmul_nt(x.data_ptr(), w.data_ptr(), y.data_ptr(), m, k, nf,
+                                          torch.cuda.current_stream().cuda_stream)
+            if err:
+                fail(f"matmul_nt launch failed: CUDA error {err}")
+
+        run()
+        run(outs[1])
+        torch.cuda.synchronize()
+        library = lambda: torch.matmul(x, w.t())  # noqa: E731
+        err = max_error(outs[0], library(), FUSED_TOL, f"matmul_nt ({m}, {k}) -> {nf}")
+        if not torch.equal(*outs):
+            fail(f"matmul_nt ({m}, {k}) -> {nf}: two runs gave different bits")
+        cost = dict(bytes_moved=2 * (m * k + nf * k + m * nf), flops=2 * m * k * nf)
+        print(f"matmul_nt ({m}, {k}) -> {nf} ({what}): max |diff| {err:.3e} (atol {FUSED_TOL[0]}, "
+              f"rtol {FUSED_TOL[1]}); rerun bit-identical; kernel {time_ms(run):.4f} ms, "
+              f"torch.matmul {time_ms(library):.4f} ms, {bound_text(**cost)}")
 
     # The fine-tune path's fused kernels at its shapes, then the MAE
     # decoder's.  Beside the plain version (fp32 products of the rounded
@@ -874,7 +956,9 @@ def phase_eval(gen: torch.Generator) -> dict[str, int]:
                                                     device="cuda")
         if any(block.attn.proj_fold != fold for block in classifier.model.blocks):
             fail(f"{what}: the blocks' projection fold is not {fold}")
-        forward = make_forward_fn(classifier, "cuda")
+        forward = make_forward_fn(classifier, "cuda")()
+        if any(p.dtype != torch.float32 for p in classifier.model.parameters()):
+            fail(f"{what}: make_forward_fn cast the classifier's own parameters")
 
         forward(requests[0])  # warm-up
         ops.reset_launch_counts()
@@ -1118,9 +1202,23 @@ def phase_finetune() -> dict[str, int]:
                 step(state, batches[i], labels[i], valid, FT_LR, full, wd)
             return rates(run, BATCH, REPEATS, REPEAT_CALLS)
 
+        # An eval forward bound to the state's compute copy before training
+        # must read the trained weights after it.
+        bound_forward = make_forward_fn(classifier, "cuda")(state.params_c)
+        probe = batches[0].cpu().numpy()
+        untrained = bound_forward(probe)
         ops.reset_launch_counts()
         losses = train(state)
         counts = ops.launch_counts()
+        trained = bound_forward(probe)
+        fresh = make_forward_fn(classifier, "cuda")()(probe)  # a new copy of the masters
+        err = max_error(torch.from_numpy(trained), torch.from_numpy(fresh), LOGITS_TOL,
+                        f"{what}: the forward bound to the train state, after training")
+        if np.array_equal(trained, untrained):
+            fail(f"{what}: the forward bound to the train state did not follow training")
+        print(f"{what}: the eval forward bound before training against one bound after it: max "
+              f"|diff| {err:.3e} (atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]}); training moved "
+              f"the logits by up to {np.abs(trained - untrained).max():.3e}")
         mlp_route, qkv_ln = classifier.model.blocks[0].mlp_route, classifier.model.blocks[0].qkv_ln
         if any(block.attn.proj_fold != fold for block in classifier.model.blocks):
             fail(f"{what}: the blocks' projection fold is not {fold}")
@@ -1345,7 +1443,7 @@ def phase_eval_cli() -> dict[str, int]:
         classifier = get_imagenet_or_random_vit(
             torch.Generator().manual_seed(0), jax_params=restored["payload"]["params"],
             num_classes=2, device="cuda", pad_tokens_to=0)
-        forward = make_forward_fn(classifier, "cuda")
+        forward = make_forward_fn(classifier, "cuda")()
         torch.cuda.synchronize()
         clock["model build"] = time.perf_counter() - start
         index = create_classification_datasets(test_spec="sun_full", pack_root=tmp / "data_packs",
@@ -1386,6 +1484,11 @@ def phase_eval_cli() -> dict[str, int]:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after phase 2 (each kernel against its plain version, with "
+                             "its times): no path is driven and no result line is printed")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1404,6 +1507,9 @@ def main() -> None:
           f"({_build.library_path()})")
 
     report = phase_kernels(torch.Generator(device="cuda").manual_seed(SEED))
+    if args.kernels_only:
+        print(json.dumps({"kernels": [{"name": name, **fields} for name, fields in report.items()]}))
+        return
     # Each path's launches, counted from 0 before it and read after it.
     runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(), phase_finetune(),
             phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli()]

@@ -230,7 +230,7 @@ def evaluate(
         num_classes=num_classes, jax_params=restored["payload"]["params"], device=device,
         **overrides,
     )
-    forward = make_forward_fn(classifier, device)
+    forward = make_forward_fn(classifier, device)()
 
     resolved_tau = resolve_tau(checkpoint, explicit_tau=tau, threshold_key=threshold_key)
     if resolved_tau is None and threshold_pack is not None:

@@ -104,12 +104,14 @@ def get_imagenet_or_random_vit(
     device: str | torch.device = "cuda",
     **overrides,
 ) -> Classifier:
-    """timm-lineage ViT-B (learned positions): ``jax_params`` or random."""
+    """timm-lineage ViT-B (learned positions): ``jax_params`` or random.
+
+    The scheme is ``"random"`` either way, as in the JAX factory, which names
+    it ``"sup_imnet"`` only where it read an AugReg file (not ported yet)."""
     pos_embed = overrides.pop("pos_embed", "learned")
     out_token = overrides.pop("out_token", out_token)
     cfg = _vit_b(num_classes, out_token, pos_embed, **overrides)
-    scheme = "random" if jax_params is None else "sup_imnet"
-    return Classifier(_build(generator, cfg, jax_params, device), cfg, scheme)
+    return Classifier(_build(generator, cfg, jax_params, device), cfg, "random")
 
 
 def build_classifier(

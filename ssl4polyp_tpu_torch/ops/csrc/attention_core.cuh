@@ -1,9 +1,10 @@
 // The attention kernels' shared device code (qkv_attention.cu, attn_proj.cu,
 // attention.cu, attention_block.cu): staging one head's rows into shared
 // memory (through registers where a bias or the scale fold applies, by
-// cp.async where the rows are plain copies), one warp's 16 query rows through
-// scores, softmax and the product with V, and the two-phase backward of one
-// (batch, head) pair.
+// cp.async where the rows are plain copies, or by cp.async with the bias and
+// the scale fold applied afterwards in place), one warp's 16 query rows
+// through scores, softmax and the product with V (operands read with
+// ldmatrix), and the two-phase backward of one (batch, head) pair.
 #pragma once
 
 #include <math.h>
@@ -69,19 +70,67 @@ __device__ void stage_rows(bf16* __restrict__ dst, int rows, const bf16* __restr
   }
 }
 
-// stage_rows for rows that need neither a bias nor the scale fold: 16-byte
-// cp.async copies (rows at or past N zero-filled), all in flight at once.
-// The caller commits the group and waits for it.
+// stage_rows for rows that need neither a bias nor the scale fold, or get
+// them afterwards from finish_rows_in_place: 16-byte cp.async copies (rows at
+// or past N zero-filled), all in flight at once, made by threads `tid` of
+// `threads` (the whole block in the short form below; a warp stages a tile
+// of its own with its lane and 32).  The caller commits the group and waits for it.
 template <int HD>
 __device__ __forceinline__ void stage_rows_async(bf16* dst, int rows, const bf16* src, int row0,
-                                                 int N, long ld) {
+                                                 int N, long ld, int tid, int threads) {
   constexpr int kChunks = HD / 8;
   constexpr int kLd = HD + 8;
-  for (int i = threadIdx.x; i < rows * kChunks; i += blockDim.x) {
+  for (int i = tid; i < rows * kChunks; i += threads) {
     const int r = i / kChunks;
     const int c = (i % kChunks) * 8;
     const bool ok = row0 + r < N;
     cp_async_16(dst + r * kLd + c, ok ? src + (row0 + r) * ld + c : src, ok ? 16 : 0);
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void stage_rows_async(bf16* dst, int rows, const bf16* src, int row0,
+                                                 int N, long ld) {
+  stage_rows_async<HD>(dst, rows, src, row0, N, ld, threadIdx.x, blockDim.x);
+}
+
+// The bias add and the scale fold of stage_rows, with the same roundings
+// (round_bf16(x + bias), then times `scale` and rounded again), in place on
+// rows that stage_rows_async copied: each thread finishes the chunks it
+// copied itself, so its own cp.async wait is all it needs first.  Rows at or
+// past N stay zero.  The caller synchronises the readers afterwards.
+//
+// Both steps run as packed bf16 instructions (add.rn.bf16x2, mul.rn.bf16x2),
+// two instructions for 16 bytes, and give the bits of the fp32 route: a sum of
+// two bf16 values is exact in fp32 unless their exponents are more than 16
+// apart, where both routes return the larger operand; a product of two bf16
+// values (`scale` must be one: the wrappers pass 1/sqrt(hd) as the compute
+// dtype holds it) has 16 significant bits, exact in fp32.
+template <int HD>
+__device__ __forceinline__ void finish_rows_in_place(bf16* dst, int rows, int row0, int N,
+                                                     const bf16* __restrict__ bias, float scale,
+                                                     bool fold_scale, int tid, int threads) {
+  constexpr int kChunks = HD / 8;
+  constexpr int kLd = HD + 8;
+  if (bias == nullptr && !fold_scale) return;
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
+  for (int i = tid; i < rows * kChunks; i += threads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    if (row0 + r >= N) continue;
+    uint4 chunk = *reinterpret_cast<const uint4*>(dst + r * kLd + c);
+    __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&chunk);
+    if (bias != nullptr) {
+      const uint4 add = *reinterpret_cast<const uint4*>(bias + c);
+      const __nv_bfloat162* add_pairs = reinterpret_cast<const __nv_bfloat162*>(&add);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pairs[j] = __hadd2(pairs[j], add_pairs[j]);
+    }
+    if (fold_scale) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pairs[j] = __hmul2(pairs[j], scale2);
+    }
+    *reinterpret_cast<uint4*>(dst + r * kLd + c) = chunk;
   }
 }
 
@@ -92,59 +141,76 @@ __device__ __forceinline__ uint32_t scale_pair(uint32_t packed, float scale_c) {
                      __uint_as_float(packed & 0xffff0000u) * scale_c);
 }
 
-// One warp's 16 query rows (r0 .. r0 + 15 of the staged Q tile: scale-folded
-// already, or, with SCALE_Q, unscaled and folded here with `q_scale`)
-// against the whole staged K and V of the head (NKT key tiles of 16, keys
-// past the sequence zero): the whole score row in registers (mma.sync
-// m16n8k16, bf16 in, fp32 accumulate), keys >= n_valid masked to -inf, the
-// scores optionally rounded to bf16, an exact softmax over the full row, the
-// weights rounded to bf16 and multiplied by V.  With SCALE_SCORES, q is
-// taken as it is and `q_scale` multiplies the fp32 scores instead (attention
-// over separate q, k, v).  `o` receives the fp32 output
-// fragments: o[n][0..1] row g, o[n][2..3] row g + 8, columns n * 8 + 2t, + 1.
-template <int HD, int NKT, bool SCALE_Q = false, bool SCALE_SCORES = false>
-__device__ __forceinline__ void attention_rows(const bf16* s_q, const bf16* s_k, const bf16* s_v,
-                                               int r0, int lane, int n_valid, int softmax_f32,
-                                               float (&o)[HD / 8][4], float q_scale = 1.0f) {
+// One warp's 16 query rows against the whole staged K and V of the head, in
+// three steps that attention_rows strings together and the QKV forward kernel
+// interleaves with its copies.  Shared tiles have a row stride of HD + 8
+// elements, which keeps every ldmatrix free of bank conflicts.
+
+// The A fragments of rows r0 .. r0 + 15 of the staged Q tile: one ldmatrix.x4
+// for each 16 columns.
+template <int HD>
+__device__ __forceinline__ void load_q_fragments(uint32_t (&qa)[HD / 16][4], const bf16* s_q, int r0,
+                                                 int lane) {
   constexpr int kLd = HD + 8;
-  const int g = lane >> 2;  // fragment row group
-  const int t = lane & 3;   // thread in group
-  uint32_t qa[HD / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk)
+    ldmatrix_x4(qa[kk], s_q + (r0 + lane % 16) * kLd + kk * 16 + (lane / 16) * 8);
+}
+
+// Scores and softmax: the whole score row in registers (mma.sync m16n8k16,
+// bf16 in, fp32 accumulate; one ldmatrix.x4 of K feeds two products), keys >=
+// n_valid masked to -inf (keys past the sequence are zero rows), the scores
+// optionally rounded to bf16, an exact softmax over the full row.  With
+// SCALE_SCORES, `score_scale` multiplies the fp32 scores.  Leaves in s the
+// unnormalised weights exp(s - max): s[j] holds keys j*8 .. j*8+7, elements
+// 0, 1 of row g and 2, 3 of row g + 8; inv0 and inv1 are the rows' 1 / sum.
+template <int HD, int NKT, bool SCALE_SCORES>
+__device__ __forceinline__ void attention_scores(const uint32_t (&qa)[HD / 16][4], const bf16* s_k,
+                                                 int lane, int n_valid, int softmax_f32,
+                                                 float score_scale, float (&s)[2 * NKT][4],
+                                                 float& inv0, float& inv1) {
+  constexpr int kLd = HD + 8;
+  const int t = lane & 3;  // thread in group
+  // Matrices of one ldmatrix.x4: (keys j*8.., k 0-7), (same keys, k 8-15),
+  // (keys (j+1)*8.., k 0-7), (those keys, k 8-15).
+  const bf16* k_lane = s_k + ((lane / 16) * 8 + lane % 8) * kLd + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  // The step along hd outside, the key tiles inside: neighbouring products
+  // add into different accumulators, so none waits for the one before it
+  // (each s[j] still sums its steps in order).
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
-    const bf16* p = s_q + (r0 + g) * kLd + kk * 16 + 2 * t;
-    qa[kk][0] = load_u32(p);
-    qa[kk][1] = load_u32(p + 8 * kLd);
-    qa[kk][2] = load_u32(p + 8);
-    qa[kk][3] = load_u32(p + 8 * kLd + 8);
-    if (SCALE_Q) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qa[kk][i] = scale_pair(qa[kk][i], q_scale);
+    for (int j = 0; j < 2 * NKT; j += 2) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, k_lane + j * 8 * kLd + kk * 16);
+      mma_16816(s[j], qa[kk], kb[0], kb[1]);
+      mma_16816(s[j + 1], qa[kk], kb[2], kb[3]);
     }
   }
 
-  // Scores: s[j] holds keys j*8 .. j*8+7; elements 0,1 are row g, 2,3 row g+8.
-  float s[2 * NKT][4];
+  // The mask touches only the column tiles that reach past n_valid, and the
+  // rounding is one pass under one test: both conditions are the same for
+  // the whole warp.
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+    const bool whole = j * 8 + 8 <= n_valid;
 #pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk) {
-      const bf16* p = s_k + (j * 8 + g) * kLd + kk * 16 + 2 * t;
-      mma_16816(s[j], qa[kk], load_u32(p), load_u32(p + 8));
+    for (int e = 0; e < 4; ++e) {
+      if (SCALE_SCORES) s[j][e] *= score_scale;
+      if (!whole && j * 8 + 2 * t + (e & 1) >= n_valid) s[j][e] = -INFINITY;
     }
   }
-
+  if (!softmax_f32) {
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = round_bf16(s[j][e]);
+  }
   float max0 = -INFINITY, max1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = j * 8 + 2 * t + (e & 1);
-      float x = col < n_valid ? (SCALE_SCORES ? s[j][e] * q_scale : s[j][e]) : -INFINITY;
-      if (!softmax_f32) x = round_bf16(x);
-      s[j][e] = x;
-    }
     max0 = fmaxf(max0, fmaxf(s[j][0], s[j][1]));
     max1 = fmaxf(max1, fmaxf(s[j][2], s[j][3]));
   }
@@ -168,14 +234,27 @@ __device__ __forceinline__ void attention_rows(const bf16* s_q, const bf16* s_k,
     sum0 += __shfl_xor_sync(0xffffffffu, sum0, off);
     sum1 += __shfl_xor_sync(0xffffffffu, sum1, off);
   }
-  const float inv0 = 1.0f / sum0;
-  const float inv1 = 1.0f / sum1;
+  inv0 = 1.0f / sum0;
+  inv1 = 1.0f / sum1;
+}
 
+// The weights, normalised then rounded to bf16, times V: the score fragments
+// become the A operand without leaving registers, and one ldmatrix.x4.trans
+// of V (whose reduction index runs down its rows) feeds two products.  `o`
+// receives the fp32 output fragments: o[n][0..1] row g, o[n][2..3] row g + 8,
+// columns n * 8 + 2t, + 1.
+template <int HD, int NKT>
+__device__ __forceinline__ void attention_values(const float (&s)[2 * NKT][4], float inv0,
+                                                 float inv1, const bf16* s_v, int lane,
+                                                 float (&o)[HD / 8][4]) {
+  constexpr int kLd = HD + 8;
+  // Matrices of one ldmatrix.x4.trans: (keys 0-7, columns n*8..), (keys 8-15,
+  // those columns), (keys 0-7, columns (n+1)*8..), (keys 8-15, those columns).
+  const bf16* v_lane = s_v + (((lane / 8) % 2) * 8 + lane % 8) * kLd + (lane / 16) * 8;
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.0f;
 #pragma unroll
   for (int kt = 0; kt < NKT; ++kt) {
-    // The weights, normalised then rounded to bf16, as the A operand.
     const uint32_t pa[4] = {
         pack_floats(s[2 * kt][0] * inv0, s[2 * kt][1] * inv0),
         pack_floats(s[2 * kt][2] * inv1, s[2 * kt][3] * inv1),
@@ -183,12 +262,35 @@ __device__ __forceinline__ void attention_rows(const bf16* s_q, const bf16* s_k,
         pack_floats(s[2 * kt + 1][2] * inv1, s[2 * kt + 1][3] * inv1),
     };
 #pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      const bf16* p = s_v + (kt * 16 + 2 * t) * kLd + n * 8 + g;
-      mma_16816(o[n], pa, pack_halves(p[0], p[kLd]), pack_halves(p[8 * kLd], p[9 * kLd]));
+    for (int n = 0; n < HD / 8; n += 2) {
+      uint32_t vb[4];
+      ldmatrix_x4_trans(vb, v_lane + kt * 16 * kLd + n * 8);
+      mma_16816(o[n], pa, vb[0], vb[1]);
+      mma_16816(o[n + 1], pa, vb[2], vb[3]);
     }
   }
+}
 
+// The three steps in a row, for rows r0 .. r0 + 15 of the staged Q tile:
+// scale-folded already, or, with SCALE_Q, unscaled and folded here with
+// `q_scale`; with SCALE_SCORES, q is taken as it is and `q_scale` multiplies
+// the fp32 scores instead (attention over separate q, k, v).
+template <int HD, int NKT, bool SCALE_Q = false, bool SCALE_SCORES = false>
+__device__ __forceinline__ void attention_rows(const bf16* s_q, const bf16* s_k, const bf16* s_v,
+                                               int r0, int lane, int n_valid, int softmax_f32,
+                                               float (&o)[HD / 8][4], float q_scale = 1.0f) {
+  uint32_t qa[HD / 16][4];
+  load_q_fragments<HD>(qa, s_q, r0, lane);
+  if (SCALE_Q) {
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qa[kk][i] = scale_pair(qa[kk][i], q_scale);
+  }
+  float s[2 * NKT][4];
+  float inv0, inv1;
+  attention_scores<HD, NKT, SCALE_SCORES>(qa, s_k, lane, n_valid, softmax_f32, q_scale, s, inv0, inv1);
+  attention_values<HD, NKT>(s, inv0, inv1, s_v, lane, o);
 }
 
 // ---------------------------------------------------------------------------

@@ -1,5 +1,6 @@
 // Device helpers shared by the port's kernels: bf16 packing, the mma.sync
-// m16n8k16 product with its ldmatrix and cp.async feeds, a warp sum, the
+// m16n8k16 product with its ldmatrix and cp.async feeds, the quad transpose
+// that turns accumulator fragments into 16-byte stores, a warp sum, the
 // LayerNorm prologue of the fused kernels, and a deterministic column sum.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * g + t):
@@ -90,6 +91,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// A 4 x 4 transpose across the four lanes of a quad (lane = 4g + t): lane t
+// gives a[0..3] and receives, in a[i], what lane i of its quad held in a[t].
+// With a[i] the packed pair of accumulator column tile i (columns 2t, 2t + 1
+// of its 8), lane t ends with the 8 contiguous columns of tile t: 16 bytes to
+// store.  Every lane of the warp must call it.
+__device__ __forceinline__ void quad_transpose(uint32_t (&a)[4], int t) {
+  const bool odd = t & 1;
+  uint32_t s0 = __shfl_xor_sync(0xffffffffu, odd ? a[0] : a[1], 1);
+  uint32_t s1 = __shfl_xor_sync(0xffffffffu, odd ? a[2] : a[3], 1);
+  if (odd) {
+    a[0] = s0;
+    a[2] = s1;
+  } else {
+    a[1] = s0;
+    a[3] = s1;
+  }
+  const bool high = t & 2;
+  s0 = __shfl_xor_sync(0xffffffffu, high ? a[0] : a[2], 2);
+  s1 = __shfl_xor_sync(0xffffffffu, high ? a[1] : a[3], 2);
+  if (high) {
+    a[0] = s0;
+    a[1] = s1;
+  } else {
+    a[2] = s0;
+    a[3] = s1;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -135,6 +164,24 @@ __device__ __forceinline__ void layernorm_rows_in_place(bf16* xs, int ld, int ro
       *reinterpret_cast<uint32_t*>(row + c) = pack_floats(m0, m1);
     }
   }
+}
+
+// Host: raises `kernel`'s dynamic shared memory limit to `bytes` the first
+// time it is asked on each device (`done` is the call site's own record, one
+// flag a device); the runtime call costs microseconds, and a launch follows
+// every time.  Past kMaxDevices devices it just asks every time.
+constexpr int kMaxDevices = 16;
+
+template <typename Kernel>
+inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes, bool (&done)[kMaxDevices]) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && done[device]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(bytes));
+  if (err == cudaSuccess && device < kMaxDevices) done[device] = true;
+  return err;
 }
 
 constexpr int kColumnSumWarps = 8;

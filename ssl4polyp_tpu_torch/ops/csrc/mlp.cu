@@ -12,150 +12,278 @@
 // What bounds it on the H100: at the eval path's shape (M = 64*197 = 12,608,
 // K = 768, NF = 3072) the product is 59.5 GFLOP against about 102 MB of
 // bf16 traffic, some 590 FLOP per byte, well above the ~295 of the H100's
-// data sheet ridge: it is bound by the tensor cores.  The GELU epilogue is
-// free when fused, and it is what the fusion saves: in eval h never goes to
-// HBM and back; in training it is written once for the backward.
+// data sheet ridge: it is bound by the tensor cores, and only wgmma reaches
+// their full rate.  The MAE decoder's call (K 512, NF 2,048, h written) moves
+// 118 MB for 26 GFLOP, 224 FLOP per byte: bound by bytes, so what counts
+// there is that h and y leave in whole sectors.
 //
-// The simple design: a classic tiled GEMM on mma.sync m16n8k16 (bf16 in,
-// fp32 accumulate).  A block of 8 warps owns a 128x128 tile of y and walks
-// K in steps of 64 through a three-stage cp.async ring in shared memory
-// (rows padded by 8 elements, so that the ldmatrix reads are free of bank
-// conflicts; the ragged M and NF edges are zero-filled by cp.async's source
-// size).  Each warp accumulates a 64x32 sub-tile in registers, reading its
-// fragments with ldmatrix.  The epilogue adds the bias in fp32, applies
-// 0.5*h*(1+erf(h/sqrt(2))) with CUDA's erff to the fp32 h, rounds once to
-// bf16 and stores (and stores h rounded to bf16 when asked).
-// Both operands are K-contiguous (x row-major, w in torch's (out, in)
-// layout), which is the layout mma.sync's row.col form wants.  On the H100
-// this main loop, and not the GELU epilogue, holds the kernel under cuBLAS's
-// wgmma GEMMs (PERF.md); wgmma with TMA loads is the later work.
+// The design (the first form ran mma.sync from a cp.async ring that all
+// threads filled, and stored 4 bytes a thread):
+//   * One block of three warpgroups, persistent: a grid of one block an SM,
+//     each walking output tiles tile = blockIdx.x, + gridDim.x, ...  Tiles are
+//     numbered with the column index fastest, so the tiles in flight at one
+//     time share a few row panels of x and all of w, which stay in L2.
+//   * Warpgroup 0 is the producer: it gives its registers back (setmaxnreg)
+//     and one of its threads starts TMA loads of the x tile (128 x 64) and the
+//     w tile (BN x 64) into a ring of 128-byte-swizzled stages, each stage
+//     with a "full" mbarrier (the TMA bytes) and an "empty" one (one arrival
+//     from each of the eight consumer warps).  Ragged M, NF and K edges are
+//     TMA's out-of-bounds zeros: nothing is masked in the main loop.
+//   * Warpgroups 1 and 2 are the consumers, 64 rows of the tile each: four
+//     wgmma.mma_async m64nBNk16 a stage (bf16 in, fp32 accumulators in
+//     registers), both operands K-major from shared memory (x row-major, w
+//     in torch's (out, in) layout: no transpose anywhere), one group kept in
+//     flight while the previous stage is handed back.  The producer runs
+//     ahead into the next tile's stages while the consumers are in their
+//     epilogue, so a tile's first loads are hidden.
+//   * The epilogue adds the bias in fp32, applies 0.5*h*(1+erf(h/sqrt(2)))
+//     with CUDA's erff to the fp32 h, rounds once to bf16 (and h once, when
+//     asked), then transposes each group of four accumulator column tiles
+//     across the four lanes of a quad with shuffles, so that every thread
+//     stores 16 contiguous bytes and a quad a 64-byte piece of a row: whole
+//     32-byte sectors, where the first form's 4-byte stores covered half a
+//     sector an instruction.  No shared memory is spent on it, which leaves
+//     the ring its depth.
+//   * Tile width by shape: 128 x 256 (ring of 4, 128 accumulators a thread)
+//     where its tiles fill the SMs' waves at least as well as 128 x 128's
+//     (ring of 6), which takes the rest: the classifier's and the decoder's
+//     calls are exactly 9 and 6 waves of 128 x 256 tiles on 132 SMs; the MAE
+//     encoder's (M 3,200: 25 row tiles) and ssl4polyp_matmul_nt's dx product
+//     (NF 768) fill 4.5 waves of 128 x 128 tiles against 2.3 of the wide one.
+//   What is left: the tensor cores idle during a tile's epilogue, which is
+//   bound by the instruction rate (128 erff a thread): with the bare epilogue of
+//   ssl4polyp_matmul_nt the same loop runs level with cuBLAS, and the GELU adds
+//   about 45 % to it at the classifier's shape.  Running a parked tile's
+//   epilogue (a second set of 64 accumulators at BN 128) between the next
+//   tile's K steps was tried and was slower than the plain order at BN 256;
+//   giving each consumer warpgroup a tile of its own, half a tile apart,
+//   needs a deeper ring than 227 KB holds at this tile size, or w tiles
+//   multicast to a cluster.  PERF.md has the times.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarpN = 32;         // columns per warp; 8 warps as 2 x 4
-constexpr int kBM = 128;
-constexpr int kBN = 4 * kWarpN;
-constexpr int kBK = 64;
-constexpr int kLd = kBK + 8;  // padded smem row, in elements
-constexpr int kStages = 3;
-constexpr int kThreads = 256;
-constexpr int kTileA = kBM * kLd;
-constexpr int kTileB = kBN * kLd;
-constexpr size_t kSmemBytes = kStages * (kTileA + kTileB) * sizeof(bf16);
+constexpr int kBM = 128;            // rows of a tile: 64 for each consumer warpgroup
+constexpr int kBK = 64;             // 128 bytes of bf16: one swizzle row
+constexpr int kGemmThreads = 384;   // producer warpgroup + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
 
-// Loads rows [row0, row0 + ROWS) x columns [k0, k0 + kBK) of a row-major
-// (rows, K) matrix into a padded smem tile.
-template <int ROWS>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int rows, int K,
-                                          int row0, int k0) {
-#pragma unroll
-  for (int i = threadIdx.x; i < ROWS * (kBK / 8); i += kThreads) {
-    const int r = i / (kBK / 8);
-    const int c = (i % (kBK / 8)) * 8;
-    const int row = row0 + r;
-    const bool ok = row < rows && k0 + c < K;
-    const bf16* p = ok ? src + static_cast<long>(row) * K + k0 + c : src;
-    cp_async_16(dst + r * kLd + c, p, ok ? 16 : 0);
-  }
-}
+template <int BN>
+struct GemmShape {
+  static constexpr int kStages = BN == 256 ? 4 : 6;
+  static constexpr int kTileA = kBM * kBK;  // elements
+  static constexpr int kTileB = BN * kBK;
+  static constexpr uint32_t kStageBytes = (kTileA + kTileB) * sizeof(bf16);
+  // The ring, its 2 * kStages barriers, and room to align the ring to 1,024 bytes.
+  static constexpr size_t kSmemBytes = kStages * kStageBytes + 2 * kStages * sizeof(uint64_t) + 1024;
+};
 
+// GELU true: y = gelu(acc + bias), and h = acc + bias when h is not null.
 // GELU false: the bare product y = x . w^T rounded once to bf16 (`bias` and
 // `h` are not read): the streaming GEMM other kernels' phases call through
 // ssl4polyp_matmul_nt.
-template <bool GELU>
-__global__ void __launch_bounds__(kThreads)
-fc1_gelu_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
-                const bf16* __restrict__ bias, bf16* __restrict__ h, bf16* __restrict__ y,
-                int M, int K, int NF) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_a = reinterpret_cast<bf16*>(smem);  // kStages tiles of x
-  bf16* s_b = s_a + kStages * kTileA;         // kStages tiles of w
+template <int BN, bool GELU>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+fc1_gelu_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
+                const bf16* __restrict__ bias, bf16* __restrict__ h, bf16* __restrict__ y, int M,
+                int K, int NF) {
+  using Shape = GemmShape<BN>;
+  constexpr int kStages = Shape::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_address(smem_raw) & 1023u)) & 1023u);
+  bf16* tiles_a = reinterpret_cast<bf16*>(smem);
+  bf16* tiles_b = tiles_a + kStages * Shape::kTileA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(tiles_b + kStages * Shape::kTileB);
+  uint64_t* empty = full + kStages;
 
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wm = (warp / 4) * 64;  // warp's row offset in the tile
-  const int wn = (warp % 4) * kWarpN;  // warp's column offset in the tile
-  // ldmatrix row addresses: A as (rows 0-7 | 8-15) x (k 0-7 | 8-15); B as
-  // (n-tile j, k 0-7), (j, k 8-15), (j + 1, k 0-7), (j + 1, k 8-15).
-  const int a_row = wm + (lane % 16);
-  const int a_col = (lane / 16) * 8;
-  const int b_row = wn + (lane / 16) * 8 + (lane % 8);
-  const int b_col = ((lane / 8) % 2) * 8;
-
-  constexpr int kNT = kWarpN / 8;  // n-tiles of 8 per warp
-  float acc[4][kNT][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < kNT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.0f;
-
-  const int steps = (K + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) {
-      load_tile<kBM>(s_a + s * kTileA, x, M, K, m0, s * kBK);
-      load_tile<kBN>(s_b + s * kTileB, w, NF, K, n0, s * kBK);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbarrier_init(&full[s], 1);
+      mbarrier_init(&empty[s], kConsumerWarps);
     }
-    cp_async_commit();
+    mbarrier_init_fence();
   }
-  for (int step = 0; step < steps; ++step) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // tile `step` is in; every warp is done with the slot refilled next
-    const int next = step + kStages - 1;
-    if (next < steps) {
-      load_tile<kBM>(s_a + (next % kStages) * kTileA, x, M, K, m0, next * kBK);
-      load_tile<kBN>(s_b + (next % kStages) * kTileB, w, NF, K, n0, next * kBK);
+  __syncthreads();
+
+  const int tiles_n = (NF + BN - 1) / BN;
+  const int tiles = ((M + kBM - 1) / kBM) * tiles_n;
+  const int ksteps = (K + kBK - 1) / kBK;
+
+  // The roles part here and never meet again: no block-wide barrier below.
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      int stage = 0;
+      uint32_t parity = 1;  // a fresh "empty" barrier lets the first pass through
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / tiles_n) * kBM;
+        const int n0 = (tile % tiles_n) * BN;
+        for (int ks = 0; ks < ksteps; ++ks) {
+          mbarrier_wait(&empty[stage], parity);
+          mbarrier_arrive_expect_tx(&full[stage], Shape::kStageBytes);
+          tma_load_2d(tiles_a + stage * Shape::kTileA, &map_x, &full[stage], ks * kBK, m0);
+          tma_load_2d(tiles_b + stage * Shape::kTileB, &map_w, &full[stage], ks * kBK, n0);
+          if (++stage == kStages) {
+            stage = 0;
+            parity ^= 1;
+          }
+        }
+      }
     }
-    cp_async_commit();
-    const bf16* tile_a = s_a + (step % kStages) * kTileA;
-    const bf16* tile_b = s_b + (step % kStages) * kTileB;
+  } else {
+    setmaxnreg_inc<232>();
+    const int group = threadIdx.x / 128 - 1;  // consumer warpgroup: rows 64 * group .. + 63
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const bool write_h = GELU && h != nullptr;
+    int stage = 0;
+    uint32_t parity = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile / tiles_n) * kBM;
+      const int n0 = (tile % tiles_n) * BN;
+      // acc[4 j + e]: column tile j of 8; e = 0, 1 row g, e = 2, 3 row g + 8
+      // of this warp's 16 rows; columns 2t, 2t + 1 of the tile.
+      float acc[BN / 2];
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t a[4][4];
+      for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+      int previous = 0;
+      for (int ks = 0; ks < ksteps; ++ks) {
+        mbarrier_wait(&full[stage], parity);
+        const uint64_t desc_a =
+            wgmma_descriptor_sw128(tiles_a + stage * Shape::kTileA + group * 64 * kBK);
+        const uint64_t desc_b = wgmma_descriptor_sw128(tiles_b + stage * Shape::kTileB);
+        wgmma_pin(acc);
+        wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ldmatrix_x4(a[i], tile_a + (a_row + i * 16) * kLd + kk + a_col);
+        for (int kk = 0; kk < kBK / 16; ++kk) {  // 16 along K is 32 bytes: 2 descriptor units
+          if constexpr (BN == 256) {
+            wgmma_m64n256k16(acc, desc_a + 2 * kk, desc_b + 2 * kk, 1);
+          } else {
+            wgmma_m64n128k16(acc, desc_a + 2 * kk, desc_b + 2 * kk, 1);
+          }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+        if (ks > 0 && lane == 0) mbarrier_arrive(&empty[previous]);
+        previous = stage;
+        if (++stage == kStages) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+      wgmma_wait<0>();
+      if (lane == 0) mbarrier_arrive(&empty[previous]);
+      wgmma_pin(acc);
+
+      const int row_lo = m0 + group * 64 + warp * 16 + g;
+      const int row_hi = row_lo + 8;
 #pragma unroll
-      for (int j = 0; j < kNT; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4(b, tile_b + (b_row + j * 8) * kLd + kk + b_col);
+      for (int jg = 0; jg < BN / 32; ++jg) {  // four column tiles: 32 columns
+        uint32_t y_lo[4], y_hi[4], h_lo[4], h_hi[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          mma_16816(acc[i][j], a[i], b[0], b[1]);
-          mma_16816(acc[i][j + 1], a[i], b[2], b[3]);
+          const int j = jg * 4 + i;
+          const int col = n0 + j * 8 + 2 * t;
+          float h00 = acc[4 * j], h01 = acc[4 * j + 1], h10 = acc[4 * j + 2], h11 = acc[4 * j + 3];
+          if (GELU) {
+            float b0 = 0.0f, b1 = 0.0f;
+            if (col < NF) {
+              const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+              b0 = b.x;
+              b1 = b.y;
+            }
+            h00 += b0;
+            h01 += b1;
+            h10 += b0;
+            h11 += b1;
+            h_lo[i] = pack_floats(h00, h01);
+            h_hi[i] = pack_floats(h10, h11);
+            y_lo[i] = pack_floats(gelu_erf(h00), gelu_erf(h01));
+            y_hi[i] = pack_floats(gelu_erf(h10), gelu_erf(h11));
+          } else {
+            y_lo[i] = pack_floats(h00, h01);
+            y_hi[i] = pack_floats(h10, h11);
+          }
+        }
+        // Lane t now takes column tile t of the four: 8 contiguous columns.
+        const int col = n0 + jg * 32 + 8 * t;
+        const bool col_ok = col < NF;  // NF is a multiple of 8: a piece is in or out whole
+        quad_transpose(y_lo, t);
+        quad_transpose(y_hi, t);
+        if (col_ok && row_lo < M)
+          *reinterpret_cast<uint4*>(y + static_cast<long>(row_lo) * NF + col) =
+              make_uint4(y_lo[0], y_lo[1], y_lo[2], y_lo[3]);
+        if (col_ok && row_hi < M)
+          *reinterpret_cast<uint4*>(y + static_cast<long>(row_hi) * NF + col) =
+              make_uint4(y_hi[0], y_hi[1], y_hi[2], y_hi[3]);
+        if (write_h) {
+          quad_transpose(h_lo, t);
+          quad_transpose(h_hi, t);
+          if (col_ok && row_lo < M)
+            *reinterpret_cast<uint4*>(h + static_cast<long>(row_lo) * NF + col) =
+                make_uint4(h_lo[0], h_lo[1], h_lo[2], h_lo[3]);
+          if (col_ok && row_hi < M)
+            *reinterpret_cast<uint4*>(h + static_cast<long>(row_hi) * NF + col) =
+                make_uint4(h_hi[0], h_hi[1], h_hi[2], h_hi[3]);
         }
       }
     }
   }
+}
 
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    const int col = n0 + wn + j * 8 + 2 * t;
-    if (col >= NF) continue;
-    const float b0 = GELU ? __bfloat162float(bias[col]) : 0.0f;
-    const float b1 = GELU ? __bfloat162float(bias[col + 1]) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + i * 16 + g + 8 * half;
-        if (row >= M) continue;
-        const float h0 = acc[i][j][2 * half] + b0;
-        const float h1 = acc[i][j][2 * half + 1] + b1;
-        const long at = static_cast<long>(row) * NF + col;
-        if (!GELU) {
-          *reinterpret_cast<uint32_t*>(y + at) = pack_floats(h0, h1);
-          continue;
-        }
-        if (h != nullptr) *reinterpret_cast<uint32_t*>(h + at) = pack_floats(h0, h1);
-        *reinterpret_cast<uint32_t*>(y + at) = pack_floats(gelu_erf(h0), gelu_erf(h1));
-      }
-    }
+// The SMs of the current device, asked once a device.
+inline cudaError_t sm_count(int* count) {
+  static int known[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && known[device] > 0) {
+    *count = known[device];
+    return cudaSuccess;
   }
+  err = cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && device < kMaxDevices) known[device] = *count;
+  return err;
+}
+
+template <int BN, bool GELU>
+cudaError_t launch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* h, bf16* y, int M,
+                        int K, int NF, int sms, cudaStream_t stream) {
+  using Shape = GemmShape<BN>;
+  CUtensorMap map_x, map_w;
+  cudaError_t err = make_tensor_map_sw128(&map_x, x, M, K, kBM);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map_sw128(&map_w, w, NF, K, BN);
+  if (err != cudaSuccess) return err;
+  static bool configured[kMaxDevices] = {};
+  err = allow_dynamic_smem(fc1_gelu_kernel<BN, GELU>, Shape::kSmemBytes, configured);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((M + kBM - 1) / kBM) * ((NF + BN - 1) / BN);
+  const int blocks = tiles < sms ? tiles : sms;  // persistent: one block an SM at most
+  fc1_gelu_kernel<BN, GELU><<<blocks, kGemmThreads, Shape::kSmemBytes, stream>>>(
+      map_x, map_w, bias, h, y, M, K, NF);
+  return cudaGetLastError();
+}
+
+// The wide tile where its tiles fill the SMs' waves at least as well as the
+// narrow one's do (it reads x and w from shared memory half as often per
+// product), the narrow one otherwise.
+template <bool GELU>
+cudaError_t dispatch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* h, bf16* y, int M,
+                          int K, int NF, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long rows = (M + kBM - 1) / kBM;
+  const long wide = rows * ((NF + 255) / 256), narrow = rows * ((NF + 127) / 128);
+  const long wide_slots = (wide + sms - 1) / sms * sms, narrow_slots = (narrow + sms - 1) / sms * sms;
+  // wide / wide_slots >= narrow / narrow_slots
+  if (NF > 128 && wide * narrow_slots >= narrow * wide_slots)
+    return launch_gemm<256, GELU>(x, w, bias, h, y, M, K, NF, sms, stream);
+  return launch_gemm<128, GELU>(x, w, bias, h, y, M, K, NF, sms, stream);
 }
 
 
@@ -419,35 +547,25 @@ cudaError_t dispatch_mlp_fused(int K, const bf16* x, const float* ln_s, const fl
 }  // namespace
 
 // x: (M, K) bf16; w: (NF, K) bf16; bias: (NF,) bf16; h (or null) and y:
-// (M, NF) bf16.  K and NF are multiples of 8.  Returns the launch's CUDA error.
+// (M, NF) bf16.  K and NF are multiples of 8 and every pointer is 16-byte
+// aligned.  Returns the CUDA error of the tensor maps or the launch.
 extern "C" int ssl4polyp_fc1_gelu_fwd(const void* x, const void* w, const void* bias, void* h,
                                       void* y, int M, int K, int NF, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(fc1_gelu_kernel<true>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((NF + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  fc1_gelu_kernel<true><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-      static_cast<const bf16*>(bias), static_cast<bf16*>(h), static_cast<bf16*>(y), M, K, NF);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(dispatch_gemm<true>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
+      static_cast<bf16*>(h), static_cast<bf16*>(y), M, K, NF, static_cast<cudaStream_t>(stream)));
 }
 
 // y = x . w^T, rounded once to bf16.  x: (M, K) bf16; w: (NF, K) bf16; y:
-// (M, NF) bf16; K a multiple of 8 and NF even.  The same tiled loop as
-// fc1+GELU, for the products inside other kernels' phases (attention_block.cu's
-// dx).  Returns the launch's CUDA error.
+// (M, NF) bf16; K and NF multiples of 8, every pointer 16-byte aligned.  The
+// same kernel as fc1+GELU with a bare epilogue, for the products inside other
+// kernels' phases (attention_block.cu's dx).  Returns the CUDA error of the
+// tensor maps or the launch.
 extern "C" int ssl4polyp_matmul_nt(const void* x, const void* w, void* y, int M, int K, int NF,
                                    void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(fc1_gelu_kernel<false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kSmemBytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((NF + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  fc1_gelu_kernel<false><<<grid, kThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+  return static_cast<int>(dispatch_gemm<false>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), nullptr, nullptr,
-      static_cast<bf16*>(y), M, K, NF);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<bf16*>(y), M, K, NF, static_cast<cudaStream_t>(stream)));
 }
 
 // x: (M, K) bf16; ln_s, ln_t: (K,) fp32, or both null for no LayerNorm

@@ -6,97 +6,167 @@
 // The backward's design is described above qkv_attention_bwd_kernel and
 // attention_core.cuh's attention_backward_tiles.
 //
-// What bounds it on the H100: at the eval path's shape (B 64, N 197, 12 heads
-// of 64) a call is 7.6 GFLOP against 78 MB of compulsory traffic (QKV in,
-// output out), about 100 FLOP per byte, below the ~295 of the H100's data
-// sheet ridge: the floor is HBM traffic.  At ViT lengths (N <= 256)
-// one (batch, head) pair's keys and values fit in shared memory, so the
-// (N, N) scores never leave the SM.  The TPU kernel stacked heads to
-// amortise its fixed per-dot overhead; here every block simply owns one
-// (batch, head, 64-query tile) and the 132 SMs run thousands of such blocks.
-// Each query tile re-reads its head's K and V (from L2 after the first), and
-// the staging loads (eight 16-byte chunks in flight per thread, since the
-// bias add keeps them from being cp.async copies) are not overlapped with
-// the products: this simple form is bound by load latency more than by
-// either roofline.
+// What bounds the forward on the H100: at the eval path's shape (B 64, N 197,
+// 12 heads of 64) a call is 7.6 GFLOP against 78 MB of compulsory traffic
+// (QKV in, output out), about 100 FLOP per byte, below the ~295 of the H100's
+// data sheet ridge: the floor is HBM traffic.  At ViT lengths (N <= 256) one
+// (batch, head) pair's keys and values fit in shared memory, so the (N, N)
+// scores never leave the SM, and what is left to lose is latency: time in
+// which an SM waits for a copy, or executes loads instead of products.
 //
-// The simple design: one block of 4 warps per (query tile of 64 rows, head,
-// batch row).  The block copies the head's Q tile, all of K and all of V
-// from the (B, N, 3D) input into shared memory (adding the bias and folding
-// the 1/sqrt(hd) scale into Q in bf16, as the TPU kernel does), zero-padding
-// keys to a multiple of 16.  Each warp then owns 16 query rows: it forms the
-// whole score row in registers with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), masks keys >= valid_len to -inf, optionally rounds the
-// scores to bf16, takes an exact softmax over the full row (no online
-// rescaling is needed because the row is whole), rounds the weights to bf16
-// and multiplies by V with mma.sync.  The score fragments are reused as the
-// A operand of the second product without leaving registers.  Later work:
-// ldmatrix, cp.async or TMA loads, and wgmma.
+// The design (the first form gave every 64-row query tile a block that staged
+// the head's whole K and V through registers, four times a head at N 197,
+// computed nothing until all three tiles had landed, and gathered V two
+// bytes at a time):
+//   * One block of 4 warps per (head, batch row) stages the head's K and V
+//     once; its warps take the 16-row query tiles in turn (13 at N 197: 4, 3,
+//     3, 3).  69 KB of shared memory at hd 64, N 197 (K and V padded to 208
+//     rows, one 16-row Q tile a warp) and, under __launch_bounds__(128, 3),
+//     168 registers a thread (80 bytes of spills at hd 64; left alone ptxas
+//     takes 254 and two blocks an SM, which is slower): three blocks an SM.
+//   * Raw rows arrive by cp.async in separate groups: K, the warp's first Q
+//     tile, then V.  The bias add and the bf16 scale fold (round_bf16(x +
+//     bias), then times 1/sqrt(hd) and rounded: the TPU kernel's roundings)
+//     run in place in shared memory, each thread on the chunks it copied
+//     itself after its own wait_group.  V's copy and its bias pass overlap
+//     the first tile's S = Q K^T and softmax; a warp's next Q tile is copied
+//     while it works on the current one (its fragments are in registers by
+//     then, so one 16-row buffer a warp is enough).  The bias pass runs on
+//     packed bf16 instructions, two for 16 bytes, with the fp32 route's bits.
+//   * Operands come from shared memory with ldmatrix: x4 for the Q and K
+//     fragments, x4.trans for V; each feeds two products, on a row stride of
+//     hd + 8 elements that keeps them free of bank conflicts.
+//   * Each warp forms the whole score row in registers with mma.sync m16n8k16
+//     (bf16 in, fp32 accumulate), masks keys >= valid_len to -inf, optionally
+//     rounds the scores to bf16, takes an exact softmax over the full row (no
+//     online rescaling is needed because the row is whole), rounds the
+//     normalised weights to bf16 and multiplies by V; the score fragments are
+//     the A operand of the second product without leaving registers.
+//   * The output leaves in 16-byte pieces (a quad transpose of the
+//     accumulator fragments) where hd is a multiple of 32.
+//   Every supported shape (hd 16, 32, 64; N <= 256) takes this one routine.
+//   What is left: the softmax (expf, max, sum, normalise and round: some 13
+//   instructions a score, 104 scores a thread a tile) now outweighs the
+//   products' instructions four to one, with 12 warps an SM to hide its
+//   chains; the last of the 13 tiles at N 197 holds 5 rows and costs a whole
+//   one; wgmma for S and P.V (m64n208k16, m64n64k16) would take most of the
+//   products' instructions away and TMA the copies'.  PERF.md has the times
+//   beside PyTorch's flash kernel's.
 #include "attention_core.cuh"
 
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kTileRows = 16 * kWarps;  // query rows per block
 
-// NKT: key tiles of 16; the kernel takes N <= 16 * NKT.
+// NKT: key tiles of 16; the kernel takes N <= 16 * NKT.  Up to 208 keys the
+// score row fits a register budget of three blocks an SM (168 a thread).
 template <int HD, int NKT>
-__global__ void __launch_bounds__(32 * kWarps)
+__global__ void __launch_bounds__(32 * kWarps, NKT <= 13 ? 3 : 2)
 qkv_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
                      bf16* __restrict__ out, int N, int H, int n_valid, float scale,
                      int softmax_f32) {
   constexpr int kLd = HD + 8;
   constexpr int kPad = NKT * 16;
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_k = s_q + kTileRows * kLd;
+  bf16* s_k = reinterpret_cast<bf16*>(smem);
   bf16* s_v = s_k + kPad * kLd;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  bf16* s_q = s_v + kPad * kLd + warp * 16 * kLd;  // this warp's 16-row Q tile
 
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kTileRows;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
   const int D = H * HD;
   const long ld = 3L * D;
   const bf16* base = qkv + static_cast<long>(b) * N * ld + h * HD;
   const bf16* bias_q = bias == nullptr ? nullptr : bias + h * HD;
   const bf16* bias_k = bias == nullptr ? nullptr : bias + D + h * HD;
   const bf16* bias_v = bias == nullptr ? nullptr : bias + 2 * D + h * HD;
-  stage_rows<HD>(s_q, kTileRows, base, q0, N, ld, bias_q, scale, true);
-  stage_rows<HD>(s_k, kPad, base + D, 0, N, ld, bias_k, 1.0f, false);
-  stage_rows<HD>(s_v, kPad, base + 2 * D, 0, N, ld, bias_v, 1.0f, false);
+  const int n_tiles = (N + 15) / 16;  // 16-row query tiles holding rows < N
+  int tile = warp;
+
+  // cp.async groups of every thread, oldest first: K, Q (empty for a warp
+  // without a tile), V, then one per pass of the loop (the next Q tile).
+  stage_rows_async<HD>(s_k, kPad, base + D, 0, N, ld);
+  cp_async_commit();
+  if (tile < n_tiles) stage_rows_async<HD>(s_q, 16, base, tile * 16, N, ld, lane, 32);
+  cp_async_commit();
+  stage_rows_async<HD>(s_v, kPad, base + 2 * D, 0, N, ld);
+  cp_async_commit();
+  cp_async_wait<1>();  // K and Q are in
+  finish_rows_in_place<HD>(s_k, kPad, 0, N, bias_k, 1.0f, false, threadIdx.x, blockDim.x);
+  if (tile < n_tiles) finish_rows_in_place<HD>(s_q, 16, tile * 16, N, bias_q, scale, true, lane, 32);
   __syncthreads();
 
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
-  const int r0 = warp * 16;
-  if (q0 + r0 >= N) return;  // no barrier follows
-
-  float o[HD / 8][4];
-  attention_rows<HD, NKT>(s_q, s_k, s_v, r0, lane, n_valid, softmax_f32, o);
-
-  const int row_a = q0 + r0 + g;
-  const int row_b = row_a + 8;
-  bf16* out_a = out + (static_cast<long>(b) * N + row_a) * D + h * HD + 2 * t;
-  bf16* out_b = out_a + 8L * D;
+  bool first = true;
+  do {  // a warp without a tile still passes once: the block's barrier is inside
+    const bool has = tile < n_tiles;
+    const int next = tile + kWarps;
+    uint32_t qa[HD / 16][4];
+    float s[2 * NKT][4];
+    float inv0 = 0.0f, inv1 = 0.0f;
+    if (has) load_q_fragments<HD>(qa, s_q, 0, lane);
+    __syncwarp();  // the Q tile is in registers: its buffer takes the next one
+    if (has && next < n_tiles) stage_rows_async<HD>(s_q, 16, base, next * 16, N, ld, lane, 32);
+    cp_async_commit();
+    if (has) attention_scores<HD, NKT, false>(qa, s_k, lane, n_valid, softmax_f32, 1.0f, s, inv0, inv1);
+    if (first) {
+      cp_async_wait<1>();  // V is in (the next Q tile may still be on its way)
+      finish_rows_in_place<HD>(s_v, kPad, 0, N, bias_v, 1.0f, false, threadIdx.x, blockDim.x);
+      __syncthreads();
+      first = false;
+    }
+    if (has) {
+      float o[HD / 8][4];
+      attention_values<HD, NKT>(s, inv0, inv1, s_v, lane, o);
+      const int row_a = tile * 16 + g;
+      const int row_b = row_a + 8;
+      bf16* out_a = out + (static_cast<long>(b) * N + row_a) * D + h * HD;
+      bf16* out_b = out_a + 8L * D;
+      if constexpr (HD % 32 == 0) {
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    if (row_a < N) *reinterpret_cast<uint32_t*>(out_a + n * 8) = pack_floats(o[n][0], o[n][1]);
-    if (row_b < N) *reinterpret_cast<uint32_t*>(out_b + n * 8) = pack_floats(o[n][2], o[n][3]);
-  }
+        for (int n = 0; n < HD / 8; n += 4) {  // lane t takes column tile n + t: 16 bytes
+          uint32_t lo[4], hi[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            lo[i] = pack_floats(o[n + i][0], o[n + i][1]);
+            hi[i] = pack_floats(o[n + i][2], o[n + i][3]);
+          }
+          quad_transpose(lo, t);
+          quad_transpose(hi, t);
+          if (row_a < N)
+            *reinterpret_cast<uint4*>(out_a + (n + t) * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+          if (row_b < N)
+            *reinterpret_cast<uint4*>(out_b + (n + t) * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          if (row_a < N)
+            *reinterpret_cast<uint32_t*>(out_a + n * 8 + 2 * t) = pack_floats(o[n][0], o[n][1]);
+          if (row_b < N)
+            *reinterpret_cast<uint32_t*>(out_b + n * 8 + 2 * t) = pack_floats(o[n][2], o[n][3]);
+        }
+      }
+    }
+    cp_async_wait<0>();  // the next Q tile
+    if (has && next < n_tiles)
+      finish_rows_in_place<HD>(s_q, 16, next * 16, N, bias_q, scale, true, lane, 32);
+    __syncwarp();
+    tile = next;
+  } while (tile < n_tiles);
 }
 
 template <int HD, int NKT>
 cudaError_t launch(const bf16* qkv, const bf16* bias, bf16* out, int B, int N, int H,
                    int n_valid, float scale, int softmax_f32, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(kTileRows + 2 * NKT * 16) * (HD + 8) * sizeof(bf16);
-  cudaError_t err = cudaFuncSetAttribute(qkv_attention_kernel<HD, NKT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+  const size_t smem = static_cast<size_t>(2 * NKT * 16 + kWarps * 16) * (HD + 8) * sizeof(bf16);
+  static bool configured[kMaxDevices] = {};
+  const cudaError_t err = allow_dynamic_smem(qkv_attention_kernel<HD, NKT>, smem, configured);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kTileRows - 1) / kTileRows, H, B);
-  qkv_attention_kernel<HD, NKT><<<grid, 32 * kWarps, smem, stream>>>(
+  qkv_attention_kernel<HD, NKT><<<dim3(H, B), 32 * kWarps, smem, stream>>>(
       qkv, bias, out, N, H, n_valid, scale, softmax_f32);
   return cudaGetLastError();
 }

@@ -14,6 +14,7 @@ plain versions on any device, to compare the kernels with.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -36,8 +37,10 @@ _HEAD_DIMS = (16, 32, 64)
 _MAX_TOKENS = 256
 
 
+@functools.lru_cache(maxsize=None)
 def _scale(head_dim: int, dtype: torch.dtype) -> float:
-    """1/sqrt(hd) as the compute dtype holds it (the TPU kernel's fold)."""
+    """1/sqrt(hd) as the compute dtype holds it (the TPU kernel's fold).
+    Cached: every launch asks, and the tensor round trip costs microseconds."""
     return float(torch.tensor(1.0 / math.sqrt(head_dim), dtype=dtype))
 
 
@@ -139,10 +142,10 @@ def _check(qkv, num_heads, valid_len, bias) -> None:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     if bias is not None and (
         bias.shape != (three_d,) or bias.dtype != qkv.dtype
-        or bias.device != qkv.device or not bias.is_contiguous()
+        or bias.device != qkv.device or not bias.is_contiguous() or bias.data_ptr() % 16
     ):
         raise ValueError(
-            f"bias must be a contiguous ({three_d},) {qkv.dtype} tensor on "
+            f"bias must be a contiguous, 16-byte aligned ({three_d},) {qkv.dtype} tensor on "
             f"{qkv.device}, got {tuple(bias.shape)} {bias.dtype} on {bias.device}"
         )
 

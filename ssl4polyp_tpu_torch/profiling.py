@@ -50,6 +50,7 @@ FINETUNE_CONFIGS = (
 # (substring of the kernel's name, category), first match wins.
 _CATEGORIES = (
     ("attn_proj_dw_kernel", "attention+projection backward: dW kernel"),
+    ("transposed_product_kernel", "attention+projection backward: dW kernel"),
     ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
     ("attn_proj_kernel", "attention+projection kernel (forward, and the backward's O and dO)"),
     ("adamw_kernel", "AdamW kernel (one pass, with the compute copy)"),
@@ -216,7 +217,7 @@ def main(argv: list[str] | None = None) -> None:
 
     classifier = get_imagenet_or_random_vit(torch.Generator().manual_seed(0), num_classes=2,
                                             device="cuda")
-    forward = make_forward_fn(classifier, "cuda")
+    forward = make_forward_fn(classifier, "cuda")()
     request = np.random.default_rng(0).integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8)
     run = lambda: forward(request)  # noqa: E731
     for _ in range(3):

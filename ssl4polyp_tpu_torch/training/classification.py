@@ -25,7 +25,7 @@ from torch.func import functional_call
 
 from ..data.augment import AugmentParams, apply_augment, draw_augment_params, normalize_batch
 from ..models.factory import Classifier
-from ..models.layers import cast_params_for_compute, compute_copy
+from ..models.layers import compute_copy
 from . import optim
 
 __all__ = [
@@ -214,25 +214,44 @@ class ScheduleRuntime:
 
 def make_forward_fn(
     classifier: Classifier, device: str | torch.device
-) -> Callable[[np.ndarray], np.ndarray]:
-    """uint8 NHWC numpy batch -> fp32 logits as numpy, run on ``device``.
+) -> Callable[[Optional[Mapping[str, torch.Tensor]]], Callable[[np.ndarray], np.ndarray]]:
+    """The eval forward on ``device``, as a binder over the parameters (the
+    contract of JAX ``make_forward_fn``, which returns ``run(params)``).
 
-    Moves the classifier's model to ``device`` and casts its matrices to the
-    compute dtype once, in place (vectors stay fp32, as in the JAX recipe).
+    ``bind(params)`` returns ``forward(images_u8) -> logits``: a uint8 NHWC
+    numpy batch to fp32 logits as numpy.  ``params`` maps each parameter's
+    name to the tensor the forward reads (``torch.func.functional_call``): a
+    train state's ``params_c`` is that mapping, updated in place by every
+    step, so a forward bound to it follows training.  ``None`` binds a compute
+    copy made here from the classifier's own parameters (matrices in the
+    compute dtype, vectors fp32, as in the JAX recipe).  The classifier's
+    module is read, never written: it keeps its fp32 masters and its device.
     The JAX version pads the batch to its data mesh; one device needs no
     padding, and several devices come with the multi-GPU slice.
     """
     device = torch.device(device)
     dtype = classifier.cfg.compute_dtype
-    model = cast_params_for_compute(classifier.model.to(device), dtype).eval()
+    model = classifier.model
 
-    def forward(images_u8: np.ndarray) -> np.ndarray:
-        host = np.asarray(images_u8)
-        if host.dtype != np.uint8 or host.ndim != 4:
-            raise TypeError(f"expected a uint8 NHWC batch, got {host.dtype} {host.shape}")
-        host = np.require(host, requirements=("C", "W"))
-        with torch.inference_mode():
-            images = normalize_batch(torch.from_numpy(host).to(device), dtype)
-            return model(images).float().cpu().numpy()
+    def bind(params: Optional[Mapping[str, torch.Tensor]] = None
+             ) -> Callable[[np.ndarray], np.ndarray]:
+        if params is None:
+            params = compute_copy(
+                {name: p.to(device) for name, p in model.named_parameters()}, dtype)
+        missing = [name for name, _ in model.named_parameters() if name not in params]
+        if missing:
+            raise KeyError(f"make_forward_fn: no tensor for parameters {missing}")
+        bound = {name: t.detach().to(device) for name, t in params.items()}
 
-    return forward
+        def forward(images_u8: np.ndarray) -> np.ndarray:
+            host = np.asarray(images_u8)
+            if host.dtype != np.uint8 or host.ndim != 4:
+                raise TypeError(f"expected a uint8 NHWC batch, got {host.dtype} {host.shape}")
+            host = np.require(host, requirements=("C", "W"))
+            with torch.inference_mode():
+                images = normalize_batch(torch.from_numpy(host).to(device), dtype)
+                return functional_call(model, bound, (images,)).float().cpu().numpy()
+
+        return forward
+
+    return bind

@@ -523,3 +523,72 @@ def test_qkvproj_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
             fused_qkvproj_attention(_randn(gen, 1, 300, 64), w, b, 4)
         with pytest.raises(ValueError):  # valid_len outside 1..N
             fused_qkvproj_attention(x, w, b, 4, True, 9)
+
+
+# The warp-specialised wgmma GEMM's tiles are 128 rows by 128 or 256 columns
+# in steps of 64 along K: shapes on, one below and one above each edge, the
+# smallest the wrapper takes, and the paths' own.
+GEMM_SHAPES = [
+    (1, 8, 8), (1, 72, 136), (63, 8, 3072), (63, 512, 8), (63, 2304, 136), (129, 72, 2048),
+    (129, 768, 136), (129, 512, 3072), (12608, 72, 8), (12608, 8, 136), (12608, 512, 2048),
+    (12608, 768, 3072), (12608, 2304, 136), (3200, 768, 3072),
+]
+
+
+@pytest.mark.parametrize("write_h", [False, True])
+@pytest.mark.parametrize("M, K, NF", GEMM_SHAPES)
+@torch.inference_mode()
+def test_fc1_gelu_tiles_match_plain_and_rerun_equal(gen, M, K, NF, write_h):
+    x, w, b = _randn(gen, M, K), _randn(gen, NF, K, scale=K ** -0.5), _randn(gen, NF, scale=0.5)
+    (h, y), (h2, y2) = mlp._kernel(x, w, b, write_h), mlp._kernel(x, w, b, write_h)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, fc1_gelu_reference(x, w, b), **FC1_TOL)
+    assert torch.equal(y, y2)
+    if write_h:
+        torch.testing.assert_close(h, torch.matmul(x, w.t()) + b, **FC1_TOL)
+        assert torch.equal(h, h2)
+    else:
+        assert h is None
+
+
+@pytest.mark.parametrize("M, K, NF", GEMM_SHAPES + [(12608, 2304, 768)])
+@torch.inference_mode()
+def test_matmul_nt_tiles_match_plain_and_rerun_equal(gen, M, K, NF):
+    # The bare product other kernels' phases call (attention_block.cu's dx, the
+    # last shape): the same kernel as fc1+GELU with a bare epilogue.
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    x, w = _randn(gen, M, K), _randn(gen, NF, K, scale=K ** -0.5)
+    outs = [torch.empty((M, NF), dtype=x.dtype, device="cuda") for _ in range(2)]
+    for y in outs:
+        err = library().ssl4polyp_matmul_nt(x.data_ptr(), w.data_ptr(), y.data_ptr(), M, K, NF,
+                                            torch.cuda.current_stream().cuda_stream)
+        assert err == 0
+    torch.cuda.synchronize()
+    # One rounding of the fp32 sum on both sides: a bf16 ulp where it flips.
+    torch.testing.assert_close(outs[0], torch.matmul(x, w.t()), **FUSED_TOL)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("softmax_f32", [True, False])
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("N", [1, 50, 65, 197, 208, 256])
+@torch.inference_mode()
+def test_attention_forward_tiles_match_plain_and_rerun_equal(gen, N, hd, with_bias, softmax_f32):
+    # Every key-tile count the kernel is built for, the lengths at their
+    # edges, keys past valid_len masked: one block a head, its warps taking
+    # the 16-row query tiles in turn.
+    B, H = 3, 2
+    valid_len = max(1, N - 7)
+    qkv = _randn(gen, B, N, 3 * H * hd)
+    bias = _randn(gen, 3 * H * hd, scale=0.5) if with_bias else None
+    out = fused_qkv_attention(qkv, H, softmax_f32, valid_len, bias)
+    again = fused_qkv_attention(qkv, H, softmax_f32, valid_len, bias)
+    torch.cuda.synchronize()
+    ref = fused_qkv_attention_reference(qkv, H, softmax_f32, valid_len, bias)
+    torch.testing.assert_close(out, ref, **ATTENTION_TOL)
+    assert torch.equal(out, again)
+    whole = fused_qkv_attention(qkv, H, softmax_f32, None, bias)
+    torch.testing.assert_close(whole, fused_qkv_attention_reference(qkv, H, softmax_f32, None, bias),
+                               **ATTENTION_TOL)

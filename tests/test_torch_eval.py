@@ -56,10 +56,13 @@ def test_forward_and_metrics_match_jax(image_pack):
     index = create_classification_datasets(test_spec=image_pack, image_size=32)["test"]
     loader = HostDataLoader(index, batch_size=5, num_workers=1)
     jax_forward = jax_make_forward_fn(jax_classifier, build_mesh())(jax_classifier.params)
-    forward = make_forward_fn(classifier, "cpu")
+    forward = make_forward_fn(classifier, "cpu")()
 
     batch = next(iter(loader))["image"]
     np.testing.assert_allclose(forward(batch), jax_forward(batch), rtol=TOL, atol=TOL)
+    # The binder given the parameters by name is the same function.
+    named = dict(classifier.model.named_parameters())
+    np.testing.assert_array_equal(make_forward_fn(classifier, "cpu")(named)(batch), forward(batch))
 
     kwargs = dict(split_name="test", morphology_eval=("polypoid", "flat"),
                   perturbation_eval=True, pos_weight=1.5)

@@ -304,3 +304,87 @@ def test_short_trajectory_matches_jax():
         # size of the summed lr (2e-3).
         dist = np.linalg.norm(got - w) / max(1e-2, float(np.linalg.norm(w)))
         assert dist <= TRAJECTORY_RTOL, f"{name}: relative L2 distance {dist:.2e}"
+
+
+# The bf16 forward through two blocks against the same forward on the same
+# compute copy: the same arithmetic in the same order, so equal; the stated
+# tolerance (two bf16 ulps of logits of magnitude below 4) covers a platform
+# whose matmul picks another blocking for another call.
+FORWARD_ATOL = 3e-2
+
+
+def _plain_logits(classifier, images):
+    """The classifier's module on a compute copy of its current masters."""
+    from torch.func import functional_call
+
+    from ssl4polyp_tpu_torch.data.augment import normalize_batch
+    from ssl4polyp_tpu_torch.models.layers import compute_copy
+
+    dtype = classifier.cfg.compute_dtype
+    copy = compute_copy(dict(classifier.model.named_parameters()), dtype)
+    with torch.no_grad():
+        x = normalize_batch(torch.from_numpy(images), dtype)
+        return functional_call(classifier.model, copy, (x,)).float().numpy()
+
+
+def _bf16_classifier(seed=0):
+    return build_classifier(torch.Generator().manual_seed(seed), {}, device="cpu", **SHAPES)
+
+
+def test_forward_bound_to_the_train_state_follows_training():
+    # Evaluate, train three steps, evaluate: both times the bound forward
+    # reads the current weights (the JAX engine binds the epoch's parameters
+    # at each evaluation).
+    ours = _bf16_classifier()
+    assert ours.cfg.compute_dtype == torch.bfloat16
+    state = classification.init_train_state(ours, torch.Generator().manual_seed(0))
+    forward = classification.make_forward_fn(ours, "cpu")(state.params_c)
+    images = _images(11)
+    before = forward(images)
+    assert before.shape == (B, 2) and before.dtype == np.float32
+    np.testing.assert_allclose(before, _plain_logits(ours, images), rtol=0, atol=FORWARD_ATOL)
+
+    ctx = classification.TrainContext(ours, *classification.loss_settings([40, 20]),
+                                      weight_decay=0.05)
+    step = classification.make_train_step(ctx)
+    lr_scale = optim.finetune_lr_scales(state.params, "full", SHAPES["depth"])
+    wd_scale = optim.no_weight_decay_scales(state.params)
+    rng = np.random.default_rng(12)
+    for _ in range(3):
+        step(state, torch.from_numpy(_images(int(rng.integers(100)))),
+             torch.from_numpy(rng.integers(0, 2, B)), torch.ones(B, dtype=torch.bool), 1e-2,
+             lr_scale, wd_scale)
+    after = forward(images)
+    np.testing.assert_allclose(after, _plain_logits(ours, images), rtol=0, atol=FORWARD_ATOL)
+    # Training moved the logits by far more than the tolerance: a forward on
+    # stale weights would fail the line above.
+    assert np.abs(after - before).max() > 10 * FORWARD_ATOL
+    # A fresh binding of the classifier's own parameters reads the same masters.
+    np.testing.assert_allclose(classification.make_forward_fn(ours, "cpu")()(images), after,
+                               rtol=0, atol=FORWARD_ATOL)
+
+
+def test_make_forward_fn_leaves_the_masters_fp32():
+    # Binding a forward before the train state is built must not cast the
+    # module another caller owns.
+    ours = _bf16_classifier(1)
+    images = _images(13)
+    logits = classification.make_forward_fn(ours, "cpu")()(images)
+    assert np.isfinite(logits).all()
+    assert all(p.dtype == torch.float32 for p in ours.model.parameters())
+    state = classification.init_train_state(ours, torch.Generator().manual_seed(0))
+    assert all(p.dtype == torch.float32 for p in state.params.values())
+    assert all(t.dtype == (torch.bfloat16 if t.dim() >= 2 else torch.float32)
+               for t in state.params_c.values())
+    with pytest.raises(KeyError):
+        classification.make_forward_fn(ours, "cpu")({"head.weight": state.params_c["head.weight"]})
+
+
+@pytest.mark.parametrize("pretraining", ["random", "ImageNet_class"])
+def test_factory_scheme_is_random_under_jax_params(pretraining):
+    # The JAX factory names the scheme "sup_imnet" only where it read an
+    # AugReg file; weights handed over in memory keep "random".
+    jax_clf, params, _ = _jax_pair({})
+    ours = build_classifier(torch.Generator().manual_seed(0), {"pretraining": pretraining},
+                            jax_params=params, device="cpu", **SHAPES)
+    assert jax_clf.scheme == "random" and ours.scheme == "random"

@@ -36,7 +36,7 @@ from ssl4polyp_tpu_torch.training.classification import make_forward_fn
 classifier = get_mae_backbone(torch.Generator().manual_seed(0), device="cpu", img_size=32,
                               patch_size=8, embed_dim=64, depth=2, num_heads=4, pad_tokens_to=24)
 images = np.random.default_rng(0).integers(0, 256, (2, 32, 32, 3), dtype=np.uint8)
-logits = make_forward_fn(classifier, "cpu")(images)
+logits = make_forward_fn(classifier, "cpu")()(images)
 assert logits.shape == (2, 2) and logits.dtype == np.float32 and np.isfinite(logits).all()
 
 # One pretrain step of a tiny MAE in bf16, the pretrain recipe's dtype.

@@ -19,6 +19,12 @@ from ssl4polyp_tpu_torch import profiling
     ("void attn_proj_kernel<64, 13, false>(bf16 const*, ...)",
      "attention+projection kernel (forward, and the backward's O and dO)"),
     ("attn_proj_dw_kernel(bf16 const*, ...)", "attention+projection backward: dW kernel"),
+    ("(anonymous namespace)::transposed_product_kernel(__nv_bfloat16 const*, int, ...)",
+     "attention+projection backward: dW kernel"),
+    ("void (anonymous namespace)::fc1_gelu_kernel<256, true>(CUtensorMap, CUtensorMap, ...)",
+     "fc1+GELU kernel"),
+    ("void (anonymous namespace)::qkv_attention_kernel<64, 13>(__nv_bfloat16 const*, ...)",
+     "attention forward kernel"),
     ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS GEMM"),
     ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNN", "cuBLAS GEMM"),
