@@ -21,7 +21,13 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    port never calls it), and the least time the card could take (the larger
    of the bytes over its memory rate and the operations over its peak rate),
    at each shape a kernel is timed at: the classifier's, the MAE decoder's
-   and the MAE encoder's.  The summary quotes the classifier's shape.
+   and the MAE encoder's.  The summary quotes the classifier's shape.  The
+   LayerNorm backward is also held and timed with a residual's gradient
+   folded in, and its two launches (the row kernel, the sum of the blocks'
+   partials) are timed apart; the attention+projection backward's four
+   phases are timed apart, each beside its bound, and its forward is timed
+   without its attention arithmetic, without its projection's products and
+   without both (wrong results, times only: where its time goes).
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -430,8 +436,10 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     def ln_cost(m, d):  # x in and y out in bf16, the fp32 affine in
         return dict(bytes_moved=4 * m * d + 8 * d, flops=8 * m * d, peak=FP32_FLOPS)
 
-    def ln_bwd_cost(m, d):  # x and dy in, dx out in bf16; the weight in, both gradients out
-        return dict(bytes_moved=6 * m * d + 12 * d, flops=12 * m * d, peak=FP32_FLOPS)
+    # x, dy (and dres) in, dx out in bf16; the weight in, both gradients out
+    def ln_bwd_cost(m, d, dres=False):
+        return dict(bytes_moved=(8 if dres else 6) * m * d + 12 * d,
+                    flops=(13 if dres else 12) * m * d, peak=FP32_FLOPS)
 
     for i, (m, d) in enumerate(ln_shapes):
         x, dy = randn(m, d), randn(m, d)
@@ -453,9 +461,22 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
                         max_error(db, ref_db, LN_PARAM_TOL, f"{what}: dbias"))
         if not all(torch.equal(a, b) for a, b in zip((dx, dw, db), again)):
             fail(f"{what}: two backward runs gave different bits")
-        print(f"{what}: y max |diff| {fwd_errors[-1]:.3e}, dx {bwd_errors[-1]:.3e} (atol "
-              f"{LN_TOL[0]}, rtol {LN_TOL[1]}); dweight, dbias {param_err:.3e} (atol "
-              f"{LN_PARAM_TOL[0]}, rtol {LN_PARAM_TOL[1]}); rerun bit-identical")
+        # The variant the LN+MLP kernel's backward calls: a residual's
+        # gradient added to dx in fp32 before its one rounding.
+        dres = randn(m, d)
+        run_dres = lambda: layernorm._backward_kernel(x, dy, w, 1e-6, dres)  # noqa: E731
+        with_dres, dres_again = run_dres(), run_dres()
+        ref_dres = ln_linear.layernorm_backward(x, w, dy, 1e-6, True, dres)
+        bwd_errors.append(max_error(with_dres[0], ref_dres[0], LN_TOL, f"{what}: dx + dres"))
+        dres_param_err = max(
+            max_error(with_dres[1], ref_dres[1], LN_PARAM_TOL, f"{what}: dweight (dres)"),
+            max_error(with_dres[2], ref_dres[2], LN_PARAM_TOL, f"{what}: dbias (dres)"))
+        if not all(torch.equal(a, b) for a, b in zip(with_dres, dres_again)):
+            fail(f"{what}: two backward runs with dres gave different bits")
+        print(f"{what}: y max |diff| {fwd_errors[-1]:.3e}, dx {bwd_errors[-2]:.3e}, with dres "
+              f"{bwd_errors[-1]:.3e} (atol {LN_TOL[0]}, rtol {LN_TOL[1]}); dweight, dbias "
+              f"{param_err:.3e}, with dres {dres_param_err:.3e} (atol {LN_PARAM_TOL[0]}, rtol "
+              f"{LN_PARAM_TOL[1]}); reruns bit-identical")
         # The library call takes its affine in the input's dtype.
         lib_leaves = [x.clone().requires_grad_(), w.bfloat16().requires_grad_(),
                       bias.bfloat16().requires_grad_()]
@@ -469,6 +490,20 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
               f"{bound_text(**ln_cost(m, d))}; backward kernel {bwd_times[i][0]:.4f} ms, plain "
               f"{bwd_times[i][1]:.4f} ms, F.layer_norm's {bwd_times[i][2]:.4f} ms, "
               f"{bound_text(**ln_bwd_cost(m, d))}")
+        # The backward's two launches apart (one plan: the same buffers), then
+        # the dres variant, whole.
+        launch, _ = layernorm._backward_plan(x, dy, w, 1e-6)
+        rows_ms, sum_ms = (time_ms(lambda: launch(layernorm.BACKWARD_PARTS[part]))  # noqa: B023
+                           for part in ("rows", "sum"))
+        blocks = _build.library().ssl4polyp_layernorm_bwd_blocks(m, d)
+        part_bytes = 8 * blocks * d  # (blocks, 2, D) fp32
+        plain_dres = lambda: ln_linear.layernorm_backward(x, w, dy, 1e-6, True, dres)  # noqa: E731
+        rows_bound = bound_text(6 * m * d + 4 * d + part_bytes, 12 * m * d, FP32_FLOPS)
+        sum_bound = bound_text(part_bytes + 8 * d, 2 * blocks * d, FP32_FLOPS)
+        print(f"    backward's row kernel {rows_ms:.4f} ms, {rows_bound}; the sum of its "
+              f"{blocks} partial rows {sum_ms:.4f} ms, {sum_bound}; with dres, whole "
+              f"{time_ms(run_dres):.4f} ms, plain {time_ms(plain_dres):.4f} ms, "
+              f"{bound_text(**ln_bwd_cost(m, d, True))}")
     m, d = ln_shapes[2]  # the classifier's
     report["layernorm"] = entry(
         "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:32", max(fwd_errors), *fwd_times[2][:2],
@@ -659,6 +694,30 @@ def attn_proj_kernels(randn) -> dict[str, dict]:
               f"scaled_dot_product_attention + F.linear {fwd_times[i][2]:.4f} ms; backward kernels "
               f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, the library pair's "
               f"{bwd_times[i][2]:.4f} ms")
+        # The backward's four phases apart, on one plan's buffers (each phase
+        # finds what the earlier ones left there), each beside its bound.
+        core, proj, act = b * h * n * n * hd, b * n * d * d, 2 * b * n * d
+        launch, _ = attn_proj._backward_plan(qkv, w, bias, dy, h, f32, valid_len)
+        launch(sum(attn_proj.BACKWARD_PHASES.values()))
+        phase_cost = {  # (what it reads and writes once, its operations, their peak rate)
+            "prep": (3 * act + act + 2 * act + 4 * d * d, 4 * core + 2 * proj, BF16_FLOPS),
+            "dw": (2 * act + 4 * d * d, 2 * proj, BF16_FLOPS),
+            "db": (act + 4 * d, b * n * d, FP32_FLOPS),
+            "attention": (3 * act + act + 3 * act, 10 * core, BF16_FLOPS),
+        }
+        phase_ms = {phase: time_ms(lambda: launch(bit))  # noqa: B023
+                    for phase, bit in attn_proj.BACKWARD_PHASES.items()}
+        print("    backward's phases: " + "; ".join(
+            f"{phase} {ms:.4f} ms, {bound_text(*phase_cost[phase])}"
+            for phase, ms in phase_ms.items()))
+        # Where the forward's time goes: the kernel without its attention
+        # arithmetic, without its projection's products, without both (wrong
+        # results; the copies, barriers, W ring and stores stay).
+        with torch.no_grad():
+            ablated = [time_ms(lambda: attn_proj._forward_kernel(  # noqa: B023
+                qkv, w, bias, h, f32, valid_len, ablate)) for ablate in (1, 2, 3)]
+        print("    forward without the attention arithmetic {:.4f} ms, without the wgmma "
+              "{:.4f} ms, without both {:.4f} ms".format(*ablated))
         del leaves, lib_y
     b, n, h, hd = cases[0][:4]
     d = h * hd

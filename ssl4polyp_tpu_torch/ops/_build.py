@@ -39,17 +39,20 @@ _ENTRY_POINTS = (
     ("ssl4polyp_layernorm_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_layernorm_bwd", ctypes.c_int,
-     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
+     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_layernorm_bwd_blocks", ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
     ("ssl4polyp_mlp_fused_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_ln_linear_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_attn_proj_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_attn_proj_bwd", ctypes.c_int,
-     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
-     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]),
     ("ssl4polyp_matmul_nt", ctypes.c_int,
      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_attention_fwd", ctypes.c_int,

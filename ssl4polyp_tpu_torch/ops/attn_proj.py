@@ -32,6 +32,7 @@ from .qkv_attention import (
 )
 
 __all__ = [
+    "BACKWARD_PHASES",
     "attn_proj_fold_enabled",
     "backward_launches",
     "fused_attention_proj",
@@ -116,7 +117,10 @@ def _check(qkv, w, b, num_heads, valid_len) -> None:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {qkv.device}")
 
 
-def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len):
+def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len, ablate: int = 0):
+    """The forward kernel.  ``ablate`` is a measurement aid (csrc/attn_proj.cu:
+    1 leaves out the attention arithmetic, 2 the projection's products): the
+    result is then wrong and only its time is of use."""
     from ._build import library
 
     global launches
@@ -128,7 +132,7 @@ def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len):
         err = library().ssl4polyp_attn_proj_fwd(
             qkv.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, num_heads,
             head_dim, N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
-            int(bool(softmax_f32)), torch.cuda.current_stream().cuda_stream,
+            int(bool(softmax_f32)), ablate, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"attn_proj kernel launch failed: CUDA error {err}")
@@ -136,10 +140,28 @@ def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len):
     return out
 
 
+# The backward's phases (csrc/attn_proj.cu), a bit each in its ``phases``
+# argument: W^T and the recompute of O with dO, dw, db, the attention backward.
+BACKWARD_PHASES = {"prep": 1, "dw": 2, "db": 4, "attention": 8}
+_ALL_PHASES = 15
+
+
 def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
+    """(dqkv, dw, db) from the backward's four phases."""
+    global backward_launches
+    run, results = _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len)
+    run(_ALL_PHASES)
+    backward_launches += 1
+    return results()
+
+
+def _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
+    """Allocates the backward's scratch and results once and returns
+    ``(run, results)``: ``run(phases)`` launches the phases of the mask (a
+    later phase reads what the earlier ones left in the scratch), and
+    ``results()`` returns (dqkv, dw, db).  No launch is counted here."""
     from ._build import library
 
-    global backward_launches
     B, N, three_d = qkv.shape
     D = three_d // 3
     head_dim = D // num_heads
@@ -147,6 +169,7 @@ def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not fit qkv "
                          f"{tuple(qkv.shape)} {qkv.dtype}")
     dev = qkv.device
+    w_t = torch.empty_like(w)                                    # scratch: W^T
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=dev)    # scratch: the core output
     d_out = torch.empty_like(out)                                # scratch: dO
     dqkv = torch.empty_like(qkv)
@@ -154,19 +177,22 @@ def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
     dw = torch.empty((D, D), dtype=torch.float32, device=dev)
     db_part = torch.empty((-(-B * N // _DB_ROWS), D), dtype=torch.float32, device=dev)
     db = torch.empty((D,), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = library().ssl4polyp_attn_proj_bwd(
-            qkv.data_ptr(), w.data_ptr(), dy.data_ptr(), out.data_ptr(), d_out.data_ptr(),
-            dqkv.data_ptr(), dw_part.data_ptr(), dw.data_ptr(), db_part.data_ptr(),
-            db.data_ptr(), B, N, num_heads, head_dim,
-            N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
-            1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), _DW_SLICES,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"attn_proj backward kernel launch failed: CUDA error {err}")
-    backward_launches += 1
-    return dqkv, dw.to(w.dtype), db.to(b.dtype)
+    lib = library()
+
+    def run(phases: int) -> None:
+        with torch.cuda.device(dev):
+            err = lib.ssl4polyp_attn_proj_bwd(
+                qkv.data_ptr(), w.data_ptr(), dy.data_ptr(), w_t.data_ptr(), out.data_ptr(),
+                d_out.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(), dw.data_ptr(),
+                db_part.data_ptr(), db.data_ptr(), B, N, num_heads, head_dim,
+                N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
+                1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), _DW_SLICES, phases,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"attn_proj backward kernel launch failed: CUDA error {err}")
+
+    return run, lambda: (dqkv, dw.to(w.dtype), db.to(b.dtype))
 
 
 class _AttentionProj(torch.autograd.Function):

@@ -1,7 +1,8 @@
 // Device helpers shared by the port's kernels: bf16 packing, the mma.sync
 // m16n8k16 product with its ldmatrix and cp.async feeds, the quad transpose
 // that turns accumulator fragments into 16-byte stores, a warp sum, the
-// LayerNorm prologue of the fused kernels, and a deterministic column sum.
+// LayerNorm prologue of the fused kernels, the device's SM count, and a
+// deterministic column sum.
 //
 // Fragment layout of mma.sync.m16n8k16 (lane = 4 * g + t):
 //   A (16x16, row-major): a0 (row g, cols 2t, 2t+1), a1 (row g+8, same cols),
@@ -184,35 +185,55 @@ inline cudaError_t allow_dynamic_smem(Kernel kernel, size_t bytes, bool (&done)[
   return err;
 }
 
+// The SMs of the current device, asked once a device.
+inline cudaError_t sm_count(int* count) {
+  static int known[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device < kMaxDevices && known[device] > 0) {
+    *count = known[device];
+    return cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess && device < kMaxDevices) known[device] = *count;
+  return err;
+}
+
 constexpr int kColumnSumWarps = 8;
 
 // out[c] = sum over r of part[r * cols + c], fp32, in an order fixed by the
-// shape alone: warp w sums rows w, w + 8, ... of 32 columns, then warp 0
-// adds the eight partial sums in warp order.  Reruns give the same bits,
-// which float atomics would not.
-__global__ void __launch_bounds__(32 * kColumnSumWarps)
+// shape alone: warp w sums rows w, w + WARPS, ... of 32 columns, then warp 0
+// adds the WARPS partial sums in warp order.  Reruns give the same bits,
+// which float atomics would not.  A caller with hundreds of rows takes more
+// warps (up to 32), so that each walks few rows with its loads in flight
+// together.
+template <int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 column_sum_kernel(const float* __restrict__ part, int rows, int cols, float* __restrict__ out) {
-  __shared__ float partial[kColumnSumWarps][32];
+  __shared__ float partial[WARPS][32];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int col = blockIdx.x * 32 + lane;
   float acc = 0.0f;
   if (col < cols) {
-    for (int r = warp; r < rows; r += kColumnSumWarps) acc += part[static_cast<long>(r) * cols + col];
+#pragma unroll 4
+    for (int r = warp; r < rows; r += WARPS) acc += part[static_cast<long>(r) * cols + col];
   }
   partial[warp][lane] = acc;
   __syncthreads();
   if (warp == 0 && col < cols) {
     float total = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kColumnSumWarps; ++w) total += partial[w][lane];
+    for (int w = 0; w < WARPS; ++w) total += partial[w][lane];
     out[col] = total;
   }
 }
 
+template <int WARPS = kColumnSumWarps>
 inline cudaError_t launch_column_sum(const float* part, int rows, int cols, float* out,
                                      cudaStream_t stream) {
-  column_sum_kernel<<<(cols + 31) / 32, 32 * kColumnSumWarps, 0, stream>>>(part, rows, cols, out);
+  column_sum_kernel<WARPS><<<(cols + 31) / 32, 32 * WARPS, 0, stream>>>(part, rows, cols, out);
   return cudaGetLastError();
 }
 

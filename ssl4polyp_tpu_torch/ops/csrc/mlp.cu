@@ -234,21 +234,6 @@ fc1_gelu_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
   }
 }
 
-// The SMs of the current device, asked once a device.
-inline cudaError_t sm_count(int* count) {
-  static int known[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  if (device < kMaxDevices && known[device] > 0) {
-    *count = known[device];
-    return cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(count, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess && device < kMaxDevices) known[device] = *count;
-  return err;
-}
-
 template <int BN, bool GELU>
 cudaError_t launch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* h, bf16* y, int M,
                         int K, int NF, int sms, cudaStream_t stream) {

@@ -17,14 +17,13 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["backward_launches", "launches", "layernorm", "layernorm_reference"]
+__all__ = ["BACKWARD_PARTS", "backward_launches", "launches", "layernorm", "layernorm_reference"]
 
 # Kernel launches since the last ops.reset_launch_counts().
 launches = 0
 backward_launches = 0
 
 _MAX_DIM = 2048
-_BWD_ROWS = 16  # rows per block of the backward kernel (csrc/layernorm.cu)
 
 
 def layernorm_reference(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -71,24 +70,50 @@ def _forward_kernel(x, weight, bias, eps):
 def _backward_kernel(x, dy, weight, eps, dres=None):
     """(dx, dweight, dbias); ``dres`` (or None), a gradient of ``x``'s shape,
     is added to dx in fp32 before its one rounding."""
+    global backward_launches
+    run, results = _backward_plan(x, dy, weight, eps, dres)
+    run(_BOTH_PARTS)
+    backward_launches += 1
+    return results()
+
+
+# The backward's two launches (csrc/layernorm.cu), a bit each in its ``parts``
+# argument: the row kernel (dx and each block's partial sums) and the sum of
+# the partials into dweight and dbias.
+BACKWARD_PARTS = {"rows": 1, "sum": 2}
+_BOTH_PARTS = 3
+
+
+def _backward_plan(x, dy, weight, eps, dres=None):
+    """Allocates the backward's results and scratch once and returns ``(run,
+    results)``: ``run(parts)`` launches the parts of the mask, ``results()``
+    returns (dx, dweight, dbias).  No launch is counted here."""
     from ._build import library
 
-    global backward_launches
     D = x.shape[-1]
     M = x.numel() // D
     dx = torch.empty_like(x)
-    part = torch.empty((-(-M // _BWD_ROWS), 2, D), dtype=torch.float32, device=x.device)
     dparams = torch.empty((2, D), dtype=torch.float32, device=x.device)
+    lib = library()
     with torch.cuda.device(x.device):
-        err = library().ssl4polyp_layernorm_bwd(
-            x.data_ptr(), dy.data_ptr(), None if dres is None else dres.data_ptr(),
-            weight.data_ptr(), dx.data_ptr(), part.data_ptr(), dparams.data_ptr(), M, D, eps,
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"layernorm backward kernel launch failed: CUDA error {err}")
-    backward_launches += 1
-    return dx, dparams[0], dparams[1]
+        # The kernel's grid is the library's to choose (persistent: it follows
+        # the device's SMs); each of its blocks writes one row of `part`.
+        blocks = lib.ssl4polyp_layernorm_bwd_blocks(M, D)
+    if blocks < 1:
+        raise RuntimeError(f"layernorm backward: no grid for ({M}, {D}) on {x.device}")
+    part = torch.empty((blocks, 2, D), dtype=torch.float32, device=x.device)
+
+    def run(parts: int) -> None:
+        with torch.cuda.device(x.device):
+            err = lib.ssl4polyp_layernorm_bwd(
+                x.data_ptr(), dy.data_ptr(), None if dres is None else dres.data_ptr(),
+                weight.data_ptr(), dx.data_ptr(), part.data_ptr(), dparams.data_ptr(), M, D,
+                eps, parts, torch.cuda.current_stream().cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"layernorm backward kernel launch failed: CUDA error {err}")
+
+    return run, lambda: (dx, dparams[0], dparams[1])
 
 
 class _LayerNorm(torch.autograd.Function):

@@ -53,6 +53,8 @@ _CATEGORIES = (
     ("transposed_product_kernel", "attention+projection backward: dW kernel"),
     ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
     ("attn_proj_kernel", "attention+projection kernel (forward, and the backward's O and dO)"),
+    ("attn_proj_transpose_kernel",
+     "attention+projection kernel (forward, and the backward's O and dO)"),
     ("adamw_kernel", "AdamW kernel (one pass, with the compute copy)"),
     ("qkv_attention_bwd_kernel", "attention backward kernel"),
     ("qkv_attention_kernel", "attention forward kernel"),

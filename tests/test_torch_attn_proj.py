@@ -99,6 +99,24 @@ def test_plain_matches_jax_kernel_bf16(hd, valid_len, softmax_f32):
     _assert_all_close(ours, ref, BF16_TOL, BWD_BF16_TOL, rows)
 
 
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("softmax_f32", [True, False])
+def test_plain_matches_jax_kernel_at_a_ragged_token_count(softmax_f32, dtype):
+    # 37 tokens are two whole query tiles of 16 and one of 5 rows, and the
+    # last two keys are masked: the edges at which the card's kernel splits an
+    # image's rows into unequal blocks, here for the plain version that judges
+    # it.  hd 32: the scale fold rounds in bf16.
+    qkv, w, b, dy = _inputs(5, 2, 37, 4, 32)
+    dy[:, 35:] = 0
+    if dtype == "fp32":
+        torch_dtype, jax_dtype, tol, bwd_tol = torch.float32, jnp.float32, F32_TOL, BWD_F32_TOL
+    else:
+        torch_dtype, jax_dtype, tol, bwd_tol = torch.bfloat16, jnp.bfloat16, BF16_TOL, BWD_BF16_TOL
+    ours = _torch_all(qkv, w, b, dy, 4, softmax_f32, 35, torch_dtype)
+    ref = _jax_all(qkv, w, b, dy, 4, softmax_f32, 35, jax_dtype)
+    _assert_all_close(ours, ref, tol, bwd_tol, slice(0, 35))
+
+
 def test_valid_len_over_padding_equals_truncated():
     # Padded keys are masked: the valid rows match the truncated call after
     # the projection too, and dw and db see exact zeros from the pad rows

@@ -9,6 +9,8 @@ import torch
 
 from ssl4polyp_tpu_torch import ops
 from ssl4polyp_tpu_torch.ops import attn_proj, mlp
+from ssl4polyp_tpu_torch.ops import layernorm as layernorm_ops
+from ssl4polyp_tpu_torch.ops import ln_linear as ln_linear_ops
 from ssl4polyp_tpu_torch.ops.layernorm import layernorm, layernorm_reference
 from ssl4polyp_tpu_torch.ops.ln_linear import ln_linear, ln_linear_plain, ln_linear_reference
 from ssl4polyp_tpu_torch.ops.mlp import fc1_gelu, fc1_gelu_plain, fc1_gelu_reference
@@ -165,6 +167,44 @@ def test_layernorm_kernels_match_plain(gen, shape):
     torch.testing.assert_close(grads[2], b.grad, **LN_PARAM_TOL)
 
 
+# Rows around the backward's persistent grid: one, a ragged block, just past
+# a block, fewer rows than the grid's warps, and one more than a whole turn of
+# every warp of the widest grid ("turn": asked of the library in the test).
+@pytest.mark.parametrize("with_dres", [False, True], ids=["plain", "dres"])
+@pytest.mark.parametrize("D", [64, 512, 768, 2048])
+@pytest.mark.parametrize("M", [1, 15, 17, 100, "turn", 3200, 12608])
+def test_layernorm_backward_rows_match_plain_and_rerun_equal(gen, M, D, with_dres):
+    if M == "turn":
+        from ssl4polyp_tpu_torch.ops._build import library
+        M = 8 * library().ssl4polyp_layernorm_bwd_blocks(1 << 20, D) + 1
+    x, dm = _randn(gen, M, D), _randn(gen, M, D)
+    dres = _randn(gen, M, D) if with_dres else None
+    s = 1 + 0.1 * torch.randn(D, generator=gen, device="cuda")
+    ops.reset_launch_counts()
+    got = ln_linear_ops.layernorm_backward(x, s, dm, 1e-6, False, dres)
+    again = ln_linear_ops.layernorm_backward(x, s, dm, 1e-6, False, dres)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["layernorm_backward"] == 2
+    want = ln_linear_ops.layernorm_backward(x, s, dm, 1e-6, True, dres)
+    torch.testing.assert_close(got[0], want[0], **LN_TOL)
+    torch.testing.assert_close(got[1], want[1], **LN_PARAM_TOL)
+    torch.testing.assert_close(got[2], want[2], **LN_PARAM_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_layernorm_backward_parts_add_up(gen):
+    """The row kernel and the sum of its partials, launched apart, give the
+    whole backward's bits."""
+    x, dy = _randn(gen, 1000, 768), _randn(gen, 1000, 768)
+    w = 1 + 0.1 * torch.randn(768, generator=gen, device="cuda")
+    whole = layernorm_ops._backward_kernel(x, dy, w, 1e-6)
+    run, results = layernorm_ops._backward_plan(x, dy, w, 1e-6)
+    run(layernorm_ops.BACKWARD_PARTS["rows"])
+    run(layernorm_ops.BACKWARD_PARTS["sum"])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(whole, results()))
+
+
 @pytest.mark.parametrize("M, K, NF", [(3200, 768, 3072), (12608, 512, 2048), (37, 32, 24)])
 def test_fc1_gelu_gradients_match_plain(gen, M, K, NF):
     x, w, b = _randn(gen, M, K), _randn(gen, NF, K, scale=K ** -0.5), _randn(gen, NF, scale=0.5)
@@ -289,6 +329,10 @@ ATTN_PROJ_PARAM_TOL = dict(atol_scale=5e-3, rtol=2e-2)
     ],
 )
 def test_attn_proj_kernels_match_plain(gen, B, N, H, hd, softmax_f32, valid_len):
+    _check_attn_proj(gen, B, N, H, hd, softmax_f32, valid_len)
+
+
+def _check_attn_proj(gen, B, N, H, hd, softmax_f32, valid_len):
     D = H * hd
     qkv, dy = _randn(gen, B, N, 3 * D), _randn(gen, B, N, D)
     if valid_len is not None:
@@ -315,9 +359,37 @@ def test_attn_proj_kernels_match_plain(gen, B, N, H, hd, softmax_f32, valid_len)
         torch.testing.assert_close(got.float(), want.float(),
                                    atol=ATTN_PROJ_PARAM_TOL["atol_scale"] * scale,
                                    rtol=ATTN_PROJ_PARAM_TOL["rtol"], msg=name)
-    # No atomics: a second backward gives the same bits.
+    # No atomics: a second forward and a second backward give the same bits.
+    with torch.inference_mode():
+        assert torch.equal(attn_proj.fused_attention_proj(qkv, w, b, H, softmax_f32, valid_len),
+                           out)
     again = attn_proj._backward_kernel(qkv, w, b, dy, H, softmax_f32, valid_len)
     assert all(torch.equal(a, g) for a, g in zip(again, (dqkv, dw, db)))
+
+
+# One image at every edge of the block plan: a single row, one ragged tile, a
+# whole block, one row into a second tile or block, the classifier's tokens,
+# the widest 13-tile and 16-tile sequences; width 256 (two column tiles of
+# the projection, eight W tiles through a ring of three).
+@pytest.mark.parametrize("masked", [False, True], ids=["whole", "valid_len"])
+@pytest.mark.parametrize("softmax_f32", [True, False])
+@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("N", [1, 5, 64, 65, 197, 208, 256])
+def test_attn_proj_tiles_match_plain_and_rerun_equal(gen, N, hd, softmax_f32, masked):
+    valid_len = max(1, N - 3) if masked else None
+    _check_attn_proj(gen, 1, N, 256 // hd, hd, softmax_f32, valid_len)
+
+
+def test_attn_proj_backward_phases_add_up(gen):
+    """The four phases launched apart give the whole backward's bits."""
+    qkv, dy = _randn(gen, 2, 197, 3 * 256), _randn(gen, 2, 197, 256)
+    w, b = _randn(gen, 256, 256, scale=1 / 16), _randn(gen, 256, scale=0.5)
+    whole = attn_proj._backward_kernel(qkv, w, b, dy, 4, True, None)
+    run, results = attn_proj._backward_plan(qkv, w, b, dy, 4, True, None)
+    for phase in ("prep", "dw", "db", "attention"):
+        run(attn_proj.BACKWARD_PHASES[phase])
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(whole, results()))
 
 
 def test_attn_proj_padded_equals_unpadded(gen):

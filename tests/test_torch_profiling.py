@@ -26,6 +26,14 @@ from ssl4polyp_tpu_torch import profiling
     ("void (anonymous namespace)::qkv_attention_kernel<64, 13>(__nv_bfloat16 const*, ...)",
      "attention forward kernel"),
     ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
+    ("void (anonymous namespace)::attn_proj_kernel<64, 13, true>(CUtensorMap, ...)",
+     "attention+projection kernel (forward, and the backward's O and dO)"),
+    ("(anonymous namespace)::attn_proj_transpose_kernel(__nv_bfloat16 const*, ...)",
+     "attention+projection kernel (forward, and the backward's O and dO)"),
+    ("void (anonymous namespace)::layernorm_bwd_kernel<3, true>(__nv_bfloat16 const*, ...)",
+     "LayerNorm backward kernel"),
+    ("void (anonymous namespace)::column_sum_kernel<32>(float const*, int, int, float*)",
+     "column sums of the kernels' parameter gradients"),
     ("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n_tilesize128x128x64", "cuBLAS GEMM"),
     ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNN", "cuBLAS GEMM"),
     ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float, ...>>", "reductions"),
