@@ -22,6 +22,9 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    of the bytes over its memory rate and the operations over its peak rate),
    at each shape a kernel is timed at: the classifier's, the MAE decoder's
    and the MAE encoder's.  The summary quotes the classifier's shape.  The
+   attention backward prints which of its paths each shape takes, its first
+   design's time beside its own, and its time with parts left out (wrong
+   results, times only: where its time goes).  The
    LayerNorm backward is also held and timed with a residual's gradient
    folded in, and its two launches (the row kernel, the sum of the blocks'
    partials) are timed apart; the attention+projection backward's four
@@ -392,15 +395,19 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         return dict(bytes_moved=2 * (b * n * 7 * h * hd + 6 * h * hd),
                     flops=10 * b * h * n * n * hd)
 
+    def backward_probe(qkv, dout, h, f32, valid_len, bias, probe):
+        return lambda: qkv_attention._backward_kernel(qkv, dout, h, f32, valid_len, bias, probe)
+
     for i, (b, n, h, hd, f32, valid_len, with_bias) in enumerate(cases):
         qkv, dout = randn(b, n, 3 * h * hd), randn(b, n, h * hd)
         bias = randn(3 * h * hd, scale=0.5) if with_bias else None
-        run = lambda: qkv_attention._backward_kernel(qkv, dout, h, f32, valid_len, bias)  # noqa: E731
+        run = backward_probe(qkv, dout, h, f32, valid_len, bias, 0)
         plain = lambda: qkv_attention.fused_qkv_attention_backward_reference(  # noqa: E731
             qkv, dout, h, f32, valid_len, bias)
         (dqkv, dbias), again = run(), run()
         torch.cuda.synchronize()
         ref_dqkv, ref_dbias = plain()
+        plan = qkv_attention.backward_plan(n, hd)
         what = (f"attention backward B={b} N={n} H={h} hd={hd} f32={f32} valid_len={valid_len} "
                 f"bias={with_bias}")
         errors.append(max_error(dqkv, ref_dqkv, ATTENTION_BWD_TOL, f"{what}: dqkv"))
@@ -411,16 +418,33 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
             line += f", dbias {err:.3e} (atol {tol[0]:.3e}, rtol {tol[1]})"
         if not torch.equal(dqkv, again[0]) or (with_bias and not torch.equal(dbias, again[1])):
             fail(f"{what}: two runs gave different bits")
-        print(line + "; rerun bit-identical")
+        print(line + f"; rerun bit-identical; path: {plan['path']}, {plan['warps']} warps a "
+              f"block, {plan['smem_bytes']} bytes of shared memory")
         if i in bwd_names:
             leaf = (qkv + bias).requires_grad_()
             out = F.scaled_dot_product_attention(*heads_of(leaf, h)).transpose(1, 2).reshape(
                 dout.shape)
             library = lambda: torch.autograd.grad(out, leaf, dout, retain_graph=True)  # noqa: E731
-            times[i] = time_ms(run), time_ms(plain), time_ms(library)
-            print(f"  {bwd_names[i]}'s shape: kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} "
+            first = backward_probe(qkv, dout, h, f32, valid_len, bias,
+                                   qkv_attention.PROBE_FIRST_DESIGN)
+            first_err = max_error(first()[0], ref_dqkv, ATTENTION_BWD_TOL, f"{what}: first design")
+            times[i] = time_ms(run), time_ms(plain), time_ms(library), time_ms(first)
+            print(f"  {bwd_names[i]}'s shape: kernel {times[i][0]:.4f} ms, first design "
+                  f"{times[i][3]:.4f} ms (dqkv {first_err:.3e}), plain {times[i][1]:.4f} "
                   f"ms, scaled_dot_product_attention's backward {times[i][2]:.4f} ms, "
                   f"{bound_text(**attention_bwd_cost(b, n, h, hd))}")
+            # Where the time goes: the kernel with parts left out (wrong
+            # results, timed only).
+            ablations = {
+                "without phase B": qkv_attention.PROBE_NO_PHASE_B,
+                "phase A stopped after the softmax": qkv_attention.PROBE_NO_PHASE_A_BACKWARD,
+                "staging and the softmax alone": (qkv_attention.PROBE_NO_PHASE_B
+                                                  | qkv_attention.PROBE_NO_PHASE_A_BACKWARD),
+                "phase B's weights without the exponential": qkv_attention.PROBE_NO_EXP_B,
+            }
+            print(f"  {bwd_names[i]}'s shape, ablations (wrong results, timed only): " + ", ".join(
+                f"{name} {time_ms(backward_probe(qkv, dout, h, f32, valid_len, bias, probe)):.4f} ms"
+                for name, probe in ablations.items()))
             del leaf, out
     report["fused_qkv_attention_backward"] = entry(
         "qkv_attention.cu", "ssl4polyp_tpu/ops/qkv_attention.py:108", max(errors), *times[6][:2],

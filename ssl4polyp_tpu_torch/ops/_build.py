@@ -34,6 +34,11 @@ _ENTRY_POINTS = (
     ("ssl4polyp_qkv_attention_bwd", ctypes.c_int,
      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_qkv_attention_bwd_probe", ctypes.c_int,
+     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_qkv_attention_bwd_plan", ctypes.c_int,
+     [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2),
     ("ssl4polyp_fc1_gelu_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_layernorm_fwd", ctypes.c_int,

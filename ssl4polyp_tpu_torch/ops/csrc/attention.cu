@@ -24,7 +24,7 @@
 // attention_core.cuh's attention_rows (whole score row in registers, exact
 // softmax).  The backward is one block of 8 warps per (batch, head): Q, K, V
 // and dO in shared memory, then attention_core.cuh's two-phase
-// attention_backward_tiles in mode kBwdExact, where each fp32 operand (W, dS)
+// attention_backward_recompute_ds in mode kBwdExact, where each fp32 operand (W, dS)
 // enters mma.sync as two bf16 terms.  No atomics: a rerun gives the same
 // bits.  Every query tile re-reads its head's K and V from L2, and staging is
 // not overlapped with the products.
@@ -102,7 +102,7 @@ attention_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();
   __syncthreads();
 
-  attention_backward_tiles<HD, NKT, kBwdExact>(s_q, s_k, s_v, s_do, s_max, s_inv, s_tmp, nullptr,
+  attention_backward_recompute_ds<HD, NKT, kBwdExact>(s_q, s_k, s_v, s_do, s_max, s_inv, s_tmp, nullptr,
                                                dq + head, dk + head, dv + head, HD, N, N, 1.0f,
                                                scale, 1);
 }

@@ -40,7 +40,7 @@
 // recomputed, never stored):
 //   1. qkvproj_attention_bwd_kernel, a block per (image, head): the forward's
 //      projection again, dO staged in the ring's place, then
-//      attention_core.cuh's attention_backward_tiles (mode kBwdFoldScaledDs)
+//      attention_core.cuh's attention_backward_recompute_ds (mode kBwdFoldScaledDs)
 //      writes the head's dqkv columns and its row of the (B, 3D) fp32 db
 //      partial; column_sum_kernel adds the B rows in order;
 //   2. dx = dqkv . W^T on mlp.cu's tiled GEMM (ssl4polyp_matmul_nt): W's rows
@@ -247,7 +247,7 @@ qkvproj_attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict_
   __syncthreads();
 
   bf16* dst = dqkv + static_cast<long>(b) * N * ld + h * HD;
-  attention_backward_tiles<HD, NKT, kBwdFoldScaledDs>(
+  attention_backward_recompute_ds<HD, NKT, kBwdFoldScaledDs>(
       s_q, s_k, s_v, s_do, s_max, s_inv, s_tmp, s_db + (threadIdx.x / 32) * 3 * HD, dst, dst + D,
       dst + 2 * D, ld, N, n_valid, scale_c, scale, softmax_f32);
   __syncthreads();

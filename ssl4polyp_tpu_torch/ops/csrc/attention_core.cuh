@@ -4,7 +4,8 @@
 // cp.async where the rows are plain copies, or by cp.async with the bias and
 // the scale fold applied afterwards in place), one warp's 16 query rows
 // through scores, softmax and the product with V (operands read with
-// ldmatrix), and the two-phase backward of one (batch, head) pair.
+// ldmatrix), and the backward's first design: two phases over one (batch,
+// head) pair that recompute dS in the second.
 #pragma once
 
 #include <math.h>
@@ -157,39 +158,22 @@ __device__ __forceinline__ void load_q_fragments(uint32_t (&qa)[HD / 16][4], con
     ldmatrix_x4(qa[kk], s_q + (r0 + lane % 16) * kLd + kk * 16 + (lane / 16) * 8);
 }
 
-// Scores and softmax: the whole score row in registers (mma.sync m16n8k16,
-// bf16 in, fp32 accumulate; one ldmatrix.x4 of K feeds two products), keys >=
-// n_valid masked to -inf (keys past the sequence are zero rows), the scores
-// optionally rounded to bf16, an exact softmax over the full row.  With
-// SCALE_SCORES, `score_scale` multiplies the fp32 scores.  Leaves in s the
-// unnormalised weights exp(s - max): s[j] holds keys j*8 .. j*8+7, elements
-// 0, 1 of row g and 2, 3 of row g + 8; inv0 and inv1 are the rows' 1 / sum.
-template <int HD, int NKT, bool SCALE_SCORES>
-__device__ __forceinline__ void attention_scores(const uint32_t (&qa)[HD / 16][4], const bf16* s_k,
-                                                 int lane, int n_valid, int softmax_f32,
-                                                 float score_scale, float (&s)[2 * NKT][4],
-                                                 float& inv0, float& inv1) {
-  constexpr int kLd = HD + 8;
+// The softmax of attention_scores on a whole score row in registers (s[j]:
+// keys j*8 .. j*8+7, elements 0, 1 of row g and 2, 3 of row g + 8): with
+// SCALE_SCORES, `score_scale` multiplies the fp32 scores; keys >= n_valid are
+// masked to -inf (keys past the sequence are zero rows); the scores are
+// optionally rounded to bf16; an exact softmax over the full row.  Leaves in s
+// the unnormalised weights exp(s - max); inv0 and inv1 are the rows' 1 / sum,
+// max0 and max1 their maxima.  With EXP2, exp(s - max) is exp2_approx(s *
+// log2(e) - max * log2(e)) (one FMA and the special function unit, where
+// expf takes about ten instructions), and max0, max1 are the maxima times
+// log2(e).
+template <int NKT, bool SCALE_SCORES, bool EXP2 = false>
+__device__ __forceinline__ void attention_softmax(float (&s)[2 * NKT][4], int lane, int n_valid,
+                                                  int softmax_f32, float score_scale,
+                                                  float& inv0, float& inv1, float& max0,
+                                                  float& max1) {
   const int t = lane & 3;  // thread in group
-  // Matrices of one ldmatrix.x4: (keys j*8.., k 0-7), (same keys, k 8-15),
-  // (keys (j+1)*8.., k 0-7), (those keys, k 8-15).
-  const bf16* k_lane = s_k + ((lane / 16) * 8 + lane % 8) * kLd + ((lane / 8) % 2) * 8;
-#pragma unroll
-  for (int j = 0; j < 2 * NKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
-  // The step along hd outside, the key tiles inside: neighbouring products
-  // add into different accumulators, so none waits for the one before it
-  // (each s[j] still sums its steps in order).
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-#pragma unroll
-    for (int j = 0; j < 2 * NKT; j += 2) {
-      uint32_t kb[4];
-      ldmatrix_x4(kb, k_lane + j * 8 * kLd + kk * 16);
-      mma_16816(s[j], qa[kk], kb[0], kb[1]);
-      mma_16816(s[j + 1], qa[kk], kb[2], kb[3]);
-    }
-  }
-
   // The mask touches only the column tiles that reach past n_valid, and the
   // rounding is one pass under one test: both conditions are the same for
   // the whole warp.
@@ -208,7 +192,8 @@ __device__ __forceinline__ void attention_scores(const uint32_t (&qa)[HD / 16][4
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = round_bf16(s[j][e]);
   }
-  float max0 = -INFINITY, max1 = -INFINITY;
+  max0 = -INFINITY;
+  max1 = -INFINITY;
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j) {
     max0 = fmaxf(max0, fmaxf(s[j][0], s[j][1]));
@@ -220,12 +205,17 @@ __device__ __forceinline__ void attention_scores(const uint32_t (&qa)[HD / 16][4
     max1 = fmaxf(max1, __shfl_xor_sync(0xffffffffu, max1, off));
   }
   float sum0 = 0.0f, sum1 = 0.0f;
+  if (EXP2) {
+    max0 *= kLog2e;
+    max1 *= kLog2e;
+  }
 #pragma unroll
   for (int j = 0; j < 2 * NKT; ++j) {
-    s[j][0] = expf(s[j][0] - max0);
-    s[j][1] = expf(s[j][1] - max0);
-    s[j][2] = expf(s[j][2] - max1);
-    s[j][3] = expf(s[j][3] - max1);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float m = e < 2 ? max0 : max1;
+      s[j][e] = EXP2 ? exp2_approx(fmaf(s[j][e], kLog2e, -m)) : expf(s[j][e] - m);
+    }
     sum0 += s[j][0] + s[j][1];
     sum1 += s[j][2] + s[j][3];
   }
@@ -236,6 +226,40 @@ __device__ __forceinline__ void attention_scores(const uint32_t (&qa)[HD / 16][4
   }
   inv0 = 1.0f / sum0;
   inv1 = 1.0f / sum1;
+}
+
+// Scores and softmax: the whole score row in registers (mma.sync m16n8k16,
+// bf16 in, fp32 accumulate; one ldmatrix.x4 of K feeds two products), then
+// attention_softmax.  Leaves in s the unnormalised weights exp(s - max): s[j]
+// holds keys j*8 .. j*8+7, elements 0, 1 of row g and 2, 3 of row g + 8; inv0
+// and inv1 are the rows' 1 / sum.
+template <int HD, int NKT, bool SCALE_SCORES>
+__device__ __forceinline__ void attention_scores(const uint32_t (&qa)[HD / 16][4], const bf16* s_k,
+                                                 int lane, int n_valid, int softmax_f32,
+                                                 float score_scale, float (&s)[2 * NKT][4],
+                                                 float& inv0, float& inv1) {
+  constexpr int kLd = HD + 8;
+  // Matrices of one ldmatrix.x4: (keys j*8.., k 0-7), (same keys, k 8-15),
+  // (keys (j+1)*8.., k 0-7), (those keys, k 8-15).
+  const bf16* k_lane = s_k + ((lane / 16) * 8 + lane % 8) * kLd + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.0f;
+  // The step along hd outside, the key tiles inside: neighbouring products
+  // add into different accumulators, so none waits for the one before it
+  // (each s[j] still sums its steps in order).
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; j += 2) {
+      uint32_t kb[4];
+      ldmatrix_x4(kb, k_lane + j * 8 * kLd + kk * 16);
+      mma_16816(s[j], qa[kk], kb[0], kb[1]);
+      mma_16816(s[j + 1], qa[kk], kb[2], kb[3]);
+    }
+  }
+  float max0, max1;
+  attention_softmax<NKT, SCALE_SCORES>(s, lane, n_valid, softmax_f32, score_scale, inv0, inv1,
+                                       max0, max1);
 }
 
 // The weights, normalised then rounded to bf16, times V: the score fragments
@@ -294,11 +318,15 @@ __device__ __forceinline__ void attention_rows(const bf16* s_q, const bf16* s_k,
 }
 
 // ---------------------------------------------------------------------------
-// The backward of one (batch, head) pair whose Q (unscaled), K, V and dO
-// tiles are staged in shared memory (NKT * 16 rows each, row stride HD + 8,
-// rows at or past N zero or finite with a zero dO row), by a block of
-// kBwdWarps warps.  dK and dV sum over every query row, so the routine runs
-// in two phases instead of reducing across blocks:
+// The backward's first design, which keeps no dS: the backward of one (batch,
+// head) pair whose Q (unscaled), K, V and dO tiles are staged in shared memory
+// (NKT * 16 rows each, row stride HD + 8, rows at or past N zero or finite
+// with a zero dO row), by a block of kBwdWarps warps.  It serves attention.cu
+// and attention_block.cu at every length and qkv_attention.cu past 208 tokens,
+// where a stored dS does not fit beside the four tiles (qkv_attention.cu's
+// backward keeps dS in shared memory up to 208).  dK and dV sum over every
+// query row, so the routine runs in two phases instead of reducing across
+// blocks:
 //   A. warps own 16-row query tiles: whole score rows in registers, softmax,
 //      tmp from dW tiles formed one 8-key slice at a time, then dW again for
 //      dS and dQ += dS K.  The rows' max, 1/sum and tmp go to shared memory.
@@ -394,7 +422,7 @@ __device__ __forceinline__ void add_column_sums(float* dst, const uint32_t (&lo)
 }
 
 template <int HD, int NKT, int MODE>
-__device__ __forceinline__ void attention_backward_tiles(
+__device__ __forceinline__ void attention_backward_recompute_ds(
     const bf16* s_q, const bf16* s_k, const bf16* s_v, const bf16* s_do, float* s_max,
     float* s_inv, float* s_tmp, float* db, bf16* dq_out, bf16* dk_out, bf16* dv_out, long ld,
     int N, int n_valid, float scale_c, float scale, int softmax_f32) {
@@ -647,16 +675,16 @@ __device__ __forceinline__ void attention_backward_tiles(
   }
 }
 
-// One block's row of the (B, 3D) fp32 dbias partial from its warps' partials
-// (s_db: [kBwdWarps][3 * HD]), added in warp order.  The caller synchronises
-// the block first.
-template <int HD>
+// One block's row of the (B, 3D) fp32 dbias partial from its WARPS warps'
+// partials (s_db: [WARPS][3 * HD]), added in warp order.  The caller
+// synchronises the block first.
+template <int HD, int WARPS = kBwdWarps>
 __device__ __forceinline__ void store_dbias_partial(const float* s_db, float* dbias_part, int b,
                                                     int h, int D) {
   for (int c = threadIdx.x; c < 3 * HD; c += blockDim.x) {
     float total = 0.0f;
 #pragma unroll
-    for (int w = 0; w < kBwdWarps; ++w) total += s_db[w * 3 * HD + c];
+    for (int w = 0; w < WARPS; ++w) total += s_db[w * 3 * HD + c];
     dbias_part[static_cast<long>(b) * 3 * D + (c / HD) * D + h * HD + c % HD] = total;
   }
 }

@@ -34,6 +34,15 @@ __device__ __forceinline__ uint32_t load_u32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
+// 2^x on the special function unit (ex2.approx.ftz: about 2^-22 relative).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }

@@ -3,8 +3,7 @@
 // Replaces: ssl4polyp_tpu/ops/qkv_attention.py::_fwd_kernel and _bwd_kernel
 // (fused_qkv_attention), and ::_fwd_bias_kernel and _bwd_bias_kernel
 // (fused_qkv_bias_attention); the optional bias argument covers the second.
-// The backward's design is described above qkv_attention_bwd_kernel and
-// attention_core.cuh's attention_backward_tiles.
+// The backward's design is described under "Backward" below.
 //
 // What bounds the forward on the H100: at the eval path's shape (B 64, N 197,
 // 12 heads of 64) a call is 7.6 GFLOP against 78 MB of compulsory traffic
@@ -43,7 +42,7 @@
 //     normalised weights to bf16 and multiplies by V; the score fragments are
 //     the A operand of the second product without leaving registers.
 //   * The output leaves in 16-byte pieces (a quad transpose of the
-//     accumulator fragments) where hd is a multiple of 32.
+//     accumulator fragments, store_tile_rows) where hd is a multiple of 32.
 //   Every supported shape (hd 16, 32, 64; N <= 256) takes this one routine.
 //   What is left: the softmax (expf, max, sum, normalise and round: some 13
 //   instructions a score, 104 scores a thread a tile) now outweighs the
@@ -57,6 +56,34 @@
 namespace {
 
 constexpr int kWarps = 4;
+
+// Stores a 16 x HD tile of packed bf16 pairs (lo[n]: row g, columns n * 8 +
+// 2t, + 1; hi[n]: row g + 8) at out_a (row g's first column) and out_b (row g
+// + 8's), a row only where its ok flag is set: 16-byte stores (lane t takes
+// column tile n + t after a quad transpose) where HD is a multiple of 32.
+// Every lane of the warp must call it.
+template <int HD>
+__device__ __forceinline__ void store_tile_rows(bf16* out_a, bf16* out_b, uint32_t (&lo)[HD / 8],
+                                                uint32_t (&hi)[HD / 8], bool ok_a, bool ok_b,
+                                                int t) {
+  if constexpr (HD % 32 == 0) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; n += 4) {
+      uint32_t a[4] = {lo[n], lo[n + 1], lo[n + 2], lo[n + 3]};
+      uint32_t c[4] = {hi[n], hi[n + 1], hi[n + 2], hi[n + 3]};
+      quad_transpose(a, t);
+      quad_transpose(c, t);
+      if (ok_a) *reinterpret_cast<uint4*>(out_a + (n + t) * 8) = make_uint4(a[0], a[1], a[2], a[3]);
+      if (ok_b) *reinterpret_cast<uint4*>(out_b + (n + t) * 8) = make_uint4(c[0], c[1], c[2], c[3]);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      if (ok_a) *reinterpret_cast<uint32_t*>(out_a + n * 8 + 2 * t) = lo[n];
+      if (ok_b) *reinterpret_cast<uint32_t*>(out_b + n * 8 + 2 * t) = hi[n];
+    }
+  }
+}
 
 // NKT: key tiles of 16; the kernel takes N <= 16 * NKT.  Up to 208 keys the
 // score row fits a register budget of three blocks an SM (168 a thread).
@@ -124,32 +151,13 @@ qkv_attention_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias
       const int row_a = tile * 16 + g;
       const int row_b = row_a + 8;
       bf16* out_a = out + (static_cast<long>(b) * N + row_a) * D + h * HD;
-      bf16* out_b = out_a + 8L * D;
-      if constexpr (HD % 32 == 0) {
+      uint32_t lo[HD / 8], hi[HD / 8];
 #pragma unroll
-        for (int n = 0; n < HD / 8; n += 4) {  // lane t takes column tile n + t: 16 bytes
-          uint32_t lo[4], hi[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            lo[i] = pack_floats(o[n + i][0], o[n + i][1]);
-            hi[i] = pack_floats(o[n + i][2], o[n + i][3]);
-          }
-          quad_transpose(lo, t);
-          quad_transpose(hi, t);
-          if (row_a < N)
-            *reinterpret_cast<uint4*>(out_a + (n + t) * 8) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
-          if (row_b < N)
-            *reinterpret_cast<uint4*>(out_b + (n + t) * 8) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-        }
-      } else {
-#pragma unroll
-        for (int n = 0; n < HD / 8; ++n) {
-          if (row_a < N)
-            *reinterpret_cast<uint32_t*>(out_a + n * 8 + 2 * t) = pack_floats(o[n][0], o[n][1]);
-          if (row_b < N)
-            *reinterpret_cast<uint32_t*>(out_b + n * 8 + 2 * t) = pack_floats(o[n][2], o[n][3]);
-        }
+      for (int n = 0; n < HD / 8; ++n) {
+        lo[n] = pack_floats(o[n][0], o[n][1]);
+        hi[n] = pack_floats(o[n][2], o[n][3]);
       }
+      store_tile_rows<HD>(out_a, out_a + 8L * D, lo, hi, row_a < N, row_b < N, t);
     }
     cp_async_wait<0>();  // the next Q tile
     if (has && next < n_tiles)
@@ -196,33 +204,450 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 // bf16-rounded dQKV.
 //
 // What bounds it on the H100: five products of N x N x hd per (batch, head)
-// against reading QKV and dO and writing dQKV once, about 250 FLOP per byte
-// at N 197: near the ridge, so latency and the tensor-core rate both matter.
+// against reading QKV and dO and writing dQKV once: 0.71 N FLOP per byte,
+// 140 at N 197, under the ridge of ~295, so HBM sets the bound (0.0405 ms at
+// the classifier's shape).  At one head a block the scores never leave the
+// SM; the time goes to latency, instructions and idle warps.
 //
-// The simple design: one block of 8 warps per (head, batch row).  At ViT
-// lengths the head's Q, K, V and dO fit in shared memory (120 KB at N 197,
-// hd 64; 65 KB at hd 32), so nothing but qkv (and the bias) is saved by the
-// forward and every intermediate stays on the SM.  The two-phase routine is
-// attention_core.cuh's attention_backward_tiles (mode kBwdFold), shared with
-// the kernels for attention over separate q, k, v and for the projection +
-// attention.  Each warp adds its tiles' column sums of the rounded dQKV in
-// tile order, the block adds its warps in warp order into one row of a
-// (B, 3D) fp32 partial, and column_sum_kernel adds the B rows in order: the
-// same bits on every run.
+// Two paths (ssl4polyp_qkv_attention_bwd_plan names the one a shape takes):
+//   * N <= 208: the stored-dS kernel below, one block of NKT warps (4, 8 or
+//     13: one warp per 16-row tile) per (head, batch row).  Shared memory,
+//     rows at a stride of hd + 8: Q, K, V, dO; at hd 32 a scaled copy of q;
+//     dS (NKT*16 rows at a stride of NKT*16 + 8); each query row's max and
+//     1/sum; each warp's dbias partial.  At N 197: 221,312 bytes at hd 64,
+//     179,712 at hd 32 (one block an SM, 13 warps); at N 50, hd 64, 49,664
+//     (four blocks of 4 warps an SM).
+//   * N 209-256: the first design (qkv_attention_bwd_recompute_kernel, 8
+//     warps, attention_core.cuh's attention_backward_recompute_ds), whose
+//     four tiles and no dS fit where a stored dS does not (147 KB of tiles
+//     and 135 KB of dS at N 256, hd 64).
+//
+// The stored-dS kernel:
+//   * Staging: cp.async in two groups, K and Q, then V and dO; the bias is
+//     added in place (finish_rows_one_column, packed bf16, the fp32 route's
+//     bits, each thread's bias chunk read once).  1/sqrt(hd) in bf16 is a
+//     power of two at hd 16 and 64, so the scores of the unscaled q times
+//     scale_c in fp32 are the bits of the scale fold (a power of two commutes
+//     with every rounding of the product); at hd 32 a copy of round_bf16(q *
+//     scale_c) is made once, in the same pass.
+//   * Phase A, warp w on query rows 16w..16w+15: the scores and the softmax
+//     (attention_softmax, the forward's code, with exp(x) as one FMA and
+//     ex2.approx) while V and dO are in flight; each row's max and 1/sum to
+//     shared memory; W, half in registers and half waiting as fp32 in the
+//     warp's own dS rows; tmp from dW = dO V^T; dW formed again for dS =
+//     round_bf16(W (dW - tmp)), stored to shared memory; dQ = dS K from it.
+//   * Phase B, warp w on key rows 16w..16w+15: for each query tile in order,
+//     S^T = K Qs^T rebuilds round_bf16(W)^T from the stored statistics, then
+//     dV += W^T dO and dK += dS^T Q, dS^T read from the stored dS.  Seven
+//     products a head where the first design formed eight (it formed dW^T
+//     again in phase B to rebuild dS), and no tmp in phase B.
+//   * Every operand comes through ldmatrix, .trans where the reduction index
+//     runs down the rows (K in dQ, dO in dV, dS and Q in dK); no operand is
+//     gathered two bytes at a time.
+//   * Outputs leave in 16-byte stores (a quad transpose) where hd is a
+//     multiple of 32.  Each warp adds its tiles' column sums of the rounded
+//     dQKV, the block adds its warps in warp order into one row of a (B, 3D)
+//     fp32 partial, and column_sum_kernel adds the B rows in order: with dK
+//     and dV summed over query tiles in a fixed order, the same bits on
+//     every run.
+//   Registers.  An SM's four schedulers each hold a quarter of its registers
+//   and warps w, w + 4, ...: with 13 warps one scheduler holds four, so a
+//   thread gets 128.  A whole row of W (104 floats at N 197) beside the
+//   products does not fit (ptxas spills some 300 bytes a thread at hd 64
+//   that way, and spills reach L2 here: 221 KB of shared memory leave L1
+//   little room), so half of it waits in shared memory.  ptxas (-v, sm_90a), registers and
+//   spill stores a thread: hd 64: NKT 13 128 and 136 bytes, NKT 8 128 and
+//   none, NKT 4 127 and none; hd 32: 128 and 180 bytes, 128 and none, 96
+//   and none; hd 16: 128 and 136 bytes, 123 and none, 79 and none.  The
+//   spills left at NKT 13 are the better trade: 12 warps would give 168
+//   registers but leave one warp two tiles of 13 in both phases, and 16
+//   warps give 128 all the same.
+//   What is left (PERF.md has the times and the ablations): the scheduler
+//   with four warps carries a third more than the others, and mma.sync's
+//   rate bounds it there; one block an SM stages a head with no other block
+//   to overlap; wgmma for the products is untried.
 // ---------------------------------------------------------------------------
 
+// `probe` bits, a measurement aid (0 on every path; chip_smoke.py times the
+// others, whose results are wrong): phase B left out; phase A stopped after
+// the softmax; phase B's weights without the exponential; the first design
+// at any length.
+constexpr int kProbeNoPhaseB = 1;
+constexpr int kProbeNoPhaseABackward = 2;
+constexpr int kProbeNoExpB = 4;
+constexpr int kProbeFirstDesign = 8;
+
 template <int HD, int NKT>
-constexpr size_t bwd_smem_bytes() {
+struct StoredDsPlan {
+  static constexpr int kWarps = NKT;
+  static constexpr int kLd = HD + 8;
+  static constexpr int kPad = NKT * 16;
+  static constexpr int kLdS = kPad + 8;
+  static constexpr bool kCopyQ = HD == 32;  // 1/sqrt(32) in bf16 is no power of two
+  static constexpr size_t kTileBytes = static_cast<size_t>(kPad) * kLd * sizeof(bf16);
+  static constexpr size_t kBytes = (kCopyQ ? 5 : 4) * kTileBytes +
+                                   static_cast<size_t>(kPad) * kLdS * sizeof(bf16) +
+                                   kPad * sizeof(float2) +
+                                   static_cast<size_t>(kWarps) * 3 * HD * sizeof(float);
+  static constexpr int kBlocksPerSm = NKT <= 4 ? 4 : NKT <= 8 ? 2 : 1;
+};
+
+// finish_rows_in_place for the backward's block, whose thread count is a
+// multiple of HD / 8, so that each thread copied one column chunk of every
+// row it staged: that chunk's bias is read once, not once a row.  With
+// `scaled`, round_bf16(row * scale) of every row (zero past N) goes there too:
+// the scale fold's copy of q.
+template <int HD>
+__device__ __forceinline__ void finish_rows_one_column(bf16* dst, int rows, int N,
+                                                       const bf16* __restrict__ bias,
+                                                       bf16* scaled, float scale) {
+  constexpr int kChunks = HD / 8;
+  constexpr int kLd = HD + 8;
+  if (bias == nullptr && scaled == nullptr) return;
+  const int c = (threadIdx.x % kChunks) * 8;
+  uint4 add = make_uint4(0, 0, 0, 0);
+  if (bias != nullptr) add = *reinterpret_cast<const uint4*>(bias + c);
+  const __nv_bfloat162* add_pairs = reinterpret_cast<const __nv_bfloat162*>(&add);
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
+  for (int r = threadIdx.x / kChunks; r < rows; r += blockDim.x / kChunks) {
+    uint4 chunk = *reinterpret_cast<const uint4*>(dst + r * kLd + c);
+    __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&chunk);
+    if (bias != nullptr && r < N) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pairs[j] = __hadd2(pairs[j], add_pairs[j]);
+      *reinterpret_cast<uint4*>(dst + r * kLd + c) = chunk;
+    }
+    if (scaled != nullptr) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) pairs[j] = __hmul2(pairs[j], scale2);
+      *reinterpret_cast<uint4*>(scaled + r * kLd + c) = chunk;
+    }
+  }
+}
+
+// Phase A's products beside a row of scores or weights in registers: an A
+// fragment (16 rows, 16 columns) is loaded for each 16 columns of the
+// reduction and dropped after use.  a_lane: the lane's ldmatrix.x4 address
+// in the warp's 16 rows; b_lane: in the first of the 16 rows of B taken
+// transposed (two 8-row column tiles, one ldmatrix.x4 each 16 columns).
+
+// d[j] = A B_j^T for every 8-row column tile j of B (2 * NKT of them): the
+// step along the reduction outside, so that neighbouring products add into
+// different accumulators (each d[j] still sums its steps in order).
+template <int HD, int NKT>
+__device__ __forceinline__ void row_products(float (&d)[2 * NKT][4], const bf16* a_lane,
+                                             const bf16* b_lane) {
+  constexpr int kLd = HD + 8;
+#pragma unroll
+  for (int j = 0; j < 2 * NKT; ++j) d[j][0] = d[j][1] = d[j][2] = d[j][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4];
+    ldmatrix_x4(a, a_lane + kk * 16);
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; j += 2) {
+      uint32_t b[4];
+      ldmatrix_x4(b, b_lane + j * 8 * kLd + kk * 16);
+      mma_16816(d[j], a, b[0], b[1]);
+      mma_16816(d[j + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// d[0], d[1] = A B^T for the two 8-row column tiles of B at b_lane.
+template <int HD>
+__device__ __forceinline__ void row_pair_product(float (&d)[2][4], const bf16* a_lane,
+                                                 const bf16* b_lane) {
+#pragma unroll
+  for (int jj = 0; jj < 2; ++jj) d[jj][0] = d[jj][1] = d[jj][2] = d[jj][3] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    uint32_t a[4], b[4];
+    ldmatrix_x4(a, a_lane + kk * 16);
+    ldmatrix_x4(b, b_lane + kk * 16);
+    mma_16816(d[0], a, b[0], b[1]);
+    mma_16816(d[1], a, b[2], b[3]);
+  }
+}
+
+// A 16 x HD gradient tile, fp32 fragments times `mult`, rounded to bf16: its
+// column sums (rows below N) go to `db` when there is one, its rows below N
+// to `out` (row r0 of the head's columns, row stride ld).
+template <int HD>
+__device__ __forceinline__ void store_gradient_tile(const float (&acc)[HD / 8][4], float mult,
+                                                    bf16* out, long ld, int r0, int N, float* db,
+                                                    int g, int t) {
+  uint32_t lo[HD / 8], hi[HD / 8];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    lo[n] = pack_floats(acc[n][0] * mult, acc[n][1] * mult);
+    hi[n] = pack_floats(acc[n][2] * mult, acc[n][3] * mult);
+  }
+  const int row_a = r0 + g;
+  const int row_b = row_a + 8;
+  if (db != nullptr) add_column_sums<HD / 8>(db, lo, hi, row_a < N, row_b < N, g, t);
+  store_tile_rows<HD>(out + row_a * ld, out + row_b * ld, lo, hi, row_a < N, row_b < N, t);
+}
+
+template <int HD, int NKT>
+__global__ void __launch_bounds__(32 * NKT, StoredDsPlan<HD, NKT>::kBlocksPerSm)
+qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
+                         const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
+                         float* __restrict__ dbias_part, int N, int H, int n_valid,
+                         float scale_c, float scale, int softmax_f32, int probe) {
+  using Plan = StoredDsPlan<HD, NKT>;
+  constexpr int kLd = Plan::kLd;
+  constexpr int kPad = Plan::kPad;
+  constexpr int kLdS = Plan::kLdS;
+  constexpr int kKT = HD / 16;
+  constexpr int kNT = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* s_q = reinterpret_cast<bf16*>(smem);  // q + bias, unscaled
+  bf16* s_k = s_q + kPad * kLd;
+  bf16* s_v = s_k + kPad * kLd;
+  bf16* s_do = s_v + kPad * kLd;
+  bf16* s_qs = Plan::kCopyQ ? s_do + kPad * kLd : s_q;  // the scores' q operand
+  bf16* s_ds = (Plan::kCopyQ ? s_qs : s_do) + kPad * kLd;
+  float2* s_stat = reinterpret_cast<float2*>(s_ds + kPad * kLdS);  // (max * log2(e), 1/sum) a query row
+  float* s_db = reinterpret_cast<float*>(s_stat + kPad);           // [NKT][3 * HD]
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int D = H * HD;
+  const long ld = 3L * D;
+  const bf16* base = qkv + static_cast<long>(b) * N * ld + h * HD;
+  bf16* out = dqkv + static_cast<long>(b) * N * ld + h * HD;
+  float* db = dbias_part == nullptr ? nullptr : s_db + warp * 3 * HD;
+  const float score_scale = Plan::kCopyQ ? 1.0f : scale_c;
+  const int n_tiles = (N + 15) / 16;
+
+  stage_rows_async<HD>(s_k, kPad, base + D, 0, N, ld);
+  stage_rows_async<HD>(s_q, kPad, base, 0, N, ld);
+  cp_async_commit();
+  stage_rows_async<HD>(s_v, kPad, base + 2 * D, 0, N, ld);
+  stage_rows_async<HD>(s_do, kPad, dout + static_cast<long>(b) * N * D + h * HD, 0, N, D);
+  cp_async_commit();
+  if (db != nullptr)
+    for (int i = threadIdx.x; i < NKT * 3 * HD; i += blockDim.x) s_db[i] = 0.0f;
+  cp_async_wait<1>();  // K and Q are in
+  finish_rows_one_column<HD>(s_k, kPad, N, bias == nullptr ? nullptr : bias + D + h * HD, nullptr,
+                             1.0f);
+  finish_rows_one_column<HD>(s_q, kPad, N, bias == nullptr ? nullptr : bias + h * HD,
+                             Plan::kCopyQ ? s_qs : nullptr, scale_c);
+  __syncthreads();
+
+  // Phase A: query tile `warp`.
+  const int r0 = warp * 16;
+  const bool has_q = warp < n_tiles;
+  float s[2 * NKT][4];
+  float inv0 = 0.0f, inv1 = 0.0f, max0 = 0.0f, max1 = 0.0f;
+  // Lane addresses: the A fragments of the warp's 16 rows; a B operand of 16
+  // rows taken transposed (two 8-row column tiles); a B operand whose
+  // reduction index runs down 16 rows (two 8-column tiles).
+  const int a_off = (r0 + lane % 16) * kLd + (lane / 16) * 8;
+  const int b_off = ((lane / 16) * 8 + lane % 8) * kLd + ((lane / 8) % 2) * 8;
+  const int t_off = (((lane / 8) % 2) * 8 + lane % 8) * kLd + (lane / 16) * 8;
+  // The row of W stays in registers for column tiles 0 .. NKT - 1 and waits
+  // as fp32 in the warp's own dS rows for the rest (NKT * 32 bytes a row fit
+  // in its NKT * 32 + 16).  Element e of column tile j there: float2
+  // (j - NKT) * 4 + t of row g (e < 2) or g + 8.
+  float2* w_a = reinterpret_cast<float2*>(s_ds + (r0 + g) * kLdS) + t;
+  float2* w_b = reinterpret_cast<float2*>(s_ds + (r0 + g + 8) * kLdS) + t;
+  if (has_q) {
+    row_products<HD, NKT>(s, s_qs + a_off, s_k + b_off);
+    attention_softmax<NKT, !Plan::kCopyQ, true>(s, lane, n_valid, softmax_f32, score_scale, inv0,
+                                                inv1, max0, max1);
+    if (t == 0) {
+      s_stat[r0 + g] = make_float2(max0, inv0);
+      s_stat[r0 + g + 8] = make_float2(max1, inv1);
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; ++j) {  // s <- W, the normalised fp32 weights
+      s[j][0] *= inv0;
+      s[j][1] *= inv0;
+      s[j][2] *= inv1;
+      s[j][3] *= inv1;
+      if (j >= NKT) {
+        w_a[(j - NKT) * 4] = make_float2(s[j][0], s[j][1]);
+        w_b[(j - NKT) * 4] = make_float2(s[j][2], s[j][3]);
+      }
+    }
+  }
+  cp_async_wait<0>();  // V and dO are in
+  finish_rows_one_column<HD>(s_v, kPad, N, bias == nullptr ? nullptr : bias + 2 * D + h * HD,
+                             nullptr, 1.0f);
+  __syncthreads();
+
+  if (has_q && !(probe & kProbeNoPhaseABackward)) {
+    // W's column tile j, from registers or from where it waits.
+    auto weights = [&](int j, float (&w)[4]) {
+      const float2 lo = j < NKT ? make_float2(s[j][0], s[j][1]) : w_a[(j - NKT) * 4];
+      const float2 hi = j < NKT ? make_float2(s[j][2], s[j][3]) : w_b[(j - NKT) * 4];
+      w[0] = lo.x;
+      w[1] = lo.y;
+      w[2] = hi.x;
+      w[3] = hi.y;
+    };
+    // dW = dO V^T 16 keys at a time: tmp, then dS.
+    float tmp0 = 0.0f, tmp1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; j += 2) {
+      float dw[2][4];
+      row_pair_product<HD>(dw, s_do + a_off, s_v + j * 8 * kLd + b_off);
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        float w[4];
+        weights(j + jj, w);
+        tmp0 += dw[jj][0] * w[0] + dw[jj][1] * w[1];
+        tmp1 += dw[jj][2] * w[2] + dw[jj][3] * w[3];
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      tmp0 += __shfl_xor_sync(0xffffffffu, tmp0, off);
+      tmp1 += __shfl_xor_sync(0xffffffffu, tmp1, off);
+    }
+    // dS over the column tiles from kStash on (their weights wait where dS
+    // goes) is held packed until every waiting weight is read; the tiles
+    // before it are stored as they come, after that.
+    constexpr int kStash = 2 * (NKT / 2);
+    bf16* ds_a = s_ds + (r0 + g) * kLdS + 2 * t;  // row g; row g + 8 is 8 * kLdS on
+    // Column tiles j, j + 1 of dS, packed: rows g and g + 8 of each.
+    auto ds_pair = [&](int j, uint32_t (&d0)[2], uint32_t (&d1)[2]) {
+      float dw[2][4];
+      row_pair_product<HD>(dw, s_do + a_off, s_v + j * 8 * kLd + b_off);
+      float w[2][4];
+      weights(j, w[0]);
+      weights(j + 1, w[1]);
+      d0[0] = pack_floats(w[0][0] * (dw[0][0] - tmp0), w[0][1] * (dw[0][1] - tmp0));
+      d0[1] = pack_floats(w[0][2] * (dw[0][2] - tmp1), w[0][3] * (dw[0][3] - tmp1));
+      d1[0] = pack_floats(w[1][0] * (dw[1][0] - tmp0), w[1][1] * (dw[1][1] - tmp0));
+      d1[1] = pack_floats(w[1][2] * (dw[1][2] - tmp1), w[1][3] * (dw[1][3] - tmp1));
+    };
+    auto store_ds = [&](int j, const uint32_t (&d)[2]) {
+      *reinterpret_cast<uint32_t*>(ds_a + j * 8) = d[0];
+      *reinterpret_cast<uint32_t*>(ds_a + 8 * kLdS + j * 8) = d[1];
+    };
+    uint32_t stash[2 * NKT - kStash][2];
+#pragma unroll
+    for (int j = kStash; j < 2 * NKT; j += 2) ds_pair(j, stash[j - kStash], stash[j - kStash + 1]);
+    __syncwarp();  // every waiting weight is read
+#pragma unroll
+    for (int j = kStash; j < 2 * NKT; ++j) store_ds(j, stash[j - kStash]);
+#pragma unroll
+    for (int j = 0; j < kStash; j += 2) {
+      uint32_t d0[2], d1[2];
+      ds_pair(j, d0, d1);
+      store_ds(j, d0);
+      store_ds(j + 1, d1);
+    }
+    __syncwarp();  // the warp's dS rows are in
+
+    float dq[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
+#pragma unroll
+    for (int kt = 0; kt < NKT; ++kt) {
+      uint32_t dsa[4];
+      ldmatrix_x4(dsa, s_ds + (r0 + lane % 16) * kLdS + kt * 16 + (lane / 16) * 8);
+#pragma unroll
+      for (int n = 0; n < kNT; n += 2) {
+        uint32_t kb[4];
+        ldmatrix_x4_trans(kb, s_k + t_off + kt * 16 * kLd + n * 8);
+        mma_16816(dq[n], dsa, kb[0], kb[1]);
+        mma_16816(dq[n + 1], dsa, kb[2], kb[3]);
+      }
+    }
+    store_gradient_tile<HD>(dq, scale, out, ld, r0, N, db, g, t);
+  }
+  __syncthreads();  // every query row's dS and statistics are in
+
+  // Phase B: key tile `warp`; dK and dV summed over the query tiles in order.
+  if (warp < n_tiles && !(probe & kProbeNoPhaseB)) {
+    const int k0 = warp * 16;
+    uint32_t ka[kKT][4];
+    load_q_fragments<HD>(ka, s_k, k0, lane);
+    const bool masked_a = k0 + g >= n_valid;
+    const bool masked_b = k0 + g + 8 >= n_valid;
+    const bf16* qs_lane = s_qs + b_off;
+    const bf16* do_lane = s_do + t_off;
+    const bf16* q_lane = s_q + t_off;
+    // dS^T's A fragment of this key tile: ldmatrix.trans of the stored dS rows.
+    const bf16* ds_lane = s_ds + ((lane / 16) * 8 + lane % 8) * kLdS + k0 + ((lane / 8) % 2) * 8;
+    const bool exp_weights = !(probe & kProbeNoExpB);
+    float dk[kNT][4], dv[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.0f;
+      dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.0f;
+    }
+    for (int qt = 0; qt < n_tiles; ++qt) {
+      const int q0 = qt * 16;
+      float st[2][4];  // S^T: keys k0 + g (+ 8), queries q0 + 8 jn + 2t (+ 1)
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) st[jn][0] = st[jn][1] = st[jn][2] = st[jn][3] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kKT; ++kk) {
+        uint32_t qb[4];
+        ldmatrix_x4(qb, qs_lane + q0 * kLd + kk * 16);
+        mma_16816(st[0], ka[kk], qb[0], qb[1]);
+        mma_16816(st[1], ka[kk], qb[2], qb[3]);
+      }
+      float wt[8];  // W^T in the A operand's order
+#pragma unroll
+      for (int jn = 0; jn < 2; ++jn) {
+        const float4 stat = *reinterpret_cast<const float4*>(s_stat + q0 + jn * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = (e < 2 ? masked_a : masked_b) ? -INFINITY : st[jn][e] * score_scale;
+          if (!softmax_f32) x = round_bf16(x);
+          const float m = e & 1 ? stat.z : stat.x;
+          const float inv = e & 1 ? stat.w : stat.y;
+          wt[jn * 4 + e] = (exp_weights ? exp2_approx(fmaf(x, kLog2e, -m)) : x) * inv;
+        }
+      }
+      uint32_t wa[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) wa[i] = pack_floats(wt[2 * i], wt[2 * i + 1]);
+      uint32_t dsa[4];
+      ldmatrix_x4_trans(dsa, ds_lane + q0 * kLdS);
+#pragma unroll
+      for (int n = 0; n < kNT; n += 2) {
+        uint32_t ob[4], qb[4];
+        ldmatrix_x4_trans(ob, do_lane + q0 * kLd + n * 8);
+        mma_16816(dv[n], wa, ob[0], ob[1]);
+        mma_16816(dv[n + 1], wa, ob[2], ob[3]);
+        ldmatrix_x4_trans(qb, q_lane + q0 * kLd + n * 8);
+        mma_16816(dk[n], dsa, qb[0], qb[1]);
+        mma_16816(dk[n + 1], dsa, qb[2], qb[3]);
+      }
+    }
+    store_gradient_tile<HD>(dk, scale, out + D, ld, k0, N, db == nullptr ? nullptr : db + HD, g, t);
+    store_gradient_tile<HD>(dv, 1.0f, out + 2 * D, ld, k0, N,
+                            db == nullptr ? nullptr : db + 2 * HD, g, t);
+  }
+  if (dbias_part == nullptr) return;
+  __syncthreads();
+  store_dbias_partial<HD, NKT>(s_db, dbias_part, b, h, D);
+}
+
+// The first design (8 warps, dS recomputed in phase B), for N past 208.
+template <int HD, int NKT>
+constexpr size_t recompute_smem_bytes() {
   return static_cast<size_t>(4 * NKT * 16) * (HD + 8) * sizeof(bf16) +
          static_cast<size_t>(3 * NKT * 16 + kBwdWarps * 3 * HD) * sizeof(float);
 }
 
 template <int HD, int NKT>
 __global__ void __launch_bounds__(32 * kBwdWarps)
-qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
-                         const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
-                         float* __restrict__ dbias_part, int N, int H, int n_valid,
-                         float scale_c, float scale, int softmax_f32) {
+qkv_attention_bwd_recompute_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
+                                   const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
+                                   float* __restrict__ dbias_part, int N, int H, int n_valid,
+                                   float scale_c, float scale, int softmax_f32) {
   constexpr int kLd = HD + 8;
   constexpr int kPad = NKT * 16;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -252,7 +677,7 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   __syncthreads();
 
   bf16* out = dqkv + static_cast<long>(b) * N * ld + h * HD;
-  attention_backward_tiles<HD, NKT, kBwdFold>(
+  attention_backward_recompute_ds<HD, NKT, kBwdFold>(
       s_q, s_k, s_v, s_do, s_max, s_inv, s_tmp,
       want_dbias ? s_db + (threadIdx.x / 32) * 3 * HD : nullptr, out, out + D, out + 2 * D, ld, N,
       n_valid, scale_c, scale, softmax_f32);
@@ -264,34 +689,67 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
 template <int HD, int NKT>
 cudaError_t launch_bwd(const bf16* qkv, const bf16* bias, const bf16* dout, bf16* dqkv,
                        float* dbias_part, float* dbias, int B, int N, int H, int n_valid,
-                       float scale_c, float scale, int softmax_f32, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<HD, NKT>();
-  cudaError_t err = cudaFuncSetAttribute(qkv_attention_bwd_kernel<HD, NKT>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+                       float scale_c, float scale, int softmax_f32, int probe,
+                       cudaStream_t stream) {
+  float* part = bias == nullptr ? nullptr : dbias_part;
+  cudaError_t err;
+  if constexpr (NKT <= 13) {
+    if (!(probe & kProbeFirstDesign)) {
+      using Plan = StoredDsPlan<HD, NKT>;
+      // Without a copy of q, the scores take scale_c in fp32: it must be 1/sqrt(hd) as bf16 holds it.
+      if (!Plan::kCopyQ && scale_c != (HD == 16 ? 0.25f : 0.125f)) return cudaErrorInvalidValue;
+      static bool configured[kMaxDevices] = {};
+      err = allow_dynamic_smem(qkv_attention_bwd_kernel<HD, NKT>, Plan::kBytes, configured);
+      if (err != cudaSuccess) return err;
+      qkv_attention_bwd_kernel<HD, NKT><<<dim3(H, B), 32 * Plan::kWarps, Plan::kBytes, stream>>>(
+          qkv, bias, dout, dqkv, part, N, H, n_valid, scale_c, scale, softmax_f32, probe);
+      err = cudaGetLastError();
+      if (err != cudaSuccess || bias == nullptr) return err;
+      return launch_column_sum(dbias_part, B, 3 * H * HD, dbias, stream);
+    }
+  }
+  constexpr size_t smem = recompute_smem_bytes<HD, NKT>();
+  static bool configured[kMaxDevices] = {};
+  err = allow_dynamic_smem(qkv_attention_bwd_recompute_kernel<HD, NKT>, smem, configured);
   if (err != cudaSuccess) return err;
-  qkv_attention_bwd_kernel<HD, NKT><<<dim3(H, B), 32 * kBwdWarps, smem, stream>>>(
-      qkv, bias, dout, dqkv, bias == nullptr ? nullptr : dbias_part, N, H, n_valid, scale_c,
-      scale, softmax_f32);
+  qkv_attention_bwd_recompute_kernel<HD, NKT><<<dim3(H, B), 32 * kBwdWarps, smem, stream>>>(
+      qkv, bias, dout, dqkv, part, N, H, n_valid, scale_c, scale, softmax_f32);
   err = cudaGetLastError();
   if (err != cudaSuccess || bias == nullptr) return err;
   return launch_column_sum(dbias_part, B, 3 * H * HD, dbias, stream);
+}
+
+template <int HD, int NKT>
+int bwd_plan(int* warps, int* smem_bytes) {
+  if constexpr (NKT <= 13) {
+    *warps = StoredDsPlan<HD, NKT>::kWarps;
+    *smem_bytes = static_cast<int>(StoredDsPlan<HD, NKT>::kBytes);
+    return 1;
+  }
+  *warps = kBwdWarps;
+  *smem_bytes = static_cast<int>(recompute_smem_bytes<HD, NKT>());
+  return 0;
 }
 
 template <int HD>
 cudaError_t launch_bwd_head_dim(const bf16* qkv, const bf16* bias, const bf16* dout, bf16* dqkv,
                                 float* dbias_part, float* dbias, int B, int N, int H,
                                 int n_valid, float scale_c, float scale, int softmax_f32,
-                                cudaStream_t stream) {
-#define SSL4POLYP_BWD(NKT)                                                                     \
-  launch_bwd<HD, NKT>(qkv, bias, dout, dqkv, dbias_part, dbias, B, N, H, n_valid, scale_c, \
-                      scale, softmax_f32, stream)
-  if (N <= 64) return SSL4POLYP_BWD(4);
-  if (N <= 128) return SSL4POLYP_BWD(8);
-  if (N <= 208) return SSL4POLYP_BWD(13);
-  if (N <= 256) return SSL4POLYP_BWD(16);
+                                int probe, cudaStream_t stream) {
+#define SSL4POLYP_BWD(HD_, NKT)                                                               \
+  launch_bwd<HD_, NKT>(qkv, bias, dout, dqkv, dbias_part, dbias, B, N, H, n_valid, scale_c, \
+                       scale, softmax_f32, probe, stream)
+  SSL4POLYP_FOR_TOKENS(SSL4POLYP_BWD, HD)
 #undef SSL4POLYP_BWD
-  return cudaErrorInvalidValue;
+}
+
+template <int HD>
+int bwd_plan_head_dim(int N, int* warps, int* smem_bytes) {
+  if (N <= 64) return bwd_plan<HD, 4>(warps, smem_bytes);
+  if (N <= 128) return bwd_plan<HD, 8>(warps, smem_bytes);
+  if (N <= 208) return bwd_plan<HD, 13>(warps, smem_bytes);
+  if (N <= 256) return bwd_plan<HD, 16>(warps, smem_bytes);
+  return -1;
 }
 
 }  // namespace
@@ -315,6 +773,30 @@ extern "C" int ssl4polyp_qkv_attention_fwd(const void* qkv, const void* bias, vo
   return static_cast<int>(err);
 }
 
+// ssl4polyp_qkv_attention_bwd with `probe` (0 on every path; the bits at
+// kProbeNoPhaseB above leave parts out or run the first design, for timing).
+extern "C" int ssl4polyp_qkv_attention_bwd_probe(const void* qkv, const void* bias,
+                                                 const void* dout, void* dqkv, void* dbias_part,
+                                                 void* dbias, int B, int N, int H, int head_dim,
+                                                 int n_valid, float scale_c, float scale,
+                                                 int softmax_f32, int probe, void* stream) {
+  const bf16* q = static_cast<const bf16*>(qkv);
+  const bf16* bb = static_cast<const bf16*>(bias);
+  const bf16* d = static_cast<const bf16*>(dout);
+  bf16* dq = static_cast<bf16*>(dqkv);
+  float* part = static_cast<float*>(dbias_part);
+  float* db = static_cast<float*>(dbias);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (head_dim) {
+    case 16: err = launch_bwd_head_dim<16>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, probe, s); break;
+    case 32: err = launch_bwd_head_dim<32>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, probe, s); break;
+    case 64: err = launch_bwd_head_dim<64>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, probe, s); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
 // qkv: (B, N, 3*H*hd) bf16; bias: (3*H*hd,) bf16 or null; dout: (B, N, H*hd)
 // bf16; dqkv: (B, N, 3*H*hd) bf16.  With a bias, dbias_part is (B, 3*H*hd)
 // fp32 scratch and dbias (3*H*hd,) fp32 receives the bias gradient; both are
@@ -326,19 +808,21 @@ extern "C" int ssl4polyp_qkv_attention_bwd(const void* qkv, const void* bias, co
                                            int N, int H, int head_dim, int n_valid,
                                            float scale_c, float scale, int softmax_f32,
                                            void* stream) {
-  const bf16* q = static_cast<const bf16*>(qkv);
-  const bf16* bb = static_cast<const bf16*>(bias);
-  const bf16* d = static_cast<const bf16*>(dout);
-  bf16* dq = static_cast<bf16*>(dqkv);
-  float* part = static_cast<float*>(dbias_part);
-  float* db = static_cast<float*>(dbias);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  return ssl4polyp_qkv_attention_bwd_probe(qkv, bias, dout, dqkv, dbias_part, dbias, B, N, H,
+                                           head_dim, n_valid, scale_c, scale, softmax_f32, 0,
+                                           stream);
+}
+
+// Which backward takes (N, head_dim): 1 the stored-dS kernel, 0 the first
+// design, -1 none; *warps and *smem_bytes receive its block's warps and
+// dynamic shared memory.
+extern "C" int ssl4polyp_qkv_attention_bwd_plan(int N, int head_dim, int* warps,
+                                                int* smem_bytes) {
+  if (N < 1) return -1;
   switch (head_dim) {
-    case 16: err = launch_bwd_head_dim<16>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, s); break;
-    case 32: err = launch_bwd_head_dim<32>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, s); break;
-    case 64: err = launch_bwd_head_dim<64>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, s); break;
-    default: err = cudaErrorInvalidValue;
+    case 16: return bwd_plan_head_dim<16>(N, warps, smem_bytes);
+    case 32: return bwd_plan_head_dim<32>(N, warps, smem_bytes);
+    case 64: return bwd_plan_head_dim<64>(N, warps, smem_bytes);
+    default: return -1;
   }
-  return static_cast<int>(err);
 }

@@ -14,6 +14,7 @@ plain versions on any device, to compare the kernels with.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Optional
@@ -22,6 +23,7 @@ import torch
 
 __all__ = [
     "backward_launches",
+    "backward_plan",
     "fused_qkv_attention",
     "fused_qkv_attention_backward_reference",
     "fused_qkv_attention_plain",
@@ -171,13 +173,47 @@ def _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias):
     return out
 
 
-def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias):
+# The backward kernel's paths (csrc/qkv_attention.cu): "stored dS" up to 208
+# tokens, "first design" past them.
+BACKWARD_PATHS = {1: "stored dS", 0: "first design"}
+# `probe` bits of the backward kernel, a measurement aid whose results are
+# wrong (all but PROBE_FIRST_DESIGN): phase B left out, phase A stopped after
+# the softmax, phase B's weights without the exponential, the first design at
+# any length.
+PROBE_NO_PHASE_B = 1
+PROBE_NO_PHASE_A_BACKWARD = 2
+PROBE_NO_EXP_B = 4
+PROBE_FIRST_DESIGN = 8
+
+
+def backward_plan(num_tokens: int, head_dim: int) -> dict:
+    """The backward kernel's path for a shape, as the library dispatches it:
+    ``{"path": ..., "warps": ..., "smem_bytes": ...}`` (a block's warps and
+    dynamic shared memory).  Builds the library if it is not built."""
+    import ctypes
+
+    from ._build import library
+
+    warps, smem = ctypes.c_int(), ctypes.c_int()
+    path = library().ssl4polyp_qkv_attention_bwd_plan(num_tokens, head_dim, ctypes.byref(warps),
+                                                       ctypes.byref(smem))
+    if path not in BACKWARD_PATHS:
+        raise ValueError(f"no backward kernel for {num_tokens} tokens of head dim {head_dim}")
+    return {"path": BACKWARD_PATHS[path], "warps": warps.value, "smem_bytes": smem.value}
+
+
+def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: int = 0):
+    """The backward kernel.  ``probe`` (0 on every path) is a measurement aid:
+    the ``PROBE_*`` bits above."""
     from ._build import library
 
     global backward_launches
     if dout.shape != (*qkv.shape[:2], qkv.shape[2] // 3) or dout.dtype != qkv.dtype:
         raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not fit qkv "
                          f"{tuple(qkv.shape)} {qkv.dtype}")
+    # The kernel copies dout in 16-byte pieces from its own device.
+    if dout.device != qkv.device or not dout.is_contiguous() or dout.data_ptr() % 16:
+        raise ValueError(f"dout must be a contiguous, 16-byte aligned tensor on {qkv.device}")
     B, N, three_d = qkv.shape
     head_dim = three_d // 3 // num_heads
     dqkv = torch.empty_like(qkv)
@@ -187,12 +223,12 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias):
         dbias = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().ssl4polyp_qkv_attention_bwd(
+        err = library().ssl4polyp_qkv_attention_bwd_probe(
             qkv.data_ptr(), None if bias is None else bias.data_ptr(), dout.data_ptr(),
             dqkv.data_ptr(), None if part is None else part.data_ptr(),
             None if dbias is None else dbias.data_ptr(), B, N, num_heads, head_dim,
             N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
-            1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), stream,
+            1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), probe, stream,
         )
     if err:
         raise RuntimeError(f"qkv_attention backward kernel launch failed: CUDA error {err}")

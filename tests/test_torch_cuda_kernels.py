@@ -113,6 +113,23 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
             layernorm(x, torch.ones(16, device="cuda").bfloat16(), torch.zeros(16, device="cuda"))
 
 
+# Token counts at each edge of the backward's paths (csrc/qkv_attention.cu):
+# one token, one tile and one past it, the encoder's 50, the last token of each
+# key-tile class (64, 128, 208) and the first of the next (65, 129, 209), the
+# classifier's 197 and the largest, 256 (the first design past 208).  Each
+# count runs at every head dim; the softmax type, the bias and valid_len (all
+# tokens, one, or three fewer) turn over from case to case.
+_BWD_TOKENS = (1, 16, 17, 50, 64, 65, 128, 129, 197, 208, 209, 256)
+
+
+def _backward_edge_cases():
+    cases = []
+    for i, (N, hd) in enumerate((N, hd) for N in _BWD_TOKENS for hd in (16, 32, 64)):
+        valid_len = (None, 1, N - 3 if N > 3 else None)[i % 3]
+        cases.append((1, N, 2, hd, i % 2 == 0, valid_len, (i // 2) % 2 == 0))
+    return cases
+
+
 @pytest.mark.parametrize(
     "B, N, H, hd, softmax_f32, valid_len, with_bias",
     [
@@ -123,6 +140,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         (1, 256, 2, 64, True, 255, True),
         (1, 1, 1, 16, True, None, True),
         (64, 197, 12, 64, True, None, True),   # the fine-tune step's call
+        *_backward_edge_cases(),
     ],
 )
 def test_attention_backward_kernel_matches_plain(gen, B, N, H, hd, softmax_f32, valid_len,
@@ -141,6 +159,34 @@ def test_attention_backward_kernel_matches_plain(gen, B, N, H, hd, softmax_f32, 
         scale = ref_dbias.float().abs().max().item()
         torch.testing.assert_close(bias.grad.float(), ref_dbias.float(), atol=2e-3 * scale,
                                    rtol=2e-2)
+
+
+@pytest.mark.parametrize("N, H, hd", [(50, 12, 64), (197, 16, 32), (197, 12, 64), (256, 2, 64)])
+@pytest.mark.parametrize("softmax_f32", [True, False])
+def test_attention_backward_kernel_reruns_bit_identical(gen, N, H, hd, softmax_f32):
+    from ssl4polyp_tpu_torch.ops.qkv_attention import _backward_kernel
+
+    qkv, dout = _randn(gen, 4, N, 3 * H * hd), _randn(gen, 4, N, H * hd)
+    bias = _randn(gen, 3 * H * hd, scale=0.5)
+    first = _backward_kernel(qkv, dout, H, softmax_f32, None, bias)
+    again = _backward_kernel(qkv, dout, H, softmax_f32, None, bias)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.parametrize("N, H, hd", [(197, 12, 64), (197, 16, 32), (50, 12, 64)])
+def test_attention_backward_kernel_padded_equals_unpadded(gen, N, H, hd):
+    # Padded keys are masked and padded rows get a zero upstream gradient, so
+    # they add exact zeros: the valid rows' gradients and dbias keep their bits.
+    from ssl4polyp_tpu_torch.ops.qkv_attention import _backward_kernel
+
+    qkv, dout = _randn(gen, 2, N, 3 * H * hd), _randn(gen, 2, N, H * hd)
+    bias = _randn(gen, 3 * H * hd, scale=0.5)
+    padded = torch.cat([qkv, _randn(gen, 2, 3, 3 * H * hd)], dim=1)
+    padded_dout = torch.cat([dout, torch.zeros_like(dout[:, :3])], dim=1)
+    dqkv, dbias = _backward_kernel(qkv, dout, H, True, None, bias)
+    dqkv_p, dbias_p = _backward_kernel(padded, padded_dout, H, True, N, bias)
+    assert torch.equal(dqkv_p[:, :N], dqkv)
+    assert torch.equal(dbias_p, dbias)
 
 
 @pytest.mark.parametrize("shape", [(4, 50, 768), (2, 197, 512), (37, 64), (5, 2048)])

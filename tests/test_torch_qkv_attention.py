@@ -146,6 +146,15 @@ def _assert_grads_close(ours, ref, tol):
         (2, 29, 2, 32, None, False),
         (1, 24, 2, 64, 19, True),
         (2, 21, 2, 64, None, False),
+        # The paths' lengths (the MAE encoder's 50, the classifier's and the
+        # decoder's 197), the edges of a 16-row tile, and one valid key.
+        (1, 50, 2, 64, None, True),
+        (1, 50, 2, 32, 1, False),
+        (1, 197, 2, 64, None, True),
+        (1, 197, 2, 32, 150, False),
+        (1, 16, 2, 64, None, False),
+        (1, 17, 2, 32, 1, True),
+        (1, 17, 2, 16, 16, True),
     ],
 )
 def test_backward_reference_matches_jax_kernel_fp32(B, N, H, hd, valid_len, with_bias):
@@ -164,6 +173,21 @@ def test_backward_reference_matches_jax_kernel_bf16(hd, valid_len):
     dout = np.random.default_rng(7).standard_normal((2, 29, 2 * hd)).astype(np.float32)
     ours = _torch_vjp(qkv, bias, dout, 2, False, valid_len, torch.bfloat16)
     ref = _jax_vjp(qkv, bias, dout, 2, False, valid_len, jnp.bfloat16)
+    _assert_grads_close(ours, ref, BWD_BF16_TOL)
+
+
+@pytest.mark.parametrize(
+    "N, hd, valid_len", [(197, 64, None), (197, 32, None), (50, 64, None), (17, 32, 1)]
+)
+def test_backward_reference_matches_jax_kernel_bf16_fp32_scores(N, hd, valid_len):
+    # The fine-tune recipe: bf16 with fp32 scores, at the paths' lengths and
+    # one valid key.  The same roundings as the bf16-score case, so the same
+    # tolerance: a flipped rounding of dS moves dQ or dK by |k| or |q| times
+    # one bf16 ulp of dS, far inside 2e-2 of max|dqkv|.
+    qkv, bias = _inputs(12, 1, N, 2, hd, True)
+    dout = np.random.default_rng(13).standard_normal((1, N, 2 * hd)).astype(np.float32)
+    ours = _torch_vjp(qkv, bias, dout, 2, True, valid_len, torch.bfloat16)
+    ref = _jax_vjp(qkv, bias, dout, 2, True, valid_len, jnp.bfloat16)
     _assert_grads_close(ours, ref, BWD_BF16_TOL)
 
 
@@ -192,3 +216,16 @@ def test_cpu_wrapper_backward_is_the_reference():
                                                          b.detach())
     torch.testing.assert_close(q.grad, dqkv, rtol=0, atol=0)
     torch.testing.assert_close(b.grad, dbias, rtol=0, atol=0)
+
+
+def test_backward_kernel_wrapper_refuses_a_dout_the_kernel_cannot_copy():
+    # The kernel copies dout in 16-byte pieces: a strided or misaligned dout
+    # must be refused before any launch (it would fault on the card).
+    from ssl4polyp_tpu_torch.ops.qkv_attention import _backward_kernel
+
+    qkv = torch.zeros((1, 8, 96), dtype=torch.bfloat16)
+    wide = torch.zeros((1, 8, 64), dtype=torch.bfloat16)
+    flat = torch.zeros(8 * 32 + 1, dtype=torch.bfloat16)
+    for dout in (wide[:, :, ::2], flat[1:].view(1, 8, 32)):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            _backward_kernel(qkv, dout, 2, True, None, None)
