@@ -255,10 +255,11 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 //   thread gets 128.  A whole row of W (104 floats at N 197) beside the
 //   products does not fit (ptxas spills some 300 bytes a thread at hd 64
 //   that way, and spills reach L2 here: 221 KB of shared memory leave L1
-//   little room), so half of it waits in shared memory.  ptxas (-v, sm_90a), registers and
-//   spill stores a thread: hd 64: NKT 13 128 and 136 bytes, NKT 8 128 and
-//   none, NKT 4 127 and none; hd 32: 128 and 180 bytes, 128 and none, 96
-//   and none; hd 16: 128 and 136 bytes, 123 and none, 79 and none.  The
+//   little room), so half of it waits in shared memory.  ptxas (-v,
+//   sm_90a), registers and spill stores a thread: hd 64: NKT 13 128 and 136
+//   bytes, NKT 8 128 and none, NKT 4 127 and none; hd 32: 128 and 180
+//   bytes, 128 and none, 96 and none; hd 16: 128 and 136 bytes, 123 and
+//   none, 79 and none.  The
 //   spills left at NKT 13 are the better trade: 12 warps would give 168
 //   registers but leave one warp two tiles of 13 in both phases, and 16
 //   warps give 128 all the same.
@@ -408,7 +409,8 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   bf16* s_do = s_v + kPad * kLd;
   bf16* s_qs = Plan::kCopyQ ? s_do + kPad * kLd : s_q;  // the scores' q operand
   bf16* s_ds = (Plan::kCopyQ ? s_qs : s_do) + kPad * kLd;
-  float2* s_stat = reinterpret_cast<float2*>(s_ds + kPad * kLdS);  // (max * log2(e), 1/sum) a query row
+  // (max * log2(e), 1/sum) of each query row
+  float2* s_stat = reinterpret_cast<float2*>(s_ds + kPad * kLdS);
   float* s_db = reinterpret_cast<float*>(s_stat + kPad);           // [NKT][3 * HD]
 
   const int warp = threadIdx.x / 32;
@@ -696,7 +698,8 @@ cudaError_t launch_bwd(const bf16* qkv, const bf16* bias, const bf16* dout, bf16
   if constexpr (NKT <= 13) {
     if (!(probe & kProbeFirstDesign)) {
       using Plan = StoredDsPlan<HD, NKT>;
-      // Without a copy of q, the scores take scale_c in fp32: it must be 1/sqrt(hd) as bf16 holds it.
+      // Without a copy of q the scores take scale_c in fp32: it must be
+      // 1/sqrt(hd) as bf16 holds it, a power of two.
       if (!Plan::kCopyQ && scale_c != (HD == 16 ? 0.25f : 0.125f)) return cudaErrorInvalidValue;
       static bool configured[kMaxDevices] = {};
       err = allow_dynamic_smem(qkv_attention_bwd_kernel<HD, NKT>, Plan::kBytes, configured);
