@@ -214,9 +214,9 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 //     13: one warp per 16-row tile) per (head, batch row).  Shared memory,
 //     rows at a stride of hd + 8: Q, K, V, dO; at hd 32 a scaled copy of q;
 //     dS (NKT*16 rows at a stride of NKT*16 + 8); each query row's max and
-//     1/sum; each warp's dbias partial.  At N 197: 221,312 bytes at hd 64,
-//     179,712 at hd 32 (one block an SM, 13 warps); at N 50, hd 64, 49,664
-//     (four blocks of 4 warps an SM).
+//     1/sum; each warp's dbias partial; V's bias.  At N 197: 221,440 bytes
+//     at hd 64, 179,776 at hd 32 (one block an SM, 13 warps); at N 50, hd
+//     64, 49,792 (four blocks of 4 warps an SM).
 //   * N 209-256: the first design (qkv_attention_bwd_recompute_kernel, 8
 //     warps, attention_core.cuh's attention_backward_recompute_ds), whose
 //     four tiles and no dS fit where a stored dS does not (147 KB of tiles
@@ -225,7 +225,8 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 // The stored-dS kernel:
 //   * Staging: cp.async in two groups, K and Q, then V and dO; the bias is
 //     added in place (finish_rows_one_column, packed bf16, the fp32 route's
-//     bits, each thread's bias chunk read once).  1/sqrt(hd) in bf16 is a
+//     bits; each thread's bias chunks are read once, before it waits for the
+//     copies: each pass had begun with a read of the bias from L2).  1/sqrt(hd) in bf16 is a
 //     power of two at hd 16 and 64, so the scores of the unscaled q times
 //     scale_c in fp32 are the bits of the scale fold (a power of two commutes
 //     with every rounding of the product); at hd 32 a copy of round_bf16(q *
@@ -246,7 +247,9 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 //     gathered two bytes at a time.
 //   * Outputs leave in 16-byte stores (a quad transpose) where hd is a
 //     multiple of 32.  Each warp adds its tiles' column sums of the rounded
-//     dQKV, the block adds its warps in warp order into one row of a (B, 3D)
+//     dQKV (a reduce-scatter across the row groups: 14 shuffles a tile at
+//     hd 64 where a reduction of each column took 48), the block adds its
+//     warps in warp order into one row of a (B, 3D)
 //     fp32 partial, and column_sum_kernel adds the B rows in order: with dK
 //     and dV summed over query tiles in a fixed order, the same bits on
 //     every run.
@@ -256,10 +259,10 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 //   products does not fit (ptxas spills some 300 bytes a thread at hd 64
 //   that way, and spills reach L2 here: 221 KB of shared memory leave L1
 //   little room), so half of it waits in shared memory.  ptxas (-v,
-//   sm_90a), registers and spill stores a thread: hd 64: NKT 13 128 and 136
-//   bytes, NKT 8 128 and none, NKT 4 127 and none; hd 32: 128 and 180
-//   bytes, 128 and none, 96 and none; hd 16: 128 and 136 bytes, 123 and
-//   none, 79 and none.  The
+//   sm_90a), registers and spill stores a thread: hd 64: NKT 13 128 and 148
+//   bytes, NKT 8 128 and none, NKT 4 127 and none; hd 32: 128 and 148
+//   bytes, 127 and none, 92 and none; hd 16: 128 and 156 bytes, 119 and
+//   none, 89 and none.  The
 //   spills left at NKT 13 are the better trade: 12 warps would give 168
 //   registers but leave one warp two tiles of 13 in both phases, and 16
 //   warps give 128 all the same.
@@ -289,31 +292,30 @@ struct StoredDsPlan {
   static constexpr size_t kBytes = (kCopyQ ? 5 : 4) * kTileBytes +
                                    static_cast<size_t>(kPad) * kLdS * sizeof(bf16) +
                                    kPad * sizeof(float2) +
-                                   static_cast<size_t>(kWarps) * 3 * HD * sizeof(float);
+                                   static_cast<size_t>(kWarps) * 3 * HD * sizeof(float) +
+                                   HD * sizeof(bf16);  // V's bias
   static constexpr int kBlocksPerSm = NKT <= 4 ? 4 : NKT <= 8 ? 2 : 1;
 };
 
 // finish_rows_in_place for the backward's block, whose thread count is a
 // multiple of HD / 8, so that each thread copied one column chunk of every
-// row it staged: that chunk's bias is read once, not once a row.  With
-// `scaled`, round_bf16(row * scale) of every row (zero past N) goes there too:
-// the scale fold's copy of q.
+// row it staged: with `with_bias`, that chunk's bias `add` (read before the
+// copies are waited on) is added to each of its rows below N.  With
+// `scaled`, round_bf16(row * scale) of every row (zero past N) goes there
+// too: the scale fold's copy of q.
 template <int HD>
-__device__ __forceinline__ void finish_rows_one_column(bf16* dst, int rows, int N,
-                                                       const bf16* __restrict__ bias,
-                                                       bf16* scaled, float scale) {
+__device__ __forceinline__ void finish_rows_one_column(bf16* dst, int rows, int N, bool with_bias,
+                                                       uint4 add, bf16* scaled, float scale) {
   constexpr int kChunks = HD / 8;
   constexpr int kLd = HD + 8;
-  if (bias == nullptr && scaled == nullptr) return;
+  if (!with_bias && scaled == nullptr) return;
   const int c = (threadIdx.x % kChunks) * 8;
-  uint4 add = make_uint4(0, 0, 0, 0);
-  if (bias != nullptr) add = *reinterpret_cast<const uint4*>(bias + c);
   const __nv_bfloat162* add_pairs = reinterpret_cast<const __nv_bfloat162*>(&add);
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
   for (int r = threadIdx.x / kChunks; r < rows; r += blockDim.x / kChunks) {
     uint4 chunk = *reinterpret_cast<const uint4*>(dst + r * kLd + c);
     __nv_bfloat162* pairs = reinterpret_cast<__nv_bfloat162*>(&chunk);
-    if (bias != nullptr && r < N) {
+    if (with_bias && r < N) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) pairs[j] = __hadd2(pairs[j], add_pairs[j]);
       *reinterpret_cast<uint4*>(dst + r * kLd + c) = chunk;
@@ -323,6 +325,56 @@ __device__ __forceinline__ void finish_rows_one_column(bf16* dst, int rows, int 
       for (int j = 0; j < 4; ++j) pairs[j] = __hmul2(pairs[j], scale2);
       *reinterpret_cast<uint4*>(scaled + r * kLd + c) = chunk;
     }
+  }
+}
+
+// One step of a reduce-scatter across the lanes `off` apart: a lane keeps
+// one half of its HALF * 2 values, sends the other, and adds what its
+// partner sent for the half it kept (the lane with the `off` bit keeps the
+// upper half).
+template <int HALF>
+__device__ __forceinline__ void scatter_step(float* v, int off, bool upper) {
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// add_column_sums for HD >= 32 with a third of its shuffles: the 2 HD / 8
+// column values of a lane (rows g and g + 8 added, each only below N) are
+// summed over the eight row groups by a reduce-scatter (lanes 16, 8, 4
+// apart), after which lane (g, t) holds value g * m + j (m = HD / 32), the
+// sum of column (i / 2) * 8 + 2t + i % 2 for i = g * m + j, and adds it to
+// `dst` itself.  The order of the additions is fixed by the shape.
+template <int HD>
+__device__ __forceinline__ void add_column_sums_scattered(float* dst, const uint32_t (&lo)[HD / 8],
+                                                          const uint32_t (&hi)[HD / 8], bool ok_lo,
+                                                          bool ok_hi, int lane) {
+  constexpr int kM = HD / 4;
+  float v[kM];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    v[2 * n] = v[2 * n + 1] = 0.0f;
+    if (ok_lo) {
+      v[2 * n] += __uint_as_float(lo[n] << 16);
+      v[2 * n + 1] += __uint_as_float(lo[n] & 0xffff0000u);
+    }
+    if (ok_hi) {
+      v[2 * n] += __uint_as_float(hi[n] << 16);
+      v[2 * n + 1] += __uint_as_float(hi[n] & 0xffff0000u);
+    }
+  }
+  scatter_step<kM / 2>(v, 16, lane & 16);
+  scatter_step<kM / 4>(v, 8, lane & 8);
+  scatter_step<kM / 8>(v, 4, lane & 4);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kM / 8; ++j) {
+    const int i = g * (kM / 8) + j;
+    dst[(i / 2) * 8 + 2 * t + i % 2] += v[j];
   }
 }
 
@@ -386,7 +438,12 @@ __device__ __forceinline__ void store_gradient_tile(const float (&acc)[HD / 8][4
   }
   const int row_a = r0 + g;
   const int row_b = row_a + 8;
-  if (db != nullptr) add_column_sums<HD / 8>(db, lo, hi, row_a < N, row_b < N, g, t);
+  if (db != nullptr) {
+    if constexpr (HD >= 32)
+      add_column_sums_scattered<HD>(db, lo, hi, row_a < N, row_b < N, 4 * g + t);
+    else
+      add_column_sums<HD / 8>(db, lo, hi, row_a < N, row_b < N, g, t);
+  }
   store_tile_rows<HD>(out + row_a * ld, out + row_b * ld, lo, hi, row_a < N, row_b < N, t);
 }
 
@@ -412,6 +469,7 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   // (max * log2(e), 1/sum) of each query row
   float2* s_stat = reinterpret_cast<float2*>(s_ds + kPad * kLdS);
   float* s_db = reinterpret_cast<float*>(s_stat + kPad);           // [NKT][3 * HD]
+  uint4* s_add_v = reinterpret_cast<uint4*>(s_db + NKT * 3 * HD);  // V's bias, HD / 8 chunks
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -427,6 +485,17 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   const float score_scale = Plan::kCopyQ ? 1.0f : scale_c;
   const int n_tiles = (N + 15) / 16;
 
+  // The bias chunks this thread adds (one column chunk of every row it
+  // stages) are read before the copies are waited on: K's and Q's into
+  // registers, V's through shared memory, set before the first barrier.
+  const bool with_bias = bias != nullptr;
+  const int chunk = threadIdx.x % (HD / 8);
+  uint4 add_k = make_uint4(0, 0, 0, 0), add_q = add_k, add_v = add_k;
+  if (with_bias) {
+    add_k = *reinterpret_cast<const uint4*>(bias + D + h * HD + chunk * 8);
+    add_q = *reinterpret_cast<const uint4*>(bias + h * HD + chunk * 8);
+    if (threadIdx.x < HD / 8) add_v = *reinterpret_cast<const uint4*>(bias + 2 * D + h * HD + chunk * 8);
+  }
   stage_rows_async<HD>(s_k, kPad, base + D, 0, N, ld);
   stage_rows_async<HD>(s_q, kPad, base, 0, N, ld);
   cp_async_commit();
@@ -435,11 +504,10 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   cp_async_commit();
   if (db != nullptr)
     for (int i = threadIdx.x; i < NKT * 3 * HD; i += blockDim.x) s_db[i] = 0.0f;
+  if (with_bias && threadIdx.x < HD / 8) s_add_v[threadIdx.x] = add_v;
   cp_async_wait<1>();  // K and Q are in
-  finish_rows_one_column<HD>(s_k, kPad, N, bias == nullptr ? nullptr : bias + D + h * HD, nullptr,
-                             1.0f);
-  finish_rows_one_column<HD>(s_q, kPad, N, bias == nullptr ? nullptr : bias + h * HD,
-                             Plan::kCopyQ ? s_qs : nullptr, scale_c);
+  finish_rows_one_column<HD>(s_k, kPad, N, with_bias, add_k, nullptr, 1.0f);
+  finish_rows_one_column<HD>(s_q, kPad, N, with_bias, add_q, Plan::kCopyQ ? s_qs : nullptr, scale_c);
   __syncthreads();
 
   // Phase A: query tile `warp`.
@@ -480,8 +548,8 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
     }
   }
   cp_async_wait<0>();  // V and dO are in
-  finish_rows_one_column<HD>(s_v, kPad, N, bias == nullptr ? nullptr : bias + 2 * D + h * HD,
-                             nullptr, 1.0f);
+  finish_rows_one_column<HD>(s_v, kPad, N, with_bias, with_bias ? s_add_v[chunk] : add_v, nullptr,
+                             1.0f);
   __syncthreads();
 
   if (has_q && !(probe & kProbeNoPhaseABackward)) {
