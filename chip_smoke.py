@@ -30,7 +30,12 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    partials) are timed apart; the attention+projection backward's four
    phases are timed apart, each beside its bound, and its forward is timed
    without its attention arithmetic, without its projection's products and
-   without both (wrong results, times only: where its time goes).
+   without both (wrong results, times only: where its time goes).  The fused
+   MLPs (with and without the LayerNorm) print, at the classifier's and the
+   MAE decoder's shapes, their first design's time (through the kernel's
+   probe, in the same process, held to the plain version too), the unfused
+   bf16 chain, and their times with parts left out and with other cluster
+   sizes; their reruns and their output without h are bit-identical.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -626,14 +631,48 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         "ln_linear.cu", "ssl4polyp_tpu/ops/ln_linear.py:28", max(errors), *times[0][:2],
         bytes_moved=2 * (m * k + n * k + n + m * n) + 8 * k, flops=2 * m * k * n)
 
+    report.update(fused_mlp_kernels(randn))
+    report.update(attn_proj_kernels(randn))
+    report.update(attention_ops_kernels(randn))
+    report.update(adamw_kernel(gen))
+    return report
+
+
+def fused_mlp_kernels(randn) -> dict[str, dict]:
+    """The fused MLPs: the kernel, its first design (through the probe, in this
+    process), the plain version, the unfused chain and the bound at the
+    classifier's and the MAE decoder's shapes, and the kernel with parts left
+    out (wrong results, timed only)."""
+    def affine(d):
+        return 1.0 + 0.1 * randn(d, dtype=torch.float32), 0.1 * randn(d, dtype=torch.float32)
+
+    def fused_cost(m, k, nf, with_ln):  # x, W1, b1, W2, b2 (and the affine) in; h and out out
+        return dict(bytes_moved=2 * (2 * m * k + 2 * nf * k + nf + k + m * nf)
+                    + (8 * k if with_ln else 0), flops=4 * m * k * nf)
+
+    report = {}
+    ablations = {"without fc2's products": mlp.FUSED_PROBE_NO_FC2,
+                 "without fc1's epilogue": mlp.FUSED_PROBE_NO_EPILOGUE,
+                 "without fc1's products": mlp.FUSED_PROBE_NO_FC1,
+                 "the products alone (no loads, no epilogue)": (mlp.FUSED_PROBE_NO_LOADS
+                                                                | mlp.FUSED_PROBE_NO_EPILOGUE),
+                 "the loads alone": (mlp.FUSED_PROBE_NO_FC1 | mlp.FUSED_PROBE_NO_FC2
+                                     | mlp.FUSED_PROBE_NO_EPILOGUE),
+                 "clusters of 4": mlp.FUSED_PROBE_CLUSTER_4,
+                 "clusters of 1 (no multicast)": mlp.FUSED_PROBE_CLUSTER_1}
     for name, with_ln, line in (("mlp_fused", False, 188), ("mlp_ln_fused", True, 332)):
         errors, times = [], {}
-        for i, (m, k, nf) in enumerate([(BATCH * 197, 768, 3072), (BATCH * 197, 512, 2048)]):
+        for i, (shape, m, k, nf) in enumerate([("classifier", BATCH * 197, 768, 3072),
+                                               ("MAE decoder", BATCH * 197, 512, 2048)]):
             x = randn(m, k)
             s, t = affine(k) if with_ln else (None, None)
             w1, b1 = randn(nf, k, scale=k ** -0.5), randn(nf, scale=0.5)
             w2, b2 = randn(k, nf, scale=nf ** -0.5), randn(k, scale=0.5)
-            run = lambda: mlp._fused_kernel(x, s, t, w1, b1, w2, b2, 1e-6, True)  # noqa: E731
+
+            def probe_run(probe, write_h=True):
+                return lambda: mlp._fused_kernel(x, s, t, w1, b1, w2, b2, 1e-6, write_h, probe)
+
+            run, first = probe_run(0), probe_run(mlp.FUSED_PROBE_FIRST_DESIGN)
             plain = lambda: mlp._mlp_forward_plain(x, s, t, w1, b1, w2, b2, 1e-6)  # noqa: E731
 
             def unfused():
@@ -641,26 +680,33 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
                 out = layers.linear(mlp.fc1_gelu_reference(a, w1, b1), w2, b2)
                 return out if s is None else x + out
 
-            (h, out), (h2, out2) = run(), run()
+            (h, out), (h2, out2), (_, out3) = run(), run(), probe_run(0, False)()
+            first_h, first_out = first()
             torch.cuda.synchronize()
             what = f"{name} ({m}, {k}) -> {nf} -> {k}, h written"
             ref_h, ref_out = plain()
             errors.append(max(max_error(h, ref_h, FUSED_TOL, f"{what}: h"),
                               max_error(out, ref_out, FUSED_TOL, f"{what}: out")))
+            first_err = max(max_error(first_h, ref_h, FUSED_TOL, f"{what}: first design's h"),
+                            max_error(first_out, ref_out, FUSED_TOL, f"{what}: first design's out"))
             if not (torch.equal(h, h2) and torch.equal(out, out2)):
                 fail(f"{what}: two runs gave different bits")
-            times[i] = time_ms(run), time_ms(plain), time_ms(unfused)
+            if not torch.equal(out, out3):
+                fail(f"{what}: out differs without h")
+            times[i] = time_ms(run), time_ms(plain), time_ms(unfused), time_ms(first)
             print(f"{what}: max |diff| {errors[-1]:.3e} (atol {FUSED_TOL[0]}, rtol "
-                  f"{FUSED_TOL[1]}); kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, "
-                  f"unfused bf16 chain {times[i][2]:.4f} ms")
+                  f"{FUSED_TOL[1]}); rerun and without h bit-identical")
+            print(f"  {shape}'s shape: kernel {times[i][0]:.4f} ms, without h "
+                  f"{time_ms(probe_run(0, False)):.4f} ms, first design {times[i][3]:.4f} ms "
+                  f"(max |diff| {first_err:.3e}), plain {times[i][1]:.4f} ms, unfused bf16 chain "
+                  f"{times[i][2]:.4f} ms, {bound_text(**fused_cost(m, k, nf, with_ln))}")
+            print(f"  {shape}'s shape, ablations (wrong results but the clusters', timed only): "
+                  + ", ".join(f"{label} {time_ms(probe_run(probe)):.4f} ms"
+                              for label, probe in ablations.items()))
         m, k, nf = BATCH * 197, 768, 3072
         report[name] = entry(
             "mlp.cu", f"ssl4polyp_tpu/ops/mlp.py:{line}", max(errors), *times[0][:2],
-            bytes_moved=2 * (2 * m * k + 2 * nf * k + nf + k + m * nf) + (8 * k if with_ln else 0),
-            flops=4 * m * k * nf)
-    report.update(attn_proj_kernels(randn))
-    report.update(attention_ops_kernels(randn))
-    report.update(adamw_kernel(gen))
+            **fused_cost(m, k, nf, with_ln))
     return report
 
 

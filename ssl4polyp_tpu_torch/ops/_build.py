@@ -49,6 +49,8 @@ _ENTRY_POINTS = (
     ("ssl4polyp_layernorm_bwd_blocks", ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
     ("ssl4polyp_mlp_fused_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_mlp_fused_probe", ctypes.c_int,
+     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_ln_linear_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_attn_proj_fwd", ctypes.c_int,

@@ -118,11 +118,6 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// Orders this thread's shared-memory writes before reads by wgmma.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // mbarrier_wait that gives up: a fault in the barrier protocol becomes a
 // launch error, not a hung card.
 __device__ __forceinline__ void mbarrier_wait_or_trap(uint64_t* bar, uint32_t parity) {
@@ -275,7 +270,7 @@ attn_proj_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* __restri
   }
   __syncwarp();
   if (lane == 0) mbarrier_arrive(heads_done);  // the region is the producer's
-  fence_proxy_async();
+  fence_proxy_async_shared();
   consumer_sync();  // the O tile is whole
 
   if (PREP) {
@@ -289,7 +284,7 @@ attn_proj_kernel(const __grid_constant__ CUtensorMap map_w, const bf16* __restri
     copy_tile(dy + static_cast<long>(b) * N * D, D);  // the dy tile takes the O tile's place
     cp_async_commit();
     cp_async_wait<0>();
-    fence_proxy_async();
+    fence_proxy_async_shared();
     consumer_sync();
   }
 

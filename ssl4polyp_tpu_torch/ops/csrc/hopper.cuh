@@ -1,7 +1,9 @@
-// Hopper-only device and host helpers (sm_90a): mbarriers, TMA tile loads
-// through a tensor map, the warpgroup matrix multiply (wgmma) with its
-// shared-memory descriptors for 128-byte-swizzled K-major tiles, and
-// setmaxnreg.  mlp.cu's GEMM is built from them.
+// Hopper-only device and host helpers (sm_90a): mbarriers (arrivals on a
+// cluster peer's too), thread block clusters, TMA tile loads through a
+// tensor map (multicast to a cluster as well), the warpgroup matrix multiply
+// (wgmma) with its shared-memory descriptors for 128-byte-swizzled K-major
+// tiles, named barriers, the async-proxy fence, and setmaxnreg.  mlp.cu's
+// GEMM and fused MLP are built from them.
 //
 // The shared-memory layout everything here agrees on: a tile of R rows of 64
 // bf16 values (128 bytes a row), written by TMA with
@@ -68,6 +70,53 @@ __device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// --- clusters ---------------------------------------------------------------
+
+// This block's rank in its cluster, and the cluster's size in blocks.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t rank;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(rank));
+  return rank;
+}
+
+__device__ __forceinline__ uint32_t cluster_size() {
+  uint32_t size;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(size));
+  return size;
+}
+
+// Every thread of every block of the cluster: what each did before (barrier
+// inits among it) is visible to all of them after.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// One arrival on the barrier at `bar`'s offset in the shared memory of the
+// cluster's block `rank` (this block's own included).
+__device__ __forceinline__ void mbarrier_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n" ::"r"(smem_address(bar)),
+      "r"(rank)
+      : "memory");
+}
+
+// A barrier over `threads` threads of the block (a multiple of 32), by its
+// number: 0 is __syncthreads's, so callers take 1 to 15.
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// After ordinary stores to shared memory, before an asynchronous-proxy
+// reader (wgmma, a TMA store) reads them.
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // --- TMA ------------------------------------------------------------------
 
 // One box of the tensor behind `map`, at element coordinates (c0 innermost,
@@ -79,6 +128,19 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_address(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// tma_load_2d into the same offsets of every block of the cluster named in
+// `mask` (bit r: rank r): one read from L2 feeds them all, and the bytes
+// complete on the barrier at `bar`'s offset in each of them.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(c0), "r"(c1), "h"(mask)
       : "memory");
 }
 
@@ -116,6 +178,52 @@ template <int R>
 __device__ __forceinline__ void wgmma_pin(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 32, fp32, 16 registers a thread) (+)= A (64 x 16) . B (32 x 16)^T, both bf16,
+// K-major in shared memory behind the descriptors; `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, fp32, 32 registers a thread) (+)= A (64 x 16) . B (64 x 16)^T, both bf16,
+// K-major in shared memory behind the descriptors; `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // D (64 x 128, fp32, 64 registers a thread) (+)= A (64 x 16) . B (128 x 16)^T, both bf16,

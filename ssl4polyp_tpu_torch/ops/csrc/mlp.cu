@@ -59,6 +59,8 @@
 //   giving each consumer warpgroup a tile of its own, half a tile apart,
 //   needs a deeper ring than 227 KB holds at this tile size, or w tiles
 //   multicast to a cluster.  PERF.md has the times.
+#include <type_traits>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -286,27 +288,458 @@ cudaError_t dispatch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* 
 // package leaves them to XLA.
 //
 // What bounds it on the H100: at the fine-tune shape (M = 64*197 = 12,608,
-// K = 768, NF = 3072) the two products are 119 GFLOP; what the fusion saves
-// is g's HBM round trip (2 x 77 MB).  The fp32 output accumulator (rows x K)
-// lives across the whole NF loop, so a block can own few rows: 32 rows of
-// 768 fp32 values are 96 registers a thread over 256 threads.  Every block
-// therefore streams all of W1 and W2 (9.4 MB at K 768) through L2 for its
-// 32 rows, about 3.7 GB of L2 reads per call: the L2 bandwidth, not the
-// tensor cores, bounds this design.  wgmma with larger row tiles (the
-// accumulator split over a cluster's blocks) is the later work.
+// K = 768, NF = 3072) the two products are 119 GFLOP, 0.120 ms at the
+// tensor cores' peak; HBM traffic is 90 MB (x, h and out; W once), 0.027
+// ms.  The fp32 output accumulator (rows x K) lives across the whole NF
+// walk, so a block owns few rows, and every block reads all of W1 and W2
+// (9.4 MB at K 768) into its shared memory.  A byte of W brought in serves
+// as many FLOP as the block has rows: the first design (below, 32 rows a
+// block, mma.sync) read 3.7 GB of L2 a call.  Here a block owns 64 rows,
+// the most its registers hold (64 x 768 fp32 over 256 threads: 192 each),
+// so it still needs 64 FLOP for every byte of W it takes in: its products
+// want about 114 GB/s of W a SM at the tensor cores' peak, and a SM takes
+// in about 70 GB/s (the W loads alone, without products, run at that).
 //
-// The design: one block of 8 warps owns 32 rows of x, resident in shared
-// memory (normalised there for the LN variant).  It walks NF in tiles of 32
-// hidden features.  fc1 (warp tile 16 x 8, mma.sync m16n8k16, fp32
-// accumulate) reads the tile's 32 rows of W1 from shared memory; the
-// epilogue adds b1, stages h and g in shared memory and stores the h tile in
-// 16-byte rows.  fc2 (warp tile 32 rows x K/8 columns) adds g . W2tile^T
-// into the register accumulator.  The W1 tile for step j + 1 loads (cp.async)
-// while fc2 of step j runs, and the W2 tile for step j + 1 while fc1 of
-// step j + 1 runs.  At the end the accumulator is staged in fp32 through
-// shared memory, and the epilogue adds b2 (and x) and stores 16-byte rows.
-// No atomics: each output element is summed by one thread in a fixed
-// order, so reruns give the same bits.
+// The design (sm_90a):
+//   * A block of three warpgroups owns 64 rows of x, resident in shared
+//     memory as K/64 TMA boxes of 64 x 64 under the 128-byte swizzle (the LN
+//     variant normalises them in place, swizzle-aware, rounded as
+//     common.cuh::layernorm_rows_in_place rounds).  Blocks on two
+//     consecutive row tiles form a cluster: every W tile is read from L2
+//     once and TMA-multicast to both, so one fetch serves 128 rows (0.9 GB
+//     of L2 reads a call at K 768).  Each block of the cluster loads half of
+//     each tile's rows for both.
+//   * Warpgroup 0 is the producer: one thread walks NF in chunks of 64
+//     hidden features and feeds a ring of 16 KB stages (two 64 x 64 boxes
+//     each; 7 stages at K 768, 9 at K 512): a chunk's fc1 stages (W1 rows
+//     of the chunk, 128 columns of K a stage), then the previous chunk's fc2
+//     stages (64 W2 rows of each consumer's columns).  A stage's "empty"
+//     barrier takes one arrival from each consumer warp of every block of
+//     the cluster, since the producer's multicast writes into all of them.
+//   * Warpgroups 1 and 2 are the consumers.  They split the output's K
+//     columns (64 x 384 fp32 a warpgroup at K 768: 192 registers of the 240
+//     setmaxnreg gives; 128 at K 512) and the chunk's 64 hidden features
+//     (32 each).  Per chunk j each issues its fc1 half with wgmma m64n32k16
+//     (x from the resident boxes, W1 from the ring), then the fc2 of chunk
+//     j - 1 with wgmma m64n64k16 (g tile j - 1 against its W2 rows), and
+//     while those fc2 products run it adds b1 in fp32, applies the exact-erf
+//     GELU, stores h in 16-byte pieces (quad shuffles) and writes its half
+//     of g as bf16 into the swizzled g tile j (two g tiles alternate).  A
+//     proxy fence and a named barrier over the 256 consumer threads publish
+//     g to the next chunk's fc2.  Three stages' products stay in flight;
+//     each stage is handed back once the products after it are issued and
+//     its own are done.
+//   * Ragged edges: the grid is rounded up to whole clusters; rows past M,
+//     W1 rows past NF and W2 columns past NF are TMA's out-of-bounds zeros
+//     (a zero W1 row and a masked b1 give g = 0, which adds nothing), and
+//     the stores of h and out are masked.
+//   * No atomics: each output element is summed by one thread in an order
+//     fixed by the shape, so reruns give the same bits.
+//   What is left: the W intake above; the GELU's erff, which the fc2
+//   products under it do not hide (about a sixth of the time at K 768); fc1's
+//   m64n32 products, which read 3 KB of shared memory for 16 cycles of
+//   tensor work; and 197 row tiles, which fill two waves of 132 blocks by
+//   three quarters.  Clusters of 4 (256 rows a fetch) were slower: the four
+//   blocks wait on each other's hand-backs.  PERF.md has the times, the
+//   ablations (ssl4polyp_mlp_fused_probe) and the designs tried.
+// ---------------------------------------------------------------------------
+
+constexpr int kFusedRows = 64;       // rows of x a block owns
+constexpr int kFusedChunk = 64;      // hidden features a step of the NF walk
+constexpr int kFusedThreads = 384;   // producer warpgroup + two consumer warpgroups
+constexpr int kFusedConsumers = 256;
+constexpr int kFusedConsumerWarps = 8;
+constexpr int kFusedCluster = 2;     // blocks sharing each W tile
+constexpr uint32_t kBox = 64 * 64 * sizeof(bf16);  // one swizzled 64 x 64 box: 8 KB
+constexpr uint32_t kFusedStageBytes = 2 * kBox;
+
+// `probe` bits, a measurement aid (0 on every path; chip_smoke.py times the
+// kernel with parts left out, whose results are wrong): no fc2 products, no
+// fc1 epilogue (bias, GELU, h and g), no fc1 products, no W loads (the ring
+// is not waited on); clusters of 4 blocks or of 1 (no multicast; right
+// results); the first design (right results).
+constexpr int kMlpProbeNoFc2 = 1;
+constexpr int kMlpProbeNoEpilogue = 2;
+constexpr int kMlpProbeNoFc1 = 4;
+constexpr int kMlpProbeNoLoads = 8;
+constexpr int kMlpProbeCluster4 = 16;
+constexpr int kMlpProbeCluster1 = 32;
+constexpr int kMlpProbeFirstDesign = 64;
+
+template <int K>
+struct FusedShape {
+  static constexpr int kBoxes = K / 64;     // x boxes; W1 K-slices
+  static constexpr int kSteps = K / 128;    // ring stages of a chunk's fc1, and of its fc2
+  static constexpr int kStages = K == 768 ? 7 : 9;  // what 227 KB leaves beside x and two g tiles
+  static constexpr size_t kSmemBytes =
+      (kBoxes + 2) * kBox + kStages * kFusedStageBytes + (2 * kStages + 1) * sizeof(uint64_t) + 1024;
+  static_assert(kSmemBytes <= 232448, "the block's shared memory");
+};
+
+template <int K, bool LN>
+__global__ void __launch_bounds__(kFusedThreads, 1)
+mlp_fused_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w1,
+                 const __grid_constant__ CUtensorMap map_w2, const bf16* __restrict__ x,
+                 const float* __restrict__ ln_s, const float* __restrict__ ln_t,
+                 const bf16* __restrict__ b1, const bf16* __restrict__ b2, bf16* __restrict__ h,
+                 bf16* __restrict__ out, int M, int NF, float eps, int probe) {
+  using Shape = FusedShape<K>;
+  constexpr int kStages = Shape::kStages;
+  constexpr int kSteps = Shape::kSteps;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_address(smem_raw) & 1023u)) & 1023u);
+  unsigned char* xs = smem;                         // the block's rows: kBoxes boxes
+  unsigned char* gs = xs + Shape::kBoxes * kBox;    // two g tiles
+  unsigned char* ring = gs + 2 * kBox;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * kFusedStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* x_full = empty + kStages;
+
+  const uint32_t rank = cluster_rank();
+  const uint32_t blocks = cluster_size();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbarrier_init(&full[s], 1);
+      mbarrier_init(&empty[s], kFusedConsumerWarps * blocks);
+    }
+    mbarrier_init(x_full, 1);
+    mbarrier_init_fence();
+  }
+  cluster_sync();  // every block's barriers exist before a copy or an arrival reaches them
+
+  const int m0 = blockIdx.x * kFusedRows;
+  const int chunks = (NF + kFusedChunk - 1) / kFusedChunk;
+
+  // The roles part here and never meet again: no block-wide barrier below.
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbarrier_arrive_expect_tx(x_full, Shape::kBoxes * kBox);
+      for (int b = 0; b < Shape::kBoxes; ++b) tma_load_2d(xs + b * kBox, &map_x, x_full, b * 64, m0);
+      // This block loads rows [rank * part, + part) of every box of a stage
+      // for the whole cluster.
+      const int part = kFusedRows / blocks;
+      const uint16_t mask = static_cast<uint16_t>((1u << blocks) - 1);
+      int stage = 0;
+      uint32_t parity = 1;  // a fresh "empty" barrier lets the first pass through
+      for (int j = 0; j <= chunks && !(probe & kMlpProbeNoLoads); ++j) {
+        for (int half = 0; half < 2; ++half) {  // fc1 of chunk j, then fc2 of chunk j - 1
+          if (half == 0 ? j == chunks : j == 0) continue;
+          for (int i = 0; i < kSteps; ++i) {
+            mbarrier_wait(&empty[stage], parity);
+            mbarrier_arrive_expect_tx(&full[stage], kFusedStageBytes);
+            for (int p = 0; p < 2; ++p) {
+              unsigned char* dst = ring + stage * kFusedStageBytes + p * kBox + rank * part * 128;
+              const CUtensorMap* map = half == 0 ? &map_w1 : &map_w2;
+              // W1 (NF, K): rows of chunk j, K columns 128 i + 64 p ..;
+              // W2 (K, NF): rows p * K/2 + 64 i .., NF columns of chunk j - 1.
+              const int c0 = half == 0 ? (2 * i + p) * 64 : (j - 1) * kFusedChunk;
+              const int c1 = (half == 0 ? j * kFusedChunk : p * (K / 2) + i * 64) + rank * part;
+              if (blocks == 1) {
+                tma_load_2d(dst, map, &full[stage], c0, c1);
+              } else {
+                tma_load_2d_multicast(dst, map, &full[stage], c0, c1, mask);
+              }
+            }
+            if (++stage == kStages) {
+              stage = 0;
+              parity ^= 1;
+            }
+          }
+        }
+      }
+      // Every block of the cluster hands every stage back before this block
+      // exits: no arrival reaches its barriers after that.
+      for (int s = 0; s < kStages && !(probe & kMlpProbeNoLoads); ++s) {
+        mbarrier_wait(&empty[stage], parity);
+        if (++stage == kStages) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<240>();
+    const int group = threadIdx.x / 128 - 1;  // output columns group * K/2 ..; hidden 32 * group ..
+    const int warp = (threadIdx.x % 128) / 32;  // rows 16 * warp .. + 15 of the tile
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const bool do_fc2 = !(probe & kMlpProbeNoFc2);
+    const bool do_epilogue = !(probe & kMlpProbeNoEpilogue);
+    const bool do_fc1 = !(probe & kMlpProbeNoFc1);
+    const bool loads = !(probe & kMlpProbeNoLoads);
+
+    mbarrier_wait(x_full, 0);
+    if (LN) {  // rows w, w + 8, .. for consumer warp w; lane l the column pair 2l of every box
+      const float inv_k = 1.0f / static_cast<float>(K);
+      for (int r = threadIdx.x / 32 - 4; r < kFusedRows; r += kFusedConsumerWarps) {
+        unsigned char* row = xs + r * 128 + ((((lane >> 2) ^ (r & 7)) << 4) | ((lane & 3) << 2));
+        float sum = 0.0f;
+#pragma unroll
+        for (int b = 0; b < Shape::kBoxes; ++b) {
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + b * kBox));
+          sum += v.x + v.y;
+        }
+        const float mean = warp_sum(sum) * inv_k;
+        float sq = 0.0f;
+#pragma unroll
+        for (int b = 0; b < Shape::kBoxes; ++b) {
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + b * kBox));
+          sq += (v.x - mean) * (v.x - mean) + (v.y - mean) * (v.y - mean);
+        }
+        const float rstd = rsqrtf(warp_sum(sq) * inv_k + eps);
+#pragma unroll
+        for (int b = 0; b < Shape::kBoxes; ++b) {
+          const int c = 64 * b + 2 * lane;
+          const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + b * kBox));
+          const float n0 = (v.x - mean) * rstd * ln_s[c] + ln_t[c];
+          const float n1 = (v.y - mean) * rstd * ln_s[c + 1] + ln_t[c + 1];
+          *reinterpret_cast<uint32_t*>(row + b * kBox) = pack_floats(n0, n1);
+        }
+      }
+      fence_proxy_async_shared();
+      named_barrier_sync(1, kFusedConsumers);
+    }
+
+    // acc[i][4 jj + e]: output columns group * K/2 + 64 i + 8 jj + 2t (+1),
+    // rows 16 warp + g (e = 0, 1) and + 8 (e = 2, 3).  hacc likewise for the
+    // chunk's hidden features 32 group + 8 jj + 2t (+1).
+    float acc[kSteps][32];
+    float hacc[16] = {};
+    uint32_t bias[4] = {}, h_lo[4], h_hi[4], g_lo[4], g_hi[4];
+    int stage = 0;
+    uint32_t parity = 0;
+    auto release = [&](int s) {
+      if (lane == 0 && loads)
+        for (uint32_t r = 0; r < blocks; ++r) mbarrier_arrive_cluster(&empty[s], r);
+    };
+    // The stages whose products may still run, newest first.
+    int held[3] = {-1, -1, -1};
+    // After issuing a stage's products: all but the newest `depth` groups are
+    // done, so the stages they read go back.
+    auto retire = [&](auto depth) {
+      constexpr int D = decltype(depth)::value;
+      wgmma_wait<D>();
+#pragma unroll
+      for (int k = D - 1; k < 3; ++k) {
+        if (held[k] >= 0) release(held[k]);
+        held[k] = -1;
+      }
+#pragma unroll
+      for (int k = D - 1; k > 0; --k) held[k] = held[k - 1];
+      held[0] = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    };
+    using One = std::integral_constant<int, 1>;
+    using Three = std::integral_constant<int, 3>;
+    auto gelu_tile = [&](int jj) {  // a bf16 is the top half of its fp32
+      const float b_lo = __uint_as_float(bias[jj] << 16), b_hi = __uint_as_float(bias[jj] & 0xffff0000u);
+      const float h00 = hacc[4 * jj] + b_lo, h01 = hacc[4 * jj + 1] + b_hi;
+      const float h10 = hacc[4 * jj + 2] + b_lo, h11 = hacc[4 * jj + 3] + b_hi;
+      h_lo[jj] = pack_floats(h00, h01);
+      h_hi[jj] = pack_floats(h10, h11);
+      g_lo[jj] = pack_floats(gelu_erf(h00), gelu_erf(h01));
+      g_hi[jj] = pack_floats(gelu_erf(h10), gelu_erf(h11));
+    };
+    const int r_lo = 16 * warp + g;  // this thread's rows of the tile: r_lo, r_lo + 8
+
+    for (int j = 0; j <= chunks; ++j) {
+      const int f0 = j * kFusedChunk;
+      if (j < chunks) {
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {  // b1 of this thread's columns, read before the products
+          const int f = f0 + 32 * group + 8 * jj + 2 * t;
+          bias[jj] = f < NF ? load_u32(b1 + f) : 0u;
+        }
+#pragma unroll
+        for (int i = 0; i < kSteps; ++i) {  // fc1: hacc = x . W1[chunk j]^T, 128 of K a stage
+          if (loads) mbarrier_wait(&full[stage], parity);
+          const unsigned char* w = ring + stage * kFusedStageBytes + group * 32 * 128;
+          wgmma_pin(hacc);
+          wgmma_fence();
+#pragma unroll
+          for (int p = 0; p < 2 && do_fc1; ++p) {
+            const uint64_t desc_a = wgmma_descriptor_sw128(xs + (2 * i + p) * kBox);
+            const uint64_t desc_b = wgmma_descriptor_sw128(w + p * kBox);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_m64n32k16(hacc, desc_a + 2 * kk, desc_b + 2 * kk, i + p + kk > 0);
+          }
+          wgmma_commit();
+          retire(Three{});
+        }
+      }
+      if (j > 0) {  // fc2 of chunk j - 1, with chunk j's epilogue under its products
+        const unsigned char* g_old = gs + ((j - 1) & 1) * kBox;
+#pragma unroll
+        for (int i = 0; i < kSteps; ++i) {
+          if (loads) mbarrier_wait(&full[stage], parity);
+          const unsigned char* w = ring + stage * kFusedStageBytes + group * kBox;
+          wgmma_pin(acc[i]);
+          wgmma_fence();
+          if (do_fc2) {
+            const uint64_t desc_a = wgmma_descriptor_sw128(g_old);
+            const uint64_t desc_b = wgmma_descriptor_sw128(w);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              wgmma_m64n64k16(acc[i], desc_a + 2 * kk, desc_b + 2 * kk, j > 1 || kk > 0);
+          }
+          wgmma_commit();
+          if (i > 0 && j < chunks && do_epilogue) {
+            // fc1 of chunk j finished at the first stage's retire: spread
+            // its four column tiles over the stages that follow.
+#pragma unroll
+            for (int jj = 0; jj < 4; ++jj)
+              if (jj * (kSteps - 1) / 4 == i - 1) gelu_tile(jj);
+          }
+          if (i == 0) {
+            retire(One{});  // and fc1 of chunk j with it: its sums may be read
+            wgmma_pin(hacc);
+          } else {
+            retire(Three{});
+          }
+        }
+      } else {  // chunk 0: no fc2 to overlap
+        wgmma_wait<0>();
+        wgmma_pin(hacc);
+        if (do_epilogue) {
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) gelu_tile(jj);
+        }
+      }
+      if (j < chunks && do_epilogue) {
+        // Lane t now takes column tile t of the four: 8 contiguous features.
+        quad_transpose(g_lo, t);
+        quad_transpose(g_hi, t);
+        unsigned char* g_new = gs + (j & 1) * kBox;
+        const int piece = ((4 * group + t) ^ (r_lo & 7)) << 4;  // the 128-byte swizzle
+        *reinterpret_cast<uint4*>(g_new + r_lo * 128 + piece) =
+            make_uint4(g_lo[0], g_lo[1], g_lo[2], g_lo[3]);
+        *reinterpret_cast<uint4*>(g_new + (r_lo + 8) * 128 + piece) =
+            make_uint4(g_hi[0], g_hi[1], g_hi[2], g_hi[3]);
+        fence_proxy_async_shared();
+        const int col = f0 + 32 * group + 8 * t;
+        if (h != nullptr) {
+          quad_transpose(h_lo, t);
+          quad_transpose(h_hi, t);
+          if (col < NF && m0 + r_lo < M)  // NF is a multiple of 32: a piece is in or out whole
+            *reinterpret_cast<uint4*>(h + static_cast<long>(m0 + r_lo) * NF + col) =
+                make_uint4(h_lo[0], h_lo[1], h_lo[2], h_lo[3]);
+          if (col < NF && m0 + r_lo + 8 < M)
+            *reinterpret_cast<uint4*>(h + static_cast<long>(m0 + r_lo + 8) * NF + col) =
+                make_uint4(h_hi[0], h_hi[1], h_hi[2], h_hi[3]);
+        }
+      }
+      // Both warpgroups' products that read g tile j - 1 are done before
+      // either writes g tile j + 1 into its place, and g tile j is whole
+      // before the next chunk's fc2 reads it.
+      wgmma_wait<0>();
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        if (held[k] >= 0) release(held[k]);
+        held[k] = -1;
+      }
+      if (j < chunks) named_barrier_sync(1, kFusedConsumers);
+    }
+
+#pragma unroll
+    for (int a = 0; a < kSteps; ++a) wgmma_pin(acc[a]);
+    const int row_lo = m0 + r_lo;
+    const int row_hi = row_lo + 8;
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+#pragma unroll
+      for (int jg = 0; jg < 2; ++jg) {  // four column tiles: 32 columns
+        uint32_t o_lo[4], o_hi[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int jj = 4 * jg + q;
+          const int col = group * (K / 2) + 64 * i + 8 * jj + 2 * t;
+          float v00 = acc[i][4 * jj], v01 = acc[i][4 * jj + 1];
+          float v10 = acc[i][4 * jj + 2], v11 = acc[i][4 * jj + 3];
+          if (LN) {  // the residual first: (x + acc) + b2
+            if (row_lo < M) {
+              const float2 r = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(x + static_cast<long>(row_lo) * K + col));
+              v00 = r.x + v00;
+              v01 = r.y + v01;
+            }
+            if (row_hi < M) {
+              const float2 r = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(x + static_cast<long>(row_hi) * K + col));
+              v10 = r.x + v10;
+              v11 = r.y + v11;
+            }
+          }
+          const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b2 + col));
+          o_lo[q] = pack_floats(v00 + b.x, v01 + b.y);
+          o_hi[q] = pack_floats(v10 + b.x, v11 + b.y);
+        }
+        quad_transpose(o_lo, t);
+        quad_transpose(o_hi, t);
+        const int col = group * (K / 2) + 64 * i + 32 * jg + 8 * t;
+        if (row_lo < M)
+          *reinterpret_cast<uint4*>(out + static_cast<long>(row_lo) * K + col) =
+              make_uint4(o_lo[0], o_lo[1], o_lo[2], o_lo[3]);
+        if (row_hi < M)
+          *reinterpret_cast<uint4*>(out + static_cast<long>(row_hi) * K + col) =
+              make_uint4(o_hi[0], o_hi[1], o_hi[2], o_hi[3]);
+      }
+    }
+  }
+}
+
+template <int K, bool LN>
+cudaError_t launch_mlp_fused(const bf16* x, const float* ln_s, const float* ln_t, const bf16* w1,
+                             const bf16* b1, const bf16* w2, const bf16* b2, bf16* h, bf16* out,
+                             int M, int NF, float eps, int probe, cudaStream_t stream) {
+  using Shape = FusedShape<K>;
+  const int cluster = probe & kMlpProbeCluster1 ? 1 : probe & kMlpProbeCluster4 ? 4 : kFusedCluster;
+  CUtensorMap map_x, map_w1, map_w2;
+  cudaError_t err = make_tensor_map_sw128(&map_x, x, M, K, kFusedRows);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map_sw128(&map_w1, w1, NF, K, kFusedRows / cluster);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map_sw128(&map_w2, w2, K, NF, kFusedRows / cluster);
+  if (err != cudaSuccess) return err;
+  static bool configured[kMaxDevices] = {};
+  err = allow_dynamic_smem(mlp_fused_kernel<K, LN>, Shape::kSmemBytes, configured);
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + kFusedRows - 1) / kFusedRows;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((tiles + cluster - 1) / cluster * cluster);  // whole clusters
+  config.blockDim = dim3(kFusedThreads);
+  config.dynamicSmemBytes = Shape::kSmemBytes;
+  config.stream = stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = cluster;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  void* args[] = {&map_x, &map_w1, &map_w2, &x, &ln_s, &ln_t, &b1, &b2, &h, &out, &M, &NF, &eps,
+                  &probe};
+  err = cudaLaunchKernelExC(&config, reinterpret_cast<const void*>(mlp_fused_kernel<K, LN>), args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The first design of the fused MLP (PR 3), kept for timing only: reached
+// through ssl4polyp_mlp_fused_probe's kMlpProbeFirstDesign, by no route.
+// One block of 8 warps owns 32 rows of x, resident in shared memory
+// (normalised there for the LN variant), and walks NF in tiles of 32 hidden
+// features: fc1 (warp tile 16 x 8, mma.sync m16n8k16) reads the tile's 32
+// rows of W1 from shared memory, the epilogue stages h and g in shared
+// memory and stores h, fc2 (warp tile 32 rows x K/8 columns) adds g . W2^T
+// into registers; cp.async brings the next W1 tile under fc2 and the next W2
+// tile under fc1.  Every block streams all of W1 and W2 for its 32 rows:
+// bound by L2.  The same roundings and bit-identical reruns.
 // ---------------------------------------------------------------------------
 
 constexpr int kFRows = 32;          // rows of x per block
@@ -315,7 +748,7 @@ constexpr int kFLd = kFTile + 8;    // padded shared row of the W2, h and g tile
 constexpr int kFThreads = 256;
 
 template <int K>
-constexpr size_t mlp_fused_smem_bytes() {
+constexpr size_t mlp_fused_first_smem_bytes() {
   return static_cast<size_t>(kFRows * (K + 8)   // x rows (normalised for the LN variant)
                              + kFTile * (K + 8)  // the W1 tile: 32 rows of K
                              + K * kFLd          // the W2 tile: K rows of 32
@@ -325,11 +758,11 @@ constexpr size_t mlp_fused_smem_bytes() {
 
 template <int K, bool LN>
 __global__ void __launch_bounds__(kFThreads)
-mlp_fused_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
-                 const float* __restrict__ ln_t, const bf16* __restrict__ w1,
-                 const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                 const bf16* __restrict__ b2, bf16* __restrict__ h, bf16* __restrict__ out,
-                 int M, int NF, float eps) {
+mlp_fused_first_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
+                       const float* __restrict__ ln_t, const bf16* __restrict__ w1,
+                       const bf16* __restrict__ b1, const bf16* __restrict__ w2,
+                       const bf16* __restrict__ b2, bf16* __restrict__ h, bf16* __restrict__ out,
+                       int M, int NF, float eps) {
   constexpr int kLdX = K + 8;
   constexpr int kLdS = K + 4;     // fp32 staging row of the output
   constexpr int kWarpCols = K / 8;  // fc2 output columns per warp
@@ -505,15 +938,15 @@ mlp_fused_kernel(const bf16* __restrict__ x, const float* __restrict__ ln_s,
 }
 
 template <int K, bool LN>
-cudaError_t launch_mlp_fused(const bf16* x, const float* ln_s, const float* ln_t, const bf16* w1,
+cudaError_t launch_mlp_fused_first(const bf16* x, const float* ln_s, const float* ln_t, const bf16* w1,
                              const bf16* b1, const bf16* w2, const bf16* b2, bf16* h, bf16* out,
                              int M, int NF, float eps, cudaStream_t stream) {
-  constexpr size_t bytes = mlp_fused_smem_bytes<K>();
-  cudaError_t err = cudaFuncSetAttribute(mlp_fused_kernel<K, LN>,
+  constexpr size_t bytes = mlp_fused_first_smem_bytes<K>();
+  cudaError_t err = cudaFuncSetAttribute(mlp_fused_first_kernel<K, LN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
-  mlp_fused_kernel<K, LN><<<(M + kFRows - 1) / kFRows, kFThreads, bytes, stream>>>(
+  mlp_fused_first_kernel<K, LN><<<(M + kFRows - 1) / kFRows, kFThreads, bytes, stream>>>(
       x, ln_s, ln_t, w1, b1, w2, b2, h, out, M, NF, eps);
   return cudaGetLastError();
 }
@@ -521,10 +954,16 @@ cudaError_t launch_mlp_fused(const bf16* x, const float* ln_s, const float* ln_t
 template <bool LN>
 cudaError_t dispatch_mlp_fused(int K, const bf16* x, const float* ln_s, const float* ln_t,
                                const bf16* w1, const bf16* b1, const bf16* w2, const bf16* b2,
-                               bf16* h, bf16* out, int M, int NF, float eps, cudaStream_t stream) {
+                               bf16* h, bf16* out, int M, int NF, float eps, int probe,
+                               cudaStream_t stream) {
+  const bool first = probe & kMlpProbeFirstDesign;
   switch (K) {
-    case 512: return launch_mlp_fused<512, LN>(x, ln_s, ln_t, w1, b1, w2, b2, h, out, M, NF, eps, stream);
-    case 768: return launch_mlp_fused<768, LN>(x, ln_s, ln_t, w1, b1, w2, b2, h, out, M, NF, eps, stream);
+    case 512:
+      return first ? launch_mlp_fused_first<512, LN>(x, ln_s, ln_t, w1, b1, w2, b2, h, out, M, NF, eps, stream)
+                   : launch_mlp_fused<512, LN>(x, ln_s, ln_t, w1, b1, w2, b2, h, out, M, NF, eps, probe, stream);
+    case 768:
+      return first ? launch_mlp_fused_first<768, LN>(x, ln_s, ln_t, w1, b1, w2, b2, h, out, M, NF, eps, stream)
+                   : launch_mlp_fused<768, LN>(x, ln_s, ln_t, w1, b1, w2, b2, h, out, M, NF, eps, probe, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -556,11 +995,14 @@ extern "C" int ssl4polyp_matmul_nt(const void* x, const void* w, void* y, int M,
 // x: (M, K) bf16; ln_s, ln_t: (K,) fp32, or both null for no LayerNorm
 // prologue (and no residual); w1: (NF, K), b1: (NF,), w2: (K, NF), b2: (K,)
 // bf16; h (or null): (M, NF) bf16; out: (M, K) bf16.  K is 512 or 768 (the
-// MAE decoder's and ViT-B's widths) and NF a multiple of 32.  Returns the launch's CUDA error.
-extern "C" int ssl4polyp_mlp_fused_fwd(const void* x, const void* ln_s, const void* ln_t,
-                                       const void* w1, const void* b1, const void* w2,
-                                       const void* b2, void* h, void* out, int M, int K, int NF,
-                                       float eps, void* stream) {
+// MAE decoder's and ViT-B's widths), NF a multiple of 32 and every pointer
+// 16-byte aligned.  `probe` (0 on every path) is a measurement aid: the
+// kMlpProbe* bits above.  Returns the CUDA error of the tensor maps or the
+// launch.
+extern "C" int ssl4polyp_mlp_fused_probe(const void* x, const void* ln_s, const void* ln_t,
+                                         const void* w1, const void* b1, const void* w2,
+                                         const void* b2, void* h, void* out, int M, int K, int NF,
+                                         float eps, int probe, void* stream) {
   const auto* xb = static_cast<const bf16*>(x);
   const auto* s = static_cast<const float*>(ln_s);
   const auto* t = static_cast<const float*>(ln_t);
@@ -573,7 +1015,15 @@ extern "C" int ssl4polyp_mlp_fused_fwd(const void* x, const void* ln_s, const vo
   const auto st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       s == nullptr
-          ? dispatch_mlp_fused<false>(K, xb, s, t, w1b, b1b, w2b, b2b, hb, ob, M, NF, eps, st)
-          : dispatch_mlp_fused<true>(K, xb, s, t, w1b, b1b, w2b, b2b, hb, ob, M, NF, eps, st);
+          ? dispatch_mlp_fused<false>(K, xb, s, t, w1b, b1b, w2b, b2b, hb, ob, M, NF, eps, probe, st)
+          : dispatch_mlp_fused<true>(K, xb, s, t, w1b, b1b, w2b, b2b, hb, ob, M, NF, eps, probe, st);
   return static_cast<int>(err);
+}
+
+// ssl4polyp_mlp_fused_probe with probe 0: the kernel every route launches.
+extern "C" int ssl4polyp_mlp_fused_fwd(const void* x, const void* ln_s, const void* ln_t,
+                                       const void* w1, const void* b1, const void* w2,
+                                       const void* b2, void* h, void* out, int M, int K, int NF,
+                                       float eps, void* stream) {
+  return ssl4polyp_mlp_fused_probe(x, ln_s, ln_t, w1, b1, w2, b2, h, out, M, K, NF, eps, 0, stream);
 }

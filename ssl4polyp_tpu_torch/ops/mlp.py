@@ -53,7 +53,19 @@ fused_launches = 0
 ln_fused_launches = 0
 
 _FUSED_K = (512, 768)  # the fused kernel's instantiations: the MAE decoder's and ViT-B's widths
-_FUSED_TILE = 32  # hidden features per step of its NF loop
+_FUSED_TILE = 32  # NF is a multiple of this (the kernel walks NF in chunks of 64, the last may be half)
+# `probe` bits of the fused kernel, a measurement aid (0 on every path;
+# chip_smoke.py times the kernel with parts left out, whose results are
+# wrong): no fc2 products, no fc1 epilogue (bias, GELU, h and g), no fc1
+# products, no W loads; clusters of 4 blocks or of 1 (no multicast of W;
+# right results); the first design (right results).
+FUSED_PROBE_NO_FC2 = 1
+FUSED_PROBE_NO_EPILOGUE = 2
+FUSED_PROBE_NO_FC1 = 4
+FUSED_PROBE_NO_LOADS = 8
+FUSED_PROBE_CLUSTER_4 = 16
+FUSED_PROBE_CLUSTER_1 = 32
+FUSED_PROBE_FIRST_DESIGN = 64
 
 
 def _pre_activation(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -256,8 +268,10 @@ def _check_fused(x, s, t, w1, b1, w2, b2) -> None:
             raise ValueError(f"the fused MLP's {name} must be contiguous and 16-byte aligned")
 
 
-def _fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h: bool):
-    """(h or None, out) from the CUDA kernel; the LN variant when ``s`` is given."""
+def _fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h: bool, probe: int = 0):
+    """(h or None, out) from the CUDA kernel; the LN variant when ``s`` is
+    given.  ``probe`` (0 on every path) is a measurement aid: the
+    ``FUSED_PROBE_*`` bits above."""
     from ._build import library
 
     global fused_launches, ln_fused_launches
@@ -266,10 +280,10 @@ def _fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h: bool):
     out = torch.empty_like(x)
     h = torch.empty((m, nf), dtype=x.dtype, device=x.device) if write_h else None
     with torch.cuda.device(x.device):
-        err = library().ssl4polyp_mlp_fused_fwd(
+        err = library().ssl4polyp_mlp_fused_probe(
             x.data_ptr(), None if s is None else s.data_ptr(), None if t is None else t.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            None if h is None else h.data_ptr(), out.data_ptr(), m, k, nf, eps,
+            None if h is None else h.data_ptr(), out.data_ptr(), m, k, nf, eps, probe,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:

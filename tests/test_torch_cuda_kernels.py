@@ -298,22 +298,40 @@ def test_ln_linear_kernel_matches_plain(gen, M, K, N):
         torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=2e-2, msg=name)
 
 
-@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
-@pytest.mark.parametrize("M, K, NF", [(12608, 768, 3072), (12608, 512, 2048), (37, 512, 64),
-                                      (1, 768, 32)])
-def test_fused_mlp_kernels_match_plain(gen, with_ln, M, K, NF):
-    x, dy = _randn(gen, M, K), _randn(gen, M, K)
+# The fused kernel's tiling: 64-row tiles in clusters of two (M 63, 64, 65:
+# one tile, ragged or whole, or two; 129 and 197: a cluster that is not
+# full; 12,608 the paths' 197 tiles), NF in chunks of 64 (32 and 96: a
+# ragged last chunk), both widths.
+_FUSED_EDGES = [(m, k, nf) for k, full in ((512, 2048), (768, 3072))
+                for m in (1, 63, 64, 65, 129, 197, 12608) for nf in (32, 96, full)]
+
+
+def _fused_args(gen, M, K, NF, with_ln):
+    x = _randn(gen, M, K)
     s = 1 + 0.1 * torch.randn(K, generator=gen, device="cuda") if with_ln else None
     t = 0.1 * torch.randn(K, generator=gen, device="cuda") if with_ln else None
     w1, b1 = _randn(gen, NF, K, scale=K ** -0.5), _randn(gen, NF, scale=0.5)
     w2, b2 = _randn(gen, K, NF, scale=NF ** -0.5), _randn(gen, K, scale=0.5)
-    h, out = mlp._fused_kernel(x, s, t, w1, b1, w2, b2, 1e-6, write_h=True)
-    h_again, out_again = mlp._fused_kernel(x, s, t, w1, b1, w2, b2, 1e-6, write_h=True)
+    return x, s, t, w1, b1, w2, b2
+
+
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+@pytest.mark.parametrize("M, K, NF", _FUSED_EDGES + [(37, 512, 64)])
+def test_fused_mlp_kernels_match_plain(gen, with_ln, M, K, NF):
+    x, s, t, w1, b1, w2, b2 = args = _fused_args(gen, M, K, NF, with_ln)
+    dy = _randn(gen, M, K)
+    h, out = mlp._fused_kernel(*args, 1e-6, write_h=True)
+    h_again, out_again = mlp._fused_kernel(*args, 1e-6, write_h=True)
+    no_h, out_alone = mlp._fused_kernel(*args, 1e-6, write_h=False)
+    first_h, first_out = mlp._fused_kernel(*args, 1e-6, write_h=True,
+                                           probe=mlp.FUSED_PROBE_FIRST_DESIGN)
     torch.cuda.synchronize()
     assert torch.equal(h, h_again) and torch.equal(out, out_again)  # no atomics
+    assert no_h is None and torch.equal(out, out_alone)
     ref_h, ref_out = mlp._mlp_forward_plain(x, s, t, w1, b1, w2, b2, 1e-6)
-    torch.testing.assert_close(h, ref_h, **FUSED_TOL)
-    torch.testing.assert_close(out, ref_out, **FUSED_TOL)
+    for got_h, got_out in ((h, out), (first_h, first_out)):
+        torch.testing.assert_close(got_h, ref_h, **FUSED_TOL)
+        torch.testing.assert_close(got_out, ref_out, **FUSED_TOL)
     # Through the autograd wrappers: one launch, and gradients from the
     # kernel's h against the plain h (a bf16 ulp where a rounding of h flips).
     args = (x, w1, b1, w2, b2) if not with_ln else (x, s, t, w1, b1, w2, b2)
@@ -335,6 +353,19 @@ def test_fused_mlp_kernels_match_plain(gen, with_ln, M, K, NF):
     for got, want in zip(*grads):
         scale = max(1.0, want.abs().max().item())
         torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=2e-2)
+
+
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+@pytest.mark.parametrize("M, K, NF", [(197, 768, 96), (12608, 512, 2048)])
+def test_fused_mlp_cluster_sizes_give_the_same_bits(gen, with_ln, M, K, NF):
+    # Clusters of 4 or 1 block change where W tiles come from, not the order
+    # of any sum: the same bits as the paths' clusters of 2.
+    args = _fused_args(gen, M, K, NF, with_ln)
+    want = mlp._fused_kernel(*args, 1e-6, write_h=True)
+    for probe in (mlp.FUSED_PROBE_CLUSTER_4, mlp.FUSED_PROBE_CLUSTER_1):
+        got = mlp._fused_kernel(*args, 1e-6, write_h=True, probe=probe)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), probe
 
 
 def test_fused_wrappers_refuse_what_the_kernels_do_not_take(gen):

@@ -98,14 +98,29 @@ FUSED_TOL = {"fp32": (2e-5, 5e-5), "bf16": (2e-2, 3e-2)}  # (forward, gradients)
 @pytest.mark.parametrize("dtype", ["fp32", "bf16"])
 @pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
 def test_fused_references_and_gradients_match_jax_kernels(with_ln, dtype):
+    # three row programs, four NF steps into the accumulator
+    _check_fused_against_jax(with_ln, dtype, _fused_inputs(5), block=(16, 32))
+
+
+# The widths the CUDA kernel is built for (K 512, the MAE decoder's, and 768,
+# ViT-B's), at a small M and NF: two row programs and one or two NF steps of
+# the JAX kernel.
+@pytest.mark.parametrize("dtype", ["fp32", "bf16"])
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+@pytest.mark.parametrize("k, nf", [(512, 32), (512, 64), (768, 32), (768, 64)])
+def test_fused_references_match_jax_kernels_at_the_kernel_widths(k, nf, with_ln, dtype):
+    _check_fused_against_jax(with_ln, dtype, _fused_inputs(7, m=16, k=k, nf=nf), block=(8, 32))
+
+
+def _check_fused_against_jax(with_ln, dtype, a, block):
+    """The port's fused forward (plain on the CPU) equals its reference bit
+    for bit, and matches the interpret-mode JAX kernel, gradients included."""
     from ssl4polyp_tpu.ops.mlp import mlp_fused as jax_mlp_fused
     from ssl4polyp_tpu.ops.mlp import mlp_ln_fused as jax_mlp_ln_fused
     from ssl4polyp_tpu_torch.ops.mlp import (mlp_fused, mlp_fused_reference, mlp_ln_fused,
                                              mlp_ln_fused_reference)
 
-    a = _fused_inputs(5)
     jdt, tdt = {"fp32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
-    block = (16, 32)  # three row programs, four NF steps into the accumulator
     names = ("x", "s", "t", "w1", "b1", "w2", "b2") if with_ln else ("x", "w1", "b1", "w2", "b2")
     jargs = [jnp.asarray(a[n]) if n in "st" else jnp.asarray(a[n], jdt) for n in names]
     if with_ln:
