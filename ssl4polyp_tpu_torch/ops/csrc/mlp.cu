@@ -730,7 +730,7 @@ cudaError_t launch_mlp_fused(const bf16* x, const float* ln_s, const float* ln_t
 }
 
 // ---------------------------------------------------------------------------
-// The first design of the fused MLP (PR 3), kept for timing only: reached
+// The first design of the fused MLP, kept for timing only: reached
 // through ssl4polyp_mlp_fused_probe's kMlpProbeFirstDesign, by no route.
 // One block of 8 warps owns 32 rows of x, resident in shared memory
 // (normalised there for the LN variant), and walks NF in tiles of 32 hidden
