@@ -35,7 +35,14 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    MAE decoder's shapes, their first design's time (through the kernel's
    probe, in the same process, held to the plain version too), the unfused
    bf16 chain, and their times with parts left out and with other cluster
-   sizes; their reruns and their output without h are bit-identical.
+   sizes; their reruns and their output without h are bit-identical.  LN+QKV
+   prints, at the same two shapes, its first design's time (through its
+   probe, held to the plain version), the unfused chain, cuBLAS's
+   ``torch.addmm`` alone on a ready normalised row (timed only), and its
+   times with parts left out and at the other tile width; its reruns and
+   its C entry point for callers without scratch are bit-identical, and
+   with W = I its output (the normalised row itself) is bit-equal to the
+   first design's.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -605,31 +612,71 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     # The fine-tune path's fused kernels at its shapes, then the MAE
     # decoder's.  Beside the plain version (fp32 products of the rounded
     # operands, the kernels' roundings) is timed the fastest unfused bf16
-    # chain: the LayerNorm kernel, cuBLAS products, bias adds and GELU.
+    # chain: the LayerNorm kernel, cuBLAS products, bias adds and GELU; for
+    # LN+QKV also cuBLAS's addmm alone on a normalised row made beforehand.
     def affine(d):
         return 1.0 + 0.1 * randn(d, dtype=torch.float32), 0.1 * randn(d, dtype=torch.float32)
 
+    def ln_linear_cost(m, k, n):  # x, w, b and the affine in, out out
+        return dict(bytes_moved=2 * (m * k + n * k + n + m * n) + 8 * k, flops=2 * m * k * n)
+
+    ln_ablations = {"without the normalisation": ln_linear.PROBE_NO_NORMALISE,
+                    "without the statistics launch": ln_linear.PROBE_NO_STATS,
+                    "bare epilogue": ln_linear.PROBE_BARE_EPILOGUE,
+                    "the other tile width": ln_linear.PROBE_OTHER_WIDTH}
     errors, times = [], {}
-    for i, (m, k, n) in enumerate([(BATCH * 197, 768, 2304), (BATCH * 197, 512, 1536)]):
+    for i, (shape, m, k, n) in enumerate([("classifier", BATCH * 197, 768, 2304),
+                                          ("MAE decoder", BATCH * 197, 512, 1536)]):
         x, (s, t) = randn(m, k), affine(k)
         w, bias = randn(n, k, scale=k ** -0.5), randn(n, scale=0.5)
-        run = lambda: ln_linear._kernel(x, s, t, w, bias, 1e-6)  # noqa: E731
+
+        def probe_run(probe, w=w, bias=bias):
+            return lambda: ln_linear._kernel(x, s, t, w, bias, 1e-6, probe)
+
+        run, first = probe_run(0), probe_run(ln_linear.PROBE_FIRST_DESIGN)
         plain = lambda: ln_linear.ln_linear_reference(x, s, t, w, bias, 1e-6)  # noqa: E731
         unfused = lambda: layers.linear(layernorm._forward_kernel(x, s, t, 1e-6), w, bias)  # noqa: E731
-        out, again = run(), run()
+        m_ready = layernorm._forward_kernel(x, s, t, 1e-6)
+        addmm = lambda: torch.addmm(bias, m_ready, w.t())  # noqa: E731
+        out, again, first_out = run(), run(), first()
+        other_out = probe_run(ln_linear.PROBE_OTHER_WIDTH)()
+        # The C entry point for a caller without scratch (the stream's pool).
+        entry_out = torch.empty_like(out)
+        rc = lib.ssl4polyp_ln_linear_fwd(x.data_ptr(), s.data_ptr(), t.data_ptr(), w.data_ptr(),
+                                         bias.data_ptr(), entry_out.data_ptr(), m, k, n, 1e-6,
+                                         torch.cuda.current_stream().cuda_stream)
+        # With W = I and b = 0 the output is m itself: bit-equal to the first
+        # design's, the statistics, the formula and its rounding are unchanged.
+        eye = torch.eye(k, dtype=torch.bfloat16, device=dev)
+        zero = torch.zeros(k, dtype=torch.bfloat16, device=dev)
+        m_new = probe_run(0, eye, zero)()
+        m_first = probe_run(ln_linear.PROBE_FIRST_DESIGN, eye, zero)()
         torch.cuda.synchronize()
         what = f"ln_linear ({m}, {k}) -> {n}"
-        errors.append(max_error(out, plain(), FUSED_TOL, what))
+        ref = plain()
+        errors.append(max_error(out, ref, FUSED_TOL, what))
+        first_err = max_error(first_out, ref, FUSED_TOL, f"{what}: first design")
+        max_error(other_out, ref, FUSED_TOL, f"{what}: the other tile width")
         if not torch.equal(out, again):
             fail(f"{what}: two runs gave different bits")
-        times[i] = time_ms(run), time_ms(plain), time_ms(unfused)
+        if rc or not torch.equal(out, entry_out):
+            fail(f"{what}: ssl4polyp_ln_linear_fwd (rc {rc}) differs from the wrapper's launch")
+        if not torch.equal(m_new, m_first):
+            fail(f"{what}, W = I: m differs from the first design's")
+        times[i] = time_ms(run), time_ms(plain), time_ms(unfused), time_ms(first), time_ms(addmm)
         print(f"{what}: max |diff| {errors[-1]:.3e} (atol {FUSED_TOL[0]}, rtol {FUSED_TOL[1]}); "
-              f"kernel {times[i][0]:.4f} ms, plain {times[i][1]:.4f} ms, unfused bf16 chain "
-              f"{times[i][2]:.4f} ms")
-    m, k, n = BATCH * 197, 768, 2304
+              f"rerun and ssl4polyp_ln_linear_fwd bit-identical; W = I: m bit-equal to the "
+              f"first design's")
+        print(f"  {shape}'s shape: kernel {times[i][0]:.4f} ms, first design {times[i][3]:.4f} ms "
+              f"(max |diff| {first_err:.3e}), plain {times[i][1]:.4f} ms, unfused bf16 chain "
+              f"{times[i][2]:.4f} ms, torch.addmm on a ready m {times[i][4]:.4f} ms, "
+              f"{bound_text(**ln_linear_cost(m, k, n))}")
+        print(f"  {shape}'s shape, ablations (wrong results but the other width's, timed only): "
+              + ", ".join(f"{label} {time_ms(probe_run(probe)):.4f} ms"
+                          for label, probe in ln_ablations.items()))
     report["ln_linear"] = entry(
         "ln_linear.cu", "ssl4polyp_tpu/ops/ln_linear.py:28", max(errors), *times[0][:2],
-        bytes_moved=2 * (m * k + n * k + n + m * n) + 8 * k, flops=2 * m * k * n)
+        **ln_linear_cost(BATCH * 197, 768, 2304))
 
     report.update(fused_mlp_kernels(randn))
     report.update(attn_proj_kernels(randn))

@@ -53,6 +53,8 @@ _ENTRY_POINTS = (
      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_ln_linear_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_ln_linear_probe", ctypes.c_int,
+     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_attn_proj_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),

@@ -22,6 +22,8 @@ import math
 
 import torch
 
+from ._checks import check_gradient
+
 __all__ = [
     "backward_launches",
     "fused_attention",
@@ -111,9 +113,7 @@ def _backward_kernel(q, k, v, dout):
     from ._build import library
 
     global backward_launches
-    if dout.shape != q.shape or dout.dtype != q.dtype or not dout.is_contiguous():
-        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not fit q "
-                         f"{tuple(q.shape)} {q.dtype}")
+    check_gradient("dout", dout, q.shape, q.dtype, q.device)
     B, H, N, head_dim = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):

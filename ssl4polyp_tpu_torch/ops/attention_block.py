@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 
+from ._checks import check_gradient
 from .qkv_attention import _MAX_TOKENS, _scale, fused_qkv_attention_reference
 
 __all__ = [
@@ -156,9 +157,7 @@ def _backward_kernel(x, w, b, dout, num_heads, softmax_f32, valid_len):
     three_d = w.shape[1]
     D = three_d // 3
     head_dim = D // num_heads
-    if dout.shape != (B, N, D) or dout.dtype != x.dtype or not dout.is_contiguous():
-        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not fit x "
-                         f"{tuple(x.shape)} {x.dtype} and w {tuple(w.shape)}")
+    check_gradient("dout", dout, (B, N, D), x.dtype, x.device)
     dev = x.device
     dqkv = torch.empty((B, N, three_d), dtype=x.dtype, device=dev)  # scratch: round(dqkv)
     db_part = torch.empty((B, three_d), dtype=torch.float32, device=dev)

@@ -24,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from ._checks import check_gradient
 from .qkv_attention import (
     _MAX_TOKENS,
     _scale,
@@ -165,9 +166,7 @@ def _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
     B, N, three_d = qkv.shape
     D = three_d // 3
     head_dim = D // num_heads
-    if dy.shape != (B, N, D) or dy.dtype != qkv.dtype or not dy.is_contiguous():
-        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} does not fit qkv "
-                         f"{tuple(qkv.shape)} {qkv.dtype}")
+    check_gradient("dy", dy, (B, N, D), qkv.dtype, qkv.device)
     dev = qkv.device
     w_t = torch.empty_like(w)                                    # scratch: W^T
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=dev)    # scratch: the core output

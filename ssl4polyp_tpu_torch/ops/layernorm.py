@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ._checks import check_gradient
+
 __all__ = ["BACKWARD_PARTS", "backward_launches", "launches", "layernorm", "layernorm_reference"]
 
 # Kernel launches since the last ops.reset_launch_counts().
@@ -90,6 +92,9 @@ def _backward_plan(x, dy, weight, eps, dres=None):
     returns (dx, dweight, dbias).  No launch is counted here."""
     from ._build import library
 
+    check_gradient("dy", dy, x.shape, x.dtype, x.device)
+    if dres is not None:
+        check_gradient("dres", dres, x.shape, x.dtype, x.device)
     D = x.shape[-1]
     M = x.numel() // D
     dx = torch.empty_like(x)

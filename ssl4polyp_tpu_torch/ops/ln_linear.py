@@ -37,7 +37,17 @@ __all__ = [
 # Kernel launches since the last ops.reset_launch_counts().
 launches = 0
 
-_MAX_K = 768  # the x rows a block keeps in shared memory (csrc/ln_linear.cu)
+_MAX_K = 768  # s and t, and the first design's rows, live in shared memory (csrc/ln_linear.cu)
+# `probe` bits of the kernel, a measurement aid (0 on every path;
+# chip_smoke.py times the kernel with parts left out, whose results are
+# wrong): no normalisation (x straight into the products), no statistics
+# launch, the bare epilogue (no bias); the tile width the shape rule did not
+# pick, and the first design (both right results).
+PROBE_NO_NORMALISE = 1
+PROBE_NO_STATS = 2
+PROBE_BARE_EPILOGUE = 4
+PROBE_OTHER_WIDTH = 8
+PROBE_FIRST_DESIGN = 16
 
 
 def _normalised(x: torch.Tensor, eps: float) -> tuple[torch.Tensor, torch.Tensor]:
@@ -119,17 +129,22 @@ def _check(x, s, t, w, b) -> None:
             raise ValueError(f"ln_linear's {name} must be contiguous and 16-byte aligned")
 
 
-def _kernel(x, s, t, w, b, eps):
+def _kernel(x, s, t, w, b, eps, probe: int = 0):
+    """The CUDA kernel: a statistics launch into a (M, 2) fp32 scratch, then
+    the GEMM that normalises its x stages with them.  ``probe`` (0 on every
+    path) is a measurement aid: the ``PROBE_*`` bits above."""
     from ._build import library
 
     global launches
     m, k = x.shape
     n = w.shape[0]
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = library().ssl4polyp_ln_linear_fwd(
+        err = library().ssl4polyp_ln_linear_probe(
             x.data_ptr(), s.data_ptr(), t.data_ptr(), w.data_ptr(), b.data_ptr(),
-            out.data_ptr(), m, k, n, eps, torch.cuda.current_stream().cuda_stream,
+            stats.data_ptr(), out.data_ptr(), m, k, n, eps, probe,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"ln_linear kernel launch failed: CUDA error {err}")

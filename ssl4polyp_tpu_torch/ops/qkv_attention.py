@@ -21,6 +21,8 @@ from typing import Optional
 
 import torch
 
+from ._checks import check_gradient
+
 __all__ = [
     "backward_launches",
     "backward_plan",
@@ -208,12 +210,7 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
     from ._build import library
 
     global backward_launches
-    if dout.shape != (*qkv.shape[:2], qkv.shape[2] // 3) or dout.dtype != qkv.dtype:
-        raise ValueError(f"dout {tuple(dout.shape)} {dout.dtype} does not fit qkv "
-                         f"{tuple(qkv.shape)} {qkv.dtype}")
-    # The kernel copies dout in 16-byte pieces from its own device.
-    if dout.device != qkv.device or not dout.is_contiguous() or dout.data_ptr() % 16:
-        raise ValueError(f"dout must be a contiguous, 16-byte aligned tensor on {qkv.device}")
+    check_gradient("dout", dout, (*qkv.shape[:2], qkv.shape[2] // 3), qkv.dtype, qkv.device)
     B, N, three_d = qkv.shape
     head_dim = three_d // 3 // num_heads
     dqkv = torch.empty_like(qkv)

@@ -64,6 +64,7 @@ _CATEGORIES = (
     ("fc1_gelu_kernel", "fc1+GELU kernel"),
     ("mlp_fused_kernel", "fused MLP kernel (fc1+GELU+fc2, with or without LN)"),
     ("ln_linear_kernel", "LN+QKV kernel"),
+    ("ln_linear_stats_kernel", "LN+QKV kernel"),
     ("multi_tensor_apply", "foreach ops (gradient norm and sums)"),
     ("gemm", "cuBLAS GEMM"),
     ("nvjet", "cuBLAS GEMM"),

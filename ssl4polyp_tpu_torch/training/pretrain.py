@@ -27,6 +27,7 @@ from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Any, Callable, Dict
 
+import numpy as np
 import torch
 from torch.func import functional_call
 
@@ -183,7 +184,20 @@ def make_pretrain_step(
 
 
 def _noise_seed(seed: int, epoch: int, step: int) -> int:
-    return (seed * 1_000_003 + epoch * 7_919 + step) % (2 ** 63)
+    """The seed of one step's masking noise: a hash of the whole (seed,
+    epoch, step), as the JAX engine folds the epoch and then the step into
+    its key, so that no two steps of a run share noise however long an
+    epoch is.  ``SeedSequence``'s first 64-bit word, reduced below 2**63 for
+    ``torch.Generator.manual_seed``."""
+    word = np.random.SeedSequence([seed, epoch, step]).generate_state(1, np.uint64)[0]
+    return int(word) % (2 ** 63)
+
+
+def _step_noise(seed: int, epoch: int, step: int, shape, device: torch.device) -> torch.Tensor:
+    """One step's masking noise, uniform in [0, 1), from its own generator."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(_noise_seed(seed, epoch, step))
+    return torch.rand(shape, generator=gen, device=device)
 
 
 def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
@@ -220,10 +234,8 @@ def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
             losses = []
             for it, batch in enumerate(loader):
                 images = torch.from_numpy(batch.reshape(accum, micro, *batch.shape[1:])).to(device)
-                noise_gen = torch.Generator(device=device)
-                noise_gen.manual_seed(_noise_seed(settings.seed, epoch, it))
-                noise = torch.rand((accum, micro, cfg.encoder.num_patches),
-                                   generator=noise_gen, device=device)
+                noise = _step_noise(settings.seed, epoch, it,
+                                    (accum, micro, cfg.encoder.num_patches), device)
                 metrics = train_step(state, images, noise, schedule(step_global))
                 step_global += 1
                 if it % max(1, settings.log_interval) == 0:

@@ -298,6 +298,73 @@ def test_ln_linear_kernel_matches_plain(gen, M, K, N):
         torch.testing.assert_close(got, want, atol=2e-2 * scale, rtol=2e-2, msg=name)
 
 
+def _ln_linear_args(gen, M, K, N):
+    x = _randn(gen, M, K)
+    s = 1 + 0.1 * torch.randn(K, generator=gen, device="cuda")
+    t = 0.1 * torch.randn(K, generator=gen, device="cuda")
+    w, b = _randn(gen, N, K, scale=K ** -0.5), _randn(gen, N, scale=0.5)
+    return x, s, t, w, b
+
+
+# The kernel's tiling: 128-row tiles (M 127, 128, 129: one tile, ragged or
+# whole, or two; 1 and 37 a ragged first tile; 12,608 the paths' 99), N in
+# tiles of 128 or 256 columns (8 and 24 ragged, 128 and 256 whole, 1,536 and
+# 2,304 the paths'), K in stages of 64 (one stage, the decoder's, ViT-B's).
+_LN_LINEAR_EDGES = [(m, k, n) for m in (1, 37, 127, 128, 129, 12608) for k in (64, 512, 768)
+                    for n in (8, 24, 128, 256, 1536, 2304)]
+
+
+@pytest.mark.parametrize("M, K, N", _LN_LINEAR_EDGES)
+@torch.inference_mode()
+def test_ln_linear_tiles_match_plain_and_rerun_equal(gen, M, K, N):
+    args = _ln_linear_args(gen, M, K, N)
+    out = ln_linear_ops._kernel(*args, 1e-6)
+    again = ln_linear_ops._kernel(*args, 1e-6)
+    other = ln_linear_ops._kernel(*args, 1e-6, probe=ln_linear_ops.PROBE_OTHER_WIDTH)
+    first = ln_linear_ops._kernel(*args, 1e-6, probe=ln_linear_ops.PROBE_FIRST_DESIGN)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again)  # no atomics
+    want = ln_linear_reference(*args)
+    for got in (out, other, first):
+        torch.testing.assert_close(got, want, **FUSED_TOL)
+
+
+@pytest.mark.parametrize("K", [64, 512, 768])
+@pytest.mark.parametrize("M", [1, 129, 12608])
+@torch.inference_mode()
+def test_ln_linear_keeps_the_first_designs_normalised_row(gen, M, K):
+    # With W = I and b = 0 the output is m itself (one product of 1 a column,
+    # exact in fp32): the same bits as the first design's show that the
+    # statistics, the formula and its rounding are unchanged.
+    x = _randn(gen, M, K, scale=3.0) + 1.0
+    s = 1 + 0.1 * torch.randn(K, generator=gen, device="cuda")
+    t = 0.1 * torch.randn(K, generator=gen, device="cuda")
+    w = torch.eye(K, dtype=torch.bfloat16, device="cuda")
+    b = torch.zeros(K, dtype=torch.bfloat16, device="cuda")
+    new = ln_linear_ops._kernel(x, s, t, w, b, 1e-6)
+    first = ln_linear_ops._kernel(x, s, t, w, b, 1e-6, probe=ln_linear_ops.PROBE_FIRST_DESIGN)
+    torch.cuda.synchronize()
+    assert torch.equal(new, first)
+    torch.testing.assert_close(new, ln_linear_ops.normalised_row(x, s, t, 1e-6), **FUSED_TOL)
+
+
+@pytest.mark.parametrize("M, K, N", [(12608, 768, 2304), (12608, 512, 1536), (37, 64, 24)])
+@torch.inference_mode()
+def test_ln_linear_fwd_entry_point_equals_the_wrapper(gen, M, K, N):
+    # ssl4polyp_ln_linear_fwd takes its scratch from the stream's pool.
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    args = _ln_linear_args(gen, M, K, N)
+    want = ln_linear_ops._kernel(*args, 1e-6)
+    got = torch.empty_like(want)
+    x, s, t, w, b = args
+    err = library().ssl4polyp_ln_linear_fwd(
+        x.data_ptr(), s.data_ptr(), t.data_ptr(), w.data_ptr(), b.data_ptr(), got.data_ptr(),
+        M, K, N, 1e-6, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(got, want)
+
+
 # The fused kernel's tiling: 64-row tiles in clusters of two (M 63, 64, 65:
 # one tile, ragged or whole, or two; 129 and 197: a cluster that is not
 # full; 12,608 the paths' 197 tiles), NF in chunks of 64 (32 and 96: a

@@ -203,6 +203,25 @@ def test_run_pretraining_logs_epochs(image_folder, tmp_path, monkeypatch):
     assert record == json.loads(lines[-1]) and np.isfinite(record["train_loss"])
 
 
+@pytest.mark.parametrize("seed", [0, 13])
+def test_noise_seed_is_distinct_across_epochs_and_steps(seed):
+    # A seed linear in (epoch, step) gave step s + 7,919 of one epoch the noise
+    # of step s of the next; each (seed, epoch, step) now has its own.
+    cpu = torch.device("cpu")
+    for step in (0, 5):
+        a = (seed, 0, step + 7_919)
+        b = (seed, 1, step)
+        assert pretrain._noise_seed(*a) != pretrain._noise_seed(*b)
+        assert not torch.equal(pretrain._step_noise(*a, (2, 49), cpu),
+                               pretrain._step_noise(*b, (2, 49), cpu))
+    seeds = {pretrain._noise_seed(seed, e, s) for e in range(4) for s in range(0, 40_000, 7_919)}
+    assert len(seeds) == 4 * len(range(0, 40_000, 7_919))
+    assert all(0 <= v < 2 ** 63 for v in seeds)
+    # The same triple gives the same noise: a run and its rerun draw alike.
+    assert torch.equal(pretrain._step_noise(seed, 2, 3, (2, 49), cpu),
+                       pretrain._step_noise(seed, 2, 3, (2, 49), cpu))
+
+
 def test_model_config_is_the_pretrain_recipe():
     cfg = pretrain.model_config(pretrain.PretrainSettings())
     enc = cfg.encoder

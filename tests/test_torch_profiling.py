@@ -26,6 +26,10 @@ from ssl4polyp_tpu_torch import profiling
     ("void (anonymous namespace)::qkv_attention_kernel<64, 13>(__nv_bfloat16 const*, ...)",
      "attention forward kernel"),
     ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
+    ("void (anonymous namespace)::ln_linear_kernel<256>(CUtensorMap, CUtensorMap, ...)",
+     "LN+QKV kernel"),
+    ("(anonymous namespace)::ln_linear_stats_kernel(__nv_bfloat16 const*, float2*, ...)",
+     "LN+QKV kernel"),
     ("void (anonymous namespace)::attn_proj_kernel<64, 13, true>(CUtensorMap, ...)",
      "attention+projection kernel (forward, and the backward's O and dO)"),
     ("(anonymous namespace)::attn_proj_transpose_kernel(__nv_bfloat16 const*, ...)",
