@@ -42,7 +42,11 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    times with parts left out and at the other tile width; its reruns and
    its C entry point for callers without scratch are bit-identical, and
    with W = I its output (the normalised row itself) is bit-equal to the
-   first design's.
+   first design's.  Attention over separate q, k, v prints, at the
+   classifier's and the MAE decoder's shapes, its forward's first design's
+   time (through the kernel's probe, held to the plain version too) and its
+   times with parts left out; its forward and backward reruns are
+   bit-identical.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -757,6 +761,26 @@ def fused_mlp_kernels(randn) -> dict[str, dict]:
     return report
 
 
+def attn_proj_cost(b, n, h, hd):
+    """The attention+projection kernel's bytes and operations, forward and
+    backward: qkv, W, b (and dy) in, y (and dqkv, dW, db) out once."""
+    d = h * hd
+    core, proj = b * h * n * n * hd, b * n * d * d
+    return (dict(bytes_moved=2 * (4 * b * n * d + d * d + d), flops=4 * core + 2 * proj),
+            dict(bytes_moved=2 * (7 * b * n * d + 2 * d * d + d), flops=10 * core + 6 * proj))
+
+
+def qkvproj_cost(b, n, d_in, h, hd):
+    """The projection + attention kernel's bytes and operations, forward and
+    backward: x, W, b (and dout) in, out (and dx, dW, db) out once."""
+    d = h * hd
+    core, proj = b * h * n * n * hd, b * n * d_in * 3 * d
+    return (dict(bytes_moved=2 * (b * n * (d_in + d) + d_in * 3 * d + 3 * d),
+                 flops=2 * proj + 4 * core),
+            dict(bytes_moved=2 * (b * n * (2 * d_in + d) + 2 * (d_in * 3 * d + 3 * d)),
+                 flops=6 * proj + 10 * core))
+
+
 def attn_proj_kernels(randn) -> dict[str, dict]:
     """The attention+projection kernel, forward and backward, against its
     plain version: the classifier's call (fp32 scores), the MAE decoder's
@@ -807,10 +831,12 @@ def attn_proj_kernels(randn) -> dict[str, dict]:
         with torch.no_grad():
             fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
         bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        fwd_cost, bwd_cost = attn_proj_cost(b, n, h, hd)
         print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
-              f"scaled_dot_product_attention + F.linear {fwd_times[i][2]:.4f} ms; backward kernels "
-              f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, the library pair's "
-              f"{bwd_times[i][2]:.4f} ms")
+              f"scaled_dot_product_attention + F.linear {fwd_times[i][2]:.4f} ms, "
+              f"{bound_text(**fwd_cost)}; backward kernels {bwd_times[i][0]:.4f} ms, plain "
+              f"{bwd_times[i][1]:.4f} ms, the library pair's {bwd_times[i][2]:.4f} ms, "
+              f"{bound_text(**bwd_cost)}")
         # The backward's four phases apart, on one plan's buffers (each phase
         # finds what the earlier ones left there), each beside its bound.
         core, proj, act = b * h * n * n * hd, b * n * d * d, 2 * b * n * d
@@ -836,57 +862,75 @@ def attn_proj_kernels(randn) -> dict[str, dict]:
         print("    forward without the attention arithmetic {:.4f} ms, without the wgmma "
               "{:.4f} ms, without both {:.4f} ms".format(*ablated))
         del leaves, lib_y
-    b, n, h, hd = cases[0][:4]
-    d = h * hd
-    core, proj = b * h * n * n * hd, b * n * d * d
+    fwd_cost, bwd_cost = attn_proj_cost(*cases[0][:4])
     return {
         "attn_proj": entry(
             "attn_proj.cu", "ssl4polyp_tpu/ops/attn_proj.py:77", max(fwd_errors),
-            *fwd_times[0][:2], bytes_moved=2 * (4 * b * n * d + d * d + d),
-            flops=4 * core + 2 * proj, library_ms=fwd_times[0][2]),
+            *fwd_times[0][:2], **fwd_cost, library_ms=fwd_times[0][2]),
         "attn_proj_backward": entry(
             "attn_proj.cu", "ssl4polyp_tpu/ops/attn_proj.py:90", max(bwd_errors),
-            *bwd_times[0][:2], bytes_moved=2 * (7 * b * n * d + 2 * d * d + d),
-            flops=10 * core + 6 * proj, library_ms=bwd_times[0][2]),
+            *bwd_times[0][:2], **bwd_cost, library_ms=bwd_times[0][2]),
     }
 
 
 def attention_ops_kernels(randn) -> dict[str, dict]:
     """The two attention functions of ``ops`` that no model route calls,
     forward and backward, against their plain versions at the classifier's
-    shape and the MAE decoder's: attention over separate q, k, v, and the
-    QKV projection with the attention core (both ``softmax_f32`` settings
-    and a ``valid_len`` below the token count).  Beside each, the library
-    route for the same function, timed only."""
+    shape and the MAE decoder's: attention over separate q, k, v (its
+    forward also through its first design, held to the plain version, and
+    timed with parts left out, through the kernel's probe), and the QKV
+    projection with the attention core (both ``softmax_f32`` settings and a
+    ``valid_len`` below the token count).  Beside each, the library route
+    for the same function, timed only, and the bound."""
     report = {}
     fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
+    fwd_ablations = {"without the softmax arithmetic": attention.PROBE_NO_SOFTMAX,
+                     "without P.V": attention.PROBE_NO_VALUES,
+                     "without the prefetch": attention.PROBE_NO_PREFETCH,
+                     "without the exponential": attention.PROBE_NO_EXP}
     for i, (b, h, n, hd) in enumerate([(BATCH, 12, 197, 64), (BATCH, 16, 197, 32)]):
         q, k, v, dout = (randn(b, h, n, hd) for _ in range(4))
-        run = lambda: attention._forward_kernel(q, k, v)  # noqa: E731
+
+        def probe_run(probe, q=q, k=k, v=v):
+            return lambda: attention._forward_kernel(q, k, v, probe)
+
+        run, first = probe_run(0), probe_run(attention.PROBE_FIRST_DESIGN)
         plain = lambda: attention.fused_attention_reference(q, k, v)  # noqa: E731
         run_bwd = lambda: attention._backward_kernel(q, k, v, dout)  # noqa: E731
         plain_bwd = lambda: attention.fused_attention_backward_reference(q, k, v, dout)  # noqa: E731
-        out, grads, again = run(), run_bwd(), run_bwd()
+        out, again, first_out = run(), run(), first()
+        grads, grads_again = run_bwd(), run_bwd()
         torch.cuda.synchronize()
         what = f"fused_attention B={b} H={h} N={n} hd={hd}"
-        fwd_errors.append(max_error(out, plain(), ATTENTION_TOL, f"{what}: out"))
+        ref = plain()
+        fwd_errors.append(max_error(out, ref, ATTENTION_TOL, f"{what}: out"))
+        first_err = max_error(first_out, ref, ATTENTION_TOL, f"{what}: first design")
         bwd_errors.append(max(max_error(got, want, ATTENTION_BWD_TOL, f"{what}: {name}")
                               for name, got, want in zip(("dq", "dk", "dv"), grads, plain_bwd())))
-        if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+        if not torch.equal(out, again):
+            fail(f"{what}: two forward runs gave different bits")
+        if not all(torch.equal(a, g) for a, g in zip(grads_again, grads)):
             fail(f"{what}: two backward runs gave different bits")
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
         lib_out = F.scaled_dot_product_attention(*leaves)
         library_bwd = lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)  # noqa: E731
-        fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
+        fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library), time_ms(first)
         bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
-        print(f"{what}: out max |diff| {fwd_errors[-1]:.3e} (atol {ATTENTION_TOL[0]}, rtol "
-              f"{ATTENTION_TOL[1]}), dq, dk, dv {bwd_errors[-1]:.3e} (atol {ATTENTION_BWD_TOL[0]}, "
-              f"rtol {ATTENTION_BWD_TOL[1]}); rerun bit-identical")
-        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
-              f"scaled_dot_product_attention {fwd_times[i][2]:.4f} ms; backward kernel "
+        elements, core = b * h * n * hd, b * h * n * n * hd
+        print(f"{what}: out max |diff| {fwd_errors[-1]:.3e}, first design {first_err:.3e} (atol "
+              f"{ATTENTION_TOL[0]}, rtol {ATTENTION_TOL[1]}), dq, dk, dv {bwd_errors[-1]:.3e} (atol "
+              f"{ATTENTION_BWD_TOL[0]}, rtol {ATTENTION_BWD_TOL[1]}); forward and backward reruns "
+              f"bit-identical")
+        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, first design {fwd_times[i][3]:.4f} ms, "
+              f"plain {fwd_times[i][1]:.4f} ms, scaled_dot_product_attention {fwd_times[i][2]:.4f} "
+              f"ms, {bound_text(2 * 4 * elements, 4 * core)}; backward kernel "
               f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, "
-              f"scaled_dot_product_attention's backward {bwd_times[i][2]:.4f} ms")
+              f"scaled_dot_product_attention's backward {bwd_times[i][2]:.4f} ms, "
+              f"{bound_text(2 * 7 * elements, 10 * core)}")
+        print("  forward ablations (wrong results, timed only): "
+              + ", ".join(f"{label} {time_ms(probe_run(probe)):.4f} ms"
+                          for label, probe in fwd_ablations.items()))
         del leaves, lib_out
     b, h, n, hd = BATCH, 12, 197, 64
     elements, core = b * h * n * hd, b * h * n * n * hd
@@ -943,22 +987,20 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
         with torch.no_grad():
             fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
         bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        fwd_cost, bwd_cost = qkvproj_cost(b, n, d_in, h, hd)
         print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
-              f"F.linear + scaled_dot_product_attention {fwd_times[i][2]:.4f} ms; backward kernels "
-              f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, the library pair's "
-              f"{bwd_times[i][2]:.4f} ms")
+              f"F.linear + scaled_dot_product_attention {fwd_times[i][2]:.4f} ms, "
+              f"{bound_text(**fwd_cost)}; backward kernels {bwd_times[i][0]:.4f} ms, plain "
+              f"{bwd_times[i][1]:.4f} ms, the library pair's {bwd_times[i][2]:.4f} ms, "
+              f"{bound_text(**bwd_cost)}")
         del leaves, lib_out
-    b, n, d_in, h, hd = cases[0][:5]
-    d = h * hd
-    core, proj = b * h * n * n * hd, b * n * d_in * 3 * d
+    fwd_cost, bwd_cost = qkvproj_cost(*cases[0][:5])
     report["fused_qkvproj_attention"] = entry(
         "attention_block.cu", "ssl4polyp_tpu/ops/attention_block.py:187", max(fwd_errors),
-        *fwd_times[0][:2], bytes_moved=2 * (b * n * (d_in + d) + d_in * 3 * d + 3 * d),
-        flops=2 * proj + 4 * core, library_ms=fwd_times[0][2])
+        *fwd_times[0][:2], **fwd_cost, library_ms=fwd_times[0][2])
     report["fused_qkvproj_attention_backward"] = entry(
         "attention_block.cu", "ssl4polyp_tpu/ops/attention_block.py:224", max(bwd_errors),
-        *bwd_times[0][:2], bytes_moved=2 * (b * n * (2 * d_in + d) + 2 * (d_in * 3 * d + 3 * d)),
-        flops=6 * proj + 10 * core, library_ms=bwd_times[0][2])
+        *bwd_times[0][:2], **bwd_cost, library_ms=bwd_times[0][2])
     return report
 
 

@@ -8,8 +8,9 @@ per (batch, head), with q, k, v and the output (B, H, N, hd).  Its roundings
 are that kernel's, not the QKV kernels': q and k enter the scores as they
 are and the scale multiplies the fp32 scores; the backward recomputes the
 weights and keeps them, and dS, unrounded.  On the card both directions are
-CUDA kernels (``csrc/attention.cu``); no model route calls this function (as
-in the JAX package, it is a public function of ``ops``).
+CUDA kernels (``csrc/attention.cu``; the forward on wgmma with TMA loads, its
+first design kept behind :data:`PROBE_FIRST_DESIGN`); no model route calls
+this function (as in the JAX package, it is a public function of ``ops``).
 
 A tensor on the CPU goes through the plain torch versions
 (:func:`fused_attention_plain`); a CUDA tensor through the kernels, or the
@@ -40,6 +41,17 @@ backward_launches = 0
 # What the kernels take: bf16, these head sizes, 1..256 tokens.
 _HEAD_DIMS = (16, 32, 64)
 _MAX_TOKENS = 256
+# `probe` bits of the forward kernel, a measurement aid (0 on every path;
+# chip_smoke.py times the kernel with parts left out, whose results are
+# wrong): no softmax arithmetic (the scores rounded straight into the
+# weights), no product with v (the first hd columns of the weights written
+# instead), no prefetch of the next head, no exponential in the softmax;
+# and the first design (right results).
+PROBE_NO_SOFTMAX = 1
+PROBE_NO_VALUES = 2
+PROBE_NO_PREFETCH = 4
+PROBE_FIRST_DESIGN = 8
+PROBE_NO_EXP = 16
 
 
 def _weights(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -92,16 +104,18 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {q.device}")
 
 
-def _forward_kernel(q, k, v):
+def _forward_kernel(q, k, v, probe: int = 0):
+    """The forward kernel; ``probe`` (0 on every path) is a measurement aid:
+    the ``PROBE_*`` bits above."""
     from ._build import library
 
     global launches
     B, H, N, head_dim = q.shape
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        err = library().ssl4polyp_attention_fwd(
+        err = library().ssl4polyp_attention_fwd_probe(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, N, head_dim,
-            1.0 / math.sqrt(head_dim), torch.cuda.current_stream().cuda_stream,
+            1.0 / math.sqrt(head_dim), probe, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")

@@ -4,8 +4,9 @@
 // cp.async where the rows are plain copies, or by cp.async with the bias and
 // the scale fold applied afterwards in place), one warp's 16 query rows
 // through scores, softmax and the product with V (operands read with
-// ldmatrix), and the backward's first design: two phases over one (batch,
-// head) pair that recompute dS in the second.
+// ldmatrix), the 16-byte stores of a 16-row output tile, and the backward's
+// first design: two phases over one (batch, head) pair that recompute dS in
+// the second.
 #pragma once
 
 #include <math.h>
@@ -23,6 +24,13 @@
   return cudaErrorInvalidValue;
 
 namespace {
+
+// The column tiles of 8 keys that hold no key past N for every token count
+// SSL4POLYP_FOR_TOKENS sends to the key width 16 * NKT (the fewest it sends
+// over 8).
+__host__ __device__ constexpr int nkt_whole(int nkt) {
+  return (nkt == 4 ? 1 : nkt == 8 ? 65 : nkt == 13 ? 129 : 209) / 8;
+}
 
 // Copies `rows` rows of one head's HD columns into shared memory (row stride
 // HD + 8 elements, which keeps the fragment loads free of bank conflicts).
@@ -315,6 +323,34 @@ __device__ __forceinline__ void attention_rows(const bf16* s_q, const bf16* s_k,
   float inv0, inv1;
   attention_scores<HD, NKT, SCALE_SCORES>(qa, s_k, lane, n_valid, softmax_f32, q_scale, s, inv0, inv1);
   attention_values<HD, NKT>(s, inv0, inv1, s_v, lane, o);
+}
+
+// Stores a 16 x HD tile of packed bf16 pairs (lo[n]: row g, columns n * 8 +
+// 2t, + 1; hi[n]: row g + 8) at out_a (row g's first column) and out_b (row g
+// + 8's), a row only where its ok flag is set: 16-byte stores (lane t takes
+// column tile n + t after a quad transpose) where HD is a multiple of 32.
+// Every lane of the warp must call it.
+template <int HD>
+__device__ __forceinline__ void store_tile_rows(bf16* out_a, bf16* out_b, uint32_t (&lo)[HD / 8],
+                                                uint32_t (&hi)[HD / 8], bool ok_a, bool ok_b,
+                                                int t) {
+  if constexpr (HD % 32 == 0) {
+#pragma unroll
+    for (int n = 0; n < HD / 8; n += 4) {
+      uint32_t a[4] = {lo[n], lo[n + 1], lo[n + 2], lo[n + 3]};
+      uint32_t c[4] = {hi[n], hi[n + 1], hi[n + 2], hi[n + 3]};
+      quad_transpose(a, t);
+      quad_transpose(c, t);
+      if (ok_a) *reinterpret_cast<uint4*>(out_a + (n + t) * 8) = make_uint4(a[0], a[1], a[2], a[3]);
+      if (ok_b) *reinterpret_cast<uint4*>(out_b + (n + t) * 8) = make_uint4(c[0], c[1], c[2], c[3]);
+    }
+  } else {
+#pragma unroll
+    for (int n = 0; n < HD / 8; ++n) {
+      if (ok_a) *reinterpret_cast<uint32_t*>(out_a + n * 8 + 2 * t) = lo[n];
+      if (ok_b) *reinterpret_cast<uint32_t*>(out_b + n * 8 + 2 * t) = hi[n];
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 // Hopper-only device and host helpers (sm_90a): mbarriers (arrivals on a
 // cluster peer's too), thread block clusters, TMA tile loads through a
-// tensor map (multicast to a cluster as well), the warpgroup matrix multiply
-// (wgmma, A from shared memory or registers) with its shared-memory
-// descriptors for 128-byte-swizzled K-major tiles, named barriers, the async-proxy fence, programmatic dependent
-// launch, and setmaxnreg.  mlp.cu's GEMM and fused MLP and ln_linear.cu's
-// kernel are built from them.
+// tensor map (2-D, multicast to a cluster as well, and 3-D over a stack of
+// matrices), the warpgroup matrix multiply (wgmma, A from shared memory or
+// registers, B K-major or MN-major) with its shared-memory descriptors for
+// swizzled tiles, named barriers, the async-proxy fence, programmatic
+// dependent launch, and setmaxnreg.  mlp.cu's GEMM and fused MLP,
+// ln_linear.cu's kernel and attention.cu's forward are built from them.
 //
 // The shared-memory layout everything here agrees on: a tile of R rows of 64
 // bf16 values (128 bytes a row), written by TMA with
@@ -13,6 +14,8 @@
 // lies at chunk c ^ (r % 8).  wgmma reads it back through a descriptor of
 // layout type "128-byte swizzle" with a stride of 1,024 bytes between 8-row
 // groups; a step of 16 along K inside the 64 is 32 bytes on the start address.
+// Rows of 32 or 16 values take the 64- or 32-byte swizzle the same way
+// (wgmma_descriptor_swizzled).
 #pragma once
 
 #include <cuda.h>
@@ -160,6 +163,17 @@ __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorM
       : "memory");
 }
 
+// One box of a 3-D tensor at element coordinates (c0 innermost, c1, c2),
+// completing on `bar` as tma_load_2d does.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                            int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // --- wgmma ----------------------------------------------------------------
 
 // The descriptor of a K-major bf16 tile of 128-byte rows under the 128-byte
@@ -169,6 +183,28 @@ __device__ __forceinline__ uint64_t wgmma_descriptor_sw128(const void* tile) {
   desc |= 1ull << 16;                                   // leading offset: unused under a swizzle
   desc |= (1024ull >> 4) << 32;                         // stride between 8-row groups
   desc |= 1ull << 62;                                   // 128-byte swizzle
+  return desc;
+}
+
+// The descriptor of a bf16 tile of ROW_BYTES-byte rows (128, 64 or 32) that
+// TMA wrote under the swizzle of the same width (CU_TENSOR_MAP_SWIZZLE_128B,
+// _64B, _32B), 8-row groups ROW_BYTES * 8 bytes apart, the tile's base
+// aligned to 1,024 bytes.  Read K-major (K along a row, + 32 bytes a step of
+// 16 along K) or, with the transpose bit of the instruction, MN-major (N
+// along a row: a row-major (K, N) tile, + 16 rows a step of 16 along K).
+// Both offsets hold the 8-row-group stride: a K-major read ignores the
+// leading offset under a swizzle, and an MN-major read takes it only between
+// swizzle atoms along N, which a tile one atom wide (N = ROW_BYTES / 2) never
+// has; the stride offset steps between the 8-row groups either way.
+template <int ROW_BYTES>
+__device__ __forceinline__ uint64_t wgmma_descriptor_swizzled(const void* tile) {
+  static_assert(ROW_BYTES == 128 || ROW_BYTES == 64 || ROW_BYTES == 32, "a swizzle width");
+  constexpr uint64_t kLayout = ROW_BYTES == 128 ? 1 : ROW_BYTES == 64 ? 2 : 3;
+  constexpr uint64_t kGroup = (8 * ROW_BYTES) >> 4;
+  uint64_t desc = (smem_address(tile) & 0x3FFFFu) >> 4;  // start address, 16-byte units
+  desc |= kGroup << 16;
+  desc |= kGroup << 32;
+  desc |= kLayout << 62;
   return desc;
 }
 
@@ -342,6 +378,59 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 208, fp32, 104 registers a thread) (+)= A (64 x 16) . B (208 x 16)^T, both bf16,
+// K-major in shared memory behind the descriptors; `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n208k16(float (&d)[104], uint64_t desc_a,
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %106, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63, "
+      " %64, %65, %66, %67, %68, %69, %70, %71, "
+      " %72, %73, %74, %75, %76, %77, %78, %79, "
+      " %80, %81, %82, %83, %84, %85, %86, %87, "
+      " %88, %89, %90, %91, %92, %93, %94, %95, "
+      " %96, %97, %98, %99, %100, %101, %102, %103}, "
+      "%104, %105, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 128, fp32, 64 registers a thread) (+)= A (64 x 16) . B (128 x 16)^T, both bf16,
 // A from registers (a[0..3]: this warp's 16 x 16 slice in mma.sync's A layout:
 // rows g, g + 8 by columns 2t, 2t + 1, then 2t + 8, 2t + 9), B K-major in shared
@@ -448,6 +537,81 @@ __device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128], const uint3
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 16, fp32, 8 registers a thread) (+)= A (64 x 16) . B (16 x 16), both bf16,
+// A from registers (as for wgmma_m64n128k16_rs), B MN-major in shared memory
+// behind its descriptor: its 16 rows of K each hold the 16 values of N
+// contiguously (a row-major (K, N) tile, the transpose bit set).
+// `accumulate` 0 overwrites D.  a must keep its registers unwritten until the
+// product has been waited for.
+__device__ __forceinline__ void wgmma_m64n16k16_rs_mn(float (&d)[8], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 32, fp32, 16 registers a thread) (+)= A (64 x 16) . B (16 x 32), both bf16,
+// A from registers (as for wgmma_m64n128k16_rs), B MN-major in shared memory
+// behind its descriptor: its 16 rows of K each hold the 32 values of N
+// contiguously (a row-major (K, N) tile, the transpose bit set).
+// `accumulate` 0 overwrites D.  a must keep its registers unwritten until the
+// product has been waited for.
+__device__ __forceinline__ void wgmma_m64n32k16_rs_mn(float (&d)[16], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, fp32, 32 registers a thread) (+)= A (64 x 16) . B (16 x 64), both bf16,
+// A from registers (as for wgmma_m64n128k16_rs), B MN-major in shared memory
+// behind its descriptor: its 16 rows of K each hold the 64 values of N
+// contiguously (a row-major (K, N) tile, the transpose bit set).
+// `accumulate` 0 overwrites D.  a must keep its registers unwritten until the
+// product has been waited for.
+__device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // --- registers --------------------------------------------------------------
 
 // The warpgroup gives registers back to the SM (dec) or takes more (inc);
@@ -464,25 +628,32 @@ __device__ __forceinline__ void setmaxnreg_inc() {
 
 // --- host: tensor maps ------------------------------------------------------
 
-// A tensor map over a row-major (rows, cols) bf16 matrix for boxes of
-// box_rows x 64 columns under the 128-byte swizzle, zeros out of bounds.
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
 // cuTensorMapEncodeTiled lives in libcuda, which the library does not link
 // against (only the runtime): it is looked up in the copy the process has
-// loaded already.  The map holds the pointer, so it is made anew for every
-// call (host arithmetic only).
-inline cudaError_t make_tensor_map_sw128(CUtensorMap* map, const void* base, int rows, int cols,
-                                         int box_rows) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+// loaded already.  Null if there is none.
+inline TensorMapEncode tensor_map_encoder() {
+  static TensorMapEncode encode = nullptr;
   if (encode == nullptr) {
     void* libcuda = dlopen("libcuda.so.1", RTLD_NOW | RTLD_GLOBAL);
     void* fn = libcuda == nullptr ? nullptr : dlsym(libcuda, "cuTensorMapEncodeTiled");
-    if (fn == nullptr) return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<TensorMapEncode>(fn);
   }
+  return encode;
+}
+
+// A tensor map over a row-major (rows, cols) bf16 matrix for boxes of
+// box_rows x 64 columns under the 128-byte swizzle, zeros out of bounds.
+// The map holds the pointer, so it is made anew for every call (host
+// arithmetic only).
+inline cudaError_t make_tensor_map_sw128(CUtensorMap* map, const void* base, int rows, int cols,
+                                         int box_rows) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};  // bytes between rows
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
@@ -490,6 +661,33 @@ inline cudaError_t make_tensor_map_sw128(CUtensorMap* map, const void* base, int
   const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                              dims, strides, box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over `count` row-major (rows, cols) bf16 matrices that follow
+// one another in memory (heads of (B * H, N, hd)), for boxes of box_rows x
+// cols of one matrix, under the swizzle of a row's width (cols 64, 32 or 16:
+// 128, 64 or 32 bytes; wgmma_descriptor_swizzled reads it back).  Rows past
+// a matrix's last are zeros: a box never reads the next matrix.
+inline cudaError_t make_tensor_map_matrices(CUtensorMap* map, const void* base, int count, int rows,
+                                            int cols, int box_rows) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const CUtensorMapSwizzle swizzle = cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                  : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE) return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(count)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,  // bytes between rows
+                                 static_cast<cuuint64_t>(rows) * cols * 2};  // between matrices
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t element_strides[3] = {1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                             dims, strides, box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -57,34 +57,6 @@ namespace {
 
 constexpr int kWarps = 4;
 
-// Stores a 16 x HD tile of packed bf16 pairs (lo[n]: row g, columns n * 8 +
-// 2t, + 1; hi[n]: row g + 8) at out_a (row g's first column) and out_b (row g
-// + 8's), a row only where its ok flag is set: 16-byte stores (lane t takes
-// column tile n + t after a quad transpose) where HD is a multiple of 32.
-// Every lane of the warp must call it.
-template <int HD>
-__device__ __forceinline__ void store_tile_rows(bf16* out_a, bf16* out_b, uint32_t (&lo)[HD / 8],
-                                                uint32_t (&hi)[HD / 8], bool ok_a, bool ok_b,
-                                                int t) {
-  if constexpr (HD % 32 == 0) {
-#pragma unroll
-    for (int n = 0; n < HD / 8; n += 4) {
-      uint32_t a[4] = {lo[n], lo[n + 1], lo[n + 2], lo[n + 3]};
-      uint32_t c[4] = {hi[n], hi[n + 1], hi[n + 2], hi[n + 3]};
-      quad_transpose(a, t);
-      quad_transpose(c, t);
-      if (ok_a) *reinterpret_cast<uint4*>(out_a + (n + t) * 8) = make_uint4(a[0], a[1], a[2], a[3]);
-      if (ok_b) *reinterpret_cast<uint4*>(out_b + (n + t) * 8) = make_uint4(c[0], c[1], c[2], c[3]);
-    }
-  } else {
-#pragma unroll
-    for (int n = 0; n < HD / 8; ++n) {
-      if (ok_a) *reinterpret_cast<uint32_t*>(out_a + n * 8 + 2 * t) = lo[n];
-      if (ok_b) *reinterpret_cast<uint32_t*>(out_b + n * 8 + 2 * t) = hi[n];
-    }
-  }
-}
-
 // NKT: key tiles of 16; the kernel takes N <= 16 * NKT.  Up to 208 keys the
 // score row fits a register budget of three blocks an SM (168 a thread).
 template <int HD, int NKT>

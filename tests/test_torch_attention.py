@@ -50,7 +50,13 @@ def _torch_all(q, k, v, dout, dtype, fn=fused_attention_plain):
     return tuple(t.detach().float().numpy() for t in (out, *[a.grad for a in leaves]))
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (1, 1, 130, 8), (1, 2, 37, 16)])
+# The CUDA forward's tiling edges (64-row query tiles; key widths of 64, 128,
+# 208 and 256), at each head dim it takes, with B and H at 1 or 2.
+_EDGES = [(1 + n % 2, 2 - n % 2, n, hd) for n in (1, 63, 64, 65, 129, 193, 256)
+          for hd in (16, 32, 64)]
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (1, 1, 130, 8), (1, 2, 37, 16)] + _EDGES)
 def test_plain_matches_jax_kernel_fp32(shape):
     inputs = _inputs(0, shape)
     ours = _torch_all(*inputs, torch.float32)
@@ -60,10 +66,11 @@ def test_plain_matches_jax_kernel_fp32(shape):
         np.testing.assert_allclose(a, b, rtol=BWD_F32_TOL, atol=BWD_F32_TOL, err_msg=name)
 
 
-def test_plain_matches_jax_kernel_bf16():
+@pytest.mark.parametrize("shape", [(2, 2, 29, 32)] + _EDGES)
+def test_plain_matches_jax_kernel_bf16(shape):
     # hd 32: 1/sqrt(32) is not a power of two; it multiplies the fp32 scores
     # on both sides and is never folded into q in bf16.
-    inputs = _inputs(1, (2, 2, 29, 32))
+    inputs = _inputs(1, shape)
     ours = _torch_all(*inputs, torch.bfloat16)
     ref = _jax_all(*inputs, jnp.bfloat16)
     np.testing.assert_allclose(ours[0], ref[0], rtol=BF16_TOL, atol=BF16_TOL, err_msg="out")

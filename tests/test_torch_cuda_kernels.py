@@ -677,6 +677,108 @@ def test_separate_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
             fused_attention(q, q[:, :1], q)
 
 
+# The forward's tiling: 64-row query tiles taken in turn by two warpgroups,
+# keys in widths of 64, 128, 208 and 256, rows of 32, 64 and 128 bytes
+# (every length at the edges of a query tile or a key width, at each head
+# dim); then B * H below one wave of 132 SMs, between one and two, and past
+# five rounds of the persistent grid.
+_SEPARATE_FWD_EDGES = [(2, 3, n, hd) for n in (1, 8, 63, 64, 65, 127, 128, 129, 192, 193, 197,
+                                                208, 209, 255, 256) for hd in (16, 32, 64)]
+_SEPARATE_FWD_HEADS = [(10, 10, 197, 64), (20, 10, 197, 32), (64, 12, 197, 64), (70, 10, 65, 16)]
+
+
+@pytest.mark.parametrize("B, H, N, hd", _SEPARATE_FWD_EDGES + _SEPARATE_FWD_HEADS)
+@torch.inference_mode()
+def test_separate_attention_forward_matches_plain_and_reruns_equal(gen, B, H, N, hd):
+    from ssl4polyp_tpu_torch.ops import attention
+
+    q, k, v = (_randn(gen, B, H, N, hd) for _ in range(3))
+    ops.reset_launch_counts()
+    out, again = attention.fused_attention(q, k, v), attention.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_attention"] == 2
+    torch.testing.assert_close(out, attention.fused_attention_reference(q, k, v), **ATTENTION_TOL)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("B, H, N, hd", [(2, 3, 197, 64), (2, 3, 197, 32), (2, 3, 65, 16),
+                                         (1, 2, 256, 64), (3, 1, 1, 32)])
+@torch.inference_mode()
+def test_separate_attention_first_design_agrees_with_the_kernel(gen, B, H, N, hd):
+    from ssl4polyp_tpu_torch.ops import attention
+
+    q, k, v = (_randn(gen, B, H, N, hd) for _ in range(3))
+    out = attention._forward_kernel(q, k, v)
+    first = attention._forward_kernel(q, k, v, attention.PROBE_FIRST_DESIGN)
+    torch.cuda.synchronize()
+    ref = attention.fused_attention_reference(q, k, v)
+    torch.testing.assert_close(first, ref, **ATTENTION_TOL)
+    torch.testing.assert_close(out, first, **ATTENTION_TOL)
+
+
+@pytest.mark.parametrize("N, hd", [(197, 64), (1, 16), (65, 32), (256, 64), (130, 16)])
+@torch.inference_mode()
+def test_separate_attention_forward_writes_nothing_past_the_last_row(gen, N, hd):
+    # The C entry point on views inside sentinel-filled buffers: nothing
+    # before the output or past the last head's row N - 1 changes.  NaN past
+    # the inputs' last row would reach the output if a load read past it.
+    from ssl4polyp_tpu_torch.ops import attention
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    B, H, pad = 2, 3, 4096
+    size = B * H * N * hd
+
+    def inside(fill, body=None):
+        buffer = torch.full((pad + size + pad,), fill, dtype=torch.bfloat16, device="cuda")
+        if body is not None:
+            buffer[pad:pad + size] = body.reshape(-1)
+        return buffer, buffer[pad:pad + size].view(B, H, N, hd)
+
+    q, k, v = (_randn(gen, B, H, N, hd) for _ in range(3))
+    views = [inside(float("nan"), t)[1] for t in (q, k, v)]
+    buffer, out = inside(-1234.0)
+    err = library().ssl4polyp_attention_fwd(*(t.data_ptr() for t in views), out.data_ptr(), B * H,
+                                            N, hd, hd ** -0.5,
+                                            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert (buffer[:pad] == -1234.0).all() and (buffer[pad + size:] == -1234.0).all()
+    torch.testing.assert_close(out, attention.fused_attention_reference(q, k, v), **ATTENTION_TOL)
+
+
+@pytest.mark.parametrize("probe", ["no_softmax", "no_softmax_no_values"])
+@pytest.mark.parametrize("N, hd", [(197, 64), (197, 32), (65, 16), (256, 64), (8, 32)])
+@torch.inference_mode()
+def test_separate_attention_forward_products_alone_are_exact(gen, N, hd, probe):
+    # The two products apart from the softmax, through the probe: without the
+    # softmax the weights are the scores rounded; without the product with v
+    # too, the output is the scores of keys 0 .. hd - 1.  Integer multiples
+    # of 1/8 in q and k and small integers in v make every score and every
+    # sum exact in fp32 and the scores exact in bf16, so any fault of the
+    # operands' layouts (K-major Q and K, MN-major V) shows bit for bit.
+    from ssl4polyp_tpu_torch.ops import attention
+
+    B, H = 2, 3
+
+    def ints(low, high, scale):
+        values = torch.randint(low, high, (B, H, N, hd), generator=gen, device="cuda")
+        return (values.float() * scale).to(torch.bfloat16)
+
+    q, k, v = ints(-2, 3, 0.125), ints(-2, 3, 0.125), ints(-3, 4, 1.0)
+    bits = attention.PROBE_NO_SOFTMAX
+    keys = torch.zeros(B, H, max(N, hd), hd, dtype=torch.float32, device="cuda")
+    keys[:, :, :N] = k.float()
+    scores = (q.float() @ keys.transpose(-1, -2)).to(torch.bfloat16)
+    if probe == "no_softmax":
+        want = (scores[..., :N].float() @ v.float()).to(torch.bfloat16)
+    else:
+        bits |= attention.PROBE_NO_VALUES
+        want = scores[..., :hd]
+    got = attention._forward_kernel(q, k, v, bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize(
     "B, N, Din, H, hd, softmax_f32, valid_len",
     [
