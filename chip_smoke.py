@@ -46,7 +46,14 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    classifier's and the MAE decoder's shapes, its forward's first design's
    time (through the kernel's probe, held to the plain version too) and its
    times with parts left out; its forward and backward reruns are
-   bit-identical.
+   bit-identical.  The QKV projection with the attention core prints the
+   same at both shapes (its forward's first design, the plain version and
+   ``F.linear`` + SDPA beside the bound, then its forward without the
+   softmax arithmetic, without the projection's products, without the
+   prefetch, the projection alone, and in clusters of 2 x 2 blocks sharing x
+   and W and of 2 sharing x), with both ``softmax_f32`` settings
+   and a ``valid_len`` below the token count; its forward and backward
+   reruns are bit-identical.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -944,25 +951,40 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
     fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
     cases = [(BATCH, 197, 768, 12, 64, True, None), (BATCH, 197, 512, 16, 32, False, None),
              (BATCH, 197, 768, 12, 64, False, 150), (BATCH, 197, 512, 16, 32, True, 150)]
+    qkvproj_ablations = {"without the softmax arithmetic": attention_block.PROBE_NO_SOFTMAX,
+                         "without the projection's products": attention_block.PROBE_NO_PROJECTION,
+                         "without the prefetch": attention_block.PROBE_NO_PREFETCH,
+                         "the projection alone": attention_block.PROBE_PROJECTION_ONLY,
+                         "in clusters of 2 x 2": attention_block.PROBE_CLUSTER_4,
+                         "in clusters of 2 sharing x": attention_block.PROBE_CLUSTER_2}
     for i, (b, n, d_in, h, hd, f32, valid_len) in enumerate(cases):
         d = h * hd
         x, dout = randn(b, n, d_in), randn(b, n, d)
         w, bias = randn(d_in, 3 * d, scale=d_in ** -0.5), randn(3 * d, scale=0.5)
         rows = n if valid_len is None else valid_len
         dout[:, rows:] = 0  # the pad rows' upstream gradient is zero
-        run = lambda: attention_block._forward_kernel(x, w, bias, h, f32, valid_len)  # noqa: E731
+
+        def probe_run(probe, x=x, w=w, bias=bias, h=h, f32=f32, valid_len=valid_len):
+            return lambda: attention_block._forward_kernel(x, w, bias, h, f32, valid_len, probe)
+
+        run, first = probe_run(0), probe_run(attention_block.PROBE_FIRST_DESIGN)
         plain = lambda: attention_block.fused_qkvproj_attention_reference(  # noqa: E731
             x, w, bias, h, f32, valid_len)
         run_bwd = lambda: attention_block._backward_kernel(x, w, bias, dout, h, f32, valid_len)  # noqa: E731
         plain_bwd = lambda: attention_block.fused_qkvproj_attention_backward_reference(  # noqa: E731
             x, w, bias, dout, h, f32, valid_len)
-        out, grads, again = run(), run_bwd(), run_bwd()
+        out, out_again, first_out = run(), run(), first()
+        grads, again = run_bwd(), run_bwd()
         torch.cuda.synchronize()
         what = (f"fused_qkvproj_attention B={b} N={n} Din={d_in} H={h} hd={hd} f32={f32} "
                 f"valid_len={valid_len}")
-        fwd_errors.append(max_error(out[:, :rows], plain()[:, :rows], QKVPROJ_TOL, f"{what}: out"))
-        line = (f"{what}: out max |diff| {fwd_errors[-1]:.3e} (atol {QKVPROJ_TOL[0]}, rtol "
-                f"{QKVPROJ_TOL[1]})")
+        ref = plain()[:, :rows]
+        fwd_errors.append(max_error(out[:, :rows], ref, QKVPROJ_TOL, f"{what}: out"))
+        first_err = max_error(first_out[:, :rows], ref, QKVPROJ_TOL, f"{what}: first design")
+        if not torch.equal(out, out_again):
+            fail(f"{what}: two forward runs gave different bits")
+        line = (f"{what}: out max |diff| {fwd_errors[-1]:.3e}, first design {first_err:.3e} (atol "
+                f"{QKVPROJ_TOL[0]}, rtol {QKVPROJ_TOL[1]})")
         worst = 0.0
         for name, got, want in zip(("dx", "dw", "db"), grads, plain_bwd()):
             tol = (QKVPROJ_GRAD_TOL[0] * want.float().abs().max().item(), QKVPROJ_GRAD_TOL[1])
@@ -972,7 +994,7 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
         bwd_errors.append(worst)
         if not all(torch.equal(a, g) for a, g in zip(again, grads)):
             fail(f"{what}: two backward runs gave different bits")
-        print(line + "; rerun bit-identical")
+        print(line + "; forward and backward reruns bit-identical")
         if valid_len is not None:
             continue
         leaves = [t.clone().requires_grad_() for t in (x, w.t().contiguous(), bias)]
@@ -985,14 +1007,17 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
         lib_out = library()
         library_bwd = lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)  # noqa: E731
         with torch.no_grad():
-            fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library)
+            fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library), time_ms(first)
         bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
         fwd_cost, bwd_cost = qkvproj_cost(b, n, d_in, h, hd)
-        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, plain {fwd_times[i][1]:.4f} ms, "
-              f"F.linear + scaled_dot_product_attention {fwd_times[i][2]:.4f} ms, "
-              f"{bound_text(**fwd_cost)}; backward kernels {bwd_times[i][0]:.4f} ms, plain "
-              f"{bwd_times[i][1]:.4f} ms, the library pair's {bwd_times[i][2]:.4f} ms, "
-              f"{bound_text(**bwd_cost)}")
+        print(f"  forward kernel {fwd_times[i][0]:.4f} ms, first design {fwd_times[i][3]:.4f} ms, "
+              f"plain {fwd_times[i][1]:.4f} ms, F.linear + scaled_dot_product_attention "
+              f"{fwd_times[i][2]:.4f} ms, {bound_text(**fwd_cost)}; backward kernels "
+              f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, the library pair's "
+              f"{bwd_times[i][2]:.4f} ms, {bound_text(**bwd_cost)}")
+        print("  forward ablations (timed only; the projection alone and the cluster shapes "
+              "are right, the rest wrong): " + ", ".join(f"{label} {time_ms(probe_run(probe)):.4f} ms"
+                                     for label, probe in qkvproj_ablations.items()))
         del leaves, lib_out
     fwd_cost, bwd_cost = qkvproj_cost(*cases[0][:5])
     report["fused_qkvproj_attention"] = entry(

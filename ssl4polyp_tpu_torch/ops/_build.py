@@ -73,6 +73,9 @@ _ENTRY_POINTS = (
     ("ssl4polyp_qkvproj_attention_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_qkvproj_attention_fwd_probe", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_qkvproj_attention_bwd", ctypes.c_int,
      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),

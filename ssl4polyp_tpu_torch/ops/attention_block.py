@@ -8,7 +8,9 @@ with ``w`` (Din, 3D) in the JAX package's (in, out) layout, its columns
 ``[q heads | k heads | v heads]``.  On the card the (B, N, 3D) QKV tensor
 never reaches device memory in either direction (``csrc/attention_block.cu``);
 the backward recomputes it and returns dx, dw and db from hand-written
-kernels alone (``dx = dqkv @ w.T`` and ``dw = x.T @ dqkv`` included).  No
+kernels alone (``dx = dqkv @ w.T`` and ``dw = x.T @ dqkv`` included).  The
+forward runs the projection and the attention core on wgmma from TMA loads;
+its first design stays behind :data:`PROBE_FIRST_DESIGN`.  No
 model route calls this function: as in the JAX package, where it measured
 slower than the bare projection followed by the attention kernel, it is a
 public function of ``ops``.
@@ -49,6 +51,22 @@ _HEAD_DIMS = (32, 64)
 # Row slices of the backward's dW sum: 64 x 64 tiles of dW times this many
 # slices are the blocks that fill the card (864 at 768 x 2304).
 _DW_SLICES = 2
+# `probe` bits of the forward kernel, a measurement aid (0 on every path;
+# chip_smoke.py times the kernel with parts left out, whose results are
+# wrong): no softmax arithmetic (the scores rounded straight into the
+# weights), no projection products (q, k and v the bias alone), no prefetch
+# of the next unit's loads; and four with right results: the first design,
+# the projection alone (each head's q, before the scale fold, written into
+# its columns of the output), clusters of 2 x 2 blocks that share x stages
+# and W boxes by TMA multicast, and clusters of 2 that share x stages.
+PROBE_NO_SOFTMAX = 1
+PROBE_NO_PROJECTION = 2
+PROBE_NO_PREFETCH = 4
+PROBE_FIRST_DESIGN = 8
+PROBE_PROJECTION_ONLY = 16
+PROBE_CLUSTER_4 = 32
+PROBE_CLUSTER_2 = 64
+_PROBE_BITS = 127
 
 
 def _project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -129,7 +147,11 @@ def _check(x, w, b, num_heads, valid_len) -> None:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {x.device}")
 
 
-def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len):
+def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len, probe: int = 0):
+    """The forward kernel; ``probe`` (0 on every path) is a measurement aid:
+    the ``PROBE_*`` bits above."""
+    if probe & ~_PROBE_BITS:
+        raise ValueError(f"unknown probe bits {probe & ~_PROBE_BITS:#x}")
     from ._build import library
 
     global launches
@@ -138,10 +160,10 @@ def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len):
     head_dim = D // num_heads
     out = torch.empty((B, N, D), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = library().ssl4polyp_qkvproj_attention_fwd(
+        err = library().ssl4polyp_qkvproj_attention_fwd_probe(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, d_in, num_heads,
             head_dim, N if valid_len is None else int(valid_len), _scale(head_dim, x.dtype),
-            int(bool(softmax_f32)), torch.cuda.current_stream().cuda_stream,
+            int(bool(softmax_f32)), probe, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"qkvproj_attention kernel launch failed: CUDA error {err}")

@@ -19,27 +19,67 @@
 // D = 768, 12 heads of 64) the forward is 52.2 GFLOP (44.6 in the
 // projection) against 42 MB (x in, out out, W once), over 1,200 FLOP per
 // byte: the tensor cores bound it, as they bound the backward's 153 GFLOP.
+// Per SM the other limit is the intake of x and W from L2 (some 70 GB/s a
+// SM by TMA, PERF.md): a unit's x and W panels are 0.6 MB at that shape.
 //
-// Forward design.  One image's x tile (197 x 768 bf16, 302 KB) does not fit
-// an SM's shared memory, so a block of 8 warps owns one (image, head) pair
-// and streams x in reduction chunks of 64 columns against the head's three
-// 768 x hd column panels of W, one panel after the other through a two-stage
-// cp.async ring (mma.sync m16n8k16, W's tile read transposed with
-// ldmatrix.trans; a warp owns 16-row tiles w, w + 8 of the image and all hd
-// columns).  Each panel's epilogue rounds, adds the bias, rounds again and
-// leaves Q, K or V in shared memory, where attention_core.cuh's
-// attention_rows takes 16 query rows per warp.  What this re-reads: every
-// head reads its image's x three times (36 reads of x per image at 12 heads,
-// from L2 after the first) and its own panels of W once, so W is read B
-// times in all; the products are not overlapped with the next head's loads.
+// The forward (the second design; PERF.md has its times, the first
+// design's and the ablations, through ssl4polyp_qkvproj_attention_fwd_probe):
+//   * A unit is one image and 64 of W's columns in each of its three
+//     panels: one head at hd 64, two neighbouring heads at hd 32, so that the
+//     projection is the same at both.  A persistent grid of one block an SM
+//     walks the units head-fastest (unit blockIdx.x + i * gridDim.x), so the
+//     blocks in flight share a few images' x and all of W in L2.
+//   * The projection is computed transposed, qkv^T = W^T x^T: each of W's
+//     three 64-column panels (q, k, v) is the MN-major A operand, read as it
+//     lies in W's (in, out) layout with wgmma's transpose bit, and x's rows
+//     are the K-major B operand.  M is 3 x 64 features, exact, where the other
+//     form would pad 197 rows to 256; the tokens are padded to 16 * NKT (208
+//     at N 197, 6 % wasted).  Two consumer warpgroups split the tokens in
+//     halves and hold all three panels' products for theirs: 3 x
+//     m64n(8 NKT)k16 a step of 16, 3 x 4 NKT accumulators a thread (156 at
+//     N 197).
+//   * A producer thread (its warpgroup gives its registers up by
+//     setmaxnreg) loads each 64-deep reduction step by TMA into a ring
+//     stage: x's 16 * NKT rows from a 3-D map over (B, N, Din), whose rows at
+//     or past N arrive as zeros and never come from the next image, and the
+//     three 64 x 64 W boxes at columns p * D + 64 * (unit's column block).
+//     x is read once a unit, not once a panel.  The ring runs on across
+//     units, so the next unit's first stages load while this one's attention
+//     runs.
+//   * The epilogue rounds each product to bf16, adds the bias in bf16 and
+//     rounds again, folds 1/sqrt(hd) into q with its rounding, zeroes the
+//     tokens at or past N, and stores the tiles transposed (stmatrix .trans)
+//     as row-major, swizzled Q, K and V tiles laid out as attention.cu's:
+//     (token, hd) rows of 2 * hd bytes under the swizzle of that width.  The
+//     two consumer warpgroups meet at a named barrier before (the last unit's
+//     attention is done with the tiles) and after (the tiles are whole).
+//   * The attention phase is attention.cu's on these tiles: the two
+//     warpgroups take a unit's (head, 64-row query tile) items in turn; S =
+//     Q K^T by wgmma m64n(16 NKT)k16 from shared memory; keys at or past
+//     valid_len masked, the scores rounded to bf16 unless softmax_f32, the
+//     exact softmax on the accumulator fragments (exp2 on the special
+//     function unit, eight max and sum chains a row), the weights rounded
+//     into wgmma's register A fragments; O = P V by register-A wgmma with V
+//     MN-major; O rounded once and stored 16 bytes a thread behind a row
+//     guard, nothing past row N - 1 or outside the head's columns.
+//   * No atomics: a rerun gives the same bits.
+//
+// The first design (qkvproj_attention_first_kernel, reached only through
+// the probe): a block of 8 warps per (image, head) streams x in 64-column
+// reduction steps against the head's three 768 x hd panels of W one panel
+// after the other through a two-stage cp.async ring (mma.sync m16n8k16,
+// W's tile read transposed with ldmatrix.trans), so every head reads its
+// image's x three times; each panel's epilogue leaves Q, K or V in shared
+// memory, where attention_core.cuh's attention_rows takes 16 query rows a
+// warp.  Its projection is project_head, which the backward shares.
 //
 // Backward design.  dx sums over heads and dW, db over all B * N rows; the
 // TPU kernel accumulates across its sequential grid, and here a fixed-order
 // reduction without atomics takes its place, in phases, with the rounded
 // dqkv (B, N, 3D) bf16 in global scratch between them (qkv itself is
 // recomputed, never stored):
-//   1. qkvproj_attention_bwd_kernel, a block per (image, head): the forward's
-//      projection again, dO staged in the ring's place, then
+//   1. qkvproj_attention_bwd_kernel, a block per (image, head): the first
+//      forward design's projection again, dO staged in the ring's place, then
 //      attention_core.cuh's attention_backward_recompute_ds (mode kBwdFoldScaledDs)
 //      writes the head's dqkv columns and its row of the (B, 3D) fp32 db
 //      partial; column_sum_kernel adds the B rows in order;
@@ -47,6 +87,7 @@
 //      are contiguous along the reduction;
 //   3. dW = x^T dqkv on transposed_product.cuh, row slices added in order.
 #include "attention_core.cuh"
+#include "hopper.cuh"
 #include "transposed_product.cuh"
 
 // The tiled GEMM y = x . w^T (mlp.cu, same library).
@@ -54,6 +95,26 @@ extern "C" int ssl4polyp_matmul_nt(const void* x, const void* w, void* y, int M,
                                    void* stream);
 
 namespace {
+
+// `probe` bits of the forward, a measurement aid (0 on every path;
+// chip_smoke.py times the kernel with parts left out, whose results are
+// wrong): no softmax arithmetic (the scores rounded straight into the
+// weights), no projection products (q, k and v are the bias alone), no
+// prefetch (a unit's loads start once the last unit is done); and two with
+// right results: the first design, and the projection alone (each head's q,
+// before the scale fold, written into its columns of out).
+constexpr int kProbeNoSoftmax = 1;
+constexpr int kProbeNoProjection = 2;
+constexpr int kProbeNoPrefetch = 4;
+constexpr int kProbeFirstDesign = 8;
+constexpr int kProbeProjectionOnly = 16;
+constexpr int kProbeCluster4 = 32;  // clusters of 2 x 2 sharing x stages and W boxes (right results)
+constexpr int kProbeCluster2 = 64;  // clusters of 2 sharing x stages (right results)
+constexpr int kProbeBits = 127;
+
+// ---------------------------------------------------------------------------
+// The first design's projection (the backward's too) and forward.
+// ---------------------------------------------------------------------------
 
 constexpr int kBK = 64;        // reduction depth per step of the projection
 constexpr int kLdX = kBK + 8;  // an x tile stored [row][k]
@@ -178,9 +239,10 @@ __device__ __forceinline__ void project_head(bf16* s_qkv, bf16* ring, const bf16
   __syncthreads();  // Q, K and V are whole and the ring is free
 }
 
+// The first design's forward (kProbeFirstDesign).
 template <int HD, int NKT>
 __global__ void __launch_bounds__(32 * kBwdWarps)
-qkvproj_attention_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
+qkvproj_attention_first_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w,
                          const bf16* __restrict__ bias, bf16* __restrict__ out, int N, int Din,
                          int H, int n_valid, float scale_c, int softmax_f32) {
   constexpr int kLd = HD + 8;
@@ -254,17 +316,551 @@ qkvproj_attention_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict_
   store_dbias_partial<HD>(s_db, db_part, b, h, D);
 }
 
+// ---------------------------------------------------------------------------
+// The forward (second design).
+// ---------------------------------------------------------------------------
+
+constexpr int kThreads = 384;      // a producer warpgroup, two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+constexpr int kConsumerThreads = 256;
+constexpr int kQRows = 64;         // a query tile: one wgmma's M
+constexpr int kUnitCols = 64;      // W's columns a unit takes in each panel
+constexpr int kStep = 32;          // reduction depth of a ring stage
+constexpr int kChains = 8;         // independent max and sum chains a row
+constexpr int kBarrierFree = 1;    // named barriers of the consumer warpgroups
+constexpr int kBarrierReady = 2;
+
+// Shared memory of the forward, each piece aligned to 1,024 bytes (the
+// swizzle's period): a unit's Q, K and V for each of its heads (attention.cu's
+// Buffers: the Q tiles, then K and V), then the ring of stages (x's 16 * NKT
+// rows of 32 reduction columns under the 64-byte swizzle, then the three W
+// boxes of 32 x 64 under the 128-byte one), then the barriers.
 template <int HD, int NKT>
-cudaError_t launch(const bf16* x, const bf16* w, const bf16* bias, bf16* out, int B, int N,
-                   int Din, int H, int n_valid, float scale_c, int softmax_f32,
-                   cudaStream_t stream) {
+struct Layout {
+  static constexpr int kHeads = kUnitCols / HD;  // heads a unit
+  static constexpr int kRowBytes = 2 * HD;
+  static constexpr int kKeys = 16 * NKT;
+  static constexpr int kHalf = kKeys / 2;        // tokens a consumer warpgroup projects
+  static constexpr int kQTiles = (kKeys + kQRows - 1) / kQRows;
+  static constexpr uint32_t kQTileBytes = kQRows * kRowBytes;
+  static constexpr uint32_t kKVStride = (kKeys * kRowBytes + 1023) / 1024 * 1024;
+  static constexpr uint32_t kK = kQTiles * kQTileBytes;  // offsets in a head's tiles
+  static constexpr uint32_t kV = kK + kKVStride;
+  static constexpr uint32_t kHeadBytes = kV + kKVStride;
+  static constexpr uint32_t kQKVBytes = kHeads * kHeadBytes;
+  static constexpr uint32_t kXBytes = kKeys * 2 * kStep;
+  static constexpr uint32_t kWBytes = kStep * 2 * kUnitCols;
+  static constexpr uint32_t kStageBytes = kXBytes + 3 * kWBytes;
+  static constexpr size_t kFixed = kQKVBytes + 32 * sizeof(uint64_t) + 1024;
+  static constexpr int kFit = static_cast<int>((232448 - kFixed) / kStageBytes);
+  static constexpr int kStages = kFit < 8 ? kFit : 8;
+  static_assert(kStages >= 2, "two stages and the tiles fit the block's shared memory");
+  static constexpr size_t kSmemBytes = kFixed + kStages * kStageBytes;
+};
+
+// acc (+)= W_panel^T x^T for a step of 16: 64 features by N tokens, W's
+// panel MN-major (as it lies), x's rows K-major.
+template <int N>
+__device__ __forceinline__ void wgmma_projection(float (&acc)[N / 2], uint64_t desc_w,
+                                                 uint64_t desc_x) {
+  if constexpr (N == 32) {
+    wgmma_m64n32k16_mn_a(acc, desc_w, desc_x, 1);
+  } else if constexpr (N == 64) {
+    wgmma_m64n64k16_mn_a(acc, desc_w, desc_x, 1);
+  } else if constexpr (N == 104) {
+    wgmma_m64n104k16_mn_a(acc, desc_w, desc_x, 1);
+  } else {
+    static_assert(N == 128, "half a key width of the dispatch");
+    wgmma_m64n128k16_mn_a(acc, desc_w, desc_x, 1);
+  }
+}
+
+// S (+)= Q K^T for 64 query rows and 16 * NKT keys, both K-major.
+template <int NKT>
+__device__ __forceinline__ void wgmma_scores(float (&s)[8 * NKT], uint64_t desc_q, uint64_t desc_k,
+                                             int accumulate) {
+  if constexpr (NKT == 4) {
+    wgmma_m64n64k16(s, desc_q, desc_k, accumulate);
+  } else if constexpr (NKT == 8) {
+    wgmma_m64n128k16(s, desc_q, desc_k, accumulate);
+  } else if constexpr (NKT == 13) {
+    wgmma_m64n208k16(s, desc_q, desc_k, accumulate);
+  } else {
+    static_assert(NKT == 16, "a key width of the dispatch");
+    wgmma_m64n256k16(s, desc_q, desc_k, accumulate);
+  }
+}
+
+// O (+)= P V for 16 keys: P from registers, V MN-major.
+template <int HD>
+__device__ __forceinline__ void wgmma_values(float (&o)[HD / 2], const uint32_t (&p)[4],
+                                             uint64_t desc_v, int accumulate) {
+  if constexpr (HD == 32) {
+    wgmma_m64n32k16_rs_mn(o, p, desc_v, accumulate);
+  } else {
+    static_assert(HD == 64, "a head dim of the dispatch");
+    wgmma_m64n64k16_rs_mn(o, p, desc_v, accumulate);
+  }
+}
+
+// The byte offset of 16-byte chunk `chunk` of row `row` in a tile of
+// ROW_BYTES-byte rows (128 or 64) under the swizzle of that width, as TMA
+// writes it and wgmma reads it (the tile aligned to 1,024 bytes).
+template <int ROW_BYTES>
+__device__ __forceinline__ uint32_t swizzled(int row, int chunk) {
+  const uint32_t off = row * ROW_BYTES + chunk * 16;
+  return off ^ ((off >> 3) & (ROW_BYTES == 128 ? 0x70u : 0x30u));
+}
+
+// Combines C partial maxima (or sums) pairwise into r[0].
+template <int C, typename Op>
+__device__ __forceinline__ void combine(float (&r)[C], Op op) {
+#pragma unroll
+  for (int w = C / 2; w > 0; w /= 2)
+#pragma unroll
+    for (int c = 0; c < w; ++c) r[c] = op(r[c], r[c + w]);
+}
+
+// The weights of a warp's rows g and g + 8 from their scores (s[4 j + e]:
+// key 8 j + 2 t + (e & 1), row g for e < 2, else g + 8, as wgmma leaves
+// them; q carries the scale already): keys at or past n_valid masked, the
+// scores rounded to bf16 unless softmax_f32, the exact softmax (exp2 with
+// log2(e) folded into one FMA), normalised and rounded into p, wgmma's A
+// fragments of the 16-key steps (p[kt]: keys 16 kt + 2t, + 1 of rows g and
+// g + 8, then keys 16 kt + 8 + 2t, + 1).  The maxima and sums run as
+// kChains chains a row, combined pairwise.  Without `softmax`, p is S
+// rounded (a measurement aid).
+template <int NKT>
+__device__ __forceinline__ void attention_weights(float (&s)[8 * NKT], uint32_t (&p)[NKT][4],
+                                                  int n_valid, int softmax_f32, int t,
+                                                  bool softmax) {
+  float inv0 = 1.0f, inv1 = 1.0f;
+  if (softmax) {
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; ++j) {
+      if (8 * j + 8 > n_valid) {  // the column tile reaches past the last valid key
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (8 * j + 2 * t + (e & 1) >= n_valid) s[4 * j + e] = -INFINITY;
+      }
+    }
+    if (!softmax_f32) {
+#pragma unroll
+      for (int i = 0; i < 8 * NKT; ++i) s[i] = round_bf16(s[i]);
+    }
+    float max0[kChains], max1[kChains];
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) max0[c] = max1[c] = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; ++j) {
+      max0[j % kChains] = fmaxf(max0[j % kChains], fmaxf(s[4 * j], s[4 * j + 1]));
+      max1[j % kChains] = fmaxf(max1[j % kChains], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    const auto max_op = [](float a, float b) { return fmaxf(a, b); };
+    combine(max0, max_op);
+    combine(max1, max_op);
+    float m0 = max0[0], m1 = max1[0];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, off));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, off));
+    }
+    m0 *= kLog2e;
+    m1 *= kLog2e;
+    float sum0[kChains], sum1[kChains];
+#pragma unroll
+    for (int c = 0; c < kChains; ++c) sum0[c] = sum1[c] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 2 * NKT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[4 * j + e] = exp2_approx(fmaf(s[4 * j + e], kLog2e, e < 2 ? -m0 : -m1));
+      sum0[j % kChains] += s[4 * j] + s[4 * j + 1];
+      sum1[j % kChains] += s[4 * j + 2] + s[4 * j + 3];
+    }
+    const auto sum_op = [](float a, float b) { return a + b; };
+    combine(sum0, sum_op);
+    combine(sum1, sum_op);
+    float total0 = sum0[0], total1 = sum1[0];
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      total0 += __shfl_xor_sync(0xffffffffu, total0, off);
+      total1 += __shfl_xor_sync(0xffffffffu, total1, off);
+    }
+    inv0 = 1.0f / total0;
+    inv1 = 1.0f / total1;
+  }
+#pragma unroll
+  for (int kt = 0; kt < NKT; ++kt) {
+    const float* a = s + 8 * kt;
+    p[kt][0] = pack_floats(a[0] * inv0, a[1] * inv0);
+    p[kt][1] = pack_floats(a[2] * inv1, a[3] * inv1);
+    p[kt][2] = pack_floats(a[4] * inv0, a[5] * inv0);
+    p[kt][3] = pack_floats(a[6] * inv1, a[7] * inv1);
+  }
+}
+
+// A packed pair of fp32 products rounded to bf16, plus `bias` (both halves)
+// rounded again, times `scale` rounded again where `fold`: the bf16
+// instructions give the fp32 route's bits (attention_core.cuh's
+// finish_rows_in_place says why).
+__device__ __forceinline__ uint32_t finish_pair(float a, float b, __nv_bfloat162 bias,
+                                                __nv_bfloat162 scale, bool fold) {
+  const uint32_t packed = pack_floats(a, b);
+  __nv_bfloat162 v = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&packed), bias);
+  if (fold) v = __hmul2(v, scale);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int HD, int NKT>
+__global__ void __launch_bounds__(kThreads, 1)
+qkvproj_attention_kernel(const __grid_constant__ CUtensorMap map_x,
+                         const __grid_constant__ CUtensorMap map_w, const bf16* __restrict__ bias,
+                         bf16* __restrict__ out, int B, int N, int Din, int H, int n_valid,
+                         float scale_c, int softmax_f32, int x_share, int w_share, int probe) {
+  using L = Layout<HD, NKT>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024u - (smem_address(smem_raw) & 1023u)) & 1023u);
+  unsigned char* tiles = smem;  // [kHeads][Q tiles | K | V]
+  unsigned char* ring = smem + L::kQKVBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* done = empty + kStages;  // a unit's end, for kProbeNoPrefetch
+  // The cluster: x_share blocks on neighbouring units of one image share
+  // each x stage, w_share blocks on the same unit of neighbouring images
+  // share each W box; rank = unit_off + x_share * image_off.
+  const uint32_t rank = cluster_rank();
+  const int blocks = x_share * w_share;
+  const int unit_off = static_cast<int>(rank) % x_share;
+  const int image_off = static_cast<int>(rank) / x_share;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbarrier_init(&full[s], 1);
+      mbarrier_init(&empty[s], kConsumerWarps * blocks);
+    }
+    mbarrier_init(done, kConsumerWarps);
+    mbarrier_init_fence();
+  }
+  // The query rows past the projected ones, up to the last 64-row tile, are
+  // zero for good: no product of theirs is stored, but they stay finite.
+  constexpr int kPadChunks = (L::kQTiles * kQRows - L::kKeys) * L::kRowBytes / 16;
+  if constexpr (kPadChunks > 0) {
+    for (int i = threadIdx.x; i < L::kHeads * kPadChunks; i += blockDim.x) {
+      const uint32_t at = L::kKeys * L::kRowBytes + (i % kPadChunks) * 16;
+      *reinterpret_cast<uint4*>(tiles + (i / kPadChunks) * L::kHeadBytes + at) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+  fence_proxy_async_shared();
+  cluster_sync();  // every block's barriers exist before a copy or an arrival reaches them
+
+  // The cluster walks groups of x_share x w_share units, head-fastest; this
+  // block's unit of a group may lie past the last head or image (a ragged
+  // edge): it loads and computes its share for the others and stores nothing.
+  const int D = H * HD;
+  const int per_image = (H + L::kHeads - 1) / L::kHeads;  // units an image
+  const int unit_groups = (per_image + x_share - 1) / x_share;  // along an image
+  const int groups = (B + w_share - 1) / w_share * unit_groups;
+  const int cluster = blockIdx.x / blocks;
+  const int clusters = gridDim.x / blocks;
+  const int ksteps = Din / kStep;
+
+  // The roles part here and never meet again: no block-wide barrier below.
+  if (threadIdx.x < 128) {
+    setmaxnreg_dec<40>();
+    if (threadIdx.x == 0) {
+      // This block loads x rows [unit_off * x_rows, + x_rows) of each stage
+      // for its x partners, and W rows [image_off * w_rows, + w_rows) of each
+      // box for its W partners.
+      const int x_rows = L::kKeys / x_share;
+      const int w_rows = kStep / w_share;
+      const uint16_t x_mask = static_cast<uint16_t>(((1u << x_share) - 1) << (image_off * x_share));
+      uint16_t w_mask = 0;
+      for (int k = 0; k < w_share; ++k) w_mask |= static_cast<uint16_t>(1u << (unit_off + x_share * k));
+      int stage = 0;
+      uint32_t parity = 1;  // a fresh "empty" barrier lets the first pass through
+      for (int grp = cluster, i = 0; grp < groups; grp += clusters, ++i) {
+        if ((probe & kProbeNoPrefetch) && i > 0) mbarrier_wait(done, (i - 1) & 1);
+        const int b = grp / unit_groups * w_share + image_off;
+        const int col = (grp % unit_groups * x_share + unit_off) * kUnitCols;
+        for (int ks = 0; ks < ksteps; ++ks) {
+          mbarrier_wait(&empty[stage], parity);  // every block of the cluster is done with it
+          unsigned char* st = ring + stage * L::kStageBytes;
+          mbarrier_arrive_expect_tx(&full[stage], L::kStageBytes);  // zeros count
+          unsigned char* x_dst = st + unit_off * x_rows * 2 * kStep;
+          if (x_share == 1) {
+            tma_load_3d(x_dst, &map_x, &full[stage], ks * kStep, 0, b);
+          } else {
+            tma_load_3d_multicast(x_dst, &map_x, &full[stage], ks * kStep, unit_off * x_rows, b,
+                                  x_mask);
+          }
+          for (int p = 0; p < 3; ++p) {
+            unsigned char* w_dst =
+                st + L::kXBytes + p * L::kWBytes + image_off * w_rows * 2 * kUnitCols;
+            const int row = ks * kStep + image_off * w_rows;
+            if (w_share == 1) {
+              tma_load_2d(w_dst, &map_w, &full[stage], p * D + col, row);
+            } else {
+              tma_load_2d_multicast(w_dst, &map_w, &full[stage], p * D + col, row, w_mask);
+            }
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            parity ^= 1;
+          }
+        }
+      }
+      // Every block of the cluster hands every stage back before this block
+      // exits: no arrival reaches its barriers after that.
+      for (int s = 0; s < kStages; ++s) {
+        mbarrier_wait(&empty[stage], parity);
+        if (++stage == kStages) {
+          stage = 0;
+          parity ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  setmaxnreg_inc<232>();
+  const int group = threadIdx.x / 128 - 1;  // consumer warpgroup: tokens group * kHalf ..
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const bool project = !(probe & kProbeNoProjection);
+  const bool attend = !(probe & kProbeProjectionOnly);
+  const bool softmax = !(probe & kProbeNoSoftmax);
+  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_c);
+  const int tok0 = group * L::kHalf;
+  auto release = [&](int s) {
+    if (lane == 0)
+      for (int r = 0; r < blocks; ++r) mbarrier_arrive_cluster(&empty[s], r);
+  };
+  int stage = 0;
+  uint32_t parity = 0;
+  for (int grp = cluster, i = 0; grp < groups; grp += clusters, ++i) {
+    const int b = grp / unit_groups * w_share + image_off;
+    const int unit = grp % unit_groups * x_share + unit_off;
+    const int head0 = unit * L::kHeads;
+    const int col = head0 * HD;
+
+    // acc[p][4 j + e]: panel p (q, k, v); feature 16 warp + g of the unit's
+    // 64 for e < 2, + 8 for e >= 2; token tok0 + 8 j + 2 t + (e & 1).
+    float acc[3][L::kHalf / 2];
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+#pragma unroll
+      for (int e = 0; e < L::kHalf / 2; ++e) acc[p][e] = 0.0f;
+    int previous = 0;
+    for (int ks = 0; ks < ksteps; ++ks) {
+      mbarrier_wait(&full[stage], parity);
+      if (project) {
+        const unsigned char* st = ring + stage * L::kStageBytes;
+        const uint64_t desc_x = wgmma_descriptor_swizzled<2 * kStep>(st + tok0 * 2 * kStep);
+        const uint64_t desc_w = wgmma_descriptor_swizzled<128>(st + L::kXBytes);
+        wgmma_pin(acc[0]);
+        wgmma_pin(acc[1]);
+        wgmma_pin(acc[2]);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kStep / 16; ++kk)  // 16 along K: 32 bytes of x, 16 rows of W
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+            wgmma_projection<L::kHalf>(acc[p], desc_w + p * (L::kWBytes >> 4) + kk * 128,
+                                       desc_x + 2 * kk);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous stage's products are done: hand it back
+      }
+      if (ks > 0) release(previous);
+      previous = stage;
+      if (++stage == kStages) {
+        stage = 0;
+        parity ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+    release(previous);
+    wgmma_pin(acc[0]);
+    wgmma_pin(acc[1]);
+    wgmma_pin(acc[2]);
+    if (b >= B || unit >= per_image) {  // a ragged edge's share: nothing to store
+      if (probe & kProbeNoPrefetch) {
+        __syncwarp();
+        if (lane == 0) mbarrier_arrive(done);
+      }
+      continue;
+    }
+
+    // The epilogue: this thread's features f and f + 8 of each panel, its
+    // warp's 16 features the 16-byte chunks 2 warp and 2 warp + 1 of the
+    // unit's 64 (the head's row at hd 64; chunks of two heads' rows at hd
+    // 32).  stmatrix's lanes 0-7 address the first chunk's 8 token rows,
+    // lanes 8-15 the second's.
+    named_barrier_sync(kBarrierFree, kConsumerThreads);  // the last unit's tiles are read
+    const int f = 16 * warp + g;
+    const int chunk = 2 * warp + ((lane >> 3) & 1);
+    unsigned char* head_tiles = tiles + (chunk / (HD / 8)) * L::kHeadBytes;
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const bf16 zero = __float2bfloat16(0.0f);
+      const bf16 b_lo = col + f < D ? bias[p * D + col + f] : zero;
+      const bf16 b_hi = col + f + 8 < D ? bias[p * D + col + f + 8] : zero;
+      const bool fold = p == 0 && attend;
+      unsigned char* dst = head_tiles + (p == 0 ? 0 : p == 1 ? L::kK : L::kV);
+#pragma unroll
+      for (int j = 0; j < NKT; ++j) {
+        const int tok = tok0 + 8 * j + 2 * t;
+        uint32_t lo = finish_pair(acc[p][4 * j], acc[p][4 * j + 1], __bfloat162bfloat162(b_lo),
+                                  scale2, fold);
+        uint32_t hi = finish_pair(acc[p][4 * j + 2], acc[p][4 * j + 3],
+                                  __bfloat162bfloat162(b_hi), scale2, fold);
+        const uint32_t keep = tok >= N ? 0u : tok + 1 >= N ? 0x0000ffffu : 0xffffffffu;
+        stmatrix_x2_trans(dst + swizzled<L::kRowBytes>(tok0 + 8 * j + (lane & 7),
+                                                      chunk % (HD / 8)),
+                          lo & keep, hi & keep);
+      }
+    }
+    fence_proxy_async_shared();  // the stores, before wgmma reads them
+    named_barrier_sync(kBarrierReady, kConsumerThreads);
+
+    if (attend) {
+      // The warpgroups take the (head, query tile) items in turn, the first
+      // by the unit's parity, so that a short last tile falls to each in turn.
+      const int q_tiles = (N + kQRows - 1) / kQRows;
+      for (int item = (group + i) & 1; item < L::kHeads * q_tiles; item += 2) {
+        const int hh = item / q_tiles;
+        const int tile = item % q_tiles;
+        if (head0 + hh >= H) continue;  // hd 32 and an odd head count: the last unit's second
+        const unsigned char* buf = tiles + hh * L::kHeadBytes;
+        const uint64_t desc_q = wgmma_descriptor_swizzled<L::kRowBytes>(buf + tile * L::kQTileBytes);
+        const uint64_t desc_k = wgmma_descriptor_swizzled<L::kRowBytes>(buf + L::kK);
+        const uint64_t desc_v = wgmma_descriptor_swizzled<L::kRowBytes>(buf + L::kV);
+        float s[8 * NKT];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < HD / 16; ++kk)  // 16 along hd is 32 bytes: 2 descriptor units
+          wgmma_scores<NKT>(s, desc_q + 2 * kk, desc_k + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        wgmma_pin(s);
+
+        const int r0 = tile * kQRows + 16 * warp;  // this warp's first row
+        uint32_t pw[NKT][4];
+        if (r0 < N) {
+          attention_weights<NKT>(s, pw, n_valid, softmax_f32, t, softmax);
+        } else {  // no row of this warp is a token: its weights are never read
+#pragma unroll
+          for (int kt = 0; kt < NKT; ++kt) pw[kt][0] = pw[kt][1] = pw[kt][2] = pw[kt][3] = 0u;
+        }
+        float o[HD / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kt = 0; kt < NKT; ++kt)  // 16 keys are 16 rows of V
+          wgmma_values<HD>(o, pw[kt], desc_v + kt * ((16 * L::kRowBytes) >> 4), kt);
+        wgmma_commit();
+        wgmma_wait<0>();  // V is read and pw free
+        wgmma_pin(o);
+        uint32_t lo[HD / 8], hi[HD / 8];  // o[4 n + e]: column tile n, as s
+#pragma unroll
+        for (int n = 0; n < HD / 8; ++n) {
+          lo[n] = pack_floats(o[4 * n], o[4 * n + 1]);
+          hi[n] = pack_floats(o[4 * n + 2], o[4 * n + 3]);
+        }
+        const int row_a = r0 + g;
+        bf16* out_a = out + (static_cast<long>(b) * N + row_a) * D + (head0 + hh) * HD;
+        store_tile_rows<HD>(out_a, out_a + 8L * D, lo, hi, row_a < N, row_a + 8 < N, t);
+      }
+    } else {  // kProbeProjectionOnly: each head's q, unscaled, into its columns of out
+      constexpr int kChunks = HD / 8;
+      for (int i2 = threadIdx.x - 128; i2 < L::kHeads * N * kChunks; i2 += kConsumerThreads) {
+        const int hh = i2 / (N * kChunks);
+        const int row = (i2 / kChunks) % N;
+        const int c = i2 % kChunks;
+        if (head0 + hh >= H) continue;
+        *reinterpret_cast<uint4*>(out + (static_cast<long>(b) * N + row) * D + (head0 + hh) * HD +
+                                  c * 8) =
+            *reinterpret_cast<const uint4*>(tiles + hh * L::kHeadBytes +
+                                            swizzled<L::kRowBytes>(row, c));
+      }
+    }
+    if (probe & kProbeNoPrefetch) {
+      __syncwarp();
+      if (lane == 0) mbarrier_arrive(done);
+    }
+  }
+}
+
+template <int HD, int NKT>
+cudaError_t launch_first(const bf16* x, const bf16* w, const bf16* bias, bf16* out, int B, int N,
+                         int Din, int H, int n_valid, float scale_c, int softmax_f32,
+                         cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<HD, NKT, false>();
-  cudaError_t err = cudaFuncSetAttribute(qkvproj_attention_kernel<HD, NKT>,
+  cudaError_t err = cudaFuncSetAttribute(qkvproj_attention_first_kernel<HD, NKT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  qkvproj_attention_kernel<HD, NKT><<<dim3(H, B), 32 * kBwdWarps, smem, stream>>>(
+  qkvproj_attention_first_kernel<HD, NKT><<<dim3(H, B), 32 * kBwdWarps, smem, stream>>>(
       x, w, bias, out, N, Din, H, n_valid, scale_c, softmax_f32);
+  return cudaGetLastError();
+}
+
+template <int HD, int NKT>
+cudaError_t launch(const bf16* x, const bf16* w, const bf16* bias, bf16* out, int B, int N,
+                   int Din, int H, int n_valid, float scale_c, int softmax_f32, int probe,
+                   cudaStream_t stream) {
+  if (probe & kProbeFirstDesign)
+    return launch_first<HD, NKT>(x, w, bias, out, B, N, Din, H, n_valid, scale_c, softmax_f32,
+                                 stream);
+  using L = Layout<HD, NKT>;
+  // Clusters of 1; the probe asks for clusters of two images by two units
+  // that share every x stage and W box (each loaded once from L2, multicast
+  // to the two blocks that need it) or of two units sharing x stages.
+  int x_share = probe & (kProbeCluster4 | kProbeCluster2) ? 2 : 1;
+  int w_share = probe & kProbeCluster4 ? 2 : 1;
+  const int blocks = x_share * w_share;
+  CUtensorMap map_x, map_w;
+  cudaError_t err = make_tensor_map_stack(&map_x, x, B, N, Din, L::kKeys / x_share, kStep);
+  if (err != cudaSuccess) return err;
+  err = make_tensor_map_sw128(&map_w, w, Din, 3 * H * HD, kStep / w_share);
+  if (err != cudaSuccess) return err;
+  const void* kernel = reinterpret_cast<const void*>(qkvproj_attention_kernel<HD, NKT>);
+  static bool configured[kMaxDevices] = {};
+  err = allow_dynamic_smem(qkvproj_attention_kernel<HD, NKT>, L::kSmemBytes, configured);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t config = {};
+  config.blockDim = dim3(kThreads);
+  config.dynamicSmemBytes = L::kSmemBytes;
+  config.stream = stream;
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeClusterDimension;
+  attribute[0].val.clusterDim.x = blocks;
+  attribute[0].val.clusterDim.y = 1;
+  attribute[0].val.clusterDim.z = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  // Persistent: as many clusters as the card holds at once (asked once a
+  // device and cluster size), at most one a group.
+  static int resident[kMaxDevices][3] = {};
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  int clusters = device < kMaxDevices ? resident[device][blocks / 2] : 0;
+  if (clusters == 0) {
+    config.gridDim = dim3(blocks);
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    if (device < kMaxDevices) resident[device][blocks / 2] = clusters;
+  }
+  const int per_image = (H + L::kHeads - 1) / L::kHeads;
+  const int groups = (B + w_share - 1) / w_share * ((per_image + x_share - 1) / x_share);
+  config.gridDim = dim3((groups < clusters ? groups : clusters) * blocks);
+  void* args[] = {&map_x, &map_w, &bias, &out, &B, &N, &Din, &H, &n_valid, &scale_c,
+                  &softmax_f32, &x_share, &w_share, &probe};
+  err = cudaLaunchKernelExC(&config, kernel, args);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -293,9 +889,9 @@ cudaError_t launch_bwd(const bf16* x, const bf16* w, const bf16* bias, const bf1
 
 cudaError_t dispatch(const bf16* x, const bf16* w, const bf16* bias, bf16* out, int B, int N,
                      int Din, int H, int head_dim, int n_valid, float scale_c, int softmax_f32,
-                     cudaStream_t stream) {
+                     int probe, cudaStream_t stream) {
 #define SSL4POLYP_FWD(HD, NKT) \
-  launch<HD, NKT>(x, w, bias, out, B, N, Din, H, n_valid, scale_c, softmax_f32, stream)
+  launch<HD, NKT>(x, w, bias, out, B, N, Din, H, n_valid, scale_c, softmax_f32, probe, stream)
   SSL4POLYP_FOR_SHAPE(SSL4POLYP_FWD)
 #undef SSL4POLYP_FWD
 }
@@ -316,18 +912,31 @@ cudaError_t dispatch_bwd(const bf16* x, const bf16* w, const bf16* bias, const b
 }  // namespace
 
 // x: (B, N, Din) bf16; w: (Din, 3*H*hd) bf16, columns [q heads | k heads | v
-// heads]; bias: (3*H*hd,) bf16; out: (B, N, H*hd) bf16.  Din a multiple of
-// 64, hd 32 or 64, N <= 256.  scale_c is 1/sqrt(hd) as bf16 holds it.
-// Returns the launch's CUDA error.
+// heads]; bias: (3*H*hd,) bf16; out: (B, N, H*hd) bf16; all contiguous and
+// 16-byte aligned.  Din a multiple of 64, hd 32 or 64, N <= 256.  scale_c is
+// 1/sqrt(hd) as bf16 holds it.  `probe` (0 on every path) is a measurement
+// aid: the kProbe* bits above.  Returns the CUDA error of the tensor maps or
+// the launch.
+extern "C" int ssl4polyp_qkvproj_attention_fwd_probe(const void* x, const void* w,
+                                                     const void* bias, void* out, int B, int N,
+                                                     int Din, int H, int head_dim, int n_valid,
+                                                     float scale_c, int softmax_f32, int probe,
+                                                     void* stream) {
+  if (B < 1 || Din % kBK != 0 || (probe & ~kProbeBits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                                   static_cast<const bf16*>(bias), static_cast<bf16*>(out), B, N,
+                                   Din, H, head_dim, n_valid, scale_c, softmax_f32, probe,
+                                   static_cast<cudaStream_t>(stream)));
+}
+
+// ssl4polyp_qkvproj_attention_fwd_probe with probe 0.
 extern "C" int ssl4polyp_qkvproj_attention_fwd(const void* x, const void* w, const void* bias,
                                                void* out, int B, int N, int Din, int H,
                                                int head_dim, int n_valid, float scale_c,
                                                int softmax_f32, void* stream) {
-  if (Din % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                                   static_cast<const bf16*>(bias), static_cast<bf16*>(out), B, N,
-                                   Din, H, head_dim, n_valid, scale_c, softmax_f32,
-                                   static_cast<cudaStream_t>(stream)));
+  return ssl4polyp_qkvproj_attention_fwd_probe(x, w, bias, out, B, N, Din, H, head_dim, n_valid,
+                                               scale_c, softmax_f32, 0, stream);
 }
 
 // The backward of ssl4polyp_qkvproj_attention_fwd for the output gradient

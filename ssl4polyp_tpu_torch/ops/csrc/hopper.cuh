@@ -1,11 +1,13 @@
 // Hopper-only device and host helpers (sm_90a): mbarriers (arrivals on a
 // cluster peer's too), thread block clusters, TMA tile loads through a
-// tensor map (2-D, multicast to a cluster as well, and 3-D over a stack of
-// matrices), the warpgroup matrix multiply (wgmma, A from shared memory or
-// registers, B K-major or MN-major) with its shared-memory descriptors for
-// swizzled tiles, named barriers, the async-proxy fence, programmatic
-// dependent launch, and setmaxnreg.  mlp.cu's GEMM and fused MLP,
-// ln_linear.cu's kernel and attention.cu's forward are built from them.
+// tensor map (2-D and 3-D over a stack of matrices, each multicast to a
+// cluster as well), the warpgroup matrix multiply (wgmma, A from shared memory,
+// K-major or MN-major, or from registers, B K-major or MN-major) with its
+// shared-memory descriptors for swizzled tiles, named barriers, the
+// async-proxy fence, programmatic dependent launch, transposed stmatrix
+// stores, and setmaxnreg.  mlp.cu's GEMM and fused MLP,
+// ln_linear.cu's kernel, attention.cu's forward and attention_block.cu's
+// forward are built from them.
 //
 // The shared-memory layout everything here agrees on: a tile of R rows of 64
 // bf16 values (128 bytes a row), written by TMA with
@@ -171,6 +173,19 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_address(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// tma_load_3d into the same offsets of every block of the cluster named in
+// `mask`, as tma_load_2d_multicast does.
+__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1, int c2,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_address(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "h"(mask)
       : "memory");
 }
 
@@ -431,6 +446,132 @@ __device__ __forceinline__ void wgmma_m64n208k16(float (&d)[104], uint64_t desc_
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (64 x 32, fp32, 16 registers a thread) (+)= A (64 x 16) . B (32 x 16)^T, both bf16
+// in shared memory behind their descriptors: A MN-major (its 16 rows of K each hold
+// the 64 values of M contiguously: a row-major (K, M) tile, the transpose bit set),
+// B K-major.  `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n32k16_mn_a(float (&d)[16], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 64, fp32, 32 registers a thread) (+)= A (64 x 16) . B (64 x 16)^T, both bf16
+// in shared memory behind their descriptors: A MN-major (its 16 rows of K each hold
+// the 64 values of M contiguously: a row-major (K, M) tile, the transpose bit set),
+// B K-major.  `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k16_mn_a(float (&d)[32], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 104, fp32, 52 registers a thread) (+)= A (64 x 16) . B (104 x 16)^T, both bf16
+// in shared memory behind their descriptors: A MN-major (its 16 rows of K each hold
+// the 64 values of M contiguously: a row-major (K, M) tile, the transpose bit set),
+// B K-major.  `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n104k16_mn_a(float (&d)[52], uint64_t desc_a,
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n104k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51}, "
+      "%52, %53, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (64 x 128, fp32, 64 registers a thread) (+)= A (64 x 16) . B (128 x 16)^T, both bf16
+// in shared memory behind their descriptors: A MN-major (its 16 rows of K each hold
+// the 64 values of M contiguously: a row-major (K, M) tile, the transpose bit set),
+// B K-major.  `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n128k16_mn_a(float (&d)[64], uint64_t desc_a,
+                                                      uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (64 x 128, fp32, 64 registers a thread) (+)= A (64 x 16) . B (128 x 16)^T, both bf16,
 // A from registers (a[0..3]: this warp's 16 x 16 slice in mma.sync's A layout:
 // rows g, g + 8 by columns 2t, 2t + 1, then 2t + 8, 2t + 9), B K-major in shared
@@ -612,6 +753,20 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_mn(float (&d)[32], const uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
+// --- stmatrix ---------------------------------------------------------------
+
+// Two 8x8 bf16 matrices from registers into shared memory, each transposed on
+// the way: thread (g, t) gives r[i], the elements (g, 2t) and (g, 2t + 1) of
+// matrix i (mma's and wgmma's accumulator layout, packed), and lane l < 16
+// the address of row l % 8 of the stored matrix l / 8, which receives column
+// l % 8 of the one in registers (16 contiguous bytes).
+__device__ __forceinline__ void stmatrix_x2_trans(void* row, uint32_t r0, uint32_t r1) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n" ::"r"(
+                   smem_address(row)),
+               "r"(r0), "r"(r1)
+               : "memory");
+}
+
 // --- registers --------------------------------------------------------------
 
 // The warpgroup gives registers back to the SM (dec) or takes more (inc);
@@ -661,6 +816,34 @@ inline cudaError_t make_tensor_map_sw128(CUtensorMap* map, const void* base, int
   const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
                              dims, strides, box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A tensor map over `count` row-major (rows, cols) bf16 matrices that follow
+// one another in memory (images of (B, N, Din)), for boxes of box_rows x
+// box_cols of one matrix under the swizzle of the box's row (box_cols 64,
+// 32 or 16: 128, 64 or 32 bytes): rows past a matrix's last are zeros, and
+// a box never reads the next matrix.
+inline cudaError_t make_tensor_map_stack(CUtensorMap* map, const void* base, int count, int rows,
+                                         int cols, int box_rows, int box_cols) {
+  const TensorMapEncode encode = tensor_map_encoder();
+  if (encode == nullptr) return cudaErrorSymbolNotFound;
+  const CUtensorMapSwizzle swizzle = box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : box_cols == 16 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                      : CU_TENSOR_MAP_SWIZZLE_NONE;
+  if (swizzle == CU_TENSOR_MAP_SWIZZLE_NONE) return cudaErrorInvalidValue;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(count)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,  // bytes between rows
+                                 static_cast<cuuint64_t>(rows) * cols * 2};  // between matrices
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1};
+  const cuuint32_t element_strides[3] = {1, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base),
+                             dims, strides, box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                             swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -11,8 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+from ssl4polyp_tpu.ops.attention_block import _project as jax_project
 from ssl4polyp_tpu.ops.attention_block import fused_qkvproj_attention as jax_qkvproj_attention
 from ssl4polyp_tpu_torch import ops
+from ssl4polyp_tpu_torch.ops import attention_block
 from ssl4polyp_tpu_torch.ops.attention_block import (
     fused_qkvproj_attention,
     fused_qkvproj_attention_backward_reference,
@@ -149,3 +151,40 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert not any(ops.launch_counts().values())
     assert {"fused_qkvproj_attention", "fused_qkvproj_attention_backward"} <= set(
         ops.launch_counts())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_project_equals_the_jax_projection_bit_for_bit_on_small_integers(dtype):
+    # The card test of the forward's projection alone holds the kernel to the
+    # port's _project on small integers, where every product sum is exact in
+    # fp32.  On such inputs the port's _project equals the JAX kernel's own
+    # (both roundings included) bit for bit: the card test's reference is the
+    # JAX package's projection.
+    rng = np.random.default_rng(6)
+    x = rng.integers(-2, 3, (2, 29, 768)).astype(np.float32)
+    w = rng.integers(-2, 3, (768, 192)).astype(np.float32)
+    b = rng.integers(-8, 9, 192).astype(np.float32)
+    ours = attention_block._project(*(torch.from_numpy(a).to(getattr(torch, dtype))
+                                      for a in (x, w, b)))
+    ref = jax_project(jnp.asarray(x, dtype), jnp.asarray(w, dtype),
+                      jnp.asarray(b, dtype).reshape(1, -1))
+    assert ours.dtype == getattr(torch, dtype) and ref.dtype == jnp.dtype(dtype)
+    np.testing.assert_array_equal(ours.float().numpy(), np.asarray(ref.astype(jnp.float32)))
+
+
+def test_forward_kernel_refuses_unknown_probe_bits_before_any_build(monkeypatch):
+    from ssl4polyp_tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    x, w, b, _ = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(7, 1, 8, 64, 2, 32))
+    bits = (attention_block.PROBE_NO_SOFTMAX, attention_block.PROBE_NO_PROJECTION,
+            attention_block.PROBE_NO_PREFETCH, attention_block.PROBE_FIRST_DESIGN,
+            attention_block.PROBE_PROJECTION_ONLY, attention_block.PROBE_CLUSTER_4,
+            attention_block.PROBE_CLUSTER_2)
+    assert sum(bits) == attention_block._PROBE_BITS and len(set(bits)) == len(bits)
+    for probe in (128, attention_block._PROBE_BITS + 1, -1):
+        with pytest.raises(ValueError, match="probe"):
+            attention_block._forward_kernel(x, w, b, 2, True, None, probe=probe)

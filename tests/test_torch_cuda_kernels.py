@@ -843,6 +843,162 @@ def test_qkvproj_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
             fused_qkvproj_attention(x, w, b, 4, True, 9)
 
 
+# The forward's tiling: tokens split in halves of 8 * NKT between two
+# warpgroups (16 * NKT keys: 64, 128, 208, 256), 64-row query tiles, units of
+# one head at hd 64 and two at hd 32 (an odd head count leaves the last
+# unit's second head empty), 64-deep reduction steps of the x + W ring;
+# every length at the edges of a 16-row group, a query tile or a key width,
+# at both head dims, with Din 64, 512 and 768 and valid_len below N; then the
+# six shapes of the test above, among them units below one wave of 132 SMs
+# and past five rounds.
+_QKVPROJ_FWD_EDGES = [
+    (2, n, (64, 512, 768)[i % 3], 3, hd, i % 2 == 0, None if i % 4 < 2 else max(1, n - 7))
+    for i, (n, hd) in enumerate((n, hd) for n in (1, 16, 17, 64, 65, 192, 193, 208, 256)
+                                for hd in (32, 64))
+]
+_QKVPROJ_FWD_SHAPES = [
+    (64, 197, 768, 12, 64, True, None), (8, 197, 512, 16, 32, False, None),
+    (3, 197, 768, 12, 64, True, 150), (2, 50, 64, 4, 32, False, 40),
+    (1, 256, 128, 2, 64, True, 255), (2, 129, 192, 8, 32, False, None),
+]
+
+
+def _qkvproj_args(gen, B, N, Din, H, hd):
+    D = H * hd
+    return (_randn(gen, B, N, Din), _randn(gen, Din, 3 * D, scale=Din ** -0.5),
+            _randn(gen, 3 * D, scale=0.5))
+
+
+@pytest.mark.parametrize("B, N, Din, H, hd, softmax_f32, valid_len",
+                         _QKVPROJ_FWD_EDGES + _QKVPROJ_FWD_SHAPES)
+@torch.inference_mode()
+def test_qkvproj_attention_forward_matches_plain_and_reruns_equal(gen, B, N, Din, H, hd,
+                                                                   softmax_f32, valid_len):
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+
+    x, w, b = _qkvproj_args(gen, B, N, Din, H, hd)
+    ops.reset_launch_counts()
+    out = ab.fused_qkvproj_attention(x, w, b, H, softmax_f32, valid_len)
+    again = ab.fused_qkvproj_attention(x, w, b, H, softmax_f32, valid_len)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["fused_qkvproj_attention"] == 2
+    rows = slice(None) if valid_len is None else slice(0, valid_len)
+    ref = ab.fused_qkvproj_attention_reference(x, w, b, H, softmax_f32, valid_len)
+    # As in the test above: one flipped bf16 ulp of qkv carried into the core.
+    torch.testing.assert_close(out[:, rows], ref[:, rows], atol=2e-2, rtol=2e-2)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("B, N, Din, H, hd, softmax_f32, valid_len",
+                         _QKVPROJ_FWD_SHAPES + [(3, 17, 512, 5, 32, True, 9),
+                                                (5, 65, 64, 3, 64, False, None)])
+@torch.inference_mode()
+def test_qkvproj_attention_cluster_shapes_give_the_same_bits(gen, B, N, Din, H, hd, softmax_f32,
+                                                             valid_len):
+    # Sharing x stages and W boxes between the blocks of a cluster moves no
+    # arithmetic: clusters of 2 x 2, of 2 on one image and the default 1 give
+    # the same bits, ragged edges (an odd image or unit count) included.
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+
+    args = (*_qkvproj_args(gen, B, N, Din, H, hd), H, softmax_f32, valid_len)
+    want = ab._forward_kernel(*args)
+    for probe in (ab.PROBE_CLUSTER_4, ab.PROBE_CLUSTER_2):
+        got = ab._forward_kernel(*args, probe=probe)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), probe
+
+
+@pytest.mark.parametrize("B, N, Din, H, hd, softmax_f32, valid_len",
+                         _QKVPROJ_FWD_SHAPES[1:] + [(2, 1, 64, 3, 32, True, None)])
+@torch.inference_mode()
+def test_qkvproj_attention_first_design_agrees_with_the_kernel(gen, B, N, Din, H, hd,
+                                                                softmax_f32, valid_len):
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+
+    x, w, b = _qkvproj_args(gen, B, N, Din, H, hd)
+    args = (x, w, b, H, softmax_f32, valid_len)
+    out = ab._forward_kernel(*args)
+    first = ab._forward_kernel(*args, probe=ab.PROBE_FIRST_DESIGN)
+    torch.cuda.synchronize()
+    rows = slice(None) if valid_len is None else slice(0, valid_len)
+    ref = ab.fused_qkvproj_attention_reference(*args)
+    torch.testing.assert_close(first[:, rows], ref[:, rows], atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out[:, rows], first[:, rows], atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B, N, Din, H, hd", [(3, 197, 768, 12, 64), (2, 197, 512, 16, 32),
+                                              (2, 65, 64, 3, 32), (1, 256, 128, 2, 64),
+                                              (2, 1, 64, 1, 64), (2, 17, 192, 5, 32)])
+@torch.inference_mode()
+def test_qkvproj_attention_projection_alone_is_exact(gen, B, N, Din, H, hd):
+    # The projection apart from the attention, through the probe: each head's
+    # q before its scale fold lands in its columns of out.  Small integers in
+    # x, W and b make every product sum exact in fp32 on both sides, so the
+    # two roundings agree and any fault of the operands' layouts (W MN-major,
+    # x K-major, the transposed stores into swizzled tiles) shows bit for bit.
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+
+    D = H * hd
+
+    def ints(*shape, low=-2, high=3):
+        values = torch.randint(low, high, shape, generator=gen, device="cuda")
+        return values.to(torch.bfloat16)
+
+    x, w, b = ints(B, N, Din), ints(Din, 3 * D), ints(3 * D, low=-8, high=9)
+    got = ab._forward_kernel(x, w, b, H, True, None, probe=ab.PROBE_PROJECTION_ONLY)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ab._project(x, w, b)[..., :D])
+
+
+@pytest.mark.parametrize("N, Din, H, hd", [(197, 768, 12, 64), (1, 64, 1, 64), (65, 64, 3, 32),
+                                           (256, 128, 2, 64), (17, 192, 5, 32)])
+@torch.inference_mode()
+def test_qkvproj_attention_forward_reads_and_writes_nothing_outside(gen, N, Din, H, hd):
+    # The C entry point on views inside filled buffers: NaN past the last
+    # image of x and past the end of W would reach the output if a load read
+    # there; nothing before out or past its end changes.
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    B, pad, D = 2, 4096, H * hd
+
+    def inside(fill, body):
+        buffer = torch.full((pad + body.numel() + pad,), fill, dtype=torch.bfloat16, device="cuda")
+        buffer[pad:pad + body.numel()] = body.reshape(-1)
+        return buffer, buffer[pad:pad + body.numel()].view(body.shape)
+
+    x, w, b = _qkvproj_args(gen, B, N, Din, H, hd)
+    (_, x_in), (_, w_in) = inside(float("nan"), x), inside(float("nan"), w)
+    buffer, out = inside(-1234.0, torch.zeros(B, N, D, device="cuda"))
+    err = library().ssl4polyp_qkvproj_attention_fwd(
+        x_in.data_ptr(), w_in.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, Din, H, hd, N,
+        ab._scale(hd, torch.bfloat16), 1, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert (buffer[:pad] == -1234.0).all() and (buffer[pad + out.numel():] == -1234.0).all()
+    ref = ab.fused_qkvproj_attention_reference(x, w, b, H)
+    torch.testing.assert_close(out, ref, atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("B, N, Din, H, hd, softmax_f32, valid_len", _QKVPROJ_FWD_SHAPES[2:])
+def test_qkvproj_attention_gradients_after_the_forward_equal_the_backward_kernel(
+        gen, B, N, Din, H, hd, softmax_f32, valid_len):
+    # Through autograd, the new forward leaves the backward's inputs and
+    # bits as they were: the gradients equal a direct backward launch's.
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+
+    x, w, b = _qkvproj_args(gen, B, N, Din, H, hd)
+    dout = _randn(gen, B, N, H * hd)
+    if valid_len is not None:
+        dout[:, valid_len:] = 0
+    leaves = [a.clone().requires_grad_() for a in (x, w, b)]
+    ab.fused_qkvproj_attention(*leaves, H, softmax_f32, valid_len).backward(dout)
+    direct = ab._backward_kernel(x, w, b, dout, H, softmax_f32, valid_len)
+    torch.cuda.synchronize()
+    assert all(torch.equal(leaf.grad, want) for leaf, want in zip(leaves, direct))
+
+
 # The warp-specialised wgmma GEMM's tiles are 128 rows by 128 or 256 columns
 # in steps of 64 along K: shapes on, one below and one above each edge, the
 # smallest the wrapper takes, and the paths' own.
