@@ -50,8 +50,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    same at both shapes (its forward's first design, the plain version and
    ``F.linear`` + SDPA beside the bound, then its forward without the
    softmax arithmetic, without the projection's products, without the
-   prefetch, the projection alone, and in clusters of 2 x 2 blocks sharing x
-   and W and of 2 sharing x), with both ``softmax_f32`` settings
+   prefetch, and the projection alone), with both ``softmax_f32`` settings
    and a ``valid_len`` below the token count; its forward and backward
    reruns are bit-identical.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
@@ -954,9 +953,7 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
     qkvproj_ablations = {"without the softmax arithmetic": attention_block.PROBE_NO_SOFTMAX,
                          "without the projection's products": attention_block.PROBE_NO_PROJECTION,
                          "without the prefetch": attention_block.PROBE_NO_PREFETCH,
-                         "the projection alone": attention_block.PROBE_PROJECTION_ONLY,
-                         "in clusters of 2 x 2": attention_block.PROBE_CLUSTER_4,
-                         "in clusters of 2 sharing x": attention_block.PROBE_CLUSTER_2}
+                         "the projection alone": attention_block.PROBE_PROJECTION_ONLY}
     for i, (b, n, d_in, h, hd, f32, valid_len) in enumerate(cases):
         d = h * hd
         x, dout = randn(b, n, d_in), randn(b, n, d)
@@ -1015,8 +1012,8 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
               f"{fwd_times[i][2]:.4f} ms, {bound_text(**fwd_cost)}; backward kernels "
               f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, the library pair's "
               f"{bwd_times[i][2]:.4f} ms, {bound_text(**bwd_cost)}")
-        print("  forward ablations (timed only; the projection alone and the cluster shapes "
-              "are right, the rest wrong): " + ", ".join(f"{label} {time_ms(probe_run(probe)):.4f} ms"
+        print("  forward ablations (timed only; the projection alone is right, the rest "
+              "wrong): " + ", ".join(f"{label} {time_ms(probe_run(probe)):.4f} ms"
                                      for label, probe in qkvproj_ablations.items()))
         del leaves, lib_out
     fwd_cost, bwd_cost = qkvproj_cost(*cases[0][:5])

@@ -55,18 +55,15 @@ _DW_SLICES = 2
 # chip_smoke.py times the kernel with parts left out, whose results are
 # wrong): no softmax arithmetic (the scores rounded straight into the
 # weights), no projection products (q, k and v the bias alone), no prefetch
-# of the next unit's loads; and four with right results: the first design,
-# the projection alone (each head's q, before the scale fold, written into
-# its columns of the output), clusters of 2 x 2 blocks that share x stages
-# and W boxes by TMA multicast, and clusters of 2 that share x stages.
+# of the next unit's loads; and two with right results: the first design,
+# and the projection alone (each head's q, before the scale fold, written
+# into its columns of the output).
 PROBE_NO_SOFTMAX = 1
 PROBE_NO_PROJECTION = 2
 PROBE_NO_PREFETCH = 4
 PROBE_FIRST_DESIGN = 8
 PROBE_PROJECTION_ONLY = 16
-PROBE_CLUSTER_4 = 32
-PROBE_CLUSTER_2 = 64
-_PROBE_BITS = 127
+_PROBE_BITS = 31
 
 
 def _project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -108,9 +108,7 @@ constexpr int kProbeNoProjection = 2;
 constexpr int kProbeNoPrefetch = 4;
 constexpr int kProbeFirstDesign = 8;
 constexpr int kProbeProjectionOnly = 16;
-constexpr int kProbeCluster4 = 32;  // clusters of 2 x 2 sharing x stages and W boxes (right results)
-constexpr int kProbeCluster2 = 64;  // clusters of 2 sharing x stages (right results)
-constexpr int kProbeBits = 127;
+constexpr int kProbeBits = 31;
 
 // ---------------------------------------------------------------------------
 // The first design's projection (the backward's too) and forward.
@@ -516,7 +514,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 qkvproj_attention_kernel(const __grid_constant__ CUtensorMap map_x,
                          const __grid_constant__ CUtensorMap map_w, const bf16* __restrict__ bias,
                          bf16* __restrict__ out, int B, int N, int Din, int H, int n_valid,
-                         float scale_c, int softmax_f32, int x_share, int w_share, int probe) {
+                         float scale_c, int softmax_f32, int probe) {
   using L = Layout<HD, NKT>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -526,17 +524,10 @@ qkvproj_attention_kernel(const __grid_constant__ CUtensorMap map_x,
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStages * L::kStageBytes);
   uint64_t* empty = full + kStages;
   uint64_t* done = empty + kStages;  // a unit's end, for kProbeNoPrefetch
-  // The cluster: x_share blocks on neighbouring units of one image share
-  // each x stage, w_share blocks on the same unit of neighbouring images
-  // share each W box; rank = unit_off + x_share * image_off.
-  const uint32_t rank = cluster_rank();
-  const int blocks = x_share * w_share;
-  const int unit_off = static_cast<int>(rank) % x_share;
-  const int image_off = static_cast<int>(rank) / x_share;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStages; ++s) {
       mbarrier_init(&full[s], 1);
-      mbarrier_init(&empty[s], kConsumerWarps * blocks);
+      mbarrier_init(&empty[s], kConsumerWarps);
     }
     mbarrier_init(done, kConsumerWarps);
     mbarrier_init_fence();
@@ -552,71 +543,35 @@ qkvproj_attention_kernel(const __grid_constant__ CUtensorMap map_x,
     }
   }
   fence_proxy_async_shared();
-  cluster_sync();  // every block's barriers exist before a copy or an arrival reaches them
+  __syncthreads();
 
-  // The cluster walks groups of x_share x w_share units, head-fastest; this
-  // block's unit of a group may lie past the last head or image (a ragged
-  // edge): it loads and computes its share for the others and stores nothing.
   const int D = H * HD;
   const int per_image = (H + L::kHeads - 1) / L::kHeads;  // units an image
-  const int unit_groups = (per_image + x_share - 1) / x_share;  // along an image
-  const int groups = (B + w_share - 1) / w_share * unit_groups;
-  const int cluster = blockIdx.x / blocks;
-  const int clusters = gridDim.x / blocks;
+  const int units = B * per_image;
   const int ksteps = Din / kStep;
 
   // The roles part here and never meet again: no block-wide barrier below.
   if (threadIdx.x < 128) {
     setmaxnreg_dec<40>();
     if (threadIdx.x == 0) {
-      // This block loads x rows [unit_off * x_rows, + x_rows) of each stage
-      // for its x partners, and W rows [image_off * w_rows, + w_rows) of each
-      // box for its W partners.
-      const int x_rows = L::kKeys / x_share;
-      const int w_rows = kStep / w_share;
-      const uint16_t x_mask = static_cast<uint16_t>(((1u << x_share) - 1) << (image_off * x_share));
-      uint16_t w_mask = 0;
-      for (int k = 0; k < w_share; ++k) w_mask |= static_cast<uint16_t>(1u << (unit_off + x_share * k));
       int stage = 0;
       uint32_t parity = 1;  // a fresh "empty" barrier lets the first pass through
-      for (int grp = cluster, i = 0; grp < groups; grp += clusters, ++i) {
+      for (int unit = blockIdx.x, i = 0; unit < units; unit += gridDim.x, ++i) {
         if ((probe & kProbeNoPrefetch) && i > 0) mbarrier_wait(done, (i - 1) & 1);
-        const int b = grp / unit_groups * w_share + image_off;
-        const int col = (grp % unit_groups * x_share + unit_off) * kUnitCols;
+        const int b = unit / per_image;
+        const int col = (unit % per_image) * kUnitCols;
         for (int ks = 0; ks < ksteps; ++ks) {
-          mbarrier_wait(&empty[stage], parity);  // every block of the cluster is done with it
+          mbarrier_wait(&empty[stage], parity);
           unsigned char* st = ring + stage * L::kStageBytes;
           mbarrier_arrive_expect_tx(&full[stage], L::kStageBytes);  // zeros count
-          unsigned char* x_dst = st + unit_off * x_rows * 2 * kStep;
-          if (x_share == 1) {
-            tma_load_3d(x_dst, &map_x, &full[stage], ks * kStep, 0, b);
-          } else {
-            tma_load_3d_multicast(x_dst, &map_x, &full[stage], ks * kStep, unit_off * x_rows, b,
-                                  x_mask);
-          }
-          for (int p = 0; p < 3; ++p) {
-            unsigned char* w_dst =
-                st + L::kXBytes + p * L::kWBytes + image_off * w_rows * 2 * kUnitCols;
-            const int row = ks * kStep + image_off * w_rows;
-            if (w_share == 1) {
-              tma_load_2d(w_dst, &map_w, &full[stage], p * D + col, row);
-            } else {
-              tma_load_2d_multicast(w_dst, &map_w, &full[stage], p * D + col, row, w_mask);
-            }
-          }
+          tma_load_3d(st, &map_x, &full[stage], ks * kStep, 0, b);
+          for (int p = 0; p < 3; ++p)
+            tma_load_2d(st + L::kXBytes + p * L::kWBytes, &map_w, &full[stage], p * D + col,
+                        ks * kStep);
           if (++stage == kStages) {
             stage = 0;
             parity ^= 1;
           }
-        }
-      }
-      // Every block of the cluster hands every stage back before this block
-      // exits: no arrival reaches its barriers after that.
-      for (int s = 0; s < kStages; ++s) {
-        mbarrier_wait(&empty[stage], parity);
-        if (++stage == kStages) {
-          stage = 0;
-          parity ^= 1;
         }
       }
     }
@@ -634,16 +589,11 @@ qkvproj_attention_kernel(const __grid_constant__ CUtensorMap map_x,
   const bool softmax = !(probe & kProbeNoSoftmax);
   const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_c);
   const int tok0 = group * L::kHalf;
-  auto release = [&](int s) {
-    if (lane == 0)
-      for (int r = 0; r < blocks; ++r) mbarrier_arrive_cluster(&empty[s], r);
-  };
   int stage = 0;
   uint32_t parity = 0;
-  for (int grp = cluster, i = 0; grp < groups; grp += clusters, ++i) {
-    const int b = grp / unit_groups * w_share + image_off;
-    const int unit = grp % unit_groups * x_share + unit_off;
-    const int head0 = unit * L::kHeads;
+  for (int unit = blockIdx.x, i = 0; unit < units; unit += gridDim.x, ++i) {
+    const int b = unit / per_image;
+    const int head0 = (unit % per_image) * L::kHeads;
     const int col = head0 * HD;
 
     // acc[p][4 j + e]: panel p (q, k, v); feature 16 warp + g of the unit's
@@ -673,7 +623,7 @@ qkvproj_attention_kernel(const __grid_constant__ CUtensorMap map_x,
         wgmma_commit();
         wgmma_wait<1>();  // the previous stage's products are done: hand it back
       }
-      if (ks > 0) release(previous);
+      if (ks > 0 && lane == 0) mbarrier_arrive(&empty[previous]);
       previous = stage;
       if (++stage == kStages) {
         stage = 0;
@@ -681,17 +631,10 @@ qkvproj_attention_kernel(const __grid_constant__ CUtensorMap map_x,
       }
     }
     wgmma_wait<0>();
-    release(previous);
+    if (lane == 0) mbarrier_arrive(&empty[previous]);
     wgmma_pin(acc[0]);
     wgmma_pin(acc[1]);
     wgmma_pin(acc[2]);
-    if (b >= B || unit >= per_image) {  // a ragged edge's share: nothing to store
-      if (probe & kProbeNoPrefetch) {
-        __syncwarp();
-        if (lane == 0) mbarrier_arrive(done);
-      }
-      continue;
-    }
 
     // The epilogue: this thread's features f and f + 8 of each panel, its
     // warp's 16 features the 16-byte chunks 2 warp and 2 warp + 1 of the
@@ -814,53 +757,21 @@ cudaError_t launch(const bf16* x, const bf16* w, const bf16* bias, bf16* out, in
     return launch_first<HD, NKT>(x, w, bias, out, B, N, Din, H, n_valid, scale_c, softmax_f32,
                                  stream);
   using L = Layout<HD, NKT>;
-  // Clusters of 1; the probe asks for clusters of two images by two units
-  // that share every x stage and W box (each loaded once from L2, multicast
-  // to the two blocks that need it) or of two units sharing x stages.
-  int x_share = probe & (kProbeCluster4 | kProbeCluster2) ? 2 : 1;
-  int w_share = probe & kProbeCluster4 ? 2 : 1;
-  const int blocks = x_share * w_share;
   CUtensorMap map_x, map_w;
-  cudaError_t err = make_tensor_map_stack(&map_x, x, B, N, Din, L::kKeys / x_share, kStep);
+  cudaError_t err = make_tensor_map_stack(&map_x, x, B, N, Din, L::kKeys, kStep);
   if (err != cudaSuccess) return err;
-  err = make_tensor_map_sw128(&map_w, w, Din, 3 * H * HD, kStep / w_share);
+  err = make_tensor_map_sw128(&map_w, w, Din, 3 * H * HD, kStep);
   if (err != cudaSuccess) return err;
-  const void* kernel = reinterpret_cast<const void*>(qkvproj_attention_kernel<HD, NKT>);
   static bool configured[kMaxDevices] = {};
   err = allow_dynamic_smem(qkvproj_attention_kernel<HD, NKT>, L::kSmemBytes, configured);
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t config = {};
-  config.blockDim = dim3(kThreads);
-  config.dynamicSmemBytes = L::kSmemBytes;
-  config.stream = stream;
-  cudaLaunchAttribute attribute[1];
-  attribute[0].id = cudaLaunchAttributeClusterDimension;
-  attribute[0].val.clusterDim.x = blocks;
-  attribute[0].val.clusterDim.y = 1;
-  attribute[0].val.clusterDim.z = 1;
-  config.attrs = attribute;
-  config.numAttrs = 1;
-  // Persistent: as many clusters as the card holds at once (asked once a
-  // device and cluster size), at most one a group.
-  static int resident[kMaxDevices][3] = {};
-  int device = 0;
-  err = cudaGetDevice(&device);
+  int sms = 0;
+  err = sm_count(&sms);
   if (err != cudaSuccess) return err;
-  int clusters = device < kMaxDevices ? resident[device][blocks / 2] : 0;
-  if (clusters == 0) {
-    config.gridDim = dim3(blocks);
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &config);
-    if (err != cudaSuccess) return err;
-    if (clusters < 1) return cudaErrorInvalidConfiguration;
-    if (device < kMaxDevices) resident[device][blocks / 2] = clusters;
-  }
-  const int per_image = (H + L::kHeads - 1) / L::kHeads;
-  const int groups = (B + w_share - 1) / w_share * ((per_image + x_share - 1) / x_share);
-  config.gridDim = dim3((groups < clusters ? groups : clusters) * blocks);
-  void* args[] = {&map_x, &map_w, &bias, &out, &B, &N, &Din, &H, &n_valid, &scale_c,
-                  &softmax_f32, &x_share, &w_share, &probe};
-  err = cudaLaunchKernelExC(&config, kernel, args);
-  if (err != cudaSuccess) return err;
+  const int units = B * ((H + L::kHeads - 1) / L::kHeads);
+  const int blocks = units < sms ? units : sms;  // persistent: one block an SM at most
+  qkvproj_attention_kernel<HD, NKT><<<blocks, kThreads, L::kSmemBytes, stream>>>(
+      map_x, map_w, bias, out, B, N, Din, H, n_valid, scale_c, softmax_f32, probe);
   return cudaGetLastError();
 }
 

@@ -1,7 +1,7 @@
 // Hopper-only device and host helpers (sm_90a): mbarriers (arrivals on a
 // cluster peer's too), thread block clusters, TMA tile loads through a
-// tensor map (2-D and 3-D over a stack of matrices, each multicast to a
-// cluster as well), the warpgroup matrix multiply (wgmma, A from shared memory,
+// tensor map (2-D, multicast to a cluster as well, and 3-D over a stack of
+// matrices), the warpgroup matrix multiply (wgmma, A from shared memory,
 // K-major or MN-major, or from registers, B K-major or MN-major) with its
 // shared-memory descriptors for swizzled tiles, named barriers, the
 // async-proxy fence, programmatic dependent launch, transposed stmatrix
@@ -173,19 +173,6 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_address(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// tma_load_3d into the same offsets of every block of the cluster named in
-// `mask`, as tma_load_2d_multicast does.
-__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
-                                                      uint64_t* bar, int c0, int c1, int c2,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n" ::"r"(smem_address(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_address(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "h"(mask)
       : "memory");
 }
 

@@ -182,9 +182,8 @@ def test_forward_kernel_refuses_unknown_probe_bits_before_any_build(monkeypatch)
     x, w, b, _ = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(7, 1, 8, 64, 2, 32))
     bits = (attention_block.PROBE_NO_SOFTMAX, attention_block.PROBE_NO_PROJECTION,
             attention_block.PROBE_NO_PREFETCH, attention_block.PROBE_FIRST_DESIGN,
-            attention_block.PROBE_PROJECTION_ONLY, attention_block.PROBE_CLUSTER_4,
-            attention_block.PROBE_CLUSTER_2)
+            attention_block.PROBE_PROJECTION_ONLY)
     assert sum(bits) == attention_block._PROBE_BITS and len(set(bits)) == len(bits)
-    for probe in (128, attention_block._PROBE_BITS + 1, -1):
+    for probe in (32, attention_block._PROBE_BITS + 1, -1):
         with pytest.raises(ValueError, match="probe"):
             attention_block._forward_kernel(x, w, b, 2, True, None, probe=probe)

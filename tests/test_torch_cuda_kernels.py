@@ -891,25 +891,6 @@ def test_qkvproj_attention_forward_matches_plain_and_reruns_equal(gen, B, N, Din
 
 
 @pytest.mark.parametrize("B, N, Din, H, hd, softmax_f32, valid_len",
-                         _QKVPROJ_FWD_SHAPES + [(3, 17, 512, 5, 32, True, 9),
-                                                (5, 65, 64, 3, 64, False, None)])
-@torch.inference_mode()
-def test_qkvproj_attention_cluster_shapes_give_the_same_bits(gen, B, N, Din, H, hd, softmax_f32,
-                                                             valid_len):
-    # Sharing x stages and W boxes between the blocks of a cluster moves no
-    # arithmetic: clusters of 2 x 2, of 2 on one image and the default 1 give
-    # the same bits, ragged edges (an odd image or unit count) included.
-    from ssl4polyp_tpu_torch.ops import attention_block as ab
-
-    args = (*_qkvproj_args(gen, B, N, Din, H, hd), H, softmax_f32, valid_len)
-    want = ab._forward_kernel(*args)
-    for probe in (ab.PROBE_CLUSTER_4, ab.PROBE_CLUSTER_2):
-        got = ab._forward_kernel(*args, probe=probe)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), probe
-
-
-@pytest.mark.parametrize("B, N, Din, H, hd, softmax_f32, valid_len",
                          _QKVPROJ_FWD_SHAPES[1:] + [(2, 1, 64, 3, 32, True, None)])
 @torch.inference_mode()
 def test_qkvproj_attention_first_design_agrees_with_the_kernel(gen, B, N, Din, H, hd,
