@@ -19,8 +19,6 @@
 // D = 768, 12 heads of 64) the forward is 52.2 GFLOP (44.6 in the
 // projection) against 42 MB (x in, out out, W once), over 1,200 FLOP per
 // byte: the tensor cores bound it, as they bound the backward's 153 GFLOP.
-// Per SM the other limit is the intake of x and W from L2 (some 70 GB/s a
-// SM by TMA, PERF.md): a unit's x and W panels are 0.6 MB at that shape.
 //
 // The forward (the second design; PERF.md has its times, the first
 // design's and the ablations, through ssl4polyp_qkvproj_attention_fwd_probe):
@@ -39,13 +37,18 @@
 //     m64n(8 NKT)k16 a step of 16, 3 x 4 NKT accumulators a thread (156 at
 //     N 197).
 //   * A producer thread (its warpgroup gives its registers up by
-//     setmaxnreg) loads each 64-deep reduction step by TMA into a ring
-//     stage: x's 16 * NKT rows from a 3-D map over (B, N, Din), whose rows at
-//     or past N arrive as zeros and never come from the next image, and the
-//     three 64 x 64 W boxes at columns p * D + 64 * (unit's column block).
-//     x is read once a unit, not once a panel.  The ring runs on across
-//     units, so the next unit's first stages load while this one's attention
-//     runs.
+//     setmaxnreg) loads each 32-deep reduction step by TMA into a ring stage
+//     (five at N 197, 25.6 KB each): x's 16 * NKT rows of 32 columns from a
+//     3-D map over (B, N, Din) under the 64-byte swizzle, whose rows at or
+//     past N arrive as zeros and never come from the next image, and the
+//     three 32 x 64 W boxes at columns p * D + 64 * (the unit's column
+//     block).  x is read once a unit, not once a panel.  The ring runs on
+//     across units, so the next unit's first stages load while this one's
+//     attention runs.  Steps of 64 (two stages fit) and of 16 were slower,
+//     and so were clusters sharing x stages and W boxes by TMA multicast:
+//     neither the L2's rate nor the intake binds (without x's loads, or
+//     without W's, the projection runs 5 % faster), the products and their
+//     per-step cost do.
 //   * The epilogue rounds each product to bf16, adds the bias in bf16 and
 //     rounds again, folds 1/sqrt(hd) into q with its rounding, zeroes the
 //     tokens at or past N, and stores the tiles transposed (stmatrix .trans)
@@ -61,7 +64,11 @@
 //     function unit, eight max and sum chains a row), the weights rounded
 //     into wgmma's register A fragments; O = P V by register-A wgmma with V
 //     MN-major; O rounded once and stored 16 bytes a thread behind a row
-//     guard, nothing past row N - 1 or outside the head's columns.
+//     guard, nothing past row N - 1 or outside the head's columns.  It does
+//     not overlap the next unit's products: those need the 156 accumulators
+//     the softmax's score row shares the registers with, and a third
+//     warpgroup (one a panel, or the producer's taking attention items)
+//     leaves each thread 168 registers, under which the score row spills.
 //   * No atomics: a rerun gives the same bits.
 //
 // The first design (qkvproj_attention_first_kernel, reached only through
@@ -353,6 +360,7 @@ struct Layout {
   static constexpr int kFit = static_cast<int>((232448 - kFixed) / kStageBytes);
   static constexpr int kStages = kFit < 8 ? kFit : 8;
   static_assert(kStages >= 2, "two stages and the tiles fit the block's shared memory");
+  static_assert(2 * kStages + 1 <= 32, "the barriers fit their room");
   static constexpr size_t kSmemBytes = kFixed + kStages * kStageBytes;
 };
 

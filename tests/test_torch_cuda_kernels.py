@@ -846,7 +846,7 @@ def test_qkvproj_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
 # The forward's tiling: tokens split in halves of 8 * NKT between two
 # warpgroups (16 * NKT keys: 64, 128, 208, 256), 64-row query tiles, units of
 # one head at hd 64 and two at hd 32 (an odd head count leaves the last
-# unit's second head empty), 64-deep reduction steps of the x + W ring;
+# unit's second head empty), 32-deep reduction steps of the x + W ring;
 # every length at the edges of a 16-row group, a query tile or a key width,
 # at both head dims, with Din 64, 512 and 768 and valid_len below N; then the
 # six shapes of the test above, among them units below one wave of 132 SMs
