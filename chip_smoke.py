@@ -28,7 +28,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    LayerNorm backward is also held and timed with a residual's gradient
    folded in, and its two launches (the row kernel, the sum of the blocks'
    partials) are timed apart; the attention+projection backward's four
-   phases are timed apart, each beside its bound, and its forward is timed
+   phases are timed apart, each beside its bound (its dW phase also on its
+   first design, through a phase bit), and its forward is timed
    without its attention arithmetic, without its projection's products and
    without both (wrong results, times only: where its time goes).  The fused
    MLPs (with and without the LayerNorm) print, at the classifier's and the
@@ -50,9 +51,11 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    same at both shapes (its forward's first design, the plain version and
    ``F.linear`` + SDPA beside the bound, then its forward without the
    softmax arithmetic, without the projection's products, without the
-   prefetch, and the projection alone), with both ``softmax_f32`` settings
-   and a ``valid_len`` below the token count; its forward and backward
-   reruns are bit-identical.
+   prefetch, and the projection alone; its backward beside its first
+   design's, held to the plain version too, and each launch of both designs
+   timed alone beside its bound), with both ``softmax_f32`` settings, a
+   ``valid_len`` below the token count and an odd head count at hd 32; its
+   forward and backward reruns are bit-identical.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -787,6 +790,40 @@ def qkvproj_cost(b, n, d_in, h, hd):
                  flops=6 * proj + 10 * core))
 
 
+def qkvproj_backward_split(x, w, bias, dout, h, f32, first_design: bool) -> dict[str, tuple]:
+    """The projection + attention backward's launches, each timed alone on one
+    plan's buffers (each finds what the earlier ones left there), of the
+    first design or the second: {step: (ms, bound text)}.  The first design
+    has no transpose or projection launch: its attention kernel recomputes qkv
+    per head."""
+    b, n, d_in = x.shape
+    three_d = w.shape[1]
+    m, hd = b * n, three_d // 3 // h
+    run, _ = attention_block._backward_plan(x, w, bias, dout, h, f32, None, first_design)
+    run(0)
+    slices = (attention_block._FIRST_DESIGN_DW_SLICES if first_design
+              else _build.library().ssl4polyp_dw_product_slices(m, d_in, three_d))
+    product = dict(flops=2 * m * d_in * three_d)
+    act = 2 * m * three_d  # a (B, N, 3D) bf16 tensor's bytes
+    cost = {  # what each reads and writes once, and its operations
+        "transpose": dict(bytes_moved=4 * d_in * three_d, flops=0),
+        "projection": dict(bytes_moved=2 * m * d_in + 2 * d_in * three_d + act, **product),
+        "attention": dict(bytes_moved=2 * act + 2 * m * three_d // 3 + 2 * three_d
+                          + 4 * b * three_d + (2 * m * d_in + 2 * d_in * three_d
+                                               if first_design else 0),
+                          flops=10 * b * h * n * n * hd
+                          + (2 * m * d_in * three_d if first_design else 0)),
+        "db sum": dict(bytes_moved=4 * (b + 1) * three_d, flops=b * three_d, peak=FP32_FLOPS),
+        "dx": dict(bytes_moved=act + 2 * d_in * three_d + 2 * m * d_in, **product),
+        "dw": dict(bytes_moved=2 * m * d_in + act + 4 * slices * d_in * three_d, **product),
+        "dw sum": dict(bytes_moved=4 * (slices + 1) * d_in * three_d if slices > 1 else 0,
+                       flops=slices * d_in * three_d, peak=FP32_FLOPS),
+    }
+    skip = ("transpose", "projection") if first_design else ()
+    return {step: (time_ms(lambda: run(bit)), bound_text(**cost[step]))  # noqa: B023
+            for step, bit in attention_block.BACKWARD_STEPS.items() if step not in skip}
+
+
 def attn_proj_kernels(randn) -> dict[str, dict]:
     """The attention+projection kernel, forward and backward, against its
     plain version: the classifier's call (fp32 scores), the MAE decoder's
@@ -856,9 +893,11 @@ def attn_proj_kernels(randn) -> dict[str, dict]:
         }
         phase_ms = {phase: time_ms(lambda: launch(bit))  # noqa: B023
                     for phase, bit in attn_proj.BACKWARD_PHASES.items()}
+        dw_first_ms = time_ms(lambda: launch(attn_proj.DW_FIRST_DESIGN_PHASE))  # noqa: B023
         print("    backward's phases: " + "; ".join(
             f"{phase} {ms:.4f} ms, {bound_text(*phase_cost[phase])}"
-            for phase, ms in phase_ms.items()))
+            for phase, ms in phase_ms.items())
+            + f"; dw on its first design (mma.sync) {dw_first_ms:.4f} ms")
         # Where the forward's time goes: the kernel without its attention
         # arithmetic, without its projection's products, without both (wrong
         # results; the copies, barriers, W ring and stores stay).
@@ -949,7 +988,8 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
 
     fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
     cases = [(BATCH, 197, 768, 12, 64, True, None), (BATCH, 197, 512, 16, 32, False, None),
-             (BATCH, 197, 768, 12, 64, False, 150), (BATCH, 197, 512, 16, 32, True, 150)]
+             (BATCH, 197, 768, 12, 64, False, 150), (BATCH, 197, 512, 16, 32, True, 150),
+             (2, 50, 64, 3, 32, False, 40)]  # an odd head count at hd 32: 3D = 288
     qkvproj_ablations = {"without the softmax arithmetic": attention_block.PROBE_NO_SOFTMAX,
                          "without the projection's products": attention_block.PROBE_NO_PROJECTION,
                          "without the prefetch": attention_block.PROBE_NO_PREFETCH,
@@ -1003,15 +1043,29 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
 
         lib_out = library()
         library_bwd = lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)  # noqa: E731
+        first_bwd = lambda: attention_block._backward_kernel(  # noqa: E731
+            x, w, bias, dout, h, f32, valid_len, attention_block.BACKWARD_PROBE_FIRST_DESIGN)
+        first_grads = first_bwd()
+        first_bwd_err = max(
+            max_error(got, want, (QKVPROJ_GRAD_TOL[0] * want.float().abs().max().item(),
+                                  QKVPROJ_GRAD_TOL[1]), f"{what}: first design's {name}")
+            for name, got, want in zip(("dx", "dw", "db"), first_grads, plain_bwd()))
         with torch.no_grad():
             fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library), time_ms(first)
-        bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        bwd_times[i] = (time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd),
+                        time_ms(first_bwd))
         fwd_cost, bwd_cost = qkvproj_cost(b, n, d_in, h, hd)
         print(f"  forward kernel {fwd_times[i][0]:.4f} ms, first design {fwd_times[i][3]:.4f} ms, "
               f"plain {fwd_times[i][1]:.4f} ms, F.linear + scaled_dot_product_attention "
               f"{fwd_times[i][2]:.4f} ms, {bound_text(**fwd_cost)}; backward kernels "
-              f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, the library pair's "
+              f"{bwd_times[i][0]:.4f} ms, first design {bwd_times[i][3]:.4f} ms (max |diff| "
+              f"{first_bwd_err:.3e}), plain {bwd_times[i][1]:.4f} ms, the library pair's "
               f"{bwd_times[i][2]:.4f} ms, {bound_text(**bwd_cost)}")
+        for label, first_design in (("launches alone", False), ("first design's launches alone",
+                                                                  True)):
+            split = qkvproj_backward_split(x, w, bias, dout, h, f32, first_design)
+            print(f"    backward's {label}: " + "; ".join(
+                f"{step} {ms:.4f} ms, {text}" for step, (ms, text) in split.items()))
         print("  forward ablations (timed only; the projection alone is right, the rest "
               "wrong): " + ", ".join(f"{label} {time_ms(probe_run(probe)):.4f} ms"
                                      for label, probe in qkvproj_ablations.items()))

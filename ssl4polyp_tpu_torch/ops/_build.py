@@ -37,6 +37,9 @@ _ENTRY_POINTS = (
     ("ssl4polyp_qkv_attention_bwd_probe", ctypes.c_int,
      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_qkv_attention_bwd_mode", ctypes.c_int,
+     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_qkv_attention_bwd_plan", ctypes.c_int,
      [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2),
     ("ssl4polyp_fc1_gelu_fwd", ctypes.c_int,
@@ -79,6 +82,12 @@ _ENTRY_POINTS = (
     ("ssl4polyp_qkvproj_attention_bwd", ctypes.c_int,
      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_qkvproj_attention_bwd_probe", ctypes.c_int,
+     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+     + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    ("ssl4polyp_dw_product", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
+    ("ssl4polyp_dw_product_slices", ctypes.c_int, [ctypes.c_int] * 3),
     ("ssl4polyp_adamw_step", ctypes.c_int, [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_adamw_layout", ctypes.c_int, [ctypes.c_int]),
 )

@@ -5,15 +5,19 @@ Counterpart of ``ssl4polyp_tpu/ops/attention_block.py``::
     fused_qkvproj_attention(x, w, b) = attention_core(x @ w + b)
 
 with ``w`` (Din, 3D) in the JAX package's (in, out) layout, its columns
-``[q heads | k heads | v heads]``.  On the card the (B, N, 3D) QKV tensor
-never reaches device memory in either direction (``csrc/attention_block.cu``);
-the backward recomputes it and returns dx, dw and db from hand-written
-kernels alone (``dx = dqkv @ w.T`` and ``dw = x.T @ dqkv`` included).  The
-forward runs the projection and the attention core on wgmma from TMA loads;
-its first design stays behind :data:`PROBE_FIRST_DESIGN`.  No
-model route calls this function: as in the JAX package, where it measured
-slower than the bare projection followed by the attention kernel, it is a
-public function of ``ops``.
+``[q heads | k heads | v heads]``.  On the card (``csrc/attention_block.cu``)
+the forward never writes the (B, N, 3D) QKV tensor to device memory: it
+runs the projection and the attention core in one kernel, on wgmma from TMA
+loads.  The backward recomputes the projection, without its bias, into a
+(B, N, 3D) scratch of device memory, and runs four hand-written steps on
+kernels designed for the card: that product and ``dx = dqkv @ w.T`` on the
+wgmma GEMM, the attention backward (``qkv_attention.py``'s kernel, with the
+bias and the scale where this function's TPU kernel puts them), and ``dw =
+x.T @ dqkv`` on a wgmma product with both operands transposed.  The first
+designs of both directions stay behind :data:`PROBE_FIRST_DESIGN` and
+:data:`BACKWARD_PROBE_FIRST_DESIGN`.  No model route calls this function:
+as in the JAX package, where it measured slower than the bare projection
+followed by the attention kernel, it is a public function of ``ops``.
 
 A tensor on the CPU goes through the plain torch versions
 (:func:`fused_qkvproj_attention_plain`); a CUDA tensor through the kernels,
@@ -31,6 +35,7 @@ from ._checks import check_gradient
 from .qkv_attention import _MAX_TOKENS, _scale, fused_qkv_attention_reference
 
 __all__ = [
+    "BACKWARD_STEPS",
     "backward_launches",
     "fused_qkvproj_attention",
     "fused_qkvproj_attention_backward_reference",
@@ -48,9 +53,6 @@ backward_launches = 0
 # What the kernels take: bf16, these head sizes, 1..256 tokens, an input
 # width that is a multiple of 64.
 _HEAD_DIMS = (32, 64)
-# Row slices of the backward's dW sum: 64 x 64 tiles of dW times this many
-# slices are the blocks that fill the card (864 at 768 x 2304).
-_DW_SLICES = 2
 # `probe` bits of the forward kernel, a measurement aid (0 on every path;
 # chip_smoke.py times the kernel with parts left out, whose results are
 # wrong): no softmax arithmetic (the scores rounded straight into the
@@ -64,6 +66,16 @@ PROBE_NO_PREFETCH = 4
 PROBE_FIRST_DESIGN = 8
 PROBE_PROJECTION_ONLY = 16
 _PROBE_BITS = 31
+# `probe` bits of the backward, a measurement aid (0 on every path): the
+# first design (its dW on 2 row slices, 3D a multiple of 64); and the
+# launches to run alone (none set: all), each reading what the earlier ones
+# left in one plan's buffers (:func:`_backward_plan`).  The first design has
+# no transpose or projection launch.
+BACKWARD_PROBE_FIRST_DESIGN = 1
+BACKWARD_STEPS = {"transpose": 2, "projection": 4, "attention": 8, "db sum": 16, "dx": 32,
+                  "dw": 64, "dw sum": 128}
+_BACKWARD_PROBE_BITS = 255
+_FIRST_DESIGN_DW_SLICES = 2
 
 
 def _project(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -168,34 +180,69 @@ def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len, probe: int = 0):
     return out
 
 
-def _backward_kernel(x, w, b, dout, num_heads, softmax_f32, valid_len):
-    from ._build import library
-
+def _backward_kernel(x, w, b, dout, num_heads, softmax_f32, valid_len, probe: int = 0):
+    """(dx, dw, db) from the backward's launches.  ``probe`` (0 on every
+    path) is a measurement aid: the ``BACKWARD_*`` bits above."""
     global backward_launches
+    if probe & ~_BACKWARD_PROBE_BITS:
+        raise ValueError(f"unknown probe bits {probe & ~_BACKWARD_PROBE_BITS:#x}")
+    first_design = bool(probe & BACKWARD_PROBE_FIRST_DESIGN)
+    run, results = _backward_plan(x, w, b, dout, num_heads, softmax_f32, valid_len, first_design)
+    run(probe & ~BACKWARD_PROBE_FIRST_DESIGN)
+    backward_launches += 1
+    return results()
+
+
+def _backward_plan(x, w, b, dout, num_heads, softmax_f32, valid_len, first_design=False):
+    """Allocates the backward's scratch and results once and returns
+    ``(run, results)``: ``run(steps)`` launches the steps of the mask
+    (:data:`BACKWARD_STEPS`; 0 all of them) of the first design or the
+    second, a later launch reading what the earlier ones left in the
+    scratch, and ``results()`` returns (dx, dw, db).  No launch is counted
+    here."""
     B, N, d_in = x.shape
     three_d = w.shape[1]
     D = three_d // 3
     head_dim = D // num_heads
     check_gradient("dout", dout, (B, N, D), x.dtype, x.device)
+    from ._build import library
+
+    lib = library()
     dev = x.device
-    dqkv = torch.empty((B, N, three_d), dtype=x.dtype, device=dev)  # scratch: round(dqkv)
+    if first_design:
+        slices = _FIRST_DESIGN_DW_SLICES
+    else:
+        with torch.cuda.device(dev):
+            slices = lib.ssl4polyp_dw_product_slices(B * N, d_in, three_d)
+        if slices < 1:
+            raise RuntimeError(f"qkvproj_attention backward: CUDA error {-slices}")
+    w_t = torch.empty((three_d, d_in), dtype=x.dtype, device=dev)      # scratch: W^T
+    qkv = torch.empty((B, N, three_d), dtype=x.dtype, device=dev)      # scratch: round(x . W)
+    dqkv = torch.empty_like(qkv)                                       # scratch: round(dqkv)
     db_part = torch.empty((B, three_d), dtype=torch.float32, device=dev)
     db = torch.empty((three_d,), dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    dw_part = torch.empty((_DW_SLICES, d_in, three_d), dtype=torch.float32, device=dev)
+    dw_part = torch.empty((slices, d_in, three_d), dtype=torch.float32, device=dev)
     dw = torch.empty((d_in, three_d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        err = library().ssl4polyp_qkvproj_attention_bwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
-            db_part.data_ptr(), db.data_ptr(), dx.data_ptr(), dw_part.data_ptr(), dw.data_ptr(),
-            B, N, d_in, num_heads, head_dim, N if valid_len is None else int(valid_len),
-            _scale(head_dim, x.dtype), 1.0 / math.sqrt(head_dim), int(bool(softmax_f32)),
-            _DW_SLICES, torch.cuda.current_stream().cuda_stream,
-        )
-    if err:
-        raise RuntimeError(f"qkvproj_attention backward kernel launch failed: CUDA error {err}")
-    backward_launches += 1
-    return dx, dw.to(w.dtype), db.to(b.dtype)
+
+    design = BACKWARD_PROBE_FIRST_DESIGN if first_design else 0
+
+    def run(steps: int) -> None:
+        if steps & ~sum(BACKWARD_STEPS.values()):
+            raise ValueError(f"unknown steps {steps:#x}")
+        with torch.cuda.device(dev):
+            err = lib.ssl4polyp_qkvproj_attention_bwd_probe(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), dout.data_ptr(), w_t.data_ptr(),
+                qkv.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), db.data_ptr(), dx.data_ptr(),
+                dw_part.data_ptr(), dw.data_ptr(), B, N, d_in, num_heads, head_dim,
+                N if valid_len is None else int(valid_len), _scale(head_dim, x.dtype),
+                1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), slices, steps | design,
+                torch.cuda.current_stream().cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"qkvproj_attention backward kernel launch failed: CUDA error {err}")
+
+    return run, lambda: (dx, dw.to(w.dtype), db.to(b.dtype))
 
 
 class _QKVProjAttention(torch.autograd.Function):

@@ -49,9 +49,8 @@ launches = 0
 backward_launches = 0
 
 _HEAD_DIMS = (32, 64)
-# Row slices of the backward's dW sum: 64 x 64 tiles of dW times this many
-# slices are the blocks that fill the card (576 at D 768, 256 at D 512).
-_DW_SLICES = 4
+# Row slices of the backward's dW on its first design (csrc/attn_proj.cu).
+_FIRST_DESIGN_DW_SLICES = 4
 _DB_ROWS = 64
 
 
@@ -145,6 +144,8 @@ def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len, ablate: int = 
 # argument: W^T and the recompute of O with dO, dw, db, the attention backward.
 BACKWARD_PHASES = {"prep": 1, "dw": 2, "db": 4, "attention": 8}
 _ALL_PHASES = 15
+# A phase bit for timing alone: dw on its first design (mma.sync), in dw's place.
+DW_FIRST_DESIGN_PHASE = 16
 
 
 def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
@@ -158,8 +159,9 @@ def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
 
 def _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
     """Allocates the backward's scratch and results once and returns
-    ``(run, results)``: ``run(phases)`` launches the phases of the mask (a
-    later phase reads what the earlier ones left in the scratch), and
+    ``(run, results)``: ``run(phases)`` launches the phases of the mask
+    (:data:`BACKWARD_PHASES`, and :data:`DW_FIRST_DESIGN_PHASE`; a later
+    phase reads what the earlier ones left in the scratch), and
     ``results()`` returns (dqkv, dw, db).  No launch is counted here."""
     from ._build import library
 
@@ -172,11 +174,16 @@ def _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=dev)    # scratch: the core output
     d_out = torch.empty_like(out)                                # scratch: dO
     dqkv = torch.empty_like(qkv)
-    dw_part = torch.empty((_DW_SLICES, D, D), dtype=torch.float32, device=dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        slices = lib.ssl4polyp_dw_product_slices(B * N, D, D)
+    if slices < 1:
+        raise RuntimeError(f"attn_proj backward: CUDA error {-slices}")
+    dw_part = torch.empty((max(slices, _FIRST_DESIGN_DW_SLICES), D, D), dtype=torch.float32,
+                          device=dev)
     dw = torch.empty((D, D), dtype=torch.float32, device=dev)
     db_part = torch.empty((-(-B * N // _DB_ROWS), D), dtype=torch.float32, device=dev)
     db = torch.empty((D,), dtype=torch.float32, device=dev)
-    lib = library()
 
     def run(phases: int) -> None:
         with torch.cuda.device(dev):
@@ -185,7 +192,7 @@ def _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
                 d_out.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(), dw.data_ptr(),
                 db_part.data_ptr(), db.data_ptr(), B, N, num_heads, head_dim,
                 N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
-                1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), _DW_SLICES, phases,
+                1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), slices, phases,
                 torch.cuda.current_stream().cuda_stream,
             )
         if err:

@@ -2,8 +2,9 @@
 // backward:  out = attention(x . W + b), x (B, N, Din), W (Din, 3D), b (3D,).
 //
 // Replaces: ssl4polyp_tpu/ops/attention_block.py::_fwd_kernel and _bwd_kernel
-// (fused_qkvproj_attention).  The (B, N, 3D) QKV tensor never reaches global
-// memory in either direction: the backward recomputes it from x.
+// (fused_qkvproj_attention).  The forward never writes the (B, N, 3D) QKV
+// tensor to global memory; the backward recomputes it from x into a scratch
+// of device memory (below).
 //
 // The TPU kernel's steps and roundings: qkv = round_bf16(x . W) + b, the sum
 // rounded again (two roundings, attention_block.py::_project); the forward's
@@ -18,7 +19,8 @@
 // What bounds it on the H100: at the classifier's shape (B 64, N 197, Din =
 // D = 768, 12 heads of 64) the forward is 52.2 GFLOP (44.6 in the
 // projection) against 42 MB (x in, out out, W once), over 1,200 FLOP per
-// byte: the tensor cores bound it, as they bound the backward's 153 GFLOP.
+// byte: the tensor cores bound it, as they bound the backward's 153 GFLOP
+// (three projection-sized products, 134 GFLOP, and the core's 19).
 //
 // The forward (the second design; PERF.md has its times, the first
 // design's and the ablations, through ssl4polyp_qkvproj_attention_fwd_probe):
@@ -78,28 +80,53 @@
 // W's tile read transposed with ldmatrix.trans), so every head reads its
 // image's x three times; each panel's epilogue leaves Q, K or V in shared
 // memory, where attention_core.cuh's attention_rows takes 16 query rows a
-// warp.  Its projection is project_head, which the backward shares.
+// warp.  Its projection is project_head, which the backward's first design
+// shares.
 //
-// Backward design.  dx sums over heads and dW, db over all B * N rows; the
-// TPU kernel accumulates across its sequential grid, and here a fixed-order
-// reduction without atomics takes its place, in phases, with the rounded
-// dqkv (B, N, 3D) bf16 in global scratch between them (qkv itself is
-// recomputed, never stored):
-//   1. qkvproj_attention_bwd_kernel, a block per (image, head): the first
-//      forward design's projection again, dO staged in the ring's place, then
-//      attention_core.cuh's attention_backward_recompute_ds (mode kBwdFoldScaledDs)
-//      writes the head's dqkv columns and its row of the (B, 3D) fp32 db
-//      partial; column_sum_kernel adds the B rows in order;
-//   2. dx = dqkv . W^T on mlp.cu's tiled GEMM (ssl4polyp_matmul_nt): W's rows
-//      are contiguous along the reduction;
-//   3. dW = x^T dqkv on transposed_product.cuh, row slices added in order.
+// The backward (the second design): four steps, each on a kernel designed
+// for this card, with two (B, N, 3D) bf16 scratches in device memory between
+// them (58 MB each at the classifier's shape; 0.035 ms of HBM traffic a
+// round trip): the backward's 134 GFLOP of projection-sized products want
+// the card's wgmma GEMMs, which the first design's per-head projection on
+// mma.sync (x read three times a head) was not.
+//   1. qkv = round_bf16(x . W), the bias not added, on mlp.cu's wgmma + TMA
+//      GEMM (ssl4polyp_matmul_nt), whose K-major B operand is W^T: a 32 x 32
+//      tile transpose (weight_transpose_kernel) writes it first.
+//   2. The attention backward on qkv with b as its bias: qkv_attention.cu's
+//      kernel (the stored-dS kernel up to 208 tokens, its first design past
+//      them) in attention_block.py's mode (ssl4polyp_qkv_attention_bwd_mode
+//      1: dS = round_bf16(W * (dW - tmp) * scale), dQ and dK unscaled).  Its
+//      staging rounds qkv + b in bf16, which is _project's second rounding,
+//      and its dbias partials (the rounded dqkv summed over each image's
+//      rows) are db's: column_sum_kernel adds the B rows in order.
+//   3. dx = round_bf16(dqkv . W^T) on the same GEMM: W's (in, out) rows are
+//      contiguous along the reduction, so W is its K-major B as it lies.
+//   4. dW = x^T dqkv on dw_product.cu's wgmma product, both operands
+//      MN-major, row slices added in order.
+// No atomics anywhere: a rerun gives the same bits.
+//
+// The first design of the backward (qkvproj_attention_bwd_kernel, reached
+// only through ssl4polyp_qkvproj_attention_bwd_probe, for timing): a block
+// per (image, head) recomputes the head's q, k and v with project_head, then
+// runs attention_core.cuh's attention_backward_recompute_ds (mode
+// kBwdFoldScaledDs), writing dqkv and a (B, 3D) db partial; dx as step 3;
+// dW on transposed_product.cuh (mma.sync, 3D a multiple of 64).
 #include "attention_core.cuh"
 #include "hopper.cuh"
 #include "transposed_product.cuh"
 
-// The tiled GEMM y = x . w^T (mlp.cu, same library).
+// The library's other entry points this backward runs (mlp.cu, qkv_attention.cu,
+// dw_product.cu).
 extern "C" int ssl4polyp_matmul_nt(const void* x, const void* w, void* y, int M, int K, int NF,
                                    void* stream);
+extern "C" int ssl4polyp_qkv_attention_bwd_mode(const void* qkv, const void* bias,
+                                                const void* dout, void* dqkv, void* dbias_part,
+                                                void* dbias, int B, int N, int H, int head_dim,
+                                                int n_valid, float scale_c, float scale,
+                                                int softmax_f32, int mode, int probe,
+                                                void* stream);
+extern "C" int ssl4polyp_dw_product(const void* a, const void* b, void* part, void* dw, int M,
+                                    int I, int J, int slices, int parts, void* stream);
 
 namespace {
 
@@ -117,8 +144,27 @@ constexpr int kProbeFirstDesign = 8;
 constexpr int kProbeProjectionOnly = 16;
 constexpr int kProbeBits = 31;
 
+// `probe` bits of the backward, a measurement aid (0 on every path): the
+// first design; and which of the backward's launches run (none of bits 1-7
+// set: all), each reading what the earlier ones left in the buffers, so that
+// a caller times each launch alone.  The first design has no transpose or
+// projection launch: it recomputes qkv inside its attention kernel.
+constexpr int kBwdProbeFirstDesign = 1;
+constexpr int kStepTranspose = 2;
+constexpr int kStepProjection = 4;
+constexpr int kStepAttention = 8;
+constexpr int kStepDbSum = 16;
+constexpr int kStepDx = 32;
+constexpr int kStepDw = 64;
+constexpr int kStepDwSum = 128;
+constexpr int kSteps = 254;
+constexpr int kBwdProbeBits = 255;
+// The first design's row slices of dW (transposed_product.cuh).
+constexpr int kFirstDesignDwSlices = 2;
+
 // ---------------------------------------------------------------------------
-// The first design's projection (the backward's too) and forward.
+// The first design's projection (the backward's first design's too) and
+// forward.
 // ---------------------------------------------------------------------------
 
 constexpr int kBK = 64;        // reduction depth per step of the projection
@@ -828,6 +874,54 @@ cudaError_t dispatch_bwd(const bf16* x, const bf16* w, const bf16* bias, const b
 
 #undef SSL4POLYP_FOR_SHAPE
 
+// out (C, R) = in^T for a row-major (R, C) bf16 matrix, through 32 x 32
+// tiles in shared memory (grid: C / 32 by R / 32, rounded up).
+__global__ void __launch_bounds__(256)
+weight_transpose_kernel(const bf16* __restrict__ in, bf16* __restrict__ out, int R, int C) {
+  __shared__ bf16 tile[32][33];
+  const int lane = threadIdx.x % 32;
+  const int c = blockIdx.x * 32 + lane;
+  for (int y = threadIdx.x / 32; y < 32; y += 8) {
+    const int r = blockIdx.y * 32 + y;
+    if (r < R && c < C) tile[y][lane] = in[static_cast<long>(r) * C + c];
+  }
+  __syncthreads();
+  const int r = blockIdx.y * 32 + lane;
+  for (int y = threadIdx.x / 32; y < 32; y += 8) {
+    const int cc = blockIdx.x * 32 + y;
+    if (cc < C && r < R) out[static_cast<long>(cc) * R + r] = tile[lane][y];
+  }
+}
+
+// The first design's backward, the launches of `steps` (kStep* bits).
+cudaError_t first_design_bwd(const bf16* x, const bf16* w, const bf16* bias, const bf16* dout,
+                             bf16* dqkv, float* db_part, float* db, bf16* dx, float* dw_part,
+                             float* dw, int B, int N, int Din, int H, int head_dim, int n_valid,
+                             float scale_c, float scale, int softmax_f32, int steps,
+                             cudaStream_t st) {
+  const int three_d = 3 * H * head_dim;
+  const int M = B * N;
+  cudaError_t err = cudaSuccess;
+  if (steps & kStepAttention) {
+    err = dispatch_bwd(x, w, bias, dout, dqkv, db_part, B, N, Din, H, head_dim, n_valid, scale_c,
+                       scale, softmax_f32, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (steps & kStepDbSum) {
+    err = launch_column_sum(db_part, B, three_d, db, st);
+    if (err != cudaSuccess) return err;
+  }
+  if (steps & kStepDx) {
+    const int rc = ssl4polyp_matmul_nt(dqkv, w, dx, M, three_d, Din, st);
+    if (rc != 0) return static_cast<cudaError_t>(rc);
+  }
+  const int parts = (steps & kStepDw ? 1 : 0) | (steps & kStepDwSum ? 2 : 0);
+  if (parts)
+    err = launch_transposed_product(x, Din, dqkv, three_d, dw_part, dw, M, Din, three_d,
+                                    kFirstDesignDwSlices, parts, st);
+  return err;
+}
+
 }  // namespace
 
 // x: (B, N, Din) bf16; w: (Din, 3*H*hd) bf16, columns [q heads | k heads | v
@@ -859,10 +953,64 @@ extern "C" int ssl4polyp_qkvproj_attention_fwd(const void* x, const void* w, con
 }
 
 // The backward of ssl4polyp_qkvproj_attention_fwd for the output gradient
-// dout (B, N, H*hd) bf16.  Scratch: dqkv (B, N, 3D) bf16, db_part (B, 3D)
-// fp32, dw_part (slices, Din, 3D) fp32.  Results: dx (B, N, Din) bf16, dw
-// (Din, 3D) fp32, db (3D,) fp32.  3D a multiple of 64.  scale is the fp32
-// 1/sqrt(hd).  Returns the first failing launch's CUDA error.
+// dout (B, N, H*hd) bf16.  Scratch: w_t (3D, Din) bf16, qkv and dqkv (B, N,
+// 3D) bf16, db_part (B, 3D) fp32, dw_part (slices, Din, 3D) fp32 (the count
+// ssl4polyp_dw_product_slices gives; kFirstDesignDwSlices for the first
+// design).  Results: dx (B, N, Din) bf16, dw (Din, 3D) fp32, db (3D,) fp32.
+// scale is the fp32 1/sqrt(hd).  `probe` (0 on every path) is a measurement
+// aid: the kBwdProbe* and kStep* bits above.  Returns the first failing
+// launch's CUDA error.
+extern "C" int ssl4polyp_qkvproj_attention_bwd_probe(
+    const void* x, const void* w, const void* bias, const void* dout, void* w_t, void* qkv,
+    void* dqkv, void* db_part, void* db, void* dx, void* dw_part, void* dw, int B, int N, int Din,
+    int H, int head_dim, int n_valid, float scale_c, float scale, int softmax_f32, int slices,
+    int probe, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int three_d = 3 * H * head_dim;
+  const int M = B * N;
+  if (B < 1 || N < 1 || Din % kBK != 0 || (probe & ~kBwdProbeBits))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int steps = probe & kSteps ? probe & kSteps : kSteps;
+  if (probe & kBwdProbeFirstDesign)
+    return static_cast<int>(first_design_bwd(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
+        static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), static_cast<float*>(db_part),
+        static_cast<float*>(db), static_cast<bf16*>(dx), static_cast<float*>(dw_part),
+        static_cast<float*>(dw), B, N, Din, H, head_dim, n_valid, scale_c, scale, softmax_f32,
+        steps, st));
+  int rc = 0;
+  if (steps & kStepTranspose) {
+    weight_transpose_kernel<<<dim3((three_d + 31) / 32, (Din + 31) / 32), 256, 0, st>>>(
+        static_cast<const bf16*>(w), static_cast<bf16*>(w_t), Din, three_d);
+    rc = static_cast<int>(cudaGetLastError());
+    if (rc != 0) return rc;
+  }
+  if (steps & kStepProjection) {
+    rc = ssl4polyp_matmul_nt(x, w_t, qkv, M, Din, three_d, stream);
+    if (rc != 0) return rc;
+  }
+  if (steps & kStepAttention) {
+    rc = ssl4polyp_qkv_attention_bwd_mode(qkv, bias, dout, dqkv, db_part, nullptr, B, N, H,
+                                          head_dim, n_valid, scale_c, scale, softmax_f32,
+                                          kBwdFoldScaledDs, 0, stream);
+    if (rc != 0) return rc;
+  }
+  if (steps & kStepDbSum) {
+    rc = static_cast<int>(
+        launch_column_sum(static_cast<const float*>(db_part), B, three_d, static_cast<float*>(db), st));
+    if (rc != 0) return rc;
+  }
+  if (steps & kStepDx) {
+    rc = ssl4polyp_matmul_nt(dqkv, w, dx, M, three_d, Din, stream);
+    if (rc != 0) return rc;
+  }
+  const int parts = (steps & kStepDw ? 1 : 0) | (steps & kStepDwSum ? 2 : 0);
+  if (parts) rc = ssl4polyp_dw_product(x, dqkv, dw_part, dw, M, Din, three_d, slices, parts, stream);
+  return rc;
+}
+
+// ssl4polyp_qkvproj_attention_bwd_probe with probe 0, its two bf16 scratches
+// taken from the stream's memory pool; dw_part holds `slices` slices.
 extern "C" int ssl4polyp_qkvproj_attention_bwd(const void* x, const void* w, const void* bias,
                                                const void* dout, void* dqkv, void* db_part,
                                                void* db, void* dx, void* dw_part, void* dw, int B,
@@ -870,20 +1018,19 @@ extern "C" int ssl4polyp_qkvproj_attention_bwd(const void* x, const void* w, con
                                                float scale_c, float scale, int softmax_f32,
                                                int slices, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int three_d = 3 * H * head_dim;
-  const int M = B * N;
-  if (Din % kBK != 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = dispatch_bwd(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
-      static_cast<const bf16*>(dout), static_cast<bf16*>(dqkv), static_cast<float*>(db_part), B, N,
-      Din, H, head_dim, n_valid, scale_c, scale, softmax_f32, st);
+  const size_t three_d = 3 * static_cast<size_t>(H) * head_dim;
+  void *w_t = nullptr, *qkv = nullptr;
+  cudaError_t err = cudaMallocAsync(&w_t, three_d * (Din > 0 ? Din : 1) * sizeof(bf16), st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = launch_column_sum(static_cast<const float*>(db_part), B, three_d, static_cast<float*>(db),
-                          st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int rc = ssl4polyp_matmul_nt(dqkv, w, dx, M, three_d, Din, stream);
-  if (rc != 0) return rc;
-  return static_cast<int>(launch_transposed_product(
-      static_cast<const bf16*>(x), Din, static_cast<const bf16*>(dqkv), three_d,
-      static_cast<float*>(dw_part), static_cast<float*>(dw), M, Din, three_d, slices, st));
+  err = cudaMallocAsync(&qkv, static_cast<size_t>(B > 0 ? B : 1) * (N > 0 ? N : 1) * three_d *
+                                  sizeof(bf16), st);
+  const int rc = err != cudaSuccess
+                     ? static_cast<int>(err)
+                     : ssl4polyp_qkvproj_attention_bwd_probe(
+                           x, w, bias, dout, w_t, qkv, dqkv, db_part, db, dx, dw_part, dw, B, N,
+                           Din, H, head_dim, n_valid, scale_c, scale, softmax_f32, slices, 0,
+                           stream);
+  const cudaError_t freed = qkv == nullptr ? cudaSuccess : cudaFreeAsync(qkv, st);
+  const cudaError_t freed_t = cudaFreeAsync(w_t, st);
+  return rc != 0 ? rc : freed != cudaSuccess ? static_cast<int>(freed) : static_cast<int>(freed_t);
 }

@@ -67,10 +67,11 @@
 //      again (PREP): recomputes the O tile, writes it to scratch, loads the dy
 //      tile in its place and forms dO = bf16(dy . W) with W^T as its K-major
 //      B operand, the forward's loop unchanged;
-//   2. transposed_product.cuh: dW[out, in] = sum over rows of dy[r, out] O[r, in]
-//      in fp32; a block owns a 64 x 64 tile of dW and one of `slices` row
-//      slices, reads both operands transposed, and writes its partial;
-//      column_sum_kernel adds the slices in order;
+//   2. dw_product.cu: dW[out, in] = sum over rows of dy[r, out] O[r, in] in
+//      fp32, on wgmma with both operands MN-major; a unit is a 128 x 256
+//      tile of dW over one of `slices` row slices and writes its partial;
+//      the slices are added in order (the first design, transposed_product.cuh
+//      on mma.sync, stays behind a phase bit, for timing);
 //   3. dy_column_partial_kernel and column_sum_kernel: db = sum of dy in fp32,
 //      64-row partials added in order;
 //   4. the attention backward kernel (qkv_attention.cu) on dO, which
@@ -78,6 +79,10 @@
 #include "attention_core.cuh"
 #include "hopper.cuh"
 #include "transposed_product.cuh"
+
+// The weight gradients' product (dw_product.cu, same library).
+extern "C" int ssl4polyp_dw_product(const void* a, const void* b, void* part, void* dw, int M,
+                                    int I, int J, int slices, int parts, void* stream);
 
 // The attention backward's entry point (qkv_attention.cu, same library).
 extern "C" int ssl4polyp_qkv_attention_bwd(const void* qkv, const void* bias, const void* dout,
@@ -98,6 +103,8 @@ constexpr int kStageBytes = kBN * kBK * sizeof(bf16);
 constexpr int kRingBytes = kStages * kStageBytes;
 constexpr int kBarrierBytes = 64;          // full[3], empty[3], heads_done
 constexpr int kMaxSmemBytes = 232448;      // what a block may take on sm_90
+// Row slices of dW on the first design (transposed_product.cuh).
+constexpr int kFirstDesignDwSlices = 4;
 
 // K and V of a head (padded rows, attention_core.cuh), then the W ring, share
 // one region.
@@ -467,13 +474,14 @@ extern "C" int ssl4polyp_attn_proj_fwd(const void* qkv, const void* w, const voi
 
 // The backward of ssl4polyp_attn_proj_fwd for the output gradient dy
 // (B, N, D) bf16.  Scratch: w_t (D, D) bf16, o and d_o (B, N, D) bf16,
-// dw_part (slices, D, D) fp32, db_part (ceil(B*N / 64), D) fp32.  Results:
-// dqkv (B, N, 3D) bf16, dw (D, D) fp32 as (out, in), db (D,) fp32.  scale_c
-// is 1/sqrt(hd) as bf16 holds it, scale the fp32 value.  `phases` is a mask
-// of the phases to run, 15 for the whole backward: 1 the transpose and the
-// PREP kernel (w_t, o, d_o), 2 dw, 4 db, 8 the attention backward (dqkv, from
-// d_o); a caller that times one phase runs the earlier ones first.  Returns
-// the first failing launch's CUDA error.
+// dw_part (max(slices, 4), D, D) fp32 (slices: ssl4polyp_dw_product_slices),
+// db_part (ceil(B*N / 64), D) fp32.  Results: dqkv (B, N, 3D) bf16, dw (D,
+// D) fp32 as (out, in), db (D,) fp32.  scale_c is 1/sqrt(hd) as bf16 holds
+// it, scale the fp32 value.  `phases` is a mask of the phases to run, 15 for
+// the whole backward: 1 the transpose and the PREP kernel (w_t, o, d_o), 2
+// dw, 4 db, 8 the attention backward (dqkv, from d_o); and 16, for timing,
+// dw on the first design; a caller that times one phase runs the earlier
+// ones first.  Returns the first failing launch's CUDA error.
 extern "C" int ssl4polyp_attn_proj_bwd(const void* qkv, const void* w, const void* dy, void* w_t,
                                        void* o, void* d_o, void* dqkv, void* dw_part, void* dw,
                                        void* db_part, void* db, int B, int N, int H, int head_dim,
@@ -496,9 +504,13 @@ extern "C" int ssl4polyp_attn_proj_bwd(const void* qkv, const void* w, const voi
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (phases & 2) {
+    const int rc = ssl4polyp_dw_product(dy, o, dw_part, dw, M, D, D, slices, 3, stream);
+    if (rc != 0) return rc;
+  }
+  if (phases & 16) {
     err = launch_transposed_product(static_cast<const bf16*>(dy), D, static_cast<const bf16*>(o),
                                     D, static_cast<float*>(dw_part), static_cast<float*>(dw), M,
-                                    D, D, slices, st);
+                                    D, D, kFirstDesignDwSlices, 3, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (phases & 4) {

@@ -173,7 +173,11 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 // and q, each multiplied by the fp32 1/sqrt(hd) (`scale`, not the bf16 value
 // `scale_c` the forward folded into q) and rounded to bf16.  With a bias, the
 // bias gradient is the fp32 sum over every (batch, token) row of the
-// bf16-rounded dQKV.
+// bf16-rounded dQKV.  ssl4polyp_qkv_attention_bwd_mode also takes
+// attention_block.py's placement of the scale (dS = round_bf16(W * (dW -
+// tmp) * scale), dQ and dK unscaled), for attention_block.cu's backward,
+// which runs this kernel on its recomputed projection with the projection's
+// bias as the bias.
 //
 // What bounds it on the H100: five products of N x N x hd per (batch, head)
 // against reading QKV and dO and writing dQKV once: 0.71 N FLOP per byte,
@@ -419,7 +423,7 @@ __device__ __forceinline__ void store_gradient_tile(const float (&acc)[HD / 8][4
   store_tile_rows<HD>(out + row_a * ld, out + row_b * ld, lo, hi, row_a < N, row_b < N, t);
 }
 
-template <int HD, int NKT>
+template <int HD, int NKT, int MODE>
 __global__ void __launch_bounds__(32 * NKT, StoredDsPlan<HD, NKT>::kBlocksPerSm)
 qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
                          const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
@@ -455,6 +459,8 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
   bf16* out = dqkv + static_cast<long>(b) * N * ld + h * HD;
   float* db = dbias_part == nullptr ? nullptr : s_db + warp * 3 * HD;
   const float score_scale = Plan::kCopyQ ? 1.0f : scale_c;
+  const float ds_scale = MODE == kBwdFold ? 1.0f : scale;   // on dS, before its rounding
+  const float out_scale = MODE == kBwdFold ? scale : 1.0f;  // on dQ and dK, before theirs
   const int n_tiles = (N + 15) / 16;
 
   // The bias chunks this thread adds (one column chunk of every row it
@@ -565,10 +571,14 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
       float w[2][4];
       weights(j, w[0]);
       weights(j + 1, w[1]);
-      d0[0] = pack_floats(w[0][0] * (dw[0][0] - tmp0), w[0][1] * (dw[0][1] - tmp0));
-      d0[1] = pack_floats(w[0][2] * (dw[0][2] - tmp1), w[0][3] * (dw[0][3] - tmp1));
-      d1[0] = pack_floats(w[1][0] * (dw[1][0] - tmp0), w[1][1] * (dw[1][1] - tmp0));
-      d1[1] = pack_floats(w[1][2] * (dw[1][2] - tmp1), w[1][3] * (dw[1][3] - tmp1));
+      d0[0] = pack_floats(w[0][0] * (dw[0][0] - tmp0) * ds_scale,
+                          w[0][1] * (dw[0][1] - tmp0) * ds_scale);
+      d0[1] = pack_floats(w[0][2] * (dw[0][2] - tmp1) * ds_scale,
+                          w[0][3] * (dw[0][3] - tmp1) * ds_scale);
+      d1[0] = pack_floats(w[1][0] * (dw[1][0] - tmp0) * ds_scale,
+                          w[1][1] * (dw[1][1] - tmp0) * ds_scale);
+      d1[1] = pack_floats(w[1][2] * (dw[1][2] - tmp1) * ds_scale,
+                          w[1][3] * (dw[1][3] - tmp1) * ds_scale);
     };
     auto store_ds = [&](int j, const uint32_t (&d)[2]) {
       *reinterpret_cast<uint32_t*>(ds_a + j * 8) = d[0];
@@ -604,7 +614,7 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
         mma_16816(dq[n + 1], dsa, kb[2], kb[3]);
       }
     }
-    store_gradient_tile<HD>(dq, scale, out, ld, r0, N, db, g, t);
+    store_gradient_tile<HD>(dq, out_scale, out, ld, r0, N, db, g, t);
   }
   __syncthreads();  // every query row's dS and statistics are in
 
@@ -668,7 +678,8 @@ qkv_attention_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ 
         mma_16816(dk[n + 1], dsa, qb[2], qb[3]);
       }
     }
-    store_gradient_tile<HD>(dk, scale, out + D, ld, k0, N, db == nullptr ? nullptr : db + HD, g, t);
+    store_gradient_tile<HD>(dk, out_scale, out + D, ld, k0, N, db == nullptr ? nullptr : db + HD,
+                            g, t);
     store_gradient_tile<HD>(dv, 1.0f, out + 2 * D, ld, k0, N,
                             db == nullptr ? nullptr : db + 2 * HD, g, t);
   }
@@ -684,7 +695,7 @@ constexpr size_t recompute_smem_bytes() {
          static_cast<size_t>(3 * NKT * 16 + kBwdWarps * 3 * HD) * sizeof(float);
 }
 
-template <int HD, int NKT>
+template <int HD, int NKT, int MODE>
 __global__ void __launch_bounds__(32 * kBwdWarps)
 qkv_attention_bwd_recompute_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
                                    const bf16* __restrict__ dout, bf16* __restrict__ dqkv,
@@ -719,7 +730,7 @@ qkv_attention_bwd_recompute_kernel(const bf16* __restrict__ qkv, const bf16* __r
   __syncthreads();
 
   bf16* out = dqkv + static_cast<long>(b) * N * ld + h * HD;
-  attention_backward_recompute_ds<HD, NKT, kBwdFold>(
+  attention_backward_recompute_ds<HD, NKT, MODE>(
       s_q, s_k, s_v, s_do, s_max, s_inv, s_tmp,
       want_dbias ? s_db + (threadIdx.x / 32) * 3 * HD : nullptr, out, out + D, out + 2 * D, ld, N,
       n_valid, scale_c, scale, softmax_f32);
@@ -728,7 +739,9 @@ qkv_attention_bwd_recompute_kernel(const bf16* __restrict__ qkv, const bf16* __r
   store_dbias_partial<HD>(s_db, dbias_part, b, h, D);
 }
 
-template <int HD, int NKT>
+// With a bias and no dbias, the (B, 3D) partial rows are left for the caller
+// to add (attention_block.cu times that sum apart).
+template <int HD, int NKT, int MODE>
 cudaError_t launch_bwd(const bf16* qkv, const bf16* bias, const bf16* dout, bf16* dqkv,
                        float* dbias_part, float* dbias, int B, int N, int H, int n_valid,
                        float scale_c, float scale, int softmax_f32, int probe,
@@ -742,23 +755,23 @@ cudaError_t launch_bwd(const bf16* qkv, const bf16* bias, const bf16* dout, bf16
       // 1/sqrt(hd) as bf16 holds it, a power of two.
       if (!Plan::kCopyQ && scale_c != (HD == 16 ? 0.25f : 0.125f)) return cudaErrorInvalidValue;
       static bool configured[kMaxDevices] = {};
-      err = allow_dynamic_smem(qkv_attention_bwd_kernel<HD, NKT>, Plan::kBytes, configured);
+      err = allow_dynamic_smem(qkv_attention_bwd_kernel<HD, NKT, MODE>, Plan::kBytes, configured);
       if (err != cudaSuccess) return err;
-      qkv_attention_bwd_kernel<HD, NKT><<<dim3(H, B), 32 * Plan::kWarps, Plan::kBytes, stream>>>(
+      qkv_attention_bwd_kernel<HD, NKT, MODE><<<dim3(H, B), 32 * Plan::kWarps, Plan::kBytes, stream>>>(
           qkv, bias, dout, dqkv, part, N, H, n_valid, scale_c, scale, softmax_f32, probe);
       err = cudaGetLastError();
-      if (err != cudaSuccess || bias == nullptr) return err;
+      if (err != cudaSuccess || bias == nullptr || dbias == nullptr) return err;
       return launch_column_sum(dbias_part, B, 3 * H * HD, dbias, stream);
     }
   }
   constexpr size_t smem = recompute_smem_bytes<HD, NKT>();
   static bool configured[kMaxDevices] = {};
-  err = allow_dynamic_smem(qkv_attention_bwd_recompute_kernel<HD, NKT>, smem, configured);
+  err = allow_dynamic_smem(qkv_attention_bwd_recompute_kernel<HD, NKT, MODE>, smem, configured);
   if (err != cudaSuccess) return err;
-  qkv_attention_bwd_recompute_kernel<HD, NKT><<<dim3(H, B), 32 * kBwdWarps, smem, stream>>>(
+  qkv_attention_bwd_recompute_kernel<HD, NKT, MODE><<<dim3(H, B), 32 * kBwdWarps, smem, stream>>>(
       qkv, bias, dout, dqkv, part, N, H, n_valid, scale_c, scale, softmax_f32);
   err = cudaGetLastError();
-  if (err != cudaSuccess || bias == nullptr) return err;
+  if (err != cudaSuccess || bias == nullptr || dbias == nullptr) return err;
   return launch_column_sum(dbias_part, B, 3 * H * HD, dbias, stream);
 }
 
@@ -774,14 +787,14 @@ int bwd_plan(int* warps, int* smem_bytes) {
   return 0;
 }
 
-template <int HD>
+template <int HD, int MODE>
 cudaError_t launch_bwd_head_dim(const bf16* qkv, const bf16* bias, const bf16* dout, bf16* dqkv,
                                 float* dbias_part, float* dbias, int B, int N, int H,
                                 int n_valid, float scale_c, float scale, int softmax_f32,
                                 int probe, cudaStream_t stream) {
-#define SSL4POLYP_BWD(HD_, NKT)                                                               \
-  launch_bwd<HD_, NKT>(qkv, bias, dout, dqkv, dbias_part, dbias, B, N, H, n_valid, scale_c, \
-                       scale, softmax_f32, probe, stream)
+#define SSL4POLYP_BWD(HD_, NKT)                                                                     \
+  launch_bwd<HD_, NKT, MODE>(qkv, bias, dout, dqkv, dbias_part, dbias, B, N, H, n_valid, scale_c, \
+                             scale, softmax_f32, probe, stream)
   SSL4POLYP_FOR_TOKENS(SSL4POLYP_BWD, HD)
 #undef SSL4POLYP_BWD
 }
@@ -816,13 +829,18 @@ extern "C" int ssl4polyp_qkv_attention_fwd(const void* qkv, const void* bias, vo
   return static_cast<int>(err);
 }
 
-// ssl4polyp_qkv_attention_bwd with `probe` (0 on every path; the bits at
-// kProbeNoPhaseB above leave parts out or run the first design, for timing).
-extern "C" int ssl4polyp_qkv_attention_bwd_probe(const void* qkv, const void* bias,
-                                                 const void* dout, void* dqkv, void* dbias_part,
-                                                 void* dbias, int B, int N, int H, int head_dim,
-                                                 int n_valid, float scale_c, float scale,
-                                                 int softmax_f32, int probe, void* stream) {
+// ssl4polyp_qkv_attention_bwd_probe where the scale enters as `mode` says:
+// 0 as this kernel's TPU kernel puts it (dQ and dK times the fp32 scale,
+// then rounded); 1 as attention_block.py's (dS = round_bf16(W * (dW - tmp) *
+// scale), dQ and dK unscaled: attention_core.cuh's kBwdFoldScaledDs), at
+// head dims 32 and 64.  With a bias, a null dbias leaves the (B, 3D) partial
+// rows in dbias_part unsummed.
+extern "C" int ssl4polyp_qkv_attention_bwd_mode(const void* qkv, const void* bias,
+                                                const void* dout, void* dqkv, void* dbias_part,
+                                                void* dbias, int B, int N, int H, int head_dim,
+                                                int n_valid, float scale_c, float scale,
+                                                int softmax_f32, int mode, int probe,
+                                                void* stream) {
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* bb = static_cast<const bf16*>(bias);
   const bf16* d = static_cast<const bf16*>(dout);
@@ -830,14 +848,36 @@ extern "C" int ssl4polyp_qkv_attention_bwd_probe(const void* qkv, const void* bi
   float* part = static_cast<float*>(dbias_part);
   float* db = static_cast<float*>(dbias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (head_dim) {
-    case 16: err = launch_bwd_head_dim<16>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, probe, s); break;
-    case 32: err = launch_bwd_head_dim<32>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, probe, s); break;
-    case 64: err = launch_bwd_head_dim<64>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, softmax_f32, probe, s); break;
-    default: err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+#define SSL4POLYP_BWD_MODE(HD, MODE)                                                        \
+  launch_bwd_head_dim<HD, MODE>(q, bb, d, dq, part, db, B, N, H, n_valid, scale_c, scale, \
+                                softmax_f32, probe, s)
+  if (mode == kBwdFold) {
+    switch (head_dim) {
+      case 16: err = SSL4POLYP_BWD_MODE(16, kBwdFold); break;
+      case 32: err = SSL4POLYP_BWD_MODE(32, kBwdFold); break;
+      case 64: err = SSL4POLYP_BWD_MODE(64, kBwdFold); break;
+    }
+  } else if (mode == kBwdFoldScaledDs) {
+    switch (head_dim) {
+      case 32: err = SSL4POLYP_BWD_MODE(32, kBwdFoldScaledDs); break;
+      case 64: err = SSL4POLYP_BWD_MODE(64, kBwdFoldScaledDs); break;
+    }
   }
+#undef SSL4POLYP_BWD_MODE
   return static_cast<int>(err);
+}
+
+// ssl4polyp_qkv_attention_bwd with `probe` (0 on every path; the bits at
+// kProbeNoPhaseB above leave parts out or run the first design, for timing).
+extern "C" int ssl4polyp_qkv_attention_bwd_probe(const void* qkv, const void* bias,
+                                                 const void* dout, void* dqkv, void* dbias_part,
+                                                 void* dbias, int B, int N, int H, int head_dim,
+                                                 int n_valid, float scale_c, float scale,
+                                                 int softmax_f32, int probe, void* stream) {
+  return ssl4polyp_qkv_attention_bwd_mode(qkv, bias, dout, dqkv, dbias_part, dbias, B, N, H,
+                                          head_dim, n_valid, scale_c, scale, softmax_f32,
+                                          kBwdFold, probe, stream);
 }
 
 // qkv: (B, N, 3*H*hd) bf16; bias: (3*H*hd,) bf16 or null; dout: (B, N, H*hd)

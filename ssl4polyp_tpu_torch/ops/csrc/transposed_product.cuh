@@ -1,7 +1,9 @@
 // The product of two row-major bf16 matrices over their shared row index,
-//   out[i, j] = sum over rows r of a[r, i] * b[r, j]   (a^T . b, fp32),
-// as a weight gradient needs it (attn_proj.cu: dW = dy^T O; attention_block.cu:
-// dW = x^T dqkv).  The sum runs over every row of the batch and the port uses
+//   out[i, j] = sum over rows r of a[r, i] * b[r, j]   (a^T . b, fp32):
+// the first design of the weight gradients' product, on mma.sync.
+// dw_product.cu (wgmma, TMA) took its place; this one stays behind the
+// measurement probes of attention_block.cu's and attn_proj.cu's backwards.
+// The sum runs over every row of the batch and the port uses
 // no float atomics, so a block owns one 64 x 64 tile of `out` over one slice
 // of the rows and writes its partial; column_sum_kernel (common.cuh) then
 // adds the slices in order: the same bits on every run.
@@ -112,21 +114,24 @@ transposed_product_kernel(const bf16* __restrict__ a, int lda, const bf16* __res
 }
 
 // out (I, J) fp32 = a^T . b over M rows, through `part` (slices, I, J) fp32
-// scratch; I and J multiples of 64, lda and ldb multiples of 8.
+// scratch; I and J multiples of 64, lda and ldb multiples of 8.  `parts`: 1
+// the products into part, 2 the sum of the slices into out; 3 both.
 inline cudaError_t launch_transposed_product(const bf16* a, int lda, const bf16* b, int ldb,
                                              float* part, float* out, int M, int I, int J,
-                                             int slices, cudaStream_t stream) {
+                                             int slices, int parts, cudaStream_t stream) {
   if (slices < 1 || I % kTpTile != 0 || J % kTpTile != 0) return cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(transposed_product_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(kTpSmemBytes));
-  if (err != cudaSuccess) return err;
-  const int per_slice = ((M + slices - 1) / slices + kTpRows - 1) / kTpRows * kTpRows;
-  transposed_product_kernel<<<dim3(J / kTpTile, I / kTpTile, slices), kTpThreads, kTpSmemBytes,
-                              stream>>>(a, lda, b, ldb, part, M, per_slice);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  return launch_column_sum(part, slices, I * J, out, stream);
+  if (parts & 1) {
+    cudaError_t err = cudaFuncSetAttribute(transposed_product_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(kTpSmemBytes));
+    if (err != cudaSuccess) return err;
+    const int per_slice = ((M + slices - 1) / slices + kTpRows - 1) / kTpRows * kTpRows;
+    transposed_product_kernel<<<dim3(J / kTpTile, I / kTpTile, slices), kTpThreads, kTpSmemBytes,
+                                stream>>>(a, lda, b, ldb, part, M, per_slice);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return parts & 2 ? launch_column_sum(part, slices, I * J, out, stream) : cudaSuccess;
 }
 
 }  // namespace

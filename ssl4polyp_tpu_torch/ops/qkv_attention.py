@@ -90,6 +90,7 @@ def fused_qkv_attention_backward_reference(
     softmax_f32: bool = True,
     valid_len: Optional[int] = None,
     bias: Optional[torch.Tensor] = None,
+    scaled_ds: bool = False,
 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain torch version of the backward kernel, with the JAX kernel's
     steps and roundings (``_bwd_kernel``, ``_bwd_bias_kernel``).
@@ -98,8 +99,11 @@ def fused_qkv_attention_backward_reference(
     compute-dtype scale fold in q); dV = round(W)^T dO; dW = dO V^T; tmp =
     rowsum(dW * W) with the unrounded W; dS = round(W * (dW - tmp)); dQ = dS K
     and dK = dS^T Q with the unscaled k and q, times the fp32 1/sqrt(hd).
-    Returns dqkv (B, N, 3D) in the compute dtype and, with ``bias``, dbias:
-    the fp32 sum over every row of the rounded dqkv, in ``bias``'s dtype.
+    With ``scaled_ds`` the scale sits where ``attention_block.py``'s kernel
+    puts it (the kernel's mode 1): dS = round(W * (dW - tmp) * scale), dQ and
+    dK unscaled.  Returns dqkv (B, N, 3D) in the compute dtype and, with
+    ``bias``, dbias: the fp32 sum over every row of the rounded dqkv, in
+    ``bias``'s dtype.
     """
     dtype = qkv.dtype
     x = qkv if bias is None else qkv + bias
@@ -119,10 +123,15 @@ def fused_qkv_attention_backward_reference(
     dv = torch.matmul(weights.to(dtype).float().transpose(-1, -2), do)
     dw = torch.matmul(do, v.float().transpose(-1, -2))
     tmp = (dw * weights).sum(dim=-1, keepdim=True)
-    ds = (weights * (dw - tmp)).to(dtype).float()
-    scale = torch.tensor(1.0 / math.sqrt(head_dim), dtype=torch.float32)
-    dq = torch.matmul(ds, k.float()) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
+    if scaled_ds:
+        ds = (weights * (dw - tmp) * (1.0 / math.sqrt(head_dim))).to(dtype).float()
+        dq = torch.matmul(ds, k.float())
+        dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    else:
+        ds = (weights * (dw - tmp)).to(dtype).float()
+        scale = torch.tensor(1.0 / math.sqrt(head_dim), dtype=torch.float32)
+        dq = torch.matmul(ds, k.float()) * scale
+        dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
     dqkv = torch.stack([dq, dk, dv]).to(dtype)  # (3, B, H, N, hd)
     dqkv = dqkv.permute(1, 3, 0, 2, 4).reshape(B, N, three_d)
     dbias = None if bias is None else dqkv.float().sum(dim=(0, 1)).to(bias.dtype)
@@ -204,9 +213,12 @@ def backward_plan(num_tokens: int, head_dim: int) -> dict:
     return {"path": BACKWARD_PATHS[path], "warps": warps.value, "smem_bytes": smem.value}
 
 
-def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: int = 0):
+def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: int = 0,
+                     scaled_ds: bool = False):
     """The backward kernel.  ``probe`` (0 on every path) is a measurement aid:
-    the ``PROBE_*`` bits above."""
+    the ``PROBE_*`` bits above.  ``scaled_ds``: the scale where
+    ``attention_block.py`` puts it (as the plain version's argument; head dims
+    32 and 64), the mode ``fused_qkvproj_attention``'s backward runs."""
     from ._build import library
 
     global backward_launches
@@ -220,12 +232,13 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
         dbias = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().ssl4polyp_qkv_attention_bwd_probe(
+        err = library().ssl4polyp_qkv_attention_bwd_mode(
             qkv.data_ptr(), None if bias is None else bias.data_ptr(), dout.data_ptr(),
             dqkv.data_ptr(), None if part is None else part.data_ptr(),
             None if dbias is None else dbias.data_ptr(), B, N, num_heads, head_dim,
             N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
-            1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), probe, stream,
+            1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), int(bool(scaled_ds)), probe,
+            stream,
         )
     if err:
         raise RuntimeError(f"qkv_attention backward kernel launch failed: CUDA error {err}")

@@ -49,8 +49,8 @@ FINETUNE_CONFIGS = (
 
 # (substring of the kernel's name, category), first match wins.
 _CATEGORIES = (
-    ("attn_proj_dw_kernel", "attention+projection backward: dW kernel"),
-    ("transposed_product_kernel", "attention+projection backward: dW kernel"),
+    ("dw_product_kernel", "attention+projection backward: dW kernel"),
+    ("dw_slice_sum_kernel", "column sums of the kernels' parameter gradients"),
     ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
     ("attn_proj_kernel", "attention+projection kernel (forward, and the backward's O and dO)"),
     ("attn_proj_transpose_kernel",

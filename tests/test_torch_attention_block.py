@@ -21,7 +21,10 @@ from ssl4polyp_tpu_torch.ops.attention_block import (
     fused_qkvproj_attention_plain,
     fused_qkvproj_attention_reference,
 )
-from ssl4polyp_tpu_torch.ops.qkv_attention import fused_qkv_attention_plain
+from ssl4polyp_tpu_torch.ops.qkv_attention import (
+    fused_qkv_attention_backward_reference,
+    fused_qkv_attention_plain,
+)
 
 # fp32 on both sides, same algorithm: only summation order differs.  dw and
 # db sum over every row of the batch and dx over 3D columns, so their
@@ -187,3 +190,81 @@ def test_forward_kernel_refuses_unknown_probe_bits_before_any_build(monkeypatch)
     for probe in (32, attention_block._PROBE_BITS + 1, -1):
         with pytest.raises(ValueError, match="probe"):
             attention_block._forward_kernel(x, w, b, 2, True, None, probe=probe)
+
+
+def _backward_chain(x, w, b, dout, H, softmax_f32, valid_len):
+    """The card's backward sequence in plain torch: the projection without
+    its bias, rounded; the attention backward in the QKV projection's mode
+    with b as its bias (which rounds qkv + b and sums db); dx; dw."""
+    B, N, d_in = x.shape
+    qkv = torch.matmul(x.float(), w.float()).to(x.dtype)
+    dqkv, db = fused_qkv_attention_backward_reference(qkv, dout, H, softmax_f32, valid_len, b,
+                                                      scaled_ds=True)
+    dqkv2 = dqkv.reshape(B * N, -1).float()
+    dx = torch.matmul(dqkv2, w.float().t()).to(x.dtype).reshape(x.shape)
+    dw = torch.matmul(x.reshape(B * N, d_in).float().t(), dqkv2)
+    return dx, dw.to(w.dtype), db
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("softmax_f32", [True, False])
+@pytest.mark.parametrize("B, N, Din, H, hd, valid_len",
+                         [(2, 29, 64, 2, 32, None), (2, 29, 64, 2, 32, 25), (1, 24, 128, 2, 64, 19),
+                          (2, 50, 64, 3, 32, 40), (1, 17, 64, 1, 64, None)])
+def test_backward_chain_equals_the_backward_reference_bit_for_bit(B, N, Din, H, hd, valid_len,
+                                                                  softmax_f32, dtype):
+    # The reference is held against the JAX kernel above; the chain of steps
+    # the card runs makes the same roundings in the same order.
+    x, w, b, dout = (torch.from_numpy(a).to(getattr(torch, dtype))
+                     for a in _inputs(8, B, N, Din, H, hd))
+    if valid_len is not None:
+        dout[:, valid_len:] = 0
+    chain = _backward_chain(x, w, b, dout, H, softmax_f32, valid_len)
+    ref = fused_qkvproj_attention_backward_reference(x, w, b, dout, H, softmax_f32, valid_len)
+    for name, got, want in zip(("dx", "dw", "db"), chain, ref):
+        assert got.dtype == want.dtype, name
+        assert torch.equal(got, want), name
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", BWD_F32_TOL), ("bfloat16", BWD_BF16_TOL)])
+@pytest.mark.parametrize("softmax_f32", [True, False])
+@pytest.mark.parametrize("H, hd, valid_len", [(2, 32, 25), (1, 64, None)])
+def test_attention_backward_reference_in_the_projection_mode_matches_the_jax_vjp(
+        H, hd, valid_len, softmax_f32, dtype, tol):
+    # With W = I (Din = 3D) the JAX kernel's qkv is x + b and its dx is dqkv
+    # itself (a product with one nonzero term, then rounded: exact), so its
+    # VJP shows the dqkv and db that the attention backward's second mode
+    # must give on qkv = x with b as its bias.  In bf16 both round at the
+    # same points: a rounding may flip on an fp32 summation order, rarely;
+    # the first mode's scale outside dS's rounding flips about a third of
+    # dqkv at hd 32 (1/sqrt(32) is no power of two).
+    B, N, three_d = 2, 29, 3 * H * hd
+    x, _, b, dout = _inputs(9, B, N, three_d, H, hd)
+    w = np.eye(three_d, dtype=np.float32)
+    if valid_len is not None:
+        dout[:, valid_len:] = 0
+    ref = _jax_all(x, w, b, dout, H, softmax_f32, valid_len, getattr(jnp, dtype))
+    dqkv, db = fused_qkv_attention_backward_reference(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, dout)), H, softmax_f32,
+        valid_len, torch.from_numpy(b).to(getattr(torch, dtype)), scaled_ds=True)
+    for name, got, want in (("dqkv", dqkv, ref[1]), ("db", db, ref[3])):
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol * scale,
+                                   err_msg=name)
+    if dtype == "bfloat16":
+        assert (dqkv.float().numpy() != ref[1]).mean() <= 0.01
+
+
+def test_backward_kernel_refuses_unknown_probe_bits_before_any_build(monkeypatch):
+    from ssl4polyp_tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    x, w, b, dout = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(10, 1, 8, 64, 2, 32))
+    bits = (attention_block.BACKWARD_PROBE_FIRST_DESIGN, *attention_block.BACKWARD_STEPS.values())
+    assert sum(bits) == attention_block._BACKWARD_PROBE_BITS and len(set(bits)) == len(bits)
+    for probe in (256, attention_block._BACKWARD_PROBE_BITS + 1, -1):
+        with pytest.raises(ValueError, match="probe"):
+            attention_block._backward_kernel(x, w, b, dout, 2, True, None, probe=probe)

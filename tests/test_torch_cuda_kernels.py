@@ -4,6 +4,8 @@ These tests need an NVIDIA GPU and nvcc; elsewhere they skip.  Run them on
 the card with ``python -m pytest tests/test_torch_cuda_kernels.py -q``.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -187,6 +189,32 @@ def test_attention_backward_kernel_padded_equals_unpadded(gen, N, H, hd):
     dqkv_p, dbias_p = _backward_kernel(padded, padded_dout, H, True, N, bias)
     assert torch.equal(dqkv_p[:, :N], dqkv)
     assert torch.equal(dbias_p, dbias)
+
+
+# The second mode (the QKV projection + attention backward's: the scale inside
+# dS's rounding, dQ and dK unscaled) on both paths: the stored-dS kernel up to
+# 208 tokens, its first design past them.
+@pytest.mark.parametrize(
+    "B, N, H, hd, softmax_f32, valid_len",
+    [(4, 197, 12, 64, True, None), (4, 197, 16, 32, False, None), (2, 50, 3, 32, False, 40),
+     (2, 208, 4, 32, True, 200), (2, 209, 4, 32, False, None), (1, 256, 2, 64, True, 255),
+     (2, 17, 2, 64, True, None)],
+)
+def test_attention_backward_kernel_in_the_projection_mode_matches_plain(
+        gen, B, N, H, hd, softmax_f32, valid_len):
+    from ssl4polyp_tpu_torch.ops.qkv_attention import _backward_kernel
+
+    qkv, dout = _randn(gen, B, N, 3 * H * hd), _randn(gen, B, N, H * hd)
+    bias = _randn(gen, 3 * H * hd, scale=0.5)
+    dqkv, dbias = _backward_kernel(qkv, dout, H, softmax_f32, valid_len, bias, scaled_ds=True)
+    again = _backward_kernel(qkv, dout, H, softmax_f32, valid_len, bias, scaled_ds=True)
+    torch.cuda.synchronize()
+    ref_dqkv, ref_dbias = fused_qkv_attention_backward_reference(
+        qkv, dout, H, softmax_f32, valid_len, bias, scaled_ds=True)
+    torch.testing.assert_close(dqkv, ref_dqkv, **ATTENTION_BWD_TOL)
+    scale = ref_dbias.float().abs().max().item()
+    torch.testing.assert_close(dbias.float(), ref_dbias.float(), atol=2e-3 * scale, rtol=2e-2)
+    assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
 
 
 @pytest.mark.parametrize("shape", [(4, 50, 768), (2, 197, 512), (37, 64), (5, 2048)])
@@ -536,6 +564,21 @@ def test_attn_proj_backward_phases_add_up(gen):
     assert all(torch.equal(a, g) for a, g in zip(whole, results()))
 
 
+def test_attn_proj_dw_first_design_agrees_with_the_dw_product(gen):
+    """The dw phase on its first design (mma.sync), a timing aid, against the
+    wgmma product: fp32 sums of the same bf16 operands in another order."""
+    qkv, dy = _randn(gen, 4, 197, 3 * 768), _randn(gen, 4, 197, 768)
+    w, b = _randn(gen, 768, 768, scale=768 ** -0.5), _randn(gen, 768, scale=0.5)
+    run, results = attn_proj._backward_plan(qkv, w, b, dy, 12, True, None)
+    run(attn_proj.BACKWARD_PHASES["prep"] | attn_proj.BACKWARD_PHASES["dw"])
+    torch.cuda.synchronize()
+    dw = results()[1].clone()
+    run(attn_proj.DW_FIRST_DESIGN_PHASE)
+    torch.cuda.synchronize()
+    scale = dw.float().abs().max().item()
+    torch.testing.assert_close(results()[1].float(), dw.float(), atol=1e-2 * scale, rtol=2e-2)
+
+
 def test_attn_proj_padded_equals_unpadded(gen):
     qkv = _randn(gen, 4, 197, 3 * 768)
     w, b = _randn(gen, 768, 768, scale=768 ** -0.5), _randn(gen, 768, scale=0.5)
@@ -788,6 +831,7 @@ def test_separate_attention_forward_products_alone_are_exact(gen, N, hd, probe):
         (2, 50, 64, 4, 32, False, 40),
         (1, 256, 128, 2, 64, True, 255),
         (2, 129, 192, 8, 32, False, None),
+        (2, 50, 64, 3, 32, False, 40),        # an odd head count at hd 32: 3D = 288
     ],
 )
 def test_qkvproj_attention_kernels_match_plain(gen, B, N, Din, H, hd, softmax_f32, valid_len):
@@ -978,6 +1022,129 @@ def test_qkvproj_attention_gradients_after_the_forward_equal_the_backward_kernel
     direct = ab._backward_kernel(x, w, b, dout, H, softmax_f32, valid_len)
     torch.cuda.synchronize()
     assert all(torch.equal(leaf.grad, want) for leaf, want in zip(leaves, direct))
+
+
+def _qkvproj_backward_inputs(gen, B, N, Din, H, hd, valid_len):
+    x, w, b = _qkvproj_args(gen, B, N, Din, H, hd)
+    dout = _randn(gen, B, N, H * hd)
+    if valid_len is not None:
+        dout[:, valid_len:] = 0
+    return x, w, b, dout
+
+
+@pytest.mark.parametrize("B, N, Din, H, hd, softmax_f32, valid_len",
+                         _QKVPROJ_FWD_SHAPES[1:] + [(2, 256, 64, 2, 64, False, None)])
+def test_qkvproj_attention_backward_first_design_matches_plain(gen, B, N, Din, H, hd,
+                                                               softmax_f32, valid_len):
+    # The first design (3D a multiple of 64), a timing aid, through the probe.
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+
+    args = (*_qkvproj_backward_inputs(gen, B, N, Din, H, hd, valid_len), H, softmax_f32,
+            valid_len)
+    first = ab._backward_kernel(*args, probe=ab.BACKWARD_PROBE_FIRST_DESIGN)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dx", "dw", "db"), first,
+                               ab.fused_qkvproj_attention_backward_reference(*args)):
+        scale = want.float().abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2 * scale, rtol=2e-2,
+                                   msg=name)
+
+
+@pytest.mark.parametrize("first_design", [False, True])
+def test_qkvproj_attention_backward_steps_add_up(gen, first_design):
+    """The backward's launches run one at a time (the probe's step bits) give
+    the whole backward's bits."""
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+
+    args = (*_qkvproj_backward_inputs(gen, 2, 197, 512, 16, 32, None), 16, False, None)
+    whole = ab._backward_kernel(*args, probe=int(first_design))
+    run, results = ab._backward_plan(*args, first_design)
+    for bit in ab.BACKWARD_STEPS.values():
+        run(bit)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, g) for a, g in zip(whole, results()))
+
+
+@pytest.mark.parametrize("N, Din, H, hd", [(197, 768, 12, 64), (50, 64, 3, 32)])
+def test_qkvproj_attention_bwd_entry_point_equals_the_wrapper(gen, N, Din, H, hd):
+    # ssl4polyp_qkvproj_attention_bwd, for a C caller without the two bf16
+    # scratches (the stream's pool gives them), gives the wrapper's bits.
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    B, three_d = 2, 3 * H * hd
+    x, w, b, dout = _qkvproj_backward_inputs(gen, B, N, Din, H, hd, None)
+    want = ab._backward_kernel(x, w, b, dout, H, True, None)
+    lib = library()
+    slices = lib.ssl4polyp_dw_product_slices(B * N, Din, three_d)
+    dqkv = torch.empty((B, N, three_d), dtype=torch.bfloat16, device="cuda")
+    db_part = torch.empty((B, three_d), device="cuda")
+    db, dx = torch.empty(three_d, device="cuda"), torch.empty_like(x)
+    dw_part, dw = torch.empty((slices, Din, three_d), device="cuda"), torch.empty((Din, three_d),
+                                                                                   device="cuda")
+    err = lib.ssl4polyp_qkvproj_attention_bwd(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), dout.data_ptr(), dqkv.data_ptr(),
+        db_part.data_ptr(), db.data_ptr(), dx.data_ptr(), dw_part.data_ptr(), dw.data_ptr(), B, N,
+        Din, H, hd, N, ab._scale(hd, torch.bfloat16), 1.0 / math.sqrt(hd), 1, slices,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    assert all(torch.equal(a, g) for a, g in zip(want, (dx, dw.bfloat16(), db.bfloat16())))
+
+
+# The weight gradients' wgmma product (dw_product.cu): the three paths' shapes
+# (the QKV projection's at the classifier and the MAE decoder, the output
+# projection's), M off the 64-row step, M under one step, a column count of
+# 288 (three heads of 32: a partial column tile), I of one 64-column box, and
+# more slices than row steps (empty slices).
+DW_SHAPES = [
+    (12608, 768, 2304, 0), (12608, 512, 1536, 0), (12608, 768, 768, 0), (1000, 128, 256, 0),
+    (37, 64, 288, 0), (100, 64, 288, 0), (3 * 197, 256, 768, 0), (100, 192, 512, 5),
+    (12608, 768, 2304, 1), (12608, 768, 768, 3),
+]
+
+
+def _dw_product(a, b, slices=0):
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    lib = library()
+    M, I, J = a.shape[0], a.shape[1], b.shape[1]
+    slices = slices or lib.ssl4polyp_dw_product_slices(M, I, J)
+    assert slices >= 1
+    part = torch.zeros((slices, I, J), device="cuda")
+    out = torch.full((I, J), float("nan"), device="cuda")  # every element is written
+    err = lib.ssl4polyp_dw_product(a.data_ptr(), b.data_ptr(), part.data_ptr(), out.data_ptr(), M,
+                                   I, J, slices, 3, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    return out, part
+
+
+@pytest.mark.parametrize("M, I, J, slices", DW_SHAPES)
+@torch.inference_mode()
+def test_dw_product_is_exact_on_integers(gen, M, I, J, slices):
+    # Small integers make every fp32 sum exact in any order: the product must
+    # equal torch.matmul in fp32 bit for bit, so any fault of the operands'
+    # layouts (both MN-major, the descriptor's atom offset) or of the tails
+    # shows.
+    def ints(*shape):
+        return torch.randint(-2, 3, shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    a, b = ints(M, I), ints(M, J)
+    out, _ = _dw_product(a, b, slices)
+    assert torch.equal(out, torch.matmul(a.float().t(), b.float()))
+
+
+@pytest.mark.parametrize("M, I, J, slices", DW_SHAPES)
+@torch.inference_mode()
+def test_dw_product_matches_plain_and_reruns_equal(gen, M, I, J, slices):
+    a, b = _randn(gen, M, I), _randn(gen, M, J)
+    out, part = _dw_product(a, b, slices)
+    again, part_again = _dw_product(a, b, slices)
+    assert torch.equal(out, again) and torch.equal(part, part_again)
+    # fp32 sums of the same bf16 products in another order.
+    want = torch.matmul(a.float().t(), b.float())
+    torch.testing.assert_close(out, want, atol=1e-4 * want.abs().max().item(), rtol=1e-4)
 
 
 # The warp-specialised wgmma GEMM's tiles are 128 rows by 128 or 256 columns

@@ -18,14 +18,17 @@ from ssl4polyp_tpu_torch import profiling
     ("adamw_kernel(AdamWChunk)", "AdamW kernel (one pass, with the compute copy)"),
     ("void attn_proj_kernel<64, 13, false>(bf16 const*, ...)",
      "attention+projection kernel (forward, and the backward's O and dO)"),
-    ("attn_proj_dw_kernel(bf16 const*, ...)", "attention+projection backward: dW kernel"),
-    ("(anonymous namespace)::transposed_product_kernel(__nv_bfloat16 const*, int, ...)",
+    ("dw_product_kernel(CUtensorMap, CUtensorMap, float*, ...)",
+     "attention+projection backward: dW kernel"),
+    ("(anonymous namespace)::dw_product_kernel(CUtensorMap, CUtensorMap, float*, int, ...)",
      "attention+projection backward: dW kernel"),
     ("void (anonymous namespace)::fc1_gelu_kernel<256, true>(CUtensorMap, CUtensorMap, ...)",
      "fc1+GELU kernel"),
     ("void (anonymous namespace)::qkv_attention_kernel<64, 13>(__nv_bfloat16 const*, ...)",
      "attention forward kernel"),
     ("dy_column_partial_kernel", "column sums of the kernels' parameter gradients"),
+    ("(anonymous namespace)::dw_slice_sum_kernel(float4 const*, int, long, float4*)",
+     "column sums of the kernels' parameter gradients"),
     ("void (anonymous namespace)::ln_linear_kernel<256>(CUtensorMap, CUtensorMap, ...)",
      "LN+QKV kernel"),
     ("(anonymous namespace)::ln_linear_stats_kernel(__nv_bfloat16 const*, float2*, ...)",
