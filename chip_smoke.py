@@ -921,9 +921,9 @@ def attn_proj_kernels(randn) -> dict[str, dict]:
 def attention_ops_kernels(randn) -> dict[str, dict]:
     """The two attention functions of ``ops`` that no model route calls,
     forward and backward, against their plain versions at the classifier's
-    shape and the MAE decoder's: attention over separate q, k, v (its
-    forward also through its first design, held to the plain version, and
-    timed with parts left out, through the kernel's probe), and the QKV
+    shape and the MAE decoder's: attention over separate q, k, v (each
+    direction also through its first design, held to the plain version, and
+    timed with parts left out, through the kernels' probes), and the QKV
     projection with the attention core (both ``softmax_f32`` settings and a
     ``valid_len`` below the token count).  Beside each, the library route
     for the same function, timed only, and the bound."""
@@ -933,6 +933,12 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
                      "without P.V": attention.PROBE_NO_VALUES,
                      "without the prefetch": attention.PROBE_NO_PREFETCH,
                      "without the exponential": attention.PROBE_NO_EXP}
+    bwd_ablations = {"without phase B": attention.BACKWARD_PROBE_NO_PHASE_B,
+                     "phase A stopped after the softmax": attention.BACKWARD_PROBE_SOFTMAX_ONLY,
+                     "phase A's softmax alone": (attention.BACKWARD_PROBE_SOFTMAX_ONLY
+                                                 | attention.BACKWARD_PROBE_NO_PHASE_B),
+                     "without the second terms": attention.BACKWARD_PROBE_ONE_TERM,
+                     "without the prefetch": attention.BACKWARD_PROBE_NO_PREFETCH}
     for i, (b, h, n, hd) in enumerate([(BATCH, 12, 197, 64), (BATCH, 16, 197, 32)]):
         q, k, v, dout = (randn(b, h, n, hd) for _ in range(4))
 
@@ -941,17 +947,25 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
 
         run, first = probe_run(0), probe_run(attention.PROBE_FIRST_DESIGN)
         plain = lambda: attention.fused_attention_reference(q, k, v)  # noqa: E731
-        run_bwd = lambda: attention._backward_kernel(q, k, v, dout)  # noqa: E731
+
+        def probe_bwd(probe, q=q, k=k, v=v, dout=dout):
+            return lambda: attention._backward_kernel(q, k, v, dout, probe)
+
+        run_bwd, first_bwd = probe_bwd(0), probe_bwd(attention.BACKWARD_PROBE_FIRST_DESIGN)
         plain_bwd = lambda: attention.fused_attention_backward_reference(q, k, v, dout)  # noqa: E731
         out, again, first_out = run(), run(), first()
-        grads, grads_again = run_bwd(), run_bwd()
+        grads, grads_again, first_grads = run_bwd(), run_bwd(), first_bwd()
         torch.cuda.synchronize()
         what = f"fused_attention B={b} H={h} N={n} hd={hd}"
-        ref = plain()
+        ref, ref_grads = plain(), plain_bwd()
         fwd_errors.append(max_error(out, ref, ATTENTION_TOL, f"{what}: out"))
         first_err = max_error(first_out, ref, ATTENTION_TOL, f"{what}: first design")
         bwd_errors.append(max(max_error(got, want, ATTENTION_BWD_TOL, f"{what}: {name}")
-                              for name, got, want in zip(("dq", "dk", "dv"), grads, plain_bwd())))
+                              for name, got, want in zip(("dq", "dk", "dv"), grads, ref_grads)))
+        first_bwd_err = max(
+            max_error(got, want, ATTENTION_BWD_TOL, f"{what}: backward first design, {name}")
+            for name, got, want in zip(("dq", "dk", "dv"), first_grads, ref_grads))
+        del ref_grads, first_grads
         if not torch.equal(out, again):
             fail(f"{what}: two forward runs gave different bits")
         if not all(torch.equal(a, g) for a, g in zip(grads_again, grads)):
@@ -961,21 +975,25 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
         lib_out = F.scaled_dot_product_attention(*leaves)
         library_bwd = lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)  # noqa: E731
         fwd_times[i] = time_ms(run), time_ms(plain), time_ms(library), time_ms(first)
-        bwd_times[i] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        bwd_times[i] = (time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd),
+                        time_ms(first_bwd))
         elements, core = b * h * n * hd, b * h * n * n * hd
         print(f"{what}: out max |diff| {fwd_errors[-1]:.3e}, first design {first_err:.3e} (atol "
-              f"{ATTENTION_TOL[0]}, rtol {ATTENTION_TOL[1]}), dq, dk, dv {bwd_errors[-1]:.3e} (atol "
-              f"{ATTENTION_BWD_TOL[0]}, rtol {ATTENTION_BWD_TOL[1]}); forward and backward reruns "
-              f"bit-identical")
+              f"{ATTENTION_TOL[0]}, rtol {ATTENTION_TOL[1]}), dq, dk, dv {bwd_errors[-1]:.3e}, "
+              f"first design {first_bwd_err:.3e} (atol {ATTENTION_BWD_TOL[0]}, rtol "
+              f"{ATTENTION_BWD_TOL[1]}); forward and backward reruns bit-identical")
         print(f"  forward kernel {fwd_times[i][0]:.4f} ms, first design {fwd_times[i][3]:.4f} ms, "
               f"plain {fwd_times[i][1]:.4f} ms, scaled_dot_product_attention {fwd_times[i][2]:.4f} "
               f"ms, {bound_text(2 * 4 * elements, 4 * core)}; backward kernel "
-              f"{bwd_times[i][0]:.4f} ms, plain {bwd_times[i][1]:.4f} ms, "
-              f"scaled_dot_product_attention's backward {bwd_times[i][2]:.4f} ms, "
-              f"{bound_text(2 * 7 * elements, 10 * core)}")
+              f"{bwd_times[i][0]:.4f} ms, first design {bwd_times[i][3]:.4f} ms, plain "
+              f"{bwd_times[i][1]:.4f} ms, scaled_dot_product_attention's backward "
+              f"{bwd_times[i][2]:.4f} ms, {bound_text(2 * 7 * elements, 10 * core)}")
         print("  forward ablations (wrong results, timed only): "
               + ", ".join(f"{label} {time_ms(probe_run(probe)):.4f} ms"
                           for label, probe in fwd_ablations.items()))
+        print("  backward ablations (timed only; all but the last give wrong results): "
+              + ", ".join(f"{label} {time_ms(probe_bwd(probe)):.4f} ms"
+                          for label, probe in bwd_ablations.items()))
         del leaves, lib_out
     b, h, n, hd = BATCH, 12, 197, 64
     elements, core = b * h * n * hd, b * h * n * n * hd

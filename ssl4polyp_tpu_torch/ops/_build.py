@@ -73,6 +73,8 @@ _ENTRY_POINTS = (
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_attention_bwd", ctypes.c_int,
      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_attention_bwd_probe", ctypes.c_int,
+     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_qkvproj_attention_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),

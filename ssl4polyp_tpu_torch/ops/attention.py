@@ -8,9 +8,10 @@ per (batch, head), with q, k, v and the output (B, H, N, hd).  Its roundings
 are that kernel's, not the QKV kernels': q and k enter the scores as they
 are and the scale multiplies the fp32 scores; the backward recomputes the
 weights and keeps them, and dS, unrounded.  On the card both directions are
-CUDA kernels (``csrc/attention.cu``; the forward on wgmma with TMA loads, its
-first design kept behind :data:`PROBE_FIRST_DESIGN`); no model route calls
-this function (as in the JAX package, it is a public function of ``ops``).
+CUDA kernels (``csrc/attention.cu``; both on wgmma with TMA loads, their
+first designs kept behind :data:`PROBE_FIRST_DESIGN` and
+:data:`BACKWARD_PROBE_FIRST_DESIGN`); no model route calls this function (as
+in the JAX package, it is a public function of ``ops``).
 
 A tensor on the CPU goes through the plain torch versions
 (:func:`fused_attention_plain`); a CUDA tensor through the kernels, or the
@@ -52,6 +53,18 @@ PROBE_NO_VALUES = 2
 PROBE_NO_PREFETCH = 4
 PROBE_FIRST_DESIGN = 8
 PROBE_NO_EXP = 16
+# `probe` bits of the backward kernel, a measurement aid (0 on every path;
+# chip_smoke.py times the kernel with parts left out, whose results are
+# wrong): phase B left out (dk, dv unwritten), phase A stopped after the
+# softmax and its statistics (dq unwritten), the fp32 operands as their bf16
+# rounding alone (no second term's products); and, with right results, one
+# buffer (no prefetch of the next head) and the first design.
+BACKWARD_PROBE_NO_PHASE_B = 1
+BACKWARD_PROBE_SOFTMAX_ONLY = 2
+BACKWARD_PROBE_NO_PREFETCH = 4
+BACKWARD_PROBE_FIRST_DESIGN = 8
+BACKWARD_PROBE_ONE_TERM = 16
+_BACKWARD_PROBE_BITS = 31
 
 
 def _weights(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -123,7 +136,11 @@ def _forward_kernel(q, k, v, probe: int = 0):
     return out
 
 
-def _backward_kernel(q, k, v, dout):
+def _backward_kernel(q, k, v, dout, probe: int = 0):
+    """The backward kernel; ``probe`` (0 on every path) is a measurement
+    aid: the ``BACKWARD_PROBE_*`` bits above."""
+    if probe & ~_BACKWARD_PROBE_BITS:
+        raise ValueError(f"unknown probe bits {probe & ~_BACKWARD_PROBE_BITS:#x}")
     from ._build import library
 
     global backward_launches
@@ -131,9 +148,9 @@ def _backward_kernel(q, k, v, dout):
     B, H, N, head_dim = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = library().ssl4polyp_attention_bwd(
+        err = library().ssl4polyp_attention_bwd_probe(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B * H, N, head_dim, 1.0 / math.sqrt(head_dim),
+            dk.data_ptr(), dv.data_ptr(), B * H, N, head_dim, 1.0 / math.sqrt(head_dim), probe,
             torch.cuda.current_stream().cuda_stream,
         )
     if err:

@@ -357,12 +357,14 @@ __device__ __forceinline__ void store_tile_rows(bf16* out_a, bf16* out_b, uint32
 // The backward's first design, which keeps no dS: the backward of one (batch,
 // head) pair whose Q (unscaled), K, V and dO tiles are staged in shared memory
 // (NKT * 16 rows each, row stride HD + 8, rows at or past N zero or finite
-// with a zero dO row), by a block of kBwdWarps warps.  It serves attention.cu
-// and attention_block.cu at every length and qkv_attention.cu past 208 tokens,
-// where a stored dS does not fit beside the four tiles (qkv_attention.cu's
-// backward keeps dS in shared memory up to 208).  dK and dV sum over every
-// query row, so the routine runs in two phases instead of reducing across
-// blocks:
+// with a zero dO row), by a block of kBwdWarps warps.  It serves
+// qkv_attention.cu's path past 208 tokens, where a stored dS does not fit
+// beside the four tiles (its backward keeps dS in shared memory up to 208),
+// and the first designs of attention.cu's and attention_block.cu's
+// backwards, which only their probes reach, for timing (attention.cu's
+// backward runs on wgmma: the note at the head of that file).  dK and dV
+// sum over every query row, so the routine runs in two phases instead of
+// reducing across blocks:
 //   A. warps own 16-row query tiles: whole score rows in registers, softmax,
 //      tmp from dW tiles formed one 8-key slice at a time, then dW again for
 //      dS and dQ += dS K.  The rows' max, 1/sum and tmp go to shared memory.

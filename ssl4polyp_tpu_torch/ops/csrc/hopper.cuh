@@ -5,9 +5,9 @@
 // K-major or MN-major, or from registers, B K-major or MN-major) with its
 // shared-memory descriptors for swizzled tiles, named barriers, the
 // async-proxy fence, programmatic dependent launch, transposed stmatrix
-// stores, and setmaxnreg.  mlp.cu's GEMM and fused MLP,
-// ln_linear.cu's kernel, attention.cu's forward, attention_block.cu's
-// forward and dw_product.cu's weight-gradient product are built from them.
+// stores, and setmaxnreg.  mlp.cu's GEMM and fused MLP, ln_linear.cu's
+// kernel, attention.cu's forward and backward, attention_block.cu's forward
+// and dw_product.cu's weight-gradient product are built from them.
 //
 // The shared-memory layout everything here agrees on: a tile of R rows of 64
 // bf16 values (128 bytes a row), written by TMA with
@@ -246,6 +246,23 @@ template <int R>
 __device__ __forceinline__ void wgmma_pin(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// D (64 x 16, fp32, 8 registers a thread) (+)= A (64 x 16) . B (16 x 16)^T, both bf16,
+// K-major in shared memory behind the descriptors; `accumulate` 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n16k16(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
 // D (64 x 32, fp32, 16 registers a thread) (+)= A (64 x 16) . B (32 x 16)^T, both bf16,

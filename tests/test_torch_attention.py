@@ -12,6 +12,7 @@ import torch
 
 from ssl4polyp_tpu.ops.attention import fused_attention as jax_fused_attention
 from ssl4polyp_tpu_torch import ops
+from ssl4polyp_tpu_torch.ops import attention
 from ssl4polyp_tpu_torch.ops.attention import (
     fused_attention,
     fused_attention_backward_reference,
@@ -109,3 +110,80 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
         np.testing.assert_array_equal(a, b)
     assert not any(ops.launch_counts().values())
     assert {"fused_attention", "fused_attention_backward"} <= set(ops.launch_counts())
+
+
+def _split(x):
+    """An fp32 operand as the card's kernel feeds it to the tensor cores: its
+    bf16 rounding and the bf16 rounding of what that dropped."""
+    hi = x.to(torch.bfloat16).float()
+    return hi, (x - hi).to(torch.bfloat16).float()
+
+
+def _chunked_split_product(a, b, chunk=64):
+    """sum over 64-wide chunks c of a[..., c] @ b[..., c, :], a's chunk as
+    hi + lo (two products), each product summed in fp32."""
+    total = 0.0
+    for c in range(0, a.shape[-1], chunk):
+        hi, lo = _split(a[..., c:c + chunk])
+        total = total + hi @ b[..., c:c + chunk, :] + lo @ b[..., c:c + chunk, :]
+    return total
+
+
+def _emulated_backward(q, k, v, dout):
+    """The card kernel's arithmetic in plain torch (fp32 from bf16 inputs).
+    Phase A, a query row at a time: the softmax from exp2 with the scale
+    folded into its argument, each row's scaled max and 1/sum kept; tmp =
+    rowsum(dW * W) summed over 64-key chunks; dQ from dS = W (dW - tmp)
+    scale as hi + lo, a chunk of keys at a time.  Phase B, a key row at a
+    time: W^T and dS^T rebuilt from the kept statistics and S^T = K Q^T,
+    dW^T = V dO^T; dV and dK from their hi + lo, a chunk of queries at a
+    time.  Each gradient is rounded once."""
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+    scale = torch.tensor(1.0 / np.sqrt(q.shape[-1]), dtype=torch.float32)
+    scale_log2 = scale * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    s = qf @ kf.transpose(-1, -2)
+    m = s.amax(dim=-1, keepdim=True) * scale_log2
+    e = torch.exp2(s * scale_log2 - m)
+    inv = 1.0 / e.sum(dim=-1, keepdim=True)
+    w = e * inv
+    dw = dof @ vf.transpose(-1, -2)
+    tmp = sum((dw[..., c:c + 64] * w[..., c:c + 64]).sum(dim=-1, keepdim=True)
+              for c in range(0, w.shape[-1], 64))
+    dq = _chunked_split_product(w * (dw - tmp) * scale, kf)
+    st = kf @ qf.transpose(-1, -2)
+    wt = torch.exp2(st * scale_log2 - m.transpose(-1, -2)) * inv.transpose(-1, -2)
+    dst = wt * (vf @ dof.transpose(-1, -2) - tmp.transpose(-1, -2)) * scale
+    dv = _chunked_split_product(wt, dof)
+    dk = _chunked_split_product(dst, qf)
+    return tuple(g.to(q.dtype) for g in (dq, dk, dv))
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 197, 64)] + _EDGES)
+def test_the_cards_two_phase_backward_matches_the_jax_kernel_bf16(shape):
+    # The card kernel's order of work and its split operands, emulated,
+    # against the JAX kernel's backward in interpret mode: the two phases,
+    # the statistics kept between them, the chunked sums and the hi + lo
+    # split stay within the bf16 tolerance of the plain backward.
+    q, k, v, dout = _inputs(4, shape)
+    ref = _jax_all(q, k, v, dout, jnp.bfloat16)[1:]
+    ours = _emulated_backward(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, dout)))
+    for name, a, b in zip(("dq", "dk", "dv"), ours, ref):
+        np.testing.assert_allclose(a.float().numpy(), b, rtol=BWD_BF16_TOL, atol=BWD_BF16_TOL,
+                                   err_msg=name)
+
+
+def test_backward_kernel_refuses_unknown_probe_bits_before_any_build(monkeypatch):
+    from ssl4polyp_tpu_torch.ops import _build
+
+    def no_build():
+        raise AssertionError("the library was asked for")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    q, k, v, dout = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(5, (1, 2, 9, 16)))
+    bits = (attention.BACKWARD_PROBE_NO_PHASE_B, attention.BACKWARD_PROBE_SOFTMAX_ONLY,
+            attention.BACKWARD_PROBE_NO_PREFETCH, attention.BACKWARD_PROBE_FIRST_DESIGN,
+            attention.BACKWARD_PROBE_ONE_TERM)
+    assert sum(bits) == attention._BACKWARD_PROBE_BITS and len(set(bits)) == len(bits)
+    for probe in (32, attention._BACKWARD_PROBE_BITS + 1, -1):
+        with pytest.raises(ValueError, match="probe"):
+            attention._backward_kernel(q, k, v, dout, probe=probe)

@@ -671,6 +671,19 @@ def test_adamw_wrapper_refuses_what_the_kernel_does_not_take(gen):
                                  **kwargs)
 
 
+# The backward's tiling: 64-row query tiles (phase A) and key tiles (phase
+# B), the last of them reading the 64 rows that end at the key width (at N
+# 197: rows 144 .. 207, of which it owns 192 ..); chunks of 64 keys or
+# queries, the last 16 wide at the key width 208; one buffer at hd 64 past
+# 208 tokens, two elsewhere.  Every length at those edges at each head dim,
+# the two timed shapes, and B * H past one round of the persistent grid
+# (with one buffer: hd 64, N 256).
+_SEPARATE_BWD_EDGES = [(1 + n % 2, 2 - n % 2, n, hd)
+                       for n in (1, 63, 64, 65, 129, 193, 197, 208, 209, 256)
+                       for hd in (16, 32, 64)]
+_SEPARATE_BWD_HEADS = [(64, 16, 197, 32), (3, 100, 256, 64), (70, 10, 65, 16)]
+
+
 # Attention over separate q, k, v: the plain forward rounds at the kernel's
 # points (one flipped bf16 ulp).  The plain backward keeps W and dS in fp32
 # where the kernel carries them as two bf16 terms (16 bits of mantissa): an
@@ -678,7 +691,7 @@ def test_adamw_wrapper_refuses_what_the_kernel_does_not_take(gen):
 @pytest.mark.parametrize(
     "B, H, N, hd",
     [(64, 12, 197, 64), (4, 16, 197, 32), (2, 3, 37, 16), (1, 2, 256, 64), (1, 1, 1, 16),
-     (2, 4, 130, 32)],
+     (2, 4, 130, 32)] + _SEPARATE_BWD_EDGES + _SEPARATE_BWD_HEADS,
 )
 def test_separate_attention_kernels_match_plain(gen, B, H, N, hd):
     from ssl4polyp_tpu_torch.ops import attention
@@ -820,6 +833,80 @@ def test_separate_attention_forward_products_alone_are_exact(gen, N, hd, probe):
     got = attention._forward_kernel(q, k, v, bits)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B, H, N, hd", [(2, 3, 197, 64), (2, 3, 197, 32), (2, 3, 65, 16),
+                                         (1, 2, 256, 64), (3, 1, 1, 32), (2, 70, 208, 64)])
+@torch.inference_mode()
+def test_separate_attention_backward_first_design_agrees_with_the_kernel(gen, B, H, N, hd):
+    # The first design through the probe against the plain version and the
+    # kernel; the kernel with one buffer (no prefetch) gives the kernel's
+    # bits, since only where a head waits changes.
+    from ssl4polyp_tpu_torch.ops import attention
+
+    q, k, v, dout = (_randn(gen, B, H, N, hd) for _ in range(4))
+    grads = attention._backward_kernel(q, k, v, dout)
+    first = attention._backward_kernel(q, k, v, dout, attention.BACKWARD_PROBE_FIRST_DESIGN)
+    one_buffer = attention._backward_kernel(q, k, v, dout, attention.BACKWARD_PROBE_NO_PREFETCH)
+    torch.cuda.synchronize()
+    ref = attention.fused_attention_backward_reference(q, k, v, dout)
+    for name, got, old, want in zip(("dq", "dk", "dv"), grads, first, ref):
+        torch.testing.assert_close(old, want, **ATTENTION_BWD_TOL, msg=name)
+        torch.testing.assert_close(got, old, **ATTENTION_BWD_TOL, msg=name)
+    assert all(torch.equal(a, g) for a, g in zip(one_buffer, grads))
+
+
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("N, poison_N", [(1, 64), (65, 128), (129, 208), (209, 256)])
+@torch.inference_mode()
+def test_separate_attention_backward_ignores_what_shared_memory_held(gen, N, hd, poison_N):
+    # A run at the same key width whose every score is -inf leaves NaN and
+    # -inf statistics in the kernel's shared memory on every SM (300 heads:
+    # both sets of each block).  At N 1, 65, 129 and 209 the last query tile
+    # has warps without a row below N; phase B reads their rows' statistics,
+    # which must be the zeros phase A wrote, not what the last kernel left.
+    from ssl4polyp_tpu_torch.ops import attention
+
+    big = torch.full((3, 100, poison_N, hd), 1e30, dtype=torch.bfloat16, device="cuda")
+    attention._backward_kernel(big, -big, big, big)
+    q, k, v, dout = (_randn(gen, 2, 3, N, hd) for _ in range(4))
+    grads = attention._backward_kernel(q, k, v, dout)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), grads,
+                               attention.fused_attention_backward_reference(q, k, v, dout)):
+        torch.testing.assert_close(got, want, **ATTENTION_BWD_TOL, msg=name)
+
+
+@pytest.mark.parametrize("N, hd", [(197, 64), (1, 16), (65, 32), (256, 64), (130, 16), (208, 32)])
+@torch.inference_mode()
+def test_separate_attention_backward_writes_nothing_past_the_last_row(gen, N, hd):
+    # The C entry point on views inside sentinel-filled buffers: nothing
+    # before dq, dk, dv or past the last head's row N - 1 changes.  NaN past
+    # the inputs' last row would reach the gradients if a load read past it.
+    from ssl4polyp_tpu_torch.ops import attention
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    B, H, pad = 2, 3, 4096
+    size = B * H * N * hd
+
+    def inside(fill, body=None):
+        buffer = torch.full((pad + size + pad,), fill, dtype=torch.bfloat16, device="cuda")
+        if body is not None:
+            buffer[pad:pad + size] = body.reshape(-1)
+        return buffer, buffer[pad:pad + size].view(B, H, N, hd)
+
+    q, k, v, dout = (_randn(gen, B, H, N, hd) for _ in range(4))
+    views = [inside(float("nan"), t)[1] for t in (q, k, v, dout)]
+    outputs = [inside(-1234.0) for _ in range(3)]
+    err = library().ssl4polyp_attention_bwd(*(t.data_ptr() for t in views),
+                                            *(out.data_ptr() for _, out in outputs), B * H, N, hd,
+                                            hd ** -0.5, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    ref = attention.fused_attention_backward_reference(q, k, v, dout)
+    for name, (buffer, out), want in zip(("dq", "dk", "dv"), outputs, ref):
+        assert (buffer[:pad] == -1234.0).all() and (buffer[pad + size:] == -1234.0).all(), name
+        torch.testing.assert_close(out, want, **ATTENTION_BWD_TOL, msg=name)
 
 
 @pytest.mark.parametrize(
