@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's eval forward, MAE pretrain step, classifier
-fine-tune step (with and without ``BENCH_ATTN_PROJ=1``), its two attention
-functions of ``ops`` that no model route calls, and its standalone eval CLI
-on one NVIDIA GPU.
+"""Drive the PyTorch port's eval forward, MAE pretrain step and pretraining
+engine, classifier fine-tune step (with and without ``BENCH_ATTN_PROJ=1``),
+its two attention functions of ``ops`` that no model route calls, and its
+standalone eval CLI on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -68,7 +68,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    plain path's and the unfolded forward's.
 4. The MAE ViT-B/16 pretrain step at full width, batch 64: weights from a
    numpy-seeded JAX-layout tree through ``mae_state_dict_from_jax``; step 1's
-   loss and every parameter's gradient against the plain step's; then 6
+   loss and every parameter's gradient against the plain step's; 3 steps
+   run twice from one seed and one state after ``set_determinism``, every
+   master, both moments and the compute copy bit for bit (on a difference,
+   one more step under torch's deterministic mode names the ops); then 6
    steps through ``make_pretrain_step`` with exact launch counts per step
    (the AdamW kernel's 4 among them), finite losses and parameters and both
    sin-cos tables unchanged; then the same 6 steps from the same state with
@@ -77,6 +80,19 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    TFLOP/s at the median.  Then the model built under ``BENCH_ATTN_PROJ=1``
    (the decoder folds, the encoder at 50 tokens does not): step 1 against
    the plain step, and 2 steps with exact launch counts.
+4b. The pretraining engine at full width through ``cli_main``, on 130 JPEG
+   frames (two steps of 64 an epoch): run A for 3 epochs with asynchronous
+   saves, saving at its last; run B, the same settings elsewhere, gets
+   SIGTERM in epoch 1's last step (a wrapped ``RunLogger.scalar`` raises
+   it), saves and returns, then resumes with ``--resume auto``.  A's and
+   B's last checkpoints must be equal bit for bit (params, mu, nu, step),
+   B's log must hold epochs 0 and 2, and the 12 steps must launch each
+   kernel of the step exactly.  Then ``build_classifier`` with
+   ``ss_framework: mae`` and A's checkpoint: its encoder equal to the
+   checkpoint's masters, one eval batch through the kernels against the
+   plain forward.  Prints each save's host snapshot and write seconds and
+   each run's time outside the step, beside the card's name and power
+   limit.
 5. The ViT-B/16 classifier's fine-tune step at full width, batch 64 (on-device
    augmentation, BCE, backward, AdamW with fine-tune scales), weights from a
    numpy-seeded JAX-layout tree, under its four kernel configurations: the
@@ -166,6 +182,7 @@ from ssl4polyp_tpu_torch.training.pretrain import (
 )
 from ssl4polyp_tpu_torch.training.schedules import warmup_cosine
 from ssl4polyp_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from ssl4polyp_tpu_torch.utils.determinism import set_determinism
 
 SEED = 0
 BATCH = 64
@@ -257,6 +274,7 @@ FT_LOSS_RTOL = 2.5e-2
 FT_GRAD_RTOL = 5e-2
 FT_LR = 1e-4
 FT_WEIGHT_DECAY = 0.05
+CARD = ""  # the card's name and power limit, as nvidia-smi gives them
 
 
 def fail(message: str) -> None:
@@ -1354,6 +1372,56 @@ def mae_train_flops_per_image(cfg: MAEConfig) -> float:
     return 3.0 * fwd
 
 
+def differing(a: dict[str, torch.Tensor], b: dict[str, torch.Tensor]) -> list[str]:
+    """The names whose tensors differ in a bit (NaN payloads included)."""
+    def bits(t):
+        ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+        return t.contiguous().view(ints[t.element_size()])
+    return [name for name in a if not torch.equal(bits(a[name]), bits(b[name]))]
+
+
+def check_run_to_run_bits(fresh_state, train_step, batches, noise, schedule,
+                          steps: int = 3) -> None:
+    """``steps`` pretrain steps twice from one seed and one state, after
+    ``set_determinism``: every master, both moments and the compute copy
+    must agree bit for bit, and the compute copy the AdamW kernel left must
+    be the plain cast of the masters (what a resume writes)."""
+    states = []
+    for _ in range(2):
+        set_determinism(SEED)
+        with projection_fold(False):
+            state = fresh_state()
+        for i in range(steps):
+            train_step(state, batches[i], noise[i], schedule(i))
+        states.append(state)
+    torch.cuda.synchronize()
+    a, b = states
+    diffs = {what: differing(x, y) for what, x, y in (
+        ("masters", a.params, b.params), ("mu", a.opt.mu, b.opt.mu), ("nu", a.opt.nu, b.opt.nu),
+        ("compute copy", a.params_c, b.params_c))}
+    recast = layers.compute_copy(a.params, a.model.cfg.encoder.compute_dtype)
+    diffs["compute copy against the cast of the masters"] = differing(a.params_c, recast)
+    if any(diffs.values()):
+        # Name the ops that have no deterministic CUDA implementation: one
+        # step more under torch's deterministic mode, warnings only.
+        import warnings
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                train_step(a, batches[0], noise[0], schedule(0))
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+        ops_named = sorted({str(w.message).split("\n")[0] for w in caught})
+        fail(f"pretrain: {steps} steps twice from one state differ in "
+             f"{ {k: v[:5] for k, v in diffs.items() if v} }; torch's deterministic mode "
+             f"names {ops_named}")
+    print(f"pretrain: {steps} steps run twice from one seed and one state agree bit for bit in "
+          f"all {len(a.params)} masters, both moments and the compute copy; the compute copy "
+          "equals the cast of the masters")
+
+
 def phase_pretrain() -> dict[str, int]:
     settings = PretrainSettings(batch_size=BATCH)
     cfg = model_config(settings)  # MAE ViT-B/16, bf16, bf16 scores
@@ -1380,6 +1448,7 @@ def phase_pretrain() -> dict[str, int]:
         plain_loss, plain_grads = pretrain_loss_and_grads(state, batches[0], noise[0])
     check_step_one(loss, grads, plain_loss, plain_grads, LOSS_RTOL, GRAD_RTOL, "pretrain")
     del grads, plain_grads
+    check_run_to_run_bits(fresh_state, train_step, batches, noise, schedule)
 
     def train(state) -> list[float]:
         losses = [train_step(state, batches[i], noise[i], schedule(i))["loss"]
@@ -1465,6 +1534,217 @@ def phase_pretrain() -> dict[str, int]:
         fail(f"non-finite pretrain loss under BENCH_ATTN_PROJ=1: {losses}")
     print(f"pretrain losses under BENCH_ATTN_PROJ=1: {[round(x, 6) for x in losses]}")
     return {name: counts[name] + fold_counts[name] for name in counts}
+
+
+ENGINE_FRAMES = 130  # two steps of 64 an epoch, the short batch dropped
+ENGINE_EPOCHS = 3
+
+
+def write_jpeg_frames(root: Path, n: int) -> None:
+    """``n`` JPEG frames of random pixels, 240-272 x 300, under ``root``."""
+    from PIL import Image
+
+    root.mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    for i in range(n):
+        pixels = rng.integers(0, 256, (240 + i % 3 * 16, 300, 3), dtype=np.uint8)
+        Image.fromarray(pixels).save(root / f"{i:03d}.jpg", quality=90)
+
+
+def tree_differences(a, b, prefix: str = "") -> list[str]:
+    """The leaves of two checkpoint payloads that differ in a bit."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return [f"{prefix}: keys {sorted(set(a) ^ set(b))}"]
+        return [d for key in a for d in tree_differences(a[key], b[key], f"{prefix}/{key}")]
+    a, b = np.asarray(a), np.asarray(b)
+    same = a.shape == b.shape and a.dtype == b.dtype and a.tobytes() == b.tobytes()
+    return [] if same else [prefix]
+
+
+def phase_pretrain_engine() -> dict[str, int]:
+    """The pretraining engine at full width through ``cli_main``: run A
+    uninterrupted, run B signalled in epoch 1's last step and auto-resumed,
+    A's and B's last checkpoints bit for bit, then the classifier built
+    from A's checkpoint and one eval batch through the kernels."""
+    import signal
+    from unittest import mock
+
+    from ssl4polyp_tpu_torch.models.factory import build_classifier
+    from ssl4polyp_tpu_torch.models.mae import encoder_only
+    from ssl4polyp_tpu_torch.models.weights import state_dict_from_jax
+    from ssl4polyp_tpu_torch.training import pretrain as engine
+    from ssl4polyp_tpu_torch.utils.checkpoint import AsyncCheckpointer
+    from ssl4polyp_tpu_torch.utils.logging import RunLogger
+
+    steps_per_epoch = ENGINE_FRAMES // BATCH
+    saves: list[dict] = []  # one record a save, in order
+    step_seconds: list[float] = []
+
+    class TimedCheckpointer(AsyncCheckpointer):
+        """Records each save's host snapshot and, once joined, its write."""
+
+        def save(self, path, payload, meta=None, **kwargs):
+            out = super().save(path, payload, meta, **kwargs)
+            saves[-1].update(path=Path(path).name, copy_s=self.last_snapshot_seconds)
+            self.writing = saves[-1]
+            return out
+
+        def wait(self):
+            super().wait()
+            if getattr(self, "writing", None) is not None:
+                self.writing["write_s"] = self.last_write_seconds
+                self.writing = None
+
+    def timed_payload(state):
+        start = time.perf_counter()
+        torch.cuda.synchronize()
+        payload = checkpoint_payload(state)
+        saves.append({"layout_s": time.perf_counter() - start})
+        return payload
+
+    def timed_step_builder(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def timed_step(*step_args):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = step(*step_args)
+            torch.cuda.synchronize()
+            step_seconds.append(time.perf_counter() - start)
+            return out
+        return timed_step
+
+    resume_seconds: dict[str, float] = {}
+
+    def timed(name: str, fn):
+        def run(*args, **kwargs):
+            start = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            resume_seconds[name] = time.perf_counter() - start
+            return out
+        return run
+
+    checkpoint_payload, make_step = engine.checkpoint_payload, engine.make_pretrain_step
+    scalar = RunLogger.scalar
+    signal_at = {"step": None}
+
+    def scalar_then_signal(self, tag, value, step):
+        scalar(self, tag, value, step)
+        if tag == "train/loss" and step == signal_at["step"]:
+            signal.raise_signal(signal.SIGTERM)  # the engine's handler saves and returns
+
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp, projection_fold(False), \
+            mock.patch.object(engine, "AsyncCheckpointer", TimedCheckpointer), \
+            mock.patch.object(engine, "checkpoint_payload", timed_payload), \
+            mock.patch.object(engine, "make_pretrain_step", timed_step_builder), \
+            mock.patch.object(engine, "load_checkpoint", timed("read", engine.load_checkpoint)), \
+            mock.patch.object(engine, "restore_state", timed("restore", engine.restore_state)), \
+            mock.patch.object(RunLogger, "scalar", scalar_then_signal):
+        tmp = Path(tmp)
+        write_jpeg_frames(tmp / "frames" / "train" / "unlabelled", ENGINE_FRAMES)
+
+        def argv(run: str) -> list[str]:  # MAE ViT-B/16, bf16, batch 64, async saves
+            return ["--data-root", str(tmp / "frames"), "--output-dir", str(tmp / run),
+                    "--epochs", str(ENGINE_EPOCHS), "--warmup-epochs", "1",
+                    "--batch-size", str(BATCH), "--num-workers", "8", "--log-interval", "1",
+                    "--save-freq-epochs", "1000", "--keep-last", "2", "--seed", str(SEED)]
+
+        def run(name: str, args: list[str]) -> dict:
+            steps_before = len(step_seconds)
+            start = time.perf_counter()
+            summary = engine.cli_main(args)
+            torch.cuda.synchronize()
+            walls[name] = (time.perf_counter() - start, sum(step_seconds[steps_before:]),
+                           len(step_seconds) - steps_before)
+            return summary
+
+        ops.reset_launch_counts()
+        summary_a = run("A", argv("A"))
+        signal_at["step"] = 2 * steps_per_epoch  # epoch 1's last step
+        summary_b = run("B", argv("B"))
+        signal_at["step"] = None
+        resumed = run("B resumed", argv("B") + ["--resume", "auto"])
+        counts = ops.launch_counts()
+        if summary_b != {"interrupted": True, "epoch": 1}:
+            fail(f"pretrain engine: run B returned {summary_b}, expected the signal's return")
+        for name, summary in (("A", summary_a), ("B resumed", resumed)):
+            if summary.get("epoch") != ENGINE_EPOCHS - 1 or not np.isfinite(summary["train_loss"]):
+                fail(f"pretrain engine: run {name} returned {summary}")
+        epochs_logged = {run_dir: [json.loads(line)["epoch"] for line in
+                                   (tmp / run_dir / "pretrain.jsonl").read_text().splitlines()]
+                         for run_dir in ("A", "B")}
+        if epochs_logged != {"A": [0, 1, 2], "B": [0, 2]}:
+            fail(f"pretrain engine: epochs logged {epochs_logged}")
+        if "Signal received" not in (tmp / "B" / "pretrain.log").read_text():
+            fail("pretrain engine: run B logged no signal")
+        enc, dec = 12, 8  # MAE ViT-B/16's encoder and decoder depths
+        per_step = {"fused_qkv_attention": enc + dec, "fused_qkv_attention_backward": enc + dec,
+                    "layernorm": 2 * (enc + dec) + 2, "layernorm_backward": 2 * (enc + dec) + 2,
+                    "fc1_gelu": enc + dec, "adamw": 4}
+        steps = steps_per_epoch * (2 * ENGINE_EPOCHS)  # A's 6 steps, B's 4 and 2 resumed
+        check_counts(counts, per_step, steps, f"the pretrain engine's {steps} steps")
+
+        final = f"checkpoint-{ENGINE_EPOCHS - 1}.ckpt"
+        kept = {run_dir: sorted(p.name for p in (tmp / run_dir / "ckpts").glob("checkpoint-*.ckpt"))
+                for run_dir in ("A", "B")}
+        if kept != {"A": [final], "B": ["checkpoint-1.ckpt", final]}:
+            fail(f"pretrain engine: checkpoints kept {kept}")
+        a = load_checkpoint(tmp / "A" / "ckpts" / final)
+        b = load_checkpoint(tmp / "B" / "ckpts" / "last.ckpt")
+        diffs = tree_differences(a["payload"], b["payload"])
+        if diffs or int(a["payload"]["opt"]["step"]) != steps_per_epoch * ENGINE_EPOCHS:
+            fail(f"pretrain engine: run B's {final} differs from run A's in {diffs[:8]} "
+                 f"(step {a['payload']['opt']['step']} and {b['payload']['opt']['step']})")
+        print(f"pretrain engine: run B (SIGTERM in epoch 1's last step, then resume='auto') ends "
+              f"with {final} bit-equal to run A's in params, mu, nu and step "
+              f"({int(a['payload']['opt']['step'])}); pretrain.jsonl epochs {epochs_logged}")
+
+        # The SSL-colon chain: the classifier from A's checkpoint.
+        classifier = build_classifier(torch.Generator().manual_seed(SEED),
+                                      {"ss_framework": "mae", "key": "ssl_colon",
+                                       "checkpoint": str(tmp / "A" / "ckpts" / final)},
+                                      device="cuda")
+        want = state_dict_from_jax(encoder_only(a["payload"]["params"]), classifier.cfg)
+        got = {n: t.detach().cpu() for n, t in classifier.model.state_dict().items()}
+        wrong = [n for n, t in want.items() if not torch.equal(got[n], t)]
+        if wrong or sorted(set(got) - set(want)) != ["head.bias", "head.weight"]:
+            fail(f"pretrain engine: the classifier's encoder differs from the checkpoint's "
+                 f"masters in {wrong[:8]}")
+        images = np.random.default_rng(SEED).integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
+        forward = make_forward_fn(classifier, "cuda")()
+        ops.reset_launch_counts()
+        logits = forward(images)
+        chain_counts = ops.launch_counts()
+        check_counts(chain_counts, {"fused_qkv_attention": 12, "layernorm": 25, "fc1_gelu": 12},
+                     1, "one eval batch of the classifier built from run A's checkpoint")
+        with plain_kernels():
+            plain_logits = forward(images)
+        if logits.shape != (BATCH, 2) or not np.isfinite(logits).all():
+            fail(f"pretrain engine chain: logits {logits.shape}, finite {np.isfinite(logits).all()}")
+        err = max_error(torch.from_numpy(logits), torch.from_numpy(plain_logits), LOGITS_TOL,
+                        "pretrain engine chain: logits against the plain forward")
+        print(f"pretrain engine chain: build_classifier(ss_framework mae, run A's {final}) gives "
+              f"an encoder bit-equal to the checkpoint's masters; one eval batch of {BATCH} "
+              f"through the kernels against the plain forward: max |diff| {err:.3e} "
+              f"(atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]})")
+
+    for record in saves:
+        snapshot = record["layout_s"] + record["copy_s"]
+        print(f"pretrain engine save {record['path']}: host snapshot {snapshot:.3f} s "
+              f"(device to host and JAX layout {record['layout_s']:.3f} s, the checkpointer's "
+              f"copy {record['copy_s']:.3f} s), write {record.get('write_s', float('nan')):.3f} s "
+              f"on the writer thread; {CARD}")
+    print(f"pretrain engine resume: checkpoint read {resume_seconds['read']:.3f} s, restore into "
+          f"the state (JAX layout to the masters and moments on the card) "
+          f"{resume_seconds['restore']:.3f} s; {CARD}")
+    for name, (wall, in_steps, n) in walls.items():
+        print(f"pretrain engine run {name}: {n} steps, {wall:.2f} s wall, {in_steps:.2f} s in the "
+              f"step (synchronised), {wall - in_steps:.2f} s outside it (model build, loader, "
+              f"resume, saves, logging); {CARD}")
+    return {name: counts[name] + chain_counts[name] for name in counts}
 
 
 def phase_finetune() -> dict[str, int]:
@@ -1810,7 +2090,9 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
-    print(smi.stdout.strip().splitlines()[0])
+    global CARD
+    CARD = smi.stdout.strip().splitlines()[0]
+    print(CARD)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
     start = time.perf_counter()
@@ -1823,7 +2105,8 @@ def main() -> None:
         print(json.dumps({"kernels": [{"name": name, **fields} for name, fields in report.items()]}))
         return
     # Each path's launches, counted from 0 before it and read after it.
-    runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(), phase_finetune(),
+    runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(),
+            phase_pretrain_engine(), phase_finetune(),
             phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli()]
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]

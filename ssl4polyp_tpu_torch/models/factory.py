@@ -1,13 +1,16 @@
 """Backbone and classifier factories.
 
 Counterpart of ``ssl4polyp_tpu/models/factory.py``.  Weights come from a
-seeded ``torch.Generator`` (random init) or from a JAX parameter pytree given
+seeded ``torch.Generator`` (random init), from a JAX parameter pytree given
 as numpy (``jax_params``: a tree built in memory, or the ``params`` of a
-``.ckpt`` read by :mod:`..utils.checkpoint`), through
-:func:`.weights.state_dict_from_jax`.  These functions place the model on the
-card unless the caller names another device; without a CUDA device that
-raises.  Reading ``.pth`` or ``.npz`` weight files, and the dense (DPT) head,
-come with later slices and raise ``NotImplementedError`` here.
+``.ckpt`` read by :mod:`..utils.checkpoint`), or, for the MAE lineage, from
+the ``.ckpt`` that either package's pretraining wrote (``weight_path``; the
+decoder dropped), through :func:`.weights.state_dict_from_jax`.  These
+functions place the model on the card unless the caller names another
+device; without a CUDA device that raises.  Reading torch ``.pth`` or
+AugReg ``.npz`` weight files (ROADMAP.md §1 item 5, the weight-file readers)
+and the dense (DPT) head come with later slices and raise
+``NotImplementedError`` here.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Any, Dict, Mapping, Optional
 
 import torch
 
+from ..utils.checkpoint import load_checkpoint
+from .mae import encoder_only
 from .vit import ViT, ViTConfig
 from .weights import state_dict_from_jax
 
@@ -80,6 +85,10 @@ def _build(generator: torch.Generator, cfg: ViTConfig,
     return model.to(device)
 
 
+_WEIGHT_FILE_READERS = ("the weight-file readers (ROADMAP.md §1 item 5) are not ported yet; "
+                        "pass jax_params")
+
+
 def get_mae_backbone(
     generator: torch.Generator,
     jax_params: Optional[Mapping[str, Any]] = None,
@@ -87,13 +96,46 @@ def get_mae_backbone(
     out_token: str = "cls",
     scheme: str = "ssl_colon",
     device: str | torch.device = "cuda",
+    weight_path: Optional[str | Path] = None,
     **overrides,
 ) -> Classifier:
-    """ViT-B with MAE lineage (fixed sin-cos positions) and a fresh head."""
+    """ViT-B with MAE lineage (fixed sin-cos positions) and a fresh head.
+
+    The encoder comes from ``jax_params`` or from the MAE checkpoint at
+    ``weight_path`` (decoder discarded), else from the generator; the head
+    is always fresh from the generator."""
+    if jax_params is not None and weight_path is not None:
+        raise ValueError("pass jax_params or weight_path, not both")
     pos_embed = overrides.pop("pos_embed", "sincos")
     out_token = overrides.pop("out_token", out_token)
     cfg = _vit_b(num_classes, out_token, pos_embed, **overrides)
+    if weight_path is not None:
+        jax_params = _load_mae_encoder(weight_path)
     return Classifier(_build(generator, cfg, jax_params, device), cfg, scheme)
+
+
+def _load_mae_encoder(weight_path: str | Path) -> Dict[str, Any]:
+    """The JAX-layout encoder tree of an MAE checkpoint: a ``.ckpt`` (or its
+    ``.ckpt.json`` sidecar's path, or a path without that suffix that holds
+    msgpack) as either package's pretraining writes it.  A torch pickle
+    (``.pth``) raises ``NotImplementedError``."""
+    path = Path(weight_path)
+    if path.name.endswith(".ckpt.json"):
+        path = path.with_suffix("")  # the checkpoint beside its sidecar
+    if path.suffix == ".ckpt":
+        restored = load_checkpoint(path)
+    elif path.suffix == ".pth":
+        raise NotImplementedError(f"{path} is a torch pickle: {_WEIGHT_FILE_READERS}")
+    else:
+        try:
+            restored = load_checkpoint(path)
+        except Exception as exc:  # not msgpack: a torch pickle or another format
+            raise NotImplementedError(
+                f"{path} is not a .ckpt checkpoint: {_WEIGHT_FILE_READERS}") from exc
+    mae_params = restored.get("payload", {}).get("params") if isinstance(restored, dict) else None
+    if mae_params is None:
+        raise ValueError(f"Native checkpoint {path} lacks a 'params' payload")
+    return encoder_only(mae_params)
 
 
 def get_imagenet_or_random_vit(
@@ -126,27 +168,32 @@ def build_classifier(
     """Build a classifier from a ``model:`` config section.
 
     Dispatch follows the JAX factory: ``ss_framework: mae`` (or MAE
-    pretraining) -> MAE backbone; ``pretraining: ImageNet_class`` -> timm
+    pretraining) -> MAE backbone, whose encoder comes from an existing
+    ``checkpoint`` (a ``.ckpt``); ``pretraining: ImageNet_class`` -> timm
     lineage; otherwise random init.  ``jax_params``, when given, are the
-    weights in every case.
+    weights in every case.  An existing ``checkpoint`` outside the MAE
+    lineage raises ``NotImplementedError``: its readers are not ported yet.
     """
     if overrides.pop("dense", model_cfg.get("dense", False)):
         raise NotImplementedError("the dense (DPT) classifier is not ported yet")
+    pretraining = str(model_cfg.get("pretraining", "random")).lower()
+    ss_framework = str(model_cfg.get("ss_framework", "")).lower()
+    mae_lineage = ss_framework == "mae" or pretraining in {"hyperkvasir", "imagenet_self"}
+    weight_path = None
     checkpoint = model_cfg.get("checkpoint")
-    if checkpoint is not None:
+    if checkpoint is not None and jax_params is None:
         path = Path(checkpoint)
         if checkpoint_root is not None and not path.is_absolute():
             path = checkpoint_root / path
         if path.exists():
-            raise NotImplementedError(
-                f"reading weight files ({path}) is not ported yet; pass jax_params"
-            )
-    pretraining = str(model_cfg.get("pretraining", "random")).lower()
-    ss_framework = str(model_cfg.get("ss_framework", "")).lower()
-    if ss_framework == "mae" or pretraining in {"hyperkvasir", "imagenet_self"}:
+            if not mae_lineage:
+                raise NotImplementedError(f"reading {path}: {_WEIGHT_FILE_READERS}")
+            weight_path = path
+    if mae_lineage:
         return get_mae_backbone(
             generator, jax_params, num_classes=num_classes,
-            scheme=str(model_cfg.get("key", "ssl")), device=device, **overrides,
+            scheme=str(model_cfg.get("key", "ssl")), device=device, weight_path=weight_path,
+            **overrides,
         )
     return get_imagenet_or_random_vit(
         generator, jax_params, num_classes=num_classes, device=device, **overrides

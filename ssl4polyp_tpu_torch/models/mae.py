@@ -23,7 +23,7 @@ stream (:func:`.layers.block_route`), which ``encoder_pad_to`` and
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import NamedTuple, Optional
+from typing import Any, Dict, Mapping, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -37,6 +37,7 @@ __all__ = [
     "MAEConfig",
     "MAE_VIT_B16",
     "MaskingResult",
+    "encoder_only",
     "mae_decode",
     "mae_encode",
     "mae_forward",
@@ -202,3 +203,10 @@ def mae_forward(model: MAE, images: torch.Tensor, noise: torch.Tensor):
     latent, mask, ids_restore = mae_encode(model, images, noise)
     pred = mae_decode(model, latent, ids_restore)
     return mae_loss(images, pred, mask, model.cfg), pred, mask
+
+
+def encoder_only(params: Mapping[str, Any]) -> Dict[str, Any]:
+    """Strip the decoder from a JAX-layout MAE tree, as a ``.ckpt`` holds it
+    (reference deletes it when building classifiers — ``models.py:171-175``);
+    keeps the encoder pytree for fine-tuning."""
+    return {k: v for k, v in params.items() if k != "decoder"}

@@ -67,10 +67,12 @@ BACKWARD_PROBE_ONE_TERM = 16
 _BACKWARD_PROBE_BITS = 31
 
 
-def _weights(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """The fp32 softmax weights: q and k cast to fp32, the scale on the scores."""
+def _weights(q: torch.Tensor, k: torch.Tensor,
+             compute_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The softmax weights in ``compute_dtype`` (fp32 as the kernels): q and
+    k cast to it, the scale on the scores."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    scores = torch.matmul(q.to(compute_dtype), k.to(compute_dtype).transpose(-1, -2)) * scale
     return torch.softmax(scores, dim=-1)
 
 
@@ -84,20 +86,24 @@ def fused_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor)
 
 def fused_attention_backward_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dout: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain torch version of the backward kernel, with the JAX kernel's steps
     (``_attention_bwd_kernel``): everything in fp32 from the recomputed,
     unrounded weights W; dV = W^T dO; dW = dO V^T; dS = W * (dW - rowsum(dW *
-    W)) * scale; dQ = dS K; dK = dS^T Q; each rounded once to the inputs' dtype."""
+    W)) * scale; dQ = dS K; dK = dS^T Q; each rounded once to the inputs' dtype.
+    ``compute_dtype=torch.float64`` gives the same steps in fp64, a reference
+    that the kernel's fp32 sums and its W and dS carried in two bf16 terms
+    are held to."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    weights = _weights(q, k)
-    do = dout.float()
+    weights = _weights(q, k, compute_dtype)
+    do = dout.to(compute_dtype)
     dv = torch.matmul(weights.transpose(-1, -2), do)
-    dw = torch.matmul(do, v.float().transpose(-1, -2))
+    dw = torch.matmul(do, v.to(compute_dtype).transpose(-1, -2))
     tmp = (dw * weights).sum(dim=-1, keepdim=True)
     ds = weights * (dw - tmp) * scale
-    dq = torch.matmul(ds, k.float())
-    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    dq = torch.matmul(ds, k.to(compute_dtype))
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(compute_dtype))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

@@ -1,4 +1,4 @@
-"""MAE pretraining: the train step and the epoch loop.
+"""MAE pretraining engine: the train step and a resumable epoch loop.
 
 Counterpart of ``ssl4polyp_tpu/training/pretrain.py`` (reference
 ``mae/main_pretrain.py`` and ``engine_pretrain.py``):
@@ -11,21 +11,28 @@ Counterpart of ``ssl4polyp_tpu/training/pretrain.py`` (reference
 * per-iteration warmup and half-cycle cosine learning rate, scaled by the
   effective batch / 256; no weight decay on biases, norms, tokens and
   position tables; learning rate 0 on the frozen sin-cos tables;
-* a non-finite-loss abort and one JSON line per epoch.
+* epoch checkpoints in the JAX package's layout, so that either package
+  resumes the other's files, with retention (keep-last-K + every-N
+  milestones), a ``last`` pointer, asynchronous writes, SIGTERM/SIGINT
+  save-and-exit and auto-resume;
+* a non-finite-loss abort and JSON epoch log lines (``RunLogger``).
 
 The masking noise of each step comes from an explicit generator seeded from
-(seed, epoch, step), so a run is a function of its settings.  Checkpoint
-save and resume, SIGTERM handling and asynchronous writes are not ported yet.
+(seed, epoch, step), so a run is a function of its settings, and a resumed
+run equals the uninterrupted one bit for bit when it resumes where an epoch
+ended.  ``steps_per_call`` = K runs K calls of the step per round of the
+loop, each at its own schedule value and noise: the same calls as K = 1.
 """
 
 from __future__ import annotations
 
-import json
+import dataclasses
 import math
+import signal
 import time
 from dataclasses import dataclass, replace
 from pathlib import Path
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -35,16 +42,30 @@ from ..data.augment import normalize_batch
 from ..data.folder import ImageFolderIndex, PretrainLoader
 from ..models.layers import compute_copy
 from ..models.mae import MAE, MAE_VIT_B16, MAEConfig
+from ..models.weights import jax_from_mae_state_dict, mae_state_dict_from_jax
+from ..utils.checkpoint import (
+    AsyncCheckpointer,
+    cleanup_checkpoints,
+    load_checkpoint,
+    save_checkpoint,
+    update_pointer,
+)
+from ..utils.determinism import set_determinism
+from ..utils.logging import RunLogger, Throughput
 from . import optim
 from .schedules import warmup_cosine
 
 __all__ = [
     "PretrainSettings",
     "PretrainState",
+    "checkpoint_payload",
+    "cli_main",
+    "find_resume_path",
     "init_pretrain_state",
     "loss_and_grads",
     "make_pretrain_step",
     "model_config",
+    "restore_state",
     "run_pretraining",
 ]
 
@@ -53,6 +74,7 @@ __all__ = [
 class PretrainSettings:
     data_root: str = ""
     output_dir: str = "outputs/mae_pretrain"
+    model: str = "mae_vit_base_patch16"
     epochs: int = 400
     warmup_epochs: int = 40
     batch_size: int = 64  # per accumulation microbatch
@@ -66,7 +88,24 @@ class PretrainSettings:
     image_size: int = 224
     num_workers: int = 16
     log_interval: int = 20
+    save_freq_epochs: int = 20
+    save_freq_mins: Optional[float] = None  # time-based mid-epoch saves
+    keep_last: int = 2
+    keep_every_n_epochs: Optional[int] = 100
     no_train_dir: bool = False
+    precision: str = "bf16"  # bf16 | fp32 (the card's kernels take bf16 only)
+    # Accepted so that the JAX package's flag surface parses; it decides
+    # nothing: the port runs its kernels on every CUDA tensor and their plain
+    # versions on the CPU.
+    use_pallas_attention: Optional[bool] = None
+    steps_per_call: int = 1  # calls of the step per round of the loop
+    limit_steps_per_epoch: Optional[int] = None  # smoke runs
+    resume: Optional[str] = None  # "auto" | path | None
+    # Overlap checkpoint serialization/writes with the next epoch's compute
+    # (utils/checkpoint.py::AsyncCheckpointer; the device-to-host snapshot
+    # stays synchronous, because the step updates in place).  The reference
+    # saves synchronously (util/misc.py:306-335); off restores that behaviour.
+    async_checkpoint: bool = True
     device: str = "cuda"
 
     @property
@@ -80,15 +119,22 @@ class PretrainSettings:
 
 
 def model_config(settings: PretrainSettings) -> MAEConfig:
-    """MAE ViT-B/16 in bf16; masked-MSE pretraining rounds the scores to bf16
-    before the softmax, as the JAX recipe does.  The decoder's tokens count as
-    padded to the next multiple of 8, as the JAX engine pads them with its
-    kernels on (pretrain.py:134-135), which decides where the fusion knobs
-    apply."""
-    encoder = replace(MAE_VIT_B16.encoder, img_size=settings.image_size,
-                      compute_dtype=torch.bfloat16, attention_softmax_f32=False)
+    """The preset ``settings.model`` at ``settings.precision``: in bf16,
+    masked-MSE pretraining rounds the scores to bf16 before the softmax, as
+    the JAX recipe does.  The decoder's tokens count as padded to the next
+    multiple of 8, as the JAX engine pads them with its kernels on
+    (pretrain.py:134-135), which decides where the fusion knobs apply."""
+    presets = {
+        "mae_vit_base_patch16": MAE_VIT_B16,
+    }
+    if settings.model not in presets:
+        raise ValueError(f"Unknown model preset {settings.model!r}")
+    base = presets[settings.model]
+    compute = torch.bfloat16 if settings.precision == "bf16" else torch.float32
+    encoder = replace(base.encoder, img_size=settings.image_size, compute_dtype=compute,
+                      attention_softmax_f32=(compute == torch.float32))
     n_tokens = encoder.num_patches + 1
-    return replace(MAE_VIT_B16, encoder=encoder, mask_ratio=settings.mask_ratio,
+    return replace(base, encoder=encoder, mask_ratio=settings.mask_ratio,
                    norm_pix_loss=settings.norm_pix_loss,
                    decoder_pad_to=-(-n_tokens // 8) * 8 if n_tokens % 8 else None)
 
@@ -200,17 +246,84 @@ def _step_noise(seed: int, epoch: int, step: int, shape, device: torch.device) -
     return torch.rand(shape, generator=gen, device=device)
 
 
-def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
-    """The epoch loop over an image folder; returns the last epoch's record.
+def checkpoint_payload(state: PretrainState) -> Dict[str, Any]:
+    """The JAX engine's payload, ``{"params", "opt": {"step", "mu", "nu"}}``,
+    in the JAX layout with numpy leaves: the masters and both moments through
+    ``jax_from_mae_state_dict`` (the moments are elementwise, so the same
+    transposes apply), the step a 0-d int32 array as the JAX state holds it."""
+    cfg = state.model.cfg
+    return {
+        "params": jax_from_mae_state_dict(state.params, cfg),
+        "opt": {
+            "step": np.asarray(state.opt.step, dtype=np.int32),
+            "mu": jax_from_mae_state_dict(state.opt.mu, cfg),
+            "nu": jax_from_mae_state_dict(state.opt.nu, cfg),
+        },
+    }
 
-    Writes one JSON line per epoch to ``<output_dir>/pretrain_log.jsonl`` and
-    raises ``FloatingPointError`` on a non-finite loss.  The loader decodes
-    with PIL, so the host needs it.
+
+def restore_state(state: PretrainState, payload: Mapping[str, Any]) -> None:
+    """Write a :func:`checkpoint_payload` (from either package) into
+    ``state`` in place.
+
+    The masters are the model's own parameters, the compute copy aliases
+    them in fp32 and the AdamW kernel's wrapper keeps their addresses
+    (``state.opt.cache``), so every tensor is copied into, never rebound;
+    the compute copy is then refreshed from the masters."""
+    cfg = state.model.cfg
+    opt = payload["opt"]
+    with torch.no_grad():
+        for target, tree in ((state.params, payload["params"]), (state.opt.mu, opt["mu"]),
+                             (state.opt.nu, opt["nu"])):
+            source = mae_state_dict_from_jax(tree, cfg)
+            if sorted(source) != sorted(target):
+                raise ValueError("the checkpoint's parameters are not this model's: "
+                                 f"{sorted(set(source) ^ set(target))}")
+            for name, tensor in target.items():
+                if source[name].shape != tensor.shape:
+                    raise ValueError(f"{name}: checkpoint shape {tuple(source[name].shape)}, "
+                                     f"model shape {tuple(tensor.shape)}")
+                tensor.copy_(source[name])
+        for name, copy in state.params_c.items():
+            master = state.params[name]
+            if copy.data_ptr() != master.data_ptr():
+                copy.copy_(master)
+    state.opt.step = int(np.asarray(opt["step"]))
+
+
+def find_resume_path(resume: Optional[str], ckpt_dir: Path) -> Optional[Path]:
+    """``"auto"``: the ``last.ckpt`` pointer, else the numerically greatest
+    ``checkpoint-<n>.ckpt`` (lexicographic order would resume checkpoint-99
+    over checkpoint-119 and silently discard epochs), else None.  Any other
+    non-empty value is a path."""
+    if resume == "auto":
+        pointer = ckpt_dir / "last.ckpt"
+        if pointer.exists():
+            return pointer
+        candidates = sorted(ckpt_dir.glob("checkpoint-*.ckpt"),
+                            key=lambda p: int(p.stem.split("-")[-1]))
+        return candidates[-1] if candidates else None
+    return Path(resume) if resume else None
+
+
+def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
+    """Full pretraining loop; returns the final summary dict (the last
+    epoch's record, or ``{"interrupted": True, "epoch": e}`` after a
+    SIGTERM or SIGINT saved epoch ``e``).
+
+    Writes ``<output_dir>/pretrain.{log,jsonl}`` and TensorBoard scalars
+    through ``RunLogger``, and checkpoints under ``<output_dir>/ckpts``;
+    raises ``FloatingPointError`` on a non-finite loss after saving.  The
+    loader decodes with PIL, so the host needs it.
     """
+    set_determinism(settings.seed)
     device = torch.device(settings.device)
     cfg = model_config(settings)
     output_dir = Path(settings.output_dir)
-    output_dir.mkdir(parents=True, exist_ok=True)
+    ckpt_dir = output_dir / "ckpts"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    logger = RunLogger(output_dir, "pretrain")
+
     loader = PretrainLoader(
         ImageFolderIndex(settings.data_root, no_train_dir=settings.no_train_dir),
         batch_size=settings.effective_batch,
@@ -219,36 +332,198 @@ def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
         num_workers=settings.num_workers,
     )
     steps_per_epoch = len(loader)
-    schedule = warmup_cosine(settings.absolute_lr, steps_per_epoch * settings.epochs,
+    if settings.limit_steps_per_epoch:
+        steps_per_epoch = min(steps_per_epoch, settings.limit_steps_per_epoch)
+    total_steps = steps_per_epoch * settings.epochs
+    schedule = warmup_cosine(settings.absolute_lr, total_steps,
                              settings.warmup_epochs * steps_per_epoch, settings.min_lr)
+
     model = MAE(cfg, torch.Generator().manual_seed(settings.seed)).to(device)
     state = init_pretrain_state(model)
+    start_epoch = 0
+
+    # ---- resume --------------------------------------------------------
+    resume_path = find_resume_path(settings.resume, ckpt_dir)
+    if resume_path is not None and resume_path.exists():
+        restored = load_checkpoint(resume_path)
+        restore_state(state, restored["payload"])
+        start_epoch = int(restored["meta"].get("epoch", -1)) + 1
+        logger.text(f"Resumed from {resume_path} at epoch {start_epoch}")
+
+    steps_per_call = max(1, int(settings.steps_per_call))
     train_step = make_pretrain_step(cfg, settings.accum_iter, settings.weight_decay)
+
+    # ---- signal handling: save and exit --------------------------------
+    interrupted = {"flag": False}
+
+    def _handler(signum, frame):
+        interrupted["flag"] = True
+
+    old_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            old_handlers[sig] = signal.signal(sig, _handler)
+        except ValueError:
+            pass  # not in main thread
+
+    checkpointer = AsyncCheckpointer() if settings.async_checkpoint else None
+
+    def save_epoch(epoch: int) -> Path:
+        payload = checkpoint_payload(state)
+        meta = {
+            "epoch": epoch,
+            "settings": dataclasses.asdict(settings),
+            "model": settings.model,
+        }
+        path = ckpt_dir / f"checkpoint-{epoch}.ckpt"
+
+        def _cleanup():
+            cleanup_checkpoints(
+                ckpt_dir,
+                keep_last=settings.keep_last,
+                keep_every_n_epochs=settings.keep_every_n_epochs,
+            )
+
+        if checkpointer is not None:
+            # Host snapshot now (the step updates in place), serialize+write+
+            # pointer+retention on the writer thread, overlapped with the
+            # next epoch's compute.
+            checkpointer.save(
+                path, payload, meta,
+                pointer=ckpt_dir / "last.ckpt", cleanup=_cleanup,
+            )
+            return path
+        save_checkpoint(path, payload, meta)
+        update_pointer(ckpt_dir / "last.ckpt", path)
+        _cleanup()
+        return path
+
+    throughput = Throughput()
+    summary: Dict[str, Any] = {}
+    step_global = start_epoch * steps_per_epoch
     accum, micro = settings.accum_iter, settings.batch_size
-    step_global = 0
-    record: Dict[str, Any] = {}
-    with open(output_dir / "pretrain_log.jsonl", "a") as log:
-        for epoch in range(settings.epochs):
+    noise_shape = (accum, micro, cfg.encoder.num_patches)
+
+    def one_step(raw: np.ndarray, epoch: int, it: int, lr: float) -> Dict[str, torch.Tensor]:
+        images = torch.from_numpy(raw.reshape(accum, micro, *raw.shape[1:])).to(device)
+        noise = _step_noise(settings.seed, epoch, it, noise_shape, device)
+        return train_step(state, images, noise, lr)
+
+    try:
+        for epoch in range(start_epoch, settings.epochs):
             loader.set_epoch(epoch)
-            start = time.perf_counter()
-            losses = []
-            for it, batch in enumerate(loader):
-                images = torch.from_numpy(batch.reshape(accum, micro, *batch.shape[1:])).to(device)
-                noise = _step_noise(settings.seed, epoch, it,
-                                    (accum, micro, cfg.encoder.num_patches), device)
-                metrics = train_step(state, images, noise, schedule(step_global))
-                step_global += 1
-                if it % max(1, settings.log_interval) == 0:
-                    loss = float(metrics["loss"])
-                    if not math.isfinite(loss):
-                        raise FloatingPointError(f"Loss is {loss} at step {step_global}, stopping")
-                    losses.append(loss)
-            record = {
+            epoch_loss = 0.0
+            epoch_log_points = 0
+            steps_since_log = 0
+            t0 = time.perf_counter()
+            last_save_time = time.perf_counter()
+            iterator = iter(loader)
+            it = 0
+            try:
+                while True:
+                    # Collect steps_per_call batches for one round of calls.
+                    pending: list = []
+                    while len(pending) < steps_per_call and it + len(pending) < steps_per_epoch:
+                        try:
+                            pending.append(next(iterator))
+                        except StopIteration:
+                            break
+                    if not pending:
+                        break
+                    chunk = len(pending)
+                    # Each call samples the per-iteration cosine at its own
+                    # global index and draws the noise of its own step.
+                    lrs = [schedule(step_global + j) for j in range(chunk)]
+                    step_metrics = [one_step(raw, epoch, it + j, lrs[j])
+                                    for j, raw in enumerate(pending)]
+                    metrics = dict(step_metrics[-1])
+                    if steps_per_call > 1 and chunk == steps_per_call:
+                        # The JAX engine's fused dispatch reports the mean loss.
+                        metrics["loss"] = torch.stack([m["loss"] for m in step_metrics]).mean()
+                    lr = lrs[-1]
+                    step_global += chunk
+                    steps_since_log += chunk
+                    if (it // steps_per_call) % max(
+                        1, settings.log_interval // steps_per_call
+                    ) == 0:
+                        loss_value = float(metrics["loss"])
+                        if not math.isfinite(loss_value):
+                            logger.text(f"FATAL: non-finite loss {loss_value} at step {step_global}")
+                            save_epoch(epoch)
+                            raise FloatingPointError(f"Loss is {loss_value}, stopping")
+                        grad_norm_value = float(metrics["grad_norm"])
+                        if not math.isfinite(grad_norm_value):
+                            logger.text(f"WARNING: non-finite grad norm at step {step_global}")
+                        epoch_loss += loss_value
+                        epoch_log_points += 1
+                        # Actual steps since the last log: the cadence of K
+                        # calls a round is chunk-quantized.
+                        rate = throughput.tick(settings.effective_batch * steps_since_log)
+                        steps_since_log = 0
+                        logger.scalar("train/loss", loss_value, step_global)
+                        logger.scalar("train/lr", lr, step_global)
+                        logger.scalar("train/grad_norm", grad_norm_value, step_global)
+                        if rate:
+                            logger.scalar("train/images_per_sec", rate, step_global)
+                    if interrupted["flag"]:
+                        logger.text("Signal received: checkpointing and exiting")
+                        save_epoch(epoch)
+                        return {"interrupted": True, "epoch": epoch}
+                    if (
+                        settings.save_freq_mins
+                        and time.perf_counter() - last_save_time > settings.save_freq_mins * 60.0
+                    ):
+                        # time-based mid-epoch checkpoint (reference
+                        # engine_pretrain.py:90-93)
+                        save_epoch(epoch)
+                        last_save_time = time.perf_counter()
+                    it += chunk
+                    if it >= steps_per_epoch:
+                        break
+            finally:
+                iterator.close()  # stops the loader's decode thread on every exit
+
+            mean_loss = epoch_loss / max(1, epoch_log_points)
+            epoch_record = {
                 "epoch": epoch,
-                "train_loss": sum(losses) / max(1, len(losses)),
+                "train_loss": mean_loss,
                 "lr": schedule(step_global),
-                "epoch_time_s": time.perf_counter() - start,
+                "epoch_time_s": time.perf_counter() - t0,
             }
-            log.write(json.dumps(record) + "\n")
-            log.flush()
-    return record
+            logger.json_line(epoch_record)
+            logger.text(f"epoch {epoch}: loss {mean_loss:.4f}")
+            if (epoch + 1) % settings.save_freq_epochs == 0 or epoch == settings.epochs - 1:
+                save_epoch(epoch)
+            summary = epoch_record
+    finally:
+        # Join the in-flight write on every exit path (normal, signal
+        # save-and-exit, non-finite-loss abort), and restore the signal
+        # handlers and close the logger even when that join raises (the
+        # JAX engine skips both then); its error then propagates.
+        try:
+            if checkpointer is not None:
+                checkpointer.wait()
+        finally:
+            for sig, handler in old_handlers.items():
+                signal.signal(sig, handler)
+            logger.close()
+
+    # The final epoch was already checkpointed inside the loop (the
+    # `epoch == settings.epochs - 1` branch of the save condition).
+    return summary
+
+
+def cli_main(argv: Optional[list] = None) -> Dict[str, Any]:
+    """``python -m ssl4polyp_tpu_torch.training.pretrain --data-root ...``:
+    every :class:`PretrainSettings` field as a flag; runs on the card unless
+    ``--device cpu`` is given.  Returns :func:`run_pretraining`'s summary."""
+    from ..utils.cli import parse_into_dataclass
+
+    settings = parse_into_dataclass(
+        PretrainSettings, argv, description="MAE pretraining (PyTorch, CUDA)"
+    )
+    return run_pretraining(settings)
+
+
+if __name__ == "__main__":
+    cli_main()

@@ -1,7 +1,8 @@
 """The port imports and runs (an eval forward, a pretrain step, a fine-tune
-step, a split evaluation and the standalone eval CLI's ``evaluate``) without
-jax, flax, msgpack, scikit-learn or the JAX package itself (the GPU machine
-lacks jax and flax), and imports without PyYAML and PIL (which only the
+step, a split evaluation, the standalone eval CLI's ``evaluate`` and the
+pretraining CLI for an epoch and a resume) without jax, flax, msgpack,
+scikit-learn or the JAX package itself (the GPU machine lacks jax and flax),
+and imports without PyYAML and PIL (which only the
 manifest and frame readers import, where they open a file); no source of the
 port imports the forbidden ones, every ``device`` parameter defaults to the
 card, and chip_smoke.py refuses to run without CUDA."""
@@ -28,6 +29,9 @@ import ssl4polyp_tpu_torch
 modules = [m.name for m in pkgutil.walk_packages(ssl4polyp_tpu_torch.__path__, "ssl4polyp_tpu_torch.")]
 for name in modules:
     importlib.import_module(name)
+assert {"ssl4polyp_tpu_torch.training.pretrain", "ssl4polyp_tpu_torch.training.hyperkvasir",
+        "ssl4polyp_tpu_torch.utils.logging", "ssl4polyp_tpu_torch.utils.tb_events",
+        "ssl4polyp_tpu_torch.utils.cli", "ssl4polyp_tpu_torch.utils.determinism"} <= set(modules)
 import chip_smoke  # noqa: F401  (main() is not run)
 
 from ssl4polyp_tpu_torch.models.factory import get_mae_backbone
@@ -121,6 +125,58 @@ print("ok", len(modules))
 """
 
 
+# The pretraining engine's CLI on the CPU with the JAX stack blocked (PIL
+# allowed: the loader decodes with it): one epoch, then an auto-resume for
+# a second.  TensorBoard's import is blocked too, so RunLogger takes the
+# port's own event writer, as on a host without the tensorboard package.
+_ENGINE_SCRIPT = """
+import sys
+for name in ("jax", "flax", "msgpack", "yaml", "sklearn", "ssl4polyp_tpu",
+             "torch.utils.tensorboard"):
+    sys.modules[name] = None
+
+import json, tempfile
+from pathlib import Path
+import numpy as np, torch
+from PIL import Image
+from ssl4polyp_tpu_torch.models.mae import MAEConfig
+from ssl4polyp_tpu_torch.models.vit import ViTConfig
+from ssl4polyp_tpu_torch.training import pretrain
+from ssl4polyp_tpu_torch.utils.checkpoint import load_checkpoint
+from ssl4polyp_tpu_torch.utils.tb_events import ScalarEventWriter
+
+pretrain.model_config = lambda settings: MAEConfig(
+    encoder=ViTConfig(img_size=32, patch_size=8, embed_dim=32, depth=2, num_heads=2,
+                      compute_dtype=torch.float32),
+    decoder_embed_dim=16, decoder_depth=1, decoder_num_heads=2)
+with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    (tmp / "frames").mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(8):
+        Image.fromarray(rng.integers(0, 256, (40, 40, 3), dtype=np.uint8)).save(
+            tmp / "frames" / f"{i}.jpg")
+    argv = ["--data-root", str(tmp / "frames"), "--output-dir", str(tmp / "out"),
+            "--no-train-dir", "--batch-size", "4", "--image-size", "32", "--num-workers", "2",
+            "--warmup-epochs", "1", "--log-interval", "1", "--device", "cpu"]
+    first = pretrain.cli_main(argv + ["--epochs", "1"])
+    second = pretrain.cli_main(argv + ["--epochs", "2", "--resume", "auto"])
+    assert first["epoch"] == 0 and second["epoch"] == 1, (first, second)
+    restored = load_checkpoint(tmp / "out" / "ckpts" / "last.ckpt")
+    assert restored["meta"]["epoch"] == 1 and int(restored["payload"]["opt"]["step"]) == 4
+    lines = (tmp / "out" / "pretrain.jsonl").read_text().splitlines()
+    assert [json.loads(line)["epoch"] for line in lines] == [0, 1]
+    assert "Resumed from" in (tmp / "out" / "pretrain.log").read_text()
+    assert list((tmp / "out" / "tb" / "pretrain").glob("events.out.tfevents.*"))
+
+leaked = sorted(m for m in sys.modules
+                if (m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
@@ -131,7 +187,13 @@ def test_port_imports_and_runs_with_the_jax_stack_blocked():
     result = _run(["-c", _BLOCKED_SCRIPT])
     assert result.returncode == 0, result.stderr
     assert result.stdout.startswith("ok")
-    assert int(result.stdout.split()[1]) >= 38  # every slice module was imported
+    assert int(result.stdout.split()[1]) >= 43  # every slice module was imported
+
+
+def test_pretraining_cli_runs_and_resumes_with_the_jax_stack_blocked():
+    result = _run(["-c", _ENGINE_SCRIPT])
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.splitlines()[-1] == "ok"
 
 
 def _forbidden_import(line: str):
@@ -215,7 +277,8 @@ def test_every_device_parameter_defaults_to_the_card():
     assert {"ssl4polyp_tpu_torch.models.factory.build_classifier",
             "ssl4polyp_tpu_torch.models.factory.get_mae_backbone",
             "ssl4polyp_tpu_torch.models.factory.get_imagenet_or_random_vit",
-            "ssl4polyp_tpu_torch.evaluation.eval_classification.evaluate"} <= set(seen)
+            "ssl4polyp_tpu_torch.evaluation.eval_classification.evaluate",
+            "ssl4polyp_tpu_torch.training.pretrain.PretrainSettings"} <= set(seen)
 
 
 def test_chip_smoke_fails_without_cuda():

@@ -198,7 +198,7 @@ def test_run_pretraining_logs_epochs(image_folder, tmp_path, monkeypatch):
         log_interval=1, no_train_dir=True, device="cpu",
     )
     record = pretrain.run_pretraining(settings)
-    lines = (tmp_path / "out" / "pretrain_log.jsonl").read_text().splitlines()
+    lines = (tmp_path / "out" / "pretrain.jsonl").read_text().splitlines()
     assert [json.loads(line)["epoch"] for line in lines] == [0, 1]
     assert record == json.loads(lines[-1]) and np.isfinite(record["train_loss"])
 
