@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's eval forward, MAE pretrain step and pretraining
 engine, classifier fine-tune step (with and without ``BENCH_ATTN_PROJ=1``),
-its two attention functions of ``ops`` that no model route calls, and its
-standalone eval CLI on one NVIDIA GPU.
+its two attention functions of ``ops`` that no model route calls, its
+standalone eval CLI and its fine-tune engine on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -125,6 +125,25 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    equal to ``make_forward_fn`` on the same decoded frames, and every output
    file present.  Prints frames/s end to end (checkpoint read and decode
    included), of the forward alone, and the host's and the card's shares.
+8. The fine-tune engine at full width through its CLI (``cli_main``) with
+   ``config/exp/exp2.yaml``'s SSL-colon arm, seed 47: a synthetic sun_full
+   pack of 224 px JPEG frames (train 256, val 128, test 128) and an MAE
+   ViT-B/16 checkpoint (numpy-seeded JAX-layout tree) where
+   ``config/model/ssl_colon.yaml`` names it are written with the port's own
+   writers.  Run A: 3 epochs of 4 steps of 64, 2 validation batches an
+   epoch and 2 test batches; before step 1 the encoder equals the MAE
+   checkpoint's masters bit for bit; exact launch counts (phase 5's per step
+   times 12, the eval forward's per batch times 8); every artifact written,
+   the outputs CSV's SHA-256 the one ``metrics.json`` records, tau in [0, 1]
+   and the best checkpoint's.  Run A', the same into another directory:
+   every checkpoint bit-equal to A's (params, mu, nu, step) and the outputs
+   CSV byte-equal.  Run B: ``--resume`` in a copy of A's output with a
+   fourth epoch, from the best checkpoint's masters, moments and step bit for
+   bit at its epoch + 1.  Then the eval CLI on A's best checkpoint and test
+   split: tau and the test metrics within 1e-6 of A's ``test_primary``.
+   Prints each run's wall time, its steps' time and images/s, and the time
+   outside the steps (model build with the MAE read, validation, test,
+   reload, exports, each save), beside the card's name and power limit.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -135,6 +154,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import statistics
@@ -165,12 +185,12 @@ from ssl4polyp_tpu_torch.profiling import (FINETUNE_CONFIGS, REPEAT_CALLS, REPEA
                                            projection_fold, rates, spread)
 from ssl4polyp_tpu_torch.training import optim
 from ssl4polyp_tpu_torch.training.classification import (
-    TrainContext,
     init_train_state,
     loss_and_grads,
     loss_settings,
     make_forward_fn,
     make_train_step,
+    step_context,
 )
 from ssl4polyp_tpu_torch.data.augment import draw_augment_params, normalize_batch
 from ssl4polyp_tpu_torch.training.pretrain import loss_and_grads as pretrain_loss_and_grads
@@ -1403,23 +1423,31 @@ def check_run_to_run_bits(fresh_state, train_step, batches, noise, schedule,
     diffs["compute copy against the cast of the masters"] = differing(a.params_c, recast)
     if any(diffs.values()):
         # Name the ops that have no deterministic CUDA implementation: one
-        # step more under torch's deterministic mode, warnings only.
-        import warnings
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.use_deterministic_algorithms(True, warn_only=True)
-            try:
-                train_step(a, batches[0], noise[0], schedule(0))
-                torch.cuda.synchronize()
-            finally:
-                torch.use_deterministic_algorithms(False)
-        ops_named = sorted({str(w.message).split("\n")[0] for w in caught})
+        # step more under torch's deterministic mode.
+        ops_named = nondeterministic_ops(train_step, a, batches[0], noise[0], schedule(0))
         fail(f"pretrain: {steps} steps twice from one state differ in "
              f"{ {k: v[:5] for k, v in diffs.items() if v} }; torch's deterministic mode "
              f"names {ops_named}")
     print(f"pretrain: {steps} steps run twice from one seed and one state agree bit for bit in "
           f"all {len(a.params)} masters, both moments and the compute copy; the compute copy "
           "equals the cast of the masters")
+
+
+def nondeterministic_ops(fn, *args) -> list[str]:
+    """The ops of ``fn(*args)`` that have no deterministic CUDA
+    implementation, as torch's deterministic mode names them (warnings
+    only)."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            fn(*args)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0] for w in caught
+                   if "deterministic" in str(w.message)})
 
 
 def phase_pretrain() -> dict[str, int]:
@@ -1769,7 +1797,7 @@ def phase_finetune() -> dict[str, int]:
                 classifier, torch.Generator(device="cuda").manual_seed(SEED))
 
         classifier, state = fresh_state()
-        ctx = TrainContext(classifier, loss_mode, pos_weight, class_weights, FT_WEIGHT_DECAY)
+        ctx = step_context(classifier, loss_mode, pos_weight, class_weights, FT_WEIGHT_DECAY)
         step = make_train_step(ctx)
         full = optim.finetune_lr_scales(state.params, "full", depth)
         wd = optim.no_weight_decay_scales(state.params)
@@ -2075,6 +2103,235 @@ def phase_eval_cli() -> dict[str, int]:
     return counts
 
 
+FT_ENGINE_FRAMES = {"train": 256, "val": 128, "test": 128}
+FT_ENGINE_EPOCHS = 3
+FT_ENGINE_LIMIT = {"train": 4, "val": 2, "test": 2}  # batches of 64 a split
+
+
+def phase_finetune_engine() -> dict[str, int]:
+    """The fine-tune engine at full width through ``cli_main`` with
+    ``config/exp/exp2.yaml``'s SSL-colon arm: run A from an MAE checkpoint,
+    run A' the same, bit for bit, run B resumed in a copy of A's output, and
+    the eval CLI on A's best checkpoint against A's test."""
+    import shutil
+    from unittest import mock
+
+    from ssl4polyp_tpu_torch.models.mae import MAE_VIT_B16, encoder_only
+    from ssl4polyp_tpu_torch.models.weights import state_dict_from_jax
+    from ssl4polyp_tpu_torch.training import classification as engine
+
+    cfg = ViTConfig(num_classes=2)
+    depth = cfg.depth
+    stem = "SslColon_SUNFull_s47"
+    per_step = {"fused_qkv_attention": depth, "fused_qkv_attention_backward": depth,
+                "layernorm": 2 * depth + 1, "layernorm_backward": 2 * depth + 1,
+                "fc1_gelu": depth, "adamw": 3}  # 152 tensors, 64 an AdamW launch
+    per_eval = {"fused_qkv_attention": depth, "layernorm": 2 * depth + 1, "fc1_gelu": depth}
+
+    def expected(steps: int, eval_batches: int) -> dict[str, int]:
+        return {name: steps * per_step.get(name, 0) + eval_batches * per_eval.get(name, 0)
+                for name in ops.launch_counts()}
+
+    # What the first step of the next run must see, and what it saw.
+    expect: dict[str, dict] = {}
+    starts: list[list[str]] = []
+    step_seconds: list[float] = []
+    make_step = engine.make_train_step
+
+    def timed_make_step(ctx):
+        step = make_step(ctx)
+        first = [True]
+
+        def timed_step(state, *args):
+            if first[0]:
+                first[0] = False
+                wrong = []
+                for key, tensors in (("params", state.params), ("mu", state.opt.mu),
+                                     ("nu", state.opt.nu)):
+                    for name, want in expect.get(key, {}).items():
+                        if not torch.equal(tensors[name], want.to(tensors[name].device)):
+                            wrong.append(f"{key}/{name}")
+                if "step" in expect and state.opt.step != expect["step"]:
+                    wrong.append(f"step {state.opt.step}")
+                starts.append(wrong)
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = step(state, *args)
+            torch.cuda.synchronize()
+            step_seconds.append(time.perf_counter() - start)
+            return out
+        return timed_step
+
+    with tempfile.TemporaryDirectory() as tmp, projection_fold(False), \
+            mock.patch.object(engine, "make_train_step", timed_make_step):
+        tmp = Path(tmp)
+        packs, root = tmp / "data_packs", tmp / "checkpoint_root"
+        start = time.perf_counter()
+        build_synthetic_pack(packs, name="sun_full", frames_per_split=FT_ENGINE_FRAMES,
+                             image_size=224, seed=SEED)
+        mae_tree = jax_layout_mae_tree(MAE_VIT_B16, np.random.default_rng(SEED))
+        mae_path = save_checkpoint(
+            root / "checkpoints/pretrained/vit_b/mae_hyperkvasir.ckpt", {"params": mae_tree},
+            {"epoch": 399, "model": "mae_vit_base_patch16"})
+        print(f"fine-tune engine: wrote a sun_full pack of {FT_ENGINE_FRAMES} JPEG frames of 224 "
+              f"px and a {mae_path.stat().st_size / 2**20:.0f} MiB MAE checkpoint at "
+              f"config/model/ssl_colon.yaml's path in {time.perf_counter() - start:.1f} s")
+        encoder = state_dict_from_jax(encoder_only(mae_tree), cfg)
+
+        def argv(out: str, epochs: int) -> list[str]:
+            return ["--exp-config", "config/exp/exp2.yaml", "--model-key", "ssl_colon",
+                    "--seed", "47", "--pack-root", str(packs), "--checkpoint-root", str(root),
+                    "--thresholds-root", str(tmp / f"th_{out}"), "--output-dir", str(tmp / out),
+                    "--override", f"epochs={epochs}", "--override", f"batch_size={BATCH}",
+                    "--limit-train-batches", str(FT_ENGINE_LIMIT["train"]),
+                    "--limit-val-batches", str(FT_ENGINE_LIMIT["val"]),
+                    "--limit-test-batches", str(FT_ENGINE_LIMIT["test"])]
+
+        walls: dict[str, tuple] = {}
+
+        def run(name: str, args: list[str], steps: int, eval_batches: int) -> dict:
+            steps_before = len(step_seconds)
+            ops.reset_launch_counts()
+            start = time.perf_counter()
+            summary = engine.cli_main(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            counts = ops.launch_counts()
+            check_counts(counts, expected(steps, eval_batches), 1,
+                         f"fine-tune engine run {name}: {steps} steps and {eval_batches} eval "
+                         f"batches")
+            if starts[-1]:
+                fail(f"fine-tune engine run {name}: before step 1 the state differs from what "
+                     f"it starts from in {starts[-1][:8]}")
+            walls[name] = (wall, sum(step_seconds[steps_before:]), steps, summary["timings"])
+            return summary | {"counts": counts}
+
+        def run_dir(out: str) -> Path:
+            return tmp / out / "sun_baselines"
+
+        # Run A, then A' into another directory: the encoder before step 1
+        # is the MAE checkpoint's, and every file of the two runs agrees.
+        epoch_steps, epoch_evals = FT_ENGINE_LIMIT["train"], FT_ENGINE_LIMIT["val"]
+        n_steps = FT_ENGINE_EPOCHS * epoch_steps
+        n_evals = FT_ENGINE_EPOCHS * epoch_evals + FT_ENGINE_LIMIT["test"]
+        expect.clear()
+        expect["params"] = encoder
+        summary_a = run("A", argv("A", FT_ENGINE_EPOCHS), n_steps, n_evals)
+        summary_a2 = run("A'", argv("A2", FT_ENGINE_EPOCHS), n_steps, n_evals)
+        a_dir = run_dir("A")
+        payload = summary_a["payload"]
+        # The engine reads every step's loss back and raises on a non-finite one.
+        if summary_a["epochs_run"] != FT_ENGINE_EPOCHS or not np.isfinite(payload["train_loss"]):
+            fail(f"fine-tune engine run A: {summary_a['epochs_run']} epochs, last epoch's mean "
+                 f"loss {payload['train_loss']}")
+        best = (a_dir / f"{stem}.ckpt").resolve()
+        files = [f"{stem}.config.yaml", f"{stem}.log", f"{stem}.ckpt", best.name,
+                 f"{stem}.metrics.json", f"{stem}_last.metrics.json", f"{stem}_test_outputs.csv"]
+        missing = [f for f in files if not (a_dir / f).exists()]
+        stores = list((tmp / "th_A").rglob("policy-f1_opt_on_val.json"))
+        if missing or not stores:
+            fail(f"fine-tune engine run A: {missing} not written, thresholds files {stores}")
+        csv_sha = hashlib.sha256((a_dir / f"{stem}_test_outputs.csv").read_bytes()).hexdigest()
+        best_meta = load_checkpoint(best)["meta"]
+        tau = summary_a["tau"]
+        blocks = {"val", "test_primary", "test_sensitivity", "run", "provenance", "data",
+                  "thresholds"}
+        if (csv_sha != payload["provenance"]["test_outputs_csv_sha256"]
+                or not (tau is not None and 0.0 <= tau <= 1.0)
+                or best_meta["thresholds"]["primary"]["tau"] != tau
+                or not blocks <= set(payload)):
+            fail(f"fine-tune engine run A: outputs CSV sha256 {csv_sha} against "
+                 f"{payload['provenance']['test_outputs_csv_sha256']}, tau {tau} against the best "
+                 f"checkpoint's {best_meta['thresholds']['primary']['tau']}, blocks "
+                 f"{sorted(blocks - set(payload))} missing")
+        a2_dir = run_dir("A2")
+        names = sorted(p.name for p in a_dir.glob(f"{stem}_*e*_*.ckpt"))
+        diffs = {name: tree_differences(load_checkpoint(a_dir / name)["payload"],
+                                        load_checkpoint(a2_dir / name)["payload"])
+                 for name in names}
+        if (names != sorted(p.name for p in a2_dir.glob(f"{stem}_*e*_*.ckpt"))
+                or any(diffs.values())
+                or (a_dir / f"{stem}_test_outputs.csv").read_bytes()
+                != (a2_dir / f"{stem}_test_outputs.csv").read_bytes()):
+            fail(f"fine-tune engine: run A' differs from run A: {names}, "
+                 f"{ {k: v[:4] for k, v in diffs.items() if v} } or the outputs CSV; torch's "
+                 f"deterministic mode names {nondeterministic_ops(engine.cli_main, argv('C', 1))}")
+        print(f"fine-tune engine: runs A and A' (exp2, ssl_colon, ViT-B/16, batch {BATCH}, "
+              f"{FT_ENGINE_EPOCHS} epochs of {epoch_steps} steps) start from the MAE "
+              f"checkpoint's encoder bit for bit; their checkpoints {names} are bit-equal in "
+              f"params, mu, nu and step, their outputs CSVs byte-equal; best {best.name}, tau "
+              f"{tau}, test AUROC {payload['test_primary']['auroc']:.4f}; losses finite")
+        shutil.rmtree(tmp / "A2")
+
+        # Run B: --resume in a copy of A's output, one more epoch.
+        shutil.copytree(tmp / "A", tmp / "B", symlinks=True)
+        restored = load_checkpoint(best)
+        expect.clear()
+        expect.update(
+            params=state_dict_from_jax(restored["payload"]["params"], cfg),
+            mu=state_dict_from_jax(restored["payload"]["opt"]["mu"], cfg),
+            nu=state_dict_from_jax(restored["payload"]["opt"]["nu"], cfg),
+            step=int(restored["payload"]["opt"]["step"]))
+        del restored
+        resumed_epochs = FT_ENGINE_EPOCHS + 1 - (best_meta["epoch"] + 1)
+        summary_b = run("B", argv("B", FT_ENGINE_EPOCHS + 1) + ["--resume"],
+                        resumed_epochs * epoch_steps,
+                        resumed_epochs * epoch_evals + FT_ENGINE_LIMIT["test"])
+        line = f"resumed from {stem}.ckpt at epoch {best_meta['epoch'] + 1}"
+        if line not in (run_dir("B") / f"{stem}.log").read_text() or \
+                summary_b["epochs_run"] != FT_ENGINE_EPOCHS + 1:
+            fail(f"fine-tune engine run B: no '{line}' in its log, or {summary_b['epochs_run']} "
+                 f"epochs run")
+        print(f"fine-tune engine: run B logged '{line}' (the pointer to {best.name}), started "
+              f"from its masters, moments and step ({expect['step']}) bit for bit and ran to "
+              f"epoch {summary_b['epochs_run'] - 1}")
+        expect.clear()
+
+        # The eval CLI on A's best checkpoint and A's test split.
+        printed = io.StringIO()
+        ops.reset_launch_counts()
+        with contextlib.redirect_stdout(printed):
+            eval_classification.cli_main([
+                "--checkpoint", str(best), "--test-pack", "sun_full", "--pack-root",
+                str(packs), "--batch-size", str(BATCH), "--output-dir", str(tmp / "eval")])
+        cli_counts = ops.launch_counts()
+        check_counts(cli_counts, per_eval, FT_ENGINE_LIMIT["test"],
+                     "the eval CLI on run A's best checkpoint")
+        cli = json.loads(printed.getvalue())
+        test_block = payload["test_primary"]
+        shared = sorted(k for k, v in test_block.items()
+                        if isinstance(v, (int, float)) and isinstance(cli.get(k), (int, float)))
+        off = {k: (cli[k], test_block[k]) for k in shared
+               if not abs(cli[k] - test_block[k]) <= 1e-6}
+        if cli["tau"] != tau or cli["n_frames"] != FT_ENGINE_FRAMES["test"] or off or \
+                len(shared) < 10:
+            fail(f"eval CLI on run A's best checkpoint: tau {cli['tau']} against {tau}, "
+                 f"{cli['n_frames']} frames, off {off}, {len(shared)} metrics compared")
+        print(f"fine-tune engine: the eval CLI on {best.name} gives tau {cli['tau']} and "
+              f"{len(shared)} test metrics within 1e-6 of run A's test_primary")
+
+    for name, (wall, in_steps, steps, timings) in walls.items():
+        saves = ", ".join(f"{path} {snapshot:.3f} + {write:.3f} s"
+                          for path, snapshot, write in timings["saves"])
+        outside = wall - in_steps
+        rest = wall - timings["build_s"] - timings["train_s"] - sum(
+            timings[k] for k in ("val_s", "test_s", "reload_s", "export_s")) - sum(
+            snapshot + write for _, snapshot, write in timings["saves"])
+        print(f"fine-tune engine run {name}: {wall:.2f} s wall; {steps} steps in {in_steps:.2f} s "
+              f"(synchronised; {steps * BATCH / in_steps:.1f} images/s); outside the steps "
+              f"{outside:.2f} s: model build with the MAE read {timings['build_s']:.2f} s, "
+              f"epoch loops beyond the steps {timings['train_s'] - in_steps:.2f} s, val "
+              f"{timings['val_s']:.2f} s, test {timings['test_s']:.2f} s, best reload "
+              f"{timings['reload_s']:.2f} s, exports {timings['export_s']:.3f} s, saves (host "
+              f"snapshot + write) [{saves}], the rest (configs, logger, thresholds) "
+              f"{rest:.2f} s; {CARD}")
+    total = {}
+    for counts in (summary_a["counts"], summary_a2["counts"], summary_b["counts"], cli_counts):
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2107,7 +2364,8 @@ def main() -> None:
     # Each path's launches, counted from 0 before it and read after it.
     runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(),
             phase_pretrain_engine(), phase_finetune(),
-            phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli()]
+            phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli(),
+            phase_finetune_engine()]
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

@@ -136,13 +136,21 @@ def _adjust_hue(x: torch.Tensor, shift: torch.Tensor) -> torch.Tensor:
 def _blur_matrices(kernels: torch.Tensor, size: int) -> torch.Tensor:
     """(B, size, size) matrices A such that A @ v is the blur of v along an
     axis of ``size`` with edge padding: row i holds tap t at column
-    clamp(i + t - taps // 2), taps that clamp to one column summed."""
+    clamp(i + t - taps // 2), taps that clamp to one column summed.
+
+    One scatter a tap, in tap order: within one, every row adds to one
+    column, so no two additions meet.  A single scatter of all taps would
+    meet at the clamped edge columns, which CUDA's ``scatter_add_`` sums
+    with atomics in no fixed order, so the same draw would blur to other
+    bits from run to run."""
     batch, taps = kernels.shape
     offsets = torch.arange(taps, device=kernels.device) - taps // 2
     columns = torch.clamp(torch.arange(size, device=kernels.device)[:, None] + offsets, 0, size - 1)
     matrices = torch.zeros((batch, size, size), dtype=kernels.dtype, device=kernels.device)
-    return matrices.scatter_add_(2, columns.expand(batch, size, taps),
-                                 kernels[:, None, :].expand(batch, size, taps))
+    for t in range(taps):
+        matrices.scatter_add_(2, columns[None, :, t:t + 1].expand(batch, size, 1),
+                              kernels[:, None, t:t + 1].expand(batch, size, 1))
+    return matrices
 
 
 def _separable_blur(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:

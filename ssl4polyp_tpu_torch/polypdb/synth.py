@@ -14,7 +14,7 @@ from __future__ import annotations
 import csv
 import hashlib
 from pathlib import Path
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 
@@ -48,11 +48,13 @@ def build_synthetic_pack(
     *,
     name: str = "synthetic_pack",
     splits: Sequence[str] = ("train", "val", "test"),
-    frames_per_split: int = 32,
+    frames_per_split: int | Mapping[str, int] = 32,
     image_size: int = 224,
     seed: int = 0,
     cases: int = 8,
 ) -> Path:
+    """Write the pack ``name`` under ``out_dir`` and return its directory;
+    ``frames_per_split`` is one count for every split or a count a split."""
     import yaml
 
     out_dir = Path(out_dir)
@@ -70,8 +72,10 @@ def build_synthetic_pack(
         "counts": {},
     }
     for split in splits:
+        frames = (frames_per_split[split] if isinstance(frames_per_split, Mapping)
+                  else frames_per_split)
         rows = []
-        for i in range(frames_per_split):
+        for i in range(frames):
             rel = f"{split}_{i:04d}.jpg"
             label = i % 2
             _write_frame(images_dir / rel, rng, label, image_size)
@@ -96,7 +100,7 @@ def build_synthetic_pack(
             "sha256": hashlib.sha256(csv_path.read_bytes()).hexdigest(),
         }
         manifest["counts"][split] = {
-            "frames": frames_per_split,
+            "frames": frames,
             "label_counts": {
                 "1": sum(1 for r in rows if r["label"] == "1"),
                 "0": sum(1 for r in rows if r["label"] == "0"),

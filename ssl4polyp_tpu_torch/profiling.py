@@ -164,8 +164,8 @@ def main(argv: list[str] | None = None) -> None:
     from .models.factory import get_imagenet_or_random_vit
     from .models.mae import MAE
     from .ops import _build
-    from .training.classification import (TrainContext, init_train_state, loss_settings,
-                                          make_forward_fn, make_train_step)
+    from .training.classification import (init_train_state, loss_settings, make_forward_fn,
+                                          make_train_step, step_context)
     from .training.optim import finetune_lr_scales, no_weight_decay_scales
     from .training.pretrain import (PretrainSettings, init_pretrain_state, make_pretrain_step,
                                     model_config)
@@ -205,7 +205,7 @@ def main(argv: list[str] | None = None) -> None:
             classifier = get_imagenet_or_random_vit(torch.Generator().manual_seed(0),
                                                     num_classes=2, device="cuda", **overrides)
         state = init_train_state(classifier, torch.Generator(device="cuda").manual_seed(0))
-        step = make_train_step(TrainContext(classifier, mode, pos_weight, class_weights, 0.05))
+        step = make_train_step(step_context(classifier, mode, pos_weight, class_weights, 0.05))
         scales = finetune_lr_scales(state.params, "full", classifier.cfg.depth)
         wd_scales = no_weight_decay_scales(state.params)
         run = lambda: step(state, images, labels, valid, 1e-4, scales, wd_scales)  # noqa: E731

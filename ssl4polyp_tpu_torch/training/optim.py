@@ -32,10 +32,12 @@ __all__ = [
     "adamw_update",
     "adamw_update_fused",
     "adamw_update_fused_plain",
+    "copy_into",
     "finetune_lr_scales",
     "global_norm",
     "no_weight_decay_scales",
     "pretrain_lr_scales",
+    "refresh_compute_copy",
 ]
 
 Tensors = Dict[str, torch.Tensor]
@@ -197,3 +199,31 @@ def adamw_update_fused_plain(
     ``_foreach`` chain of :func:`adamw_update`, then the copies."""
     _step(adamw_multi_tensor_plain, params, params_c, grads, state, lr, b1, b2, eps,
           weight_decay, lr_scale, wd_scale)
+
+
+@torch.no_grad()
+def copy_into(target: Mapping[str, torch.Tensor], source: Mapping[str, torch.Tensor]) -> None:
+    """Copy each tensor of ``source`` into the tensor of ``target`` of its
+    name, in place (a restore): the masters are the model's own parameters,
+    an fp32 compute copy aliases them and the AdamW kernel's wrapper keeps
+    the addresses of masters and moments (``AdamWState.cache``), so none is
+    ever rebound.  The names and every shape must match."""
+    if sorted(source) != sorted(target):
+        raise ValueError("the checkpoint's parameters are not this model's: "
+                         f"{sorted(set(source) ^ set(target))}")
+    for name, tensor in target.items():
+        if source[name].shape != tensor.shape:
+            raise ValueError(f"{name}: checkpoint shape {tuple(source[name].shape)}, "
+                             f"model shape {tuple(tensor.shape)}")
+        tensor.copy_(source[name])
+
+
+@torch.no_grad()
+def refresh_compute_copy(params: Mapping[str, torch.Tensor],
+                         params_c: Mapping[str, torch.Tensor]) -> None:
+    """Rewrite every compute-copy tensor of its own (the cast of a matrix)
+    from its master, in place; a copy that aliases its master is left."""
+    for name, copy in params_c.items():
+        master = params[name]
+        if copy.data_ptr() != master.data_ptr():
+            copy.copy_(master)

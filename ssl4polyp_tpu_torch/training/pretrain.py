@@ -50,7 +50,7 @@ from ..utils.checkpoint import (
     save_checkpoint,
     update_pointer,
 )
-from ..utils.determinism import set_determinism
+from ..utils.determinism import set_determinism, step_seed
 from ..utils.logging import RunLogger, Throughput
 from . import optim
 from .schedules import warmup_cosine
@@ -229,14 +229,8 @@ def make_pretrain_step(
     return step
 
 
-def _noise_seed(seed: int, epoch: int, step: int) -> int:
-    """The seed of one step's masking noise: a hash of the whole (seed,
-    epoch, step), as the JAX engine folds the epoch and then the step into
-    its key, so that no two steps of a run share noise however long an
-    epoch is.  ``SeedSequence``'s first 64-bit word, reduced below 2**63 for
-    ``torch.Generator.manual_seed``."""
-    word = np.random.SeedSequence([seed, epoch, step]).generate_state(1, np.uint64)[0]
-    return int(word) % (2 ** 63)
+# The seed of one step's masking noise.
+_noise_seed = step_seed
 
 
 def _step_noise(seed: int, epoch: int, step: int, shape, device: torch.device) -> torch.Tensor:
@@ -272,22 +266,10 @@ def restore_state(state: PretrainState, payload: Mapping[str, Any]) -> None:
     the compute copy is then refreshed from the masters."""
     cfg = state.model.cfg
     opt = payload["opt"]
-    with torch.no_grad():
-        for target, tree in ((state.params, payload["params"]), (state.opt.mu, opt["mu"]),
-                             (state.opt.nu, opt["nu"])):
-            source = mae_state_dict_from_jax(tree, cfg)
-            if sorted(source) != sorted(target):
-                raise ValueError("the checkpoint's parameters are not this model's: "
-                                 f"{sorted(set(source) ^ set(target))}")
-            for name, tensor in target.items():
-                if source[name].shape != tensor.shape:
-                    raise ValueError(f"{name}: checkpoint shape {tuple(source[name].shape)}, "
-                                     f"model shape {tuple(tensor.shape)}")
-                tensor.copy_(source[name])
-        for name, copy in state.params_c.items():
-            master = state.params[name]
-            if copy.data_ptr() != master.data_ptr():
-                copy.copy_(master)
+    for target, tree in ((state.params, payload["params"]), (state.opt.mu, opt["mu"]),
+                         (state.opt.nu, opt["nu"])):
+        optim.copy_into(target, mae_state_dict_from_jax(tree, cfg))
+    optim.refresh_compute_copy(state.params, state.params_c)
     state.opt.step = int(np.asarray(opt["step"]))
 
 

@@ -27,7 +27,8 @@ from ssl4polyp_tpu_torch.data.augment import (AugmentParams, apply_augment, augm
 from ssl4polyp_tpu_torch.models.factory import build_classifier
 from ssl4polyp_tpu_torch.models.weights import state_dict_from_jax
 from ssl4polyp_tpu_torch.training import classification, optim
-from ssl4polyp_tpu_torch.training.classification import FinetuneStage, ScheduleRuntime
+from ssl4polyp_tpu_torch.training.classification import ScheduleRuntime
+from ssl4polyp_tpu_torch.training.protocol import FinetuneStage
 
 SHAPES = dict(img_size=32, patch_size=8, embed_dim=128, depth=2, num_heads=4)
 CONFIGS = {"fc1": {}, "full_ln+qkv_ln": dict(mlp_fusion="full_ln", qkv_ln_fusion=True),
@@ -90,6 +91,24 @@ def test_apply_augment_matches_the_jax_chain(seed):
     # The compute dtype is one cast of the same values.
     bf16 = apply_augment(torch.from_numpy(images), _torch_params(p), torch.bfloat16)
     torch.testing.assert_close(bf16, got.to(torch.bfloat16), rtol=0, atol=0)
+
+
+def test_blur_matrices_sum_the_clamped_taps_in_tap_order():
+    # One scatter a tap gives the bits of one scatter of every tap on the
+    # CPU (each edge column sums its clamped taps in tap order), without the
+    # colliding additions that CUDA's scatter_add_ orders by atomics.
+    from ssl4polyp_tpu_torch.data.augment import _blur_matrices
+
+    gen = torch.Generator().manual_seed(0)
+    kernels = torch.rand((4, 25), generator=gen)
+    kernels = kernels / kernels.sum(dim=1, keepdim=True)
+    for size in (1, 7, 24, 40):
+        columns = torch.clamp(torch.arange(size)[:, None] + torch.arange(25) - 12, 0, size - 1)
+        once = torch.zeros((4, size, size)).scatter_add_(
+            2, columns.expand(4, size, 25), kernels[:, None, :].expand(4, size, 25))
+        got = _blur_matrices(kernels, size)
+        assert torch.equal(got, once), size
+        torch.testing.assert_close(got.sum(dim=2), torch.ones((4, size)), rtol=0, atol=1e-6)
 
 
 def test_draw_augment_params_has_the_jax_ranges():
@@ -224,7 +243,7 @@ def _check_one_step(config, pos_embed, fold=False):
     labels = np.array([0, 1, 1, 0, 1, 0])
     valid = np.array([True] * 5 + [False])
     loss_args = classification.loss_settings([40, 20])
-    ctx = classification.TrainContext(ours, *loss_args, weight_decay=0.05)
+    ctx = classification.step_context(ours, *loss_args, weight_decay=0.05)
     state = classification.init_train_state(ours, torch.Generator().manual_seed(0))
     loss, grads = classification.loss_and_grads(
         ctx, state, torch.from_numpy(images), torch.from_numpy(labels), torch.from_numpy(valid),
@@ -260,7 +279,7 @@ def test_short_trajectory_matches_jax():
     overrides = CONFIGS["full_ln+qkv_ln"]
     jax_clf, params, ours = _jax_pair(overrides)
     loss_args = classification.loss_settings([40, 20])
-    ctx = classification.TrainContext(ours, *loss_args, weight_decay=0.05)
+    ctx = classification.step_context(ours, *loss_args, weight_decay=0.05)
     state = classification.init_train_state(ours, torch.Generator().manual_seed(3))
     step = classification.make_train_step(ctx)
     named = dict(state.params)
@@ -344,7 +363,7 @@ def test_forward_bound_to_the_train_state_follows_training():
     assert before.shape == (B, 2) and before.dtype == np.float32
     np.testing.assert_allclose(before, _plain_logits(ours, images), rtol=0, atol=FORWARD_ATOL)
 
-    ctx = classification.TrainContext(ours, *classification.loss_settings([40, 20]),
+    ctx = classification.step_context(ours, *classification.loss_settings([40, 20]),
                                       weight_decay=0.05)
     step = classification.make_train_step(ctx)
     lr_scale = optim.finetune_lr_scales(state.params, "full", SHAPES["depth"])

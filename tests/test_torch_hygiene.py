@@ -1,12 +1,14 @@
 """The port imports and runs (an eval forward, a pretrain step, a fine-tune
-step, a split evaluation, the standalone eval CLI's ``evaluate`` and the
-pretraining CLI for an epoch and a resume) without jax, flax, msgpack,
+step, a split evaluation, the standalone eval CLI's ``evaluate``, the
+pretraining CLI for an epoch and a resume, and the fine-tune CLI through a
+tiny exp2 flow from an MAE checkpoint) without jax, flax, msgpack,
 scikit-learn or the JAX package itself (the GPU machine lacks jax and flax),
 and imports without PyYAML and PIL (which only the
 manifest and frame readers import, where they open a file); no source of the
 port imports the forbidden ones, every ``device`` parameter defaults to the
 card, and chip_smoke.py refuses to run without CUDA."""
 
+import json
 import os
 import re
 import subprocess
@@ -31,7 +33,11 @@ for name in modules:
     importlib.import_module(name)
 assert {"ssl4polyp_tpu_torch.training.pretrain", "ssl4polyp_tpu_torch.training.hyperkvasir",
         "ssl4polyp_tpu_torch.utils.logging", "ssl4polyp_tpu_torch.utils.tb_events",
-        "ssl4polyp_tpu_torch.utils.cli", "ssl4polyp_tpu_torch.utils.determinism"} <= set(modules)
+        "ssl4polyp_tpu_torch.utils.cli", "ssl4polyp_tpu_torch.utils.determinism",
+        "ssl4polyp_tpu_torch.configs.layered", "ssl4polyp_tpu_torch.training.layout",
+        "ssl4polyp_tpu_torch.training.protocol", "ssl4polyp_tpu_torch.training.schedules",
+        "ssl4polyp_tpu_torch.metrics.threshold_store",
+        "ssl4polyp_tpu_torch.evaluation.exports"} <= set(modules)
 import chip_smoke  # noqa: F401  (main() is not run)
 
 from ssl4polyp_tpu_torch.models.factory import get_mae_backbone
@@ -66,7 +72,7 @@ clf = build_classifier(torch.Generator().manual_seed(0), {}, device="cpu", img_s
                        patch_size=8, embed_dim=128, depth=2, num_heads=4, mlp_fusion="full_ln",
                        qkv_ln_fusion=True)
 assert {(b.mlp_route, b.qkv_ln) for b in clf.model.blocks} == {("full_ln", True)}
-ctx = classification.TrainContext(clf, *classification.loss_settings([3, 1]), weight_decay=0.05)
+ctx = classification.step_context(clf, *classification.loss_settings([3, 1]), weight_decay=0.05)
 state = classification.init_train_state(clf, torch.Generator().manual_seed(2))
 scales = optim.finetune_lr_scales(state.params, "head+1", 2)
 metrics = classification.make_train_step(ctx)(
@@ -177,6 +183,52 @@ print("ok")
 """
 
 
+# The fine-tune CLI on the CPU with the JAX stack blocked (PyYAML and PIL
+# allowed: the configs and the frames need them), as ``python -m
+# ssl4polyp_tpu_torch.training.classification`` runs: exp2's SSL-colon arm at
+# a tiny width, from an MAE checkpoint the port writes where
+# config/model/ssl_colon.yaml names it.  The output stays in argv[1] for the
+# JAX guardrails.
+_FINETUNE_SCRIPT = """
+import sys
+for name in ("jax", "flax", "msgpack", "sklearn", "ssl4polyp_tpu", "torch.utils.tensorboard"):
+    sys.modules[name] = None
+
+import json, runpy
+from pathlib import Path
+import torch
+from ssl4polyp_tpu_torch.models.mae import MAE, MAEConfig
+from ssl4polyp_tpu_torch.models.vit import ViTConfig
+from ssl4polyp_tpu_torch.models.weights import jax_from_mae_state_dict
+from ssl4polyp_tpu_torch.polypdb.synth import build_synthetic_pack
+from ssl4polyp_tpu_torch.utils.checkpoint import save_checkpoint
+
+tmp = Path(sys.argv[1])
+build_synthetic_pack(tmp / "data_packs", name="sun_full", frames_per_split=8, image_size=32)
+cfg = MAEConfig(encoder=ViTConfig(img_size=32, patch_size=8, embed_dim=32, depth=2, num_heads=2),
+                decoder_embed_dim=16, decoder_depth=1, decoder_num_heads=2)
+mae = MAE(cfg, torch.Generator().manual_seed(0))
+save_checkpoint(tmp / "ckpts" / "checkpoints/pretrained/vit_b/mae_hyperkvasir.ckpt",
+                {"params": jax_from_mae_state_dict(dict(mae.named_parameters()), cfg)},
+                {"epoch": 0})
+sys.argv = ["classification", "--exp-config", "exp/exp2", "--model-key", "ssl_colon",
+            "--seed", "47", "--pack-root", str(tmp / "data_packs"),
+            "--checkpoint-root", str(tmp / "ckpts"), "--thresholds-root", str(tmp / "th"),
+            "--output-dir", str(tmp / "out"), "--device", "cpu",
+            "--override", "epochs=2", "--override", "batch_size=4",
+            "--override", "image_size=32", "--override", "num_workers=2",
+            "--model-override", "embed_dim=32", "--model-override", "depth=2",
+            "--model-override", "num_heads=2", "--model-override", "patch_size=8"]
+runpy.run_module("ssl4polyp_tpu_torch.training.classification", run_name="__main__")
+
+leaked = sorted(m for m in sys.modules
+                if (m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
@@ -194,6 +246,26 @@ def test_pretraining_cli_runs_and_resumes_with_the_jax_stack_blocked():
     result = _run(["-c", _ENGINE_SCRIPT])
     assert result.returncode == 0, result.stderr
     assert result.stdout.splitlines()[-1] == "ok"
+
+
+def test_finetune_cli_runs_an_exp2_flow_with_the_jax_stack_blocked(tmp_path):
+    from ssl4polyp_tpu.analysis.guardrails import ResultLoader
+
+    result = _run(["-c", _FINETUNE_SCRIPT, str(tmp_path)])
+    assert result.returncode == 0, result.stderr
+    lines = result.stdout.splitlines()
+    assert lines[-1] == "ok"
+    summary = json.loads(lines[-2])
+    assert summary["stem"] == "SslColon_SUNFull_s47" and summary["epochs_run"] == 2
+    assert summary["timings"]["build_s"] > 0
+    metrics_path = Path(summary["metrics_path"])
+    payload = json.loads(metrics_path.read_text())
+    assert payload["run"]["experiment"] == "exp2" and payload["provenance"]["model"] == "ssl_colon"
+    ResultLoader(exp_id="exp2", strict=True).validate(metrics_path, payload)
+    run_dir = metrics_path.parent
+    assert (run_dir / "SslColon_SUNFull_s47.config.yaml").exists()
+    assert list((tmp_path / "th").rglob("policy-f1_opt_on_val.json"))
+    assert "resumed" not in (run_dir / "SslColon_SUNFull_s47.log").read_text()
 
 
 def _forbidden_import(line: str):
