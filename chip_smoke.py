@@ -162,6 +162,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 import torch
@@ -192,6 +193,7 @@ from ssl4polyp_tpu_torch.training.classification import (
     make_train_step,
     step_context,
 )
+from ssl4polyp_tpu_torch.data import augment
 from ssl4polyp_tpu_torch.data.augment import draw_augment_params, normalize_batch
 from ssl4polyp_tpu_torch.training.pretrain import loss_and_grads as pretrain_loss_and_grads
 from ssl4polyp_tpu_torch.training.pretrain import (
@@ -1775,6 +1777,80 @@ def phase_pretrain_engine() -> dict[str, int]:
     return {name: counts[name] + chain_counts[name] for name in counts}
 
 
+def one_scatter_blur_matrices(kernels: torch.Tensor, size: int) -> torch.Tensor:
+    """The blur's matrices as ``data/augment.py`` first built them: one
+    ``scatter_add_`` of every tap, whose clamped edge taps CUDA sums by
+    atomics in no fixed order (F8).  For timing only."""
+    batch, taps = kernels.shape
+    offsets = torch.arange(taps, device=kernels.device) - taps // 2
+    columns = torch.clamp(torch.arange(size, device=kernels.device)[:, None] + offsets, 0, size - 1)
+    matrices = torch.zeros((batch, size, size), dtype=kernels.dtype, device=kernels.device)
+    return matrices.scatter_add_(2, columns.expand(batch, size, taps),
+                                 kernels[:, None, :].expand(batch, size, taps))
+
+
+def tap_scatter_blur_matrices(kernels: torch.Tensor, size: int) -> torch.Tensor:
+    """F8's first repair: one ``scatter_add_`` a tap, in tap order, so that no
+    two additions of one launch meet.  The reference and the timing of the
+    segmented sum that replaced it."""
+    batch, taps = kernels.shape
+    offsets = torch.arange(taps, device=kernels.device) - taps // 2
+    columns = torch.clamp(torch.arange(size, device=kernels.device)[:, None] + offsets, 0, size - 1)
+    matrices = torch.zeros((batch, size, size), dtype=kernels.dtype, device=kernels.device)
+    for t in range(taps):
+        matrices.scatter_add_(2, columns[None, :, t:t + 1].expand(batch, size, 1),
+                              kernels[:, None, t:t + 1].expand(batch, size, 1))
+    return matrices
+
+
+def blur_cost(rate, state) -> None:
+    """The blur's matrices on the card: the segmented sum bit-stable over
+    repeated calls and against one scatter a tap; each of the three builders
+    of one 224 axis on the host clock (200 calls, then one synchronisation)
+    and in device time; and the fine-tune step's images/s with each,
+    interleaved A B C C B A twice."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    sigma = torch.rand(BATCH, device="cuda", generator=gen) * 2.0 + 1e-3
+    positions = torch.arange(25, dtype=torch.float32, device="cuda") - 12.0
+    kernels = torch.exp(-0.5 * torch.square(positions[None, :] / sigma[:, None]))
+    kernels = kernels / kernels.sum(dim=1, keepdim=True)  # the step's taps
+    first = augment._blur_matrices(kernels, 224)
+    taps_ref = tap_scatter_blur_matrices(kernels, 224)
+    for i in range(20):
+        filler = torch.rand(i + 1, 2**20, device="cuda")  # moves the allocator's blocks
+        if not torch.equal(augment._blur_matrices(kernels, 224), first):
+            fail(f"the blur's segmented sum changed its bits on call {i + 2}")
+        del filler
+    err = (first - taps_ref).abs().max().item()
+    if err > 1e-6:
+        fail(f"the blur's segmented sum differs from one scatter a tap by {err}")
+    print(f"fine-tune [fc1]: the blur's segmented sum kept its bits over 21 calls; against one "
+          f"scatter a tap {'bit-equal' if torch.equal(first, taps_ref) else f'max |diff| {err:.3e}'}")
+    builders = {"segmented sum": augment._blur_matrices,
+                "one scatter a tap": tap_scatter_blur_matrices,
+                "one scatter (before F8)": one_scatter_blur_matrices}
+    for name, build in builders.items():
+        def one_axis():
+            build(kernels, 224)
+        one_axis()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(200):
+            one_axis()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - start) * 1e3 / 200
+        print(f"fine-tune [fc1]: the blur's matrices for one axis of 224, batch {BATCH}, {name}: "
+              f"host {host_ms:.4f} ms, device {time_ms(one_axis):.4f} ms; {CARD}")
+    samples: dict[str, list[float]] = {name: [] for name in builders}
+    order = list(builders) + list(builders)[::-1]
+    for name in order + order:
+        with mock.patch.object(augment, "_blur_matrices", builders[name]):
+            samples[name] += rate(state)
+    for name, values in samples.items():
+        print(f"fine-tune [fc1] ViT-B/16, batch {BATCH}, the blur's matrices by {name}: images/s "
+              f"over {len(values)} repeats of {REPEAT_CALLS} steps, {spread(values)}; {CARD}")
+
+
 def phase_finetune() -> dict[str, int]:
     """The classifier's fine-tune step under each kernel configuration."""
     rng = np.random.default_rng(SEED)
@@ -1882,6 +1958,8 @@ def phase_finetune() -> dict[str, int]:
         del before
 
         kernel_rate = rate(state)
+        if label == "fc1":
+            blur_cost(rate, state)
         del state, classifier
         _, plain_state = fresh_state()
         ops.reset_launch_counts()
@@ -2114,7 +2192,6 @@ def phase_finetune_engine() -> dict[str, int]:
     run A' the same, bit for bit, run B resumed in a copy of A's output, and
     the eval CLI on A's best checkpoint against A's test."""
     import shutil
-    from unittest import mock
 
     from ssl4polyp_tpu_torch.models.mae import MAE_VIT_B16, encoder_only
     from ssl4polyp_tpu_torch.models.weights import state_dict_from_jax
@@ -2132,10 +2209,14 @@ def phase_finetune_engine() -> dict[str, int]:
         return {name: steps * per_step.get(name, 0) + eval_batches * per_eval.get(name, 0)
                 for name in ops.launch_counts()}
 
-    # What the first step of the next run must see, and what it saw.
+    # What the first step of the next run must see, and what it saw.  Runs A
+    # and B time each step between two synchronisations, which take the
+    # overlap of the host's launches with the card's work away; run A' does
+    # not, so that its train loop runs as a user's does.
     expect: dict[str, dict] = {}
     starts: list[list[str]] = []
     step_seconds: list[float] = []
+    sync_steps = [True]
     make_step = engine.make_train_step
 
     def timed_make_step(ctx):
@@ -2154,6 +2235,8 @@ def phase_finetune_engine() -> dict[str, int]:
                 if "step" in expect and state.opt.step != expect["step"]:
                     wrong.append(f"step {state.opt.step}")
                 starts.append(wrong)
+            if not sync_steps[0]:
+                return step(state, *args)
             torch.cuda.synchronize()
             start = time.perf_counter()
             out = step(state, *args)
@@ -2203,7 +2286,8 @@ def phase_finetune_engine() -> dict[str, int]:
             if starts[-1]:
                 fail(f"fine-tune engine run {name}: before step 1 the state differs from what "
                      f"it starts from in {starts[-1][:8]}")
-            walls[name] = (wall, sum(step_seconds[steps_before:]), steps, summary["timings"])
+            in_steps = sum(step_seconds[steps_before:]) if sync_steps[0] else None
+            walls[name] = (wall, in_steps, steps, summary["timings"])
             return summary | {"counts": counts}
 
         def run_dir(out: str) -> Path:
@@ -2217,7 +2301,9 @@ def phase_finetune_engine() -> dict[str, int]:
         expect.clear()
         expect["params"] = encoder
         summary_a = run("A", argv("A", FT_ENGINE_EPOCHS), n_steps, n_evals)
+        sync_steps[0] = False
         summary_a2 = run("A'", argv("A2", FT_ENGINE_EPOCHS), n_steps, n_evals)
+        sync_steps[0] = True
         a_dir = run_dir("A")
         payload = summary_a["payload"]
         # The engine reads every step's loss back and raises on a non-finite one.
@@ -2313,14 +2399,20 @@ def phase_finetune_engine() -> dict[str, int]:
     for name, (wall, in_steps, steps, timings) in walls.items():
         saves = ", ".join(f"{path} {snapshot:.3f} + {write:.3f} s"
                           for path, snapshot, write in timings["saves"])
-        outside = wall - in_steps
         rest = wall - timings["build_s"] - timings["train_s"] - sum(
             timings[k] for k in ("val_s", "test_s", "reload_s", "export_s")) - sum(
             snapshot + write for _, snapshot, write in timings["saves"])
-        print(f"fine-tune engine run {name}: {wall:.2f} s wall; {steps} steps in {in_steps:.2f} s "
-              f"(synchronised; {steps * BATCH / in_steps:.1f} images/s); outside the steps "
-              f"{outside:.2f} s: model build with the MAE read {timings['build_s']:.2f} s, "
-              f"epoch loops beyond the steps {timings['train_s'] - in_steps:.2f} s, val "
+        loop = (f"train loop {timings['train_s']:.2f} s for {timings['train_images']} images "
+                f"({timings['train_images'] / timings['train_s']:.1f} images/s")
+        if in_steps is None:
+            loop += ", no synchronisation beyond the engine's own)"
+        else:
+            loop += (f" with a synchronisation on each side of every step; the {steps} steps "
+                     f"inside them {in_steps:.2f} s, the loop beyond them "
+                     f"{timings['train_s'] - in_steps:.2f} s)")
+        print(f"fine-tune engine run {name}: {wall:.2f} s wall; {loop}; outside the train loop "
+              f"{wall - timings['train_s']:.2f} s: model build with the MAE read "
+              f"{timings['build_s']:.2f} s, val "
               f"{timings['val_s']:.2f} s, test {timings['test_s']:.2f} s, best reload "
               f"{timings['reload_s']:.2f} s, exports {timings['export_s']:.3f} s, saves (host "
               f"snapshot + write) [{saves}], the rest (configs, logger, thresholds) "

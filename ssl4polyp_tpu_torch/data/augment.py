@@ -138,19 +138,22 @@ def _blur_matrices(kernels: torch.Tensor, size: int) -> torch.Tensor:
     axis of ``size`` with edge padding: row i holds tap t at column
     clamp(i + t - taps // 2), taps that clamp to one column summed.
 
-    One scatter a tap, in tap order: within one, every row adds to one
-    column, so no two additions meet.  A single scatter of all taps would
-    meet at the clamped edge columns, which CUDA's ``scatter_add_`` sums
-    with atomics in no fixed order, so the same draw would blur to other
-    bits from run to run."""
+    A row's taps reach its columns in tap order, so each entry is the sum of
+    one run of consecutive taps: a segmented sum, which adds a segment's
+    values in order on either device.  A scatter of every tap would meet at
+    the clamped edge columns, which CUDA's ``scatter_add_`` sums with atomics
+    in no fixed order, so the same draw would blur to other bits from run to
+    run."""
     batch, taps = kernels.shape
     offsets = torch.arange(taps, device=kernels.device) - taps // 2
     columns = torch.clamp(torch.arange(size, device=kernels.device)[:, None] + offsets, 0, size - 1)
-    matrices = torch.zeros((batch, size, size), dtype=kernels.dtype, device=kernels.device)
-    for t in range(taps):
-        matrices.scatter_add_(2, columns[None, :, t:t + 1].expand(batch, size, 1),
-                              kernels[:, None, t:t + 1].expand(batch, size, 1))
-    return matrices
+    # The taps each entry takes: integer counts, exact in any order of addition.
+    lengths = torch.zeros((size, size), dtype=torch.int64, device=kernels.device)
+    lengths.scatter_add_(1, columns, torch.ones_like(columns))
+    sums = torch.segment_reduce(
+        kernels[:, None, :].expand(batch, size, taps).reshape(batch, size * taps), "sum",
+        lengths=lengths.reshape(1, size * size).expand(batch, size * size), axis=1, unsafe=True)
+    return sums.reshape(batch, size, size)
 
 
 def _separable_blur(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
@@ -163,9 +166,11 @@ def _separable_blur(x: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
     kernels = torch.exp(-0.5 * torch.square(positions[None, :] / sigma.float()[:, None]))
     kernels = kernels / kernels.sum(dim=1, keepdim=True)
     B, H, W, C = x.shape
-    x = torch.matmul(_blur_matrices(kernels, H), x.reshape(B, H, W * C)).reshape(B, H, W, C)
+    along_h = _blur_matrices(kernels, H)
+    along_w = along_h if W == H else _blur_matrices(kernels, W)
+    x = torch.matmul(along_h, x.reshape(B, H, W * C)).reshape(B, H, W, C)
     x = x.transpose(1, 2).reshape(B, W, H * C)
-    return torch.matmul(_blur_matrices(kernels, W), x).reshape(B, W, H, C).transpose(1, 2)
+    return torch.matmul(along_w, x).reshape(B, W, H, C).transpose(1, 2)
 
 
 def _rotate_bilinear(x: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:

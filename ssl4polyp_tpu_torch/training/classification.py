@@ -1317,9 +1317,7 @@ def cli_main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     (the card unless ``--device cpu`` is given).  Prints the summary without
     its payload, as the JAX CLI does, and returns it; ``timings`` gains
     ``build_s``, the seconds of :func:`build_run` (datasets and model, the
-    MAE checkpoint's read among them).  ``--model-override key=value``
-    passes ``build_run``'s ``model_overrides`` (a smaller model for a smoke
-    run on the CPU), which the JAX CLI takes only in process."""
+    MAE checkpoint's read among them)."""
     import argparse
 
     from .protocol import resolve_run_plan
@@ -1349,11 +1347,6 @@ def cli_main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     parser.add_argument("--max-train-steps", type=int, default=None)
     parser.add_argument("--device", default="cuda",
                         help="where the model runs; the kernels need a CUDA device")
-    parser.add_argument(
-        "--model-override", action="append", default=[],
-        help="model config override key=value (e.g. embed_dim=32 depth=2 for a smoke "
-             "run on the CPU): build_run's model_overrides",
-    )
     args = parser.parse_args(argv)
 
     cfg = load_layered_config(args.exp_config)
@@ -1364,21 +1357,17 @@ def cli_main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         value = getattr(args, limit_key)
         if value is not None:
             overrides[limit_key] = int(value)
-    def parse(raw: str) -> Any:
-        try:
-            return json.loads(raw)
-        except json.JSONDecodeError:
-            return raw
-
     for item in args.override:
         key, _, raw = item.partition("=")
         node = overrides
         parts = key.split(".")
         for part in parts[:-1]:
             node = node.setdefault(part, {})
-        node[parts[-1]] = parse(raw)
-    model_overrides = {key: parse(raw) for key, _, raw in
-                       (item.partition("=") for item in args.model_override)}
+        try:
+            value: Any = json.loads(raw)
+        except json.JSONDecodeError:
+            value = raw
+        node[parts[-1]] = value
 
     plan = resolve_run_plan(
         cfg,
@@ -1396,7 +1385,6 @@ def cli_main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         pack_root=Path(args.pack_root) if args.pack_root else None,
         checkpoint_root=Path(args.checkpoint_root) if args.checkpoint_root else None,
         exp_config_name=args.exp_config,
-        model_overrides=model_overrides or None,
     )
     build_s = time.perf_counter() - start
     thresholds_root = Path(args.thresholds_root) if args.thresholds_root else None

@@ -229,14 +229,10 @@ def make_pretrain_step(
     return step
 
 
-# The seed of one step's masking noise.
-_noise_seed = step_seed
-
-
 def _step_noise(seed: int, epoch: int, step: int, shape, device: torch.device) -> torch.Tensor:
     """One step's masking noise, uniform in [0, 1), from its own generator."""
     gen = torch.Generator(device=device)
-    gen.manual_seed(_noise_seed(seed, epoch, step))
+    gen.manual_seed(step_seed(seed, epoch, step))
     return torch.rand(shape, generator=gen, device=device)
 
 

@@ -15,7 +15,7 @@ copy agree bit for bit with cuDNN, cuBLAS and torch's deterministic mode left
 as they are.  The port's kernels use no float atomics, its matrix products
 go to cuBLAS on one stream, the masking's ``torch.gather`` backward scatters
 a permutation, one value a destination, and the augmentation's blur builds
-its matrices with one collision-free scatter a tap
+its matrices as a segmented sum, each segment added in order
 (``data/augment.py::_blur_matrices``).  So :func:`set_determinism` sets no
 CUDA flag.
 """

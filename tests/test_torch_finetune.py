@@ -94,7 +94,7 @@ def test_apply_augment_matches_the_jax_chain(seed):
 
 
 def test_blur_matrices_sum_the_clamped_taps_in_tap_order():
-    # One scatter a tap gives the bits of one scatter of every tap on the
+    # The segmented sum gives the bits of one scatter of every tap on the
     # CPU (each edge column sums its clamped taps in tap order), without the
     # colliding additions that CUDA's scatter_add_ orders by atomics.
     from ssl4polyp_tpu_torch.data.augment import _blur_matrices

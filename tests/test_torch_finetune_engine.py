@@ -384,18 +384,21 @@ def test_exp5b_perturbation_eval(port_run, packs, tmp_path):
     assert any(t.startswith("blur") for t in per_tag)
     assert "per_case" in payload["test_perturbations"]
     assert payload["thresholds"]["primary"]["tau"] == pytest.approx(parent_summary["tau"])
-    # The JAX engine writes the frozen sensitivity record and test block that
+    # Both engines write the frozen sensitivity record and test block that
     # exp5b asks for, and the JAX guardrails' exp5b spec has no sensitivity
-    # entry: the port's payload fails strict validation on those two alone,
-    # as the JAX engine's does.
-    path = Path(summary["metrics_path"])
-    with pytest.raises(GuardrailViolation, match="unexpected thresholds.sensitivity"):
+    # entry: each payload fails strict validation on those two alone.
+    _, jax_summary = run_jax(cfg, packs, tmp_path / "jax",
+                             parent=str(parent_ctx.layout.checkpoint_path))
+    for summary in (summary, jax_summary):
+        path = Path(summary["metrics_path"])
+        payload = json.loads(path.read_text())
+        with pytest.raises(GuardrailViolation, match="unexpected thresholds.sensitivity"):
+            ResultLoader(exp_id="exp5b", strict=True).validate(path, payload)
+        payload["thresholds"].pop("sensitivity")
+        with pytest.raises(GuardrailViolation, match="unexpected test_sensitivity block"):
+            ResultLoader(exp_id="exp5b", strict=True).validate(path, payload)
+        payload.pop("test_sensitivity")
         ResultLoader(exp_id="exp5b", strict=True).validate(path, payload)
-    payload["thresholds"].pop("sensitivity")
-    with pytest.raises(GuardrailViolation, match="unexpected test_sensitivity block"):
-        ResultLoader(exp_id="exp5b", strict=True).validate(path, payload)
-    payload.pop("test_sensitivity")
-    ResultLoader(exp_id="exp5b", strict=True).validate(path, payload)
 
 
 def test_exp3_morphology_strata(packs, tmp_path):

@@ -197,6 +197,7 @@ for name in ("jax", "flax", "msgpack", "sklearn", "ssl4polyp_tpu", "torch.utils.
 import json, runpy
 from pathlib import Path
 import torch
+from ssl4polyp_tpu_torch.models import factory
 from ssl4polyp_tpu_torch.models.mae import MAE, MAEConfig
 from ssl4polyp_tpu_torch.models.vit import ViTConfig
 from ssl4polyp_tpu_torch.models.weights import jax_from_mae_state_dict
@@ -211,14 +212,17 @@ mae = MAE(cfg, torch.Generator().manual_seed(0))
 save_checkpoint(tmp / "ckpts" / "checkpoints/pretrained/vit_b/mae_hyperkvasir.ckpt",
                 {"params": jax_from_mae_state_dict(dict(mae.named_parameters()), cfg)},
                 {"epoch": 0})
+# The CLI has no width flag: the fresh module that runpy executes imports
+# build_classifier by name, so a tiny width goes in through the factory.
+build_classifier = factory.build_classifier
+factory.build_classifier = lambda *a, **kw: build_classifier(
+    *a, **{**kw, "embed_dim": 32, "depth": 2, "num_heads": 2, "patch_size": 8})
 sys.argv = ["classification", "--exp-config", "exp/exp2", "--model-key", "ssl_colon",
             "--seed", "47", "--pack-root", str(tmp / "data_packs"),
             "--checkpoint-root", str(tmp / "ckpts"), "--thresholds-root", str(tmp / "th"),
             "--output-dir", str(tmp / "out"), "--device", "cpu",
             "--override", "epochs=2", "--override", "batch_size=4",
-            "--override", "image_size=32", "--override", "num_workers=2",
-            "--model-override", "embed_dim=32", "--model-override", "depth=2",
-            "--model-override", "num_heads=2", "--model-override", "patch_size=8"]
+            "--override", "image_size=32", "--override", "num_workers=2"]
 runpy.run_module("ssl4polyp_tpu_torch.training.classification", run_name="__main__")
 
 leaked = sorted(m for m in sys.modules

@@ -27,6 +27,7 @@ from ssl4polyp_tpu_torch.models.vit import ViTConfig
 from ssl4polyp_tpu_torch.models.weights import mae_state_dict_from_jax
 from ssl4polyp_tpu_torch.training import pretrain
 from ssl4polyp_tpu_torch.training.schedules import warmup_cosine
+from ssl4polyp_tpu_torch.utils.determinism import step_seed
 
 ENCODER = dict(img_size=32, patch_size=8, embed_dim=32, depth=2, num_heads=2)
 DECODER = dict(decoder_embed_dim=16, decoder_depth=1, decoder_num_heads=2, mask_ratio=0.75)
@@ -211,10 +212,10 @@ def test_noise_seed_is_distinct_across_epochs_and_steps(seed):
     for step in (0, 5):
         a = (seed, 0, step + 7_919)
         b = (seed, 1, step)
-        assert pretrain._noise_seed(*a) != pretrain._noise_seed(*b)
+        assert step_seed(*a) != step_seed(*b)
         assert not torch.equal(pretrain._step_noise(*a, (2, 49), cpu),
                                pretrain._step_noise(*b, (2, 49), cpu))
-    seeds = {pretrain._noise_seed(seed, e, s) for e in range(4) for s in range(0, 40_000, 7_919)}
+    seeds = {step_seed(seed, e, s) for e in range(4) for s in range(0, 40_000, 7_919)}
     assert len(seeds) == 4 * len(range(0, 40_000, 7_919))
     assert all(0 <= v < 2 ** 63 for v in seeds)
     # The same triple gives the same noise: a run and its rerun draw alike.
