@@ -2,7 +2,8 @@
 """Drive the PyTorch port's eval forward, MAE pretrain step and pretraining
 engine, classifier fine-tune step (with and without ``BENCH_ATTN_PROJ=1``),
 its two attention functions of ``ops`` that no model route calls, its
-standalone eval CLI and its fine-tune engine on one NVIDIA GPU.
+standalone eval CLI, its fine-tune engine, exp1's two arms from their
+weight files and the dense model on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -144,6 +145,21 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    Prints each run's wall time, its steps' time and images/s, and the time
    outside the steps (model build with the MAE read, validation, test,
    reload, exports, each save), beside the card's name and power limit.
+9. exp1's arms from their weight files and the dense model, on phase 8's
+   pack: an upstream-layout MAE ``.pth`` (``torch.save`` of the encoder and
+   decoder under timm's MAE names with an ``argparse.Namespace`` as
+   ``args``) and a big_vision AugReg ``.npz`` (a 1000-way head), numpy-seeded,
+   where ``config/model/ssl_imnet.yaml`` and ``sup_imnet.yaml`` name them
+   under a temporary ``--checkpoint-root``.  ``cli_main`` runs
+   ``config/exp/exp1.yaml``'s ``sup_imnet`` and ``ssl_imnet`` arms for one
+   epoch of 3 steps of 64: the factory builds that scheme, the masters
+   before step 1 equal the file's tensors bit for bit, the launch counts
+   are exact, and the eval CLI on the run's best checkpoint gives its test
+   metrics within 1e-6.  Then the dense classifier (``dense_readout:
+   project``) from the ``.pth``: 32 images through its kernels (the tap
+   path's 12 attention, 24 LayerNorm and 12 fc1+GELU launches) to (32, 112,
+   112, 2) fp32 logits, against the same model with every kernel plain on
+   the card (which launches none), with the forward's median time.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -1284,6 +1300,64 @@ def jax_layout_mae_tree(cfg: MAEConfig, rng: np.random.Generator) -> dict:
     }
 
 
+def write_mae_pth(path: Path, cfg: MAEConfig, rng: np.random.Generator) -> dict:
+    """An MAE checkpoint in the upstream layout: ``torch.save`` of
+    ``{"model": <encoder and decoder under timm's MAE names>, "args":
+    argparse.Namespace(...), "epoch": ...}``, the weights a numpy-seeded
+    JAX-layout tree (:func:`jax_layout_mae_tree`), which is returned."""
+    tree = jax_layout_mae_tree(cfg, rng)
+    args = argparse.Namespace(model="mae_vit_base_patch16", mask_ratio=0.75, norm_pix_loss=True,
+                              epochs=800, batch_size=64, blr=1.5e-4, weight_decay=0.05)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({"model": mae_state_dict_from_jax(tree, cfg), "args": args, "epoch": 799}, path)
+    return tree
+
+
+def write_augreg_npz(path: Path, cfg: ViTConfig, rng: np.random.Generator,
+                     head_classes: int = 1000) -> dict:
+    """A big_vision AugReg export: the encoder of a numpy-seeded JAX-layout
+    tree (:func:`jax_layout_tree`, returned without its head) under
+    big_vision's keys (q, k, v kernels (D, heads, hd), the output kernel
+    (heads, hd, D), the patch kernel (P, P, C, D)), with a
+    ``head_classes``-way head as the ImageNet-1k file has."""
+    D, heads = cfg.embed_dim, cfg.num_heads
+    hd = D // heads
+    tree = jax_layout_tree(cfg, rng)
+    head = _linear(rng, D, head_classes)
+    tree.pop("head")
+    p = cfg.patch_size
+    arrays = {
+        "embedding/kernel": tree["patch_embed"]["kernel"].reshape(p, p, cfg.in_chans, D),
+        "embedding/bias": tree["patch_embed"]["bias"],
+        "cls": tree["cls_token"],
+        "Transformer/posembed_input/pos_embedding": tree["pos_embed"],
+        "Transformer/encoder_norm/scale": tree["norm"]["scale"],
+        "Transformer/encoder_norm/bias": tree["norm"]["bias"],
+        "head/kernel": head["kernel"],
+        "head/bias": head["bias"],
+    }
+    blocks = tree["blocks"]
+    for i in range(cfg.depth):
+        base = f"Transformer/encoderblock_{i}"
+        attn = f"{base}/MultiHeadDotProductAttention_1"
+        qkv = blocks["attn"]["qkv"]
+        for j, name in enumerate(("query", "key", "value")):
+            arrays[f"{attn}/{name}/kernel"] = qkv["kernel"][i][:, j * D:(j + 1) * D].reshape(
+                D, heads, hd)
+            arrays[f"{attn}/{name}/bias"] = qkv["bias"][i][j * D:(j + 1) * D].reshape(heads, hd)
+        arrays[f"{attn}/out/kernel"] = blocks["attn"]["proj"]["kernel"][i].reshape(heads, hd, D)
+        arrays[f"{attn}/out/bias"] = blocks["attn"]["proj"]["bias"][i]
+        for norm, key in (("LayerNorm_0", "ln1"), ("LayerNorm_2", "ln2")):
+            arrays[f"{base}/{norm}/scale"] = blocks[key]["scale"][i]
+            arrays[f"{base}/{norm}/bias"] = blocks[key]["bias"][i]
+        for dense, key in (("Dense_0", "fc1"), ("Dense_1", "fc2")):
+            arrays[f"{base}/MlpBlock_3/{dense}/kernel"] = blocks["mlp"][key]["kernel"][i]
+            arrays[f"{base}/MlpBlock_3/{dense}/bias"] = blocks["mlp"][key]["bias"][i]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **arrays)
+    return tree
+
+
 def check_counts(counts: dict[str, int], per_call: dict[str, int], calls: int, what: str) -> None:
     """Exactly ``calls`` times ``per_call`` launches of each kernel named
     there, and none of the others."""
@@ -2186,11 +2260,24 @@ FT_ENGINE_EPOCHS = 3
 FT_ENGINE_LIMIT = {"train": 4, "val": 2, "test": 2}  # batches of 64 a split
 
 
-def phase_finetune_engine() -> dict[str, int]:
+def write_engine_pack(root: Path) -> Path:
+    """The synthetic sun_full pack of 224 px JPEG frames that the engine
+    phases train and test on, under ``root / "data_packs"``."""
+    start = time.perf_counter()
+    packs = root / "data_packs"
+    build_synthetic_pack(packs, name="sun_full", frames_per_split=FT_ENGINE_FRAMES,
+                         image_size=224, seed=SEED)
+    print(f"wrote a sun_full pack of {FT_ENGINE_FRAMES} JPEG frames of 224 px in "
+          f"{time.perf_counter() - start:.1f} s")
+    return packs
+
+
+def phase_finetune_engine(packs: Path) -> dict[str, int]:
     """The fine-tune engine at full width through ``cli_main`` with
-    ``config/exp/exp2.yaml``'s SSL-colon arm: run A from an MAE checkpoint,
-    run A' the same, bit for bit, run B resumed in a copy of A's output, and
-    the eval CLI on A's best checkpoint against A's test."""
+    ``config/exp/exp2.yaml``'s SSL-colon arm on the pack at ``packs``: run A
+    from an MAE checkpoint, run A' the same, bit for bit, run B resumed in a
+    copy of A's output, and the eval CLI on A's best checkpoint against A's
+    test."""
     import shutil
 
     from ssl4polyp_tpu_torch.models.mae import MAE_VIT_B16, encoder_only
@@ -2248,17 +2335,15 @@ def phase_finetune_engine() -> dict[str, int]:
     with tempfile.TemporaryDirectory() as tmp, projection_fold(False), \
             mock.patch.object(engine, "make_train_step", timed_make_step):
         tmp = Path(tmp)
-        packs, root = tmp / "data_packs", tmp / "checkpoint_root"
+        root = tmp / "checkpoint_root"
         start = time.perf_counter()
-        build_synthetic_pack(packs, name="sun_full", frames_per_split=FT_ENGINE_FRAMES,
-                             image_size=224, seed=SEED)
         mae_tree = jax_layout_mae_tree(MAE_VIT_B16, np.random.default_rng(SEED))
         mae_path = save_checkpoint(
             root / "checkpoints/pretrained/vit_b/mae_hyperkvasir.ckpt", {"params": mae_tree},
             {"epoch": 399, "model": "mae_vit_base_patch16"})
-        print(f"fine-tune engine: wrote a sun_full pack of {FT_ENGINE_FRAMES} JPEG frames of 224 "
-              f"px and a {mae_path.stat().st_size / 2**20:.0f} MiB MAE checkpoint at "
-              f"config/model/ssl_colon.yaml's path in {time.perf_counter() - start:.1f} s")
+        print(f"fine-tune engine: wrote a {mae_path.stat().st_size / 2**20:.0f} MiB MAE "
+              f"checkpoint at config/model/ssl_colon.yaml's path in "
+              f"{time.perf_counter() - start:.1f} s")
         encoder = state_dict_from_jax(encoder_only(mae_tree), cfg)
 
         def argv(out: str, epochs: int) -> list[str]:
@@ -2424,6 +2509,215 @@ def phase_finetune_engine() -> dict[str, int]:
     return total
 
 
+WF_LIMIT = {"train": 3, "val": 1, "test": 2}  # batches of 64, one epoch
+DENSE_BATCH = 32
+# The dense model's logits through the kernels against its plain forward on
+# the card, both bf16: the encoder's kernels round where the plain versions
+# round differently, and the decoder's 14 convs carry that through.  (atol
+# as a fraction of max|plain|, rtol.)
+DENSE_LOGITS_TOL = (5e-2, 5e-2)
+
+
+def phase_weight_files(packs: Path) -> dict[str, int]:
+    """exp1's two arms from the weight files their model configs name, and
+    the dense model, at full width (ViT-B/16, 224 px).
+
+    (a) An upstream-layout MAE ``.pth`` and a big_vision AugReg ``.npz``,
+    written from numpy seeds under a temporary ``--checkpoint-root`` at the
+    paths of ``config/model/ssl_imnet.yaml`` and ``sup_imnet.yaml``.  (b)
+    ``cli_main`` on ``config/exp/exp1.yaml``'s ``sup_imnet`` and
+    ``ssl_imnet`` arms on the card: the scheme the factory built, the
+    masters before step 1 equal to the file's tensors bit for bit, exact
+    launch counts (the step's kernels and the eval forward's), and the eval
+    CLI on the run's best checkpoint within 1e-6 of the run's test.  (c) The
+    dense classifier (``dense_readout: project``) from the ``.pth``: a batch
+    of 32 through its kernels (the tap path's attention, LayerNorm and
+    fc1+GELU) against the same model with every kernel plain, and the
+    forward's median time."""
+    from ssl4polyp_tpu_torch.models.factory import DenseClassifier, build_classifier
+    from ssl4polyp_tpu_torch.models.mae import MAE_VIT_B16, encoder_only
+    from ssl4polyp_tpu_torch.models.weights import state_dict_from_jax
+    from ssl4polyp_tpu_torch.training import classification as engine
+
+    cfg = ViTConfig(num_classes=2)
+    depth = cfg.depth
+    per_step = {"fused_qkv_attention": depth, "fused_qkv_attention_backward": depth,
+                "layernorm": 2 * depth + 1, "layernorm_backward": 2 * depth + 1,
+                "fc1_gelu": depth, "adamw": 3}
+    per_eval = {"fused_qkv_attention": depth, "layernorm": 2 * depth + 1, "fc1_gelu": depth}
+    models = {name: config_model(name) for name in ("sup_imnet", "ssl_imnet")}
+    built: list = []
+    first_masters: list[dict] = []
+    make_step, build = engine.make_train_step, engine.build_classifier
+
+    def recording_build(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    def recording_make_step(ctx):
+        step = make_step(ctx)
+
+        def first(state, *args):
+            if len(first_masters) < len(built):
+                first_masters.append({n: t.clone() for n, t in state.params.items()})
+            return step(state, *args)
+        return first
+
+    total: dict[str, int] = {}
+
+    def add(counts: dict[str, int]) -> None:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp, projection_fold(False), \
+            mock.patch.object(engine, "make_train_step", recording_make_step), \
+            mock.patch.object(engine, "build_classifier", recording_build):
+        tmp = Path(tmp)
+        root = tmp / "checkpoint_root"
+        start = time.perf_counter()
+        encoders = {
+            "ssl_imnet": encoder_only(write_mae_pth(root / models["ssl_imnet"]["checkpoint"],
+                                                    MAE_VIT_B16, np.random.default_rng(SEED))),
+            "sup_imnet": write_augreg_npz(root / models["sup_imnet"]["checkpoint"], cfg,
+                                          np.random.default_rng(SEED + 1)),
+        }
+        sizes = {name: (root / m["checkpoint"]).stat().st_size / 2**20 for name, m in models.items()}
+        print(f"weight files: wrote an MAE .pth ({sizes['ssl_imnet']:.0f} MiB, encoder and "
+              f"decoder under timm's MAE names, an argparse.Namespace as args) and an AugReg "
+              f".npz ({sizes['sup_imnet']:.0f} MiB, big_vision keys, a 1000-way head) in "
+              f"{time.perf_counter() - start:.1f} s")
+
+        for arm in ("sup_imnet", "ssl_imnet"):
+            out = tmp / arm
+            ops.reset_launch_counts()
+            start = time.perf_counter()
+            summary = engine.cli_main([
+                "--exp-config", "config/exp/exp1.yaml", "--model-key", arm, "--seed", "13",
+                "--pack-root", str(packs), "--checkpoint-root", str(root),
+                "--thresholds-root", str(tmp / f"th_{arm}"), "--output-dir", str(out),
+                "--device", "cuda", "--override", "epochs=1",
+                "--override", f"batch_size={BATCH}",
+                "--limit-train-batches", str(WF_LIMIT["train"]),
+                "--limit-val-batches", str(WF_LIMIT["val"]),
+                "--limit-test-batches", str(WF_LIMIT["test"])])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - start
+            counts = ops.launch_counts()
+            add(counts)
+            evals = WF_LIMIT["val"] + WF_LIMIT["test"]
+            check_counts(counts, {name: WF_LIMIT["train"] * per_step.get(name, 0)
+                                  + evals * per_eval.get(name, 0) for name in counts}, 1,
+                         f"exp1 {arm}: {WF_LIMIT['train']} steps and {evals} eval batches")
+            classifier = built[-1]
+            if classifier.scheme != arm or len(first_masters) != len(built):
+                fail(f"exp1 {arm}: the factory built scheme {classifier.scheme!r}; "
+                     f"{len(first_masters)} first steps seen for {len(built)} builds")
+            want = state_dict_from_jax(encoders[arm], classifier.cfg)
+            masters = first_masters[-1]
+            wrong = [n for n, t in want.items() if not torch.equal(masters[n].cpu(), t)]
+            if wrong or set(masters) - set(want) != {"head.weight", "head.bias"}:
+                fail(f"exp1 {arm}: before step 1 the masters differ from the file's tensors in "
+                     f"{wrong[:8]}, or hold {sorted(set(masters) - set(want))} beyond them")
+            payload = summary["payload"]
+            if summary["epochs_run"] != 1 or not np.isfinite(payload["train_loss"]):
+                fail(f"exp1 {arm}: {summary['epochs_run']} epochs, loss {payload['train_loss']}")
+            best = (Path(summary["metrics_path"]).parent / f"{summary['stem']}.ckpt").resolve()
+            printed = io.StringIO()
+            ops.reset_launch_counts()
+            with contextlib.redirect_stdout(printed):
+                eval_classification.cli_main([
+                    "--checkpoint", str(best), "--test-pack", "sun_full", "--pack-root",
+                    str(packs), "--batch-size", str(BATCH), "--output-dir", str(tmp / f"ev_{arm}")])
+            cli_counts = ops.launch_counts()
+            add(cli_counts)
+            check_counts(cli_counts, per_eval, WF_LIMIT["test"],
+                         f"the eval CLI on exp1 {arm}'s best checkpoint")
+            cli = json.loads(printed.getvalue())
+            test_block = payload["test_primary"]
+            shared = sorted(k for k, v in test_block.items()
+                            if isinstance(v, (int, float)) and isinstance(cli.get(k), (int, float)))
+            off = {k: (cli[k], test_block[k]) for k in shared
+                   if not abs(cli[k] - test_block[k]) <= 1e-6}
+            if cli["tau"] != summary["tau"] or off or len(shared) < 10:
+                fail(f"eval CLI on exp1 {arm}'s best checkpoint: tau {cli['tau']} against "
+                     f"{summary['tau']}, off {off}, {len(shared)} metrics compared")
+            print(f"exp1 {arm} (ViT-B/16, batch {BATCH}, {WF_LIMIT['train']} steps): the factory "
+                  f"built scheme {arm} from {models[arm]['checkpoint']}; before step 1 the "
+                  f"{len(want)} encoder masters equal the file's tensors bit for bit; test AUROC "
+                  f"{test_block['auroc']:.4f}, tau {summary['tau']}; the eval CLI on {best.name} "
+                  f"gives {len(shared)} test metrics within 1e-6; {wall:.1f} s wall (model build "
+                  f"with the file's read {summary['timings']['build_s']:.2f} s); {CARD}")
+            del classifier
+            built.clear()
+            first_masters.clear()
+
+        # (c) The dense model from the .pth, through its kernels and plain.
+        start = time.perf_counter()
+        dense = build_classifier(torch.Generator().manual_seed(SEED),
+                                 {**models["ssl_imnet"], "dense": True, "dense_readout": "project"},
+                                 checkpoint_root=root, device="cuda")
+        build_s = time.perf_counter() - start
+        if not isinstance(dense, DenseClassifier) or dense.scheme != "ssl_imnet":
+            fail(f"dense build: {type(dense).__name__}, scheme {dense.scheme!r}")
+        want = state_dict_from_jax(encoders["ssl_imnet"], dense.cfg)
+        encoder = dict(dense.model.encoder.named_parameters())
+        if set(encoder) != set(want) or any(not torch.equal(encoder[n].cpu(), t)
+                                            for n, t in want.items()):
+            fail("dense build: the encoder is not the .pth's")
+        images = np.random.default_rng(SEED).integers(0, 256, (DENSE_BATCH, 224, 224, 3),
+                                                      dtype=np.uint8)
+        forward = make_forward_fn(dense, "cuda")()
+        forward(images)  # warm-up
+        ops.reset_launch_counts()
+        logits = forward(images)
+        counts = ops.launch_counts()
+        add(counts)
+        check_counts(counts, {"fused_qkv_attention": depth, "layernorm": 2 * depth,
+                              "fc1_gelu": depth}, 1, "the dense forward")
+
+        def median_ms(fn, n: int = 10) -> list[float]:
+            times = []
+            for _ in range(n):
+                torch.cuda.synchronize()
+                begin = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - begin))
+            return [statistics.median(times), min(times), max(times)]
+
+        kernel_ms = median_ms(lambda: forward(images))
+        ops.reset_launch_counts()
+        with plain_kernels():
+            plain = forward(images)
+            plain_ms = median_ms(lambda: forward(images), 3)
+        if any(ops.launch_counts().values()):
+            fail("the dense forward with plain kernels launched a kernel")
+        if logits.shape != (DENSE_BATCH, 112, 112, 2) or logits.dtype != np.float32:
+            fail(f"dense logits {logits.shape} {logits.dtype}, expected ({DENSE_BATCH}, 112, 112, "
+                 f"2) float32")
+        scale = float(np.abs(plain).max())
+        tol = (DENSE_LOGITS_TOL[0] * scale, DENSE_LOGITS_TOL[1])
+        err = max_error(torch.from_numpy(logits), torch.from_numpy(plain), tol,
+                        "dense logits against the plain forward")
+        print(f"dense classifier (ViT-B/16 taps {{2, 5, 8, 11}} -> DPT, readout project, from "
+              f"the .pth, built in {build_s:.2f} s): logits ({DENSE_BATCH}, 112, 112, 2) fp32, "
+              f"max |diff| against the plain forward {err:.3e} (atol {DENSE_LOGITS_TOL[0]} x "
+              f"max|plain| = {tol[0]:.3e}, rtol {tol[1]}), logit range "
+              f"[{logits.min():.3f}, {logits.max():.3f}]; forward of {DENSE_BATCH} images "
+              f"(uint8 on the host to fp32 logits on the host), median [min, max] of 10: kernels "
+              f"{kernel_ms[0]:.2f} [{kernel_ms[1]:.2f}, {kernel_ms[2]:.2f}] ms, plain of 3 "
+              f"{plain_ms[0]:.2f} [{plain_ms[1]:.2f}, {plain_ms[2]:.2f}] ms; {CARD}")
+    return total
+
+
+def config_model(name: str) -> dict:
+    """The ``model:`` section of ``config/model/<name>.yaml``."""
+    import yaml
+
+    path = Path(__file__).resolve().parent / "config" / "model" / f"{name}.yaml"
+    return yaml.safe_load(path.read_text())["model"]
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kernels-only", action="store_true",
@@ -2456,8 +2750,10 @@ def main() -> None:
     # Each path's launches, counted from 0 before it and read after it.
     runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(),
             phase_pretrain_engine(), phase_finetune(),
-            phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli(),
-            phase_finetune_engine()]
+            phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli()]
+    with tempfile.TemporaryDirectory() as tmp:
+        packs = write_engine_pack(Path(tmp))
+        runs += [phase_finetune_engine(packs), phase_weight_files(packs)]
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

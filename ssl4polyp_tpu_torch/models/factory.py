@@ -3,14 +3,16 @@
 Counterpart of ``ssl4polyp_tpu/models/factory.py``.  Weights come from a
 seeded ``torch.Generator`` (random init), from a JAX parameter pytree given
 as numpy (``jax_params``: a tree built in memory, or the ``params`` of a
-``.ckpt`` read by :mod:`..utils.checkpoint`), or, for the MAE lineage, from
-the ``.ckpt`` that either package's pretraining wrote (``weight_path``; the
-decoder dropped), through :func:`.weights.state_dict_from_jax`.  These
-functions place the model on the card unless the caller names another
-device; without a CUDA device that raises.  Reading torch ``.pth`` or
-AugReg ``.npz`` weight files (ROADMAP.md §1 item 5, the weight-file readers)
-and the dense (DPT) head come with later slices and raise
-``NotImplementedError`` here.
+``.ckpt`` read by :mod:`..utils.checkpoint`), or from a weight file: for the
+MAE lineage the ``.ckpt`` that either package's pretraining wrote or an
+upstream MAE ``.pth`` (``weight_path``; the decoder dropped), for the timm
+lineage a big_vision AugReg ``.npz`` (``pretrained_npz``).  Every file is
+read into the JAX layout (:mod:`.import_torch`, :mod:`.pth_reader`), its
+leaves cast to fp32 as the JAX ``_as_jax`` casts them, and carried into the
+modules by :func:`.weights.state_dict_from_jax`.  ``dense`` wraps the encoder
+with the DPT decoder (:class:`DenseClassifier`).  These functions place the
+model on the card unless the caller names another device; without a CUDA
+device that raises.
 """
 
 from __future__ import annotations
@@ -19,9 +21,13 @@ from dataclasses import dataclass, replace
 from pathlib import Path
 from typing import Any, Dict, Mapping, Optional
 
+import numpy as np
 import torch
+from torch import nn
 
 from ..utils.checkpoint import load_checkpoint
+from .dpt import DPT, DPTConfig, TAP_BLOCKS, dpt_forward
+from .import_torch import load_torch_state_dict, mae_params_from_torch, vit_params_from_augreg_npz
 from .mae import encoder_only
 from .vit import ViT, ViTConfig
 from .weights import state_dict_from_jax
@@ -29,6 +35,8 @@ from .weights import state_dict_from_jax
 __all__ = [
     "LAYOUT_KEYS",
     "Classifier",
+    "DenseClassifier",
+    "DenseModel",
     "build_classifier",
     "get_imagenet_or_random_vit",
     "get_mae_backbone",
@@ -55,6 +63,62 @@ class Classifier:
     model: ViT
     cfg: ViTConfig
     scheme: str  # "sup_imnet" | "ssl_imnet" | "ssl_colon" | "random"
+
+
+class DenseModel(nn.Module):
+    """ViT encoder taps {2, 5, 8, 11} -> DPT decoder -> fp32 dense logits
+    (B, H/2, W/2, num_classes): the JAX ``DenseClassifier.apply``
+    (``factory.py:49-66``).  The encoder has no head."""
+
+    def __init__(self, encoder: ViT, dpt: DPT):
+        super().__init__()
+        self.encoder = encoder
+        self.dpt = dpt
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        taps = self.encoder.vit_tap_features(images, TAP_BLOCKS)
+        return dpt_forward(self.dpt, taps).float()
+
+
+@dataclass(frozen=True)
+class DenseClassifier:
+    """The reference's ``dense=True`` composition (``models.py:117-130``).
+    ``model``'s parameters are ``encoder.*`` and ``dpt.*``, the JAX
+    ``{"encoder": ..., "dpt": ...}``, so freeze regimes can scale the two
+    apart."""
+
+    model: DenseModel
+    cfg: ViTConfig
+    dpt_cfg: DPTConfig
+    scheme: str
+
+
+def _as_dense(classifier: Classifier, generator: torch.Generator, num_classes: int,
+              readout: str = "ignore") -> DenseClassifier:
+    """Wrap a pooled classifier's encoder (its head dropped) with a fresh DPT
+    decoder drawn from ``generator`` on the encoder's device.  ``readout``
+    selects the cls-token readout operator — ignore/add/project, the
+    reference's ``get_readout_oper`` (``DPT_decoder.py:52-60``)."""
+    encoder = classifier.model
+    encoder.head = None
+    dpt_cfg = DPTConfig(
+        embed_dim=classifier.cfg.embed_dim,
+        num_classes=num_classes,
+        grid_size=classifier.cfg.grid_size,
+        readout=readout,
+    )
+    dpt = DPT(dpt_cfg, generator).to(next(encoder.parameters()).device)
+    return DenseClassifier(DenseModel(encoder, dpt), classifier.cfg, dpt_cfg, classifier.scheme)
+
+
+def _as_float32(tree):
+    """Every leaf of a nested dict as fp32 numpy (a bfloat16 tensor of a
+    ``.pth`` included), as the JAX ``_as_jax`` casts an imported tree."""
+    if isinstance(tree, dict):
+        return {k: _as_float32(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    return np.asarray(tree, dtype=np.float32)
 
 
 def _vit_b(num_classes: Optional[int], out_token: str, pos_embed: str, **overrides) -> ViTConfig:
@@ -85,10 +149,6 @@ def _build(generator: torch.Generator, cfg: ViTConfig,
     return model.to(device)
 
 
-_WEIGHT_FILE_READERS = ("the weight-file readers (ROADMAP.md §1 item 5) are not ported yet; "
-                        "pass jax_params")
-
-
 def get_mae_backbone(
     generator: torch.Generator,
     jax_params: Optional[Mapping[str, Any]] = None,
@@ -102,40 +162,42 @@ def get_mae_backbone(
     """ViT-B with MAE lineage (fixed sin-cos positions) and a fresh head.
 
     The encoder comes from ``jax_params`` or from the MAE checkpoint at
-    ``weight_path`` (decoder discarded), else from the generator; the head
-    is always fresh from the generator."""
+    ``weight_path`` (decoder discarded; the fixed sin-cos position table is
+    the file's), else from the generator; the head is always fresh from the
+    generator.  ``weight_path`` is a ``.ckpt`` as either package's
+    pretraining writes it or a reference-format torch ``.pth``
+    (``ckpt["model"]`` state dicts)."""
     if jax_params is not None and weight_path is not None:
         raise ValueError("pass jax_params or weight_path, not both")
     pos_embed = overrides.pop("pos_embed", "sincos")
     out_token = overrides.pop("out_token", out_token)
     cfg = _vit_b(num_classes, out_token, pos_embed, **overrides)
     if weight_path is not None:
-        jax_params = _load_mae_encoder(weight_path)
+        jax_params = _load_mae_encoder(weight_path, cfg)
     return Classifier(_build(generator, cfg, jax_params, device), cfg, scheme)
 
 
-def _load_mae_encoder(weight_path: str | Path) -> Dict[str, Any]:
-    """The JAX-layout encoder tree of an MAE checkpoint: a ``.ckpt`` (or its
-    ``.ckpt.json`` sidecar's path, or a path without that suffix that holds
-    msgpack) as either package's pretraining writes it.  A torch pickle
-    (``.pth``) raises ``NotImplementedError``."""
+def _load_mae_encoder(weight_path: str | Path, cfg: ViTConfig) -> Dict[str, Any]:
+    """The JAX-layout fp32 encoder tree of an MAE checkpoint: a ``.ckpt`` (or
+    its ``.ckpt.json`` sidecar's path), then, in the JAX order, any other
+    path as msgpack first and as a torch ``.pth`` after."""
     path = Path(weight_path)
     if path.name.endswith(".ckpt.json"):
         path = path.with_suffix("")  # the checkpoint beside its sidecar
     if path.suffix == ".ckpt":
+        mae_params = load_checkpoint(path)["payload"].get("params")
+        if mae_params is None:
+            raise ValueError(f"Native checkpoint {path} lacks a 'params' payload")
+        return _as_float32(encoder_only(mae_params))
+    try:
         restored = load_checkpoint(path)
-    elif path.suffix == ".pth":
-        raise NotImplementedError(f"{path} is a torch pickle: {_WEIGHT_FILE_READERS}")
-    else:
-        try:
-            restored = load_checkpoint(path)
-        except Exception as exc:  # not msgpack: a torch pickle or another format
-            raise NotImplementedError(
-                f"{path} is not a .ckpt checkpoint: {_WEIGHT_FILE_READERS}") from exc
-    mae_params = restored.get("payload", {}).get("params") if isinstance(restored, dict) else None
-    if mae_params is None:
-        raise ValueError(f"Native checkpoint {path} lacks a 'params' payload")
-    return encoder_only(mae_params)
+        mae_params = restored.get("payload", {}).get("params")
+        if mae_params is not None:
+            return _as_float32(encoder_only(mae_params))
+    except Exception:  # not msgpack: read it as a torch pickle
+        pass
+    state = _as_float32(load_torch_state_dict(path, key="model"))
+    return mae_params_from_torch(state, cfg, include_decoder=False)
 
 
 def get_imagenet_or_random_vit(
@@ -144,16 +206,39 @@ def get_imagenet_or_random_vit(
     num_classes: Optional[int] = 2,
     out_token: str = "cls",
     device: str | torch.device = "cuda",
+    pretrained_npz: Optional[str | Path] = None,
     **overrides,
 ) -> Classifier:
-    """timm-lineage ViT-B (learned positions): ``jax_params`` or random.
-
-    The scheme is ``"random"`` either way, as in the JAX factory, which names
-    it ``"sup_imnet"`` only where it read an AugReg file (not ported yet)."""
+    """timm-lineage ViT-B (learned positions): AugReg weights when a local
+    ``.npz`` is given (``"auto"``: the cache's conventional path,
+    :func:`.augreg_cache.default_path`), else ``jax_params``, else random;
+    the head is always fresh.  The scheme is ``"sup_imnet"`` only where a
+    file was read, as in the JAX factory."""
+    if jax_params is not None and pretrained_npz is not None:
+        raise ValueError("pass jax_params or pretrained_npz, not both")
     pos_embed = overrides.pop("pos_embed", "learned")
     out_token = overrides.pop("out_token", out_token)
     cfg = _vit_b(num_classes, out_token, pos_embed, **overrides)
-    return Classifier(_build(generator, cfg, jax_params, device), cfg, "random")
+    scheme = "random"
+    if pretrained_npz == "auto":
+        # Conventional cache location filled by scripts/fetch_augreg.py on
+        # an internet-connected host (the offline half of the reference's
+        # fetch-and-cache flow, models.py:52-55,225).
+        from .augreg_cache import default_path
+
+        pretrained_npz = default_path()
+    if pretrained_npz is not None:
+        npz = Path(pretrained_npz)
+        if not npz.exists():
+            raise FileNotFoundError(
+                f"AugReg checkpoint not found at {npz}. This environment has no "
+                "network egress; run scripts/fetch_augreg.py on an internet "
+                "host, ship the npz, and point the model config checkpoint "
+                "field (or SSL4POLYP_TPU_CACHE) at it."
+            )
+        jax_params = _as_float32(vit_params_from_augreg_npz(npz, cfg))
+        scheme = "sup_imnet"
+    return Classifier(_build(generator, cfg, jax_params, device), cfg, scheme)
 
 
 def build_classifier(
@@ -164,37 +249,51 @@ def build_classifier(
     jax_params: Optional[Mapping[str, Any]] = None,
     device: str | torch.device = "cuda",
     **overrides,
-) -> Classifier:
+) -> Classifier | DenseClassifier:
     """Build a classifier from a ``model:`` config section.
 
     Dispatch follows the JAX factory: ``ss_framework: mae`` (or MAE
-    pretraining) -> MAE backbone, whose encoder comes from an existing
-    ``checkpoint`` (a ``.ckpt``); ``pretraining: ImageNet_class`` -> timm
-    lineage; otherwise random init.  ``jax_params``, when given, are the
-    weights in every case.  An existing ``checkpoint`` outside the MAE
-    lineage raises ``NotImplementedError``: its readers are not ported yet.
+    pretraining) -> MAE backbone, whose encoder comes from the
+    ``checkpoint`` (a ``.ckpt`` or a ``.pth``) when that file exists;
+    ``pretraining: ImageNet_class`` -> timm lineage, from the ``checkpoint``
+    (an AugReg ``.npz``) when that file exists; otherwise random init.  A
+    ``checkpoint`` that does not exist means random init, with no error, as
+    in the JAX factory.  ``jax_params``, when given, are the encoder's
+    weights in every case.  ``dense: true`` (config key or kwarg) wires the
+    encoder taps {2, 5, 8, 11} into the DPT decoder, whose readout is
+    ``dense_readout`` (``ignore``, ``add`` or ``project``), and returns a
+    :class:`DenseClassifier`; its decoder is drawn from ``generator`` after
+    the encoder.
     """
-    if overrides.pop("dense", model_cfg.get("dense", False)):
-        raise NotImplementedError("the dense (DPT) classifier is not ported yet")
+    dense = bool(overrides.pop("dense", model_cfg.get("dense", False)))
+    dense_readout = str(
+        overrides.pop("dense_readout", model_cfg.get("dense_readout", "ignore"))
+    )
     pretraining = str(model_cfg.get("pretraining", "random")).lower()
     ss_framework = str(model_cfg.get("ss_framework", "")).lower()
-    mae_lineage = ss_framework == "mae" or pretraining in {"hyperkvasir", "imagenet_self"}
-    weight_path = None
+    weight = None
     checkpoint = model_cfg.get("checkpoint")
     if checkpoint is not None and jax_params is None:
         path = Path(checkpoint)
         if checkpoint_root is not None and not path.is_absolute():
             path = checkpoint_root / path
-        if path.exists():
-            if not mae_lineage:
-                raise NotImplementedError(f"reading {path}: {_WEIGHT_FILE_READERS}")
-            weight_path = path
-    if mae_lineage:
-        return get_mae_backbone(
+        weight = path if path.exists() else None
+
+    if ss_framework == "mae" or pretraining in {"hyperkvasir", "imagenet_self"}:
+        classifier = get_mae_backbone(
             generator, jax_params, num_classes=num_classes,
-            scheme=str(model_cfg.get("key", "ssl")), device=device, weight_path=weight_path,
+            scheme=str(model_cfg.get("key", "ssl")), device=device, weight_path=weight,
             **overrides,
         )
-    return get_imagenet_or_random_vit(
-        generator, jax_params, num_classes=num_classes, device=device, **overrides
-    )
+    elif pretraining == "imagenet_class":
+        classifier = get_imagenet_or_random_vit(
+            generator, jax_params, num_classes=num_classes, device=device,
+            pretrained_npz=weight, **overrides,
+        )
+    else:
+        classifier = get_imagenet_or_random_vit(
+            generator, jax_params, num_classes=num_classes, device=device, **overrides
+        )
+    if dense:
+        return _as_dense(classifier, generator, num_classes, readout=dense_readout)
+    return classifier

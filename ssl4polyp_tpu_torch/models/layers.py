@@ -49,6 +49,7 @@ __all__ = [
     "compute_copy",
     "layernorm",
     "linear",
+    "run_blocks_collect",
     "trunc_normal",
     "xavier_uniform",
 ]
@@ -180,12 +181,11 @@ class Attention(nn.Module):
         self.proj = Linear(dim, dim, generator)
 
     def forward(self, x: torch.Tensor, norm: Optional[LayerNorm] = None) -> torch.Tensor:
+        if norm is None and not self.proj_fold:
+            return self.unfused(x, self.softmax_f32)
         dtype = x.dtype
-        if norm is None and self.proj_fold:
+        if norm is None:
             qkv, bias = self.qkv(x), None
-        elif norm is None:
-            qkv = torch.matmul(x, self.qkv.weight.to(dtype).t())
-            bias = self.qkv.bias.to(dtype)
         else:
             qkv = ln_linear(x.reshape(-1, x.shape[-1]), norm.weight, norm.bias,
                             self.qkv.weight.to(dtype), self.qkv.bias.to(dtype),
@@ -196,6 +196,14 @@ class Attention(nn.Module):
                                         self.proj.bias.to(dtype), self.num_heads,
                                         self.softmax_f32)
         out = fused_qkv_attention(qkv, self.num_heads, self.softmax_f32, bias=bias)
+        return self.proj(out)
+
+    def unfused(self, x: torch.Tensor, softmax_f32: bool) -> torch.Tensor:
+        """The default route whatever ``proj_fold`` says: the bias-free QKV
+        product, the attention kernel adding the bias, the projection."""
+        dtype = x.dtype
+        qkv = torch.matmul(x, self.qkv.weight.to(dtype).t())
+        out = fused_qkv_attention(qkv, self.num_heads, softmax_f32, bias=self.qkv.bias.to(dtype))
         return self.proj(out)
 
 
@@ -242,3 +250,23 @@ class Block(nn.Module):
         norm = self.norm2
         return mlp_ln_fused(x.reshape(-1, x.shape[-1]), norm.weight, norm.bias, *weights,
                             norm.eps).reshape(x.shape)
+
+
+def run_blocks_collect(x: torch.Tensor, blocks) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """Run ``blocks`` in order and also return every block's output.
+
+    Counterpart of the JAX ``run_blocks_collect`` (``layers.py:459-481``),
+    which dense decoders use to tap intermediate feature maps (the reference
+    taps blocks {2, 5, 8, 11}, ``models.py:124``).  Like that function, it
+    runs every block on the default kernels whatever the stack's route
+    (``mlp_fusion``, ``qkv_ln_fusion``, ``BENCH_ATTN_PROJ=1``): LayerNorm,
+    the attention kernel with fp32 scores and the QKV bias, the projection,
+    LayerNorm, fc1+GELU and fc2.  Returns ``(final, outputs)``, ``outputs``
+    a list of the (B, N, D) outputs, one a block.
+    """
+    collected = []
+    for block in blocks:
+        x = x + block.attn.unfused(block.norm1(x), softmax_f32=True)
+        x = x + block.mlp(block.norm2(x))
+        collected.append(x)
+    return x, collected

@@ -133,17 +133,32 @@ class ViT(nn.Module):
             else layers.Linear(D, cfg.num_classes, generator)
         )
 
-    def vit_features(self, images: torch.Tensor) -> torch.Tensor:
-        """Normalised NHWC images -> normalised tokens (B, N+1, D)."""
+    def embed(self, images: torch.Tensor) -> torch.Tensor:
+        """Normalised NHWC images -> the tokens (B, N+1, D) the blocks take:
+        patches plus positions, the cls token first."""
         dtype = self.cfg.compute_dtype
         x = self.patch_embed(images.to(dtype))
         pos = self.pos_embed.to(dtype)
         x = x + pos[:, 1:, :]
         cls = (self.cls_token.to(dtype) + pos[:, :1, :]).expand(x.shape[0], -1, -1)
-        x = torch.cat([cls, x], dim=1)
+        return torch.cat([cls, x], dim=1)
+
+    def vit_features(self, images: torch.Tensor) -> torch.Tensor:
+        """Normalised NHWC images -> normalised tokens (B, N+1, D)."""
+        x = self.embed(images)
         for block in self.blocks:
             x = block(x)
         return self.norm(x)
+
+    def vit_tap_features(self, images: torch.Tensor,
+                         taps: tuple[int, ...] = (2, 5, 8, 11)) -> list[torch.Tensor]:
+        """The pre-norm outputs (B, N+1, D) of blocks ``taps``, shallowest
+        first (JAX ``vit_tap_features``, ``vit.py:158-183``; reference
+        ``models.py:117-127``): dense mode skips the final norm.  The blocks
+        run on the default kernels, as the JAX tap path runs them
+        (:func:`.layers.run_blocks_collect`)."""
+        _, collected = layers.run_blocks_collect(self.embed(images), self.blocks)
+        return [collected[i] for i in taps]
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         """fp32 logits when the model has a head, pooled features otherwise."""

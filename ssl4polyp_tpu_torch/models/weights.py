@@ -8,7 +8,9 @@ it back.  The layouts differ in three ways:
 * the JAX patch-embed kernel is (P*P*C, D) with rows in (p, q, c) order,
   the torch one a (D, C, P, P) conv weight;
 * JAX stacks the blocks along a leading depth axis, torch names each
-  ``blocks.{i}`` (``decoder_blocks.{i}`` in the MAE decoder).
+  ``blocks.{i}`` (``decoder_blocks.{i}`` in the MAE decoder);
+* a JAX conv kernel of the DPT decoder is (kh, kw, cin, cout), a torch
+  conv weight (cout, cin, kh, kw); its lists of parts become ``{name}.{i}``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,8 @@ import torch
 from .vit import ViTConfig
 
 __all__ = [
+    "dpt_state_dict_from_jax",
+    "jax_from_dpt_state_dict",
     "jax_from_mae_state_dict",
     "jax_from_state_dict",
     "mae_state_dict_from_jax",
@@ -166,3 +170,68 @@ def jax_from_mae_state_dict(state: Mapping[str, torch.Tensor], cfg) -> Dict[str,
         "pred": _linear_from_state(state, "decoder_pred"),
     }
     return params
+
+
+# The DPT decoder: (part of the tree, its convs) for the lists of parts.
+_FUSION_CONVS = ("res1.conv1", "res1.conv2", "res2.conv1", "res2.conv2", "project")
+
+
+def _conv_to_state(leaf: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    return {f"{prefix}.weight": _tensor(np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1)),
+            f"{prefix}.bias": _tensor(leaf["bias"])}
+
+
+def dpt_state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """JAX DPT decoder tree (``init_dpt``'s, numpy leaves) -> fp32 state dict
+    of :class:`.dpt.DPT`."""
+    state: Dict[str, torch.Tensor] = {}
+    for i, part in enumerate(params["reassemble"]):
+        state.update(_conv_to_state(part["project"], f"reassemble.{i}.project"))
+        if "readout_project" in part:
+            state.update(_linear_to_state(part["readout_project"],
+                                          f"reassemble.{i}.readout_project"))
+    for i, conv in enumerate(params["scratch"]):
+        state.update(_conv_to_state(conv, f"scratch.{i}"))
+    for i, part in enumerate(params["fusion"]):
+        for name in _FUSION_CONVS:
+            state.update(_conv_to_state(_get(part, name.split(".")), f"fusion.{i}.{name}"))
+    for name in ("conv1", "conv2"):
+        state.update(_conv_to_state(params["head"][name], f"head.{name}"))
+    return state
+
+
+def _conv_from_state(state, prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": np.ascontiguousarray(_array(state, f"{prefix}.weight").transpose(2, 3, 1, 0)),
+            "bias": _array(state, f"{prefix}.bias")}
+
+
+def _count(state, prefix: str) -> int:
+    return 1 + max(int(k.split(".")[1]) for k in state if k.startswith(f"{prefix}."))
+
+
+def jax_from_dpt_state_dict(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`dpt_state_dict_from_jax`: numpy fp32 leaves."""
+    reassemble = []
+    for i in range(_count(state, "reassemble")):
+        part = {"project": _conv_from_state(state, f"reassemble.{i}.project")}
+        if f"reassemble.{i}.readout_project.weight" in state:
+            part["readout_project"] = _linear_from_state(state, f"reassemble.{i}.readout_project")
+        reassemble.append(part)
+    fusion = []
+    for i in range(_count(state, "fusion")):
+        part: Dict[str, Any] = {}
+        for name in _FUSION_CONVS:
+            *path, last = name.split(".")
+            node = part
+            for key in path:
+                node = node.setdefault(key, {})
+            node[last] = _conv_from_state(state, f"fusion.{i}.{name}")
+        fusion.append(part)
+    return {
+        "reassemble": reassemble,
+        "scratch": [_conv_from_state(state, f"scratch.{i}")
+                    for i in range(_count(state, "scratch"))],
+        "fusion": fusion,
+        "head": {name: _conv_from_state(state, f"head.{name}") for name in ("conv1", "conv2")},
+    }
+

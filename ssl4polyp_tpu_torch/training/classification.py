@@ -233,9 +233,10 @@ def build_run(
     model_overrides: Optional[Mapping[str, Any]] = None,
 ) -> TrainContext:
     """The run of ``plan`` on ``device``: its layout, datasets, class
-    statistics, the classifier (random from ``plan.seed``, the MAE
-    checkpoint the model config names, or the parent checkpoint's
-    parameters) and its logger.  The JAX engine's layout overrides
+    statistics, the classifier (random from ``plan.seed``, the weight file
+    the model config names under ``checkpoint_root``: an MAE ``.ckpt`` or
+    ``.pth``, an AugReg ``.npz``; or the parent checkpoint's parameters) and
+    its logger.  The JAX engine's layout overrides
     (``unroll_blocks``, ``use_pallas_attention``) have nothing to decide
     here: the port runs its kernels on every CUDA tensor."""
     device = torch.device(device)

@@ -659,3 +659,72 @@ def test_ssl_colon_run_starts_from_the_mae_checkpoint(packs, tmp_path, monkeypat
     assert set(seen["params"]) - set(want) == {"head.weight", "head.bias"}
     assert all(torch.equal(seen["params"][n], t) for n, t in want.items())
     assert summary["epochs_run"] == 1
+
+
+@pytest.mark.parametrize("arm", ["sup_imnet", "ssl_imnet"])
+def test_exp1_arms_start_from_their_weight_files(arm, packs, tmp_path, monkeypatch):
+    """exp1's two arms, each from the file its model config names under
+    ``checkpoint_root`` (an AugReg ``.npz``, an upstream MAE ``.pth``),
+    written here at the tiny width: both engines build the arm's scheme from
+    the file, the port's first step sees the file's encoder bit for bit, and
+    at lr 0 in fp32, with the JAX run's fresh head copied in, the two
+    engines' test probabilities agree within PROB_ATOL."""
+    import yaml
+
+    import chip_smoke
+    from ssl4polyp_tpu_torch.models.mae import MAEConfig, encoder_only
+    from ssl4polyp_tpu_torch.models.vit import ViTConfig
+
+    root = Path(__file__).resolve().parents[1]
+    model_cfg = yaml.safe_load((root / "config" / "model" / f"{arm}.yaml").read_text())["model"]
+    cfg = lr0_cfg(epochs=1)
+    cfg["models"] = [{"model": model_cfg}]
+    cfg["reporting"] = {"inputs_subdir": "exp1_sun_baselines_sup_vs_ssl"}
+    vit = ViTConfig(img_size=32, **TINY_MODEL, num_classes=2)
+    weights = tmp_path / "weights" / model_cfg["checkpoint"]
+    rng = np.random.default_rng(13)
+    if arm == "sup_imnet":
+        encoder = chip_smoke.write_augreg_npz(weights, vit, rng)
+    else:
+        mae = MAEConfig(encoder=vit, decoder_embed_dim=16, decoder_depth=1, decoder_num_heads=2)
+        encoder = encoder_only(chip_smoke.write_mae_pth(weights, mae, rng))
+
+    jax_plan = jax_proto.resolve_run_plan(cfg, model_key=arm, seed=13)
+    jax_ctx = jax_engine.build_run(jax_plan, output_dir=tmp_path / "jax", pack_root=packs,
+                                   checkpoint_root=tmp_path / "weights",
+                                   model_overrides=TINY_MODEL, exp_config_name="exp/exp1.yaml")
+    jax_summary = jax_engine.run_classification_training(
+        jax_ctx, thresholds_root=tmp_path / "jax" / "thresholds")
+    head = load_checkpoint(jax_ctx.layout.checkpoint_path)["payload"]["params"]["head"]
+
+    plan = proto.resolve_run_plan(cfg, model_key=arm, seed=13)
+    ctx = build_run(plan, output_dir=tmp_path / "port", pack_root=packs,
+                    checkpoint_root=tmp_path / "weights", model_overrides=TINY_MODEL,
+                    exp_config_name="exp/exp1.yaml", device="cpu")
+    assert ctx.classifier.scheme == jax_ctx.classifier.scheme == arm
+    with torch.no_grad():
+        ctx.params["head.weight"].copy_(torch.from_numpy(np.ascontiguousarray(head["kernel"].T)))
+        ctx.params["head.bias"].copy_(torch.from_numpy(np.array(head["bias"])))
+    seen = capture_first_step(monkeypatch)
+    summary = run_classification_training(ctx, thresholds_root=tmp_path / "port" / "thresholds")
+    want = state_dict_from_jax(encoder, ctx.classifier.cfg)
+    assert set(seen["params"]) - set(want) == {"head.weight", "head.bias"}
+    assert all(torch.equal(seen["params"][n], t) for n, t in want.items())
+    payload = validate("exp1", summary)
+    assert payload["provenance"]["model"] == arm
+
+    stem = ctx.layout.stem
+    got = _rows(ctx.layout.output_dir / f"{stem}_test_outputs.csv")
+    theirs = _rows(jax_ctx.layout.output_dir / f"{stem}_test_outputs.csv")
+    assert len(got) == len(theirs) == 16
+    for a, b in zip(got, theirs):
+        assert abs(float(a.pop("prob")) - float(b.pop("prob"))) <= PROB_ATOL
+        assert a == b
+    # The test logits of the two fp32 forwards, two blocks of the file's
+    # weights apart in summation order and the JAX GELU's polynomial erf:
+    # 1e-5 absolute at logits up to |3|.
+    ours = json.loads(Path(summary["metrics_path"]).read_text())["test_primary"]
+    want = json.loads(Path(jax_summary["metrics_path"]).read_text())["test_primary"]
+    np.testing.assert_allclose(np.asarray(ours["logits"]), np.asarray(want["logits"]), rtol=0,
+                               atol=1e-5)
+    assert ours["auroc"] == pytest.approx(want["auroc"], abs=1e-12)

@@ -21,7 +21,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _BLOCKED_SCRIPT = """
 import sys
-for name in ("jax", "flax", "msgpack", "yaml", "PIL", "sklearn", "ssl4polyp_tpu"):
+for name in ("jax", "flax", "msgpack", "yaml", "PIL", "sklearn", "ssl4polyp_tpu", "ml_dtypes"):
     sys.modules[name] = None  # any import of them raises ImportError
 
 import importlib, pkgutil
@@ -79,6 +79,33 @@ metrics = classification.make_train_step(ctx)(
     state, batch[0], torch.tensor([0, 1]), torch.tensor([True, True]), 1e-4, scales,
     optim.no_weight_decay_scales(state.params))
 assert all(bool(torch.isfinite(v)) for v in metrics.values()), metrics
+
+# The weight-file readers and the dense model: an upstream-layout MAE .pth
+# and an AugReg .npz written here, each read by build_classifier, the .pth
+# into the dense classifier, whose logits come out of make_forward_fn.
+import tempfile
+from pathlib import Path
+from ssl4polyp_tpu_torch.models.dpt import TAP_BLOCKS
+from ssl4polyp_tpu_torch.models.factory import DenseClassifier
+
+tiny = dict(img_size=32, patch_size=16, embed_dim=64, depth=12, num_heads=4)
+with tempfile.TemporaryDirectory() as tmp:
+    mae_cfg = MAEConfig(encoder=ViTConfig(**tiny), decoder_embed_dim=32, decoder_depth=1,
+                        decoder_num_heads=2)
+    chip_smoke.write_mae_pth(Path(tmp) / "mae.pth", mae_cfg, np.random.default_rng(0))
+    chip_smoke.write_augreg_npz(Path(tmp) / "augreg.npz", ViTConfig(**tiny, num_classes=2),
+                                np.random.default_rng(1))
+    sup = build_classifier(torch.Generator().manual_seed(0),
+                           {"pretraining": "ImageNet_class", "checkpoint": "augreg.npz"},
+                           checkpoint_root=Path(tmp), device="cpu", **tiny)
+    assert sup.scheme == "sup_imnet"
+    dense = build_classifier(torch.Generator().manual_seed(0),
+                             {"ss_framework": "mae", "key": "ssl_imnet", "checkpoint": "mae.pth",
+                              "dense": True, "dense_readout": "add"},
+                             checkpoint_root=Path(tmp), device="cpu", **tiny)
+    assert isinstance(dense, DenseClassifier) and dense.scheme == "ssl_imnet"
+    dense_logits = make_forward_fn(dense, "cpu")()(images)
+    assert dense_logits.shape == (2, 16, 16, 2) and np.isfinite(dense_logits).all()
 
 # A split evaluation over two in-memory batches, with its breakdowns.
 from types import SimpleNamespace
@@ -243,7 +270,7 @@ def test_port_imports_and_runs_with_the_jax_stack_blocked():
     result = _run(["-c", _BLOCKED_SCRIPT])
     assert result.returncode == 0, result.stderr
     assert result.stdout.startswith("ok")
-    assert int(result.stdout.split()[1]) >= 43  # every slice module was imported
+    assert int(result.stdout.split()[1]) >= 47  # every slice module was imported
 
 
 def test_pretraining_cli_runs_and_resumes_with_the_jax_stack_blocked():
@@ -297,10 +324,33 @@ def test_no_jax_import_in_the_port_sources():
     assert {"ssl4polyp_tpu_torch/utils/msgpack.py", "ssl4polyp_tpu_torch/utils/checkpoint.py",
             "ssl4polyp_tpu_torch/evaluation/eval_classification.py",
             "ssl4polyp_tpu_torch/ops/attention.py",
-            "ssl4polyp_tpu_torch/ops/attention_block.py"} <= names
+            "ssl4polyp_tpu_torch/ops/attention_block.py",
+            *WEIGHT_FILE_MODULES} <= names
     for path in sources:
         for line in path.read_text().splitlines():
             assert _forbidden_import(line) is None, f"{path}: {line}"
+
+
+# The weight-file readers and the dense model, with the modules they change.
+WEIGHT_FILE_MODULES = {f"ssl4polyp_tpu_torch/models/{name}.py" for name in (
+    "pth_reader", "import_torch", "augreg_cache", "dpt", "factory", "weights", "vit", "layers")}
+
+
+def test_only_the_msgpack_codec_imports_ml_dtypes_and_lazily():
+    """numpy's bfloat16 comes from ``ml_dtypes``, which the card's machine
+    may lack: the readers keep bf16 tensors as torch tensors, and only the
+    ``.ckpt`` codec imports it, inside the function that decodes a bf16
+    array."""
+    importers = {}
+    for path in [*(ROOT / "ssl4polyp_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
+        for line in path.read_text().splitlines():
+            words = line.split()
+            if words[:1] in (["import"], ["from"]) and len(words) > 1 \
+                    and words[1].split(".")[0] == "ml_dtypes":
+                importers.setdefault(path.relative_to(ROOT).as_posix(), []).append(line)
+    assert set(importers) == {"ssl4polyp_tpu_torch/utils/msgpack.py"}, importers
+    assert all(line.startswith(" ") for line in importers["ssl4polyp_tpu_torch/utils/msgpack.py"])
+    assert not WEIGHT_FILE_MODULES & set(importers)
 
 
 @pytest.mark.parametrize("line, found", [

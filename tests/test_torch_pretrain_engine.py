@@ -16,6 +16,7 @@ event writer, ``RunLogger``'s fallbacks, the determinism helpers).
 import json
 import os
 import random
+import re
 import signal
 import subprocess
 import sys
@@ -567,21 +568,31 @@ def test_build_classifier_loads_the_encoder_of_an_mae_ckpt(tmp_path):
         head = fresh.model.state_dict()
         assert all(torch.equal(got[n], head[n]) for n in ("head.weight", "head.bias"))
 
-    torch.save({"model": {}}, tmp_path / "mae.pth")
-    for name in ("mae.pth", "bare.pth"):
-        (tmp_path / "bare.pth").write_bytes((tmp_path / "mae.pth").read_bytes())
-        with pytest.raises(NotImplementedError, match=r"§1 item 5"):
-            build_classifier(torch.Generator(), {"ss_framework": "mae", "checkpoint": name},
-                             checkpoint_root=tmp_path, device="cpu", **ENCODER)
+    # The same MAE as an upstream-layout torch .pth (timm's MAE names under
+    # "model"), by its name, without its suffix, and by an absolute path:
+    # the same encoder, the sin-cos table the file's.
+    torch.save({"model": {n: t.detach() for n, t in state.params.items()}},
+               tmp_path / "mae.pth")
     (tmp_path / "torch_pickle").write_bytes((tmp_path / "mae.pth").read_bytes())
-    with pytest.raises(NotImplementedError, match=r"§1 item 5"):
-        build_classifier(torch.Generator(), {"ss_framework": "mae",
-                                             "checkpoint": str(tmp_path / "torch_pickle")},
-                         device="cpu", **ENCODER)
-    with pytest.raises(NotImplementedError, match=r"§1 item 5"):
-        build_classifier(torch.Generator(), {"pretraining": "ImageNet_class",
-                                             "checkpoint": "checkpoint-3.ckpt"},
-                         checkpoint_root=tmp_path, device="cpu", **ENCODER)
+    for name in ("mae.pth", "torch_pickle", str(tmp_path / "torch_pickle")):
+        built = build_classifier(torch.Generator().manual_seed(7),
+                                 {"ss_framework": "mae", "key": "ssl_imnet", "checkpoint": name},
+                                 checkpoint_root=tmp_path, device="cpu", **ENCODER)
+        got = built.model.state_dict()
+        assert built.scheme == "ssl_imnet" and built.cfg.pos_embed == "sincos"
+        assert all(torch.equal(got[n], want[n]) for n in want), name
+    # An empty .pth model and a .ckpt named as an AugReg file fail as the
+    # JAX factory fails on them.
+    torch.save({"model": {}}, tmp_path / "empty.pth")
+    for model_cfg in ({"ss_framework": "mae", "checkpoint": "empty.pth"},
+                      {"pretraining": "ImageNet_class", "checkpoint": "checkpoint-3.ckpt"}):
+        with pytest.raises(Exception) as theirs:
+            from ssl4polyp_tpu.models.factory import build_classifier as jax_build_classifier
+            jax_build_classifier(jax.random.PRNGKey(0), model_cfg, checkpoint_root=tmp_path,
+                                 **ENCODER)
+        with pytest.raises(type(theirs.value), match=re.escape(str(theirs.value))):
+            build_classifier(torch.Generator(), model_cfg, checkpoint_root=tmp_path,
+                             device="cpu", **ENCODER)
 
 
 @pytest.mark.parametrize("scalars", [

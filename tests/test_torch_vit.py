@@ -5,6 +5,8 @@ JAX package's weights, carried over by ``state_dict_from_jax``; the JAX side
 runs its XLA path, the port its plain torch path (on the CPU).
 """
 
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,7 +54,8 @@ def test_vit_forward_matches_jax(pos_embed, out_token, dtype):
 
 
 def test_build_classifier_dispatch_and_layout_keys(tmp_path):
-    from ssl4polyp_tpu_torch.models.factory import LAYOUT_KEYS, build_classifier
+    from ssl4polyp_tpu.models import factory as jax_factory
+    from ssl4polyp_tpu_torch.models.factory import LAYOUT_KEYS, DenseClassifier, build_classifier
 
     layout = {"unroll_blocks": True, "remat": True, "fused_layernorm": True,
               "use_pallas_attention": True, "encoder_pad_to": 56, "decoder_pad_to": 200}
@@ -74,8 +77,16 @@ def test_build_classifier_dispatch_and_layout_keys(tmp_path):
             24, "full", True)
         # D 64 is no width the JAX package flattens: the default kernels run.
         assert {(b.mlp_route, b.qkv_ln) for b in built.model.blocks} == {("fc1", False)}
-    with pytest.raises(NotImplementedError):
-        build_classifier(gen, {"dense": True}, **small)
+    dense = build_classifier(gen, {"dense": True}, **small)
+    assert isinstance(dense, DenseClassifier) and dense.cfg == plain.cfg
+    assert (dense.dpt_cfg.readout, dense.dpt_cfg.grid_size, dense.dpt_cfg.num_classes) == (
+        "ignore", 4, 2)
+    # An empty AugReg file fails as the JAX factory fails on it.
     (tmp_path / "w.npz").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        build_classifier(gen, {"checkpoint": "w.npz"}, checkpoint_root=tmp_path, **small)
+    with pytest.raises(Exception) as theirs:
+        jax_factory.build_classifier(jax.random.PRNGKey(0),
+                                     {"pretraining": "ImageNet_class", "checkpoint": "w.npz"},
+                                     checkpoint_root=tmp_path, **TINY)
+    with pytest.raises(type(theirs.value), match=re.escape(str(theirs.value))):
+        build_classifier(gen, {"pretraining": "ImageNet_class", "checkpoint": "w.npz"},
+                         checkpoint_root=tmp_path, **small)
