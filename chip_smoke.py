@@ -3,7 +3,8 @@
 engine, classifier fine-tune step (with and without ``BENCH_ATTN_PROJ=1``),
 its two attention functions of ``ops`` that no model route calls, its
 standalone eval CLI, its fine-tune engine, exp1's two arms from their
-weight files and the dense model on one NVIDIA GPU.
+weight files, the dense model, and the upstream MAE fine-tune and linear
+probe on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -160,6 +161,20 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    path's 12 attention, 24 LayerNorm and 12 fc1+GELU launches) to (32, 112,
    112, 2) fp32 logits, against the same model with every kernel plain on
    the card (which launches none), with the forward's median time.
+10. The upstream MAE fine-tune and linear probe (``training/mae_finetune.py``)
+   on phase 8's pack, from one ViT-B/16 classifier that the factory builds
+   from an MAE ``.pth`` written where ``config/model/ssl_imnet.yaml`` names
+   it.  ``run_mae_finetune`` with the upstream recipe (layer decay 0.75,
+   weight decay 0.05, label smoothing 0.1, Mixup 0.8 / CutMix 1.0, erasing
+   0.25; 2 epochs of 4 steps of 64): step 1's loss and every gradient
+   against the plain step's on one set of draws, one AdamW pass with the
+   layer decay's scales bit-equal to the plain update, two runs bit-equal,
+   the classifier's own parameters still the file's after both, every
+   tensor moved (the position table too), exact launch counts.
+   ``run_linear_probe`` (LARS, one epoch of 4 steps): the encoder bit-equal
+   to the file's, the head moved, two runs bit-equal, the encoder's forward
+   kernels only.  Prints each run's images/s, over its wall and over its
+   steps after the first, and the phase's seconds.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -2710,6 +2725,184 @@ def phase_weight_files(packs: Path) -> dict[str, int]:
     return total
 
 
+MF_EPOCHS, MF_STEPS = 2, 4  # the fine-tune's run: epochs of 4 steps of 64 (256 frames)
+PROBE_EPOCHS = 1
+
+
+def phase_mae_finetune(packs: Path) -> dict[str, int]:
+    """The upstream MAE fine-tune and linear probe (``training/mae_finetune.py``)
+    at full width, on the pack at ``packs``, from one ViT-B/16 classifier the
+    factory builds from an MAE ``.pth`` (``config/model/ssl_imnet.yaml``'s
+    path under a temporary checkpoint root).
+
+    ``run_mae_finetune`` with the upstream recipe (layer decay 0.75, weight
+    decay 0.05, smoothing 0.1, Mixup 0.8 and CutMix 1.0 switched at 0.5,
+    erasing 0.25 with one box; batch 64, 2 epochs of 4 steps, warm-up 1
+    epoch): (a) step 1's loss and every gradient against the plain step's
+    on one set of draws, and one AdamW pass with the layer decay's 14 scales
+    through the kernel bit-equal to the plain version's; (b) two runs from
+    the classifier agree bit for bit; (c) after both, the classifier's own
+    parameters are the file's; (d) every tensor moved, the position table
+    among them; (e) exact launch counts.  ``run_linear_probe`` (LARS, lr 0.1,
+    one epoch of 4 steps): the encoder bit-equal to the file's and the head
+    moved, two runs bit-equal, the encoder's forward kernels only."""
+    from ssl4polyp_tpu_torch.models.factory import build_classifier
+    from ssl4polyp_tpu_torch.models.mae import MAE_VIT_B16, encoder_only
+    from ssl4polyp_tpu_torch.models.weights import state_dict_from_jax
+    from ssl4polyp_tpu_torch.training import mae_finetune as mf
+    from ssl4polyp_tpu_torch.utils.determinism import step_seed
+
+    phase_start = time.perf_counter()
+    model_cfg = config_model("ssl_imnet")
+    with tempfile.TemporaryDirectory() as tmp, projection_fold(False):
+        root = Path(tmp)
+        encoder = encoder_only(write_mae_pth(root / model_cfg["checkpoint"], MAE_VIT_B16,
+                                             np.random.default_rng(SEED)))
+        start = time.perf_counter()
+        classifier = build_classifier(torch.Generator().manual_seed(SEED), model_cfg,
+                                      checkpoint_root=root, device="cuda")
+        build_s = time.perf_counter() - start
+    depth = classifier.cfg.depth
+    file_tensors = state_dict_from_jax(encoder, classifier.cfg)
+    initial = {n: p.detach().clone() for n, p in classifier.model.named_parameters()}
+    if classifier.scheme != "ssl_imnet" or any(
+            not torch.equal(initial[n].cpu(), t) for n, t in file_tensors.items()):
+        fail(f"mae fine-tune: the factory built scheme {classifier.scheme!r}, or the encoder "
+             "is not the .pth's")
+    train = create_classification_datasets(train_spec="sun_full", pack_root=packs,
+                                           image_size=224)["train"]
+    settings = mf.MAEFinetuneSettings(
+        epochs=MF_EPOCHS, warmup_epochs=1, base_lr=1e-3, layer_decay=0.75, weight_decay=0.05,
+        batch_size=BATCH, seed=SEED, smoothing=0.1, mixup_alpha=0.8, cutmix_alpha=1.0,
+        reprob=0.25, recount=1)
+    probe_settings = mf.MAEFinetuneSettings(
+        epochs=PROBE_EPOCHS, warmup_epochs=0, base_lr=0.1, weight_decay=0.0, smoothing=0.0,
+        batch_size=BATCH, seed=SEED)
+    what = "mae fine-tune"
+
+    # (a) Step 1 on the run's first batch and draws, kernels against plain;
+    # then one AdamW pass with the layer decay's scales, kernel against plain.
+    loader = HostDataLoader(train, batch_size=BATCH, seed=SEED, num_workers=8)
+    if len(loader) != MF_STEPS:
+        fail(f"{what}: {len(loader)} steps an epoch, expected {MF_STEPS}")
+    loader.set_epoch(0)
+    batch = next(iter(loader))
+    images = torch.from_numpy(batch["image"]).cuda()
+    labels = torch.from_numpy(batch["label"]).long().cuda()
+    valid = torch.from_numpy(batch["valid"]).cuda()
+    seed = step_seed(SEED, 0, 0)
+    draws = mf.draw_step(tuple(images.shape), settings,
+                         torch.Generator(device="cuda").manual_seed(seed),
+                         np.random.default_rng(seed), augment=True,
+                         dtype=classifier.cfg.compute_dtype)
+    state = mf.finetune_state(classifier, initial, optim.adamw_init)
+    loss, grads = mf.loss_and_grads(classifier, state.params_c, images, labels, valid, draws,
+                                    settings)
+    with plain_kernels():
+        plain_loss, plain_grads = mf.loss_and_grads(classifier, state.params_c, images, labels,
+                                                    valid, draws, settings)
+    print(f"{what} step 1 draws: erasing on {int(draws.erasing.do.sum())} of {BATCH} images, "
+          f"{draws.mixup}")
+    check_step_one(loss, grads, plain_loss, plain_grads, FT_LOSS_RTOL, FT_GRAD_RTOL, what)
+    lr_scale = optim.layerwise_lr_decay_scales(state.params, depth, settings.layer_decay)
+    wd_scale = optim.no_weight_decay_scales(state.params)
+    sides = []
+    for update in (optim.adamw_update_fused, optim.adamw_update_fused_plain):
+        side = mf.finetune_state(classifier, initial, optim.adamw_init)
+        update(side.params, side.params_c, grads, side.opt, lr=1e-3, weight_decay=0.05,
+               lr_scale=lr_scale, wd_scale=wd_scale)
+        sides.append(side)
+    wrong = differing(sides[0].params, sides[1].params) + differing(sides[0].params_c,
+                                                                    sides[1].params_c)
+    if wrong:
+        fail(f"{what}: the AdamW kernel with the layer decay's scales differs from the plain "
+             f"update in {wrong[:8]}")
+    print(f"{what}: one AdamW pass with the layer decay's {len(set(lr_scale.values()))} "
+          f"learning-rate scales over {len(lr_scale)} tensors, kernel against plain: masters "
+          "and compute copy bit-equal")
+    del state, grads, plain_grads, sides
+
+    per_step = {"fused_qkv_attention": depth, "fused_qkv_attention_backward": depth,
+                "layernorm": 2 * depth + 1, "layernorm_backward": 2 * depth + 1,
+                "fc1_gelu": depth, "adamw": -(-len(initial) // adamw.TENSORS_PER_LAUNCH)}
+    per_probe_step = {"fused_qkv_attention": depth, "layernorm": 2 * depth + 1,
+                      "fc1_gelu": depth}
+    total: dict[str, int] = {}
+
+    def run(engine, run_settings, steps: int, expected: dict, label: str) -> tuple[dict, float]:
+        """One engine run; its rate over the whole wall, and over the steps
+        after the first: the device is synchronised once, as step 2 starts,
+        which leaves out the loader's start, the first batch's decode and
+        the step's first launches."""
+        step_starts: list[float] = []
+        loss_and_grads = mf.loss_and_grads
+
+        def marked(*args, **kwargs):
+            if len(step_starts) == 1:
+                torch.cuda.synchronize()
+            step_starts.append(time.perf_counter())
+            return loss_and_grads(*args, **kwargs)
+
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with mock.patch.object(mf, "loss_and_grads", marked):
+            result = engine(classifier, train, run_settings, device="cuda")
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+        wall = end - start
+        counts = ops.launch_counts()
+        check_counts(counts, expected, steps, f"{steps} steps of the {label}")
+        if len(step_starts) != steps:
+            fail(f"{label}: {len(step_starts)} steps, expected {steps}")
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        print(f"{label} (ViT-B/16, batch {BATCH}, {steps} steps): train_loss "
+              f"{result['train_loss']:.6f}, {wall:.2f} s wall, {steps * BATCH / wall:.1f} "
+              f"images/s over it (loader start included); steps 2-{steps} "
+              f"{(steps - 1) * BATCH / (end - step_starts[1]):.1f} images/s; {CARD}")
+        return result, wall
+
+    steps = MF_EPOCHS * MF_STEPS
+    tuned = [run(mf.run_mae_finetune, settings, steps, per_step, f"{what} run {i}")[0]
+             for i in ("A", "B")]
+    a, b = tuned
+    diffs = differing(a["params"], b["params"])
+    if diffs or a["train_loss"] != b["train_loss"] or not np.isfinite(a["train_loss"]):
+        fail(f"{what}: two runs differ in {diffs[:8]}, or train_loss {a['train_loss']} against "
+             f"{b['train_loss']}")
+    still = [n for n, t in a["params"].items() if torch.equal(t, initial[n])]
+    if still or "pos_embed" not in a["params"]:
+        fail(f"{what}: {still[:8]} did not move")
+    mf_changed = differing(dict(classifier.model.named_parameters()), initial)
+    if mf_changed:
+        fail(f"{what}: the runs changed the classifier's own {mf_changed[:8]}")
+    print(f"{what}: runs A and B bit-equal in all {len(a['params'])} tensors and train_loss; "
+          f"every tensor moved (pos_embed by up to "
+          f"{(a['params']['pos_embed'] - initial['pos_embed']).abs().max().item():.3e}); the "
+          "classifier's own parameters are still the file's")
+    del tuned, a, b
+
+    label = "linear probe"
+    probes = [run(mf.run_linear_probe, probe_settings, PROBE_EPOCHS * MF_STEPS, per_probe_step,
+                  f"{label} run {i}")[0] for i in ("A", "B")]
+    a, b = probes
+    diffs = differing(a["params"], b["params"])
+    if diffs or a["train_loss"] != b["train_loss"] or not np.isfinite(a["train_loss"]):
+        fail(f"{label}: two runs differ in {diffs[:8]}, or train_loss {a['train_loss']} against "
+             f"{b['train_loss']}")
+    moved = sorted(n for n, t in a["params"].items() if not torch.equal(t, initial[n]))
+    if moved != ["head.bias", "head.weight"]:
+        fail(f"{label}: moved {moved}, expected the head alone")
+    if differing(dict(classifier.model.named_parameters()), initial):
+        fail(f"{label}: the runs changed the classifier's own parameters")
+    print(f"{label}: runs A and B bit-equal; the {len(a['params']) - 2} encoder tensors "
+          f"bit-equal to the file's, the head moved; model build with the .pth's read "
+          f"{build_s:.2f} s; the phase {time.perf_counter() - phase_start:.1f} s; {CARD}")
+    del probes, a, b, classifier
+    return total
+
+
 def config_model(name: str) -> dict:
     """The ``model:`` section of ``config/model/<name>.yaml``."""
     import yaml
@@ -2753,7 +2946,8 @@ def main() -> None:
             phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli()]
     with tempfile.TemporaryDirectory() as tmp:
         packs = write_engine_pack(Path(tmp))
-        runs += [phase_finetune_engine(packs), phase_weight_files(packs)]
+        runs += [phase_finetune_engine(packs), phase_weight_files(packs),
+                 phase_mae_finetune(packs)]
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

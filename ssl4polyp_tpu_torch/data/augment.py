@@ -17,6 +17,16 @@ an explicit ``torch.Generator``) is split from the deterministic chain
 (:func:`apply_augment`), so tests hand both sides the same parameters: the
 generators of the two frameworks give different numbers.
 
+The batch regularisers of the upstream MAE fine-tune recipe (timm's
+label smoothing, batch-mode Mixup/CutMix and RandomErasing; JAX
+``augment.py:212-352``) take the same split: :func:`draw_mixup_params` draws
+the batch's scalars on the host from a numpy generator, as timm's ``Mixup``
+draws them (``torch.distributions.Beta`` takes no generator), and
+:func:`draw_erasing_params` the per-sample boxes and their noise from a
+``torch.Generator``; :func:`apply_mixup_cutmix` and
+:func:`apply_random_erasing` are deterministic, with box masks built from
+iotas (no loop over samples, no scatter).
+
 The ImageNet statistics are copies of ``ssl4polyp_tpu/data/transforms.py``'s,
 whose package imports PyYAML at import time.
 """
@@ -24,18 +34,29 @@ whose package imports PyYAML at import time.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "IMAGENET_MEAN",
     "IMAGENET_STD",
     "AugmentParams",
+    "ErasingParams",
+    "MixupParams",
     "apply_augment",
+    "apply_mixup_cutmix",
+    "apply_random_erasing",
     "augment_batch",
     "draw_augment_params",
+    "draw_erasing_params",
+    "draw_mixup_params",
+    "mixup_cutmix_batch",
     "normalize_batch",
+    "random_erasing",
+    "smooth_one_hot",
 ]
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -223,3 +244,173 @@ def augment_batch(images_u8: torch.Tensor, generator: torch.Generator,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The full train chain with parameters drawn from ``generator``."""
     return apply_augment(images_u8, draw_augment_params(images_u8.shape[0], generator), dtype)
+
+
+# ---------------------------------------------------------------------------
+# Batch-level regularisers of the upstream MAE fine-tune recipe (reference
+# ``models/mae/main_finetune.py:87-112``: timm's Mixup/CutMix and
+# RandomErasing knobs; JAX ``augment.py:212-352``).
+# ---------------------------------------------------------------------------
+
+def smooth_one_hot(labels: torch.Tensor, num_classes: int, smoothing: float) -> torch.Tensor:
+    """Label-smoothed one-hot fp32 targets (timm's ``Mixup`` smooths inside
+    its label transform; reference ``main_finetune.py:87-88``)."""
+    on = 1.0 - smoothing + smoothing / num_classes
+    off = smoothing / num_classes
+    return F.one_hot(labels.long(), num_classes).float() * (on - off) + off
+
+
+class MixupParams(NamedTuple):
+    """One batch's Mixup/CutMix draw: host scalars, fp32 where JAX's are."""
+
+    apply: bool             # Bernoulli(prob)
+    use_cutmix: bool        # Bernoulli(switch_prob) when both alphas are on
+    lam_mix: np.float32     # Beta(mixup_alpha, mixup_alpha), 1 when mixup is off
+    lam_cut: np.float32     # Beta(cutmix_alpha, cutmix_alpha), 1 when cutmix is off
+    cy: int                 # the box centre, uniform over the rows
+    cx: int                 # and the columns
+
+
+def draw_mixup_params(rng: np.random.Generator, height: int, width: int, *,
+                      mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0, prob: float = 1.0,
+                      switch_prob: float = 0.5) -> MixupParams:
+    """The batch's scalars from ``rng``, with the JAX ``mixup_cutmix_batch``'s
+    distributions: each one drawn whether or not it is used."""
+    apply = bool(rng.random() < prob)
+    switch = bool(rng.random() < switch_prob)
+    lam_mix = np.float32(rng.beta(mixup_alpha, mixup_alpha) if mixup_alpha > 0.0 else 1.0)
+    lam_cut = np.float32(rng.beta(cutmix_alpha, cutmix_alpha) if cutmix_alpha > 0.0 else 1.0)
+    cy, cx = int(rng.integers(0, height)), int(rng.integers(0, width))
+    use_cutmix = switch if (mixup_alpha > 0.0 and cutmix_alpha > 0.0) else cutmix_alpha > 0.0
+    return MixupParams(apply, use_cutmix, lam_mix, lam_cut, cy, cx)
+
+
+def _box_mask(height: int, width: int, lam: np.float32, cy: int, cx: int,
+              device: torch.device) -> Tuple[torch.Tensor, np.float32]:
+    """(mask (H, W), corrected lambda): a box of area ratio about 1 - lam
+    centred at (cy, cx), clipped at the borders (timm's ``rand_bbox``), with
+    the JAX ``_box_mask``'s arithmetic: int32 cut sizes from an fp32
+    sqrt(1 - lam), and lambda corrected to the clipped box in fp32."""
+    ratio = np.sqrt(np.float32(1.0) - np.float32(lam))
+    cut_h = int(np.float32(height) * ratio)
+    cut_w = int(np.float32(width) * ratio)
+    y0, y1 = min(max(cy - cut_h // 2, 0), height), min(max(cy + cut_h // 2, 0), height)
+    x0, x1 = min(max(cx - cut_w // 2, 0), width), min(max(cx + cut_w // 2, 0), width)
+    rows = torch.arange(height, device=device)[:, None]
+    cols = torch.arange(width, device=device)[None, :]
+    mask = (rows >= y0) & (rows < y1) & (cols >= x0) & (cols < x1)
+    corrected = np.float32(1.0) - np.float32((y1 - y0) * (x1 - x0)) / np.float32(height * width)
+    return mask, corrected
+
+
+def apply_mixup_cutmix(images: torch.Tensor, targets: torch.Tensor, params: MixupParams,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-mode Mixup or CutMix of an NHWC batch with ``params``: one lambda
+    for the batch, each row paired with its partner in the reversed batch.
+
+    The images come back in fp32, as JAX's fp32 lambda promotes them
+    (``augment.py:289-298``): the model casts them to its compute dtype once.
+    ``targets`` are soft (fp32).  Rows whose partner is not ``valid`` keep
+    their own pixels and targets."""
+    x = images.float()
+    if not params.apply:
+        return x, targets
+    flipped = torch.flip(x, dims=(0,))
+    flipped_targets = torch.flip(targets, dims=(0,))
+    if params.use_cutmix:
+        box, lam = _box_mask(x.shape[1], x.shape[2], params.lam_cut, params.cy, params.cx,
+                             x.device)
+        mixed = torch.where(box[None, :, :, None], flipped, x)
+    else:
+        lam = np.float32(params.lam_mix)
+        mixed = float(lam) * x + float(np.float32(1.0) - lam) * flipped
+    mixed_targets = float(lam) * targets + float(np.float32(1.0) - lam) * flipped_targets
+    if valid is not None:
+        pair_ok = (valid & torch.flip(valid, dims=(0,)))[:, None]
+        mixed_targets = torch.where(pair_ok, mixed_targets, targets)
+        mixed = torch.where(pair_ok[:, :, None, None], mixed, x)
+    return mixed, mixed_targets
+
+
+def mixup_cutmix_batch(images: torch.Tensor, targets: torch.Tensor, rng: np.random.Generator,
+                       *, mixup_alpha: float = 0.0, cutmix_alpha: float = 0.0,
+                       prob: float = 1.0, switch_prob: float = 0.5,
+                       valid: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX ``mixup_cutmix_batch`` with a numpy generator for its key:
+    the batch unchanged when both alphas are off, else a draw and
+    :func:`apply_mixup_cutmix`."""
+    if mixup_alpha <= 0.0 and cutmix_alpha <= 0.0:
+        return images, targets
+    params = draw_mixup_params(rng, images.shape[1], images.shape[2], mixup_alpha=mixup_alpha,
+                               cutmix_alpha=cutmix_alpha, prob=prob, switch_prob=switch_prob)
+    return apply_mixup_cutmix(images, targets, params, valid)
+
+
+class ErasingParams(NamedTuple):
+    """Per-sample RandomErasing draws on the batch's device: B samples, each
+    with ``count`` boxes."""
+
+    do: torch.Tensor         # (B,) bool, Bernoulli(prob)
+    area: torch.Tensor       # (B, count) fp32, the box's area fraction in [scale)
+    log_ratio: torch.Tensor  # (B, count) fp32, log aspect ratio in [log ratio)
+    y0: torch.Tensor         # (B, count) int64, top row in [0, H)
+    x0: torch.Tensor         # (B, count) int64, left column in [0, W)
+    noise: torch.Tensor      # (count, B, H, W, C) unit normal in the images' dtype
+
+
+def draw_erasing_params(shape: Tuple[int, int, int, int], generator: torch.Generator, *,
+                        prob: float = 0.25, scale: Tuple[float, float] = (0.02, 1.0 / 3.0),
+                        ratio: Tuple[float, float] = (0.3, 10.0 / 3.0), count: int = 1,
+                        dtype: torch.dtype = torch.float32) -> ErasingParams:
+    """Draws for a (B, H, W, C) batch from ``generator``, on its device, with
+    the JAX ``random_erasing``'s ranges."""
+    b, h, w, c = shape
+    device = generator.device
+
+    def uniform(low: float, high: float) -> torch.Tensor:
+        return torch.rand((b, count), generator=generator, device=device) * (high - low) + low
+
+    do = torch.rand(b, generator=generator, device=device) < prob
+    area = uniform(scale[0], scale[1])
+    log_ratio = uniform(math.log(ratio[0]), math.log(ratio[1]))
+    y0 = torch.randint(0, h, (b, count), generator=generator, device=device)
+    x0 = torch.randint(0, w, (b, count), generator=generator, device=device)
+    noise = torch.randn((count, b, h, w, c), generator=generator, device=device, dtype=dtype)
+    return ErasingParams(do, area, log_ratio, y0, x0, noise)
+
+
+def apply_random_erasing(images: torch.Tensor, params: ErasingParams) -> torch.Tensor:
+    """RandomErasing in ``pixel`` mode with ``params``: each sample drawn to
+    erase gets its boxes, in order, filled with its noise (the JAX
+    ``random_erasing``'s boxes, clipped at the borders where timm
+    rejection-samples).  Each box's mask is built from iotas over (B, H, W)."""
+    b, h, w, _ = images.shape
+    area = params.area * h * w
+    aspect = torch.exp(params.log_ratio)
+    eh = torch.clamp(torch.sqrt(area * aspect).to(torch.int32), 1, h)
+    ew = torch.clamp(torch.sqrt(area / aspect).to(torch.int32), 1, w)
+    rows = torch.arange(h, device=images.device)[None, :, None]
+    cols = torch.arange(w, device=images.device)[None, None, :]
+    out = images
+    for i in range(params.area.shape[1]):
+        y0, x0 = params.y0[:, i, None, None], params.x0[:, i, None, None]
+        box = (params.do[:, None, None] & (rows >= y0) & (rows < y0 + eh[:, i, None, None])
+               & (cols >= x0) & (cols < x0 + ew[:, i, None, None]))
+        out = torch.where(box[..., None], params.noise[i], out)
+    return out
+
+
+def random_erasing(images: torch.Tensor, generator: torch.Generator, *, prob: float = 0.25,
+                   scale: Tuple[float, float] = (0.02, 1.0 / 3.0),
+                   ratio: Tuple[float, float] = (0.3, 10.0 / 3.0),
+                   count: int = 1) -> torch.Tensor:
+    """The JAX ``random_erasing`` with a ``torch.Generator`` for its key: the
+    batch unchanged when ``prob`` or ``count`` is 0, else a draw and
+    :func:`apply_random_erasing`."""
+    if prob <= 0.0 or count <= 0:
+        return images
+    params = draw_erasing_params(tuple(images.shape), generator, prob=prob, scale=scale,
+                                 ratio=ratio, count=count, dtype=images.dtype)
+    return apply_random_erasing(images, params)

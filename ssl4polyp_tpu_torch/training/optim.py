@@ -1,10 +1,12 @@
-"""AdamW with per-parameter learning-rate and weight-decay scales.
+"""AdamW with per-parameter learning-rate and weight-decay scales, and LARS.
 
 Counterpart of ``ssl4polyp_tpu/training/optim.py`` (``adamw_init``,
 ``adamw_update``, ``no_weight_decay_scales``, ``pretrain_lr_scales``,
-``finetune_lr_scales``, ``global_norm``): plain torch on fp32 tensors keyed
-by parameter name, the same formula (``torch.optim.AdamW``'s: bias-corrected moments, decoupled
-weight decay scaled by the step's learning rate)::
+``finetune_lr_scales``, ``layerwise_lr_decay_scales``, the LARS of the
+linear probe, ``global_norm``, ``clip_by_global_norm``): plain torch on fp32
+tensors keyed by parameter name.  AdamW has the same formula
+(``torch.optim.AdamW``'s: bias-corrected moments, decoupled weight decay
+scaled by the step's learning rate)::
 
     step_dir = m_hat / (sqrt(n_hat) + eps) + weight_decay * ws * p
     p = p - lr * ls * step_dir
@@ -20,21 +22,27 @@ update together through torch's ``_foreach`` ops.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..ops.adamw import adamw_multi_tensor, adamw_multi_tensor_plain
 
 __all__ = [
     "AdamWState",
+    "LARSState",
     "adamw_init",
     "adamw_update",
     "adamw_update_fused",
     "adamw_update_fused_plain",
+    "clip_by_global_norm",
     "copy_into",
     "finetune_lr_scales",
     "global_norm",
+    "lars_init",
+    "lars_update",
+    "layerwise_lr_decay_scales",
     "no_weight_decay_scales",
     "pretrain_lr_scales",
     "refresh_compute_copy",
@@ -111,10 +119,94 @@ def finetune_lr_scales(
     return {name: scale(name) for name in params}
 
 
+def layerwise_lr_decay_scales(
+    params: Mapping[str, torch.Tensor],
+    depth: int,
+    decay: float = 0.75,
+    head_scale: float = 1.0,
+) -> Dict[str, float]:
+    """Layer-wise learning-rate decay for the upstream MAE fine-tune (JAX
+    ``optim.py:301-330``, the reference's ``mae/util/lr_decay.py``:
+    ``param_groups_lrd``): block i takes ``decay ** (depth - i)`` (an fp32
+    value, as the JAX package's scale vector holds it), the final norm 1,
+    the head ``head_scale``, and the embeddings (patch embedding, cls token,
+    position table) ``decay ** (depth + 1)``."""
+
+    def scale(name: str) -> float:
+        if name.startswith("head."):
+            return head_scale
+        if name.startswith("blocks."):
+            return float(np.float32(decay ** (depth - int(name.split(".")[1]))))
+        if name.startswith("norm."):
+            return 1.0
+        return decay ** (depth + 1)
+
+    return {name: scale(name) for name in params}
+
+
 def global_norm(tensors: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element, in fp32."""
     norms = torch._foreach_norm([t.float() for t in tensors.values()])
     return torch.linalg.vector_norm(torch.stack(norms))
+
+
+def clip_by_global_norm(grads: Mapping[str, torch.Tensor], max_norm: float
+                        ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """(``grads`` scaled by min(1, max_norm / norm), their global norm)
+    (JAX ``optim.py:405-409``); the factor is cast to each gradient's dtype."""
+    norm = global_norm(grads)
+    factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
+    return {n: g * factor.to(g.dtype) for n, g in grads.items()}, norm
+
+
+@dataclass
+class LARSState:
+    step: int
+    momentum: Tensors
+
+
+def lars_init(params: Mapping[str, torch.Tensor]) -> LARSState:
+    """Zero fp32 momentum for every parameter."""
+    return LARSState(step=0, momentum={n: torch.zeros_like(p, dtype=torch.float32)
+                                       for n, p in params.items()})
+
+
+@torch.no_grad()
+def lars_update(
+    params: Mapping[str, torch.Tensor],
+    grads: Mapping[str, torch.Tensor],
+    state: LARSState,
+    *,
+    lr: float,
+    weight_decay: float = 0.0,
+    momentum: float = 0.9,
+    trust_coefficient: float = 0.001,
+    lr_scale: Optional[Mapping[str, float]] = None,
+    params_c: Optional[Mapping[str, torch.Tensor]] = None,
+) -> None:
+    """One LARS step (the upstream MAE ``util/lars.py``, JAX
+    ``optim.py:348-397``) on the fp32 ``params`` and the momentum, in place.
+
+    A tensor of more than one dimension takes weight decay and the trust
+    ratio ``trust_coefficient * |p| / |g|`` (1 where either norm is 0);
+    vectors take plain momentum SGD.  Then ``m = momentum * m + g`` and
+    ``p -= lr * lr_scale * m``.  Every tensor of ``params_c`` that is a copy
+    of its own (the cast of a matrix) is rewritten from its new master.
+    Plain torch on any device: the linear probe updates two tensors."""
+    state.step += 1
+    for name, p in params.items():
+        g = grads[name].float()
+        if p.dim() > 1:
+            g = g + weight_decay * p
+            p_norm, g_norm = torch.linalg.vector_norm(p), torch.linalg.vector_norm(g)
+            trust = torch.where((p_norm > 0) & (g_norm > 0),
+                                trust_coefficient * p_norm / g_norm, torch.ones_like(p_norm))
+            g = g * trust
+        m = state.momentum[name]
+        m.mul_(momentum).add_(g)
+        p.sub_(m * (lr * (1.0 if lr_scale is None else lr_scale[name])))
+    if params_c is not None:
+        refresh_compute_copy(params, {n: params_c[n] for n in params})
 
 
 def _bias_corrections(step: int, b1: float, b2: float) -> tuple[float, float]:

@@ -37,7 +37,8 @@ assert {"ssl4polyp_tpu_torch.training.pretrain", "ssl4polyp_tpu_torch.training.h
         "ssl4polyp_tpu_torch.configs.layered", "ssl4polyp_tpu_torch.training.layout",
         "ssl4polyp_tpu_torch.training.protocol", "ssl4polyp_tpu_torch.training.schedules",
         "ssl4polyp_tpu_torch.metrics.threshold_store",
-        "ssl4polyp_tpu_torch.evaluation.exports"} <= set(modules)
+        "ssl4polyp_tpu_torch.evaluation.exports",
+        "ssl4polyp_tpu_torch.training.mae_finetune"} <= set(modules)
 import chip_smoke  # noqa: F401  (main() is not run)
 
 from ssl4polyp_tpu_torch.models.factory import get_mae_backbone
@@ -149,6 +150,26 @@ with tempfile.TemporaryDirectory() as tmp:
                        output_dir=Path(tmp) / "eval", export_outputs=True)
     assert summary["n_frames"] == 6 and summary["tau"] == 0.25 and np.isfinite(summary["loss"])
     assert (Path(tmp) / "eval" / "logits.pt").exists()
+
+# The upstream MAE fine-tune (Mixup/CutMix, erasing, layer decay) and the
+# linear probe (LARS) on a tiny pack.
+from ssl4polyp_tpu_torch.data.packs import create_classification_datasets
+from ssl4polyp_tpu_torch.training.mae_finetune import (MAEFinetuneSettings, run_linear_probe,
+                                                       run_mae_finetune)
+
+with tempfile.TemporaryDirectory() as tmp:
+    pack = build_synthetic_pack(Path(tmp), name="tiny", splits=("train",), frames_per_split=8,
+                                image_size=32)
+    train = create_classification_datasets(train_spec=pack, image_size=32)["train"]
+    settings = MAEFinetuneSettings(epochs=1, warmup_epochs=0, batch_size=4, num_workers=1,
+                                   mixup_alpha=0.8, cutmix_alpha=1.0)
+    tuned = run_mae_finetune(classifier, train, settings, device="cpu")
+    probed = run_linear_probe(classifier, train, MAEFinetuneSettings(
+        epochs=1, warmup_epochs=0, batch_size=4, num_workers=1, base_lr=0.1, weight_decay=0.0,
+        smoothing=0.0), device="cpu")
+    assert np.isfinite(tuned["train_loss"]) and np.isfinite(probed["train_loss"])
+    assert set(tuned["params"]) == set(probed["params"]) == set(
+        dict(classifier.model.named_parameters()))
 
 leaked = sorted(m for m in sys.modules
                 if (m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
@@ -404,7 +425,29 @@ def test_every_device_parameter_defaults_to_the_card():
             "ssl4polyp_tpu_torch.models.factory.get_mae_backbone",
             "ssl4polyp_tpu_torch.models.factory.get_imagenet_or_random_vit",
             "ssl4polyp_tpu_torch.evaluation.eval_classification.evaluate",
-            "ssl4polyp_tpu_torch.training.pretrain.PretrainSettings"} <= set(seen)
+            "ssl4polyp_tpu_torch.training.pretrain.PretrainSettings",
+            "ssl4polyp_tpu_torch.training.mae_finetune.run_mae_finetune",
+            "ssl4polyp_tpu_torch.training.mae_finetune.run_linear_probe"} <= set(seen)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["run_mae_finetune", "run_linear_probe"])
+def test_mae_finetune_engines_refuse_a_classifier_on_another_device(engine, tmp_path):
+    import torch
+
+    from ssl4polyp_tpu_torch.models.factory import build_classifier
+    from ssl4polyp_tpu_torch.training import mae_finetune
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    on_cpu = build_classifier(torch.Generator().manual_seed(0), {}, device="cpu", img_size=32,
+                              patch_size=8, embed_dim=64, depth=1, num_heads=1)
+    with pytest.raises(ValueError, match="not on cuda"):
+        getattr(mae_finetune, engine)(on_cpu, None, device="cuda")
+    on_card = build_classifier(torch.Generator().manual_seed(0), {}, device="cuda", img_size=32,
+                               patch_size=8, embed_dim=64, depth=1, num_heads=1)
+    with pytest.raises(ValueError, match="not on cpu"):
+        getattr(mae_finetune, engine)(on_card, None, device="cpu")
 
 
 def test_chip_smoke_fails_without_cuda():
