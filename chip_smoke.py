@@ -3,8 +3,9 @@
 engine, classifier fine-tune step (with and without ``BENCH_ATTN_PROJ=1``),
 its two attention functions of ``ops`` that no model route calls, its
 standalone eval CLI, its fine-tune engine, exp1's two arms from their
-weight files, the dense model, and the upstream MAE fine-tune and linear
-probe on one NVIDIA GPU.
+weight files, the dense model, the upstream MAE fine-tune and linear
+probe, and the pack tools with exp5b's 15,840-row evaluation on one NVIDIA
+GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -175,6 +176,26 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    to the file's, the head moved, two runs bit-equal, the encoder's forward
    kernels only.  Prints each run's images/s, over its wall and over its
    steps after the first, and the phase's seconds.
+11. The pack tools (``ssl4polyp_tpu_torch/polypdb``) and exp5b at the
+   study's size: ``build_synthetic_sun_root`` (what ``polypdb synth-root``
+   calls) writes a SUN root of 224 px JPEG frames, 45 positive cases of 33
+   and 3 negative videos of 495; ``polypdb sun build --cases-per-split 15
+   15 15`` and ``polypdb sun perturbations`` run through the port's CLI
+   (990 / 990 / 990 rows, then 15,840), each manifest's rows, counts,
+   assertions and hashes checked and every row's seed the HMAC rule's.
+   ``config/exp/exp1.yaml``'s ``sup_imnet`` arm through ``cli_main`` on the
+   built sun_full (hashes verified, an AugReg ``.npz``, one epoch of 4
+   steps of 64, the full 990-frame val and test) is the canonical SUN
+   parent under a temporary ``classification`` root; ``config/exp/exp5b.yaml``'s
+   same arm and seed through ``cli_main`` finds it there and evaluates all
+   15,840 rows, perturbations rendered in the loader: all 16 grid tags and
+   ``ALL-perturbed`` in ``metrics.json``, the frozen tau bit-equal to the
+   parent's sun-val tau, the 990 clean rows' probabilities within 1e-6 of
+   the parent's test exports frame by frame, exact launch counts (the
+   parent's steps and 32 eval batches, exp5b's 248).  Prints the seconds
+   to write the root, to build each pack and to hash, and the exp5b test
+   evaluation's rows/s over its wall (host clock), beside the card's name
+   and power limit.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -2903,6 +2924,255 @@ def phase_mae_finetune(packs: Path) -> dict[str, int]:
     return total
 
 
+# The synthetic SUN root of phase 11: 45 positive cases of 33 frames and 3
+# negative source videos of 495 frames (15 chunks of 33 each), which `sun
+# build --cases-per-split 15 15 15` turns into the study's 990-frame test
+# split (15 cases a side) and as many train and val frames.
+PT_POS_CASES, PT_FRAMES_PER_CASE = 45, 33
+PT_NEG_SOURCES, PT_FRAMES_PER_SOURCE = 3, 495
+PT_CASES_PER_SPLIT = (15, 15, 15)
+PT_IMAGE = 224
+PT_SPLIT_FRAMES = 2 * PT_CASES_PER_SPLIT[2] * PT_FRAMES_PER_CASE  # 990 a split
+PT_GRID_ROWS = 16 * PT_SPLIT_FRAMES  # 15,840
+PT_TRAIN_STEPS = 4
+PT_LOADER_BATCHES = 15  # batches of the loader timed alone, a pack
+# The exp5b run's clean rows against the parent's test exports: the same
+# 990 frames through the same forward in batches of other rows.
+PT_PROB_ATOL = 1e-6
+
+
+def _csv_rows(path: Path) -> list[dict]:
+    import csv
+
+    with open(path, newline="", encoding="utf-8") as handle:
+        return list(csv.DictReader(handle))
+
+
+def phase_pack_tools() -> dict[str, int]:
+    """The pack tools (``ssl4polyp_tpu_torch/polypdb``) and exp5b at the
+    study's size: a synthetic SUN root of 224 px JPEG frames
+    (``build_synthetic_sun_root``, the function ``polypdb synth-root``
+    calls), ``polypdb sun build --cases-per-split 15 15 15`` (990 / 990 /
+    990 rows) and ``polypdb sun perturbations`` (15,840 rows, per-row HMAC
+    seeds, rendered in the pipeline) through the port's CLI, each
+    manifest's rows, counts, assertions and hashes checked.  Then
+    ``config/exp/exp1.yaml``'s ``sup_imnet`` arm through ``cli_main`` on the
+    built sun_full (hashes verified, weights from an AugReg ``.npz``, one
+    epoch of 4 steps of 64, full val and test) as the canonical SUN parent
+    under ``<tmp>/classification``, and ``config/exp/exp5b.yaml``'s same arm
+    and seed through ``cli_main``, which finds that parent as a user's run
+    does and evaluates all 15,840 rows at full width: all 16 grid tags and
+    ``ALL-perturbed`` in ``metrics.json``, the frozen tau bit-equal to the
+    parent's sun-val tau, the clean rows' probabilities within PT_PROB_ATOL
+    of the parent's test exports frame by frame, exact launch counts."""
+    import hmac
+
+    from ssl4polyp_tpu_torch.polypdb import cli as polypdb_cli
+    from ssl4polyp_tpu_torch.polypdb.builders import PERTURBATION_GRID
+    from ssl4polyp_tpu_torch.polypdb.synth import build_synthetic_sun_root
+    from ssl4polyp_tpu_torch.training import classification as engine
+
+    cfg = ViTConfig(num_classes=2)
+    depth = cfg.depth
+    per_step = {"fused_qkv_attention": depth, "fused_qkv_attention_backward": depth,
+                "layernorm": 2 * depth + 1, "layernorm_backward": 2 * depth + 1,
+                "fc1_gelu": depth, "adamw": 3}
+    per_eval = {"fused_qkv_attention": depth, "layernorm": 2 * depth + 1, "fc1_gelu": depth}
+    split_batches = -(-PT_SPLIT_FRAMES // BATCH)
+    grid_batches = -(-PT_GRID_ROWS // BATCH)
+    total: dict[str, int] = {}
+    phase_start = time.perf_counter()
+
+    def add(counts: dict[str, int]) -> None:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    def polypdb(argv: list[str]) -> tuple[str, float]:
+        printed = io.StringIO()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            polypdb_cli.main(argv)
+        return printed.getvalue().strip(), time.perf_counter() - start
+
+    with tempfile.TemporaryDirectory() as tmp, projection_fold(False):
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        root = build_synthetic_sun_root(
+            tmp / "sun_root", pos_cases=PT_POS_CASES, frames_per_case=PT_FRAMES_PER_CASE,
+            neg_sources=PT_NEG_SOURCES, frames_per_source=PT_FRAMES_PER_SOURCE,
+            image_size=PT_IMAGE, seed=SEED)
+        root_s = time.perf_counter() - start
+        n_frames = len(list(root.rglob("*.jpg")))
+        packs = tmp / "data_packs"
+        full, grid = packs / "sun_full", packs / "sun_test_perturbations"
+        said, build_s = polypdb(["sun", "build", "--root", str(root), "--out", str(full),
+                                 "--frames-per-case", str(PT_FRAMES_PER_CASE),
+                                 "--cases-per-split", *map(str, PT_CASES_PER_SPLIT)])
+        said_grid, grid_s = polypdb(["sun", "perturbations", "--pack", str(full), "--out",
+                                     str(grid)])
+        if said != f"wrote pack to {full}" or said_grid != f"wrote perturbation grid to {grid}":
+            fail(f"polypdb printed {said!r}, {said_grid!r}")
+
+        # Each manifest's rows, counts, assertions and hashes.
+        start = time.perf_counter()
+        digests = {(pack, split): hashlib.sha256((pack / f"{split}.csv").read_bytes()).hexdigest()
+                   for pack, split in [(full, s) for s in ("train", "val", "test")]
+                   + [(grid, "test")]}
+        hash_s = time.perf_counter() - start
+        import yaml
+
+        manifest = yaml.safe_load((full / "manifest.yaml").read_text())
+        grid_manifest = yaml.safe_load((grid / "manifest.yaml").read_text())
+        full_rows = {s: _csv_rows(full / f"{s}.csv") for s in ("train", "val", "test")}
+        grid_rows = _csv_rows(grid / "test.csv")
+        problems = []
+        for split, cases in zip(full_rows, PT_CASES_PER_SPLIT):
+            rows = full_rows[split]
+            want = {"pos_cases": cases, "neg_cases": cases,
+                    "frames": 2 * cases * PT_FRAMES_PER_CASE}
+            if (len(rows) != want["frames"] or manifest["hashes"][split] != digests[full, split]
+                    or manifest["counts"][split]["frames"] != want["frames"]
+                    or manifest["assertions"]["split_targets_met"][split] != want):
+                problems.append(f"sun_full {split}: {len(rows)} rows, {manifest['counts'][split]}")
+        if manifest["assertions"].get(f"all_cases_have_{PT_FRAMES_PER_CASE}_frames") is not True:
+            problems.append(f"sun_full: case lengths {manifest['case_lengths']}")
+        ids = [str(spec["id"]) for spec in PERTURBATION_GRID]
+        seeds_wrong = sum(
+            row["render_in_pipeline"] != "True" or int(row["rng_seed"]) != int.from_bytes(
+                hmac.new(b"47", f"{row['orig_frame_id']}:{row['perturbation_id']}".encode(),
+                         hashlib.sha256).digest()[:4], "big")
+            for row in grid_rows)
+        if (len(grid_rows) != PT_GRID_ROWS or grid_manifest["hashes"]["test"] != digests[grid, "test"]
+                or grid_manifest["assertions"] != {"rows": PT_GRID_ROWS, "rows_per_clean_frame": 16,
+                                                   "clean_frames": PT_SPLIT_FRAMES}
+                or [row["perturbation_id"] for row in grid_rows[:16]] != ids or seeds_wrong):
+            problems.append(f"sun_test_perturbations: {len(grid_rows)} rows, assertions "
+                            f"{grid_manifest['assertions']}, {seeds_wrong} rows off the seed rule")
+        if problems:
+            fail(f"pack tools: {problems}")
+        print(f"pack tools: a SUN root of {n_frames} JPEG frames of {PT_IMAGE} px ({PT_POS_CASES} "
+              f"cases of {PT_FRAMES_PER_CASE}, {PT_NEG_SOURCES} negative videos of "
+              f"{PT_FRAMES_PER_SOURCE}) written in {root_s:.2f} s; `polypdb sun build "
+              f"--cases-per-split {' '.join(map(str, PT_CASES_PER_SPLIT))}` {build_s:.2f} s "
+              f"({' / '.join(str(len(r)) for r in full_rows.values())} rows); `polypdb sun "
+              f"perturbations` {grid_s:.2f} s ({len(grid_rows)} rows, every seed the HMAC rule's); "
+              f"the 4 CSVs hashed against their manifests in {hash_s:.3f} s; {CARD}")
+        print(f"pack tools: cuts from the study's SUN: train {PT_CASES_PER_SPLIT[0]} cases a "
+              f"side where SUN has 70 (val and test keep its 15); frames {PT_IMAGE} px where "
+              "SUN's are 1240x1080")
+
+        # The parent: exp1's sup_imnet arm from an AugReg .npz, on the built pack.
+        weights = tmp / "checkpoint_root"
+        model = config_model("sup_imnet")
+        write_augreg_npz(weights / model["checkpoint"], cfg, np.random.default_rng(SEED + 2))
+        classification = tmp / "classification"
+        ops.reset_launch_counts()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            parent = engine.cli_main([
+                "--exp-config", "config/exp/exp1.yaml", "--model-key", "sup_imnet",
+                "--seed", "13", "--pack-root", str(packs), "--checkpoint-root", str(weights),
+                "--thresholds-root", str(tmp / "thresholds"),
+                "--output-dir", str(classification / "exp1_sup_imnet_seed13"),
+                "--device", "cuda", "--override", "epochs=1", "--override", f"batch_size={BATCH}",
+                "--limit-train-batches", str(PT_TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        parent_wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        add(counts)
+        check_counts(counts, {name: PT_TRAIN_STEPS * per_step.get(name, 0)
+                              + 2 * split_batches * per_eval.get(name, 0) for name in counts}, 1,
+                     f"the exp1 parent: {PT_TRAIN_STEPS} steps, {split_batches} val and "
+                     f"{split_batches} test batches")
+        parent_dir = Path(parent["metrics_path"]).parent
+        parent_payload = parent["payload"]
+        if parent["epochs_run"] != 1 or not 0.0 <= parent["tau"] <= 1.0:
+            fail(f"exp1 parent: {parent['epochs_run']} epochs, tau {parent['tau']}")
+        print(f"exp1 sup_imnet parent (ViT-B/16, batch {BATCH}, {PT_TRAIN_STEPS} steps, "
+              f"{PT_SPLIT_FRAMES} val and test frames): sun-val tau {parent['tau']!r}, test AUROC "
+              f"{parent_payload['test_primary']['auroc']:.4f}; {parent_wall:.1f} s wall (build "
+              f"{parent['timings']['build_s']:.2f} s, test {parent['timings']['test_s']:.2f} s); "
+              f"{CARD}")
+
+        # exp5b: the same arm and seed, the canonical parent found under
+        # <tmp>/classification, all 15,840 rows on the card.
+        ops.reset_launch_counts()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            summary = engine.cli_main([
+                "--exp-config", "config/exp/exp5b.yaml", "--model-key", "sup_imnet",
+                "--seed", "13", "--pack-root", str(packs),
+                "--thresholds-root", str(tmp / "thresholds"),
+                "--output-dir", str(classification / "exp5b"), "--device", "cuda",
+                "--override", f"batch_size={BATCH}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        add(counts)
+        check_counts(counts, per_eval, grid_batches,
+                     f"exp5b: {grid_batches} eval batches of the {PT_GRID_ROWS} rows")
+        payload = json.loads(Path(summary["metrics_path"]).read_text())
+        parent_ckpt = payload.get("provenance", {}).get("parent_run", {}).get("checkpoint", "")
+        per_tag = payload.get("test_perturbations", {}).get("per_tag", {})
+        tau = payload["thresholds"]["primary"]["tau"]
+        if Path(parent_ckpt).name != f"{parent['stem']}.ckpt":
+            fail(f"exp5b: the parent run is {parent_ckpt!r}, not the exp1 run's checkpoint")
+        if set(per_tag) != set(ids) | {"ALL-perturbed"}:
+            fail(f"exp5b: per_tag holds {sorted(per_tag)}")
+        if payload.get("eval_only") is not True or tau != parent["tau"] or (
+                payload["thresholds"]["primary"]["policy"] != "sun_val_frozen"):
+            fail(f"exp5b: eval_only {payload.get('eval_only')}, tau {tau!r} against the "
+                 f"parent's sun-val {parent['tau']!r}, policy "
+                 f"{payload['thresholds']['primary']['policy']}")
+        if sum(block["count"] for tag, block in per_tag.items() if tag != "ALL-perturbed") \
+                != PT_GRID_ROWS:
+            fail(f"exp5b: per_tag counts {[(t, b['count']) for t, b in per_tag.items()]}")
+        theirs = {row["frame_id"]: float(row["prob"]) for row in
+                  _csv_rows(parent_dir / f"{parent['stem']}_test_outputs.csv")}
+        ours = [row for row in _csv_rows(Path(summary["metrics_path"]).parent
+                                         / f"{summary['stem']}_test_outputs.csv")
+                if row["perturbation_tag"] == "clean"]
+        if len(ours) != PT_SPLIT_FRAMES or set(r["frame_id"] for r in ours) != set(theirs):
+            fail(f"exp5b: {len(ours)} clean rows against the parent's {len(theirs)} test frames")
+        diffs = [abs(float(row["prob"]) - theirs[row["frame_id"]]) for row in ours]
+        off = sum(d > PT_PROB_ATOL for d in diffs)
+        if off:
+            fail(f"exp5b: {off} clean frames' probabilities off the parent's test exports by more "
+                 f"than {PT_PROB_ATOL} (max {max(diffs):.3e})")
+        test_s = summary["timings"]["test_s"]
+        print(f"exp5b sup_imnet (ViT-B/16, batch {BATCH}, {PT_GRID_ROWS} rows, perturbations "
+              f"rendered in the loader's 8 threads): the canonical parent "
+              f"{Path(parent_ckpt).name}, tau {tau!r} bit-equal to its sun-val tau; "
+              f"{len(per_tag)} per_tag blocks (ALL-perturbed AUROC "
+              f"{per_tag['ALL-perturbed']['auroc']:.4f}, clean {per_tag['clean']['auroc']:.4f}); "
+              f"the {len(ours)} clean rows' probabilities against the parent's test exports: max "
+              f"|diff| {max(diffs):.3e} ({sum(d == 0.0 for d in diffs)} bit-equal; atol "
+              f"{PT_PROB_ATOL}); test evaluation {test_s:.2f} s, {PT_GRID_ROWS / test_s:.1f} rows/s "
+              f"(host clock); the run {wall:.2f} s wall, {PT_GRID_ROWS / wall:.1f} rows/s over it "
+              f"(build {summary['timings']['build_s']:.2f} s); {CARD}")
+        # The loader alone (no forward), as the engine builds it: the first
+        # PT_LOADER_BATCHES batches of the grid (perturbations rendered) and
+        # of sun_full's test (decode only), host clock.
+        loader_rates = {}
+        for what, spec, splits in (("grid", "sun_test_perturbations", ["test"]),
+                                   ("clean", "sun_full", [])):
+            index = create_classification_datasets(test_spec=spec, pack_root=packs,
+                                                   perturbation_splits=splits,
+                                                   image_size=PT_IMAGE)["test"]
+            loader = HostDataLoader(index, batch_size=BATCH, shuffle=False, num_workers=8,
+                                    drop_last=False)
+            start = time.perf_counter()
+            rows = 0
+            for i, batch in zip(range(PT_LOADER_BATCHES), loader):
+                rows += int(batch["valid"].sum())
+            loader_rates[what] = (rows, time.perf_counter() - start)
+        print(f"the loader alone (8 threads, batch {BATCH}, no forward; host clock): " + "; ".join(
+            f"{what} {rows} rows in {secs:.2f} s, {rows / secs:.1f} rows/s"
+            for what, (rows, secs) in loader_rates.items()) + f"; {CARD}")
+    print(f"pack tools phase: {time.perf_counter() - phase_start:.1f} s; {CARD}")
+    return total
+
+
 def config_model(name: str) -> dict:
     """The ``model:`` section of ``config/model/<name>.yaml``."""
     import yaml
@@ -2948,6 +3218,7 @@ def main() -> None:
         packs = write_engine_pack(Path(tmp))
         runs += [phase_finetune_engine(packs), phase_weight_files(packs),
                  phase_mae_finetune(packs)]
+    runs.append(phase_pack_tools())
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

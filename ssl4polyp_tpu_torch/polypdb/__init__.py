@@ -1,1 +1,1 @@
-"""Data-pack tooling of the port: the synthetic pack generator."""
+"""Offline dataset tooling: corruption variant builders and the polypdb CLI."""

@@ -1,7 +1,8 @@
 """The port imports and runs (an eval forward, a pretrain step, a fine-tune
 step, a split evaluation, the standalone eval CLI's ``evaluate``, the
 pretraining CLI for an epoch and a resume, and the fine-tune CLI through a
-tiny exp2 flow from an MAE checkpoint) without jax, flax, msgpack,
+tiny exp2 flow from an MAE checkpoint, and the pack tools' CLI from a
+synthetic SUN root to its perturbation grid) without jax, flax, msgpack,
 scikit-learn or the JAX package itself (the GPU machine lacks jax and flax),
 and imports without PyYAML and PIL (which only the
 manifest and frame readers import, where they open a file); no source of the
@@ -281,6 +282,40 @@ print("ok")
 """
 
 
+# The pack tools with the JAX stack blocked, OpenCV too (a GPU host may lack
+# it): the polypdb package and its four modules import without PyYAML and
+# PIL, and then, with both back, the port's CLI writes a SUN root, its
+# sun_full pack and the perturbation grid, as ``python -m
+# ssl4polyp_tpu_torch.polypdb.cli`` runs.
+_POLYPDB_SCRIPT = """
+import sys
+for name in ("jax", "flax", "msgpack", "yaml", "PIL", "sklearn", "ssl4polyp_tpu", "cv2"):
+    sys.modules[name] = None
+
+import importlib, runpy
+from pathlib import Path
+for name in ("__init__", "synth", "builders", "robustness", "cli"):
+    importlib.import_module("ssl4polyp_tpu_torch.polypdb" + ("" if name == "__init__" else "." + name))
+del sys.modules["yaml"], sys.modules["PIL"]
+
+tmp = Path(sys.argv[1])
+for argv in (["synth-root", "--layout", "sun", "--out", str(tmp / "root"), "--image-size", "16",
+              "--scale", "0.5"],
+             ["sun", "build", "--root", str(tmp / "root"), "--out", str(tmp / "sun_full"),
+              "--frames-per-case", "6", "--cases-per-split", "2", "1", "1"],
+             ["sun", "perturbations", "--pack", str(tmp / "sun_full"), "--out",
+              str(tmp / "sun_test_perturbations")]):
+    sys.argv = ["polypdb", *argv]
+    runpy.run_module("ssl4polyp_tpu_torch.polypdb.cli", run_name="__main__")
+
+leaked = sorted(m for m in sys.modules
+                if (m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu.") or m == "cv2")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
@@ -320,6 +355,28 @@ def test_finetune_cli_runs_an_exp2_flow_with_the_jax_stack_blocked(tmp_path):
     assert "resumed" not in (run_dir / "SslColon_SUNFull_s47.log").read_text()
 
 
+def test_pack_tools_import_and_build_with_the_jax_stack_blocked(tmp_path):
+    import yaml
+
+    from ssl4polyp_tpu.configs.manifests import load_pack
+
+    result = _run(["-c", _POLYPDB_SCRIPT, str(tmp_path)])
+    assert result.returncode == 0, result.stderr
+    lines = result.stdout.splitlines()
+    assert lines[-1] == "ok" and len(lines) == 4, lines
+    assert lines[0] == f"wrote synthetic sun root to {tmp_path / 'root'}"
+    grid = tmp_path / "sun_test_perturbations"
+    manifest = yaml.safe_load((grid / "manifest.yaml").read_text())
+    assert manifest["assertions"]["rows_per_clean_frame"] == 16
+    # The JAX package's strict loader reads the port's packs, hashes checked.
+    full = load_pack(**{s: tmp_path / "sun_full" / f"{s}.csv" for s in ("train", "val", "test")},
+                     manifest_yaml=tmp_path / "sun_full" / "manifest.yaml")
+    assert {s: len(full[s].rows) for s in ("train", "val", "test")} == {
+        "train": 24, "val": 12, "test": 12}
+    perturbed = load_pack(test=grid / "test.csv", manifest_yaml=grid / "manifest.yaml")
+    assert len(perturbed["test"].rows) == 16 * 12 == manifest["assertions"]["rows"]
+
+
 def _forbidden_import(line: str):
     """The forbidden module an ``import`` / ``from`` line names, or None.
     Lines inside functions and ``TYPE_CHECKING`` blocks count: any
@@ -346,7 +403,7 @@ def test_no_jax_import_in_the_port_sources():
             "ssl4polyp_tpu_torch/evaluation/eval_classification.py",
             "ssl4polyp_tpu_torch/ops/attention.py",
             "ssl4polyp_tpu_torch/ops/attention_block.py",
-            *WEIGHT_FILE_MODULES} <= names
+            *WEIGHT_FILE_MODULES, *POLYPDB_MODULES} <= names
     for path in sources:
         for line in path.read_text().splitlines():
             assert _forbidden_import(line) is None, f"{path}: {line}"
@@ -355,6 +412,11 @@ def test_no_jax_import_in_the_port_sources():
 # The weight-file readers and the dense model, with the modules they change.
 WEIGHT_FILE_MODULES = {f"ssl4polyp_tpu_torch/models/{name}.py" for name in (
     "pth_reader", "import_torch", "augreg_cache", "dpt", "factory", "weights", "vit", "layers")}
+
+
+# The pack tools: PyYAML, PIL and OpenCV only inside the functions that use them.
+POLYPDB_MODULES = {f"ssl4polyp_tpu_torch/polypdb/{name}.py" for name in (
+    "__init__", "synth", "builders", "robustness", "cli")}
 
 
 def test_only_the_msgpack_codec_imports_ml_dtypes_and_lazily():
