@@ -4,7 +4,8 @@ engine, classifier fine-tune step (with and without ``BENCH_ATTN_PROJ=1``),
 its two attention functions of ``ops`` that no model route calls, its
 standalone eval CLI, its fine-tune engine, exp1's two arms from their
 weight files, the dense model, the upstream MAE fine-tune and linear
-probe, and the pack tools with exp5b's 15,840-row evaluation on one NVIDIA
+probe, the pack tools with exp5b's 15,840-row evaluation, and exp1's
+seed-trio sweep through the port's scripts with its report, on one NVIDIA
 GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
@@ -196,6 +197,26 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    to write the root, to build each pack and to hash, and the exp5b test
    evaluation's rows/s over its wall (host clock), beside the card's name
    and power limit.
+12. exp1's seed-trio sweep and report through the port's own scripts, as a
+   user runs them, on phase 8's pack: an AugReg ``.npz`` and an MAE
+   ``.pth`` from numpy seeds where ``config/model/{sup_imnet,ssl_imnet}.yaml``
+   name them; ``bash scripts/torch/run_exp1.sh`` in a subprocess runs
+   ``sup_imnet`` and ``ssl_imnet`` over seeds 13, 29 and 47 (one epoch of 2
+   steps of 64, 1 val and 1 test batch each), then stages the reporting
+   inputs: exit 0, six summaries with the stems
+   ``{SupImnet,SslImnet}_SUNFull_s{13,29,47}``, and each run's metrics file,
+   test outputs, ROC and PR curves under
+   ``reporting_inputs/exp1_sun_baselines_sup_vs_ssl/``.  ``python -m
+   ssl4polyp_tpu_torch.analysis.exp_reports exp1`` on the staged tree, seed
+   check on: the markdown, CSV and manifest written, ``n_runs`` 6, the
+   ``sup_imnet->ssl_imnet`` deltas with ``auroc`` and ``f1``.  Then
+   ``SupImnet_SUNFull_s13`` again through ``cli_main`` in this process, under
+   torch's own backend flags as the sweep's processes have them: exact
+   launch counts (2 steps and 2 eval batches) and its test outputs CSV
+   byte-equal to the sweep's, which ties the subprocesses' results to the
+   kernels.  Prints the sweep's wall, each run's wall with its parts (build,
+   steps, evaluation, saves, reload and exports, the rest), the staging
+   and the report's seconds, beside the card's name and power limit.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -209,8 +230,10 @@ import contextlib
 import hashlib
 import io
 import json
+import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -349,6 +372,9 @@ FT_GRAD_RTOL = 5e-2
 FT_LR = 1e-4
 FT_WEIGHT_DECAY = 0.05
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
+# torch's backend flags as the process started (matmul TF32, cuDNN TF32,
+# bf16 reduced-precision reductions), before main() sets its own.
+TORCH_DEFAULTS: tuple[bool, bool, bool] = (False, True, True)
 
 
 def fail(message: str) -> None:
@@ -3173,6 +3199,202 @@ def phase_pack_tools() -> dict[str, int]:
     return total
 
 
+SWEEP_ARMS = ("sup_imnet", "ssl_imnet")
+SWEEP_SEEDS = (13, 29, 47)  # the study's seed trio (config/base.yaml)
+SWEEP_STEMS = [f"{tag}_SUNFull_s{seed}" for tag in ("SupImnet", "SslImnet")
+               for seed in SWEEP_SEEDS]
+SWEEP_SUBDIR = "exp1_sun_baselines_sup_vs_ssl"  # config/exp/exp1.yaml's reporting.inputs_subdir
+SWEEP_TIMEOUT_S = 600
+# Batches of 64 a run, one epoch: fewer than phase 9's, since a sweep run's
+# wall is mostly its process start, its model build and its saves.
+SWEEP_LIMIT = {"train": 2, "val": 1, "test": 1}
+
+
+def phase_study_sweep(packs: Path) -> dict[str, int]:
+    """exp1's seed-trio sweep and report through the port's own scripts, as
+    a user runs them, at full width (ViT-B/16, 224 px, batch 64) on the
+    engine pack at ``packs``: the AugReg ``.npz`` and the MAE ``.pth``
+    written from numpy seeds where ``config/model/{sup_imnet,ssl_imnet}.yaml``
+    name them under a temporary ``--checkpoint-root``; ``bash
+    scripts/torch/run_exp1.sh`` in a subprocess (six runs of the fine-tune
+    CLI, then the reporting inputs staged); ``python -m
+    ssl4polyp_tpu_torch.analysis.exp_reports exp1`` on the staged tree, seed
+    check on.  The launch counter cannot see a subprocess, so one run
+    (sup_imnet, seed 13) is repeated in this process through ``cli_main``
+    under torch's own backend settings, as a fresh process has them: its
+    launches exactly the step's and the eval forward's, and its test outputs
+    byte-equal to the sweep's run of the same stem."""
+    from ssl4polyp_tpu_torch.models.mae import MAE_VIT_B16
+    from ssl4polyp_tpu_torch.training import classification as engine
+
+    cfg = ViTConfig(num_classes=2)
+    depth = cfg.depth
+    per_step = {"fused_qkv_attention": depth, "fused_qkv_attention_backward": depth,
+                "layernorm": 2 * depth + 1, "layernorm_backward": 2 * depth + 1,
+                "fc1_gelu": depth, "adamw": 3}
+    per_eval = {"fused_qkv_attention": depth, "layernorm": 2 * depth + 1, "fc1_gelu": depth}
+    repo = Path(__file__).resolve().parent
+    phase_start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp, projection_fold(False):
+        tmp = Path(tmp)
+        weights = tmp / "checkpoint_root"
+        start = time.perf_counter()
+        write_augreg_npz(weights / config_model("sup_imnet")["checkpoint"], cfg,
+                         np.random.default_rng(SEED + 1))
+        write_mae_pth(weights / config_model("ssl_imnet")["checkpoint"], MAE_VIT_B16,
+                      np.random.default_rng(SEED))
+        weights_s = time.perf_counter() - start
+        # A user's shell: ``python`` is this interpreter, the checkout importable.
+        bin_dir = tmp / "bin"
+        bin_dir.mkdir()
+        (bin_dir / "python").write_text(f'#!/bin/sh\nexec "{sys.executable}" "$@"\n')
+        (bin_dir / "python").chmod(0o755)
+        env = {**os.environ, "PATH": f"{bin_dir}{os.pathsep}{os.environ.get('PATH', '')}",
+               "PYTHONPATH": os.pathsep.join(filter(None, [str(repo),
+                                                            os.environ.get("PYTHONPATH")])),
+               "OUTPUT_DIR": str(tmp / "out"), "RESULTS_DIR": str(tmp / "results")}
+        run_args = ["--pack-root", str(packs), "--checkpoint-root", str(weights),
+                    "--override", "epochs=1", "--override", f"batch_size={BATCH}",
+                    "--limit-train-batches", str(SWEEP_LIMIT["train"]),
+                    "--limit-val-batches", str(SWEEP_LIMIT["val"]),
+                    "--limit-test-batches", str(SWEEP_LIMIT["test"])]
+
+        # The sweep, its stdout read line by line: a run's wall is from the
+        # script's "=== ... ===" line to the run's summary line, which the
+        # CLI prints last and flushes as its process ends.
+        start = time.perf_counter()
+        marks: list[tuple[str, float]] = []
+        with open(tmp / "sweep.err", "w") as err:
+            sweep = subprocess.Popen(
+                ["bash", "scripts/torch/run_exp1.sh", *run_args,
+                 "--thresholds-root", str(tmp / "thresholds")],
+                cwd=repo, env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+            for line in sweep.stdout:
+                marks.append((line.rstrip("\n"), time.perf_counter()))
+            try:
+                rc = sweep.wait(timeout=SWEEP_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                sweep.kill()
+                sweep.wait()
+                rc = "killed at its time limit"
+        sweep_s = time.perf_counter() - start
+        if rc != 0:
+            fail(f"scripts/torch/run_exp1.sh: exit {rc}; its errors end with:\n"
+                 + (tmp / "sweep.err").read_text()[-4000:])
+        lines = [line for line, _ in marks]
+        heads = [i for i, line in enumerate(lines) if line.startswith("=== ")]
+        want_heads = [f"=== exp/exp1 model={arm} seed={seed} ===" for arm in SWEEP_ARMS
+                      for seed in SWEEP_SEEDS]
+        if [lines[i] for i in heads] != want_heads:
+            fail(f"the sweep ran {[lines[i] for i in heads]}, not {want_heads}")
+        runs = []
+        for head in heads:
+            at = next((i for i in range(head + 1, len(lines)) if lines[i].startswith("{")), None)
+            if at is None:
+                fail(f"no summary line after {lines[head]!r}")
+            runs.append((json.loads(lines[at]), marks[at][1] - marks[head][1], marks[at][1]))
+        if [summary["stem"] for summary, _, _ in runs] != SWEEP_STEMS or any(
+                summary["epochs_run"] != 1 or not 0.0 <= summary["tau"] <= 1.0
+                for summary, _, _ in runs):
+            fail("the sweep's summaries: "
+                 f"{[(s['stem'], s['epochs_run'], s['tau']) for s, _, _ in runs]}")
+        staged_line = f"staged 24 files into reporting_inputs/{SWEEP_SUBDIR}"
+        if lines[-1] != staged_line:
+            fail(f"the sweep ended with {lines[-1]!r}, not {staged_line!r}")
+        stage_s = marks[-1][1] - runs[-1][2]
+        staged = tmp / "results" / "reporting_inputs" / SWEEP_SUBDIR
+        want = sorted(stem + suffix for stem in SWEEP_STEMS for suffix in (
+            "_last.metrics.json", "_test_outputs.csv", "_test_roc_curve.csv",
+            "_test_pr_curve.csv"))
+        got = sorted(p.name for p in staged.rglob("*") if p.is_file())
+        if got != want:
+            fail(f"reporting inputs: {got}, not {want}")
+        for summary, wall, _ in runs:
+            clock = summary["timings"]
+            parts = {"build": clock["build_s"], "train": clock["train_s"],
+                     "val and test": clock["val_s"] + clock["test_s"],
+                     "saves": sum(snapshot + write for _, snapshot, write in clock["saves"]),
+                     "reload and exports": clock["reload_s"] + clock["export_s"]}
+            print(f"sweep run {summary['stem']} (ViT-B/16, batch {BATCH}, "
+                  f"{SWEEP_LIMIT['train']} steps, {SWEEP_LIMIT['val']} val and "
+                  f"{SWEEP_LIMIT['test']} test batches): {wall:.1f} s wall, of it "
+                  + ", ".join(f"{k} {v:.2f} s" for k, v in parts.items())
+                  + f", the rest (process start and end, imports) {wall - sum(parts.values()):.2f} "
+                  f"s; test AUROC {summary['test_auroc']:.4f}, tau {summary['tau']!r}; {CARD}")
+
+        # The report, seed check on, as a user runs it.
+        report_dir = tmp / "report"
+        start = time.perf_counter()
+        report = subprocess.run(
+            ["python", "-m", "ssl4polyp_tpu_torch.analysis.exp_reports", "exp1", "--runs-root",
+             str(staged), "--output-dir", str(report_dir)],
+            cwd=repo, env=env, capture_output=True, text=True, timeout=SWEEP_TIMEOUT_S)
+        report_s = time.perf_counter() - start
+        if report.returncode != 0:
+            fail(f"exp_reports exp1: exit {report.returncode}; {report.stderr[-4000:]}")
+        written = sorted(p.name for p in report_dir.iterdir())
+        if written != ["exp1_manifest.json", "exp1_metrics.csv", "exp1_report.md"]:
+            fail(f"exp_reports exp1 wrote {written}")
+        manifest = json.loads((report_dir / "exp1_manifest.json").read_text())
+        deltas = manifest.get("deltas", {}).get("sup_imnet->ssl_imnet", {})
+        if manifest["n_runs"] != 6 or not {"auroc", "f1"} <= set(deltas):
+            fail(f"exp1 report: {manifest['n_runs']} runs, deltas {manifest.get('deltas')}")
+        auroc = deltas["auroc"]
+        print(f"exp1 report (seed check on, {auroc['n_samples']} bootstrap draws): 6 runs, "
+              f"sup_imnet->ssl_imnet AUROC delta {auroc['mean']:+.4f} [{auroc['ci_lower']:+.4f}, "
+              f"{auroc['ci_upper']:+.4f}], F1 delta {deltas['f1']['mean']:+.4f}; "
+              f"{report_s:.2f} s, process start included; {CARD}")
+
+        # One run again, in this process, where the launch counts are seen.
+        repeat = tmp / "repeat"
+        ops.reset_launch_counts()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()), torch_defaults():
+            summary = engine.cli_main([
+                "--exp-config", "exp/exp1", "--model-key", "sup_imnet", "--seed", "13",
+                "--output-dir", str(repeat), *run_args,
+                "--thresholds-root", str(tmp / "thresholds_repeat")])
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - start
+        counts = ops.launch_counts()
+        evals = SWEEP_LIMIT["val"] + SWEEP_LIMIT["test"]
+        check_counts(counts, {name: SWEEP_LIMIT["train"] * per_step.get(name, 0)
+                              + evals * per_eval.get(name, 0) for name in counts}, 1,
+                     f"the in-process repeat of {SWEEP_STEMS[0]}: {SWEEP_LIMIT['train']} steps and "
+                     f"{evals} eval batches")
+        name = f"{SWEEP_STEMS[0]}_test_outputs.csv"
+        ours = (Path(summary["metrics_path"]).parent / name).read_bytes()
+        theirs = next((tmp / "out").rglob(name)).read_bytes()
+        if ours != theirs:
+            fail(f"{name}: the in-process repeat's {len(ours)} bytes differ from the sweep's "
+                 f"{len(theirs)} (a determinism fault between processes)")
+    print(f"study sweep: exp1's 2 arms x seeds {list(SWEEP_SEEDS)} through "
+          f"scripts/torch/run_exp1.sh in {sweep_s:.1f} s (the six runs "
+          f"{sum(wall for _, wall, _ in runs):.1f} s, staging {stage_s:.2f} s, process start "
+          f"included); the report {report_s:.2f} s; the weight files written in "
+          f"{weights_s:.1f} s; the in-process repeat of {SWEEP_STEMS[0]} {repeat_s:.1f} s, its "
+          f"launches exact and its {len(ours)}-byte test outputs byte-equal to the sweep's; the "
+          f"phase {time.perf_counter() - phase_start:.1f} s; {CARD}")
+    return counts
+
+
+@contextlib.contextmanager
+def torch_defaults():
+    """torch's own backend settings, as a fresh process (the sweep's) has
+    them, in place of this script's (no TF32, no reduced-precision
+    reductions), for the duration."""
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), (torch.backends.cudnn, "allow_tf32"), \
+        (torch.backends.cuda.matmul, "allow_bf16_reduced_precision_reduction")
+    ours = [getattr(owner, name) for owner, name in flags]
+    try:
+        for (owner, name), value in zip(flags, TORCH_DEFAULTS):
+            setattr(owner, name, value)
+        yield
+    finally:
+        for (owner, name), value in zip(flags, ours):
+            setattr(owner, name, value)
+
+
 def config_model(name: str) -> dict:
     """The ``model:`` section of ``config/model/<name>.yaml``."""
     import yaml
@@ -3189,6 +3411,9 @@ def main() -> None:
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
+    global TORCH_DEFAULTS
+    TORCH_DEFAULTS = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+                      torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -3218,7 +3443,8 @@ def main() -> None:
         packs = write_engine_pack(Path(tmp))
         runs += [phase_finetune_engine(packs), phase_weight_files(packs),
                  phase_mae_finetune(packs)]
-    runs.append(phase_pack_tools())
+        runs.append(phase_pack_tools())
+        runs.append(phase_study_sweep(packs))
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

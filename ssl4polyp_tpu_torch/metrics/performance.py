@@ -9,7 +9,7 @@ probability-vs-logit sniffing), on numpy alone.  Where the JAX package calls
 (:func:`roc_auc_binary`, :func:`roc_auc_ovr_macro`,
 :func:`average_precision_binary`, :func:`average_precision_macro`,
 :func:`balanced_accuracy_score`, :func:`matthews_corrcoef`,
-:func:`recall_f1`), edge cases included: tied scores share a threshold, a
+:func:`precision_recall_f1`), edge cases included: tied scores share a threshold, a
 class absent from a subset scores what scikit-learn scores it.
 """
 
@@ -29,6 +29,7 @@ __all__ = [
     "average_precision_macro",
     "balanced_accuracy_score",
     "matthews_corrcoef",
+    "precision_recall_f1",
     "recall_f1",
     "roc_auc_binary",
     "roc_auc_ovr_macro",
@@ -88,6 +89,12 @@ def roc_auc_binary(y_true, y_score) -> float:
             RuntimeWarning, stacklevel=2)
         return float("nan")
     fps, tps = _binary_clf_curve(y_true == labels[1], y_score)
+    if fps.size > 2:
+        # Drop the points collinear with both neighbours, as scikit-learn's
+        # ``roc_curve(drop_intermediate=True)`` does: the area is the same
+        # in exact arithmetic, and the same bits only over the same points.
+        keep = np.r_[True, np.logical_or(np.diff(fps, 2), np.diff(tps, 2)), True]
+        fps, tps = fps[keep], tps[keep]
     fpr = np.r_[0.0, fps] / fps[-1]
     tpr = np.r_[0.0, tps] / tps[-1]
     return float(np.sum(np.diff(fpr) * (tpr[1:] + tpr[:-1]) / 2.0))
@@ -193,19 +200,21 @@ def matthews_corrcoef(y_true, y_pred) -> float:
     return float(cov_ytyp / np.sqrt(cov_ytyt * cov_ypyp))
 
 
-def recall_f1(y_true, y_pred, average: str = "binary"):
-    """(recall, F1) with an empty denominator scoring 0 (scikit-learn's
-    ``zero_division=0``).  ``binary``: of label 1, on two-valued data;
-    ``macro``: the unweighted mean over the labels on either side."""
+def precision_recall_f1(y_true, y_pred, average: str = "binary"):
+    """(precision, recall, F1) with an empty denominator scoring 0
+    (scikit-learn's ``zero_division=0``).  ``binary``: of label 1, on
+    two-valued data; ``macro``: the unweighted mean over the labels on
+    either side."""
     labels, C = _confusion(y_true, y_pred)
     tp = np.diag(C)
     support = C.sum(axis=1)
     predicted = C.sum(axis=0)
     with np.errstate(divide="ignore", invalid="ignore"):
+        precision = np.where(predicted > 0, tp / predicted, 0.0)
         recall = np.where(support > 0, tp / support, 0.0)
         f1 = np.where(support + predicted > 0, 2 * tp / (support + predicted), 0.0)
     if average == "macro":
-        return float(recall.mean()), float(f1.mean())
+        return float(precision.mean()), float(recall.mean()), float(f1.mean())
     if average != "binary":
         raise ValueError(f"average must be 'binary' or 'macro', got {average!r}")
     if labels.size > 2:
@@ -214,9 +223,14 @@ def recall_f1(y_true, y_pred, average: str = "binary"):
     if 1 not in labels:
         if labels.size == 2:
             raise ValueError(f"pos_label=1 is not a valid label. It should be one of {labels}")
-        return 0.0, 0.0
+        return 0.0, 0.0, 0.0
     at = int(np.where(labels == 1)[0][0])
-    return float(recall[at]), float(f1[at])
+    return float(precision[at]), float(recall[at]), float(f1[at])
+
+
+def recall_f1(y_true, y_pred, average: str = "binary"):
+    """(recall, F1) of :func:`precision_recall_f1`."""
+    return precision_recall_f1(y_true, y_pred, average)[1:]
 
 
 def _sigmoid(x: np.ndarray) -> np.ndarray:

@@ -1,12 +1,14 @@
 """The port imports and runs (an eval forward, a pretrain step, a fine-tune
 step, a split evaluation, the standalone eval CLI's ``evaluate``, the
 pretraining CLI for an epoch and a resume, and the fine-tune CLI through a
-tiny exp2 flow from an MAE checkpoint, and the pack tools' CLI from a
-synthetic SUN root to its perturbation grid) without jax, flax, msgpack,
+tiny exp2 flow from an MAE checkpoint, the pack tools' CLI from a
+synthetic SUN root to its perturbation grid, and the reporting tools' two
+CLIs from exp1's runs to its report) without jax, flax, msgpack,
 scikit-learn or the JAX package itself (the GPU machine lacks jax and flax),
 and imports without PyYAML and PIL (which only the
 manifest and frame readers import, where they open a file); no source of the
-port imports the forbidden ones, every ``device`` parameter defaults to the
+port imports the forbidden ones, no line of the port's sweep scripts
+(``scripts/torch``) runs them, every ``device`` parameter defaults to the
 card, and chip_smoke.py refuses to run without CUDA."""
 
 import json
@@ -39,7 +41,11 @@ assert {"ssl4polyp_tpu_torch.training.pretrain", "ssl4polyp_tpu_torch.training.h
         "ssl4polyp_tpu_torch.training.protocol", "ssl4polyp_tpu_torch.training.schedules",
         "ssl4polyp_tpu_torch.metrics.threshold_store",
         "ssl4polyp_tpu_torch.evaluation.exports",
-        "ssl4polyp_tpu_torch.training.mae_finetune"} <= set(modules)
+        "ssl4polyp_tpu_torch.training.mae_finetune",
+        "ssl4polyp_tpu_torch.utils.reporting_inputs",
+        *("ssl4polyp_tpu_torch.analysis." + name for name in (
+            "bootstrapper", "common", "display", "exp5a_domain_shift", "exp_reports",
+            "frame_bootstrap", "guardrails", "report_core", "seed_checks"))} <= set(modules)
 import chip_smoke  # noqa: F401  (main() is not run)
 
 from ssl4polyp_tpu_torch.models.factory import get_mae_backbone
@@ -316,6 +322,39 @@ print("ok")
 """
 
 
+# The reporting tools with the JAX stack blocked, scikit-learn too (scipy
+# stays: the card's machine has it): ``python -m
+# ssl4polyp_tpu_torch.utils.reporting_inputs`` stages exp1's runs under
+# argv[1], then ``python -m ssl4polyp_tpu_torch.analysis.exp_reports exp1``
+# reports the staged tree with the seed check on.
+_REPORTING_SCRIPT = """
+import sys
+for name in ("jax", "flax", "msgpack", "sklearn", "ssl4polyp_tpu"):
+    sys.modules[name] = None
+
+import runpy
+from pathlib import Path
+
+tmp = Path(sys.argv[1])
+for module, argv in (
+        ("ssl4polyp_tpu_torch.utils.reporting_inputs",
+         ["--exp-config", "exp/exp1", "--runs-root", str(tmp / "runs"),
+          "--results-root", str(tmp / "results")]),
+        ("ssl4polyp_tpu_torch.analysis.exp_reports",
+         ["exp1", "--runs-root",
+          str(tmp / "results" / "reporting_inputs" / "exp1_sun_baselines_sup_vs_ssl"),
+          "--output-dir", str(tmp / "report"), "--resamples", "20"])):
+    sys.argv = [module, *argv]
+    runpy.run_module(module, run_name="__main__")
+
+leaked = sorted(m for m in sys.modules
+                if (m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu.") or m == "sklearn")
+                and sys.modules[m] is not None)
+assert not leaked, leaked
+print("ok")
+"""
+
+
 def _run(args):
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     return subprocess.run([sys.executable, *args], cwd=ROOT, env=env,
@@ -377,6 +416,21 @@ def test_pack_tools_import_and_build_with_the_jax_stack_blocked(tmp_path):
     assert len(perturbed["test"].rows) == 16 * 12 == manifest["assertions"]["rows"]
 
 
+def test_reporting_tools_stage_and_report_with_the_jax_stack_blocked(tmp_path):
+    from tests.test_analysis import synth_run
+
+    for model in ("SupImnet", "SslImnet"):
+        for seed in (13, 29, 47):
+            synth_run(tmp_path / "runs" / "sun_baselines", model=model, seed=seed)
+    result = _run(["-c", _REPORTING_SCRIPT, str(tmp_path)])
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.splitlines() == [
+        "staged 24 files into reporting_inputs/exp1_sun_baselines_sup_vs_ssl",
+        f"wrote {tmp_path / 'report' / 'exp1_report.md'}", "ok"]
+    manifest = json.loads((tmp_path / "report" / "exp1_manifest.json").read_text())
+    assert manifest["n_runs"] == 6 and set(manifest["deltas"]) == {"SupImnet->SslImnet"}
+
+
 def _forbidden_import(line: str):
     """The forbidden module an ``import`` / ``from`` line names, or None.
     Lines inside functions and ``TYPE_CHECKING`` blocks count: any
@@ -396,14 +450,15 @@ def _forbidden_import(line: str):
 
 
 def test_no_jax_import_in_the_port_sources():
-    sources = [*(ROOT / "ssl4polyp_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]
+    sources = [*(ROOT / "ssl4polyp_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+               *(ROOT / "scripts" / "torch").glob("*.py")]
     assert len(sources) > 45
     names = {path.relative_to(ROOT).as_posix() for path in sources}
     assert {"ssl4polyp_tpu_torch/utils/msgpack.py", "ssl4polyp_tpu_torch/utils/checkpoint.py",
             "ssl4polyp_tpu_torch/evaluation/eval_classification.py",
             "ssl4polyp_tpu_torch/ops/attention.py",
             "ssl4polyp_tpu_torch/ops/attention_block.py",
-            *WEIGHT_FILE_MODULES, *POLYPDB_MODULES} <= names
+            *WEIGHT_FILE_MODULES, *POLYPDB_MODULES, *REPORTING_MODULES} <= names
     for path in sources:
         for line in path.read_text().splitlines():
             assert _forbidden_import(line) is None, f"{path}: {line}"
@@ -417,6 +472,55 @@ WEIGHT_FILE_MODULES = {f"ssl4polyp_tpu_torch/models/{name}.py" for name in (
 # The pack tools: PyYAML, PIL and OpenCV only inside the functions that use them.
 POLYPDB_MODULES = {f"ssl4polyp_tpu_torch/polypdb/{name}.py" for name in (
     "__init__", "synth", "builders", "robustness", "cli")}
+
+
+# The reporting tools and the sweep scripts' Python helpers.
+REPORTING_MODULES = {
+    "ssl4polyp_tpu_torch/utils/reporting_inputs.py",
+    *(f"ssl4polyp_tpu_torch/analysis/{name}.py" for name in (
+        "__init__", "bootstrapper", "common", "display", "exp5a_domain_shift", "exp_reports",
+        "frame_bootstrap", "guardrails", "report_core", "seed_checks")),
+    *(f"scripts/torch/{name}.py" for name in (
+        "print_config_seeds", "print_config_models", "check_paths"))}
+
+
+def _forbidden_in_script(line: str):
+    """What a shell line of the port's scripts must not run: a module or a
+    helper script of the JAX package, or jax, flax or scikit-learn."""
+    if re.search(r"\bssl4polyp_tpu(\.|\s|$)", line):
+        return "ssl4polyp_tpu"
+    found = re.search(r"scripts/(?!torch/)[\w/]*\.py", line)
+    if found:
+        return found.group(0)
+    found = re.search(r"\b(jax|flax|sklearn|scikit-learn)\b", line)
+    return found.group(1) if found else None
+
+
+def test_the_ports_sweep_scripts_run_only_the_port():
+    scripts = sorted((ROOT / "scripts" / "torch").glob("*.sh"))
+    assert {path.name for path in scripts} == {
+        "run_exp_common.sh", "run_exp1.sh", "run_exp2.sh", "run_exp3.sh", "run_exp4.sh",
+        "run_exp5a.sh", "run_exp5b.sh", "run_exp5c.sh", "run_exps.sh", "run_exp1_smoke.sh",
+        "build_data_packs.sh"}
+    calls = 0
+    for path in scripts:
+        for line in path.read_text().splitlines():
+            assert _forbidden_in_script(line) is None, f"{path}: {line}"
+            calls += "ssl4polyp_tpu_torch." in line
+    assert calls >= 15
+
+
+@pytest.mark.parametrize("line, found", [
+    ("python -m ssl4polyp_tpu.training.classification \\", "ssl4polyp_tpu"),
+    ("SEEDS=$(python scripts/print_config_seeds.py \"$EXP_CONFIG\")",
+     "scripts/print_config_seeds.py"),
+    ("pip install jax", "jax"),
+    ("python -m ssl4polyp_tpu_torch.training.classification \\", None),
+    ("SEEDS=$(python scripts/torch/print_config_seeds.py \"$EXP_CONFIG\")", None),
+    ('bash "$(dirname "$0")/run_exp_common.sh" exp/exp1 "$@"', None),
+])
+def test_the_script_check_finds_what_it_should(line, found):
+    assert _forbidden_in_script(line) == found
 
 
 def test_only_the_msgpack_codec_imports_ml_dtypes_and_lazily():
