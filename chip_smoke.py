@@ -4,9 +4,9 @@ engine, classifier fine-tune step (with and without ``BENCH_ATTN_PROJ=1``),
 its two attention functions of ``ops`` that no model route calls, its
 standalone eval CLI, its fine-tune engine, exp1's two arms from their
 weight files, the dense model, the upstream MAE fine-tune and linear
-probe, the pack tools with exp5b's 15,840-row evaluation, and exp1's
-seed-trio sweep through the port's scripts with its report, on one NVIDIA
-GPU.
+probe, the pack tools with exp5b's 15,840-row evaluation, exp1's
+seed-trio sweep through the port's scripts with its report, and the
+fine-tune engine as two data-parallel ranks, on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -217,6 +217,24 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    kernels.  Prints the sweep's wall, each run's wall with its parts (build,
    steps, evaluation, saves, reload and exports, the rest), the staging
    and the report's seconds, beside the card's name and power limit.
+13. The data-parallel path (``ssl4polyp_tpu_torch/parallel``) on the card's
+   one device: ``python -m torch.distributed.run --nproc-per-node 2`` starts
+   this script's rank worker (``--rank-worker``) twice under gloo, which
+   reduces CUDA tensors through the host (NCCL needs a device a rank), and
+   each rank runs the fine-tune CLI on ``config/exp/exp1.yaml``'s
+   ``sup_imnet`` arm at full width from phase 12's AugReg ``.npz`` on phase
+   8's pack: one epoch of 4 steps at a global batch of 64 (32 a rank), 1 val
+   and 2 test batches a rank.  Each rank's launches exact (its own counter,
+   from 0 before the run); step 1's all-reduced loss and gradients against
+   rank 0's recompute in one process on the gathered 64 rows; rank 1 wrote
+   nothing under the run's directories (the interpreter's audit hooks);
+   tau, epochs and the best monitor equal on both ranks; the gathered test
+   outputs in the frame order of the one-process eval CLI on the saved
+   checkpoint, probabilities within 1e-6.  Then one fine-tune step under a
+   one-rank nccl group: its all-reduces through NCCL, the updated masters
+   bit-equal to the same step without a group.  Prints the two ranks' wall,
+   each rank's steps/s and the all-reduce's share of a step, beside the
+   card's name and power limit.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -3210,12 +3228,13 @@ SWEEP_TIMEOUT_S = 600
 SWEEP_LIMIT = {"train": 2, "val": 1, "test": 1}
 
 
-def phase_study_sweep(packs: Path) -> dict[str, int]:
+def phase_study_sweep(packs: Path, weights: Path) -> dict[str, int]:
     """exp1's seed-trio sweep and report through the port's own scripts, as
     a user runs them, at full width (ViT-B/16, 224 px, batch 64) on the
     engine pack at ``packs``: the AugReg ``.npz`` and the MAE ``.pth``
     written from numpy seeds where ``config/model/{sup_imnet,ssl_imnet}.yaml``
-    name them under a temporary ``--checkpoint-root``; ``bash
+    name them under ``weights`` (the ``--checkpoint-root``, which phase 13
+    reads again); ``bash
     scripts/torch/run_exp1.sh`` in a subprocess (six runs of the fine-tune
     CLI, then the reporting inputs staged); ``python -m
     ssl4polyp_tpu_torch.analysis.exp_reports exp1`` on the staged tree, seed
@@ -3237,7 +3256,6 @@ def phase_study_sweep(packs: Path) -> dict[str, int]:
     phase_start = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp, projection_fold(False):
         tmp = Path(tmp)
-        weights = tmp / "checkpoint_root"
         start = time.perf_counter()
         write_augreg_npz(weights / config_model("sup_imnet")["checkpoint"], cfg,
                          np.random.default_rng(SEED + 1))
@@ -3378,6 +3396,376 @@ def phase_study_sweep(packs: Path) -> dict[str, int]:
     return counts
 
 
+# Phase 13: two ranks of the fine-tune engine on the card's one device.
+DP_RANKS = 2
+DP_LIMIT = {"train": 4, "val": 1, "test": 2}  # batches of 32 a rank, one epoch
+DP_RANK_BATCH = BATCH // DP_RANKS
+DP_TIMEOUT_S = 300
+# Step 1 of two ranks against one process on the gathered global batch,
+# both through the kernels.  Each row's forward is the same arithmetic at 32
+# rows a rank as at 64 in one batch, so the loss differs by the order of its
+# sums alone, unless a library product picks another algorithm at the other
+# row count (one bf16 ulp of a logit, as in phase 5's readings); the matrix
+# gradients are each rank's bf16 rounding of its partial sum, summed in
+# fp32, against one rounding of the whole sum: within a bf16 ulp (2^-8
+# relative) an element.  The K slice of each qkv bias is left out, as in
+# ``check_step_one``.
+DP_LOSS_RTOL = 5e-3
+DP_GRAD_RTOL = 1.5e-2
+DP_PROB_ATOL = 1e-6  # the gathered test outputs against the one-process eval CLI
+
+
+def watch_writes(roots) -> list[str]:
+    """Record, from here on in this process, every write under ``roots``
+    (an open for writing, a rename, a removal, a link, a new directory, a
+    copy) through the interpreter's audit hooks; returns the list the hook
+    fills."""
+    roots = [os.path.realpath(root) for root in roots]
+    seen: list[str] = []
+    write_flags = os.O_WRONLY | os.O_RDWR | os.O_CREAT | os.O_APPEND | os.O_TRUNC
+
+    def under(path) -> bool:
+        if not isinstance(path, (str, bytes, os.PathLike)):
+            return False
+        real = os.path.realpath(os.fsdecode(path))
+        return any(real == root or real.startswith(root + os.sep) for root in roots)
+
+    def hook(event: str, args: tuple) -> None:
+        if event == "open":
+            path, mode, flags = args
+            writes = (any(c in mode for c in "wax+") if isinstance(mode, str)
+                      else isinstance(flags, int) and bool(flags & write_flags))
+            if writes and under(path):
+                seen.append(f"{event} {path}")
+        elif event in ("os.rename", "os.symlink", "os.link", "shutil.copyfile"):
+            if under(args[1]):
+                seen.append(f"{event} {args[1]}")
+        elif event in ("os.remove", "os.rmdir", "os.mkdir", "os.truncate"):
+            if under(args[0]):
+                seen.append(f"{event} {args[0]}")
+
+    sys.addaudithook(hook)
+    return seen
+
+
+class StepCapture:
+    """The fine-tune engine's steps on this rank, through its module's
+    ``make_train_step`` and ``cross_replica_sum`` (patched while the
+    context is open): each step's seconds and its all-reduces' seconds,
+    between synchronisations of ``device``; and for the first ``steps``
+    steps what one process needs to recompute them (this rank's batch and
+    augmentation draws, the masters before the step) and what they gave
+    (the all-reduced loss and gradients)."""
+
+    def __init__(self, engine, steps: int, device: torch.device) -> None:
+        self.engine, self.steps, self.device = engine, steps, device
+        self.records: list[dict] = []
+        self.step_s: list[float] = []
+        self.reduce_s: list[float] = []
+        self.ctx = None
+        self._current = None
+        self._patches = []
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def __enter__(self) -> "StepCapture":
+        make_step, reduce = self.engine.make_train_step, self.engine.cross_replica_sum
+
+        def timed_reduce(tensors):
+            tensors = list(tensors)
+            self._sync()
+            start = time.perf_counter()
+            reduce(tensors)
+            self._sync()
+            self.reduce_s[-1] += time.perf_counter() - start
+            if self._current is not None and len(tensors) > 1:  # the loss, then the gradients
+                self._current["loss"] = tensors[0].clone()
+                self._current["grads"] = dict(zip(self._current["masters"],
+                                                  (t.clone() for t in tensors[1:])))
+
+        def capturing_make_step(ctx):
+            step = make_step(ctx)
+            self.ctx = ctx
+
+            def captured(state, images, labels, valid, *rest):
+                self._current = None
+                if len(self.records) < self.steps:
+                    replay = torch.Generator(device=state.generator.device)
+                    replay.set_state(state.generator.get_state())
+                    draws = draw_augment_params(images.shape[0], replay)
+                    self._current = {
+                        "batch": {"images": images.cpu().numpy(), "labels": labels.cpu().numpy(),
+                                  "valid": valid.cpu().numpy(),
+                                  **{f"draw_{k}": v.cpu().numpy()
+                                     for k, v in draws._asdict().items()}},
+                        "masters": {n: t.clone() for n, t in state.params.items()},
+                        "model": state.model}
+                    self.records.append(self._current)
+                self.reduce_s.append(0.0)
+                self._sync()
+                start = time.perf_counter()
+                out = step(state, images, labels, valid, *rest)
+                self._sync()
+                self.step_s.append(time.perf_counter() - start)
+                self._current = None
+                return out
+            return captured
+
+        self._patches = [mock.patch.object(self.engine, "make_train_step", capturing_make_step),
+                         mock.patch.object(self.engine, "cross_replica_sum", timed_reduce)]
+        for patch in self._patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for patch in self._patches:
+            patch.stop()
+
+    def gathered_errors(self) -> list[dict] | None:
+        """Every rank's captured batches gathered to rank 0, which recomputes
+        each captured step in one process on the global batch (rank 0's rows,
+        then rank 1's, ...; ``loss_and_grads`` normalising by the global
+        batch's own count) from the masters before it.  Rank 0 returns, a
+        step, the loss's relative difference and each gradient's relative
+        L2 distance to the all-reduced ones (the K slice of each qkv bias
+        left out); the other ranks None.  A collective: every rank calls it."""
+        import torch.distributed as dist
+
+        from ssl4polyp_tpu_torch.data.augment import AugmentParams
+        from ssl4polyp_tpu_torch.models.layers import compute_copy
+
+        parts: list = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, [record["batch"] for record in self.records])
+        if dist.get_rank() != 0:
+            return None
+        ctx, device = self.ctx, self.ctx.device
+        errors = []
+        for k, record in enumerate(self.records):
+            batch = {key: torch.from_numpy(np.concatenate([part[k][key] for part in parts]))
+                     .to(device) for key in record["batch"]}
+            draws = AugmentParams(**{key[len("draw_"):]: value for key, value in batch.items()
+                                     if key.startswith("draw_")})
+            masters = record["masters"]
+            state = self.engine.TrainState(
+                model=record["model"], params=masters,
+                params_c=compute_copy(masters, ctx.classifier.cfg.compute_dtype), opt=None,
+                generator=None)
+            loss, grads = self.engine.loss_and_grads(ctx, state, batch["images"], batch["labels"],
+                                                     batch["valid"], draws)
+            worst = (0.0, "")
+            for name, want in grads.items():
+                got = record["grads"][name]
+                if name.endswith("attn.qkv.bias"):
+                    d = got.shape[0] // 3
+                    got, want = (torch.cat([t[:d], t[2 * d:]]) for t in (got, want))
+                worst = max(worst, (((got - want).norm() / want.norm().clamp_min(1e-30)).item(),
+                                    name))
+            errors.append({"rows": int(batch["valid"].numel()),
+                           "loss": record["loss"].item(), "one_process_loss": loss.item(),
+                           "loss_rel": abs(record["loss"].item() - loss.item()) / abs(loss.item()),
+                           "grad_rel": worst[0], "grad_worst": worst[1], "grads": len(grads)})
+        return errors
+
+
+def rank_worker(spec_path: str) -> None:
+    """One rank of phase 13, as ``torchrun`` starts it: the fine-tune CLI
+    (``cli_main``) with the phase's arguments, this rank's launches counted
+    from 0, the first step captured and timed (``StepCapture``), and on
+    ranks past 0 every write under the run's directories recorded
+    (``watch_writes``).  Writes ``rank<r>.json`` beside the spec."""
+    import torch.distributed as dist
+
+    from ssl4polyp_tpu_torch.training import classification as engine
+
+    spec = json.loads(Path(spec_path).read_text())
+    rank = int(os.environ["RANK"])
+    writes = watch_writes(spec["roots"]) if rank else []
+    ops.reset_launch_counts()
+    start = time.perf_counter()
+    with StepCapture(engine, 1, torch.device("cuda")) as capture, \
+            contextlib.redirect_stdout(io.StringIO()):
+        summary = engine.cli_main(spec["argv"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = ops.launch_counts()  # before rank 0's recompute launches more
+    errors = capture.gathered_errors()
+    report = {"rank": rank, "world": dist.get_world_size(), "backend": dist.get_backend(),
+              "device": str(capture.ctx.device), "counts": counts, "tau": summary["tau"],
+              "epochs_run": summary["epochs_run"], "best_monitor": summary["best_monitor"],
+              "stem": summary["stem"], "metrics_path": summary["metrics_path"],
+              "timings": summary["timings"], "wall": wall, "step_s": capture.step_s,
+              "reduce_s": capture.reduce_s, "writes": list(writes), "step_errors": errors}
+    (Path(spec_path).parent / f"rank{rank}.json").write_text(json.dumps(report, default=str))
+    dist.destroy_process_group()
+
+
+def phase_data_parallel(packs: Path, weights: Path) -> dict[str, int]:
+    """Two ranks of the fine-tune engine on the card's one device under
+    gloo: ``python -m torch.distributed.run --nproc-per-node 2`` runs this
+    script's rank worker over ``config/exp/exp1.yaml``'s ``sup_imnet`` arm
+    at full width (the AugReg ``.npz`` under ``weights``, phase 8's pack):
+    one epoch of 4 steps at a global batch of 64, 1 val and 2 test batches
+    of 32 a rank.  Each rank's launches exact, step 1's all-reduced loss and
+    gradients against one process on the gathered batch, rank 1 silent, tau
+    equal on both ranks, and the gathered test outputs in the frame order of
+    the one-process eval CLI on the saved checkpoint, within
+    ``DP_PROB_ATOL``.  Then one step under a one-rank nccl group, bit-equal
+    to the same step without a group.  Returns both ranks' launches."""
+    from ssl4polyp_tpu_torch.metrics.performance import as_binary_scores
+    from ssl4polyp_tpu_torch.parallel.multihost import BACKEND_ENV
+
+    cfg = ViTConfig(num_classes=2)
+    depth = cfg.depth
+    per_step = {"fused_qkv_attention": depth, "fused_qkv_attention_backward": depth,
+                "layernorm": 2 * depth + 1, "layernorm_backward": 2 * depth + 1,
+                "fc1_gelu": depth, "adamw": 3}
+    per_eval = {"fused_qkv_attention": depth, "layernorm": 2 * depth + 1, "fc1_gelu": depth}
+    evals = DP_LIMIT["val"] + DP_LIMIT["test"]
+    repo = Path(__file__).resolve().parent
+    phase_start = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' processes share the card with this one
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        run_dir, thresholds = tmp / "run", tmp / "thresholds"
+        spec = tmp / "spec.json"
+        spec.write_text(json.dumps({"roots": [str(run_dir), str(thresholds)], "argv": [
+            "--exp-config", "exp/exp1", "--model-key", "sup_imnet", "--seed", "13",
+            "--pack-root", str(packs), "--checkpoint-root", str(weights),
+            "--output-dir", str(run_dir), "--thresholds-root", str(thresholds),
+            "--override", "epochs=1", "--override", f"batch_size={BATCH}",
+            "--limit-train-batches", str(DP_LIMIT["train"]),
+            "--limit-val-batches", str(DP_LIMIT["val"]),
+            "--limit-test-batches", str(DP_LIMIT["test"])]}))
+        env = {key: value for key, value in os.environ.items() if key != "BENCH_ATTN_PROJ"}
+        env.update({BACKEND_ENV: "gloo", "PYTHONPATH": os.pathsep.join(
+            filter(None, [str(repo), os.environ.get("PYTHONPATH")]))})
+        start = time.perf_counter()
+        with open(tmp / "ranks.log", "w") as log:
+            ranks = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc-per-node", str(DP_RANKS), str(repo / "chip_smoke.py"),
+                 "--rank-worker", str(spec)],
+                cwd=repo, env=env, stdout=log, stderr=subprocess.STDOUT, timeout=DP_TIMEOUT_S)
+        wall = time.perf_counter() - start
+        if ranks.returncode != 0:
+            fail(f"two ranks of the fine-tune engine: exit {ranks.returncode}; the log ends "
+                 f"with:\n{(tmp / 'ranks.log').read_text()[-6000:]}")
+        reports = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(DP_RANKS)]
+        for report in reports:
+            if (report["world"], report["backend"], report["device"]) != (DP_RANKS, "gloo",
+                                                                            "cuda:0"):
+                fail(f"rank {report['rank']}: world {report['world']}, backend "
+                     f"{report['backend']}, device {report['device']}")
+            check_counts(report["counts"], {name: DP_LIMIT["train"] * per_step.get(name, 0)
+                                            + evals * per_eval.get(name, 0)
+                                            for name in report["counts"]}, 1,
+                         f"rank {report['rank']} of {DP_RANKS}: {DP_LIMIT['train']} steps and "
+                         f"{evals} eval batches of {DP_RANK_BATCH}")
+        if reports[1]["writes"]:
+            fail(f"rank 1 wrote {reports[1]['writes'][:10]}")
+        taus = [report["tau"] for report in reports]
+        if taus[0] is None or len(set(taus)) != 1 or len(
+                {(r["epochs_run"], r["best_monitor"]) for r in reports}) != 1:
+            fail(f"the ranks disagree: tau {taus}, epochs and best "
+                 f"{[(r['epochs_run'], r['best_monitor']) for r in reports]}")
+        (error,) = reports[0]["step_errors"]
+        print(f"two ranks, step 1 against one process on the gathered {error['rows']} rows: loss "
+              f"{error['loss']:.6f} all-reduced, {error['one_process_loss']:.6f} in one process "
+              f"(relative diff {error['loss_rel']:.3e}, limit {DP_LOSS_RTOL}); gradients of "
+              f"{error['grads']} parameters: worst relative L2 distance {error['grad_rel']:.3e} "
+              f"({error['grad_worst']}), limit {DP_GRAD_RTOL}")
+        if not error["loss_rel"] <= DP_LOSS_RTOL or not error["grad_rel"] <= DP_GRAD_RTOL:
+            fail("two ranks: step 1 disagrees with one process on the gathered batch")
+
+        # The gathered test outputs against the one-process eval CLI on the
+        # checkpoint rank 0 saved, at the ranks' batch of 32.
+        stem = reports[0]["stem"]
+        with contextlib.redirect_stdout(io.StringIO()):
+            eval_classification.cli_main([
+                "--checkpoint", str(Path(reports[0]["metrics_path"]).parent / f"{stem}.ckpt"),
+                "--test-pack", "sun_full", "--pack-root", str(packs),
+                "--batch-size", str(DP_RANK_BATCH), "--output-dir", str(tmp / "eval"),
+                "--export-outputs"])
+        rows = _csv_rows(Path(reports[0]["metrics_path"]).parent / f"{stem}_test_outputs.csv")
+        frames = [json.loads(line)["frame_id"]
+                  for line in (tmp / "eval" / "metadata.jsonl").read_text().splitlines()]
+        probs = as_binary_scores(np.load(tmp / "eval" / "logits.npz")["logits"])
+        if [row["frame_id"] for row in rows] != frames:
+            fail("two ranks: the gathered test outputs are not in the one-process frame order")
+        prob_err = float(np.abs(np.array([float(row["prob"]) for row in rows]) - probs).max())
+        if not prob_err <= DP_PROB_ATOL:
+            fail(f"two ranks: test probabilities {prob_err:.3e} from the one-process eval CLI's")
+        step_s = [sum(r["step_s"]) for r in reports]
+        rates = ", ".join(f"{len(r['step_s']) / t:.3f}" for r, t in zip(reports, step_s))
+        shares = ", ".join(f"{sum(r['reduce_s']) / t:.3f}" for r, t in zip(reports, step_s))
+        print(f"two ranks of the fine-tune engine on one card under gloo (exp1 sup_imnet, "
+              f"ViT-B/16, global batch {BATCH}, {DP_LIMIT['train']} steps, {evals} eval batches "
+              f"a rank): {wall:.1f} s wall (process start, build and kernels' load included); "
+              f"steps/s a rank {rates} (each step between two synchronisations); the "
+              f"all-reduce's share of a step {shares}; {len(rows)} test frames in the "
+              f"one-process order, probabilities within {prob_err:.1e}; tau {taus[0]!r} on both "
+              f"ranks; rank 1 wrote nothing; {CARD}")
+    nccl_one_rank_step()
+    print(f"data-parallel phase {time.perf_counter() - phase_start:.1f} s; {CARD}")
+    return {name: sum(r["counts"][name] for r in reports) for name in reports[0]["counts"]}
+
+
+def nccl_one_rank_step() -> None:
+    """One fine-tune step at full width under a one-rank nccl group: the
+    step's two all-reduces run through NCCL, and the updated masters are
+    bit-equal to the same step without a group."""
+    import socket
+
+    import torch.distributed as dist
+
+    from ssl4polyp_tpu_torch.parallel import initialize_multihost, process_info
+    from ssl4polyp_tpu_torch.training import classification as engine
+
+    rng = np.random.default_rng(SEED + 13)
+    cfg = ViTConfig(num_classes=2)
+    tree = jax_layout_tree(cfg, rng)
+    images = torch.from_numpy(rng.integers(0, 256, (DP_RANK_BATCH, 224, 224, 3),
+                                           dtype=np.uint8)).cuda()
+    labels = torch.from_numpy(rng.integers(0, 2, DP_RANK_BATCH)).cuda()
+    valid = torch.arange(DP_RANK_BATCH, device="cuda") < DP_RANK_BATCH - 1
+    loss_args = loss_settings([3000, 1000])
+
+    def one_step() -> tuple[dict, float]:
+        classifier = get_imagenet_or_random_vit(torch.Generator().manual_seed(SEED),
+                                                jax_params=tree, num_classes=2, device="cuda")
+        state = init_train_state(classifier, torch.Generator(device="cuda").manual_seed(SEED))
+        full = optim.finetune_lr_scales(state.params, "full", cfg.depth)
+        metrics = make_train_step(step_context(classifier, *loss_args, FT_WEIGHT_DECAY))(
+            state, images, labels, valid, FT_LR, full, optim.no_weight_decay_scales(state.params))
+        return state.params, metrics["loss"].item()
+
+    alone, loss_alone = one_step()
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    reduces = []
+    reduce = engine.cross_replica_sum
+    initialize_multihost(f"tcp://127.0.0.1:{port}", world_size=1, rank=0, backend="nccl")
+    try:
+        info = process_info()
+        with mock.patch.object(engine, "cross_replica_sum",
+                               lambda tensors: reduces.append(reduce(tensors))):
+            grouped, loss_grouped = one_step()
+    finally:
+        dist.destroy_process_group()
+    if info["backend"] != "nccl" or len(reduces) != 2:
+        fail(f"the one-rank nccl step: backend {info['backend']}, {len(reduces)} all-reduces")
+    wrong = differing(alone, grouped)
+    if wrong or loss_alone != loss_grouped:
+        fail(f"the one-rank nccl step differs from the step without a group: {wrong[:5]}, loss "
+             f"{loss_grouped} against {loss_alone}")
+    print(f"one fine-tune step (ViT-B/16, batch {DP_RANK_BATCH}) under a one-rank nccl group: "
+          f"its {len(reduces)} all-reduces through NCCL, all {len(grouped)} updated masters and "
+          f"the loss bit-equal to the same step without a group")
+
+
 @contextlib.contextmanager
 def torch_defaults():
     """torch's own backend settings, as a fresh process (the sweep's) has
@@ -3408,6 +3796,9 @@ def main() -> None:
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after phase 2 (each kernel against its plain version, with "
                              "its times): no path is driven and no result line is printed")
+    parser.add_argument("--rank-worker", metavar="SPEC",
+                        help="run as one rank of phase 13, as torch.distributed.run starts it "
+                             "(SPEC: the phase's JSON file of arguments)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
@@ -3417,6 +3808,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    if args.rank_worker:
+        rank_worker(args.rank_worker)
+        return
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -3441,10 +3835,12 @@ def main() -> None:
             phase_attention_ops(torch.Generator().manual_seed(SEED)), phase_eval_cli()]
     with tempfile.TemporaryDirectory() as tmp:
         packs = write_engine_pack(Path(tmp))
+        weights = Path(tmp) / "checkpoint_root"
         runs += [phase_finetune_engine(packs), phase_weight_files(packs),
                  phase_mae_finetune(packs)]
         runs.append(phase_pack_tools())
-        runs.append(phase_study_sweep(packs))
+        runs.append(phase_study_sweep(packs, weights))
+        runs.append(phase_data_parallel(packs, weights))
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

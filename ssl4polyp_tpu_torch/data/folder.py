@@ -76,28 +76,46 @@ def sample_crop_box(
 class PretrainLoader:
     """Yields (B, S, S, 3) uint8 crops from a thread pool, deterministically.
 
-    The last short batch is dropped; batches are decoded ahead into a queue
-    of ``prefetch_batches``.
+    ``B`` is this process's batch.  With ``process_count`` > 1 each process
+    reads its contiguous stripe of the epoch's permutation, padded by wrap-
+    around to ``process_count * ceil(n / process_count)`` (the
+    DistributedSampler contract, as in the JAX loader), so that every
+    process yields the same number of batches.  With ``drop_last`` the last
+    short batch is dropped; batches are decoded ahead into a queue of
+    ``prefetch_batches``.
     """
 
     def __init__(self, index: ImageFolderIndex, batch_size: int, *, image_size: int = 224,
-                 seed: int = 0, num_workers: int = 16, prefetch_batches: int = 4) -> None:
+                 seed: int = 0, num_workers: int = 16, prefetch_batches: int = 4,
+                 process_index: int = 0, process_count: int = 1,
+                 drop_last: bool = True) -> None:
         self.index = index
         self.batch_size = batch_size
         self.image_size = image_size
         self.seed = seed
         self.num_workers = max(1, num_workers)
         self.prefetch_batches = prefetch_batches
+        self.process_index = process_index
+        self.process_count = process_count
+        self.drop_last = drop_last
         self.epoch = 0
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
 
     def _order(self) -> np.ndarray:
-        return np.random.default_rng(self.seed + self.epoch).permutation(len(self.index))
+        order = np.random.default_rng(self.seed + self.epoch).permutation(len(self.index))
+        if self.process_count > 1:
+            per = (len(order) + self.process_count - 1) // self.process_count
+            pad = per * self.process_count - len(order)
+            if pad:
+                order = np.concatenate([order, order[:pad]])
+            order = order[self.process_index * per:(self.process_index + 1) * per]
+        return order
 
     def __len__(self) -> int:
-        return len(self.index) // self.batch_size
+        n = len(self._order())
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _decode(self, position: int) -> np.ndarray:
         from PIL import Image

@@ -35,6 +35,7 @@ from ..data.loader import HostDataLoader
 from ..data.packs import create_classification_datasets
 from ..metrics.thresholds import compute_youden_threshold, load_thresholds
 from ..models.factory import build_classifier
+from ..parallel import build_mesh, initialize_multihost, is_primary, local_device, process_index
 from ..training.classification import make_forward_fn
 from ..utils.checkpoint import load_checkpoint, load_checkpoint_meta
 from .eval_outputs import write_outputs
@@ -198,10 +199,15 @@ def evaluate(
     """Evaluate a trained classifier checkpoint on a test pack.
 
     The model runs on ``device``: on a CUDA device through the port's
-    kernels, on ``"cpu"`` (the tests) through their plain versions.  One
-    process evaluates the whole pack (the JAX package's per-host stripes come
-    with the multi-GPU slice)."""
+    kernels, on ``"cpu"`` (the tests) through their plain versions.  In a
+    process group each rank evaluates its contiguous stripe of the pack at
+    ``batch_size / N`` rows a batch, every rank gets the gathered results
+    (the one-process frame order), and only rank 0 writes."""
     checkpoint = Path(checkpoint)
+    rank, ranks = process_index(), build_mesh().data
+    if batch_size % ranks:
+        raise ValueError(f"batch_size {batch_size} does not divide over {ranks} ranks")
+    rank_batch = batch_size // ranks
     restored = load_checkpoint(checkpoint)
 
     datasets = create_classification_datasets(
@@ -238,7 +244,8 @@ def evaluate(
             val_spec=threshold_pack, pack_root=pack_root, image_size=image_size,
         )
         th_loader = HostDataLoader(
-            th_sets["val"], batch_size=batch_size, shuffle=False, num_workers=num_workers,
+            th_sets["val"], batch_size=rank_batch, shuffle=False, num_workers=num_workers,
+            process_index=rank, process_count=ranks,
         )
         th_results = evaluate_split(
             forward, th_loader, th_sets["val"],
@@ -249,7 +256,8 @@ def evaluate(
         )
 
     loader = HostDataLoader(
-        index, batch_size=batch_size, shuffle=False, num_workers=num_workers, drop_last=False,
+        index, batch_size=rank_batch, shuffle=False, num_workers=num_workers, drop_last=False,
+        process_index=rank, process_count=ranks,
     )
     results = evaluate_split(
         forward, loader, index,
@@ -265,7 +273,7 @@ def evaluate(
     summary["checkpoint"] = str(checkpoint)
     summary["n_frames"] = int(len(results["targets"]))
 
-    if output_dir is not None:
+    if output_dir is not None and is_primary():
         output_dir = Path(output_dir)
         output_dir.mkdir(parents=True, exist_ok=True)
         lines = [f"checkpoint: {checkpoint}", f"tau: {resolved_tau}"]
@@ -305,6 +313,8 @@ def cli_main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--device", default="cuda",
                         help="where the model runs; the kernels need a CUDA device")
     args = parser.parse_args(argv)
+    device = local_device(args.device)
+    initialize_multihost(backend="gloo" if device.type == "cpu" else None)
 
     checkpoint: Optional[Path] = Path(args.checkpoint) if args.checkpoint else None
     if checkpoint is None:
@@ -337,7 +347,7 @@ def cli_main(argv: Optional[List[str]] = None) -> None:
         output_dir=Path(args.output_dir),
         export_outputs=args.export_outputs,
         num_workers=args.num_workers,
-        device=args.device,
+        device=device,
     )
     print(json.dumps(summary, indent=2, default=str))
 

@@ -223,7 +223,10 @@ def evaluate_split(
     # padding masked valid=False).  All-gather the fixed-shape per-rank
     # arrays so that EVERY rank computes identical metrics and thresholds:
     # divergent host-side decisions (early stop, best checkpoint, tau) would
-    # desynchronise the ranks.
+    # desynchronise the ranks.  The gathered rows are rank 0's, then rank
+    # 1's, ...: for an unshuffled split the stripes are contiguous and only
+    # the last is padded, so after the valid filter the frames keep the
+    # one-process order (unless ``limit_batches`` cut the stripes short).
     if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
         logits, targets, positions, valid = (
             _all_gather(arr) for arr in (logits, targets, positions, valid)

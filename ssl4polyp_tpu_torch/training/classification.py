@@ -21,9 +21,19 @@ multi-stage schedules (exp5c) swap the scales at stage boundaries
 generator seeded from (seed, epoch, step), as the JAX engine folds the epoch
 and the step into its key, so a resumed run draws what an uninterrupted one
 draws.  Checkpoints hold the JAX package's layout (``models/weights.py``), so
-either package resumes, evaluates or continues from the other's runs.  One
-process on one device: the JAX engine's multi-host questions are answered
-"process 0 of 1", and every file is written.
+either package resumes, evaluates or continues from the other's runs.
+
+Data parallelism (``..parallel``): launched as N ranks (``torchrun``), every
+rank loads ``batch_size / N`` rows of each global batch from its stripe of the
+epoch's order, draws its augmentation from (seed + rank, epoch, step),
+normalises its part of the loss by the global batch's valid count (or
+weight sum), and all-reduces the gradients by their sum before AdamW, so
+every rank takes the same update.  The evaluations gather every rank's
+outputs, so every rank computes the same tau, best epoch and early stop;
+only rank 0 writes, and the ranks meet at a barrier before one reads what
+rank 0 wrote.  The JAX engine's loaders give each process a global batch of
+its own stripe and then place it as the global array; here the global batch
+is ``plan.batch_size``, as in the reference's DDP.
 """
 
 from __future__ import annotations
@@ -53,6 +63,9 @@ from ..metrics.threshold_store import canonical_threshold_path
 from ..models.factory import Classifier, build_classifier
 from ..models.layers import compute_copy
 from ..models.weights import jax_from_state_dict, state_dict_from_jax
+from ..parallel import (barrier, build_mesh, cross_replica_sum, initialize_multihost,
+                        is_distributed, is_primary, local_device, process_count, process_index,
+                        replicate)
 from ..utils.checkpoint import load_checkpoint, save_checkpoint, update_pointer
 from ..utils.determinism import step_seed
 from ..utils.logging import RunLogger, Throughput
@@ -74,6 +87,7 @@ __all__ = [
     "load_parent_reference",
     "loss_and_grads",
     "loss_from_logits",
+    "loss_normaliser",
     "loss_settings",
     "make_forward_fn",
     "make_train_step",
@@ -249,8 +263,10 @@ def build_run(
         parent_checkpoint=plan.parent_checkpoint,
         init_from=plan.init_from,
     )
-    layout.output_dir.mkdir(parents=True, exist_ok=True)
-    logger = RunLogger(layout.output_dir, layout.stem)
+    primary = is_primary()
+    if primary:
+        layout.output_dir.mkdir(parents=True, exist_ok=True)
+    logger = RunLogger(layout.output_dir, layout.stem, primary=primary)
 
     resolved = plan.dataset_resolved
     datasets = create_classification_datasets(
@@ -264,7 +280,7 @@ def build_run(
         roots_map=roots_map,
         image_size=plan.image_size,
         perturbation_splits=plan.perturbation_splits,
-        snapshot_dir=layout.output_dir / "snapshot",
+        snapshot_dir=layout.output_dir / "snapshot" if primary else None,
         check_exists=check_exists,
     )
 
@@ -330,29 +346,46 @@ def build_run(
 # The step
 # ---------------------------------------------------------------------------
 
+def loss_normaliser(labels: torch.Tensor, valid: torch.Tensor, loss_mode: str,
+                    class_weights: Sequence[float]) -> torch.Tensor:
+    """The denominator of :func:`loss_from_logits` over a batch, in fp32:
+    the count of valid rows (``binary_bce``) or the sum of their class
+    weights (``multiclass_ce``)."""
+    valid_f = valid.float()
+    if loss_mode == "binary_bce":
+        return torch.sum(valid_f)
+    weights = torch.tensor(list(class_weights), dtype=torch.float32,
+                           device=labels.device)[labels.long()]
+    return torch.sum(weights * valid_f)
+
+
 def loss_from_logits(logits: torch.Tensor, labels: torch.Tensor, valid: torch.Tensor,
-                     loss_mode: str, pos_weight: float,
-                     class_weights: Sequence[float]) -> torch.Tensor:
+                     loss_mode: str, pos_weight: float, class_weights: Sequence[float],
+                     total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The mean loss over the valid rows, in fp32 (JAX ``_loss_from_logits``).
 
     ``binary_bce``: BCE on z = l1 - l0 (or l0 for one logit) with
     ``pos_weight`` on the positives.  ``multiclass_ce``: cross-entropy
     weighted by class, normalised by the sum of the valid rows' weights, as
-    torch's ``CrossEntropyLoss(weight=...)`` does.
+    torch's ``CrossEntropyLoss(weight=...)`` does.  ``total`` replaces this
+    batch's :func:`loss_normaliser` where the batch is one rank's rows of a
+    global batch: the global one, so that the ranks' losses sum to the
+    global batch's mean.
     """
     logits = logits.float()
     valid_f = valid.float()
+    if total is None:
+        total = loss_normaliser(labels, valid, loss_mode, class_weights)
     if loss_mode == "binary_bce":
         z = logits[:, 1] - logits[:, 0] if logits.shape[-1] == 2 else logits[:, 0]
         y = labels.float()
         # log sigmoid(z) = -logaddexp(0, -z); log(1 - sigmoid(z)) = -logaddexp(0, z)
         per = -(pos_weight * y * -F.softplus(-z) + (1.0 - y) * -F.softplus(z))
-        return torch.sum(per * valid_f) / torch.clamp(torch.sum(valid_f), min=1.0)
+        return torch.sum(per * valid_f) / torch.clamp(total, min=1.0)
     picked = torch.log_softmax(logits, dim=-1).gather(1, labels.long()[:, None])[:, 0]
     weights = torch.tensor(list(class_weights), dtype=torch.float32,
                            device=logits.device)[labels.long()]
-    return torch.sum(-picked * weights * valid_f) / torch.clamp(
-        torch.sum(weights * valid_f), min=1e-12)
+    return torch.sum(-picked * weights * valid_f) / torch.clamp(total, min=1e-12)
 
 
 @dataclass
@@ -375,18 +408,21 @@ def init_train_state(classifier: Classifier, generator: torch.Generator) -> Trai
 
 
 def loss_and_grads(ctx: TrainContext, state: TrainState, images_u8: torch.Tensor,
-                   labels: torch.Tensor, valid: torch.Tensor, aug: AugmentParams
+                   labels: torch.Tensor, valid: torch.Tensor, aug: AugmentParams,
+                   total: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of one augmented batch and the fp32 gradient of every
     parameter (the frozen ones too, so that the gradient norm counts what
-    the JAX step's counts), taken with respect to the compute copy."""
+    the JAX step's counts), taken with respect to the compute copy.
+    ``total``: the loss's normaliser over the global batch, where this batch
+    is one rank's rows of it (:func:`loss_from_logits`)."""
     cfg = ctx.classifier.cfg
     names = list(state.params_c)
     leaves = {n: state.params_c[n].detach().requires_grad_() for n in names}
     images = apply_augment(images_u8, aug, cfg.compute_dtype)
     logits = functional_call(state.model, leaves, (images,))
     loss = loss_from_logits(logits, labels, valid, ctx.loss_mode, ctx.pos_weight,
-                            ctx.class_weights)
+                            ctx.class_weights, total)
     grads = torch.autograd.grad(loss, list(leaves.values()))
     return loss.detach(), {n: g.float() for n, g in zip(names, grads)}
 
@@ -401,7 +437,11 @@ def make_train_step(ctx: TrainContext) -> Callable[..., Dict[str, torch.Tensor]]
     ``state.generator``, takes the gradients (:func:`loss_and_grads`), then
     runs AdamW (0.9, 0.999) with ``ctx.plan.weight_decay`` on the fp32
     masters and refreshes the compute copy in one pass
-    (``optim.adamw_update_fused``), all in place.  Where the JAX engine fuses
+    (``optim.adamw_update_fused``), all in place.  In a process group the
+    batch is this rank's rows of the global batch: the valid count (or weight
+    sum) is all-reduced before the backward, and the loss and the gradients
+    after it, by their sum, so every rank updates with the global batch's
+    gradient (``loss`` is the global batch's).  Where the JAX engine fuses
     ``steps_per_call`` steps into one dispatch with ``lax.scan``, the port's
     engine calls this step that many times: eager PyTorch has no dispatch to
     amortise.
@@ -415,7 +455,13 @@ def make_train_step(ctx: TrainContext) -> Callable[..., Dict[str, torch.Tensor]]
             raise ValueError(f"expected uint8 images (B, H, W, 3), got {images_u8.dtype} "
                              f"{tuple(images_u8.shape)}")
         aug = draw_augment_params(images_u8.shape[0], state.generator)
-        loss, grads = loss_and_grads(ctx, state, images_u8, labels, valid, aug)
+        total = None
+        if is_distributed():
+            total = loss_normaliser(labels, valid, ctx.loss_mode, ctx.class_weights)
+            cross_replica_sum([total])
+        loss, grads = loss_and_grads(ctx, state, images_u8, labels, valid, aug, total)
+        if total is not None:
+            cross_replica_sum([loss, *grads.values()])
         grad_norm = optim.global_norm(grads)
         optim.adamw_update_fused(state.params, state.params_c, grads, state.opt, lr=lr,
                                  weight_decay=weight_decay, lr_scale=lr_scale,
@@ -439,8 +485,8 @@ def make_forward_fn(
     copy made here from the classifier's own parameters (matrices in the
     compute dtype, vectors fp32, as in the JAX recipe).  The classifier's
     module is read, never written: it keeps its fp32 masters and its device.
-    The JAX version pads the batch to its data mesh; one device needs no
-    padding, and several devices come with the multi-GPU slice.
+    The JAX version pads the batch to its data mesh; here each rank runs its
+    own rows on its own device, so no batch needs padding.
     """
     device = torch.device(device)
     dtype = classifier.cfg.compute_dtype
@@ -605,11 +651,19 @@ def run_classification_training(
     in the epochs' step loops (``train_s``, synchronised at the loss
     readback), the images they took, in validation, test and zero-shot
     evaluation, each save's host snapshot and write (``saves``: name,
-    snapshot s, write s), the best checkpoint's reload and the exports."""
+    snapshot s, write s), the best checkpoint's reload and the exports.
+
+    In a process group every rank calls this with the same plan; only rank
+    0 writes (the others' ``saves`` stay empty)."""
     plan = ctx.plan
     layout = ctx.layout
     logger = ctx.logger
     device = ctx.device
+    primary = is_primary()
+    rank, ranks = process_index(), build_mesh().data
+    if plan.batch_size % ranks:
+        raise ValueError(f"batch_size {plan.batch_size} does not divide over {ranks} ranks")
+    rank_batch = plan.batch_size // ranks
     timings: Dict[str, Any] = {"train_s": 0.0, "train_images": 0, "val_s": 0.0, "test_s": 0.0,
                                "zero_shot_s": 0.0, "saves": [], "reload_s": 0.0,
                                "export_s": 0.0}
@@ -625,9 +679,10 @@ def run_classification_training(
         },
         "stem": layout.stem,
     }
-    (layout.output_dir / f"{layout.stem}.config.yaml").write_text(
-        yaml.safe_dump(json.loads(json.dumps(snapshot, default=str))), encoding="utf-8"
-    )
+    if primary:
+        (layout.output_dir / f"{layout.stem}.config.yaml").write_text(
+            yaml.safe_dump(json.loads(json.dumps(snapshot, default=str))), encoding="utf-8"
+        )
 
     val_split_path: Optional[str] = None
     data_block = exports.build_data_block(ctx.dataset_summary)
@@ -654,11 +709,14 @@ def run_classification_training(
 
     def eval_split_now(alias: str, params, tau: Optional[float], limit: Optional[int]):
         """``params``: a compute copy to bind, or None for one of the
-        classifier's own parameters."""
+        classifier's own parameters.  Each rank evaluates its stripe, which
+        for an unshuffled split is contiguous: the gathered frames keep the
+        one-process order when ``limit`` is None."""
         index = ctx.datasets[alias]
         loader = HostDataLoader(
-            index, batch_size=plan.batch_size, shuffle=False,
+            index, batch_size=rank_batch, shuffle=False,
             num_workers=plan.num_workers, drop_last=False,
+            process_index=rank, process_count=ranks,
         )
         return evaluate_split(
             forward_factory(params),
@@ -709,6 +767,7 @@ def run_classification_training(
             targets=zs["targets"],
             preds=zs["preds"],
             dataset_name=dataset_name,
+            primary=primary,
         )
         zero_shot_block = {
             "tau": tau0,
@@ -731,18 +790,20 @@ def run_classification_training(
     def save(path: Path, with_optimizer: bool, meta: Dict[str, Any]) -> None:
         """Save the train state's payload synchronously, as the JAX engine
         does, timing the host snapshot (device to host, JAX layout) and the
-        write (serialise, write, rename) apart."""
+        write (serialise, write, rename) apart; rank 0 only."""
+        if not primary:
+            return
         start = time.perf_counter()
         payload_tree = checkpoint_payload(state, ctx.classifier, with_optimizer)
         snapshot_s = time.perf_counter() - start
-        save_checkpoint(path, payload_tree, meta)
+        save_checkpoint(path, payload_tree, meta, primary=primary)
         timings["saves"].append((path.name, snapshot_s, time.perf_counter() - start - snapshot_s))
 
     if not ctx.eval_only:
         train_index = ctx.datasets["train"]
         train_loader = HostDataLoader(
-            train_index, batch_size=plan.batch_size, seed=plan.seed,
-            num_workers=plan.num_workers,
+            train_index, batch_size=rank_batch, seed=plan.seed,
+            num_workers=plan.num_workers, process_index=rank, process_count=ranks,
         )
         steps_per_epoch = len(train_loader)
         if plan.limit_train_batches:
@@ -775,6 +836,9 @@ def run_classification_training(
             freeze_pos_embed=ctx.classifier.cfg.pos_embed == "sincos",
         )
         state = init_train_state(ctx.classifier, torch.Generator(device=device))
+        if is_distributed():  # every rank starts from rank 0's masters
+            replicate(state.params)
+            optim.refresh_compute_copy(state.params, state.params_c)
         eval_params = state.params_c
         wd_scale = optim.no_weight_decay_scales(state.params)
         # 0 = "auto" (protocol._resolve_steps_per_call): the JAX engine fuses
@@ -796,6 +860,7 @@ def run_classification_training(
         # epoch checkpoint; the augmentation seeds are functions of (seed,
         # epoch, step), so data order and draws are reproduced) -----------
         if resume:
+            barrier()  # rank 0's files are complete before any rank reads them
             candidates = sorted(layout.output_dir.glob(f"{layout.stem}_e*_*.ckpt"))
             pointer = layout.checkpoint_path
             resume_path = pointer if (pointer.exists() or pointer.is_symlink()) else (
@@ -919,8 +984,9 @@ def run_classification_training(
                     k = len(chunk)
                     lrs = [step_lr(global_step + j) for j in range(k)]
                     for j, batch in enumerate(chunk):
-                        # This step's augmentation: a function of (seed, epoch, step).
-                        state.generator.manual_seed(step_seed(plan.seed, epoch, it + j))
+                        # This step's augmentation: a function of (seed + rank,
+                        # epoch, step), as the reference seeds seed + rank.
+                        state.generator.manual_seed(step_seed(plan.seed + rank, epoch, it + j))
                         metrics = train_step(state, *on_device(batch), lrs[j], lr_scale,
                                              wd_scale)
                         pending_losses.append(metrics["loss"])
@@ -1026,7 +1092,7 @@ def run_classification_training(
                     ),
                 }
                 save(best_checkpoint_path, plan.checkpoint_optimizer_state, meta)
-                update_pointer(layout.checkpoint_path, best_checkpoint_path)
+                update_pointer(layout.checkpoint_path, best_checkpoint_path, primary=primary)
 
             if stopper.update(epoch, monitor_value):
                 logger.text(
@@ -1036,7 +1102,9 @@ def run_classification_training(
                 break
 
         # reload best checkpoint for the final test (reference :7380-7414),
-        # into the train state, whose compute copy the evaluations bind
+        # into the train state, whose compute copy the evaluations bind;
+        # every rank reads the file rank 0 wrote
+        barrier()
         if best_checkpoint_path is not None and best_checkpoint_path.exists():
             start = time.perf_counter()
             restored = load_checkpoint(best_checkpoint_path)
@@ -1098,6 +1166,7 @@ def run_classification_training(
             targets=test_results["targets"],
             preds=test_results["preds"],
             dataset_name=dataset_name,
+            primary=primary,
         )
         if "test" in plan.curve_export_splits:
             curve_metadata = exports.export_curve_sets(
@@ -1106,6 +1175,7 @@ def run_classification_training(
                 probabilities=test_results["probabilities"],
                 targets=test_results["targets"],
                 grid_points=plan.curve_export_splits["test"]["points"],
+                primary=primary,
             )
         timings["export_s"] += time.perf_counter() - start
         logger.text(
@@ -1141,7 +1211,7 @@ def run_classification_training(
             seed=plan.seed,
             policy=plan.threshold_policy,
         )
-        th.save_thresholds(store_path, thresholds_map)
+        th.save_thresholds(store_path, thresholds_map, primary=primary)
         threshold_file_rel = str(store_path)
 
     # ---------------- metrics.json -------------------------------------------
@@ -1156,7 +1226,7 @@ def run_classification_training(
         selection=selection_tag,
         seed=plan.seed,
         mode=run_mode,
-        world_size=1,
+        world_size=ranks,
     )
     provenance_block = exports.build_provenance_block(
         model=plan.model_key or plan.model_tag,
@@ -1243,7 +1313,8 @@ def run_classification_training(
     if plan.sensitivity_threshold_policy:
         payload["sensitivity_threshold_policy"] = plan.sensitivity_threshold_policy
 
-    layout.metrics_path.write_text(json.dumps(payload, indent=2, default=_json_default))
+    if primary:
+        layout.metrics_path.write_text(json.dumps(payload, indent=2, default=_json_default))
     timings["export_s"] += time.perf_counter() - export_start
 
     # _last checkpoint + metrics (reference :7557-7701)
@@ -1261,9 +1332,11 @@ def run_classification_training(
                 "model_cfg": _model_cfg_meta(ctx),
             },
         )
-        update_pointer(layout.output_dir / f"{layout.stem}_last.ckpt", last_path)
-        last_metrics_path = layout.output_dir / f"{layout.stem}_last.metrics.json"
-        last_metrics_path.write_text(json.dumps(payload, indent=2, default=_json_default))
+        update_pointer(layout.output_dir / f"{layout.stem}_last.ckpt", last_path,
+                       primary=primary)
+        if primary:
+            last_metrics_path = layout.output_dir / f"{layout.stem}_last.metrics.json"
+            last_metrics_path.write_text(json.dumps(payload, indent=2, default=_json_default))
 
     logger.close()
     summary = {
@@ -1318,7 +1391,9 @@ def cli_main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     (the card unless ``--device cpu`` is given).  Prints the summary without
     its payload, as the JAX CLI does, and returns it; ``timings`` gains
     ``build_s``, the seconds of :func:`build_run` (datasets and model, the
-    MAE checkpoint's read among them)."""
+    MAE checkpoint's read among them).  Under ``torchrun`` every rank runs
+    it: the process group from the environment (``parallel.multihost``),
+    each rank on its local device."""
     import argparse
 
     from .protocol import resolve_run_plan
@@ -1349,6 +1424,8 @@ def cli_main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
     parser.add_argument("--device", default="cuda",
                         help="where the model runs; the kernels need a CUDA device")
     args = parser.parse_args(argv)
+    device = local_device(args.device)
+    initialize_multihost(backend="gloo" if device.type == "cpu" else None)
 
     cfg = load_layered_config(args.exp_config)
     overrides: Dict[str, Any] = {}
@@ -1377,12 +1454,13 @@ def cli_main(argv: Optional[List[str]] = None) -> Dict[str, Any]:
         overrides=overrides,
         parent_checkpoint=args.parent_checkpoint,
         output_dir=args.output_dir,
+        world_size=process_count(),
     )
     start = time.perf_counter()
     ctx = build_run(
         plan,
         output_dir=args.output_dir,
-        device=args.device,
+        device=device,
         pack_root=Path(args.pack_root) if args.pack_root else None,
         checkpoint_root=Path(args.checkpoint_root) if args.checkpoint_root else None,
         exp_config_name=args.exp_config,

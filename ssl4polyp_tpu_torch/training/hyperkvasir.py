@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+from ..parallel.multihost import initialize_multihost
 from .pretrain import PretrainSettings, run_pretraining
 
 __all__ = ["hyperkvasir_settings", "main"]
@@ -54,6 +55,7 @@ def main(argv: Optional[list] = None) -> None:
     parser.add_argument("--accum-iter", type=int, default=1)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    initialize_multihost(backend="gloo" if args.device == "cpu" else None)
     settings = hyperkvasir_settings(
         args.data_root,
         output_dir=args.output_dir,

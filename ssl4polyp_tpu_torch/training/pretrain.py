@@ -22,6 +22,14 @@ The masking noise of each step comes from an explicit generator seeded from
 run equals the uninterrupted one bit for bit when it resumes where an epoch
 ended.  ``steps_per_call`` = K runs K calls of the step per round of the
 loop, each at its own schedule value and noise: the same calls as K = 1.
+
+Data parallelism (``..parallel``): launched as N ranks (``torchrun``), every
+rank loads ``effective_batch / N`` rows a step from its stripe of the epoch's
+order (``accum_iter`` microbatches of ``batch_size / N``), takes its slice of
+the step's global noise, and all-reduces the mean gradient once, after its
+microbatches, so every rank takes the same update.  Only rank 0 writes
+(logs and checkpoints: the others skip the host snapshot too), and a signal
+on any rank stops every rank after the same step.
 """
 
 from __future__ import annotations
@@ -43,6 +51,8 @@ from ..data.folder import ImageFolderIndex, PretrainLoader
 from ..models.layers import compute_copy
 from ..models.mae import MAE, MAE_VIT_B16, MAEConfig
 from ..models.weights import jax_from_mae_state_dict, mae_state_dict_from_jax
+from ..parallel import (any_rank, barrier, build_mesh, cross_replica_mean, initialize_multihost,
+                        is_distributed, is_primary, local_device, process_index, replicate)
 from ..utils.checkpoint import (
     AsyncCheckpointer,
     cleanup_checkpoints,
@@ -77,7 +87,7 @@ class PretrainSettings:
     model: str = "mae_vit_base_patch16"
     epochs: int = 400
     warmup_epochs: int = 40
-    batch_size: int = 64  # per accumulation microbatch
+    batch_size: int = 64  # per accumulation microbatch, over all ranks
     accum_iter: int = 1
     blr: float = 1e-3
     min_lr: float = 0.0
@@ -211,7 +221,9 @@ def make_pretrain_step(
     B, L) float, both on the model's device.  The step averages the fp32
     gradients of the microbatches (:func:`loss_and_grads`), then runs AdamW on
     the masters and refreshes the compute copy in one pass
-    (``optim.adamw_update_fused``), all in place.
+    (``optim.adamw_update_fused``), all in place.  In a process group the
+    batch is this rank's rows: the loss and the mean gradient are all-reduced
+    by their mean over the ranks before AdamW.
     """
 
     def step(state: PretrainState, images_u8: torch.Tensor, noise: torch.Tensor,
@@ -219,6 +231,8 @@ def make_pretrain_step(
         if state.model.cfg != cfg or images_u8.shape[0] != accum_iter:
             raise ValueError(f"the step was built for {accum_iter} microbatches of {cfg}")
         loss, grads = loss_and_grads(state, images_u8, noise)
+        if is_distributed():
+            cross_replica_mean([loss, *grads.values()])
         grad_norm = optim.global_norm(grads)
         optim.adamw_update_fused(
             state.params, state.params_c, grads, state.opt, lr=lr, b1=0.9, b2=0.95,
@@ -292,22 +306,31 @@ def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
     Writes ``<output_dir>/pretrain.{log,jsonl}`` and TensorBoard scalars
     through ``RunLogger``, and checkpoints under ``<output_dir>/ckpts``;
     raises ``FloatingPointError`` on a non-finite loss after saving.  The
-    loader decodes with PIL, so the host needs it.
+    loader decodes with PIL, so the host needs it.  In a process group every
+    rank calls this with the same settings, on ``settings.device`` as
+    :func:`~..parallel.multihost.local_device` places it.
     """
     set_determinism(settings.seed)
-    device = torch.device(settings.device)
+    device = local_device(settings.device)
+    primary = is_primary()
+    rank, ranks = process_index(), build_mesh().data
+    if settings.batch_size % ranks:
+        raise ValueError(f"batch_size {settings.batch_size} does not divide over {ranks} ranks")
     cfg = model_config(settings)
     output_dir = Path(settings.output_dir)
     ckpt_dir = output_dir / "ckpts"
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    logger = RunLogger(output_dir, "pretrain")
+    if primary:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+    logger = RunLogger(output_dir, "pretrain", primary=primary)
 
     loader = PretrainLoader(
         ImageFolderIndex(settings.data_root, no_train_dir=settings.no_train_dir),
-        batch_size=settings.effective_batch,
+        batch_size=settings.effective_batch // ranks,
         image_size=settings.image_size,
         seed=settings.seed,
         num_workers=settings.num_workers,
+        process_index=rank,
+        process_count=ranks,
     )
     steps_per_epoch = len(loader)
     if settings.limit_steps_per_epoch:
@@ -321,12 +344,16 @@ def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
     start_epoch = 0
 
     # ---- resume --------------------------------------------------------
+    barrier()  # rank 0's files are complete before any rank reads them
     resume_path = find_resume_path(settings.resume, ckpt_dir)
     if resume_path is not None and resume_path.exists():
         restored = load_checkpoint(resume_path)
         restore_state(state, restored["payload"])
         start_epoch = int(restored["meta"].get("epoch", -1)) + 1
         logger.text(f"Resumed from {resume_path} at epoch {start_epoch}")
+    if is_distributed():  # every rank starts from rank 0's masters
+        replicate(state.params)
+        optim.refresh_compute_copy(state.params, state.params_c)
 
     steps_per_call = max(1, int(settings.steps_per_call))
     train_step = make_pretrain_step(cfg, settings.accum_iter, settings.weight_decay)
@@ -347,19 +374,22 @@ def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
     checkpointer = AsyncCheckpointer() if settings.async_checkpoint else None
 
     def save_epoch(epoch: int) -> Path:
+        path = ckpt_dir / f"checkpoint-{epoch}.ckpt"
+        if not primary:
+            return path
         payload = checkpoint_payload(state)
         meta = {
             "epoch": epoch,
             "settings": dataclasses.asdict(settings),
             "model": settings.model,
         }
-        path = ckpt_dir / f"checkpoint-{epoch}.ckpt"
 
         def _cleanup():
             cleanup_checkpoints(
                 ckpt_dir,
                 keep_last=settings.keep_last,
                 keep_every_n_epochs=settings.keep_every_n_epochs,
+                primary=primary,
             )
 
         if checkpointer is not None:
@@ -368,23 +398,25 @@ def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
             # next epoch's compute.
             checkpointer.save(
                 path, payload, meta,
-                pointer=ckpt_dir / "last.ckpt", cleanup=_cleanup,
+                pointer=ckpt_dir / "last.ckpt", cleanup=_cleanup, primary=primary,
             )
             return path
-        save_checkpoint(path, payload, meta)
-        update_pointer(ckpt_dir / "last.ckpt", path)
+        save_checkpoint(path, payload, meta, primary=primary)
+        update_pointer(ckpt_dir / "last.ckpt", path, primary=primary)
         _cleanup()
         return path
 
     throughput = Throughput()
     summary: Dict[str, Any] = {}
     step_global = start_epoch * steps_per_epoch
-    accum, micro = settings.accum_iter, settings.batch_size
-    noise_shape = (accum, micro, cfg.encoder.num_patches)
+    accum, micro = settings.accum_iter, settings.batch_size // ranks
+    noise_shape = (accum, settings.batch_size, cfg.encoder.num_patches)
 
     def one_step(raw: np.ndarray, epoch: int, it: int, lr: float) -> Dict[str, torch.Tensor]:
         images = torch.from_numpy(raw.reshape(accum, micro, *raw.shape[1:])).to(device)
+        # The step's global noise; this rank's rows of each microbatch.
         noise = _step_noise(settings.seed, epoch, it, noise_shape, device)
+        noise = noise[:, rank * micro:(rank + 1) * micro]
         return train_step(state, images, noise, lr)
 
     try:
@@ -443,7 +475,7 @@ def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
                         logger.scalar("train/grad_norm", grad_norm_value, step_global)
                         if rate:
                             logger.scalar("train/images_per_sec", rate, step_global)
-                    if interrupted["flag"]:
+                    if any_rank(interrupted["flag"]):
                         logger.text("Signal received: checkpointing and exiting")
                         save_epoch(epoch)
                         return {"interrupted": True, "epoch": epoch}
@@ -494,12 +526,14 @@ def run_pretraining(settings: PretrainSettings) -> Dict[str, Any]:
 def cli_main(argv: Optional[list] = None) -> Dict[str, Any]:
     """``python -m ssl4polyp_tpu_torch.training.pretrain --data-root ...``:
     every :class:`PretrainSettings` field as a flag; runs on the card unless
-    ``--device cpu`` is given.  Returns :func:`run_pretraining`'s summary."""
+    ``--device cpu`` is given.  Returns :func:`run_pretraining`'s summary.
+    Under ``torchrun`` every rank runs it (``parallel.multihost``)."""
     from ..utils.cli import parse_into_dataclass
 
     settings = parse_into_dataclass(
         PretrainSettings, argv, description="MAE pretraining (PyTorch, CUDA)"
     )
+    initialize_multihost(backend="gloo" if torch.device(settings.device).type == "cpu" else None)
     return run_pretraining(settings)
 
 

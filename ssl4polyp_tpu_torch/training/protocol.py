@@ -2,7 +2,8 @@
 
 The port's copy of ``ssl4polyp_tpu/training/protocol.py``; where that module
 asks JAX for its device count, :func:`resolve_run_plan` takes
-``world_size`` (one process on one GPU: 1).
+``world_size``, by default the process group's (``parallel.multihost``; 1
+without a group): one GPU a rank.
 
 This module replaces the imperative ``apply_experiment_config`` +
 ``build()``-era policy scattered through the reference monolith
@@ -29,7 +30,7 @@ from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 from ..configs.layered import deep_merge, extract_dataset_config, resolve_model_entries
-
+from ..parallel.multihost import process_count
 from .layout import (
     DatasetLayout,
     canonical_sun_parent_checkpoint,
@@ -344,7 +345,7 @@ def resolve_run_plan(
     overrides: Optional[Mapping[str, Any]] = None,
     parent_checkpoint: Optional[str] = None,
     output_dir: Optional[str] = None,
-    world_size: int = 1,
+    world_size: Optional[int] = None,
 ) -> RunPlan:
     cfg = copy.deepcopy(dict(experiment_cfg))
     if overrides:
@@ -499,6 +500,8 @@ def resolve_run_plan(
         # batch (reference: ``args.batch_size = recommended * world_size``,
         # train_classification.py:5505-5516); our batch_size is global
         # across the ``world_size`` devices.
+        if world_size is None:
+            world_size = process_count()
         batch_size = recommended * max(1, world_size)
 
     perturbation_splits: List[str] = []

@@ -43,6 +43,8 @@ assert {"ssl4polyp_tpu_torch.training.pretrain", "ssl4polyp_tpu_torch.training.h
         "ssl4polyp_tpu_torch.evaluation.exports",
         "ssl4polyp_tpu_torch.training.mae_finetune",
         "ssl4polyp_tpu_torch.utils.reporting_inputs",
+        "ssl4polyp_tpu_torch.parallel", "ssl4polyp_tpu_torch.parallel.mesh",
+        "ssl4polyp_tpu_torch.parallel.multihost",
         *("ssl4polyp_tpu_torch.analysis." + name for name in (
             "bootstrapper", "common", "display", "exp5a_domain_shift", "exp_reports",
             "frame_bootstrap", "guardrails", "report_core", "seed_checks"))} <= set(modules)
@@ -368,6 +370,32 @@ def test_port_imports_and_runs_with_the_jax_stack_blocked():
     assert int(result.stdout.split()[1]) >= 47  # every slice module was imported
 
 
+# The data-parallel layer alone: importing it and initialising one process
+# (no group to join) pulls in nothing blocked, and nothing of the JAX package.
+_PARALLEL_SCRIPT = """
+import sys
+for name in ("jax", "flax", "msgpack", "yaml", "PIL", "sklearn", "ssl4polyp_tpu", "ml_dtypes"):
+    sys.modules[name] = None
+import os
+for name in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "LOCAL_WORLD_SIZE"):
+    os.environ.pop(name, None)
+from ssl4polyp_tpu_torch.parallel import initialize_multihost, is_distributed, is_primary, process_info
+initialize_multihost()
+assert not is_distributed() and is_primary() and process_info()["process_count"] == 1
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "flax", "msgpack", "yaml", "PIL", "sklearn", "ssl4polyp_tpu", "ml_dtypes")
+    and sys.modules[m] is not None)
+assert not loaded, loaded
+print("ok")
+"""
+
+
+def test_parallel_layer_imports_and_initializes_with_the_jax_stack_blocked():
+    result = _run(["-c", _PARALLEL_SCRIPT])
+    assert result.returncode == 0, result.stderr
+    assert result.stdout.splitlines()[-1] == "ok"
+
+
 def test_pretraining_cli_runs_and_resumes_with_the_jax_stack_blocked():
     result = _run(["-c", _ENGINE_SCRIPT])
     assert result.returncode == 0, result.stderr
@@ -458,7 +486,8 @@ def test_no_jax_import_in_the_port_sources():
             "ssl4polyp_tpu_torch/evaluation/eval_classification.py",
             "ssl4polyp_tpu_torch/ops/attention.py",
             "ssl4polyp_tpu_torch/ops/attention_block.py",
-            *WEIGHT_FILE_MODULES, *POLYPDB_MODULES, *REPORTING_MODULES} <= names
+            *WEIGHT_FILE_MODULES, *POLYPDB_MODULES, *REPORTING_MODULES,
+            *PARALLEL_MODULES} <= names
     for path in sources:
         for line in path.read_text().splitlines():
             assert _forbidden_import(line) is None, f"{path}: {line}"
@@ -472,6 +501,11 @@ WEIGHT_FILE_MODULES = {f"ssl4polyp_tpu_torch/models/{name}.py" for name in (
 # The pack tools: PyYAML, PIL and OpenCV only inside the functions that use them.
 POLYPDB_MODULES = {f"ssl4polyp_tpu_torch/polypdb/{name}.py" for name in (
     "__init__", "synth", "builders", "robustness", "cli")}
+
+
+# The data-parallel layer.
+PARALLEL_MODULES = {f"ssl4polyp_tpu_torch/parallel/{name}.py"
+                    for name in ("__init__", "mesh", "multihost")}
 
 
 # The reporting tools and the sweep scripts' Python helpers.
