@@ -5,8 +5,10 @@ its two attention functions of ``ops`` that no model route calls, its
 standalone eval CLI, its fine-tune engine, exp1's two arms from their
 weight files, the dense model, the upstream MAE fine-tune and linear
 probe, the pack tools with exp5b's 15,840-row evaluation, exp1's
-seed-trio sweep through the port's scripts with its report, and the
-fine-tune engine as two data-parallel ranks, on one NVIDIA GPU.
+seed-trio sweep through the port's scripts with its report, the
+fine-tune engine as two data-parallel ranks, and the native JPEG decoder
+under the eval CLI and the pretraining engine on frames of SUN's size, on
+one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -235,6 +237,28 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    bit-equal to the same step without a group.  Prints the two ranks' wall,
    each rank's steps/s and the all-reduce's share of a step, beside the
    card's name and power limit.
+14. The native JPEG decoder (``ssl4polyp_tpu_torch/native``), which every
+   loader above has read through (their frames are 224 px, where its bytes
+   are PIL's).  It prints g++'s version, the machine, the libjpeg that PIL
+   maps with its version string and the first build's seconds.  On frames
+   written with PIL from numpy seeds (1240x1080, 1920x1080, 1350x1080,
+   720x576, 1280x1024, 384x288 and 224x224, each at 4:2:0 and 4:4:4, one
+   progressive and one grayscale): ``decode_resize`` at 224 and
+   ``decode_crop_resize`` on RandomResizedCrop draws byte for byte against
+   ``native/reference.py`` on PIL's ``Image.draft`` decode wherever the scale
+   is one ``draft`` reaches (1/8, 2/8, 4/8, 8/8), ``jpeg_dims`` against PIL's
+   size, and a CMYK frame refused, then filled by the loader's PIL retry.
+   Rates on 256 frames of 1240x1080 (median and range of 5 passes, 8
+   threads, warm page cache): ``decode_resize_batch_status``, PIL's
+   ``decode_frame`` on a thread pool, ``HostDataLoader`` alone natively and
+   under ``SSL4POLYP_NATIVE_DECODE=0``, and ``PretrainLoader``'s crop path
+   both ways.  Then the eval CLI (ViT-B/16, batch 64) over a pack of those
+   256 frames three times, natively, under ``SSL4POLYP_NATIVE_DECODE=0`` and
+   natively again: frames/s from the command to ``eval_results.txt``, the
+   two native runs' logits bit-equal, the PIL run's logits other, every
+   native frame decoded without a PIL retry.  Then the pretraining engine
+   (MAE ViT-B/16, batch 64) for 2 steps on those frames through the crop
+   path, every crop native.  The launches of both paths exact.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -249,6 +273,8 @@ import hashlib
 import io
 import json
 import os
+import platform
+import re
 import statistics
 import subprocess
 import sys
@@ -261,7 +287,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ssl4polyp_tpu_torch import ops
+from ssl4polyp_tpu_torch import native, ops
 from ssl4polyp_tpu_torch.data.loader import HostDataLoader
 from ssl4polyp_tpu_torch.data.packs import create_classification_datasets
 from ssl4polyp_tpu_torch.evaluation import eval_classification
@@ -393,6 +419,7 @@ CARD = ""  # the card's name and power limit, as nvidia-smi gives them
 # torch's backend flags as the process started (matmul TF32, cuDNN TF32,
 # bf16 reduced-precision reductions), before main() sets its own.
 TORCH_DEFAULTS: tuple[bool, bool, bool] = (False, True, True)
+NATIVE_BUILD_S = float("nan")  # the JPEG decoder's first build, load and check, s
 
 
 def fail(message: str) -> None:
@@ -2230,19 +2257,25 @@ def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
     return total
 
 
+def eval_checkpoint_meta(cfg: ViTConfig, tau: float) -> dict:
+    """A fine-tune checkpoint's meta as the engine writes it: the model's
+    config and a stored sun_full/val threshold ``tau``."""
+    model_cfg = {"img_size": cfg.img_size, "patch_size": cfg.patch_size,
+                 "embed_dim": cfg.embed_dim, "depth": cfg.depth, "num_heads": cfg.num_heads,
+                 "pos_embed": cfg.pos_embed, "out_token": cfg.out_token, "num_classes": 2,
+                 "pad_tokens_to": 0}
+    return {"epoch": 7, "model_cfg": model_cfg,
+            "thresholds": {"primary": {"tau": tau, "policy": "f1_opt_on_val",
+                                       "split": "sun_full/val"},
+                           "values": {"sun_full_val_f1_opt_on_val": tau}}}
+
+
 def phase_eval_cli() -> dict[str, int]:
     """The standalone eval CLI at full width, from files it reads itself."""
     rng = np.random.default_rng(SEED)
     cfg = ViTConfig(pos_embed="learned", num_classes=2)
     frames, tau = 128, 0.4375
-    model_cfg = {"img_size": cfg.img_size, "patch_size": cfg.patch_size,
-                 "embed_dim": cfg.embed_dim, "depth": cfg.depth, "num_heads": cfg.num_heads,
-                 "pos_embed": cfg.pos_embed, "out_token": cfg.out_token, "num_classes": 2,
-                 "pad_tokens_to": 0}
-    meta = {"epoch": 7, "model_cfg": model_cfg,
-            "thresholds": {"primary": {"tau": tau, "policy": "f1_opt_on_val",
-                                       "split": "sun_full/val"},
-                           "values": {"sun_full_val_f1_opt_on_val": tau}}}
+    meta = eval_checkpoint_meta(cfg, tau)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         start = time.perf_counter()
@@ -3766,6 +3799,298 @@ def nccl_one_rank_step() -> None:
           f"the loss bit-equal to the same step without a group")
 
 
+# Phase 14: the native JPEG decoder on frames of the study's sizes.
+NATIVE_SIZES = ((1240, 1080), (1920, 1080), (1350, 1080), (720, 576), (1280, 1024), (384, 288),
+                (224, 224))  # SUN; PolypGen; Hyperkvasir-like; scale 7/8 at 224; the model's
+NATIVE_SUBSAMPLINGS = {"4:4:4": 0, "4:2:0": 2}  # PIL's codes
+NATIVE_FRAMES = 256  # SUN-size frames for the rates, the eval CLI and pretraining
+NATIVE_THREADS = 8
+NATIVE_REPEATS = 5
+NATIVE_PRETRAIN_STEPS = 2
+DRAFT_SCALES = (1, 2, 4, 8)  # the N of N/8 that PIL's Image.draft decodes at
+
+
+def sun_like_pixels(rng: np.random.Generator, width: int, height: int) -> np.ndarray:
+    """A smooth colour field with noise (about 300 KiB a 1240x1080 frame at
+    quality 90)."""
+    from PIL import Image
+
+    coarse = Image.fromarray(rng.integers(0, 256, (height // 32 + 2, width // 32 + 2, 3),
+                                          dtype=np.uint8))
+    smooth = np.asarray(coarse.resize((width, height), Image.BILINEAR), dtype=np.int16)
+    return np.clip(smooth + rng.integers(-12, 13, (height, width, 3)), 0, 255).astype(np.uint8)
+
+
+def draft_decode(path: Path, num: int) -> np.ndarray:
+    """PIL's decode of a JPEG at scale num/8 (``Image.draft``), as RGB."""
+    from PIL import Image
+
+    with Image.open(path) as img:
+        width, height = img.size
+        img.draft(img.mode, (width // (8 // num), height // (8 // num)))
+        return np.asarray(img.convert("RGB"), dtype=np.uint8)
+
+
+def native_byte_checks(root: Path) -> Path:
+    """The library against ``native/reference.py`` on PIL's ``draft``
+    decode, byte for byte, at the scales ``draft`` reaches; ``jpeg_dims``
+    against PIL's size; a CMYK frame refused.  Returns the CMYK frame's
+    path."""
+    from PIL import Image
+
+    from ssl4polyp_tpu_torch.data.folder import sample_crop_box
+    from ssl4polyp_tpu_torch.native import reference
+
+    rng = np.random.default_rng(SEED)
+    root.mkdir(parents=True)
+    frames = {}
+    for width, height in NATIVE_SIZES:
+        pixels = sun_like_pixels(rng, width, height)
+        for tag, code in NATIVE_SUBSAMPLINGS.items():
+            frames[f"{width}x{height} {tag}"] = root / f"{width}x{height}_{code}.jpg"
+            Image.fromarray(pixels).save(frames[f"{width}x{height} {tag}"], quality=90,
+                                         subsampling=code)
+    pixels = sun_like_pixels(rng, 1240, 1080)
+    frames["1240x1080 progressive"] = root / "progressive.jpg"
+    Image.fromarray(pixels).save(frames["1240x1080 progressive"], quality=90, progressive=True)
+    frames["1240x1080 grayscale"] = root / "grayscale.jpg"
+    Image.fromarray(pixels).convert("L").save(frames["1240x1080 grayscale"], quality=90)
+    cmyk = root / "cmyk.jpg"
+    Image.fromarray(pixels).convert("CMYK").save(cmyk, quality=90)
+
+    checked = {"decode_resize": {}, "decode_crop_resize": {}}
+    skipped = []
+    out = 224
+    for name, path in frames.items():
+        with Image.open(path) as img:
+            width, height = img.size
+        if native.jpeg_dims(path) != (width, height):
+            fail(f"native decode: jpeg_dims {native.jpeg_dims(path)} of {name}, PIL "
+                 f"{(width, height)}")
+        num = reference.resize_scale(width, height, out, out)
+        if num in DRAFT_SCALES:
+            got = native.decode_resize(path, out, out)
+            want = reference.resize_decoded(draft_decode(path, num), out, out)
+            if got is None or not np.array_equal(got, want):
+                fail(f"native decode: decode_resize of {name} at {num}/8 differs from the "
+                     f"reference on PIL's draft decode")
+            checked["decode_resize"][num] = checked["decode_resize"].get(num, 0) + 1
+        else:
+            skipped.append(f"decode_resize {name} ({num}/8)")
+        # Crops as the pretraining loader draws them, then one a draft scale
+        # (the crop's height so that scale num covers 224 and num - 1 not).
+        crops = []
+        for _ in range(12):
+            y0, x0, h, w = sample_crop_box(width, height, rng)
+            crops.append((y0 / height, x0 / width, h / height, w / width))
+        for num in DRAFT_SCALES[1:]:
+            fh = out * 8 / (height * (num - 0.5))
+            if fh <= 1:
+                fw = min(1.0, fh * width / height)
+                crops.append((rng.uniform(0, 1 - fh), rng.uniform(0, 1 - fw), fh, fw))
+        for frac in crops:
+            num = reference.crop_scale(width, height, out, out, frac[2], frac[3])
+            if num not in DRAFT_SCALES:
+                continue
+            flip = bool(rng.integers(0, 2))
+            got = native.decode_crop_resize(path, out, out, frac, flip)
+            want = reference.crop_decoded(draft_decode(path, num), frac, out, out, flip)
+            if got is None or not np.array_equal(got, want):
+                fail(f"native decode: decode_crop_resize of {name}, crop {frac}, flip {flip}, "
+                     f"at {num}/8 differs from the reference on PIL's draft decode")
+            checked["decode_crop_resize"][num] = checked["decode_crop_resize"].get(num, 0) + 1
+    images, ok = native.decode_resize_batch_status([cmyk], out, out)
+    if ok[0] or images.any():
+        fail("native decode: the CMYK frame was not refused with a zero-filled slot")
+    print(f"native decode byte for byte against native/reference.py on PIL's draft decode, "
+          f"{len(frames)} frames ({', '.join(frames)}): checks by N of N/8 "
+          f"{json.dumps({k: dict(sorted(v.items())) for k, v in checked.items()})}, every one "
+          f"equal; not reachable by draft: {skipped}; jpeg_dims equal to PIL's size on all; "
+          f"the CMYK frame refused (status 0, zero-filled)")
+    return cmyk
+
+
+def write_sun_frames(paths: list[Path]) -> None:
+    """SUN-size (1240x1080) 4:2:0 JPEGs at ``paths``, from numpy seeds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def write(i: int) -> None:
+        pixels = sun_like_pixels(np.random.default_rng(SEED + i), 1240, 1080)
+        Image.fromarray(pixels).save(paths[i], quality=90)
+
+    with ThreadPoolExecutor(NATIVE_THREADS) as pool:
+        list(pool.map(write, range(len(paths))))
+
+
+def median_rate(frames: int, fn) -> tuple[float, float, float]:
+    """frames/s of ``fn`` over ``NATIVE_REPEATS`` calls: median, min, max."""
+    rates = []
+    for _ in range(NATIVE_REPEATS):
+        start = time.perf_counter()
+        fn()
+        rates.append(frames / (time.perf_counter() - start))
+    return statistics.median(rates), min(rates), max(rates)
+
+
+def phase_native_decode() -> dict[str, int]:
+    """Phase 14: the native JPEG decoder (``ssl4polyp_tpu_torch/native``)
+    on frames of the study's sizes, byte for byte against its reference, its
+    rates beside PIL's, then the eval CLI and the pretraining engine at full
+    width on SUN-size frames through it.  Returns the launches of its paths."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import PIL
+
+    from ssl4polyp_tpu_torch.data.folder import ImageFolderIndex, PretrainLoader
+    from ssl4polyp_tpu_torch.data.transforms import decode_frame
+    from ssl4polyp_tpu_torch.training import pretrain as engine
+
+    phase_start = time.perf_counter()
+    libjpeg = native.libjpeg_path()
+    version = re.search(rb"libjpeg-turbo version [ -~]+", libjpeg.read_bytes())
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    print(f"native decode: {native.build_library()} built by {gxx.splitlines()[0]} on "
+          f"{platform.machine()} against {libjpeg} "
+          f"({version.group(0).decode() if version else 'no libjpeg-turbo version string'}), "
+          f"which PIL {PIL.__version__} maps; first build, load and check {NATIVE_BUILD_S:.2f} s")
+    cfg = ViTConfig(pos_embed="learned", num_classes=2)
+    tau = 0.4375
+    depth, enc, dec = cfg.depth, 12, 8
+    per_eval = {"fused_qkv_attention": depth, "layernorm": 2 * depth + 1, "fc1_gelu": depth}
+    per_step = {"fused_qkv_attention": enc + dec, "fused_qkv_attention_backward": enc + dec,
+                "layernorm": 2 * (enc + dec) + 2, "layernorm_backward": 2 * (enc + dec) + 2,
+                "fc1_gelu": enc + dec, "adamw": 4}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        cmyk = native_byte_checks(tmp / "matrix")
+
+        # A test pack of SUN-size frames: the synthetic pack's CSVs and
+        # manifest, its frames written over at 1240x1080.
+        start = time.perf_counter()
+        pack = build_synthetic_pack(tmp / "data_packs", name="sun_full", splits=("test",),
+                                    frames_per_split=NATIVE_FRAMES, image_size=16, seed=SEED)
+        index = create_classification_datasets(test_spec="sun_full", pack_root=tmp / "data_packs",
+                                               image_size=224)["test"]
+        paths = [Path(p) for p in index.paths]
+        write_sun_frames(paths)
+        checkpoint = save_checkpoint(tmp / "run" / "SupImnet_SUNFull_s13_e07_valLoss.ckpt",
+                                     {"params": jax_layout_tree(cfg, np.random.default_rng(SEED))},
+                                     eval_checkpoint_meta(cfg, tau))
+        print(f"native decode: wrote {NATIVE_FRAMES} JPEGs of 1240x1080 (4:2:0, quality 90, "
+              f"{sum(p.stat().st_size for p in paths) / NATIVE_FRAMES / 1024:.0f} KiB a frame) "
+              f"into {pack.name} and a ViT-B/16 checkpoint in "
+              f"{time.perf_counter() - start:.1f} s")
+
+        # Rates, 8 threads, the files in the page cache (warm reads).
+        native_rate = median_rate(NATIVE_FRAMES, lambda: native.decode_resize_batch_status(
+            paths, 224, 224, n_threads=NATIVE_THREADS))
+        with ThreadPoolExecutor(NATIVE_THREADS) as pool:
+            pil_rate = median_rate(NATIVE_FRAMES, lambda: list(pool.map(
+                lambda p: decode_frame(p, 224), paths)))
+        loader_rates = {}
+        for label, switch in (("native", "1"), ("PIL", "0")):
+            with mock.patch.dict(os.environ, {"SSL4POLYP_NATIVE_DECODE": switch}):
+                host = HostDataLoader(index, batch_size=BATCH, shuffle=False, drop_last=False,
+                                      num_workers=NATIVE_THREADS)
+                if host._use_native != (switch == "1"):
+                    fail(f"native decode: SSL4POLYP_NATIVE_DECODE={switch} left the loader's "
+                         f"native path {host._use_native}")
+                loader_rates[label] = median_rate(NATIVE_FRAMES, lambda: list(host))
+        folder_index = ImageFolderIndex(paths[0].parent, no_train_dir=True)
+        crop_rates = {label: median_rate(NATIVE_FRAMES, lambda: list(PretrainLoader(
+            folder_index, BATCH, num_workers=NATIVE_THREADS, use_native=use)))
+            for label, use in (("native", None), ("PIL", False))}
+        rate = lambda r: f"{r[0]:.1f} [{r[1]:.1f}-{r[2]:.1f}]"  # noqa: E731
+        print(f"native decode rates, frames/s of 1240x1080 JPEGs to 224 px, median [range] of "
+              f"{NATIVE_REPEATS} passes over {NATIVE_FRAMES} frames, {NATIVE_THREADS} threads, "
+              f"warm page cache: decode_resize_batch_status {rate(native_rate)}; PIL's "
+              f"decode_frame on a thread pool {rate(pil_rate)}; HostDataLoader alone (batches of "
+              f"{BATCH}) native {rate(loader_rates['native'])}, under SSL4POLYP_NATIVE_DECODE=0 "
+              f"{rate(loader_rates['PIL'])}; PretrainLoader's crop path native "
+              f"{rate(crop_rates['native'])}, use_native=False {rate(crop_rates['PIL'])}; "
+              f"{os.cpu_count()} host cores; {CARD}")
+
+        # A frame the decoder refuses is filled by the loader's PIL retry.
+        retry_index = create_classification_datasets(
+            test_spec="sun_full", pack_root=tmp / "data_packs", image_size=224)["test"]
+        retry_index.paths = [str(cmyk), *index.paths[1:BATCH]]
+        native.reset_decode_counts()
+        batch = next(iter(HostDataLoader(retry_index, batch_size=BATCH, shuffle=False,
+                                         num_workers=NATIVE_THREADS)))
+        retried = native.decode_counts()
+        if retried["failed"] != 1 or not batch["valid"].all() or not np.array_equal(
+                batch["image"][0], decode_frame(cmyk, 224)):
+            fail(f"native decode: the loader did not fill the CMYK frame through PIL "
+                 f"({retried}, valid {batch['valid'].sum()})")
+
+        # The main path: the eval CLI (native, PIL, native), then pretraining.
+        argv = ["--checkpoint", str(checkpoint), "--test-pack", "sun_full", "--pack-root",
+                str(tmp / "data_packs"), "--batch-size", str(BATCH), "--export-outputs"]
+        walls, logits, decoded = {}, {}, {}
+        ops.reset_launch_counts()
+        for run, switch in (("native", "1"), ("PIL", "0"), ("native again", "1")):
+            native.reset_decode_counts()
+            with mock.patch.dict(os.environ, {"SSL4POLYP_NATIVE_DECODE": switch}), \
+                    contextlib.redirect_stdout(io.StringIO()) as printed:
+                start = time.perf_counter()
+                eval_classification.cli_main(argv + ["--output-dir", str(tmp / run)])
+                torch.cuda.synchronize()
+                walls[run] = time.perf_counter() - start
+            summary = json.loads(printed.getvalue())
+            decoded[run] = native.decode_counts()
+            logits[run] = np.load(tmp / run / "logits.npz")["logits"]
+            if summary["n_frames"] != NATIVE_FRAMES or summary["tau"] != tau or not (
+                    tmp / run / "eval_results.txt").exists() or not np.isfinite(logits[run]).all():
+                fail(f"native decode: eval CLI run {run}: {summary}")
+        want = {"native": NATIVE_FRAMES, "PIL": 0, "native again": NATIVE_FRAMES}
+        if any(decoded[run] != {"decoded": n, "failed": 0} for run, n in want.items()):
+            fail(f"native decode: frames through the native decoder by eval CLI run {decoded}, "
+                 f"expected {want} and no PIL retry")
+        if not np.array_equal(logits["native"], logits["native again"]):
+            fail("native decode: two native runs of the eval CLI gave other logits")
+        delta = float(np.abs(logits["native"] - logits["PIL"]).max())
+        if delta == 0.0:
+            fail("native decode: the native and PIL runs gave the same logits on resized frames")
+        print(f"native decode, eval CLI ViT-B/16 on {NATIVE_FRAMES} frames of 1240x1080 in "
+              f"batches of {BATCH}, frames/s from the command to eval_results.txt: native "
+              f"{NATIVE_FRAMES / walls['native']:.1f}, under SSL4POLYP_NATIVE_DECODE=0 "
+              f"{NATIVE_FRAMES / walls['PIL']:.1f}, native again "
+              f"{NATIVE_FRAMES / walls['native again']:.1f}; native logits bit-equal over two "
+              f"runs; max |logit native - logit PIL| {delta:.4e}; native decodes "
+              f"{decoded['native']}, PIL retries 0; {CARD}")
+
+        native.reset_decode_counts()
+        start = time.perf_counter()
+        summary = engine.cli_main([
+            "--data-root", str(paths[0].parent), "--no-train-dir", "--output-dir",
+            str(tmp / "pretrain"), "--epochs", "1", "--warmup-epochs", "1",
+            "--limit-steps-per-epoch", str(NATIVE_PRETRAIN_STEPS), "--batch-size", str(BATCH),
+            "--num-workers", str(NATIVE_THREADS), "--log-interval", "1", "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        pretrain_wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        cropped = native.decode_counts()
+        if summary.get("epoch") != 0 or not np.isfinite(summary["train_loss"]):
+            fail(f"native decode: the pretraining engine returned {summary}")
+        if cropped["decoded"] < NATIVE_PRETRAIN_STEPS * BATCH or cropped["failed"]:
+            fail(f"native decode: the pretraining loader's crops {cropped}: expected at least "
+                 f"{NATIVE_PRETRAIN_STEPS * BATCH} through the native decoder and no PIL retry")
+        check_counts(counts, {name: 3 * (NATIVE_FRAMES // BATCH) * per_eval.get(name, 0)
+                              + NATIVE_PRETRAIN_STEPS * per_step.get(name, 0)
+                              for name in counts}, 1,
+                     f"three eval CLI runs of {NATIVE_FRAMES // BATCH} batches and "
+                     f"{NATIVE_PRETRAIN_STEPS} pretraining steps")
+        print(f"native decode, the pretraining engine (MAE ViT-B/16, batch {BATCH}) on the "
+              f"{NATIVE_FRAMES} frames of 1240x1080 through the crop path: "
+              f"{NATIVE_PRETRAIN_STEPS} steps, loss {summary['train_loss']:.4f}, "
+              f"{pretrain_wall:.1f} s wall (model build and the 1.34 GB save included); native "
+              f"crops {cropped}, PIL retries 0; {CARD}")
+    print(f"native decode phase {time.perf_counter() - phase_start:.1f} s; {CARD}")
+    return counts
+
+
 @contextlib.contextmanager
 def torch_defaults():
     """torch's own backend settings, as a fresh process (the sweep's) has
@@ -3829,6 +4154,10 @@ def main() -> None:
     if args.kernels_only:
         print(json.dumps({"kernels": [{"name": name, **fields} for name, fields in report.items()]}))
         return
+    global NATIVE_BUILD_S
+    start = time.perf_counter()
+    native.native_available()  # g++ against PIL's libjpeg, then its first-use check
+    NATIVE_BUILD_S = time.perf_counter() - start
     # Each path's launches, counted from 0 before it and read after it.
     runs = [phase_eval(torch.Generator().manual_seed(SEED)), phase_pretrain(),
             phase_pretrain_engine(), phase_finetune(),
@@ -3841,6 +4170,7 @@ def main() -> None:
         runs.append(phase_pack_tools())
         runs.append(phase_study_sweep(packs, weights))
         runs.append(phase_data_parallel(packs, weights))
+    runs.append(phase_native_decode())
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

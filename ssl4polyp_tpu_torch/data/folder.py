@@ -5,9 +5,11 @@ PyYAML at import time.  The index is a sorted recursive listing; the loader
 yields fixed-shape (B, S, S, 3) uint8 batches after a RandomResizedCrop and a
 horizontal flip drawn from a numpy generator seeded per (seed, epoch,
 sample), so the data stream is a function of (seed, epoch) and equals the
-JAX loader's PIL path batch for batch.  Images are decoded with PIL,
-imported where a frame is decoded; the JAX package's native JPEG decoder is
-not ported.
+JAX loader's batch for batch.  JPEG frames are cropped and resized by the
+native decoder (:mod:`ssl4polyp_tpu_torch.native`) unless ``use_native`` is
+False (as in the JAX loader, ``SSL4POLYP_NATIVE_DECODE`` is not read here);
+frames without a JPEG header, and frames it fails, are decoded with PIL,
+imported where a frame is decoded.  Both paths draw the same crop and flip.
 """
 
 from __future__ import annotations
@@ -17,9 +19,11 @@ import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Iterator, List
+from typing import Iterator, List, Optional
 
 import numpy as np
+
+from .. import native
 
 __all__ = ["ImageFolderIndex", "PretrainLoader", "sample_crop_box"]
 
@@ -81,14 +85,15 @@ class PretrainLoader:
     around to ``process_count * ceil(n / process_count)`` (the
     DistributedSampler contract, as in the JAX loader), so that every
     process yields the same number of batches.  With ``drop_last`` the last
-    short batch is dropped; batches are decoded ahead into a queue of
+    short batch is dropped, otherwise padded with copies of its last frame
+    (as in the JAX loader); batches are decoded ahead into a queue of
     ``prefetch_batches``.
     """
 
     def __init__(self, index: ImageFolderIndex, batch_size: int, *, image_size: int = 224,
                  seed: int = 0, num_workers: int = 16, prefetch_batches: int = 4,
                  process_index: int = 0, process_count: int = 1,
-                 drop_last: bool = True) -> None:
+                 drop_last: bool = True, use_native: Optional[bool] = None) -> None:
         self.index = index
         self.batch_size = batch_size
         self.image_size = image_size
@@ -99,6 +104,10 @@ class PretrainLoader:
         self.process_count = process_count
         self.drop_last = drop_last
         self.epoch = 0
+        # None: native when the C++ decoder builds (a decoder that cannot be
+        # built raises); both paths draw the same crop and flip.
+        self.use_native = use_native
+        self._dims_cache: dict[int, tuple[int, int]] = {}
 
     def set_epoch(self, epoch: int) -> None:
         self.epoch = int(epoch)
@@ -117,12 +126,15 @@ class PretrainLoader:
         n = len(self._order())
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
+    def _rng(self, position: int) -> np.random.Generator:
+        # Crop and flip are a function of (seed, epoch, sample).
+        return np.random.default_rng(
+            (self.seed * 1_000_003 + self.epoch * 7_919 + position) % (2 ** 63))
+
     def _decode(self, position: int) -> np.ndarray:
         from PIL import Image
 
-        # Crop and flip are a function of (seed, epoch, sample).
-        rng = np.random.default_rng(
-            (self.seed * 1_000_003 + self.epoch * 7_919 + position) % (2 ** 63))
+        rng = self._rng(position)
         with Image.open(self.index.paths[position]) as img:
             rgb = img.convert("RGB")
             y0, x0, h, w = sample_crop_box(*rgb.size, rng)
@@ -133,6 +145,51 @@ class PretrainLoader:
             array = array[:, ::-1]
         return np.ascontiguousarray(array)
 
+    def _native_enabled(self) -> bool:
+        return self.use_native is not False and native.native_available()
+
+    def _dims(self, position: int) -> Optional[tuple[int, int]]:
+        cached = self._dims_cache.get(position)
+        if cached is None:
+            cached = native.jpeg_dims(self.index.paths[position])
+            if cached is not None:
+                self._dims_cache[position] = cached
+        return cached
+
+    def _native_batch(self, chunk: List[int]) -> Optional[np.ndarray]:
+        """Whole-batch decode through the C++ pool (no GIL on the hot path),
+        on the same rng draws as :meth:`_decode`: ``sample_crop_box`` as
+        fractions of the full frame, then the flip.  Frames without a JPEG
+        header and frames the decoder fails go through PIL one by one; a
+        batch without any JPEG returns None (the PIL pool takes it)."""
+        native_pos: List[int] = []
+        pil_fallback: List[int] = []
+        crops: List[tuple] = []
+        flips: List[bool] = []
+        for j, position in enumerate(chunk):
+            dims = self._dims(position)
+            if dims is None:  # non-JPEG or unreadable header
+                pil_fallback.append(j)
+                continue
+            width, height = dims
+            rng = self._rng(position)
+            y0, x0, h, w = sample_crop_box(width, height, rng)
+            crops.append((y0 / height, x0 / width, h / height, w / width))
+            flips.append(rng.random() < 0.5)
+            native_pos.append(j)
+        if not native_pos:
+            return None
+        sub_images, ok = native.decode_crop_resize_batch_status(
+            [self.index.paths[chunk[j]] for j in native_pos], self.image_size, self.image_size,
+            np.asarray(crops, dtype=np.float64), np.asarray(flips, dtype=np.uint8),
+            n_threads=self.num_workers)
+        images = np.empty((len(chunk), self.image_size, self.image_size, 3), dtype=np.uint8)
+        images[native_pos] = sub_images
+        retry = pil_fallback + [native_pos[k] for k in np.flatnonzero(~ok).tolist()]
+        for j in sorted(retry):
+            images[j] = self._decode(chunk[j])
+        return images
+
     def __iter__(self) -> Iterator[np.ndarray]:
         order = self._order()
         n_batches = len(self)
@@ -141,6 +198,7 @@ class PretrainLoader:
         out_queue: queue.Queue = queue.Queue(maxsize=self.prefetch_batches)
         stop = threading.Event()
         failure: list = []
+        use_native = self._native_enabled()
 
         def producer() -> None:
             # The sentinel reaches the consumer even when a decode raises, so
@@ -151,7 +209,13 @@ class PretrainLoader:
                         if stop.is_set():
                             break
                         chunk = order[b * self.batch_size:(b + 1) * self.batch_size].tolist()
-                        out_queue.put(np.stack(list(pool.map(self._decode, chunk))))
+                        images = self._native_batch(chunk) if use_native else None
+                        if images is None:
+                            images = np.stack(list(pool.map(self._decode, chunk)))
+                        if len(images) < self.batch_size:  # the last batch, kept
+                            pad = np.repeat(images[-1:], self.batch_size - len(images), axis=0)
+                            images = np.concatenate([images, pad])
+                        out_queue.put(images)
             except BaseException as exc:  # noqa: BLE001 - re-raised in the consumer
                 failure.append(exc)
             finally:

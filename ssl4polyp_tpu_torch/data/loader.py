@@ -2,8 +2,11 @@
 
 The port's copy of ``ssl4polyp_tpu/data/loader.py``, batch for batch the
 same (it stands where the reference has torch's ``DataLoader`` +
-``DistributedSampler``, ``packs.py:319-394``); frames decode through PIL
-only: the JAX package's native libjpeg decoder is not ported.
+``DistributedSampler``, ``packs.py:319-394``).  Frames decode through the
+native libjpeg decoder (:mod:`ssl4polyp_tpu_torch.native`, as in the JAX
+package) unless a perturber is set, a pack's first 16 frames are not all
+JPEGs, ``use_native=False`` or ``SSL4POLYP_NATIVE_DECODE=0``; then through
+PIL, as does each frame the native decoder fails.
 
 * deterministic seeded epoch shuffling — the permutation is a pure function
   of ``(seed, epoch)``, so data order is fully reproducible and resume only
@@ -24,6 +27,7 @@ int32, ``valid`` (B,) bool, ``index`` (B,) int32 (positions into the
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -31,6 +35,7 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 
+from .. import native
 from .packs import PackIndex
 from .transforms import PerRowPerturber, decode_frame
 
@@ -50,6 +55,7 @@ class HostDataLoader:
         prefetch_batches: int = 2,
         process_index: int = 0,
         process_count: int = 1,
+        use_native: Optional[bool] = None,
     ) -> None:
         self.index = index
         self.batch_size = int(batch_size)
@@ -72,6 +78,17 @@ class HostDataLoader:
 
         self._perturber = (
             PerRowPerturber(index.hmac_key) if index.perturbations_enabled else None
+        )
+
+        # Native batch JPEG decode (C++/libjpeg, DCT-domain downscale) when
+        # no per-row perturbation rendering is needed; disable with
+        # SSL4POLYP_NATIVE_DECODE=0.  A decoder that cannot be built raises.
+        if use_native is None:
+            use_native = os.environ.get("SSL4POLYP_NATIVE_DECODE", "1") != "0"
+        self._use_native = (
+            bool(use_native) and self._perturber is None
+            and all(str(p).lower().endswith((".jpg", ".jpeg")) for p in index.paths[:16])
+            and native.native_available()
         )
 
     # ------------------------------------------------------------------
@@ -139,12 +156,26 @@ class HostDataLoader:
         batch_index = np.full((B,), -1, dtype=np.int32)
         decode_ok = np.ones((len(positions),), dtype=bool)
 
-        images = list(pool.map(self._decode, [int(p) for p in positions]))
-        for slot, image in enumerate(images):
-            if image is None:
-                decode_ok[slot] = False
-            else:
-                batch_images[slot] = image
+        if self._use_native:
+            paths = [self.index.paths[int(p)] for p in positions]
+            _, decode_ok = native.decode_resize_batch_status(
+                paths, size, size, n_threads=self.num_workers,
+                out=batch_images[: len(positions)],
+            )
+            # Native decode is JPEG-only; retry failures through PIL, which
+            # handles other container formats and raises precise errors.
+            for slot in np.flatnonzero(~decode_ok):
+                image = self._decode(int(positions[slot]))
+                if image is not None:
+                    batch_images[slot] = image
+                    decode_ok[slot] = True
+        else:
+            images = list(pool.map(self._decode, [int(p) for p in positions]))
+            for slot, image in enumerate(images):
+                if image is None:
+                    decode_ok[slot] = False
+                else:
+                    batch_images[slot] = image
 
         for slot, position in enumerate(positions):
             if self.index.labels is not None:

@@ -94,6 +94,7 @@ def test_perturber_renders_the_jax_packages_pixels(variant):
                                   np.asarray(jax_transforms.PerRowPerturber(b"k")(image, seeded)))
 
 
+@pytest.mark.parametrize("use_native", [False, True])
 @pytest.mark.parametrize("alias, batch_size, kwargs", [
     ("test", 4, {}),                                        # perturbed rows, padded tail
     ("train", 4, {"seed": 13}),                             # shuffled, drop_last
@@ -101,12 +102,16 @@ def test_perturber_renders_the_jax_packages_pixels(variant):
     ("val", 3, {"process_index": 1, "process_count": 2}),   # a stripe, wrap-around padding
     ("val", 5, {"shuffle": True, "seed": 2, "drop_last": True}),
 ])
-def test_loader_yields_the_jax_loaders_batches(variant_pack, alias, batch_size, kwargs):
+def test_loader_yields_the_jax_loaders_batches(variant_pack, alias, batch_size, kwargs,
+                                               use_native):
+    # The frames (40 px) are resized to 32: the native decoder's pixels and
+    # PIL's differ, and each side must take the same one.  The perturbed
+    # test split goes through PIL on both sides whatever use_native says.
     ours = loader.HostDataLoader(_datasets(packs, variant_pack)[alias], batch_size,
-                                 num_workers=2, **kwargs)
-    # The JAX loader's native libjpeg decoder is not ported: PIL on both sides.
+                                 num_workers=2, use_native=use_native, **kwargs)
     ref = jax_loader.HostDataLoader(_datasets(jax_packs, variant_pack)[alias], batch_size,
-                                    num_workers=2, use_native=False, **kwargs)
+                                    num_workers=2, use_native=use_native, **kwargs)
+    assert ours._use_native == ref._use_native == (use_native and alias != "test")
     assert (ours.shuffle, ours.drop_last, len(ours)) == (ref.shuffle, ref.drop_last, len(ref))
     for epoch in (0, 1):
         ours.set_epoch(epoch)

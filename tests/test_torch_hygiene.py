@@ -6,7 +6,10 @@ synthetic SUN root to its perturbation grid, and the reporting tools' two
 CLIs from exp1's runs to its report) without jax, flax, msgpack,
 scikit-learn or the JAX package itself (the GPU machine lacks jax and flax),
 and imports without PyYAML and PIL (which only the
-manifest and frame readers import, where they open a file); no source of the
+manifest and frame readers import, where they open a file, and the native
+JPEG decoder, where it finds and checks PIL's libjpeg); the loaders of the
+eval CLI, the MAE fine-tune and probe and both engines read their JPEGs
+through that decoder, no frame through PIL; no source of the
 port imports the forbidden ones, no line of the port's sweep scripts
 (``scripts/torch``) runs them, every ``device`` parameter defaults to the
 card, and chip_smoke.py refuses to run without CUDA."""
@@ -45,6 +48,7 @@ assert {"ssl4polyp_tpu_torch.training.pretrain", "ssl4polyp_tpu_torch.training.h
         "ssl4polyp_tpu_torch.utils.reporting_inputs",
         "ssl4polyp_tpu_torch.parallel", "ssl4polyp_tpu_torch.parallel.mesh",
         "ssl4polyp_tpu_torch.parallel.multihost",
+        "ssl4polyp_tpu_torch.native", "ssl4polyp_tpu_torch.native.reference",
         *("ssl4polyp_tpu_torch.analysis." + name for name in (
             "bootstrapper", "common", "display", "exp5a_domain_shift", "exp_reports",
             "frame_bootstrap", "guardrails", "report_core", "seed_checks"))} <= set(modules)
@@ -141,6 +145,7 @@ assert set(out["case_metrics"]) == {"c0", "c1"}
 import tempfile
 from pathlib import Path
 del sys.modules["yaml"], sys.modules["PIL"]
+from ssl4polyp_tpu_torch import native
 from ssl4polyp_tpu_torch.evaluation.eval_classification import evaluate
 from ssl4polyp_tpu_torch.polypdb.synth import build_synthetic_pack
 from ssl4polyp_tpu_torch.utils.checkpoint import save_checkpoint
@@ -155,8 +160,11 @@ with tempfile.TemporaryDirectory() as tmp:
         np.random.default_rng(0))
     ckpt = save_checkpoint(Path(tmp) / "Tiny_Synth_s1.ckpt", {"params": tree},
                            {"model_cfg": model_cfg, "thresholds": {"primary": {"tau": 0.25}}})
+    native.reset_decode_counts()
     summary = evaluate(ckpt, pack, batch_size=4, image_size=32, num_workers=1, device="cpu",
                        output_dir=Path(tmp) / "eval", export_outputs=True)
+    # The loader read the JPEG pack through the native decoder, no frame through PIL.
+    assert native.decode_counts() == {"decoded": 6, "failed": 0}, native.decode_counts()
     assert summary["n_frames"] == 6 and summary["tau"] == 0.25 and np.isfinite(summary["loss"])
     assert (Path(tmp) / "eval" / "logits.pt").exists()
 
@@ -172,10 +180,12 @@ with tempfile.TemporaryDirectory() as tmp:
     train = create_classification_datasets(train_spec=pack, image_size=32)["train"]
     settings = MAEFinetuneSettings(epochs=1, warmup_epochs=0, batch_size=4, num_workers=1,
                                    mixup_alpha=0.8, cutmix_alpha=1.0)
+    native.reset_decode_counts()
     tuned = run_mae_finetune(classifier, train, settings, device="cpu")
     probed = run_linear_probe(classifier, train, MAEFinetuneSettings(
         epochs=1, warmup_epochs=0, batch_size=4, num_workers=1, base_lr=0.1, weight_decay=0.0,
         smoothing=0.0), device="cpu")
+    assert native.decode_counts() == {"decoded": 16, "failed": 0}, native.decode_counts()
     assert np.isfinite(tuned["train_loss"]) and np.isfinite(probed["train_loss"])
     assert set(tuned["params"]) == set(probed["params"]) == set(
         dict(classifier.model.named_parameters()))
@@ -189,8 +199,8 @@ print("ok", len(modules))
 
 
 # The pretraining engine's CLI on the CPU with the JAX stack blocked (PIL
-# allowed: the loader decodes with it): one epoch, then an auto-resume for
-# a second.  TensorBoard's import is blocked too, so RunLogger takes the
+# allowed: the native decoder links its libjpeg): one epoch, then an
+# auto-resume for a second.  TensorBoard's import is blocked too, so RunLogger takes the
 # port's own event writer, as on a host without the tensorboard package.
 _ENGINE_SCRIPT = """
 import sys
@@ -202,6 +212,7 @@ import json, tempfile
 from pathlib import Path
 import numpy as np, torch
 from PIL import Image
+from ssl4polyp_tpu_torch import native
 from ssl4polyp_tpu_torch.models.mae import MAEConfig
 from ssl4polyp_tpu_torch.models.vit import ViTConfig
 from ssl4polyp_tpu_torch.training import pretrain
@@ -224,6 +235,8 @@ with tempfile.TemporaryDirectory() as tmp:
             "--warmup-epochs", "1", "--log-interval", "1", "--device", "cpu"]
     first = pretrain.cli_main(argv + ["--epochs", "1"])
     second = pretrain.cli_main(argv + ["--epochs", "2", "--resume", "auto"])
+    # Both epochs cropped every JPEG through the native decoder.
+    assert native.decode_counts() == {"decoded": 16, "failed": 0}, native.decode_counts()
     assert first["epoch"] == 0 and second["epoch"] == 1, (first, second)
     restored = load_checkpoint(tmp / "out" / "ckpts" / "last.ckpt")
     assert restored["meta"]["epoch"] == 1 and int(restored["payload"]["opt"]["step"]) == 4
@@ -281,6 +294,10 @@ sys.argv = ["classification", "--exp-config", "exp/exp2", "--model-key", "ssl_co
             "--override", "epochs=2", "--override", "batch_size=4",
             "--override", "image_size=32", "--override", "num_workers=2"]
 runpy.run_module("ssl4polyp_tpu_torch.training.classification", run_name="__main__")
+# Every split's JPEGs went through the native decoder, none through PIL.
+from ssl4polyp_tpu_torch import native
+counts = native.decode_counts()
+assert counts["decoded"] > 0 and counts["failed"] == 0, counts
 
 leaked = sorted(m for m in sys.modules
                 if (m == "ssl4polyp_tpu" or m.startswith("ssl4polyp_tpu."))
@@ -487,7 +504,7 @@ def test_no_jax_import_in_the_port_sources():
             "ssl4polyp_tpu_torch/ops/attention.py",
             "ssl4polyp_tpu_torch/ops/attention_block.py",
             *WEIGHT_FILE_MODULES, *POLYPDB_MODULES, *REPORTING_MODULES,
-            *PARALLEL_MODULES} <= names
+            *PARALLEL_MODULES, *NATIVE_MODULES} <= names
     for path in sources:
         for line in path.read_text().splitlines():
             assert _forbidden_import(line) is None, f"{path}: {line}"
@@ -501,6 +518,11 @@ WEIGHT_FILE_MODULES = {f"ssl4polyp_tpu_torch/models/{name}.py" for name in (
 # The pack tools: PyYAML, PIL and OpenCV only inside the functions that use them.
 POLYPDB_MODULES = {f"ssl4polyp_tpu_torch/polypdb/{name}.py" for name in (
     "__init__", "synth", "builders", "robustness", "cli")}
+
+
+# The native JPEG decoder: PIL only inside the functions that find and check
+# its libjpeg.
+NATIVE_MODULES = {f"ssl4polyp_tpu_torch/native/{name}.py" for name in ("__init__", "reference")}
 
 
 # The data-parallel layer.

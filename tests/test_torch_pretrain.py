@@ -161,14 +161,16 @@ def image_folder(tmp_path):
     return root
 
 
-def test_loader_yields_the_jax_loaders_batches(image_folder):
+@pytest.mark.parametrize("use_native", [False, True])
+def test_loader_yields_the_jax_loaders_batches(image_folder, use_native):
     from ssl4polyp_tpu.data import folder as jax_folder
     from ssl4polyp_tpu_torch.data import folder
 
     ours = folder.PretrainLoader(folder.ImageFolderIndex(image_folder, no_train_dir=True), 3,
-                                 image_size=24, seed=5, num_workers=2)
+                                 image_size=24, seed=5, num_workers=2, use_native=use_native)
     ref = jax_folder.PretrainLoader(jax_folder.ImageFolderIndex(image_folder, no_train_dir=True),
-                                    3, image_size=24, seed=5, num_workers=2, use_native=False)
+                                    3, image_size=24, seed=5, num_workers=2,
+                                    use_native=use_native)
     assert len(ours) == len(ref) == 2
     for epoch in range(2):
         ours.set_epoch(epoch)
