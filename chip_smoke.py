@@ -6,9 +6,10 @@ standalone eval CLI, its fine-tune engine, exp1's two arms from their
 weight files, the dense model, the upstream MAE fine-tune and linear
 probe, the pack tools with exp5b's 15,840-row evaluation, exp1's
 seed-trio sweep through the port's scripts with its report, the
-fine-tune engine as two data-parallel ranks, and the native JPEG decoder
-under the eval CLI and the pretraining engine on frames of SUN's size, on
-one NVIDIA GPU.
+fine-tune engine as two data-parallel ranks, the native JPEG decoder
+under the eval CLI and the pretraining engine on frames of SUN's size, and
+the fp32 runs (``amp: false``, ``PretrainSettings.precision = "fp32"``) on
+their own kernels, on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -61,7 +62,16 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    design's, held to the plain version too, and each launch of both designs
    timed alone beside its bound), with both ``softmax_f32`` settings, a
    ``valid_len`` below the token count and an odd head count at hd 32; its
-   forward and backward reruns are bit-identical.
+   forward and backward reruns are bit-identical.  Last, the fp32 kernels
+   of the default route (attention forward and backward, fc1+GELU,
+   LayerNorm forward and backward, with and without a residual's gradient)
+   against their plain fp32 versions at the classifier's, the MAE decoder's
+   and the MAE encoder's shapes, with ``valid_len`` below N, 1 and 256
+   tokens: max |kernel - plain| within 2e-5 of max |plain| for outputs and
+   1e-4 for gradients (cuBLAS held to fp32: TF32 off), reruns bit-identical;
+   their times beside the plain versions', the one PyTorch call's in fp32
+   (SDPA and its backward, ``F.linear`` + ``F.gelu``, ``F.layer_norm`` and
+   its backward) and the bound at 67 TFLOP/s fp32 or 3.35 TB/s.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -259,6 +269,21 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    native frame decoded without a PIL retry.  Then the pretraining engine
    (MAE ViT-B/16, batch 64) for 2 steps on those frames through the crop
    path, every crop native.  The launches of both paths exact.
+15. fp32 compute at full width, on the fp32 kernels (cuBLAS's TF32 off,
+   asserted): the ViT-B/16 classifier's fine-tune step in fp32 (step 1's
+   loss within 1e-5 and every gradient within 1e-4 relative L2 distance of
+   the plain step's, two steps twice from one state bit-equal, images/s
+   over 20 steps), the AdamW kernel with the compute copy the masters
+   themselves (no copy written) bit-equal to its plain version over 3
+   steps, the eval forward in fp32 (logits within 1e-4 of max |plain|,
+   images/s over 20 requests), the MAE ViT-B/16 pretrain step under
+   ``PretrainSettings(precision="fp32")`` (the fine-tune step's checks), a
+   fine-tune engine run of ``config/exp/exp1.yaml``'s ``sup_imnet`` arm
+   with ``amp=false`` (an fp32 classifier from an AugReg ``.npz``, 2 steps,
+   1 val and 1 test batch) and the eval CLI's ``evaluate`` on its best
+   checkpoint with ``compute_dtype`` fp32 (tau and the test metrics within
+   1e-6 of the run's).  Every path's launches exact: the fp32 kernels, the
+   AdamW kernel, and no bf16 kernel.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -402,6 +427,14 @@ QKVPROJ_GRAD_TOL = (1e-2, 2e-2)  # (atol as a fraction of max|plain|, rtol)
 # the bias gradient is left out (its exact value is zero).
 ROUTE_OUT_TOL = (2e-2, 2e-2)
 ROUTE_GRAD_RTOL = 2e-2
+# The fp32 kernels against their plain fp32 versions: max |kernel - plain| as
+# a fraction of max |plain|.  The plain versions make the same arithmetic in
+# another summation order (cuBLAS, torch's softmax and reductions), about
+# 1e-6 of the largest value a product or sum of a few hundred terms; a TF32
+# product (10-bit mantissa, ~5e-4 a term) or a bf16 one misses by more than
+# an order of magnitude.  Gradients carry two or three such sums in a row.
+FP32_FWD_FRAC = 2e-5
+FP32_GRAD_FRAC = 1e-4
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): the bound
 # of a kernel is the larger of its bytes over the memory rate and its
 # operations over the rate of their type.
@@ -858,6 +891,7 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
     report.update(attn_proj_kernels(randn))
     report.update(attention_ops_kernels(randn))
     report.update(adamw_kernel(gen))
+    report.update(fp32_kernels(gen))
     return report
 
 
@@ -1350,6 +1384,214 @@ def adamw_kernel(gen: torch.Generator) -> dict[str, dict]:
     return report
 
 
+def max_relative_error(out: torch.Tensor, ref: torch.Tensor, frac: float,
+                       what: str) -> tuple[float, float]:
+    """max |out - ref| against ``frac`` times max |ref|, both finite: the fp32
+    kernels' check.  Returns (max |out - ref| / max |ref|, max |out - ref|)."""
+    if not torch.isfinite(out).all() or not torch.isfinite(ref).all():
+        fail(f"{what}: non-finite values")
+    diff = (out - ref).abs().max().item()
+    err = diff / max(ref.abs().max().item(), 1e-30)
+    if err > frac:
+        fail(f"{what}: max |kernel - plain| is {err:.3e} of max |plain|, above {frac}")
+    return err, diff
+
+
+def fp32_kernels(gen: torch.Generator) -> dict[str, dict]:
+    """The fp32 kernels of the default route (attention forward and backward,
+    fc1+GELU, LayerNorm forward and backward) against their plain fp32
+    versions at the classifier's, the MAE decoder's (D) and the MAE encoder's
+    (E) shapes and at the token counts' edges, each rerun bit-identical; their
+    times beside the plain versions', the one PyTorch call's in fp32 and the
+    bound at the fp32 rate.  Errors are relative to max |plain|."""
+    dev = "cuda"
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("fp32 kernels: cuBLAS is allowed TF32, so the plain fp32 versions would not be fp32")
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    report = {}
+
+    def attention_cost(b, n, h, hd):  # qkv and the bias in, the output out; two products
+        return dict(bytes_moved=4 * (b * n * 4 * h * hd + 3 * h * hd),
+                    flops=4 * b * h * n * n * hd, peak=FP32_FLOPS)
+
+    def attention_bwd_cost(b, n, h, hd):  # qkv, dout, bias in; dqkv, dbias out; five products
+        return dict(bytes_moved=4 * (b * n * 7 * h * hd + 6 * h * hd),
+                    flops=10 * b * h * n * n * hd, peak=FP32_FLOPS)
+
+    # (batch, tokens, heads, head dim, fp32 scores, valid_len, bias, name):
+    # the classifier's call (timed), the MAE decoder's and encoder's (timed),
+    # valid_len below N, one token, 256 tokens.
+    cases = [
+        (BATCH, 197, 12, 64, True, None, True, "classifier"),
+        (BATCH, 197, 12, 64, True, 150, False, None),
+        (BATCH, 197, 16, 32, True, None, True, "MAE decoder"),
+        (BATCH, 50, 12, 64, True, None, True, "MAE encoder"),
+        (8, 197, 16, 32, False, 100, True, None),
+        (4, 1, 12, 64, True, None, True, None),
+        (4, 256, 12, 64, True, 255, True, None),
+        (4, 256, 16, 32, True, None, False, None),
+    ]
+    fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
+    for b, n, h, hd, f32, valid_len, with_bias, name in cases:
+        qkv, dout = randn(b, n, 3 * h * hd), randn(b, n, h * hd)
+        bias = randn(3 * h * hd, scale=0.5) if with_bias else None
+        run = lambda: qkv_attention._forward_kernel(qkv, h, f32, valid_len, bias)  # noqa: E731
+        plain = lambda: qkv_attention.fused_qkv_attention_reference(qkv, h, f32, valid_len, bias)  # noqa: E731
+        run_bwd = lambda: qkv_attention._backward_kernel(qkv, dout, h, f32, valid_len, bias)  # noqa: E731
+        plain_bwd = lambda: qkv_attention.fused_qkv_attention_backward_reference(  # noqa: E731
+            qkv, dout, h, f32, valid_len, bias)
+        out, again = run(), run()
+        (dqkv, dbias), bwd_again = run_bwd(), run_bwd()
+        torch.cuda.synchronize()
+        what = f"fp32 attention B={b} N={n} H={h} hd={hd} valid_len={valid_len} bias={with_bias}"
+        fwd_errors.append(max_relative_error(out, plain(), FP32_FWD_FRAC, what))
+        ref_dqkv, ref_dbias = plain_bwd()
+        bwd_errors.append(max_relative_error(dqkv, ref_dqkv, FP32_GRAD_FRAC, f"{what}: dqkv"))
+        line = (f"{what}: out {fwd_errors[-1][0]:.3e}, dqkv {bwd_errors[-1][0]:.3e} of max |plain| "
+                f"(limits {FP32_FWD_FRAC}, {FP32_GRAD_FRAC})")
+        if with_bias:
+            bwd_errors.append(max_relative_error(dbias, ref_dbias, FP32_GRAD_FRAC,
+                                                 f"{what}: dbias"))
+            line += f", dbias {bwd_errors[-1][0]:.3e}"
+        if not torch.equal(out, again) or not torch.equal(dqkv, bwd_again[0]) or (
+                with_bias and not torch.equal(dbias, bwd_again[1])):
+            fail(f"{what}: two runs gave different bits")
+        print(line + "; reruns bit-identical")
+        if name is None:
+            continue
+        biased = qkv if bias is None else qkv + bias
+        q, k, v = heads_of(biased, h)
+        library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        leaf = biased.clone().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(*heads_of(leaf, h)).transpose(1, 2).reshape(
+            dout.shape)
+        library_bwd = lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True)  # noqa: E731
+        fwd_times[name] = time_ms(run), time_ms(plain), time_ms(library)
+        bwd_times[name] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        print(f"  {name}'s shape: forward kernel {fwd_times[name][0]:.4f} ms, plain "
+              f"{fwd_times[name][1]:.4f} ms, fp32 scaled_dot_product_attention "
+              f"{fwd_times[name][2]:.4f} ms, {bound_text(**attention_cost(b, n, h, hd))}; "
+              f"backward kernel {bwd_times[name][0]:.4f} ms, plain {bwd_times[name][1]:.4f} ms, "
+              f"its backward {bwd_times[name][2]:.4f} ms, "
+              f"{bound_text(**attention_bwd_cost(b, n, h, hd))}")
+        del leaf, lib_out
+    report["fused_qkv_attention_f32"] = entry(
+        "qkv_attention_f32.cu", "ssl4polyp_tpu/ops/qkv_attention.py:208",
+        max(e[1] for e in fwd_errors),
+        *fwd_times["classifier"][:2], **attention_cost(BATCH, 197, 12, 64),
+        library_ms=fwd_times["classifier"][2])
+    report["fused_qkv_attention_backward_f32"] = entry(
+        "qkv_attention_f32.cu", "ssl4polyp_tpu/ops/qkv_attention.py:237",
+        max(e[1] for e in bwd_errors),
+        *bwd_times["classifier"][:2], **attention_bwd_cost(BATCH, 197, 12, 64),
+        library_ms=bwd_times["classifier"][2])
+
+    # fc1+GELU: the eval call writes y only, the train steps h too.
+    def fc1_cost(m, k, nf, write_h):  # x, w and the bias in; y, and h when asked, out
+        return dict(bytes_moved=4 * (m * k + nf * k + nf + (2 if write_h else 1) * m * nf),
+                    flops=2 * m * k * nf, peak=FP32_FLOPS)
+
+    errors, times = [], {}
+    for name, m, k, nf, write_h in [("classifier", BATCH * 197, 768, 3072, False),
+                                    ("classifier (train)", BATCH * 197, 768, 3072, True),
+                                    ("MAE decoder", BATCH * 197, 512, 2048, True),
+                                    ("MAE encoder", BATCH * 50, 768, 3072, True),
+                                    (None, 37, 64, 24, True)]:
+        x, w, bias = randn(m, k), randn(nf, k, scale=k ** -0.5), randn(nf, scale=0.5)
+        run = lambda: mlp._kernel(x, w, bias, write_h)  # noqa: E731
+        plain = lambda: mlp.fc1_gelu_reference(x, w, bias)  # noqa: E731
+        (h, y), (h2, y2) = run(), run()
+        torch.cuda.synchronize()
+        what = f"fp32 fc1_gelu ({m}, {k}) -> {nf}, h written: {write_h}"
+        errors.append(max_relative_error(y, plain(), FP32_FWD_FRAC, f"{what}: y"))
+        line = f"{what}: y {errors[-1][0]:.3e}"
+        if write_h:
+            errors.append(max_relative_error(h, torch.matmul(x, w.t()) + bias, FP32_FWD_FRAC,
+                                             f"{what}: h"))
+            line += f", h {errors[-1][0]:.3e}"
+        if not torch.equal(y, y2) or (write_h and not torch.equal(h, h2)):
+            fail(f"{what}: two runs gave different bits")
+        print(line + f" of max |plain| (limit {FP32_FWD_FRAC}); rerun bit-identical")
+        if name is None:
+            continue
+        library = lambda: F.gelu(F.linear(x, w, bias))  # noqa: E731
+        times[name] = time_ms(run), time_ms(plain), time_ms(library)
+        print(f"  {name}'s shape: kernel {times[name][0]:.4f} ms, plain {times[name][1]:.4f} ms, "
+              f"fp32 F.linear + F.gelu {times[name][2]:.4f} ms, "
+              f"{bound_text(**fc1_cost(m, k, nf, write_h))}")
+    report["fc1_gelu_f32"] = entry(
+        "fc1_gelu_f32.cu", "ssl4polyp_tpu/ops/mlp.py:111", max(e[1] for e in errors),
+        *times["classifier"][:2],
+        **fc1_cost(BATCH * 197, 768, 3072, False), library_ms=times["classifier"][2])
+
+    # LayerNorm forward and backward, with and without a residual's gradient.
+    def ln_cost(m, d):  # x in and y out in fp32, the affine in
+        return dict(bytes_moved=8 * m * d + 8 * d, flops=8 * m * d, peak=FP32_FLOPS)
+
+    def ln_bwd_cost(m, d, dres=False):  # x, dy (and dres) in, dx out; the weight in, dw, db out
+        return dict(bytes_moved=(16 if dres else 12) * m * d + 12 * d,
+                    flops=(13 if dres else 12) * m * d, peak=FP32_FLOPS)
+
+    fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
+    for name, m, d in [("MAE encoder", BATCH * 50, 768), ("MAE decoder", BATCH * 197, 512),
+                       ("classifier", BATCH * 197, 768), (None, 5, 1536)]:
+        x, dy, dres = randn(m, d), randn(m, d), randn(m, d)
+        w, bias = 1.0 + 0.1 * randn(d), 0.1 * randn(d)
+        run = lambda: layernorm._forward_kernel(x, w, bias, 1e-6)  # noqa: E731
+        plain = lambda: layernorm.layernorm_reference(x, w, bias, 1e-6)  # noqa: E731
+        run_bwd = lambda: layernorm._backward_kernel(x, dy, w, 1e-6)  # noqa: E731
+        run_dres = lambda: layernorm._backward_kernel(x, dy, w, 1e-6, dres)  # noqa: E731
+        y, y2 = run(), run()
+        grads, grads2 = run_bwd(), run_bwd()
+        with_dres, with_dres2 = run_dres(), run_dres()
+        torch.cuda.synchronize()
+        leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        ref = layernorm.layernorm_reference(*leaves, 1e-6)
+        plain_bwd = lambda: torch.autograd.grad(ref, leaves, dy, retain_graph=True)  # noqa: E731
+        ref_grads = plain_bwd()
+        ref_dres = ln_linear.layernorm_backward(x, w, dy, 1e-6, True, dres)
+        what = f"fp32 layernorm ({m}, {d})"
+        fwd_errors.append(max_relative_error(y, plain(), FP32_FWD_FRAC, f"{what}: y"))
+        for label, got, want in (("", grads, ref_grads), (" with dres", with_dres, ref_dres)):
+            for part, a, r in zip(("dx", "dweight", "dbias"), got, want):
+                bwd_errors.append(max_relative_error(a, r, FP32_GRAD_FRAC,
+                                                     f"{what}: {part}{label}"))
+        worst = max(e[0] for e in bwd_errors[-6:])
+        if not torch.equal(y, y2) or not all(torch.equal(a, b) for a, b in zip(
+                (*grads, *with_dres), (*grads2, *with_dres2))):
+            fail(f"{what}: two runs gave different bits")
+        print(f"{what}: y {fwd_errors[-1][0]:.3e}, worst of dx, dweight, dbias with and "
+              f"without dres {worst:.3e} of max |plain| (limits {FP32_FWD_FRAC}, "
+              f"{FP32_GRAD_FRAC}); reruns bit-identical")
+        if name is None:
+            continue
+        lib_leaves = [t.clone().requires_grad_() for t in (x, w, bias)]
+        library = lambda: F.layer_norm(lib_leaves[0], (d,), lib_leaves[1], lib_leaves[2], 1e-6)  # noqa: E731
+        lib_y = library()
+        library_bwd = lambda: torch.autograd.grad(lib_y, lib_leaves, dy, retain_graph=True)  # noqa: E731
+        plain_dres = lambda: ln_linear.layernorm_backward(x, w, dy, 1e-6, True, dres)  # noqa: E731
+        fwd_times[name] = time_ms(run), time_ms(plain), time_ms(library)
+        bwd_times[name] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        print(f"  {name}'s shape: forward kernel {fwd_times[name][0]:.4f} ms, plain "
+              f"{fwd_times[name][1]:.4f} ms, F.layer_norm {fwd_times[name][2]:.4f} ms, "
+              f"{bound_text(**ln_cost(m, d))}; backward kernel {bwd_times[name][0]:.4f} ms, "
+              f"plain {bwd_times[name][1]:.4f} ms, F.layer_norm's {bwd_times[name][2]:.4f} ms, "
+              f"{bound_text(**ln_bwd_cost(m, d))}; with dres {time_ms(run_dres):.4f} ms, plain "
+              f"{time_ms(plain_dres):.4f} ms, {bound_text(**ln_bwd_cost(m, d, True))}; "
+              f"{_build.library().ssl4polyp_layernorm_bwd_blocks_f32(m, d)} blocks")
+    m, d = BATCH * 197, 768
+    report["layernorm_f32"] = entry(
+        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:50", max(e[1] for e in fwd_errors),
+        *fwd_times["classifier"][:2], **ln_cost(m, d), library_ms=fwd_times["classifier"][2])
+    report["layernorm_backward_f32"] = entry(
+        "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:226", max(e[1] for e in bwd_errors),
+        *bwd_times["classifier"][:2], **ln_bwd_cost(m, d), library_ms=bwd_times["classifier"][2])
+    return report
+
+
 def _linear(rng, d_in, d_out, stack=None):
     lead = () if stack is None else (stack,)
     limit = np.sqrt(6.0 / (d_in + d_out))
@@ -1583,35 +1825,36 @@ def differing(a: dict[str, torch.Tensor], b: dict[str, torch.Tensor]) -> list[st
     return [name for name in a if not torch.equal(bits(a[name]), bits(b[name]))]
 
 
-def check_run_to_run_bits(fresh_state, train_step, batches, noise, schedule,
-                          steps: int = 3) -> None:
-    """``steps`` pretrain steps twice from one seed and one state, after
-    ``set_determinism``: every master, both moments and the compute copy
-    must agree bit for bit, and the compute copy the AdamW kernel left must
-    be the plain cast of the masters (what a resume writes)."""
+def check_run_to_run_bits(fresh_state, run_step, compute_dtype: torch.dtype, steps: int = 3,
+                          what: str = "pretrain") -> None:
+    """``steps`` train steps (``run_step(state, i)`` runs step i) twice from
+    one seed and one state, after ``set_determinism``: every master, both
+    moments and the compute copy must agree bit for bit, and the compute copy
+    the AdamW kernel left must be the plain cast of the masters to
+    ``compute_dtype`` (what a resume writes)."""
     states = []
     for _ in range(2):
         set_determinism(SEED)
         with projection_fold(False):
             state = fresh_state()
         for i in range(steps):
-            train_step(state, batches[i], noise[i], schedule(i))
+            run_step(state, i)
         states.append(state)
     torch.cuda.synchronize()
     a, b = states
     diffs = {what: differing(x, y) for what, x, y in (
         ("masters", a.params, b.params), ("mu", a.opt.mu, b.opt.mu), ("nu", a.opt.nu, b.opt.nu),
         ("compute copy", a.params_c, b.params_c))}
-    recast = layers.compute_copy(a.params, a.model.cfg.encoder.compute_dtype)
+    recast = layers.compute_copy(a.params, compute_dtype)
     diffs["compute copy against the cast of the masters"] = differing(a.params_c, recast)
     if any(diffs.values()):
         # Name the ops that have no deterministic CUDA implementation: one
         # step more under torch's deterministic mode.
-        ops_named = nondeterministic_ops(train_step, a, batches[0], noise[0], schedule(0))
-        fail(f"pretrain: {steps} steps twice from one state differ in "
+        ops_named = nondeterministic_ops(run_step, a, 0)
+        fail(f"{what}: {steps} steps twice from one state differ in "
              f"{ {k: v[:5] for k, v in diffs.items() if v} }; torch's deterministic mode "
              f"names {ops_named}")
-    print(f"pretrain: {steps} steps run twice from one seed and one state agree bit for bit in "
+    print(f"{what}: {steps} steps run twice from one seed and one state agree bit for bit in "
           f"all {len(a.params)} masters, both moments and the compute copy; the compute copy "
           "equals the cast of the masters")
 
@@ -1659,7 +1902,9 @@ def phase_pretrain() -> dict[str, int]:
         plain_loss, plain_grads = pretrain_loss_and_grads(state, batches[0], noise[0])
     check_step_one(loss, grads, plain_loss, plain_grads, LOSS_RTOL, GRAD_RTOL, "pretrain")
     del grads, plain_grads
-    check_run_to_run_bits(fresh_state, train_step, batches, noise, schedule)
+    check_run_to_run_bits(fresh_state,
+                          lambda state, i: train_step(state, batches[i], noise[i], schedule(i)),
+                          cfg.encoder.compute_dtype)
 
     def train(state) -> list[float]:
         losses = [train_step(state, batches[i], noise[i], schedule(i))["loss"]
@@ -4091,6 +4336,270 @@ def phase_native_decode() -> dict[str, int]:
     return counts
 
 
+# Phase 15: fp32 compute (`amp: false`, PretrainSettings.precision "fp32").
+FP32_TIMED_STEPS = (2, 10)  # images/s: 2 repeats of 10 steps or requests
+FP32_ENGINE_FRAMES = {"train": 128, "val": 64, "test": 64}
+FP32_ENGINE_LIMIT = {"train": 2, "val": 1, "test": 1}  # batches of 64, one epoch
+# Step 1 of each fp32 train step, kernels against plain: the kernels make
+# the plain versions' arithmetic in fp32, in other summation orders (phase
+# 2: up to 5e-7 of max |plain| a kernel, several of them bit-equal), so the
+# loss may move by a few fp32 ulps through the blocks and each gradient, two
+# or three sums deep, by a few 1e-6 of its norm: the limits sit at 1e-5 and
+# 1e-4.  The logits of the eval forward, 12 blocks of such differences deep,
+# as a fraction of max |plain|, with the gradients' limit.
+FP32_LOSS_RTOL = 1e-5
+FP32_STEP_GRAD_RTOL = 1e-4
+FP32_LOGITS_FRAC = 1e-4
+
+
+def fp32_adamw(gen: torch.Generator, params: dict[str, torch.Tensor]) -> None:
+    """The AdamW kernel in an fp32 run: the compute copy is the masters
+    themselves, so the kernel writes no copy.  Three steps against its plain
+    version, every parameter and moment bit for bit."""
+    lr_scale = optim.finetune_lr_scales(params, "full", 12, head_scale=2.5, freeze_pos_embed=True)
+    kwargs = dict(b1=0.9, b2=0.999, weight_decay=0.05, lr_scale=lr_scale,
+                  wd_scale=optim.no_weight_decay_scales(params))
+    sides = []
+    for _ in range(2):
+        own = {n: p.clone() for n, p in params.items()}
+        sides.append((own, layers.compute_copy(own, torch.float32), optim.adamw_init(own)))
+    if any(sides[0][1][n].data_ptr() != p.data_ptr() for n, p in sides[0][0].items()):
+        fail("fp32 adamw: the fp32 compute copy does not alias the masters")
+    for step in range(3):
+        grads = {n: 0.01 * torch.randn(p.shape, generator=gen, device="cuda")
+                 for n, p in params.items()}
+        optim.adamw_update_fused(*sides[0][:2], grads, sides[0][2], lr=1e-3 * (step + 1), **kwargs)
+        optim.adamw_update_fused_plain(*sides[1][:2], grads, sides[1][2], lr=1e-3 * (step + 1),
+                                       **kwargs)
+        torch.cuda.synchronize()
+        for what, got, want in (("parameter", sides[0][0], sides[1][0]),
+                                ("mu", sides[0][2].mu, sides[1][2].mu),
+                                ("nu", sides[0][2].nu, sides[1][2].nu)):
+            wrong = differing(got, want)
+            if wrong:
+                fail(f"fp32 adamw step {step + 1}: {what} of {wrong[:4]} differs from the plain "
+                     f"version's bits")
+    print(f"fp32 adamw: {len(params)} tensors, the compute copy the masters themselves (no copy "
+          f"written); parameters and moments equal the plain version's bit for bit over 3 steps")
+
+
+def phase_fp32() -> dict[str, int]:
+    """Phase 15: the fine-tune step, the pretrain step, the eval forward, a
+    fine-tune engine run with ``amp: false`` and the eval CLI on its
+    checkpoint, all in fp32 through the default route's fp32 kernels."""
+    from ssl4polyp_tpu_torch.training import classification as engine
+
+    phase_start = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("fp32 phase: cuBLAS is allowed TF32; the fp32 runs' products must be fp32")
+    f32 = torch.float32
+    depth, enc_depth, dec_depth = 12, 12, 8
+    per_eval = {"fused_qkv_attention_f32": depth, "layernorm_f32": 2 * depth + 1,
+                "fc1_gelu_f32": depth}
+    per_ft_step = dict(per_eval, fused_qkv_attention_backward_f32=depth,
+                       layernorm_backward_f32=2 * depth + 1, adamw=3)  # 152 tensors
+    total: dict[str, int] = {}
+
+    def add(counts: dict[str, int]) -> None:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    def timed(run, what: str, per_call: dict[str, int]) -> list[float]:
+        """Images/s of FP32_TIMED_STEPS calls, their launches exact."""
+        ops.reset_launch_counts()
+        rate = rates(run, BATCH, *FP32_TIMED_STEPS)
+        counts = ops.launch_counts()
+        calls = FP32_TIMED_STEPS[0] * FP32_TIMED_STEPS[1]
+        check_counts(counts, per_call, calls, f"{calls} {what}")
+        add(counts)
+        print(f"{what}, batch {BATCH}, images/s over {FP32_TIMED_STEPS[0]} repeats of "
+              f"{FP32_TIMED_STEPS[1]}: {spread(rate)}; {CARD}")
+        return rate
+
+    # The fine-tune step.
+    rng = np.random.default_rng(SEED)
+    base = ViTConfig(pos_embed="learned", num_classes=2)
+    tree = jax_layout_tree(base, rng)
+    batches = [torch.from_numpy(rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+               for _ in range(2)]
+    labels = [torch.from_numpy(rng.integers(0, 2, BATCH)).cuda() for _ in range(2)]
+    valid = torch.arange(BATCH, device="cuda") < BATCH - 4
+    loss_mode, pos_weight, class_weights = loss_settings([3000, 1000])
+
+    def fresh_classifier():
+        return get_imagenet_or_random_vit(torch.Generator().manual_seed(SEED), jax_params=tree,
+                                          num_classes=2, device="cuda", compute_dtype=f32)
+
+    classifier = fresh_classifier()
+    if classifier.cfg.compute_dtype != f32:
+        fail(f"fp32 fine-tune: the classifier computes in {classifier.cfg.compute_dtype}")
+    ctx = step_context(classifier, loss_mode, pos_weight, class_weights, FT_WEIGHT_DECAY)
+    step = make_train_step(ctx)
+    state = init_train_state(classifier, torch.Generator(device="cuda").manual_seed(SEED))
+    full = optim.finetune_lr_scales(state.params, "full", depth)
+    wd = optim.no_weight_decay_scales(state.params)
+    aug = draw_augment_params(BATCH, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    loss, grads = loss_and_grads(ctx, state, batches[0], labels[0], valid, aug)
+    with plain_kernels():
+        plain_loss, plain_grads = loss_and_grads(ctx, state, batches[0], labels[0], valid, aug)
+    if any(g.dtype != f32 for g in grads.values()):
+        fail("fp32 fine-tune: a gradient is not fp32")
+    check_step_one(loss, grads, plain_loss, plain_grads, FP32_LOSS_RTOL, FP32_STEP_GRAD_RTOL,
+                   "fp32 fine-tune")
+    del grads, plain_grads
+
+    def ft_state():
+        return init_train_state(fresh_classifier(),
+                                torch.Generator(device="cuda").manual_seed(SEED))
+
+    check_run_to_run_bits(
+        ft_state, lambda st, i: step(st, batches[i], labels[i], valid, FT_LR, full, wd), f32,
+        steps=2, what="fp32 fine-tune")
+    calls = iter(range(10 ** 6))
+    timed(lambda: step(state, batches[next(calls) % 2], labels[0], valid, FT_LR, full, wd),
+          "fp32 fine-tune steps (ViT-B/16)", per_ft_step)
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        fail("fp32 fine-tune: non-finite parameters after the steps")
+    fp32_adamw(torch.Generator(device="cuda").manual_seed(SEED), state.params)
+    del state, ctx, step
+
+    # The eval forward.
+    forward = make_forward_fn(classifier, "cuda")()
+    requests = [rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8) for _ in range(2)]
+    ops.reset_launch_counts()
+    logits = [forward(images) for images in requests]
+    counts = ops.launch_counts()
+    check_counts(counts, per_eval, len(requests), f"{len(requests)} fp32 eval requests")
+    add(counts)
+    with plain_kernels():
+        plain_logits = [forward(images) for images in requests]
+    err = max(max_relative_error(torch.from_numpy(got), torch.from_numpy(ref), FP32_LOGITS_FRAC,
+                                 "fp32 eval forward: logits")[0]
+              for got, ref in zip(logits, plain_logits))
+    if any(got.shape != (BATCH, 2) or got.dtype != np.float32 for got in logits):
+        fail(f"fp32 eval forward: logits {[(l.shape, l.dtype) for l in logits]}")
+    print(f"fp32 eval forward: logits against the plain forward's {err:.3e} of max |plain| "
+          f"(limit {FP32_LOGITS_FRAC})")
+    timed(lambda: forward(requests[0]), "fp32 eval requests (ViT-B/16)", per_eval)
+    del forward, classifier
+
+    # The pretrain step.
+    settings = PretrainSettings(batch_size=BATCH, precision="fp32")
+    cfg = model_config(settings)
+    if cfg.encoder.compute_dtype != f32 or not cfg.encoder.attention_softmax_f32:
+        fail(f"fp32 pretrain: model_config gave {cfg.encoder.compute_dtype}")
+    mae_tree = jax_layout_mae_tree(cfg, rng)
+    images = [torch.from_numpy(rng.integers(0, 256, (1, BATCH, 224, 224, 3), dtype=np.uint8)).cuda()
+              for _ in range(2)]
+    noise_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    noise = [torch.rand((1, BATCH, cfg.encoder.num_patches), generator=noise_gen, device="cuda")
+             for _ in range(2)]
+    schedule = warmup_cosine(settings.absolute_lr, 20, 2)
+    train_step = make_pretrain_step(cfg, 1, settings.weight_decay)
+
+    def mae_state():
+        model = MAE(cfg, torch.Generator().manual_seed(SEED))
+        model.load_state_dict(mae_state_dict_from_jax(mae_tree, cfg))
+        return init_pretrain_state(model.cuda())
+
+    with projection_fold(False):
+        state = mae_state()
+    loss, grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    with plain_kernels():
+        plain_loss, plain_grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    check_step_one(loss, grads, plain_loss, plain_grads, FP32_LOSS_RTOL, FP32_STEP_GRAD_RTOL,
+                   "fp32 pretrain")
+    del grads, plain_grads
+    check_run_to_run_bits(mae_state, lambda st, i: train_step(st, images[i], noise[i], schedule(i)),
+                          f32, steps=2, what="fp32 pretrain")
+    calls = iter(range(10 ** 6))
+
+    def pretrain_call():
+        i = next(calls)
+        train_step(state, images[i % 2], noise[i % 2], schedule(i % 20))
+
+    timed(pretrain_call, "fp32 pretrain steps (MAE ViT-B/16)", {
+        "fused_qkv_attention_f32": enc_depth + dec_depth,
+        "fused_qkv_attention_backward_f32": enc_depth + dec_depth,
+        "layernorm_f32": 2 * (enc_depth + dec_depth) + 2,
+        "layernorm_backward_f32": 2 * (enc_depth + dec_depth) + 2,
+        "fc1_gelu_f32": enc_depth + dec_depth,
+        "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH)})
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        fail("fp32 pretrain: non-finite parameters after the steps")
+    del state
+
+    # The fine-tune engine with amp: false, then the eval CLI in fp32.
+    built: list = []
+    build = engine.build_classifier
+
+    def recording_build(*args, **kwargs):
+        built.append(build(*args, **kwargs))
+        return built[-1]
+
+    with tempfile.TemporaryDirectory() as tmp, projection_fold(False), \
+            mock.patch.object(engine, "build_classifier", recording_build):
+        tmp = Path(tmp)
+        start = time.perf_counter()
+        packs = tmp / "data_packs"
+        build_synthetic_pack(packs, name="sun_full", frames_per_split=FP32_ENGINE_FRAMES,
+                             image_size=224, seed=SEED)
+        root = tmp / "checkpoint_root"
+        write_augreg_npz(root / config_model("sup_imnet")["checkpoint"], base,
+                         np.random.default_rng(SEED + 1))
+        print(f"fp32 engine: wrote a sun_full pack of {FP32_ENGINE_FRAMES} frames and an AugReg "
+              f".npz in {time.perf_counter() - start:.1f} s")
+        ops.reset_launch_counts()
+        start = time.perf_counter()
+        summary = engine.cli_main([
+            "--exp-config", "config/exp/exp1.yaml", "--model-key", "sup_imnet", "--seed", "13",
+            "--pack-root", str(packs), "--checkpoint-root", str(root),
+            "--thresholds-root", str(tmp / "th"), "--output-dir", str(tmp / "run"),
+            "--device", "cuda", "--override", "amp=false", "--override", "epochs=1",
+            "--override", f"batch_size={BATCH}",
+            "--limit-train-batches", str(FP32_ENGINE_LIMIT["train"]),
+            "--limit-val-batches", str(FP32_ENGINE_LIMIT["val"]),
+            "--limit-test-batches", str(FP32_ENGINE_LIMIT["test"])])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        add(counts)
+        steps = FP32_ENGINE_LIMIT["train"]
+        evals = FP32_ENGINE_LIMIT["val"] + FP32_ENGINE_LIMIT["test"]
+        check_counts(counts, {name: steps * per_ft_step.get(name, 0) + evals * per_eval.get(name, 0)
+                              for name in counts}, 1,
+                     f"the fp32 engine run's {steps} steps and {evals} eval batches")
+        if len(built) != 1 or built[0].cfg.compute_dtype != f32:
+            fail(f"fp32 engine: built {[c.cfg.compute_dtype for c in built]}, expected one fp32 "
+                 f"classifier")
+        payload = summary["payload"]
+        if summary["epochs_run"] != 1 or not np.isfinite(payload["train_loss"]):
+            fail(f"fp32 engine: {summary['epochs_run']} epochs, loss {payload['train_loss']}")
+        best = (Path(summary["metrics_path"]).parent / f"{summary['stem']}.ckpt").resolve()
+        ops.reset_launch_counts()
+        cli = eval_classification.evaluate(
+            best, "sun_full", pack_root=packs, batch_size=BATCH, output_dir=tmp / "eval",
+            model_overrides={"compute_dtype": f32})
+        cli_counts = ops.launch_counts()
+        add(cli_counts)
+        check_counts(cli_counts, per_eval, FP32_ENGINE_LIMIT["test"],
+                     "the fp32 eval CLI on the run's best checkpoint")
+        test_block = payload["test_primary"]
+        shared = sorted(k for k, v in test_block.items()
+                        if isinstance(v, (int, float)) and isinstance(cli.get(k), (int, float)))
+        off = {k: (cli[k], test_block[k]) for k in shared
+               if not abs(cli[k] - test_block[k]) <= 1e-6}
+        if cli["tau"] != summary["tau"] or off or len(shared) < 10:
+            fail(f"fp32 eval CLI on {best.name}: tau {cli['tau']} against {summary['tau']}, off "
+                 f"{off}, {len(shared)} metrics compared")
+        print(f"fp32 engine: exp1 sup_imnet with amp: false, {steps} steps and {evals} eval "
+              f"batches in {wall:.1f} s (build {summary['timings']['build_s']:.1f} s), loss "
+              f"{payload['train_loss']:.6f}; the eval CLI in fp32 on {best.name}: tau "
+              f"{cli['tau']} and {len(shared)} test metrics within 1e-6 of the run's")
+    print(f"fp32 phase {time.perf_counter() - phase_start:.1f} s; {CARD}")
+    return total
+
+
 @contextlib.contextmanager
 def torch_defaults():
     """torch's own backend settings, as a fresh process (the sweep's) has
@@ -4171,6 +4680,7 @@ def main() -> None:
         runs.append(phase_study_sweep(packs, weights))
         runs.append(phase_data_parallel(packs, weights))
     runs.append(phase_native_decode())
+    runs.append(phase_fp32())
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

@@ -28,6 +28,12 @@ _COUNTERS = {
     "fused_attention_backward": (attention, "backward_launches"),
     "fused_qkvproj_attention": (attention_block, "launches"),
     "fused_qkvproj_attention_backward": (attention_block, "backward_launches"),
+    # The fp32 kernels of the default route (the runs that compute in fp32).
+    "fused_qkv_attention_f32": (qkv_attention, "launches_f32"),
+    "fused_qkv_attention_backward_f32": (qkv_attention, "backward_launches_f32"),
+    "layernorm_f32": (layernorm, "launches_f32"),
+    "layernorm_backward_f32": (layernorm, "backward_launches_f32"),
+    "fc1_gelu_f32": (mlp, "launches_f32"),
 }
 
 

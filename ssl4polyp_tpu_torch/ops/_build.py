@@ -42,14 +42,26 @@ _ENTRY_POINTS = (
      + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_qkv_attention_bwd_plan", ctypes.c_int,
      [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2),
+    ("ssl4polyp_qkv_attention_fwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_qkv_attention_bwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_fc1_gelu_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    ("ssl4polyp_fc1_gelu_fwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_layernorm_fwd", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_layernorm_fwd_f32", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_layernorm_bwd", ctypes.c_int,
      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_layernorm_bwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_layernorm_bwd_blocks", ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
+    ("ssl4polyp_layernorm_bwd_blocks_f32", ctypes.c_int, [ctypes.c_int, ctypes.c_int]),
     ("ssl4polyp_mlp_fused_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_mlp_fused_probe", ctypes.c_int,

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from ._checks import check_gradient
+from ._checks import FP32_PUBLIC_FUNCTIONS, check_bf16, check_gradient
 
 __all__ = [
     "backward_launches",
@@ -117,8 +117,7 @@ def _check(q, k, v) -> None:
     if not 1 <= N <= _MAX_TOKENS:
         raise ValueError(f"the kernel takes 1..{_MAX_TOKENS} tokens, got {N}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the kernel takes bfloat16, got {name} {t.dtype}")
+        check_bf16(name, t.dtype, FP32_PUBLIC_FUNCTIONS)
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {q.device}")
 

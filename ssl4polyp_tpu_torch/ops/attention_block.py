@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from ._checks import check_gradient
+from ._checks import FP32_PUBLIC_FUNCTIONS, check_bf16, check_gradient
 from .qkv_attention import _MAX_TOKENS, _scale, fused_qkv_attention_reference
 
 __all__ = [
@@ -150,8 +150,7 @@ def _check(x, w, b, num_heads, valid_len) -> None:
     if b.shape != (3 * D,):
         raise ValueError(f"b {tuple(b.shape)} does not fit w {tuple(w.shape)}")
     for name, t in (("x", x), ("w", w), ("b", b)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the kernel takes bfloat16, got {name} {t.dtype}")
+        check_bf16(name, t.dtype, FP32_PUBLIC_FUNCTIONS)
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {x.device}")
 

@@ -24,7 +24,7 @@ from typing import Optional
 
 import torch
 
-from ._checks import check_gradient
+from ._checks import FP32_FUSION_KNOBS, check_bf16, check_gradient
 from .qkv_attention import (
     _MAX_TOKENS,
     _scale,
@@ -111,8 +111,7 @@ def _check(qkv, w, b, num_heads, valid_len) -> None:
     if w.shape != (D, D) or b.shape != (D,):
         raise ValueError(f"w {tuple(w.shape)} and b {tuple(b.shape)} do not fit width {D}")
     for name, t in (("qkv", qkv), ("w", w), ("b", b)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the kernel takes bfloat16, got {name} {t.dtype}")
+        check_bf16(name, t.dtype, FP32_FUSION_KNOBS)
         if t.device != qkv.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {qkv.device}")
 

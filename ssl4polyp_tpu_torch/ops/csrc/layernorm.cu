@@ -1,5 +1,5 @@
-// LayerNorm over the last axis of a bf16 (M, D) activation, forward and
-// backward, with fp32 statistics and fp32 affine parameters.
+// LayerNorm over the last axis of a bf16 or fp32 (M, D) activation, forward
+// and backward, with fp32 statistics and fp32 affine parameters.
 //
 // Replaces: ssl4polyp_tpu/ops/layernorm.py::_fwd_kernel and _bwd_kernel (the
 // 3-D variants), _fwd2_kernel and _bwd2_kernel (the 2-D variants), and so
@@ -37,6 +37,14 @@
 //     block order: the result depends on the shape alone, never on scheduling.
 // The statistics are two-pass fp32 from the row in registers, dx is rounded
 // once (after + dres), dscale and dbias are fp32 sums of the same products.
+//
+// fp32 activations (the `amp: false` runs) take the same kernels, templated on
+// the element type: a lane's chunk is still 8 columns, two 16-byte pieces of
+// fp32 where bf16 takes one, so the registers, the statistics and the sums'
+// order are the bf16 kernels'.  Twice the bytes a row in the ring: at D 768 a
+// block of 8 warps with six rows each takes 150 KB, so one block an SM (the
+// same 96 KB in flight as bf16's two), two up to D 512; past D 1024 a warp
+// keeps three rows (one stage: no prefetch) to stay under 227 KB.
 #include <math.h>
 
 #include <type_traits>
@@ -46,39 +54,111 @@
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kBwdRingRows = 6;  // rows of shared memory a backward warp owns
+
+// Rows of shared memory a backward warp owns: six (three stages of x and dy,
+// two with dres), three for fp32 rows past D 1024.
+template <typename T>
+__host__ __device__ constexpr int bwd_ring_rows(int chunks) {
+  return sizeof(T) == 2 || chunks <= 4 ? 6 : 3;
+}
 
 // Blocks an SM of the backward's persistent grid: the dscale and dbias sums
 // are 16 registers a thread for every 256 columns, and two blocks of 256
-// threads leave a thread 128.
-constexpr int bwd_blocks_per_sm(int chunks) { return chunks <= 3 ? 2 : 1; }
+// threads leave a thread 128; fp32 rings take two blocks' shared memory up to
+// D 512 only.
+template <typename T>
+__host__ __device__ constexpr int bwd_blocks_per_sm(int chunks) {
+  return chunks <= (sizeof(T) == 2 ? 3 : 2) ? 2 : 1;
+}
 
-// Loads lane's chunks (chunk c = lane + 32 i covers columns 8c .. 8c+7) of a
-// bf16 row into fp32 registers; chunks past D are zero.
-template <int CHUNKS>
-__device__ __forceinline__ void load_row(float (&v)[CHUNKS][8], const bf16* row, int D, int lane) {
+// Eight values of a row as they lie in memory: one 16-byte piece of bf16,
+// two of fp32.
+template <typename T>
+struct Raw8 {
+  uint4 piece[sizeof(T) / 2];
+};
+
+template <typename T>
+__device__ __forceinline__ Raw8<T> zero_raw() {
+  Raw8<T> r;
 #pragma unroll
-  for (int i = 0; i < CHUNKS; ++i) {
-    const int c = (lane + 32 * i) * 8;
-    uint4 chunk = make_uint4(0, 0, 0, 0);
-    if (c < D) chunk = *reinterpret_cast<const uint4*>(row + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&chunk);
+  for (int k = 0; k < static_cast<int>(sizeof(T)) / 2; ++k) r.piece[k] = make_uint4(0, 0, 0, 0);
+  return r;
+}
+
+// 16-byte-aligned global or shared memory.
+template <typename T>
+__device__ __forceinline__ Raw8<T> load_raw(const T* p) {
+  Raw8<T> r;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) v[i][j] = __bfloat162float(e[j]);
+  for (int k = 0; k < static_cast<int>(sizeof(T)) / 2; ++k)
+    r.piece[k] = reinterpret_cast<const uint4*>(p)[k];
+  return r;
+}
+
+// Eight bf16 values (16 bytes) as fp32.
+__device__ __forceinline__ void unpack8(float (&v)[8], const Raw8<bf16>& raw) {
+  const uint4& chunk = raw.piece[0];
+  const uint32_t p[4] = {chunk.x, chunk.y, chunk.z, chunk.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[2 * j] = __uint_as_float(p[j] << 16);
+    v[2 * j + 1] = __uint_as_float(p[j] & 0xffff0000u);
   }
 }
 
-template <int CHUNKS>
-__device__ __forceinline__ void store_row(bf16* row, const float (&v)[CHUNKS][8], int D, int lane) {
+__device__ __forceinline__ void unpack8(float (&v)[8], const Raw8<float>& raw) {
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    v[4 * k] = __uint_as_float(raw.piece[k].x);
+    v[4 * k + 1] = __uint_as_float(raw.piece[k].y);
+    v[4 * k + 2] = __uint_as_float(raw.piece[k].z);
+    v[4 * k + 3] = __uint_as_float(raw.piece[k].w);
+  }
+}
+
+// Eight fp32 values rounded once to the row's type and stored (16-byte aligned).
+__device__ __forceinline__ void store8(bf16* p, const float (&v)[8]) {
+  uint4 packed;
+  packed.x = pack_floats(v[0], v[1]);
+  packed.y = pack_floats(v[2], v[3]);
+  packed.z = pack_floats(v[4], v[5]);
+  packed.w = pack_floats(v[6], v[7]);
+  *reinterpret_cast<uint4*>(p) = packed;
+}
+
+__device__ __forceinline__ void store8(float* p, const float (&v)[8]) {
+  reinterpret_cast<float4*>(p)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(p)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+// Eight values of a row, global -> shared, in 16-byte cp.async pieces.
+template <typename T>
+__device__ __forceinline__ void cp_async_8(T* dst, const T* src) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));  // values a piece
+#pragma unroll
+  for (int k = 0; k < 8 / kPer; ++k) cp_async_16(dst + k * kPer, src + k * kPer, 16);
+}
+
+// Loads lane's chunks (chunk c = lane + 32 i covers columns 8c .. 8c+7) of a
+// row into fp32 registers; chunks past D are zero.
+template <int CHUNKS, typename T>
+__device__ __forceinline__ void load_row(float (&v)[CHUNKS][8], const T* row, int D, int lane) {
 #pragma unroll
   for (int i = 0; i < CHUNKS; ++i) {
     const int c = (lane + 32 * i) * 8;
-    if (c >= D) continue;
-    uint4 chunk;
-    uint32_t* p = reinterpret_cast<uint32_t*>(&chunk);
+    Raw8<T> chunk = zero_raw<T>();
+    if (c < D) chunk = load_raw(row + c);
+    unpack8(v[i], chunk);
+  }
+}
+
+template <int CHUNKS, typename T>
+__device__ __forceinline__ void store_row(T* row, const float (&v)[CHUNKS][8], int D, int lane) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) p[j] = pack_floats(v[i][2 * j], v[i][2 * j + 1]);
-    *reinterpret_cast<uint4*>(row + c) = chunk;
+  for (int i = 0; i < CHUNKS; ++i) {
+    const int c = (lane + 32 * i) * 8;
+    if (c < D) store8(row + c, v[i]);
   }
 }
 
@@ -122,10 +202,10 @@ __device__ __forceinline__ void row_stats(const float (&v)[CHUNKS][8], int D, in
   rstd = rsqrtf(warp_sum(sq) / static_cast<float>(D) + eps);
 }
 
-template <int CHUNKS>
+template <int CHUNKS, typename T>
 __global__ void __launch_bounds__(32 * kWarps)
-layernorm_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ weight,
-                     const float* __restrict__ bias, bf16* __restrict__ y, int M, int D, float eps) {
+layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ weight,
+                     const float* __restrict__ bias, T* __restrict__ y, int M, int D, float eps) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int row = blockIdx.x * kWarps + warp;
@@ -144,16 +224,6 @@ layernorm_fwd_kernel(const bf16* __restrict__ x, const float* __restrict__ weigh
   store_row<CHUNKS>(y + static_cast<long>(row) * D, v, D, lane);
 }
 
-// Eight bf16 values (16 bytes) as fp32.
-__device__ __forceinline__ void unpack8(float (&v)[8], const uint4& chunk) {
-  const uint32_t p[4] = {chunk.x, chunk.y, chunk.z, chunk.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[2 * j] = __uint_as_float(p[j] << 16);
-    v[2 * j + 1] = __uint_as_float(p[j] & 0xffff0000u);
-  }
-}
-
 // Eight fp32 values from 16-byte-aligned shared memory.
 __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
   const float4 lo = *reinterpret_cast<const float4*>(p);
@@ -165,36 +235,37 @@ __device__ __forceinline__ void load8(float (&v)[8], const float* p) {
 // part: (gridDim.x, 2, D) fp32; row blk holds this block's [dscale | dbias].
 // DRES: dres is added to dx in fp32 before its one rounding: the gradient of
 // a residual folded into the consumer (mlp_ln_fused).  Dynamic shared memory:
-// the weight (D floats), then each warp's ring of kBwdRingRows rows of D bf16
+// the weight (D floats), then each warp's ring of bwd_ring_rows rows of D
 // values, which the block's partial sums ([kWarps][2][D] floats) reuse at the
 // end.
-template <int CHUNKS, bool DRES>
-__global__ void __launch_bounds__(32 * kWarps, bwd_blocks_per_sm(CHUNKS))
-layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                     const bf16* __restrict__ dres, const float* __restrict__ weight,
-                     bf16* __restrict__ dx, float* __restrict__ part, int M, int D, float eps) {
+template <int CHUNKS, bool DRES, typename T>
+__global__ void __launch_bounds__(32 * kWarps, bwd_blocks_per_sm<T>(CHUNKS))
+layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                     const T* __restrict__ dres, const float* __restrict__ weight,
+                     T* __restrict__ dx, float* __restrict__ part, int M, int D, float eps) {
+  constexpr int kRingRows = bwd_ring_rows<T>(CHUNKS);
   constexpr int kRowsPerStage = DRES ? 3 : 2;
-  constexpr int kStages = kBwdRingRows / kRowsPerStage;
+  constexpr int kStages = kRingRows / kRowsPerStage;
   extern __shared__ __align__(16) unsigned char smem[];
   float* s_w = reinterpret_cast<float*>(smem);
-  bf16* s_rows = reinterpret_cast<bf16*>(s_w + D);
+  T* s_rows = reinterpret_cast<T*>(s_w + D);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  bf16* ring = s_rows + static_cast<long>(warp) * kBwdRingRows * D;
+  T* ring = s_rows + static_cast<long>(warp) * kRingRows * D;
   const int warps_total = gridDim.x * kWarps;
 
   // This lane's chunks of row `r` into stage `stage`: x, dy and dres.
   auto request = [&](int r, int stage) {
     if (r >= M) return;
-    bf16* dst = ring + stage * kRowsPerStage * D;
+    T* dst = ring + stage * kRowsPerStage * D;
     const long at = static_cast<long>(r) * D;
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
       const int c = (lane + 32 * i) * 8;
       if (c >= D) continue;
-      cp_async_16(dst + c, x + at + c, 16);
-      cp_async_16(dst + D + c, dy + at + c, 16);
-      if (DRES) cp_async_16(dst + 2 * D + c, dres + at + c, 16);
+      cp_async_8(dst + c, x + at + c);
+      cp_async_8(dst + D + c, dy + at + c);
+      if (DRES) cp_async_8(dst + 2 * D + c, dres + at + c);
     }
   };
 
@@ -220,17 +291,17 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     request(row + (kStages - 1) * warps_total, (stage + kStages - 1) % kStages);
     cp_async_commit();
     cp_async_wait<kStages - 1>();
-    const bf16* src = ring + stage * kRowsPerStage * D;
+    const T* src = ring + stage * kRowsPerStage * D;
     float v[CHUNKS][8];
-    uint4 gq[CHUNKS];
+    Raw8<T> gq[CHUNKS];
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
       const int c = (lane + 32 * i) * 8;
-      uint4 xq = make_uint4(0, 0, 0, 0);
+      Raw8<T> xq = zero_raw<T>();
       gq[i] = xq;
       if (c < D) {
-        xq = *reinterpret_cast<const uint4*>(src + c);
-        gq[i] = *reinterpret_cast<const uint4*>(src + D + c);
+        xq = load_raw(src + c);
+        gq[i] = load_raw(src + D + c);
       }
       unpack8(v[i], xq);
     }
@@ -254,7 +325,7 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
     }
     m1 = warp_sum(m1) / static_cast<float>(D);
     m2 = warp_sum(m2) / static_cast<float>(D);
-    bf16* out_row = dx + static_cast<long>(row) * D;
+    T* out_row = dx + static_cast<long>(row) * D;
 #pragma unroll
     for (int i = 0; i < CHUNKS; ++i) {
       const int c = (lane + 32 * i) * 8;
@@ -270,16 +341,11 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
       }
       if (DRES) {
         float res[8];
-        unpack8(res, *reinterpret_cast<const uint4*>(src + 2 * D + c));
+        unpack8(res, load_raw(src + 2 * D + c));
 #pragma unroll
         for (int j = 0; j < 8; ++j) out[j] += res[j];
       }
-      uint4 packed;
-      packed.x = pack_floats(out[0], out[1]);
-      packed.y = pack_floats(out[2], out[3]);
-      packed.z = pack_floats(out[4], out[5]);
-      packed.w = pack_floats(out[6], out[7]);
-      *reinterpret_cast<uint4*>(out_row + c) = packed;
+      store8(out_row + c, out);
     }
     stage = (stage + 1) % kStages;
   }
@@ -313,47 +379,50 @@ layernorm_bwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
 
 // The backward's grid: persistent, bwd_blocks_per_sm blocks an SM, and no
 // more blocks than there are rows for their warps.
+template <typename T>
 inline cudaError_t bwd_grid(int M, int D, int* blocks) {
   int sms = 0;
   const cudaError_t err = sm_count(&sms);
   if (err != cudaSuccess) return err;
   const int wanted = (M + kWarps - 1) / kWarps;
-  const int resident = sms * bwd_blocks_per_sm((D + 255) / 256);
+  const int resident = sms * bwd_blocks_per_sm<T>((D + 255) / 256);
   *blocks = wanted < resident ? wanted : resident;
   return cudaSuccess;
 }
 
-template <int CHUNKS>
-cudaError_t launch_fwd(const bf16* x, const float* w, const float* b, bf16* y, int M, int D,
+template <int CHUNKS, typename T>
+cudaError_t launch_fwd(const T* x, const float* w, const float* b, T* y, int M, int D,
                        float eps, cudaStream_t stream) {
-  layernorm_fwd_kernel<CHUNKS><<<(M + kWarps - 1) / kWarps, 32 * kWarps, 0, stream>>>(
+  layernorm_fwd_kernel<CHUNKS, T><<<(M + kWarps - 1) / kWarps, 32 * kWarps, 0, stream>>>(
       x, w, b, y, M, D, eps);
   return cudaGetLastError();
 }
 
-template <int CHUNKS, bool DRES>
-cudaError_t launch_bwd_rows(const bf16* x, const bf16* dy, const bf16* dres, const float* w,
-                            bf16* dx, float* part, int blocks, int M, int D, float eps,
+template <int CHUNKS, bool DRES, typename T>
+cudaError_t launch_bwd_rows(const T* x, const T* dy, const T* dres, const float* w,
+                            T* dx, float* part, int blocks, int M, int D, float eps,
                             cudaStream_t stream) {
-  // The ring (kBwdRingRows rows of bf16 a warp) also holds the final sums
-  // ([kWarps][2][D] floats): 12 against 8 bytes a warp and column.
-  constexpr size_t per_column = sizeof(float) + kWarps * kBwdRingRows * sizeof(bf16);
+  // The ring (bwd_ring_rows rows a warp) also holds the final sums
+  // ([kWarps][2][D] floats): 12 (bf16) or 24 and 12 (fp32) against 8 bytes a
+  // warp and column.
+  constexpr size_t per_column =
+      sizeof(float) + kWarps * bwd_ring_rows<T>(CHUNKS) * sizeof(T);
   const size_t smem = D * per_column;
   static bool configured[kMaxDevices] = {};  // allowed once, for the widest D of CHUNKS
-  const cudaError_t err = allow_dynamic_smem(layernorm_bwd_kernel<CHUNKS, DRES>,
+  const cudaError_t err = allow_dynamic_smem(layernorm_bwd_kernel<CHUNKS, DRES, T>,
                                              256 * CHUNKS * per_column, configured);
   if (err != cudaSuccess) return err;
-  layernorm_bwd_kernel<CHUNKS, DRES><<<blocks, 32 * kWarps, smem, stream>>>(x, dy, dres, w, dx,
-                                                                            part, M, D, eps);
+  layernorm_bwd_kernel<CHUNKS, DRES, T><<<blocks, 32 * kWarps, smem, stream>>>(
+      x, dy, dres, w, dx, part, M, D, eps);
   return cudaGetLastError();
 }
 
-template <int CHUNKS>
-cudaError_t launch_bwd(const bf16* x, const bf16* dy, const bf16* dres, const float* w, bf16* dx,
+template <int CHUNKS, typename T>
+cudaError_t launch_bwd(const T* x, const T* dy, const T* dres, const float* w, T* dx,
                        float* part, float* dparams, int M, int D, float eps, int parts,
                        cudaStream_t stream) {
   int blocks = 0;
-  cudaError_t err = bwd_grid(M, D, &blocks);
+  cudaError_t err = bwd_grid<T>(M, D, &blocks);
   if (err != cudaSuccess) return err;
   if (parts & 1)
     err = dres == nullptr
@@ -380,26 +449,62 @@ cudaError_t dispatch_chunks(int D, Fn fn) {
   }
 }
 
+// The C entry points of one element type.
+template <typename T>
+int layernorm_fwd(const void* x, const void* weight, const void* bias, void* y, int M, int D,
+                  float eps, void* stream) {
+  if (M < 1 || D < 8 || D % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_chunks(D, [&](auto chunks) {
+    return launch_fwd<decltype(chunks)::value>(
+        static_cast<const T*>(x), static_cast<const float*>(weight),
+        static_cast<const float*>(bias), static_cast<T*>(y), M, D, eps,
+        static_cast<cudaStream_t>(stream));
+  }));
+}
+
+template <typename T>
+int layernorm_bwd_blocks(int M, int D) {
+  int blocks = 0;
+  return bwd_grid<T>(M, D, &blocks) == cudaSuccess ? blocks : 0;
+}
+
+template <typename T>
+int layernorm_bwd(const void* x, const void* dy, const void* dres, const void* weight, void* dx,
+                  void* part, void* dparams, int M, int D, float eps, int parts, void* stream) {
+  if (M < 1 || D < 8 || D % 8) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(dispatch_chunks(D, [&](auto chunks) {
+    return launch_bwd<decltype(chunks)::value>(
+        static_cast<const T*>(x), static_cast<const T*>(dy),
+        static_cast<const T*>(dres), static_cast<const float*>(weight),
+        static_cast<T*>(dx), static_cast<float*>(part), static_cast<float*>(dparams), M, D,
+        eps, parts, static_cast<cudaStream_t>(stream));
+  }));
+}
+
 }  // namespace
 
 // x, y: (M, D) bf16; weight, bias: (D,) fp32; D a multiple of 8, at most
 // 2048.  Returns the launch's CUDA error.
 extern "C" int ssl4polyp_layernorm_fwd(const void* x, const void* weight, const void* bias,
                                        void* y, int M, int D, float eps, void* stream) {
-  if (M < 1 || D < 8 || D % 8) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch_chunks(D, [&](auto chunks) {
-    return launch_fwd<decltype(chunks)::value>(
-        static_cast<const bf16*>(x), static_cast<const float*>(weight),
-        static_cast<const float*>(bias), static_cast<bf16*>(y), M, D, eps,
-        static_cast<cudaStream_t>(stream));
-  }));
+  return layernorm_fwd<bf16>(x, weight, bias, y, M, D, eps, stream);
+}
+
+// The same with x and y fp32.
+extern "C" int ssl4polyp_layernorm_fwd_f32(const void* x, const void* weight, const void* bias,
+                                           void* y, int M, int D, float eps, void* stream) {
+  return layernorm_fwd<float>(x, weight, bias, y, M, D, eps, stream);
 }
 
 // The blocks of the backward's grid for (M, D) rows on the current device:
 // the rows of its `part` scratch.  0 if the device cannot be asked.
 extern "C" int ssl4polyp_layernorm_bwd_blocks(int M, int D) {
-  int blocks = 0;
-  return bwd_grid(M, D, &blocks) == cudaSuccess ? blocks : 0;
+  return layernorm_bwd_blocks<bf16>(M, D);
+}
+
+// The same for fp32 rows.
+extern "C" int ssl4polyp_layernorm_bwd_blocks_f32(int M, int D) {
+  return layernorm_bwd_blocks<float>(M, D);
 }
 
 // x, dy, dx and dres (or null): (M, D) bf16; weight: (D,) fp32; part:
@@ -411,12 +516,14 @@ extern "C" int ssl4polyp_layernorm_bwd_blocks(int M, int D) {
 extern "C" int ssl4polyp_layernorm_bwd(const void* x, const void* dy, const void* dres,
                                        const void* weight, void* dx, void* part, void* dparams,
                                        int M, int D, float eps, int parts, void* stream) {
-  if (M < 1 || D < 8 || D % 8) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(dispatch_chunks(D, [&](auto chunks) {
-    return launch_bwd<decltype(chunks)::value>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(dy),
-        static_cast<const bf16*>(dres), static_cast<const float*>(weight),
-        static_cast<bf16*>(dx), static_cast<float*>(part), static_cast<float*>(dparams), M, D,
-        eps, parts, static_cast<cudaStream_t>(stream));
-  }));
+  return layernorm_bwd<bf16>(x, dy, dres, weight, dx, part, dparams, M, D, eps, parts, stream);
+}
+
+// The same with x, dy, dx and dres fp32; part has
+// ssl4polyp_layernorm_bwd_blocks_f32(M, D) rows.
+extern "C" int ssl4polyp_layernorm_bwd_f32(const void* x, const void* dy, const void* dres,
+                                           const void* weight, void* dx, void* part,
+                                           void* dparams, int M, int D, float eps, int parts,
+                                           void* stream) {
+  return layernorm_bwd<float>(x, dy, dres, weight, dx, part, dparams, M, D, eps, parts, stream);
 }

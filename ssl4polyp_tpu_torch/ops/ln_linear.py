@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import layernorm
+from ._checks import FP32_FUSION_KNOBS, check_bf16
 
 __all__ = [
     "launches",
@@ -121,7 +122,9 @@ def _check(x, s, t, w, b) -> None:
     for name, tensor, dtype in (("x", x, torch.bfloat16), ("w", w, torch.bfloat16),
                                 ("b", b, torch.bfloat16), ("s", s, torch.float32),
                                 ("t", t, torch.float32)):
-        if tensor.dtype != dtype:
+        if dtype == torch.bfloat16:
+            check_bf16(name, tensor.dtype, FP32_FUSION_KNOBS)
+        elif tensor.dtype != dtype:
             raise TypeError(f"the kernel takes a {dtype} {name}, got {tensor.dtype}")
         if tensor.device != x.device:
             raise ValueError(f"tensors on {x.device} and {tensor.device}")

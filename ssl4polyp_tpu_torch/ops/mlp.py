@@ -4,7 +4,9 @@ Counterparts of ``ssl4polyp_tpu/ops/mlp.py``: ``fc1_gelu`` (the first
 linear with its exact-erf GELU), ``mlp_fused`` (fc1 + GELU + fc2 in one
 kernel, gelu(h) never in HBM) and ``mlp_ln_fused`` (the pre-norm block's
 second half, ``x + mlp(LN(x))``, in one kernel).  The CUDA kernels are in
-``csrc/mlp.cu``.  Weights are in torch's (out, in) layout.  When a gradient
+``csrc/mlp.cu``, and fc1+GELU's fp32 kernel, for the runs that compute in
+fp32, in ``csrc/fc1_gelu_f32.cu``; the fused kernels take bf16 only.
+Weights are in torch's (out, in) layout.  When a gradient
 is needed, each forward also writes the pre-activation h (the JAX kernels'
 residual), and the backwards (:func:`fc1_gelu_backward`,
 :func:`mlp_fused_backward`, :func:`mlp_ln_fused_backward`) take the JAX
@@ -26,6 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ._checks import FP32_FUSION_KNOBS, check_bf16
 from .ln_linear import layernorm_backward, normalised_row
 
 __all__ = [
@@ -35,6 +38,7 @@ __all__ = [
     "fc1_gelu_reference",
     "fused_launches",
     "launches",
+    "launches_f32",
     "ln_fused_launches",
     "mlp_fused",
     "mlp_fused_backward",
@@ -46,9 +50,10 @@ __all__ = [
     "mlp_ln_fused_reference",
 ]
 
-# Kernel launches since the last ops.reset_launch_counts(): fc1+GELU, the
-# fused MLP and the fused LN+MLP.
+# Kernel launches since the last ops.reset_launch_counts(): fc1+GELU in bf16
+# and in fp32, the fused MLP and the fused LN+MLP.
 launches = 0
+launches_f32 = 0
 fused_launches = 0
 ln_fused_launches = 0
 
@@ -108,8 +113,10 @@ def _check(x, w, b) -> None:
     if k % 8 or nf % 8 or m < 1:
         raise ValueError(f"the kernel takes K and NF that are multiples of 8, got {k}, {nf}")
     for t in tensors:
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"the kernel takes bfloat16, got {t.dtype}")
+        # One kernel a dtype: x, w and b all bf16, or all fp32.
+        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != x.dtype:
+            raise TypeError(f"the kernels take bfloat16 or float32 operands of one dtype, got "
+                            f"{[u.dtype for u in tensors]}")
         if t.device != x.device:
             raise ValueError(f"tensors on {x.device} and {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -117,23 +124,28 @@ def _check(x, w, b) -> None:
 
 
 def _kernel(x, w, b, write_h: bool):
-    """(h or None, y) from the CUDA kernel."""
+    """(h or None, y) from the CUDA kernel of x's dtype: bf16 (``mlp.cu``) or
+    fp32 (``fc1_gelu_f32.cu``)."""
     from ._build import library
 
-    global launches
+    global launches, launches_f32
     m, k = x.shape
     nf = w.shape[0]
     y = torch.empty((m, nf), dtype=x.dtype, device=x.device)
     h = torch.empty_like(y) if write_h else None
+    f32 = x.dtype == torch.float32
+    lib = library()
+    run = lib.ssl4polyp_fc1_gelu_fwd_f32 if f32 else lib.ssl4polyp_fc1_gelu_fwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().ssl4polyp_fc1_gelu_fwd(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), None if h is None else h.data_ptr(),
-            y.data_ptr(), m, k, nf, stream,
-        )
+        err = run(x.data_ptr(), w.data_ptr(), b.data_ptr(), None if h is None else h.data_ptr(),
+                  y.data_ptr(), m, k, nf, stream)
     if err:
         raise RuntimeError(f"fc1_gelu kernel launch failed: CUDA error {err}")
-    launches += 1
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return h, y
 
 
@@ -163,7 +175,9 @@ def _needs_grad(*tensors: torch.Tensor) -> bool:
 
 def fc1_gelu(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``gelu(x . w^T + b)`` for 2-D ``x``: fp32 accumulation, bias and GELU in
-    fp32, one rounding to the compute dtype; differentiable in x, w and b."""
+    fp32, one rounding to the compute dtype; differentiable in x, w and b.
+    On the card x, w and b are all bfloat16 or all float32, each dtype with
+    its own kernel."""
     if x.device.type == "cpu":
         return fc1_gelu_plain(x, w, b)
     if x.device.type != "cuda":
@@ -260,7 +274,9 @@ def _check_fused(x, s, t, w1, b1, w2, b2) -> None:
                              f"{tuple(t.shape)}")
         named += [("s", s, torch.float32), ("t", t, torch.float32)]
     for name, tensor, dtype in named:
-        if tensor.dtype != dtype:
+        if dtype == torch.bfloat16:
+            check_bf16(name, tensor.dtype, FP32_FUSION_KNOBS)
+        elif tensor.dtype != dtype:
             raise TypeError(f"the kernel takes a {dtype} {name}, got {tensor.dtype}")
         if tensor.device != x.device:
             raise ValueError(f"tensors on {x.device} and {tensor.device}")

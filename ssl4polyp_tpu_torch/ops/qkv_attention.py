@@ -2,7 +2,9 @@
 
 Counterpart of ``ssl4polyp_tpu/ops/qkv_attention.py``: one CUDA kernel per
 direction (``csrc/qkv_attention.cu``) covers both ``fused_qkv_attention``
-and, through its ``bias`` argument, ``fused_qkv_bias_attention``.  The
+and, through its ``bias`` argument, ``fused_qkv_bias_attention``, in bf16;
+fp32 tensors (the runs that compute in fp32) take the fp32 kernels of
+``csrc/qkv_attention_f32.cu``, with launch counts of their own.  The
 backward recomputes the weights: nothing but qkv (and the bias) is saved.
 
 A tensor on the CPU goes through the plain torch versions,
@@ -25,19 +27,24 @@ from ._checks import check_gradient
 
 __all__ = [
     "backward_launches",
+    "backward_launches_f32",
     "backward_plan",
     "fused_qkv_attention",
     "fused_qkv_attention_backward_reference",
     "fused_qkv_attention_plain",
     "fused_qkv_attention_reference",
     "launches",
+    "launches_f32",
 ]
 
-# Kernel launches since the last ops.reset_launch_counts().
+# Kernel launches since the last ops.reset_launch_counts(): bf16, fp32.
 launches = 0
 backward_launches = 0
+launches_f32 = 0
+backward_launches_f32 = 0
 
 _HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS_F32 = (32, 64)  # the fp32 kernels' instantiations
 _MAX_TOKENS = 256
 
 
@@ -149,8 +156,11 @@ def _check(qkv, num_heads, valid_len, bias) -> None:
         raise ValueError(f"the kernel takes 1..{_MAX_TOKENS} tokens, got {N}")
     if valid_len is not None and not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside 1..{N}")
-    if qkv.dtype != torch.bfloat16:
-        raise TypeError(f"the kernel takes bfloat16, got {qkv.dtype}")
+    if qkv.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"the kernels take bfloat16 or float32, got {qkv.dtype}")
+    if qkv.dtype == torch.float32 and D // num_heads not in _HEAD_DIMS_F32:
+        raise ValueError(f"the fp32 kernels take head dims {_HEAD_DIMS_F32}, got "
+                         f"{D // num_heads}")
     if not qkv.is_contiguous() or qkv.data_ptr() % 16:
         raise ValueError("qkv must be contiguous and 16-byte aligned")
     if bias is not None and (
@@ -164,23 +174,31 @@ def _check(qkv, num_heads, valid_len, bias) -> None:
 
 
 def _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias):
+    """The forward kernel of qkv's dtype.  In fp32 ``softmax_f32`` changes
+    nothing: the scores are fp32 either way, as in the plain version."""
     from ._build import library
 
-    global launches
+    global launches, launches_f32
     B, N, three_d = qkv.shape
     D = three_d // 3
     head_dim = D // num_heads
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    args = (qkv.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
+            B, N, num_heads, head_dim, N if valid_len is None else int(valid_len),
+            _scale(head_dim, qkv.dtype))
+    f32 = qkv.dtype == torch.float32
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = library().ssl4polyp_qkv_attention_fwd(
-            qkv.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            B, N, num_heads, head_dim, N if valid_len is None else int(valid_len),
-            _scale(head_dim, qkv.dtype), int(bool(softmax_f32)), stream,
-        )
+        if f32:
+            err = library().ssl4polyp_qkv_attention_fwd_f32(*args, stream)
+        else:
+            err = library().ssl4polyp_qkv_attention_fwd(*args, int(bool(softmax_f32)), stream)
     if err:
         raise RuntimeError(f"qkv_attention kernel launch failed: CUDA error {err}")
-    launches += 1
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -215,14 +233,18 @@ def backward_plan(num_tokens: int, head_dim: int) -> dict:
 
 def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: int = 0,
                      scaled_ds: bool = False):
-    """The backward kernel.  ``probe`` (0 on every path) is a measurement aid:
-    the ``PROBE_*`` bits above.  ``scaled_ds``: the scale where
-    ``attention_block.py`` puts it (as the plain version's argument; head dims
-    32 and 64), the mode ``fused_qkvproj_attention``'s backward runs."""
+    """The backward kernel of qkv's dtype.  ``probe`` (0 on every path) is a
+    measurement aid: the ``PROBE_*`` bits above.  ``scaled_ds``: the scale
+    where ``attention_block.py`` puts it (as the plain version's argument;
+    head dims 32 and 64), the mode ``fused_qkvproj_attention``'s backward
+    runs.  The fp32 kernel has neither (``ValueError``)."""
     from ._build import library
 
-    global backward_launches
+    global backward_launches, backward_launches_f32
     check_gradient("dout", dout, (*qkv.shape[:2], qkv.shape[2] // 3), qkv.dtype, qkv.device)
+    f32 = qkv.dtype == torch.float32
+    if f32 and (probe or scaled_ds):
+        raise ValueError("the fp32 backward kernel has no probe bits and no scaled_ds mode")
     B, N, three_d = qkv.shape
     head_dim = three_d // 3 // num_heads
     dqkv = torch.empty_like(qkv)
@@ -230,19 +252,24 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
     if bias is not None:
         part = torch.empty((B, three_d), dtype=torch.float32, device=qkv.device)
         dbias = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
-    with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = library().ssl4polyp_qkv_attention_bwd_mode(
-            qkv.data_ptr(), None if bias is None else bias.data_ptr(), dout.data_ptr(),
+    args = (qkv.data_ptr(), None if bias is None else bias.data_ptr(), dout.data_ptr(),
             dqkv.data_ptr(), None if part is None else part.data_ptr(),
             None if dbias is None else dbias.data_ptr(), B, N, num_heads, head_dim,
-            N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
-            1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), int(bool(scaled_ds)), probe,
-            stream,
-        )
+            N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype))
+    with torch.cuda.device(qkv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if f32:  # one scale, the fp32 1/sqrt(hd), folds into q and scales dQ and dK
+            err = library().ssl4polyp_qkv_attention_bwd_f32(*args, stream)
+        else:
+            err = library().ssl4polyp_qkv_attention_bwd_mode(
+                *args, 1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), int(bool(scaled_ds)),
+                probe, stream)
     if err:
         raise RuntimeError(f"qkv_attention backward kernel launch failed: CUDA error {err}")
-    backward_launches += 1
+    if f32:
+        backward_launches_f32 += 1
+    else:
+        backward_launches += 1
     return dqkv, None if dbias is None else dbias.to(bias.dtype)
 
 

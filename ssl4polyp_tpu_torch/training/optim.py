@@ -264,7 +264,8 @@ def adamw_update_fused(
     """One AdamW step that also refreshes the compute copy (JAX
     ``adamw_update_fused``): ``params`` and the moments in place, and every
     entry of ``params_c`` that is a tensor of its own (the bf16 copy of a
-    matrix; a vector's copy is its master) rewritten from the new value.
+    matrix; a vector's copy is its master, and in fp32 compute every copy is
+    its master, so nothing is written) rewritten from the new value.
 
     CUDA tensors go through the multi-tensor kernel (``ops/adamw.py``), or
     it raises; CPU tensors through :func:`adamw_update_fused_plain`.

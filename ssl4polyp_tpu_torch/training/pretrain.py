@@ -6,7 +6,9 @@ Counterpart of ``ssl4polyp_tpu/training/pretrain.py`` (reference
 * bf16 compute with fp32 master parameters and fp32 AdamW (0.9, 0.95): the
   forward reads a compute copy (matrices in bf16, vectors the fp32 masters,
   cast at use), gradients are taken with respect to that copy and reach
-  AdamW in fp32, and the copy is refreshed after the update;
+  AdamW in fp32, and the copy is refreshed after the update; under
+  ``precision="fp32"`` the compute copy is the masters themselves and the
+  card runs the fp32 kernels;
 * gradient accumulation over ``accum_iter`` microbatches inside one step;
 * per-iteration warmup and half-cycle cosine learning rate, scaled by the
   effective batch / 256; no weight decay on biases, norms, tokens and
@@ -103,7 +105,7 @@ class PretrainSettings:
     keep_last: int = 2
     keep_every_n_epochs: Optional[int] = 100
     no_train_dir: bool = False
-    precision: str = "bf16"  # bf16 | fp32 (the card's kernels take bf16 only)
+    precision: str = "bf16"  # bf16 | fp32 (each with its own kernels on the card)
     # Accepted so that the JAX package's flag surface parses; it decides
     # nothing: the port runs its kernels on every CUDA tensor and their plain
     # versions on the CPU.

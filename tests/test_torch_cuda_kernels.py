@@ -96,11 +96,13 @@ def test_fc1_gelu_kernel_matches_plain(gen, M, K, NF):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
+    # fp32 has kernels of its own (test_torch_cuda_fp32_kernels.py): fp16 is
+    # a dtype no kernel takes.
     qkv = _randn(gen, 1, 8, 96)
     x, w, b = _randn(gen, 4, 16), _randn(gen, 8, 16), _randn(gen, 8)
     with torch.inference_mode():
         with pytest.raises(TypeError):
-            fused_qkv_attention(qkv.float(), 2)
+            fused_qkv_attention(qkv.half(), 2)
         with pytest.raises(ValueError):
             fused_qkv_attention(_randn(gen, 1, 8, 3 * 128), 1)  # head dim 128
         with pytest.raises(ValueError):
@@ -108,9 +110,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
         with pytest.raises(ValueError):
             fc1_gelu(x[:, ::2], w[:, ::2].contiguous(), b)  # x not contiguous
         with pytest.raises(TypeError):
-            fc1_gelu(x.float(), w.float(), b.float())
+            fc1_gelu(x.half(), w.half(), b.half())
+        with pytest.raises(TypeError):  # mixed dtypes
+            fc1_gelu(x.float(), w, b)
         with pytest.raises(TypeError):
-            layernorm(x.float(), torch.ones(16, device="cuda"), torch.zeros(16, device="cuda"))
+            layernorm(x.half(), torch.ones(16, device="cuda"), torch.zeros(16, device="cuda"))
         with pytest.raises(ValueError):  # bf16 affine parameters
             layernorm(x, torch.ones(16, device="cuda").bfloat16(), torch.zeros(16, device="cuda"))
 

@@ -537,7 +537,7 @@ REPORTING_MODULES = {
         "__init__", "bootstrapper", "common", "display", "exp5a_domain_shift", "exp_reports",
         "frame_bootstrap", "guardrails", "report_core", "seed_checks")),
     *(f"scripts/torch/{name}.py" for name in (
-        "print_config_seeds", "print_config_models", "check_paths"))}
+        "print_config_seeds", "print_config_models", "check_paths", "aggregate_metrics"))}
 
 
 def _forbidden_in_script(line: str):
