@@ -67,11 +67,15 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    LayerNorm forward and backward, with and without a residual's gradient)
    against their plain fp32 versions at the classifier's, the MAE decoder's
    and the MAE encoder's shapes, with ``valid_len`` below N, 1 and 256
-   tokens: max |kernel - plain| within 2e-5 of max |plain| for outputs and
-   1e-4 for gradients (cuBLAS held to fp32: TF32 off), reruns bit-identical;
-   their times beside the plain versions', the one PyTorch call's in fp32
-   (SDPA and its backward, ``F.linear`` + ``F.gelu``, ``F.layer_norm`` and
-   its backward) and the bound at 67 TFLOP/s fp32 or 3.35 TB/s.
+   tokens, and a ViT-B/16 at 384 px (577 tokens, ``valid_len`` 500): max
+   |kernel - plain| within 2e-5 of max |plain| for outputs and 1e-4 for
+   gradients (cuBLAS held to fp32: TF32 off), reruns bit-identical, the
+   attention backward from the forward's saved output and log-sum-exp
+   bit-equal to its launch from (qkv, dout) alone; their times beside the
+   plain versions', the one PyTorch call's in fp32 (SDPA, with the keys'
+   mask where ``valid_len`` cuts them, and its backward, ``F.linear`` +
+   ``F.gelu``, ``F.layer_norm`` and its backward) and the bound at 67
+   TFLOP/s fp32 or 3.35 TB/s.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -276,7 +280,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    over 20 steps), the AdamW kernel with the compute copy the masters
    themselves (no copy written) bit-equal to its plain version over 3
    steps, the eval forward in fp32 (logits within 1e-4 of max |plain|,
-   images/s over 20 requests), the MAE ViT-B/16 pretrain step under
+   images/s over 20 requests), the dense ViT-B/16 + DPT forward in fp32 at
+   batch 2 bit-equal under torch's default cuDNN TF32 setting and under
+   this script's (its convolutions turn TF32 off for their own calls), the
+   MAE ViT-B/16 pretrain step under
    ``PretrainSettings(precision="fp32")`` (the fine-tune step's checks), a
    fine-tune engine run of ``config/exp/exp1.yaml``'s ``sup_imnet`` arm
    with ``amp=false`` (an fp32 classifier from an AugReg ``.npz``, 2 steps,
@@ -1413,17 +1420,19 @@ def fp32_kernels(gen: torch.Generator) -> dict[str, dict]:
 
     report = {}
 
-    def attention_cost(b, n, h, hd):  # qkv and the bias in, the output out; two products
+    def attention_cost(b, n, h, hd, nv):  # qkv and the bias in, the output out; two products
+        # over the nv weighted keys of each row
         return dict(bytes_moved=4 * (b * n * 4 * h * hd + 3 * h * hd),
-                    flops=4 * b * h * n * n * hd, peak=FP32_FLOPS)
+                    flops=4 * b * h * n * nv * hd, peak=FP32_FLOPS)
 
-    def attention_bwd_cost(b, n, h, hd):  # qkv, dout, bias in; dqkv, dbias out; five products
+    def attention_bwd_cost(b, n, h, hd, nv):  # qkv, dout, bias in; dqkv, dbias out; five products
         return dict(bytes_moved=4 * (b * n * 7 * h * hd + 6 * h * hd),
-                    flops=10 * b * h * n * n * hd, peak=FP32_FLOPS)
+                    flops=10 * b * h * n * nv * hd, peak=FP32_FLOPS)
 
     # (batch, tokens, heads, head dim, fp32 scores, valid_len, bias, name):
     # the classifier's call (timed), the MAE decoder's and encoder's (timed),
-    # valid_len below N, one token, 256 tokens.
+    # valid_len below N, one token, 256 tokens, a ViT-B/16 at 384 px (timed;
+    # past the bf16 kernels' 256 tokens).
     cases = [
         (BATCH, 197, 12, 64, True, None, True, "classifier"),
         (BATCH, 197, 12, 64, True, 150, False, None),
@@ -1433,18 +1442,26 @@ def fp32_kernels(gen: torch.Generator) -> dict[str, dict]:
         (4, 1, 12, 64, True, None, True, None),
         (4, 256, 12, 64, True, 255, True, None),
         (4, 256, 16, 32, True, None, False, None),
+        (BATCH, 577, 12, 64, True, 500, True, "N 577"),
     ]
     fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
     for b, n, h, hd, f32, valid_len, with_bias, name in cases:
+        nv = n if valid_len is None else valid_len
         qkv, dout = randn(b, n, 3 * h * hd), randn(b, n, h * hd)
         bias = randn(3 * h * hd, scale=0.5) if with_bias else None
         run = lambda: qkv_attention._forward_kernel(qkv, h, f32, valid_len, bias)  # noqa: E731
         plain = lambda: qkv_attention.fused_qkv_attention_reference(qkv, h, f32, valid_len, bias)  # noqa: E731
-        run_bwd = lambda: qkv_attention._backward_kernel(qkv, dout, h, f32, valid_len, bias)  # noqa: E731
+        # The backward as the autograd path runs it: from the forward's output
+        # and log-sum-exp.
+        saved, lse = qkv_attention._forward_kernel(qkv, h, f32, valid_len, bias, lse=True)
+        run_bwd = lambda: qkv_attention._backward_kernel(  # noqa: E731
+            qkv, dout, h, f32, valid_len, bias, out=saved, lse=lse)
         plain_bwd = lambda: qkv_attention.fused_qkv_attention_backward_reference(  # noqa: E731
             qkv, dout, h, f32, valid_len, bias)
         out, again = run(), run()
         (dqkv, dbias), bwd_again = run_bwd(), run_bwd()
+        # Called from (qkv, dout) alone, the launch runs the forward first.
+        alone = qkv_attention._backward_kernel(qkv, dout, h, f32, valid_len, bias)
         torch.cuda.synchronize()
         what = f"fp32 attention B={b} N={n} H={h} hd={hd} valid_len={valid_len} bias={with_bias}"
         fwd_errors.append(max_relative_error(out, plain(), FP32_FWD_FRAC, what))
@@ -1456,37 +1473,42 @@ def fp32_kernels(gen: torch.Generator) -> dict[str, dict]:
             bwd_errors.append(max_relative_error(dbias, ref_dbias, FP32_GRAD_FRAC,
                                                  f"{what}: dbias"))
             line += f", dbias {bwd_errors[-1][0]:.3e}"
-        if not torch.equal(out, again) or not torch.equal(dqkv, bwd_again[0]) or (
-                with_bias and not torch.equal(dbias, bwd_again[1])):
+        if not torch.equal(out, again) or not torch.equal(out, saved) or any(
+                not torch.equal(dqkv, other[0]) or (with_bias and not torch.equal(dbias, other[1]))
+                for other in (bwd_again, alone)):
             fail(f"{what}: two runs gave different bits")
-        print(line + "; reruns bit-identical")
+        print(line + "; reruns and the backward from (qkv, dout) alone bit-identical")
+        del alone
         if name is None:
             continue
         biased = qkv if bias is None else qkv + bias
         q, k, v = heads_of(biased, h)
-        library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        # The keys' mask, where valid_len cuts them: SDPA then computes the
+        # same function as the kernel.
+        mask = None if valid_len is None else torch.arange(n, device=dev) < valid_len
+        library = lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)  # noqa: E731
         leaf = biased.clone().requires_grad_()
-        lib_out = F.scaled_dot_product_attention(*heads_of(leaf, h)).transpose(1, 2).reshape(
-            dout.shape)
+        lib_out = F.scaled_dot_product_attention(*heads_of(leaf, h), attn_mask=mask).transpose(
+            1, 2).reshape(dout.shape)
         library_bwd = lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True)  # noqa: E731
         fwd_times[name] = time_ms(run), time_ms(plain), time_ms(library)
         bwd_times[name] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
         print(f"  {name}'s shape: forward kernel {fwd_times[name][0]:.4f} ms, plain "
               f"{fwd_times[name][1]:.4f} ms, fp32 scaled_dot_product_attention "
-              f"{fwd_times[name][2]:.4f} ms, {bound_text(**attention_cost(b, n, h, hd))}; "
+              f"{fwd_times[name][2]:.4f} ms, {bound_text(**attention_cost(b, n, h, hd, nv))}; "
               f"backward kernel {bwd_times[name][0]:.4f} ms, plain {bwd_times[name][1]:.4f} ms, "
               f"its backward {bwd_times[name][2]:.4f} ms, "
-              f"{bound_text(**attention_bwd_cost(b, n, h, hd))}")
+              f"{bound_text(**attention_bwd_cost(b, n, h, hd, nv))}; {CARD}")
         del leaf, lib_out
     report["fused_qkv_attention_f32"] = entry(
         "qkv_attention_f32.cu", "ssl4polyp_tpu/ops/qkv_attention.py:208",
         max(e[1] for e in fwd_errors),
-        *fwd_times["classifier"][:2], **attention_cost(BATCH, 197, 12, 64),
+        *fwd_times["classifier"][:2], **attention_cost(BATCH, 197, 12, 64, 197),
         library_ms=fwd_times["classifier"][2])
     report["fused_qkv_attention_backward_f32"] = entry(
         "qkv_attention_f32.cu", "ssl4polyp_tpu/ops/qkv_attention.py:237",
         max(e[1] for e in bwd_errors),
-        *bwd_times["classifier"][:2], **attention_bwd_cost(BATCH, 197, 12, 64),
+        *bwd_times["classifier"][:2], **attention_bwd_cost(BATCH, 197, 12, 64, 197),
         library_ms=bwd_times["classifier"][2])
 
     # fc1+GELU: the eval call writes y only, the train steps h too.
@@ -4482,6 +4504,38 @@ def phase_fp32() -> dict[str, int]:
           f"(limit {FP32_LOGITS_FRAC})")
     timed(lambda: forward(requests[0]), "fp32 eval requests (ViT-B/16)", per_eval)
     del forward, classifier
+
+    # The dense model in fp32: its convolutions stay fp32 under torch's own
+    # cuDNN setting (TF32 allowed in a fresh process), bit for bit as under
+    # this script's flags.
+    from ssl4polyp_tpu_torch.models.factory import build_classifier
+
+    if TORCH_DEFAULTS[1] is not True:
+        fail(f"fp32 dense: torch's default cudnn.allow_tf32 is {TORCH_DEFAULTS[1]}, so the "
+             f"comparison would not test the convolutions' TF32")
+    dense = build_classifier(torch.Generator().manual_seed(SEED),
+                             {"dense": True, "dense_readout": "project"}, device="cuda",
+                             compute_dtype=f32)
+    dense_forward = make_forward_fn(dense, "cuda")()
+    dense_images = rng.integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
+    ops.reset_launch_counts()
+    ours = dense_forward(dense_images)
+    with torch_defaults():
+        defaults = dense_forward(dense_images)
+        flag_kept = torch.backends.cudnn.allow_tf32
+    counts = ops.launch_counts()
+    check_counts(counts, {"fused_qkv_attention_f32": depth, "layernorm_f32": 2 * depth,
+                          "fc1_gelu_f32": depth}, 2, "two fp32 dense forwards")
+    add(counts)
+    if ours.shape != (2, 112, 112, 2) or ours.dtype != np.float32 or not np.isfinite(ours).all():
+        fail(f"fp32 dense: logits {ours.shape} {ours.dtype}")
+    if not flag_kept or not np.array_equal(ours, defaults):
+        fail(f"fp32 dense: under torch's default flags the logits differ (max |diff| "
+             f"{np.abs(ours - defaults).max():.3e}) or the forward left cudnn.allow_tf32 "
+             f"{flag_kept}")
+    print("fp32 dense forward (ViT-B/16 taps -> DPT, batch 2): logits bit-equal under torch's "
+          "default cudnn.allow_tf32 (True) and under this script's (False)")
+    del dense, dense_forward
 
     # The pretrain step.
     settings = PretrainSettings(batch_size=BATCH, precision="fp32")

@@ -66,7 +66,20 @@ class Conv(nn.Module):
         self.bias = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = F.conv2d(x, self.weight.to(x.dtype), padding=self.weight.shape[-1] // 2)
+        weight, padding = self.weight.to(x.dtype), self.weight.shape[-1] // 2
+        if x.dtype != torch.float32:
+            out = F.conv2d(x, weight, padding=padding)
+        else:
+            # cuDNN runs an fp32 convolution in TF32 (about three decimal
+            # digits) while torch.backends.cudnn.allow_tf32 is True, as it is
+            # in a fresh process; the JAX decoder's convolutions are fp32.
+            # Off for this call only: the process's setting stays as it was.
+            allowed = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                out = F.conv2d(x, weight, padding=padding)
+            finally:
+                torch.backends.cudnn.allow_tf32 = allowed
         return out + self.bias.to(x.dtype)[:, None, None]
 
 

@@ -7,56 +7,78 @@
 // (fused_qkv_bias_attention) at compute dtype float32, where the TPU kernels
 // take cdtype = qkv.dtype and every product is fp32.  The bf16 kernels
 // (qkv_attention.cu) run on mma.sync, which has no fp32 operand type, so
-// these are plain SIMT kernels: FFMA on the CUDA cores, fp32 accumulation,
-// no TF32 and no split into bf16 terms.  The contract is the plain versions'
-// in ops/qkv_attention.py: q = (qkv_q + bias_q) * scale, with the fp32 scale
-// 1/sqrt(hd); scores q . k^T; keys at or past n_valid masked; an exact
-// softmax over the whole row (expf, max, sum, divide); out = W . v.  The
-// backward recomputes W, then dV = W^T dO, dW = dO V^T, tmp = rowsum(dW * W),
-// dS = W * (dW - tmp), dQ = scale * dS K and dK = scale * dS^T Q (q
-// unscaled), as the TPU kernel's _bwd_kernel does.
+// these are SIMT kernels: every product an FFMA on fp32 operands, fp32
+// accumulation, no TF32 and no split into bf16 terms.  The contract is the
+// plain versions' in ops/qkv_attention.py: q = (qkv_q + bias_q) * scale, with
+// the fp32 scale 1/sqrt(hd); scores q . k^T; keys at or past n_valid masked;
+// a softmax over the row; out = W . v.  The backward gives dV = W^T dO,
+// dW = dO V^T, dS = W * (dW - D), dQ = scale * dS K and dK = scale * dS^T Q
+// (q unscaled), with D = rowsum(dO * O), which equals the plain version's
+// tmp = rowsum(dW * W) in exact arithmetic.
 //
 // What bounds them on the H100: at the classifier's shape (B 64, N 197, 12
-// heads of 64) the forward is 7.6 GFLOP against 155 MB of compulsory traffic,
-// 0.114 ms at the 67 TFLOP/s fp32 rate: operations, as is the backward with
-// about three times the forward's products.  At N <= 256 one (image, head)
-// pair's K and V fit in shared memory (128 KB in fp32 at hd 64), so the
-// scores never leave the SM.  The design is simple rather than fast:
-//   * One block of 8 warps per (head, image) stages the head's K (rows padded
-//     to hd + 4 floats, so that lanes reading different rows in 16-byte
-//     pieces hit different banks) and V once, the bias added on the way.
-//   * A warp takes 4 query rows at a time.  Their scaled q rows go to a small
-//     buffer of the warp's own; lane l holds the scores of keys l, l + 32,
-//     ..., up to 8 keys for N <= 256, and forms them as FFMA chains over d in
-//     ascending order, one 16-byte K piece a key feeding 16 products.
-//   * The softmax of each row takes its max and sum with warp shuffles.  The
-//     weights go to the warp's buffer transposed ([key][row], 16 bytes a
-//     key), and for the product with V each lane owns hd / 32 columns of the
-//     output: one V row and one 16-byte broadcast of the four rows' weights a
-//     key.
-//   * The backward runs two passes in one block, so that dK and dV are sums
-//     over query rows in an order fixed by the shape, with no atomics.  Pass
-//     1 is the forward's loop with dO staged beside q: it forms S and dW = dO
-//     V^T together, keeps each row's max, sum and tmp in shared memory, and
-//     writes dQ from dS through the warp's buffer.  Pass 2 stages Q (unscaled)
-//     and dO in place of K and V, gives each lane query rows instead of keys
-//     and each warp 4 key rows at a time, recomputes S and dW in the same
-//     FFMA order (so W and dS are pass 1's bits), and writes dV = W^T dO and
-//     dK = scale dS^T Q through the warp's buffers.  224 KB of shared memory
-//     at N 256, hd 64.
-//   * With a bias, each block then sums its head's dqkv columns over the
-//     image's rows into one row of a (B, 3D) scratch, and a column sum adds
-//     the B rows in order: dbias.
-// Head dims 32 and 64; N <= 256.
+// heads of 64) the forward is 7.6 GFLOP against 155 MB of compulsory
+// traffic, 0.114 ms at the 67 TFLOP/s fp32 rate: operations, as is the
+// backward with five products to the forward's two.  So the design keeps
+// the FFMA units fed from shared memory (FlashAttention's tiling, on the
+// CUDA cores), with as many warps an SM as the register file allows:
+//   * Tiles of 64 rows (queries or keys) by 64 keys or queries, blocks of
+//     256 threads.  Thread (rg, cg) = (tid / 16, tid % 16) holds rows rg +
+//     16 i (i < 4) of a tile; in a score product the 4 x 4 scores of
+//     columns cg + 16 j, each one FFMA chain over d ascending from 16-byte
+//     loads (per 4 d and warp: 4 row loads of 2 addresses, 4 column loads of
+//     16, no bank conflict); in a product with a score tile (P.V, dS.K, ...)
+//     4 rows x hd / 16 output columns.  A row's 16 threads are a half-warp,
+//     so its max and sum are shuffles.  4 x 4 tiles keep a thread within
+//     128 registers, so two blocks (16 warps) share an SM: on an H100, 8 x 4
+//     and 8 x 8 tiles at 8-12 warps an SM were slower.
+//   * Operand tiles are row-major [row][d], rows padded to hd + 4 floats,
+//     filled by 16-byte cp.async straight from qkv; the bias (and q's scale)
+//     is added in place by the thread that copied each piece.  Score tiles
+//     (P, dS) have rows of 64 + 16 floats.  Shared memory does not grow with
+//     N, so any N >= 1 runs.
+//   * Rows past a tile's end and key slots past the last weighted key are
+//     skipped (a separate instantiation for whole tiles keeps their loops
+//     free of checks); key tiles stop at n_valid.
+//   * Forward: one block for each (query tile, head, image), the query tile
+//     the fastest grid index, so neighbouring blocks read one head's K and
+//     V from L2.  Q (scaled, biased) stays; K and V stream through one
+//     buffer each, each loaded under the other's product (V of tile t under
+//     the scores, K of tile t + 1 under P.V): 71 KB at hd 64.  An online
+//     softmax carries each row's running max and a per-thread partial sum,
+//     rescales the output accumulators, and divides once at the end; with
+//     `lse` it writes each row's log-sum-exp L = m + log(l) for the
+//     backward.
+//   * Backward: a small kernel takes D = dO . O from the forward's output;
+//     then one block for each (head, image) walks the key tiles in ascending
+//     order and, for each, the query tiles in ascending order: S^T and dW^T
+//     (rows are keys), P^T = exp(S - L) and dS^T into shared memory, dK +=
+//     dS^T Q and dV += P^T dO in registers, and dQ's part dS K, read from
+//     dS^T with each thread's 4 queries contiguous.  The block adds that
+//     part to the query tile's rows of dqkv, which only it writes, in
+//     key-tile order, so no atomics and reruns give the same bits (F8 in
+//     ROADMAP.md §3).  Five products a pair of tiles: a block for each query
+//     tile and another for each key tile (two kernels) would recompute S and
+//     dW in both, seven products, and measured slower on an H100.  The
+//     cost: B x H blocks, so a small batch fills few SMs.  With a bias, each
+//     block writes each tile's column sums into its own row of a (B *
+//     tiles, 3D) scratch, and a column sum adds the rows in order: dbias.
+// Head dims 32 and 64.  Every sum is taken in an order fixed by the shape.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kRows = 4;      // rows a warp takes at once (query rows; key rows in pass 2)
-constexpr int kSlots = 8;     // rows a lane holds across the warp: N <= 32 * kSlots
-constexpr int kMaxTokens = 32 * kSlots;
+constexpr int kThreads = 256;
+constexpr int kGroups = 16;    // row groups rg and column groups cg
+constexpr int kTile = 64;      // rows (queries or keys) and columns of a tile
+constexpr int kPer = 4;        // a thread's rows (rg + 16 i) and score columns (cg + 16 j)
+constexpr int kLdS = kTile + kGroups;  // a score tile's row stride: 16 banks between rows
 constexpr float kLowest = -3.402823466e38f;  // below every finite score
+
+template <int HD>
+__host__ __device__ constexpr int operand_floats() { return kTile * (HD + 4); }
+
+constexpr int kScoreFloats = kTile * kLdS;
 
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -80,416 +102,609 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
+// Max and sum over a row's 16 lanes (a half-warp); every lane of the warp
+// must call them.
+__device__ __forceinline__ float row_max(float x) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
 }
 
-// One section (0 q, 1 k, 2 v) of head h's row i of qkv, columns c .. c + 3,
-// with the bias added (the plain version's qkv + bias).
-struct Head {
-  const float* qkv;   // this image's (N, 3D) rows
-  const float* bias;  // (3D,) or null
-  int D, h, hd;
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
 
-  __device__ __forceinline__ float4 load(int section, int i, int c) const {
-    const int col = section * D + h * hd + c;
-    float4 v = ld4(qkv + static_cast<long>(i) * 3 * D + col);
-    if (bias != nullptr) v = add4(v, ld4(bias + col));
-    return v;
+// DC consecutive floats, DC 2 or 4 (8- or 16-byte aligned).
+template <int DC>
+__device__ __forceinline__ void load_cols(float (&v)[DC], const float* p) {
+  if constexpr (DC == 4) {
+    const float4 t = ld4(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
   }
+}
+
+template <int DC>
+__device__ __forceinline__ void store_cols(float* p, const float (&v)[DC]) {
+  if constexpr (DC == 4) {
+    st4(p, make_float4(v[0], v[1], v[2], v[3]));
+  } else {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  }
+}
+
+// Rows r0 .. r0 + 63 of `src` (row i at src + i * stride, HD columns) into
+// an operand tile by cp.async; rows at or past n are zeros.
+template <int HD>
+__device__ __forceinline__ void load_tile(float* dst, const float* src, long stride, int r0,
+                                          int n) {
+  constexpr int kPieces = HD / 4, LD = HD + 4;
+  static_assert(kTile * kPieces % kThreads == 0, "whole pieces a thread");
+#pragma unroll
+  for (int k = 0; k < kTile * kPieces / kThreads; ++k) {
+    const int p = threadIdx.x + k * kThreads;
+    const int r = p / kPieces, c = (p % kPieces) * 4;
+    const bool ok = r0 + r < n;
+    cp_async_16(dst + r * LD + c, src + static_cast<long>(ok ? r0 + r : 0) * stride + c,
+                ok ? 16 : 0);
+  }
+}
+
+// The bias, then the scale, on this thread's pieces of a load_tile once
+// its copies have landed (the plain version's (qkv + bias) * scale); rows
+// at or past n stay zero.  A null bias and scale 1 leave the tile as it is.
+template <int HD>
+__device__ __forceinline__ void finish_tile(float* dst, const float* bias, float scale, int r0,
+                                            int n) {
+  constexpr int kPieces = HD / 4, LD = HD + 4;
+  if (bias == nullptr && scale == 1.0f) return;
+#pragma unroll
+  for (int k = 0; k < kTile * kPieces / kThreads; ++k) {
+    const int p = threadIdx.x + k * kThreads;
+    const int r = p / kPieces, c = (p % kPieces) * 4;
+    if (r0 + r >= n) continue;
+    float4 v = ld4(dst + r * LD + c);
+    if (bias != nullptr) v = add4(v, ld4(bias + c));
+    if (scale != 1.0f) v = mul4(v, scale);
+    st4(dst + r * LD + c, v);
+  }
+}
+
+// acc[i][j] = sum over d of a[rg + 16 i][d] * (b[cg + 16 j][d] * b_scale):
+// one FFMA chain over d ascending, the same bits whichever operand is a.  a
+// and b are operand tiles.  CHECKED: rows at or past `rows` and column
+// slots with 16 j >= `cols` are left at zero.
+template <int HD, bool CHECKED>
+__device__ __forceinline__ void tile_scores(float (&acc)[kPer][kPer], const float* a,
+                                            const float* b, float b_scale, int rg, int cg,
+                                            int rows, int cols) {
+  constexpr int LD = HD + 4;
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) acc[i][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < HD; d += 4) {
+    float4 bv[kPer];
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      bv[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (CHECKED && kGroups * j >= cols) continue;
+      bv[j] = ld4(b + (cg + kGroups * j) * LD + d);
+      if (b_scale != 1.0f) bv[j] = mul4(bv[j], b_scale);
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (CHECKED && rg + kGroups * i >= rows) continue;
+      const float4 av = ld4(a + (rg + kGroups * i) * LD + d);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (CHECKED && kGroups * j >= cols) continue;
+        acc[i][j] = dot4(av, bv[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][c] += sum over j < count of s[rg + 16 i][j] * b[j][cg * DC + c], j
+// ascending: s a score tile, b an operand tile, DC = HD / 16.  The sum runs
+// to count rounded up to 4, where s holds zeros and b finite rows.
+// CHECKED: rows at or past `rows` are skipped; otherwise count is kTile.
+template <int HD, bool CHECKED>
+__device__ __forceinline__ void tile_product(float (&acc)[kPer][HD / kGroups], const float* s,
+                                             const float* b, int rg, int cg, int rows,
+                                             int count) {
+  constexpr int LD = HD + 4, DC = HD / kGroups;
+  const int n = CHECKED ? count : kTile;
+#pragma unroll 2
+  for (int j = 0; j < n; j += 4) {
+    float bv[4][DC];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) load_cols<DC>(bv[t], b + (j + t) * LD + cg * DC);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      if (CHECKED && rg + kGroups * i >= rows) continue;
+      const float4 w = ld4(s + (rg + kGroups * i) * kLdS + j);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        acc[i][c] = fmaf(w.x, bv[0][c], acc[i][c]);
+        acc[i][c] = fmaf(w.y, bv[1][c], acc[i][c]);
+        acc[i][c] = fmaf(w.z, bv[2][c], acc[i][c]);
+        acc[i][c] = fmaf(w.w, bv[3][c], acc[i][c]);
+      }
+    }
+  }
+}
+
+template <int HD>
+__device__ __forceinline__ void scores(float (&acc)[kPer][kPer], const float* a, const float* b,
+                                       float b_scale, int rg, int cg, int rows, int cols) {
+  if (rows == kTile && cols == kTile)
+    tile_scores<HD, false>(acc, a, b, b_scale, rg, cg, rows, cols);
+  else
+    tile_scores<HD, true>(acc, a, b, b_scale, rg, cg, rows, cols);
+}
+
+template <int HD>
+__device__ __forceinline__ void product(float (&acc)[kPer][HD / kGroups], const float* s,
+                                        const float* b, int rg, int cg, int rows, int count) {
+  if (rows == kTile && count == kTile)
+    tile_product<HD, false>(acc, s, b, rg, cg, rows, count);
+  else
+    tile_product<HD, true>(acc, s, b, rg, cg, rows, count);
+}
+
+template <int DC>
+__device__ __forceinline__ void zero(float (&acc)[kPer][DC]) {
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
+}
+
+// One head (blockIdx.y) of one image (blockIdx.z): its rows of qkv (row i
+// at src + i * stride, the section at + section * D) and of the bias.
+struct Head {
+  const float* src;
+  const float *bq, *bk, *bv;  // null without a bias
+  long stride;
+  int D;
+  __device__ Head(const float* qkv, const float* bias, int N, int H, int HD)
+      : src(qkv + static_cast<long>(blockIdx.z) * N * 3 * H * HD + blockIdx.y * HD),
+        bq(bias == nullptr ? nullptr : bias + blockIdx.y * HD),
+        bk(bias == nullptr ? nullptr : bias + H * HD + blockIdx.y * HD),
+        bv(bias == nullptr ? nullptr : bias + 2 * H * HD + blockIdx.y * HD),
+        stride(3L * H * HD),
+        D(H * HD) {}
 };
 
-// Rows i0 .. i0 + kRows - 1 of a section into `dst` (kRows x HD), times
-// `scale`; rows past N are zeros.  The calling warp only.
 template <int HD>
-__device__ __forceinline__ void stage_rows(float* dst, const Head& head, int section, int i0,
-                                           int N, float scale, int lane) {
-  constexpr int kPieces = HD / 4;
-  for (int p = lane; p < kRows * kPieces; p += 32) {
-    const int r = p / kPieces, c = (p % kPieces) * 4;
-    const int i = i0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (i < N) v = head.load(section, i, c);
-    if (scale != 1.0f) v = mul4(v, scale);
-    st4(dst + r * HD + c, v);
-  }
-}
-
-// Rows 0 .. N - 1 of two sections into (N, HD + 4) buffers, by the block.
-template <int HD>
-__device__ __forceinline__ void stage_head(float* a, float* b, const Head& head, int sa, int sb,
-                                           int N) {
-  constexpr int kPieces = HD / 4, LD = HD + 4;
-  for (int p = threadIdx.x; p < N * kPieces; p += blockDim.x) {
-    const int i = p / kPieces, c = (p % kPieces) * 4;
-    st4(a + i * LD + c, head.load(sa, i, c));
-    st4(b + i * LD + c, head.load(sb, i, c));
-  }
-}
-
-// Lane-owned rows (i = 32 t + lane) against the warp's kRows staged rows:
-// out[r][t] = sum_d (rows[i][d] * row_scale) * staged[r][d], d ascending,
-// for t < slots; `rows` is an (N, HD + 4) buffer, row N - 1 read in place of
-// rows past N.  A pass that swaps the two operands forms the same FFMA chain,
-// so the same bits.
-template <int HD>
-__device__ __forceinline__ void lane_rows_dot(float (&out)[kRows][kSlots], const float* rows,
-                                              float row_scale, const float* staged, int N,
-                                              int slots, int lane) {
-  constexpr int LD = HD + 4;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) out[r][t] = 0.0f;
-#pragma unroll 2
-  for (int c = 0; c < HD; c += 4) {
-    float4 s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = ld4(staged + r * HD + c);
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) {
-      if (t >= slots) continue;  // uniform across the warp
-      const int i = min(32 * t + lane, N - 1);
-      float4 v = ld4(rows + i * LD + c);
-      if (row_scale != 1.0f) v = mul4(v, row_scale);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) out[r][t] = dot4(s[r], v, out[r][t]);
-    }
-  }
-}
-
-// acc[r][:] = sum over j < N of wt[j][r] * rows[j][lane's columns]: wt is
-// (N, kRows) in shared memory, rows an (N, HD + 4) buffer.
-template <int HD>
-__device__ __forceinline__ void weighted_rows(float (&acc)[kRows][HD / 32], const float* wt,
-                                              const float* rows, int N, int lane) {
-  constexpr int LD = HD + 4, DPL = HD / 32;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.0f;
-  for (int j = 0; j < N; ++j) {
-    const float4 p = ld4(wt + j * kRows);
-    const float pr[kRows] = {p.x, p.y, p.z, p.w};
-    float v[DPL];
-    if constexpr (DPL == 2) {
-      const float2 pair = *reinterpret_cast<const float2*>(rows + j * LD + 2 * lane);
-      v[0] = pair.x;
-      v[1] = pair.y;
-    } else {
-      v[0] = rows[j * LD + lane];
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) acc[r][e] = fmaf(pr[r], v[e], acc[r][e]);
-  }
-}
-
-// Row i's lane columns of a section of dqkv (or out), from acc[r] times scale.
-template <int HD>
-__device__ __forceinline__ void store_lane_columns(float* dst, const float (&acc)[HD / 32],
-                                                   float scale, int lane) {
-  if constexpr (HD / 32 == 2) {
-    *reinterpret_cast<float2*>(dst + 2 * lane) = make_float2(acc[0] * scale, acc[1] * scale);
-  } else {
-    dst[lane] = acc[0] * scale;
-  }
-}
-
-// The softmax of row r from the lane's scores (keys 32 t + lane): returns the
-// row's max and sum and leaves exp(s - max) / sum in s, zero at masked keys
-// and past N.
-__device__ __forceinline__ void softmax_row(float (&s)[kSlots], int slots, int n_valid, int lane,
-                                            float& m, float& l) {
-  m = kLowest;
-#pragma unroll
-  for (int t = 0; t < kSlots; ++t)
-    if (t < slots && 32 * t + lane < n_valid) m = fmaxf(m, s[t]);
-  m = warp_max(m);
-  l = 0.0f;
-#pragma unroll
-  for (int t = 0; t < kSlots; ++t) {
-    s[t] = (t < slots && 32 * t + lane < n_valid) ? expf(s[t] - m) : 0.0f;
-    l += s[t];
-  }
-  l = warp_sum(l);
-#pragma unroll
-  for (int t = 0; t < kSlots; ++t) s[t] = s[t] / l;
-}
-
-// The four rows' values of each lane key into wt[j][0..3] (16 bytes a key).
-__device__ __forceinline__ void store_transposed(float* wt, const float (&v)[kRows][kSlots],
-                                                 int slots, int N, int lane) {
-#pragma unroll
-  for (int t = 0; t < kSlots; ++t) {
-    const int j = 32 * t + lane;
-    if (t < slots && j < N) st4(wt + j * kRows, make_float4(v[0][t], v[1][t], v[2][t], v[3][t]));
-  }
+constexpr int fwd_smem_bytes() {
+  return sizeof(float) * (3 * operand_floats<HD>() + kScoreFloats);
 }
 
 template <int HD>
-constexpr int fwd_smem_floats(int N) {
-  return N * (HD + 4) * 2 + kWarps * (kRows * HD + N * kRows);
+constexpr int bwd_smem_bytes() {
+  return sizeof(float) * (4 * operand_floats<HD>() + 2 * kScoreFloats);
 }
 
+// grid (query tiles, H, B).  out (B, N, D); lse (B, H, N) or null.  At hd
+// 32 three blocks share an SM (48 KB each, 80 registers a thread), which
+// measured faster on an H100; at hd 64 two, with 128 registers.
 template <int HD>
-__global__ void __launch_bounds__(32 * kWarps, 1)
+__global__ void __launch_bounds__(kThreads, HD == 32 ? 3 : 2)
 qkv_attention_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                             float* __restrict__ out, int N, int H, int n_valid, float scale) {
-  constexpr int LD = HD + 4;
+                             float* __restrict__ out, float* __restrict__ lse, int N, int H,
+                             int n_valid, float scale) {
+  constexpr int DC = HD / kGroups;
   extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int h = blockIdx.x, b = blockIdx.y, D = H * HD;
-  const Head head{qkv + static_cast<long>(b) * N * 3 * D, bias, D, h, HD};
-  float* s_k = smem;
-  float* s_v = s_k + N * LD;
-  float* s_q = s_v + N * LD + warp * (kRows * HD + N * kRows);
-  float* s_p = s_q + kRows * HD;
-  stage_head<HD>(s_k, s_v, head, 1, 2, N);
+  float* s_q = smem;
+  float* s_k = s_q + operand_floats<HD>();
+  float* s_v = s_k + operand_floats<HD>();
+  float* s_p = s_v + operand_floats<HD>();
+  const int rg = threadIdx.x / kGroups, cg = threadIdx.x % kGroups;
+  const Head head(qkv, bias, N, H, HD);
+  const int q0 = blockIdx.x * kTile, D = head.D;
+  const int rows = min(kTile, N - q0);
+  const int tiles = (n_valid + kTile - 1) / kTile;
+
+  load_tile<HD>(s_q, head.src, head.stride, q0, N);
+  load_tile<HD>(s_k, head.src + D, head.stride, 0, N);
+  cp_async_commit();
+  cp_async_wait<0>();
+  finish_tile<HD>(s_q, head.bq, scale, q0, N);
+  finish_tile<HD>(s_k, head.bk, 1.0f, 0, N);
   __syncthreads();
 
-  const int slots = (N + 31) / 32;
-  for (int i0 = warp * kRows; i0 < N; i0 += kWarps * kRows) {
-    stage_rows<HD>(s_q, head, 0, i0, N, scale, lane);
-    __syncwarp();
-    float s[kRows][kSlots];
-    lane_rows_dot<HD>(s, s_k, 1.0f, s_q, N, slots, lane);
+  float o[kPer][DC], m[kPer], l[kPer];
+  zero(o);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float m, l;
-      softmax_row(s[r], slots, n_valid, lane, m, l);
+  for (int i = 0; i < kPer; ++i) {
+    m[i] = kLowest;
+    l[i] = 0.0f;
+  }
+  for (int t = 0; t < tiles; ++t) {
+    const int k0 = t * kTile;
+    const int count = min(kTile, n_valid - k0);  // keys of this tile with weight
+    load_tile<HD>(s_v, head.src + 2 * D, head.stride, k0, N);  // V(t) under the scores
+    cp_async_commit();
+    float s[kPer][kPer];
+    scores<HD>(s, s_q, s_k, 1.0f, rg, cg, rows, count);
+    // The online softmax: each row's running max m, the thread's part of
+    // its running sum l, the output accumulators rescaled to the new max.
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      float tile_max = kLowest;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (cg + kGroups * j < count) tile_max = fmaxf(tile_max, s[i][j]);
+      const float m_new = fmaxf(m[i], row_max(tile_max));
+      const float alpha = expf(m[i] - m_new);
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const float p = cg + kGroups * j < count ? expf(s[i][j] - m_new) : 0.0f;
+        sum += p;
+        s_p[(rg + kGroups * i) * kLdS + cg + kGroups * j] = p;
+      }
+      l[i] = l[i] * alpha + sum;
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DC; ++c) o[i][c] *= alpha;
     }
-    store_transposed(s_p, s, slots, N, lane);
-    __syncwarp();
-    float acc[kRows][HD / 32];
-    weighted_rows<HD>(acc, s_p, s_v, N, lane);
+    cp_async_wait<0>();
+    finish_tile<HD>(s_v, head.bv, 1.0f, k0, N);
+    __syncthreads();  // P and V(t) visible; K(t) read
+    if (t + 1 < tiles) {  // K(t + 1) under P.V
+      load_tile<HD>(s_k, head.src + D, head.stride, k0 + kTile, N);
+      cp_async_commit();
+    }
+    product<HD>(o, s_p, s_v, rg, cg, rows, count);
+    cp_async_wait<0>();
+    if (t + 1 < tiles) finish_tile<HD>(s_k, head.bk, 1.0f, k0 + kTile, N);
+    __syncthreads();  // K(t + 1) visible; P and V(t) read
+  }
+
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (i0 + r < N)
-        store_lane_columns<HD>(out + (static_cast<long>(b) * N + i0 + r) * D + h * HD, acc[r],
-                               1.0f, lane);
-    __syncwarp();  // the buffers are the next rows'
+  for (int i = 0; i < kPer; ++i) {
+    const float sum = row_sum(l[i]);
+    const int row = rg + kGroups * i;
+    if (row >= rows) continue;
+    float v[DC];
+#pragma unroll
+    for (int c = 0; c < DC; ++c) v[c] = o[i][c] / sum;
+    store_cols<DC>(
+        out + (static_cast<long>(blockIdx.z) * N + q0 + row) * D + blockIdx.y * HD + cg * DC, v);
+    if (lse != nullptr && cg == 0)
+      lse[(static_cast<long>(blockIdx.z) * H + blockIdx.y) * N + q0 + row] = m[i] + logf(sum);
   }
 }
 
+// D = rowsum(dO * O) for every (image, head, row), rows (b H + h) N + i: a
+// row's 16 lanes take HD / 16 columns each, then the row's sum.
 template <int HD>
-constexpr int bwd_smem_floats(int N) {
-  return N * (HD + 4) * 2 + 3 * ((N + 3) & ~3) + kWarps * (2 * kRows * HD + 2 * N * kRows);
+__global__ void __launch_bounds__(kThreads)
+qkv_attention_f32_delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
+                               float* __restrict__ delta, long rows, int N, int H) {
+  constexpr int DC = HD / kGroups;
+  const long row = static_cast<long>(blockIdx.x) * (kThreads / kGroups) + threadIdx.x / kGroups;
+  const int lane = threadIdx.x % kGroups;
+  float part = 0.0f;
+  if (row < rows) {
+    const long bh = row / N;
+    const long at = ((bh / H) * N + row % N) * H * HD + (bh % H) * HD + lane * DC;
+    float o[DC], d[DC];
+    load_cols<DC>(o, out + at);
+    load_cols<DC>(d, dout + at);
+#pragma unroll
+    for (int c = 0; c < DC; ++c) part = fmaf(d[c], o[c], part);
+  }
+  part = row_sum(part);
+  if (row < rows && lane == 0) delta[row] = part;
 }
 
+// The backward, grid (1, H, B): see the note above.  lse, delta (B, H, N);
+// part (B * tiles, 3D) or null.
 template <int HD>
-__global__ void __launch_bounds__(32 * kWarps, 1)
+__global__ void __launch_bounds__(kThreads, 2)
 qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
-                             const float* __restrict__ dout, float* dqkv, float* __restrict__ part,
-                             int N, int H, int n_valid, float scale) {
-  constexpr int LD = HD + 4, DPL = HD / 32;
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             const float* __restrict__ dout, float* __restrict__ dqkv,
+                             float* __restrict__ part, int N, int H, int n_valid, float scale) {
+  constexpr int DC = HD / kGroups, LD = HD + 4;
   extern __shared__ __align__(16) float smem[];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int h = blockIdx.x, b = blockIdx.y, D = H * HD;
-  const Head head{qkv + static_cast<long>(b) * N * 3 * D, bias, D, h, HD};
-  const float* d_rows = dout + static_cast<long>(b) * N * D + h * HD;  // dO row i at i * D
-  float* rows_dq = dqkv + static_cast<long>(b) * N * 3 * D + h * HD;  // + section * D
-  float* s_a = smem;             // pass 1: K; pass 2: Q (unscaled)
-  float* s_b = s_a + N * LD;     // pass 1: V; pass 2: dO
-  const int NP = (N + 3) & ~3;   // 16-byte multiples
-  float* s_m = s_b + N * LD;     // each query row's max, sum and tmp
-  float* s_l = s_m + NP;
-  float* s_tmp = s_l + NP;
-  float* s_st = s_tmp + NP + warp * (2 * kRows * HD + 2 * N * kRows);
-  float* s_st2 = s_st + kRows * HD;
-  float* s_w = s_st2 + kRows * HD;  // (N, kRows)
-  float* s_ds = s_w + N * kRows;    // (N, kRows)
-  const int slots = (N + 31) / 32;
+  float* s_k = smem;
+  float* s_v = s_k + operand_floats<HD>();
+  float* s_q = s_v + operand_floats<HD>();
+  float* s_do = s_q + operand_floats<HD>();
+  float* s_p = s_do + operand_floats<HD>();  // P^T: [key][query]
+  float* s_ds = s_p + kScoreFloats;          // dS^T
+  // rg, cg: rows rg + 16 i (keys) and columns cg + 16 j (queries) of the
+  // score tiles, dK and dV's columns cg DC + c; in dS K, queries 4 rg + a.
+  const int rg = threadIdx.x / kGroups, cg = threadIdx.x % kGroups;
+  const Head head(qkv, bias, N, H, HD);
+  const int D = head.D, h = blockIdx.y;
+  const long image_rows = static_cast<long>(blockIdx.z) * N;
+  const long stats = (static_cast<long>(blockIdx.z) * H + h) * N;
+  const float* d_src = dout + image_rows * D + h * HD;
+  float* rows_out = dqkv + image_rows * head.stride + h * HD;  // + row * stride + section * D
+  const int tiles = (N + kTile - 1) / kTile;
+  const int key_tiles = (n_valid + kTile - 1) / kTile;  // those with a weighted key
+  const long part_row = static_cast<long>(blockIdx.z) * tiles;
 
-  // dO rows i0 .. i0 + kRows - 1 into the warp's buffer; zeros past N.
-  auto stage_grad_rows = [&](float* dst, int i0) {
-    constexpr int kPieces = HD / 4;
-    for (int p = lane; p < kRows * kPieces; p += 32) {
-      const int r = p / kPieces, c = (p % kPieces) * 4;
-      const int i = i0 + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (i < N) v = ld4(d_rows + static_cast<long>(i) * D + c);
-      st4(dst + r * HD + c, v);
+  load_tile<HD>(s_k, head.src + D, head.stride, 0, N);
+  load_tile<HD>(s_v, head.src + 2 * D, head.stride, 0, N);
+  load_tile<HD>(s_q, head.src, head.stride, 0, N);
+  cp_async_commit();
+  load_tile<HD>(s_do, d_src, D, 0, N);
+  cp_async_commit();
+  for (int kt = 0; kt < key_tiles; ++kt) {
+    const int k0 = kt * kTile;
+    const int keys = min(kTile, n_valid - k0);  // keys of the tile with weight
+    const bool last = kt + 1 == key_tiles;      // dQ's last part: scale it, sum its columns
+    float dk[kPer][DC], dv[kPer][DC];
+    zero(dk);
+    zero(dv);
+    for (int u = 0; u < tiles; ++u) {
+      const int i0 = u * kTile;
+      const int count = min(kTile, N - i0);  // query rows of this tile
+      cp_async_wait<1>();  // Q(u) (and K, V at u = 0); dO(u) may be in flight
+      if (u == 0) {
+        finish_tile<HD>(s_k, head.bk, 1.0f, k0, N);
+        finish_tile<HD>(s_v, head.bv, 1.0f, k0, N);
+      }
+      finish_tile<HD>(s_q, head.bq, 1.0f, i0, N);  // q unscaled: dK's operand
+      __syncthreads();  // Q(u) visible
+      float row_l[kPer], row_d[kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int i = cg + kGroups * j;
+        row_l[j] = i < count ? lse[stats + i0 + i] : 0.0f;
+        row_d[j] = i < count ? delta[stats + i0 + i] : 0.0f;
+      }
+      float st[kPer][kPer];
+      scores<HD>(st, s_k, s_q, scale, rg, cg, keys, count);  // K . (q scale)^T
+      cp_async_wait<0>();
+      __syncthreads();  // dO(u) visible
+      float dwt[kPer][kPer];
+      scores<HD>(dwt, s_v, s_do, 1.0f, rg, cg, keys, count);  // V . dO^T
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const bool ok = rg + kGroups * i < keys && cg + kGroups * j < count;
+          const float p = ok ? expf(st[i][j] - row_l[j]) : 0.0f;
+          const int at = (rg + kGroups * i) * kLdS + cg + kGroups * j;
+          s_p[at] = p;
+          s_ds[at] = p * (dwt[i][j] - row_d[j]);
+        }
+      __syncthreads();  // P^T, dS^T visible
+      product<HD>(dk, s_ds, s_q, rg, cg, keys, count);
+      float dq[kPer][DC];
+      zero(dq);
+#pragma unroll 4
+      for (int j = 0; j < keys; ++j) {  // dS K over this tile's keys, j ascending
+        float w[kPer], kc[DC];
+        load_cols<kPer>(w, s_ds + j * kLdS + kPer * rg);
+        load_cols<DC>(kc, s_k + j * LD + cg * DC);
+#pragma unroll
+        for (int a = 0; a < kPer; ++a)
+#pragma unroll
+          for (int c = 0; c < DC; ++c) dq[a][c] = fmaf(w[a], kc[c], dq[a][c]);
+      }
+      __syncthreads();  // Q(u), K(kt), V(kt) and dS^T read
+      if (u + 1 < tiles) {  // Q(u + 1) under dV
+        load_tile<HD>(s_q, head.src, head.stride, i0 + kTile, N);
+      } else if (kt + 1 < key_tiles) {  // the next key tile's K, V and Q(0)
+        load_tile<HD>(s_k, head.src + D, head.stride, k0 + kTile, N);
+        load_tile<HD>(s_v, head.src + 2 * D, head.stride, k0 + kTile, N);
+        load_tile<HD>(s_q, head.src, head.stride, 0, N);
+      }
+      cp_async_commit();
+      product<HD>(dv, s_p, s_do, rg, cg, keys, count);
+      // The tile's dQ rows += this key tile's part, in key-tile order; the
+      // last part then times the scale (the plain version's (dS K) scale).
+      float column[DC] = {};
+#pragma unroll
+      for (int a = 0; a < kPer; ++a) {
+        const int row = kPer * rg + a;
+        if (row >= count) continue;
+        float* dst = rows_out + (i0 + row) * head.stride + cg * DC;
+        float v[DC];
+        if (kt > 0) load_cols<DC>(v, dst);
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          v[c] = kt > 0 ? v[c] + dq[a][c] : dq[a][c];
+          if (last) {
+            v[c] *= scale;
+            column[c] += v[c];
+          }
+        }
+        store_cols<DC>(dst, v);
+      }
+      float* red = s_ds;  // (16, HD): dS^T was read before the last barrier
+      if (last && part != nullptr) {
+#pragma unroll
+        for (int c = 0; c < DC; ++c) red[rg * HD + cg * DC + c] = column[c];
+      }
+      __syncthreads();  // dO(u), P^T read; red written
+      if (last && part != nullptr) {
+        for (int c = threadIdx.x; c < HD; c += kThreads) {
+          float total = 0.0f;
+#pragma unroll
+          for (int g = 0; g < kGroups; ++g) total += red[g * HD + c];
+          part[(part_row + u) * head.stride + h * HD + c] = total;
+        }
+      }
+      if (u + 1 < tiles) {  // dO(u + 1) under the next scores
+        load_tile<HD>(s_do, d_src, D, i0 + kTile, N);
+      } else if (kt + 1 < key_tiles) {
+        load_tile<HD>(s_do, d_src, D, 0, N);
+      }
+      cp_async_commit();
     }
-  };
 
-  // Pass 1: query rows; lanes hold keys.
-  stage_head<HD>(s_a, s_b, head, 1, 2, N);
-  __syncthreads();
-  for (int i0 = warp * kRows; i0 < N; i0 += kWarps * kRows) {
-    stage_rows<HD>(s_st, head, 0, i0, N, scale, lane);
-    stage_grad_rows(s_st2, i0);
-    __syncwarp();
-    float s[kRows][kSlots], dw[kRows][kSlots];
-    lane_rows_dot<HD>(s, s_a, 1.0f, s_st, N, slots, lane);
-    lane_rows_dot<HD>(dw, s_b, 1.0f, s_st2, N, slots, lane);
+    // dK and dV of this key tile, and their columns' sums.
+    const int rows = min(kTile, N - k0);
+    float column[2][DC] = {};
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      float m, l;
-      softmax_row(s[r], slots, n_valid, lane, m, l);
-      float tmp = 0.0f;
+    for (int i = 0; i < kPer; ++i) {
+      const int row = rg + kGroups * i;
+      if (row >= rows) continue;
+      float k[DC], v[DC];
 #pragma unroll
-      for (int t = 0; t < kSlots; ++t) tmp += dw[r][t] * s[r][t];
-      tmp = warp_sum(tmp);
+      for (int c = 0; c < DC; ++c) {
+        k[c] = dk[i][c] * scale;
+        v[c] = dv[i][c];
+        column[0][c] += k[c];
+        column[1][c] += v[c];
+      }
+      float* dst = rows_out + (k0 + row) * head.stride + cg * DC;
+      store_cols<DC>(dst + D, k);
+      store_cols<DC>(dst + 2 * D, v);
+    }
+    if (part != nullptr) {
+      // (16, 2 HD); P^T was read before the last barrier, and the next key
+      // tile writes it after two more.
+      float* red = s_p;
 #pragma unroll
-      for (int t = 0; t < kSlots; ++t) dw[r][t] = s[r][t] * (dw[r][t] - tmp);  // dS
-      if (lane == 0 && i0 + r < N) {
-        s_m[i0 + r] = m;
-        s_l[i0 + r] = l;
-        s_tmp[i0 + r] = tmp;
+      for (int c = 0; c < DC; ++c) {
+        red[rg * 2 * HD + cg * DC + c] = column[0][c];
+        red[rg * 2 * HD + HD + cg * DC + c] = column[1][c];
+      }
+      __syncthreads();
+      for (int c = threadIdx.x; c < 2 * HD; c += kThreads) {
+        float total = 0.0f;
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) total += red[g * 2 * HD + c];
+        part[(part_row + kt) * head.stride + (1 + c / HD) * D + h * HD + c % HD] = total;
       }
     }
-    store_transposed(s_ds, dw, slots, N, lane);
-    __syncwarp();
-    float acc[kRows][DPL];
-    weighted_rows<HD>(acc, s_ds, s_a, N, lane);  // dS K
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      if (i0 + r < N)
-        store_lane_columns<HD>(rows_dq + static_cast<long>(i0 + r) * 3 * D, acc[r], scale, lane);
-    __syncwarp();
   }
-  __syncthreads();
-
-  // Pass 2: key rows; lanes hold query rows.
-  {
-    constexpr int kPieces = HD / 4;
-    for (int p = threadIdx.x; p < N * kPieces; p += blockDim.x) {
-      const int i = p / kPieces, c = (p % kPieces) * 4;
-      st4(s_a + i * LD + c, head.load(0, i, c));
-      st4(s_b + i * LD + c, ld4(d_rows + static_cast<long>(i) * D + c));
+  // Key tiles wholly at or past n_valid: dK = dV = 0.
+  for (int kt = key_tiles; kt < tiles; ++kt) {
+    const int k0 = kt * kTile, pieces = 2 * HD / 4;
+    for (int p = threadIdx.x; p < min(kTile, N - k0) * pieces; p += kThreads) {
+      const int row = p / pieces, c = (p % pieces) * 4;
+      st4(rows_out + (k0 + row) * head.stride + (1 + c / HD) * D + c % HD,
+          make_float4(0.f, 0.f, 0.f, 0.f));
     }
-  }
-  __syncthreads();
-  for (int j0 = warp * kRows; j0 < N; j0 += kWarps * kRows) {
-    stage_rows<HD>(s_st, head, 1, j0, N, 1.0f, lane);   // K rows
-    stage_rows<HD>(s_st2, head, 2, j0, N, 1.0f, lane);  // V rows
-    __syncwarp();
-    float s[kRows][kSlots], dw[kRows][kSlots];
-    lane_rows_dot<HD>(s, s_a, scale, s_st, N, slots, lane);  // (q * scale) . k
-    lane_rows_dot<HD>(dw, s_b, 1.0f, s_st2, N, slots, lane);  // dO . v
-#pragma unroll
-    for (int t = 0; t < kSlots; ++t) {
-      const int i = 32 * t + lane;
-      const bool row_ok = t < slots && i < N;
-      const float m = row_ok ? s_m[i] : 0.0f, l = row_ok ? s_l[i] : 1.0f;
-      const float tmp = row_ok ? s_tmp[i] : 0.0f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float w = row_ok && j0 + r < n_valid ? expf(s[r][t] - m) / l : 0.0f;
-        s[r][t] = w;
-        dw[r][t] = w * (dw[r][t] - tmp);  // dS
-      }
-    }
-    store_transposed(s_w, s, slots, N, lane);
-    store_transposed(s_ds, dw, slots, N, lane);
-    __syncwarp();
-    float dv[kRows][DPL], dk[kRows][DPL];
-    weighted_rows<HD>(dv, s_w, s_b, N, lane);   // W^T dO
-    weighted_rows<HD>(dk, s_ds, s_a, N, lane);  // dS^T Q
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (j0 + r >= N) continue;
-      float* row = rows_dq + static_cast<long>(j0 + r) * 3 * D;
-      store_lane_columns<HD>(row + D, dk[r], scale, lane);
-      store_lane_columns<HD>(row + 2 * D, dv[r], 1.0f, lane);
-    }
-    __syncwarp();
-  }
-
-  if (part == nullptr) return;
-  // This head's columns of dqkv summed over the image's rows in row order:
-  // the block's own writes, visible to it after the barrier.
-  __syncthreads();
-  for (int c = threadIdx.x; c < 3 * HD; c += blockDim.x) {
-    const int col = (c / HD) * D + h * HD + c % HD;
-    const float* src = dqkv + static_cast<long>(b) * N * 3 * D + col;
-    float total = 0.0f;
-    for (int i = 0; i < N; ++i) total += src[static_cast<long>(i) * 3 * D];
-    part[static_cast<long>(b) * 3 * D + col] = total;
+    if (part != nullptr)
+      for (int c = threadIdx.x; c < 2 * HD; c += kThreads)
+        part[(part_row + kt) * head.stride + (1 + c / HD) * D + h * HD + c % HD] = 0.0f;
   }
 }
 
 template <int HD>
-cudaError_t launch_fwd(const float* qkv, const float* bias, float* out, int B, int N, int H,
-                       int n_valid, float scale, cudaStream_t stream) {
+cudaError_t launch_fwd(const float* qkv, const float* bias, float* out, float* lse, int B, int N,
+                       int H, int n_valid, float scale, cudaStream_t stream) {
+  constexpr int bytes = fwd_smem_bytes<HD>();
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = allow_dynamic_smem(qkv_attention_f32_fwd_kernel<HD>,
-                                       sizeof(float) * fwd_smem_floats<HD>(kMaxTokens), configured);
+  cudaError_t err = allow_dynamic_smem(qkv_attention_f32_fwd_kernel<HD>, bytes, configured);
   if (err != cudaSuccess) return err;
-  qkv_attention_f32_fwd_kernel<HD><<<dim3(H, B), 32 * kWarps,
-                                     sizeof(float) * fwd_smem_floats<HD>(N), stream>>>(
-      qkv, bias, out, N, H, n_valid, scale);
+  qkv_attention_f32_fwd_kernel<HD><<<dim3((N + kTile - 1) / kTile, H, B), kThreads, bytes,
+                                     stream>>>(qkv, bias, out, lse, N, H, n_valid, scale);
   return cudaGetLastError();
 }
 
 template <int HD>
-cudaError_t launch_bwd(const float* qkv, const float* bias, const float* dout, float* dqkv,
-                       float* part, float* dbias, int B, int N, int H, int n_valid, float scale,
+cudaError_t launch_bwd(const float* qkv, const float* bias, const float* dout, float* out,
+                       float* lse, float* delta, float* dqkv, float* part, float* dbias, int B,
+                       int N, int H, int n_valid, float scale, bool forward_first,
                        cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (forward_first) {
+    err = launch_fwd<HD>(qkv, bias, out, lse, B, N, H, n_valid, scale, stream);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int bytes = bwd_smem_bytes<HD>();
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = allow_dynamic_smem(qkv_attention_f32_bwd_kernel<HD>,
-                                       sizeof(float) * bwd_smem_floats<HD>(kMaxTokens), configured);
+  err = allow_dynamic_smem(qkv_attention_f32_bwd_kernel<HD>, bytes, configured);
   if (err != cudaSuccess) return err;
-  const bool with_bias = bias != nullptr;
-  qkv_attention_f32_bwd_kernel<HD><<<dim3(H, B), 32 * kWarps,
-                                     sizeof(float) * bwd_smem_floats<HD>(N), stream>>>(
-      qkv, bias, dout, dqkv, with_bias ? part : nullptr, N, H, n_valid, scale);
+  const long rows = static_cast<long>(B) * H * N;
+  constexpr int kRowsPerBlock = kThreads / kGroups;
+  qkv_attention_f32_delta_kernel<HD>
+      <<<static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock), kThreads, 0,
+         stream>>>(out, dout, delta, rows, N, H);
   err = cudaGetLastError();
-  if (err != cudaSuccess || !with_bias) return err;
-  return launch_column_sum<32>(part, B, 3 * H * HD, dbias, stream);
+  if (err != cudaSuccess) return err;
+  qkv_attention_f32_bwd_kernel<HD><<<dim3(1, H, B), kThreads, bytes, stream>>>(
+      qkv, bias, lse, delta, dout, dqkv, bias != nullptr ? part : nullptr, N, H, n_valid, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || bias == nullptr) return err;
+  return launch_column_sum<32>(part, B * ((N + kTile - 1) / kTile), 3 * H * HD, dbias, stream);
+}
+
+bool shape_ok(int B, int N, int H, int n_valid) {
+  return B >= 1 && B <= 65535 && H >= 1 && H <= 65535 && N >= 1 && n_valid >= 1 && n_valid <= N;
 }
 
 }  // namespace
 
 // qkv: (B, N, 3*H*hd) fp32; bias: (3*H*hd,) fp32 or null; out: (B, N, H*hd)
-// fp32.  hd 32 or 64; 1 <= n_valid <= N <= 256; scale: the fp32 1/sqrt(hd).
+// fp32; lse: (B, H, N) fp32, each row's log-sum-exp for the backward, or
+// null.  hd 32 or 64; 1 <= n_valid <= N; scale: the fp32 1/sqrt(hd).
 // Returns the launch's CUDA error.
 extern "C" int ssl4polyp_qkv_attention_fwd_f32(const void* qkv, const void* bias, void* out,
-                                               int B, int N, int H, int head_dim, int n_valid,
-                                               float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || N > kMaxTokens || n_valid < 1 || n_valid > N)
-    return static_cast<int>(cudaErrorInvalidValue);
+                                               void* lse, int B, int N, int H, int head_dim,
+                                               int n_valid, float scale, void* stream) {
+  if (!shape_ok(B, N, H, n_valid)) return static_cast<int>(cudaErrorInvalidValue);
   const float* q = static_cast<const float*>(qkv);
   const float* bb = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
+  float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return static_cast<int>(launch_fwd<32>(q, bb, o, B, N, H, n_valid, scale, s));
-    case 64: return static_cast<int>(launch_fwd<64>(q, bb, o, B, N, H, n_valid, scale, s));
+    case 32: return static_cast<int>(launch_fwd<32>(q, bb, o, l, B, N, H, n_valid, scale, s));
+    case 64: return static_cast<int>(launch_fwd<64>(q, bb, o, l, B, N, H, n_valid, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// qkv: (B, N, 3*H*hd) fp32; bias: (3*H*hd,) fp32 or null; dout: (B, N, H*hd)
-// fp32; dqkv: (B, N, 3*H*hd) fp32.  With a bias, dbias_part is (B, 3*H*hd)
-// fp32 scratch and dbias (3*H*hd,) fp32 receives the bias gradient (the sum
-// of dqkv over every row).  hd 32 or 64; 1 <= n_valid <= N <= 256; scale:
-// the fp32 1/sqrt(hd), folded into q and applied to dQ and dK.  Returns the
-// first failing launch's CUDA error.
+// qkv, bias as for the forward; dout: (B, N, H*hd) fp32; out (B, N, H*hd)
+// and lse (B, H, N) fp32: the forward's output and log-sum-exp, or with
+// forward_first scratch that the forward kernel fills first; delta: (B, H,
+// N) fp32 scratch; dqkv: (B, N, 3*H*hd) fp32.  With a bias, dbias_part is
+// (part_rows, 3*H*hd) fp32 scratch, part_rows = B * ceil(N / 64), and dbias
+// (3*H*hd,) fp32 receives the bias gradient (the sum of dqkv over every
+// row).  hd 32 or 64; 1 <= n_valid <= N; scale: the fp32 1/sqrt(hd), folded
+// into q and applied to dQ and dK.  Returns the first failing launch's CUDA
+// error.
 extern "C" int ssl4polyp_qkv_attention_bwd_f32(const void* qkv, const void* bias,
-                                               const void* dout, void* dqkv, void* dbias_part,
-                                               void* dbias, int B, int N, int H, int head_dim,
-                                               int n_valid, float scale, void* stream) {
-  if (B < 1 || H < 1 || N < 1 || N > kMaxTokens || n_valid < 1 || n_valid > N)
+                                               const void* dout, void* out, void* lse,
+                                               void* delta, void* dqkv, void* dbias_part,
+                                               void* dbias, int part_rows, int B, int N, int H,
+                                               int head_dim, int n_valid, float scale,
+                                               int forward_first, void* stream) {
+  if (!shape_ok(B, N, H, n_valid) || out == nullptr || lse == nullptr || delta == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (bias != nullptr && (dbias_part == nullptr || dbias == nullptr))
+  if (bias != nullptr && (dbias_part == nullptr || dbias == nullptr ||
+                          part_rows != B * ((N + kTile - 1) / kTile)))
     return static_cast<int>(cudaErrorInvalidValue);
   const float* q = static_cast<const float*>(qkv);
   const float* bb = static_cast<const float*>(bias);
   const float* d = static_cast<const float*>(dout);
+  float* o = static_cast<float*>(out);
+  float* l = static_cast<float*>(lse);
+  float* dl = static_cast<float*>(delta);
   float* dq = static_cast<float*>(dqkv);
   float* part = static_cast<float*>(dbias_part);
   float* db = static_cast<float*>(dbias);
+  const bool first = forward_first != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return static_cast<int>(launch_bwd<32>(q, bb, d, dq, part, db, B, N, H, n_valid,
-                                                    scale, s));
-    case 64: return static_cast<int>(launch_bwd<64>(q, bb, d, dq, part, db, B, N, H, n_valid,
-                                                    scale, s));
+    case 32: return static_cast<int>(launch_bwd<32>(q, bb, d, o, l, dl, dq, part, db, B, N, H,
+                                                    n_valid, scale, first, s));
+    case 64: return static_cast<int>(launch_bwd<64>(q, bb, d, o, l, dl, dq, part, db, B, N, H,
+                                                    n_valid, scale, first, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

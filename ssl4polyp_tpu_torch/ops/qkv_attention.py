@@ -4,8 +4,10 @@ Counterpart of ``ssl4polyp_tpu/ops/qkv_attention.py``: one CUDA kernel per
 direction (``csrc/qkv_attention.cu``) covers both ``fused_qkv_attention``
 and, through its ``bias`` argument, ``fused_qkv_bias_attention``, in bf16;
 fp32 tensors (the runs that compute in fp32) take the fp32 kernels of
-``csrc/qkv_attention_f32.cu``, with launch counts of their own.  The
-backward recomputes the weights: nothing but qkv (and the bias) is saved.
+``csrc/qkv_attention_f32.cu``, with launch counts of their own.  The bf16
+backward recomputes the weights from qkv (and the bias) alone; the fp32
+backward also reads the forward's output and each row's log-sum-exp, which
+the fp32 forward writes when a backward will follow.
 
 A tensor on the CPU goes through the plain torch versions,
 :func:`fused_qkv_attention_reference` and
@@ -45,7 +47,8 @@ backward_launches_f32 = 0
 
 _HEAD_DIMS = (16, 32, 64)
 _HEAD_DIMS_F32 = (32, 64)  # the fp32 kernels' instantiations
-_MAX_TOKENS = 256
+_MAX_TOKENS = 256  # the bf16 kernels'; the fp32 kernels take any N
+_F32_TILE = 64  # csrc/qkv_attention_f32.cu's kTile: rows of the dbias scratch
 
 
 @functools.lru_cache(maxsize=None)
@@ -152,12 +155,13 @@ def _check(qkv, num_heads, valid_len, bias) -> None:
     D = three_d // 3
     if D % num_heads or D // num_heads not in _HEAD_DIMS:
         raise ValueError(f"head dim {D / num_heads} not in {_HEAD_DIMS}")
-    if not 1 <= N <= _MAX_TOKENS:
-        raise ValueError(f"the kernel takes 1..{_MAX_TOKENS} tokens, got {N}")
-    if valid_len is not None and not 1 <= valid_len <= N:
-        raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernels take bfloat16 or float32, got {qkv.dtype}")
+    if N < 1 or (qkv.dtype == torch.bfloat16 and N > _MAX_TOKENS):
+        raise ValueError(f"the bf16 kernel takes 1..{_MAX_TOKENS} tokens (the fp32 kernel any "
+                         f"number), got {N}")
+    if valid_len is not None and not 1 <= valid_len <= N:
+        raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if qkv.dtype == torch.float32 and D // num_heads not in _HEAD_DIMS_F32:
         raise ValueError(f"the fp32 kernels take head dims {_HEAD_DIMS_F32}, got "
                          f"{D // num_heads}")
@@ -173,33 +177,40 @@ def _check(qkv, num_heads, valid_len, bias) -> None:
         )
 
 
-def _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias):
+def _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias, lse: bool = False):
     """The forward kernel of qkv's dtype.  In fp32 ``softmax_f32`` changes
-    nothing: the scores are fp32 either way, as in the plain version."""
+    nothing: the scores are fp32 either way, as in the plain version.  With
+    ``lse`` (fp32 only) it returns ``(out, lse)``: lse (B, H, N) fp32 holds
+    each row's log-sum-exp, which the fp32 backward reads."""
     from ._build import library
 
     global launches, launches_f32
     B, N, three_d = qkv.shape
     D = three_d // 3
     head_dim = D // num_heads
-    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
-    args = (qkv.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr(),
-            B, N, num_heads, head_dim, N if valid_len is None else int(valid_len),
-            _scale(head_dim, qkv.dtype))
     f32 = qkv.dtype == torch.float32
+    if lse and not f32:
+        raise ValueError("only the fp32 forward kernel writes the log-sum-exp")
+    out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    stats = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device) if lse else None
+    pointers = (qkv.data_ptr(), None if bias is None else bias.data_ptr(), out.data_ptr())
+    shape = (B, N, num_heads, head_dim, N if valid_len is None else int(valid_len),
+             _scale(head_dim, qkv.dtype))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         if f32:
-            err = library().ssl4polyp_qkv_attention_fwd_f32(*args, stream)
+            err = library().ssl4polyp_qkv_attention_fwd_f32(
+                *pointers, None if stats is None else stats.data_ptr(), *shape, stream)
         else:
-            err = library().ssl4polyp_qkv_attention_fwd(*args, int(bool(softmax_f32)), stream)
+            err = library().ssl4polyp_qkv_attention_fwd(*pointers, *shape,
+                                                        int(bool(softmax_f32)), stream)
     if err:
         raise RuntimeError(f"qkv_attention kernel launch failed: CUDA error {err}")
     if f32:
         launches_f32 += 1
     else:
         launches += 1
-    return out
+    return (out, stats) if lse else out
 
 
 # The backward kernel's paths (csrc/qkv_attention.cu): "stored dS" up to 208
@@ -232,12 +243,16 @@ def backward_plan(num_tokens: int, head_dim: int) -> dict:
 
 
 def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: int = 0,
-                     scaled_ds: bool = False):
+                     scaled_ds: bool = False, out=None, lse=None):
     """The backward kernel of qkv's dtype.  ``probe`` (0 on every path) is a
     measurement aid: the ``PROBE_*`` bits above.  ``scaled_ds``: the scale
     where ``attention_block.py`` puts it (as the plain version's argument;
     head dims 32 and 64), the mode ``fused_qkvproj_attention``'s backward
-    runs.  The fp32 kernel has neither (``ValueError``)."""
+    runs.  The fp32 kernel has neither (``ValueError``).  ``out`` and
+    ``lse``: the fp32 forward's output and log-sum-exp (``_forward_kernel``
+    with ``lse``), as the autograd path hands them over; without them the
+    fp32 backward's launch runs the forward kernel into scratch first.  The
+    bf16 kernel takes neither."""
     from ._build import library
 
     global backward_launches, backward_launches_f32
@@ -245,24 +260,40 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
     f32 = qkv.dtype == torch.float32
     if f32 and (probe or scaled_ds):
         raise ValueError("the fp32 backward kernel has no probe bits and no scaled_ds mode")
+    if (out is None) != (lse is None) or (not f32 and out is not None):
+        raise ValueError("out and lse go together, to the fp32 backward kernel only")
     B, N, three_d = qkv.shape
     head_dim = three_d // 3 // num_heads
+    forward_first = f32 and out is None
+    if forward_first:
+        out = torch.empty((B, N, three_d // 3), dtype=torch.float32, device=qkv.device)
+        lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
+    elif f32:
+        check_gradient("out", out, (B, N, three_d // 3), torch.float32, qkv.device)
+        check_gradient("lse", lse, (B, num_heads, N), torch.float32, qkv.device)
     dqkv = torch.empty_like(qkv)
     part = dbias = None
     if bias is not None:
-        part = torch.empty((B, three_d), dtype=torch.float32, device=qkv.device)
+        rows = B * -(-N // _F32_TILE) if f32 else B
+        part = torch.empty((rows, three_d), dtype=torch.float32, device=qkv.device)
         dbias = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
-    args = (qkv.data_ptr(), None if bias is None else bias.data_ptr(), dout.data_ptr(),
-            dqkv.data_ptr(), None if part is None else part.data_ptr(),
-            None if dbias is None else dbias.data_ptr(), B, N, num_heads, head_dim,
-            N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype))
+    bias_ptr = None if bias is None else bias.data_ptr()
+    part_ptr = None if part is None else part.data_ptr()
+    dbias_ptr = None if dbias is None else dbias.data_ptr()
+    shape = (B, N, num_heads, head_dim, N if valid_len is None else int(valid_len),
+             _scale(head_dim, qkv.dtype))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
         if f32:  # one scale, the fp32 1/sqrt(hd), folds into q and scales dQ and dK
-            err = library().ssl4polyp_qkv_attention_bwd_f32(*args, stream)
+            delta = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
+            err = library().ssl4polyp_qkv_attention_bwd_f32(
+                qkv.data_ptr(), bias_ptr, dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                delta.data_ptr(), dqkv.data_ptr(), part_ptr, dbias_ptr,
+                0 if part is None else part.shape[0], *shape, int(forward_first), stream)
         else:
             err = library().ssl4polyp_qkv_attention_bwd_mode(
-                *args, 1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), int(bool(scaled_ds)),
+                qkv.data_ptr(), bias_ptr, dout.data_ptr(), dqkv.data_ptr(), part_ptr, dbias_ptr,
+                *shape, 1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), int(bool(scaled_ds)),
                 probe, stream)
     if err:
         raise RuntimeError(f"qkv_attention backward kernel launch failed: CUDA error {err}")
@@ -274,21 +305,35 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
 
 
 class _QKVAttention(torch.autograd.Function):
-    """The kernels (``plain`` False) or the plain versions (``plain`` True)."""
+    """The kernels (``plain`` False) or the plain versions (``plain`` True).
+    The fp32 kernels' backward also takes the forward's output (the tensor
+    the projection keeps anyway, saved without a copy) and log-sum-exp."""
 
     @staticmethod
     def forward(ctx, qkv, bias, num_heads, softmax_f32, valid_len, plain):
-        ctx.save_for_backward(qkv, bias)
         ctx.args = (num_heads, softmax_f32, valid_len)
         ctx.plain = plain
-        run = fused_qkv_attention_reference if plain else _forward_kernel
-        return run(qkv, num_heads, softmax_f32, valid_len, bias)
+        saved = ()
+        if plain:
+            out = fused_qkv_attention_reference(qkv, num_heads, softmax_f32, valid_len, bias)
+        elif qkv.dtype == torch.float32 and any(ctx.needs_input_grad[:2]):
+            out, lse = _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias, lse=True)
+            saved = (out, lse)
+        else:
+            out = _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias)
+        ctx.save_for_backward(qkv, bias, *saved)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        qkv, bias = ctx.saved_tensors
-        run = fused_qkv_attention_backward_reference if ctx.plain else _backward_kernel
-        dqkv, dbias = run(qkv, dout.contiguous(), *ctx.args, bias)
+        qkv, bias, *saved = ctx.saved_tensors
+        if ctx.plain:
+            dqkv, dbias = fused_qkv_attention_backward_reference(qkv, dout.contiguous(),
+                                                                 *ctx.args, bias)
+        else:
+            out, lse = saved or (None, None)
+            dqkv, dbias = _backward_kernel(qkv, dout.contiguous(), *ctx.args, bias, out=out,
+                                           lse=lse)
         return dqkv, dbias, None, None, None, None
 
 

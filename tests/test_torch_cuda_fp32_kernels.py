@@ -46,6 +46,8 @@ def _assert_close(got, want, frac, what):
         (3, 50, 12, 64, None, False),   # the MAE encoder's
         (2, 1, 4, 64, None, True),
         (2, 256, 4, 32, 255, False),
+        (2, 577, 12, 64, 500, True),    # ViT-B/16 at 384 px, past the bf16 kernels' 256
+        (2, 300, 16, 32, None, False),
     ],
 )
 def test_attention_kernels_match_plain(gen, B, N, H, hd, valid_len, with_bias):
@@ -71,6 +73,37 @@ def test_attention_kernels_match_plain(gen, B, N, H, hd, valid_len, with_bias):
     again = qkv_attention._backward_kernel(qkv.detach(), dout, H, True, valid_len,
                                            None if bias is None else bias.detach())
     assert torch.equal(again[0], qkv.grad)  # no atomics
+    if with_bias:
+        assert torch.equal(again[1], bias.grad)
+
+
+# The tiles' edges (64 query rows and 64 keys a tile): rows and keys one
+# short of, at and one past a tile, key tiles that end at valid_len.
+@pytest.mark.parametrize("N, valid_len", [(63, None), (64, None), (65, 64), (128, 65),
+                                          (129, 1), (193, 128), (200, 63)])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_attention_kernels_at_tile_edges(gen, N, valid_len, hd):
+    H, with_bias = 3, N % 2 == 1
+    qkv = _randn(gen, 2, N, 3 * H * hd)
+    bias = _randn(gen, 3 * H * hd, scale=0.5) if with_bias else None
+    dout = _randn(gen, 2, N, H * hd)
+    out, lse = qkv_attention._forward_kernel(qkv, H, True, valid_len, bias, lse=True)
+    dqkv, dbias = qkv_attention._backward_kernel(qkv, dout, H, True, valid_len, bias, out=out,
+                                                 lse=lse)
+    torch.cuda.synchronize()
+    _assert_close(out, qkv_attention.fused_qkv_attention_reference(qkv, H, True, valid_len, bias),
+                  FWD_FRAC, "out")
+    ref_dqkv, ref_dbias = qkv_attention.fused_qkv_attention_backward_reference(
+        qkv, dout, H, True, valid_len, bias)
+    _assert_close(dqkv, ref_dqkv, GRAD_FRAC, "dqkv")
+    if with_bias:
+        _assert_close(dbias, ref_dbias, GRAD_FRAC, "dbias")
+    # Each row's log-sum-exp over its weighted keys, from the plain scores.
+    x = qkv if bias is None else qkv + bias
+    q, k, _ = x.reshape(2, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    scores = torch.matmul(q * qkv_attention._scale(hd, torch.float32), k.transpose(-1, -2))
+    want = torch.logsumexp(scores[..., :valid_len or N], dim=-1)
+    _assert_close(lse, want, FWD_FRAC, "lse")
 
 
 @pytest.mark.parametrize("M, K, NF", [(12608, 768, 3072), (3200, 512, 2048), (37, 64, 24),

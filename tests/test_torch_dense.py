@@ -20,7 +20,8 @@ from ssl4polyp_tpu.models import dpt as jax_dpt
 from ssl4polyp_tpu.models import factory as jax_factory
 from ssl4polyp_tpu.models import vit as jax_vit
 from ssl4polyp_tpu_torch.models import factory
-from ssl4polyp_tpu_torch.models.dpt import DPT, DPTConfig, TAP_BLOCKS, dpt_forward, resize_bilinear
+from ssl4polyp_tpu_torch.models.dpt import (DPT, Conv, DPTConfig, TAP_BLOCKS, dpt_forward,
+                                            resize_bilinear)
 from ssl4polyp_tpu_torch.models.weights import (
     dpt_state_dict_from_jax,
     jax_from_dpt_state_dict,
@@ -226,3 +227,30 @@ def test_dense_classifier_from_a_weight_file_and_through_make_forward_fn(tmp_pat
     assert all(torch.isfinite(g).all() for g in grads.values() if g is not None)
     assert grads["dpt.head.conv2.weight"].abs().sum() > 0
     assert grads["encoder.blocks.2.mlp.fc1.weight"].abs().sum() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_dense_convolutions_run_fp32_without_tf32(monkeypatch, dtype):
+    """cuDNN would run an fp32 convolution in TF32 under its default
+    ``allow_tf32``; every conv of an fp32 dense forward turns the flag off for
+    its own call and restores it.  A bf16 forward leaves the flag alone."""
+    import torch.nn.functional as F
+
+    seen, conv2d = [], F.conv2d
+
+    def recording_conv2d(*args, **kwargs):
+        seen.append(torch.backends.cudnn.allow_tf32)
+        return conv2d(*args, **kwargs)
+
+    monkeypatch.setattr(F, "conv2d", recording_conv2d)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # a fresh process's setting
+    _, ours = dense_pair("project", dtype)
+    images = np.random.default_rng(11).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    with torch.inference_mode():
+        ours.model(torch.from_numpy(images))
+    # Every conv of the decoder but the deepest fusion stage's first residual
+    # unit, which is built but never run (as in the JAX decoder).
+    convs = sum(isinstance(m, Conv) for m in ours.model.modules())
+    assert len(seen) == convs - 2 > 0
+    assert set(seen) == ({False} if dtype == torch.float32 else {True})
+    assert torch.backends.cudnn.allow_tf32 is True

@@ -6,14 +6,16 @@ fc1+GELU and LayerNorm forward and backward.  Here:
 
 * the plain fp32 versions those kernels are held to on the card, against the
   JAX Pallas kernels in interpret mode at the shapes the kernels must cover
-  (1, 50, 197 and 256 tokens, head dims 32 and 64, the MAE's and ViT-B's
-  widths); the fp32 cases of ``test_torch_qkv_attention.py`` (N 21-37) are
-  not repeated;
+  (1, 50, 197, 256 and 300 tokens, head dims 32 and 64, the MAE's and
+  ViT-B's widths); the fp32 cases of ``test_torch_qkv_attention.py`` (N
+  21-37) are not repeated;
 * the wrappers' checks on CPU tensors: fp32 and bf16 accepted, mixed dtypes
   refused, and the wrappers whose fp32 kernel is not yet ported refusing
   fp32 with the ROADMAP.md item that lists it; with a stub library, that an
   fp32 tensor reaches the ``_f32`` entry points and counters (nothing is
-  built or launched);
+  built or launched), that the fp32 attention takes any token count where
+  bf16 stops at 256, and that its autograd hands the backward the forward's
+  output and log-sum-exp;
 * the precision settings of both train steps giving the JAX package's fp32
   configurations.
 
@@ -64,7 +66,8 @@ def _assert_close(ours, ref, tol, what):
 
 
 # Token counts at the fp32 kernels' edges: one token, the MAE encoder's 50,
-# the classifier's and the decoder's 197, the largest the kernels take.
+# the classifier's and the decoder's 197, 256 (the bf16 kernels' largest),
+# and 300, past it (the fp32 kernels take any N).
 ATTENTION_CASES = [
     (1, 64, None, True),
     (1, 32, None, False),
@@ -74,6 +77,8 @@ ATTENTION_CASES = [
     (197, 32, None, False),
     (256, 64, 255, False),
     (256, 32, 200, True),
+    (300, 32, 280, True),
+    (300, 64, None, False),
 ]
 
 
@@ -250,10 +255,12 @@ def test_bf16_only_wrappers_refuse_fp32_naming_the_roadmap_item(index):
 
 
 class _StubLibrary:
-    """Records which entry point each launch reached; launches nothing."""
+    """Records which entry point each launch reached, and its arguments;
+    launches nothing."""
 
     def __init__(self):
         self.called = []
+        self.args = []
 
     def __getattr__(self, name):
         if not name.startswith("ssl4polyp_"):
@@ -261,6 +268,7 @@ class _StubLibrary:
 
         def entry(*args):
             self.called.append(name)
+            self.args.append(args)
             return 4 if name.startswith("ssl4polyp_layernorm_bwd_blocks") else 0
         return entry
 
@@ -310,6 +318,52 @@ def test_fp32_backward_has_no_probe_and_no_scaled_ds_mode(stub):
         with pytest.raises(ValueError, match="fp32 backward"):
             qkv_attention._backward_kernel(qkv, dout, 1, True, None, None, **kwargs)
     assert stub.called == []
+
+
+def test_fp32_attention_takes_any_token_count_and_bf16_stops_at_256(stub):
+    H, hd = 12, 64
+    qkv, bias = _t((1, 577, 3 * H * hd)), _t(3 * H * hd)
+    qkv_attention._check(qkv, H, 500, bias)
+    qkv_attention._forward_kernel(qkv, H, True, 500, bias)
+    qkv_attention._backward_kernel(qkv, _t((1, 577, H * hd)), H, True, 500, bias)
+    assert stub.called == ["ssl4polyp_qkv_attention_fwd_f32", "ssl4polyp_qkv_attention_bwd_f32"]
+    # (..., B, N, H, hd, n_valid, scale, stream): the forward's shape, then
+    # the backward's with B * ceil(577 / 64) rows of dbias scratch first.
+    assert stub.args[0][4:9] == (1, 577, H, hd, 500)
+    assert stub.args[1][9:15] == (10, 1, 577, H, hd, 500)
+    qkv_attention._check(_t((1, 256, 3 * H * hd), torch.bfloat16), H, None, None)
+    with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
+        qkv_attention._check(_t((1, 257, 3 * H * hd), torch.bfloat16), H, None, None)
+    with pytest.raises(ValueError):
+        qkv_attention._check(_t((1, 0, 3 * H * hd)), H, None, None)
+
+
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+def test_fp32_autograd_hands_the_backward_the_forward_output_and_lse(stub, with_bias):
+    B, N, H, hd = 2, 9, 2, 64
+    qkv = _t((B, N, 3 * H * hd)).requires_grad_()
+    bias = _t(3 * H * hd).requires_grad_() if with_bias else None
+    out = qkv_attention._QKVAttention.apply(qkv, bias, H, True, 7, False)
+    out.backward(torch.ones_like(out))
+    assert stub.called == ["ssl4polyp_qkv_attention_fwd_f32", "ssl4polyp_qkv_attention_bwd_f32"]
+    fwd, bwd = stub.args
+    # The forward wrote out and lse; the backward reads those same tensors
+    # (dout, out, lse: arguments 2-4) and runs no forward of its own.
+    assert fwd[2] == out.data_ptr() and fwd[3] is not None
+    assert bwd[3] == fwd[2] and bwd[4] == fwd[3] and bwd[-2] == 0
+    assert (bwd[8] is not None) == with_bias  # dbias
+    counts = ops.launch_counts()
+    assert counts["fused_qkv_attention_f32"] == counts["fused_qkv_attention_backward_f32"] == 1
+    # Without a backward to follow (no input requires grad, as in the eval
+    # forward), no log-sum-exp is written.
+    with torch.inference_mode():
+        qkv_attention._QKVAttention.apply(qkv.detach(), None if bias is None else bias.detach(),
+                                          H, True, 7, False)
+    assert stub.args[-1][3] is None
+    # From (qkv, dout) alone, the backward's one launch runs the forward first.
+    qkv_attention._backward_kernel(qkv.detach(), torch.ones_like(out), H, True, 7,
+                                   None if bias is None else bias.detach())
+    assert stub.called[-1] == "ssl4polyp_qkv_attention_bwd_f32" and stub.args[-1][-2] == 1
 
 
 # The precision settings of both train steps.
