@@ -9,7 +9,7 @@ seed-trio sweep through the port's scripts with its report, the
 fine-tune engine as two data-parallel ranks, the native JPEG decoder
 under the eval CLI and the pretraining engine on frames of SUN's size, and
 the fp32 runs (``amp: false``, ``PretrainSettings.precision = "fp32"``) on
-their own kernels, on one NVIDIA GPU.
+their own kernels, the fusion knobs' included, on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -75,7 +75,14 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    plain versions', the one PyTorch call's in fp32 (SDPA, with the keys'
    mask where ``valid_len`` cuts them, and its backward, ``F.linear`` +
    ``F.gelu``, ``F.layer_norm`` and its backward) and the bound at 67
-   TFLOP/s fp32 or 3.35 TB/s.
+   TFLOP/s fp32 or 3.35 TB/s.  Then the fusion knobs' fp32 kernels: the
+   fused MLP and the fused LN+MLP (h written and not) at ViT-B's and the
+   MAE decoder's widths over 12,608 rows and at 37 rows with a last NF
+   chunk of 32 and of 96 columns, and LN+QKV at both widths, at 37 rows of
+   64 and at K 576, each within 2e-5 of max |plain| and rerun
+   bit-identical, timed beside the plain versions, the fp32 chains of
+   PyTorch calls (``F.layer_norm``, ``F.linear``, ``F.gelu``; no one call
+   computes either function) and the fp32 bound.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -282,15 +289,23 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    steps, the eval forward in fp32 (logits within 1e-4 of max |plain|,
    images/s over 20 requests), the dense ViT-B/16 + DPT forward in fp32 at
    batch 2 bit-equal under torch's default cuDNN TF32 setting and under
-   this script's (its convolutions turn TF32 off for their own calls), the
+   this script's (its convolutions turn TF32 off for their own calls), and
+   its gradients bit-equal under both (the convolutions' backward turns
+   TF32 off too; cuDNN's deterministic mode on for both runs), the
    MAE ViT-B/16 pretrain step under
    ``PretrainSettings(precision="fp32")`` (the fine-tune step's checks), a
    fine-tune engine run of ``config/exp/exp1.yaml``'s ``sup_imnet`` arm
    with ``amp=false`` (an fp32 classifier from an AugReg ``.npz``, 2 steps,
    1 val and 1 test batch) and the eval CLI's ``evaluate`` on its best
    checkpoint with ``compute_dtype`` fp32 (tau and the test metrics within
-   1e-6 of the run's).  Every path's launches exact: the fp32 kernels, the
-   AdamW kernel, and no bf16 kernel.
+   1e-6 of the run's).  Under the fusion knobs, the fine-tune step's checks
+   again under ``mlp_fusion="full"`` and under ``"full_ln"`` with
+   ``qkv_ln_fusion``, the pretrain step's under ``"full_ln"`` with
+   ``qkv_ln_fusion`` (the decoder's 8 blocks on the fused kernels, the
+   encoder's 50 tokens on the default route) and the engine run again with
+   ``mlp_fusion`` "full" given to its ``build_classifier``.  Every path's
+   launches exact: the fp32 kernels, the AdamW kernel, and no bf16 kernel.
+   The script's own wall time is printed before the two result lines.
 
 The last two lines of standard output are a JSON summary of the kernels and
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero,
@@ -301,6 +316,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import hashlib
 import io
 import json
@@ -1611,6 +1627,99 @@ def fp32_kernels(gen: torch.Generator) -> dict[str, dict]:
     report["layernorm_backward_f32"] = entry(
         "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:226", max(e[1] for e in bwd_errors),
         *bwd_times["classifier"][:2], **ln_bwd_cost(m, d), library_ms=bwd_times["classifier"][2])
+    report.update(fp32_fusion_kernels(randn))
+    return report
+
+
+def fp32_fusion_kernels(randn) -> dict[str, dict]:
+    """The fusion knobs' fp32 kernels: the fused MLP and the fused LN+MLP (h
+    written, as under a backward, and not, as in an eval forward) and LN+QKV,
+    against their plain fp32 versions at the classifier's and the MAE
+    decoder's widths over 12,608 rows and at ragged edges, each rerun
+    bit-identical; their times beside the plain versions', their unfused
+    fp32 chains of PyTorch calls (no one call computes either function) and
+    the bound at the fp32 rate.  Errors are relative to max |plain|."""
+    eps = 1e-6
+    report = {}
+
+    def fused_cost(m, k, nf, write_h, with_ln):  # x, W1, b1, W2, b2 (s, t) in; out (h) out
+        return dict(bytes_moved=4 * (2 * m * k + 2 * nf * k + nf + k + (2 * k if with_ln else 0)
+                                     + (m * nf if write_h else 0)),
+                    flops=4 * m * k * nf, peak=FP32_FLOPS)
+
+    for name, with_ln, line in (("mlp_fused_f32", False, 243), ("mlp_ln_fused_f32", True, 375)):
+        errors, times = [], {}
+        for shape, m, k, nf, write_h in [("classifier", BATCH * 197, 768, 3072, True),
+                                         ("classifier, no h", BATCH * 197, 768, 3072, False),
+                                         ("MAE decoder", BATCH * 197, 512, 2048, True),
+                                         (None, 37, 768, 160, True), (None, 37, 512, 96, False)]:
+            x = randn(m, k)
+            s, t = (1.0 + 0.1 * randn(k), 0.1 * randn(k)) if with_ln else (None, None)
+            w1, b1 = randn(nf, k, scale=k ** -0.5), randn(nf, scale=0.5)
+            w2, b2 = randn(k, nf, scale=nf ** -0.5), randn(k, scale=0.5)
+            run = lambda: mlp._fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h)  # noqa: E731
+            plain = lambda: mlp._mlp_forward_plain(x, s, t, w1, b1, w2, b2, eps)  # noqa: E731
+
+            def chain():
+                a = x if s is None else F.layer_norm(x, (k,), s, t, eps)
+                out = F.linear(F.gelu(F.linear(a, w1, b1)), w2, b2)
+                return out if s is None else x + out
+
+            (h, out), (h2, out2) = run(), run()
+            torch.cuda.synchronize()
+            what = f"fp32 {name[:-4]} ({m}, {k}) -> {nf} -> {k}, h written: {write_h}"
+            ref_h, ref_out = plain()
+            errors.append(max_relative_error(out, ref_out, FP32_FWD_FRAC, f"{what}: out"))
+            text = f"{what}: out {errors[-1][0]:.3e}"
+            if write_h:
+                errors.append(max_relative_error(h, ref_h, FP32_FWD_FRAC, f"{what}: h"))
+                text += f", h {errors[-1][0]:.3e}"
+            if not torch.equal(out, out2) or (write_h and not torch.equal(h, h2)):
+                fail(f"{what}: two runs gave different bits")
+            print(text + f" of max |plain| (limit {FP32_FWD_FRAC}); rerun bit-identical")
+            if shape is None:
+                continue
+            times[shape] = time_ms(run), time_ms(plain), time_ms(chain)
+            print(f"  {shape}'s shape: kernel {times[shape][0]:.4f} ms, plain "
+                  f"{times[shape][1]:.4f} ms, fp32 chain ({'F.layer_norm + ' if with_ln else ''}"
+                  f"F.linear + F.gelu + F.linear{' + x' if with_ln else ''}) "
+                  f"{times[shape][2]:.4f} ms, "
+                  f"{bound_text(**fused_cost(m, k, nf, write_h, with_ln))}; {CARD}")
+        report[name] = entry(
+            "mlp_fused_f32.cu", f"ssl4polyp_tpu/ops/mlp.py:{line}", max(e[1] for e in errors),
+            *times["classifier"][:2], **fused_cost(BATCH * 197, 768, 3072, True, with_ln))
+
+    def ln_linear_cost(m, k, n):  # x, s, t, W, b in; out out
+        return dict(bytes_moved=4 * (m * k + 2 * k + n * k + n + m * n), flops=2 * m * k * n,
+                    peak=FP32_FLOPS)
+
+    errors, times = [], {}
+    for shape, m, k, n in [("classifier", BATCH * 197, 768, 2304),
+                           ("MAE decoder", BATCH * 197, 512, 1536), (None, 37, 64, 24),
+                           (None, 130, 576, 136)]:
+        x = 2.0 * randn(m, k) + 0.5
+        s, t = 1.0 + 0.1 * randn(k), 0.1 * randn(k)
+        w, b = randn(n, k, scale=k ** -0.5), randn(n, scale=0.5)
+        run = lambda: ln_linear._kernel(x, s, t, w, b, eps)  # noqa: E731
+        plain = lambda: ln_linear.ln_linear_reference(x, s, t, w, b, eps)  # noqa: E731
+        chain = lambda: F.linear(F.layer_norm(x, (k,), s, t, eps), w, b)  # noqa: E731
+        out, out2 = run(), run()
+        torch.cuda.synchronize()
+        what = f"fp32 ln_linear ({m}, {k}) -> {n}"
+        errors.append(max_relative_error(out, plain(), FP32_FWD_FRAC, what))
+        if not torch.equal(out, out2):
+            fail(f"{what}: two runs gave different bits")
+        print(f"{what}: {errors[-1][0]:.3e} of max |plain| (limit {FP32_FWD_FRAC}); rerun "
+              f"bit-identical")
+        if shape is None:
+            continue
+        times[shape] = time_ms(run), time_ms(plain), time_ms(chain)
+        print(f"  {shape}'s shape: kernel {times[shape][0]:.4f} ms, plain {times[shape][1]:.4f} "
+              f"ms, fp32 chain (F.layer_norm + F.linear) {times[shape][2]:.4f} ms, "
+              f"{bound_text(**ln_linear_cost(m, k, n))}; {CARD}")
+    report["ln_linear_f32"] = entry(
+        "ln_linear_f32.cu", "ssl4polyp_tpu/ops/ln_linear.py:63", max(e[1] for e in errors),
+        *times["classifier"][:2], **ln_linear_cost(BATCH * 197, 768, 2304))
     return report
 
 
@@ -4372,6 +4481,14 @@ FP32_ENGINE_LIMIT = {"train": 2, "val": 1, "test": 1}  # batches of 64, one epoc
 FP32_LOSS_RTOL = 1e-5
 FP32_STEP_GRAD_RTOL = 1e-4
 FP32_LOGITS_FRAC = 1e-4
+# The fine-tune step's fusion-knob configurations in fp32: (label, model
+# overrides, the fp32 kernels that take the MLP's and the QKV's place, one
+# launch a block and step).
+FP32_KNOB_CONFIGS = (
+    ("full", {"mlp_fusion": "full"}, ("mlp_fused_f32",)),
+    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True},
+     ("mlp_ln_fused_f32", "ln_linear_f32")),
+)
 
 
 def fp32_adamw(gen: torch.Generator, params: dict[str, torch.Tensor]) -> None:
@@ -4485,6 +4602,47 @@ def phase_fp32() -> dict[str, int]:
     fp32_adamw(torch.Generator(device="cuda").manual_seed(SEED), state.params)
     del state, ctx, step
 
+    # The fine-tune step under the fusion knobs, on their fp32 kernels: the
+    # fused MLP, or the fused LN+MLP with LN+QKV (whose backwards recompute
+    # the normalised row and take the LayerNorm backward on the LayerNorm
+    # kernels, so the LayerNorm counts stay).
+    unfused = {name: n for name, n in per_ft_step.items() if name != "fc1_gelu_f32"}
+    for label, overrides, fused in FP32_KNOB_CONFIGS:
+        what = f"fp32 fine-tune [{label}]"
+
+        def knob_classifier():
+            return get_imagenet_or_random_vit(
+                torch.Generator().manual_seed(SEED), jax_params=tree, num_classes=2,
+                device="cuda", compute_dtype=f32, **overrides)
+
+        def knob_state():
+            return init_train_state(knob_classifier(),
+                                    torch.Generator(device="cuda").manual_seed(SEED))
+
+        knob = knob_classifier()
+        routes = {(b.mlp_route, b.qkv_ln) for b in knob.model.blocks}
+        if routes != {(overrides["mlp_fusion"], overrides.get("qkv_ln_fusion", False))}:
+            fail(f"{what}: the blocks' routes are {routes}")
+        ctx = step_context(knob, loss_mode, pos_weight, class_weights, FT_WEIGHT_DECAY)
+        step = make_train_step(ctx)
+        state = init_train_state(knob, torch.Generator(device="cuda").manual_seed(SEED))
+        loss, grads = loss_and_grads(ctx, state, batches[0], labels[0], valid, aug)
+        with plain_kernels():
+            plain_loss, plain_grads = loss_and_grads(ctx, state, batches[0], labels[0], valid,
+                                                     aug)
+        check_step_one(loss, grads, plain_loss, plain_grads, FP32_LOSS_RTOL, FP32_STEP_GRAD_RTOL,
+                       what)
+        del grads, plain_grads
+        check_run_to_run_bits(
+            knob_state, lambda st, i: step(st, batches[i], labels[i], valid, FT_LR, full, wd), f32,
+            steps=2, what=what)
+        calls = iter(range(10 ** 6))
+        timed(lambda: step(state, batches[next(calls) % 2], labels[0], valid, FT_LR, full, wd),
+              f"{what} steps (ViT-B/16)", {**unfused, **{n: depth for n in fused}})
+        if not all(torch.isfinite(p).all() for p in state.params.values()):
+            fail(f"{what}: non-finite parameters after the steps")
+        del state, ctx, step, knob
+
     # The eval forward.
     forward = make_forward_fn(classifier, "cuda")()
     requests = [rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8) for _ in range(2)]
@@ -4535,7 +4693,42 @@ def phase_fp32() -> dict[str, int]:
              f"{flag_kept}")
     print("fp32 dense forward (ViT-B/16 taps -> DPT, batch 2): logits bit-equal under torch's "
           "default cudnn.allow_tf32 (True) and under this script's (False)")
-    del dense, dense_forward
+    # Its gradients too: autograd runs each convolution's backward after the
+    # forward has returned, under whatever the flag says then.  cuDNN's
+    # deterministic mode holds for both runs, so that only TF32 could part
+    # them.
+    params = dict(dense.model.named_parameters())
+    dense_input = torch.from_numpy(dense_images).cuda().float() / 255.0
+    runs, flags = [], []
+    deterministic = torch.backends.cudnn.deterministic
+    ops.reset_launch_counts()
+    try:
+        torch.backends.cudnn.deterministic = True
+        for defaults in (True, False):
+            with torch_defaults() if defaults else contextlib.nullcontext():
+                dense.model.zero_grad(set_to_none=True)
+                dense.model(dense_input).square().mean().backward()
+                torch.cuda.synchronize()
+                flags.append(torch.backends.cudnn.allow_tf32)
+            runs.append({n: p.grad.clone() for n, p in params.items() if p.grad is not None})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    counts = ops.launch_counts()
+    check_counts(counts, {"fused_qkv_attention_f32": depth, "layernorm_f32": 2 * depth,
+                          "fc1_gelu_f32": depth, "fused_qkv_attention_backward_f32": depth,
+                          "layernorm_backward_f32": 2 * depth}, 2,
+                 "two fp32 dense forwards and backwards")
+    add(counts)
+    wrong = [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])]
+    if flags != [True, False] or wrong or runs[0].keys() != runs[1].keys() or not any(
+            n.startswith("dpt.") for n in runs[0]):
+        fail(f"fp32 dense: the gradients of {wrong[:5]} differ under torch's default "
+             f"cudnn.allow_tf32 and under this script's, or the backward changed the flag "
+             f"({flags})")
+    print(f"fp32 dense backward (batch 2): all {len(runs[0])} gradients bit-equal under torch's "
+          f"default cudnn.allow_tf32 (True) and under this script's (False); the backward left "
+          f"the flag as it found it")
+    del dense, dense_forward, runs
 
     # The pretrain step.
     settings = PretrainSettings(batch_size=BATCH, precision="fp32")
@@ -4583,12 +4776,59 @@ def phase_fp32() -> dict[str, int]:
         fail("fp32 pretrain: non-finite parameters after the steps")
     del state
 
+    # The pretrain step under full_ln + qkv_ln_fusion: the decoder's 8 blocks
+    # (197 tokens, counted as padded to 200, width 512) on the fused LN+MLP
+    # and LN+QKV kernels; the encoder's 50 tokens keep the default route, as
+    # in the JAX package.
+    what = "fp32 pretrain [full_ln+qkv_ln]"
+    knob_cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, mlp_fusion="full_ln", qkv_ln_fusion=True))
+    knob_step = make_pretrain_step(knob_cfg, 1, settings.weight_decay)
+
+    def knob_mae_state():
+        model = MAE(knob_cfg, torch.Generator().manual_seed(SEED))
+        model.load_state_dict(mae_state_dict_from_jax(mae_tree, knob_cfg))
+        return init_pretrain_state(model.cuda())
+
+    with projection_fold(False):
+        state = knob_mae_state()
+    routes = ({(b.mlp_route, b.qkv_ln) for b in state.model.blocks},
+              {(b.mlp_route, b.qkv_ln) for b in state.model.decoder_blocks})
+    if routes != ({("fc1", False)}, {("full_ln", True)}):
+        fail(f"{what}: the encoder's and the decoder's routes are {routes}")
+    loss, grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    with plain_kernels():
+        plain_loss, plain_grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    check_step_one(loss, grads, plain_loss, plain_grads, FP32_LOSS_RTOL, FP32_STEP_GRAD_RTOL,
+                   what)
+    del grads, plain_grads
+    check_run_to_run_bits(knob_mae_state,
+                          lambda st, i: knob_step(st, images[i], noise[i], schedule(i)), f32,
+                          steps=2, what=what)
+    calls = iter(range(10 ** 6))
+
+    def knob_pretrain_call():
+        i = next(calls)
+        knob_step(state, images[i % 2], noise[i % 2], schedule(i % 20))
+
+    timed(knob_pretrain_call, f"{what} steps (MAE ViT-B/16)", {
+        "fused_qkv_attention_f32": enc_depth + dec_depth,
+        "fused_qkv_attention_backward_f32": enc_depth + dec_depth,
+        "layernorm_f32": 2 * (enc_depth + dec_depth) + 2,
+        "layernorm_backward_f32": 2 * (enc_depth + dec_depth) + 2,
+        "fc1_gelu_f32": enc_depth, "ln_linear_f32": dec_depth, "mlp_ln_fused_f32": dec_depth,
+        "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH)})
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        fail(f"{what}: non-finite parameters after the steps")
+    del state
+
     # The fine-tune engine with amp: false, then the eval CLI in fp32.
     built: list = []
     build = engine.build_classifier
+    knobs: dict = {}  # model overrides the engine's build takes on (the second run's)
 
     def recording_build(*args, **kwargs):
-        built.append(build(*args, **kwargs))
+        built.append(build(*args, **kwargs, **knobs))
         return built[-1]
 
     with tempfile.TemporaryDirectory() as tmp, projection_fold(False), \
@@ -4603,17 +4843,21 @@ def phase_fp32() -> dict[str, int]:
                          np.random.default_rng(SEED + 1))
         print(f"fp32 engine: wrote a sun_full pack of {FP32_ENGINE_FRAMES} frames and an AugReg "
               f".npz in {time.perf_counter() - start:.1f} s")
+
+        def engine_run(name: str) -> dict:
+            return engine.cli_main([
+                "--exp-config", "config/exp/exp1.yaml", "--model-key", "sup_imnet", "--seed",
+                "13", "--pack-root", str(packs), "--checkpoint-root", str(root),
+                "--thresholds-root", str(tmp / f"th_{name}"), "--output-dir", str(tmp / name),
+                "--device", "cuda", "--override", "amp=false", "--override", "epochs=1",
+                "--override", f"batch_size={BATCH}",
+                "--limit-train-batches", str(FP32_ENGINE_LIMIT["train"]),
+                "--limit-val-batches", str(FP32_ENGINE_LIMIT["val"]),
+                "--limit-test-batches", str(FP32_ENGINE_LIMIT["test"])])
+
         ops.reset_launch_counts()
         start = time.perf_counter()
-        summary = engine.cli_main([
-            "--exp-config", "config/exp/exp1.yaml", "--model-key", "sup_imnet", "--seed", "13",
-            "--pack-root", str(packs), "--checkpoint-root", str(root),
-            "--thresholds-root", str(tmp / "th"), "--output-dir", str(tmp / "run"),
-            "--device", "cuda", "--override", "amp=false", "--override", "epochs=1",
-            "--override", f"batch_size={BATCH}",
-            "--limit-train-batches", str(FP32_ENGINE_LIMIT["train"]),
-            "--limit-val-batches", str(FP32_ENGINE_LIMIT["val"]),
-            "--limit-test-batches", str(FP32_ENGINE_LIMIT["test"])])
+        summary = engine_run("run")
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         counts = ops.launch_counts()
@@ -4650,6 +4894,33 @@ def phase_fp32() -> dict[str, int]:
               f"batches in {wall:.1f} s (build {summary['timings']['build_s']:.1f} s), loss "
               f"{payload['train_loss']:.6f}; the eval CLI in fp32 on {best.name}: tau "
               f"{cli['tau']} and {len(shared)} test metrics within 1e-6 of the run's")
+
+        # The same run under mlp_fusion "full" (the engine's build_classifier
+        # given the model override, as the JAX engine has no flag for it).
+        knobs["mlp_fusion"] = "full"
+        ops.reset_launch_counts()
+        start = time.perf_counter()
+        summary = engine_run("run_full")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        counts = ops.launch_counts()
+        add(counts)
+        fused = {"mlp_fused_f32": depth}
+        per_step = {**{n: c for n, c in per_ft_step.items() if n != "fc1_gelu_f32"}, **fused}
+        per_batch = {**{n: c for n, c in per_eval.items() if n != "fc1_gelu_f32"}, **fused}
+        check_counts(counts, {name: steps * per_step.get(name, 0) + evals * per_batch.get(name, 0)
+                              for name in counts}, 1,
+                     f"the fp32 engine run's {steps} steps and {evals} eval batches under "
+                     f"mlp_fusion full")
+        if len(built) != 2 or built[1].cfg.compute_dtype != f32 or {
+                b.mlp_route for b in built[1].model.blocks} != {"full"}:
+            fail("fp32 engine under mlp_fusion full: the classifier is not fp32 on the fused MLP")
+        payload = summary["payload"]
+        if summary["epochs_run"] != 1 or not np.isfinite(payload["train_loss"]):
+            fail(f"fp32 engine under mlp_fusion full: {summary['epochs_run']} epochs, loss "
+                 f"{payload['train_loss']}")
+        print(f"fp32 engine under mlp_fusion full: {steps} steps and {evals} eval batches in "
+              f"{wall:.1f} s, loss {payload['train_loss']:.6f}")
     print(f"fp32 phase {time.perf_counter() - phase_start:.1f} s; {CARD}")
     return total
 
@@ -4688,6 +4959,7 @@ def main() -> None:
                         help="run as one rank of phase 13, as torch.distributed.run starts it "
                              "(SPEC: the phase's JSON file of arguments)")
     args = parser.parse_args()
+    script_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on the card")
     global TORCH_DEFAULTS
@@ -4741,6 +5013,8 @@ def main() -> None:
         fail(f"no path launched {missing}")
     kernels = [{"name": name, **fields, "launches": counts[name]}
                for name, fields in report.items()]
+    print(f"chip_smoke.py wall {time.perf_counter() - script_start:.1f} s, the kernels' build "
+          f"included; {CARD}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

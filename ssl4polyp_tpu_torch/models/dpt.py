@@ -29,6 +29,7 @@ contracted in one ``einsum``.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
@@ -55,9 +56,47 @@ class DPTConfig:
     readout: str = "ignore"  # "ignore" | "add" | "project"
 
 
+@contextlib.contextmanager
+def _without_tf32():
+    """cuDNN's TF32 off for the duration, the process's setting restored.
+    cuDNN runs an fp32 convolution in TF32 (about three decimal digits) while
+    ``torch.backends.cudnn.allow_tf32`` is True, as it is in a fresh process;
+    the JAX decoder's convolutions are fp32."""
+    allowed = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = allowed
+
+
+class _Fp32Conv(torch.autograd.Function):
+    """A SAME-padded stride-1 fp32 convolution whose forward and backward both
+    run without TF32.  Autograd runs a backward later than its forward, under
+    whatever the flag says then, so the backward sets the flag itself."""
+
+    @staticmethod
+    def forward(ctx, x, weight, padding: int):
+        ctx.save_for_backward(x, weight)
+        ctx.padding = padding
+        with _without_tf32():
+            return F.conv2d(x, weight, padding=padding)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        pad = ctx.padding
+        with _without_tf32():
+            dx, dweight, _ = torch.ops.aten.convolution_backward(
+                grad, x, weight, None, [1, 1], [pad, pad], [1, 1], False, [0, 0], 1,
+                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+        return dx, dweight, None
+
+
 class Conv(nn.Module):
     """A SAME-padded stride-1 conv, initialised as the JAX ``_conv_init``:
-    uniform in ±sqrt(6 / (kh·kw·cin + cout)), zero bias."""
+    uniform in ±sqrt(6 / (kh·kw·cin + cout)), zero bias.  In fp32 the
+    convolution and its gradients run without TF32 (:class:`_Fp32Conv`)."""
 
     def __init__(self, kh: int, kw: int, cin: int, cout: int, generator: torch.Generator):
         super().__init__()
@@ -70,16 +109,7 @@ class Conv(nn.Module):
         if x.dtype != torch.float32:
             out = F.conv2d(x, weight, padding=padding)
         else:
-            # cuDNN runs an fp32 convolution in TF32 (about three decimal
-            # digits) while torch.backends.cudnn.allow_tf32 is True, as it is
-            # in a fresh process; the JAX decoder's convolutions are fp32.
-            # Off for this call only: the process's setting stays as it was.
-            allowed = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-            try:
-                out = F.conv2d(x, weight, padding=padding)
-            finally:
-                torch.backends.cudnn.allow_tf32 = allowed
+            out = _Fp32Conv.apply(x, weight, padding)
         return out + self.bias.to(x.dtype)[:, None, None]
 
 

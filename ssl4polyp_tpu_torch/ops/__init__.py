@@ -34,6 +34,10 @@ _COUNTERS = {
     "layernorm_f32": (layernorm, "launches_f32"),
     "layernorm_backward_f32": (layernorm, "backward_launches_f32"),
     "fc1_gelu_f32": (mlp, "launches_f32"),
+    # The fp32 kernels of the fusion knobs.
+    "mlp_fused_f32": (mlp, "fused_launches_f32"),
+    "mlp_ln_fused_f32": (mlp, "ln_fused_launches_f32"),
+    "ln_linear_f32": (ln_linear, "launches_f32"),
 }
 
 

@@ -67,6 +67,10 @@ _ENTRY_POINTS = (
      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_mlp_fused_probe", ctypes.c_int,
      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_mlp_fused_fwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_ln_linear_fwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_ln_linear_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_ln_linear_probe", ctypes.c_int,

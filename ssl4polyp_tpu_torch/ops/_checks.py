@@ -22,12 +22,20 @@ def check_gradient(name: str, grad: torch.Tensor, shape, dtype: torch.dtype,
         raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {device}")
 
 
-# Where ROADMAP.md lists the fp32 kernels still to port: the fusion knobs'
-# kernels (mlp_fused, mlp_ln_fused, ln_linear, fused_attention_proj), then
-# the two public functions no model route calls (fused_qkvproj_attention,
-# fused_attention).
+# Where ROADMAP.md lists the fp32 kernels still to port: fused_attention_proj,
+# the last of the fusion knobs' kernels, then the two public functions no
+# model route calls (fused_qkvproj_attention, fused_attention).
 FP32_FUSION_KNOBS = "ROADMAP.md §2a, item 1"
 FP32_PUBLIC_FUNCTIONS = "ROADMAP.md §2a, item 2"
+
+
+def check_one_dtype(tensors) -> None:
+    """Refuses with ``TypeError`` operands that are not all bfloat16 or all
+    float32: a kernel of each dtype takes them."""
+    dtypes = [t.dtype for t in tensors]
+    if dtypes[0] not in (torch.bfloat16, torch.float32) or any(d != dtypes[0] for d in dtypes):
+        raise TypeError(f"the kernels take bfloat16 or float32 operands of one dtype, got "
+                        f"{dtypes}")
 
 
 def check_bf16(name: str, dtype: torch.dtype, roadmap_item: str) -> None:

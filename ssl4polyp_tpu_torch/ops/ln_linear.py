@@ -1,9 +1,10 @@
 """LayerNorm folded into the linear that follows it, differentiable.
 
 Counterpart of ``ssl4polyp_tpu/ops/ln_linear.py::ln_linear``; the CUDA
-kernel is ``csrc/ln_linear.cu``.  ``LN(x) . w^T + b`` on (M, K) rows: fp32
-statistics, the normalised row rounded once to the compute dtype, the
-product accumulated in fp32, the bias added in fp32, one rounding.  Weights
+kernels are ``csrc/ln_linear.cu`` (bf16) and ``csrc/ln_linear_f32.cu``
+(fp32, for the runs that compute in fp32).  ``LN(x) . w^T + b`` on (M, K)
+rows: fp32 statistics, the normalised row rounded once to the compute dtype,
+the product accumulated in fp32, the bias added in fp32, one rounding.  Weights
 are in torch's (out, in) layout; the LayerNorm affine is fp32.  The backward,
 :func:`ln_linear_backward`, takes the JAX ``_bwd``'s steps, which the JAX
 package leaves to XLA: its products are cuBLAS's, and on the kernel path its
@@ -23,10 +24,11 @@ from __future__ import annotations
 import torch
 
 from . import layernorm
-from ._checks import FP32_FUSION_KNOBS, check_bf16
+from ._checks import check_one_dtype
 
 __all__ = [
     "launches",
+    "launches_f32",
     "layernorm_backward",
     "ln_linear",
     "ln_linear_backward",
@@ -35,11 +37,12 @@ __all__ = [
     "normalised_row",
 ]
 
-# Kernel launches since the last ops.reset_launch_counts().
+# Kernel launches since the last ops.reset_launch_counts(), in bf16 and in fp32.
 launches = 0
+launches_f32 = 0
 
 _MAX_K = 768  # s and t, and the first design's rows, live in shared memory (csrc/ln_linear.cu)
-# `probe` bits of the kernel, a measurement aid (0 on every path;
+# `probe` bits of the bf16 kernel, a measurement aid (0 on every path;
 # chip_smoke.py times the kernel with parts left out, whose results are
 # wrong): no normalisation (x straight into the products), no statistics
 # launch, the bare epilogue (no bias); the tile width the shape rule did not
@@ -119,13 +122,11 @@ def _check(x, s, t, w, b) -> None:
     if k % 64 or k > _MAX_K or n % 8 or m < 1:
         raise ValueError(f"the kernel takes K a multiple of 64 up to {_MAX_K} and N a multiple "
                          f"of 8, got K {k}, N {n}")
-    for name, tensor, dtype in (("x", x, torch.bfloat16), ("w", w, torch.bfloat16),
-                                ("b", b, torch.bfloat16), ("s", s, torch.float32),
-                                ("t", t, torch.float32)):
-        if dtype == torch.bfloat16:
-            check_bf16(name, tensor.dtype, FP32_FUSION_KNOBS)
-        elif tensor.dtype != dtype:
-            raise TypeError(f"the kernel takes a {dtype} {name}, got {tensor.dtype}")
+    check_one_dtype((x, w, b))
+    for name, tensor in (("s", s), ("t", t)):
+        if tensor.dtype != torch.float32:
+            raise TypeError(f"the kernel takes a {torch.float32} {name}, got {tensor.dtype}")
+    for name, tensor in (("x", x), ("w", w), ("b", b), ("s", s), ("t", t)):
         if tensor.device != x.device:
             raise ValueError(f"tensors on {x.device} and {tensor.device}")
         if not tensor.is_contiguous() or tensor.data_ptr() % 16:
@@ -133,25 +134,36 @@ def _check(x, s, t, w, b) -> None:
 
 
 def _kernel(x, s, t, w, b, eps, probe: int = 0):
-    """The CUDA kernel: a statistics launch into a (M, 2) fp32 scratch, then
-    the GEMM that normalises its x stages with them.  ``probe`` (0 on every
-    path) is a measurement aid: the ``PROBE_*`` bits above."""
+    """The CUDA kernel of x's dtype, bf16 (``ln_linear.cu``) or fp32
+    (``ln_linear_f32.cu``): a statistics launch into a (M, 2) fp32 scratch,
+    then the GEMM that normalises its x stages with them.  ``probe`` (0 on
+    every path) is a measurement aid of the bf16 kernel: the ``PROBE_*``
+    bits above."""
     from ._build import library
 
-    global launches
+    global launches, launches_f32
+    f32 = x.dtype == torch.float32
+    if f32 and probe:
+        raise ValueError("the fp32 ln_linear kernel takes no probe bits")
     m, k = x.shape
     n = w.shape[0]
     stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    lib = library()
+    args = [x.data_ptr(), s.data_ptr(), t.data_ptr(), w.data_ptr(), b.data_ptr(),
+            stats.data_ptr(), out.data_ptr(), m, k, n, eps]
     with torch.cuda.device(x.device):
-        err = library().ssl4polyp_ln_linear_probe(
-            x.data_ptr(), s.data_ptr(), t.data_ptr(), w.data_ptr(), b.data_ptr(),
-            stats.data_ptr(), out.data_ptr(), m, k, n, eps, probe,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if f32:
+            err = lib.ssl4polyp_ln_linear_fwd_f32(*args, stream)
+        else:
+            err = lib.ssl4polyp_ln_linear_probe(*args, probe, stream)
     if err:
         raise RuntimeError(f"ln_linear kernel launch failed: CUDA error {err}")
-    launches += 1
+    if f32:
+        launches_f32 += 1
+    else:
+        launches += 1
     return out
 
 
@@ -174,7 +186,8 @@ class _LnLinear(torch.autograd.Function):
 def ln_linear(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor, w: torch.Tensor,
               b: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """``layernorm(x; s, t) . w^T + b`` for 2-D ``x``, differentiable in every
-    tensor.  The kernel takes bf16 x, w and b with fp32 s and t."""
+    tensor.  On the card x, w and b are all bfloat16 or all float32, each
+    dtype with its own kernel, and s and t are fp32."""
     if x.device.type == "cpu":
         return ln_linear_plain(x, s, t, w, b, eps)
     if x.device.type != "cuda":

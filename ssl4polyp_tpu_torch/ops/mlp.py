@@ -4,9 +4,9 @@ Counterparts of ``ssl4polyp_tpu/ops/mlp.py``: ``fc1_gelu`` (the first
 linear with its exact-erf GELU), ``mlp_fused`` (fc1 + GELU + fc2 in one
 kernel, gelu(h) never in HBM) and ``mlp_ln_fused`` (the pre-norm block's
 second half, ``x + mlp(LN(x))``, in one kernel).  The CUDA kernels are in
-``csrc/mlp.cu``, and fc1+GELU's fp32 kernel, for the runs that compute in
-fp32, in ``csrc/fc1_gelu_f32.cu``; the fused kernels take bf16 only.
-Weights are in torch's (out, in) layout.  When a gradient
+``csrc/mlp.cu``, and their fp32 kernels, for the runs that compute in
+fp32, in ``csrc/fc1_gelu_f32.cu`` and ``csrc/mlp_fused_f32.cu`` (both fused
+MLPs).  Weights are in torch's (out, in) layout.  When a gradient
 is needed, each forward also writes the pre-activation h (the JAX kernels'
 residual), and the backwards (:func:`fc1_gelu_backward`,
 :func:`mlp_fused_backward`, :func:`mlp_ln_fused_backward`) take the JAX
@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ._checks import FP32_FUSION_KNOBS, check_bf16
+from ._checks import check_one_dtype
 from .ln_linear import layernorm_backward, normalised_row
 
 __all__ = [
@@ -37,9 +37,11 @@ __all__ = [
     "fc1_gelu_plain",
     "fc1_gelu_reference",
     "fused_launches",
+    "fused_launches_f32",
     "launches",
     "launches_f32",
     "ln_fused_launches",
+    "ln_fused_launches_f32",
     "mlp_fused",
     "mlp_fused_backward",
     "mlp_fused_plain",
@@ -50,16 +52,18 @@ __all__ = [
     "mlp_ln_fused_reference",
 ]
 
-# Kernel launches since the last ops.reset_launch_counts(): fc1+GELU in bf16
-# and in fp32, the fused MLP and the fused LN+MLP.
+# Kernel launches since the last ops.reset_launch_counts(): fc1+GELU, the
+# fused MLP and the fused LN+MLP, each in bf16 and in fp32.
 launches = 0
 launches_f32 = 0
 fused_launches = 0
+fused_launches_f32 = 0
 ln_fused_launches = 0
+ln_fused_launches_f32 = 0
 
 _FUSED_K = (512, 768)  # the fused kernel's instantiations: the MAE decoder's and ViT-B's widths
-_FUSED_TILE = 32  # NF is a multiple of this (the kernel walks NF in chunks of 64, the last may be half)
-# `probe` bits of the fused kernel, a measurement aid (0 on every path;
+_FUSED_TILE = 32  # NF is a multiple of this (the kernels walk NF in chunks of 64 (bf16) or 128 (fp32))
+# `probe` bits of the bf16 fused kernel, a measurement aid (0 on every path;
 # chip_smoke.py times the kernel with parts left out, whose results are
 # wrong): no fc2 products, no fc1 epilogue (bias, GELU, h and g), no fc1
 # products, no W loads; clusters of 4 blocks or of 1 (no multicast of W;
@@ -112,11 +116,8 @@ def _check(x, w, b) -> None:
                          f"b {tuple(b.shape)}")
     if k % 8 or nf % 8 or m < 1:
         raise ValueError(f"the kernel takes K and NF that are multiples of 8, got {k}, {nf}")
+    check_one_dtype(tensors)
     for t in tensors:
-        # One kernel a dtype: x, w and b all bf16, or all fp32.
-        if t.dtype not in (torch.bfloat16, torch.float32) or t.dtype != x.dtype:
-            raise TypeError(f"the kernels take bfloat16 or float32 operands of one dtype, got "
-                            f"{[u.dtype for u in tensors]}")
         if t.device != x.device:
             raise ValueError(f"tensors on {x.device} and {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:
@@ -266,18 +267,17 @@ def _check_fused(x, s, t, w1, b1, w2, b2) -> None:
     if k not in _FUSED_K or nf % _FUSED_TILE or m < 1:
         raise ValueError(f"the fused kernel takes K in {_FUSED_K} and NF a multiple of "
                          f"{_FUSED_TILE}, got K {k}, NF {nf}")
-    named = [("x", x, torch.bfloat16), ("w1", w1, torch.bfloat16), ("b1", b1, torch.bfloat16),
-             ("w2", w2, torch.bfloat16), ("b2", b2, torch.bfloat16)]
+    check_one_dtype((x, w1, b1, w2, b2))
+    named = [("x", x), ("w1", w1), ("b1", b1), ("w2", w2), ("b2", b2)]
     if s is not None:
         if s.shape != (k,) or t.shape != (k,):
             raise ValueError(f"the LayerNorm affine must be ({k},), got {tuple(s.shape)}, "
                              f"{tuple(t.shape)}")
-        named += [("s", s, torch.float32), ("t", t, torch.float32)]
-    for name, tensor, dtype in named:
-        if dtype == torch.bfloat16:
-            check_bf16(name, tensor.dtype, FP32_FUSION_KNOBS)
-        elif tensor.dtype != dtype:
-            raise TypeError(f"the kernel takes a {dtype} {name}, got {tensor.dtype}")
+        for name, tensor in (("s", s), ("t", t)):
+            if tensor.dtype != torch.float32:
+                raise TypeError(f"the kernel takes a {torch.float32} {name}, got {tensor.dtype}")
+        named += [("s", s), ("t", t)]
+    for name, tensor in named:
         if tensor.device != x.device:
             raise ValueError(f"tensors on {x.device} and {tensor.device}")
         if not tensor.is_contiguous() or tensor.data_ptr() % 16:
@@ -285,27 +285,38 @@ def _check_fused(x, s, t, w1, b1, w2, b2) -> None:
 
 
 def _fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h: bool, probe: int = 0):
-    """(h or None, out) from the CUDA kernel; the LN variant when ``s`` is
-    given.  ``probe`` (0 on every path) is a measurement aid: the
+    """(h or None, out) from the CUDA kernel of x's dtype: bf16 (``mlp.cu``)
+    or fp32 (``mlp_fused_f32.cu``); the LN variant when ``s`` is given.
+    ``probe`` (0 on every path) is a measurement aid of the bf16 kernel: the
     ``FUSED_PROBE_*`` bits above."""
     from ._build import library
 
-    global fused_launches, ln_fused_launches
+    global fused_launches, ln_fused_launches, fused_launches_f32, ln_fused_launches_f32
+    f32 = x.dtype == torch.float32
+    if f32 and probe:
+        raise ValueError("the fp32 fused kernel takes no probe bits")
     m, k = x.shape
     nf = w1.shape[0]
     out = torch.empty_like(x)
     h = torch.empty((m, nf), dtype=x.dtype, device=x.device) if write_h else None
-    with torch.cuda.device(x.device):
-        err = library().ssl4polyp_mlp_fused_probe(
-            x.data_ptr(), None if s is None else s.data_ptr(), None if t is None else t.data_ptr(),
+    lib = library()
+    args = [x.data_ptr(), None if s is None else s.data_ptr(), None if t is None else t.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-            None if h is None else h.data_ptr(), out.data_ptr(), m, k, nf, eps, probe,
-            torch.cuda.current_stream().cuda_stream,
-        )
+            None if h is None else h.data_ptr(), out.data_ptr(), m, k, nf, eps]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if f32:
+            err = lib.ssl4polyp_mlp_fused_fwd_f32(*args, stream)
+        else:
+            err = lib.ssl4polyp_mlp_fused_probe(*args, probe, stream)
     if err:
         raise RuntimeError(f"fused MLP kernel launch failed: CUDA error {err}")
-    if s is None:
+    if s is None and f32:
+        fused_launches_f32 += 1
+    elif s is None:
         fused_launches += 1
+    elif f32:
+        ln_fused_launches_f32 += 1
     else:
         ln_fused_launches += 1
     return h, out
@@ -360,7 +371,9 @@ def mlp_fused(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Ten
               b2: torch.Tensor) -> torch.Tensor:
     """``gelu(x.w1^T + b1).w2^T + b2`` for 2-D ``x`` in one kernel: fp32
     accumulation, gelu(h) rounded to the compute dtype on chip, one rounding
-    of the output; differentiable in every tensor."""
+    of the output; differentiable in every tensor.  On the card x, the
+    weights and biases are all bfloat16 or all float32, each dtype with its
+    own kernel."""
     if not _device_check(x):
         return mlp_fused_plain(x, w1, b1, w2, b2)
     _check_fused(x, None, None, w1, b1, w2, b2)
@@ -381,7 +394,7 @@ def mlp_ln_fused(x: torch.Tensor, s: torch.Tensor, t: torch.Tensor, w1: torch.Te
                  eps: float = 1e-6) -> torch.Tensor:
     """``x + gelu(LN(x; s, t).w1^T + b1).w2^T + b2`` for 2-D ``x`` in one
     kernel, the block's residual included; differentiable in every tensor.
-    ``s`` and ``t`` are fp32."""
+    ``s`` and ``t`` are fp32; the rest all bfloat16 or all float32."""
     if not _device_check(x):
         return mlp_ln_fused_plain(x, s, t, w1, b1, w2, b2, eps)
     _check_fused(x, s, t, w1, b1, w2, b2)

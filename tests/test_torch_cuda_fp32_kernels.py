@@ -144,15 +144,129 @@ def test_layernorm_kernels_match_plain(gen, M, D):
         _assert_close(a, r, GRAD_FRAC, name)
 
 
+# The fused MLPs in fp32 (csrc/mlp_fused_f32.cu): ViT-B's and the MAE
+# decoder's widths at the classifier's 12608 rows, then ragged row blocks
+# (M 37) with a last NF chunk of 32 and of 96 columns.
+@pytest.mark.parametrize("M, K, NF", [(12608, 768, 3072), (12608, 512, 2048), (37, 768, 160),
+                                      (37, 512, 96)])
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+@torch.inference_mode()
+def test_fused_mlp_kernels_match_plain(gen, M, K, NF, with_ln):
+    x = _randn(gen, M, K, scale=2.0) + 0.5
+    w1, b1 = _randn(gen, NF, K, scale=K ** -0.5), _randn(gen, NF, scale=0.5)
+    w2, b2 = _randn(gen, K, NF, scale=NF ** -0.5), _randn(gen, K, scale=0.5)
+    s, t = (1.0 + 0.1 * _randn(gen, K), 0.1 * _randn(gen, K)) if with_ln else (None, None)
+    eps = 1e-6 if with_ln else 0.0
+    ops.reset_launch_counts()
+    h, out = mlp._fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h=True)
+    h2, out2 = mlp._fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h=True)
+    no_h, out_alone = mlp._fused_kernel(x, s, t, w1, b1, w2, b2, eps, write_h=False)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    name = "mlp_ln_fused" if with_ln else "mlp_fused"
+    assert counts[name + "_f32"] == 3 and sum(counts.values()) == 3
+    ref_h, ref = mlp._mlp_forward_plain(x, s, t, w1, b1, w2, b2, eps)
+    _assert_close(out, ref, FWD_FRAC, "out")
+    _assert_close(h, ref_h, FWD_FRAC, "h")
+    assert no_h is None
+    assert torch.equal(out, out2) and torch.equal(h, h2) and torch.equal(out, out_alone)
+
+
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+def test_fused_mlp_wrappers_train_in_fp32(gen, with_ln):
+    """The public wrappers on the card in fp32: the kernel forward saving h,
+    then the backward's cuBLAS products (TF32 off) and, for the LN variant,
+    the fp32 LayerNorm kernels; every gradient against the plain version's."""
+    M, K, NF = 394, 768, 3072
+    x = _randn(gen, M, K)
+    leaves = [x, _randn(gen, NF, K, scale=K ** -0.5), _randn(gen, NF, scale=0.5),
+              _randn(gen, K, NF, scale=NF ** -0.5), _randn(gen, K, scale=0.5)]
+    if with_ln:
+        leaves[1:1] = [1.0 + 0.1 * _randn(gen, K), 0.1 * _randn(gen, K)]
+    dy = _randn(gen, M, K)
+    ours = [t.clone().requires_grad_() for t in leaves]
+    plain = [t.clone().requires_grad_() for t in leaves]
+    run, run_plain = ((mlp.mlp_ln_fused, mlp.mlp_ln_fused_plain) if with_ln
+                      else (mlp.mlp_fused, mlp.mlp_fused_plain))
+    ops.reset_launch_counts()
+    out = run(*ours)
+    out.backward(dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    name = "mlp_ln_fused_f32" if with_ln else "mlp_fused_f32"
+    # The LN variant's backward: the normalised row again, then its backward.
+    want = {name: 1, "layernorm_f32": 1, "layernorm_backward_f32": 1} if with_ln else {name: 1}
+    assert {n: c for n, c in counts.items() if c} == want
+    ref = run_plain(*plain)
+    ref.backward(dy)
+    _assert_close(out.detach(), ref.detach(), FWD_FRAC, "out")
+    for i, (a, b) in enumerate(zip(ours, plain)):
+        _assert_close(a.grad, b.grad, GRAD_FRAC, f"gradient {i}")
+
+
+# LN+QKV in fp32 (csrc/ln_linear_f32.cu): ViT-B's and the MAE decoder's QKV
+# at 12608 rows, then ragged tiles (M 37, N 24) and K 576, not a multiple of
+# the statistics' 128-column pieces.
+@pytest.mark.parametrize("M, K, N", [(12608, 768, 2304), (12608, 512, 1536), (37, 64, 24),
+                                     (130, 576, 136)])
+def test_ln_linear_kernel_matches_plain(gen, M, K, N):
+    x = _randn(gen, M, K, scale=2.0) + 0.5
+    s, t = 1.0 + 0.1 * _randn(gen, K), 0.1 * _randn(gen, K)
+    w, b = _randn(gen, N, K, scale=K ** -0.5), _randn(gen, N, scale=0.5)
+    leaves = [u.clone().requires_grad_() for u in (x, s, t, w, b)]
+    dy = _randn(gen, M, N)
+    ops.reset_launch_counts()
+    out = ln_linear.ln_linear(*leaves)
+    out.backward(dy)
+    again = ln_linear._kernel(x, s, t, w, b, 1e-6)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {
+        "ln_linear_f32": 2, "layernorm_f32": 1, "layernorm_backward_f32": 1}
+    plain = [u.clone().requires_grad_() for u in (x, s, t, w, b)]
+    ref = ln_linear.ln_linear_plain(*plain)
+    ref.backward(dy)
+    _assert_close(out.detach(), ref.detach(), FWD_FRAC, "out")
+    assert torch.equal(out.detach(), again)
+    for name, a, r in zip(("dx", "ds", "dt", "dw", "db"), leaves, plain):
+        _assert_close(a.grad, r.grad, GRAD_FRAC, name)
+
+
 def test_bf16_only_wrappers_refuse_fp32_on_the_card(gen):
-    x, w1, b1 = _randn(gen, 4, 512), _randn(gen, 64, 512), _randn(gen, 64)
-    w2, b2 = _randn(gen, 512, 64), _randn(gen, 512)
-    s, t = torch.ones(512, device="cuda"), torch.zeros(512, device="cuda")
     qkv, w, b = _randn(gen, 1, 8, 384), _randn(gen, 128, 128), _randn(gen, 128)
     with torch.inference_mode():
-        for call in (lambda: mlp.mlp_fused(x, w1, b1, w2, b2),
-                     lambda: mlp.mlp_ln_fused(x, s, t, w1, b1, w2, b2),
-                     lambda: ln_linear.ln_linear(x, s, t, w1, b1),
-                     lambda: attn_proj.fused_attention_proj(qkv, w, b, 2)):
-            with pytest.raises(TypeError, match=r"not yet ported \(ROADMAP.md §2a, item 1\)"):
-                call()
+        with pytest.raises(TypeError, match=r"not yet ported \(ROADMAP.md §2a, item 1\)"):
+            attn_proj.fused_attention_proj(qkv, w, b, 2)
+
+
+def test_dense_fp32_gradients_do_not_take_tf32(gen):
+    """The fp32 dense model (ViT-B/16 taps -> DPT, batch 2): its gradients are
+    bit-equal under torch's default ``cudnn.allow_tf32`` (True) and with it
+    off, and the backward leaves the flag as it found it.  cuDNN's own
+    deterministic mode holds for both runs, so that only TF32 could part
+    them."""
+    import numpy as np
+
+    from ssl4polyp_tpu_torch.models.factory import build_classifier
+
+    dense = build_classifier(torch.Generator().manual_seed(0),
+                             {"dense": True, "dense_readout": "project"}, device="cuda",
+                             compute_dtype=torch.float32)
+    images = torch.from_numpy(
+        np.random.default_rng(0).integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)).cuda()
+    params = dict(dense.model.named_parameters())
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    runs = []
+    try:
+        torch.backends.cudnn.deterministic = True
+        for allow in (True, False):
+            torch.backends.cudnn.allow_tf32 = allow
+            dense.model.zero_grad(set_to_none=True)
+            dense.model(images.float() / 255.0).square().mean().backward()
+            torch.cuda.synchronize()
+            assert torch.backends.cudnn.allow_tf32 is allow
+            runs.append({n: p.grad.clone() for n, p in params.items() if p.grad is not None})
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = saved
+    assert runs[0].keys() == runs[1].keys() and any(n.startswith("dpt.") for n in runs[0])
+    assert [n for n in runs[0] if not torch.equal(runs[0][n], runs[1][n])] == []

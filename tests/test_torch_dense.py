@@ -233,24 +233,36 @@ def test_dense_classifier_from_a_weight_file_and_through_make_forward_fn(tmp_pat
 def test_dense_convolutions_run_fp32_without_tf32(monkeypatch, dtype):
     """cuDNN would run an fp32 convolution in TF32 under its default
     ``allow_tf32``; every conv of an fp32 dense forward turns the flag off for
-    its own call and restores it.  A bf16 forward leaves the flag alone."""
+    its own call and restores it, and so does each conv's backward, which
+    autograd runs later.  A bf16 forward leaves the flag alone, and its
+    backward is autograd's own."""
     import torch.nn.functional as F
 
-    seen, conv2d = [], F.conv2d
+    seen, seen_backward = [], []
+    conv2d, conv_backward = F.conv2d, torch.ops.aten.convolution_backward
 
     def recording_conv2d(*args, **kwargs):
         seen.append(torch.backends.cudnn.allow_tf32)
         return conv2d(*args, **kwargs)
 
+    def recording_backward(*args, **kwargs):
+        seen_backward.append(torch.backends.cudnn.allow_tf32)
+        return conv_backward(*args, **kwargs)
+
     monkeypatch.setattr(F, "conv2d", recording_conv2d)
+    monkeypatch.setattr(torch.ops.aten, "convolution_backward", recording_backward)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)  # a fresh process's setting
     _, ours = dense_pair("project", dtype)
     images = np.random.default_rng(11).standard_normal((2, 32, 32, 3)).astype(np.float32)
-    with torch.inference_mode():
-        ours.model(torch.from_numpy(images))
+    out = ours.model(torch.from_numpy(images))
     # Every conv of the decoder but the deepest fusion stage's first residual
     # unit, which is built but never run (as in the JAX decoder).
     convs = sum(isinstance(m, Conv) for m in ours.model.modules())
     assert len(seen) == convs - 2 > 0
     assert set(seen) == ({False} if dtype == torch.float32 else {True})
     assert torch.backends.cudnn.allow_tf32 is True
+    out.square().mean().backward()
+    assert seen_backward == ([False] * (convs - 2) if dtype == torch.float32 else [])
+    assert torch.backends.cudnn.allow_tf32 is True
+    grads = [m.weight.grad for m in ours.model.modules() if isinstance(m, Conv)]
+    assert sum(g is not None and bool(torch.isfinite(g).all()) for g in grads) == convs - 2

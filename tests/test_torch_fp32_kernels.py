@@ -2,7 +2,8 @@
 
 The card runs fp32 tensors (``amp: false``, ``PretrainSettings.precision =
 "fp32"``) through fp32 kernels of their own: attention forward and backward,
-fc1+GELU and LayerNorm forward and backward.  Here:
+fc1+GELU and LayerNorm forward and backward, and under the fusion knobs the
+fused MLP, the fused LN+MLP and LN+QKV.  Here:
 
 * the plain fp32 versions those kernels are held to on the card, against the
   JAX Pallas kernels in interpret mode at the shapes the kernels must cover
@@ -12,8 +13,9 @@ fc1+GELU and LayerNorm forward and backward.  Here:
 * the wrappers' checks on CPU tensors: fp32 and bf16 accepted, mixed dtypes
   refused, and the wrappers whose fp32 kernel is not yet ported refusing
   fp32 with the ROADMAP.md item that lists it; with a stub library, that an
-  fp32 tensor reaches the ``_f32`` entry points and counters (nothing is
-  built or launched), that the fp32 attention takes any token count where
+  fp32 tensor reaches the ``_f32`` entry points and counters and a bf16 one
+  the bf16 entry points (nothing is built or launched), that the fp32
+  attention takes any token count where
   bf16 stops at 256, and that its autograd hands the backward the forward's
   output and log-sum-exp;
 * the precision settings of both train steps giving the JAX package's fp32
@@ -222,19 +224,21 @@ def test_default_route_wrappers_refuse_mixed_and_other_dtypes():
         layernorm._check(_t((4, 64)), _t(64, bf16), _t(64))
 
 
-def _bf16_only_checks(dtype):
-    """Each bf16-only wrapper's check on tensors of ``dtype``, with the
-    ROADMAP.md item its refusal of fp32 names."""
-    f32 = torch.float32
-    x, w1, b1 = _t((8, 512), dtype), _t((64, 512), dtype), _t(64, dtype)
-    w2, b2, s, t = _t((512, 64), dtype), _t(512, dtype), _t(512, f32), _t(512, f32)
-    qkv, w, b = _t((1, 8, 3 * 128), dtype), _t((128, 128), dtype), _t(128, dtype)
+def _fusion_checks(dtype, weight_dtype=None):
+    """Each fusion knob's and public function's check on tensors of
+    ``dtype`` (the weights of ``weight_dtype`` when given), with the
+    ROADMAP.md item its refusal of fp32 names: None for the kernels whose
+    fp32 version is ported (§2a item 1a)."""
+    f32, wd = torch.float32, weight_dtype or dtype
+    x, w1, b1 = _t((8, 512), dtype), _t((64, 512), wd), _t(64, wd)
+    w2, b2, s, t = _t((512, 64), wd), _t(512, wd), _t(512, f32), _t(512, f32)
+    qkv, w, b = _t((1, 8, 3 * 128), dtype), _t((128, 128), wd), _t(128, wd)
     q = _t((1, 2, 8, 64), dtype)
-    xb, wb, bb = _t((1, 8, 64), dtype), _t((64, 3 * 128), dtype), _t(3 * 128, dtype)
+    xb, wb, bb = _t((1, 8, 64), dtype), _t((64, 3 * 128), wd), _t(3 * 128, wd)
     return [
-        ("mlp_fused", lambda: mlp._check_fused(x, None, None, w1, b1, w2, b2), 1),
-        ("mlp_ln_fused", lambda: mlp._check_fused(x, s, t, w1, b1, w2, b2), 1),
-        ("ln_linear", lambda: ln_linear._check(x, s, t, w1, b1), 1),
+        ("mlp_fused", lambda: mlp._check_fused(x, None, None, w1, b1, w2, b2), None),
+        ("mlp_ln_fused", lambda: mlp._check_fused(x, s, t, w1, b1, w2, b2), None),
+        ("ln_linear", lambda: ln_linear._check(x, s, t, w1, b1), None),
         ("fused_attention_proj", lambda: attn_proj._check(qkv, w, b, 2, None), 1),
         ("fused_qkvproj_attention", lambda: attention_block._check(xb, wb, bb, 2, None), 2),
         ("fused_attention", lambda: attention._check(q, q, q), 2),
@@ -245,13 +249,32 @@ def _bf16_only_checks(dtype):
                                                 "fused_attention_proj",
                                                 "fused_qkvproj_attention", "fused_attention"])
 def test_bf16_only_wrappers_refuse_fp32_naming_the_roadmap_item(index):
-    _, check, item = _bf16_only_checks(torch.float32)[index]
-    with pytest.raises(TypeError, match=f"not yet ported \\(ROADMAP.md §2a, item {item}\\)"):
+    """The kernels still bf16-only refuse fp32 naming their ROADMAP.md item
+    and fp16 as the bf16 kernel's; the fused MLPs and LN+QKV, ported to fp32,
+    take fp32 and bf16 and refuse fp16 and a mix of the two."""
+    _, check, item = _fusion_checks(torch.float32)[index]
+    if item is None:
+        check()  # accepted
+        for dtype, weights in ((torch.float32, torch.bfloat16), (torch.bfloat16, torch.float32)):
+            with pytest.raises(TypeError, match="one dtype"):
+                _fusion_checks(dtype, weights)[index][1]()
+    else:
+        with pytest.raises(TypeError, match=f"not yet ported \\(ROADMAP.md §2a, item {item}\\)"):
+            check()
+    _, check, _ = _fusion_checks(torch.float16)[index]
+    with pytest.raises(TypeError, match="the kernel takes bfloat16" if item else "one dtype"):
         check()
-    _, check, _ = _bf16_only_checks(torch.float16)[index]
-    with pytest.raises(TypeError, match="the kernel takes bfloat16"):
-        check()
-    _bf16_only_checks(torch.bfloat16)[index][1]()  # accepted
+    _fusion_checks(torch.bfloat16)[index][1]()  # accepted
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_fused_wrappers_refuse_an_affine_that_is_not_fp32(dtype):
+    x, w1, b1 = _t((8, 512), dtype), _t((64, 512), dtype), _t(64, dtype)
+    w2, b2, s = _t((512, 64), dtype), _t(512, dtype), _t(512, torch.bfloat16)
+    with pytest.raises(TypeError, match="float32 s"):
+        mlp._check_fused(x, s, _t(512), w1, b1, w2, b2)
+    with pytest.raises(TypeError, match="float32 t"):
+        ln_linear._check(x, _t(512), s, w1, b1)
 
 
 class _StubLibrary:
@@ -280,13 +303,11 @@ def stub(monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: type("Stream", (), {"cuda_stream": 0})())
-    saved = {module: dict(vars(module)) for module in (qkv_attention, mlp, layernorm)}
+    saved = {(module, name): getattr(module, name) for module, name in ops._COUNTERS.values()}
     ops.reset_launch_counts()
     yield library
-    for module, names in saved.items():  # the counters as they were
-        for name in ("launches", "backward_launches", "launches_f32", "backward_launches_f32"):
-            if name in names:
-                setattr(module, name, names[name])
+    for (module, name), value in saved.items():  # the counters as they were
+        setattr(module, name, value)
 
 
 @pytest.mark.parametrize("dtype, suffix, counter", [(torch.float32, "_f32", "_f32"),
@@ -310,6 +331,38 @@ def test_wrappers_reach_the_entry_points_of_their_dtype(stub, dtype, suffix, cou
                  "layernorm_backward"):
         assert counts[name + counter] == 1, name
     assert sum(counts.values()) == 5
+
+
+@pytest.mark.parametrize("dtype, suffix", [(torch.float32, "_f32"), (torch.bfloat16, "")],
+                         ids=["fp32", "bf16"])
+def test_fusion_knob_wrappers_reach_the_entry_points_of_their_dtype(stub, dtype, suffix):
+    M, K, NF, N = 10, 768, 96, 2304
+    x, w1, b1 = _t((M, K), dtype), _t((NF, K), dtype), _t(NF, dtype)
+    w2, b2, s, t = _t((K, NF), dtype), _t(K, dtype), _t(K), _t(K)
+    h, _ = mlp._fused_kernel(x, None, None, w1, b1, w2, b2, 0.0, write_h=True)
+    no_h, _ = mlp._fused_kernel(x, s, t, w1, b1, w2, b2, 1e-6, write_h=False)
+    ln_linear._kernel(x, s, t, _t((N, K), dtype), _t(N, dtype), 1e-6)
+    fused = "ssl4polyp_mlp_fused_fwd_f32" if suffix else "ssl4polyp_mlp_fused_probe"
+    assert stub.called == [fused, fused, "ssl4polyp_ln_linear_" + ("fwd_f32" if suffix else "probe")]
+    assert h.shape == (M, NF) and h.dtype == dtype and no_h is None
+    # (x, s, t, w1, b1, w2, b2, h, out, M, K, NF, eps, [probe,] stream): the
+    # plain MLP without the affine, h only where asked.
+    first, second, third = stub.args
+    assert first[1] is None and first[7] == h.data_ptr() and first[9:12] == (M, K, NF)
+    assert second[1] == s.data_ptr() and second[7] is None and second[12] == 1e-6
+    assert third[7:10] == (M, K, N)  # (x, s, t, w, b, stats, out, M, K, N, eps, ...)
+    assert len(first) == (14 if suffix else 15)
+    counts = ops.launch_counts()
+    for name in ("mlp_fused", "mlp_ln_fused", "ln_linear"):
+        assert counts[name + suffix] == 1, name
+    assert sum(counts.values()) == 3
+    if suffix:  # the probe bits are the bf16 kernels' measurement aid
+        with pytest.raises(ValueError, match="no probe"):
+            mlp._fused_kernel(x, None, None, w1, b1, w2, b2, 0.0, write_h=False,
+                              probe=mlp.FUSED_PROBE_NO_FC2)
+        with pytest.raises(ValueError, match="no probe"):
+            ln_linear._kernel(x, s, t, _t((N, K)), _t(N), 1e-6, probe=ln_linear.PROBE_NO_STATS)
+        assert len(stub.called) == 3
 
 
 def test_fp32_backward_has_no_probe_and_no_scaled_ds_mode(stub):

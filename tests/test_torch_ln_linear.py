@@ -68,3 +68,41 @@ def test_backward_is_autograd_of_the_reference_in_fp32():
     for name, got, leaf in zip(("dx", "ds", "dt", "dw", "db"),
                                ln_linear_backward(x, s, t, w, dy, 1e-6), leaves):
         torch.testing.assert_close(got, leaf.grad, rtol=1e-5, atol=1e-5, msg=name)
+
+
+# The fp32 kernel's full widths (csrc/ln_linear_f32.cu): ViT-B's QKV (768 ->
+# 2304) and the MAE decoder's (512 -> 1536).  The plain fp32 version the
+# kernel is held to on the card, against the interpret-mode JAX kernel at
+# compute_dtype float32, forward and VJP: the same fp32 steps in another
+# summation order over 512 or 768 products; the gradients two or three fp32
+# sums deep.
+FP32_FWD_TOL = 2e-5
+FP32_GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("m, k, n", [(56, 768, 2304), (64, 512, 1536)])
+def test_fp32_plain_version_matches_jax_kernel_at_full_width(m, k, n):
+    rng = np.random.default_rng(m + k)
+    x = (rng.standard_normal((m, k)) * 2 + 0.5).astype(np.float32)
+    s = (1 + 0.1 * rng.standard_normal(k)).astype(np.float32)
+    t = (0.05 * rng.standard_normal(k)).astype(np.float32)
+    w = (rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)  # JAX (in, out)
+    b = (0.5 * rng.standard_normal(n)).astype(np.float32)
+    dy = rng.standard_normal((m, n)).astype(np.float32)
+    out, vjp = jax.vjp(lambda *a: jax_ln_linear(*a, 1e-6, True),
+                       *(jnp.asarray(v) for v in (x, s, t, w, b)))
+    ref_grads = [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+    leaves = [torch.from_numpy(np.ascontiguousarray(v)).requires_grad_()
+              for v in (x, s, t, w.T, b)]
+    ours = ln_linear(*leaves)
+    assert ours.dtype == torch.float32
+    ref = np.asarray(out)
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(ours.detach().numpy(), ref, rtol=FP32_FWD_TOL,
+                               atol=FP32_FWD_TOL * scale, err_msg="out")
+    ours.backward(torch.from_numpy(dy))
+    grads = [leaves[0].grad, leaves[1].grad, leaves[2].grad, leaves[3].grad.t(), leaves[4].grad]
+    for name, got, want in zip(("dx", "ds", "dt", "dw", "db"), grads, ref_grads):
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy(), want, rtol=FP32_GRAD_TOL,
+                                   atol=FP32_GRAD_TOL * scale, err_msg=name)

@@ -171,3 +171,46 @@ def test_fused_backwards_are_autograd_of_the_references_in_fp32(with_ln):
     grads = dict(zip(names, (leaf.grad for leaf in leaves)))
     for n, g in zip(order, got):
         torch.testing.assert_close(g, grads[n], rtol=1e-5, atol=1e-5, msg=n)
+
+
+# The fp32 kernels' full widths (csrc/mlp_fused_f32.cu): ViT-B's (K 768, NF
+# 3072) and the MAE decoder's (K 512, NF 2048), the whole NF that a row
+# block walks.  The plain fp32 versions the kernels are held to on the card,
+# against the interpret-mode JAX kernels at compute_dtype float32, forward
+# and VJP.  The JAX erf is a polynomial within 2.2e-6 of the exact erf the
+# port takes, and h and out sum 512 to 3072 products in another order; the
+# gradients are two or three fp32 sums deep.
+FP32_FWD_TOL = 2e-5
+FP32_GRAD_TOL = 1e-4
+
+
+@pytest.mark.parametrize("with_ln", [False, True], ids=["mlp_fused", "mlp_ln_fused"])
+@pytest.mark.parametrize("m, k, nf", [(56, 768, 3072), (128, 512, 2048)])
+def test_fused_fp32_plain_versions_match_jax_kernels_at_full_width(m, k, nf, with_ln):
+    from ssl4polyp_tpu.ops.mlp import mlp_fused as jax_mlp_fused
+    from ssl4polyp_tpu.ops.mlp import mlp_ln_fused as jax_mlp_ln_fused
+    from ssl4polyp_tpu_torch.ops.mlp import mlp_fused_plain, mlp_ln_fused_plain
+
+    a = _fused_inputs(m + k, m=m, k=k, nf=nf)
+    names = ("x", "s", "t", "w1", "b1", "w2", "b2") if with_ln else ("x", "w1", "b1", "w2", "b2")
+    if with_ln:
+        fn = lambda *args: jax_mlp_ln_fused(*args, 1e-6, True)  # noqa: E731
+    else:
+        fn = lambda *args: jax_mlp_fused(*args, True)  # noqa: E731
+    out, vjp = jax.vjp(fn, *[jnp.asarray(a[n]) for n in names])
+    ref_grads = [np.asarray(g) for g in vjp(jnp.asarray(a["dy"]))]
+    leaves = [torch.from_numpy(np.ascontiguousarray(a[n].T if n in ("w1", "w2") else a[n]))
+              .requires_grad_() for n in names]
+    ours = (mlp_ln_fused_plain if with_ln else mlp_fused_plain)(*leaves)
+    assert ours.dtype == torch.float32
+    ref = np.asarray(out)
+    scale = max(1.0, float(np.abs(ref).max()))
+    np.testing.assert_allclose(ours.detach().numpy(), ref, rtol=FP32_FWD_TOL,
+                               atol=FP32_FWD_TOL * scale, err_msg="out")
+    ours.backward(torch.from_numpy(a["dy"]))
+    for n, leaf, want in zip(names, leaves, ref_grads):
+        got = leaf.grad.t() if n in ("w1", "w2") else leaf.grad
+        assert got.dtype == torch.float32, n
+        scale = max(1.0, float(np.abs(want).max()))
+        np.testing.assert_allclose(got.numpy(), want, rtol=FP32_GRAD_TOL,
+                                   atol=FP32_GRAD_TOL * scale, err_msg=f"d{n}")
