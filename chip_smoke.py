@@ -9,7 +9,8 @@ seed-trio sweep through the port's scripts with its report, the
 fine-tune engine as two data-parallel ranks, the native JPEG decoder
 under the eval CLI and the pretraining engine on frames of SUN's size, and
 the fp32 runs (``amp: false``, ``PretrainSettings.precision = "fp32"``) on
-their own kernels, the fusion knobs' included, on one NVIDIA GPU.
+their own kernels, the fusion knobs' and ``BENCH_ATTN_PROJ=1``'s included,
+on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -82,7 +83,14 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    64 and at K 576, each within 2e-5 of max |plain| and rerun
    bit-identical, timed beside the plain versions, the fp32 chains of
    PyTorch calls (``F.layer_norm``, ``F.linear``, ``F.gelu``; no one call
-   computes either function) and the fp32 bound.
+   computes either function) and the fp32 bound.  Then the attention+
+   projection fold in fp32 at the classifier's and the MAE decoder's shapes
+   and the QKV projection + attention in fp32 at the classifier's, each
+   also with ``valid_len`` below N, at 1 and 300 tokens and at hd 32 with
+   an odd head count, forward and backward within 2e-5 and 1e-4 of max
+   |plain|, reruns and the backward from the inputs alone bit-identical,
+   timed beside the plain versions, fp32 SDPA + ``F.linear`` and that
+   pair's autograd backward, and the fp32 bound.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -142,7 +150,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    the activation, the weight and the bias must agree within the stated
    tolerances, each route with its plain version too; each new kernel must
    launch exactly once forward and once backward per pass, and not at all
-   while the plain versions run.
+   while the plain versions run.  Then the model's route and
+   ``fused_qkvproj_attention`` in fp32 on the same activation and weights,
+   on their fp32 kernels, against their plain versions and each other
+   within 2e-5 (outputs) and 1e-4 (gradients) of max |plain|.
 7. The standalone eval CLI at full width: a synthetic pack of 224 px JPEG
    frames (128 a split) and a ViT-B/16 checkpoint (numpy-seeded JAX-layout
    tree, ``model_cfg`` and a thresholds block in its meta) are written with
@@ -299,9 +310,14 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    1 val and 1 test batch) and the eval CLI's ``evaluate`` on its best
    checkpoint with ``compute_dtype`` fp32 (tau and the test metrics within
    1e-6 of the run's).  Under the fusion knobs, the fine-tune step's checks
-   again under ``mlp_fusion="full"`` and under ``"full_ln"`` with
-   ``qkv_ln_fusion``, the pretrain step's under ``"full_ln"`` with
-   ``qkv_ln_fusion`` (the decoder's 8 blocks on the fused kernels, the
+   again under ``mlp_fusion="full"``, under ``"full_ln"`` with
+   ``qkv_ln_fusion`` and under ``BENCH_ATTN_PROJ=1`` (12 attention+
+   projection launches forward and 12 backward a step, no attention
+   launch), the eval forward under ``BENCH_ATTN_PROJ=1`` (12 attention+
+   projection launches a request, logits against the unfolded fp32
+   forward's within 1e-4 of max |unfolded|), the pretrain step's under
+   ``"full_ln"`` with ``qkv_ln_fusion`` and under ``BENCH_ATTN_PROJ=1``
+   (the decoder's 8 blocks on the fused or the folded kernels, the
    encoder's 50 tokens on the default route) and the engine run again with
    ``mlp_fusion`` "full" given to its ``build_classifier``.  Every path's
    launches exact: the fp32 kernels, the AdamW kernel, and no bf16 kernel.
@@ -1628,6 +1644,7 @@ def fp32_kernels(gen: torch.Generator) -> dict[str, dict]:
         "layernorm.cu", "ssl4polyp_tpu/ops/layernorm.py:226", max(e[1] for e in bwd_errors),
         *bwd_times["classifier"][:2], **ln_bwd_cost(m, d), library_ms=bwd_times["classifier"][2])
     report.update(fp32_fusion_kernels(randn))
+    report.update(fp32_projection_kernels(randn))
     return report
 
 
@@ -1720,6 +1737,141 @@ def fp32_fusion_kernels(randn) -> dict[str, dict]:
     report["ln_linear_f32"] = entry(
         "ln_linear_f32.cu", "ssl4polyp_tpu/ops/ln_linear.py:63", max(e[1] for e in errors),
         *times["classifier"][:2], **ln_linear_cost(BATCH * 197, 768, 2304))
+    return report
+
+
+def fp32_fold_cost(b, n, h, hd, nv):
+    """The fp32 attention+projection kernels' bytes and operations, forward
+    and backward, over the nv weighted keys of each row: qkv, W, b in and y
+    out; qkv, W, dy and the forward's saved core output and log-sum-exp in,
+    dqkv, dW and db out."""
+    d = h * hd
+    core, proj = b * h * n * nv * hd, b * n * d * d
+    return (dict(bytes_moved=4 * (4 * b * n * d + d * d + d), flops=4 * core + 2 * proj,
+                 peak=FP32_FLOPS),
+            dict(bytes_moved=4 * (8 * b * n * d + b * h * n + 2 * d * d + d),
+                 flops=10 * core + 4 * proj, peak=FP32_FLOPS))
+
+
+def fp32_block_cost(b, n, d_in, h, hd, nv):
+    """The fp32 projection + attention kernels' bytes and operations,
+    forward and backward: x, W, b in and the output out; x, W, b, dout and
+    the forward's saved output and log-sum-exp in, dx, dW and db out.  The
+    backward's three products include the projection it recomputes."""
+    d = h * hd
+    core, proj = b * h * n * nv * hd, b * n * d_in * 3 * d
+    return (dict(bytes_moved=4 * (b * n * (d_in + d) + d_in * 3 * d + 3 * d),
+                 flops=2 * proj + 4 * core, peak=FP32_FLOPS),
+            dict(bytes_moved=4 * (2 * b * n * (d_in + d) + b * h * n + 2 * (d_in * 3 * d + 3 * d)),
+                 flops=6 * proj + 10 * core, peak=FP32_FLOPS))
+
+
+def fp32_projection_kernels(randn) -> dict[str, dict]:
+    """The attention+projection fold (rows 9, 9b) and the QKV projection with
+    the attention core (rows 10, 10b) in fp32, against their plain fp32
+    versions: the fold at the classifier's and the MAE decoder's shapes, the
+    projection + attention at the classifier's, each also with ``valid_len``
+    below N (the pad rows' upstream gradient zero), at 1 and 300 tokens and
+    at hd 32 with an odd head count.  Each forward and backward rerun
+    bit-identical, the backward from the forward's saved output and
+    log-sum-exp bit-equal to its launch from the inputs alone.  Their times
+    beside the plain versions', fp32 SDPA + ``F.linear`` and that pair's
+    autograd backward (TF32 off), and the bound at the fp32 rate.  Errors are
+    relative to max |plain|."""
+
+    def fold_library(x, w, bias, h):  # w (out, in)
+        core = F.scaled_dot_product_attention(*heads_of(x, h))
+        return F.linear(core.transpose(1, 2).flatten(2), w, bias)
+
+    def block_library(x, w_t, bias, h):  # w_t (3D, Din): torch's layout of w
+        core = F.scaled_dot_product_attention(*heads_of(F.linear(x, w_t, bias), h))
+        return core.transpose(1, 2).flatten(2)
+
+    # Cases: (batch, tokens, Din, heads, head dim, valid_len, timed as).
+    kernels = [
+        (attn_proj, ("attn_proj_f32", "attn_proj_backward_f32"), "attn_proj_f32.cu",
+         ("ssl4polyp_tpu/ops/attn_proj.py:212", "ssl4polyp_tpu/ops/attn_proj.py:250"),
+         [(BATCH, 197, None, 12, 64, None, "classifier"),
+          (BATCH, 197, None, 16, 32, None, "MAE decoder"), (BATCH, 197, None, 12, 64, 150, None),
+          (4, 1, None, 12, 64, None, None), (4, 300, None, 8, 32, 280, None),
+          (8, 61, None, 5, 32, None, None)],
+         (attn_proj.fused_attention_proj_reference,
+          attn_proj.fused_attention_proj_backward_reference), ("dqkv", "dw", "db"),
+         fold_library, "SDPA + F.linear"),
+        (attention_block, ("fused_qkvproj_attention_f32", "fused_qkvproj_attention_backward_f32"),
+         "attention_block_f32.cu",
+         ("ssl4polyp_tpu/ops/attention_block.py:187", "ssl4polyp_tpu/ops/attention_block.py:224"),
+         [(BATCH, 197, 768, 12, 64, None, "classifier"), (BATCH, 197, 768, 12, 64, 150, None),
+          (4, 1, 768, 12, 64, None, None), (4, 300, 512, 16, 32, 280, None),
+          (8, 61, 192, 5, 32, None, None)],
+         (attention_block.fused_qkvproj_attention_reference,
+          attention_block.fused_qkvproj_attention_backward_reference), ("dx", "dw", "db"),
+         block_library, "F.linear + SDPA"),
+    ]
+    report = {}
+    for module, names, source, replaces, cases, (reference, backward_reference), parts, \
+            library_fn, pair in kernels:
+        fold = module is attn_proj
+        fwd_errors, bwd_errors, times = [], [], {}
+        for b, n, d_in, h, hd, valid_len, name in cases:
+            d, nv = h * hd, n if valid_len is None else valid_len
+            if fold:
+                x, w, bias = randn(b, n, 3 * d), randn(d, d, scale=d ** -0.5), randn(d, scale=0.5)
+                costs = fp32_fold_cost(b, n, h, hd, nv)
+            else:
+                x, w = randn(b, n, d_in), randn(d_in, 3 * d, scale=d_in ** -0.5)
+                bias, costs = randn(3 * d, scale=0.5), fp32_block_cost(b, n, d_in, h, hd, nv)
+            dy = randn(b, n, d)
+            dy[:, nv:] = 0
+            args = (x, w, bias, h, True, valid_len)
+            what = (f"fp32 {names[0][:-len('_f32')]} B={b} N={n}" + (f" Din={d_in}" if d_in else "")
+                    + f" H={h} hd={hd} valid_len={valid_len}")
+            run = lambda: module._forward_kernel(*args)  # noqa: E731
+            plain = lambda: reference(*args)  # noqa: E731
+            plain_bwd = lambda: backward_reference(x, w, bias, dy, h, True, valid_len)  # noqa: E731
+            # The backward as the autograd path runs it: from the forward's
+            # saved output (the fold's core output) and log-sum-exp.
+            kept = module._forward_kernel(*args, keep=True)
+            y, saved = kept[0], kept[-2:]
+            run_bwd = lambda: module._backward_kernel(  # noqa: E731
+                x, w, bias, dy, h, True, valid_len, out=saved[0], lse=saved[1])
+            again, grads, grads_again = run(), run_bwd(), run_bwd()
+            alone = module._backward_kernel(x, w, bias, dy, h, True, valid_len)
+            torch.cuda.synchronize()
+            fwd_errors.append(max_relative_error(y, plain(), FP32_FWD_FRAC, f"{what}: y"))
+            line = f"{what}: y {fwd_errors[-1][0]:.3e}"
+            for part, got, want in zip(parts, grads, plain_bwd()):
+                bwd_errors.append(max_relative_error(got, want, FP32_GRAD_FRAC,
+                                                     f"{what}: {part}"))
+                line += f", {part} {bwd_errors[-1][0]:.3e}"
+            if not torch.equal(y, again) or not all(
+                    torch.equal(a, g) for other in (grads_again, alone)
+                    for a, g in zip(other, grads)):
+                fail(f"{what}: two runs gave different bits")
+            print(line + f" of max |plain| (limits {FP32_FWD_FRAC}, {FP32_GRAD_FRAC}); reruns and "
+                         f"the backward from the inputs alone bit-identical")
+            del alone, grads_again, kept
+            if name is None:
+                continue
+            leaves = [t.clone().requires_grad_() for t in (x, w if fold else w.t().contiguous(),
+                                                           bias)]
+            library = lambda: library_fn(*leaves, h)  # noqa: E731
+            lib_y = library()
+            library_bwd = lambda: torch.autograd.grad(lib_y, leaves, dy, retain_graph=True)  # noqa: E731
+            with torch.no_grad():
+                fwd = time_ms(run), time_ms(plain), time_ms(library)
+            times[name] = fwd, (time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd))
+            print(f"  {name}'s shape: forward kernel {fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, fp32 "
+                  f"{pair} {fwd[2]:.4f} ms, {bound_text(**costs[0])}; backward kernels "
+                  f"{times[name][1][0]:.4f} ms, plain {times[name][1][1]:.4f} ms, the pair's "
+                  f"backward {times[name][1][2]:.4f} ms, {bound_text(**costs[1])}; {CARD}")
+            del leaves, lib_y
+        costs = (fp32_fold_cost(BATCH, 197, 12, 64, 197) if fold
+                 else fp32_block_cost(BATCH, 197, 768, 12, 64, 197))
+        for k, errors in enumerate((fwd_errors, bwd_errors)):
+            ms, plain_ms, library_ms = times["classifier"][k]
+            report[names[k]] = entry(source, replaces[k], max(e[1] for e in errors), ms, plain_ms,
+                                     **costs[k], library_ms=library_ms)
     return report
 
 
@@ -2630,6 +2782,45 @@ def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
         compare(results[name], plain_results[name], f"attention ops [{name}] kernels vs plain")
     for name in ("fused_qkvproj_attention", "fused_attention"):
         compare(results[name], results["model"], f"attention ops [{name}] vs the model's route")
+
+    # In fp32, on the same activation and weights: the model's route and
+    # fused_qkvproj_attention on their fp32 kernels (fused_attention stays
+    # bf16-only: ROADMAP.md §2a item 2), each against its plain version and
+    # against the other, max |diff| within the fp32 fractions of max |plain|.
+    f32_args = [t.float() for t in (a, weight, bias, dout)]
+    fp32_routes = {name: kernel_routes[name] for name in ("model", "fused_qkvproj_attention")}
+    fp32_launched = {"model": ("fused_qkv_attention_f32", "fused_qkv_attention_backward_f32"),
+                     "fused_qkvproj_attention": ("fused_qkvproj_attention_f32",
+                                                 "fused_qkvproj_attention_backward_f32")}
+    results = {}
+    for name, route in fp32_routes.items():
+        ops.reset_launch_counts()
+        results[name] = _route_gradients(route, *f32_args)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_counts(counts, dict.fromkeys(fp32_launched[name], 1), 1,
+                     f"one fp32 forward and backward pass of the {name} route")
+        for kernel, n in counts.items():
+            total[kernel] += n
+    ops.reset_launch_counts()
+    plain_results = {name: _route_gradients(plain_routes[name], *f32_args) for name in fp32_routes}
+    torch.cuda.synchronize()
+    if any(ops.launch_counts().values()):
+        fail("attention ops: a plain fp32 route launched a kernel")
+    for name, want, label in (("model", plain_results["model"], "kernels vs plain"),
+                              ("fused_qkvproj_attention",
+                               plain_results["fused_qkvproj_attention"], "kernels vs plain"),
+                              ("fused_qkvproj_attention", results["model"],
+                               "vs the model's route")):
+        got = results[name]
+        errors = [max_relative_error(got[0], want[0], FP32_FWD_FRAC,
+                                     f"fp32 attention ops [{name}] {label}: out")[0]]
+        errors += [max_relative_error(g, r, FP32_GRAD_FRAC,
+                                      f"fp32 attention ops [{name}] {label}: {part}")[0]
+                   for part, g, r in zip(("da", "dweight", "dbias"), got[1:], want[1:])]
+        print(f"fp32 attention ops [{name}] {label}: out, da, dweight, dbias "
+              + ", ".join(f"{e:.3e}" for e in errors)
+              + f" of max |reference| (limits {FP32_FWD_FRAC}, {FP32_GRAD_FRAC})")
     return total
 
 
@@ -4481,13 +4672,16 @@ FP32_ENGINE_LIMIT = {"train": 2, "val": 1, "test": 1}  # batches of 64, one epoc
 FP32_LOSS_RTOL = 1e-5
 FP32_STEP_GRAD_RTOL = 1e-4
 FP32_LOGITS_FRAC = 1e-4
-# The fine-tune step's fusion-knob configurations in fp32: (label, model
-# overrides, the fp32 kernels that take the MLP's and the QKV's place, one
-# launch a block and step).
+# The fine-tune step's kernel configurations in fp32 beside the default
+# route: (label, model overrides, whether the model is built under
+# BENCH_ATTN_PROJ=1, the default route's fp32 kernels they take the place
+# of, the fp32 kernels that take it, one launch a block and step).
 FP32_KNOB_CONFIGS = (
-    ("full", {"mlp_fusion": "full"}, ("mlp_fused_f32",)),
-    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True},
-     ("mlp_ln_fused_f32", "ln_linear_f32")),
+    ("full", {"mlp_fusion": "full"}, False, ("fc1_gelu_f32",), ("mlp_fused_f32",)),
+    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True}, False,
+     ("fc1_gelu_f32",), ("mlp_ln_fused_f32", "ln_linear_f32")),
+    ("fc1+attn_proj", {}, True, ("fused_qkv_attention_f32", "fused_qkv_attention_backward_f32"),
+     ("attn_proj_f32", "attn_proj_backward_f32")),
 )
 
 
@@ -4605,23 +4799,25 @@ def phase_fp32() -> dict[str, int]:
     # The fine-tune step under the fusion knobs, on their fp32 kernels: the
     # fused MLP, or the fused LN+MLP with LN+QKV (whose backwards recompute
     # the normalised row and take the LayerNorm backward on the LayerNorm
-    # kernels, so the LayerNorm counts stay).
-    unfused = {name: n for name, n in per_ft_step.items() if name != "fc1_gelu_f32"}
-    for label, overrides, fused in FP32_KNOB_CONFIGS:
+    # kernels, so the LayerNorm counts stay), or under BENCH_ATTN_PROJ=1 the
+    # attention+projection kernels in the attention kernels' place.
+    for label, overrides, fold, replaced, fused in FP32_KNOB_CONFIGS:
         what = f"fp32 fine-tune [{label}]"
 
         def knob_classifier():
-            return get_imagenet_or_random_vit(
-                torch.Generator().manual_seed(SEED), jax_params=tree, num_classes=2,
-                device="cuda", compute_dtype=f32, **overrides)
+            with projection_fold(fold):  # noqa: B023
+                return get_imagenet_or_random_vit(
+                    torch.Generator().manual_seed(SEED), jax_params=tree, num_classes=2,
+                    device="cuda", compute_dtype=f32, **overrides)  # noqa: B023
 
         def knob_state():
             return init_train_state(knob_classifier(),
                                     torch.Generator(device="cuda").manual_seed(SEED))
 
         knob = knob_classifier()
-        routes = {(b.mlp_route, b.qkv_ln) for b in knob.model.blocks}
-        if routes != {(overrides["mlp_fusion"], overrides.get("qkv_ln_fusion", False))}:
+        routes = {(b.mlp_route, b.qkv_ln, b.attn.proj_fold) for b in knob.model.blocks}
+        if routes != {(overrides.get("mlp_fusion", "fc1"), overrides.get("qkv_ln_fusion", False),
+                       fold)}:
             fail(f"{what}: the blocks' routes are {routes}")
         ctx = step_context(knob, loss_mode, pos_weight, class_weights, FT_WEIGHT_DECAY)
         step = make_train_step(ctx)
@@ -4637,6 +4833,7 @@ def phase_fp32() -> dict[str, int]:
             knob_state, lambda st, i: step(st, batches[i], labels[i], valid, FT_LR, full, wd), f32,
             steps=2, what=what)
         calls = iter(range(10 ** 6))
+        unfused = {name: n for name, n in per_ft_step.items() if name not in replaced}
         timed(lambda: step(state, batches[next(calls) % 2], labels[0], valid, FT_LR, full, wd),
               f"{what} steps (ViT-B/16)", {**unfused, **{n: depth for n in fused}})
         if not all(torch.isfinite(p).all() for p in state.params.values()):
@@ -4661,7 +4858,30 @@ def phase_fp32() -> dict[str, int]:
     print(f"fp32 eval forward: logits against the plain forward's {err:.3e} of max |plain| "
           f"(limit {FP32_LOGITS_FRAC})")
     timed(lambda: forward(requests[0]), "fp32 eval requests (ViT-B/16)", per_eval)
-    del forward, classifier
+    # The eval forward under BENCH_ATTN_PROJ=1, on the same (trained)
+    # parameters: the attention+projection kernel in every block.
+    with projection_fold(True):
+        folded = fresh_classifier()
+    folded.model.load_state_dict(classifier.model.state_dict())
+    if not all(b.attn.proj_fold for b in folded.model.blocks):
+        fail("fp32 eval forward under the fold: a block does not fold")
+    fold_forward = make_forward_fn(folded, "cuda")()
+    per_fold_eval = {**{n: c for n, c in per_eval.items() if n != "fused_qkv_attention_f32"},
+                     "attn_proj_f32": depth}
+    ops.reset_launch_counts()
+    fold_logits = [fold_forward(images) for images in requests]
+    counts = ops.launch_counts()
+    check_counts(counts, per_fold_eval, len(requests),
+                 f"{len(requests)} fp32 eval requests under the fold")
+    add(counts)
+    err = max(max_relative_error(torch.from_numpy(got), torch.from_numpy(ref), FP32_LOGITS_FRAC,
+                                 "fp32 eval forward under the fold: logits")[0]
+              for got, ref in zip(fold_logits, logits))
+    print(f"fp32 eval forward under the fold: logits against the unfolded fp32 forward's "
+          f"{err:.3e} of max |unfolded| (limit {FP32_LOGITS_FRAC})")
+    timed(lambda: fold_forward(requests[0]), "fp32 eval requests under the fold (ViT-B/16)",
+          per_fold_eval)
+    del forward, classifier, fold_forward, folded
 
     # The dense model in fp32: its convolutions stay fp32 under torch's own
     # cuDNN setting (TF32 allowed in a fresh process), bit for bit as under
@@ -4817,6 +5037,48 @@ def phase_fp32() -> dict[str, int]:
         "layernorm_f32": 2 * (enc_depth + dec_depth) + 2,
         "layernorm_backward_f32": 2 * (enc_depth + dec_depth) + 2,
         "fc1_gelu_f32": enc_depth, "ln_linear_f32": dec_depth, "mlp_ln_fused_f32": dec_depth,
+        "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH)})
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        fail(f"{what}: non-finite parameters after the steps")
+    del state
+
+    # The pretrain step under BENCH_ATTN_PROJ=1: the decoder's 8 blocks on
+    # the attention+projection kernels; the encoder's 50 tokens keep the
+    # attention kernels, as in the JAX package.
+    what = "fp32 pretrain [attn_proj]"
+
+    def fold_mae_state():
+        with projection_fold(True):
+            model = MAE(cfg, torch.Generator().manual_seed(SEED))
+        model.load_state_dict(mae_state_dict_from_jax(mae_tree, cfg))
+        return init_pretrain_state(model.cuda())
+
+    state = fold_mae_state()
+    folds = ({b.attn.proj_fold for b in state.model.blocks},
+             {b.attn.proj_fold for b in state.model.decoder_blocks})
+    if folds != ({False}, {True}):
+        fail(f"{what}: the encoder's and the decoder's folds are {folds}")
+    loss, grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    with plain_kernels():
+        plain_loss, plain_grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    check_step_one(loss, grads, plain_loss, plain_grads, FP32_LOSS_RTOL, FP32_STEP_GRAD_RTOL,
+                   what)
+    del grads, plain_grads
+    check_run_to_run_bits(fold_mae_state,
+                          lambda st, i: train_step(st, images[i], noise[i], schedule(i)), f32,
+                          steps=2, what=what)
+    calls = iter(range(10 ** 6))
+
+    def fold_pretrain_call():
+        i = next(calls)
+        train_step(state, images[i % 2], noise[i % 2], schedule(i % 20))
+
+    timed(fold_pretrain_call, f"{what} steps (MAE ViT-B/16)", {
+        "fused_qkv_attention_f32": enc_depth, "fused_qkv_attention_backward_f32": enc_depth,
+        "attn_proj_f32": dec_depth, "attn_proj_backward_f32": dec_depth,
+        "layernorm_f32": 2 * (enc_depth + dec_depth) + 2,
+        "layernorm_backward_f32": 2 * (enc_depth + dec_depth) + 2,
+        "fc1_gelu_f32": enc_depth + dec_depth,
         "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH)})
     if not all(torch.isfinite(p).all() for p in state.params.values()):
         fail(f"{what}: non-finite parameters after the steps")

@@ -38,6 +38,11 @@ _COUNTERS = {
     "mlp_fused_f32": (mlp, "fused_launches_f32"),
     "mlp_ln_fused_f32": (mlp, "ln_fused_launches_f32"),
     "ln_linear_f32": (ln_linear, "launches_f32"),
+    "attn_proj_f32": (attn_proj, "launches_f32"),
+    "attn_proj_backward_f32": (attn_proj, "backward_launches_f32"),
+    # The fp32 kernels of the public function no model route calls.
+    "fused_qkvproj_attention_f32": (attention_block, "launches_f32"),
+    "fused_qkvproj_attention_backward_f32": (attention_block, "backward_launches_f32"),
 }
 
 

@@ -46,7 +46,7 @@ _ENTRY_POINTS = (
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_qkv_attention_bwd_f32", ctypes.c_int,
      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_fc1_gelu_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_fc1_gelu_fwd_f32", ctypes.c_int,
@@ -82,6 +82,12 @@ _ENTRY_POINTS = (
      [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]),
+    ("ssl4polyp_attn_proj_fwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_attn_proj_bwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_sgemm_f32_slices", ctypes.c_int, [ctypes.c_int] * 3),
     ("ssl4polyp_matmul_nt", ctypes.c_int,
      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_attention_fwd", ctypes.c_int,
@@ -104,6 +110,11 @@ _ENTRY_POINTS = (
     ("ssl4polyp_qkvproj_attention_bwd_probe", ctypes.c_int,
      [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    ("ssl4polyp_qkvproj_attention_fwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_qkvproj_attention_bwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_dw_product", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
     ("ssl4polyp_dw_product_slices", ctypes.c_int, [ctypes.c_int] * 3),

@@ -22,10 +22,23 @@ def check_gradient(name: str, grad: torch.Tensor, shape, dtype: torch.dtype,
         raise ValueError(f"{name} must be a contiguous, 16-byte aligned tensor on {device}")
 
 
-# Where ROADMAP.md lists the fp32 kernels still to port: fused_attention_proj,
-# the last of the fusion knobs' kernels, then the two public functions no
-# model route calls (fused_qkvproj_attention, fused_attention).
-FP32_FUSION_KNOBS = "ROADMAP.md §2a, item 1"
+def saved_or_scratch(out, lse, out_shape, lse_shape, device: torch.device):
+    """The fp32 forward's output and each row's log-sum-exp that an fp32
+    backward reads, checked as :func:`check_gradient` checks a gradient; or,
+    without them (both None), fp32 scratch that the backward's launch fills
+    by running the forward first.  Returns ``(out, lse, forward_first)``."""
+    if (out is None) != (lse is None):
+        raise ValueError("out and lse go together")
+    if out is None:
+        return (torch.empty(out_shape, dtype=torch.float32, device=device),
+                torch.empty(lse_shape, dtype=torch.float32, device=device), True)
+    check_gradient("out", out, out_shape, torch.float32, device)
+    check_gradient("lse", lse, lse_shape, torch.float32, device)
+    return out, lse, False
+
+
+# Where ROADMAP.md lists the fp32 kernel still to port: fused_attention, the
+# public function over separate q, k and v that no model route calls.
 FP32_PUBLIC_FUNCTIONS = "ROADMAP.md §2a, item 2"
 
 

@@ -15,9 +15,16 @@ wgmma GEMM, the attention backward (``qkv_attention.py``'s kernel, with the
 bias and the scale where this function's TPU kernel puts them), and ``dw =
 x.T @ dqkv`` on a wgmma product with both operands transposed.  The first
 designs of both directions stay behind :data:`PROBE_FIRST_DESIGN` and
-:data:`BACKWARD_PROBE_FIRST_DESIGN`.  No model route calls this function:
-as in the JAX package, where it measured slower than the bare projection
-followed by the attention kernel, it is a public function of ``ops``.
+:data:`BACKWARD_PROBE_FIRST_DESIGN`.  fp32 tensors (the runs that compute in
+fp32) take ``csrc/attention_block_f32.cu``, with launch counts of their own:
+the projection on the fp32 SGEMM into a (B, N, 3D) scratch, then the fp32
+attention forward with the bias, whose output and log-sum-exp autograd
+saves when a backward follows; the backward recomputes the projection, runs
+the fp32 attention backward with the scale inside dS (its dbias is db),
+then dx and dw (split over the rows) on the SGEMM.  No model route calls
+this function: as in the JAX package, where it measured slower than the
+bare projection followed by the attention kernel, it is a public function
+of ``ops``.
 
 A tensor on the CPU goes through the plain torch versions
 (:func:`fused_qkvproj_attention_plain`); a CUDA tensor through the kernels,
@@ -31,27 +38,31 @@ from typing import Optional
 
 import torch
 
-from ._checks import FP32_PUBLIC_FUNCTIONS, check_bf16, check_gradient
-from .qkv_attention import _MAX_TOKENS, _scale, fused_qkv_attention_reference
+from ._checks import check_gradient, check_one_dtype, saved_or_scratch
+from .qkv_attention import _F32_TILE, _MAX_TOKENS, _scale, fused_qkv_attention_reference
 
 __all__ = [
     "BACKWARD_STEPS",
     "backward_launches",
+    "backward_launches_f32",
     "fused_qkvproj_attention",
     "fused_qkvproj_attention_backward_reference",
     "fused_qkvproj_attention_plain",
     "fused_qkvproj_attention_reference",
     "launches",
+    "launches_f32",
 ]
 
 # Kernel launches since the last ops.reset_launch_counts(): forward calls,
 # and backward calls (each a fixed sequence of kernels, see
-# csrc/attention_block.cu).
+# csrc/attention_block.cu and csrc/attention_block_f32.cu); bf16, fp32.
 launches = 0
 backward_launches = 0
+launches_f32 = 0
+backward_launches_f32 = 0
 
-# What the kernels take: bf16, these head sizes, 1..256 tokens, an input
-# width that is a multiple of 64.
+# What the kernels take: bf16 or fp32, these head sizes, 1..256 tokens in
+# bf16 (any number in fp32), an input width that is a multiple of 64.
 _HEAD_DIMS = (32, 64)
 # `probe` bits of the forward kernel, a measurement aid (0 on every path;
 # chip_smoke.py times the kernel with parts left out, whose results are
@@ -143,29 +154,53 @@ def _check(x, w, b, num_heads, valid_len) -> None:
         raise ValueError(f"head dim {D / num_heads} not in {_HEAD_DIMS}")
     if d_in % 64:
         raise ValueError(f"the kernel takes an input width that is a multiple of 64, got {d_in}")
-    if not 1 <= N <= _MAX_TOKENS:
-        raise ValueError(f"the kernel takes 1..{_MAX_TOKENS} tokens, got {N}")
+    check_one_dtype((x, w, b))
+    if N < 1 or (x.dtype == torch.bfloat16 and N > _MAX_TOKENS):
+        raise ValueError(f"the bf16 kernel takes 1..{_MAX_TOKENS} tokens (the fp32 kernel any "
+                         f"number), got {N}")
     if valid_len is not None and not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if b.shape != (3 * D,):
         raise ValueError(f"b {tuple(b.shape)} does not fit w {tuple(w.shape)}")
     for name, t in (("x", x), ("w", w), ("b", b)):
-        check_bf16(name, t.dtype, FP32_PUBLIC_FUNCTIONS)
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {x.device}")
 
 
-def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len, probe: int = 0):
-    """The forward kernel; ``probe`` (0 on every path) is a measurement aid:
-    the ``PROBE_*`` bits above."""
+def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len, probe: int = 0,
+                    keep: bool = False):
+    """The forward kernel of x's dtype; ``probe`` (0 on every path) is a
+    measurement aid of the bf16 kernel: the ``PROBE_*`` bits above (the fp32
+    kernel has none).  In fp32 ``softmax_f32`` changes nothing, and with
+    ``keep`` it returns ``(out, lse)``: lse (B, H, N) holds each row's
+    log-sum-exp, which the fp32 backward reads."""
     if probe & ~_PROBE_BITS:
         raise ValueError(f"unknown probe bits {probe & ~_PROBE_BITS:#x}")
     from ._build import library
 
-    global launches
+    global launches, launches_f32
     B, N, d_in = x.shape
     D = w.shape[1] // 3
     head_dim = D // num_heads
+    if x.dtype == torch.float32:
+        if probe:
+            raise ValueError("the fp32 kernel has no probe bits")
+        qkv = torch.empty((B, N, 3 * D), dtype=torch.float32, device=x.device)  # scratch
+        out = torch.empty((B, N, D), dtype=torch.float32, device=x.device)
+        lse = (torch.empty((B, num_heads, N), dtype=torch.float32, device=x.device) if keep
+               else None)
+        with torch.cuda.device(x.device):
+            err = library().ssl4polyp_qkvproj_attention_fwd_f32(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), qkv.data_ptr(), out.data_ptr(),
+                None if lse is None else lse.data_ptr(), B, N, d_in, num_heads, head_dim,
+                N if valid_len is None else int(valid_len), _scale(head_dim, torch.float32),
+                torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fp32 qkvproj_attention kernel launch failed: CUDA error {err}")
+        launches_f32 += 1
+        return (out, lse) if keep else out
+    if keep:
+        raise ValueError("only the fp32 kernel keeps the log-sum-exp")
     out = torch.empty((B, N, D), dtype=x.dtype, device=x.device)
     with torch.cuda.device(x.device):
         err = library().ssl4polyp_qkvproj_attention_fwd_probe(
@@ -179,10 +214,20 @@ def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len, probe: int = 0):
     return out
 
 
-def _backward_kernel(x, w, b, dout, num_heads, softmax_f32, valid_len, probe: int = 0):
-    """(dx, dw, db) from the backward's launches.  ``probe`` (0 on every
-    path) is a measurement aid: the ``BACKWARD_*`` bits above."""
+def _backward_kernel(x, w, b, dout, num_heads, softmax_f32, valid_len, probe: int = 0,
+                     out=None, lse=None):
+    """(dx, dw, db) from the backward's launches of x's dtype.  ``probe`` (0
+    on every path) is a measurement aid of the bf16 kernels: the
+    ``BACKWARD_*`` bits above.  The fp32 backward (:func:`_backward_f32`)
+    also takes the forward's output and log-sum-exp (``out`` and ``lse``,
+    from ``_forward_kernel`` with ``keep``)."""
     global backward_launches
+    if x.dtype == torch.float32:
+        if probe:
+            raise ValueError("the fp32 backward kernel has no probe bits")
+        return _backward_f32(x, w, b, dout, num_heads, valid_len, out, lse)
+    if out is not None or lse is not None:
+        raise ValueError("out and lse go to the fp32 backward kernel only")
     if probe & ~_BACKWARD_PROBE_BITS:
         raise ValueError(f"unknown probe bits {probe & ~_BACKWARD_PROBE_BITS:#x}")
     first_design = bool(probe & BACKWARD_PROBE_FIRST_DESIGN)
@@ -244,22 +289,82 @@ def _backward_plan(x, w, b, dout, num_heads, softmax_f32, valid_len, first_desig
     return run, lambda: (dx, dw.to(w.dtype), db.to(b.dtype))
 
 
+def _backward_f32(x, w, b, dout, num_heads, valid_len, out, lse):
+    """The fp32 backward's one counted launch (csrc/attention_block_f32.cu):
+    qkv = x . w again, the fp32 attention backward with the scale inside dS
+    and b as its bias (its dbias is db) from the forward's output and
+    log-sum-exp, dx, then dw split over the rows; without ``out`` and ``lse``
+    the attention forward runs first into scratch."""
+    from ._build import library
+
+    global backward_launches_f32
+    B, N, d_in = x.shape
+    three_d = w.shape[1]
+    D = three_d // 3
+    head_dim = D // num_heads
+    dev = x.device
+    check_gradient("dout", dout, (B, N, D), torch.float32, dev)
+    out, lse, forward_first = saved_or_scratch(out, lse, (B, N, D), (B, num_heads, N), dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        slices = lib.ssl4polyp_sgemm_f32_slices(d_in, three_d, B * N)
+    if slices < 1:
+        raise RuntimeError(f"fp32 qkvproj_attention backward: CUDA error {-slices}")
+    f32 = dict(dtype=torch.float32, device=dev)
+    qkv = torch.empty((B, N, three_d), **f32)                  # scratch: x . w
+    delta = torch.empty((B, num_heads, N), **f32)              # scratch
+    dqkv = torch.empty_like(qkv)                               # scratch
+    db_part = torch.empty((B * -(-N // _F32_TILE), three_d), **f32)
+    db = torch.empty((three_d,), **f32)
+    dx = torch.empty_like(x)
+    dw_part = torch.empty((slices, d_in, three_d), **f32) if slices > 1 else None
+    dw = torch.empty((d_in, three_d), **f32)
+    with torch.cuda.device(dev):
+        err = lib.ssl4polyp_qkvproj_attention_bwd_f32(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), qkv.data_ptr(), delta.data_ptr(), dqkv.data_ptr(),
+            db_part.data_ptr(), db.data_ptr(), dx.data_ptr(),
+            None if dw_part is None else dw_part.data_ptr(), dw.data_ptr(), B, N, d_in,
+            num_heads, head_dim, N if valid_len is None else int(valid_len),
+            _scale(head_dim, torch.float32), slices, int(forward_first),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"fp32 qkvproj_attention backward kernel launch failed: CUDA error "
+                           f"{err}")
+    backward_launches_f32 += 1
+    return dx, dw.to(w.dtype), db.to(b.dtype)
+
+
 class _QKVProjAttention(torch.autograd.Function):
-    """The kernels (``plain`` False) or the plain versions (``plain`` True)."""
+    """The kernels (``plain`` False) or the plain versions (``plain`` True).
+    The fp32 kernels' backward also takes the forward's output (saved without
+    a copy) and log-sum-exp, saved when a backward will follow."""
 
     @staticmethod
     def forward(ctx, x, w, b, num_heads, softmax_f32, valid_len, plain):
-        ctx.save_for_backward(x, w, b)
         ctx.args = (num_heads, softmax_f32, valid_len)
         ctx.plain = plain
-        run = fused_qkvproj_attention_reference if plain else _forward_kernel
-        return run(x, w, b, num_heads, softmax_f32, valid_len)
+        saved = ()
+        if plain:
+            out = fused_qkvproj_attention_reference(x, w, b, num_heads, softmax_f32, valid_len)
+        elif x.dtype == torch.float32 and any(ctx.needs_input_grad[:3]):
+            out, lse = _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len, keep=True)
+            saved = (out, lse)
+        else:
+            out = _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len)
+        ctx.save_for_backward(x, w, b, *saved)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        x, w, b = ctx.saved_tensors
-        run = fused_qkvproj_attention_backward_reference if ctx.plain else _backward_kernel
-        dx, dw, db = run(x, w, b, dout.contiguous(), *ctx.args)
+        x, w, b, *saved = ctx.saved_tensors
+        if ctx.plain:
+            dx, dw, db = fused_qkvproj_attention_backward_reference(x, w, b, dout.contiguous(),
+                                                                    *ctx.args)
+        else:
+            out, lse = saved or (None, None)
+            dx, dw, db = _backward_kernel(x, w, b, dout.contiguous(), *ctx.args, out=out,
+                                          lse=lse)
         return dx, dw, db, None, None, None, None
 
 
@@ -274,9 +379,9 @@ def fused_qkvproj_attention(
     ``b`` (3D,) the fused QKV projection in the compute dtype; keys at or past
     ``valid_len`` are masked out of the softmax.  Rows at or past
     ``valid_len`` are computed but meaningless; their upstream gradient is
-    zero.  On the card the kernels take contiguous bfloat16 tensors, a head
-    dim of 32 or 64, 1..256 tokens and a Din that is a multiple of 64, and
-    raise on anything else.
+    zero.  On the card the kernels take contiguous bfloat16 (up to 256
+    tokens) or float32 (any number) tensors of one dtype, a head dim of 32
+    or 64 and a Din that is a multiple of 64, and raise on anything else.
     """
     if x.device.type == "cpu":
         return fused_qkvproj_attention_plain(x, w, b, num_heads, softmax_f32, valid_len)

@@ -4,10 +4,15 @@ Counterpart of ``ssl4polyp_tpu/ops/attn_proj.py``::
 
     fused_attention_proj(qkv, w, b) = attention_core(qkv) @ w.T + b
 
-with ``w`` in torch's (out, in) layout.  On the card the forward is one CUDA
-kernel (``csrc/attn_proj.cu``) in which the (B, N, D) core output never
-leaves the SM; the backward recomputes it and returns dqkv, dw and db from
-hand-written kernels alone (the projection's three products included).  The
+with ``w`` in torch's (out, in) layout.  On the card, in bf16, the forward is
+one CUDA kernel (``csrc/attn_proj.cu``) in which the (B, N, D) core output
+never leaves the SM; the backward recomputes it and returns dqkv, dw and db
+from hand-written kernels alone (the projection's three products included).
+fp32 tensors (the runs that compute in fp32) take ``csrc/attn_proj_f32.cu``,
+with launch counts of their own: the fp32 attention forward, whose output O
+and log-sum-exp autograd saves when a backward follows, then the fp32 SGEMM
+for the projection; the backward's dO, dW (split over the rows) and db, then
+the fp32 attention backward from the saved O, all hand-written kernels.  The
 knob is the JAX package's: ``BENCH_ATTN_PROJ=1``
 (:func:`attn_proj_fold_enabled`), read where a model is built.
 
@@ -24,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from ._checks import FP32_FUSION_KNOBS, check_bf16, check_gradient
+from ._checks import check_gradient, check_one_dtype, saved_or_scratch
 from .qkv_attention import (
     _MAX_TOKENS,
     _scale,
@@ -36,22 +41,27 @@ __all__ = [
     "BACKWARD_PHASES",
     "attn_proj_fold_enabled",
     "backward_launches",
+    "backward_launches_f32",
     "fused_attention_proj",
     "fused_attention_proj_backward_reference",
     "fused_attention_proj_plain",
     "fused_attention_proj_reference",
     "launches",
+    "launches_f32",
 ]
 
 # Kernel launches since the last ops.reset_launch_counts(): forward calls,
-# and backward calls (each a fixed sequence of kernels, see csrc/attn_proj.cu).
+# and backward calls (each a fixed sequence of kernels, see csrc/attn_proj.cu
+# and csrc/attn_proj_f32.cu); bf16, fp32.
 launches = 0
 backward_launches = 0
+launches_f32 = 0
+backward_launches_f32 = 0
 
 _HEAD_DIMS = (32, 64)
 # Row slices of the backward's dW on its first design (csrc/attn_proj.cu).
 _FIRST_DESIGN_DW_SLICES = 4
-_DB_ROWS = 64
+_DB_ROWS = 64  # rows of dy a partial column sum of db takes (both dtypes' kernels)
 
 
 def attn_proj_fold_enabled() -> bool:
@@ -102,30 +112,55 @@ def _check(qkv, w, b, num_heads, valid_len) -> None:
     D = three_d // 3
     if D % num_heads or D // num_heads not in _HEAD_DIMS:
         raise ValueError(f"head dim {D / num_heads} not in {_HEAD_DIMS}")
-    if D % 128:
-        raise ValueError(f"the kernel takes a width that is a multiple of 128, got {D}")
-    if not 1 <= N <= _MAX_TOKENS:
-        raise ValueError(f"the kernel takes 1..{_MAX_TOKENS} tokens, got {N}")
+    check_one_dtype((qkv, w, b))
+    if qkv.dtype == torch.bfloat16 and D % 128:
+        raise ValueError(f"the bf16 kernel takes a width that is a multiple of 128, got {D}")
+    if N < 1 or (qkv.dtype == torch.bfloat16 and N > _MAX_TOKENS):
+        raise ValueError(f"the bf16 kernel takes 1..{_MAX_TOKENS} tokens (the fp32 kernel any "
+                         f"number), got {N}")
     if valid_len is not None and not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if w.shape != (D, D) or b.shape != (D,):
         raise ValueError(f"w {tuple(w.shape)} and b {tuple(b.shape)} do not fit width {D}")
     for name, t in (("qkv", qkv), ("w", w), ("b", b)):
-        check_bf16(name, t.dtype, FP32_FUSION_KNOBS)
         if t.device != qkv.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {qkv.device}")
 
 
-def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len, ablate: int = 0):
-    """The forward kernel.  ``ablate`` is a measurement aid (csrc/attn_proj.cu:
-    1 leaves out the attention arithmetic, 2 the projection's products): the
-    result is then wrong and only its time is of use."""
+def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len, ablate: int = 0,
+                    keep: bool = False):
+    """The forward kernel of qkv's dtype.  ``ablate`` is a measurement aid of
+    the bf16 kernel (csrc/attn_proj.cu: 1 leaves out the attention
+    arithmetic, 2 the projection's products): the result is then wrong and
+    only its time is of use; the fp32 kernel has none (``ValueError``).  In
+    fp32 ``softmax_f32`` changes nothing, and with ``keep`` it returns ``(y,
+    out, lse)``: the core output (B, N, D) and each row's log-sum-exp (B, H,
+    N), which the fp32 backward reads."""
     from ._build import library
 
-    global launches
+    global launches, launches_f32
     B, N, three_d = qkv.shape
     D = three_d // 3
     head_dim = D // num_heads
+    if qkv.dtype == torch.float32:
+        if ablate:
+            raise ValueError("the fp32 kernel has no ablate bits")
+        core = torch.empty((B, N, D), dtype=torch.float32, device=qkv.device)
+        lse = (torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device) if keep
+               else None)
+        y = torch.empty_like(core)
+        with torch.cuda.device(qkv.device):
+            err = library().ssl4polyp_attn_proj_fwd_f32(
+                qkv.data_ptr(), w.data_ptr(), b.data_ptr(), core.data_ptr(),
+                None if lse is None else lse.data_ptr(), y.data_ptr(), B, N, num_heads,
+                head_dim, N if valid_len is None else int(valid_len),
+                _scale(head_dim, torch.float32), torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"fp32 attn_proj kernel launch failed: CUDA error {err}")
+        launches_f32 += 1
+        return (y, core, lse) if keep else y
+    if keep:
+        raise ValueError("only the fp32 kernel keeps the core output")
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
     with torch.cuda.device(qkv.device):
         err = library().ssl4polyp_attn_proj_fwd(
@@ -147,9 +182,16 @@ _ALL_PHASES = 15
 DW_FIRST_DESIGN_PHASE = 16
 
 
-def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
-    """(dqkv, dw, db) from the backward's four phases."""
+def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len, out=None, lse=None):
+    """(dqkv, dw, db) from the backward kernels of qkv's dtype: the bf16
+    backward's four phases, or the fp32 backward (:func:`_backward_f32`),
+    which also takes the forward's core output and log-sum-exp (``out`` and
+    ``lse``, from ``_forward_kernel`` with ``keep``)."""
     global backward_launches
+    if qkv.dtype == torch.float32:
+        return _backward_f32(qkv, w, b, dy, num_heads, valid_len, out, lse)
+    if out is not None or lse is not None:
+        raise ValueError("out and lse go to the fp32 backward kernel only")
     run, results = _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len)
     run(_ALL_PHASES)
     backward_launches += 1
@@ -200,22 +242,76 @@ def _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
     return run, lambda: (dqkv, dw.to(w.dtype), db.to(b.dtype))
 
 
+def _backward_f32(qkv, w, b, dy, num_heads, valid_len, out, lse):
+    """The fp32 backward's one counted launch (csrc/attn_proj_f32.cu): dO =
+    dy . w, dw split over the rows, db, then the fp32 attention backward on
+    dO from the forward's core output and log-sum-exp; without them (``out``
+    and ``lse`` None) the attention forward runs first into scratch."""
+    from ._build import library
+
+    global backward_launches_f32
+    B, N, three_d = qkv.shape
+    D = three_d // 3
+    head_dim = D // num_heads
+    dev = qkv.device
+    check_gradient("dy", dy, (B, N, D), torch.float32, dev)
+    out, lse, forward_first = saved_or_scratch(out, lse, (B, N, D), (B, num_heads, N), dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        slices = lib.ssl4polyp_sgemm_f32_slices(D, D, B * N)
+    if slices < 1:
+        raise RuntimeError(f"fp32 attn_proj backward: CUDA error {-slices}")
+    delta = torch.empty((B, num_heads, N), dtype=torch.float32, device=dev)  # scratch
+    d_out = torch.empty((B, N, D), dtype=torch.float32, device=dev)          # scratch: dO
+    dqkv = torch.empty_like(qkv)
+    dw_part = (torch.empty((slices, D, D), dtype=torch.float32, device=dev) if slices > 1
+               else None)
+    dw = torch.empty((D, D), dtype=torch.float32, device=dev)
+    db_part = torch.empty((-(-B * N // _DB_ROWS), D), dtype=torch.float32, device=dev)
+    db = torch.empty((D,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.ssl4polyp_attn_proj_bwd_f32(
+            qkv.data_ptr(), w.data_ptr(), dy.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), d_out.data_ptr(), dqkv.data_ptr(),
+            None if dw_part is None else dw_part.data_ptr(), dw.data_ptr(), db_part.data_ptr(),
+            db.data_ptr(), B, N, num_heads, head_dim, N if valid_len is None else int(valid_len),
+            _scale(head_dim, torch.float32), slices, int(forward_first),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"fp32 attn_proj backward kernel launch failed: CUDA error {err}")
+    backward_launches_f32 += 1
+    return dqkv, dw.to(w.dtype), db.to(b.dtype)
+
+
 class _AttentionProj(torch.autograd.Function):
-    """The kernels (``plain`` False) or the plain versions (``plain`` True)."""
+    """The kernels (``plain`` False) or the plain versions (``plain`` True).
+    The fp32 kernels' backward also takes the forward's core output and
+    log-sum-exp, saved when a backward will follow."""
 
     @staticmethod
     def forward(ctx, qkv, w, b, num_heads, softmax_f32, valid_len, plain):
-        ctx.save_for_backward(qkv, w, b)
         ctx.args = (num_heads, softmax_f32, valid_len)
         ctx.plain = plain
-        run = fused_attention_proj_reference if plain else _forward_kernel
-        return run(qkv, w, b, num_heads, softmax_f32, valid_len)
+        saved = ()
+        if plain:
+            y = fused_attention_proj_reference(qkv, w, b, num_heads, softmax_f32, valid_len)
+        elif qkv.dtype == torch.float32 and any(ctx.needs_input_grad[:3]):
+            y, *saved = _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len, keep=True)
+        else:
+            y = _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len)
+        ctx.save_for_backward(qkv, w, b, *saved)
+        return y
 
     @staticmethod
     def backward(ctx, dy):
-        qkv, w, b = ctx.saved_tensors
-        run = fused_attention_proj_backward_reference if ctx.plain else _backward_kernel
-        dqkv, dw, db = run(qkv, w, b, dy.contiguous(), *ctx.args)
+        qkv, w, b, *saved = ctx.saved_tensors
+        if ctx.plain:
+            dqkv, dw, db = fused_attention_proj_backward_reference(qkv, w, b, dy.contiguous(),
+                                                                   *ctx.args)
+        else:
+            out, lse = saved or (None, None)
+            dqkv, dw, db = _backward_kernel(qkv, w, b, dy.contiguous(), *ctx.args, out=out,
+                                            lse=lse)
         return dqkv, dw, db, None, None, None, None
 
 
@@ -231,7 +327,10 @@ def fused_attention_proj(
     keys at or past ``valid_len``); ``w`` (D, D) is (out, in) and ``b`` (D,),
     both in the compute dtype.  Rows at or past ``valid_len`` are computed
     but meaningless; their upstream gradient is zero, so they add exact
-    zeros to dw and db.
+    zeros to dw and db.  On the card the kernels take contiguous tensors of
+    one dtype, bfloat16 (up to 256 tokens, D a multiple of 128) or float32
+    (any number of tokens and heads), and a head dim of 32 or 64, and raise
+    on anything else.
     """
     if qkv.device.type == "cpu":
         return fused_attention_proj_plain(qkv, w, b, num_heads, softmax_f32, valid_len)

@@ -24,10 +24,8 @@ __global__ void __launch_bounds__(kSgemmThreads, 2)
 fc1_gelu_f32_kernel(const float* __restrict__ x, const float* __restrict__ w,
                     const float* __restrict__ b, float* __restrict__ h, float* __restrict__ y,
                     int M, int K, int NF) {
-  auto load_x = [&](int row, int k) {
-    return *reinterpret_cast<const float4*>(x + static_cast<long>(row) * K + k);
-  };
-  sgemm_f32_tile(load_x, w, M, K, NF, [&](int row, int col, float4 acc) {
+  sgemm_f32_tile(k_major(RowLoad{x, K}, M), k_major(RowLoad{w, K}, NF), 0, K,
+                 [&](int row, int col, float4 acc) {
     const float4 bias = *reinterpret_cast<const float4*>(b + col);
     const float4 pre = make_float4(acc.x + bias.x, acc.y + bias.y, acc.z + bias.z,
                                    acc.w + bias.w);

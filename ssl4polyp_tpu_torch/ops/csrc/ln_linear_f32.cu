@@ -76,7 +76,8 @@ ln_linear_f32_kernel(const float* __restrict__ x, const float* __restrict__ s,
     return make_float4((v.x - st.x) * st.y * sc.x + sh.x, (v.y - st.x) * st.y * sc.y + sh.y,
                        (v.z - st.x) * st.y * sc.z + sh.z, (v.w - st.x) * st.y * sc.w + sh.w);
   };
-  sgemm_f32_tile(load_m, w, M, K, N, [&](int row, int col, float4 acc) {
+  sgemm_f32_tile(KMajor<decltype(load_m)>{load_m, M}, k_major(RowLoad{w, K}, N), 0, K,
+                 [&](int row, int col, float4 acc) {
     const float4 bias = *reinterpret_cast<const float4*>(b + col);
     *reinterpret_cast<float4*>(out + static_cast<long>(row) * N + col) =
         make_float4(acc.x + bias.x, acc.y + bias.y, acc.z + bias.z, acc.w + bias.w);

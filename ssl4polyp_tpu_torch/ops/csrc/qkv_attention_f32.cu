@@ -14,7 +14,11 @@
 // a softmax over the row; out = W . v.  The backward gives dV = W^T dO,
 // dW = dO V^T, dS = W * (dW - D), dQ = scale * dS K and dK = scale * dS^T Q
 // (q unscaled), with D = rowsum(dO * O), which equals the plain version's
-// tmp = rowsum(dW * W) in exact arithmetic.
+// tmp = rowsum(dW * W) in exact arithmetic.  In the `scaled_ds` mode the scale
+// sits where ssl4polyp_tpu/ops/attention_block.py::_bwd_kernel puts it (the
+// backward of fused_qkvproj_attention, which attention_block_f32.cu runs):
+// dS = W * (dW - D) * scale, dQ = dS K and dK = dS^T Q.  In fp32 the two
+// modes differ only in the order of the multiplications.
 //
 // What bounds them on the H100: at the classifier's shape (B 64, N 197, 12
 // heads of 64) the forward is 7.6 GFLOP against 155 MB of compulsory
@@ -65,6 +69,7 @@
 //     tiles, 3D) scratch, and a column sum adds the rows in order: dbias.
 // Head dims 32 and 64.  Every sum is taken in an order fixed by the shape.
 #include "common.cuh"
+#include "qkv_attention_f32.cuh"
 
 namespace {
 
@@ -418,7 +423,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              const float* __restrict__ dout, float* __restrict__ dqkv,
-                             float* __restrict__ part, int N, int H, int n_valid, float scale) {
+                             float* __restrict__ part, int N, int H, int n_valid, float scale,
+                             bool scaled_ds) {
   constexpr int DC = HD / kGroups, LD = HD + 4;
   extern __shared__ __align__(16) float smem[];
   float* s_k = smem;
@@ -439,6 +445,9 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
   const int tiles = (N + kTile - 1) / kTile;
   const int key_tiles = (n_valid + kTile - 1) / kTile;  // those with a weighted key
   const long part_row = static_cast<long>(blockIdx.z) * tiles;
+  // Where the scale goes: into dS (scaled_ds), or onto dQ and dK.
+  const float ds_scale = scaled_ds ? scale : 1.0f;
+  const float out_scale = scaled_ds ? 1.0f : scale;
 
   load_tile<HD>(s_k, head.src + D, head.stride, 0, N);
   load_tile<HD>(s_v, head.src + 2 * D, head.stride, 0, N);
@@ -484,7 +493,7 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
           const float p = ok ? expf(st[i][j] - row_l[j]) : 0.0f;
           const int at = (rg + kGroups * i) * kLdS + cg + kGroups * j;
           s_p[at] = p;
-          s_ds[at] = p * (dwt[i][j] - row_d[j]);
+          s_ds[at] = p * (dwt[i][j] - row_d[j]) * ds_scale;
         }
       __syncthreads();  // P^T, dS^T visible
       product<HD>(dk, s_ds, s_q, rg, cg, keys, count);
@@ -511,7 +520,8 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
       cp_async_commit();
       product<HD>(dv, s_p, s_do, rg, cg, keys, count);
       // The tile's dQ rows += this key tile's part, in key-tile order; the
-      // last part then times the scale (the plain version's (dS K) scale).
+      // last part then times out_scale (the plain version's (dS K) scale, or
+      // 1 where dS holds it).
       float column[DC] = {};
 #pragma unroll
       for (int a = 0; a < kPer; ++a) {
@@ -524,7 +534,7 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
         for (int c = 0; c < DC; ++c) {
           v[c] = kt > 0 ? v[c] + dq[a][c] : dq[a][c];
           if (last) {
-            v[c] *= scale;
+            v[c] *= out_scale;
             column[c] += v[c];
           }
         }
@@ -562,7 +572,7 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
       float k[DC], v[DC];
 #pragma unroll
       for (int c = 0; c < DC; ++c) {
-        k[c] = dk[i][c] * scale;
+        k[c] = dk[i][c] * out_scale;
         v[c] = dv[i][c];
         column[0][c] += k[c];
         column[1][c] += v[c];
@@ -618,8 +628,8 @@ cudaError_t launch_fwd(const float* qkv, const float* bias, float* out, float* l
 template <int HD>
 cudaError_t launch_bwd(const float* qkv, const float* bias, const float* dout, float* out,
                        float* lse, float* delta, float* dqkv, float* part, float* dbias, int B,
-                       int N, int H, int n_valid, float scale, bool forward_first,
-                       cudaStream_t stream) {
+                       int N, int H, int n_valid, float scale, bool scaled_ds,
+                       bool forward_first, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   if (forward_first) {
     err = launch_fwd<HD>(qkv, bias, out, lse, B, N, H, n_valid, scale, stream);
@@ -637,7 +647,8 @@ cudaError_t launch_bwd(const float* qkv, const float* bias, const float* dout, f
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   qkv_attention_f32_bwd_kernel<HD><<<dim3(1, H, B), kThreads, bytes, stream>>>(
-      qkv, bias, lse, delta, dout, dqkv, bias != nullptr ? part : nullptr, N, H, n_valid, scale);
+      qkv, bias, lse, delta, dout, dqkv, bias != nullptr ? part : nullptr, N, H, n_valid, scale,
+      scaled_ds);
   err = cudaGetLastError();
   if (err != cudaSuccess || bias == nullptr) return err;
   return launch_column_sum<32>(part, B * ((N + kTile - 1) / kTile), 3 * H * HD, dbias, stream);
@@ -676,14 +687,14 @@ extern "C" int ssl4polyp_qkv_attention_fwd_f32(const void* qkv, const void* bias
 // (part_rows, 3*H*hd) fp32 scratch, part_rows = B * ceil(N / 64), and dbias
 // (3*H*hd,) fp32 receives the bias gradient (the sum of dqkv over every
 // row).  hd 32 or 64; 1 <= n_valid <= N; scale: the fp32 1/sqrt(hd), folded
-// into q and applied to dQ and dK.  Returns the first failing launch's CUDA
-// error.
+// into q and applied to dQ and dK, or with scaled_ds to dS.  Returns the
+// first failing launch's CUDA error.
 extern "C" int ssl4polyp_qkv_attention_bwd_f32(const void* qkv, const void* bias,
                                                const void* dout, void* out, void* lse,
                                                void* delta, void* dqkv, void* dbias_part,
                                                void* dbias, int part_rows, int B, int N, int H,
                                                int head_dim, int n_valid, float scale,
-                                               int forward_first, void* stream) {
+                                               int scaled_ds, int forward_first, void* stream) {
   if (!shape_ok(B, N, H, n_valid) || out == nullptr || lse == nullptr || delta == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   if (bias != nullptr && (dbias_part == nullptr || dbias == nullptr ||
@@ -698,13 +709,13 @@ extern "C" int ssl4polyp_qkv_attention_bwd_f32(const void* qkv, const void* bias
   float* dq = static_cast<float*>(dqkv);
   float* part = static_cast<float*>(dbias_part);
   float* db = static_cast<float*>(dbias);
-  const bool first = forward_first != 0;
+  const bool first = forward_first != 0, scaled = scaled_ds != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32: return static_cast<int>(launch_bwd<32>(q, bb, d, o, l, dl, dq, part, db, B, N, H,
-                                                    n_valid, scale, first, s));
+                                                    n_valid, scale, scaled, first, s));
     case 64: return static_cast<int>(launch_bwd<64>(q, bb, d, o, l, dl, dq, part, db, B, N, H,
-                                                    n_valid, scale, first, s));
+                                                    n_valid, scale, scaled, first, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

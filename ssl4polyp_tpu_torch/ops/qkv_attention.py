@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from ._checks import check_gradient
+from ._checks import check_gradient, saved_or_scratch
 
 __all__ = [
     "backward_launches",
@@ -245,10 +245,10 @@ def backward_plan(num_tokens: int, head_dim: int) -> dict:
 def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: int = 0,
                      scaled_ds: bool = False, out=None, lse=None):
     """The backward kernel of qkv's dtype.  ``probe`` (0 on every path) is a
-    measurement aid: the ``PROBE_*`` bits above.  ``scaled_ds``: the scale
-    where ``attention_block.py`` puts it (as the plain version's argument;
-    head dims 32 and 64), the mode ``fused_qkvproj_attention``'s backward
-    runs.  The fp32 kernel has neither (``ValueError``).  ``out`` and
+    measurement aid: the ``PROBE_*`` bits above; the fp32 kernel has none
+    (``ValueError``).  ``scaled_ds``: the scale where ``attention_block.py``
+    puts it (as the plain version's argument; head dims 32 and 64), the mode
+    ``fused_qkvproj_attention``'s backward runs, in either dtype.  ``out`` and
     ``lse``: the fp32 forward's output and log-sum-exp (``_forward_kernel``
     with ``lse``), as the autograd path hands them over; without them the
     fp32 backward's launch runs the forward kernel into scratch first.  The
@@ -258,19 +258,15 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
     global backward_launches, backward_launches_f32
     check_gradient("dout", dout, (*qkv.shape[:2], qkv.shape[2] // 3), qkv.dtype, qkv.device)
     f32 = qkv.dtype == torch.float32
-    if f32 and (probe or scaled_ds):
-        raise ValueError("the fp32 backward kernel has no probe bits and no scaled_ds mode")
-    if (out is None) != (lse is None) or (not f32 and out is not None):
-        raise ValueError("out and lse go together, to the fp32 backward kernel only")
+    if f32 and probe:
+        raise ValueError("the fp32 backward kernel has no probe bits")
+    if not f32 and (out is not None or lse is not None):
+        raise ValueError("out and lse go to the fp32 backward kernel only")
     B, N, three_d = qkv.shape
     head_dim = three_d // 3 // num_heads
-    forward_first = f32 and out is None
-    if forward_first:
-        out = torch.empty((B, N, three_d // 3), dtype=torch.float32, device=qkv.device)
-        lse = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
-    elif f32:
-        check_gradient("out", out, (B, N, three_d // 3), torch.float32, qkv.device)
-        check_gradient("lse", lse, (B, num_heads, N), torch.float32, qkv.device)
+    if f32:
+        out, lse, forward_first = saved_or_scratch(out, lse, (B, N, three_d // 3),
+                                                   (B, num_heads, N), qkv.device)
     dqkv = torch.empty_like(qkv)
     part = dbias = None
     if bias is not None:
@@ -284,12 +280,13 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
              _scale(head_dim, qkv.dtype))
     with torch.cuda.device(qkv.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if f32:  # one scale, the fp32 1/sqrt(hd), folds into q and scales dQ and dK
+        if f32:  # one scale, the fp32 1/sqrt(hd), folds into q and scales dQ and dK (or dS)
             delta = torch.empty((B, num_heads, N), dtype=torch.float32, device=qkv.device)
             err = library().ssl4polyp_qkv_attention_bwd_f32(
                 qkv.data_ptr(), bias_ptr, dout.data_ptr(), out.data_ptr(), lse.data_ptr(),
                 delta.data_ptr(), dqkv.data_ptr(), part_ptr, dbias_ptr,
-                0 if part is None else part.shape[0], *shape, int(forward_first), stream)
+                0 if part is None else part.shape[0], *shape, int(bool(scaled_ds)),
+                int(forward_first), stream)
         else:
             err = library().ssl4polyp_qkv_attention_bwd_mode(
                 qkv.data_ptr(), bias_ptr, dout.data_ptr(), dqkv.data_ptr(), part_ptr, dbias_ptr,

@@ -73,7 +73,10 @@ def _assert_all_close(ours, ref, tol, bwd_tol, rows=slice(None)):
 @pytest.mark.parametrize("softmax_f32", [True, False])
 @pytest.mark.parametrize(
     "B, N, H, hd, valid_len",
-    [(2, 37, 4, 16, None), (2, 29, 2, 32, 25), (1, 24, 2, 64, 19), (4, 24, 4, 8, None)],
+    [(2, 37, 4, 16, None), (2, 29, 2, 32, 25), (1, 24, 2, 64, 19), (4, 24, 4, 8, None),
+     # what only the fp32 kernels take: an odd head count (D 160, not a
+     # multiple of 128), and 300 tokens, past the bf16 kernels' 256
+     (3, 61, 5, 32, None), (1, 300, 2, 32, 280)],
 )
 def test_plain_matches_jax_kernel_fp32(B, N, H, hd, valid_len, softmax_f32):
     qkv, w, b, dy = _inputs(0, B, N, H, hd)

@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from ssl4polyp_tpu_torch import ops
-from ssl4polyp_tpu_torch.ops import attn_proj, layernorm, ln_linear, mlp, qkv_attention
+from ssl4polyp_tpu_torch.ops import (attention, attention_block, attn_proj, layernorm, ln_linear,
+                                     mlp, qkv_attention)
 
 pytestmark = pytest.mark.cuda
 
@@ -232,11 +233,102 @@ def test_ln_linear_kernel_matches_plain(gen, M, K, N):
         _assert_close(a.grad, r.grad, GRAD_FRAC, name)
 
 
+# The attention+projection fold in fp32 (csrc/attn_proj_f32.cu), through the
+# public wrapper forward and backward: the classifier's and the MAE
+# decoder's shapes, valid_len below N (the pad rows' upstream gradient zero),
+# one token, 300 tokens (past the bf16 kernels' 256), hd 32 with an odd head
+# count, and B * N rows that are not a multiple of 8 (the split-K slices'
+# ragged end).
+@pytest.mark.parametrize("B, N, H, hd, valid_len", [
+    (3, 197, 12, 64, None),   # the classifier's
+    (3, 197, 16, 32, None),   # the MAE decoder's
+    (3, 197, 12, 64, 150),
+    (2, 1, 4, 64, None),
+    (2, 300, 8, 32, 280),
+    (3, 61, 5, 32, None),
+])
+def test_attn_proj_kernels_match_plain(gen, B, N, H, hd, valid_len):
+    D = H * hd
+    qkv, dy = _randn(gen, B, N, 3 * D), _randn(gen, B, N, D)
+    w, b = _randn(gen, D, D, scale=D ** -0.5), _randn(gen, D, scale=0.5)
+    dy[:, valid_len or N:] = 0
+    leaves = [t.clone().requires_grad_() for t in (qkv, w, b)]
+    ops.reset_launch_counts()
+    y = attn_proj.fused_attention_proj(*leaves, H, True, valid_len)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {"attn_proj_f32": 1,
+                                                      "attn_proj_backward_f32": 1}
+    ref = attn_proj.fused_attention_proj_reference(qkv, w, b, H, True, valid_len)
+    ref_grads = attn_proj.fused_attention_proj_backward_reference(qkv, w, b, dy, H, True,
+                                                                  valid_len)
+    _assert_close(y.detach(), ref, FWD_FRAC, "y")
+    for name, leaf, want in zip(("dqkv", "dw", "db"), leaves, ref_grads):
+        _assert_close(leaf.grad, want, GRAD_FRAC, name)
+    # Reruns, and the backward's launch from (qkv, w, b, dy) alone, which
+    # runs the attention forward first: the same bits (no atomics).
+    again = attn_proj._backward_kernel(qkv, w, b, dy, H, True, valid_len)
+    assert all(torch.equal(a, leaf.grad) for a, leaf in zip(again, leaves))
+    assert torch.equal(attn_proj._forward_kernel(qkv, w, b, H, True, valid_len), y.detach())
+
+
+# The QKV projection with the attention core in fp32
+# (csrc/attention_block_f32.cu), through the public wrapper: the same cases,
+# at Din 768, 512 and narrower widths.
+@pytest.mark.parametrize("B, N, Din, H, hd, valid_len", [
+    (3, 197, 768, 12, 64, None),   # the classifier's
+    (3, 197, 512, 16, 32, None),   # the MAE decoder's
+    (3, 197, 768, 12, 64, 150),
+    (2, 1, 128, 4, 64, None),
+    (2, 300, 256, 8, 32, 280),
+    (3, 61, 192, 5, 32, None),
+])
+def test_qkvproj_attention_kernels_match_plain(gen, B, N, Din, H, hd, valid_len):
+    D = H * hd
+    x, dout = _randn(gen, B, N, Din), _randn(gen, B, N, D)
+    w, b = _randn(gen, Din, 3 * D, scale=Din ** -0.5), _randn(gen, 3 * D, scale=0.5)
+    dout[:, valid_len or N:] = 0
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    ops.reset_launch_counts()
+    out = attention_block.fused_qkvproj_attention(*leaves, H, True, valid_len)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert {n: c for n, c in counts.items() if c} == {
+        "fused_qkvproj_attention_f32": 1, "fused_qkvproj_attention_backward_f32": 1}
+    ref = attention_block.fused_qkvproj_attention_reference(x, w, b, H, True, valid_len)
+    ref_grads = attention_block.fused_qkvproj_attention_backward_reference(
+        x, w, b, dout, H, True, valid_len)
+    _assert_close(out.detach(), ref, FWD_FRAC, "out")
+    for name, leaf, want in zip(("dx", "dw", "db"), leaves, ref_grads):
+        _assert_close(leaf.grad, want, GRAD_FRAC, name)
+    again = attention_block._backward_kernel(x, w, b, dout, H, True, valid_len)
+    assert all(torch.equal(a, leaf.grad) for a, leaf in zip(again, leaves))
+    assert torch.equal(attention_block._forward_kernel(x, w, b, H, True, valid_len),
+                       out.detach())
+
+
+@pytest.mark.parametrize("N, valid_len", [(61, None), (197, 150)])
+@pytest.mark.parametrize("hd", [32, 64])
+def test_attention_backward_in_the_scaled_ds_mode_matches_plain(gen, N, valid_len, hd):
+    H = 3
+    qkv, bias = _randn(gen, 2, N, 3 * H * hd), _randn(gen, 3 * H * hd, scale=0.5)
+    dout = _randn(gen, 2, N, H * hd)
+    dqkv, dbias = qkv_attention._backward_kernel(qkv, dout, H, True, valid_len, bias,
+                                                 scaled_ds=True)
+    torch.cuda.synchronize()
+    ref_dqkv, ref_dbias = qkv_attention.fused_qkv_attention_backward_reference(
+        qkv, dout, H, True, valid_len, bias, scaled_ds=True)
+    _assert_close(dqkv, ref_dqkv, GRAD_FRAC, "dqkv")
+    _assert_close(dbias, ref_dbias, GRAD_FRAC, "dbias")
+
+
 def test_bf16_only_wrappers_refuse_fp32_on_the_card(gen):
-    qkv, w, b = _randn(gen, 1, 8, 384), _randn(gen, 128, 128), _randn(gen, 128)
+    q = _randn(gen, 1, 2, 8, 64)
     with torch.inference_mode():
-        with pytest.raises(TypeError, match=r"not yet ported \(ROADMAP.md §2a, item 1\)"):
-            attn_proj.fused_attention_proj(qkv, w, b, 2)
+        with pytest.raises(TypeError, match=r"not yet ported \(ROADMAP.md §2a, item 2\)"):
+            attention.fused_attention(q, q, q)
 
 
 def test_dense_fp32_gradients_do_not_take_tf32(gen):

@@ -596,8 +596,8 @@ def test_attn_proj_padded_equals_unpadded(gen):
 def test_attn_proj_wrapper_refuses_what_the_kernel_does_not_take(gen):
     w, b = _randn(gen, 128, 128), _randn(gen, 128)
     with torch.inference_mode():
-        with pytest.raises(TypeError):
-            attn_proj.fused_attention_proj(_randn(gen, 1, 8, 384).float(), w.float(), b.float(), 4)
+        with pytest.raises(TypeError):  # fp32 qkv under bf16 weights: a kernel a dtype
+            attn_proj.fused_attention_proj(_randn(gen, 1, 8, 384).float(), w, b, 4)
         with pytest.raises(ValueError):  # head dim 16
             attn_proj.fused_attention_proj(_randn(gen, 1, 8, 384), w, b, 8)
         with pytest.raises(ValueError):  # width 64 is not a multiple of 128
@@ -1012,8 +1012,8 @@ def test_qkvproj_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
 
     x, w, b = _randn(gen, 1, 8, 64), _randn(gen, 64, 384), _randn(gen, 384)
     with torch.inference_mode():
-        with pytest.raises(TypeError):
-            fused_qkvproj_attention(x.float(), w.float(), b.float(), 4)
+        with pytest.raises(TypeError):  # fp32 x under bf16 weights: a kernel a dtype
+            fused_qkvproj_attention(x.float(), w, b, 4)
         with pytest.raises(ValueError):  # head dim 16
             fused_qkvproj_attention(x, w, b, 8)
         with pytest.raises(ValueError):  # Din 32 is not a multiple of 64

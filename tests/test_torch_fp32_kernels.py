@@ -11,13 +11,21 @@ fused MLP, the fused LN+MLP and LN+QKV.  Here:
   ViT-B's widths); the fp32 cases of ``test_torch_qkv_attention.py`` (N
   21-37) are not repeated;
 * the wrappers' checks on CPU tensors: fp32 and bf16 accepted, mixed dtypes
-  refused, and the wrappers whose fp32 kernel is not yet ported refusing
-  fp32 with the ROADMAP.md item that lists it; with a stub library, that an
-  fp32 tensor reaches the ``_f32`` entry points and counters and a bf16 one
-  the bf16 entry points (nothing is built or launched), that the fp32
-  attention takes any token count where
-  bf16 stops at 256, and that its autograd hands the backward the forward's
-  output and log-sum-exp;
+  refused, and the wrapper whose fp32 kernel is not yet ported
+  (``fused_attention``) refusing fp32 with the ROADMAP.md item that lists
+  it; with a stub library, that an fp32 tensor reaches the ``_f32`` entry
+  points and counters and a bf16 one the bf16 entry points (nothing is
+  built or launched), the attention+projection fold and the projection +
+  attention among them, that the fp32 attention, the fold and the
+  projection + attention take any token count where bf16 stops at 256, that
+  the fp32 attention backward's ``scaled_ds`` mode reaches its kernel, and
+  that the autograd of the three hands the backward the forward's output
+  and log-sum-exp;
+* the order of operations of the fp32 kernels of the attention+projection
+  fold and of the projection + attention, emulated in plain torch (the
+  attention backward from the forward's log-sum-exp, key tile by key tile,
+  in both of its modes; the weight gradients summed over the rows in the
+  split-K kernel's slices), against the JAX kernels in interpret mode;
 * the precision settings of both train steps giving the JAX package's fp32
   configurations.
 
@@ -33,6 +41,8 @@ import pytest
 import torch
 
 from ssl4polyp_tpu.configs.layered import load_layered_config as jax_load_config
+from ssl4polyp_tpu.ops.attention_block import fused_qkvproj_attention as jax_qkvproj_attention
+from ssl4polyp_tpu.ops.attn_proj import fused_attention_proj as jax_attention_proj
 from ssl4polyp_tpu.ops.layernorm import layernorm_fused_bwd as jax_layernorm
 from ssl4polyp_tpu.ops.mlp import _forward as jax_fc1_forward
 from ssl4polyp_tpu.ops.mlp import fc1_gelu as jax_fc1_gelu
@@ -47,6 +57,7 @@ from ssl4polyp_tpu_torch.ops import (_build, attention, attention_block, attn_pr
 from ssl4polyp_tpu_torch.ops.qkv_attention import (
     fused_qkv_attention,
     fused_qkv_attention_backward_reference,
+    fused_qkv_attention_reference,
 )
 from ssl4polyp_tpu_torch.training import pretrain, protocol
 
@@ -228,7 +239,7 @@ def _fusion_checks(dtype, weight_dtype=None):
     """Each fusion knob's and public function's check on tensors of
     ``dtype`` (the weights of ``weight_dtype`` when given), with the
     ROADMAP.md item its refusal of fp32 names: None for the kernels whose
-    fp32 version is ported (§2a item 1a)."""
+    fp32 version is ported (§2a items 1a, 1b and the first half of 2)."""
     f32, wd = torch.float32, weight_dtype or dtype
     x, w1, b1 = _t((8, 512), dtype), _t((64, 512), wd), _t(64, wd)
     w2, b2, s, t = _t((512, 64), wd), _t(512, wd), _t(512, f32), _t(512, f32)
@@ -239,8 +250,8 @@ def _fusion_checks(dtype, weight_dtype=None):
         ("mlp_fused", lambda: mlp._check_fused(x, None, None, w1, b1, w2, b2), None),
         ("mlp_ln_fused", lambda: mlp._check_fused(x, s, t, w1, b1, w2, b2), None),
         ("ln_linear", lambda: ln_linear._check(x, s, t, w1, b1), None),
-        ("fused_attention_proj", lambda: attn_proj._check(qkv, w, b, 2, None), 1),
-        ("fused_qkvproj_attention", lambda: attention_block._check(xb, wb, bb, 2, None), 2),
+        ("fused_attention_proj", lambda: attn_proj._check(qkv, w, b, 2, None), None),
+        ("fused_qkvproj_attention", lambda: attention_block._check(xb, wb, bb, 2, None), None),
         ("fused_attention", lambda: attention._check(q, q, q), 2),
     ]
 
@@ -249,9 +260,11 @@ def _fusion_checks(dtype, weight_dtype=None):
                                                 "fused_attention_proj",
                                                 "fused_qkvproj_attention", "fused_attention"])
 def test_bf16_only_wrappers_refuse_fp32_naming_the_roadmap_item(index):
-    """The kernels still bf16-only refuse fp32 naming their ROADMAP.md item
-    and fp16 as the bf16 kernel's; the fused MLPs and LN+QKV, ported to fp32,
-    take fp32 and bf16 and refuse fp16 and a mix of the two."""
+    """The kernel still bf16-only (``fused_attention``) refuses fp32 naming
+    its ROADMAP.md item and fp16 as the bf16 kernel's; the fused MLPs,
+    LN+QKV, the attention+projection fold and the projection + attention,
+    ported to fp32, take fp32 and bf16 and refuse fp16 and a mix of the
+    two."""
     _, check, item = _fusion_checks(torch.float32)[index]
     if item is None:
         check()  # accepted
@@ -292,7 +305,9 @@ class _StubLibrary:
         def entry(*args):
             self.called.append(name)
             self.args.append(args)
-            return 4 if name.startswith("ssl4polyp_layernorm_bwd_blocks") else 0
+            if name.startswith("ssl4polyp_layernorm_bwd_blocks"):
+                return 4
+            return 3 if name.endswith("_slices") else 0  # the weight gradients' row slices
         return entry
 
 
@@ -366,11 +381,21 @@ def test_fusion_knob_wrappers_reach_the_entry_points_of_their_dtype(stub, dtype,
 
 
 def test_fp32_backward_has_no_probe_and_no_scaled_ds_mode(stub):
+    # The fp32 backward has no probe bits; its scaled_ds mode (the scale
+    # inside dS, as fused_qkvproj_attention's backward takes it) reaches the
+    # kernel as its own argument, off by default.
     qkv, dout = _t((1, 8, 3 * 64)), _t((1, 8, 64))
-    for kwargs in (dict(probe=qkv_attention.PROBE_NO_PHASE_B), dict(scaled_ds=True)):
-        with pytest.raises(ValueError, match="fp32 backward"):
-            qkv_attention._backward_kernel(qkv, dout, 1, True, None, None, **kwargs)
+    with pytest.raises(ValueError, match="fp32 backward kernel has no probe bits"):
+        qkv_attention._backward_kernel(qkv, dout, 1, True, None, None,
+                                       probe=qkv_attention.PROBE_NO_PHASE_B)
     assert stub.called == []
+    for scaled_ds in (True, False):
+        qkv_attention._backward_kernel(qkv, dout, 1, True, None, None, scaled_ds=scaled_ds)
+    # (..., n_valid, scale, scaled_ds, forward_first, stream)
+    assert stub.called == ["ssl4polyp_qkv_attention_bwd_f32"] * 2
+    assert [args[-3] for args in stub.args] == [1, 0]
+    assert stub.args[0][-4] == qkv_attention._scale(64, torch.float32) == 0.125
+    assert ops.launch_counts()["fused_qkv_attention_backward_f32"] == 2
 
 
 def test_fp32_attention_takes_any_token_count_and_bf16_stops_at_256(stub):
@@ -417,6 +442,249 @@ def test_fp32_autograd_hands_the_backward_the_forward_output_and_lse(stub, with_
     qkv_attention._backward_kernel(qkv.detach(), torch.ones_like(out), H, True, 7,
                                    None if bias is None else bias.detach())
     assert stub.called[-1] == "ssl4polyp_qkv_attention_bwd_f32" and stub.args[-1][-2] == 1
+
+
+def _projection_inputs(dtype, N=9):
+    """(qkv, w, b, dy) of the attention+projection fold and (x, w, b, dout) of
+    the projection + attention, at D 128 (2 heads of 64) and Din 64."""
+    H, hd, d_in = 2, 64, 64
+    D = H * hd
+    fold = (_t((2, N, 3 * D), dtype), _t((D, D), dtype), _t(D, dtype), _t((2, N, D), dtype))
+    block = (_t((2, N, d_in), dtype), _t((d_in, 3 * D), dtype), _t(3 * D, dtype),
+             _t((2, N, D), dtype))
+    return H, fold, block
+
+
+@pytest.mark.parametrize("dtype, suffix", [(torch.float32, "_f32"), (torch.bfloat16, "")],
+                         ids=["fp32", "bf16"])
+def test_projection_wrappers_reach_the_entry_points_of_their_dtype(stub, dtype, suffix):
+    H, (qkv, w, b, dy), (x, wb, bb, dout) = _projection_inputs(dtype)
+    y = attn_proj._forward_kernel(qkv, w, b, H, True, None)
+    attn_proj._backward_kernel(qkv, w, b, dy, H, True, 7)
+    out = attention_block._forward_kernel(x, wb, bb, H, True, None)
+    attention_block._backward_kernel(x, wb, bb, dout, H, True, 7)
+    slices = "ssl4polyp_sgemm_f32_slices" if suffix else "ssl4polyp_dw_product_slices"
+    assert stub.called == [
+        "ssl4polyp_attn_proj_fwd" + suffix, slices, "ssl4polyp_attn_proj_bwd" + suffix,
+        "ssl4polyp_qkvproj_attention_fwd" + (suffix or "_probe"), slices,
+        "ssl4polyp_qkvproj_attention_bwd" + (suffix or "_probe")]
+    assert y.shape == out.shape == (2, 9, 128) and y.dtype == out.dtype == dtype
+    counts = ops.launch_counts()
+    for name in ("attn_proj", "attn_proj_backward", "fused_qkvproj_attention",
+                 "fused_qkvproj_attention_backward"):
+        assert counts[name + suffix] == 1, name
+    assert sum(counts.values()) == 4
+    if not suffix:
+        return
+    fwd, _, bwd, block_fwd, block_slices, block_bwd = stub.args
+    # The fold's forward: (qkv, w, b, core, lse, y, B, N, H, hd, n_valid, ...),
+    # no log-sum-exp without keep.
+    assert fwd[4] is None and fwd[5] == y.data_ptr() and fwd[6:11] == (2, 9, H, 64, 9)
+    # Its backward from (qkv, w, b, dy) alone: (..., dw_part, dw, db_part, db, B,
+    # N, H, hd, n_valid, scale, slices, forward_first, stream); the weight
+    # gradient's slices asked for (D, D) over B * N rows.
+    assert stub.args[1] == (128, 128, 18)
+    assert bwd[8] is not None and bwd[12:17] == (2, 9, H, 64, 7) and bwd[-3:-1] == (3, 1)
+    # The projection + attention: (x, w, b, qkv, out, lse, B, N, Din, H, hd,
+    # n_valid, ...); its backward's slices (Din, 3D) over B * N rows.
+    assert block_fwd[4] == out.data_ptr() and block_fwd[5] is None
+    assert block_fwd[6:12] == (2, 9, 64, H, 64, 9)
+    assert block_slices == (64, 384, 18)
+    assert block_bwd[12] is not None and block_bwd[14:20] == (2, 9, 64, H, 64, 7)
+    assert block_bwd[-3:-1] == (3, 1)
+    for run in (lambda: attn_proj._forward_kernel(qkv, w, b, H, True, None, ablate=1),
+                lambda: attention_block._forward_kernel(x, wb, bb, H, True, None, probe=1),
+                lambda: attention_block._backward_kernel(x, wb, bb, dout, H, True, None,
+                                                         probe=1)):
+        with pytest.raises(ValueError, match="fp32"):  # the bf16 kernels' measurement aids
+            run()
+    assert len(stub.called) == 6
+
+
+def test_projection_wrappers_take_any_token_count_in_fp32_and_bf16_stops_at_256(stub):
+    for dtype, N, ok in ((torch.float32, 577, True), (torch.bfloat16, 256, True),
+                         (torch.bfloat16, 257, False)):
+        H, (qkv, w, b, _), (x, wb, bb, _) = _projection_inputs(dtype, N)
+        for check in (lambda: attn_proj._check(qkv, w, b, H, N - 1),  # noqa: B023
+                      lambda: attention_block._check(x, wb, bb, H, None)):  # noqa: B023
+            if ok:
+                check()
+            else:
+                with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
+                    check()
+    # fp32 takes any number of heads in the fold (5 of 32: D 160); bf16 a D
+    # that is a multiple of 128.
+    attn_proj._check(_t((1, 8, 480)), _t((160, 160)), _t(160), 5, None)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        attn_proj._check(_t((1, 8, 480), torch.bfloat16), _t((160, 160), torch.bfloat16),
+                         _t(160, torch.bfloat16), 5, None)
+    assert stub.called == []
+
+
+@pytest.mark.parametrize("fold", [True, False], ids=["attn_proj", "qkvproj_attention"])
+def test_fp32_projection_autograd_hands_the_backward_the_forward_output_and_lse(stub, fold):
+    H, (qkv, w, b, _), (x, wb, bb, _) = _projection_inputs(torch.float32)
+    if fold:
+        leaves, function, names = (qkv, w, b), attn_proj._AttentionProj, "attn_proj"
+        kept, lse_at = 3, 4  # the forward's core output and log-sum-exp arguments
+    else:
+        leaves, function = (x, wb, bb), attention_block._QKVProjAttention
+        names, kept, lse_at = "fused_qkvproj_attention", 4, 5
+    leaves = [t.clone().requires_grad_() for t in leaves]
+    out = function.apply(*leaves, H, True, 7, False)
+    out.backward(torch.ones_like(out))
+    fwd, bwd = stub.args[0], stub.args[-1]
+    assert stub.called[0].endswith("fwd_f32") and stub.called[-1].endswith("bwd_f32")
+    # The backward reads the tensors the forward wrote (the fold's core
+    # output, the projection + attention's output itself) and their
+    # log-sum-exp, and runs no forward of its own.
+    assert fwd[kept] is not None and fwd[lse_at] is not None
+    if not fold:
+        assert fwd[kept] == out.data_ptr()
+    assert (bwd[kept], bwd[lse_at]) == (fwd[kept], fwd[lse_at]) and bwd[-2] == 0
+    counts = ops.launch_counts()
+    assert counts[names + "_f32"] == counts[names + "_backward_f32"] == 1
+    # Without a backward to follow, no log-sum-exp is written.
+    with torch.inference_mode():
+        function.apply(*[t.detach() for t in leaves], H, True, 7, False)
+    assert stub.args[-1][lse_at] is None
+
+
+# The fp32 card kernels' order of operations, emulated in plain torch
+# against the JAX kernels in fp32: the same arithmetic in the kernels'
+# grouping, so a fault of the grouping (a slice bound, a key tile's edge, the
+# scale on the wrong side) shows here, on the CPU.
+
+def _split_k(a, g, slices):
+    """a^T g summed over the rows as the fp32 split-K product sums it
+    (csrc/sgemm_f32.cuh): slice z takes rows [z c, (z + 1) c) with c = 8
+    ceil(ceil(K / slices) / 8), each slice's product in fp32 (zero where a
+    slice is empty), the slices added in slice order."""
+    chunk = -(-(-(-a.shape[0] // slices)) // 8) * 8
+    total = None
+    for z in range(slices):
+        rows = slice(z * chunk, (z + 1) * chunk)
+        part = a[rows].t() @ g[rows]
+        total = part if total is None else total + part
+    return total
+
+
+def _card_attention_backward(qkv, bias, dout, H, valid_len, scaled_ds):
+    """The fp32 attention backward's steps (csrc/qkv_attention_f32.cu): the
+    forward's output O and each row's log-sum-exp L; D = rowsum(dO * O); for
+    each 64-key tile in ascending order P = exp(S - L), dS = P * (dO V^T -
+    D), times the scale in the scaled_ds mode, the tile's dK = dS^T Q and dV
+    = P^T dO, dQ += dS K; the scale on dQ and dK at the end otherwise.
+    Returns dqkv and dbias, the column sums of dqkv."""
+    B, N, three_d = qkv.shape
+    hd = three_d // 3 // H
+    scale = qkv_attention._scale(hd, torch.float32)
+    nv = N if valid_len is None else valid_len
+    q, k, v = (qkv + bias).reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)
+    s = (q * scale) @ k[..., :nv, :].transpose(-1, -2)
+    lse = torch.logsumexp(s, dim=-1, keepdim=True)
+    out = torch.exp(s - lse) @ v[..., :nv, :]
+    do = dout.reshape(B, N, H, hd).permute(0, 2, 1, 3)
+    delta = (do * out).sum(dim=-1, keepdim=True)
+    dq, dk, dv = torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    for k0 in range(0, nv, 64):
+        keys = slice(k0, min(k0 + 64, nv))
+        p = torch.exp(s[..., keys] - lse)
+        ds = p * (do @ v[..., keys, :].transpose(-1, -2) - delta)
+        if scaled_ds:
+            ds = ds * scale
+        dk[..., keys, :] = ds.transpose(-1, -2) @ q
+        dv[..., keys, :] = p.transpose(-1, -2) @ do
+        dq = dq + ds @ k[..., keys, :]
+    if not scaled_ds:
+        dq, dk = dq * scale, dk * scale
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, three_d)
+    return dqkv, dqkv.sum(dim=(0, 1))
+
+
+@pytest.mark.parametrize("scaled_ds", [True, False], ids=["scaled_ds", "default"])
+@pytest.mark.parametrize("N, hd, valid_len", [(130, 32, 100), (70, 64, None), (1, 64, None)])
+def test_card_attention_backward_order_matches_jax_in_both_modes(N, hd, valid_len, scaled_ds):
+    """The scaled_ds mode against fused_qkvproj_attention's VJP at w = I
+    (qkv = x + b, so dx is dqkv and db its column sums), the default mode
+    against fused_qkv_bias_attention's, both JAX kernels in interpret mode
+    in fp32; 130 tokens make three key tiles, the last ragged."""
+    qkv, bias, dout, H = _attention_inputs(N + 7, N, hd, True, H=2, B=2)
+    dqkv, dbias = _card_attention_backward(torch.from_numpy(qkv), torch.from_numpy(bias),
+                                           torch.from_numpy(dout), H, valid_len, scaled_ds)
+    if scaled_ds:
+        eye = jnp.eye(qkv.shape[2], dtype=jnp.float32)
+        _, vjp = jax.vjp(lambda a, c: jax_qkvproj_attention(a, eye, c, H, True, True, valid_len),
+                         jnp.asarray(qkv), jnp.asarray(bias))
+    else:
+        _, vjp = jax.vjp(_jax_attention(qkv, bias, H, valid_len), jnp.asarray(qkv),
+                         jnp.asarray(bias))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    _assert_close(dqkv.numpy(), ref[0], GRAD_TOL, "dqkv")
+    _assert_close(dbias.numpy(), ref[1], GRAD_TOL, "dbias")
+
+
+# Slice counts: one (no split), two, five (the last slice ragged) and seven
+# (the last slice empty: 3 * 37 = 111 rows in chunks of 16).
+SLICES = [1, 2, 5, 7]
+
+
+@pytest.mark.parametrize("slices", SLICES)
+def test_attn_proj_card_backward_order_matches_jax(slices):
+    """The fp32 attention+projection backward's steps (csrc/attn_proj_f32.cu):
+    dO = dy . w, dw = dy^T O split over the rows, db the sums of 64-row
+    chunks of dy added in order, then the attention backward on dO; against
+    the JAX kernel's VJP in fp32, at hd 32 with a ragged token count and
+    valid_len below it."""
+    rng = np.random.default_rng(slices)
+    B, N, H, hd, valid_len = 3, 37, 2, 32, 33
+    D = H * hd
+    qkv = rng.standard_normal((B, N, 3 * D)).astype(np.float32)
+    w = (rng.standard_normal((D, D)) * D ** -0.5).astype(np.float32)  # (out, in)
+    b = (0.5 * rng.standard_normal(D)).astype(np.float32)
+    dy = rng.standard_normal((B, N, D)).astype(np.float32)
+    dy[:, valid_len:] = 0
+    t_qkv, t_w, t_dy = (torch.from_numpy(a) for a in (qkv, w, dy))
+    out = fused_qkv_attention_reference(t_qkv, H, True, valid_len).reshape(-1, D)
+    dy2 = t_dy.reshape(-1, D)
+    d_out = (dy2 @ t_w).reshape(B, N, D)
+    dqkv, _ = _card_attention_backward(t_qkv, torch.zeros(3 * D), d_out, H, valid_len, False)
+    dw = _split_k(dy2, out, slices)
+    db = torch.stack([chunk.sum(dim=0) for chunk in dy2.split(64)]).sum(dim=0)
+    _, vjp = jax.vjp(lambda a, c, d: jax_attention_proj(a, c, d, H, True, True, valid_len),
+                     jnp.asarray(qkv), jnp.asarray(w.T), jnp.asarray(b))
+    ref_dqkv, ref_dw, ref_db = (np.asarray(g) for g in vjp(jnp.asarray(dy)))
+    _assert_close(dqkv.numpy(), ref_dqkv, GRAD_TOL, "dqkv")
+    _assert_close(dw.numpy(), ref_dw.T, GRAD_TOL, "dw")
+    _assert_close(db.numpy(), ref_db, GRAD_TOL, "db")
+
+
+@pytest.mark.parametrize("slices", SLICES)
+def test_qkvproj_attention_card_backward_order_matches_jax(slices):
+    """The fp32 projection + attention backward's steps
+    (csrc/attention_block_f32.cu): qkv = x . w again, the attention backward
+    in the scaled_ds mode with b as its bias (its dbias is db), dx = dqkv .
+    w^T, dw = x^T dqkv split over the rows; against the JAX kernel's VJP in
+    fp32."""
+    rng = np.random.default_rng(10 + slices)
+    B, N, d_in, H, hd, valid_len = 3, 37, 64, 3, 32, 30
+    D = H * hd
+    x = rng.standard_normal((B, N, d_in)).astype(np.float32)
+    w = (rng.standard_normal((d_in, 3 * D)) * d_in ** -0.5).astype(np.float32)
+    b = (0.5 * rng.standard_normal(3 * D)).astype(np.float32)
+    dout = rng.standard_normal((B, N, D)).astype(np.float32)
+    dout[:, valid_len:] = 0
+    t_x, t_w, t_b, t_dout = (torch.from_numpy(a) for a in (x, w, b, dout))
+    qkv = t_x @ t_w
+    dqkv, db = _card_attention_backward(qkv, t_b, t_dout, H, valid_len, True)
+    dqkv2 = dqkv.reshape(-1, 3 * D)
+    dx = (dqkv2 @ t_w.t()).reshape(B, N, d_in)
+    dw = _split_k(t_x.reshape(-1, d_in), dqkv2, slices)
+    _, vjp = jax.vjp(lambda a, c, d: jax_qkvproj_attention(a, c, d, H, True, True, valid_len),
+                     jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ref = [np.asarray(g) for g in vjp(jnp.asarray(dout))]
+    for name, got, want in zip(("dx", "dw", "db"), (dx, dw, db), ref):
+        _assert_close(got.numpy(), want, GRAD_TOL, name)
 
 
 # The precision settings of both train steps.

@@ -235,3 +235,129 @@ def test_fused_routes_compute_the_default_routes_function_in_fp32(monkeypatch, f
             logits.append(model(images))
     for got in logits[1:]:
         torch.testing.assert_close(got, logits[0], rtol=1e-5, atol=1e-5)
+
+
+# The fold in fp32 against the JAX stack with its kernels on, in fp32: the
+# JAX side runs its attention+projection, fc1+GELU and attention kernels in
+# interpret mode (as the JAX package's own tests run them), the port its
+# plain path on the CPU, the blocks folded where the knob and the flattened
+# stream say (the classifier's 17 tokens padded to 24; the MAE decoder's, the
+# encoder's 5 tokens not).  Same weights on both sides; the logits, loss and
+# every gradient compared.  fp32 on both sides, the same algorithm in
+# another summation order, through 2 or 3 blocks: the limits of
+# test_torch_vit.py and test_torch_mae.py.
+FOLD_LOGITS_TOL = 1e-4
+FOLD_LOSS_RTOL = 1e-6
+FOLD_GRAD_RTOL = 1e-5
+
+
+@pytest.fixture
+def jax_kernels_interpreted(monkeypatch):
+    """The JAX package's kernels on the CPU, in interpret mode, each call
+    recorded: ``True`` for the attention+projection kernel, ``False`` for
+    an attention kernel without the projection."""
+    from ssl4polyp_tpu.ops import attn_proj as jax_attn_proj
+    from ssl4polyp_tpu.ops import mlp as jax_mlp
+    from ssl4polyp_tpu.ops import qkv_attention as jax_qkv_attention
+
+    calls = []
+    folded, fc1 = jax_attn_proj.fused_attention_proj, jax_mlp.fc1_gelu
+    core, bias_core = jax_qkv_attention.fused_qkv_attention, jax_qkv_attention.fused_qkv_bias_attention
+
+    def fold(qkv, w, b, num_heads, interpret, *rest):
+        calls.append(True)
+        return folded(qkv, w, b, num_heads, True, *rest)
+
+    def attention(qkv, num_heads, interpret, *rest):
+        calls.append(False)
+        return core(qkv, num_heads, True, *rest)
+
+    def bias_attention(qkv, bias, num_heads, interpret, *rest):
+        calls.append(False)
+        return bias_core(qkv, bias, num_heads, True, *rest)
+
+    monkeypatch.setattr(jax_attn_proj, "fused_attention_proj", fold)
+    monkeypatch.setattr(jax_qkv_attention, "fused_qkv_attention", attention)
+    monkeypatch.setattr(jax_qkv_attention, "fused_qkv_bias_attention", bias_attention)
+    monkeypatch.setattr(jax_mlp, "fc1_gelu", lambda x, w, b, interpret=False: fc1(x, w, b, True))
+    monkeypatch.setenv("BENCH_ATTN_PROJ", "1")
+    return calls
+
+
+def _relative_l2(got, want):
+    return float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+
+
+def _assert_gradients_close(grads, ref_grads, rtol):
+    assert sorted(grads) == sorted(ref_grads)
+    for name, g in grads.items():
+        got, want = np.asarray(g, np.float32), np.asarray(ref_grads[name], np.float32)
+        assert got.shape == want.shape, name
+        if name.endswith("attn.qkv.bias"):  # the K slice's exact gradient is zero
+            d = got.shape[0] // 3
+            got, want = np.concatenate([got[:d], got[2 * d:]]), np.concatenate([want[:d], want[2 * d:]])
+        assert _relative_l2(got, want) < rtol, (name, _relative_l2(got, want))
+
+
+def test_fp32_classifier_fold_matches_the_jax_stack(jax_kernels_interpreted):
+    from ssl4polyp_tpu_torch.models.factory import get_imagenet_or_random_vit
+    from ssl4polyp_tpu_torch.models.weights import state_dict_from_jax
+
+    jcfg = jax_factory._vit_b(2, "cls", "learned", embed_dim=128, use_pallas_attention=True,
+                              unroll_blocks=True, compute_dtype=jnp.float32, **SHAPES)
+    params = jax.tree_util.tree_map(np.asarray, jax_vit.init_vit(jax.random.PRNGKey(3), jcfg))
+    rng = np.random.default_rng(4)
+    images = rng.standard_normal((3, 32, 32, 3)).astype(np.float32)
+    g = rng.standard_normal((3, 2)).astype(np.float32)
+    logits, vjp = jax.vjp(lambda p: jax_vit.vit_forward(p, jnp.asarray(images), jcfg), params)
+    ref_grads = vjp(jnp.asarray(g))[0]
+    assert jax_kernels_interpreted == [True, True]  # both blocks folded
+    classifier = get_imagenet_or_random_vit(torch.Generator().manual_seed(0), jax_params=params,
+                                            num_classes=2, device="cpu",
+                                            compute_dtype=torch.float32, embed_dim=128, **SHAPES)
+    model = classifier.model
+    assert all(block.attn.proj_fold for block in model.blocks)
+    ours = model(torch.from_numpy(images))
+    (ours * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(ours.detach().numpy(), np.asarray(logits), rtol=FOLD_LOGITS_TOL,
+                               atol=FOLD_LOGITS_TOL)
+    ref = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, ref_grads), classifier.cfg)
+    _assert_gradients_close({n: p.grad.numpy() for n, p in model.named_parameters()},
+                            {n: t.numpy() for n, t in ref.items() if n in dict(
+                                model.named_parameters())}, FOLD_GRAD_RTOL)
+
+
+def test_fp32_mae_fold_matches_the_jax_stacks(jax_kernels_interpreted):
+    from ssl4polyp_tpu.data.augment import normalize_batch as jax_normalize
+    from ssl4polyp_tpu_torch.models.weights import mae_state_dict_from_jax
+    from ssl4polyp_tpu_torch.training.pretrain import init_pretrain_state, loss_and_grads
+
+    dec = dict(decoder_embed_dim=128, decoder_depth=1, decoder_num_heads=4)
+    jcfg = jax_mae.MAEConfig(
+        encoder=jax_vit.ViTConfig(embed_dim=128, use_pallas_attention=True, unroll_blocks=True,
+                                  compute_dtype=jnp.float32, **SHAPES),
+        decoder_pad_to=24, **dec)
+    params = jax.tree_util.tree_map(np.asarray, jax_mae.init_mae(jax.random.PRNGKey(5), jcfg))
+    images = np.random.default_rng(6).integers(0, 256, (3, 32, 32, 3), dtype=np.uint8)
+    key = jax.random.PRNGKey(7)
+    noise = np.array(jax.random.uniform(key, (3, jcfg.encoder.num_patches)))
+
+    def jax_loss(p):
+        return jax_mae.mae_forward(p, jax_normalize(jnp.asarray(images), jnp.float32), key, jcfg)[0]
+
+    ref_loss, ref_grads = jax.value_and_grad(jax_loss)(params)
+    # Forward and backward passes each record every block: the encoder's 2 on
+    # the attention kernel, the decoder's 1 folded.
+    assert sorted(set(jax_kernels_interpreted)) == [False, True]
+    cfg = MAEConfig(encoder=ViTConfig(embed_dim=128, compute_dtype=torch.float32, **SHAPES),
+                    decoder_pad_to=24, **dec)
+    model = MAE(cfg, torch.Generator().manual_seed(0))
+    model.load_state_dict(mae_state_dict_from_jax(params, cfg))
+    assert [b.attn.proj_fold for b in model.blocks] == [False, False]
+    assert [b.attn.proj_fold for b in model.decoder_blocks] == [True]
+    loss, grads = loss_and_grads(init_pretrain_state(model), torch.from_numpy(images)[None],
+                                 torch.from_numpy(noise)[None])
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=FOLD_LOSS_RTOL)
+    ref = mae_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, ref_grads), cfg)
+    _assert_gradients_close({n: t.numpy() for n, t in grads.items()},
+                            {n: t.numpy() for n, t in ref.items()}, FOLD_GRAD_RTOL)
