@@ -10,7 +10,8 @@ fine-tune engine as two data-parallel ranks, the native JPEG decoder
 under the eval CLI and the pretraining engine on frames of SUN's size, and
 the fp32 runs (``amp: false``, ``PretrainSettings.precision = "fp32"``) on
 their own kernels, the fusion knobs' and ``BENCH_ATTN_PROJ=1``'s included,
-on one NVIDIA GPU.
+and a ViT-B/16 at 384 px (577 tokens) in bf16 on the key-tile attention
+kernels, on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -90,14 +91,22 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    an odd head count, forward and backward within 2e-5 and 1e-4 of max
    |plain|, reruns and the backward from the inputs alone bit-identical,
    timed beside the plain versions, fp32 SDPA + ``F.linear`` and that
-   pair's autograd backward, and the fp32 bound.
+   pair's autograd backward, and the fp32 bound.  The bf16 attention past
+   256 tokens (the key tiles), forward and backward, at a ViT-B/16's shapes
+   at 384 px (577 tokens: the classifier's, also with ``valid_len`` 500,
+   and the MAE decoder's), at 257 and at 1,025 tokens: within the
+   attention limits, reruns bit-identical, timed beside the plain versions,
+   bf16 SDPA and its backward and the bound; and the key tiles' backward
+   beside the first design at 209 and 256 tokens, where the first design
+   runs today (timed only).
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
    and fc1+GELU must launch exactly 12 times and LayerNorm 25 (no backward
    kernel); the logits must be finite and match the same forward with every
    kernel swapped for its plain version.  Prints images/s for both, median
-   and range over 5 repeats of 10 requests.  Then the same classifier built
+   and range over 5 repeats of 10 requests (the plain path 1).  Then the
+   same classifier built
    under ``BENCH_ATTN_PROJ=1``: 12 launches of the attention+projection
    kernel and none of the attention kernel per request, logits against the
    plain path's and the unfolded forward's.
@@ -111,7 +120,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    (the AdamW kernel's 4 among them), finite losses and parameters and both
    sin-cos tables unchanged; then the same 6 steps from the same state with
    every kernel swapped for its plain version.  Prints images/s for both,
-   median and range over 5 repeats of 10 further steps, and the model
+   median and range over 5 repeats of 10 further steps (the plain path 1),
+   and the model
    TFLOP/s at the median.  Then the model built under ``BENCH_ATTN_PROJ=1``
    (the decoder folds, the encoder at 50 tokens does not): step 1 against
    the plain step, and 2 steps with exact launch counts.
@@ -139,7 +149,7 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    steps with exact launch counts per step, finite losses and parameters;
    2 steps under the ``head+1`` regime, after which every frozen parameter
    keeps its bits; images/s for the kernels and the plain path, median and
-   range over 5 repeats of 10 steps.
+   range over 5 repeats of 10 steps (the plain path 1).
 6. The attention functions over a real activation: the eval classifier's
    patch embedding, position table and block 0's first LayerNorm turn one
    batch of 64 images into a (64, 197, 768) activation; block 0's attention
@@ -295,10 +305,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    asserted): the ViT-B/16 classifier's fine-tune step in fp32 (step 1's
    loss within 1e-5 and every gradient within 1e-4 relative L2 distance of
    the plain step's, two steps twice from one state bit-equal, images/s
-   over 20 steps), the AdamW kernel with the compute copy the masters
+   over 10 steps), the AdamW kernel with the compute copy the masters
    themselves (no copy written) bit-equal to its plain version over 3
    steps, the eval forward in fp32 (logits within 1e-4 of max |plain|,
-   images/s over 20 requests), the dense ViT-B/16 + DPT forward in fp32 at
+   images/s over 10 requests), the dense ViT-B/16 + DPT forward in fp32 at
    batch 2 bit-equal under torch's default cuDNN TF32 setting and under
    this script's (its convolutions turn TF32 off for their own calls), and
    its gradients bit-equal under both (the convolutions' backward turns
@@ -321,6 +331,21 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    encoder's 50 tokens on the default route) and the engine run again with
    ``mlp_fusion`` "full" given to its ``build_classifier``.  Every path's
    launches exact: the fp32 kernels, the AdamW kernel, and no bf16 kernel.
+16. A ViT-B/16 at 384 px in bf16 (577 tokens, past the 256 that
+   ``qkv_attention.cu`` holds on chip, so every block's attention runs on
+   the key tiles of ``qkv_attention_tiles.cu``), batch 64: the eval forward
+   from host uint8 to logits (12 key-tile launches a request, logits
+   against the plain path's within the eval limits), the fine-tune step
+   under ``fc1``, ``full`` and ``full_ln`` with ``qkv_ln_fusion`` (577
+   tokens count as padded to 584, so the knobs apply; step 1 against the
+   plain step's within the fine-tune limits, 12 key-tile launches forward
+   and 12 backward a step) and the MAE ViT-B/16 pretrain step (encoder 145
+   tokens on ``qkv_attention.cu``, decoder 577 on the key tiles; step 1
+   within the pretrain limits), each with exact launches and images/s over
+   3 repeats of 3; and under ``BENCH_ATTN_PROJ=1`` the eval forward raises
+   the attention+projection kernel's documented ``ValueError`` (more than
+   256 tokens in bf16 is ROADMAP.md §2a item 3) before any attention
+   launch.
    The script's own wall time is printed before the two result lines.
 
 The last two lines of standard output are a JSON summary of the kernels and
@@ -485,6 +510,9 @@ FP32_FLOPS = 67e12
 SPIN_CYCLES = 3_500_000
 FT_LOSS_RTOL = 2.5e-2
 FT_GRAD_RTOL = 5e-2
+# Repeats of REPEAT_CALLS steps or requests for the plain paths' images/s
+# (phases 3-5), a yardstick only: the script keeps its wall within its limit.
+PLAIN_REPEATS = 1
 FT_LR = 1e-4
 FT_WEIGHT_DECAY = 0.05
 CARD = ""  # the card's name and power limit, as nvidia-smi gives them
@@ -926,12 +954,132 @@ def phase_kernels(gen: torch.Generator) -> dict[str, dict]:
         "ln_linear.cu", "ssl4polyp_tpu/ops/ln_linear.py:28", max(errors), *times[0][:2],
         **ln_linear_cost(BATCH * 197, 768, 2304))
 
+    report.update(tiles_kernels(randn))
     report.update(fused_mlp_kernels(randn))
     report.update(attn_proj_kernels(randn))
     report.update(attention_ops_kernels(randn))
     report.update(adamw_kernel(gen))
     report.update(fp32_kernels(gen))
     return report
+
+
+def tiles_backward(qkv, dout, h, f32, valid_len, bias):
+    """The key tiles' backward through the library's entry point for them,
+    at any N (the wrapper sends them only N > 256): for timing beside the
+    first design at 209-256 tokens.  Launch counts do not see it."""
+    b, n, three_d = qkv.shape
+    hd = three_d // 3 // h
+    dqkv = torch.empty_like(qkv)
+    stats = torch.empty((b, h, n, 4), dtype=torch.float32, device=qkv.device)
+    acc = torch.empty((b, h, n, hd), dtype=torch.float32, device=qkv.device)
+    part = torch.empty((b, three_d), dtype=torch.float32, device=qkv.device)
+    dbias = torch.empty((three_d,), dtype=torch.float32, device=qkv.device)
+    err = _build.library().ssl4polyp_qkv_attention_tiles_bwd(
+        qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+        acc.data_ptr(), part.data_ptr(), dbias.data_ptr(), b, n, h, hd,
+        n if valid_len is None else valid_len, qkv_attention._scale(hd, qkv.dtype),
+        hd ** -0.5, int(f32), 0, torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"key tiles' backward at N={n}: CUDA error {err}")
+    return dqkv, dbias.to(bias.dtype)
+
+
+def tiles_kernels(randn) -> dict[str, dict]:
+    """bf16 attention past 256 tokens (the key tiles of
+    ``qkv_attention_tiles.cu``), forward and backward, against the plain
+    versions at a ViT-B/16's shapes at 384 px (577 tokens: the classifier's,
+    also with ``valid_len`` 500, and the MAE decoder's 16 heads of 32 with
+    bf16 scores) and at 257 and 1,025 tokens: max error, reruns
+    bit-identical, times beside the plain versions', bf16 SDPA's and its
+    backward's (timed only; with the keys' mask where ``valid_len`` cuts
+    them) and the bound.  Then the key tiles' backward beside the first
+    design, which takes 209-256 tokens, at 209 and 256 (timed only)."""
+    def cost(b, n, h, hd, nv):  # qkv and the bias in, the output out; two products
+        # over the nv weighted keys of each row
+        return dict(bytes_moved=2 * (b * n * 4 * h * hd + 3 * h * hd),
+                    flops=4 * b * h * n * nv * hd)
+
+    def bwd_cost(b, n, h, hd, nv):  # qkv, dout, bias in; dqkv, dbias out; five products
+        return dict(bytes_moved=2 * (b * n * 7 * h * hd + 6 * h * hd),
+                    flops=10 * b * h * n * nv * hd)
+
+    cases = [
+        (BATCH, 577, 12, 64, True, None, "classifier at 384 px"),
+        (BATCH, 577, 12, 64, True, 500, "classifier at 384 px, valid_len 500"),
+        (BATCH, 577, 16, 32, False, None, "MAE decoder at 384 px"),
+        (4, 257, 12, 64, True, None, "257 tokens"),
+        (4, 1025, 12, 64, True, None, "1,025 tokens"),
+    ]
+    fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
+    for b, n, h, hd, f32, valid_len, name in cases:
+        nv = n if valid_len is None else valid_len
+        qkv, dout = randn(b, n, 3 * h * hd), randn(b, n, h * hd)
+        bias = randn(3 * h * hd, scale=0.5)
+        run = lambda: qkv_attention.fused_qkv_attention(qkv, h, f32, valid_len, bias)  # noqa: E731
+        plain = lambda: qkv_attention.fused_qkv_attention_reference(qkv, h, f32, valid_len, bias)  # noqa: E731
+        run_bwd = lambda: qkv_attention._backward_kernel(qkv, dout, h, f32, valid_len, bias)  # noqa: E731
+        plain_bwd = lambda: qkv_attention.fused_qkv_attention_backward_reference(  # noqa: E731
+            qkv, dout, h, f32, valid_len, bias)
+        out, again = run(), run()
+        (dqkv, dbias), bwd_again = run_bwd(), run_bwd()
+        torch.cuda.synchronize()
+        what = (f"attention past 256 tokens B={b} N={n} H={h} hd={hd} f32={f32} "
+                f"valid_len={valid_len}")
+        fwd_errors.append(max_error(out, plain(), ATTENTION_TOL, what))
+        ref_dqkv, ref_dbias = plain_bwd()
+        bwd_errors.append(max_error(dqkv, ref_dqkv, ATTENTION_BWD_TOL, f"{what}: dqkv"))
+        tol = (DBIAS_TOL[0] * ref_dbias.float().abs().max().item(), DBIAS_TOL[1])
+        db_err = max_error(dbias, ref_dbias, tol, f"{what}: dbias")
+        if not torch.equal(out, again) or not torch.equal(dqkv, bwd_again[0]) or not torch.equal(
+                dbias, bwd_again[1]):
+            fail(f"{what}: two runs gave different bits")
+        plan = qkv_attention.backward_plan(n, hd)
+        print(f"{what}: out max |diff| {fwd_errors[-1]:.3e} (atol {ATTENTION_TOL[0]}, rtol "
+              f"{ATTENTION_TOL[1]}), dqkv {bwd_errors[-1]:.3e} (atol {ATTENTION_BWD_TOL[0]}, "
+              f"rtol {ATTENTION_BWD_TOL[1]}), dbias {db_err:.3e} (atol {tol[0]:.3e}, rtol "
+              f"{tol[1]}); reruns bit-identical; backward path: {plan['path']}, "
+              f"{plan['warps']} warps a block, {plan['smem_bytes']} bytes of shared memory")
+        biased = qkv + bias
+        mask = None if valid_len is None else (torch.arange(n, device="cuda") < valid_len).view(
+            1, 1, 1, n)  # the keys' mask, broadcast over (B, H, queries)
+        library = lambda: F.scaled_dot_product_attention(*heads_of(biased, h), attn_mask=mask)  # noqa: E731
+        leaf = biased.clone().requires_grad_()
+        lib_out = F.scaled_dot_product_attention(*heads_of(leaf, h), attn_mask=mask).transpose(
+            1, 2).reshape(dout.shape)
+        library_bwd = lambda: torch.autograd.grad(lib_out, leaf, dout, retain_graph=True)  # noqa: E731
+        fwd_times[name] = time_ms(run), time_ms(plain), time_ms(library)
+        bwd_times[name] = time_ms(run_bwd), time_ms(plain_bwd), time_ms(library_bwd)
+        print(f"  {name}: forward kernel {fwd_times[name][0]:.4f} ms, plain "
+              f"{fwd_times[name][1]:.4f} ms, bf16 scaled_dot_product_attention "
+              f"{fwd_times[name][2]:.4f} ms, {bound_text(**cost(b, n, h, hd, nv))}; backward "
+              f"kernel {bwd_times[name][0]:.4f} ms, plain {bwd_times[name][1]:.4f} ms, its "
+              f"backward {bwd_times[name][2]:.4f} ms, {bound_text(**bwd_cost(b, n, h, hd, nv))}; "
+              f"{CARD}")
+        del leaf, lib_out, ref_dqkv
+    # The first design (the path from 209 to 256 tokens) beside the key tiles
+    # there: timed only; the wrapper keeps its paths.
+    for n in (209, 256):
+        qkv, dout = randn(BATCH, n, 3 * 768), randn(BATCH, n, 768)
+        bias = randn(3 * 768, scale=0.5)
+        first = lambda: qkv_attention._backward_kernel(qkv, dout, 12, True, None, bias)  # noqa: E731
+        tiles = lambda: tiles_backward(qkv, dout, 12, True, None, bias)  # noqa: E731
+        ref = qkv_attention.fused_qkv_attention_backward_reference(qkv, dout, 12, True, None, bias)
+        err = max_error(tiles()[0], ref[0], ATTENTION_BWD_TOL, f"key tiles' backward at N={n}")
+        path = qkv_attention.backward_plan(n, 64)["path"]
+        print(f"attention backward B={BATCH} N={n} H=12 hd=64 ({path} today): first design "
+              f"{time_ms(first):.4f} ms, key tiles {time_ms(tiles):.4f} ms (dqkv {err:.3e}), "
+              f"{bound_text(**bwd_cost(BATCH, n, 12, 64, n))}; {CARD}")
+    shape = BATCH, 577, 12, 64, 577
+    return {
+        "fused_qkv_attention_tiles": entry(
+            "qkv_attention_tiles.cu", "ssl4polyp_tpu/ops/qkv_attention.py:208", max(fwd_errors),
+            *fwd_times["classifier at 384 px"][:2], **cost(*shape),
+            library_ms=fwd_times["classifier at 384 px"][2]),
+        "fused_qkv_attention_tiles_backward": entry(
+            "qkv_attention_tiles.cu", "ssl4polyp_tpu/ops/qkv_attention.py:237", max(bwd_errors),
+            *bwd_times["classifier at 384 px"][:2], **bwd_cost(*shape),
+            library_ms=bwd_times["classifier at 384 px"][2]),
+    }
 
 
 def fused_mlp_kernels(randn) -> dict[str, dict]:
@@ -2032,7 +2180,7 @@ def phase_eval(gen: torch.Generator) -> dict[str, int]:
         ops.reset_launch_counts()
         with plain_kernels():
             plain_logits = [forward(images) for images in requests]
-            plain_rate = rates(lambda: forward(requests[0]), BATCH, REPEATS, REPEAT_CALLS)
+            plain_rate = rates(lambda: forward(requests[0]), BATCH, PLAIN_REPEATS, REPEAT_CALLS)
         if any(ops.launch_counts().values()):
             fail(f"{what}: the plain forward launched a kernel")
         errors = []
@@ -2050,8 +2198,9 @@ def phase_eval(gen: torch.Generator) -> dict[str, int]:
                       for got, ref in zip(logits, unfolded))
             print(f"{what}: logits vs the unfolded forward's: max |diff| {err:.3e}")
         unfolded = logits
-        print(f"{what} ViT-B/16, batch {BATCH}, images/s over {REPEATS} repeats of "
-              f"{REPEAT_CALLS} requests: kernels {spread(rate)}; plain {spread(plain_rate)}")
+        print(f"{what} ViT-B/16, batch {BATCH}, images/s over {REPEATS} (plain {PLAIN_REPEATS}) "
+              f"repeats of {REPEAT_CALLS} requests: kernels {spread(rate)}; plain "
+              f"{spread(plain_rate)}")
         del classifier, forward
     return total
 
@@ -2194,13 +2343,13 @@ def phase_pretrain() -> dict[str, int]:
                   for i in range(STEPS)]
         return [x.item() for x in losses]
 
-    def rate(state) -> list[float]:  # after train(state): past the warm-up
-        calls = iter(range(REPEATS * REPEAT_CALLS))
+    def rate(state, repeats: int = REPEATS) -> list[float]:  # after train(state)
+        calls = iter(range(repeats * REPEAT_CALLS))
 
         def run():
             i = next(calls) % STEPS
             train_step(state, batches[i], noise[i], schedule(i))
-        return rates(run, BATCH, REPEATS, REPEAT_CALLS)
+        return rates(run, BATCH, repeats, REPEAT_CALLS)
 
     frozen = {n: state.params[n].clone() for n in ("pos_embed", "decoder_pos_embed")}
     ops.reset_launch_counts()
@@ -2232,13 +2381,13 @@ def phase_pretrain() -> dict[str, int]:
     ops.reset_launch_counts()
     with plain_kernels():
         plain_losses = train(plain_state)
-        plain_rate = rate(plain_state)
+        plain_rate = rate(plain_state, PLAIN_REPEATS)
     if any(ops.launch_counts().values()):
         fail("the plain pretrain step launched a kernel")
     print(f"pretrain losses, plain:   {[round(x, 6) for x in plain_losses]}")
     flops = mae_train_flops_per_image(cfg)
-    print(f"pretrain step MAE ViT-B/16, batch {BATCH}, images/s over {REPEATS} repeats of "
-          f"{REPEAT_CALLS} steps: kernels {spread(kernel_rate)} "
+    print(f"pretrain step MAE ViT-B/16, batch {BATCH}, images/s over {REPEATS} (plain "
+          f"{PLAIN_REPEATS}) repeats of {REPEAT_CALLS} steps: kernels {spread(kernel_rate)} "
           f"({statistics.median(kernel_rate) * flops / 1e12:.1f} model TFLOP/s at the median); plain "
           f"{spread(plain_rate)} ({statistics.median(plain_rate) * flops / 1e12:.1f}); "
           f"{flops / 1e9:.2f} GFLOP per image; peak memory "
@@ -2517,7 +2666,7 @@ def blur_cost(rate, state) -> None:
     repeated calls and against one scatter a tap; each of the three builders
     of one 224 axis on the host clock (200 calls, then one synchronisation)
     and in device time; and the fine-tune step's images/s with each,
-    interleaved A B C C B A twice."""
+    interleaved A B C C B A."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     sigma = torch.rand(BATCH, device="cuda", generator=gen) * 2.0 + 1e-3
     positions = torch.arange(25, dtype=torch.float32, device="cuda") - 12.0
@@ -2552,7 +2701,7 @@ def blur_cost(rate, state) -> None:
               f"host {host_ms:.4f} ms, device {time_ms(one_axis):.4f} ms; {CARD}")
     samples: dict[str, list[float]] = {name: [] for name in builders}
     order = list(builders) + list(builders)[::-1]
-    for name in order + order:
+    for name in order:
         with mock.patch.object(augment, "_blur_matrices", builders[name]):
             samples[name] += rate(state)
     for name, values in samples.items():
@@ -2599,13 +2748,13 @@ def phase_finetune() -> dict[str, int]:
             return [step(state, batches[i], labels[i], valid, FT_LR, full, wd)["loss"].item()
                     for i in range(STEPS)]
 
-        def rate(state) -> list[float]:  # after train(state): past the warm-up
-            calls = iter(range(REPEATS * REPEAT_CALLS))
+        def rate(state, repeats: int = REPEATS) -> list[float]:  # after train(state)
+            calls = iter(range(repeats * REPEAT_CALLS))
 
             def run():
                 i = next(calls) % STEPS
                 step(state, batches[i], labels[i], valid, FT_LR, full, wd)
-            return rates(run, BATCH, REPEATS, REPEAT_CALLS)
+            return rates(run, BATCH, repeats, REPEAT_CALLS)
 
         # An eval forward bound to the state's compute copy before training
         # must read the trained weights after it.
@@ -2674,14 +2823,14 @@ def phase_finetune() -> dict[str, int]:
         ops.reset_launch_counts()
         with plain_kernels():
             plain_losses = train(plain_state)
-            plain_rate = rate(plain_state)
+            plain_rate = rate(plain_state, PLAIN_REPEATS)
         if any(ops.launch_counts().values()):
             fail(f"{what}: the plain step launched a kernel")
         del plain_state
         print(f"{what} losses, plain:   {[round(x, 6) for x in plain_losses]}")
-        print(f"{what} ViT-B/16, batch {BATCH}, images/s over {REPEATS} repeats of "
-              f"{REPEAT_CALLS} steps: kernels {spread(kernel_rate)}; plain {spread(plain_rate)}; "
-              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        print(f"{what} ViT-B/16, batch {BATCH}, images/s over {REPEATS} (plain {PLAIN_REPEATS}) "
+              f"repeats of {REPEAT_CALLS} steps: kernels {spread(kernel_rate)}; plain "
+              f"{spread(plain_rate)}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
     return total
 
 
@@ -4659,7 +4808,7 @@ def phase_native_decode() -> dict[str, int]:
 
 
 # Phase 15: fp32 compute (`amp: false`, PretrainSettings.precision "fp32").
-FP32_TIMED_STEPS = (2, 10)  # images/s: 2 repeats of 10 steps or requests
+FP32_TIMED_STEPS = (2, 5)  # images/s: 2 repeats of 5 steps or requests
 FP32_ENGINE_FRAMES = {"train": 128, "val": 64, "test": 64}
 FP32_ENGINE_LIMIT = {"train": 2, "val": 1, "test": 1}  # batches of 64, one epoch
 # Step 1 of each fp32 train step, kernels against plain: the kernels make
@@ -5187,6 +5336,185 @@ def phase_fp32() -> dict[str, int]:
     return total
 
 
+# Phase 16: a ViT-B/16 at 384 px (577 tokens) in bf16, the resolution at
+# which the public ViT-B/16 releases fine-tune: past the 256 tokens of
+# qkv_attention.cu, so every block's attention runs on the key tiles.
+LONG_IMAGE = 384
+LONG_TIMED = (3, 3)  # images/s: 3 repeats of 3 steps or requests
+# The fine-tune step's kernel configurations at 577 tokens (counted as
+# padded to 584, D 768: the JAX package honours the fusion knobs there).
+LONG_FT_CONFIGS = (
+    ("fc1", {}),
+    ("full", {"mlp_fusion": "full"}),
+    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True}),
+)
+
+
+def phase_long_tokens() -> dict[str, int]:
+    """Phase 16: the eval forward, the fine-tune step under each kernel
+    configuration and the MAE pretrain step of a ViT-B/16 at 384 px in
+    bf16, whose 577 tokens (the MAE decoder's too) take the key tiles: step 1
+    and the logits against the plain path's, launches exact, images/s; and
+    the refusal of the attention+projection kernel there."""
+    phase_start = time.perf_counter()
+    depth, enc_depth, dec_depth = 12, 12, 8
+    tiles = {"fused_qkv_attention_tiles": depth, "fused_qkv_attention_tiles_backward": depth}
+    total: dict[str, int] = {}
+
+    def add(counts: dict[str, int]) -> None:
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+
+    def timed(run, what: str, per_call: dict[str, int]) -> None:
+        ops.reset_launch_counts()
+        rate = rates(run, BATCH, *LONG_TIMED)
+        counts = ops.launch_counts()
+        calls = LONG_TIMED[0] * LONG_TIMED[1]
+        check_counts(counts, per_call, calls, f"{calls} {what}")
+        add(counts)
+        print(f"{what}, batch {BATCH}, images/s over {LONG_TIMED[0]} repeats of "
+              f"{LONG_TIMED[1]}: {spread(rate)}; {CARD}")
+
+    rng = np.random.default_rng(SEED)
+    base = ViTConfig(pos_embed="learned", num_classes=2, img_size=LONG_IMAGE)
+    tree = jax_layout_tree(base, rng)
+
+    def classifier(fold: bool = False, **overrides):
+        with projection_fold(fold):
+            return get_imagenet_or_random_vit(
+                torch.Generator().manual_seed(SEED), jax_params=tree, num_classes=2,
+                device="cuda", img_size=LONG_IMAGE, **overrides)
+
+    # The eval forward, host uint8 to logits.
+    clf = classifier()
+    if (clf.cfg.num_patches + 1, clf.cfg.pad_tokens_to) != (577, 584):
+        fail(f"384 px: {clf.cfg.num_patches + 1} tokens counted as padded to "
+             f"{clf.cfg.pad_tokens_to}, expected 577 and 584")
+    forward = make_forward_fn(clf, "cuda")()
+    requests = [rng.integers(0, 256, (BATCH, LONG_IMAGE, LONG_IMAGE, 3), dtype=np.uint8)
+                for _ in range(2)]
+    per_eval = {"fused_qkv_attention_tiles": depth, "layernorm": 2 * depth + 1,
+                "fc1_gelu": depth}
+    ops.reset_launch_counts()
+    logits = [forward(images) for images in requests]
+    counts = ops.launch_counts()
+    check_counts(counts, per_eval, len(requests), f"{len(requests)} eval requests at 384 px")
+    add(counts)
+    with plain_kernels():
+        plain_logits = [forward(images) for images in requests]
+    if any(got.shape != (BATCH, 2) or got.dtype != np.float32 for got in logits):
+        fail(f"eval at 384 px: logits {[(l.shape, l.dtype) for l in logits]}")
+    err = max(max_error(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL,
+                        "eval forward at 384 px: logits")
+              for got, ref in zip(logits, plain_logits))
+    print(f"eval forward at 384 px (577 tokens): logits vs plain forward: max |diff| {err:.3e} "
+          f"(atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]})")
+    timed(lambda: forward(requests[0]), "eval requests at 384 px (ViT-B/16)", per_eval)
+
+    # BENCH_ATTN_PROJ=1 at 577 tokens: the attention+projection kernel takes
+    # at most 256 tokens in bf16 (ROADMAP.md §2a, item 3), so the forward
+    # raises before any attention launch, and nothing falls back.
+    folded = classifier(fold=True)
+    if not all(b.attn.proj_fold for b in folded.model.blocks):
+        fail("384 px under BENCH_ATTN_PROJ=1: a block does not fold")
+    ops.reset_launch_counts()
+    try:
+        make_forward_fn(folded, "cuda")()(requests[0])
+    except ValueError as err:
+        refusal = str(err)
+    else:
+        fail("384 px under BENCH_ATTN_PROJ=1: the forward ran past 256 tokens in bf16")
+    attention_launches = {n: c for n, c in ops.launch_counts().items()
+                          if c and ("attention" in n or "attn" in n)}
+    if "ROADMAP.md §2a, item 3" not in refusal or attention_launches:
+        fail(f"384 px under BENCH_ATTN_PROJ=1: {refusal!r}, attention launches "
+             f"{attention_launches}")
+    print(f"eval forward at 384 px under BENCH_ATTN_PROJ=1: refused as documented, no attention "
+          f"launch: ValueError({refusal!r})")
+    del folded, forward
+
+    # The fine-tune step under each kernel configuration.
+    batches = [torch.from_numpy(rng.integers(0, 256, (BATCH, LONG_IMAGE, LONG_IMAGE, 3),
+                                             dtype=np.uint8)).cuda() for _ in range(2)]
+    labels = torch.from_numpy(rng.integers(0, 2, BATCH)).cuda()
+    valid = torch.arange(BATCH, device="cuda") < BATCH - 4
+    loss_mode, pos_weight, class_weights = loss_settings([3000, 1000])
+    aug = draw_augment_params(BATCH, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    for label, overrides in LONG_FT_CONFIGS:
+        what = f"fine-tune at 384 px [{label}]"
+        clf = classifier(**overrides)
+        mlp_route = overrides.get("mlp_fusion", "fc1")
+        qkv_ln = overrides.get("qkv_ln_fusion", False)
+        routes = {(b.mlp_route, b.qkv_ln, b.attn.proj_fold) for b in clf.model.blocks}
+        if routes != {(mlp_route, qkv_ln, False)}:
+            fail(f"{what}: the blocks' routes are {routes}")
+        ctx = step_context(clf, loss_mode, pos_weight, class_weights, FT_WEIGHT_DECAY)
+        step = make_train_step(ctx)
+        state = init_train_state(clf, torch.Generator(device="cuda").manual_seed(SEED))
+        full = optim.finetune_lr_scales(state.params, "full", depth)
+        wd = optim.no_weight_decay_scales(state.params)
+        loss, grads = loss_and_grads(ctx, state, batches[0], labels, valid, aug)
+        with plain_kernels():
+            plain_loss, plain_grads = loss_and_grads(ctx, state, batches[0], labels, valid, aug)
+        check_step_one(loss, grads, plain_loss, plain_grads, FT_LOSS_RTOL, FT_GRAD_RTOL, what)
+        del grads, plain_grads
+        per_step = {**tiles, "layernorm": 2 * depth + 1, "layernorm_backward": 2 * depth + 1,
+                    "ln_linear": depth if qkv_ln else 0,
+                    {"fc1": "fc1_gelu", "full": "mlp_fused", "full_ln": "mlp_ln_fused"}[
+                        mlp_route]: depth,
+                    "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH)}
+        calls = iter(range(10 ** 6))
+        timed(lambda: step(state, batches[next(calls) % 2], labels, valid, FT_LR, full, wd),  # noqa: B023
+              f"{what} steps (ViT-B/16)", per_step)
+        if not all(torch.isfinite(p).all() for p in state.params.values()):
+            fail(f"{what}: non-finite parameters after the steps")
+        del state, ctx, step, clf
+
+    # The MAE pretrain step: the encoder's 145 tokens on qkv_attention.cu,
+    # the decoder's 577 (16 heads of 32, bf16 scores) on the key tiles.
+    settings = PretrainSettings(batch_size=BATCH, image_size=LONG_IMAGE)
+    cfg = model_config(settings)
+    if (1 + cfg.len_keep, 1 + cfg.encoder.num_patches) != (145, 577):
+        fail(f"pretrain at 384 px: {1 + cfg.len_keep} and {1 + cfg.encoder.num_patches} tokens")
+    mae_tree = jax_layout_mae_tree(cfg, rng)
+    images = [torch.from_numpy(rng.integers(0, 256, (1, BATCH, LONG_IMAGE, LONG_IMAGE, 3),
+                                            dtype=np.uint8)).cuda() for _ in range(2)]
+    noise_gen = torch.Generator(device="cuda").manual_seed(SEED)
+    noise = [torch.rand((1, BATCH, cfg.encoder.num_patches), generator=noise_gen, device="cuda")
+             for _ in range(2)]
+    schedule = warmup_cosine(settings.absolute_lr, 20, 2)
+    train_step = make_pretrain_step(cfg, 1, settings.weight_decay)
+    with projection_fold(False):
+        model = MAE(cfg, torch.Generator().manual_seed(SEED))
+    model.load_state_dict(mae_state_dict_from_jax(mae_tree, cfg))
+    state = init_pretrain_state(model.cuda())
+    what = "pretrain at 384 px"
+    loss, grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    with plain_kernels():
+        plain_loss, plain_grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    check_step_one(loss, grads, plain_loss, plain_grads, LOSS_RTOL, GRAD_RTOL, what)
+    del grads, plain_grads
+    calls = iter(range(10 ** 6))
+
+    def pretrain_call():
+        i = next(calls)
+        train_step(state, images[i % 2], noise[i % 2], schedule(i % 20))
+
+    timed(pretrain_call, f"{what} steps (MAE ViT-B/16)", {
+        "fused_qkv_attention": enc_depth, "fused_qkv_attention_backward": enc_depth,
+        "fused_qkv_attention_tiles": dec_depth, "fused_qkv_attention_tiles_backward": dec_depth,
+        "layernorm": 2 * (enc_depth + dec_depth) + 2,
+        "layernorm_backward": 2 * (enc_depth + dec_depth) + 2,
+        "fc1_gelu": enc_depth + dec_depth,
+        "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH)})
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        fail(f"{what}: non-finite parameters after the steps")
+    del state, model
+    print(f"384 px phase {time.perf_counter() - phase_start:.1f} s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB; {CARD}")
+    return total
+
+
 @contextlib.contextmanager
 def torch_defaults():
     """torch's own backend settings, as a fresh process (the sweep's) has
@@ -5269,6 +5597,7 @@ def main() -> None:
         runs.append(phase_data_parallel(packs, weights))
     runs.append(phase_native_decode())
     runs.append(phase_fp32())
+    runs.append(phase_long_tokens())
     counts = {name: sum(run.get(name, 0) for run in runs) for name in report}
     missing = [name for name, n in counts.items() if n == 0]
     if missing:

@@ -15,6 +15,9 @@ __all__ = ["launch_counts", "reset_launch_counts"]
 _COUNTERS = {
     "fused_qkv_attention": (qkv_attention, "launches"),
     "fused_qkv_attention_backward": (qkv_attention, "backward_launches"),
+    # Past 256 tokens in bf16: the key-tile kernels of the same function.
+    "fused_qkv_attention_tiles": (qkv_attention, "tiles_launches"),
+    "fused_qkv_attention_tiles_backward": (qkv_attention, "tiles_backward_launches"),
     "layernorm": (layernorm, "launches"),
     "layernorm_backward": (layernorm, "backward_launches"),
     "fc1_gelu": (mlp, "launches"),

@@ -38,8 +38,8 @@ from typing import Optional
 
 import torch
 
-from ._checks import check_gradient, check_one_dtype, saved_or_scratch
-from .qkv_attention import _F32_TILE, _MAX_TOKENS, _scale, fused_qkv_attention_reference
+from ._checks import check_bf16_fused_tokens, check_gradient, check_one_dtype, saved_or_scratch
+from .qkv_attention import _F32_TILE, _scale, fused_qkv_attention_reference
 
 __all__ = [
     "BACKWARD_STEPS",
@@ -155,9 +155,7 @@ def _check(x, w, b, num_heads, valid_len) -> None:
     if d_in % 64:
         raise ValueError(f"the kernel takes an input width that is a multiple of 64, got {d_in}")
     check_one_dtype((x, w, b))
-    if N < 1 or (x.dtype == torch.bfloat16 and N > _MAX_TOKENS):
-        raise ValueError(f"the bf16 kernel takes 1..{_MAX_TOKENS} tokens (the fp32 kernel any "
-                         f"number), got {N}")
+    check_bf16_fused_tokens(N, x.dtype)
     if valid_len is not None and not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if b.shape != (3 * D,):

@@ -29,9 +29,8 @@ from typing import Optional
 
 import torch
 
-from ._checks import check_gradient, check_one_dtype, saved_or_scratch
+from ._checks import check_bf16_fused_tokens, check_gradient, check_one_dtype, saved_or_scratch
 from .qkv_attention import (
-    _MAX_TOKENS,
     _scale,
     fused_qkv_attention_backward_reference,
     fused_qkv_attention_reference,
@@ -115,9 +114,7 @@ def _check(qkv, w, b, num_heads, valid_len) -> None:
     check_one_dtype((qkv, w, b))
     if qkv.dtype == torch.bfloat16 and D % 128:
         raise ValueError(f"the bf16 kernel takes a width that is a multiple of 128, got {D}")
-    if N < 1 or (qkv.dtype == torch.bfloat16 and N > _MAX_TOKENS):
-        raise ValueError(f"the bf16 kernel takes 1..{_MAX_TOKENS} tokens (the fp32 kernel any "
-                         f"number), got {N}")
+    check_bf16_fused_tokens(N, qkv.dtype)
     if valid_len is not None and not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if w.shape != (D, D) or b.shape != (D,):

@@ -713,6 +713,80 @@ __device__ __forceinline__ void attention_backward_recompute_ds(
   }
 }
 
+// One step of a reduce-scatter across the lanes `off` apart: a lane keeps
+// one half of its HALF * 2 values, sends the other, and adds what its
+// partner sent for the half it kept (the lane with the `off` bit keeps the
+// upper half).
+template <int HALF>
+__device__ __forceinline__ void scatter_step(float* v, int off, bool upper) {
+#pragma unroll
+  for (int i = 0; i < HALF; ++i) {
+    const float send = upper ? v[i] : v[i + HALF];
+    const float keep = upper ? v[i + HALF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+  }
+}
+
+// add_column_sums for HD >= 32 with a third of its shuffles: the 2 HD / 8
+// column values of a lane (rows g and g + 8 added, each only below N) are
+// summed over the eight row groups by a reduce-scatter (lanes 16, 8, 4
+// apart), after which lane (g, t) holds value g * m + j (m = HD / 32), the
+// sum of column (i / 2) * 8 + 2t + i % 2 for i = g * m + j, and adds it to
+// `dst` itself.  The order of the additions is fixed by the shape.
+template <int HD>
+__device__ __forceinline__ void add_column_sums_scattered(float* dst, const uint32_t (&lo)[HD / 8],
+                                                          const uint32_t (&hi)[HD / 8], bool ok_lo,
+                                                          bool ok_hi, int lane) {
+  constexpr int kM = HD / 4;
+  float v[kM];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    v[2 * n] = v[2 * n + 1] = 0.0f;
+    if (ok_lo) {
+      v[2 * n] += __uint_as_float(lo[n] << 16);
+      v[2 * n + 1] += __uint_as_float(lo[n] & 0xffff0000u);
+    }
+    if (ok_hi) {
+      v[2 * n] += __uint_as_float(hi[n] << 16);
+      v[2 * n + 1] += __uint_as_float(hi[n] & 0xffff0000u);
+    }
+  }
+  scatter_step<kM / 2>(v, 16, lane & 16);
+  scatter_step<kM / 4>(v, 8, lane & 8);
+  scatter_step<kM / 8>(v, 4, lane & 4);
+  const int g = lane >> 2;
+  const int t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kM / 8; ++j) {
+    const int i = g * (kM / 8) + j;
+    dst[(i / 2) * 8 + 2 * t + i % 2] += v[j];
+  }
+}
+
+// A 16 x HD gradient tile, fp32 fragments times `mult`, rounded to bf16: its
+// column sums (rows below N) go to `db` when there is one, its rows below N
+// to `out` (row r0 of the head's columns, row stride ld).
+template <int HD>
+__device__ __forceinline__ void store_gradient_tile(const float (&acc)[HD / 8][4], float mult,
+                                                    bf16* out, long ld, int r0, int N, float* db,
+                                                    int g, int t) {
+  uint32_t lo[HD / 8], hi[HD / 8];
+#pragma unroll
+  for (int n = 0; n < HD / 8; ++n) {
+    lo[n] = pack_floats(acc[n][0] * mult, acc[n][1] * mult);
+    hi[n] = pack_floats(acc[n][2] * mult, acc[n][3] * mult);
+  }
+  const int row_a = r0 + g;
+  const int row_b = row_a + 8;
+  if (db != nullptr) {
+    if constexpr (HD >= 32)
+      add_column_sums_scattered<HD>(db, lo, hi, row_a < N, row_b < N, 4 * g + t);
+    else
+      add_column_sums<HD / 8>(db, lo, hi, row_a < N, row_b < N, g, t);
+  }
+  store_tile_rows<HD>(out + row_a * ld, out + row_b * ld, lo, hi, row_a < N, row_b < N, t);
+}
+
 // One block's row of the (B, 3D) fp32 dbias partial from its WARPS warps'
 // partials (s_db: [WARPS][3 * HD]), added in warp order.  The caller
 // synchronises the block first.

@@ -43,7 +43,8 @@
 //     the A operand of the second product without leaving registers.
 //   * The output leaves in 16-byte pieces (a quad transpose of the
 //     accumulator fragments, store_tile_rows) where hd is a multiple of 32.
-//   Every supported shape (hd 16, 32, 64; N <= 256) takes this one routine.
+//   Every shape up to 256 tokens (hd 16, 32, 64) takes this one routine;
+//   the C entry points send N > 256 to qkv_attention_tiles.cu's key tiles.
 //   What is left: the softmax (expf, max, sum, normalise and round: some 13
 //   instructions a score, 104 scores a thread a tile) now outweighs the
 //   products' instructions four to one, with 12 warps an SM to hide its
@@ -52,6 +53,7 @@
 //   products' instructions away and TMA the copies'.  PERF.md has the times
 //   beside PyTorch's flash kernel's.
 #include "attention_core.cuh"
+#include "qkv_attention_tiles.cuh"
 
 namespace {
 
@@ -197,6 +199,9 @@ cudaError_t launch_head_dim(const bf16* qkv, const bf16* bias, bf16* out, int B,
 //     warps, attention_core.cuh's attention_backward_recompute_ds), whose
 //     four tiles and no dS fit where a stored dS does not (147 KB of tiles
 //     and 135 KB of dS at N 256, hd 64).
+//   * N > 256: qkv_attention_tiles.cu's key tiles (a statistics pass, then
+//     one block a head over key tiles and query tiles), whose shared memory
+//     does not grow with N.
 //
 // The stored-dS kernel:
 //   * Staging: cp.async in two groups, K and Q, then V and dO; the bias is
@@ -304,56 +309,6 @@ __device__ __forceinline__ void finish_rows_one_column(bf16* dst, int rows, int 
   }
 }
 
-// One step of a reduce-scatter across the lanes `off` apart: a lane keeps
-// one half of its HALF * 2 values, sends the other, and adds what its
-// partner sent for the half it kept (the lane with the `off` bit keeps the
-// upper half).
-template <int HALF>
-__device__ __forceinline__ void scatter_step(float* v, int off, bool upper) {
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = upper ? v[i] : v[i + HALF];
-    const float keep = upper ? v[i + HALF] : v[i];
-    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
-  }
-}
-
-// add_column_sums for HD >= 32 with a third of its shuffles: the 2 HD / 8
-// column values of a lane (rows g and g + 8 added, each only below N) are
-// summed over the eight row groups by a reduce-scatter (lanes 16, 8, 4
-// apart), after which lane (g, t) holds value g * m + j (m = HD / 32), the
-// sum of column (i / 2) * 8 + 2t + i % 2 for i = g * m + j, and adds it to
-// `dst` itself.  The order of the additions is fixed by the shape.
-template <int HD>
-__device__ __forceinline__ void add_column_sums_scattered(float* dst, const uint32_t (&lo)[HD / 8],
-                                                          const uint32_t (&hi)[HD / 8], bool ok_lo,
-                                                          bool ok_hi, int lane) {
-  constexpr int kM = HD / 4;
-  float v[kM];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    v[2 * n] = v[2 * n + 1] = 0.0f;
-    if (ok_lo) {
-      v[2 * n] += __uint_as_float(lo[n] << 16);
-      v[2 * n + 1] += __uint_as_float(lo[n] & 0xffff0000u);
-    }
-    if (ok_hi) {
-      v[2 * n] += __uint_as_float(hi[n] << 16);
-      v[2 * n + 1] += __uint_as_float(hi[n] & 0xffff0000u);
-    }
-  }
-  scatter_step<kM / 2>(v, 16, lane & 16);
-  scatter_step<kM / 4>(v, 8, lane & 8);
-  scatter_step<kM / 8>(v, 4, lane & 4);
-  const int g = lane >> 2;
-  const int t = lane & 3;
-#pragma unroll
-  for (int j = 0; j < kM / 8; ++j) {
-    const int i = g * (kM / 8) + j;
-    dst[(i / 2) * 8 + 2 * t + i % 2] += v[j];
-  }
-}
-
 // Phase A's products beside a row of scores or weights in registers: an A
 // fragment (16 rows, 16 columns) is loaded for each 16 columns of the
 // reduction and dropped after use.  a_lane: the lane's ldmatrix.x4 address
@@ -397,30 +352,6 @@ __device__ __forceinline__ void row_pair_product(float (&d)[2][4], const bf16* a
     mma_16816(d[0], a, b[0], b[1]);
     mma_16816(d[1], a, b[2], b[3]);
   }
-}
-
-// A 16 x HD gradient tile, fp32 fragments times `mult`, rounded to bf16: its
-// column sums (rows below N) go to `db` when there is one, its rows below N
-// to `out` (row r0 of the head's columns, row stride ld).
-template <int HD>
-__device__ __forceinline__ void store_gradient_tile(const float (&acc)[HD / 8][4], float mult,
-                                                    bf16* out, long ld, int r0, int N, float* db,
-                                                    int g, int t) {
-  uint32_t lo[HD / 8], hi[HD / 8];
-#pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
-    lo[n] = pack_floats(acc[n][0] * mult, acc[n][1] * mult);
-    hi[n] = pack_floats(acc[n][2] * mult, acc[n][3] * mult);
-  }
-  const int row_a = r0 + g;
-  const int row_b = row_a + 8;
-  if (db != nullptr) {
-    if constexpr (HD >= 32)
-      add_column_sums_scattered<HD>(db, lo, hi, row_a < N, row_b < N, 4 * g + t);
-    else
-      add_column_sums<HD / 8>(db, lo, hi, row_a < N, row_b < N, g, t);
-  }
-  store_tile_rows<HD>(out + row_a * ld, out + row_b * ld, lo, hi, row_a < N, row_b < N, t);
 }
 
 template <int HD, int NKT, int MODE>
@@ -811,10 +742,14 @@ int bwd_plan_head_dim(int N, int* warps, int* smem_bytes) {
 }  // namespace
 
 // qkv: (B, N, 3*H*hd) bf16, [q heads | k heads | v heads]; bias: (3*H*hd,)
-// bf16 or null; out: (B, N, H*hd) bf16.  Returns the launch's CUDA error.
+// bf16 or null; out: (B, N, H*hd) bf16.  N > 256 goes to
+// qkv_attention_tiles.cu.  Returns the launch's CUDA error.
 extern "C" int ssl4polyp_qkv_attention_fwd(const void* qkv, const void* bias, void* out,
                                            int B, int N, int H, int head_dim, int n_valid,
                                            float scale, int softmax_f32, void* stream) {
+  if (N > 256)
+    return ssl4polyp_qkv_attention_tiles_fwd(qkv, bias, out, B, N, H, head_dim, n_valid, scale,
+                                             softmax_f32, stream);
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* bb = static_cast<const bf16*>(bias);
   bf16* o = static_cast<bf16*>(out);
@@ -834,13 +769,31 @@ extern "C" int ssl4polyp_qkv_attention_fwd(const void* qkv, const void* bias, vo
 // then rounded); 1 as attention_block.py's (dS = round_bf16(W * (dW - tmp) *
 // scale), dQ and dK unscaled: attention_core.cuh's kBwdFoldScaledDs), at
 // head dims 32 and 64.  With a bias, a null dbias leaves the (B, 3D) partial
-// rows in dbias_part unsummed.
+// rows in dbias_part unsummed.  N > 256 goes to qkv_attention_tiles.cu, with
+// its scratch taken from the stream's memory pool, and takes no probe bits.
 extern "C" int ssl4polyp_qkv_attention_bwd_mode(const void* qkv, const void* bias,
                                                 const void* dout, void* dqkv, void* dbias_part,
                                                 void* dbias, int B, int N, int H, int head_dim,
                                                 int n_valid, float scale_c, float scale,
                                                 int softmax_f32, int mode, int probe,
                                                 void* stream) {
+  if (N > 256) {
+    if (probe != 0 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const size_t rows = static_cast<size_t>(B) * H * N;
+    void* stats = nullptr;
+    void* dq_acc = nullptr;
+    cudaError_t err = cudaMallocAsync(&stats, rows * 4 * sizeof(float), st);
+    if (err == cudaSuccess) err = cudaMallocAsync(&dq_acc, rows * head_dim * sizeof(float), st);
+    if (err == cudaSuccess)
+      err = static_cast<cudaError_t>(ssl4polyp_qkv_attention_tiles_bwd(
+          qkv, bias, dout, dqkv, stats, dq_acc, dbias_part, dbias, B, N, H, head_dim, n_valid,
+          scale_c, scale, softmax_f32, mode, stream));
+    const cudaError_t freed = dq_acc == nullptr ? cudaSuccess : cudaFreeAsync(dq_acc, st);
+    const cudaError_t freed_stats = stats == nullptr ? cudaSuccess : cudaFreeAsync(stats, st);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return static_cast<int>(freed != cudaSuccess ? freed : freed_stats);
+  }
   const bf16* q = static_cast<const bf16*>(qkv);
   const bf16* bb = static_cast<const bf16*>(bias);
   const bf16* d = static_cast<const bf16*>(dout);
@@ -897,11 +850,13 @@ extern "C" int ssl4polyp_qkv_attention_bwd(const void* qkv, const void* bias, co
 }
 
 // Which backward takes (N, head_dim): 1 the stored-dS kernel, 0 the first
-// design, -1 none; *warps and *smem_bytes receive its block's warps and
-// dynamic shared memory.
+// design, 2 qkv_attention_tiles.cu's key tiles (N > 256; its gradient
+// pass's block), -1 none; *warps and *smem_bytes receive its block's warps
+// and dynamic shared memory.
 extern "C" int ssl4polyp_qkv_attention_bwd_plan(int N, int head_dim, int* warps,
                                                 int* smem_bytes) {
   if (N < 1) return -1;
+  if (N > 256) return ssl4polyp_qkv_attention_tiles_bwd_plan(head_dim, warps, smem_bytes);
   switch (head_dim) {
     case 16: return bwd_plan_head_dim<16>(N, warps, smem_bytes);
     case 32: return bwd_plan_head_dim<32>(N, warps, smem_bytes);

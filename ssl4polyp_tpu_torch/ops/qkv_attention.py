@@ -2,12 +2,15 @@
 
 Counterpart of ``ssl4polyp_tpu/ops/qkv_attention.py``: one CUDA kernel per
 direction (``csrc/qkv_attention.cu``) covers both ``fused_qkv_attention``
-and, through its ``bias`` argument, ``fused_qkv_bias_attention``, in bf16;
-fp32 tensors (the runs that compute in fp32) take the fp32 kernels of
-``csrc/qkv_attention_f32.cu``, with launch counts of their own.  The bf16
-backward recomputes the weights from qkv (and the bias) alone; the fp32
-backward also reads the forward's output and each row's log-sum-exp, which
-the fp32 forward writes when a backward will follow.
+and, through its ``bias`` argument, ``fused_qkv_bias_attention``, in bf16 up
+to 256 tokens; past 256 tokens bf16 takes the key-tile kernels of
+``csrc/qkv_attention_tiles.cu`` (a ViT-B/16 at 384 px has 577 tokens), and
+fp32 tensors (the runs that compute in fp32) the fp32 kernels of
+``csrc/qkv_attention_f32.cu``, each with launch counts of their own.  Both
+take any number of tokens.  The bf16 backward recomputes the weights from
+qkv (and the bias) alone; the fp32 backward also reads the forward's output
+and each row's log-sum-exp, which the fp32 forward writes when a backward
+will follow.
 
 A tensor on the CPU goes through the plain torch versions,
 :func:`fused_qkv_attention_reference` and
@@ -37,17 +40,24 @@ __all__ = [
     "fused_qkv_attention_reference",
     "launches",
     "launches_f32",
+    "tiles_backward_launches",
+    "tiles_launches",
 ]
 
-# Kernel launches since the last ops.reset_launch_counts(): bf16, fp32.
+# Kernel launches since the last ops.reset_launch_counts(): bf16 up to
+# _TILES_PAST tokens, bf16 past them (the key tiles), fp32.
 launches = 0
 backward_launches = 0
+tiles_launches = 0
+tiles_backward_launches = 0
 launches_f32 = 0
 backward_launches_f32 = 0
 
 _HEAD_DIMS = (16, 32, 64)
 _HEAD_DIMS_F32 = (32, 64)  # the fp32 kernels' instantiations
-_MAX_TOKENS = 256  # the bf16 kernels'; the fp32 kernels take any N
+# bf16 calls with more tokens than this take csrc/qkv_attention_tiles.cu, as
+# the library's entry points route them.
+_TILES_PAST = 256
 _F32_TILE = 64  # csrc/qkv_attention_f32.cu's kTile: rows of the dbias scratch
 
 
@@ -157,9 +167,8 @@ def _check(qkv, num_heads, valid_len, bias) -> None:
         raise ValueError(f"head dim {D / num_heads} not in {_HEAD_DIMS}")
     if qkv.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"the kernels take bfloat16 or float32, got {qkv.dtype}")
-    if N < 1 or (qkv.dtype == torch.bfloat16 and N > _MAX_TOKENS):
-        raise ValueError(f"the bf16 kernel takes 1..{_MAX_TOKENS} tokens (the fp32 kernel any "
-                         f"number), got {N}")
+    if N < 1:
+        raise ValueError(f"the kernels take 1 or more tokens, got {N}")
     if valid_len is not None and not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if qkv.dtype == torch.float32 and D // num_heads not in _HEAD_DIMS_F32:
@@ -178,13 +187,15 @@ def _check(qkv, num_heads, valid_len, bias) -> None:
 
 
 def _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias, lse: bool = False):
-    """The forward kernel of qkv's dtype.  In fp32 ``softmax_f32`` changes
-    nothing: the scores are fp32 either way, as in the plain version.  With
-    ``lse`` (fp32 only) it returns ``(out, lse)``: lse (B, H, N) fp32 holds
-    each row's log-sum-exp, which the fp32 backward reads."""
+    """The forward kernel of qkv's dtype (in bf16 past ``_TILES_PAST``
+    tokens the key tiles, through the same entry point).  In fp32
+    ``softmax_f32`` changes nothing: the scores are fp32 either way, as in
+    the plain version.  With ``lse`` (fp32 only) it returns ``(out, lse)``:
+    lse (B, H, N) fp32 holds each row's log-sum-exp, which the fp32 backward
+    reads."""
     from ._build import library
 
-    global launches, launches_f32
+    global launches, launches_f32, tiles_launches
     B, N, three_d = qkv.shape
     D = three_d // 3
     head_dim = D // num_heads
@@ -208,14 +219,17 @@ def _forward_kernel(qkv, num_heads, softmax_f32, valid_len, bias, lse: bool = Fa
         raise RuntimeError(f"qkv_attention kernel launch failed: CUDA error {err}")
     if f32:
         launches_f32 += 1
+    elif N > _TILES_PAST:
+        tiles_launches += 1
     else:
         launches += 1
     return (out, stats) if lse else out
 
 
-# The backward kernel's paths (csrc/qkv_attention.cu): "stored dS" up to 208
-# tokens, "first design" past them.
-BACKWARD_PATHS = {1: "stored dS", 0: "first design"}
+# The bf16 backward kernel's paths (csrc/qkv_attention.cu): "stored dS" up
+# to 208 tokens, "first design" from 209 to 256, "key tiles"
+# (csrc/qkv_attention_tiles.cu) past 256.
+BACKWARD_PATHS = {1: "stored dS", 0: "first design", 2: "key tiles"}
 # `probe` bits of the backward kernel, a measurement aid whose results are
 # wrong (all but PROBE_FIRST_DESIGN): phase B left out, phase A stopped after
 # the softmax, phase B's weights without the exponential, the first design at
@@ -244,10 +258,12 @@ def backward_plan(num_tokens: int, head_dim: int) -> dict:
 
 def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: int = 0,
                      scaled_ds: bool = False, out=None, lse=None):
-    """The backward kernel of qkv's dtype.  ``probe`` (0 on every path) is a
-    measurement aid: the ``PROBE_*`` bits above; the fp32 kernel has none
-    (``ValueError``).  ``scaled_ds``: the scale where ``attention_block.py``
-    puts it (as the plain version's argument; head dims 32 and 64), the mode
+    """The backward kernel of qkv's dtype (in bf16 past ``_TILES_PAST``
+    tokens the key tiles, with their scratch).  ``probe`` (0 on every path)
+    is a measurement aid: the ``PROBE_*`` bits above; neither the fp32
+    kernel nor the key tiles have any (``ValueError``).  ``scaled_ds``: the
+    scale where ``attention_block.py`` puts it (as the plain version's
+    argument; head dims 32 and 64), the mode
     ``fused_qkvproj_attention``'s backward runs, in either dtype.  ``out`` and
     ``lse``: the fp32 forward's output and log-sum-exp (``_forward_kernel``
     with ``lse``), as the autograd path hands them over; without them the
@@ -255,11 +271,15 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
     bf16 kernel takes neither."""
     from ._build import library
 
-    global backward_launches, backward_launches_f32
+    global backward_launches, backward_launches_f32, tiles_backward_launches
     check_gradient("dout", dout, (*qkv.shape[:2], qkv.shape[2] // 3), qkv.dtype, qkv.device)
     f32 = qkv.dtype == torch.float32
+    tiles = not f32 and qkv.shape[1] > _TILES_PAST
     if f32 and probe:
         raise ValueError("the fp32 backward kernel has no probe bits")
+    if tiles and probe:
+        raise ValueError(f"the backward past {_TILES_PAST} tokens (the key tiles) has no probe "
+                         f"bits")
     if not f32 and (out is not None or lse is not None):
         raise ValueError("out and lse go to the fp32 backward kernel only")
     B, N, three_d = qkv.shape
@@ -287,6 +307,14 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
                 delta.data_ptr(), dqkv.data_ptr(), part_ptr, dbias_ptr,
                 0 if part is None else part.shape[0], *shape, int(bool(scaled_ds)),
                 int(forward_first), stream)
+        elif tiles:  # each row's (max, 1/sum, tmp) and dQ's fp32 sums in key-tile order
+            stats = torch.empty((B, num_heads, N, 4), dtype=torch.float32, device=qkv.device)
+            dq_acc = torch.empty((B, num_heads, N, head_dim), dtype=torch.float32,
+                                 device=qkv.device)
+            err = library().ssl4polyp_qkv_attention_tiles_bwd(
+                qkv.data_ptr(), bias_ptr, dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
+                dq_acc.data_ptr(), part_ptr, dbias_ptr, *shape, 1.0 / math.sqrt(head_dim),
+                int(bool(softmax_f32)), int(bool(scaled_ds)), stream)
         else:
             err = library().ssl4polyp_qkv_attention_bwd_mode(
                 qkv.data_ptr(), bias_ptr, dout.data_ptr(), dqkv.data_ptr(), part_ptr, dbias_ptr,
@@ -296,6 +324,8 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
         raise RuntimeError(f"qkv_attention backward kernel launch failed: CUDA error {err}")
     if f32:
         backward_launches_f32 += 1
+    elif tiles:
+        tiles_backward_launches += 1
     else:
         backward_launches += 1
     return dqkv, None if dbias is None else dbias.to(bias.dtype)
@@ -345,8 +375,9 @@ def fused_qkv_attention(
 
     The contract of :func:`fused_qkv_attention_reference`, differentiable in
     ``qkv`` and ``bias``; with ``bias`` it is the JAX
-    ``fused_qkv_bias_attention``.  Rows at or past ``valid_len`` are computed
-    but meaningless, as in the JAX kernel.
+    ``fused_qkv_bias_attention``.  Any number of tokens, in bf16 and in fp32
+    (in bf16 past 256 on the key-tile kernels).  Rows at or past
+    ``valid_len`` are computed but meaningless, as in the JAX kernel.
     """
     if qkv.device.type == "cpu":
         return fused_qkv_attention_plain(qkv, num_heads, softmax_f32, valid_len, bias)

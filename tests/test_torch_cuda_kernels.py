@@ -60,6 +60,18 @@ def _randn(gen, *shape, scale=1.0):
         (1, 129, 2, 32, False, 100, True),
         (1, 256, 2, 64, True, 255, False),
         (1, 1, 1, 16, True, None, False),
+        # Past 256 tokens, the key tiles (csrc/qkv_attention_tiles.cu): one
+        # key past the last tile of 64, a ragged tile, a ViT-B/16 at 384 px
+        # (with keys cut below N and a wholly masked last tile), its MAE
+        # decoder's heads, and 1,025 tokens.
+        (2, 257, 4, 64, True, None, True),
+        (2, 271, 3, 16, False, 200, True),
+        (2, 300, 5, 32, True, 299, False),
+        (2, 577, 12, 64, True, None, True),
+        (2, 577, 12, 64, True, 500, True),
+        (2, 577, 16, 32, False, None, True),
+        (1, 577, 2, 16, True, 64, False),
+        (1, 1025, 4, 64, False, None, True),
     ],
 )
 @torch.inference_mode()
@@ -69,7 +81,9 @@ def test_attention_kernel_matches_plain(gen, B, N, H, hd, softmax_f32, valid_len
     ops.reset_launch_counts()
     out = fused_qkv_attention(qkv, H, softmax_f32, valid_len, bias)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["fused_qkv_attention"] == 1
+    counter = "fused_qkv_attention_tiles" if N > 256 else "fused_qkv_attention"
+    assert ops.launch_counts()[counter] == 1
+    assert sum(ops.launch_counts().values()) == 1
     ref = fused_qkv_attention_reference(qkv, H, softmax_f32, valid_len, bias)
     torch.testing.assert_close(out, ref, **ATTENTION_TOL)
 
@@ -105,8 +119,20 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
             fused_qkv_attention(qkv.half(), 2)
         with pytest.raises(ValueError):
             fused_qkv_attention(_randn(gen, 1, 8, 3 * 128), 1)  # head dim 128
-        with pytest.raises(ValueError):
-            fused_qkv_attention(_randn(gen, 1, 300, 96), 2)  # > 256 tokens
+        # More than 256 tokens in bf16: the attention kernel takes them (the
+        # key tiles); attention with the projection, the QKV projection with
+        # attention and attention over separate q, k, v refuse them
+        # (ROADMAP.md §2a, item 3).
+        long = _randn(gen, 1, 300, 3 * 128)
+        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 3"):
+            attn_proj.fused_attention_proj(long, _randn(gen, 128, 128), _randn(gen, 128), 2)
+        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 3"):
+            ops.attention_block.fused_qkvproj_attention(_randn(gen, 1, 300, 128),
+                                                        _randn(gen, 128, 3 * 128),
+                                                        _randn(gen, 3 * 128), 2)
+        q = _randn(gen, 1, 2, 300, 64)
+        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 3"):
+            ops.attention.fused_attention(q, q.clone(), q.clone())
         with pytest.raises(ValueError):
             fc1_gelu(x[:, ::2], w[:, ::2].contiguous(), b)  # x not contiguous
         with pytest.raises(TypeError):
@@ -122,10 +148,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
 # Token counts at each edge of the backward's paths (csrc/qkv_attention.cu):
 # one token, one tile and one past it, the encoder's 50, the last token of each
 # key-tile class (64, 128, 208) and the first of the next (65, 129, 209), the
-# classifier's 197 and the largest, 256 (the first design past 208).  Each
-# count runs at every head dim; the softmax type, the bias and valid_len (all
-# tokens, one, or three fewer) turn over from case to case.
-_BWD_TOKENS = (1, 16, 17, 50, 64, 65, 128, 129, 197, 208, 209, 256)
+# classifier's 197 and 256 (the first design past 208); then the key tiles
+# (csrc/qkv_attention_tiles.cu): one token past 256, a ragged tile, a
+# ViT-B/16 at 384 px and 1,025 tokens.  Each count runs at every head dim;
+# the softmax type, the bias and valid_len (all tokens, one, or three fewer)
+# turn over from case to case.
+_BWD_TOKENS = (1, 16, 17, 50, 64, 65, 128, 129, 197, 208, 209, 256, 257, 271, 300, 577, 1025)
 
 
 def _backward_edge_cases():
@@ -157,7 +185,9 @@ def test_attention_backward_kernel_matches_plain(gen, B, N, H, hd, softmax_f32, 
     ops.reset_launch_counts()
     fused_qkv_attention(qkv, H, softmax_f32, valid_len, bias).backward(dout)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["fused_qkv_attention_backward"] == 1
+    tiles = "_tiles" if N > 256 else ""
+    assert ops.launch_counts()[f"fused_qkv_attention{tiles}_backward"] == 1
+    assert ops.launch_counts()[f"fused_qkv_attention{tiles}"] == 1
     ref_dqkv, ref_dbias = fused_qkv_attention_backward_reference(
         qkv.detach(), dout, H, softmax_f32, valid_len, None if bias is None else bias.detach())
     torch.testing.assert_close(qkv.grad, ref_dqkv, **ATTENTION_BWD_TOL)
@@ -167,7 +197,8 @@ def test_attention_backward_kernel_matches_plain(gen, B, N, H, hd, softmax_f32, 
                                    rtol=2e-2)
 
 
-@pytest.mark.parametrize("N, H, hd", [(50, 12, 64), (197, 16, 32), (197, 12, 64), (256, 2, 64)])
+@pytest.mark.parametrize("N, H, hd", [(50, 12, 64), (197, 16, 32), (197, 12, 64), (256, 2, 64),
+                                      (577, 12, 64), (577, 16, 32)])
 @pytest.mark.parametrize("softmax_f32", [True, False])
 def test_attention_backward_kernel_reruns_bit_identical(gen, N, H, hd, softmax_f32):
     from ssl4polyp_tpu_torch.ops.qkv_attention import _backward_kernel
@@ -179,7 +210,8 @@ def test_attention_backward_kernel_reruns_bit_identical(gen, N, H, hd, softmax_f
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
-@pytest.mark.parametrize("N, H, hd", [(197, 12, 64), (197, 16, 32), (50, 12, 64)])
+@pytest.mark.parametrize("N, H, hd", [(197, 12, 64), (197, 16, 32), (50, 12, 64), (577, 12, 64),
+                                      (577, 16, 32)])
 def test_attention_backward_kernel_padded_equals_unpadded(gen, N, H, hd):
     # Padded keys are masked and padded rows get a zero upstream gradient, so
     # they add exact zeros: the valid rows' gradients and dbias keep their bits.
@@ -196,13 +228,13 @@ def test_attention_backward_kernel_padded_equals_unpadded(gen, N, H, hd):
 
 
 # The second mode (the QKV projection + attention backward's: the scale inside
-# dS's rounding, dQ and dK unscaled) on both paths: the stored-dS kernel up to
-# 208 tokens, its first design past them.
+# dS's rounding, dQ and dK unscaled) on every path: the stored-dS kernel up to
+# 208 tokens, its first design to 256, the key tiles past them.
 @pytest.mark.parametrize(
     "B, N, H, hd, softmax_f32, valid_len",
     [(4, 197, 12, 64, True, None), (4, 197, 16, 32, False, None), (2, 50, 3, 32, False, 40),
      (2, 208, 4, 32, True, 200), (2, 209, 4, 32, False, None), (1, 256, 2, 64, True, 255),
-     (2, 17, 2, 64, True, None)],
+     (2, 17, 2, 64, True, None), (2, 300, 4, 32, True, 290), (1, 300, 2, 64, False, None)],
 )
 def test_attention_backward_kernel_in_the_projection_mode_matches_plain(
         gen, B, N, H, hd, softmax_f32, valid_len):
@@ -219,6 +251,35 @@ def test_attention_backward_kernel_in_the_projection_mode_matches_plain(
     scale = ref_dbias.float().abs().max().item()
     torch.testing.assert_close(dbias.float(), ref_dbias.float(), atol=2e-3 * scale, rtol=2e-2)
     assert torch.equal(dqkv, again[0]) and torch.equal(dbias, again[1])
+
+
+def test_attention_backward_entry_point_routes_past_256_tokens(gen):
+    # ssl4polyp_qkv_attention_bwd_mode, the entry point the C callers use,
+    # sends N > 256 to the key tiles with their scratch from the stream's
+    # memory pool: the wrapper's bits (its scratch from torch), in both
+    # modes; a probe bit, a measurement aid of the shorter paths, is refused.
+    from ssl4polyp_tpu_torch.ops import _build
+    from ssl4polyp_tpu_torch.ops.qkv_attention import _backward_kernel, _scale
+
+    B, N, H, hd, valid_len = 2, 300, 4, 32, 290
+    qkv, dout = _randn(gen, B, N, 3 * H * hd), _randn(gen, B, N, H * hd)
+    bias = _randn(gen, 3 * H * hd, scale=0.5)
+    dqkv = torch.empty_like(qkv)
+    part = torch.empty(B, 3 * H * hd, device="cuda")
+    dbias = torch.empty(3 * H * hd, device="cuda")
+
+    def entry(mode, probe=0):
+        return _build.library().ssl4polyp_qkv_attention_bwd_mode(
+            qkv.data_ptr(), bias.data_ptr(), dout.data_ptr(), dqkv.data_ptr(), part.data_ptr(),
+            dbias.data_ptr(), B, N, H, hd, valid_len, _scale(hd, torch.bfloat16), hd ** -0.5, 1,
+            mode, probe, torch.cuda.current_stream().cuda_stream)
+
+    for mode in (0, 1):
+        want = _backward_kernel(qkv, dout, H, True, valid_len, bias, scaled_ds=bool(mode))
+        assert entry(mode) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(dqkv, want[0]) and torch.equal(dbias.to(torch.bfloat16), want[1])
+    assert entry(0, probe=1) != 0
 
 
 @pytest.mark.parametrize("shape", [(4, 50, 768), (2, 197, 512), (37, 64), (5, 2048)])

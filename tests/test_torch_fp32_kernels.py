@@ -409,9 +409,15 @@ def test_fp32_attention_takes_any_token_count_and_bf16_stops_at_256(stub):
     # the backward's with B * ceil(577 / 64) rows of dbias scratch first.
     assert stub.args[0][4:9] == (1, 577, H, hd, 500)
     assert stub.args[1][9:15] == (10, 1, 577, H, hd, 500)
-    qkv_attention._check(_t((1, 256, 3 * H * hd), torch.bfloat16), H, None, None)
+    # In bf16 the attention kernels take any N too (past 256 the key tiles);
+    # the bf16 kernels of the projection fold and of the QKV projection with
+    # attention stop at 256 (ROADMAP.md §2a, item 3).
+    for n in (256, 257, 577):
+        qkv_attention._check(_t((1, n, 3 * H * hd), torch.bfloat16), H, None, None)
+    D = H * hd
     with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
-        qkv_attention._check(_t((1, 257, 3 * H * hd), torch.bfloat16), H, None, None)
+        attn_proj._check(_t((1, 257, 3 * D), torch.bfloat16), _t((D, D), torch.bfloat16),
+                         _t(D, torch.bfloat16), H, None)
     with pytest.raises(ValueError):
         qkv_attention._check(_t((1, 0, 3 * H * hd)), H, None, None)
 

@@ -1,0 +1,355 @@
+"""More than 256 tokens: the port against the JAX package, on the CPU.
+
+A ViT-B/16 at 384 px has 577 tokens, past what the bf16 attention kernels of
+``csrc/qkv_attention.cu`` hold on chip; on the card bf16 calls past 256
+tokens take the key-tile kernels of ``csrc/qkv_attention_tiles.cu``, whose
+plain versions (the CPU path and their reference on the card) are the same
+functions at every token count.  Here those plain versions, a tiny
+classifier and a tiny MAE whose decoder runs more than 256 tokens are held
+against the JAX package (its Pallas kernels in interpret mode, its XLA
+model paths), on inputs made with numpy from a seed; and the wrappers route
+such calls to the key tiles, where the bf16 kernels of attention with the
+projection, the QKV projection with attention and attention over separate
+q, k, v still refuse them.
+"""
+
+import contextlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ssl4polyp_tpu.data.augment import normalize_batch as jax_normalize
+from ssl4polyp_tpu.models import factory as jax_factory
+from ssl4polyp_tpu.models import mae as jax_mae
+from ssl4polyp_tpu.models import vit as jax_vit
+from ssl4polyp_tpu.ops.qkv_attention import fused_qkv_attention as jax_attention
+from ssl4polyp_tpu.ops.qkv_attention import fused_qkv_bias_attention as jax_bias_attention
+from ssl4polyp_tpu.training import classification as jax_classification
+from ssl4polyp_tpu_torch import ops
+from ssl4polyp_tpu_torch.models import factory, layers
+from ssl4polyp_tpu_torch.models.factory import build_classifier
+from ssl4polyp_tpu_torch.models.mae import MAE, MAEConfig
+from ssl4polyp_tpu_torch.models.vit import ViT, ViTConfig
+from ssl4polyp_tpu_torch.models.weights import mae_state_dict_from_jax, state_dict_from_jax
+from ssl4polyp_tpu_torch.ops import _build, attention, attention_block, attn_proj, qkv_attention
+from ssl4polyp_tpu_torch.ops.qkv_attention import (
+    fused_qkv_attention_backward_reference,
+    fused_qkv_attention_reference,
+)
+from ssl4polyp_tpu_torch.training import classification, pretrain
+from tests.test_torch_finetune import _jax_augment, _numpy_params, _torch_params
+
+# The attention function against the interpret-mode JAX kernels.  fp32: the
+# same algorithm, summation order only.  bf16: both round the scale fold,
+# the scores (softmax_f32 False), the weights, dS and the outputs at the same
+# points, so a rounding that flips on an fp32 order difference moves an
+# output by one bf16 ulp (2^-8 relative) and dQ or dK by |k| or |q| times one
+# ulp of dS; dbias is the fp32 sum of those over every row, held against its
+# largest value (as in test_torch_qkv_attention.py).
+F32_TOL = 2e-5
+BF16_TOL = 1.6e-2
+BWD_F32_TOL = 1e-4
+BWD_BF16_TOL = 2e-2
+
+
+def _inputs(seed, B, N, H, hd):
+    rng = np.random.default_rng(seed)
+    qkv = rng.standard_normal((B, N, 3 * H * hd)).astype(np.float32)
+    bias = (0.5 * rng.standard_normal(3 * H * hd)).astype(np.float32)
+    dout = rng.standard_normal((B, N, H * hd)).astype(np.float32)
+    return qkv, bias, dout
+
+
+def _jax_vjp(qkv, bias, dout, H, softmax_f32, valid_len, dtype):
+    fn = (lambda a, b: jax_bias_attention(a, b, H, True, softmax_f32, valid_len)) \
+        if bias is not None else (lambda a: jax_attention(a, H, True, softmax_f32, valid_len))
+    args = [jnp.asarray(qkv, dtype)] + ([] if bias is None else [jnp.asarray(bias, dtype)])
+    out, vjp = jax.vjp(fn, *args)
+    grads = vjp(jnp.asarray(dout, dtype))
+    as_np = [np.asarray(x.astype(jnp.float32)) for x in (out, *grads)]
+    return as_np[0], as_np[1], None if bias is None else as_np[2]
+
+
+def _torch_plain(qkv, bias, dout, H, softmax_f32, valid_len, dtype):
+    q = torch.from_numpy(qkv).to(dtype)
+    b = None if bias is None else torch.from_numpy(bias).to(dtype)
+    out = fused_qkv_attention_reference(q, H, softmax_f32, valid_len, b)
+    dqkv, dbias = fused_qkv_attention_backward_reference(
+        q, torch.from_numpy(dout).to(dtype), H, softmax_f32, valid_len, b)
+    return (out.float().numpy(), dqkv.float().numpy(),
+            None if dbias is None else dbias.float().numpy())
+
+
+# (N, heads, head dim, valid_len, bias): one token past 256 and a ragged
+# count, with all keys and with keys cut below N, at hd 32 (whose bf16 scale
+# fold rounds) and 64.
+@pytest.mark.parametrize("N, H, hd, valid_len, with_bias", [
+    (257, 2, 64, None, True),
+    (257, 2, 32, 200, False),
+    (290, 2, 32, None, False),
+    (290, 1, 64, 289, True),
+])
+@pytest.mark.parametrize("softmax_f32", [True, False], ids=["f32-scores", "bf16-scores"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_attention_past_256_tokens_matches_the_jax_kernels(N, H, hd, valid_len, with_bias,
+                                                           softmax_f32, dtype):
+    qkv, bias, dout = _inputs(N + hd, 1, N, H, hd)
+    bias = bias if with_bias else None
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ours = _torch_plain(qkv, bias, dout, H, softmax_f32, valid_len, dtype)
+    ref = _jax_vjp(qkv, bias, dout, H, softmax_f32, valid_len, jdt)
+    f32 = dtype == torch.float32
+    tol = F32_TOL if f32 else BF16_TOL
+    np.testing.assert_allclose(ours[0], ref[0], rtol=tol, atol=tol, err_msg="out")
+    tol = BWD_F32_TOL if f32 else BWD_BF16_TOL
+    for name, a, b in zip(("dqkv", "dbias"), ours[1:], ref[1:]):
+        if b is None:
+            assert a is None
+            continue
+        scale = max(1.0, float(np.abs(b).max()))
+        np.testing.assert_allclose(a, b, rtol=tol, atol=tol * scale, err_msg=name)
+
+
+# A tiny ViT with more than 256 tokens: patch 4 at 68 px is 17 x 17 patches
+# and the class token, 290 tokens; D 64, 2 blocks, 2 heads of 32.
+TINY = dict(img_size=68, patch_size=4, embed_dim=64, depth=2, num_heads=2)
+# As test_torch_vit.py's: fp32 the same math in another order through two
+# blocks; bf16 a few ulps where XLA keeps fused chains in fp32.
+LOGITS_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+# One fine-tune step in fp32, as test_torch_finetune.py's: summation orders
+# and the JAX GELU's polynomial erf (max error 2.2e-6).
+STEP_LOSS_RTOL = 1e-5
+STEP_GRAD_RTOL = 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_vit_past_256_tokens_matches_jax(dtype):
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jcfg = jax_vit.ViTConfig(pos_embed="learned", num_classes=2, compute_dtype=jdt, **TINY)
+    params = jax.tree_util.tree_map(np.asarray, jax_vit.init_vit(jax.random.PRNGKey(0), jcfg))
+    cfg = ViTConfig(pos_embed="learned", num_classes=2, compute_dtype=dtype, **TINY)
+    assert cfg.num_patches + 1 == 290
+    model = ViT(cfg, torch.Generator().manual_seed(0))
+    model.load_state_dict(state_dict_from_jax(params, cfg))
+    images = np.random.default_rng(1).standard_normal((2, 68, 68, 3)).astype(np.float32)
+    ref = np.asarray(jax_vit.vit_forward(params, jnp.asarray(images), jcfg))
+    with torch.inference_mode():
+        ours = model(torch.from_numpy(images)).numpy()
+    assert ours.shape == (2, 2) and ours.dtype == np.float32
+    np.testing.assert_allclose(ours, ref, rtol=LOGITS_TOL[dtype], atol=LOGITS_TOL[dtype])
+
+
+def test_finetune_step_past_256_tokens_matches_jax():
+    jax_clf = jax_factory.get_imagenet_or_random_vit(
+        jax.random.PRNGKey(0), pos_embed="learned", compute_dtype=jnp.float32, **TINY)
+    params = jax.tree_util.tree_map(np.asarray, jax_clf.params)
+    ours = build_classifier(torch.Generator().manual_seed(0), {}, jax_params=params, device="cpu",
+                            pos_embed="learned", compute_dtype=torch.float32, **TINY)
+    B = 3
+    images = np.random.default_rng(2).integers(0, 256, (B, 68, 68, 3), dtype=np.uint8)
+    p = _numpy_params(4, B)  # the augmentation's draws, handed to both sides
+    labels, valid = np.array([0, 1, 1]), np.array([True, True, False])
+    loss_args = classification.loss_settings([40, 20])
+    ctx = classification.step_context(ours, *loss_args, weight_decay=0.05)
+    state = classification.init_train_state(ours, torch.Generator().manual_seed(0))
+    loss, grads = classification.loss_and_grads(
+        ctx, state, torch.from_numpy(images), torch.from_numpy(labels), torch.from_numpy(valid),
+        _torch_params(p))
+
+    def jax_loss(tree):
+        logits = jax_clf.apply(tree, _jax_augment(images, p))
+        return jax_classification._loss_from_logits(logits, jnp.asarray(labels),
+                                                     jnp.asarray(valid), *loss_args)
+
+    want, want_grads = jax.value_and_grad(jax_loss)(jax.tree_util.tree_map(jnp.asarray, params))
+    np.testing.assert_allclose(loss.item(), float(want), rtol=STEP_LOSS_RTOL)
+    want_grads = {k: v.numpy() for k, v in state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, want_grads), ours.cfg).items()}
+    assert set(grads) == set(want_grads)
+    for name, g in grads.items():
+        w = want_grads[name]
+        scale = max(1e-3, float(np.abs(w).max()))
+        err = float(np.abs(g.numpy() - w).max()) / scale
+        assert err < STEP_GRAD_RTOL, f"gradient of {name} off by {err:.2e} of its scale"
+
+
+# A tiny MAE whose decoder runs 290 tokens (the encoder keeps 72 of the 289
+# patches and the class token); the decoder 32 wide, 1 block of 2 heads.
+MAE_ENCODER = dict(img_size=68, patch_size=4, embed_dim=64, depth=2, num_heads=4)
+MAE_DECODER = dict(decoder_embed_dim=32, decoder_depth=1, decoder_num_heads=2, mask_ratio=0.75)
+# As test_torch_mae.py's: fp32 another order; bf16 the JAX XLA path's bf16
+# softmax with the scale on the scores against the kernel's recipe, and
+# XLA's fused chains, a few bf16 ulps through 3 blocks.
+MAE_LOSS_RTOL = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
+MAE_GRAD_RTOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_mae_step_with_a_decoder_past_256_tokens_matches_jax(dtype):
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    f32 = dtype == torch.float32
+    jcfg = jax_mae.MAEConfig(
+        encoder=jax_vit.ViTConfig(compute_dtype=jdt, attention_softmax_f32=f32, **MAE_ENCODER),
+        **MAE_DECODER)
+    params = jax.tree_util.tree_map(np.asarray, jax_mae.init_mae(jax.random.PRNGKey(0), jcfg))
+    cfg = MAEConfig(encoder=ViTConfig(compute_dtype=dtype, attention_softmax_f32=f32,
+                                      **MAE_ENCODER), **MAE_DECODER)
+    assert (1 + cfg.encoder.num_patches, 1 + cfg.len_keep) == (290, 73)
+    model = MAE(cfg, torch.Generator().manual_seed(0))
+    model.load_state_dict(mae_state_dict_from_jax(params, cfg))
+    B, L = 2, cfg.encoder.num_patches
+    images = np.random.default_rng(3).integers(0, 256, (B, 68, 68, 3), dtype=np.uint8)
+    key = jax.random.PRNGKey(5)
+    noise = np.array(jax.random.uniform(key, (B, L)))
+
+    def jax_loss(p):
+        x = jax_normalize(jnp.asarray(images), jcfg.encoder.compute_dtype)
+        return jax_mae.mae_forward(p, x, key, jcfg)[0]
+
+    ref_loss, ref_grads = jax.value_and_grad(jax_loss)(params)
+    ref_grads = mae_state_dict_from_jax(jax.tree_util.tree_map(np.asarray, ref_grads), cfg)
+    loss, grads = pretrain.loss_and_grads(pretrain.init_pretrain_state(model),
+                                          torch.from_numpy(images)[None],
+                                          torch.from_numpy(noise)[None])
+    np.testing.assert_allclose(loss.item(), float(ref_loss), rtol=MAE_LOSS_RTOL[dtype])
+    assert sorted(grads) == sorted(ref_grads)
+    for name, g in grads.items():
+        got, want = g.numpy(), ref_grads[name].numpy()
+        if name.endswith("attn.qkv.bias"):  # the K slice's exact gradient is zero
+            d = got.shape[0] // 3
+            got = np.concatenate([got[:d], got[2 * d:]])
+            want = np.concatenate([want[:d], want[2 * d:]])
+        rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+        assert rel < MAE_GRAD_RTOL[dtype], (name, rel)
+
+
+def test_vit_b16_at_384_px_configures_577_tokens_on_the_default_route(monkeypatch):
+    # The configuration the card runs at 384 px, without building weights:
+    # 577 tokens, counted as padded to 584 (a multiple of 8, so the fusion
+    # knobs and the projection fold apply where the JAX package honours
+    # them); the MAE's encoder at 145 tokens, its decoder at 577.
+    monkeypatch.delenv("BENCH_ATTN_PROJ", raising=False)
+    cfg = factory._vit_b(2, "cls", "learned", img_size=384, pad_tokens_to=None)
+    assert (cfg.num_patches + 1, cfg.pad_tokens_to) == (577, 584)
+    for fusion, qkv_ln in (("fc1", False), ("full", False), ("full_ln", True)):
+        assert layers.block_route(577, 584, 768, fusion, qkv_ln) == (fusion, qkv_ln, False)
+    monkeypatch.setenv("BENCH_ATTN_PROJ", "1")
+    assert layers.block_route(577, 584, 768, None, False) == ("fc1", False, True)
+    mae = pretrain.model_config(pretrain.PretrainSettings(image_size=384))
+    assert (1 + mae.len_keep, 1 + mae.encoder.num_patches, mae.decoder_pad_to) == (145, 577, 584)
+
+
+class _StubLibrary:
+    """Records the entry point each launch reached and its arguments;
+    launches nothing."""
+
+    def __init__(self):
+        self.called, self.args = [], []
+
+    def __getattr__(self, name):
+        if not name.startswith("ssl4polyp_"):
+            raise AttributeError(name)
+
+        def entry(*args):
+            self.called.append(name)
+            self.args.append(args)
+            return 0
+        return entry
+
+
+@pytest.fixture
+def stub(monkeypatch):
+    library = _StubLibrary()
+    monkeypatch.setattr(_build, "library", lambda: library)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: type("Stream", (), {"cuda_stream": 0})())
+    saved = {(module, name): getattr(module, name) for module, name in ops._COUNTERS.values()}
+    ops.reset_launch_counts()
+    yield library
+    for (module, name), value in saved.items():
+        setattr(module, name, value)
+
+
+def _bf16(shape):
+    return torch.zeros(shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("N, tiles", [(256, False), (257, True), (577, True)])
+def test_bf16_wrappers_send_more_than_256_tokens_to_the_key_tiles(stub, N, tiles):
+    H, hd = 12, 64
+    qkv, bias, dout = _bf16((2, N, 3 * H * hd)), _bf16(3 * H * hd), _bf16((2, N, H * hd))
+    qkv_attention._check(qkv, H, N - 1, bias)
+    qkv_attention._forward_kernel(qkv, H, True, N - 1, bias)
+    qkv_attention._backward_kernel(qkv, dout, H, True, N - 1, bias, scaled_ds=True)
+    counts = ops.launch_counts()
+    names = ("fused_qkv_attention_tiles", "fused_qkv_attention_tiles_backward") if tiles else (
+        "fused_qkv_attention", "fused_qkv_attention_backward")
+    assert [counts[n] for n in names] == [1, 1] and sum(counts.values()) == 2
+    # The forward through the library's one entry point, which routes N > 256
+    # to the key tiles; the backward straight to them, with its scratch.
+    bwd = "ssl4polyp_qkv_attention_tiles_bwd" if tiles else "ssl4polyp_qkv_attention_bwd_mode"
+    assert stub.called == ["ssl4polyp_qkv_attention_fwd", bwd]
+    assert stub.args[0][3:8] == (2, N, H, hd, N - 1)
+    if tiles:
+        # (qkv, bias, dout, dqkv, stats, dq_acc, part, dbias, B, N, H, hd,
+        # n_valid, scale_c, scale, softmax_f32, mode, stream)
+        assert all(isinstance(p, int) and p for p in stub.args[1][:8])
+        assert stub.args[1][8:13] == (2, N, H, hd, N - 1)
+        assert stub.args[1][13] == 0.125 and stub.args[1][15:17] == (1, 1)
+        with pytest.raises(ValueError, match="no probe bits"):
+            qkv_attention._backward_kernel(qkv, dout, H, True, None, bias,
+                                           probe=qkv_attention.PROBE_NO_PHASE_B)
+    assert len(stub.called) == 2
+
+
+def test_rows_9_10_11_still_refuse_more_than_256_tokens_in_bf16(stub):
+    H, hd, N = 2, 64, 300
+    D = H * hd
+    for n in (257, 577, 1025):  # rows 1 and 2 take them
+        qkv_attention._check(_bf16((1, n, 3 * D)), H, None, _bf16(3 * D))
+    roadmap = "ROADMAP.md §2a, item 3"
+    with pytest.raises(ValueError, match=roadmap):
+        attn_proj._check(_bf16((1, N, 3 * D)), _bf16((D, D)), _bf16(D), H, None)
+    with pytest.raises(ValueError, match=roadmap):
+        attention_block._check(_bf16((1, N, D)), _bf16((D, 3 * D)), _bf16(3 * D), H, None)
+    q = _bf16((1, H, N, hd))
+    with pytest.raises(ValueError, match=roadmap):
+        attention._check(q, q.clone(), q.clone())
+    # In fp32 the fold and the QKV projection with attention take them.
+    f32 = torch.float32
+    attn_proj._check(torch.zeros((1, N, 3 * D)), torch.zeros((D, D)), torch.zeros(D), H, None)
+    attention_block._check(torch.zeros((1, N, D)), torch.zeros((D, 3 * D)),
+                           torch.zeros(3 * D, dtype=f32), H, None)
+    assert stub.called == []
+
+
+def test_the_backward_plan_names_the_key_tiles(stub, monkeypatch):
+    def plan(N, hd, warps, smem):
+        warps._obj.value, smem._obj.value = 4, 106_496
+        return 2 if N > 256 else 1
+
+    monkeypatch.setattr(stub, "ssl4polyp_qkv_attention_bwd_plan", plan, raising=False)
+    assert qkv_attention.backward_plan(577, 64) == {"path": "key tiles", "warps": 4,
+                                                    "smem_bytes": 106_496}
+    assert qkv_attention.backward_plan(197, 64)["path"] == "stored dS"
+
+
+def test_cpu_tensors_past_256_tokens_take_the_plain_versions():
+    qkv, bias, dout = _inputs(11, 1, 290, 2, 32)
+    q = torch.from_numpy(qkv).to(torch.bfloat16).requires_grad_()
+    b = torch.from_numpy(bias).to(torch.bfloat16).requires_grad_()
+    d = torch.from_numpy(dout).to(torch.bfloat16)
+    ops.reset_launch_counts()
+    out = qkv_attention.fused_qkv_attention(q, 2, False, 280, b)
+    out.backward(d)
+    assert set(ops.launch_counts().values()) == {0}
+    torch.testing.assert_close(out, fused_qkv_attention_reference(q.detach(), 2, False, 280,
+                                                                  b.detach()), rtol=0, atol=0)
+    dqkv, dbias = fused_qkv_attention_backward_reference(q.detach(), d, 2, False, 280, b.detach())
+    torch.testing.assert_close(q.grad, dqkv, rtol=0, atol=0)
+    torch.testing.assert_close(b.grad, dbias, rtol=0, atol=0)
+
