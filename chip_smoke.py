@@ -11,7 +11,7 @@ under the eval CLI and the pretraining engine on frames of SUN's size, and
 the fp32 runs (``amp: false``, ``PretrainSettings.precision = "fp32"``) on
 their own kernels, the fusion knobs' and ``BENCH_ATTN_PROJ=1``'s included,
 and a ViT-B/16 at 384 px (577 tokens) in bf16 on the key-tile attention
-kernels, on one NVIDIA GPU.
+kernels, with and without ``BENCH_ATTN_PROJ=1``, on one NVIDIA GPU.
 
 Run from the repository root, on a machine with a CUDA card and nvcc:
 
@@ -98,7 +98,13 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    attention limits, reruns bit-identical, timed beside the plain versions,
    bf16 SDPA and its backward and the bound; and the key tiles' backward
    beside the first design at 209 and 256 tokens, where the first design
-   runs today (timed only).
+   runs today (timed only).  Then attention with the output projection and
+   the QKV projection with attention past 256 tokens in bf16 (their
+   compositions on the key tiles), forward and backward, at a ViT-B/16's
+   shapes at 384 px (the classifier's, also with ``valid_len`` 500, and the
+   MAE decoder's) and at 300 tokens: within their 197-token limits, launch
+   counts exact, reruns bit-identical, timed beside the plain versions,
+   SDPA with ``F.linear`` and that pair's autograd backward, and the bound.
 3. The eval forward: a full-width ViT-B/16 2-class classifier, weights from
    a numpy-seeded tree in the JAX package's layout, answers 8 requests of 64
    uint8 224x224 images through ``make_forward_fn``.  Per request, attention
@@ -161,9 +167,12 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    tolerances, each route with its plain version too; each new kernel must
    launch exactly once forward and once backward per pass, and not at all
    while the plain versions run.  Then the model's route and
-   ``fused_qkvproj_attention`` in fp32 on the same activation and weights,
-   on their fp32 kernels, against their plain versions and each other
-   within 2e-5 (outputs) and 1e-4 (gradients) of max |plain|.
+   ``fused_qkvproj_attention`` at 384 px (a (64, 577, 768) activation),
+   both on the key tiles, against their plain versions and each other,
+   one forward and one backward launch a pass; then both in fp32 on the
+   224 px activation and weights, on their fp32 kernels, against their
+   plain versions and each other within 2e-5 (outputs) and 1e-4
+   (gradients) of max |plain|.
 7. The standalone eval CLI at full width: a synthetic pack of 224 px JPEG
    frames (128 a split) and a ViT-B/16 checkpoint (numpy-seeded JAX-layout
    tree, ``model_cfg`` and a thresholds block in its meta) are written with
@@ -342,10 +351,15 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    and 12 backward a step) and the MAE ViT-B/16 pretrain step (encoder 145
    tokens on ``qkv_attention.cu``, decoder 577 on the key tiles; step 1
    within the pretrain limits), each with exact launches and images/s over
-   3 repeats of 3; and under ``BENCH_ATTN_PROJ=1`` the eval forward raises
-   the attention+projection kernel's documented ``ValueError`` (more than
-   256 tokens in bf16 is ROADMAP.md §2a item 3) before any attention
-   launch.
+   3 repeats of 3; then under ``BENCH_ATTN_PROJ=1``, every classifier block
+   and the MAE decoder's 8 folding the projection into attention on the
+   composition past 256 tokens: the eval forward (12 fold launches a
+   request and no other attention launch, logits against the plain path's
+   within the eval limits), the fine-tune step under ``fc1`` (12 fold
+   launches forward and 12 backward a step) and the pretrain step (the
+   decoder's 8 and 8 on the fold, the encoder's 145 tokens on the default
+   route), each with step 1 or the logits held as above, exact launches
+   and images/s.
    The script's own wall time is printed before the two result lines.
 
 The last two lines of standard output are a JSON summary of the kernels and
@@ -535,6 +549,14 @@ def max_error(out: torch.Tensor, ref: torch.Tensor, tol: tuple[float, float], wh
     if (diff > atol + rtol * ref.abs()).any():
         fail(f"{what}: max |diff| {diff.max().item()} exceeds atol {atol} + rtol {rtol}*|ref|")
     return diff.max().item()
+
+
+def limit_share(out: torch.Tensor, ref: torch.Tensor, tol: tuple[float, float]) -> float:
+    """The largest share of its limit ``atol + rtol * |ref|`` that an
+    element's |out - ref| takes (1 is the limit)."""
+    out, ref = out.float(), ref.float()
+    atol, rtol = tol
+    return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
 
 
 def time_ms(fn, iters: int = 20, batches: int = 5) -> float:
@@ -1160,7 +1182,7 @@ def attn_proj_cost(b, n, h, hd):
     d = h * hd
     core, proj = b * h * n * n * hd, b * n * d * d
     return (dict(bytes_moved=2 * (4 * b * n * d + d * d + d), flops=4 * core + 2 * proj),
-            dict(bytes_moved=2 * (7 * b * n * d + 2 * d * d + d), flops=10 * core + 6 * proj))
+            dict(bytes_moved=2 * (7 * b * n * d + 2 * d * d + d), flops=12 * core + 4 * proj))
 
 
 def qkvproj_cost(b, n, d_in, h, hd):
@@ -1299,6 +1321,7 @@ def attn_proj_kernels(randn) -> dict[str, dict]:
         "attn_proj_backward": entry(
             "attn_proj.cu", "ssl4polyp_tpu/ops/attn_proj.py:90", max(bwd_errors),
             *bwd_times[0][:2], **bwd_cost, library_ms=bwd_times[0][2]),
+        **long_projection_kernels(randn, fold=True),
     }
 
 
@@ -1479,7 +1502,118 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
     report["fused_qkvproj_attention_backward"] = entry(
         "attention_block.cu", "ssl4polyp_tpu/ops/attention_block.py:224", max(bwd_errors),
         *bwd_times[0][:2], **bwd_cost, library_ms=bwd_times[0][2])
+    report.update(long_projection_kernels(randn, fold=False))
     return report
+
+
+def long_projection_kernels(randn, fold: bool) -> dict[str, dict]:
+    """Attention with the output projection (``fold``) or the QKV
+    projection with attention past 256 tokens in bf16 (their compositions
+    on the key tiles), forward and backward, against the plain versions at
+    a ViT-B/16's shapes at 384 px: the classifier's (12 heads of 64, fp32
+    scores; also with ``valid_len`` 500, its pad rows' upstream gradient
+    zero) and the MAE decoder's (16 heads of 32, D 512, bf16 scores); and
+    at 300 tokens with an odd head count where the width allows it.  Max
+    error, reruns bit-identical, the launches counted, and at the two model
+    shapes the times beside the plain versions', the library route's
+    (scaled_dot_product_attention and F.linear, and their autograd
+    backward; timed only) and the bound.  The plain versions at 577 tokens
+    form fp32 score tensors of 1 GB: they are timed over 3 batches of 5."""
+    name = "fused_attention_proj_tiles" if fold else "fused_qkvproj_attention_tiles"
+    cases = [(BATCH, 577, 768, 12, 64, True, None, "classifier at 384 px"),
+             (BATCH, 577, 768, 12, 64, True, 500, "classifier at 384 px, valid_len 500"),
+             (BATCH, 577, 512, 16, 32, False, None, "MAE decoder at 384 px"),
+             (4, 300, 128 if fold else 192, 4 if fold else 3, 32, True, 299, "300 tokens")]
+    fwd_errors, bwd_errors, times = [], [], {}
+    for b, n, d_in, h, hd, f32, valid_len, label in cases:
+        d = h * hd
+        rows = n if valid_len is None else valid_len
+        dout = randn(b, n, d)
+        dout[:, rows:] = 0
+        if fold:
+            inputs = (randn(b, n, 3 * d), randn(d, d, scale=d ** -0.5), randn(d, scale=0.5))
+            module, tol, grad_tol = attn_proj, ATTN_PROJ_TOL, ATTN_PROJ_PARAM_TOL
+            plain = lambda: attn_proj.fused_attention_proj_reference(*inputs, h, f32, valid_len)  # noqa: B023, E731
+            plain_bwd = lambda: attn_proj.fused_attention_proj_backward_reference(  # noqa: E731
+                *inputs, dout, h, f32, valid_len)  # noqa: B023
+            grad_names = ("dqkv", "dw", "db")
+        else:
+            inputs = (randn(b, n, d_in), randn(d_in, 3 * d, scale=d_in ** -0.5),
+                      randn(3 * d, scale=0.5))
+            module, tol, grad_tol = attention_block, QKVPROJ_TOL, QKVPROJ_GRAD_TOL
+            plain = lambda: attention_block.fused_qkvproj_attention_reference(  # noqa: E731
+                *inputs, h, f32, valid_len)  # noqa: B023
+            plain_bwd = lambda: attention_block.fused_qkvproj_attention_backward_reference(  # noqa: E731
+                *inputs, dout, h, f32, valid_len)  # noqa: B023
+            grad_names = ("dx", "dw", "db")
+        run = lambda: module._forward_kernel(*inputs, h, f32, valid_len)  # noqa: B023, E731
+        run_bwd = lambda: module._backward_kernel(*inputs, dout, h, f32, valid_len)  # noqa: B023, E731
+        ops.reset_launch_counts()
+        out, out_again, grads, grads_again = run(), run(), run_bwd(), run_bwd()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_counts(counts, {name: 1, f"{name}_backward": 1}, 2, f"{name}, {label}")
+        what = (f"{name} B={b} N={n}{'' if fold else f' Din={d_in}'} H={h} hd={hd} f32={f32} "
+                f"valid_len={valid_len}")
+        fwd_errors.append(max_error(out[:, :rows], plain()[:, :rows], tol, f"{what}: out"))
+        line = (f"{what}: out max |diff| {fwd_errors[-1]:.3e} (atol {tol[0]}, rtol {tol[1]})")
+        worst = 0.0
+        for grad_name, got, want in zip(grad_names, grads, plain_bwd()):
+            if grad_name == "dqkv":
+                err_tol = ATTENTION_BWD_TOL
+            else:  # sums over every row of the batch (dx over 3D columns)
+                err_tol = (grad_tol[0] * want.float().abs().max().item(), grad_tol[1])
+            err = max_error(got, want, err_tol, f"{what}: {grad_name}")
+            worst = max(worst, err)
+            line += f", {grad_name} {err:.3e} (atol {err_tol[0]:.3e}, rtol {err_tol[1]})"
+        bwd_errors.append(worst)
+        if not torch.equal(out, out_again) or not all(
+                torch.equal(a, g) for a, g in zip(grads, grads_again)):
+            fail(f"{what}: two runs gave different bits")
+        print(line + "; forward and backward reruns bit-identical")
+        if valid_len is not None:
+            continue
+        if fold:
+            leaves = [t.clone().requires_grad_() for t in inputs]
+
+            def library(leaves=leaves, b=b, n=n, d=d, h=h):
+                core = F.scaled_dot_product_attention(*heads_of(leaves[0], h))
+                return F.linear(core.transpose(1, 2).reshape(b, n, d), leaves[1], leaves[2])
+            fwd_cost, bwd_cost = attn_proj_cost(b, n, h, hd)
+        else:
+            leaves = [t.clone().requires_grad_()
+                      for t in (inputs[0], inputs[1].t().contiguous(), inputs[2])]
+
+            def library(leaves=leaves, b=b, n=n, d=d, h=h):
+                core = F.scaled_dot_product_attention(*heads_of(
+                    F.linear(leaves[0], leaves[1], leaves[2]), h))
+                return core.transpose(1, 2).reshape(b, n, d)
+            fwd_cost, bwd_cost = qkvproj_cost(b, n, d_in, h, hd)
+        lib_out = library()
+        library_bwd = lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)  # noqa: B023, E731
+        with torch.no_grad():
+            fwd = time_ms(run), time_ms(plain, 5, 3), time_ms(library)
+        bwd = time_ms(run_bwd), time_ms(plain_bwd, 5, 3), time_ms(library_bwd)
+        times[label] = fwd, bwd
+        library_name = ("scaled_dot_product_attention + F.linear" if fold
+                        else "F.linear + scaled_dot_product_attention")
+        print(f"  {label}: forward {fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, {library_name} "
+              f"{fwd[2]:.4f} ms, {bound_text(**fwd_cost)}; backward {bwd[0]:.4f} ms, plain "
+              f"{bwd[1]:.4f} ms, the library pair's {bwd[2]:.4f} ms, {bound_text(**bwd_cost)}; "
+              f"{CARD}")
+        del leaves, lib_out
+    b, n, d_in, h, hd = cases[0][:5]
+    fwd_cost, bwd_cost = attn_proj_cost(b, n, h, hd) if fold else qkvproj_cost(b, n, d_in, h, hd)
+    (fwd, bwd), source = times[cases[0][-1]], "attn_proj.cu" if fold else "attention_block.cu"
+    replaces = (("ssl4polyp_tpu/ops/attn_proj.py:212", "ssl4polyp_tpu/ops/attn_proj.py:250")
+                if fold else ("ssl4polyp_tpu/ops/attention_block.py:187",
+                              "ssl4polyp_tpu/ops/attention_block.py:224"))
+    return {
+        name: entry(source, replaces[0], max(fwd_errors), *fwd[:2], **fwd_cost,
+                    library_ms=fwd[2]),
+        f"{name}_backward": entry(source, replaces[1], max(bwd_errors), *bwd[:2], **bwd_cost,
+                                  library_ms=bwd[2]),
+    }
 
 
 def adamw_kernel(gen: torch.Generator) -> dict[str, dict]:
@@ -2845,27 +2979,38 @@ def _route_gradients(route, a, weight, bias, dout):
 def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
     """Block 0's attention core of the eval classifier, three ways, on a real
     activation: the path that launches ``fused_qkvproj_attention`` and
-    ``fused_attention``, forward and backward."""
+    ``fused_attention``, forward and backward; then at 384 px (577 tokens)
+    the model's route and ``fused_qkvproj_attention``, both on the key
+    tiles (``fused_attention`` takes at most 256 tokens)."""
     rng = np.random.default_rng(SEED)
-    cfg = ViTConfig(pos_embed="learned", num_classes=2)  # ViT-B/16 at 224 px
-    tree = jax_layout_tree(cfg, rng)
-    images = rng.integers(0, 256, (BATCH, 224, 224, 3), dtype=np.uint8)
-    with projection_fold(False):
-        classifier = get_imagenet_or_random_vit(gen, jax_params=tree, num_classes=2, device="cuda")
-    dtype, heads = cfg.compute_dtype, cfg.num_heads
-    model = layers.cast_params_for_compute(classifier.model, dtype).eval()
-    block = model.blocks[0]
-    with torch.no_grad():
-        x = model.patch_embed(normalize_batch(torch.from_numpy(images).cuda(), dtype))
-        pos = model.pos_embed.to(dtype)
-        cls = (model.cls_token.to(dtype) + pos[:, :1]).expand(BATCH, -1, -1)
-        a = block.norm1(torch.cat([cls, x + pos[:, 1:]], dim=1))
-    weight = block.attn.qkv.weight.detach()            # (3D, D): torch's (out, in)
-    bias = block.attn.qkv.bias.detach().to(dtype)
-    dout = (torch.randn(a.shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
-                        device="cuda") * 0.1).to(dtype)
-    if a.shape != (BATCH, 197, 768) or not torch.isfinite(a.float()).all():
-        fail(f"attention ops: activation {tuple(a.shape)} is not a finite (64, 197, 768) tensor")
+
+    def activation(image_size: int, tokens: int):
+        """Block 0's input activation, its QKV weight and bias, and an
+        upstream gradient, of the ViT-B/16 classifier at ``image_size``."""
+        cfg = ViTConfig(pos_embed="learned", num_classes=2, img_size=image_size)
+        tree = jax_layout_tree(cfg, rng)
+        images = rng.integers(0, 256, (BATCH, image_size, image_size, 3), dtype=np.uint8)
+        with projection_fold(False):
+            classifier = get_imagenet_or_random_vit(gen, jax_params=tree, num_classes=2,
+                                                    device="cuda", img_size=image_size)
+        model = layers.cast_params_for_compute(classifier.model, cfg.compute_dtype).eval()
+        block = model.blocks[0]
+        with torch.no_grad():
+            x = model.patch_embed(normalize_batch(torch.from_numpy(images).cuda(),
+                                                  cfg.compute_dtype))
+            pos = model.pos_embed.to(cfg.compute_dtype)
+            cls = (model.cls_token.to(cfg.compute_dtype) + pos[:, :1]).expand(BATCH, -1, -1)
+            a = block.norm1(torch.cat([cls, x + pos[:, 1:]], dim=1))
+        weight = block.attn.qkv.weight.detach()            # (3D, D): torch's (out, in)
+        bias = block.attn.qkv.bias.detach().to(cfg.compute_dtype)
+        dout = (torch.randn(a.shape, generator=torch.Generator(device="cuda").manual_seed(SEED),
+                            device="cuda") * 0.1).to(cfg.compute_dtype)
+        if a.shape != (BATCH, tokens, 768) or not torch.isfinite(a.float()).all():
+            fail(f"attention ops: activation {tuple(a.shape)} is not a finite "
+                 f"({BATCH}, {tokens}, 768) tensor")
+        return a, weight, bias, dout, cfg.num_heads
+
+    a, weight, bias, dout, heads = activation(224, 197)
 
     def split_heads(qkv):
         return [t.contiguous() for t in heads_of(qkv, heads)]
@@ -2931,6 +3076,33 @@ def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
         compare(results[name], plain_results[name], f"attention ops [{name}] kernels vs plain")
     for name in ("fused_qkvproj_attention", "fused_attention"):
         compare(results[name], results["model"], f"attention ops [{name}] vs the model's route")
+
+    # At 384 px (577 tokens): the model's route and fused_qkvproj_attention,
+    # both past 256 tokens on the key tiles; fused_attention takes at most
+    # 256 (ROADMAP.md §2a item 2b).
+    long_args = activation(384, 577)[:4]
+    long_launched = {"model": ("fused_qkv_attention_tiles", "fused_qkv_attention_tiles_backward"),
+                     "fused_qkvproj_attention": ("fused_qkvproj_attention_tiles",
+                                                 "fused_qkvproj_attention_tiles_backward")}
+    long_results = {}
+    for name, kernels in long_launched.items():
+        ops.reset_launch_counts()
+        long_results[name] = _route_gradients(kernel_routes[name], *long_args)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        check_counts(counts, dict.fromkeys(kernels, 1), 1,
+                     f"one forward and backward pass of the {name} route at 577 tokens")
+        for kernel, n in counts.items():
+            total[kernel] += n
+    ops.reset_launch_counts()
+    for name in long_launched:
+        compare(long_results[name], _route_gradients(plain_routes[name], *long_args),
+                f"attention ops at 577 tokens [{name}] kernels vs plain")
+    if any(ops.launch_counts().values()):
+        fail("attention ops: a plain route at 577 tokens launched a kernel")
+    compare(long_results["fused_qkvproj_attention"], long_results["model"],
+            "attention ops at 577 tokens [fused_qkvproj_attention] vs the model's route")
+    del long_args, long_results
 
     # In fp32, on the same activation and weights: the model's route and
     # fused_qkvproj_attention on their fp32 kernels (fused_attention stays
@@ -5342,11 +5514,13 @@ def phase_fp32() -> dict[str, int]:
 LONG_IMAGE = 384
 LONG_TIMED = (3, 3)  # images/s: 3 repeats of 3 steps or requests
 # The fine-tune step's kernel configurations at 577 tokens (counted as
-# padded to 584, D 768: the JAX package honours the fusion knobs there).
+# padded to 584, D 768: the JAX package honours the fusion knobs and the
+# projection fold there): (label, model overrides, BENCH_ATTN_PROJ=1).
 LONG_FT_CONFIGS = (
-    ("fc1", {}),
-    ("full", {"mlp_fusion": "full"}),
-    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True}),
+    ("fc1", {}, False),
+    ("full", {"mlp_fusion": "full"}, False),
+    ("full_ln+qkv_ln", {"mlp_fusion": "full_ln", "qkv_ln_fusion": True}, False),
+    ("fc1 under BENCH_ATTN_PROJ=1", {}, True),
 )
 
 
@@ -5354,11 +5528,14 @@ def phase_long_tokens() -> dict[str, int]:
     """Phase 16: the eval forward, the fine-tune step under each kernel
     configuration and the MAE pretrain step of a ViT-B/16 at 384 px in
     bf16, whose 577 tokens (the MAE decoder's too) take the key tiles: step 1
-    and the logits against the plain path's, launches exact, images/s; and
-    the refusal of the attention+projection kernel there."""
+    and the logits against the plain path's, launches exact, images/s; each
+    of the three also under BENCH_ATTN_PROJ=1, the projection folded into
+    attention on the compositions past 256 tokens."""
     phase_start = time.perf_counter()
     depth, enc_depth, dec_depth = 12, 12, 8
     tiles = {"fused_qkv_attention_tiles": depth, "fused_qkv_attention_tiles_backward": depth}
+    fold_tiles = {"fused_attention_proj_tiles": depth,
+                  "fused_attention_proj_tiles_backward": depth}
     total: dict[str, int] = {}
 
     def add(counts: dict[str, int]) -> None:
@@ -5407,31 +5584,45 @@ def phase_long_tokens() -> dict[str, int]:
     err = max(max_error(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL,
                         "eval forward at 384 px: logits")
               for got, ref in zip(logits, plain_logits))
+    share = max(limit_share(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL)
+                for got, ref in zip(logits, plain_logits))
     print(f"eval forward at 384 px (577 tokens): logits vs plain forward: max |diff| {err:.3e} "
-          f"(atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]})")
+          f"(atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]}; worst share of the limit {share:.3f}, "
+          f"max |logit| {max(float(np.abs(ref).max()) for ref in plain_logits):.3f})")
     timed(lambda: forward(requests[0]), "eval requests at 384 px (ViT-B/16)", per_eval)
 
-    # BENCH_ATTN_PROJ=1 at 577 tokens: the attention+projection kernel takes
-    # at most 256 tokens in bf16 (ROADMAP.md §2a, item 3), so the forward
-    # raises before any attention launch, and nothing falls back.
+    # BENCH_ATTN_PROJ=1 at 577 tokens: every block folds the output
+    # projection into attention, past 256 tokens the composition on the key
+    # tiles, and no other attention launch.
     folded = classifier(fold=True)
     if not all(b.attn.proj_fold for b in folded.model.blocks):
         fail("384 px under BENCH_ATTN_PROJ=1: a block does not fold")
+    fold_forward = make_forward_fn(folded, "cuda")()
+    per_fold_eval = {"fused_attention_proj_tiles": depth, "layernorm": 2 * depth + 1,
+                     "fc1_gelu": depth}
     ops.reset_launch_counts()
-    try:
-        make_forward_fn(folded, "cuda")()(requests[0])
-    except ValueError as err:
-        refusal = str(err)
-    else:
-        fail("384 px under BENCH_ATTN_PROJ=1: the forward ran past 256 tokens in bf16")
-    attention_launches = {n: c for n, c in ops.launch_counts().items()
-                          if c and ("attention" in n or "attn" in n)}
-    if "ROADMAP.md §2a, item 3" not in refusal or attention_launches:
-        fail(f"384 px under BENCH_ATTN_PROJ=1: {refusal!r}, attention launches "
-             f"{attention_launches}")
-    print(f"eval forward at 384 px under BENCH_ATTN_PROJ=1: refused as documented, no attention "
-          f"launch: ValueError({refusal!r})")
-    del folded, forward
+    fold_logits = [fold_forward(images) for images in requests]
+    counts = ops.launch_counts()
+    check_counts(counts, per_fold_eval, len(requests),
+                 f"{len(requests)} eval requests at 384 px under BENCH_ATTN_PROJ=1")
+    add(counts)
+    with plain_kernels():
+        plain_fold_logits = [fold_forward(images) for images in requests]
+    if any(got.shape != (BATCH, 2) or got.dtype != np.float32 for got in fold_logits):
+        fail(f"eval at 384 px under BENCH_ATTN_PROJ=1: logits "
+             f"{[(l.shape, l.dtype) for l in fold_logits]}")
+    err = max(max_error(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL,
+                        "eval forward at 384 px under BENCH_ATTN_PROJ=1: logits")
+              for got, ref in zip(fold_logits, plain_fold_logits))
+    share = max(limit_share(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL)
+                for got, ref in zip(fold_logits, plain_fold_logits))
+    unfolded = max(float(np.abs(got - ref).max()) for got, ref in zip(fold_logits, logits))
+    print(f"eval forward at 384 px under BENCH_ATTN_PROJ=1: logits vs plain forward: max |diff| "
+          f"{err:.3e} (atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]}; worst share of the limit "
+          f"{share:.3f}); vs the unfolded kernels' logits {unfolded:.3e}")
+    timed(lambda: fold_forward(requests[0]),
+          "eval requests at 384 px under BENCH_ATTN_PROJ=1 (ViT-B/16)", per_fold_eval)
+    del folded, forward, fold_forward
 
     # The fine-tune step under each kernel configuration.
     batches = [torch.from_numpy(rng.integers(0, 256, (BATCH, LONG_IMAGE, LONG_IMAGE, 3),
@@ -5440,13 +5631,13 @@ def phase_long_tokens() -> dict[str, int]:
     valid = torch.arange(BATCH, device="cuda") < BATCH - 4
     loss_mode, pos_weight, class_weights = loss_settings([3000, 1000])
     aug = draw_augment_params(BATCH, torch.Generator(device="cuda").manual_seed(SEED + 1))
-    for label, overrides in LONG_FT_CONFIGS:
+    for label, overrides, fold in LONG_FT_CONFIGS:
         what = f"fine-tune at 384 px [{label}]"
-        clf = classifier(**overrides)
+        clf = classifier(fold, **overrides)
         mlp_route = overrides.get("mlp_fusion", "fc1")
         qkv_ln = overrides.get("qkv_ln_fusion", False)
         routes = {(b.mlp_route, b.qkv_ln, b.attn.proj_fold) for b in clf.model.blocks}
-        if routes != {(mlp_route, qkv_ln, False)}:
+        if routes != {(mlp_route, qkv_ln, fold)}:
             fail(f"{what}: the blocks' routes are {routes}")
         ctx = step_context(clf, loss_mode, pos_weight, class_weights, FT_WEIGHT_DECAY)
         step = make_train_step(ctx)
@@ -5458,7 +5649,8 @@ def phase_long_tokens() -> dict[str, int]:
             plain_loss, plain_grads = loss_and_grads(ctx, state, batches[0], labels, valid, aug)
         check_step_one(loss, grads, plain_loss, plain_grads, FT_LOSS_RTOL, FT_GRAD_RTOL, what)
         del grads, plain_grads
-        per_step = {**tiles, "layernorm": 2 * depth + 1, "layernorm_backward": 2 * depth + 1,
+        per_step = {**(fold_tiles if fold else tiles), "layernorm": 2 * depth + 1,
+                    "layernorm_backward": 2 * depth + 1,
                     "ln_linear": depth if qkv_ln else 0,
                     {"fc1": "fc1_gelu", "full": "mlp_fused", "full_ln": "mlp_ln_fused"}[
                         mlp_route]: depth,
@@ -5500,13 +5692,39 @@ def phase_long_tokens() -> dict[str, int]:
         i = next(calls)
         train_step(state, images[i % 2], noise[i % 2], schedule(i % 20))
 
-    timed(pretrain_call, f"{what} steps (MAE ViT-B/16)", {
+    per_step = {
         "fused_qkv_attention": enc_depth, "fused_qkv_attention_backward": enc_depth,
         "fused_qkv_attention_tiles": dec_depth, "fused_qkv_attention_tiles_backward": dec_depth,
         "layernorm": 2 * (enc_depth + dec_depth) + 2,
         "layernorm_backward": 2 * (enc_depth + dec_depth) + 2,
         "fc1_gelu": enc_depth + dec_depth,
-        "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH)})
+        "adamw": -(-len(state.params) // adamw.TENSORS_PER_LAUNCH)}
+    timed(pretrain_call, f"{what} steps (MAE ViT-B/16)", per_step)
+    if not all(torch.isfinite(p).all() for p in state.params.values()):
+        fail(f"{what}: non-finite parameters after the steps")
+    del state, model
+
+    # The same step under BENCH_ATTN_PROJ=1: the decoder's 577 tokens
+    # (padded to 584) fold the projection, on the composition past 256
+    # tokens; the encoder's 145 stay on the default route.
+    with projection_fold(True):
+        model = MAE(cfg, torch.Generator().manual_seed(SEED))
+    if any(b.attn.proj_fold for b in model.blocks) or not all(
+            b.attn.proj_fold for b in model.decoder_blocks):
+        fail("pretrain at 384 px under BENCH_ATTN_PROJ=1: the decoder alone should fold")
+    model.load_state_dict(mae_state_dict_from_jax(mae_tree, cfg))
+    state = init_pretrain_state(model.cuda())
+    what = "pretrain at 384 px under BENCH_ATTN_PROJ=1"
+    loss, grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    with plain_kernels():
+        plain_loss, plain_grads = pretrain_loss_and_grads(state, images[0], noise[0])
+    check_step_one(loss, grads, plain_loss, plain_grads, LOSS_RTOL, GRAD_RTOL, what)
+    del grads, plain_grads
+    per_step = {**per_step, "fused_qkv_attention_tiles": 0,
+                "fused_qkv_attention_tiles_backward": 0,
+                "fused_attention_proj_tiles": dec_depth,
+                "fused_attention_proj_tiles_backward": dec_depth}
+    timed(pretrain_call, f"{what} steps (MAE ViT-B/16)", per_step)
     if not all(torch.isfinite(p).all() for p in state.params.values()):
         fail(f"{what}: non-finite parameters after the steps")
     del state, model

@@ -26,11 +26,16 @@ _COUNTERS = {
     "ln_linear": (ln_linear, "launches"),
     "attn_proj": (attn_proj, "launches"),
     "attn_proj_backward": (attn_proj, "backward_launches"),
+    # Past 256 tokens in bf16: the same functions composed on the key tiles.
+    "fused_attention_proj_tiles": (attn_proj, "tiles_launches"),
+    "fused_attention_proj_tiles_backward": (attn_proj, "tiles_backward_launches"),
     "adamw": (adamw, "launches"),
     "fused_attention": (attention, "launches"),
     "fused_attention_backward": (attention, "backward_launches"),
     "fused_qkvproj_attention": (attention_block, "launches"),
     "fused_qkvproj_attention_backward": (attention_block, "backward_launches"),
+    "fused_qkvproj_attention_tiles": (attention_block, "tiles_launches"),
+    "fused_qkvproj_attention_tiles_backward": (attention_block, "tiles_backward_launches"),
     # The fp32 kernels of the default route (the runs that compute in fp32).
     "fused_qkv_attention_f32": (qkv_attention, "launches_f32"),
     "fused_qkv_attention_backward_f32": (qkv_attention, "backward_launches_f32"),

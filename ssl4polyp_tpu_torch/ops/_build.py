@@ -79,10 +79,10 @@ _ENTRY_POINTS = (
     ("ssl4polyp_ln_linear_probe", ctypes.c_int,
      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_attn_proj_fwd", ctypes.c_int,
-     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_attn_proj_bwd", ctypes.c_int,
-     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5
+     [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p]),
     ("ssl4polyp_attn_proj_fwd_f32", ctypes.c_int,
@@ -93,6 +93,8 @@ _ENTRY_POINTS = (
     ("ssl4polyp_sgemm_f32_slices", ctypes.c_int, [ctypes.c_int] * 3),
     ("ssl4polyp_matmul_nt", ctypes.c_int,
      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+    ("ssl4polyp_matmul_nt_bias", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_attention_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_attention_fwd_probe", ctypes.c_int,
@@ -105,13 +107,13 @@ _ENTRY_POINTS = (
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_qkvproj_attention_fwd_probe", ctypes.c_int,
-     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_qkvproj_attention_bwd", ctypes.c_int,
      [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_qkvproj_attention_bwd_probe", ctypes.c_int,
-     [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
+     [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_qkvproj_attention_fwd_f32", ctypes.c_int,
      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]),

@@ -63,19 +63,17 @@ def check_bf16(name: str, dtype: torch.dtype, roadmap_item: str) -> None:
     raise TypeError(f"the kernel takes bfloat16, got {name} {dtype}")
 
 
-# The bf16 kernels of attention with the output projection, the QKV
-# projection with attention and attention over separate q, k, v take at most
-# this many tokens; more is not yet ported (ROADMAP.md §2a, item 3), where
-# fused_qkv_attention's bf16 kernels take any number.
-BF16_FUSED_MAX_TOKENS = 256
+# The bf16 kernel of attention over separate q, k and v (row 11,
+# ``fused_attention``) takes at most this many tokens; more is not yet
+# ported, and neither is its fp32 kernel (ROADMAP.md §2a, item 2b).  Every
+# other bf16 kernel takes any number of tokens.
+SEPARATE_QKV_MAX_TOKENS = 256
+SEPARATE_QKV_ITEM = "ROADMAP.md §2a, item 2b"
 
 
-def check_bf16_fused_tokens(N: int, dtype: torch.dtype) -> None:
-    """Refuses with ``ValueError`` a token count the bf16 kernel of attention
-    with the output projection, the QKV projection with attention or
-    attention over separate q, k, v cannot take (the fp32 kernels take any
-    N >= 1)."""
-    if N < 1 or (dtype == torch.bfloat16 and N > BF16_FUSED_MAX_TOKENS):
-        raise ValueError(f"the bf16 kernel takes 1..{BF16_FUSED_MAX_TOKENS} tokens (more is not "
-                         f"yet ported: ROADMAP.md §2a, item 3; the fp32 kernel any number), "
-                         f"got {N}")
+def check_separate_qkv_tokens(N: int) -> None:
+    """Refuses with ``ValueError`` a token count that the bf16 kernel of
+    attention over separate q, k and v cannot take."""
+    if not 1 <= N <= SEPARATE_QKV_MAX_TOKENS:
+        raise ValueError(f"fused_attention's bf16 kernel takes 1..{SEPARATE_QKV_MAX_TOKENS} "
+                         f"tokens (more is not yet ported: {SEPARATE_QKV_ITEM}), got {N}")

@@ -24,7 +24,7 @@ import math
 
 import torch
 
-from ._checks import BF16_FUSED_MAX_TOKENS, FP32_PUBLIC_FUNCTIONS, check_bf16, check_gradient
+from ._checks import FP32_PUBLIC_FUNCTIONS, check_bf16, check_gradient, check_separate_qkv_tokens
 
 __all__ = [
     "backward_launches",
@@ -40,7 +40,7 @@ launches = 0
 backward_launches = 0
 
 # What the kernels take: bf16, these head sizes, 1..256 tokens
-# (BF16_FUSED_MAX_TOKENS; more is ROADMAP.md §2a, item 3).
+# (SEPARATE_QKV_MAX_TOKENS; more is ROADMAP.md §2a, item 2b).
 _HEAD_DIMS = (16, 32, 64)
 # `probe` bits of the forward kernel, a measurement aid (0 on every path;
 # chip_smoke.py times the kernel with parts left out, whose results are
@@ -114,9 +114,7 @@ def _check(q, k, v) -> None:
     _, _, N, head_dim = q.shape
     if head_dim not in _HEAD_DIMS:
         raise ValueError(f"head dim {head_dim} not in {_HEAD_DIMS}")
-    if not 1 <= N <= BF16_FUSED_MAX_TOKENS:
-        raise ValueError(f"the kernel takes 1..{BF16_FUSED_MAX_TOKENS} tokens (more is not yet "
-                         f"ported: ROADMAP.md §2a, item 3), got {N}")
+    check_separate_qkv_tokens(N)
     for name, t in (("q", q), ("k", k), ("v", v)):
         check_bf16(name, t.dtype, FP32_PUBLIC_FUNCTIONS)
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:

@@ -15,8 +15,13 @@ wgmma GEMM, the attention backward (``qkv_attention.py``'s kernel, with the
 bias and the scale where this function's TPU kernel puts them), and ``dw =
 x.T @ dqkv`` on a wgmma product with both operands transposed.  The first
 designs of both directions stay behind :data:`PROBE_FIRST_DESIGN` and
-:data:`BACKWARD_PROBE_FIRST_DESIGN`.  fp32 tensors (the runs that compute in
-fp32) take ``csrc/attention_block_f32.cu``, with launch counts of their own:
+:data:`BACKWARD_PROBE_FIRST_DESIGN`.  Past 256 tokens (a ViT-B/16 at 384 px
+has 577) the bf16 forward writes qkv to a (B, N, 3D) scratch as the
+backward's first step does, then runs the key tiles' attention forward
+(``csrc/qkv_attention_tiles.cu``) with the bias; the backward's steps are
+the same, its attention step on the key tiles' backward; both counted apart.
+fp32 tensors (the runs that compute in fp32) take
+``csrc/attention_block_f32.cu``, with launch counts of their own:
 the projection on the fp32 SGEMM into a (B, N, 3D) scratch, then the fp32
 attention forward with the bias, whose output and log-sum-exp autograd
 saves when a backward follows; the backward recomputes the projection, runs
@@ -38,8 +43,14 @@ from typing import Optional
 
 import torch
 
-from ._checks import check_bf16_fused_tokens, check_gradient, check_one_dtype, saved_or_scratch
-from .qkv_attention import _F32_TILE, _scale, fused_qkv_attention_reference
+from ._checks import check_gradient, check_one_dtype, saved_or_scratch
+from .qkv_attention import (
+    _F32_TILE,
+    _TILES_PAST,
+    _scale,
+    fused_qkv_attention_reference,
+    tiles_backward_scratch,
+)
 
 __all__ = [
     "BACKWARD_STEPS",
@@ -51,18 +62,24 @@ __all__ = [
     "fused_qkvproj_attention_reference",
     "launches",
     "launches_f32",
+    "tiles_backward_launches",
+    "tiles_launches",
 ]
 
 # Kernel launches since the last ops.reset_launch_counts(): forward calls,
 # and backward calls (each a fixed sequence of kernels, see
-# csrc/attention_block.cu and csrc/attention_block_f32.cu); bf16, fp32.
+# csrc/attention_block.cu and csrc/attention_block_f32.cu); bf16 up to
+# _TILES_PAST tokens, bf16 past them (on the key tiles), fp32.
 launches = 0
 backward_launches = 0
+tiles_launches = 0
+tiles_backward_launches = 0
 launches_f32 = 0
 backward_launches_f32 = 0
 
-# What the kernels take: bf16 or fp32, these head sizes, 1..256 tokens in
-# bf16 (any number in fp32), an input width that is a multiple of 64.
+# What the kernels take: bf16 or fp32, these head sizes, any number of
+# tokens, an input width that is a multiple of 64.  Past _TILES_PAST tokens
+# in bf16 neither direction has probe bits.
 _HEAD_DIMS = (32, 64)
 # `probe` bits of the forward kernel, a measurement aid (0 on every path;
 # chip_smoke.py times the kernel with parts left out, whose results are
@@ -155,7 +172,8 @@ def _check(x, w, b, num_heads, valid_len) -> None:
     if d_in % 64:
         raise ValueError(f"the kernel takes an input width that is a multiple of 64, got {d_in}")
     check_one_dtype((x, w, b))
-    check_bf16_fused_tokens(N, x.dtype)
+    if N < 1:
+        raise ValueError(f"the kernels take at least one token, got {N}")
     if valid_len is not None and not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if b.shape != (3 * D,):
@@ -167,16 +185,18 @@ def _check(x, w, b, num_heads, valid_len) -> None:
 
 def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len, probe: int = 0,
                     keep: bool = False):
-    """The forward kernel of x's dtype; ``probe`` (0 on every path) is a
-    measurement aid of the bf16 kernel: the ``PROBE_*`` bits above (the fp32
-    kernel has none).  In fp32 ``softmax_f32`` changes nothing, and with
-    ``keep`` it returns ``(out, lse)``: lse (B, H, N) holds each row's
-    log-sum-exp, which the fp32 backward reads."""
+    """The forward kernel of x's dtype (in bf16 past ``_TILES_PAST`` tokens
+    the projection into scratch, then the key tiles); ``probe`` (0 on every
+    path) is a measurement aid of the bf16 kernel: the ``PROBE_*`` bits above
+    (the fp32 kernel and the path past 256 tokens have none).  In fp32
+    ``softmax_f32`` changes nothing, and with ``keep`` it returns ``(out,
+    lse)``: lse (B, H, N) holds each row's log-sum-exp, which the fp32
+    backward reads."""
     if probe & ~_PROBE_BITS:
         raise ValueError(f"unknown probe bits {probe & ~_PROBE_BITS:#x}")
     from ._build import library
 
-    global launches, launches_f32
+    global launches, launches_f32, tiles_launches
     B, N, d_in = x.shape
     D = w.shape[1] // 3
     head_dim = D // num_heads
@@ -200,15 +220,25 @@ def _forward_kernel(x, w, b, num_heads, softmax_f32, valid_len, probe: int = 0,
     if keep:
         raise ValueError("only the fp32 kernel keeps the log-sum-exp")
     out = torch.empty((B, N, D), dtype=x.dtype, device=x.device)
+    tiles = N > _TILES_PAST
+    if tiles and probe:
+        raise ValueError(f"the forward past {_TILES_PAST} tokens has no probe bits")
+    # Scratch past _TILES_PAST tokens: W^T and round(x . W).
+    w_t = torch.empty((3 * D, d_in), dtype=x.dtype, device=x.device) if tiles else None
+    qkv = torch.empty((B, N, 3 * D), dtype=x.dtype, device=x.device) if tiles else None
     with torch.cuda.device(x.device):
         err = library().ssl4polyp_qkvproj_attention_fwd_probe(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, d_in, num_heads,
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), None if w_t is None else w_t.data_ptr(),
+            None if qkv is None else qkv.data_ptr(), out.data_ptr(), B, N, d_in, num_heads,
             head_dim, N if valid_len is None else int(valid_len), _scale(head_dim, x.dtype),
             int(bool(softmax_f32)), probe, torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"qkvproj_attention kernel launch failed: CUDA error {err}")
-    launches += 1
+    if tiles:
+        tiles_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -216,10 +246,12 @@ def _backward_kernel(x, w, b, dout, num_heads, softmax_f32, valid_len, probe: in
                      out=None, lse=None):
     """(dx, dw, db) from the backward's launches of x's dtype.  ``probe`` (0
     on every path) is a measurement aid of the bf16 kernels: the
-    ``BACKWARD_*`` bits above.  The fp32 backward (:func:`_backward_f32`)
-    also takes the forward's output and log-sum-exp (``out`` and ``lse``,
-    from ``_forward_kernel`` with ``keep``)."""
-    global backward_launches
+    ``BACKWARD_*`` bits above; past ``_TILES_PAST`` tokens the steps alone
+    (the first design takes at most 256, ``ValueError``), counted apart.  The
+    fp32 backward (:func:`_backward_f32`) also takes the forward's output and
+    log-sum-exp (``out`` and ``lse``, from ``_forward_kernel`` with
+    ``keep``)."""
+    global backward_launches, tiles_backward_launches
     if x.dtype == torch.float32:
         if probe:
             raise ValueError("the fp32 backward kernel has no probe bits")
@@ -229,9 +261,15 @@ def _backward_kernel(x, w, b, dout, num_heads, softmax_f32, valid_len, probe: in
     if probe & ~_BACKWARD_PROBE_BITS:
         raise ValueError(f"unknown probe bits {probe & ~_BACKWARD_PROBE_BITS:#x}")
     first_design = bool(probe & BACKWARD_PROBE_FIRST_DESIGN)
+    tiles = x.shape[1] > _TILES_PAST
+    if tiles and first_design:
+        raise ValueError(f"the backward's first design takes at most {_TILES_PAST} tokens")
     run, results = _backward_plan(x, w, b, dout, num_heads, softmax_f32, valid_len, first_design)
     run(probe & ~BACKWARD_PROBE_FIRST_DESIGN)
-    backward_launches += 1
+    if tiles:
+        tiles_backward_launches += 1
+    else:
+        backward_launches += 1
     return results()
 
 
@@ -266,6 +304,8 @@ def _backward_plan(x, w, b, dout, num_heads, softmax_f32, valid_len, first_desig
     dx = torch.empty_like(x)
     dw_part = torch.empty((slices, d_in, three_d), dtype=torch.float32, device=dev)
     dw = torch.empty((d_in, three_d), dtype=torch.float32, device=dev)
+    stats, dq_acc = (tiles_backward_scratch(B, num_heads, N, head_dim, dev) if N > _TILES_PAST
+                     else (None, None))
 
     design = BACKWARD_PROBE_FIRST_DESIGN if first_design else 0
 
@@ -276,7 +316,8 @@ def _backward_plan(x, w, b, dout, num_heads, softmax_f32, valid_len, first_desig
             err = lib.ssl4polyp_qkvproj_attention_bwd_probe(
                 x.data_ptr(), w.data_ptr(), b.data_ptr(), dout.data_ptr(), w_t.data_ptr(),
                 qkv.data_ptr(), dqkv.data_ptr(), db_part.data_ptr(), db.data_ptr(), dx.data_ptr(),
-                dw_part.data_ptr(), dw.data_ptr(), B, N, d_in, num_heads, head_dim,
+                dw_part.data_ptr(), dw.data_ptr(), None if stats is None else stats.data_ptr(),
+                None if dq_acc is None else dq_acc.data_ptr(), B, N, d_in, num_heads, head_dim,
                 N if valid_len is None else int(valid_len), _scale(head_dim, x.dtype),
                 1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), slices, steps | design,
                 torch.cuda.current_stream().cuda_stream,
@@ -377,9 +418,9 @@ def fused_qkvproj_attention(
     ``b`` (3D,) the fused QKV projection in the compute dtype; keys at or past
     ``valid_len`` are masked out of the softmax.  Rows at or past
     ``valid_len`` are computed but meaningless; their upstream gradient is
-    zero.  On the card the kernels take contiguous bfloat16 (up to 256
-    tokens) or float32 (any number) tensors of one dtype, a head dim of 32
-    or 64 and a Din that is a multiple of 64, and raise on anything else.
+    zero.  On the card the kernels take contiguous bfloat16 or float32
+    tensors of one dtype, any number of tokens, a head dim of 32 or 64 and
+    a Din that is a multiple of 64, and raise on anything else.
     """
     if x.device.type == "cpu":
         return fused_qkvproj_attention_plain(x, w, b, num_heads, softmax_f32, valid_len)

@@ -8,8 +8,14 @@ with ``w`` in torch's (out, in) layout.  On the card, in bf16, the forward is
 one CUDA kernel (``csrc/attn_proj.cu``) in which the (B, N, D) core output
 never leaves the SM; the backward recomputes it and returns dqkv, dw and db
 from hand-written kernels alone (the projection's three products included).
-fp32 tensors (the runs that compute in fp32) take ``csrc/attn_proj_f32.cu``,
-with launch counts of their own: the fp32 attention forward, whose output O
+Past 256 tokens (a ViT-B/16 at 384 px has 577) bf16 takes the same file's
+compositions, with launch counts of their own: the key tiles' attention
+forward (``csrc/qkv_attention_tiles.cu``) writes the core output to a
+(B, N, D) scratch, then the wgmma GEMM of ``csrc/mlp.cu`` forms y with the
+bias in its epilogue; the backward recomputes the core output the same way,
+forms dO on the GEMM, and runs the key tiles' backward.  fp32 tensors (the
+runs that compute in fp32) take ``csrc/attn_proj_f32.cu``, with launch
+counts of their own: the fp32 attention forward, whose output O
 and log-sum-exp autograd saves when a backward follows, then the fp32 SGEMM
 for the projection; the backward's dO, dW (split over the rows) and db, then
 the fp32 attention backward from the saved O, all hand-written kernels.  The
@@ -29,11 +35,13 @@ from typing import Optional
 
 import torch
 
-from ._checks import check_bf16_fused_tokens, check_gradient, check_one_dtype, saved_or_scratch
+from ._checks import check_gradient, check_one_dtype, saved_or_scratch
 from .qkv_attention import (
+    _TILES_PAST,
     _scale,
     fused_qkv_attention_backward_reference,
     fused_qkv_attention_reference,
+    tiles_backward_scratch,
 )
 
 __all__ = [
@@ -47,13 +55,18 @@ __all__ = [
     "fused_attention_proj_reference",
     "launches",
     "launches_f32",
+    "tiles_backward_launches",
+    "tiles_launches",
 ]
 
 # Kernel launches since the last ops.reset_launch_counts(): forward calls,
 # and backward calls (each a fixed sequence of kernels, see csrc/attn_proj.cu
-# and csrc/attn_proj_f32.cu); bf16, fp32.
+# and csrc/attn_proj_f32.cu); bf16 up to _TILES_PAST tokens, bf16 past them
+# (the compositions on the key tiles), fp32.
 launches = 0
 backward_launches = 0
+tiles_launches = 0
+tiles_backward_launches = 0
 launches_f32 = 0
 backward_launches_f32 = 0
 
@@ -114,7 +127,8 @@ def _check(qkv, w, b, num_heads, valid_len) -> None:
     check_one_dtype((qkv, w, b))
     if qkv.dtype == torch.bfloat16 and D % 128:
         raise ValueError(f"the bf16 kernel takes a width that is a multiple of 128, got {D}")
-    check_bf16_fused_tokens(N, qkv.dtype)
+    if N < 1:
+        raise ValueError(f"the kernels take at least one token, got {N}")
     if valid_len is not None and not 1 <= valid_len <= N:
         raise ValueError(f"valid_len {valid_len} outside 1..{N}")
     if w.shape != (D, D) or b.shape != (D,):
@@ -126,16 +140,18 @@ def _check(qkv, w, b, num_heads, valid_len) -> None:
 
 def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len, ablate: int = 0,
                     keep: bool = False):
-    """The forward kernel of qkv's dtype.  ``ablate`` is a measurement aid of
-    the bf16 kernel (csrc/attn_proj.cu: 1 leaves out the attention
-    arithmetic, 2 the projection's products): the result is then wrong and
-    only its time is of use; the fp32 kernel has none (``ValueError``).  In
+    """The forward kernel of qkv's dtype (in bf16 past ``_TILES_PAST``
+    tokens the composition on the key tiles, with its core-output scratch).
+    ``ablate`` is a measurement aid of the bf16 kernel (csrc/attn_proj.cu: 1
+    leaves out the attention arithmetic, 2 the projection's products): the
+    result is then wrong and only its time is of use; the fp32 kernel and the
+    composition past 256 tokens have none (``ValueError``).  In
     fp32 ``softmax_f32`` changes nothing, and with ``keep`` it returns ``(y,
     out, lse)``: the core output (B, N, D) and each row's log-sum-exp (B, H,
     N), which the fp32 backward reads."""
     from ._build import library
 
-    global launches, launches_f32
+    global launches, launches_f32, tiles_launches
     B, N, three_d = qkv.shape
     D = three_d // 3
     head_dim = D // num_heads
@@ -159,20 +175,30 @@ def _forward_kernel(qkv, w, b, num_heads, softmax_f32, valid_len, ablate: int = 
     if keep:
         raise ValueError("only the fp32 kernel keeps the core output")
     out = torch.empty((B, N, D), dtype=qkv.dtype, device=qkv.device)
+    tiles = N > _TILES_PAST
+    if tiles and ablate:
+        raise ValueError(f"the forward past {_TILES_PAST} tokens has no ablate bits")
+    core = torch.empty_like(out) if tiles else None  # scratch: the key tiles' core output
     with torch.cuda.device(qkv.device):
         err = library().ssl4polyp_attn_proj_fwd(
-            qkv.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(), B, N, num_heads,
-            head_dim, N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
-            int(bool(softmax_f32)), ablate, torch.cuda.current_stream().cuda_stream,
+            qkv.data_ptr(), w.data_ptr(), b.data_ptr(), None if core is None else core.data_ptr(),
+            out.data_ptr(), B, N, num_heads, head_dim, N if valid_len is None else int(valid_len),
+            _scale(head_dim, qkv.dtype), int(bool(softmax_f32)), ablate,
+            torch.cuda.current_stream().cuda_stream,
         )
     if err:
         raise RuntimeError(f"attn_proj kernel launch failed: CUDA error {err}")
-    launches += 1
+    if tiles:
+        tiles_launches += 1
+    else:
+        launches += 1
     return out
 
 
 # The backward's phases (csrc/attn_proj.cu), a bit each in its ``phases``
-# argument: W^T and the recompute of O with dO, dw, db, the attention backward.
+# argument: W^T and the recompute of O with dO, dw, db, the attention backward
+# (past 256 tokens O from the key tiles' forward and dO on the GEMM, and the
+# key tiles' backward).
 BACKWARD_PHASES = {"prep": 1, "dw": 2, "db": 4, "attention": 8}
 _ALL_PHASES = 15
 # A phase bit for timing alone: dw on its first design (mma.sync), in dw's place.
@@ -181,17 +207,21 @@ DW_FIRST_DESIGN_PHASE = 16
 
 def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len, out=None, lse=None):
     """(dqkv, dw, db) from the backward kernels of qkv's dtype: the bf16
-    backward's four phases, or the fp32 backward (:func:`_backward_f32`),
-    which also takes the forward's core output and log-sum-exp (``out`` and
-    ``lse``, from ``_forward_kernel`` with ``keep``)."""
-    global backward_launches
+    backward's four phases (counted apart past ``_TILES_PAST`` tokens), or
+    the fp32 backward (:func:`_backward_f32`), which also takes the forward's
+    core output and log-sum-exp (``out`` and ``lse``, from
+    ``_forward_kernel`` with ``keep``)."""
+    global backward_launches, tiles_backward_launches
     if qkv.dtype == torch.float32:
         return _backward_f32(qkv, w, b, dy, num_heads, valid_len, out, lse)
     if out is not None or lse is not None:
         raise ValueError("out and lse go to the fp32 backward kernel only")
     run, results = _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len)
     run(_ALL_PHASES)
-    backward_launches += 1
+    if qkv.shape[1] > _TILES_PAST:
+        tiles_backward_launches += 1
+    else:
+        backward_launches += 1
     return results()
 
 
@@ -222,13 +252,16 @@ def _backward_plan(qkv, w, b, dy, num_heads, softmax_f32, valid_len):
     dw = torch.empty((D, D), dtype=torch.float32, device=dev)
     db_part = torch.empty((-(-B * N // _DB_ROWS), D), dtype=torch.float32, device=dev)
     db = torch.empty((D,), dtype=torch.float32, device=dev)
+    stats, dq_acc = (tiles_backward_scratch(B, num_heads, N, head_dim, dev) if N > _TILES_PAST
+                     else (None, None))
 
     def run(phases: int) -> None:
         with torch.cuda.device(dev):
             err = lib.ssl4polyp_attn_proj_bwd(
                 qkv.data_ptr(), w.data_ptr(), dy.data_ptr(), w_t.data_ptr(), out.data_ptr(),
                 d_out.data_ptr(), dqkv.data_ptr(), dw_part.data_ptr(), dw.data_ptr(),
-                db_part.data_ptr(), db.data_ptr(), B, N, num_heads, head_dim,
+                db_part.data_ptr(), db.data_ptr(), None if stats is None else stats.data_ptr(),
+                None if dq_acc is None else dq_acc.data_ptr(), B, N, num_heads, head_dim,
                 N if valid_len is None else int(valid_len), _scale(head_dim, qkv.dtype),
                 1.0 / math.sqrt(head_dim), int(bool(softmax_f32)), slices, phases,
                 torch.cuda.current_stream().cuda_stream,
@@ -325,9 +358,9 @@ def fused_attention_proj(
     both in the compute dtype.  Rows at or past ``valid_len`` are computed
     but meaningless; their upstream gradient is zero, so they add exact
     zeros to dw and db.  On the card the kernels take contiguous tensors of
-    one dtype, bfloat16 (up to 256 tokens, D a multiple of 128) or float32
-    (any number of tokens and heads), and a head dim of 32 or 64, and raise
-    on anything else.
+    one dtype, bfloat16 (D a multiple of 128) or float32 (any number of
+    heads), any number of tokens and a head dim of 32 or 64, and raise on
+    anything else.
     """
     if qkv.device.type == "cpu":
         return fused_attention_proj_plain(qkv, w, b, num_heads, softmax_f32, valid_len)

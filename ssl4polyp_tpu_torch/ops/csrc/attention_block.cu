@@ -111,14 +111,32 @@
 // runs attention_core.cuh's attention_backward_recompute_ds (mode
 // kBwdFoldScaledDs), writing dqkv and a (B, 3D) db partial; dx as step 3;
 // dW on transposed_product.cuh (mma.sync, 3D a multiple of 64).
+//
+// Past 256 tokens.  The forward above holds a head's whole Q, K and V tiles
+// and a whole score row on chip (SSL4POLYP_FOR_TOKENS ends at 16 key tiles);
+// a ViT-B/16 at 384 px has 577 tokens.  There the forward writes qkv to a
+// (B, N, 3D) bf16 scratch as the backward's step 1 does: W^T by
+// weight_transpose_kernel, qkv = round_bf16(x . W) on the bare GEMM, then
+// qkv_attention_tiles.cu's forward with b as its bias (added in bf16 as each
+// tile lands: _project's second rounding), both scratches the caller's.  The
+// scratch costs 227 MB of HBM traffic a round trip at B 64, N 577, 3D 2,304
+// (0.068 ms), against the key tiles' 0.8 ms.  The
+// backward's four steps are the same at any N; past 256 tokens step 2 runs
+// the key tiles' backward in mode 1, which leaves the (B, 3D) dbias partial
+// rows for the column sum when given no dbias, its statistics and dQ sums in
+// the caller's scratch.  The first designs take at most 256 tokens.
 #include "attention_core.cuh"
 #include "hopper.cuh"
+#include "qkv_attention_tiles.cuh"
 #include "transposed_product.cuh"
 
-// The library's other entry points this backward runs (mlp.cu, qkv_attention.cu,
-// dw_product.cu).
+// The library's other entry points this backward (and the forward past
+// kTilesPast tokens) runs (mlp.cu, qkv_attention.cu, dw_product.cu).
 extern "C" int ssl4polyp_matmul_nt(const void* x, const void* w, void* y, int M, int K, int NF,
                                    void* stream);
+extern "C" int ssl4polyp_qkv_attention_fwd(const void* qkv, const void* bias, void* out, int B,
+                                           int N, int H, int head_dim, int n_valid, float scale,
+                                           int softmax_f32, void* stream);
 extern "C" int ssl4polyp_qkv_attention_bwd_mode(const void* qkv, const void* bias,
                                                 const void* dout, void* dqkv, void* dbias_part,
                                                 void* dbias, int B, int N, int H, int head_dim,
@@ -922,55 +940,106 @@ cudaError_t first_design_bwd(const bf16* x, const bf16* w, const bf16* bias, con
   return err;
 }
 
+// Runs f(p), p[i] a buffer of bytes[i] from the stream's memory pool (null
+// where bytes[i] is 0), for the entry points whose caller hands over no
+// scratch, then frees them.  Returns f's error, else the first failing
+// allocation's or release's.
+template <int K, typename F>
+int with_pool_scratch(const size_t (&bytes)[K], cudaStream_t st, F f) {
+  void* p[K] = {};
+  cudaError_t err = cudaSuccess;
+  for (int i = 0; i < K && err == cudaSuccess; ++i)
+    if (bytes[i] != 0) err = cudaMallocAsync(&p[i], bytes[i], st);
+  int rc = err != cudaSuccess ? static_cast<int>(err) : f(p);
+  for (int i = K - 1; i >= 0; --i) {
+    if (p[i] == nullptr) continue;
+    const cudaError_t freed = cudaFreeAsync(p[i], st);
+    if (rc == 0 && freed != cudaSuccess) rc = static_cast<int>(freed);
+  }
+  return rc;
+}
+
 }  // namespace
 
 // x: (B, N, Din) bf16; w: (Din, 3*H*hd) bf16, columns [q heads | k heads | v
 // heads]; bias: (3*H*hd,) bf16; out: (B, N, H*hd) bf16; all contiguous and
-// 16-byte aligned.  Din a multiple of 64, hd 32 or 64, N <= 256.  scale_c is
+// 16-byte aligned.  Din a multiple of 64, hd 32 or 64.  scale_c is
 // 1/sqrt(hd) as bf16 holds it.  `probe` (0 on every path) is a measurement
-// aid: the kProbe* bits above.  Returns the CUDA error of the tensor maps or
-// the launch.
+// aid: the kProbe* bits above.  Past kTilesPast tokens three launches, with
+// no probe bits: w_t, a (3D, Din) bf16 scratch, receives W^T, qkv, a (B, N,
+// 3D) bf16 scratch, round_bf16(x . W) from the bare GEMM, and the key tiles'
+// attention forward with b as its bias writes out; up to kTilesPast both
+// scratches are unused (null).  Returns the CUDA error of the tensor maps or
+// the first failing launch.
 extern "C" int ssl4polyp_qkvproj_attention_fwd_probe(const void* x, const void* w,
-                                                     const void* bias, void* out, int B, int N,
-                                                     int Din, int H, int head_dim, int n_valid,
-                                                     float scale_c, int softmax_f32, int probe,
-                                                     void* stream) {
+                                                     const void* bias, void* w_t, void* qkv,
+                                                     void* out, int B, int N, int Din, int H,
+                                                     int head_dim, int n_valid, float scale_c,
+                                                     int softmax_f32, int probe, void* stream) {
   if (B < 1 || Din % kBK != 0 || (probe & ~kProbeBits))
     return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N > kTilesPast) {
+    const int three_d = 3 * H * head_dim;
+    if (probe != 0 || H < 1 || Din < kBK || w_t == nullptr || qkv == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    weight_transpose_kernel<<<dim3((three_d + 31) / 32, (Din + 31) / 32), 256, 0, st>>>(
+        static_cast<const bf16*>(w), static_cast<bf16*>(w_t), Din, three_d);
+    int rc = static_cast<int>(cudaGetLastError());
+    if (rc == 0) rc = ssl4polyp_matmul_nt(x, w_t, qkv, B * N, Din, three_d, stream);
+    if (rc != 0) return rc;
+    return ssl4polyp_qkv_attention_fwd(qkv, bias, out, B, N, H, head_dim, n_valid, scale_c,
+                                       softmax_f32, stream);
+  }
   return static_cast<int>(dispatch(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
                                    static_cast<const bf16*>(bias), static_cast<bf16*>(out), B, N,
-                                   Din, H, head_dim, n_valid, scale_c, softmax_f32, probe,
-                                   static_cast<cudaStream_t>(stream)));
+                                   Din, H, head_dim, n_valid, scale_c, softmax_f32, probe, st));
 }
 
-// ssl4polyp_qkvproj_attention_fwd_probe with probe 0.
+// ssl4polyp_qkvproj_attention_fwd_probe with probe 0, past kTilesPast tokens
+// its two scratches taken from the stream's memory pool.
 extern "C" int ssl4polyp_qkvproj_attention_fwd(const void* x, const void* w, const void* bias,
                                                void* out, int B, int N, int Din, int H,
                                                int head_dim, int n_valid, float scale_c,
                                                int softmax_f32, void* stream) {
-  return ssl4polyp_qkvproj_attention_fwd_probe(x, w, bias, out, B, N, Din, H, head_dim, n_valid,
-                                               scale_c, softmax_f32, 0, stream);
+  const bool tiles = N > kTilesPast && B > 0 && Din > 0 && H > 0 && head_dim > 0;
+  const size_t three_d = tiles ? 3 * static_cast<size_t>(H) * head_dim : 0;
+  const size_t bytes[2] = {three_d * Din * sizeof(bf16),
+                           static_cast<size_t>(B) * N * three_d * sizeof(bf16)};
+  return with_pool_scratch(bytes, static_cast<cudaStream_t>(stream), [&](void* const* p) {
+    return ssl4polyp_qkvproj_attention_fwd_probe(x, w, bias, p[0], p[1], out, B, N, Din, H,
+                                                 head_dim, n_valid, scale_c, softmax_f32, 0,
+                                                 stream);
+  });
 }
 
 // The backward of ssl4polyp_qkvproj_attention_fwd for the output gradient
 // dout (B, N, H*hd) bf16.  Scratch: w_t (3D, Din) bf16, qkv and dqkv (B, N,
 // 3D) bf16, db_part (B, 3D) fp32, dw_part (slices, Din, 3D) fp32 (the count
 // ssl4polyp_dw_product_slices gives; kFirstDesignDwSlices for the first
-// design).  Results: dx (B, N, Din) bf16, dw (Din, 3D) fp32, db (3D,) fp32.
-// scale is the fp32 1/sqrt(hd).  `probe` (0 on every path) is a measurement
-// aid: the kBwdProbe* and kStep* bits above.  Returns the first failing
-// launch's CUDA error.
+// design); past kTilesPast tokens stats (B, H, N) float4 and dq_acc (B, H,
+// N, hd) fp32, the key tiles' backward's (null up to them).  Results: dx (B,
+// N, Din) bf16, dw (Din, 3D) fp32, db (3D,) fp32.  scale is the fp32
+// 1/sqrt(hd).  `probe` (0 on every path) is a measurement aid: the kBwdProbe*
+// and kStep* bits above.  Any N >= 1: past kTilesPast tokens the attention
+// step runs the key tiles' backward in mode 1, which leaves the (B, 3D)
+// dbias partial rows for the column sum, and the first design, which takes
+// at most kTilesPast, is refused.  Returns the first failing launch's CUDA
+// error.
 extern "C" int ssl4polyp_qkvproj_attention_bwd_probe(
     const void* x, const void* w, const void* bias, const void* dout, void* w_t, void* qkv,
-    void* dqkv, void* db_part, void* db, void* dx, void* dw_part, void* dw, int B, int N, int Din,
-    int H, int head_dim, int n_valid, float scale_c, float scale, int softmax_f32, int slices,
-    int probe, void* stream) {
+    void* dqkv, void* db_part, void* db, void* dx, void* dw_part, void* dw, void* stats,
+    void* dq_acc, int B, int N, int Din, int H, int head_dim, int n_valid, float scale_c,
+    float scale, int softmax_f32, int slices, int probe, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int three_d = 3 * H * head_dim;
   const int M = B * N;
-  if (B < 1 || N < 1 || Din % kBK != 0 || (probe & ~kBwdProbeBits))
-    return static_cast<int>(cudaErrorInvalidValue);
+  const bool tiles = N > kTilesPast;
   const int steps = probe & kSteps ? probe & kSteps : kSteps;
+  if (B < 1 || N < 1 || Din % kBK != 0 || (probe & ~kBwdProbeBits) ||
+      (tiles && (probe & kBwdProbeFirstDesign)) ||
+      (tiles && (steps & kStepAttention) && (stats == nullptr || dq_acc == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (probe & kBwdProbeFirstDesign)
     return static_cast<int>(first_design_bwd(
         static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
@@ -990,9 +1059,12 @@ extern "C" int ssl4polyp_qkvproj_attention_bwd_probe(
     if (rc != 0) return rc;
   }
   if (steps & kStepAttention) {
-    rc = ssl4polyp_qkv_attention_bwd_mode(qkv, bias, dout, dqkv, db_part, nullptr, B, N, H,
-                                          head_dim, n_valid, scale_c, scale, softmax_f32,
-                                          kBwdFoldScaledDs, 0, stream);
+    rc = tiles ? ssl4polyp_qkv_attention_tiles_bwd(qkv, bias, dout, dqkv, stats, dq_acc, db_part,
+                                                 nullptr, B, N, H, head_dim, n_valid, scale_c,
+                                                 scale, softmax_f32, kBwdFoldScaledDs, stream)
+             : ssl4polyp_qkv_attention_bwd_mode(qkv, bias, dout, dqkv, db_part, nullptr, B, N, H,
+                                                head_dim, n_valid, scale_c, scale, softmax_f32,
+                                                kBwdFoldScaledDs, 0, stream);
     if (rc != 0) return rc;
   }
   if (steps & kStepDbSum) {
@@ -1009,28 +1081,26 @@ extern "C" int ssl4polyp_qkvproj_attention_bwd_probe(
   return rc;
 }
 
-// ssl4polyp_qkvproj_attention_bwd_probe with probe 0, its two bf16 scratches
-// taken from the stream's memory pool; dw_part holds `slices` slices.
+// ssl4polyp_qkvproj_attention_bwd_probe with probe 0, its bf16 scratches
+// (and past kTilesPast tokens the key tiles') taken from the stream's memory
+// pool; dw_part holds `slices` slices.
 extern "C" int ssl4polyp_qkvproj_attention_bwd(const void* x, const void* w, const void* bias,
                                                const void* dout, void* dqkv, void* db_part,
                                                void* db, void* dx, void* dw_part, void* dw, int B,
                                                int N, int Din, int H, int head_dim, int n_valid,
                                                float scale_c, float scale, int softmax_f32,
                                                int slices, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const size_t three_d = 3 * static_cast<size_t>(H) * head_dim;
-  void *w_t = nullptr, *qkv = nullptr;
-  cudaError_t err = cudaMallocAsync(&w_t, three_d * (Din > 0 ? Din : 1) * sizeof(bf16), st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaMallocAsync(&qkv, static_cast<size_t>(B > 0 ? B : 1) * (N > 0 ? N : 1) * three_d *
-                                  sizeof(bf16), st);
-  const int rc = err != cudaSuccess
-                     ? static_cast<int>(err)
-                     : ssl4polyp_qkvproj_attention_bwd_probe(
-                           x, w, bias, dout, w_t, qkv, dqkv, db_part, db, dx, dw_part, dw, B, N,
-                           Din, H, head_dim, n_valid, scale_c, scale, softmax_f32, slices, 0,
-                           stream);
-  const cudaError_t freed = qkv == nullptr ? cudaSuccess : cudaFreeAsync(qkv, st);
-  const cudaError_t freed_t = cudaFreeAsync(w_t, st);
-  return rc != 0 ? rc : freed != cudaSuccess ? static_cast<int>(freed) : static_cast<int>(freed_t);
+  const size_t rows = static_cast<size_t>(B > 0 ? B : 1) * (N > 0 ? N : 1);
+  const bool tiles = N > kTilesPast && B > 0 && H > 0 && head_dim > 0;
+  const size_t bytes[4] = {three_d * (Din > 0 ? Din : 1) * sizeof(bf16),
+                           rows * three_d * sizeof(bf16),
+                           tiles ? rows * H * 4 * sizeof(float) : 0,
+                           tiles ? rows * H * head_dim * sizeof(float) : 0};
+  return with_pool_scratch(bytes, static_cast<cudaStream_t>(stream), [&](void* const* p) {
+    return ssl4polyp_qkvproj_attention_bwd_probe(x, w, bias, dout, p[0], p[1], dqkv, db_part, db,
+                                                 dx, dw_part, dw, p[2], p[3], B, N, Din, H,
+                                                 head_dim, n_valid, scale_c, scale, softmax_f32,
+                                                 slices, 0, stream);
+  });
 }

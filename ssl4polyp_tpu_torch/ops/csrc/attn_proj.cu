@@ -76,15 +76,47 @@
 //      64-row partials added in order;
 //   4. the attention backward kernel (qkv_attention.cu) on dO, which
 //      recomputes the weights itself and writes dQKV.
+//
+// Past 256 tokens.  The kernel above holds a head's whole K and V and every
+// query tile's O panel row on chip (SSL4POLYP_FOR_TOKENS ends at 16 key
+// tiles); a ViT-B/16 at 384 px has 577 tokens.  There both directions are
+// compositions of the library's hand-written kernels, with O in a (B, N, D)
+// bf16 scratch of device memory (75.6 MB at B 64, N 577, D 768: 0.045 ms of
+// HBM traffic a round trip, against the key tiles' 0.8 ms):
+//   forward: O from qkv_attention_tiles.cu's
+//   forward (no bias), then y = round(round(O . W^T) + b) on mlp.cu's wgmma
+//   GEMM with the bias in its epilogue (ssl4polyp_matmul_nt_bias): W is its
+//   K-major (NF, K) operand as it lies;
+//   backward, phase 1: W^T (the transpose above), O again from the key
+//   tiles' forward into `o`, dO = round(dy . W) on the bare GEMM
+//   (ssl4polyp_matmul_nt) with W^T as its (NF, K) operand; phases 2-4 as
+//   above, phase 4 on the key tiles' backward (mode 0).
+// The caller hands over every scratch buffer (O, the key tiles' statistics
+// and dQ sums), as up to 256 tokens; the entry points route on N alone.
+// The roundings are the TPU kernel's: O rounded once, the product rounded,
+// the bias added in bf16 and the sum rounded again.  No atomics: a rerun
+// gives the same bits.
 #include "attention_core.cuh"
 #include "hopper.cuh"
+#include "qkv_attention_tiles.cuh"
 #include "transposed_product.cuh"
 
 // The weight gradients' product (dw_product.cu, same library).
 extern "C" int ssl4polyp_dw_product(const void* a, const void* b, void* part, void* dw, int M,
                                     int I, int J, int slices, int parts, void* stream);
 
-// The attention backward's entry point (qkv_attention.cu, same library).
+// The GEMM (mlp.cu) and the attention forward's entry point (qkv_attention.cu),
+// which past 256 tokens run this function in two launches (same library).
+extern "C" int ssl4polyp_matmul_nt(const void* x, const void* w, void* y, int M, int K, int NF,
+                                   void* stream);
+extern "C" int ssl4polyp_matmul_nt_bias(const void* x, const void* w, const void* bias, void* y,
+                                        int M, int K, int NF, void* stream);
+extern "C" int ssl4polyp_qkv_attention_fwd(const void* qkv, const void* bias, void* out, int B,
+                                           int N, int H, int head_dim, int n_valid, float scale,
+                                           int softmax_f32, void* stream);
+
+// The attention backward's entry point (qkv_attention.cu, same library);
+// past 256 tokens its key tiles' (qkv_attention_tiles.cuh).
 extern "C" int ssl4polyp_qkv_attention_bwd(const void* qkv, const void* bias, const void* dout,
                                            void* dqkv, void* dbias_part, void* dbias, int B,
                                            int N, int H, int head_dim, int n_valid,
@@ -457,15 +489,26 @@ dy_column_partial_kernel(const bf16* __restrict__ dy, int M, int D, float* __res
 
 // qkv: (B, N, 3*H*hd) bf16, [q heads | k heads | v heads], its bias already
 // added; w: (D, D) bf16 as (out, in); bias: (D,) bf16; out: (B, N, D) bf16,
-// D = H*hd a multiple of 128, hd 32 or 64, N <= 256.  scale is 1/sqrt(hd) as
+// D = H*hd a multiple of 128, hd 32 or 64; o: (B, N, D) bf16 scratch, read
+// only past kTilesPast tokens (null up to them).  scale is 1/sqrt(hd) as
 // bf16 holds it.  `ablate` is 0; a caller that wants to know where the time
-// goes passes 1 (no scores, softmax or weights . V: the copies and barriers of
-// the head loop stay), 2 (no wgmma: the W ring and the epilogue stay) or 3,
-// and gets a wrong `out` whose time it may read.  Returns the launch's CUDA
-// error.
-extern "C" int ssl4polyp_attn_proj_fwd(const void* qkv, const void* w, const void* bias, void* out,
-                                       int B, int N, int H, int head_dim, int n_valid, float scale,
-                                       int softmax_f32, int ablate, void* stream) {
+// goes passes 1 (no scores, softmax or weights . V: the copies and barriers
+// of the head loop stay), 2 (no wgmma: the W ring and the epilogue stay) or
+// 3, and gets a wrong `out` whose time it may read.  Past kTilesPast tokens
+// the key tiles' attention forward writes the core output into `o`, then the
+// GEMM forms y = round(round(o . w^T) + bias) into `out`; no ablate bits
+// there.  Returns the first failing launch's CUDA error.
+extern "C" int ssl4polyp_attn_proj_fwd(const void* qkv, const void* w, const void* bias, void* o,
+                                       void* out, int B, int N, int H, int head_dim, int n_valid,
+                                       float scale, int softmax_f32, int ablate, void* stream) {
+  if (N > kTilesPast) {
+    const int D = H * head_dim;
+    if (ablate != 0 || B < 1 || H < 1 || D % kBN != 0 || o == nullptr)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int rc = ssl4polyp_qkv_attention_fwd(qkv, nullptr, o, B, N, H, head_dim, n_valid,
+                                               scale, softmax_f32, stream);
+    return rc != 0 ? rc : ssl4polyp_matmul_nt_bias(o, w, bias, out, B * N, D, D, stream);
+  }
   return static_cast<int>(dispatch_proj<false>(
       static_cast<const bf16*>(qkv), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
       nullptr, nullptr, static_cast<bf16*>(out), B, N, H, head_dim, n_valid, scale, softmax_f32,
@@ -475,21 +518,29 @@ extern "C" int ssl4polyp_attn_proj_fwd(const void* qkv, const void* w, const voi
 // The backward of ssl4polyp_attn_proj_fwd for the output gradient dy
 // (B, N, D) bf16.  Scratch: w_t (D, D) bf16, o and d_o (B, N, D) bf16,
 // dw_part (max(slices, 4), D, D) fp32 (slices: ssl4polyp_dw_product_slices),
-// db_part (ceil(B*N / 64), D) fp32.  Results: dqkv (B, N, 3D) bf16, dw (D,
-// D) fp32 as (out, in), db (D,) fp32.  scale_c is 1/sqrt(hd) as bf16 holds
-// it, scale the fp32 value.  `phases` is a mask of the phases to run, 15 for
-// the whole backward: 1 the transpose and the PREP kernel (w_t, o, d_o), 2
-// dw, 4 db, 8 the attention backward (dqkv, from d_o); and 16, for timing,
-// dw on the first design; a caller that times one phase runs the earlier
-// ones first.  Returns the first failing launch's CUDA error.
+// db_part (ceil(B*N / 64), D) fp32; past kTilesPast tokens stats (B, H, N)
+// float4 and dq_acc (B, H, N, hd) fp32, the key tiles' backward's (null up
+// to them).  Results: dqkv
+// (B, N, 3D) bf16, dw (D, D) fp32 as (out, in), db (D,) fp32.  scale_c is
+// 1/sqrt(hd) as bf16 holds it, scale the fp32 value.  `phases` is a mask of
+// the phases to run, 15 for the whole backward: 1 the transpose and the
+// PREP kernel (w_t, o, d_o; past 256 tokens the key tiles' forward into o
+// and the GEMM for d_o), 2 dw, 4 db, 8 the attention backward (dqkv, from
+// d_o; past 256 tokens the key tiles'); and 16, for timing, dw on the first
+// design; a caller that times one phase runs the earlier ones first.
+// Returns the first failing launch's CUDA error.
 extern "C" int ssl4polyp_attn_proj_bwd(const void* qkv, const void* w, const void* dy, void* w_t,
                                        void* o, void* d_o, void* dqkv, void* dw_part, void* dw,
-                                       void* db_part, void* db, int B, int N, int H, int head_dim,
-                                       int n_valid, float scale_c, float scale, int softmax_f32,
-                                       int slices, int phases, void* stream) {
+                                       void* db_part, void* db, void* stats, void* dq_acc, int B,
+                                       int N, int H, int head_dim, int n_valid, float scale_c,
+                                       float scale, int softmax_f32, int slices, int phases,
+                                       void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int D = H * head_dim;
   const int M = B * N;
+  const bool tiles = N > kTilesPast;
+  if (tiles && (phases & 8) && (stats == nullptr || dq_acc == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (phases & 1) {
     if (D % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -497,11 +548,18 @@ extern "C" int ssl4polyp_attn_proj_bwd(const void* qkv, const void* w, const voi
                                                            static_cast<bf16*>(w_t), D);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = dispatch_proj<true>(
-        static_cast<const bf16*>(qkv), static_cast<const bf16*>(w_t), nullptr,
-        static_cast<const bf16*>(dy), static_cast<bf16*>(o), static_cast<bf16*>(d_o), B, N, H,
-        head_dim, n_valid, scale_c, softmax_f32, 0, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    if (tiles) {
+      int rc = ssl4polyp_qkv_attention_fwd(qkv, nullptr, o, B, N, H, head_dim, n_valid, scale_c,
+                                           softmax_f32, stream);
+      if (rc == 0) rc = ssl4polyp_matmul_nt(dy, w_t, d_o, M, D, D, stream);
+      if (rc != 0) return rc;
+    } else {
+      err = dispatch_proj<true>(
+          static_cast<const bf16*>(qkv), static_cast<const bf16*>(w_t), nullptr,
+          static_cast<const bf16*>(dy), static_cast<bf16*>(o), static_cast<bf16*>(d_o), B, N, H,
+          head_dim, n_valid, scale_c, softmax_f32, 0, st);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   }
   if (phases & 2) {
     const int rc = ssl4polyp_dw_product(dy, o, dw_part, dw, M, D, D, slices, 3, stream);
@@ -523,8 +581,11 @@ extern "C" int ssl4polyp_attn_proj_bwd(const void* qkv, const void* w, const voi
                             static_cast<float*>(db), st);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (phases & 8)
-    return ssl4polyp_qkv_attention_bwd(qkv, nullptr, d_o, dqkv, nullptr, nullptr, B, N, H,
-                                       head_dim, n_valid, scale_c, scale, softmax_f32, stream);
-  return static_cast<int>(cudaSuccess);
+  if (!(phases & 8)) return static_cast<int>(cudaSuccess);
+  if (tiles)
+    return ssl4polyp_qkv_attention_tiles_bwd(qkv, nullptr, d_o, dqkv, stats, dq_acc, nullptr,
+                                             nullptr, B, N, H, head_dim, n_valid, scale_c, scale,
+                                             softmax_f32, kBwdFold, stream);
+  return ssl4polyp_qkv_attention_bwd(qkv, nullptr, d_o, dqkv, nullptr, nullptr, B, N, H, head_dim,
+                                     n_valid, scale_c, scale, softmax_f32, stream);
 }

@@ -81,15 +81,21 @@ struct GemmShape {
   static constexpr size_t kSmemBytes = kStages * kStageBytes + 2 * kStages * sizeof(uint64_t) + 1024;
 };
 
-// GELU true: y = gelu(acc + bias), and h = acc + bias when h is not null.
-// GELU false: the bare product y = x . w^T rounded once to bf16 (`bias` and
-// `h` are not read): the streaming GEMM other kernels' phases call through
-// ssl4polyp_matmul_nt.
-template <int BN, bool GELU>
+// The GEMM's epilogues.  kEpiGelu: y = gelu(acc + bias), and h = acc + bias
+// when h is not null.  kEpiBare: the bare product y = x . w^T rounded once to
+// bf16 (`bias` and `h` are not read): the streaming GEMM other kernels'
+// phases call through ssl4polyp_matmul_nt.  kEpiBias: y = round(round(acc) +
+// bias), the product rounded before the bias is added in bf16 (the output
+// projection's two roundings, ssl4polyp_tpu/ops/attn_proj.py:83), through
+// ssl4polyp_matmul_nt_bias; `h` is not read.
+enum Epilogue : int { kEpiBare = 0, kEpiGelu = 1, kEpiBias = 2 };
+
+template <int BN, int EPI>
 __global__ void __launch_bounds__(kGemmThreads, 1)
 fc1_gelu_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
                 const bf16* __restrict__ bias, bf16* __restrict__ h, bf16* __restrict__ y, int M,
                 int K, int NF) {
+  constexpr bool GELU = EPI == kEpiGelu;
   using Shape = GemmShape<BN>;
   constexpr int kStages = Shape::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -190,7 +196,7 @@ fc1_gelu_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
           const int j = jg * 4 + i;
           const int col = n0 + j * 8 + 2 * t;
           float h00 = acc[4 * j], h01 = acc[4 * j + 1], h10 = acc[4 * j + 2], h11 = acc[4 * j + 3];
-          if (GELU) {
+          if constexpr (GELU) {
             float b0 = 0.0f, b1 = 0.0f;
             if (col < NF) {
               const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
@@ -206,6 +212,15 @@ fc1_gelu_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
             y_lo[i] = pack_floats(gelu_erf(h00), gelu_erf(h01));
             y_hi[i] = pack_floats(gelu_erf(h10), gelu_erf(h11));
           } else {
+            if constexpr (EPI == kEpiBias) {  // NF is a multiple of 8: the pair is in or out
+              if (col < NF) {
+                const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(bias + col));
+                h00 = round_bf16(h00) + b.x;
+                h01 = round_bf16(h01) + b.y;
+                h10 = round_bf16(h10) + b.x;
+                h11 = round_bf16(h11) + b.y;
+              }
+            }
             y_lo[i] = pack_floats(h00, h01);
             y_hi[i] = pack_floats(h10, h11);
           }
@@ -236,7 +251,7 @@ fc1_gelu_kernel(const __grid_constant__ CUtensorMap map_x, const __grid_constant
   }
 }
 
-template <int BN, bool GELU>
+template <int BN, int EPI>
 cudaError_t launch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* h, bf16* y, int M,
                         int K, int NF, int sms, cudaStream_t stream) {
   using Shape = GemmShape<BN>;
@@ -246,11 +261,11 @@ cudaError_t launch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* h,
   err = make_tensor_map_sw128(&map_w, w, NF, K, BN);
   if (err != cudaSuccess) return err;
   static bool configured[kMaxDevices] = {};
-  err = allow_dynamic_smem(fc1_gelu_kernel<BN, GELU>, Shape::kSmemBytes, configured);
+  err = allow_dynamic_smem(fc1_gelu_kernel<BN, EPI>, Shape::kSmemBytes, configured);
   if (err != cudaSuccess) return err;
   const int tiles = ((M + kBM - 1) / kBM) * ((NF + BN - 1) / BN);
   const int blocks = tiles < sms ? tiles : sms;  // persistent: one block an SM at most
-  fc1_gelu_kernel<BN, GELU><<<blocks, kGemmThreads, Shape::kSmemBytes, stream>>>(
+  fc1_gelu_kernel<BN, EPI><<<blocks, kGemmThreads, Shape::kSmemBytes, stream>>>(
       map_x, map_w, bias, h, y, M, K, NF);
   return cudaGetLastError();
 }
@@ -258,7 +273,7 @@ cudaError_t launch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* h,
 // The wide tile where its tiles fill the SMs' waves at least as well as the
 // narrow one's do (it reads x and w from shared memory half as often per
 // product), the narrow one otherwise.
-template <bool GELU>
+template <int EPI>
 cudaError_t dispatch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* h, bf16* y, int M,
                           int K, int NF, cudaStream_t stream) {
   int sms = 0;
@@ -269,8 +284,8 @@ cudaError_t dispatch_gemm(const bf16* x, const bf16* w, const bf16* bias, bf16* 
   const long wide_slots = (wide + sms - 1) / sms * sms, narrow_slots = (narrow + sms - 1) / sms * sms;
   // wide / wide_slots >= narrow / narrow_slots
   if (NF > 128 && wide * narrow_slots >= narrow * wide_slots)
-    return launch_gemm<256, GELU>(x, w, bias, h, y, M, K, NF, sms, stream);
-  return launch_gemm<128, GELU>(x, w, bias, h, y, M, K, NF, sms, stream);
+    return launch_gemm<256, EPI>(x, w, bias, h, y, M, K, NF, sms, stream);
+  return launch_gemm<128, EPI>(x, w, bias, h, y, M, K, NF, sms, stream);
 }
 
 
@@ -975,7 +990,7 @@ cudaError_t dispatch_mlp_fused(int K, const bf16* x, const float* ln_s, const fl
 // aligned.  Returns the CUDA error of the tensor maps or the launch.
 extern "C" int ssl4polyp_fc1_gelu_fwd(const void* x, const void* w, const void* bias, void* h,
                                       void* y, int M, int K, int NF, void* stream) {
-  return static_cast<int>(dispatch_gemm<true>(
+  return static_cast<int>(dispatch_gemm<kEpiGelu>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
       static_cast<bf16*>(h), static_cast<bf16*>(y), M, K, NF, static_cast<cudaStream_t>(stream)));
 }
@@ -987,9 +1002,22 @@ extern "C" int ssl4polyp_fc1_gelu_fwd(const void* x, const void* w, const void* 
 // tensor maps or the launch.
 extern "C" int ssl4polyp_matmul_nt(const void* x, const void* w, void* y, int M, int K, int NF,
                                    void* stream) {
-  return static_cast<int>(dispatch_gemm<false>(
+  return static_cast<int>(dispatch_gemm<kEpiBare>(
       static_cast<const bf16*>(x), static_cast<const bf16*>(w), nullptr, nullptr,
       static_cast<bf16*>(y), M, K, NF, static_cast<cudaStream_t>(stream)));
+}
+
+// y = round(round(x . w^T) + bias): the bare product rounded to bf16, then
+// the bias added in bf16 and the sum rounded again.  x: (M, K) bf16; w: (NF,
+// K) bf16; bias: (NF,) bf16; y: (M, NF) bf16; K and NF multiples of 8, every
+// pointer 16-byte aligned.  The same kernel as ssl4polyp_matmul_nt with the
+// bias in its epilogue (attn_proj.cu's y past 256 tokens).  Returns the CUDA
+// error of the tensor maps or the launch.
+extern "C" int ssl4polyp_matmul_nt_bias(const void* x, const void* w, const void* bias, void* y,
+                                        int M, int K, int NF, void* stream) {
+  return static_cast<int>(dispatch_gemm<kEpiBias>(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w), static_cast<const bf16*>(bias),
+      nullptr, static_cast<bf16*>(y), M, K, NF, static_cast<cudaStream_t>(stream)));
 }
 
 // x: (M, K) bf16; ln_s, ln_t: (K,) fp32, or both null for no LayerNorm

@@ -747,7 +747,7 @@ int bwd_plan_head_dim(int N, int* warps, int* smem_bytes) {
 extern "C" int ssl4polyp_qkv_attention_fwd(const void* qkv, const void* bias, void* out,
                                            int B, int N, int H, int head_dim, int n_valid,
                                            float scale, int softmax_f32, void* stream) {
-  if (N > 256)
+  if (N > kTilesPast)
     return ssl4polyp_qkv_attention_tiles_fwd(qkv, bias, out, B, N, H, head_dim, n_valid, scale,
                                              softmax_f32, stream);
   const bf16* q = static_cast<const bf16*>(qkv);
@@ -777,7 +777,7 @@ extern "C" int ssl4polyp_qkv_attention_bwd_mode(const void* qkv, const void* bia
                                                 int n_valid, float scale_c, float scale,
                                                 int softmax_f32, int mode, int probe,
                                                 void* stream) {
-  if (N > 256) {
+  if (N > kTilesPast) {
     if (probe != 0 || B < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const size_t rows = static_cast<size_t>(B) * H * N;
@@ -856,7 +856,7 @@ extern "C" int ssl4polyp_qkv_attention_bwd(const void* qkv, const void* bias, co
 extern "C" int ssl4polyp_qkv_attention_bwd_plan(int N, int head_dim, int* warps,
                                                 int* smem_bytes) {
   if (N < 1) return -1;
-  if (N > 256) return ssl4polyp_qkv_attention_tiles_bwd_plan(head_dim, warps, smem_bytes);
+  if (N > kTilesPast) return ssl4polyp_qkv_attention_tiles_bwd_plan(head_dim, warps, smem_bytes);
   switch (head_dim) {
     case 16: return bwd_plan_head_dim<16>(N, warps, smem_bytes);
     case 32: return bwd_plan_head_dim<32>(N, warps, smem_bytes);

@@ -3,6 +3,12 @@
 // > 256.  The arguments are documented beside the definitions.
 #pragma once
 
+// The most tokens the bf16 kernels that hold a head's whole K and V on chip
+// take (attention_core.cuh's SSL4POLYP_FOR_TOKENS ends at 16 key tiles).  The
+// library's bf16 entry points of attention, attention with the projection and
+// the QKV projection with attention send more to these key tiles.
+constexpr int kTilesPast = 256;
+
 extern "C" int ssl4polyp_qkv_attention_tiles_fwd(const void* qkv, const void* bias, void* out,
                                                  int B, int N, int H, int head_dim, int n_valid,
                                                  float scale_c, int softmax_f32, void* stream);

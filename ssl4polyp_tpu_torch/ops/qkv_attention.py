@@ -56,7 +56,7 @@ backward_launches_f32 = 0
 _HEAD_DIMS = (16, 32, 64)
 _HEAD_DIMS_F32 = (32, 64)  # the fp32 kernels' instantiations
 # bf16 calls with more tokens than this take csrc/qkv_attention_tiles.cu, as
-# the library's entry points route them.
+# the library's entry points route them (kTilesPast, qkv_attention_tiles.cuh).
 _TILES_PAST = 256
 _F32_TILE = 64  # csrc/qkv_attention_f32.cu's kTile: rows of the dbias scratch
 
@@ -256,6 +256,13 @@ def backward_plan(num_tokens: int, head_dim: int) -> dict:
     return {"path": BACKWARD_PATHS[path], "warps": warps.value, "smem_bytes": smem.value}
 
 
+def tiles_backward_scratch(B: int, num_heads: int, N: int, head_dim: int, device):
+    """The key tiles' backward's fp32 scratch (csrc/qkv_attention_tiles.cu):
+    each row's (max, 1/sum, tmp), and dQ's sums in key-tile order."""
+    return (torch.empty((B, num_heads, N, 4), dtype=torch.float32, device=device),
+            torch.empty((B, num_heads, N, head_dim), dtype=torch.float32, device=device))
+
+
 def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: int = 0,
                      scaled_ds: bool = False, out=None, lse=None):
     """The backward kernel of qkv's dtype (in bf16 past ``_TILES_PAST``
@@ -307,10 +314,8 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
                 delta.data_ptr(), dqkv.data_ptr(), part_ptr, dbias_ptr,
                 0 if part is None else part.shape[0], *shape, int(bool(scaled_ds)),
                 int(forward_first), stream)
-        elif tiles:  # each row's (max, 1/sum, tmp) and dQ's fp32 sums in key-tile order
-            stats = torch.empty((B, num_heads, N, 4), dtype=torch.float32, device=qkv.device)
-            dq_acc = torch.empty((B, num_heads, N, head_dim), dtype=torch.float32,
-                                 device=qkv.device)
+        elif tiles:
+            stats, dq_acc = tiles_backward_scratch(B, num_heads, N, head_dim, qkv.device)
             err = library().ssl4polyp_qkv_attention_tiles_bwd(
                 qkv.data_ptr(), bias_ptr, dout.data_ptr(), dqkv.data_ptr(), stats.data_ptr(),
                 dq_acc.data_ptr(), part_ptr, dbias_ptr, *shape, 1.0 / math.sqrt(head_dim),

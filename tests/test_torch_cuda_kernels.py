@@ -119,19 +119,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(gen):
             fused_qkv_attention(qkv.half(), 2)
         with pytest.raises(ValueError):
             fused_qkv_attention(_randn(gen, 1, 8, 3 * 128), 1)  # head dim 128
-        # More than 256 tokens in bf16: the attention kernel takes them (the
-        # key tiles); attention with the projection, the QKV projection with
-        # attention and attention over separate q, k, v refuse them
-        # (ROADMAP.md §2a, item 3).
-        long = _randn(gen, 1, 300, 3 * 128)
-        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 3"):
-            attn_proj.fused_attention_proj(long, _randn(gen, 128, 128), _randn(gen, 128), 2)
-        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 3"):
-            ops.attention_block.fused_qkvproj_attention(_randn(gen, 1, 300, 128),
-                                                        _randn(gen, 128, 3 * 128),
-                                                        _randn(gen, 3 * 128), 2)
+        # More than 256 tokens in bf16: the attention kernel, attention with
+        # the projection and the QKV projection with attention take them (on
+        # the key tiles); attention over separate q, k, v refuses them
+        # (ROADMAP.md §2a, item 2b).
         q = _randn(gen, 1, 2, 300, 64)
-        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 3"):
+        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 2b"):
             ops.attention.fused_attention(q, q.clone(), q.clone())
         with pytest.raises(ValueError):
             fc1_gelu(x[:, ::2], w[:, ::2].contiguous(), b)  # x not contiguous
@@ -584,8 +577,10 @@ def _check_attn_proj(gen, B, N, H, hd, softmax_f32, valid_len):
         torch.cuda.synchronize()
         kernel = fn is attn_proj.fused_attention_proj
         counts = ops.launch_counts()
-        assert counts["attn_proj"] == counts["attn_proj_backward"] == int(kernel)
-        assert counts["fused_qkv_attention"] == counts["fused_qkv_attention_backward"] == 0
+        names = (("fused_attention_proj_tiles", "fused_attention_proj_tiles_backward")
+                 if N > 256 else ("attn_proj", "attn_proj_backward"))
+        assert counts[names[0]] == counts[names[1]] == int(kernel)
+        assert sum(counts.values()) == 2 * int(kernel)  # no attention launch of its own
         results.append((out.detach(), *[a.grad for a in leaves]))
     (out, dqkv, dw, db), (ref_out, ref_dqkv, ref_dw, ref_db) = results
     rows = slice(None) if valid_len is None else slice(0, valid_len)
@@ -617,9 +612,27 @@ def test_attn_proj_tiles_match_plain_and_rerun_equal(gen, N, hd, softmax_f32, ma
     _check_attn_proj(gen, 1, N, 256 // hd, hd, softmax_f32, valid_len)
 
 
-def test_attn_proj_backward_phases_add_up(gen):
+# Past 256 tokens (the compositions on the key tiles): one key past the last
+# tile of 64, a ragged tile, a ViT-B/16 at 384 px (the classifier's heads
+# and the MAE decoder's), each at hd 32 and 64, with keys cut below N.
+_LONG_FOLD_CASES = [
+    (2, 257, 2, 64, True, None), (2, 257, 4, 32, False, 250),
+    (2, 300, 4, 32, True, 299), (2, 300, 2, 64, False, None),
+    (2, 577, 12, 64, True, None), (2, 577, 12, 64, True, 500),
+    (2, 577, 16, 32, False, None), (1, 577, 4, 32, True, 64),
+]
+
+
+@pytest.mark.parametrize("B, N, H, hd, softmax_f32, valid_len", _LONG_FOLD_CASES)
+def test_attn_proj_past_256_tokens_matches_plain_and_reruns_equal(gen, B, N, H, hd, softmax_f32,
+                                                                 valid_len):
+    _check_attn_proj(gen, B, N, H, hd, softmax_f32, valid_len)
+
+
+@pytest.mark.parametrize("N", [197, 577])
+def test_attn_proj_backward_phases_add_up(gen, N):
     """The four phases launched apart give the whole backward's bits."""
-    qkv, dy = _randn(gen, 2, 197, 3 * 256), _randn(gen, 2, 197, 256)
+    qkv, dy = _randn(gen, 2, N, 3 * 256), _randn(gen, 2, N, 256)
     w, b = _randn(gen, 256, 256, scale=1 / 16), _randn(gen, 256, scale=0.5)
     whole = attn_proj._backward_kernel(qkv, w, b, dy, 4, True, None)
     run, results = attn_proj._backward_plan(qkv, w, b, dy, 4, True, None)
@@ -664,8 +677,56 @@ def test_attn_proj_wrapper_refuses_what_the_kernel_does_not_take(gen):
         with pytest.raises(ValueError):  # width 64 is not a multiple of 128
             attn_proj.fused_attention_proj(_randn(gen, 1, 8, 192), _randn(gen, 64, 64),
                                            _randn(gen, 64), 2)
-        with pytest.raises(ValueError):  # > 256 tokens
-            attn_proj.fused_attention_proj(_randn(gen, 1, 300, 384), w, b, 4)
+        with pytest.raises(ValueError):  # no tokens
+            attn_proj.fused_attention_proj(_randn(gen, 1, 0, 384), w, b, 4)
+        with pytest.raises(ValueError):  # no ablate bits past 256 tokens
+            attn_proj._forward_kernel(_randn(gen, 1, 300, 384), w, b, 4, True, None, 1)
+
+
+def test_attn_proj_entry_points_route_past_256_tokens(gen):
+    # The library's entry points send N > 256 to the compositions, with the
+    # caller's scratch: the wrapper's bits.  Without that scratch, or with
+    # ablate bits, they refuse (cudaErrorInvalidValue, 1).
+    from ssl4polyp_tpu_torch.ops._build import library
+    from ssl4polyp_tpu_torch.ops.qkv_attention import tiles_backward_scratch
+
+    B, N, H, hd = 2, 577, 12, 64
+    D = H * hd
+    qkv, dy = _randn(gen, B, N, 3 * D), _randn(gen, B, N, D)
+    dy[:, 500:] = 0
+    w, b = _randn(gen, D, D, scale=D ** -0.5), _randn(gen, D, scale=0.5)
+    with torch.inference_mode():
+        want = attn_proj.fused_attention_proj(qkv, w, b, H, True, 500)
+    out, core = torch.empty_like(want), torch.empty_like(want)
+    lib, stream = library(), torch.cuda.current_stream().cuda_stream
+    for o, ablate, code in ((core, 0, 0), (core, 1, 1), (None, 0, 1)):
+        err = lib.ssl4polyp_attn_proj_fwd(
+            qkv.data_ptr(), w.data_ptr(), b.data_ptr(), None if o is None else o.data_ptr(),
+            out.data_ptr(), B, N, H, hd, 500, attn_proj._scale(hd, torch.bfloat16), 1, ablate,
+            stream)
+        torch.cuda.synchronize()
+        assert err == code
+        if not code:
+            assert torch.equal(out, want)
+    grads = attn_proj._backward_kernel(qkv, w, b, dy, H, True, 500)
+    slices = lib.ssl4polyp_dw_product_slices(B * N, D, D)
+    scratch = [torch.empty(t.shape, dtype=t.dtype, device="cuda")
+               for t in (w, want, want, qkv)]  # w_t, o, d_o, dqkv
+    dw_part = torch.empty((max(slices, 4), D, D), device="cuda")
+    dw, db = torch.empty((D, D), device="cuda"), torch.empty(D, device="cuda")
+    db_part = torch.empty((-(-B * N // 64), D), device="cuda")
+    tiles_scratch = tiles_backward_scratch(B, H, N, hd, "cuda")
+    for stats, code in ((tiles_scratch, 0), ((None, None), 1)):
+        err = lib.ssl4polyp_attn_proj_bwd(
+            qkv.data_ptr(), w.data_ptr(), dy.data_ptr(), *[t.data_ptr() for t in scratch],
+            dw_part.data_ptr(), dw.data_ptr(), db_part.data_ptr(), db.data_ptr(),
+            *[None if t is None else t.data_ptr() for t in stats], B, N, H, hd, 500,
+            attn_proj._scale(hd, torch.bfloat16), 1.0 / math.sqrt(hd), 1, slices, 15, stream)
+        torch.cuda.synchronize()
+        assert err == code
+        if not code:
+            assert all(torch.equal(a, g) for a, g in zip(grads, (scratch[3], dw.bfloat16(),
+                                                                 db.bfloat16())))
 
 
 def _adamw_case(gen, shapes, grad_dtype=torch.float32):
@@ -1030,6 +1091,17 @@ def test_separate_attention_backward_writes_nothing_past_the_last_row(gen, N, hd
         (1, 256, 128, 2, 64, True, 255),
         (2, 129, 192, 8, 32, False, None),
         (2, 50, 64, 3, 32, False, 40),        # an odd head count at hd 32: 3D = 288
+        # Past 256 tokens (the composition on the key tiles): one key past the
+        # last tile of 64, a ragged tile, a ViT-B/16 at 384 px (the
+        # classifier's block and the MAE decoder's), at hd 32 and 64, with
+        # keys cut below N and an odd head count.
+        (2, 257, 64, 2, 64, True, None),
+        (2, 257, 128, 4, 32, False, 250),
+        (2, 300, 192, 3, 32, True, 299),
+        (2, 300, 128, 2, 64, False, None),
+        (2, 577, 768, 12, 64, True, None),
+        (2, 577, 768, 12, 64, True, 500),
+        (2, 577, 512, 16, 32, False, None),
     ],
 )
 def test_qkvproj_attention_kernels_match_plain(gen, B, N, Din, H, hd, softmax_f32, valid_len):
@@ -1049,8 +1121,8 @@ def test_qkvproj_attention_kernels_match_plain(gen, B, N, Din, H, hd, softmax_f3
         torch.cuda.synchronize()
         counts = ops.launch_counts()
         kernel = fn is ab.fused_qkvproj_attention
-        assert counts["fused_qkvproj_attention"] == int(kernel)
-        assert counts["fused_qkvproj_attention_backward"] == int(kernel)
+        name = "fused_qkvproj_attention_tiles" if N > 256 else "fused_qkvproj_attention"
+        assert counts[name] == counts[f"{name}_backward"] == int(kernel)
         assert sum(counts.values()) == 2 * int(kernel)
         results.append((out.detach(), *[a.grad for a in leaves]))
     (out, dx, dw, db), (ref_out, ref_dx, ref_dw, ref_db) = results
@@ -1066,6 +1138,8 @@ def test_qkvproj_attention_kernels_match_plain(gen, B, N, Din, H, hd, softmax_f3
                                    msg=name)
     again = ab._backward_kernel(x, w, b, dout, H, softmax_f32, valid_len)
     assert all(torch.equal(a, g) for a, g in zip(again, (dx, dw, db)))  # no atomics
+    with torch.inference_mode():
+        assert torch.equal(ab.fused_qkvproj_attention(x, w, b, H, softmax_f32, valid_len), out)
 
 
 def test_qkvproj_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
@@ -1079,8 +1153,8 @@ def test_qkvproj_attention_wrapper_refuses_what_the_kernel_does_not_take(gen):
             fused_qkvproj_attention(x, w, b, 8)
         with pytest.raises(ValueError):  # Din 32 is not a multiple of 64
             fused_qkvproj_attention(_randn(gen, 1, 8, 32), _randn(gen, 32, 384), b, 4)
-        with pytest.raises(ValueError):  # > 256 tokens
-            fused_qkvproj_attention(_randn(gen, 1, 300, 64), w, b, 4)
+        with pytest.raises(ValueError):  # no tokens
+            fused_qkvproj_attention(_randn(gen, 1, 0, 64), w, b, 4)
         with pytest.raises(ValueError):  # valid_len outside 1..N
             fused_qkvproj_attention(x, w, b, 4, True, 9)
 
@@ -1248,13 +1322,13 @@ def test_qkvproj_attention_backward_first_design_matches_plain(gen, B, N, Din, H
                                    msg=name)
 
 
-@pytest.mark.parametrize("first_design", [False, True])
-def test_qkvproj_attention_backward_steps_add_up(gen, first_design):
+@pytest.mark.parametrize("first_design, N", [(False, 197), (True, 197), (False, 577)])
+def test_qkvproj_attention_backward_steps_add_up(gen, first_design, N):
     """The backward's launches run one at a time (the probe's step bits) give
     the whole backward's bits."""
     from ssl4polyp_tpu_torch.ops import attention_block as ab
 
-    args = (*_qkvproj_backward_inputs(gen, 2, 197, 512, 16, 32, None), 16, False, None)
+    args = (*_qkvproj_backward_inputs(gen, 2, N, 512, 16, 32, None), 16, False, None)
     whole = ab._backward_kernel(*args, probe=int(first_design))
     run, results = ab._backward_plan(*args, first_design)
     for bit in ab.BACKWARD_STEPS.values():
@@ -1263,7 +1337,47 @@ def test_qkvproj_attention_backward_steps_add_up(gen, first_design):
     assert all(torch.equal(a, g) for a, g in zip(whole, results()))
 
 
-@pytest.mark.parametrize("N, Din, H, hd", [(197, 768, 12, 64), (50, 64, 3, 32)])
+def test_qkvproj_attention_entry_points_route_past_256_tokens(gen):
+    # ssl4polyp_qkvproj_attention_fwd_probe sends N > 256 with probe 0 to the
+    # composition, with the caller's scratch: the wrapper's bits; without
+    # it, with probe bits, and the backward's first design past 256 tokens,
+    # it refuses (cudaErrorInvalidValue, 1).  ssl4polyp_qkvproj_attention_fwd,
+    # for a C caller without scratch (the stream's pool gives it), gives the
+    # same bits.
+    from ssl4polyp_tpu_torch.ops import attention_block as ab
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    B, N, Din, H, hd = 2, 577, 768, 12, 64
+    x, w, b, dout = _qkvproj_backward_inputs(gen, B, N, Din, H, hd, None)
+    with torch.inference_mode():
+        want = ab.fused_qkvproj_attention(x, w, b, H, True, 500)
+    out = torch.empty_like(want)
+    lib, stream = library(), torch.cuda.current_stream().cuda_stream
+    scale = ab._scale(hd, torch.bfloat16)
+    scratch = (torch.empty((3 * H * hd, Din), dtype=torch.bfloat16, device="cuda"),
+               torch.empty((B, N, 3 * H * hd), dtype=torch.bfloat16, device="cuda"))
+    for given, probe, code in ((scratch, 0, 0), (scratch, ab.PROBE_FIRST_DESIGN, 1),
+                               (scratch, ab.PROBE_PROJECTION_ONLY, 1), ((None, None), 0, 1)):
+        err = lib.ssl4polyp_qkvproj_attention_fwd_probe(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(),
+            *[None if t is None else t.data_ptr() for t in given], out.data_ptr(), B, N, Din, H,
+            hd, 500, scale, 1, probe, stream)
+        torch.cuda.synchronize()
+        assert err == code
+        if not code:
+            assert torch.equal(out, want)
+    out.zero_()
+    err = lib.ssl4polyp_qkvproj_attention_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                              out.data_ptr(), B, N, Din, H, hd, 500, scale, 1,
+                                              stream)
+    torch.cuda.synchronize()
+    assert err == 0 and torch.equal(out, want)
+    run, _ = ab._backward_plan(x, w, b, dout, H, True, None, first_design=True)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        run(0)
+
+
+@pytest.mark.parametrize("N, Din, H, hd", [(197, 768, 12, 64), (50, 64, 3, 32), (577, 512, 16, 32)])
 def test_qkvproj_attention_bwd_entry_point_equals_the_wrapper(gen, N, Din, H, hd):
     # ssl4polyp_qkvproj_attention_bwd, for a C caller without the two bf16
     # scratches (the stream's pool gives them), gives the wrapper's bits.
@@ -1388,6 +1502,39 @@ def test_matmul_nt_tiles_match_plain_and_rerun_equal(gen, M, K, NF):
     # One rounding of the fp32 sum on both sides: a bf16 ulp where it flips.
     torch.testing.assert_close(outs[0], torch.matmul(x, w.t()), **FUSED_TOL)
     assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("M, K, NF", GEMM_SHAPES + [(64 * 577, 768, 768), (4 * 577, 512, 512)])
+@torch.inference_mode()
+def test_matmul_nt_bias_rounds_the_product_before_the_bias(gen, M, K, NF):
+    # The same GEMM with the bias in its epilogue (attn_proj.cu's y past 256
+    # tokens): y = round(round(x . w^T) + b).  On small integers every sum
+    # is exact, so the result is bit-equal to the bare product's plus the
+    # bias, rounded again; on random inputs one ulp where a rounding flips.
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    lib, stream = library(), torch.cuda.current_stream().cuda_stream
+    for integers in (True, False):
+        if integers:
+            g = torch.Generator(device="cuda").manual_seed(M + K + NF)
+            x, w = (torch.randint(-3, 4, shape, generator=g, device="cuda").to(torch.bfloat16)
+                    for shape in ((M, K), (NF, K)))
+            b = torch.randint(-300, 300, (NF,), generator=g, device="cuda").to(torch.bfloat16) / 8
+        else:
+            x, w, b = _randn(gen, M, K), _randn(gen, NF, K, scale=K ** -0.5), _randn(gen, NF)
+        bare, y, y2 = (torch.empty((M, NF), dtype=x.dtype, device="cuda") for _ in range(3))
+        assert lib.ssl4polyp_matmul_nt(x.data_ptr(), w.data_ptr(), bare.data_ptr(), M, K, NF,
+                                       stream) == 0
+        for out in (y, y2):
+            assert lib.ssl4polyp_matmul_nt_bias(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                                out.data_ptr(), M, K, NF, stream) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(y, bare + b)  # the bf16 add rounds the fp32 sum once
+        assert torch.equal(y, y2)
+        if integers:
+            assert torch.equal(bare, torch.matmul(x.float(), w.float().t()).to(torch.bfloat16))
+        else:
+            torch.testing.assert_close(y, torch.matmul(x, w.t()) + b, **FUSED_TOL)
 
 
 @pytest.mark.parametrize("softmax_f32", [True, False])

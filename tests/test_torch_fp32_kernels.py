@@ -409,15 +409,18 @@ def test_fp32_attention_takes_any_token_count_and_bf16_stops_at_256(stub):
     # the backward's with B * ceil(577 / 64) rows of dbias scratch first.
     assert stub.args[0][4:9] == (1, 577, H, hd, 500)
     assert stub.args[1][9:15] == (10, 1, 577, H, hd, 500)
-    # In bf16 the attention kernels take any N too (past 256 the key tiles);
-    # the bf16 kernels of the projection fold and of the QKV projection with
-    # attention stop at 256 (ROADMAP.md §2a, item 3).
+    # In bf16 the attention kernels take any N too (past 256 the key tiles),
+    # and so do the projection fold's (its composition on them there); the
+    # bf16 kernel of attention over separate q, k, v stops at 256 (ROADMAP.md
+    # §2a, item 2b).
+    D = H * hd
     for n in (256, 257, 577):
         qkv_attention._check(_t((1, n, 3 * H * hd), torch.bfloat16), H, None, None)
-    D = H * hd
-    with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
-        attn_proj._check(_t((1, 257, 3 * D), torch.bfloat16), _t((D, D), torch.bfloat16),
+        attn_proj._check(_t((1, n, 3 * D), torch.bfloat16), _t((D, D), torch.bfloat16),
                          _t(D, torch.bfloat16), H, None)
+    q = _t((1, H, 257, hd), torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
+        attention._check(q, q.clone(), q.clone())
     with pytest.raises(ValueError):
         qkv_attention._check(_t((1, 0, 3 * H * hd)), H, None, None)
 
@@ -508,16 +511,17 @@ def test_projection_wrappers_reach_the_entry_points_of_their_dtype(stub, dtype, 
 
 
 def test_projection_wrappers_take_any_token_count_in_fp32_and_bf16_stops_at_256(stub):
-    for dtype, N, ok in ((torch.float32, 577, True), (torch.bfloat16, 256, True),
-                         (torch.bfloat16, 257, False)):
+    # Both projection wrappers take any token count in either dtype (in bf16
+    # past 256 their compositions on the key tiles); of the bf16 kernels only
+    # attention over separate q, k, v stops at 256.
+    for dtype, N in ((torch.float32, 577), (torch.bfloat16, 256), (torch.bfloat16, 257),
+                     (torch.bfloat16, 577)):
         H, (qkv, w, b, _), (x, wb, bb, _) = _projection_inputs(dtype, N)
-        for check in (lambda: attn_proj._check(qkv, w, b, H, N - 1),  # noqa: B023
-                      lambda: attention_block._check(x, wb, bb, H, None)):  # noqa: B023
-            if ok:
-                check()
-            else:
-                with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
-                    check()
+        attn_proj._check(qkv, w, b, H, N - 1)
+        attention_block._check(x, wb, bb, H, None)
+    q = _t((1, 2, 257, 64), torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
+        attention._check(q, q.clone(), q.clone())
     # fp32 takes any number of heads in the fold (5 of 32: D 160); bf16 a D
     # that is a multiple of 128.
     attn_proj._check(_t((1, 8, 480)), _t((160, 160)), _t(160), 5, None)

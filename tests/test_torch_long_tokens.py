@@ -8,9 +8,11 @@ functions at every token count.  Here those plain versions, a tiny
 classifier and a tiny MAE whose decoder runs more than 256 tokens are held
 against the JAX package (its Pallas kernels in interpret mode, its XLA
 model paths), on inputs made with numpy from a seed; and the wrappers route
-such calls to the key tiles, where the bf16 kernels of attention with the
-projection, the QKV projection with attention and attention over separate
-q, k, v still refuse them.
+such calls to the key tiles: the attention kernels', and the compositions
+on them of attention with the projection and of the QKV projection with
+attention (whose plain versions tests/test_torch_long_tokens_fold.py holds
+against the JAX package there), where the bf16 kernel of attention over
+separate q, k, v still refuses them.
 """
 
 import contextlib
@@ -306,21 +308,93 @@ def test_bf16_wrappers_send_more_than_256_tokens_to_the_key_tiles(stub, N, tiles
     assert len(stub.called) == 2
 
 
-def test_rows_9_10_11_still_refuse_more_than_256_tokens_in_bf16(stub):
-    H, hd, N = 2, 64, 300
+# The bf16 wrappers of attention with the projection (row 9/9b) and the QKV
+# projection with attention (row 10/10b): one entry point a direction at
+# every N, which runs the fused kernels up to 256 tokens and the
+# compositions on the key tiles past them; the wrappers count the two apart.
+# Each entry point's argument list, from csrc/:
+#   ssl4polyp_attn_proj_fwd (qkv, w, b, o, out, B, N, H, hd, n_valid, scale,
+#     softmax_f32, ablate, stream);
+#   ssl4polyp_attn_proj_bwd (11 pointers, stats, dq_acc, B, N, H, hd, n_valid,
+#     scale_c, scale, softmax_f32, slices, phases, stream);
+#   ssl4polyp_qkvproj_attention_fwd_probe (x, w, b, w_t, qkv, out, B, N, Din, H,
+#     hd, n_valid, scale_c, softmax_f32, probe, stream);
+#   ssl4polyp_qkvproj_attention_bwd_probe (12 pointers, stats, dq_acc, B, N, Din, H,
+#     hd, n_valid, scale_c, scale, softmax_f32, slices, probe, stream).
+# Past 256 tokens the wrappers hand over the compositions' scratch (o; w_t
+# and qkv; the key tiles' stats and dq_acc); up to 256 those are null.
+@pytest.mark.parametrize("N, tiles", [(256, False), (257, True), (577, True)])
+def test_bf16_rows_9_and_10_send_more_than_256_tokens_to_the_key_tiles(stub, monkeypatch, N,
+                                                                       tiles):
+    monkeypatch.setattr(stub, "ssl4polyp_dw_product_slices", lambda *args: 2, raising=False)
+    H, hd = 12, 64
     D = H * hd
-    for n in (257, 577, 1025):  # rows 1 and 2 take them
+    qkv, w, b, dy = _bf16((2, N, 3 * D)), _bf16((D, D)), _bf16(D), _bf16((2, N, D))
+    attn_proj._check(qkv, w, b, H, N - 1)
+    attn_proj._forward_kernel(qkv, w, b, H, True, N - 1)
+    attn_proj._backward_kernel(qkv, w, b, dy, H, True, N - 1)
+    x, w3, b3 = _bf16((2, N, D)), _bf16((D, 3 * D)), _bf16(3 * D)
+    attention_block._check(x, w3, b3, H, N - 1)
+    attention_block._forward_kernel(x, w3, b3, H, False, N - 1)
+    attention_block._backward_kernel(x, w3, b3, dy, H, False, N - 1)
+    names = (("fused_attention_proj_tiles", "fused_attention_proj_tiles_backward",
+              "fused_qkvproj_attention_tiles", "fused_qkvproj_attention_tiles_backward")
+             if tiles else ("attn_proj", "attn_proj_backward", "fused_qkvproj_attention",
+                            "fused_qkvproj_attention_backward"))
+    counts = ops.launch_counts()
+    assert [counts[n] for n in names] == [1, 1, 1, 1] and sum(counts.values()) == 4
+    assert stub.called == ["ssl4polyp_attn_proj_fwd", "ssl4polyp_attn_proj_bwd",
+                           "ssl4polyp_qkvproj_attention_fwd_probe",
+                           "ssl4polyp_qkvproj_attention_bwd_probe"]
+    shape9, shape10 = (2, N, H, hd, N - 1), (2, N, D, H, hd, N - 1)
+    # The forwards: the scratch pointers past 256 tokens (the core output;
+    # W^T and qkv), none up to them; softmax_f32 as asked, no measurement bits.
+    assert all(isinstance(p, int) and p for p in stub.args[0][:3] + stub.args[0][4:5])
+    assert all(isinstance(p, int) and p for p in stub.args[2][:3] + stub.args[2][5:6])
+    for scratch in (stub.args[0][3:4], stub.args[2][3:5]):
+        assert all(isinstance(p, int) and p for p in scratch) if tiles else set(scratch) == {None}
+    assert stub.args[0][5:10] == shape9 and stub.args[0][11:13] == (1, 0)
+    assert stub.args[2][6:12] == shape10 and stub.args[2][13:15] == (0, 0)
+    # The backwards: the same entry points at every N, every phase or step.
+    assert stub.args[1][13:18] == shape9 and stub.args[1][21:23] == (2, 15)
+    assert stub.args[3][14:20] == shape10 and stub.args[3][23:25] == (2, 0)
+    for args in (stub.args[1][11:13], stub.args[3][12:14]):
+        assert all(isinstance(p, int) and p for p in args) if tiles else args == (None, None)
+    if tiles:  # nothing past 256 tokens takes a measurement aid
+        with pytest.raises(ValueError, match="no ablate bits"):
+            attn_proj._forward_kernel(qkv, w, b, H, True, None, ablate=1)
+        with pytest.raises(ValueError, match="no probe bits"):
+            attention_block._forward_kernel(x, w3, b3, H, True, None,
+                                            attention_block.PROBE_FIRST_DESIGN)
+        with pytest.raises(ValueError, match="first design"):
+            attention_block._backward_kernel(x, w3, b3, dy, H, True, None,
+                                             attention_block.BACKWARD_PROBE_FIRST_DESIGN)
+    assert len(stub.called) == 4
+
+
+def test_rows_9_10_11_still_refuse_more_than_256_tokens_in_bf16(stub):
+    # Of the bf16 kernels that refused more than 256 tokens, row 11
+    # (attention over separate q, k, v) alone still does, naming its item;
+    # rows 1/2, 9 and 10 take any count, and every row refuses none.
+    H, hd = 2, 64
+    D = H * hd
+    for n in (257, 577, 1025):
         qkv_attention._check(_bf16((1, n, 3 * D)), H, None, _bf16(3 * D))
-    roadmap = "ROADMAP.md §2a, item 3"
-    with pytest.raises(ValueError, match=roadmap):
-        attn_proj._check(_bf16((1, N, 3 * D)), _bf16((D, D)), _bf16(D), H, None)
-    with pytest.raises(ValueError, match=roadmap):
-        attention_block._check(_bf16((1, N, D)), _bf16((D, 3 * D)), _bf16(3 * D), H, None)
-    q = _bf16((1, H, N, hd))
-    with pytest.raises(ValueError, match=roadmap):
-        attention._check(q, q.clone(), q.clone())
-    # In fp32 the fold and the QKV projection with attention take them.
-    f32 = torch.float32
+        attn_proj._check(_bf16((1, n, 3 * D)), _bf16((D, D)), _bf16(D), H, None)
+        attention_block._check(_bf16((1, n, D)), _bf16((D, 3 * D)), _bf16(3 * D), H, None)
+    for n in (257, 577):
+        q = _bf16((1, H, n, hd))
+        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 2b") as refusal:
+            attention._check(q, q.clone(), q.clone())
+        assert "fused_attention" in str(refusal.value) and "item 3" not in str(refusal.value)
+    q = _bf16((1, H, 256, hd))
+    attention._check(q, q.clone(), q.clone())
+    with pytest.raises(ValueError, match="at least one token"):
+        attn_proj._check(_bf16((1, 0, 3 * D)), _bf16((D, D)), _bf16(D), H, None)
+    with pytest.raises(ValueError, match="at least one token"):
+        attention_block._check(_bf16((1, 0, D)), _bf16((D, 3 * D)), _bf16(3 * D), H, None)
+    # In fp32 the fold and the QKV projection with attention take them too.
+    N, f32 = 300, torch.float32
     attn_proj._check(torch.zeros((1, N, 3 * D)), torch.zeros((D, D)), torch.zeros(D), H, None)
     attention_block._check(torch.zeros((1, N, D)), torch.zeros((D, 3 * D)),
                            torch.zeros(3 * D, dtype=f32), H, None)
