@@ -56,7 +56,14 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    classifier's and the MAE decoder's shapes, its forward's first design's
    time (through the kernel's probe, held to the plain version too) and its
    times with parts left out; its forward and backward reruns are
-   bit-identical.  The QKV projection with the attention core prints the
+   bit-identical.  Where attention.cu's kernels stop, it runs on the key
+   tiles in its layout in bf16 past 256 tokens (577: the classifier's and
+   the MAE decoder's heads) and on the fp32 kernels in its layout (197 and
+   577 tokens, both shapes): each against its plain version (the attention
+   limits in bf16, the fp32 fractions in fp32), reruns bit-identical, timed
+   beside the plain versions, SDPA in the same dtype and its backward
+   (timed only) and the bound, with the key tiles' gradient pass's shared
+   memory and resident blocks an SM.  The QKV projection with the attention core prints the
    same at both shapes (its forward's first design, the plain version and
    ``F.linear`` + SDPA beside the bound, then its forward without the
    softmax arithmetic, without the projection's products, without the
@@ -166,12 +173,12 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    the activation, the weight and the bias must agree within the stated
    tolerances, each route with its plain version too; each new kernel must
    launch exactly once forward and once backward per pass, and not at all
-   while the plain versions run.  Then the model's route and
-   ``fused_qkvproj_attention`` at 384 px (a (64, 577, 768) activation),
-   both on the key tiles, against their plain versions and each other,
-   one forward and one backward launch a pass; then both in fp32 on the
+   while the plain versions run.  Then the three at 384 px (a (64, 577,
+   768) activation), each on the key tiles (``fused_attention``'s in its
+   own layout), against their plain versions and the model's route, one
+   forward and one backward launch a pass; then the three in fp32 on the
    224 px activation and weights, on their fp32 kernels, against their
-   plain versions and each other within 2e-5 (outputs) and 1e-4
+   plain versions and the model's route within 2e-5 (outputs) and 1e-4
    (gradients) of max |plain|.
 7. The standalone eval CLI at full width: a synthetic pack of 224 px JPEG
    frames (128 a split) and a ViT-B/16 checkpoint (numpy-seeded JAX-layout
@@ -1410,6 +1417,7 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
     report["fused_attention_backward"] = entry(
         "attention.cu", "ssl4polyp_tpu/ops/attention.py:142", max(bwd_errors), *bwd_times[0][:2],
         bytes_moved=2 * 7 * elements, flops=10 * core, library_ms=bwd_times[0][2])
+    report.update(wide_separate_attention_kernels(randn))
 
     fwd_errors, bwd_errors, fwd_times, bwd_times = [], [], {}, {}
     cases = [(BATCH, 197, 768, 12, 64, True, None), (BATCH, 197, 512, 16, 32, False, None),
@@ -1503,6 +1511,110 @@ def attention_ops_kernels(randn) -> dict[str, dict]:
         "attention_block.cu", "ssl4polyp_tpu/ops/attention_block.py:224", max(bwd_errors),
         *bwd_times[0][:2], **bwd_cost, library_ms=bwd_times[0][2])
     report.update(long_projection_kernels(randn, fold=False))
+    return report
+
+
+def wide_separate_attention_kernels(randn) -> dict[str, dict]:
+    """Attention over separate q, k, v where ``attention.cu``'s kernels stop:
+    bf16 past 256 tokens (the key tiles in its layout, W and dS as two bf16
+    terms) and fp32 at any N (the fp32 kernels in its layout, the scale
+    inside dS), forward and backward, against the plain versions at the
+    classifier's heads (12 of 64) and the MAE decoder's (16 of 32): bf16 at
+    577 tokens, fp32 at 197 and 577.  Max error, reruns bit-identical (the
+    fp32 backward also from (q, k, v, dout) alone), times beside the plain
+    versions', SDPA's and its backward's in the same dtype (timed only) and
+    the bound; the key tiles' gradient pass's plan at both head dims."""
+    def cost(b, h, n, hd, size, peak):  # q, k, v in and out out; two products
+        return dict(bytes_moved=size * 4 * b * h * n * hd, flops=4 * b * h * n * n * hd,
+                    peak=peak)
+
+    def bwd_cost(b, h, n, hd, size, peak):  # q, k, v, dout in; dq, dk, dv out; five products
+        return dict(bytes_moved=size * 7 * b * h * n * hd, flops=10 * b * h * n * n * hd,
+                    peak=peak)
+
+    for hd in (64, 32):
+        plan = attention.tiles_backward_plan(hd)
+        print(f"fused_attention key tiles' gradient pass at hd {hd}: {plan['warps']} warps a "
+              f"block, {plan['smem_bytes']} bytes of shared memory, {plan['blocks_per_sm']} "
+              f"blocks an SM (occupancy API)")
+    cases = [(torch.bfloat16, BATCH, 12, 577, 64, "classifier at 384 px"),
+             (torch.bfloat16, BATCH, 16, 577, 32, "MAE decoder at 384 px"),
+             (torch.float32, BATCH, 12, 197, 64, "classifier"),
+             (torch.float32, BATCH, 16, 197, 32, "MAE decoder"),
+             (torch.float32, BATCH, 12, 577, 64, "classifier at 384 px"),
+             (torch.float32, BATCH, 16, 577, 32, "MAE decoder at 384 px")]
+    errors, times = {}, {}
+    for dtype, b, h, n, hd, name in cases:
+        f32 = dtype == torch.float32
+        q, k, v, dout = (randn(b, h, n, hd, dtype=dtype) for _ in range(4))
+        run = lambda: attention._forward_kernel(q, k, v)  # noqa: E731
+        plain = lambda: attention.fused_attention_reference(q, k, v)  # noqa: E731
+        if f32:  # the backward as the autograd path runs it: from the output and lse
+            saved, lse = attention._forward_kernel(q, k, v, lse=True)
+        else:
+            saved = lse = None
+        run_bwd = lambda: attention._backward_kernel(q, k, v, dout, out=saved, lse=lse)  # noqa: B023, E731
+        plain_bwd = lambda: attention.fused_attention_backward_reference(q, k, v, dout)  # noqa: E731
+        out, again = run(), run()
+        grads, grads_again = run_bwd(), run_bwd()
+        alone = attention._backward_kernel(q, k, v, dout) if f32 else grads
+        torch.cuda.synchronize()
+        label = "fp32" if f32 else "bf16"
+        what = f"fused_attention {label} B={b} H={h} N={n} hd={hd}"
+        ref, ref_grads = plain(), plain_bwd()
+        if f32:
+            fwd_err = max_relative_error(out, ref, FP32_FWD_FRAC, f"{what}: out")
+            bwd_err = max((max_relative_error(got, want, FP32_GRAD_FRAC, f"{what}: {part}")
+                           for part, got, want in zip(("dq", "dk", "dv"), grads, ref_grads)),
+                          key=lambda e: e[0])
+            line = (f"{what}: out {fwd_err[0]:.3e}, worst of dq, dk, dv {bwd_err[0]:.3e} of max "
+                    f"|plain| (limits {FP32_FWD_FRAC}, {FP32_GRAD_FRAC})")
+            fwd_err, bwd_err = fwd_err[1], bwd_err[1]
+        else:
+            fwd_err = max_error(out, ref, ATTENTION_TOL, f"{what}: out")
+            bwd_err = max(max_error(got, want, ATTENTION_BWD_TOL, f"{what}: {part}")
+                          for part, got, want in zip(("dq", "dk", "dv"), grads, ref_grads))
+            line = (f"{what}: out max |diff| {fwd_err:.3e} (atol {ATTENTION_TOL[0]}, rtol "
+                    f"{ATTENTION_TOL[1]}), dq, dk, dv {bwd_err:.3e} (atol "
+                    f"{ATTENTION_BWD_TOL[0]}, rtol {ATTENTION_BWD_TOL[1]})")
+        if f32 and not torch.equal(out, saved):
+            fail(f"{what}: the forward with and without the log-sum-exp gave different bits")
+        if not torch.equal(out, again) or not all(
+                torch.equal(a, g) for other in (grads_again, alone) for a, g in zip(other, grads)):
+            fail(f"{what}: two runs gave different bits")
+        print(line + "; reruns bit-identical" + (", and the backward from (q, k, v, dout) alone"
+                                                 if f32 else ""))
+        del ref, ref_grads, alone
+        errors.setdefault(label, []).append((fwd_err, bwd_err))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        library = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        lib_out = F.scaled_dot_product_attention(*leaves)
+        library_bwd = lambda: torch.autograd.grad(lib_out, leaves, dout, retain_graph=True)  # noqa: E731
+        key = (label, n, name)
+        times[key] = (time_ms(run), time_ms(plain), time_ms(library), time_ms(run_bwd),
+                      time_ms(plain_bwd), time_ms(library_bwd))
+        size, peak = (4, FP32_FLOPS) if f32 else (2, BF16_FLOPS)
+        print(f"  {name}'s shape: forward kernel {times[key][0]:.4f} ms, plain "
+              f"{times[key][1]:.4f} ms, {label} scaled_dot_product_attention "
+              f"{times[key][2]:.4f} ms, {bound_text(**cost(b, h, n, hd, size, peak))}; backward "
+              f"kernel {times[key][3]:.4f} ms, plain {times[key][4]:.4f} ms, its backward "
+              f"{times[key][5]:.4f} ms, {bound_text(**bwd_cost(b, h, n, hd, size, peak))}; "
+              f"{CARD}")
+        del leaves, lib_out, saved, lse
+    report = {}
+    for names, label, source, n, shape_name, size, peak in (
+            (("fused_attention_tiles", "fused_attention_tiles_backward"), "bf16",
+             "qkv_attention_tiles.cu", 577, "classifier at 384 px", 2, BF16_FLOPS),
+            (("fused_attention_f32", "fused_attention_backward_f32"), "fp32",
+             "qkv_attention_f32.cu", 197, "classifier", 4, FP32_FLOPS)):
+        t = times[(label, n, shape_name)]
+        shape = (BATCH, 12, n, 64, size, peak)
+        report[names[0]] = entry(source, "ssl4polyp_tpu/ops/attention.py:118",
+                                 max(e[0] for e in errors[label]), t[0], t[1], **cost(*shape),
+                                 library_ms=t[2])
+        report[names[1]] = entry(source, "ssl4polyp_tpu/ops/attention.py:142",
+                                 max(e[1] for e in errors[label]), t[3], t[4], **bwd_cost(*shape),
+                                 library_ms=t[5])
     return report
 
 
@@ -2979,9 +3091,9 @@ def _route_gradients(route, a, weight, bias, dout):
 def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
     """Block 0's attention core of the eval classifier, three ways, on a real
     activation: the path that launches ``fused_qkvproj_attention`` and
-    ``fused_attention``, forward and backward; then at 384 px (577 tokens)
-    the model's route and ``fused_qkvproj_attention``, both on the key
-    tiles (``fused_attention`` takes at most 256 tokens)."""
+    ``fused_attention``, forward and backward; then the three at 384 px
+    (577 tokens), each on the key tiles, and in fp32, each on the fp32
+    kernels."""
     rng = np.random.default_rng(SEED)
 
     def activation(image_size: int, tokens: int):
@@ -3016,7 +3128,7 @@ def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
         return [t.contiguous() for t in heads_of(qkv, heads)]
 
     def merge_heads(out):
-        return out.transpose(1, 2).reshape(BATCH, 197, 768)
+        return out.transpose(1, 2).reshape(BATCH, out.shape[2], 768)
 
     def routes(core_qkv, core_proj, core_sep):
         return {
@@ -3077,13 +3189,14 @@ def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
     for name in ("fused_qkvproj_attention", "fused_attention"):
         compare(results[name], results["model"], f"attention ops [{name}] vs the model's route")
 
-    # At 384 px (577 tokens): the model's route and fused_qkvproj_attention,
-    # both past 256 tokens on the key tiles; fused_attention takes at most
-    # 256 (ROADMAP.md §2a item 2b).
+    # At 384 px (577 tokens): the three routes past 256 tokens, each on the
+    # key tiles (fused_attention's in its layout, with its roundings).
     long_args = activation(384, 577)[:4]
     long_launched = {"model": ("fused_qkv_attention_tiles", "fused_qkv_attention_tiles_backward"),
                      "fused_qkvproj_attention": ("fused_qkvproj_attention_tiles",
-                                                 "fused_qkvproj_attention_tiles_backward")}
+                                                 "fused_qkvproj_attention_tiles_backward"),
+                     "fused_attention": ("fused_attention_tiles",
+                                         "fused_attention_tiles_backward")}
     long_results = {}
     for name, kernels in long_launched.items():
         ops.reset_launch_counts()
@@ -3100,19 +3213,20 @@ def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
                 f"attention ops at 577 tokens [{name}] kernels vs plain")
     if any(ops.launch_counts().values()):
         fail("attention ops: a plain route at 577 tokens launched a kernel")
-    compare(long_results["fused_qkvproj_attention"], long_results["model"],
-            "attention ops at 577 tokens [fused_qkvproj_attention] vs the model's route")
+    for name in ("fused_qkvproj_attention", "fused_attention"):
+        compare(long_results[name], long_results["model"],
+                f"attention ops at 577 tokens [{name}] vs the model's route")
     del long_args, long_results
 
-    # In fp32, on the same activation and weights: the model's route and
-    # fused_qkvproj_attention on their fp32 kernels (fused_attention stays
-    # bf16-only: ROADMAP.md §2a item 2), each against its plain version and
-    # against the other, max |diff| within the fp32 fractions of max |plain|.
+    # In fp32, on the same activation and weights: the three routes on their
+    # fp32 kernels, each against its plain version and against the model's
+    # route, max |diff| within the fp32 fractions of max |plain|.
     f32_args = [t.float() for t in (a, weight, bias, dout)]
-    fp32_routes = {name: kernel_routes[name] for name in ("model", "fused_qkvproj_attention")}
+    fp32_routes = kernel_routes
     fp32_launched = {"model": ("fused_qkv_attention_f32", "fused_qkv_attention_backward_f32"),
                      "fused_qkvproj_attention": ("fused_qkvproj_attention_f32",
-                                                 "fused_qkvproj_attention_backward_f32")}
+                                                 "fused_qkvproj_attention_backward_f32"),
+                     "fused_attention": ("fused_attention_f32", "fused_attention_backward_f32")}
     results = {}
     for name, route in fp32_routes.items():
         ops.reset_launch_counts()
@@ -3128,11 +3242,10 @@ def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
     torch.cuda.synchronize()
     if any(ops.launch_counts().values()):
         fail("attention ops: a plain fp32 route launched a kernel")
-    for name, want, label in (("model", plain_results["model"], "kernels vs plain"),
-                              ("fused_qkvproj_attention",
-                               plain_results["fused_qkvproj_attention"], "kernels vs plain"),
-                              ("fused_qkvproj_attention", results["model"],
-                               "vs the model's route")):
+    checks = [(name, plain_results[name], "kernels vs plain") for name in fp32_routes]
+    checks += [(name, results["model"], "vs the model's route")
+               for name in ("fused_qkvproj_attention", "fused_attention")]
+    for name, want, label in checks:
         got = results[name]
         errors = [max_relative_error(got[0], want[0], FP32_FWD_FRAC,
                                      f"fp32 attention ops [{name}] {label}: out")[0]]

@@ -10,6 +10,14 @@ the same seeded inputs: their outputs must be equal bit for bit, and each
 build's time is taken in turns (other, this, this, other) as the median of 5
 batches of 20 launches.
 
+Then, through each checkout's own wrappers in a process of its own (their
+call signatures are the same in both), the attention kernels that take a
+layout as a template parameter and what is composed on them, again at fixed
+seeds and bit for bit: the QKV attention in fp32 (forward with its
+log-sum-exp, backward in both scale placements) and in bf16 past 256 tokens
+(the key tiles, both placements), the attention+projection fold and the QKV
+projection + attention in bf16 past 256 tokens and in fp32 (untimed).
+
 Each checkout's kernel library is built by its own ``ops._build`` in a
 subprocess, then both are loaded into this process with ctypes.  Run from
 the root of one checkout, with the other unpacked elsewhere (for example
@@ -28,6 +36,7 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import torch
@@ -41,6 +50,60 @@ CASES = [("fc1_gelu", (12608, 768, 3072)), ("fc1_gelu", (12608, 512, 2048)),
          *[(name, shape) for name in ("attention", "attention_backward")
            for shape in ATTENTION_SHAPES]]
 EPS = 1e-6
+# Run in each checkout (cwd), writing a dict of output tensors to argv[1]:
+# (tokens, heads, head dim, valid_len) of each case, B 8 (4 at 1,025).
+WRAPPER_OUTPUTS = r"""
+import sys
+import torch
+from ssl4polyp_tpu_torch.ops import attention_block, attn_proj, qkv_attention
+
+torch.backends.cuda.matmul.allow_tf32 = False
+outputs = {}
+
+
+def randn(seed, *shape, dtype, scale=1.0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return (torch.randn(*shape, generator=gen, device="cuda") * scale).to(dtype)
+
+
+for dtype, cases in ((torch.float32, [(197, 12, 64, None), (577, 12, 64, 500), (300, 16, 32, None)]),
+                     (torch.bfloat16, [(577, 12, 64, None), (577, 16, 32, 500),
+                                       (1025, 12, 64, None)])):
+    f32 = dtype == torch.float32
+    for i, (n, h, hd, valid_len) in enumerate(cases):
+        b, d = (4 if n > 1024 else 8), h * hd
+        tag = f"{dtype} N={n} H={h} hd={hd} valid_len={valid_len}"
+        qkv, bias = randn(i, b, n, 3 * d, dtype=dtype), randn(100 + i, 3 * d, dtype=dtype, scale=0.5)
+        dout = randn(200 + i, b, n, d, dtype=dtype)
+        outputs[f"qkv_attention {tag}"] = qkv_attention._forward_kernel(
+            qkv, h, f32 or i % 2 == 0, valid_len, bias)
+        saved = {}
+        if f32:
+            out, lse = qkv_attention._forward_kernel(qkv, h, True, valid_len, bias, lse=True)
+            outputs[f"qkv_attention lse {tag}"] = lse
+            saved = dict(out=out, lse=lse)
+        for scaled_ds in (False, True):
+            dqkv, dbias = qkv_attention._backward_kernel(qkv, dout, h, f32 or i % 2 == 0,
+                                                         valid_len, bias, scaled_ds=scaled_ds,
+                                                         **saved)
+            outputs[f"qkv_attention backward scaled_ds={scaled_ds} {tag}"] = dqkv
+            outputs[f"qkv_attention dbias scaled_ds={scaled_ds} {tag}"] = dbias
+        if n > 577 or (f32 and n != 197):
+            continue
+        w, b1 = randn(300 + i, d, d, dtype=dtype, scale=d ** -0.5), randn(400 + i, d, dtype=dtype)
+        outputs[f"attn_proj {tag}"] = attn_proj._forward_kernel(qkv, w, b1, h, True, valid_len)
+        for j, g in enumerate(attn_proj._backward_kernel(qkv, w, b1, dout, h, True, valid_len)):
+            outputs[f"attn_proj backward {j} {tag}"] = g
+        x = randn(500 + i, b, n, d, dtype=dtype)
+        w3 = randn(600 + i, d, 3 * d, dtype=dtype, scale=d ** -0.5)
+        outputs[f"qkvproj_attention {tag}"] = attention_block._forward_kernel(
+            x, w3, bias, h, True, valid_len)
+        for j, g in enumerate(attention_block._backward_kernel(x, w3, bias, dout, h, True,
+                                                               valid_len)):
+            outputs[f"qkvproj_attention backward {j} {tag}"] = g
+torch.cuda.synchronize()
+torch.save({k: v.cpu() for k, v in outputs.items()}, sys.argv[1])
+"""
 
 
 def build(root: Path) -> Path:
@@ -51,6 +114,15 @@ def build(root: Path) -> Path:
     if done.returncode:
         raise SystemExit(f"building {root} failed:\n{done.stdout}{done.stderr}")
     return Path(done.stdout.strip().splitlines()[-1])
+
+
+def wrapper_outputs(root: Path, path: Path) -> dict:
+    """WRAPPER_OUTPUTS run in the checkout at ``root``, its tensors."""
+    done = subprocess.run([sys.executable, "-c", WRAPPER_OUTPUTS, str(path)], cwd=root,
+                          capture_output=True, text=True)
+    if done.returncode:
+        raise SystemExit(f"the wrappers of {root} failed:\n{done.stdout}{done.stderr}")
+    return torch.load(path)
 
 
 def entry_points(path: Path) -> dict:
@@ -179,7 +251,17 @@ def main() -> None:
         print(f"{name} {shape}: outputs bit-equal {equal}; other "
               f"{times['other'][0]:.4f} / {times['other'][1]:.4f} ms, this "
               f"{times['this'][0]:.4f} / {times['this'][1]:.4f} ms; {card}")
-    print(json.dumps({"card": card, "cases": rows}))
+    with tempfile.TemporaryDirectory() as tmp:
+        other = wrapper_outputs(args.other.resolve(), Path(tmp) / "other.pt")
+        this = wrapper_outputs(ROOT, Path(tmp) / "this.pt")
+    if other.keys() != this.keys():
+        raise SystemExit("the two checkouts' wrappers gave different outputs to compare")
+    differing = [name for name in this if not torch.equal(this[name], other[name])]
+    same &= not differing
+    print(f"wrappers: {len(this) - len(differing)} of {len(this)} outputs bit-equal"
+          + (f"; differing: {differing}" if differing else ""))
+    print(json.dumps({"card": card, "cases": rows, "wrapper_outputs": len(this),
+                      "wrapper_outputs_differing": differing}))
     if not same:
         raise SystemExit(1)
 

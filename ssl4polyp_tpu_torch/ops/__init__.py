@@ -32,6 +32,9 @@ _COUNTERS = {
     "adamw": (adamw, "launches"),
     "fused_attention": (attention, "launches"),
     "fused_attention_backward": (attention, "backward_launches"),
+    # Past 256 tokens in bf16: the key-tile kernels in its layout.
+    "fused_attention_tiles": (attention, "tiles_launches"),
+    "fused_attention_tiles_backward": (attention, "tiles_backward_launches"),
     "fused_qkvproj_attention": (attention_block, "launches"),
     "fused_qkvproj_attention_backward": (attention_block, "backward_launches"),
     "fused_qkvproj_attention_tiles": (attention_block, "tiles_launches"),
@@ -48,9 +51,11 @@ _COUNTERS = {
     "ln_linear_f32": (ln_linear, "launches_f32"),
     "attn_proj_f32": (attn_proj, "launches_f32"),
     "attn_proj_backward_f32": (attn_proj, "backward_launches_f32"),
-    # The fp32 kernels of the public function no model route calls.
+    # The fp32 kernels of the public functions no model route calls.
     "fused_qkvproj_attention_f32": (attention_block, "launches_f32"),
     "fused_qkvproj_attention_backward_f32": (attention_block, "backward_launches_f32"),
+    "fused_attention_f32": (attention, "launches_f32"),
+    "fused_attention_backward_f32": (attention, "backward_launches_f32"),
 }
 
 

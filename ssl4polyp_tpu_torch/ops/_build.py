@@ -103,6 +103,17 @@ _ENTRY_POINTS = (
      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]),
     ("ssl4polyp_attention_bwd_probe", ctypes.c_int,
      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
+    ("ssl4polyp_attention_tiles_fwd", ctypes.c_int,
+     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_attention_tiles_bwd", ctypes.c_int,
+     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_attention_tiles_bwd_plan", ctypes.c_int,
+     [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 3),
+    ("ssl4polyp_attention_fwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]),
+    ("ssl4polyp_attention_bwd_f32", ctypes.c_int,
+     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_qkvproj_attention_fwd", ctypes.c_int,
      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
      + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]),

@@ -37,11 +37,6 @@ def saved_or_scratch(out, lse, out_shape, lse_shape, device: torch.device):
     return out, lse, False
 
 
-# Where ROADMAP.md lists the fp32 kernel still to port: fused_attention, the
-# public function over separate q, k and v that no model route calls.
-FP32_PUBLIC_FUNCTIONS = "ROADMAP.md §2a, item 2"
-
-
 def check_one_dtype(tensors) -> None:
     """Refuses with ``TypeError`` operands that are not all bfloat16 or all
     float32: a kernel of each dtype takes them."""
@@ -49,31 +44,3 @@ def check_one_dtype(tensors) -> None:
     if dtypes[0] not in (torch.bfloat16, torch.float32) or any(d != dtypes[0] for d in dtypes):
         raise TypeError(f"the kernels take bfloat16 or float32 operands of one dtype, got "
                         f"{dtypes}")
-
-
-def check_bf16(name: str, dtype: torch.dtype, roadmap_item: str) -> None:
-    """Refuses a tensor that a bfloat16-only kernel cannot take with
-    ``TypeError``; for fp32, the message says that this kernel's fp32 version
-    is not yet ported and names the ROADMAP.md item that lists it."""
-    if dtype == torch.bfloat16:
-        return
-    if dtype == torch.float32:
-        raise TypeError(f"{name} is float32, and this kernel's fp32 version is not yet ported "
-                        f"({roadmap_item}): the kernel takes bfloat16")
-    raise TypeError(f"the kernel takes bfloat16, got {name} {dtype}")
-
-
-# The bf16 kernel of attention over separate q, k and v (row 11,
-# ``fused_attention``) takes at most this many tokens; more is not yet
-# ported, and neither is its fp32 kernel (ROADMAP.md §2a, item 2b).  Every
-# other bf16 kernel takes any number of tokens.
-SEPARATE_QKV_MAX_TOKENS = 256
-SEPARATE_QKV_ITEM = "ROADMAP.md §2a, item 2b"
-
-
-def check_separate_qkv_tokens(N: int) -> None:
-    """Refuses with ``ValueError`` a token count that the bf16 kernel of
-    attention over separate q, k and v cannot take."""
-    if not 1 <= N <= SEPARATE_QKV_MAX_TOKENS:
-        raise ValueError(f"fused_attention's bf16 kernel takes 1..{SEPARATE_QKV_MAX_TOKENS} "
-                         f"tokens (more is not yet ported: {SEPARATE_QKV_ITEM}), got {N}")

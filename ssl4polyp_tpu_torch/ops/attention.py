@@ -7,11 +7,20 @@ Counterpart of ``ssl4polyp_tpu/ops/attention.py``::
 per (batch, head), with q, k, v and the output (B, H, N, hd).  Its roundings
 are that kernel's, not the QKV kernels': q and k enter the scores as they
 are and the scale multiplies the fp32 scores; the backward recomputes the
-weights and keeps them, and dS, unrounded.  On the card both directions are
-CUDA kernels (``csrc/attention.cu``; both on wgmma with TMA loads, their
-first designs kept behind :data:`PROBE_FIRST_DESIGN` and
-:data:`BACKWARD_PROBE_FIRST_DESIGN`); no model route calls this function (as
-in the JAX package, it is a public function of ``ops``).
+weights and keeps them, and dS, unrounded.  No model route calls this
+function (as in the JAX package, it is a public function of ``ops``).  On
+the card each direction is a CUDA kernel, chosen by dtype and token count,
+each with launch counts of its own:
+
+* bf16 up to 256 tokens: ``csrc/attention.cu`` (both directions on wgmma
+  with TMA loads, their first designs kept behind
+  :data:`PROBE_FIRST_DESIGN` and :data:`BACKWARD_PROBE_FIRST_DESIGN`);
+* bf16 past 256 tokens: the key tiles of ``csrc/qkv_attention_tiles.cu`` in
+  this layout and with these roundings (W and dS as two bf16 terms);
+* fp32 at any token count: the fp32 kernels of ``csrc/qkv_attention_f32.cu``
+  in this layout (the scale inside dS); the forward writes each row's
+  log-sum-exp when a backward will follow, and the backward reads it with
+  the output.
 
 A tensor on the CPU goes through the plain torch versions
 (:func:`fused_attention_plain`); a CUDA tensor through the kernels, or the
@@ -24,24 +33,38 @@ import math
 
 import torch
 
-from ._checks import FP32_PUBLIC_FUNCTIONS, check_bf16, check_gradient, check_separate_qkv_tokens
+from ._checks import check_gradient, check_one_dtype, saved_or_scratch
+from .qkv_attention import _TILES_PAST, tiles_backward_scratch
 
 __all__ = [
     "backward_launches",
+    "backward_launches_f32",
     "fused_attention",
     "fused_attention_backward_reference",
     "fused_attention_plain",
     "fused_attention_reference",
     "launches",
+    "launches_f32",
+    "tiles_backward_launches",
+    "tiles_backward_plan",
+    "tiles_launches",
 ]
 
-# Kernel launches since the last ops.reset_launch_counts().
+# Kernel launches since the last ops.reset_launch_counts(): bf16 up to
+# _TILES_PAST tokens, bf16 past them (the key tiles), fp32.
 launches = 0
 backward_launches = 0
+tiles_launches = 0
+tiles_backward_launches = 0
+launches_f32 = 0
+backward_launches_f32 = 0
 
-# What the kernels take: bf16, these head sizes, 1..256 tokens
-# (SEPARATE_QKV_MAX_TOKENS; more is ROADMAP.md §2a, item 2b).
+# The head dims the kernels take, any N >= 1: bf16 (attention.cu and the key
+# tiles) and fp32 (qkv_attention_f32.cu's instantiations).  Others are not
+# yet ported (_HEAD_DIMS_ITEM).
 _HEAD_DIMS = (16, 32, 64)
+_HEAD_DIMS_F32 = (32, 64)
+_HEAD_DIMS_ITEM = "ROADMAP.md §2a, item 4"
 # `probe` bits of the forward kernel, a measurement aid (0 on every path;
 # chip_smoke.py times the kernel with parts left out, whose results are
 # wrong): no softmax arithmetic (the scores rounded straight into the
@@ -111,79 +134,175 @@ def _check(q, k, v) -> None:
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, H, N, hd) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    check_one_dtype((q, k, v))
     _, _, N, head_dim = q.shape
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"head dim {head_dim} not in {_HEAD_DIMS}")
-    check_separate_qkv_tokens(N)
+    head_dims = _HEAD_DIMS_F32 if q.dtype == torch.float32 else _HEAD_DIMS
+    if head_dim not in head_dims:
+        raise ValueError(f"fused_attention's {q.dtype} kernels take head dims {head_dims}, got "
+                         f"{head_dim} (other head dims are not yet ported: {_HEAD_DIMS_ITEM})")
+    if N < 1:
+        raise ValueError(f"the kernels take 1 or more tokens, got {N}")
     for name, t in (("q", q), ("k", k), ("v", v)):
-        check_bf16(name, t.dtype, FP32_PUBLIC_FUNCTIONS)
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {q.device}")
 
 
-def _forward_kernel(q, k, v, probe: int = 0):
-    """The forward kernel; ``probe`` (0 on every path) is a measurement aid:
-    the ``PROBE_*`` bits above."""
+def _route(q: torch.Tensor) -> str:
+    """Which kernels take q's dtype and token count: "f32", "tiles" (bf16
+    past _TILES_PAST tokens) or "bf16"."""
+    if q.dtype == torch.float32:
+        return "f32"
+    return "tiles" if q.shape[2] > _TILES_PAST else "bf16"
+
+
+def _forward_kernel(q, k, v, probe: int = 0, lse: bool = False):
+    """The forward kernel of q's dtype and token count.  ``probe`` (0 on
+    every path) is a measurement aid of the bf16 kernel up to _TILES_PAST
+    tokens: the ``PROBE_*`` bits above; the others have none
+    (``ValueError``).  With ``lse`` (fp32 only) it returns ``(out, lse)``:
+    lse (B, H, N) fp32 holds each row's log-sum-exp, which the fp32 backward
+    reads."""
     from ._build import library
 
-    global launches
+    global launches, launches_f32, tiles_launches
+    route = _route(q)
+    if probe and route != "bf16":
+        raise ValueError(f"the {route} forward kernel has no probe bits")
+    if lse and route != "f32":
+        raise ValueError("only the fp32 forward kernel writes the log-sum-exp")
     B, H, N, head_dim = q.shape
     out = torch.empty_like(q)
+    stats = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if lse else None
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    scale = 1.0 / math.sqrt(head_dim)
     with torch.cuda.device(q.device):
-        err = library().ssl4polyp_attention_fwd_probe(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, N, head_dim,
-            1.0 / math.sqrt(head_dim), probe, torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "f32":
+            err = library().ssl4polyp_attention_fwd_f32(
+                *pointers, None if stats is None else stats.data_ptr(), B, H, N, head_dim, scale,
+                stream)
+        elif route == "tiles":
+            err = library().ssl4polyp_attention_tiles_fwd(*pointers, B, H, N, head_dim, scale,
+                                                          stream)
+        else:
+            err = library().ssl4polyp_attention_fwd_probe(*pointers, B * H, N, head_dim, scale,
+                                                          probe, stream)
     if err:
         raise RuntimeError(f"attention kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out
+    if route == "f32":
+        launches_f32 += 1
+    elif route == "tiles":
+        tiles_launches += 1
+    else:
+        launches += 1
+    return (out, stats) if lse else out
 
 
-def _backward_kernel(q, k, v, dout, probe: int = 0):
-    """The backward kernel; ``probe`` (0 on every path) is a measurement
-    aid: the ``BACKWARD_PROBE_*`` bits above."""
+def _backward_kernel(q, k, v, dout, probe: int = 0, out=None, lse=None):
+    """The backward kernel of q's dtype and token count.  ``probe`` (0 on
+    every path) is a measurement aid of the bf16 kernel up to _TILES_PAST
+    tokens: the ``BACKWARD_PROBE_*`` bits above; the others have none
+    (``ValueError``).  ``out`` and ``lse``: the fp32 forward's output and
+    log-sum-exp (``_forward_kernel`` with ``lse``), as the autograd path
+    hands them over; without them the fp32 backward's launch runs the forward
+    kernel into scratch first.  The bf16 kernels take neither."""
     if probe & ~_BACKWARD_PROBE_BITS:
         raise ValueError(f"unknown probe bits {probe & ~_BACKWARD_PROBE_BITS:#x}")
     from ._build import library
 
-    global backward_launches
+    global backward_launches, backward_launches_f32, tiles_backward_launches
     check_gradient("dout", dout, q.shape, q.dtype, q.device)
+    route = _route(q)
+    if probe and route != "bf16":
+        raise ValueError(f"the {route} backward kernel has no probe bits")
+    if route != "f32" and (out is not None or lse is not None):
+        raise ValueError("out and lse go to the fp32 backward kernel only")
     B, H, N, head_dim = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    pointers = (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr())
+    grads = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    scale = 1.0 / math.sqrt(head_dim)
     with torch.cuda.device(q.device):
-        err = library().ssl4polyp_attention_bwd_probe(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), B * H, N, head_dim, 1.0 / math.sqrt(head_dim), probe,
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if route == "f32":  # the scale inside dS, as the JAX kernel puts it
+            out, lse, forward_first = saved_or_scratch(out, lse, q.shape, (B, H, N), q.device)
+            delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+            err = library().ssl4polyp_attention_bwd_f32(
+                *pointers, out.data_ptr(), lse.data_ptr(), delta.data_ptr(), *grads, B, H, N,
+                head_dim, scale, int(forward_first), stream)
+        elif route == "tiles":
+            stats, dq_acc = tiles_backward_scratch(B, H, N, head_dim, q.device)
+            err = library().ssl4polyp_attention_tiles_bwd(
+                *pointers, *grads, stats.data_ptr(), dq_acc.data_ptr(), B, H, N, head_dim, scale,
+                stream)
+        else:
+            err = library().ssl4polyp_attention_bwd_probe(*pointers, *grads, B * H, N, head_dim,
+                                                          scale, probe, stream)
     if err:
         raise RuntimeError(f"attention backward kernel launch failed: CUDA error {err}")
-    backward_launches += 1
+    if route == "f32":
+        backward_launches_f32 += 1
+    elif route == "tiles":
+        tiles_backward_launches += 1
+    else:
+        backward_launches += 1
     return dq, dk, dv
 
 
+def tiles_backward_plan(head_dim: int) -> dict:
+    """The key tiles' gradient pass in this function's mode at a head dim:
+    ``{"warps": ..., "smem_bytes": ..., "blocks_per_sm": ...}`` (a block's
+    warps and dynamic shared memory, and the blocks an SM holds by the
+    occupancy API).  Builds the library if it is not built."""
+    import ctypes
+
+    from ._build import library
+
+    warps, smem, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = library().ssl4polyp_attention_tiles_bwd_plan(head_dim, ctypes.byref(warps),
+                                                       ctypes.byref(smem), ctypes.byref(blocks))
+    if err:
+        raise ValueError(f"no key-tile backward for head dim {head_dim} (error {err})")
+    return {"warps": warps.value, "smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+
+
 class _Attention(torch.autograd.Function):
-    """The kernels (``plain`` False) or the plain versions (``plain`` True)."""
+    """The kernels (``plain`` False) or the plain versions (``plain`` True).
+    The fp32 kernels' backward also takes the forward's output (saved
+    without a copy) and log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, plain):
-        ctx.save_for_backward(q, k, v)
         ctx.plain = plain
-        return (fused_attention_reference if plain else _forward_kernel)(q, k, v)
+        saved = ()
+        if plain:
+            out = fused_attention_reference(q, k, v)
+        elif q.dtype == torch.float32 and any(ctx.needs_input_grad[:3]):
+            out, lse = _forward_kernel(q, k, v, lse=True)
+            saved = (out, lse)
+        else:
+            out = _forward_kernel(q, k, v)
+        ctx.save_for_backward(q, k, v, *saved)
+        return out
 
     @staticmethod
     def backward(ctx, dout):
-        run = fused_attention_backward_reference if ctx.plain else _backward_kernel
-        return (*run(*ctx.saved_tensors, dout.contiguous()), None)
+        q, k, v, *saved = ctx.saved_tensors
+        if ctx.plain:
+            grads = fused_attention_backward_reference(q, k, v, dout.contiguous())
+        else:
+            out, lse = saved or (None, None)
+            grads = _backward_kernel(q, k, v, dout.contiguous(), out=out, lse=lse)
+        return (*grads, None)
 
 
 def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """softmax(q.k^T/sqrt(hd)).v per (batch, head) -> (B, H, N, hd),
-    differentiable in q, k and v; the backward recomputes the weights.
+    differentiable in q, k and v.
 
-    On the card the kernels take contiguous bfloat16 tensors with a head dim
-    of 16, 32 or 64 and 1..256 tokens, and raise on anything else.
+    On the card the kernels take contiguous tensors of any N >= 1: bfloat16
+    with a head dim of 16, 32 or 64, float32 with one of 32 or 64.  Another
+    head dim raises ``ValueError``, another dtype ``TypeError``.
     """
     if q.device.type == "cpu":
         return fused_attention_plain(q, k, v)

@@ -246,4 +246,36 @@ inline cudaError_t launch_column_sum(const float* part, int rows, int cols, floa
   return cudaGetLastError();
 }
 
+// Where one (image b, head h)'s rows of an attention's operands lie; the
+// fp32 attention and the bf16 key tiles take the layout as a template
+// parameter.  Row i of q, k and v, and of dq, dk and dv, is at base + at + i
+// * ld; row i of the output and of dO at base + o + i * o_ld.  The fused
+// layout (SEP false): one (B, N, 3D) qkv whose bases for q, k and v are qkv,
+// qkv + D and qkv + 2D (sections_of; dqkv likewise), the output and dO (B,
+// N, D).  The separate layout (SEP true, fused_attention's): every operand
+// (B, H, N, hd).
+template <bool SEP>
+struct HeadRows {
+  long at, ld, o, o_ld;
+  __device__ HeadRows(int b, int h, int N, int H, int HD)
+      : at(SEP ? (static_cast<long>(b) * H + h) * N * HD
+               : static_cast<long>(b) * N * 3 * H * HD + h * HD),
+        ld(SEP ? HD : 3L * H * HD),
+        o(SEP ? at : static_cast<long>(b) * N * H * HD + h * HD),
+        o_ld(SEP ? HD : static_cast<long>(H) * HD) {}
+};
+
+// A launch's q, k and v (or dq, dk and dv): the bases HeadRows offsets.
+template <typename T>
+struct Sections {
+  T *q, *k, *v;
+};
+
+// The sections of a fused (B, N, 3 * H * head_dim) qkv or dqkv.
+template <typename T>
+inline Sections<T> sections_of(T* qkv, int H, int head_dim) {
+  const long D = static_cast<long>(H) * head_dim;
+  return {qkv, qkv + D, qkv + 2 * D};
+}
+
 }  // namespace

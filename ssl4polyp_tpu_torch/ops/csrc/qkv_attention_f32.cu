@@ -20,6 +20,16 @@
 // dS = W * (dW - D) * scale, dQ = dS K and dK = dS^T Q.  In fp32 the two
 // modes differ only in the order of the multiplications.
 //
+// The same kernels also serve ssl4polyp_tpu/ops/attention.py::_attention_kernel
+// and _attention_bwd_kernel (fused_attention) at float32: attention over
+// separate (B, H, N, hd) q, k and v, no bias, every key weighted, the
+// backward in the `scaled_ds` mode (that kernel's dS = W * (dW - tmp) *
+// scale).  The layout is a template parameter (SEP): each operand is a base
+// pointer and a (head, image) offset and row stride computed from it, so the
+// fused instantiations' arithmetic is the same.  That kernel multiplies the
+// fp32 scores by the scale where these fold it into q in fp32: one rounding
+// of order apart.
+//
 // What bounds them on the H100: at the classifier's shape (B 64, N 197, 12
 // heads of 64) the forward is 7.6 GFLOP against 155 MB of compulsory
 // traffic, 0.114 ms at the 67 TFLOP/s fp32 rate: operations, as is the
@@ -275,20 +285,16 @@ __device__ __forceinline__ void zero(float (&acc)[kPer][DC]) {
     for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
 }
 
-// One head (blockIdx.y) of one image (blockIdx.z): its rows of qkv (row i
-// at src + i * stride, the section at + section * D) and of the bias.
-struct Head {
-  const float* src;
+// One head (blockIdx.y) of one image (blockIdx.z): where its rows lie
+// (HeadRows) and its slices of the bias.
+template <bool SEP>
+struct Head : HeadRows<SEP> {
   const float *bq, *bk, *bv;  // null without a bias
-  long stride;
-  int D;
-  __device__ Head(const float* qkv, const float* bias, int N, int H, int HD)
-      : src(qkv + static_cast<long>(blockIdx.z) * N * 3 * H * HD + blockIdx.y * HD),
+  __device__ Head(const float* bias, int N, int H, int HD)
+      : HeadRows<SEP>(blockIdx.z, blockIdx.y, N, H, HD),
         bq(bias == nullptr ? nullptr : bias + blockIdx.y * HD),
         bk(bias == nullptr ? nullptr : bias + H * HD + blockIdx.y * HD),
-        bv(bias == nullptr ? nullptr : bias + 2 * H * HD + blockIdx.y * HD),
-        stride(3L * H * HD),
-        D(H * HD) {}
+        bv(bias == nullptr ? nullptr : bias + 2 * H * HD + blockIdx.y * HD) {}
 };
 
 template <int HD>
@@ -301,12 +307,14 @@ constexpr int bwd_smem_bytes() {
   return sizeof(float) * (4 * operand_floats<HD>() + 2 * kScoreFloats);
 }
 
-// grid (query tiles, H, B).  out (B, N, D); lse (B, H, N) or null.  At hd
-// 32 three blocks share an SM (48 KB each, 80 registers a thread), which
-// measured faster on an H100; at hd 64 two, with 128 registers.
-template <int HD>
+// grid (query tiles, H, B).  q, k, v and out as HeadRows<SEP> lays them out;
+// lse (B, H, N) or null.  At hd 32 three blocks share an SM (48 KB each, 80
+// registers a thread), which measured faster on an H100; at hd 64 two, with
+// 128 registers.
+template <int HD, bool SEP>
 __global__ void __launch_bounds__(kThreads, HD == 32 ? 3 : 2)
-qkv_attention_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+qkv_attention_f32_fwd_kernel(const float* __restrict__ q_base, const float* __restrict__ k_base,
+                             const float* __restrict__ v_base, const float* __restrict__ bias,
                              float* __restrict__ out, float* __restrict__ lse, int N, int H,
                              int n_valid, float scale) {
   constexpr int DC = HD / kGroups;
@@ -316,13 +324,16 @@ qkv_attention_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restr
   float* s_v = s_k + operand_floats<HD>();
   float* s_p = s_v + operand_floats<HD>();
   const int rg = threadIdx.x / kGroups, cg = threadIdx.x % kGroups;
-  const Head head(qkv, bias, N, H, HD);
-  const int q0 = blockIdx.x * kTile, D = head.D;
+  const Head<SEP> head(bias, N, H, HD);
+  const float* src_q = q_base + head.at;
+  const float* src_k = k_base + head.at;
+  const float* src_v = v_base + head.at;
+  const int q0 = blockIdx.x * kTile;
   const int rows = min(kTile, N - q0);
   const int tiles = (n_valid + kTile - 1) / kTile;
 
-  load_tile<HD>(s_q, head.src, head.stride, q0, N);
-  load_tile<HD>(s_k, head.src + D, head.stride, 0, N);
+  load_tile<HD>(s_q, src_q, head.ld, q0, N);
+  load_tile<HD>(s_k, src_k, head.ld, 0, N);
   cp_async_commit();
   cp_async_wait<0>();
   finish_tile<HD>(s_q, head.bq, scale, q0, N);
@@ -339,7 +350,7 @@ qkv_attention_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restr
   for (int t = 0; t < tiles; ++t) {
     const int k0 = t * kTile;
     const int count = min(kTile, n_valid - k0);  // keys of this tile with weight
-    load_tile<HD>(s_v, head.src + 2 * D, head.stride, k0, N);  // V(t) under the scores
+    load_tile<HD>(s_v, src_v, head.ld, k0, N);  // V(t) under the scores
     cp_async_commit();
     float s[kPer][kPer];
     scores<HD>(s, s_q, s_k, 1.0f, rg, cg, rows, count);
@@ -369,7 +380,7 @@ qkv_attention_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restr
     finish_tile<HD>(s_v, head.bv, 1.0f, k0, N);
     __syncthreads();  // P and V(t) visible; K(t) read
     if (t + 1 < tiles) {  // K(t + 1) under P.V
-      load_tile<HD>(s_k, head.src + D, head.stride, k0 + kTile, N);
+      load_tile<HD>(s_k, src_k, head.ld, k0 + kTile, N);
       cp_async_commit();
     }
     product<HD>(o, s_p, s_v, rg, cg, rows, count);
@@ -386,16 +397,16 @@ qkv_attention_f32_fwd_kernel(const float* __restrict__ qkv, const float* __restr
     float v[DC];
 #pragma unroll
     for (int c = 0; c < DC; ++c) v[c] = o[i][c] / sum;
-    store_cols<DC>(
-        out + (static_cast<long>(blockIdx.z) * N + q0 + row) * D + blockIdx.y * HD + cg * DC, v);
+    store_cols<DC>(out + head.o + static_cast<long>(q0 + row) * head.o_ld + cg * DC, v);
     if (lse != nullptr && cg == 0)
       lse[(static_cast<long>(blockIdx.z) * H + blockIdx.y) * N + q0 + row] = m[i] + logf(sum);
   }
 }
 
 // D = rowsum(dO * O) for every (image, head, row), rows (b H + h) N + i: a
-// row's 16 lanes take HD / 16 columns each, then the row's sum.
-template <int HD>
+// row's 16 lanes take HD / 16 columns each, then the row's sum.  out and dO
+// (B, N, D), or (B, H, N, hd) with SEP.
+template <int HD, bool SEP>
 __global__ void __launch_bounds__(kThreads)
 qkv_attention_f32_delta_kernel(const float* __restrict__ out, const float* __restrict__ dout,
                                float* __restrict__ delta, long rows, int N, int H) {
@@ -404,8 +415,11 @@ qkv_attention_f32_delta_kernel(const float* __restrict__ out, const float* __res
   const int lane = threadIdx.x % kGroups;
   float part = 0.0f;
   if (row < rows) {
-    const long bh = row / N;
-    const long at = ((bh / H) * N + row % N) * H * HD + (bh % H) * HD + lane * DC;
+    long at = row * HD + lane * DC;
+    if constexpr (!SEP) {
+      const long bh = row / N;
+      at = ((bh / H) * N + row % N) * H * HD + (bh % H) * HD + lane * DC;
+    }
     float o[DC], d[DC];
     load_cols<DC>(o, out + at);
     load_cols<DC>(d, dout + at);
@@ -416,13 +430,16 @@ qkv_attention_f32_delta_kernel(const float* __restrict__ out, const float* __res
   if (row < rows && lane == 0) delta[row] = part;
 }
 
-// The backward, grid (1, H, B): see the note above.  lse, delta (B, H, N);
-// part (B * tiles, 3D) or null.
-template <int HD>
+// The backward, grid (1, H, B): see the note above.  q, k, v, dout and dq,
+// dk, dv as HeadRows<SEP> lays them out; lse, delta (B, H, N); part (B * tiles,
+// 3D) or null.
+template <int HD, bool SEP>
 __global__ void __launch_bounds__(kThreads, 2)
-qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ bias,
+qkv_attention_f32_bwd_kernel(const float* __restrict__ q_base, const float* __restrict__ k_base,
+                             const float* __restrict__ v_base, const float* __restrict__ bias,
                              const float* __restrict__ lse, const float* __restrict__ delta,
-                             const float* __restrict__ dout, float* __restrict__ dqkv,
+                             const float* __restrict__ dout, float* __restrict__ dq_base,
+                             float* __restrict__ dk_base, float* __restrict__ dv_base,
                              float* __restrict__ part, int N, int H, int n_valid, float scale,
                              bool scaled_ds) {
   constexpr int DC = HD / kGroups, LD = HD + 4;
@@ -436,12 +453,17 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
   // rg, cg: rows rg + 16 i (keys) and columns cg + 16 j (queries) of the
   // score tiles, dK and dV's columns cg DC + c; in dS K, queries 4 rg + a.
   const int rg = threadIdx.x / kGroups, cg = threadIdx.x % kGroups;
-  const Head head(qkv, bias, N, H, HD);
-  const int D = head.D, h = blockIdx.y;
-  const long image_rows = static_cast<long>(blockIdx.z) * N;
+  const Head<SEP> head(bias, N, H, HD);
+  const int D = H * HD, h = blockIdx.y;
+  const long part_ld = 3L * D;  // a row of the dbias scratch
   const long stats = (static_cast<long>(blockIdx.z) * H + h) * N;
-  const float* d_src = dout + image_rows * D + h * HD;
-  float* rows_out = dqkv + image_rows * head.stride + h * HD;  // + row * stride + section * D
+  const float* src_q = q_base + head.at;
+  const float* src_k = k_base + head.at;
+  const float* src_v = v_base + head.at;
+  const float* d_src = dout + head.o;
+  float* g_q = dq_base + head.at;
+  float* g_k = dk_base + head.at;
+  float* g_v = dv_base + head.at;
   const int tiles = (N + kTile - 1) / kTile;
   const int key_tiles = (n_valid + kTile - 1) / kTile;  // those with a weighted key
   const long part_row = static_cast<long>(blockIdx.z) * tiles;
@@ -449,11 +471,11 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
   const float ds_scale = scaled_ds ? scale : 1.0f;
   const float out_scale = scaled_ds ? 1.0f : scale;
 
-  load_tile<HD>(s_k, head.src + D, head.stride, 0, N);
-  load_tile<HD>(s_v, head.src + 2 * D, head.stride, 0, N);
-  load_tile<HD>(s_q, head.src, head.stride, 0, N);
+  load_tile<HD>(s_k, src_k, head.ld, 0, N);
+  load_tile<HD>(s_v, src_v, head.ld, 0, N);
+  load_tile<HD>(s_q, src_q, head.ld, 0, N);
   cp_async_commit();
-  load_tile<HD>(s_do, d_src, D, 0, N);
+  load_tile<HD>(s_do, d_src, head.o_ld, 0, N);
   cp_async_commit();
   for (int kt = 0; kt < key_tiles; ++kt) {
     const int k0 = kt * kTile;
@@ -511,11 +533,11 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
       }
       __syncthreads();  // Q(u), K(kt), V(kt) and dS^T read
       if (u + 1 < tiles) {  // Q(u + 1) under dV
-        load_tile<HD>(s_q, head.src, head.stride, i0 + kTile, N);
+        load_tile<HD>(s_q, src_q, head.ld, i0 + kTile, N);
       } else if (kt + 1 < key_tiles) {  // the next key tile's K, V and Q(0)
-        load_tile<HD>(s_k, head.src + D, head.stride, k0 + kTile, N);
-        load_tile<HD>(s_v, head.src + 2 * D, head.stride, k0 + kTile, N);
-        load_tile<HD>(s_q, head.src, head.stride, 0, N);
+        load_tile<HD>(s_k, src_k, head.ld, k0 + kTile, N);
+        load_tile<HD>(s_v, src_v, head.ld, k0 + kTile, N);
+        load_tile<HD>(s_q, src_q, head.ld, 0, N);
       }
       cp_async_commit();
       product<HD>(dv, s_p, s_do, rg, cg, keys, count);
@@ -527,7 +549,7 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
       for (int a = 0; a < kPer; ++a) {
         const int row = kPer * rg + a;
         if (row >= count) continue;
-        float* dst = rows_out + (i0 + row) * head.stride + cg * DC;
+        float* dst = g_q + (i0 + row) * head.ld + cg * DC;
         float v[DC];
         if (kt > 0) load_cols<DC>(v, dst);
 #pragma unroll
@@ -551,13 +573,13 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
           float total = 0.0f;
 #pragma unroll
           for (int g = 0; g < kGroups; ++g) total += red[g * HD + c];
-          part[(part_row + u) * head.stride + h * HD + c] = total;
+          part[(part_row + u) * part_ld + h * HD + c] = total;
         }
       }
       if (u + 1 < tiles) {  // dO(u + 1) under the next scores
-        load_tile<HD>(s_do, d_src, D, i0 + kTile, N);
+        load_tile<HD>(s_do, d_src, head.o_ld, i0 + kTile, N);
       } else if (kt + 1 < key_tiles) {
-        load_tile<HD>(s_do, d_src, D, 0, N);
+        load_tile<HD>(s_do, d_src, head.o_ld, 0, N);
       }
       cp_async_commit();
     }
@@ -577,9 +599,9 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
         column[0][c] += k[c];
         column[1][c] += v[c];
       }
-      float* dst = rows_out + (k0 + row) * head.stride + cg * DC;
-      store_cols<DC>(dst + D, k);
-      store_cols<DC>(dst + 2 * D, v);
+      const long at = (k0 + row) * head.ld + cg * DC;
+      store_cols<DC>(g_k + at, k);
+      store_cols<DC>(g_v + at, v);
     }
     if (part != nullptr) {
       // (16, 2 HD); P^T was read before the last barrier, and the next key
@@ -595,7 +617,7 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
         float total = 0.0f;
 #pragma unroll
         for (int g = 0; g < kGroups; ++g) total += red[g * 2 * HD + c];
-        part[(part_row + kt) * head.stride + (1 + c / HD) * D + h * HD + c % HD] = total;
+        part[(part_row + kt) * part_ld + (1 + c / HD) * D + h * HD + c % HD] = total;
       }
     }
   }
@@ -604,51 +626,52 @@ qkv_attention_f32_bwd_kernel(const float* __restrict__ qkv, const float* __restr
     const int k0 = kt * kTile, pieces = 2 * HD / 4;
     for (int p = threadIdx.x; p < min(kTile, N - k0) * pieces; p += kThreads) {
       const int row = p / pieces, c = (p % pieces) * 4;
-      st4(rows_out + (k0 + row) * head.stride + (1 + c / HD) * D + c % HD,
+      st4((c < HD ? g_k : g_v) + (k0 + row) * head.ld + c % HD,
           make_float4(0.f, 0.f, 0.f, 0.f));
     }
     if (part != nullptr)
       for (int c = threadIdx.x; c < 2 * HD; c += kThreads)
-        part[(part_row + kt) * head.stride + (1 + c / HD) * D + h * HD + c % HD] = 0.0f;
+        part[(part_row + kt) * part_ld + (1 + c / HD) * D + h * HD + c % HD] = 0.0f;
   }
 }
 
-template <int HD>
-cudaError_t launch_fwd(const float* qkv, const float* bias, float* out, float* lse, int B, int N,
-                       int H, int n_valid, float scale, cudaStream_t stream) {
+template <int HD, bool SEP>
+cudaError_t launch_fwd(Sections<const float> in, const float* bias, float* out, float* lse,
+                       int B, int N, int H, int n_valid, float scale, cudaStream_t stream) {
   constexpr int bytes = fwd_smem_bytes<HD>();
   static bool configured[kMaxDevices] = {};
-  cudaError_t err = allow_dynamic_smem(qkv_attention_f32_fwd_kernel<HD>, bytes, configured);
+  cudaError_t err = allow_dynamic_smem(qkv_attention_f32_fwd_kernel<HD, SEP>, bytes, configured);
   if (err != cudaSuccess) return err;
-  qkv_attention_f32_fwd_kernel<HD><<<dim3((N + kTile - 1) / kTile, H, B), kThreads, bytes,
-                                     stream>>>(qkv, bias, out, lse, N, H, n_valid, scale);
+  qkv_attention_f32_fwd_kernel<HD, SEP><<<dim3((N + kTile - 1) / kTile, H, B), kThreads, bytes,
+                                          stream>>>(in.q, in.k, in.v, bias, out, lse, N, H,
+                                                    n_valid, scale);
   return cudaGetLastError();
 }
 
-template <int HD>
-cudaError_t launch_bwd(const float* qkv, const float* bias, const float* dout, float* out,
-                       float* lse, float* delta, float* dqkv, float* part, float* dbias, int B,
-                       int N, int H, int n_valid, float scale, bool scaled_ds,
+template <int HD, bool SEP>
+cudaError_t launch_bwd(Sections<const float> in, const float* bias, const float* dout, float* out,
+                       float* lse, float* delta, Sections<float> grads, float* part, float* dbias,
+                       int B, int N, int H, int n_valid, float scale, bool scaled_ds,
                        bool forward_first, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   if (forward_first) {
-    err = launch_fwd<HD>(qkv, bias, out, lse, B, N, H, n_valid, scale, stream);
+    err = launch_fwd<HD, SEP>(in, bias, out, lse, B, N, H, n_valid, scale, stream);
     if (err != cudaSuccess) return err;
   }
   constexpr int bytes = bwd_smem_bytes<HD>();
   static bool configured[kMaxDevices] = {};
-  err = allow_dynamic_smem(qkv_attention_f32_bwd_kernel<HD>, bytes, configured);
+  err = allow_dynamic_smem(qkv_attention_f32_bwd_kernel<HD, SEP>, bytes, configured);
   if (err != cudaSuccess) return err;
   const long rows = static_cast<long>(B) * H * N;
   constexpr int kRowsPerBlock = kThreads / kGroups;
-  qkv_attention_f32_delta_kernel<HD>
+  qkv_attention_f32_delta_kernel<HD, SEP>
       <<<static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock), kThreads, 0,
          stream>>>(out, dout, delta, rows, N, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  qkv_attention_f32_bwd_kernel<HD><<<dim3(1, H, B), kThreads, bytes, stream>>>(
-      qkv, bias, lse, delta, dout, dqkv, bias != nullptr ? part : nullptr, N, H, n_valid, scale,
-      scaled_ds);
+  qkv_attention_f32_bwd_kernel<HD, SEP><<<dim3(1, H, B), kThreads, bytes, stream>>>(
+      in.q, in.k, in.v, bias, lse, delta, dout, grads.q, grads.k, grads.v,
+      bias != nullptr ? part : nullptr, N, H, n_valid, scale, scaled_ds);
   err = cudaGetLastError();
   if (err != cudaSuccess || bias == nullptr) return err;
   return launch_column_sum<32>(part, B * ((N + kTile - 1) / kTile), 3 * H * HD, dbias, stream);
@@ -668,14 +691,16 @@ extern "C" int ssl4polyp_qkv_attention_fwd_f32(const void* qkv, const void* bias
                                                void* lse, int B, int N, int H, int head_dim,
                                                int n_valid, float scale, void* stream) {
   if (!shape_ok(B, N, H, n_valid)) return static_cast<int>(cudaErrorInvalidValue);
-  const float* q = static_cast<const float*>(qkv);
+  const auto in = sections_of(static_cast<const float*>(qkv), H, head_dim);
   const float* bb = static_cast<const float*>(bias);
   float* o = static_cast<float*>(out);
   float* l = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return static_cast<int>(launch_fwd<32>(q, bb, o, l, B, N, H, n_valid, scale, s));
-    case 64: return static_cast<int>(launch_fwd<64>(q, bb, o, l, B, N, H, n_valid, scale, s));
+    case 32:
+      return static_cast<int>(launch_fwd<32, false>(in, bb, o, l, B, N, H, n_valid, scale, s));
+    case 64:
+      return static_cast<int>(launch_fwd<64, false>(in, bb, o, l, B, N, H, n_valid, scale, s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -700,22 +725,76 @@ extern "C" int ssl4polyp_qkv_attention_bwd_f32(const void* qkv, const void* bias
   if (bias != nullptr && (dbias_part == nullptr || dbias == nullptr ||
                           part_rows != B * ((N + kTile - 1) / kTile)))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* q = static_cast<const float*>(qkv);
+  const auto in = sections_of(static_cast<const float*>(qkv), H, head_dim);
+  const auto grads = sections_of(static_cast<float*>(dqkv), H, head_dim);
   const float* bb = static_cast<const float*>(bias);
   const float* d = static_cast<const float*>(dout);
   float* o = static_cast<float*>(out);
   float* l = static_cast<float*>(lse);
   float* dl = static_cast<float*>(delta);
-  float* dq = static_cast<float*>(dqkv);
   float* part = static_cast<float*>(dbias_part);
   float* db = static_cast<float*>(dbias);
   const bool first = forward_first != 0, scaled = scaled_ds != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
-    case 32: return static_cast<int>(launch_bwd<32>(q, bb, d, o, l, dl, dq, part, db, B, N, H,
-                                                    n_valid, scale, scaled, first, s));
-    case 64: return static_cast<int>(launch_bwd<64>(q, bb, d, o, l, dl, dq, part, db, B, N, H,
-                                                    n_valid, scale, scaled, first, s));
+    case 32: return static_cast<int>(launch_bwd<32, false>(in, bb, d, o, l, dl, grads, part, db, B,
+                                                           N, H, n_valid, scale, scaled, first, s));
+    case 64: return static_cast<int>(launch_bwd<64, false>(in, bb, d, o, l, dl, grads, part, db, B,
+                                                           N, H, n_valid, scale, scaled, first, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Attention over separate q, k and v in fp32 (fused_attention): q, k, v
+// and out (B, H, N, hd) fp32; lse (B, H, N) fp32, each row's log-sum-exp for
+// the backward, or null.  hd 32 or 64, any N >= 1, every key weighted, no
+// bias; scale: the fp32 1/sqrt(hd).  Returns the launch's CUDA error.
+extern "C" int ssl4polyp_attention_fwd_f32(const void* q, const void* k, const void* v,
+                                           void* out, void* lse, int B, int H, int N,
+                                           int head_dim, float scale, void* stream) {
+  if (!shape_ok(B, N, H, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const Sections<const float> in = {static_cast<const float*>(q), static_cast<const float*>(k),
+                                    static_cast<const float*>(v)};
+  float* o = static_cast<float*>(out);
+  float* l = static_cast<float*>(lse);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32: return static_cast<int>(launch_fwd<32, true>(in, nullptr, o, l, B, N, H, N, scale, s));
+    case 64: return static_cast<int>(launch_fwd<64, true>(in, nullptr, o, l, B, N, H, N, scale, s));
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Its backward, with the scale inside dS (the scaled_ds mode): q, k, v, dout
+// (B, H, N, hd) fp32; out (B, H, N, hd) and lse (B, H, N) fp32, the forward's
+// output and log-sum-exp, or with forward_first scratch that the forward
+// kernel fills first; delta (B, H, N) fp32 scratch; dq, dk, dv (B, H, N, hd)
+// fp32.  hd 32 or 64; scale: the fp32 1/sqrt(hd).  Returns the first failing
+// launch's CUDA error.
+extern "C" int ssl4polyp_attention_bwd_f32(const void* q, const void* k, const void* v,
+                                           const void* dout, void* out, void* lse, void* delta,
+                                           void* dq, void* dk, void* dv, int B, int H, int N,
+                                           int head_dim, float scale, int forward_first,
+                                           void* stream) {
+  if (!shape_ok(B, N, H, N) || out == nullptr || lse == nullptr || delta == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sections<const float> in = {static_cast<const float*>(q), static_cast<const float*>(k),
+                                    static_cast<const float*>(v)};
+  const Sections<float> grads = {static_cast<float*>(dq), static_cast<float*>(dk),
+                                 static_cast<float*>(dv)};
+  const float* d = static_cast<const float*>(dout);
+  float* o = static_cast<float*>(out);
+  float* l = static_cast<float*>(lse);
+  float* dl = static_cast<float*>(delta);
+  const bool first = forward_first != 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32: return static_cast<int>(launch_bwd<32, true>(in, nullptr, d, o, l, dl, grads, nullptr,
+                                                          nullptr, B, N, H, N, scale, true, first,
+                                                          s));
+    case 64: return static_cast<int>(launch_bwd<64, true>(in, nullptr, d, o, l, dl, grads, nullptr,
+                                                          nullptr, B, N, H, N, scale, true, first,
+                                                          s));
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

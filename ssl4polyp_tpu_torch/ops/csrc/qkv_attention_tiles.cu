@@ -9,6 +9,17 @@
 // about 170 KB of shared memory at hd 64.  qkv_attention.cu's C entry points
 // send N > 256 here; N <= 256 never comes here.
 //
+// The same kernels also replace ssl4polyp_tpu/ops/attention.py::
+// _attention_kernel and _attention_bwd_kernel (fused_attention) in bf16 past
+// 256 tokens, where attention.cu's kernels stop: attention over separate (B,
+// H, N, hd) q, k and v, every key weighted, no bias.  The layout is a
+// template parameter (SEP; HeadRows in common.cuh), and with it go that
+// kernel's roundings, which differ from rows 1-2's at 2, 3 and 5 below: q
+// enters the scores as it is and the fp32 scores are multiplied by the fp32
+// 1/sqrt(hd) (no bf16 fold), always softmax_f32; the backward keeps W and dS
+// = W (dW - tmp) scale in fp32 (kBwdExact), each carried into the tensor
+// cores as two bf16 terms, and rounds each gradient once.
+//
 // The TPU kernels' roundings, which these kernels keep (the plain versions,
 // ops/qkv_attention.py::fused_qkv_attention_reference and
 // fused_qkv_attention_backward_reference, spell them out):
@@ -87,7 +98,11 @@
 //        column_sum_kernel adds the B rows in order: dbias.
 //   Shared memory: forward 5 tiles of 64 rows at a stride of hd + 8 (46 KB at
 //   hd 64), statistics pass 6, gradient pass 10 tiles, dS^T and the
-//   statistics (106 KB at hd 64, two blocks an SM).
+//   statistics (106 KB at hd 64, two blocks an SM).  In kBwdExact the
+//   gradient pass has no Qs tiles (its scores take q as it is) and no dbias
+//   partials, and holds dS^T's second term: 8 tiles, two dS^T and the
+//   statistics (94 KB at hd 64, two blocks an SM); its dV, dK and dQ take
+//   eight products a pair of tiles where the other modes take five.
 #include "attention_core.cuh"
 #include "qkv_attention_tiles.cuh"
 
@@ -106,10 +121,17 @@ constexpr size_t fwd_smem_bytes() {
   return static_cast<size_t>((STATS ? 6 : 5) * tile_elems<HD>()) * sizeof(bf16);
 }
 
-template <int HD>
+// The gradient pass's shared memory: 10 tiles (K, V, Q, Qs and dO, two
+// buffers each), dS^T, the statistics and the dbias partials; in kBwdExact
+// (fused_attention's: no Qs, no bias) 8 tiles, dS^T's two terms and the
+// statistics.
+template <int HD, int MODE>
 constexpr size_t bwd_smem_bytes() {
-  return static_cast<size_t>(10 * tile_elems<HD>() + kRows * kLdS) * sizeof(bf16) +
-         2 * kRows * sizeof(float4) + static_cast<size_t>(kTileWarps) * 3 * HD * sizeof(float);
+  constexpr bool exact = MODE == kBwdExact;
+  return static_cast<size_t>((exact ? 8 : 10) * tile_elems<HD>() + (exact ? 2 : 1) * kRows * kLdS) *
+             sizeof(bf16) +
+         2 * kRows * sizeof(float4) +
+         (exact ? 0 : static_cast<size_t>(kTileWarps) * 3 * HD * sizeof(float));
 }
 
 // The scores of a warp's 16 rows (A fragments `a`) against the 64 rows of
@@ -135,31 +157,39 @@ __device__ __forceinline__ void tile_scores(float (&s)[8][4], const uint32_t (&a
 }
 
 // Keys at or past n_valid to -inf (k0: the tile's first key), then the
-// rounding to bf16 when softmax_f32 is 0.
+// rounding to bf16 when softmax_f32 is 0.  With SEP (fused_attention's
+// roundings) the fp32 scores are first multiplied by `scale`, the fp32
+// 1/sqrt(hd), and softmax_f32 is 1.
+template <bool SEP>
 __device__ __forceinline__ void mask_scores(float (&s)[8][4], int k0, int n_valid,
-                                            int softmax_f32, int t) {
+                                            int softmax_f32, float scale, int t) {
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       float x = k0 + j * 8 + 2 * t + (e & 1) >= n_valid ? -INFINITY : s[j][e];
+      if constexpr (SEP) x *= scale;
       s[j][e] = softmax_f32 ? x : round_bf16(x);
     }
 }
 
-// grid (query tiles, H, B), kTileThreads threads.  STATS false: the forward,
-// out (B, N, D).  STATS true: the backward's statistics pass, reading dout
-// (B, N, D) and writing stats (B, H, N): (max * log2(e), 1/sum, tmp, 0).
-template <int HD, bool STATS>
+// grid (query tiles, H, B), kTileThreads threads; q, k, v, out and dout as
+// HeadRows<SEP> lays them out.  STATS false: the forward, writing out.
+// STATS true: the backward's statistics pass, reading dout and writing
+// stats (B, H, N): (max * log2(e), 1/sum, tmp, 0).  `scale`: scale_c, which
+// folds into q (roundings 1-3 above), or with SEP the fp32 1/sqrt(hd) on the
+// fp32 scores (fused_attention's; no bias).
+template <int HD, bool STATS, bool SEP>
 __global__ void __launch_bounds__(kTileThreads, 4)
-qkv_attention_tiles_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
+qkv_attention_tiles_kernel(const bf16* __restrict__ q_base, const bf16* __restrict__ k_base,
+                           const bf16* __restrict__ v_base, const bf16* __restrict__ bias,
                            const bf16* __restrict__ dout, bf16* __restrict__ out,
-                           float4* __restrict__ stats, int N, int H, int n_valid, float scale_c,
+                           float4* __restrict__ stats, int N, int H, int n_valid, float scale,
                            int softmax_f32) {
   constexpr int kLd = HD + 8;
   constexpr int kTile = tile_elems<HD>();
   extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);  // biased and scale-folded
+  bf16* s_q = reinterpret_cast<bf16*>(smem);  // biased and scale-folded (without SEP)
   bf16* s_do = s_q + kTile;                   // the statistics pass only
   bf16* s_k = s_q + (STATS ? 2 : 1) * kTile;  // two buffers
   bf16* s_v = s_k + 2 * kTile;                // two buffers
@@ -172,8 +202,11 @@ qkv_attention_tiles_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int D = H * HD;
-  const long ld = 3L * D;
-  const bf16* base = qkv + static_cast<long>(b) * N * ld + h * HD;
+  const HeadRows<SEP> rows(b, h, N, H, HD);
+  const long ld = rows.ld;
+  const bf16* src_q = q_base + rows.at;
+  const bf16* src_k = k_base + rows.at;
+  const bf16* src_v = v_base + rows.at;
   const bf16* bias_q = bias == nullptr ? nullptr : bias + h * HD;
   const bf16* bias_k = bias == nullptr ? nullptr : bias + D + h * HD;
   const bf16* bias_v = bias == nullptr ? nullptr : bias + 2 * D + h * HD;
@@ -186,12 +219,12 @@ qkv_attention_tiles_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
   auto issue = [&](int j) {
     const int second = j >= key_tiles;
     const int k0 = (second ? j - key_tiles : j) * kRows;
-    stage_rows_async<HD>(s_k + (j & 1) * kTile, kRows, base + D, k0, N, ld);
-    if (second) stage_rows_async<HD>(s_v + (j & 1) * kTile, kRows, base + 2 * D, k0, N, ld);
+    stage_rows_async<HD>(s_k + (j & 1) * kTile, kRows, src_k, k0, N, ld);
+    if (second) stage_rows_async<HD>(s_v + (j & 1) * kTile, kRows, src_v, k0, N, ld);
   };
 
-  stage_rows_async<HD>(s_q, kRows, base, q0, N, ld);
-  if (STATS) stage_rows_async<HD>(s_do, kRows, dout + static_cast<long>(b) * N * D + h * HD, q0, N, D);
+  stage_rows_async<HD>(s_q, kRows, src_q, q0, N, ld);
+  if (STATS) stage_rows_async<HD>(s_do, kRows, dout + rows.o, q0, N, rows.o_ld);
   issue(0);
   cp_async_commit();
 
@@ -214,7 +247,7 @@ qkv_attention_tiles_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     const bf16* k_tile = s_k + (j & 1) * kTile;
     const bf16* v_tile = s_v + (j & 1) * kTile;
     if (j == 0)
-      finish_rows_in_place<HD>(s_q, kRows, q0, N, bias_q, scale_c, true, threadIdx.x, blockDim.x);
+      finish_rows_in_place<HD>(s_q, kRows, q0, N, bias_q, scale, !SEP, threadIdx.x, blockDim.x);
     finish_rows_in_place<HD>(s_k + (j & 1) * kTile, kRows, k0, N, bias_k, 1.0f, false, threadIdx.x,
                              blockDim.x);
     if (second)
@@ -237,7 +270,7 @@ qkv_attention_tiles_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
     if (has) {
       float s[8][4];
       tile_scores<HD>(s, qa, k_tile, lane);
-      mask_scores(s, k0, n_valid, softmax_f32, t);
+      mask_scores<SEP>(s, k0, n_valid, softmax_f32, scale, t);
       if (!second) {  // the running max and sum
         float tile0 = -INFINITY, tile1 = -INFINITY;
 #pragma unroll
@@ -329,8 +362,8 @@ qkv_attention_tiles_kernel(const bf16* __restrict__ qkv, const bf16* __restrict_
       lo[n] = pack_floats(o[n][0], o[n][1]);
       hi[n] = pack_floats(o[n][2], o[n][3]);
     }
-    bf16* out_a = out + (static_cast<long>(b) * N + row_a) * D + h * HD;
-    store_tile_rows<HD>(out_a, out_a + 8L * D, lo, hi, row_a < N, row_b < N, t);
+    bf16* out_a = out + rows.o + row_a * rows.o_ld;
+    store_tile_rows<HD>(out_a, out_a + 8 * rows.o_ld, lo, hi, row_a < N, row_b < N, t);
   }
 }
 
@@ -361,16 +394,35 @@ __device__ __forceinline__ void finish_q_tile(bf16* q, bf16* qs, int row0, int N
   }
 }
 
+// A warp's A fragment of dS^T (rows g, g + 8 and columns 2t, 2t + 8 of a
+// 16-row slice) into shared memory at p (row g, column 2t; row stride kLdS).
+__device__ __forceinline__ void store_ds_fragment(bf16* p, const uint32_t (&a)[4]) {
+  *reinterpret_cast<uint32_t*>(p) = a[0];
+  *reinterpret_cast<uint32_t*>(p + 8 * kLdS) = a[1];
+  *reinterpret_cast<uint32_t*>(p + 8) = a[2];
+  *reinterpret_cast<uint32_t*>(p + 8 * kLdS + 8) = a[3];
+}
+
 // grid (H, B), kTileThreads threads: the gradient pass (see the note above).
-// stats (B, H, N) from the statistics pass; dq_acc (B, H, N, hd) fp32
-// scratch; dbias_part (B, 3D) or null.
-template <int HD, int MODE>
+// q, k, v, dout and dq, dk, dv as HeadRows<SEP> lays them out; stats (B, H,
+// N) from the statistics pass; dq_acc (B, H, N, hd) fp32 scratch;
+// dbias_part (B, 3D) or null.  The separate layout serves fused_attention
+// alone, whose roundings are kBwdExact's: S^T from q as it is, times the
+// fp32 scale; W and dS = W (dW - tmp) scale kept in fp32 and carried into
+// the tensor cores as two bf16 terms, hi = round(x) and lo = round(x - hi)
+// (dV = W_hi^T dO + W_lo^T dO, dK = dS_hi^T Q + dS_lo^T Q, dQ = dS_hi K +
+// dS_lo K); no scale afterwards.
+template <int HD, int MODE, bool SEP>
 __global__ void __launch_bounds__(kTileThreads, 2)
-qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bias,
+qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ q_base, const bf16* __restrict__ k_base,
+                               const bf16* __restrict__ v_base, const bf16* __restrict__ bias,
                                const bf16* __restrict__ dout, const float4* __restrict__ stats,
-                               bf16* __restrict__ dqkv, float* __restrict__ dq_acc,
+                               bf16* __restrict__ dq_base, bf16* __restrict__ dk_base,
+                               bf16* __restrict__ dv_base, float* __restrict__ dq_acc,
                                float* __restrict__ dbias_part, int N, int H, int n_valid,
                                float scale_c, float scale, int softmax_f32) {
+  constexpr bool kExact = MODE == kBwdExact;
+  static_assert(kExact == SEP, "the separate layout is fused_attention's, and so is kBwdExact");
   constexpr int kLd = HD + 8;
   constexpr int kTile = tile_elems<HD>();
   constexpr int kNT = HD / 8;
@@ -378,11 +430,12 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
   bf16* s_k = reinterpret_cast<bf16*>(smem);  // two buffers each, by key tile
   bf16* s_v = s_k + 2 * kTile;
   bf16* s_q = s_v + 2 * kTile;                // two buffers each, by stage: q + bias,
-  bf16* s_qs = s_q + 2 * kTile;               // its scale fold,
-  bf16* s_do = s_qs + 2 * kTile;              // dO
+  bf16* s_qs = s_q + 2 * kTile;               // its scale fold (none in kBwdExact),
+  bf16* s_do = s_qs + (kExact ? 0 : 2) * kTile;  // dO
   bf16* s_ds = s_do + 2 * kTile;              // dS^T: [key][query]
-  float4* s_stat = reinterpret_cast<float4*>(s_ds + kRows * kLdS);  // [2][kRows]
-  float* s_db = reinterpret_cast<float*>(s_stat + 2 * kRows);       // [warps][3 * HD]
+  bf16* s_ds_lo = s_ds + kRows * kLdS;        // kBwdExact: dS^T's second term
+  float4* s_stat = reinterpret_cast<float4*>(s_ds_lo + (kExact ? kRows * kLdS : 0));  // [2][kRows]
+  float* s_db = reinterpret_cast<float*>(s_stat + 2 * kRows);  // [warps][3 * HD], with a bias
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -391,12 +444,17 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int D = H * HD;
-  const long ld = 3L * D;
-  const bf16* base = qkv + static_cast<long>(b) * N * ld + h * HD;
-  const bf16* d_src = dout + static_cast<long>(b) * N * D + h * HD;
+  const HeadRows<SEP> rows(b, h, N, H, HD);
+  const long ld = rows.ld;
+  const bf16* src_q = q_base + rows.at;
+  const bf16* src_k = k_base + rows.at;
+  const bf16* src_v = v_base + rows.at;
+  const bf16* d_src = dout + rows.o;
   const float4* head_stats = stats + (static_cast<long>(b) * H + h) * N;
   float* head_dq = dq_acc + (static_cast<long>(b) * H + h) * N * HD;
-  bf16* out = dqkv + static_cast<long>(b) * N * ld + h * HD;
+  bf16* g_q = dq_base + rows.at;
+  bf16* g_k = dk_base + rows.at;
+  bf16* g_v = dv_base + rows.at;
   const bf16* bias_q = bias == nullptr ? nullptr : bias + h * HD;
   const bf16* bias_k = bias == nullptr ? nullptr : bias + D + h * HD;
   const bf16* bias_v = bias == nullptr ? nullptr : bias + 2 * D + h * HD;
@@ -410,11 +468,11 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
   auto issue = [&](int j) {
     const int kt = j / q_tiles, u = j % q_tiles;
     if (u == 0) {
-      stage_rows_async<HD>(s_k + (kt & 1) * kTile, kRows, base + D, kt * kRows, N, ld);
-      stage_rows_async<HD>(s_v + (kt & 1) * kTile, kRows, base + 2 * D, kt * kRows, N, ld);
+      stage_rows_async<HD>(s_k + (kt & 1) * kTile, kRows, src_k, kt * kRows, N, ld);
+      stage_rows_async<HD>(s_v + (kt & 1) * kTile, kRows, src_v, kt * kRows, N, ld);
     }
-    stage_rows_async<HD>(s_q + (j & 1) * kTile, kRows, base, u * kRows, N, ld);
-    stage_rows_async<HD>(s_do + (j & 1) * kTile, kRows, d_src, u * kRows, N, D);
+    stage_rows_async<HD>(s_q + (j & 1) * kTile, kRows, src_q, u * kRows, N, ld);
+    stage_rows_async<HD>(s_do + (j & 1) * kTile, kRows, d_src, u * kRows, N, rows.o_ld);
     if (threadIdx.x < kRows) {
       const int row = u * kRows + threadIdx.x;
       const bool ok = row < N;
@@ -431,7 +489,7 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
   // (t_off), and dS^T read as dS's A fragment (ds_off).
   const int b_off = ((lane / 16) * 8 + lane % 8) * kLd + ((lane / 8) % 2) * 8;
   const int t_off = (((lane / 8) % 2) * 8 + lane % 8) * kLd + (lane / 16) * 8;
-  const bf16* ds_lane = s_ds + ((lane / 16) * 8 + lane % 8) * kLdS + warp * 16 + ((lane / 8) % 2) * 8;
+  const int ds_off = ((lane / 16) * 8 + lane % 8) * kLdS + warp * 16 + ((lane / 8) % 2) * 8;
   uint32_t ka[HD / 16][4], va[HD / 16][4];
   float dk[kNT][4], dv[kNT][4];
 #pragma unroll
@@ -449,19 +507,19 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
     bf16* k_tile = s_k + (kt & 1) * kTile;
     bf16* v_tile = s_v + (kt & 1) * kTile;
     bf16* q_tile = s_q + (j & 1) * kTile;
-    bf16* qs_tile = s_qs + (j & 1) * kTile;
+    bf16* qs_tile = kExact ? q_tile : s_qs + (j & 1) * kTile;  // S^T's operand
     const bf16* do_tile = s_do + (j & 1) * kTile;
     const float4* stat = s_stat + (j & 1) * kRows;
     if (u == 0) {
       finish_rows_in_place<HD>(k_tile, kRows, k0, N, bias_k, 1.0f, false, threadIdx.x, blockDim.x);
       finish_rows_in_place<HD>(v_tile, kRows, k0, N, bias_v, 1.0f, false, threadIdx.x, blockDim.x);
     }
-    finish_q_tile<HD>(q_tile, qs_tile, i0, N, bias_q, scale_c);
+    if (!kExact) finish_q_tile<HD>(q_tile, qs_tile, i0, N, bias_q, scale_c);
     __syncthreads();  // stage j's tiles are finished
 
     // Keys 16 warp ..: dV, dK over this query tile, and dS^T.
     const int kw = k0 + warp * 16;
-    bf16* ds_row = s_ds + (warp * 16 + g) * kLdS + 2 * t;  // row g; row g + 8 is 8 kLdS on
+    const int ds_row = (warp * 16 + g) * kLdS + 2 * t;  // row g; row g + 8 is 8 kLdS on
     if (kw < n_valid) {
       if (u == 0) {
         load_q_fragments<HD>(ka, k_tile, warp * 16, lane);
@@ -493,40 +551,45 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
           for (int e = 0; e < 4; ++e) {
             const float4& row = e & 1 ? sb : sa;  // (max * log2(e), 1/sum, tmp)
             float x = (e < 2 ? masked_a : masked_b) ? -INFINITY : st[jn][e];
-            if (!softmax_f32) x = round_bf16(x);
+            if (kExact) x *= scale;  // fused_attention: the fp32 scores times the scale
+            else if (!softmax_f32) x = round_bf16(x);
             const float w = exp2_approx(fmaf(x, kLog2e, -row.x)) * row.y;
             wt[jn * 4 + e] = w;
             dst[jn * 4 + e] = w * (dwt[jn][e] - row.z) * ds_scale;
           }
         }
-        uint32_t wa[4], dsa[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          wa[i] = pack_floats(wt[2 * i], wt[2 * i + 1]);
-          dsa[i] = pack_floats(dst[2 * i], dst[2 * i + 1]);
-        }
+        // W and dS rounded to bf16 (hi); in kBwdExact also what that dropped
+        // (lo), a second term of each product.
+        uint32_t wa[4], dsa[4], wa_lo[4], dsa_lo[4];
+        pack_a<kExact>(wa, wa_lo, wt);
+        pack_a<kExact>(dsa, dsa_lo, dst);
 #pragma unroll
         for (int n = 0; n < kNT; n += 2) {
           uint32_t ob[4], qb[4];
           ldmatrix_x4_trans(ob, do_tile + t_off + c * 16 * kLd + n * 8);
           mma_16816(dv[n], wa, ob[0], ob[1]);
           mma_16816(dv[n + 1], wa, ob[2], ob[3]);
+          if (kExact) {
+            mma_16816(dv[n], wa_lo, ob[0], ob[1]);
+            mma_16816(dv[n + 1], wa_lo, ob[2], ob[3]);
+          }
           ldmatrix_x4_trans(qb, q_tile + t_off + c * 16 * kLd + n * 8);
           mma_16816(dk[n], dsa, qb[0], qb[1]);
           mma_16816(dk[n + 1], dsa, qb[2], qb[3]);
+          if (kExact) {
+            mma_16816(dk[n], dsa_lo, qb[0], qb[1]);
+            mma_16816(dk[n + 1], dsa_lo, qb[2], qb[3]);
+          }
         }
-        *reinterpret_cast<uint32_t*>(ds_row + c * 16) = dsa[0];
-        *reinterpret_cast<uint32_t*>(ds_row + 8 * kLdS + c * 16) = dsa[1];
-        *reinterpret_cast<uint32_t*>(ds_row + c * 16 + 8) = dsa[2];
-        *reinterpret_cast<uint32_t*>(ds_row + 8 * kLdS + c * 16 + 8) = dsa[3];
+        store_ds_fragment(s_ds + ds_row + c * 16, dsa);
+        if (kExact) store_ds_fragment(s_ds_lo + ds_row + c * 16, dsa_lo);
       }
     } else {  // keys wholly past n_valid: dS = 0
+      const uint32_t zeros[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
-        *reinterpret_cast<uint32_t*>(ds_row + c * 16) = 0u;
-        *reinterpret_cast<uint32_t*>(ds_row + 8 * kLdS + c * 16) = 0u;
-        *reinterpret_cast<uint32_t*>(ds_row + c * 16 + 8) = 0u;
-        *reinterpret_cast<uint32_t*>(ds_row + 8 * kLdS + c * 16 + 8) = 0u;
+        store_ds_fragment(s_ds + ds_row + c * 16, zeros);
+        if (kExact) store_ds_fragment(s_ds_lo + ds_row + c * 16, zeros);
       }
     }
     __syncthreads();  // dS^T is in
@@ -539,14 +602,19 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
       for (int n = 0; n < kNT; ++n) dq[n][0] = dq[n][1] = dq[n][2] = dq[n][3] = 0.0f;
 #pragma unroll
       for (int c = 0; c < 4; ++c) {  // keys k0 + 16c ..
-        uint32_t dsa[4];
-        ldmatrix_x4_trans(dsa, ds_lane + c * 16 * kLdS);
+        uint32_t dsa[4], dsa_lo[4];
+        ldmatrix_x4_trans(dsa, s_ds + ds_off + c * 16 * kLdS);
+        if (kExact) ldmatrix_x4_trans(dsa_lo, s_ds_lo + ds_off + c * 16 * kLdS);
 #pragma unroll
         for (int n = 0; n < kNT; n += 2) {
           uint32_t kb[4];
           ldmatrix_x4_trans(kb, k_tile + t_off + c * 16 * kLd + n * 8);
           mma_16816(dq[n], dsa, kb[0], kb[1]);
           mma_16816(dq[n + 1], dsa, kb[2], kb[3]);
+          if (kExact) {
+            mma_16816(dq[n], dsa_lo, kb[0], kb[1]);
+            mma_16816(dq[n + 1], dsa_lo, kb[2], kb[3]);
+          }
         }
       }
       const int row_a = qw + g;
@@ -569,7 +637,7 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
         }
       }
       if (kt + 1 == key_tiles) {
-        store_gradient_tile<HD>(dq, out_scale, out, ld, qw, N, db, g, t);
+        store_gradient_tile<HD>(dq, out_scale, g_q, ld, qw, N, db, g, t);
       } else {
 #pragma unroll
         for (int n = 0; n < kNT; ++n) {
@@ -579,9 +647,9 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
       }
     }
     if (u + 1 == q_tiles) {  // key tile kt is done: dK and dV
-      store_gradient_tile<HD>(dk, out_scale, out + D, ld, k0 + warp * 16, N,
+      store_gradient_tile<HD>(dk, out_scale, g_k, ld, k0 + warp * 16, N,
                               db == nullptr ? nullptr : db + HD, g, t);
-      store_gradient_tile<HD>(dv, 1.0f, out + 2 * D, ld, k0 + warp * 16, N,
+      store_gradient_tile<HD>(dv, 1.0f, g_v, ld, k0 + warp * 16, N,
                               db == nullptr ? nullptr : db + 2 * HD, g, t);
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
@@ -596,7 +664,7 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
   for (int i = threadIdx.x; i < (N - key_tiles * kRows) * 2 * kChunks; i += blockDim.x) {
     const int r = key_tiles * kRows + i / (2 * kChunks);
     const int c = i % (2 * kChunks);
-    *reinterpret_cast<uint4*>(out + r * ld + (1 + c / kChunks) * D + (c % kChunks) * 8) =
+    *reinterpret_cast<uint4*>((c < kChunks ? g_k : g_v) + r * ld + (c % kChunks) * 8) =
         make_uint4(0u, 0u, 0u, 0u);
   }
   if (dbias_part == nullptr) return;
@@ -604,35 +672,47 @@ qkv_attention_tiles_bwd_kernel(const bf16* __restrict__ qkv, const bf16* __restr
   store_dbias_partial<HD, kTileWarps>(s_db, dbias_part, b, h, D);
 }
 
-template <int HD, bool STATS>
-cudaError_t launch_tiles(const bf16* qkv, const bf16* bias, const bf16* dout, bf16* out,
-                         float4* stats, int B, int N, int H, int n_valid, float scale_c,
+template <int HD, bool STATS, bool SEP>
+cudaError_t launch_tiles(Sections<const bf16> in, const bf16* bias, const bf16* dout, bf16* out,
+                         float4* stats, int B, int N, int H, int n_valid, float scale,
                          int softmax_f32, cudaStream_t stream) {
   constexpr size_t smem = fwd_smem_bytes<HD, STATS>();
   static bool configured[kMaxDevices] = {};
-  const cudaError_t err = allow_dynamic_smem(qkv_attention_tiles_kernel<HD, STATS>, smem, configured);
+  const cudaError_t err =
+      allow_dynamic_smem(qkv_attention_tiles_kernel<HD, STATS, SEP>, smem, configured);
   if (err != cudaSuccess) return err;
-  qkv_attention_tiles_kernel<HD, STATS><<<dim3((N + kRows - 1) / kRows, H, B), kTileThreads, smem,
-                                          stream>>>(qkv, bias, dout, out, stats, N, H, n_valid,
-                                                    scale_c, softmax_f32);
+  qkv_attention_tiles_kernel<HD, STATS, SEP>
+      <<<dim3((N + kRows - 1) / kRows, H, B), kTileThreads, smem, stream>>>(
+          in.q, in.k, in.v, bias, dout, out, stats, N, H, n_valid, scale, softmax_f32);
   return cudaGetLastError();
 }
 
-template <int HD, int MODE>
-cudaError_t launch_tiles_bwd(const bf16* qkv, const bf16* bias, const bf16* dout, bf16* dqkv,
-                             float4* stats, float* dq_acc, float* dbias_part, float* dbias, int B,
-                             int N, int H, int n_valid, float scale_c, float scale,
-                             int softmax_f32, cudaStream_t stream) {
-  cudaError_t err = launch_tiles<HD, true>(qkv, bias, dout, nullptr, stats, B, N, H, n_valid,
-                                           scale_c, softmax_f32, stream);
-  if (err != cudaSuccess) return err;
-  constexpr size_t smem = bwd_smem_bytes<HD>();
+// The gradient pass's kernel, its shared memory allowed.
+template <int HD, int MODE, bool SEP>
+cudaError_t configure_tiles_bwd() {
   static bool configured[kMaxDevices] = {};
-  err = allow_dynamic_smem(qkv_attention_tiles_bwd_kernel<HD, MODE>, smem, configured);
+  return allow_dynamic_smem(qkv_attention_tiles_bwd_kernel<HD, MODE, SEP>,
+                            bwd_smem_bytes<HD, MODE>(), configured);
+}
+
+// The statistics pass, the gradient pass and (with a bias and dbias) the
+// column sum.  In kBwdExact (SEP) scale_c is unused and the statistics pass
+// takes the fp32 scale.
+template <int HD, int MODE, bool SEP>
+cudaError_t launch_tiles_bwd(Sections<const bf16> in, const bf16* bias, const bf16* dout,
+                             Sections<bf16> grads, float4* stats, float* dq_acc, float* dbias_part,
+                             float* dbias, int B, int N, int H, int n_valid, float scale_c,
+                             float scale, int softmax_f32, cudaStream_t stream) {
+  cudaError_t err = launch_tiles<HD, true, SEP>(in, bias, dout, nullptr, stats, B, N, H, n_valid,
+                                                SEP ? scale : scale_c, softmax_f32, stream);
+  if (err != cudaSuccess) return err;
+  err = configure_tiles_bwd<HD, MODE, SEP>();
   if (err != cudaSuccess) return err;
   float* part = bias == nullptr ? nullptr : dbias_part;
-  qkv_attention_tiles_bwd_kernel<HD, MODE><<<dim3(H, B), kTileThreads, smem, stream>>>(
-      qkv, bias, dout, stats, dqkv, dq_acc, part, N, H, n_valid, scale_c, scale, softmax_f32);
+  qkv_attention_tiles_bwd_kernel<HD, MODE, SEP>
+      <<<dim3(H, B), kTileThreads, bwd_smem_bytes<HD, MODE>(), stream>>>(
+          in.q, in.k, in.v, bias, dout, stats, grads.q, grads.k, grads.v, dq_acc, part, N, H,
+          n_valid, scale_c, scale, softmax_f32);
   err = cudaGetLastError();
   if (err != cudaSuccess || bias == nullptr || dbias == nullptr) return err;
   return launch_column_sum(dbias_part, B, 3 * H * HD, dbias, stream);
@@ -653,13 +733,14 @@ extern "C" int ssl4polyp_qkv_attention_tiles_fwd(const void* qkv, const void* bi
                                                  int B, int N, int H, int head_dim, int n_valid,
                                                  float scale_c, int softmax_f32, void* stream) {
   if (!tiles_shape_ok(B, N, H, n_valid)) return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* q = static_cast<const bf16*>(qkv);
+  const auto in = sections_of(static_cast<const bf16*>(qkv), H, head_dim);
   const bf16* bb = static_cast<const bf16*>(bias);
   bf16* o = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define SSL4POLYP_TILES_FWD(HD) \
-  launch_tiles<HD, false>(q, bb, nullptr, o, nullptr, B, N, H, n_valid, scale_c, softmax_f32, s)
+#define SSL4POLYP_TILES_FWD(HD)                                                               \
+  launch_tiles<HD, false, false>(in, bb, nullptr, o, nullptr, B, N, H, n_valid, scale_c,      \
+                                 softmax_f32, s)
   switch (head_dim) {
     case 16: err = SSL4POLYP_TILES_FWD(16); break;
     case 32: err = SSL4POLYP_TILES_FWD(32); break;
@@ -687,19 +768,19 @@ extern "C" int ssl4polyp_qkv_attention_tiles_bwd(const void* qkv, const void* bi
   if (!tiles_shape_ok(B, N, H, n_valid) || stats == nullptr || dq_acc == nullptr ||
       (bias != nullptr && dbias_part == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const bf16* q = static_cast<const bf16*>(qkv);
+  const auto in = sections_of(static_cast<const bf16*>(qkv), H, head_dim);
+  const auto grads = sections_of(static_cast<bf16*>(dqkv), H, head_dim);
   const bf16* bb = static_cast<const bf16*>(bias);
   const bf16* d = static_cast<const bf16*>(dout);
-  bf16* dq = static_cast<bf16*>(dqkv);
   float4* st = static_cast<float4*>(stats);
   float* acc = static_cast<float*>(dq_acc);
   float* part = static_cast<float*>(dbias_part);
   float* db = static_cast<float*>(dbias);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-#define SSL4POLYP_TILES_BWD(HD, MODE)                                                            \
-  launch_tiles_bwd<HD, MODE>(q, bb, d, dq, st, acc, part, db, B, N, H, n_valid, scale_c, scale, \
-                             softmax_f32, s)
+#define SSL4POLYP_TILES_BWD(HD, MODE)                                                         \
+  launch_tiles_bwd<HD, MODE, false>(in, bb, d, grads, st, acc, part, db, B, N, H, n_valid,    \
+                                    scale_c, scale, softmax_f32, s)
   if (mode == kBwdFold) {
     switch (head_dim) {
       case 16: err = SSL4POLYP_TILES_BWD(16, kBwdFold); break;
@@ -723,9 +804,90 @@ extern "C" int ssl4polyp_qkv_attention_tiles_bwd(const void* qkv, const void* bi
 extern "C" int ssl4polyp_qkv_attention_tiles_bwd_plan(int head_dim, int* warps, int* smem_bytes) {
   *warps = kTileWarps;
   switch (head_dim) {
-    case 16: *smem_bytes = static_cast<int>(bwd_smem_bytes<16>()); return 2;
-    case 32: *smem_bytes = static_cast<int>(bwd_smem_bytes<32>()); return 2;
-    case 64: *smem_bytes = static_cast<int>(bwd_smem_bytes<64>()); return 2;
+    case 16: *smem_bytes = static_cast<int>(bwd_smem_bytes<16, kBwdFold>()); return 2;
+    case 32: *smem_bytes = static_cast<int>(bwd_smem_bytes<32, kBwdFold>()); return 2;
+    case 64: *smem_bytes = static_cast<int>(bwd_smem_bytes<64, kBwdFold>()); return 2;
     default: return -1;
   }
+}
+
+// Attention over separate q, k and v in bf16 (fused_attention) on the key
+// tiles, with that kernel's roundings: q, k, v and out (B, H, N, hd) bf16;
+// hd 16, 32 or 64; any N >= 1 (the wrapper sends N > 256 here), every key
+// weighted, no bias; scale: the fp32 1/sqrt(hd), which multiplies the fp32
+// scores.  Returns the launch's CUDA error.
+extern "C" int ssl4polyp_attention_tiles_fwd(const void* q, const void* k, const void* v,
+                                             void* out, int B, int H, int N, int head_dim,
+                                             float scale, void* stream) {
+  if (!tiles_shape_ok(B, N, H, N)) return static_cast<int>(cudaErrorInvalidValue);
+  const Sections<const bf16> in = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                   static_cast<const bf16*>(v)};
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+#define SSL4POLYP_TILES_FWD(HD) \
+  launch_tiles<HD, false, true>(in, nullptr, nullptr, o, nullptr, B, N, H, N, scale, 1, s)
+  switch (head_dim) {
+    case 16: err = SSL4POLYP_TILES_FWD(16); break;
+    case 32: err = SSL4POLYP_TILES_FWD(32); break;
+    case 64: err = SSL4POLYP_TILES_FWD(64); break;
+  }
+#undef SSL4POLYP_TILES_FWD
+  return static_cast<int>(err);
+}
+
+// Its backward (kBwdExact): q, k, v, dout and dq, dk, dv (B, H, N, hd) bf16;
+// stats (B, H, N) float4 scratch (16 bytes a row); dq_acc (B, H, N, hd) fp32
+// scratch; scale as for the forward.  Returns the first failing launch's
+// CUDA error.
+extern "C" int ssl4polyp_attention_tiles_bwd(const void* q, const void* k, const void* v,
+                                             const void* dout, void* dq, void* dk, void* dv,
+                                             void* stats, void* dq_acc, int B, int H, int N,
+                                             int head_dim, float scale, void* stream) {
+  if (!tiles_shape_ok(B, N, H, N) || stats == nullptr || dq_acc == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Sections<const bf16> in = {static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                   static_cast<const bf16*>(v)};
+  const Sections<bf16> grads = {static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                                static_cast<bf16*>(dv)};
+  const bf16* d = static_cast<const bf16*>(dout);
+  float4* st = static_cast<float4*>(stats);
+  float* acc = static_cast<float*>(dq_acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+#define SSL4POLYP_TILES_BWD(HD)                                                               \
+  launch_tiles_bwd<HD, kBwdExact, true>(in, nullptr, d, grads, st, acc, nullptr, nullptr, B, N, \
+                                        H, N, scale, scale, 1, s)
+  switch (head_dim) {
+    case 16: err = SSL4POLYP_TILES_BWD(16); break;
+    case 32: err = SSL4POLYP_TILES_BWD(32); break;
+    case 64: err = SSL4POLYP_TILES_BWD(64); break;
+  }
+#undef SSL4POLYP_TILES_BWD
+  return static_cast<int>(err);
+}
+
+// Its gradient pass's block: *warps, *smem_bytes (its dynamic shared
+// memory) and *blocks_per_sm (resident blocks an SM, from the occupancy
+// API) at head_dim.  Returns 0, a CUDA error, or -1 for a head dim it does
+// not take.
+extern "C" int ssl4polyp_attention_tiles_bwd_plan(int head_dim, int* warps, int* smem_bytes,
+                                                  int* blocks_per_sm) {
+  *warps = kTileWarps;
+  cudaError_t err = cudaErrorInvalidValue;
+#define SSL4POLYP_TILES_PLAN(HD)                                                          \
+  *smem_bytes = static_cast<int>(bwd_smem_bytes<HD, kBwdExact>());                        \
+  err = configure_tiles_bwd<HD, kBwdExact, true>();                                       \
+  if (err == cudaSuccess)                                                                 \
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                                  \
+        blocks_per_sm, qkv_attention_tiles_bwd_kernel<HD, kBwdExact, true>, kTileThreads, \
+        bwd_smem_bytes<HD, kBwdExact>());
+  switch (head_dim) {
+    case 16: SSL4POLYP_TILES_PLAN(16) break;
+    case 32: SSL4POLYP_TILES_PLAN(32) break;
+    case 64: SSL4POLYP_TILES_PLAN(64) break;
+    default: return -1;
+  }
+#undef SSL4POLYP_TILES_PLAN
+  return static_cast<int>(err);
 }

@@ -55,9 +55,14 @@ def _torch_all(q, k, v, dout, dtype, fn=fused_attention_plain):
 # 208 and 256), at each head dim it takes, with B and H at 1 or 2.
 _EDGES = [(1 + n % 2, 2 - n % 2, n, hd) for n in (1, 63, 64, 65, 129, 193, 256)
           for hd in (16, 32, 64)]
+# Past 256 tokens, where the card takes the key tiles in bf16 (64-key tiles:
+# one key past four of them, a ragged last tile, a ViT-B/16 at 384 px) and
+# the fp32 kernels, at each head dim.
+_LONG = [(1, 2, 257, 64), (2, 1, 300, 32), (1, 1, 577, 16), (1, 2, 577, 64)]
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (1, 1, 130, 8), (1, 2, 37, 16)] + _EDGES)
+@pytest.mark.parametrize("shape", [(2, 3, 197, 64), (1, 1, 130, 8), (1, 2, 37, 16)] + _EDGES
+                         + _LONG)
 def test_plain_matches_jax_kernel_fp32(shape):
     inputs = _inputs(0, shape)
     ours = _torch_all(*inputs, torch.float32)
@@ -67,7 +72,7 @@ def test_plain_matches_jax_kernel_fp32(shape):
         np.testing.assert_allclose(a, b, rtol=BWD_F32_TOL, atol=BWD_F32_TOL, err_msg=name)
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 29, 32)] + _EDGES)
+@pytest.mark.parametrize("shape", [(2, 2, 29, 32)] + _EDGES + _LONG)
 def test_plain_matches_jax_kernel_bf16(shape):
     # hd 32: 1/sqrt(32) is not a power of two; it multiplies the fp32 scores
     # on both sides and is never folded into q in bf16.
@@ -158,12 +163,15 @@ def _emulated_backward(q, k, v, dout):
     return tuple(g.to(q.dtype) for g in (dq, dk, dv))
 
 
-@pytest.mark.parametrize("shape", [(2, 3, 197, 64)] + _EDGES)
+@pytest.mark.parametrize("shape", [(2, 3, 197, 64)] + _EDGES + _LONG)
 def test_the_cards_two_phase_backward_matches_the_jax_kernel_bf16(shape):
     # The card kernel's order of work and its split operands, emulated,
     # against the JAX kernel's backward in interpret mode: the two phases,
     # the statistics kept between them, the chunked sums and the hi + lo
-    # split stay within the bf16 tolerance of the plain backward.
+    # split stay within the bf16 tolerance of the plain backward.  Past 256
+    # tokens the key tiles' two passes do the same arithmetic: each row's
+    # statistics first, then dQ summed over 64-key tiles and dK, dV over
+    # 64-query tiles, W and dS as hi + lo.
     q, k, v, dout = _inputs(4, shape)
     ref = _jax_all(q, k, v, dout, jnp.bfloat16)[1:]
     ours = _emulated_backward(*(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v, dout)))

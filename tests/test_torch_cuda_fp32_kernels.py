@@ -325,10 +325,105 @@ def test_attention_backward_in_the_scaled_ds_mode_matches_plain(gen, N, valid_le
 
 
 def test_bf16_only_wrappers_refuse_fp32_on_the_card(gen):
+    # No wrapper is bf16-only any longer: attention over separate q, k, v
+    # computes fp32 on its fp32 kernels (ROADMAP.md §2a, item 2b); what it
+    # refuses in fp32 is a head dim those kernels do not take (item 4).
     q = _randn(gen, 1, 2, 8, 64)
     with torch.inference_mode():
-        with pytest.raises(TypeError, match=r"not yet ported \(ROADMAP.md §2a, item 2\)"):
+        ops.reset_launch_counts()
+        out = attention.fused_attention(q, q, q)
+        torch.cuda.synchronize()
+        assert out.dtype == torch.float32 and ops.launch_counts()["fused_attention_f32"] == 1
+        _assert_close(out, attention.fused_attention_reference(q, q, q), FWD_FRAC, "out")
+        q = _randn(gen, 1, 2, 8, 16)
+        with pytest.raises(ValueError, match=r"ROADMAP.md §2a, item 4"):
             attention.fused_attention(q, q, q)
+
+
+# Attention over separate q, k, v in fp32 (qkv_attention_f32.cu in its
+# layout, the scale inside dS): every edge of its 64-row tiles, past 256
+# tokens, the classifier's and the MAE decoder's heads.
+def _assert_grads_close(grads, wants, frac):
+    """dq, dk and dv against their plain versions, each max error as a
+    fraction of the largest plain gradient, as the fused layout's dqkv is
+    held (test_attention_kernels_match_plain).  At one token the plain dq and
+    dk are exactly zero (W = 1 and tmp = dW, so dS = 0), while the kernel
+    takes tmp as dO . O, equal to dW in another summation order: their own
+    max would make that rounding of order 1e-7 an infinite error."""
+    scale = max(want.abs().max().item() for want in wants)
+    for name, got, want in zip(("dq", "dk", "dv"), grads, wants):
+        assert got.dtype == torch.float32, name
+        err = (got - want).abs().max().item() / max(scale, 1e-30)
+        assert err <= frac, f"{name}: {err:.3e} of max |plain| over dq, dk, dv"
+
+
+_SEPARATE_F32 = ([(2, 3, n, hd) for n in (1, 63, 64, 65, 197, 256, 257, 300, 577, 1025)
+                  for hd in (32, 64)] + [(3, 12, 197, 64), (3, 16, 197, 32), (2, 12, 577, 64)])
+
+
+@pytest.mark.parametrize("B, H, N, hd", _SEPARATE_F32)
+def test_separate_attention_fp32_kernels_match_plain(gen, B, H, N, hd):
+    q, k, v, dout = (_randn(gen, B, H, N, hd) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ops.reset_launch_counts()
+    out = attention.fused_attention(*leaves)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["fused_attention_f32"] == counts["fused_attention_backward_f32"] == 1
+    assert sum(counts.values()) == 2
+    _assert_close(out.detach(), attention.fused_attention_reference(q, k, v), FWD_FRAC, "out")
+    _assert_grads_close([leaf.grad for leaf in leaves],
+                        attention.fused_attention_backward_reference(q, k, v, dout), GRAD_FRAC)
+    # Reruns bit-identical, and the backward from (q, k, v, dout) alone (its
+    # launch runs the forward first) gives the autograd path's bits.
+    with torch.inference_mode():
+        again = attention._forward_kernel(q, k, v)
+        alone = attention._backward_kernel(q, k, v, dout)
+    assert torch.equal(again, out.detach())
+    assert all(torch.equal(a, leaf.grad) for a, leaf in zip(alone, leaves))
+
+
+@pytest.mark.parametrize("N, hd", [(1, 32), (65, 64), (197, 32), (577, 64)])
+@torch.inference_mode()
+def test_separate_attention_fp32_writes_nothing_past_the_last_row(gen, N, hd):
+    # The C entry points on views inside sentinel-filled buffers: nothing
+    # before the outputs or past the last head's row N - 1 changes, and NaN
+    # past the inputs' last row does not reach them.
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    B, H, pad = 2, 3, 4096
+    size = B * H * N * hd
+
+    def inside(fill, body=None, rows=size):
+        buffer = torch.full((pad + rows + pad,), fill, device="cuda")
+        if body is not None:
+            buffer[pad:pad + rows] = body.reshape(-1)
+        return buffer, buffer[pad:pad + rows]
+
+    q, k, v, dout = (_randn(gen, B, H, N, hd) for _ in range(4))
+    views = [inside(float("nan"), t)[1] for t in (q, k, v, dout)]
+    outputs = [inside(-1234.0) for _ in range(4)]
+    lse = inside(-1234.0, rows=B * H * N)
+    delta = torch.full((B, H, N), float("nan"), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    scale = 1.0 / hd ** 0.5
+    assert library().ssl4polyp_attention_fwd_f32(
+        *(t.data_ptr() for t in views[:3]), outputs[0][1].data_ptr(), lse[1].data_ptr(), B, H, N,
+        hd, scale, stream) == 0
+    assert library().ssl4polyp_attention_bwd_f32(
+        *(t.data_ptr() for t in views), outputs[0][1].data_ptr(), lse[1].data_ptr(),
+        delta.data_ptr(), *(out.data_ptr() for _, out in outputs[1:]), B, H, N, hd, scale, 0,
+        stream) == 0
+    torch.cuda.synchronize()
+    for name, (buffer, _) in zip(("out", "dq", "dk", "dv"), outputs):
+        assert (buffer[:pad] == -1234.0).all() and (buffer[pad + size:] == -1234.0).all(), name
+    got = [out.view(B, H, N, hd) for _, out in outputs]
+    _assert_close(got[0], attention.fused_attention_reference(q, k, v), FWD_FRAC, "out")
+    _assert_grads_close(got[1:], attention.fused_attention_backward_reference(q, k, v, dout),
+                        GRAD_FRAC)
+    assert (lse[0][:pad] == -1234.0).all() and (lse[0][pad + B * H * N:] == -1234.0).all()
+    assert torch.isfinite(lse[1]).all()
 
 
 def test_dense_fp32_gradients_do_not_take_tf32(gen):

@@ -11,16 +11,14 @@ fused MLP, the fused LN+MLP and LN+QKV.  Here:
   ViT-B's widths); the fp32 cases of ``test_torch_qkv_attention.py`` (N
   21-37) are not repeated;
 * the wrappers' checks on CPU tensors: fp32 and bf16 accepted, mixed dtypes
-  refused, and the wrapper whose fp32 kernel is not yet ported
-  (``fused_attention``) refusing fp32 with the ROADMAP.md item that lists
-  it; with a stub library, that an fp32 tensor reaches the ``_f32`` entry
-  points and counters and a bf16 one the bf16 entry points (nothing is
-  built or launched), the attention+projection fold and the projection +
-  attention among them, that the fp32 attention, the fold and the
-  projection + attention take any token count where bf16 stops at 256, that
-  the fp32 attention backward's ``scaled_ds`` mode reaches its kernel, and
-  that the autograd of the three hands the backward the forward's output
-  and log-sum-exp;
+  refused, and a head dim no fp32 kernel takes refused with the ROADMAP.md
+  item that lists it; with a stub library, that an fp32 tensor reaches the
+  ``_f32`` entry points and counters and a bf16 one the bf16 entry points
+  (nothing is built or launched), the attention+projection fold, the
+  projection + attention and attention over separate q, k, v among them,
+  that each takes any token count, that the fp32 attention backward's
+  ``scaled_ds`` mode reaches its kernel, and that the autograd of the four
+  hands the backward the forward's output and log-sum-exp;
 * the order of operations of the fp32 kernels of the attention+projection
   fold and of the projection + attention, emulated in plain torch (the
   attention backward from the forward's log-sum-exp, key tile by key tile,
@@ -237,14 +235,15 @@ def test_default_route_wrappers_refuse_mixed_and_other_dtypes():
 
 def _fusion_checks(dtype, weight_dtype=None):
     """Each fusion knob's and public function's check on tensors of
-    ``dtype`` (the weights of ``weight_dtype`` when given), with the
-    ROADMAP.md item its refusal of fp32 names: None for the kernels whose
-    fp32 version is ported (§2a items 1a, 1b and the first half of 2)."""
+    ``dtype`` (the weights of ``weight_dtype`` when given; for attention
+    over separate q, k, v its k), with the ROADMAP.md item its refusal of
+    fp32 names: None for the kernels whose fp32 version is ported, which
+    since §2a item 2b is every one."""
     f32, wd = torch.float32, weight_dtype or dtype
     x, w1, b1 = _t((8, 512), dtype), _t((64, 512), wd), _t(64, wd)
     w2, b2, s, t = _t((512, 64), wd), _t(512, wd), _t(512, f32), _t(512, f32)
     qkv, w, b = _t((1, 8, 3 * 128), dtype), _t((128, 128), wd), _t(128, wd)
-    q = _t((1, 2, 8, 64), dtype)
+    q, k = _t((1, 2, 8, 64), dtype), _t((1, 2, 8, 64), wd)
     xb, wb, bb = _t((1, 8, 64), dtype), _t((64, 3 * 128), wd), _t(3 * 128, wd)
     return [
         ("mlp_fused", lambda: mlp._check_fused(x, None, None, w1, b1, w2, b2), None),
@@ -252,7 +251,7 @@ def _fusion_checks(dtype, weight_dtype=None):
         ("ln_linear", lambda: ln_linear._check(x, s, t, w1, b1), None),
         ("fused_attention_proj", lambda: attn_proj._check(qkv, w, b, 2, None), None),
         ("fused_qkvproj_attention", lambda: attention_block._check(xb, wb, bb, 2, None), None),
-        ("fused_attention", lambda: attention._check(q, q, q), 2),
+        ("fused_attention", lambda: attention._check(q, k, q), None),
     ]
 
 
@@ -260,11 +259,10 @@ def _fusion_checks(dtype, weight_dtype=None):
                                                 "fused_attention_proj",
                                                 "fused_qkvproj_attention", "fused_attention"])
 def test_bf16_only_wrappers_refuse_fp32_naming_the_roadmap_item(index):
-    """The kernel still bf16-only (``fused_attention``) refuses fp32 naming
-    its ROADMAP.md item and fp16 as the bf16 kernel's; the fused MLPs,
-    LN+QKV, the attention+projection fold and the projection + attention,
-    ported to fp32, take fp32 and bf16 and refuse fp16 and a mix of the
-    two."""
+    """No kernel is bf16-only any longer: the fused MLPs, LN+QKV, the
+    attention+projection fold, the projection + attention and attention over
+    separate q, k, v (the last, ported to fp32 in §2a item 2b) take fp32 and
+    bf16 and refuse fp16 and a mix of the two."""
     _, check, item = _fusion_checks(torch.float32)[index]
     if item is None:
         check()  # accepted
@@ -410,17 +408,18 @@ def test_fp32_attention_takes_any_token_count_and_bf16_stops_at_256(stub):
     assert stub.args[0][4:9] == (1, 577, H, hd, 500)
     assert stub.args[1][9:15] == (10, 1, 577, H, hd, 500)
     # In bf16 the attention kernels take any N too (past 256 the key tiles),
-    # and so do the projection fold's (its composition on them there); the
-    # bf16 kernel of attention over separate q, k, v stops at 256 (ROADMAP.md
-    # §2a, item 2b).
+    # and so do the projection fold's (its composition on them there) and,
+    # since ROADMAP.md §2a item 2b, attention over separate q, k, v (the key
+    # tiles in its layout); in fp32 that function takes them on the fp32
+    # kernels.
     D = H * hd
     for n in (256, 257, 577):
         qkv_attention._check(_t((1, n, 3 * H * hd), torch.bfloat16), H, None, None)
         attn_proj._check(_t((1, n, 3 * D), torch.bfloat16), _t((D, D), torch.bfloat16),
                          _t(D, torch.bfloat16), H, None)
-    q = _t((1, H, 257, hd), torch.bfloat16)
-    with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
-        attention._check(q, q.clone(), q.clone())
+        for dtype in (torch.bfloat16, torch.float32):
+            q = _t((1, H, n, hd), dtype)
+            attention._check(q, q.clone(), q.clone())
     with pytest.raises(ValueError):
         qkv_attention._check(_t((1, 0, 3 * H * hd)), H, None, None)
 
@@ -451,6 +450,44 @@ def test_fp32_autograd_hands_the_backward_the_forward_output_and_lse(stub, with_
     qkv_attention._backward_kernel(qkv.detach(), torch.ones_like(out), H, True, 7,
                                    None if bias is None else bias.detach())
     assert stub.called[-1] == "ssl4polyp_qkv_attention_bwd_f32" and stub.args[-1][-2] == 1
+
+
+def test_fp32_separate_attention_refuses_head_dims_naming_the_roadmap_item(stub):
+    # The fp32 kernels of attention over separate q, k, v take head dims 32
+    # and 64; 16 (the bf16 kernels take it) and 80 raise, naming the item
+    # that lists them.  Nothing reaches the library.
+    for hd in (16, 80):
+        q = _t((1, 2, 300, hd))
+        with pytest.raises(ValueError, match="not yet ported: ROADMAP.md §2a, item 4"):
+            attention._check(q, q.clone(), q.clone())
+    attention._check(*(_t((1, 2, 300, 16), torch.bfloat16) for _ in range(3)))
+    with pytest.raises(TypeError, match="one dtype"):
+        attention._check(_t((1, 2, 8, 64)), _t((1, 2, 8, 64), torch.bfloat16), _t((1, 2, 8, 64)))
+    assert stub.called == []
+
+
+def test_fp32_separate_attention_autograd_hands_the_backward_the_forward_output_and_lse(stub):
+    B, H, N, hd = 2, 3, 9, 32
+    leaves = [_t((B, H, N, hd)).requires_grad_() for _ in range(3)]
+    out = attention._Attention.apply(*leaves, False)
+    out.backward(torch.ones_like(out))
+    assert stub.called == ["ssl4polyp_attention_fwd_f32", "ssl4polyp_attention_bwd_f32"]
+    fwd, bwd = stub.args
+    # The forward wrote out and lse; the backward reads those same tensors
+    # (out, lse: arguments 4 and 5) and runs no forward of its own.
+    assert fwd[3] == out.data_ptr() and fwd[4] is not None
+    assert bwd[4] == fwd[3] and bwd[5] == fwd[4] and bwd[-2] == 0
+    counts = ops.launch_counts()
+    assert counts["fused_attention_f32"] == counts["fused_attention_backward_f32"] == 1
+    # Without a backward to follow, no log-sum-exp is written.
+    with torch.inference_mode():
+        attention._Attention.apply(*(t.detach() for t in leaves), False)
+    assert stub.args[-1][4] is None
+    # From (q, k, v, dout) alone, the backward's one launch runs the forward
+    # first.
+    attention._backward_kernel(*(t.detach() for t in leaves), torch.ones_like(out))
+    assert stub.called[-1] == "ssl4polyp_attention_bwd_f32" and stub.args[-1][-2] == 1
+    assert ops.launch_counts()["fused_attention_backward_f32"] == 2
 
 
 def _projection_inputs(dtype, N=9):
@@ -512,15 +549,14 @@ def test_projection_wrappers_reach_the_entry_points_of_their_dtype(stub, dtype, 
 
 def test_projection_wrappers_take_any_token_count_in_fp32_and_bf16_stops_at_256(stub):
     # Both projection wrappers take any token count in either dtype (in bf16
-    # past 256 their compositions on the key tiles); of the bf16 kernels only
-    # attention over separate q, k, v stops at 256.
+    # past 256 their compositions on the key tiles), and so, since ROADMAP.md
+    # §2a item 2b, does attention over separate q, k, v.
     for dtype, N in ((torch.float32, 577), (torch.bfloat16, 256), (torch.bfloat16, 257),
                      (torch.bfloat16, 577)):
         H, (qkv, w, b, _), (x, wb, bb, _) = _projection_inputs(dtype, N)
         attn_proj._check(qkv, w, b, H, N - 1)
         attention_block._check(x, wb, bb, H, None)
-    q = _t((1, 2, 257, 64), torch.bfloat16)
-    with pytest.raises(ValueError, match="bf16 kernel takes 1..256 tokens"):
+        q = _t((1, 2, N, 64), dtype)
         attention._check(q, q.clone(), q.clone())
     # fp32 takes any number of heads in the fold (5 of 32: D 160); bf16 a D
     # that is a multiple of 128.

@@ -11,11 +11,13 @@ model paths), on inputs made with numpy from a seed; and the wrappers route
 such calls to the key tiles: the attention kernels', and the compositions
 on them of attention with the projection and of the QKV projection with
 attention (whose plain versions tests/test_torch_long_tokens_fold.py holds
-against the JAX package there), where the bf16 kernel of attention over
-separate q, k, v still refuses them.
+against the JAX package there), and attention over separate q, k, v to the
+key tiles in its own layout (its plain version is held against the JAX
+kernel past 256 tokens in tests/test_torch_attention.py).
 """
 
 import contextlib
+import math
 
 import jax
 import jax.numpy as jnp
@@ -373,22 +375,25 @@ def test_bf16_rows_9_and_10_send_more_than_256_tokens_to_the_key_tiles(stub, mon
 
 
 def test_rows_9_10_11_still_refuse_more_than_256_tokens_in_bf16(stub):
-    # Of the bf16 kernels that refused more than 256 tokens, row 11
-    # (attention over separate q, k, v) alone still does, naming its item;
-    # rows 1/2, 9 and 10 take any count, and every row refuses none.
+    # No bf16 kernel refuses more than 256 tokens any longer: rows 1/2, 9, 10
+    # and 11 (attention over separate q, k, v, the last to take them) take
+    # any count.  What still refuses is a head dim no kernel takes, naming
+    # its ROADMAP.md item, and no token at all.
     H, hd = 2, 64
     D = H * hd
     for n in (257, 577, 1025):
         qkv_attention._check(_bf16((1, n, 3 * D)), H, None, _bf16(3 * D))
         attn_proj._check(_bf16((1, n, 3 * D)), _bf16((D, D)), _bf16(D), H, None)
         attention_block._check(_bf16((1, n, D)), _bf16((D, 3 * D)), _bf16(3 * D), H, None)
-    for n in (257, 577):
         q = _bf16((1, H, n, hd))
-        with pytest.raises(ValueError, match="ROADMAP.md §2a, item 2b") as refusal:
-            attention._check(q, q.clone(), q.clone())
-        assert "fused_attention" in str(refusal.value) and "item 3" not in str(refusal.value)
-    q = _bf16((1, H, 256, hd))
-    attention._check(q, q.clone(), q.clone())
+        attention._check(q, q.clone(), q.clone())
+    q = _bf16((1, H, 577, 80))
+    with pytest.raises(ValueError, match="ROADMAP.md §2a, item 4") as refusal:
+        attention._check(q, q.clone(), q.clone())
+    assert "head dim" in str(refusal.value)
+    q = _bf16((1, H, 0, hd))
+    with pytest.raises(ValueError, match="1 or more tokens"):
+        attention._check(q, q.clone(), q.clone())
     with pytest.raises(ValueError, match="at least one token"):
         attn_proj._check(_bf16((1, 0, 3 * D)), _bf16((D, D)), _bf16(D), H, None)
     with pytest.raises(ValueError, match="at least one token"):
@@ -398,6 +403,94 @@ def test_rows_9_10_11_still_refuse_more_than_256_tokens_in_bf16(stub):
     attn_proj._check(torch.zeros((1, N, 3 * D)), torch.zeros((D, D)), torch.zeros(D), H, None)
     attention_block._check(torch.zeros((1, N, D)), torch.zeros((D, 3 * D)),
                            torch.zeros(3 * D, dtype=f32), H, None)
+    assert stub.called == []
+
+
+# Attention over separate q, k, v (row 11): the entry point each dtype and
+# token count reaches, with its arguments, from csrc/:
+#   ssl4polyp_attention_fwd_probe (q, k, v, out, B * H, N, hd, scale, probe, stream);
+#   ssl4polyp_attention_bwd_probe (q, k, v, dout, dq, dk, dv, B * H, N, hd, scale,
+#     probe, stream);
+#   ssl4polyp_attention_tiles_fwd (q, k, v, out, B, H, N, hd, scale, stream);
+#   ssl4polyp_attention_tiles_bwd (q, k, v, dout, dq, dk, dv, stats, dq_acc, B, H, N,
+#     hd, scale, stream);
+#   ssl4polyp_attention_fwd_f32 (q, k, v, out, lse, B, H, N, hd, scale, stream);
+#   ssl4polyp_attention_bwd_f32 (q, k, v, dout, out, lse, delta, dq, dk, dv, B, H, N,
+#     hd, scale, forward_first, stream).
+_SEPARATE_ROUTES = {
+    "bf16": ("ssl4polyp_attention_fwd_probe", "ssl4polyp_attention_bwd_probe",
+             "fused_attention", "fused_attention_backward"),
+    "tiles": ("ssl4polyp_attention_tiles_fwd", "ssl4polyp_attention_tiles_bwd",
+              "fused_attention_tiles", "fused_attention_tiles_backward"),
+    "f32": ("ssl4polyp_attention_fwd_f32", "ssl4polyp_attention_bwd_f32",
+            "fused_attention_f32", "fused_attention_backward_f32"),
+}
+
+
+@pytest.mark.parametrize("dtype, N, hd, route", [
+    (torch.bfloat16, 256, 64, "bf16"), (torch.bfloat16, 257, 64, "tiles"),
+    (torch.bfloat16, 577, 16, "tiles"), (torch.bfloat16, 1025, 32, "tiles"),
+    (torch.float32, 1, 32, "f32"), (torch.float32, 197, 64, "f32"),
+    (torch.float32, 577, 64, "f32"),
+], ids=["bf16-256", "bf16-257", "bf16-577", "bf16-1025", "fp32-1", "fp32-197", "fp32-577"])
+def test_fused_attention_routes_by_dtype_and_token_count(stub, monkeypatch, dtype, N, hd, route):
+    # Through autograd, as a caller reaches them: one forward and one backward
+    # launch of the route's kernels, counted under its names, with the shape
+    # and scale arguments each entry point takes and the scratch it needs.
+    allocated = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kwargs):
+        t = empty(*shape, **kwargs)
+        allocated.append((tuple(t.shape), t.dtype))
+        return t
+
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    B, H = 2, 3
+    leaves = [torch.zeros((B, H, N, hd), dtype=dtype).requires_grad_() for _ in range(3)]
+    attention._check(*leaves)
+    out = attention._Attention.apply(*leaves, False)
+    out.backward(torch.ones_like(out))
+    fwd_name, bwd_name, fwd_count, bwd_count = _SEPARATE_ROUTES[route]
+    assert stub.called == [fwd_name, bwd_name]
+    counts = ops.launch_counts()
+    assert counts[fwd_count] == counts[bwd_count] == 1 and sum(counts.values()) == 2
+    fwd, bwd = stub.args
+    scale = 1.0 / math.sqrt(hd)  # the fp32 1/sqrt(hd), as ctypes passes it
+    assert all(isinstance(p, int) and p for p in fwd[:4]) and fwd[3] == out.data_ptr()
+    assert all(isinstance(p, int) and p for p in bwd[:7])
+    if route == "bf16":
+        assert fwd[4:9] == (B * H, N, hd, scale, 0) and bwd[7:12] == (B * H, N, hd, scale, 0)
+        assert allocated == []
+    elif route == "tiles":
+        assert fwd[4:9] == (B, H, N, hd, scale) and bwd[9:14] == (B, H, N, hd, scale)
+        assert all(isinstance(p, int) and p for p in bwd[7:9])
+        # Each row's (max, 1/sum, tmp) and dQ's fp32 sums in key-tile order.
+        assert allocated == [((B, H, N, 4), torch.float32), ((B, H, N, hd), torch.float32)]
+    else:
+        # The forward writes the log-sum-exp; the backward reads it and the
+        # output (arguments 4 and 5) with a delta scratch, and runs no forward.
+        assert fwd[4] is not None and fwd[5:10] == (B, H, N, hd, scale)
+        assert bwd[4] == fwd[3] and bwd[5] == fwd[4] and bwd[6] is not None
+        assert bwd[10:16] == (B, H, N, hd, scale, 0)
+        assert allocated == [((B, H, N), torch.float32), ((B, H, N), torch.float32)]
+    assert len(stub.called) == 2
+
+
+@pytest.mark.parametrize("N", [257, 577])
+def test_separate_attention_tiles_and_fp32_take_no_probe_bits(stub, N):
+    # The measurement aids of attention.cu's kernels exist only up to 256
+    # tokens in bf16: past them, and in fp32, a probe bit is refused before
+    # any launch.
+    for dtype in (torch.bfloat16, torch.float32):
+        q = torch.zeros((1, 2, N, 64), dtype=dtype)
+        with pytest.raises(ValueError, match="has no probe bits"):
+            attention._forward_kernel(q, q, q, attention.PROBE_FIRST_DESIGN)
+        with pytest.raises(ValueError, match="has no probe bits"):
+            attention._backward_kernel(q, q, q, q, attention.BACKWARD_PROBE_FIRST_DESIGN)
+    with pytest.raises(ValueError, match="fp32 backward kernel only"):
+        q = _bf16((1, 2, N, 64))
+        attention._backward_kernel(q, q, q, q, out=q, lse=q)
     assert stub.called == []
 
 
