@@ -103,7 +103,12 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    at 384 px (577 tokens: the classifier's, also with ``valid_len`` 500,
    and the MAE decoder's), at 257 and at 1,025 tokens: within the
    attention limits, reruns bit-identical, timed beside the plain versions,
-   bf16 SDPA and its backward and the bound; and the key tiles' backward
+   bf16 SDPA and its backward and the bound; the key tiles' forward and
+   statistics pass timed alone beside their first design (through the
+   probe entry point, in the same process) at the classifier's shape with
+   and without a bias and at the decoder's: each against its plain version
+   (the statistics within STATISTICS_RTOL), reruns bit-identical, beside
+   the plain versions, bf16 SDPA and the bound; and the key tiles' backward
    beside the first design at 209 and 256 tokens, where the first design
    runs today (timed only).  Then attention with the output projection and
    the QKV projection with attention past 256 tokens in bf16 (their
@@ -350,8 +355,10 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
 16. A ViT-B/16 at 384 px in bf16 (577 tokens, past the 256 that
    ``qkv_attention.cu`` holds on chip, so every block's attention runs on
    the key tiles of ``qkv_attention_tiles.cu``), batch 64: the eval forward
-   from host uint8 to logits (12 key-tile launches a request, logits
-   against the plain path's within the eval limits), the fine-tune step
+   from host uint8 to logits (12 key-tile launches a request; the logits
+   held against one fp32 forward of the same weights through the plain
+   path, at most LONG_LOGITS_RATIO times as far from it as the plain bf16
+   paths, folded or not), the fine-tune step
    under ``fc1``, ``full`` and ``full_ln`` with ``qkv_ln_fusion`` (577
    tokens count as padded to 584, so the knobs apply; step 1 against the
    plain step's within the fine-tune limits, 12 key-tile launches forward
@@ -361,8 +368,8 @@ Run from the repository root, on a machine with a CUDA card and nvcc:
    3 repeats of 3; then under ``BENCH_ATTN_PROJ=1``, every classifier block
    and the MAE decoder's 8 folding the projection into attention on the
    composition past 256 tokens: the eval forward (12 fold launches a
-   request and no other attention launch, logits against the plain path's
-   within the eval limits), the fine-tune step under ``fc1`` (12 fold
+   request and no other attention launch, the logits held as above), the
+   fine-tune step under ``fc1`` (12 fold
    launches forward and 12 backward a step) and the pretrain step (the
    decoder's 8 and 8 on the fold, the encoder's 145 tokens on the default
    route), each with step 1 or the logits held as above, exact launches
@@ -461,6 +468,26 @@ LN_TOL = (1e-2, 1e-2)
 LN_PARAM_TOL = (5e-3, 1e-4)
 # Logits after 12 blocks of such 1-ulp differences in the residual stream.
 LOGITS_TOL = (5e-2, 5e-2)
+# The logits at 577 tokens (phase 16) are held against one fp32 forward of
+# the same weights through the plain path (TF32 off), not against the plain
+# bf16 path: the kernels' worst |diff| from it may be at most
+# LONG_LOGITS_RATIO times the larger of the two plain bf16 paths' own
+# (unfolded and folded; long_logits_check).  At 577 tokens both sides of a
+# kernel-against-plain comparison carry bf16 noise of the size of
+# LOGITS_TOL: over seeds 0-7 on an H100 (scripts/torch/logits_margin_384.py)
+# the plain bf16 paths sat 0.044-0.088 from the fp32 forward (0.59-1.28 of
+# LOGITS_TOL), the kernels 0.042-0.071, folded or not, and kernels against
+# plain took up to 1.034 of LOGITS_TOL (seed 7, folded).  The kernels' ratio
+# read 0.71-1.07 (before and after the key tiles' redesign), so 1.5 sits
+# 40 % above the worst reading.  What it catches is a fault that moves the
+# logits past the network's own bf16 noise: the plain path with keys 512 ..
+# 576 left out read 3.7-5.5.  What it cannot see overlaps the kernels'
+# readings, so no limit separates them: one key left out read 0.99-1.20
+# (phase 2's check against plain catches it, at 36 times ATTENTION_TOL),
+# bf16 scores or the weights rounded before normalising, faults of one bf16
+# ulp in attention's output, 0.82-1.04 (within ATTENTION_TOL at the kernel
+# too; PERF.md §6).  LOGITS_TOL keeps serving 197 tokens.
+LONG_LOGITS_RATIO = 1.5
 # Step 1 of the pretrain step, kernels against plain: the loss after 20
 # blocks of 1-ulp differences, relative; each parameter's gradient as the
 # relative L2 distance ||g - g_plain|| / ||g_plain||.  On an H100 the loss
@@ -476,6 +503,13 @@ GRAD_RTOL = 1.5e-2
 # output), so only fp32 summation order differs: one bf16 ulp where a
 # rounding flips.
 FUSED_TOL = (1e-2, 1e-2)
+# The key tiles' statistics pass, each row's (max * log2(e), 1/sum, tmp),
+# against its plain fp32 version: the sums run in another order and exp2 on
+# the special function unit (2^-22 relative), so each column sits within
+# STATISTICS_RTOL of its largest magnitude; with bf16 scores (False) a score
+# whose rounding flips on that order moves by one bf16 ulp (2^-8 relative),
+# and with it the max and a weight, hence the wider limit.
+STATISTICS_RTOL = {True: 1e-4, False: 1e-2}
 # Step 1 of the fine-tune step, kernels against plain, as for the pretrain
 # step.  The classifier's loss is BCE on 64 logit pairs after 12 blocks of
 # 1-ulp differences (the eval forward's logits differ by up to 6e-2), so it
@@ -564,6 +598,47 @@ def limit_share(out: torch.Tensor, ref: torch.Tensor, tol: tuple[float, float]) 
     out, ref = out.float(), ref.float()
     atol, rtol = tol
     return ((out - ref).abs() / (atol + rtol * ref.abs())).max().item()
+
+
+def plain_fp32_logits(seed: int, tree: dict, requests: list[np.ndarray],
+                      img_size: int) -> list[np.ndarray]:
+    """The logits of one fp32 eval forward of the JAX-layout ``tree``'s
+    classifier through the plain path, TF32 off for products and
+    convolutions (each flag restored after)."""
+    flags = (torch.backends.cuda.matmul, "allow_tf32"), (torch.backends.cudnn, "allow_tf32")
+    saved = [getattr(module, name) for module, name in flags]
+    for module, name in flags:
+        setattr(module, name, False)
+    try:
+        clf = get_imagenet_or_random_vit(
+            torch.Generator().manual_seed(seed), jax_params=tree, num_classes=2, device="cuda",
+            img_size=img_size, compute_dtype=torch.float32)
+        forward = make_forward_fn(clf, "cuda")()
+        with plain_kernels():
+            return [forward(images) for images in requests]
+    finally:
+        for (module, name), value in zip(flags, saved):
+            setattr(module, name, value)
+        torch.cuda.empty_cache()
+
+
+def long_logits_check(got: np.ndarray, plain: np.ndarray, plain_fold: np.ndarray,
+                      ref32: np.ndarray) -> dict:
+    """Phase 16's check of bf16 logits at 577 tokens (LONG_LOGITS_RATIO):
+    the worst |diff| of ``got`` from the fp32 forward's ``ref32``, that of
+    the two plain bf16 paths, their ratio, each one's share of LOGITS_TOL
+    against ``ref32``, and whether the ratio is within the limit."""
+    def dist(x):
+        return float(np.abs(x.astype(np.float64) - ref32).max())
+
+    def share(x):
+        return limit_share(torch.from_numpy(x), torch.from_numpy(ref32), LOGITS_TOL)
+
+    plain_dist, got_dist = max(dist(plain), dist(plain_fold)), dist(got)
+    ratio = got_dist / plain_dist if plain_dist > 0 else 0.0 if got_dist == 0 else float("inf")
+    return {"max_abs_diff": got_dist, "plain_max_abs_diff": plain_dist, "ratio": ratio,
+            "limit_share": share(got), "plain_limit_share": max(share(plain), share(plain_fold)),
+            "ok": bool(ratio <= LONG_LOGITS_RATIO)}
 
 
 def time_ms(fn, iters: int = 20, batches: int = 5) -> float:
@@ -1098,8 +1173,10 @@ def tiles_kernels(randn) -> dict[str, dict]:
         print(f"attention backward B={BATCH} N={n} H=12 hd=64 ({path} today): first design "
               f"{time_ms(first):.4f} ms, key tiles {time_ms(tiles):.4f} ms (dqkv {err:.3e}), "
               f"{bound_text(**bwd_cost(BATCH, n, 12, 64, n))}; {CARD}")
+    stats_entry = tiles_designs(randn)
     shape = BATCH, 577, 12, 64, 577
     return {
+        "qkv_attention_tiles_statistics": stats_entry,
         "fused_qkv_attention_tiles": entry(
             "qkv_attention_tiles.cu", "ssl4polyp_tpu/ops/qkv_attention.py:208", max(fwd_errors),
             *fwd_times["classifier at 384 px"][:2], **cost(*shape),
@@ -1109,6 +1186,85 @@ def tiles_kernels(randn) -> dict[str, dict]:
             *bwd_times["classifier at 384 px"][:2], **bwd_cost(*shape),
             library_ms=bwd_times["classifier at 384 px"][2]),
     }
+
+
+def statistics_error(got: torch.Tensor, want: torch.Tensor, softmax_f32: bool,
+                     what: str) -> tuple[float, float]:
+    """The key tiles' statistics (B, H, N, 4) against the plain ones: each
+    column's (max * log2(e), 1/sum, tmp) max |diff| as a share of its
+    largest magnitude, held to STATISTICS_RTOL; returns the worst share and
+    the worst |diff|."""
+    shares = [((got[..., c] - want[..., c]).abs().max() / want[..., c].abs().max()).item()
+              for c in range(3)]
+    if max(shares) > STATISTICS_RTOL[softmax_f32] or not (got[..., 3] == 0).all():
+        fail(f"{what}: statistics off by {shares} of each column's largest value (limit "
+             f"{STATISTICS_RTOL[softmax_f32]})")
+    return max(shares), (got[..., :3] - want[..., :3]).abs().max().item()
+
+
+def tiles_designs(randn) -> dict:
+    """The key tiles' forward and statistics pass timed alone beside their
+    first design (through ssl4polyp_qkv_attention_tiles_fwd_probe, in this
+    process) at a ViT-B/16's shapes at 384 px (the classifier's 12 heads of
+    64 with and without a bias, the MAE decoder's 16 heads of 32 with bf16
+    scores): each against its plain version, a rerun bit-identical, ms
+    beside the plain version's, bf16 SDPA's (timed only; no PyTorch call
+    computes the statistics) and the bound.  Returns the statistics pass's
+    summary entry, at the classifier's shape with a bias."""
+    def cost(b, n, h, hd):  # qkv and the bias in, the output out; two products
+        return dict(bytes_moved=2 * (b * n * 4 * h * hd + 3 * h * hd), flops=4 * b * h * n * n * hd)
+
+    def stats_cost(b, n, h, hd):  # qkv, the bias and dO in, the float4 rows out; two products
+        return dict(bytes_moved=2 * (b * n * 4 * h * hd + 3 * h * hd) + 16 * b * h * n,
+                    flops=4 * b * h * n * n * hd)
+
+    first = qkv_attention.TILES_PROBE_FIRST_DESIGN
+    statistics = qkv_attention.TILES_PROBE_STATISTICS
+    result = None
+    for b, n, h, hd, f32, with_bias, name in (
+            (BATCH, 577, 12, 64, True, True, "classifier at 384 px"),
+            (BATCH, 577, 12, 64, True, False, "classifier at 384 px, no bias"),
+            (BATCH, 577, 16, 32, False, True, "MAE decoder at 384 px")):
+        qkv, dout = randn(b, n, 3 * h * hd), randn(b, n, h * hd)
+        bias = randn(3 * h * hd, scale=0.5) if with_bias else None
+        fwd = lambda: qkv_attention._forward_kernel(qkv, h, f32, None, bias)  # noqa: E731
+        fwd_first = lambda: qkv_attention.tiles_probe(qkv, h, f32, None, bias, first)  # noqa: E731
+        plain = lambda: qkv_attention.fused_qkv_attention_reference(qkv, h, f32, None, bias)  # noqa: E731
+        stats = lambda probe=0: qkv_attention.tiles_probe(  # noqa: E731
+            qkv, h, f32, None, bias, statistics | probe, dout=dout)
+        stats_plain = lambda: qkv_attention.tiles_statistics_reference(  # noqa: E731
+            qkv, dout, h, f32, None, bias)
+        out, again, out_first = fwd(), fwd(), fwd_first()
+        st, st_again, st_first = stats(), stats(), stats(first)
+        torch.cuda.synchronize()
+        what = f"key tiles B={b} N={n} H={h} hd={hd} f32={f32} bias={with_bias}"
+        ref, st_ref = plain(), stats_plain()
+        fwd_err = max_error(out, ref, ATTENTION_TOL, f"{what}: forward")
+        first_err = max_error(out_first, ref, ATTENTION_TOL, f"{what}: the first design's forward")
+        st_share, st_err = statistics_error(st, st_ref, f32, f"{what}: statistics pass")
+        first_share, _ = statistics_error(st_first, st_ref, f32,
+                                          f"{what}: the first design's statistics pass")
+        if not torch.equal(out, again) or not torch.equal(st, st_again):
+            fail(f"{what}: two runs gave different bits")
+        biased = qkv if bias is None else qkv + bias
+        library = lambda: F.scaled_dot_product_attention(*heads_of(biased, h))  # noqa: E731
+        ms = {"fwd": time_ms(fwd), "fwd_first": time_ms(fwd_first), "fwd_plain": time_ms(plain),
+              "sdpa": time_ms(library), "stats": time_ms(stats),
+              "stats_first": time_ms(lambda: stats(first)), "stats_plain": time_ms(stats_plain)}
+        print(f"{what}: forward max |diff| {fwd_err:.3e} (first design {first_err:.3e}; atol "
+              f"{ATTENTION_TOL[0]}, rtol {ATTENTION_TOL[1]}), statistics {st_share:.3e} of each "
+              f"column's largest value (first design {first_share:.3e}; limit "
+              f"{STATISTICS_RTOL[f32]}); reruns bit-identical")
+        print(f"  {name}: forward {ms['fwd']:.4f} ms, first design {ms['fwd_first']:.4f} ms, "
+              f"plain {ms['fwd_plain']:.4f} ms, bf16 scaled_dot_product_attention "
+              f"{ms['sdpa']:.4f} ms, {bound_text(**cost(b, n, h, hd))}; statistics pass "
+              f"{ms['stats']:.4f} ms, first design {ms['stats_first']:.4f} ms, plain "
+              f"{ms['stats_plain']:.4f} ms, {bound_text(**stats_cost(b, n, h, hd))}; {CARD}")
+        if result is None:
+            result = entry("qkv_attention_tiles.cu", "ssl4polyp_tpu/ops/qkv_attention.py:425",
+                           st_err, ms["stats"], ms["stats_plain"], **stats_cost(b, n, h, hd))
+        del ref, st_ref
+    return result
 
 
 def fused_mlp_kernels(randn) -> dict[str, dict]:
@@ -1664,7 +1820,8 @@ def long_projection_kernels(randn, fold: bool) -> dict[str, dict]:
         out, out_again, grads, grads_again = run(), run(), run_bwd(), run_bwd()
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        check_counts(counts, {name: 1, f"{name}_backward": 1}, 2, f"{name}, {label}")
+        check_counts(counts, {name: 1, f"{name}_backward": 1, "qkv_attention_tiles_statistics": 1},
+                     2, f"{name}, {label}")
         what = (f"{name} B={b} N={n}{'' if fold else f' Din={d_in}'} H={h} hd={hd} f32={f32} "
                 f"valid_len={valid_len}")
         fwd_errors.append(max_error(out[:, :rows], plain()[:, :rows], tol, f"{what}: out"))
@@ -3203,7 +3360,7 @@ def phase_attention_ops(gen: torch.Generator) -> dict[str, int]:
         long_results[name] = _route_gradients(kernel_routes[name], *long_args)
         torch.cuda.synchronize()
         counts = ops.launch_counts()
-        check_counts(counts, dict.fromkeys(kernels, 1), 1,
+        check_counts(counts, dict.fromkeys(kernels + ("qkv_attention_tiles_statistics",), 1), 1,
                      f"one forward and backward pass of the {name} route at 577 tokens")
         for kernel, n in counts.items():
             total[kernel] += n
@@ -5646,9 +5803,12 @@ def phase_long_tokens() -> dict[str, int]:
     attention on the compositions past 256 tokens."""
     phase_start = time.perf_counter()
     depth, enc_depth, dec_depth = 12, 12, 8
-    tiles = {"fused_qkv_attention_tiles": depth, "fused_qkv_attention_tiles_backward": depth}
+    # Every key-tile backward launches the key tiles' statistics pass.
+    tiles = {"fused_qkv_attention_tiles": depth, "fused_qkv_attention_tiles_backward": depth,
+             "qkv_attention_tiles_statistics": depth}
     fold_tiles = {"fused_attention_proj_tiles": depth,
-                  "fused_attention_proj_tiles_backward": depth}
+                  "fused_attention_proj_tiles_backward": depth,
+                  "qkv_attention_tiles_statistics": depth}
     total: dict[str, int] = {}
 
     def add(counts: dict[str, int]) -> None:
@@ -5694,14 +5854,6 @@ def phase_long_tokens() -> dict[str, int]:
         plain_logits = [forward(images) for images in requests]
     if any(got.shape != (BATCH, 2) or got.dtype != np.float32 for got in logits):
         fail(f"eval at 384 px: logits {[(l.shape, l.dtype) for l in logits]}")
-    err = max(max_error(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL,
-                        "eval forward at 384 px: logits")
-              for got, ref in zip(logits, plain_logits))
-    share = max(limit_share(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL)
-                for got, ref in zip(logits, plain_logits))
-    print(f"eval forward at 384 px (577 tokens): logits vs plain forward: max |diff| {err:.3e} "
-          f"(atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]}; worst share of the limit {share:.3f}, "
-          f"max |logit| {max(float(np.abs(ref).max()) for ref in plain_logits):.3f})")
     timed(lambda: forward(requests[0]), "eval requests at 384 px (ViT-B/16)", per_eval)
 
     # BENCH_ATTN_PROJ=1 at 577 tokens: every block folds the output
@@ -5724,15 +5876,29 @@ def phase_long_tokens() -> dict[str, int]:
     if any(got.shape != (BATCH, 2) or got.dtype != np.float32 for got in fold_logits):
         fail(f"eval at 384 px under BENCH_ATTN_PROJ=1: logits "
              f"{[(l.shape, l.dtype) for l in fold_logits]}")
-    err = max(max_error(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL,
-                        "eval forward at 384 px under BENCH_ATTN_PROJ=1: logits")
-              for got, ref in zip(fold_logits, plain_fold_logits))
-    share = max(limit_share(torch.from_numpy(got), torch.from_numpy(ref), LOGITS_TOL)
-                for got, ref in zip(fold_logits, plain_fold_logits))
+    # Both bf16 paths' logits against one fp32 forward of the same weights
+    # (LONG_LOGITS_RATIO); their share of LOGITS_TOL against the plain bf16
+    # path is printed, not held, at 577 tokens.
+    ref32 = np.concatenate(plain_fp32_logits(SEED, tree, requests, LONG_IMAGE))
+    plains = np.concatenate(plain_logits), np.concatenate(plain_fold_logits)
+    for what, got, plain in (("eval forward at 384 px (577 tokens)", logits, plain_logits),
+                             ("eval forward at 384 px under BENCH_ATTN_PROJ=1", fold_logits,
+                              plain_fold_logits)):
+        check = long_logits_check(np.concatenate(got), *plains, ref32)
+        share = limit_share(torch.from_numpy(np.concatenate(got)),
+                            torch.from_numpy(np.concatenate(plain)), LOGITS_TOL)
+        print(f"{what}: logits vs the fp32 forward: max |diff| {check['max_abs_diff']:.3e}, the "
+              f"plain bf16 paths' {check['plain_max_abs_diff']:.3e}, ratio {check['ratio']:.3f} "
+              f"(limit {LONG_LOGITS_RATIO}); share of LOGITS_TOL vs fp32 "
+              f"{check['limit_share']:.3f} (plain {check['plain_limit_share']:.3f}); vs the plain "
+              f"bf16 forward {share:.3f} of LOGITS_TOL (not held at 577 tokens); max |logit| "
+              f"{float(np.abs(ref32).max()):.3f}")
+        if not check["ok"]:
+            fail(f"{what}: the logits are {check['ratio']:.3f} times as far from the fp32 "
+                 f"forward as the plain bf16 paths' (limit {LONG_LOGITS_RATIO})")
     unfolded = max(float(np.abs(got - ref).max()) for got, ref in zip(fold_logits, logits))
-    print(f"eval forward at 384 px under BENCH_ATTN_PROJ=1: logits vs plain forward: max |diff| "
-          f"{err:.3e} (atol {LOGITS_TOL[0]}, rtol {LOGITS_TOL[1]}; worst share of the limit "
-          f"{share:.3f}); vs the unfolded kernels' logits {unfolded:.3e}")
+    print(f"eval forward at 384 px under BENCH_ATTN_PROJ=1: vs the unfolded kernels' logits "
+          f"{unfolded:.3e}")
     timed(lambda: fold_forward(requests[0]),
           "eval requests at 384 px under BENCH_ATTN_PROJ=1 (ViT-B/16)", per_fold_eval)
     del folded, forward, fold_forward
@@ -5808,6 +5974,7 @@ def phase_long_tokens() -> dict[str, int]:
     per_step = {
         "fused_qkv_attention": enc_depth, "fused_qkv_attention_backward": enc_depth,
         "fused_qkv_attention_tiles": dec_depth, "fused_qkv_attention_tiles_backward": dec_depth,
+        "qkv_attention_tiles_statistics": dec_depth,
         "layernorm": 2 * (enc_depth + dec_depth) + 2,
         "layernorm_backward": 2 * (enc_depth + dec_depth) + 2,
         "fc1_gelu": enc_depth + dec_depth,

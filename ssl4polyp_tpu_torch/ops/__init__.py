@@ -18,6 +18,8 @@ _COUNTERS = {
     # Past 256 tokens in bf16: the key-tile kernels of the same function.
     "fused_qkv_attention_tiles": (qkv_attention, "tiles_launches"),
     "fused_qkv_attention_tiles_backward": (qkv_attention, "tiles_backward_launches"),
+    # The key tiles' statistics pass, launched by every key-tile backward.
+    "qkv_attention_tiles_statistics": (qkv_attention, "tiles_statistics_launches"),
     "layernorm": (layernorm, "launches"),
     "layernorm_backward": (layernorm, "backward_launches"),
     "fc1_gelu": (mlp, "launches"),

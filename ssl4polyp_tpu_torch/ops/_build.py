@@ -42,6 +42,9 @@ _ENTRY_POINTS = (
      + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     ("ssl4polyp_qkv_attention_bwd_plan", ctypes.c_int,
      [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2),
+    ("ssl4polyp_qkv_attention_tiles_fwd_probe", ctypes.c_int,
+     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     ("ssl4polyp_qkv_attention_tiles_bwd", ctypes.c_int,
      [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
      + [ctypes.c_float, ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]),

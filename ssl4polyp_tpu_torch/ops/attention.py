@@ -33,6 +33,7 @@ import math
 
 import torch
 
+from . import qkv_attention
 from ._checks import check_gradient, check_one_dtype, saved_or_scratch
 from .qkv_attention import _TILES_PAST, tiles_backward_scratch
 
@@ -244,6 +245,7 @@ def _backward_kernel(q, k, v, dout, probe: int = 0, out=None, lse=None):
         backward_launches_f32 += 1
     elif route == "tiles":
         tiles_backward_launches += 1
+        qkv_attention.tiles_statistics_launches += 1
     else:
         backward_launches += 1
     return dq, dk, dv

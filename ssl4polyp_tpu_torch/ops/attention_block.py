@@ -43,6 +43,7 @@ from typing import Optional
 
 import torch
 
+from . import qkv_attention
 from ._checks import check_gradient, check_one_dtype, saved_or_scratch
 from .qkv_attention import (
     _F32_TILE,
@@ -265,9 +266,12 @@ def _backward_kernel(x, w, b, dout, num_heads, softmax_f32, valid_len, probe: in
     if tiles and first_design:
         raise ValueError(f"the backward's first design takes at most {_TILES_PAST} tokens")
     run, results = _backward_plan(x, w, b, dout, num_heads, softmax_f32, valid_len, first_design)
-    run(probe & ~BACKWARD_PROBE_FIRST_DESIGN)
+    steps = probe & ~BACKWARD_PROBE_FIRST_DESIGN
+    run(steps)
     if tiles:
         tiles_backward_launches += 1
+        if not steps or steps & BACKWARD_STEPS["attention"]:
+            qkv_attention.tiles_statistics_launches += 1
     else:
         backward_launches += 1
     return results()

@@ -35,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from . import qkv_attention
 from ._checks import check_gradient, check_one_dtype, saved_or_scratch
 from .qkv_attention import (
     _TILES_PAST,
@@ -220,6 +221,7 @@ def _backward_kernel(qkv, w, b, dy, num_heads, softmax_f32, valid_len, out=None,
     run(_ALL_PHASES)
     if qkv.shape[1] > _TILES_PAST:
         tiles_backward_launches += 1
+        qkv_attention.tiles_statistics_launches += 1
     else:
         backward_launches += 1
     return results()

@@ -42,6 +42,9 @@ __all__ = [
     "launches_f32",
     "tiles_backward_launches",
     "tiles_launches",
+    "tiles_probe",
+    "tiles_statistics_launches",
+    "tiles_statistics_reference",
 ]
 
 # Kernel launches since the last ops.reset_launch_counts(): bf16 up to
@@ -52,6 +55,10 @@ tiles_launches = 0
 tiles_backward_launches = 0
 launches_f32 = 0
 backward_launches_f32 = 0
+# The key tiles' statistics pass, which every key-tile backward entry point
+# (this module's, attn_proj's, attention_block's and attention's) launches
+# before its gradient pass: each of their wrappers counts it here.
+tiles_statistics_launches = 0
 
 _HEAD_DIMS = (16, 32, 64)
 _HEAD_DIMS_F32 = (32, 64)  # the fp32 kernels' instantiations
@@ -279,6 +286,7 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
     from ._build import library
 
     global backward_launches, backward_launches_f32, tiles_backward_launches
+    global tiles_statistics_launches
     check_gradient("dout", dout, (*qkv.shape[:2], qkv.shape[2] // 3), qkv.dtype, qkv.device)
     f32 = qkv.dtype == torch.float32
     tiles = not f32 and qkv.shape[1] > _TILES_PAST
@@ -331,9 +339,112 @@ def _backward_kernel(qkv, dout, num_heads, softmax_f32, valid_len, bias, probe: 
         backward_launches_f32 += 1
     elif tiles:
         tiles_backward_launches += 1
+        tiles_statistics_launches += 1
     else:
         backward_launches += 1
     return dqkv, None if dbias is None else dbias.to(bias.dtype)
+
+
+# `probe` bits of csrc/qkv_attention_tiles.cu's
+# ssl4polyp_qkv_attention_tiles_fwd_probe, a measurement aid that no route
+# passes: the key tiles' first design (right results), the statistics pass
+# alone in place of the forward, the separate (B, H, N, hd) layout of
+# ops/attention.py's fused_attention.
+TILES_PROBE_FIRST_DESIGN = 1
+TILES_PROBE_STATISTICS = 2
+TILES_PROBE_SEPARATE = 4
+_TILES_PROBE_BITS = 7
+
+
+def tiles_probe(q: torch.Tensor, num_heads: int, softmax_f32: bool = True,
+                valid_len: Optional[int] = None, bias: Optional[torch.Tensor] = None,
+                probe: int = 0, k: Optional[torch.Tensor] = None,
+                v: Optional[torch.Tensor] = None,
+                dout: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The key tiles' forward or statistics pass at any N through their
+    probe entry point, for timing and the card's tests; counts no launch.
+    Without ``TILES_PROBE_SEPARATE`` in ``probe`` ``q`` is the fused (B, N,
+    3D) bf16 qkv, with the arguments of :func:`fused_qkv_attention`; with it
+    ``q``, ``k``, ``v`` are (B, H, N, hd) bf16 and the scores are fp32, times
+    the fp32 1/sqrt(hd), every key weighted, no bias (``fused_attention``'s
+    roundings).  Returns the output in the layout of ``q`` (of one of its
+    sections), or with ``TILES_PROBE_STATISTICS`` the statistics pass's (B,
+    H, N, 4) fp32 rows (max * log2(e), 1/sum, tmp, 0) for ``dout``."""
+    from ._build import library
+
+    separate = bool(probe & TILES_PROBE_SEPARATE)
+    statistics = bool(probe & TILES_PROBE_STATISTICS)
+    if probe & ~_TILES_PROBE_BITS:
+        raise ValueError(f"unknown probe bits {probe:#x} of the key tiles' forward")
+    if separate:
+        if bias is not None or valid_len is not None or not softmax_f32 or k is None or v is None:
+            raise ValueError("the separate layout takes q, k, v, fp32 scores, every key and no "
+                             "bias")
+        B, H, N, head_dim = q.shape
+        out_shape, scale = q.shape, 1.0 / math.sqrt(head_dim)
+    else:
+        _check(q, num_heads, valid_len, bias)
+        B, N, three_d = q.shape
+        H, head_dim = num_heads, three_d // 3 // num_heads
+        out_shape, scale = (B, N, three_d // 3), _scale(head_dim, q.dtype)
+    if q.dtype != torch.bfloat16 or head_dim not in _HEAD_DIMS:
+        raise ValueError(f"the key tiles take bf16 at head dims {_HEAD_DIMS}")
+    if statistics:
+        if dout is None:
+            raise ValueError("the statistics pass reads dout")
+        check_gradient("dout", dout, out_shape, q.dtype, q.device)
+    out = None if statistics else torch.empty(out_shape, dtype=q.dtype, device=q.device)
+    stats = torch.empty((B, H, N, 4), dtype=torch.float32, device=q.device) if statistics else None
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(q.device):
+        err = library().ssl4polyp_qkv_attention_tiles_fwd_probe(
+            q.data_ptr(), ptr(k), ptr(v), ptr(bias), ptr(dout), ptr(out), ptr(stats), B, N, H,
+            head_dim, N if valid_len is None else int(valid_len), scale,
+            int(bool(softmax_f32)), probe, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"key tiles' probe launch failed: CUDA error {err}")
+    return stats if statistics else out
+
+
+def tiles_statistics_reference(q: torch.Tensor, dout: torch.Tensor, num_heads: int,
+                               softmax_f32: bool = True, valid_len: Optional[int] = None,
+                               bias: Optional[torch.Tensor] = None,
+                               k: Optional[torch.Tensor] = None,
+                               v: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Plain torch version of the key tiles' statistics pass, in fp32: each
+    query row's (max * log2(e), 1/sum, tmp, 0), (B, H, N, 4), with max the
+    row's largest score, sum that of exp(score - max) and tmp = rowsum(dW *
+    W), dW = dO V^T.  The scores as :func:`fused_qkv_attention_backward_reference`
+    makes them for a fused qkv; with ``k`` and ``v`` (then ``q``, ``k``,
+    ``v`` and ``dout`` are (B, H, N, hd)), fused_attention's: fp32 q k^T
+    times the fp32 1/sqrt(hd), every key weighted."""
+    if k is None:
+        x = q if bias is None else q + bias
+        B, N, three_d = x.shape
+        head_dim = three_d // 3 // num_heads
+        qh, kh, vh = x.reshape(B, N, 3, num_heads, head_dim).permute(2, 0, 3, 1, 4)
+        qs = qh * torch.tensor(_scale(head_dim, x.dtype), dtype=x.dtype, device=x.device)
+        scores = torch.matmul(qs.float(), kh.float().transpose(-1, -2))
+        do = dout.reshape(B, N, num_heads, head_dim).permute(0, 2, 1, 3).float()
+    else:
+        N, head_dim, vh = q.shape[2], q.shape[3], v
+        scale = torch.tensor(1.0 / math.sqrt(head_dim), dtype=torch.float32)
+        scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        do = dout.float()
+    if valid_len is not None and valid_len < N:
+        masked = torch.arange(N, device=q.device) >= valid_len
+        scores = scores.masked_fill(masked, float("-inf"))
+    if not softmax_f32:
+        scores = scores.to(q.dtype).float()
+    top = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - top)
+    total = e.sum(dim=-1, keepdim=True)
+    dw = torch.matmul(do, vh.float().transpose(-1, -2))
+    tmp = (dw * (e / total)).sum(dim=-1, keepdim=True)
+    return torch.cat([top * math.log2(math.e), 1.0 / total, tmp, torch.zeros_like(tmp)], dim=-1)
 
 
 class _QKVAttention(torch.autograd.Function):

@@ -587,7 +587,11 @@ def _check_attn_proj(gen, B, N, H, hd, softmax_f32, valid_len):
         names = (("fused_attention_proj_tiles", "fused_attention_proj_tiles_backward")
                  if N > 256 else ("attn_proj", "attn_proj_backward"))
         assert counts[names[0]] == counts[names[1]] == int(kernel)
-        assert sum(counts.values()) == 2 * int(kernel)  # no attention launch of its own
+        # No attention launch of its own; past 256 tokens the backward's
+        # statistics pass.
+        statistics = int(kernel and N > 256)
+        assert counts["qkv_attention_tiles_statistics"] == statistics
+        assert sum(counts.values()) == 2 * int(kernel) + statistics
         results.append((out.detach(), *[a.grad for a in leaves]))
     (out, dqkv, dw, db), (ref_out, ref_dqkv, ref_dw, ref_db) = results
     rows = slice(None) if valid_len is None else slice(0, valid_len)
@@ -1117,7 +1121,8 @@ def test_separate_attention_key_tiles_match_plain(gen, B, H, N, hd):
         kernel = fn is attention.fused_attention
         assert counts["fused_attention_tiles"] == counts["fused_attention_tiles_backward"] == int(
             kernel)
-        assert sum(counts.values()) == 2 * int(kernel)
+        assert counts["qkv_attention_tiles_statistics"] == int(kernel)
+        assert sum(counts.values()) == 3 * int(kernel)
         results.append((out.detach(), *[a.grad for a in leaves]))
     torch.testing.assert_close(results[0][0], results[1][0], **ATTENTION_TOL)
     for name, got, want in zip(("dq", "dk", "dv"), results[0][1:], results[1][1:]):
@@ -1206,6 +1211,128 @@ def test_separate_attention_key_tiles_keep_w_and_ds_in_two_terms(gen, B, H, N, h
         assert one > TWO_TERM_MISMATCH_SHARE, (name, one)
 
 
+# The key tiles' forward and statistics pass (csrc/qkv_attention_tiles.cu:
+# 128-row query blocks of two 64-row warpgroups, 64-key tiles by TMA) at the
+# block's edges: one row past two blocks, a ragged block, one row short of,
+# at and one past three, a ViT-B/16 at 384 px (a last block of 65 rows), one
+# row past five, and 1,025; at every head dim, with and without a bias, both
+# score types, every key or keys cut inside a tile.  The statistics, each
+# row's (max * log2(e), 1/sum, tmp), against tiles_statistics_reference in
+# fp32: the sums run in another order and exp2 on the special function unit
+# (2^-22 relative), so each column sits within KEY_TILES_STATS_RTOL of its
+# largest magnitude; with bf16 scores a score whose rounding flips on that
+# order moves by one bf16 ulp (2^-8 relative), and with it the max and a
+# weight, hence the wider limit.
+KEY_TILES_STATS_RTOL = {True: 1e-4, False: 1e-2}
+_KEY_TILES_EDGES = [(n, hd) for n in (257, 300, 383, 384, 385, 577, 641, 1025) for hd in (16, 32, 64)]
+
+
+def _stats_error(got, want):
+    """Each statistics column's max |diff| as a share of its largest value."""
+    return [((got[..., c] - want[..., c]).abs().max() / want[..., c].abs().max()).item()
+            for c in range(3)]
+
+
+@pytest.mark.parametrize("cut", [False, True], ids=["every-key", "cut"])
+@pytest.mark.parametrize("softmax_f32", [True, False], ids=["f32-scores", "bf16-scores"])
+@pytest.mark.parametrize("with_bias", [True, False], ids=["bias", "no-bias"])
+@pytest.mark.parametrize("N, hd", _KEY_TILES_EDGES)
+@torch.inference_mode()
+def test_key_tiles_forward_and_statistics_match_plain(gen, N, hd, with_bias, softmax_f32, cut):
+    from ssl4polyp_tpu_torch.ops import qkv_attention as qa
+
+    B, H = 2, 2
+    valid_len = N - 37 if cut else None
+    qkv, dout = _randn(gen, B, N, 3 * H * hd), _randn(gen, B, N, H * hd)
+    bias = _randn(gen, 3 * H * hd, scale=0.5) if with_bias else None
+    ops.reset_launch_counts()
+    out = fused_qkv_attention(qkv, H, softmax_f32, valid_len, bias)
+    again = fused_qkv_attention(qkv, H, softmax_f32, valid_len, bias)
+    assert ops.launch_counts()["fused_qkv_attention_tiles"] == 2
+    stats = qa.tiles_probe(qkv, H, softmax_f32, valid_len, bias, qa.TILES_PROBE_STATISTICS,
+                           dout=dout)
+    stats_again = qa.tiles_probe(qkv, H, softmax_f32, valid_len, bias,
+                                 qa.TILES_PROBE_STATISTICS, dout=dout)
+    first = qa.tiles_probe(qkv, H, softmax_f32, valid_len, bias, qa.TILES_PROBE_FIRST_DESIGN)
+    torch.cuda.synchronize()
+    ref = fused_qkv_attention_reference(qkv, H, softmax_f32, valid_len, bias)
+    torch.testing.assert_close(out, ref, **ATTENTION_TOL)
+    torch.testing.assert_close(first, ref, **ATTENTION_TOL)
+    assert torch.equal(out, again) and torch.equal(stats, stats_again)  # no atomics
+    errors = _stats_error(stats, qa.tiles_statistics_reference(qkv, dout, H, softmax_f32,
+                                                               valid_len, bias))
+    assert max(errors) < KEY_TILES_STATS_RTOL[softmax_f32], errors
+    assert (stats[..., 3] == 0).all()
+
+
+@pytest.mark.parametrize("N, hd", _KEY_TILES_EDGES)
+@torch.inference_mode()
+def test_separate_key_tiles_forward_and_statistics_match_plain(gen, N, hd):
+    # The same edges in fused_attention's (B, H, N, hd) layout and roundings.
+    from ssl4polyp_tpu_torch.ops import attention
+    from ssl4polyp_tpu_torch.ops import qkv_attention as qa
+
+    B, H = 2, 3
+    q, k, v, dout = (_randn(gen, B, H, N, hd) for _ in range(4))
+    out = attention.fused_attention(q, k, v)
+    again = attention.fused_attention(q, k, v)
+    separate = qa.TILES_PROBE_SEPARATE
+    stats = qa.tiles_probe(q, H, probe=separate | qa.TILES_PROBE_STATISTICS, k=k, v=v,
+                           dout=dout)
+    first = qa.tiles_probe(q, H, probe=separate | qa.TILES_PROBE_FIRST_DESIGN, k=k, v=v)
+    torch.cuda.synchronize()
+    ref = attention.fused_attention_reference(q, k, v)
+    torch.testing.assert_close(out, ref, **ATTENTION_TOL)
+    torch.testing.assert_close(first, ref, **ATTENTION_TOL)
+    assert torch.equal(out, again)
+    errors = _stats_error(stats, qa.tiles_statistics_reference(q, dout, H, k=k, v=v))
+    assert max(errors) < KEY_TILES_STATS_RTOL[True], errors
+
+
+@pytest.mark.parametrize("N, hd, with_bias", [(300, 16, True), (385, 64, False), (577, 32, True),
+                                              (641, 64, True)])
+@torch.inference_mode()
+def test_key_tiles_write_nothing_past_the_last_row(gen, N, hd, with_bias):
+    # The forward's and the statistics pass's C entry on views inside
+    # sentinel-filled buffers: nothing before the output or past the last
+    # image's row N - 1 changes (the canary rows), and NaN past the inputs'
+    # last row reaches neither.
+    from ssl4polyp_tpu_torch.ops import qkv_attention as qa
+    from ssl4polyp_tpu_torch.ops._build import library
+
+    B, H, pad = 2, 2, 4096
+    D = H * hd
+
+    def inside(fill, numel, dtype=torch.bfloat16):
+        buffer = torch.full((pad + numel + pad,), fill, dtype=dtype, device="cuda")
+        return buffer, buffer[pad:pad + numel]
+
+    qkv, dout = _randn(gen, B, N, 3 * D), _randn(gen, B, N, D)
+    bias = _randn(gen, 3 * D, scale=0.5) if with_bias else None
+    q_buf, q_view = inside(float("nan"), qkv.numel())
+    q_view.copy_(qkv.reshape(-1))
+    d_buf, d_view = inside(float("nan"), dout.numel())
+    d_view.copy_(dout.reshape(-1))
+    o_buf, o_view = inside(-1234.0, B * N * D)
+    s_buf, s_view = inside(-1234.0, B * H * N * 4, torch.float32)
+    stream = torch.cuda.current_stream().cuda_stream
+    scale_c = qa._scale(hd, torch.bfloat16)
+    bias_ptr = None if bias is None else bias.data_ptr()
+    assert library().ssl4polyp_qkv_attention_fwd(q_view.data_ptr(), bias_ptr, o_view.data_ptr(),
+                                                 B, N, H, hd, N, scale_c, 1, stream) == 0
+    assert library().ssl4polyp_qkv_attention_tiles_fwd_probe(
+        q_view.data_ptr(), None, None, bias_ptr, d_view.data_ptr(), None, s_view.data_ptr(), B,
+        N, H, hd, N, scale_c, 1, qa.TILES_PROBE_STATISTICS, stream) == 0
+    torch.cuda.synchronize()
+    for name, buffer, fill in (("out", o_buf, -1234.0), ("stats", s_buf, -1234.0)):
+        assert (buffer[:pad] == fill).all() and (buffer[-pad:] == fill).all(), name
+    ref = fused_qkv_attention_reference(qkv, H, True, None, bias)
+    torch.testing.assert_close(o_view.view(B, N, D), ref, **ATTENTION_TOL)
+    errors = _stats_error(s_view.view(B, H, N, 4),
+                          qa.tiles_statistics_reference(qkv, dout, H, True, None, bias))
+    assert max(errors) < KEY_TILES_STATS_RTOL[True], errors
+
+
 @pytest.mark.parametrize(
     "B, N, Din, H, hd, softmax_f32, valid_len",
     [
@@ -1248,7 +1375,9 @@ def test_qkvproj_attention_kernels_match_plain(gen, B, N, Din, H, hd, softmax_f3
         kernel = fn is ab.fused_qkvproj_attention
         name = "fused_qkvproj_attention_tiles" if N > 256 else "fused_qkvproj_attention"
         assert counts[name] == counts[f"{name}_backward"] == int(kernel)
-        assert sum(counts.values()) == 2 * int(kernel)
+        statistics = int(kernel and N > 256)  # the backward's statistics pass
+        assert counts["qkv_attention_tiles_statistics"] == statistics
+        assert sum(counts.values()) == 2 * int(kernel) + statistics
         results.append((out.detach(), *[a.grad for a in leaves]))
     (out, dx, dw, db), (ref_out, ref_dx, ref_dw, ref_db) = results
     rows = slice(None) if valid_len is None else slice(0, valid_len)

@@ -17,6 +17,7 @@ kernel past 256 tokens in tests/test_torch_attention.py).
 """
 
 import contextlib
+import ctypes
 import math
 
 import jax
@@ -90,11 +91,17 @@ def _torch_plain(qkv, bias, dout, H, softmax_f32, valid_len, dtype):
 # (N, heads, head dim, valid_len, bias): one token past 256 and a ragged
 # count, with all keys and with keys cut below N, at hd 32 (whose bf16 scale
 # fold rounds) and 64.
+# Then the edges of the card forward's 128-row query blocks: a whole block of
+# 384 rows at hd 16 with keys cut inside a tile, one row past it at hd 64,
+# and one row past five blocks at hd 32.
 @pytest.mark.parametrize("N, H, hd, valid_len, with_bias", [
     (257, 2, 64, None, True),
     (257, 2, 32, 200, False),
     (290, 2, 32, None, False),
     (290, 1, 64, 289, True),
+    (384, 1, 16, 300, True),
+    (385, 1, 64, None, False),
+    (641, 1, 32, None, True),
 ])
 @pytest.mark.parametrize("softmax_f32", [True, False], ids=["f32-scores", "bf16-scores"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
@@ -292,7 +299,9 @@ def test_bf16_wrappers_send_more_than_256_tokens_to_the_key_tiles(stub, N, tiles
     counts = ops.launch_counts()
     names = ("fused_qkv_attention_tiles", "fused_qkv_attention_tiles_backward") if tiles else (
         "fused_qkv_attention", "fused_qkv_attention_backward")
-    assert [counts[n] for n in names] == [1, 1] and sum(counts.values()) == 2
+    statistics = int(tiles)  # the key tiles' backward launches their statistics pass
+    assert counts["qkv_attention_tiles_statistics"] == statistics
+    assert [counts[n] for n in names] == [1, 1] and sum(counts.values()) == 2 + statistics
     # The forward through the library's one entry point, which routes N > 256
     # to the key tiles; the backward straight to them, with its scratch.
     bwd = "ssl4polyp_qkv_attention_tiles_bwd" if tiles else "ssl4polyp_qkv_attention_bwd_mode"
@@ -344,7 +353,9 @@ def test_bf16_rows_9_and_10_send_more_than_256_tokens_to_the_key_tiles(stub, mon
              if tiles else ("attn_proj", "attn_proj_backward", "fused_qkvproj_attention",
                             "fused_qkvproj_attention_backward"))
     counts = ops.launch_counts()
-    assert [counts[n] for n in names] == [1, 1, 1, 1] and sum(counts.values()) == 4
+    assert counts["qkv_attention_tiles_statistics"] == 2 * int(tiles)
+    assert [counts[n] for n in names] == [1, 1, 1, 1] and sum(counts.values()) == 4 + 2 * int(
+        tiles)
     assert stub.called == ["ssl4polyp_attn_proj_fwd", "ssl4polyp_attn_proj_bwd",
                            "ssl4polyp_qkvproj_attention_fwd_probe",
                            "ssl4polyp_qkvproj_attention_bwd_probe"]
@@ -454,7 +465,9 @@ def test_fused_attention_routes_by_dtype_and_token_count(stub, monkeypatch, dtyp
     fwd_name, bwd_name, fwd_count, bwd_count = _SEPARATE_ROUTES[route]
     assert stub.called == [fwd_name, bwd_name]
     counts = ops.launch_counts()
-    assert counts[fwd_count] == counts[bwd_count] == 1 and sum(counts.values()) == 2
+    statistics = int(route == "tiles")  # the key tiles' backward's statistics pass
+    assert counts["qkv_attention_tiles_statistics"] == statistics
+    assert counts[fwd_count] == counts[bwd_count] == 1 and sum(counts.values()) == 2 + statistics
     fwd, bwd = stub.args
     scale = 1.0 / math.sqrt(hd)  # the fp32 1/sqrt(hd), as ctypes passes it
     assert all(isinstance(p, int) and p for p in fwd[:4]) and fwd[3] == out.data_ptr()
@@ -492,6 +505,125 @@ def test_separate_attention_tiles_and_fp32_take_no_probe_bits(stub, N):
         q = _bf16((1, 2, N, 64))
         attention._backward_kernel(q, q, q, q, out=q, lse=q)
     assert stub.called == []
+
+
+def test_key_tiles_probe_is_bound_and_no_route_takes_it(stub):
+    # The key tiles' first design, their statistics pass alone and the
+    # separate layout are reached only through their probe entry point: it
+    # is bound with its argument list, every route past 256 tokens reaches
+    # the library through its own entry points, and the probe counts no
+    # launch.
+    bound = {name: argtypes for name, _, argtypes in _build._ENTRY_POINTS}
+    assert bound["ssl4polyp_qkv_attention_tiles_fwd_probe"] == (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+    H, hd, N = 2, 64, 577
+    D = H * hd
+    qkv, bias, dout = _bf16((2, N, 3 * D)), _bf16(3 * D), _bf16((2, N, D))
+    qkv_attention._forward_kernel(qkv, H, True, None, bias)
+    qkv_attention._backward_kernel(qkv, dout, H, True, None, bias)
+    attn_proj._forward_kernel(qkv, _bf16((D, D)), _bf16(D), H, True, None)
+    x = _bf16((2, N, D))
+    attention_block._forward_kernel(x, _bf16((D, 3 * D)), bias, H, False, None)
+    q = _bf16((2, H, N, hd))
+    attention._forward_kernel(q, q, q)
+    attention._backward_kernel(q, q, q, q)
+    assert "ssl4polyp_qkv_attention_tiles_fwd_probe" not in stub.called
+    assert len(stub.called) == 6
+    ops.reset_launch_counts()
+    for probe in (0, qkv_attention.TILES_PROBE_FIRST_DESIGN):
+        out = qkv_attention.tiles_probe(qkv, H, False, 500, bias, probe)
+        assert out.shape == (2, N, D)
+    stats = qkv_attention.tiles_probe(qkv, H, True, None, None,
+                                      qkv_attention.TILES_PROBE_STATISTICS, dout=dout)
+    assert stats.shape == (2, H, N, 4) and stats.dtype == torch.float32
+    separate = qkv_attention.TILES_PROBE_SEPARATE | qkv_attention.TILES_PROBE_STATISTICS
+    qkv_attention.tiles_probe(q, H, True, None, None, separate, k=q, v=q, dout=q)
+    assert stub.called[6:] == ["ssl4polyp_qkv_attention_tiles_fwd_probe"] * 4
+    # (q, k, v, bias, dout, out, stats, B, N, H, hd, n_valid, scale, softmax_f32,
+    # probe, stream)
+    args = stub.args[6:]
+    assert args[0][1:3] == (None, None) and args[0][4] is None and args[0][6] is None
+    assert args[0][7:15] == (2, N, H, hd, 500, 0.125, 0, 0)
+    assert args[1][14] == qkv_attention.TILES_PROBE_FIRST_DESIGN
+    assert args[2][3] is None and args[2][5] is None and args[2][7:15] == (
+        2, N, H, hd, N, 0.125, 1, qkv_attention.TILES_PROBE_STATISTICS)
+    assert all(isinstance(p, int) and p for p in args[3][:3] + args[3][4:5] + args[3][6:7])
+    assert args[3][7:15] == (2, N, H, hd, N, 1.0 / math.sqrt(hd), 1, separate)
+    assert set(ops.launch_counts().values()) == {0}
+    with pytest.raises(ValueError, match="unknown probe bits"):
+        qkv_attention.tiles_probe(qkv, H, True, None, bias, 8)
+    with pytest.raises(ValueError, match="separate layout"):
+        qkv_attention.tiles_probe(q, H, True, None, bias, qkv_attention.TILES_PROBE_SEPARATE,
+                                  k=q, v=q)
+    with pytest.raises(ValueError, match="dout"):
+        qkv_attention.tiles_probe(qkv, H, True, None, bias,
+                                  qkv_attention.TILES_PROBE_STATISTICS, dout=q)
+    assert len(stub.called) == 10
+
+
+@pytest.mark.parametrize("softmax_f32", [True, False], ids=["f32-scores", "bf16-scores"])
+@pytest.mark.parametrize("valid_len", [None, 300])
+def test_tiles_statistics_reference_is_the_backward_references_softmax(softmax_f32, valid_len):
+    # The plain statistics (max * log2(e), 1/sum, tmp) that the card's
+    # statistics pass is held against, in fp64 from the plain backward's own
+    # scores and weights, at 385 tokens in both layouts.
+    qkv, bias, dout = _inputs(5, 2, 385, 2, 32)
+    q = torch.from_numpy(qkv).to(torch.bfloat16)
+    b = torch.from_numpy(bias).to(torch.bfloat16)
+    d = torch.from_numpy(dout).to(torch.bfloat16)
+    got = qkv_attention.tiles_statistics_reference(q, d, 2, softmax_f32, valid_len, b).double()
+    x = (q + b).double().reshape(2, 385, 3, 2, 32).permute(2, 0, 3, 1, 4)
+    scale = qkv_attention._scale(32, torch.bfloat16)
+    qs = ((q + b) * torch.tensor(scale, dtype=torch.bfloat16)).double().reshape(
+        2, 385, 3, 2, 32).permute(2, 0, 3, 1, 4)[0]
+    scores = qs @ x[1].transpose(-1, -2)
+    if valid_len is not None:
+        scores[..., valid_len:] = float("-inf")
+    if not softmax_f32:
+        scores = scores.to(torch.bfloat16).double()
+    top = scores.amax(-1)
+    w = torch.softmax(scores, -1)
+    dw = d.double().reshape(2, 385, 2, 32).permute(0, 2, 1, 3) @ x[2].transpose(-1, -2)
+    want = torch.stack([top * math.log2(math.e), 1 / torch.exp(scores - top[..., None]).sum(-1),
+                        (dw * w).sum(-1), torch.zeros_like(top)], -1)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    qh, kh, vh = (t.contiguous() for t in x.to(torch.bfloat16))
+    dh = d.reshape(2, 385, 2, 32).permute(0, 2, 1, 3).contiguous()
+    sep = qkv_attention.tiles_statistics_reference(qh, dh, 2, k=kh, v=vh).double()
+    scores = qh.double() @ kh.double().transpose(-1, -2) / math.sqrt(32)
+    w = torch.softmax(scores, -1)
+    want = torch.stack([scores.amax(-1) * math.log2(math.e),
+                        1 / torch.exp(scores - scores.amax(-1, keepdim=True)).sum(-1),
+                        ((dh.double() @ vh.double().transpose(-1, -2)) * w).sum(-1),
+                        torch.zeros_like(w[..., 0])], -1)
+    torch.testing.assert_close(sep, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("share, plain_off, ok", [
+    (0.5, 0.03, True), (0.95, 0.03, True), (1.05, 0.03, False), (0.0, 0.0, True),
+])
+def test_long_logits_check_holds_the_kernels_to_the_plain_paths_distance(share, plain_off, ok):
+    # chip_smoke.py's 577-token logits check on synthetic logits: the
+    # kernels' worst |diff| from the fp32 forward (here `share` of the limit
+    # LONG_LOGITS_RATIO times the larger of the plain bf16 paths' worst
+    # |diff|, unfolded and folded) passes below the limit and fails above.
+    import chip_smoke
+
+    kernel_off = share * chip_smoke.LONG_LOGITS_RATIO * plain_off
+    ref = np.random.default_rng(3).standard_normal((128, 2)).astype(np.float32) * 4
+    bump = np.zeros_like(ref)
+    bump[17, 1] = 1.0
+    result = chip_smoke.long_logits_check(ref + kernel_off * bump, ref - 0.5 * plain_off * bump,
+                                          ref + plain_off * bump, ref)
+    assert result["max_abs_diff"] == pytest.approx(kernel_off, abs=1e-6)
+    assert result["plain_max_abs_diff"] == pytest.approx(plain_off, abs=1e-6)
+    assert result["ok"] is ok
+    if plain_off:
+        assert result["ratio"] == pytest.approx(kernel_off / plain_off, rel=1e-4)
+        share = chip_smoke.limit_share(torch.from_numpy(ref + kernel_off * bump),
+                                       torch.from_numpy(ref), chip_smoke.LOGITS_TOL)
+        assert result["limit_share"] == pytest.approx(share)
 
 
 def test_the_backward_plan_names_the_key_tiles(stub, monkeypatch):
